@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``paddle_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--json PATH]
+    python3 chip_smoke.py [--json PATH] [--profile]
 
 Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
 (``/usr/local/cuda``).  It imports only the port, never ``paddle_tpu`` or
@@ -10,20 +10,28 @@ JAX, prints one line per phase, and raises on any failure:
 1. ``env``    — the card's name and power limit (``nvidia-smi``), the torch
    and CUDA versions, and the nvcc build of every kernel from ``csrc/``.
 2. ``kernel`` — each hand-written kernel against its plain PyTorch version
-   on the card, at the serving shape and at the edge cases, float32 with
-   TF32 off: ``|kernel - plain| <= ATOL + RTOL * |plain|``.
+   on the card, at the shapes of the main paths and at the edge cases,
+   float32 with TF32 off: ``|kernel - plain| <= ATOL + RTOL * |plain|``.
 3. ``serve``  — the GPT causal LM at BERT-base width (vocab 30522, d 768,
    12 layers, 12 heads, d_inner 3072, max_pos 2048, random weights from a
    seed) behind ``InferenceServer`` with buckets (512, 1024, 2048) and
    ``max_batch`` 8: warmup, then 24 requests of 300-2048 tokens from two
    tenants.  Every result must be finite ``[len, 30522]`` logits, the
-   flash kernel must have launched 12 times per batch dispatched to a
+   flash forward must have launched 12 times per batch dispatched to a
    bucket >= 1024 (and nowhere else), and one 1100-token request must
    match the same bucket program run by the port on the CPU.
-4. ``timing`` — the kernel, its plain version and one PyTorch library call
-   computing the same function, with CUDA events, at the serving shape
+4. ``train``  — the same model trained through the Fluid entry points
+   (``build_gpt_pretrain`` with the fused head, ``AdamOptimizer.minimize``,
+   ``Executor().run``) at seq 2048, batch 8, float32: one warm-up step and
+   5 timed steps on one fixed batch.  The losses must be finite and fall,
+   and every step must launch the flash forward and the flash backward 12
+   times each.  Then a 2-layer, batch-1, seq-1024 step on the card must
+   match the same step run by the port on the CPU.
+5. ``timing`` — each kernel, its plain version and one PyTorch library call
+   computing the same function, with CUDA events, at the main-path shape
    [96, 2048, 64] causal; the least time the card could take (``bound``);
-   and the server's per-bucket batch latency, requests/s and tokens/s.
+   the server's per-bucket batch latency, requests/s and tokens/s, and the
+   training step's time, tokens/s and peak memory.
 
 Then one JSON line describing every kernel, the ``nvidia-smi`` line, and a
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -35,6 +43,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -43,7 +52,18 @@ import numpy as np
 
 ATOL, RTOL = 1e-5, 1e-4                 # kernel vs plain, float32
 SERVE_ATOL, SERVE_RTOL = 2e-3, 2e-3     # card vs host logits, float32
-SLICE = (96, 2048, 64)                  # 8 requests x 12 heads, T, d_head
+# card vs host training step.  The fused LM head rounds its products to
+# bf16, and a sum taken in another order can round to the neighbouring bf16
+# value; the head's weight gradient adds up one bf16-rounded partial per
+# 1024-token chunk, and partials can cancel.  So each gradient must agree
+# elementwise within two bf16 ulps plus one bf16 ulp of its largest
+# magnitude, and all but 1 in 10,000 of its values within two bf16 ulps
+# plus 1e-4 of its largest magnitude.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-4, 2 * 2.0 ** -8
+TRAIN_GRAD_ATOL_FRAC, TRAIN_GRAD_TIGHT_FRAC = 2.0 ** -8, 1e-4
+TRAIN_GRAD_TIGHT_SHARE = 1e-4
+SLICE = (96, 2048, 64)                  # 8 sequences x 12 heads, T, d_head
+TRAIN_BATCH, TRAIN_STEPS = 8, 5
 
 # NVIDIA data-sheet peaks (dense): float32 on the CUDA cores, HBM bandwidth
 _PEAKS = (("PCIe", 51e12, 2.0e12), ("NVL", 60e12, 3.9e12),
@@ -91,10 +111,14 @@ def phase_env():
     built = _build.build()
     total = time.perf_counter() - t0
     for name, info in built.items():
-        used = [ln.split("info    :")[-1].strip() for ln in
-                info["log"].splitlines() if "Used" in ln]
-        _log("env", f"nvcc {name}: {info['seconds']:.2f} s; "
-             f"ptxas {used[:1]} ... ({len(used)} instantiations)")
+        log = info["log"].splitlines()
+        regs = [int(m.group(1)) for ln in log
+                for m in [re.search(r"Used (\d+) registers", ln)] if m]
+        spills = [int(m.group(1)) for ln in log
+                  for m in [re.search(r"(\d+) bytes spill stores", ln)] if m]
+        _log("env", f"nvcc {name}: {info['seconds']:.2f} s; ptxas: "
+             f"{len(regs)} functions, registers max {max(regs, default=0)},"
+             f" spill stores max {max(spills, default=0)} bytes")
     _log("env", f"kernel build wall time {total:.2f} s")
     return smi
 
@@ -120,6 +144,7 @@ def phase_kernel():
     cases = [
         ("slice [96,2048,64] causal", bh, t, t, d, True, None),
         ("T=1000 causal", 8, 1000, 1000, 64, True, None),
+        ("T=1000 non-causal", 8, 1000, 1000, 64, False, None),
         ("bias [1,Tq,Tk]", 8, 700, 700, 64, False, "one"),
         ("bias [bh,Tq,Tk]", 8, 700, 700, 64, False, "bh"),
         ("Tq=128 < Tk=1024 causal", 12, 128, 1024, 64, True, None),
@@ -128,7 +153,7 @@ def phase_kernel():
         ("d=32 causal", 8, 777, 777, 32, True, None),
         ("d=128 causal", 8, 777, 777, 128, True, None),
     ]
-    worst = 0.0
+    worst = {"flash_attn_fwd": 0.0, "flash_attn_bwd": 0.0}
     for name, bh_, tq, tk, d_, causal, bias_kind in cases:
         q = torch.randn(bh_, tq, d_, device="cuda", generator=g)
         k = torch.randn(bh_, tk, d_, device="cuda", generator=g)
@@ -150,9 +175,27 @@ def phase_kernel():
         if bias_kind == "-inf":
             rows = o[:, 5::17]
             assert bool((rows == 0).all()), "fully masked rows must give o=0"
-        worst = max(worst, e_o, e_l)
+        worst["flash_attn_fwd"] = max(worst["flash_attn_fwd"], e_o, e_l)
         _log("kernel", f"flash_attn_fwd {name}: max abs err o {e_o:.3g} "
              f"lse {e_l:.3g} (atol {ATOL}, rtol {RTOL}) ok")
+        if bias is not None:
+            continue        # a biased backward is the plain version
+        do = torch.randn(bh_, tq, d_, device="cuda", generator=g)
+        got = fa.flash_attention_bwd(q, k, v, ro, rlse, do, causal)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_bwd_reference(q, k, v, ro, rlse, do, None,
+                                                causal)
+        torch.cuda.synchronize()
+        errs = [_check(f"{name} {n}", a, b)
+                for n, a, b in zip(("dq", "dk", "dv"), got, want)]
+        if tq > tk and causal:
+            assert bool((got[0][:, :tq - tk] == 0).all()), \
+                "rows without a live key must get dq = 0"
+        worst["flash_attn_bwd"] = max(worst["flash_attn_bwd"], *errs)
+        _log("kernel", f"flash_attn_bwd {name}: max abs err dq {errs[0]:.3g}"
+             f" dk {errs[1]:.3g} dv {errs[2]:.3g} (atol {ATOL}, rtol "
+             f"{RTOL}) ok")
+        del got, want
     return worst
 
 
@@ -269,6 +312,148 @@ def phase_serve():
             "scope": scope, "factory": factory}
 
 
+def _train_program(cfg, seq):
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.framework import Program, program_guard
+    from paddle_tpu_torch.models import transformer as T
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        _, _, loss = T.build_gpt_pretrain(cfg, seq, fused_head=True,
+                                          attn_impl="auto", dropout=0.0)
+        optimizer.AdamOptimizer(learning_rate=1e-4).minimize(loss)
+    return main, startup, loss
+
+
+def _train_feed(cfg, batch, seq, seed=0):
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(1, cfg.vocab_size, (batch, seq)).astype(np.int64)
+    labels = np.roll(ids, -1, axis=1)
+    labels[:, -1] = 0
+    return {"src_ids": ids, "lm_label": labels}
+
+
+def phase_train():
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import transformer as T
+
+    cfg = _gpt_cfg()
+    seq = cfg.max_pos
+    main, startup, loss = _train_program(cfg, seq)
+    types = [op.type for op in main.global_block().ops]
+    n_flash = types.count("flash_attention")
+    assert n_flash == types.count("flash_attention_grad") == cfg.n_layer, \
+        (n_flash, types.count("flash_attention_grad"))
+    scope, exe = Scope(), ptt.Executor()
+    exe.run(startup, scope=scope, seed=1234)
+    n_params = sum(int(scope.find_var(p.name).numel())
+                   for p in main.all_parameters())
+    _log("train", f"GPT causal LM pretraining program: {len(types)} ops "
+         f"({n_flash} flash_attention, {types.count('adam')} adam), "
+         f"{n_params / 1e6:.1f} M parameters, Adam state on {exe.device}")
+    feed = _train_feed(cfg, TRAIN_BATCH, seq)
+    tokens = TRAIN_BATCH * seq
+
+    # the main path, counted: a warm-up step and the timed steps
+    fa.reset_launch_count()
+    torch.cuda.reset_peak_memory_stats()
+    t_w = time.perf_counter()
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scope)[0])]
+    warm_s = time.perf_counter() - t_w
+    step_s = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(out))
+    launches = {k: fa.launch_count(k)
+                for k in ("flash_attn_fwd", "flash_attn_bwd")}
+    peak = torch.cuda.max_memory_allocated()
+    steps = TRAIN_STEPS + 1
+    for k, n in launches.items():
+        if n != cfg.n_layer * steps:
+            raise AssertionError(f"{k} launched {n} times in {steps} "
+                                 f"training steps, expected "
+                                 f"{cfg.n_layer} per step")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses not finite and falling: "
+                             f"{losses}")
+    step_ms = 1e3 * float(np.mean(step_s))
+    _log("train", f"batch {TRAIN_BATCH} x seq {seq}: warm-up step "
+         f"{warm_s:.2f} s, then {TRAIN_STEPS} steps of "
+         f"{', '.join(f'{1e3 * x:.1f}' for x in step_s)} ms; losses "
+         f"{', '.join(f'{x:.4f}' for x in losses)}; flash launches "
+         f"{launches} = {cfg.n_layer} x {steps} steps each; peak memory "
+         f"{peak / 2**30:.2f} GiB")
+
+    # a reduced-depth step on the card against the same step on the host
+    small = T.BertConfig(vocab_size=cfg.vocab_size, d_model=cfg.d_model,
+                         n_layer=2, n_head=cfg.n_head, d_inner=cfg.d_inner,
+                         max_pos=1024, dropout=0.0)
+    s_main, s_startup, s_loss = _train_program(small, 1024)
+    s_scope, host_scope = Scope(), Scope()
+    exe.run(s_startup, scope=s_scope, seed=99)
+    for name, val in s_scope.items():
+        host_scope.set_var(name, val.detach().cpu())
+    s_feed = _train_feed(small, 1, 1024, seed=1)
+    grads = ["lm_out.w@GRAD", "enc_0.attn.qkv.w@GRAD",
+             "enc_1.ffn.fc1.w@GRAD", "word_embedding@GRAD"]
+    fetch = [s_loss.name] + grads
+    card = exe.run(s_main, feed=s_feed, fetch_list=fetch, scope=s_scope)
+    t_c = time.perf_counter()
+    host = ptt.Executor(ptt.CPUPlace()).run(
+        s_main, feed=s_feed, fetch_list=fetch, scope=host_scope)
+    host_s = time.perf_counter() - t_c
+    loss_err = abs(float(card[0]) - float(host[0])) / abs(float(host[0]))
+    if loss_err > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"card loss {float(card[0])} vs host "
+                             f"{float(host[0])}: rel err {loss_err}")
+    worst = []
+    for name, c, h in zip(grads, card[1:], host[1:]):
+        top = float(np.abs(h).max())
+        err = np.abs(c - h)
+        rel = TRAIN_GRAD_RTOL * np.abs(h)
+        bad = int((err > TRAIN_GRAD_ATOL_FRAC * top + rel).sum())
+        loose = int((err > TRAIN_GRAD_TIGHT_FRAC * top + rel).sum())
+        if bad or loose > TRAIN_GRAD_TIGHT_SHARE * h.size:
+            raise AssertionError(
+                f"{name}: {bad} of {h.size} values beyond "
+                f"{TRAIN_GRAD_ATOL_FRAC:.3g} x max|g|, {loose} beyond "
+                f"{TRAIN_GRAD_TIGHT_FRAC} x max|g| (rtol {TRAIN_GRAD_RTOL:.3g})"
+                f"; max abs err {err.max()}, max |g| {top}")
+        worst.append(f"{name} {err.max():.3g} (max |g| {top:.3g}, "
+                     f"{loose} of {h.size} beyond 1e-4 x max|g|)")
+    _log("train", f"2-layer batch-1 seq-1024 step vs host run "
+         f"({host_s:.1f} s): loss rel err {loss_err:.3g} (rtol "
+         f"{TRAIN_LOSS_RTOL}); grads max abs err {'; '.join(worst)} "
+         f"(rtol {TRAIN_GRAD_RTOL:.3g}) ok")
+    return {"launches": launches, "losses": losses, "step_ms": step_ms,
+            "step_s": step_s, "warmup_s": warm_s,
+            "tokens_per_s": tokens / (step_ms / 1e3),
+            "peak_bytes": peak, "tokens": tokens, "main": main,
+            "loss": loss, "scope": scope, "feed": feed}
+
+
+def _profile_rows(prof):
+    """(device ms, count, name) of every kernel and copy on the card; host
+    ops (aten, autograd nodes, Function records) only aggregate these."""
+    rows = []
+    for evt in prof.key_averages():
+        if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            continue
+        dev = getattr(evt, "device_time_total", None)
+        if dev is None:
+            dev = getattr(evt, "cuda_time_total", 0.0)
+        if dev > 0:
+            rows.append((dev / 1e3, evt.count, evt.key))
+    rows.sort(reverse=True)
+    return rows
+
+
 def phase_profile(serve):
     """Device time of one full bucket-2048 batch (8 x 2048 tokens) by
     kernel, with ``torch.profiler``: where a batch's time goes."""
@@ -289,14 +474,7 @@ def phase_profile(serve):
         t1 = time.perf_counter()
         h.numpy()
         t2 = time.perf_counter()
-    rows = []
-    for evt in prof.key_averages():
-        dev = getattr(evt, "device_time_total", None)
-        if dev is None:
-            dev = getattr(evt, "cuda_time_total", 0.0)
-        if dev > 0 and not evt.key.startswith(("aten::", "cuda")):
-            rows.append((dev / 1e3, evt.count, evt.key))
-    rows.sort(reverse=True)
+    rows = _profile_rows(prof)
     copy_ms = sum(r[0] for r in rows if r[2].startswith("Memcpy"))
     kernel_ms = sum(r[0] for r in rows) - copy_ms
     wall_ms = (t2 - t0) * 1e3
@@ -313,7 +491,43 @@ def phase_profile(serve):
             "top": rows[:20]}
 
 
-def phase_timing(smi, serve):
+def phase_train_profile(train):
+    """Device time of one full-width training step by kernel, with
+    ``torch.profiler``: where a step's time goes."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from torch.profiler import ProfilerActivity, profile
+    exe = ptt.Executor()
+    args = dict(feed=train["feed"], fetch_list=[train["loss"]],
+                scope=train["scope"])
+    exe.run(train["main"], **args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        exe.run(train["main"], **args)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = _profile_rows(prof)
+    kernel_ms = sum(r[0] for r in rows if not r[2].startswith("Memcpy"))
+    _log("profile", f"training step, batch {TRAIN_BATCH} x seq 2048: wall "
+         f"{wall_ms:.1f} ms; kernels {kernel_ms:.1f} ms "
+         f"({100 * kernel_ms / wall_ms:.1f}% of wall)")
+    for ms, count, key in rows[:24]:
+        _log("profile", f"  {ms:9.2f} ms  x{count:<4d} {key[:90]}")
+    return {"wall_ms": wall_ms, "kernel_ms": kernel_ms, "top": rows[:40]}
+
+
+def _bound(flops, nbytes):
+    import torch
+    peak_flops, peak_bw = _peaks(torch.cuda.get_device_name(0))
+    t_ops, t_mem = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+    return (max(t_ops, t_mem), "operations" if t_ops >= t_mem else "bytes",
+            f"{flops / 1e9:.1f} GFLOP at {peak_flops / 1e12:.0f} TFLOP/s, "
+            f"{nbytes / 1e6:.0f} MB at {peak_bw / 1e12:.2f} TB/s")
+
+
+def phase_timing(smi, serve, train):
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -323,6 +537,11 @@ def phase_timing(smi, serve):
     q = torch.randn(bh, t, d, device="cuda", generator=g)
     k = torch.randn(bh, t, d, device="cuda", generator=g)
     v = torch.randn(bh, t, d, device="cuda", generator=g)
+    do = torch.randn(bh, t, d, device="cuda", generator=g)
+    pairs = t * (t + 1) // 2                 # live (q, k) pairs, causal
+    out = {}
+
+    # K1: q.k and p.v, 2 flops per FMA; q, k, v read, o and lse written
     ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v, None, True), 20)
     plain_ms = _time_ms(
         lambda: fa.flash_attention_reference(q, k, v, None, True), 5)
@@ -330,19 +549,46 @@ def phase_timing(smi, serve):
     library_ms = _time_ms(
         lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
         20)
-    peak_flops, peak_bw = _peaks(torch.cuda.get_device_name(0))
-    pairs = t * (t + 1) // 2                 # live (q, k) pairs, causal
-    flops = 4.0 * d * bh * pairs             # q.k and p.v, 2 flops per FMA
-    nbytes = 4.0 * (4 * bh * t * d + bh * t)  # q, k, v read; o, lse written
-    t_ops, t_mem = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
-    bound_ms = max(t_ops, t_mem)
-    bound_by = "operations" if t_ops >= t_mem else "bytes"
+    bound_ms, bound_by, why = _bound(4.0 * d * bh * pairs,
+                                     4.0 * (4 * bh * t * d + bh * t))
+    out["flash_attn_fwd"] = {"ms": ms, "plain_ms": plain_ms,
+                             "library_ms": library_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by}
     _log("timing", f"flash_attn_fwd [96,2048,64] causal f32 on {smi}: "
          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
          f"sdpa {library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-         f"({flops / 1e9:.1f} GFLOP at {peak_flops / 1e12:.0f} TFLOP/s, "
-         f"{nbytes / 1e6:.0f} MB at {peak_bw / 1e12:.2f} TB/s): "
+         f"({why}): {100 * bound_ms / ms:.1f}% of bound")
+
+    # K2: S, dP, dV, dK, dQ, 2 flops per FMA each; q, k, v, o, do, lse and
+    # delta read, dq, dk, dv written
+    o, lse = fa.flash_attention_fwd(q, k, v, None, True)
+    ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, True),
+                  10)
+    plain_ms = _time_ms(lambda: fa.flash_attention_bwd_reference(
+        q, k, v, o, lse, do, None, True), 3)
+    qg, kg, vg = (x.view(8, 12, t, d).detach().requires_grad_()
+                  for x in (q, k, v))
+    do4 = do.view(8, 12, t, d)
+
+    def sdpa_fwd():
+        with torch.enable_grad():
+            return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), do4)
+
+    library_ms = _time_ms(sdpa_fwd_bwd, 10) - _time_ms(sdpa_fwd, 10)
+    bound_ms, bound_by, why = _bound(10.0 * d * bh * pairs,
+                                     4.0 * (8 * bh * t * d + 2 * bh * t))
+    out["flash_attn_bwd"] = {"ms": ms, "plain_ms": plain_ms,
+                             "library_ms": library_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by}
+    _log("timing", f"flash_attn_bwd [96,2048,64] causal f32 on {smi}: "
+         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward "
+         f"{library_ms:.4f} ms (forward+backward minus forward); bound "
+         f"{bound_ms:.4f} ms by {bound_by} ({why}): "
          f"{100 * bound_ms / ms:.1f}% of bound")
+
     per_batch = serve["launches"] / max(serve["flash_batches"], 1)
     _log("timing", f"flash launches per batch at buckets >= 1024: "
          f"{per_batch:g}")
@@ -354,15 +600,26 @@ def phase_timing(smi, serve):
          f"{serve['tokens']} tokens in {serve['wall_s']:.2f} s: "
          f"{serve['requests'] / serve['wall_s']:.2f} req/s, "
          f"{serve['tokens'] / serve['wall_s']:.0f} tokens/s")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    _log("timing", f"train on {smi}: step {train['step_ms']:.1f} ms (mean "
+         f"of {TRAIN_STEPS}), {train['tokens_per_s']:.0f} tokens/s, peak "
+         f"memory {train['peak_bytes'] / 2**30:.2f} GiB")
+    return out
+
+
+_KERNELS = (
+    ("flash_attn_fwd", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
+     "paddle_tpu/pallas/flash_attention.py:179"),
+    ("flash_attn_bwd", "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+     "paddle_tpu/pallas/flash_attention.py:499"),
+)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", help="also write every measurement here")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one bucket-2048 batch by kernel")
+                    help="also profile one bucket-2048 batch and one "
+                         "training step by kernel")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -372,28 +629,37 @@ def main(argv=None) -> int:
     import paddle_tpu_torch  # noqa: F401  (fails outside a checkout)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products (the fused LM head) accumulate in float32 throughout
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     smi = phase_env()
     worst = phase_kernel()
     serve = phase_serve()
-    timing = phase_timing(smi, serve)
-    prof = phase_profile(serve) if args.profile else None
-    kernels = [{
-        "name": "flash_attn_fwd", "route": "cuda",
-        "source": "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "paddle_tpu/pallas/flash_attention.py:179",
-        "launches": serve["launches"], "max_abs_err": worst,
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"]}]
+    train = phase_train()
+    timing = phase_timing(smi, serve, train)
+    prof = None
+    if args.profile:
+        prof = {"serve": phase_profile(serve),
+                "train": phase_train_profile(train)}
+    by_path = {"flash_attn_fwd": {"serve": serve["launches"],
+                                  "train": train["launches"]["flash_attn_fwd"]},
+               "flash_attn_bwd": {"train":
+                                  train["launches"]["flash_attn_bwd"]}}
+    kernels = [dict(name=name, route="cuda", source=src, replaces=ref,
+                    launches=sum(by_path[name].values()),
+                    launches_by_path=by_path[name],
+                    max_abs_err=worst[name], **timing[name])
+               for name, src, ref in _KERNELS]
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
         with open(args.json, "w") as f:
-            json.dump({"gpu": smi, "kernels": kernels, "timing": timing,
-                       "profile": prof,
+            json.dump({"gpu": smi, "kernels": kernels, "profile": prof,
                        "serve": {k: v for k, v in serve.items()
-                                 if k not in ("scope", "factory")}},
+                                 if k not in ("scope", "factory")},
+                       "train": {k: v for k, v in train.items()
+                                 if k not in ("main", "loss", "scope",
+                                              "feed")}},
                       f, indent=1, default=float)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -7,18 +7,23 @@ a Pallas kernel on the TPU, the port runs a CUDA kernel written for Hopper
 (``paddle_tpu_torch.kernels``).  ``paddle_tpu`` is the reference the port is
 held against; the port imports none of it and no JAX.
 
-This package holds the serving slice: the GPT causal LM served through
-:class:`paddle_tpu_torch.serving.InferenceServer`.
+This package holds the serving slice (the GPT causal LM served through
+:class:`paddle_tpu_torch.serving.InferenceServer`) and the training slice
+(``append_backward``, the static-graph optimizers, and an executor that runs
+the backward pass).
 """
 
 from . import ops  # noqa  (registers the op lowerings)
-from . import initializer, layers  # noqa
+from . import initializer, layers, regularizer  # noqa
+from .clip import (GradientClipByGlobalNorm, GradientClipByNorm,  # noqa
+                   GradientClipByValue)
 from .compiler import CompiledProgram  # noqa
 from .framework import (Program, Scope, Variable,  # noqa
-                        default_main_program, default_startup_program,
-                        global_scope, program_guard, scope_guard)
+                        append_backward, default_main_program,
+                        default_startup_program, global_scope,
+                        program_guard, scope_guard)
 from .framework.executor import Executor  # noqa
-from . import io, models, serving  # noqa
+from . import io, models, optimizer, serving  # noqa
 from .param_attr import ParamAttr  # noqa
 from .place import (CPUPlace, CUDAPlace, device_count,  # noqa
                     is_compiled_with_cuda)

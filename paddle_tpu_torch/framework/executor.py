@@ -13,10 +13,20 @@ and the persistables to write back.  ``dispatch_stats()["traces"]`` counts
 plans built — the analog of the reference's compiled-block count, which the
 serving plane holds equal to the number of buckets.
 
+Training: a synthesized ``*_grad`` op differentiates its forward op with
+``torch.autograd`` (``registry.generic_grad_lower``).  Eager torch has no
+CSE to merge a recomputed forward with the original, so the plan pairs each
+generic grad op with its forward op, from the program alone, and the run
+executes that forward op once under ``torch.enable_grad()`` on detached
+inputs that require grad; its graph waits in a side table until the grad op
+takes it (and frees it).  Everything else runs under ``torch.no_grad()``,
+the optimizer ops included, and their outputs reach the scope through the
+write-back of persistables.
+
 Random ops draw from a ``torch.Generator`` on the executor's device, seeded
 per run from ``seed`` or from ``program.random_seed`` and a step counter
-(the reference's formula).  Left out of this slice: AMP, gradients, the
-nan/inf sanitizer, meshes, and the reference's telemetry.
+(the reference's formula).  Left out so far: AMP, the nan/inf sanitizer,
+meshes, and the reference's telemetry.
 """
 
 from __future__ import annotations
@@ -28,7 +38,7 @@ import numpy as np
 import torch
 
 from . import registry
-from .core import Program, Variable, default_main_program
+from .core import Program, Variable, default_main_program, grad_var_name
 from .scope import Scope, global_scope
 
 
@@ -75,25 +85,67 @@ class FetchHandle:
         return a if dtype is None else a.astype(dtype)
 
 
+def _fwd_key(op) -> tuple:
+    """What a forward op and its generic grad op share: the type, the
+    input names by slot and the grad names of the outputs by slot."""
+    return (op.type,
+            tuple(sorted((s, tuple(ns)) for s, ns in op.inputs.items())),
+            tuple(sorted((s, tuple(grad_var_name(n) for n in ns))
+                         for s, ns in op.outputs.items())))
+
+
+def _grad_key(op) -> tuple:
+    return (op.attrs["__fwd_type__"],
+            tuple(sorted((s[2:], tuple(ns)) for s, ns in op.inputs.items()
+                         if s.startswith("X$"))),
+            tuple(sorted((s[3:], tuple(ns)) for s, ns in op.inputs.items()
+                         if s.startswith("OG$"))))
+
+
 class _Plan:
-    """Everything a run of one block needs that does not depend on values."""
+    """Everything a run of one block needs that does not depend on values.
+
+    ``ops`` holds ``(op, info)``; a generic grad op carries its forward
+    op's info.  ``fwd_of`` maps each generic grad op's index to the index of
+    the forward op whose graph it takes (None when the block holds no such
+    op: the grad op then recomputes its forward); ``wanted`` maps each
+    forward op so taken to the input gradients its grad op wants, by
+    slot."""
 
     def __init__(self, program: Program, fetch_names):
         block = program.global_block()
         self.block = block
         self.ops = []
+        self.fwd_of: Dict[int, Optional[int]] = {}
+        self.wanted: Dict[int, Dict[str, List[bool]]] = {}
+        fwd_at: Dict[tuple, List[int]] = {}
         for op in block.ops:
             if op.type in ("feed", "fetch"):
                 continue
+            i = len(self.ops)
+            if registry.is_generic_grad(op):
+                self.ops.append(
+                    (op, registry.get_op_info(op.attrs["__fwd_type__"])))
+                cands = fwd_at.get(_grad_key(op))
+                j = self.fwd_of[i] = cands.pop() if cands else None
+                if j is not None:
+                    self.wanted[j] = {s[3:]: [bool(n) for n in ns]
+                                      for s, ns in op.outputs.items()
+                                      if s.startswith("IG$")}
+                continue
             self.ops.append((op, registry.get_op_info(op.type)))
+            fwd_at.setdefault(_fwd_key(op), []).append(i)
         persistable = {n for n, v in block.vars.items() if v.persistable}
         keep = set(fetch_names) | persistable
         last: Dict[str, int] = {}
         written = set()
         for i, (op, _) in enumerate(self.ops):
-            for n in op.input_arg_names():
-                if n:
-                    last[n] = i
+            for slot, names in op.inputs.items():
+                if self.fwd_of.get(i) is not None and slot.startswith("X$"):
+                    continue        # the forward's graph holds what it needs
+                for n in names:
+                    if n:
+                        last[n] = i
             for n in op.output_arg_names():
                 if n:
                     written.add(n)
@@ -211,7 +263,8 @@ class Executor:
             program.random_seed * 1000003 + step_seed)
         env = {n: self._to_device(v) for n, v in feed.items()}
         with torch.no_grad():
-            self._run_plan(plan, LowerCtx(self.device, seed_val), env, scope)
+            self._run_plan(plan, LowerCtx(self.device, seed_val), env,
+                           scope)
         if plan.persist_out:
             scope.set_vars({n: env[n] for n in plan.persist_out})
         fetches = [env[n] if n in env else self._read(scope, plan.block, n)
@@ -237,28 +290,49 @@ class Executor:
 
     def _run_plan(self, plan: _Plan, ctx: LowerCtx, env: Dict[str, Any],
                   scope: Scope) -> None:
-        block = plan.block
-        for i, (op, info) in enumerate(plan.ops):
-            try:
-                ins = {}
-                for slot, names in op.inputs.items():
-                    vals = []
-                    for n in names:
-                        if not n:
-                            vals.append(None)
-                        elif n in env:
-                            vals.append(env[n])
-                        else:
-                            vals.append(self._read(scope, block, n))
-                    ins[slot] = vals
-                outs = info.lower(ctx, ins, op.attrs) or {}
-            except Exception as e:
-                raise RuntimeError(
-                    f"{type(e).__name__} while running op {op.type!r}: {e}"
-                    f"\n  {_op_context(block, op)}") from e
-            for slot, names in op.outputs.items():
-                for n, val in zip(names, outs.get(slot, [])):
-                    if n:
-                        env[n] = val
-            for n in plan.free_after[i]:
-                env.pop(n, None)
+        graphs: Dict[int, registry.Forward] = {}   # kept, by forward op
+        try:
+            for i, (op, info) in enumerate(plan.ops):
+                try:
+                    outs = self._run_op(plan, i, op, info, ctx, env, scope,
+                                        graphs)
+                except Exception as e:
+                    raise RuntimeError(
+                        f"{type(e).__name__} while running op {op.type!r}: "
+                        f"{e}\n  {_op_context(plan.block, op)}") from e
+                for slot, names in op.outputs.items():
+                    for n, val in zip(names, outs.get(slot, [])):
+                        if n and val is not None:
+                            env[n] = val.detach()
+                for n in plan.free_after[i]:
+                    env.pop(n, None)
+        finally:
+            graphs.clear()      # a raised error's traceback must not pin them
+
+    def _run_op(self, plan, i, op, info, ctx, env, scope, graphs):
+        grad = i in plan.fwd_of
+        fwd = plan.fwd_of.get(i)
+        ins = {}
+        for slot, names in op.inputs.items():
+            if fwd is not None and slot.startswith("X$"):
+                continue
+            vals = []
+            for n in names:
+                if not n:
+                    vals.append(None)
+                elif n in env:
+                    vals.append(env[n])
+                elif grad and slot.startswith("OG$"):
+                    vals.append(None)   # an output nobody differentiated
+                else:
+                    vals.append(self._read(scope, plan.block, n))
+            ins[slot] = vals
+        if grad:
+            return registry.generic_grad_lower(
+                ctx, ins, op.attrs, graphs.pop(fwd) if fwd is not None
+                else None)
+        if i in plan.wanted:
+            graphs[i] = registry.run_forward(info, ctx, ins, op.attrs,
+                                             plan.wanted[i])
+            return graphs[i][1]
+        return info.lower(ctx, ins, op.attrs) or {}

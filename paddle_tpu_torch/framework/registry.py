@@ -1,38 +1,54 @@
-"""Op registry: per-op-type lowering on torch tensors + shape inference.
+"""Op registry: per-op-type lowering on torch tensors, shape inference and
+grad synthesis.
 
-The port's counterpart of ``paddle_tpu/framework/registry.py:32-156``.  An op
-type registers one *lowering*, ``lower(ctx, ins, attrs) -> outs`` where
+The port's counterpart of ``paddle_tpu/framework/registry.py``.  An op type
+registers one *lowering*, ``lower(ctx, ins, attrs) -> outs`` where
 ``ins``/``outs`` are ``{slot: [tensor]}``; the executor calls it eagerly on
 the executor's device.  Shape inference is the lowering itself run on
 ``device="meta"`` tensors, which carry shapes and dtypes and no data (the
-reference runs it under ``jax.eval_shape``).  Grad synthesis waits for the
-training slice.
+reference runs it under ``jax.eval_shape``).
+
+Gradients: every op gets a synthesized ``<type>_grad`` op desc, the same
+desc the reference makes (slots ``X$``/``OG$``/``IG$``, attr
+``__fwd_type__``), whose lowering differentiates the forward lowering with
+``torch.autograd``.  An op may register a hand-written ``grad_maker``
+instead.  Eager torch has no CSE to merge a recomputed forward with the
+original, so the executor runs each differentiated forward op once under
+``torch.enable_grad()`` (:func:`run_forward`) and hands its graph to the
+grad op; :func:`generic_grad_lower` recomputes the forward only when it is
+called without one.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from .core import Block, Operator
+from .core import Block, Operator, grad_var_name
 
 
 class OpInfo:
-    def __init__(self, type: str, lower: Callable, infer: Optional[Callable]):
+    def __init__(self, type: str, lower: Callable, infer: Optional[Callable],
+                 grad_maker: Optional[Callable] = None,
+                 no_grad: bool = False):
         self.type = type
         self.lower = lower
         self.infer = infer
+        self.grad_maker = grad_maker    # None -> generic autograd grad
+        self.no_grad = no_grad
 
 
 _REGISTRY: Dict[str, OpInfo] = {}
 
 
-def register_op(type: str, lower: Callable = None, *, infer: Callable = None):
-    """Register an op lowering (``infer`` overrides shape inference).
-    Usable as decorator or call."""
+def register_op(type: str, lower: Callable = None, *, infer: Callable = None,
+                grad_maker: Callable = None, no_grad: bool = False):
+    """Register an op lowering (``infer`` overrides shape inference,
+    ``grad_maker`` the generic grad desc, ``no_grad`` marks an op without
+    gradient).  Usable as decorator or call."""
     def deco(fn):
-        _REGISTRY[type] = OpInfo(type, fn, infer)
+        _REGISTRY[type] = OpInfo(type, fn, infer, grad_maker, no_grad)
         return fn
     if lower is not None:
         return deco(lower)
@@ -72,6 +88,12 @@ def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
+#: the dtype the reference records for an inferred var: it infers with
+#: 64-bit types off, so an int64 or float64 result is recorded 32-bit
+#: (values keep their 64-bit type at run time in the port)
+_RECORDED_DTYPE = {"int64": "int32", "float64": "float32"}
+
+
 def infer_op(op: Operator, block: Block) -> None:
     """Populate output Variable shape/dtype by running the lowering on
     meta tensors.  Best effort, as in the reference: an op whose lowering
@@ -108,7 +130,113 @@ def infer_op(op: Operator, block: Block) -> None:
                 v = block.var(n)
                 v.shape = tuple(-1 if (had_symbolic and d == SENTINEL) else d
                                 for d in t.shape)
-                v.dtype = dtype_name(t.dtype)
+                name = dtype_name(t.dtype)
+                v.dtype = _RECORDED_DTYPE.get(name, name)
     except Exception:
         # the executor re-checks with real tensors at run time
         pass
+
+
+# ---------------------------------------------------------------------------
+# generic autograd gradient (stands in for GradOpDescMaker per op)
+# ---------------------------------------------------------------------------
+
+GENERIC_GRAD_TYPE_SUFFIX = "_grad"
+
+
+def make_grad_ops(op: Operator, block: Block,
+                  no_grad_set: set) -> List[Dict[str, Any]]:
+    """Grad op descs for ``op`` (ref core.get_grad_op_desc), exactly as
+    ``paddle_tpu.framework.registry.make_grad_ops`` makes them: a list of
+    ``{type, inputs, outputs, attrs}`` dicts, grad vars named
+    ``<name>@GRAD``."""
+    info = get_op_info(op.type)
+    if info.no_grad:
+        return []
+    if info.grad_maker is not None:
+        return info.grad_maker(op, block, no_grad_set)
+    g_inputs: Dict[str, List[str]] = {}
+    for slot, names in op.inputs.items():
+        g_inputs["X$" + slot] = list(names)
+    for slot, names in op.outputs.items():
+        g_inputs["OG$" + slot] = [grad_var_name(n) for n in names]
+    g_outputs: Dict[str, List[str]] = {}
+    for slot, names in op.inputs.items():
+        outs = []
+        for n in names:
+            v = block.var(n) if block.has_var(n) else None
+            if n in no_grad_set or (v is not None and v.stop_gradient):
+                outs.append("")          # empty = not needed (ref kEmptyVarName)
+            else:
+                outs.append(grad_var_name(n))
+        g_outputs["IG$" + slot] = outs
+    attrs = dict(op.attrs)
+    attrs["__fwd_type__"] = op.type
+    return [{"type": op.type + GENERIC_GRAD_TYPE_SUFFIX,
+             "inputs": g_inputs, "outputs": g_outputs, "attrs": attrs,
+             "__generic__": True}]
+
+
+def is_generic_grad(op: Operator) -> bool:
+    """A synthesized ``*_grad`` op: its type has no lowering of its own."""
+    return "__fwd_type__" in op.attrs and op.type not in _REGISTRY
+
+
+#: a forward op run for differentiation: its inputs by slot (leaves that
+#: require grad where a gradient is wanted) and its outputs with their graph
+Forward = Tuple[Dict[str, List], Dict[str, List]]
+
+
+def run_forward(info: OpInfo, ctx, ins: Dict[str, List], attrs,
+                wanted: Optional[Dict[str, List[bool]]] = None) -> Forward:
+    """Run a forward lowering under ``torch.enable_grad()`` on detached
+    copies of its floating inputs that require grad (those ``wanted``
+    marks; all of them when ``wanted`` is None)."""
+    leaves = {}
+    for slot, vals in ins.items():
+        want = [True] * len(vals) if wanted is None else \
+            wanted.get(slot, [False] * len(vals))
+        row = []
+        for j, v in enumerate(vals):
+            if v is not None and v.is_floating_point() and want[j]:
+                v = v.detach().requires_grad_(True)
+            row.append(v)
+        leaves[slot] = row
+    with torch.enable_grad():
+        outs = info.lower(ctx, leaves, attrs) or {}
+    return leaves, outs
+
+
+def generic_grad_lower(ctx, ins: Dict[str, List], attrs: Dict[str, Any],
+                       forward: Optional[Forward] = None):
+    """Lowering of a synthesized ``*_grad`` op: ``torch.autograd.grad`` of
+    the forward lowering.  ``forward`` is the graph the executor kept from
+    the forward op; without it the forward is recomputed from the ``X$``
+    inputs.  An absent output grad is a zero cotangent; an input the
+    outputs do not depend on gets a zero gradient, and a non-floating one
+    None."""
+    fwd_type = attrs["__fwd_type__"]
+    if forward is None:
+        fwd_attrs = {k: v for k, v in attrs.items() if k != "__fwd_type__"}
+        x_ins = {s[2:]: list(v) for s, v in ins.items() if s.startswith("X$")}
+        forward = run_forward(get_op_info(fwd_type), ctx, x_ins, fwd_attrs)
+    leaves, outs = forward
+    outputs, cotangents = [], []
+    for slot in sorted(s[3:] for s in ins if s.startswith("OG$")):
+        for out, og in zip(outs.get(slot, []), ins["OG$" + slot]):
+            if og is None or out is None or not out.requires_grad:
+                continue
+            outputs.append(out)
+            cotangents.append(og.to(out.dtype))
+    wrt = [(slot, j, t) for slot, vals in leaves.items()
+           for j, t in enumerate(vals)
+           if t is not None and t.requires_grad]
+    grads = [None] * len(wrt)
+    if outputs and wrt:
+        grads = torch.autograd.grad(outputs, [t for _, _, t in wrt],
+                                    cotangents, allow_unused=True)
+    result = {"IG$" + slot: [None] * len(vals)
+              for slot, vals in leaves.items()}
+    for (slot, j, t), g in zip(wrt, grads):
+        result["IG$" + slot][j] = torch.zeros_like(t) if g is None else g
+    return result

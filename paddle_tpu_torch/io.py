@@ -1,30 +1,37 @@
-"""Weights carried across from ``paddle_tpu``.
+"""Weights and optimizer state carried between the port and ``paddle_tpu``.
 
 - :func:`params_from_numpy` puts a ``{name: numpy array}`` map — the
   parameters of a ``paddle_tpu`` scope, under the names its model builders
-  give them — into a port scope as tensors on a device.
-- :func:`load_vars` / :func:`load_params` / :func:`load_persistables` read
-  the directory format ``paddle_tpu.io.save_vars`` writes (``io.py:150-219``):
-  one ``<name>.npy`` per var (``/`` spelled ``__``) or one ``.npz`` when
-  ``filename`` is given, plus ``__meta__.json``, where bfloat16 values
-  travel as their uint16 bits and the meta records the true dtype.
+  give them — into a port scope as tensors on a device;
+  :func:`params_to_numpy` takes such a map out of a port scope.
+- :func:`save_vars` / :func:`save_params` / :func:`save_persistables` write,
+  and :func:`load_vars` / :func:`load_params` / :func:`load_persistables`
+  read, the directory format of ``paddle_tpu.io.save_vars``
+  (``io.py:150-219``): one ``<name>.npy`` per var (``/`` spelled ``__``) or
+  one ``.npz`` when ``filename`` is given, plus ``__meta__.json``, where
+  bfloat16 values travel as their uint16 bits and the meta records the true
+  dtype.
 
-So a model saved by ``paddle_tpu`` serves unchanged in the port.
+So a model saved by ``paddle_tpu`` serves and trains on in the port, and a
+scope the port trained loads into ``paddle_tpu``.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional
+import shutil
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
 
 from .framework.core import PROGRAM_FORMAT_VERSION, default_main_program
 from .framework.scope import Scope, global_scope
+from .version import __version__
 
-__all__ = ["params_from_numpy", "load_vars", "load_params",
+__all__ = ["params_from_numpy", "params_to_numpy", "save_vars",
+           "save_params", "save_persistables", "load_vars", "load_params",
            "load_persistables"]
 
 
@@ -49,12 +56,115 @@ def params_from_numpy(scope: Scope, arrays: Dict[str, np.ndarray],
     return scope
 
 
+def _to_numpy(t) -> np.ndarray:
+    """A scope value as a C-ordered numpy array; bfloat16 as its uint16
+    bits (numpy has no bfloat16)."""
+    if not isinstance(t, torch.Tensor):
+        return np.ascontiguousarray(np.asarray(t))
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def params_to_numpy(scope: Scope,
+                    names: Optional[Iterable[str]] = None
+                    ) -> Dict[str, np.ndarray]:
+    """``{name: numpy array}`` of ``names`` (default: every var the scope
+    holds a value for) — parameters and optimizer accumulators alike, ready
+    for a ``paddle_tpu`` scope or :func:`params_from_numpy`.  A bfloat16
+    tensor comes out as float32 (numpy has no bfloat16)."""
+    if names is None:
+        names = [n for n, v in scope.items() if v is not None]
+    out = {}
+    for n in names:
+        t = scope.find_var(n)
+        if t is None:
+            raise KeyError(f"variable {n!r} has no value in the scope")
+        if isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16:
+            t = t.float()
+        out[n] = _to_numpy(t)
+    return out
+
+
 def _is_persistable(var) -> bool:
     return bool(var.persistable) and var.type not in ("raw", "step_scopes")
 
 
 def _is_parameter(var) -> bool:
     return bool(var.is_parameter)
+
+
+def save_vars(executor=None, dirname=None, main_program=None, vars=None,
+              predicate=None, filename=None, scope=None):
+    """ref io.py save_vars.  The blobs and ``__meta__.json`` are written to
+    a staging directory beside ``dirname`` and then renamed into place, so
+    a save that fails leaves an earlier save whole."""
+    program = main_program or default_main_program()
+    scope = scope or global_scope()
+    if vars is None:
+        vars = [v for v in program.list_vars()
+                if (predicate or _is_persistable)(v)]
+    arrays, dtypes = {}, {}
+    for v in vars:
+        t = scope.find_var(v.name)
+        if t is None:
+            raise ValueError(f"variable {v.name!r} has no value in scope — "
+                             "run the startup program before saving")
+        arrays[v.name] = _to_numpy(t)
+        dtypes[v.name] = ("bfloat16" if isinstance(t, torch.Tensor)
+                          and t.dtype == torch.bfloat16
+                          else str(arrays[v.name].dtype))
+    dst = os.path.abspath(dirname)
+    os.makedirs(os.path.dirname(dst) or ".", exist_ok=True)
+    tmp = dst.rstrip(os.sep) + f".tmp.{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    try:
+        if filename is not None:
+            np.savez(os.path.join(tmp, filename), **arrays)
+        else:
+            for name, arr in arrays.items():
+                np.save(os.path.join(tmp, name.replace("/", "__")), arr)
+        meta = {name: {"shape": list(arr.shape), "dtype": dtypes[name]}
+                for name, arr in arrays.items()}
+        with open(os.path.join(tmp, "__meta__.json"), "w") as f:
+            json.dump({"filename": filename, "vars": meta,
+                       "version": PROGRAM_FORMAT_VERSION,
+                       "framework_version": __version__}, f)
+        if os.path.isdir(dst):
+            # files of an earlier save that this one does not rewrite stay
+            for entry in os.listdir(dst):
+                src, keep = os.path.join(dst, entry), os.path.join(tmp, entry)
+                if os.path.exists(keep):
+                    continue
+                if os.path.isdir(src):
+                    shutil.copytree(src, keep)
+                else:
+                    shutil.copy2(src, keep)
+            old = dst + f".old.{os.getpid()}"
+            os.rename(dst, old)
+            os.rename(tmp, dst)
+            shutil.rmtree(old, ignore_errors=True)
+        else:
+            os.replace(tmp, dst)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+
+
+def save_params(executor=None, dirname=None, main_program=None,
+                filename=None, scope=None):
+    """ref io.py:254 — trainable parameters only."""
+    save_vars(executor, dirname, main_program, None, _is_parameter,
+              filename, scope)
+
+
+def save_persistables(executor=None, dirname=None, main_program=None,
+                      filename=None, scope=None):
+    """ref io.py:487 — parameters and optimizer accumulators."""
+    save_vars(executor, dirname, main_program, None, _is_persistable,
+              filename, scope)
 
 
 def load_vars(executor=None, dirname=None, main_program=None, vars=None,

@@ -1,22 +1,30 @@
-"""Flash attention forward: a hand-written CUDA kernel and its plain version.
+"""Flash attention forward (K1) and backward (K2): hand-written CUDA kernels
+and their plain versions.
 
-Replaces the Pallas TPU kernel ``paddle_tpu/pallas/flash_attention.py``
+K1 replaces the Pallas TPU kernel ``paddle_tpu/pallas/flash_attention.py``
 ``_flash_fwd_pallas`` (:179, ``pl.pallas_call`` at :227, body ``_fwd_kernel``
-:114).  The kernel source is ``paddle_tpu_torch/csrc/flash_attn_fwd.cu``
-(float32 on the CUDA cores, one block per (bh, 64-row q tile), causal tiles
-above the diagonal skipped); its header says what bounds it on an H100.
+:114); its source is ``paddle_tpu_torch/csrc/flash_attn_fwd.cu`` (float32 on
+the CUDA cores, one block per (bh, 64-row q tile), causal tiles above the
+diagonal skipped).  K2 replaces ``_flash_bwd_pallas`` (:499: the combined
+kernel :446 and the split kernels :515); its source is
+``csrc/flash_attn_bwd.cu`` (the FA2 backward in two passes, dK/dV then dQ,
+no atomics).  Each source's header says what bounds it on an H100.
 
-- :func:`flash_attention_fwd` is the wrapper: ``[bh, T, d]`` float32
-  contiguous tensors in, ``(o, lse)`` out.  A CUDA tensor launches the
-  kernel or raises; a CPU tensor takes :func:`flash_attention_reference`.
-- :func:`flash_attention_reference` is the plain PyTorch version, the math
-  of ``paddle_tpu``'s ``_flash_fwd_jax``: masked scores are ``NEG_INF``
+- :func:`flash_attention_fwd` / :func:`flash_attention_bwd` are the
+  wrappers over contiguous float32 ``[bh, T, d]`` tensors.  A CUDA tensor
+  launches the kernel or raises; a CPU tensor takes the plain version.
+  Each counts its launches (:func:`launch_count`).
+- :func:`flash_attention_reference` is K1's plain version, the math of
+  ``paddle_tpu``'s ``_flash_fwd_jax``: masked scores are ``NEG_INF``
   (-1e30), causal masking is end-aligned (``q + Tk - Tq >= k``), and a row
   whose scores are all ``-inf`` gives ``o = 0, lse = m`` (``l == 0`` is
   read as 1).
+- :func:`flash_attention_bwd_reference` is K2's plain version, the math of
+  ``_flash_bwd_jax`` (:641), which also gives the bias gradient.
 - :func:`flash_attention` is the ``[b, h, T, d]`` entry the
   ``flash_attention`` op calls; it broadcasts the bias as the reference
-  does.
+  does, and differentiates through :class:`FlashAttention` (K1 forward, K2
+  backward; with a bias, the plain backward, as the reference does).
 - :func:`mha_reference` is the O(T^2) oracle of the reference.
 """
 
@@ -32,19 +40,25 @@ import torch
 NEG_INF = -1e30
 
 _count_lock = threading.Lock()
-_launches = 0  # guarded-by: _count_lock
+_launches = {"flash_attn_fwd": 0, "flash_attn_bwd": 0}  # guarded-by: _count_lock
 
 
-def launch_count() -> int:
-    """Kernel launches since the last :func:`reset_launch_count`."""
+def launch_count(kernel: str = "flash_attn_fwd") -> int:
+    """Launches of ``kernel`` (``flash_attn_fwd`` or ``flash_attn_bwd``)
+    since the last :func:`reset_launch_count`."""
     with _count_lock:
-        return _launches
+        return _launches[kernel]
 
 
 def reset_launch_count() -> None:
-    global _launches
     with _count_lock:
-        _launches = 0
+        for name in _launches:
+            _launches[name] = 0
+
+
+def _count(kernel: str) -> None:
+    with _count_lock:
+        _launches[kernel] += 1
 
 
 def mha_reference(q, k, v, bias=None, causal=False, sm_scale=None):
@@ -92,17 +106,15 @@ def flash_attention_reference(q, k, v, bias=None, causal=False,
     return o.to(q.dtype), lse
 
 
-def _check(q, k, v, bias):
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check(q, k, v, bias, what="flash_attention_fwd", rows=()):
+    for name, t in (("q", q), ("k", k), ("v", v)) + tuple(rows):
         if t.dtype != torch.float32:
-            raise TypeError(f"flash_attention_fwd: {name} must be float32, "
-                            f"got {t.dtype}")
+            raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
         if t.dim() != 3 or not t.is_contiguous():
-            raise ValueError(f"flash_attention_fwd: {name} must be a "
-                             f"contiguous [bh, T, d] tensor")
+            raise ValueError(f"{what}: {name} must be a contiguous "
+                             f"[bh, T, d] tensor")
         if t.device != q.device:
-            raise ValueError("flash_attention_fwd: q, k, v on different "
-                             "devices")
+            raise ValueError(f"{what}: q, k, v on different devices")
     bh, tq, d = q.shape
     if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
         raise ValueError(f"flash_attention_fwd: shapes q {tuple(q.shape)} "
@@ -141,7 +153,6 @@ def flash_attention_fwd(q, k, v, bias: Optional[torch.Tensor] = None,
 
 
 def _launch(q, k, v, bias, causal, sm_scale):
-    global _launches
     fn = _entry()
     bh, tq, d = q.shape
     tk = k.shape[1]
@@ -159,24 +170,139 @@ def _launch(q, k, v, bias, causal, sm_scale):
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd kernel launch failed: CUDA "
                            f"error {err}")
-    with _count_lock:
-        _launches += 1
+    _count("flash_attn_fwd")
     return o, lse
 
 
-_entry_fn = None
+_entry_fns = {}
 
 
-def _entry():
-    global _entry_fn
-    if _entry_fn is None:
+def _entry(kernel="flash_attn_fwd"):
+    fn = _entry_fns.get(kernel)
+    if fn is None:
         from . import _build
-        fn = _build.load("flash_attn_fwd").paddle_tpu_torch_flash_attn_fwd_f32
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-            ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        lib = _build.load(kernel)
+        if kernel == "flash_attn_fwd":
+            fn = lib.paddle_tpu_torch_flash_attn_fwd_f32
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+                ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
+                ctypes.c_void_p]
+        else:
+            fn = lib.paddle_tpu_torch_flash_attn_bwd_f32
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _entry_fn = fn
-    return _entry_fn
+        _entry_fns[kernel] = fn
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# K2: the backward
+# ---------------------------------------------------------------------------
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, bias=None,
+                                  causal=False, sm_scale=None):
+    """Plain version of the backward: ``(dq, dk, dv, dbias)``, the math of
+    ``paddle_tpu``'s ``_flash_bwd_jax`` (flash_attention.py:641) in one
+    dense pass.  P is rebuilt from the saved ``lse`` and is 0 wherever the
+    score is ``<= NEG_INF / 2`` (masked), so a row with no live key gets
+    zero gradients; ``delta = rowsum(do * o)`` in float32; ``sm_scale`` is
+    folded into q.  ``dbias`` is ``[1|bh, Tq, Tk]`` like the bias (summed
+    over bh for a shared plane), None without a bias."""
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
+    delta = torch.sum(do32 * o.float(), dim=-1)
+    s = torch.matmul(q32 * sm_scale, k32.transpose(1, 2))
+    if bias is not None:
+        s = s + bias.float()
+    if causal:
+        qi = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+        ki = torch.arange(tk, device=q.device)[None, :]
+        s = s.masked_fill(qi < ki, NEG_INF)
+    p = torch.where(s <= NEG_INF / 2, torch.zeros_like(s),
+                    torch.exp(s - lse[..., None]))
+    dv = torch.matmul(p.transpose(1, 2), do32)
+    dp = torch.matmul(do32, v32.transpose(1, 2))
+    ds = p * (dp - delta[..., None])
+    dq = sm_scale * torch.matmul(ds, k32)
+    dk = sm_scale * torch.matmul(ds.transpose(1, 2), q32)
+    dbias = None
+    if bias is not None:
+        dbias = ds if bias.shape[0] == bh else ds.sum(dim=0, keepdim=True)
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
+                        sm_scale: Optional[float] = None):
+    """``(dq, dk, dv)`` for the float32 contiguous ``q [bh,Tq,d]``, ``k/v
+    [bh,Tk,d]``, the forward's ``o [bh,Tq,d]`` and ``lse [bh,Tq]``, and the
+    output gradient ``do [bh,Tq,d]``; d is a multiple of 8 up to 128.
+    Launches the CUDA kernel on the current stream for CUDA tensors; CPU
+    tensors take the plain version.  (No bias: with one, the backward is
+    the plain version on any device, as in the reference.)"""
+    what = "flash_attention_bwd"
+    _check(q, k, v, None, what, (("o", o), ("do", do)))
+    bh, tq, d = q.shape
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"{what}: o {tuple(o.shape)} and do "
+                         f"{tuple(do.shape)} must have q's shape "
+                         f"{tuple(q.shape)}")
+    if (lse.dtype != torch.float32 or not lse.is_contiguous()
+            or tuple(lse.shape) != (bh, tq) or lse.device != q.device):
+        raise ValueError(f"{what}: lse must be a contiguous float32 "
+                         f"[{bh}, {tq}] tensor, got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, None,
+                                             causal, sm_scale)[:3]
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {q.device}")
+    fn = _entry("flash_attn_bwd")
+    tk = k.shape[1]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, tq, tk, d,
+                 float(sm_scale), int(bool(causal)), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attn_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    _count("flash_attn_bwd")
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """``o`` over ``[bh, T, d]``: K1 forward saving ``(q, k, v, o, lse)``,
+    K2 backward.  With a bias the backward is the plain version on any
+    device and also gives the bias gradient (the reference routes a bias
+    to ``_flash_bwd_jax``, not to its kernel: flash_attention.py:754-760)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal, sm_scale):
+        o, lse = flash_attention_fwd(q, k, v, bias, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        if bias is None:
+            dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal,
+                                             ctx.sm_scale)
+            return dq, dk, dv, None, None, None
+        dq, dk, dv, dbias = flash_attention_bwd_reference(
+            q, k, v, o, lse, do, bias, ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, dbias, None, None
 
 
 def flash_attention(q, k, v, bias=None, causal=False, sm_scale=None):
@@ -198,5 +324,7 @@ def flash_attention(q, k, v, bias=None, causal=False, sm_scale=None):
         else:
             bc = bias.expand(b, h, tq, tk).reshape(b * h, tq, tk)
         bc = bc.float().contiguous()
-    o, _ = flash_attention_fwd(qc, kc, vc, bc, causal, sm_scale)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    o = FlashAttention.apply(qc, kc, vc, bc, bool(causal), float(sm_scale))
     return o.reshape(b, h, tq, d)

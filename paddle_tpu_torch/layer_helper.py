@@ -43,6 +43,13 @@ class LayerHelper:
             name=unique_name.generate(self.name + ".tmp"),
             dtype=dtype, stop_gradient=stop_gradient)
 
+    def create_global_variable(self, shape, dtype, name=None,
+                               persistable=True, stop_gradient=True):
+        return self.main_program.global_block().create_var(
+            name=name or unique_name.generate(self.name + ".global"),
+            shape=shape, dtype=dtype, persistable=persistable,
+            stop_gradient=stop_gradient)
+
     def create_parameter(self, attr, shape, dtype, is_bias=False,
                          default_initializer=None) -> Optional[Variable]:
         attr = ParamAttr._to_attr(attr)

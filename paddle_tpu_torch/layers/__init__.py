@@ -5,6 +5,9 @@ from . import io, math_ops, nn, tensor  # noqa
 from .io import data  # noqa
 from .math_ops import scale  # noqa
 from .nn import (embedding, expand, fc, flash_attention,  # noqa
-                 layer_norm, matmul, relu, reshape, sign, slice, softmax,
+                 fused_lm_head_ce, layer_norm, matmul, reduce_max,
+                 reduce_mean, reduce_min, reduce_prod, reduce_sum, relu,
+                 reshape, sign, slice, softmax, softmax_with_cross_entropy,
                  split, transpose, unsqueeze)
-from .tensor import cast, create_parameter, fill_constant, range  # noqa
+from .tensor import (cast, create_global_var, create_parameter,  # noqa
+                     fill_constant, range)

@@ -1,6 +1,7 @@
 """The layer DSL: Python functions appending ops to the default main program.
 
-The subset of ``paddle_tpu/layers/nn.py`` that the serving slice uses, with
+The subset of ``paddle_tpu/layers/nn.py`` that the serving and training
+slices use, with
 the reference's signatures and op descs (ref ``python/paddle/fluid/layers/
 nn.py``; ``fc`` at :231 is the canonical pattern: LayerHelper -> create
 params -> append ops -> bias -> activation).
@@ -107,6 +108,79 @@ def softmax(input, use_cudnn=False, name=None, axis=-1):
     helper.append_op("softmax", inputs={"X": [input]}, outputs={"Out": [out]},
                      attrs={"axis": axis})
     return out
+
+
+# ---------------------------------------------------------------------------
+# losses and reductions
+# ---------------------------------------------------------------------------
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    helper = LayerHelper("softmax_with_cross_entropy")
+    sm = helper.create_variable_for_type_inference(logits.dtype)
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    helper.append_op("softmax_with_cross_entropy",
+                     inputs={"Logits": [logits], "Label": [label]},
+                     outputs={"Softmax": [sm], "Loss": [loss]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index, "axis": axis})
+    if return_softmax:
+        return loss, sm
+    return loss
+
+
+def fused_lm_head_ce(x, size, label, param_attr=None, bias_attr=None,
+                     ignore_index=-100, chunk_size=1024):
+    """Chunked LM head + cross-entropy (ref ``paddle_tpu/layers/nn.py:1507``):
+    O(chunk × vocab) memory instead of ``[tokens, vocab]`` logits.  Owns its
+    projection parameters like ``fc`` (weight ``[d_in, size]``)."""
+    helper = LayerHelper("fused_lm_head_ce", param_attr=param_attr,
+                         bias_attr=bias_attr)
+    d_in = int(x.shape[-1])
+    w = helper.create_parameter(param_attr, shape=[d_in, size],
+                                dtype=x.dtype)
+    inputs = {"X": [x], "W": [w], "Label": [label]}
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, shape=[size], dtype=x.dtype,
+                                    is_bias=True)
+        inputs["Bias"] = [b]
+    loss = helper.create_variable_for_type_inference("float32")
+    helper.append_op(
+        "fused_lm_head_ce", inputs=inputs, outputs={"Loss": [loss]},
+        attrs={"ignore_index": ignore_index, "chunk_size": chunk_size})
+    return loss
+
+
+def _reduce(op_type, input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if dim is not None and not isinstance(dim, (list, tuple)):
+        dim = [dim]
+    helper.append_op(op_type, inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"dim": dim, "keep_dim": keep_dim,
+                            "reduce_all": dim is None})
+    return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_mean", input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_min", input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_prod", input, dim, keep_dim, name)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,23 @@ def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
                                    default_initializer)
 
 
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    """A var of the global block that the startup program fills with
+    ``value`` (ref ``layers/tensor.py`` create_global_var)."""
+    helper = LayerHelper("global_var", name=name)
+    var = helper.create_global_variable(shape=list(shape), dtype=dtype,
+                                        name=name, persistable=persistable)
+    from ..framework.core import default_startup_program
+    sb = default_startup_program().global_block()
+    sb.create_var(name=var.name, shape=list(shape), dtype=dtype,
+                  persistable=persistable)
+    sb.append_op("fill_constant", outputs={"Out": [var.name]},
+                 attrs={"shape": list(shape), "dtype": dtype,
+                        "value": float(value)})
+    return var
+
+
 def cast(x, dtype):
     helper = LayerHelper("cast")
     dtype = convert_dtype(dtype)

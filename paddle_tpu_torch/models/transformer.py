@@ -1,10 +1,11 @@
-"""Transformer encoder and the GPT serving program, built from the layer DSL.
+"""Transformer encoder, the GPT serving program and the BERT/GPT pretraining
+programs, built from the layer DSL.
 
-The port's copy of the serving half of ``paddle_tpu/models/transformer.py``
-(ref ``python/paddle/fluid/tests/unittests/dist_transformer.py:958,1034``):
-the op lists, variable names and parameter names are the reference's, so a
-scope of ``paddle_tpu`` parameters serves here unchanged.  Dropout waits
-for the training slice; the serving programs run without it.
+The port's copy of ``paddle_tpu/models/transformer.py`` (ref
+``python/paddle/fluid/tests/unittests/dist_transformer.py:958,1034``): the
+op lists, variable names and parameter names are the reference's, so a
+scope of ``paddle_tpu`` parameters serves and trains here unchanged.
+Dropout is not ported yet: the programs build with dropout 0.
 """
 
 from __future__ import annotations
@@ -16,8 +17,7 @@ from ..param_attr import ParamAttr
 def _no_dropout(rate):
     if rate:
         raise NotImplementedError(
-            "dropout is not ported yet (training slice); build with "
-            "dropout 0 for serving")
+            "dropout is not ported yet; build with dropout 0")
 
 
 def multi_head_attention(queries, keys, values, d_model, n_head,
@@ -169,6 +169,71 @@ class BertConfig:
                          self.d_inner, self.max_pos)
         per_layer = 4 * D * D + 4 * D + 2 * D * F + F + D + 4 * D
         return V * D + P * D + 2 * D + L * per_layer
+
+
+def _lm_head_loss(enc, cfg, lm_label, fused_head, param_name):
+    """Shared LM head + masked-mean CE (label 0 = [PAD] excluded) used by
+    both the MLM and causal-LM builders (ref ``transformer.py:200``)."""
+    if fused_head:
+        loss = layers.fused_lm_head_ce(
+            enc, cfg.vocab_size, lm_label,
+            param_attr=ParamAttr(name=f"{param_name}.w"),
+            bias_attr=ParamAttr(name=f"{param_name}.b"), ignore_index=0)
+        logits = None
+    else:
+        logits = layers.fc(enc, size=cfg.vocab_size, num_flatten_dims=2,
+                           param_attr=ParamAttr(name=f"{param_name}.w"),
+                           bias_attr=ParamAttr(name=f"{param_name}.b"))
+        loss = layers.softmax_with_cross_entropy(
+            logits, layers.unsqueeze(lm_label, [2]), ignore_index=0)
+    mask = layers.cast(lm_label > 0, "float32")
+    masked = layers.reduce_sum(loss * layers.unsqueeze(mask, [2]))
+    denom = layers.reduce_sum(mask) + 1e-6
+    return logits, masked / denom
+
+
+def build_bert_pretrain(cfg: BertConfig, seq_len, is_test=False,
+                        dropout=None, attn_impl="base", fused_head=False,
+                        arange_pos=False, masked_gather=None):
+    """Masked-LM pretraining net: ids+mask-labels → mean masked CE loss
+    (ref ``transformer.py:221``).  Labels use 0 ([PAD]) for unmasked
+    positions, which are excluded from loss and denominator.  The dense
+    head only: ``masked_gather`` needs the ``gather`` op, not ported yet."""
+    if masked_gather:
+        raise NotImplementedError("masked_gather needs the gather op, "
+                                  "not ported yet")
+    dropout = cfg.dropout if dropout is None else dropout
+    src_ids = layers.data("src_ids", shape=[seq_len], dtype="int64")
+    pos_ids = None if arange_pos else \
+        layers.data("pos_ids", shape=[seq_len], dtype="int64")
+    lm_label = layers.data("lm_label", shape=[seq_len], dtype="int64")
+    enc = encoder(src_ids, pos_ids, cfg.vocab_size, cfg.max_pos, cfg.n_layer,
+                  cfg.d_model, cfg.d_inner, cfg.n_head, dropout,
+                  is_test=is_test, attn_impl=attn_impl,
+                  arange_pos=arange_pos)
+    logits, avg_loss = _lm_head_loss(enc, cfg, lm_label, fused_head,
+                                     "mlm_out")
+    feeds = [src_ids] if arange_pos else [src_ids, pos_ids]
+    feeds.append(lm_label)
+    return tuple(feeds), logits, avg_loss
+
+
+def build_gpt_pretrain(cfg: BertConfig, seq_len, is_test=False,
+                       dropout=None, attn_impl="auto", fused_head=True):
+    """Decoder-only causal LM (ref ``transformer.py:270``): ids → causal
+    transformer → next-token CE.  ``lm_label`` is the next-token target
+    (the input pipeline shifts; label 0 = [PAD] is excluded from the
+    loss).  ``attn_impl="auto"`` picks the flash kernels from T ≥ 1024."""
+    dropout = cfg.dropout if dropout is None else dropout
+    src_ids = layers.data("src_ids", shape=[seq_len], dtype="int64")
+    lm_label = layers.data("lm_label", shape=[seq_len], dtype="int64")
+    enc = encoder(src_ids, None, cfg.vocab_size, cfg.max_pos, cfg.n_layer,
+                  cfg.d_model, cfg.d_inner, cfg.n_head, dropout,
+                  is_test=is_test, attn_impl=attn_impl,
+                  arange_pos=True, causal=True)
+    logits, avg_loss = _lm_head_loss(enc, cfg, lm_label, fused_head,
+                                     "lm_out")
+    return (src_ids, lm_label), logits, avg_loss
 
 
 def build_gpt_serving(cfg: BertConfig, seq_len, attn_impl="auto"):

@@ -58,3 +58,16 @@ def static_int(x, what, default=None):
     if x is None:
         return default
     return int(host_values(x, what)[0])
+
+
+def canon_axis(axis, ndim):
+    return axis + ndim if axis < 0 else axis
+
+
+def reduce_axes(dim, ndim, reduce_all):
+    """The axes a ``reduce_*`` op reduces (the reference's ``reduce_axes``)."""
+    if reduce_all or dim is None:
+        return tuple(range(ndim))
+    if isinstance(dim, int):
+        dim = [dim]
+    return tuple(canon_axis(d, ndim) for d in dim)

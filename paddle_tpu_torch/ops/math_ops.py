@@ -1,8 +1,10 @@
-"""Math op lowerings: elementwise binaries, activations, mul/matmul (the
-subset of ``paddle_tpu/ops/math_ops.py`` the serving slice runs).
+"""Math op lowerings: elementwise binaries, activations, mul/matmul,
+comparisons and the gradient-clipping ops (the subset of
+``paddle_tpu/ops/math_ops.py`` the serving and training slices run).
 
 Reference kernels: ``operators/elementwise/``, ``operators/activation_op.cc``,
-``operators/mul_op.cc``, ``operators/matmul_op.cc``.  The products go to
+``operators/mul_op.cc``, ``operators/matmul_op.cc``,
+``operators/controlflow/compare_op.cc``, ``operators/clip_op.cc``.  The products go to
 ``torch.matmul``: float32 stays float32 on the card (TF32 off, the port's
 precision policy).
 """
@@ -23,6 +25,8 @@ _ELEMENTWISE = {
     "elementwise_mul": torch.mul,
     "elementwise_div": torch.div,
     "elementwise_pow": torch.pow,
+    "elementwise_min": torch.minimum,
+    "elementwise_max": torch.maximum,
 }
 
 
@@ -48,6 +52,7 @@ def _make_activation(name, fn):
 
 _make_activation("relu", torch.relu)
 _make_activation("sign", torch.sign)
+_make_activation("sqrt", torch.sqrt)
 
 
 @register_op("gelu")
@@ -88,3 +93,44 @@ def _matmul(ctx, ins, attrs):
     if alpha != 1.0:
         out = out * alpha
     return {"Out": [out]}
+
+
+# -- comparisons (no gradient) -----------------------------------------------
+
+_COMPARE = {
+    "less_than": torch.lt, "less_equal": torch.le,
+    "greater_than": torch.gt, "greater_equal": torch.ge,
+    "equal": torch.eq, "not_equal": torch.ne,
+}
+
+
+def _make_compare(name, fn):
+    def lower(ctx, ins, attrs):
+        x, y = X(ins, "X"), X(ins, "Y")
+        y = broadcast_to_x(x, y, attrs.get("axis", -1))
+        return {"Out": [fn(x, y)]}
+    register_op(name, lower, no_grad=True)
+
+
+for _n, _f in _COMPARE.items():
+    _make_compare(_n, _f)
+
+
+# -- gradient clipping (ref operators/clip_op.cc, clip_by_norm_op.cc) --------
+
+@register_op("clip")
+def _clip(ctx, ins, attrs):
+    return {"Out": [torch.clamp(X(ins, "X"), attrs["min"], attrs["max"])]}
+
+
+@register_op("clip_by_norm")
+def _clip_by_norm(ctx, ins, attrs):
+    x = X(ins, "X")
+    mn = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    return {"Out": [torch.where(norm > mn, x * (mn / norm), x)]}
+
+
+@register_op("squared_l2_norm")
+def _squared_l2_norm(ctx, ins, attrs):
+    return {"Out": [torch.sum(torch.square(X(ins, "X"))).reshape(1)]}

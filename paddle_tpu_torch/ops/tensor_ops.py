@@ -1,10 +1,11 @@
 """Tensor creation / manipulation op lowerings (the subset of
-``paddle_tpu/ops/tensor_ops.py`` the serving slice runs).
+``paddle_tpu/ops/tensor_ops.py`` the serving and training slices run).
 
 Reference kernels: ``operators/fill_constant_op.cc``, ``uniform_random_op.cc``,
 ``split_op.cc``, ``reshape_op.cc`` (reshape2), ``transpose_op.cc``,
 ``unsqueeze_op.cc``, ``scale_op.cc``, ``lookup_table_op.cc``, ``range_op.cc``,
-``expand_op.cc``, ``slice_op.cc``.  Shape-only ops return views where torch
+``expand_op.cc``, ``slice_op.cc``, ``sum_op.cc`` (the grad fan-in of
+``append_backward``), ``assign_op.cc``.  Shape-only ops return views where torch
 can; a consumer that needs contiguous memory asks for it.
 """
 
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from ..framework.registry import register_op
-from .common import X, canon_dtype, host_values
+from .common import X, XS, canon_dtype, host_values
 
 
 @register_op("fill_constant")
@@ -174,3 +175,17 @@ def _slice(ctx, ins, attrs):
     for a in sorted(attrs.get("decrease_axis", []), reverse=True):
         out = out.squeeze(a)
     return {"Out": [out]}
+
+
+@register_op("sum")
+def _sum(ctx, ins, attrs):
+    xs = XS(ins, "X")
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {"Out": [out]}
+
+
+@register_op("assign")
+def _assign(ctx, ins, attrs):
+    return {"Out": [X(ins, "X")]}

@@ -6,12 +6,17 @@ have them), so it runs there with the repo's conftest left out:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-- the flash-attention kernel against its plain version on the same card
-  tensors, over the edge cases of the CPU parity tests (rtol 1e-4, atol
-  1e-5, float32), counting one launch per call;
-- the wrapper refuses what the kernel does not take, on the card too;
+- the flash-attention forward (K1) and backward (K2) kernels against their
+  plain versions on the same card tensors, over the edge cases of the CPU
+  parity tests (rtol 1e-4, atol 1e-5, float32), counting one launch per
+  call;
+- the wrappers refuse what the kernels do not take, on the card too;
 - a tiny GPT served by ``InferenceServer()`` on ``cuda:0`` (the default
-  executor) against the same program run on the host (1e-4 on the logits).
+  executor) against the same program run on the host (1e-4 on the logits);
+- a tiny GPT trained 3 Adam steps on ``cuda:0`` against the same steps on
+  the host (loss 1e-5, parameters 2e-5 + 1e-4 relative, the key third of
+  ``qkv.b`` within 3 lr: its exact gradient is zero, so Adam steps on
+  rounding noise there), through K1 and K2.
 """
 
 import numpy as np
@@ -78,6 +83,61 @@ def test_kernel_matches_plain_version(cuda, case):
         assert bool((o[:, 7] == 0).all())
 
 
+def _bwd_inputs(bh, tq, tk, d, causal, device, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    q, do = (torch.randn(bh, tq, d, generator=g) for _ in range(2))
+    k, v = (torch.randn(bh, tk, d, generator=g) for _ in range(2))
+    o, lse = fa.flash_attention_reference(q, k, v, None, causal)
+    return [x.to(device) for x in (q, k, v, o, lse, do)]
+
+
+@pytest.mark.parametrize("case", sorted(c for c in CASES
+                                        if CASES[c][5] is None))
+def test_backward_kernel_matches_plain_version(cuda, case):
+    bh, tq, tk, d, causal, _ = CASES[case]
+    q, k, v, o, lse, do = _bwd_inputs(bh, tq, tk, d, causal, cuda)
+    n0 = fa.launch_count("flash_attn_bwd")
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert fa.launch_count("flash_attn_bwd") == n0 + 1
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, None,
+                                            causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5, msg=name)
+    if case == "masked_rows_causal_tq_gt_tk":
+        assert bool((got[0][:, :tq - tk] == 0).all())
+
+
+def test_function_backward_launches_the_kernel(cuda):
+    q, k, v = (torch.randn(1, 2, 64, 32, device=cuda, requires_grad=True)
+               for _ in range(3))
+    n0 = (fa.launch_count("flash_attn_fwd"), fa.launch_count("flash_attn_bwd"))
+    out = fa.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out.square().sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert (fa.launch_count("flash_attn_fwd"),
+            fa.launch_count("flash_attn_bwd")) == (n0[0] + 1, n0[1] + 1)
+    ref = torch.autograd.grad(
+        fa.mha_reference(q, k, v, causal=True).square().sum(), (q, k, v))
+    for g, r in zip(grads, ref):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "layout", "lse"])
+def test_backward_wrapper_refuses_on_the_card(cuda, bad):
+    q, k, v, o, lse, do = _bwd_inputs(2, 16, 16, 64, True, cuda)
+    if bad == "dtype":
+        do = do.half()
+    elif bad == "layout":
+        o = o.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "lse":
+        lse = lse[:, :8].contiguous()
+    n0 = fa.launch_count("flash_attn_bwd")
+    with pytest.raises((TypeError, ValueError)):
+        fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+    assert fa.launch_count("flash_attn_bwd") == n0
+
+
 @pytest.mark.parametrize("bad", ["dtype", "layout", "head_dim"])
 def test_wrapper_refuses_on_the_card(cuda, bad):
     q = torch.randn(2, 16, 64, device=cuda)
@@ -135,3 +195,42 @@ def test_server_on_the_card_matches_the_host(cuda):
                         scope=host_scope)
         np.testing.assert_allclose(out[0], ref[0, :len(ids)], rtol=1e-4,
                                    atol=1e-4)
+
+
+def test_training_on_the_card_matches_the_host(cuda):
+    from paddle_tpu_torch import optimizer as opt
+    cfg = T.BertConfig(vocab_size=64, d_model=32, n_layer=2, n_head=4,
+                       d_inner=64, max_pos=64, dropout=0.0)
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        _, _, loss = T.build_gpt_pretrain(cfg, 64, attn_impl="flash",
+                                          fused_head=True, dropout=0.0)
+        opt.AdamOptimizer(1e-3).minimize(loss)
+    exe, host = ptt.Executor(), ptt.Executor(ptt.CPUPlace())
+    scope, host_scope = Scope(), Scope()
+    exe.run(startup, scope=scope, seed=3)
+    for name, val in scope.items():
+        host_scope.set_var(name, val.cpu())
+    rng = np.random.RandomState(0)
+    ids = rng.randint(1, 64, (2, 64)).astype(np.int64)
+    feed = {"src_ids": ids, "lm_label": np.roll(ids, -1, axis=1)}
+    n0 = (fa.launch_count("flash_attn_fwd"), fa.launch_count("flash_attn_bwd"))
+    for _ in range(3):
+        got, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        want, = host.run(main, feed=feed, fetch_list=[loss],
+                         scope=host_scope)
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert (fa.launch_count("flash_attn_fwd") - n0[0],
+            fa.launch_count("flash_attn_bwd") - n0[1]) == (6, 6)
+    d = cfg.d_model
+    for p in main.all_parameters():
+        got = scope.find_var(p.name).cpu().numpy()
+        want = host_scope.find_var(p.name).numpy()
+        if p.name.endswith("attn.qkv.b"):
+            # the key third's exact gradient is zero: Adam steps on noise
+            np.testing.assert_allclose(got[d:2 * d], want[d:2 * d], rtol=0,
+                                       atol=3e-3, err_msg=p.name)
+            got = np.concatenate([got[:d], got[2 * d:]])
+            want = np.concatenate([want[:d], want[2 * d:]])
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=2e-5,
+                                   err_msg=p.name)

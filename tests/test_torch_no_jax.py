@@ -1,7 +1,8 @@
 """The port stands alone: no JAX and nothing of ``paddle_tpu``.
 
 - in a subprocess where ``import jax`` and ``import paddle_tpu`` fail,
-  importing ``paddle_tpu_torch`` and serving one request on the CPU works;
+  importing ``paddle_tpu_torch``, serving one request and taking one Adam
+  step of a tiny GPT on the CPU works;
 - a source scan finds no ``jax`` or ``paddle_tpu`` import in the package or
   in ``chip_smoke.py``;
 - ``Executor()`` (the card by default) raises when there is no GPU.
@@ -50,9 +51,24 @@ _BLOCKED = textwrap.dedent("""
     srv.drain(10)
     srv.stop()
     assert out[0].shape == (5, 48), out[0].shape
+
+    from paddle_tpu_torch import optimizer
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        _, _, loss = T.build_gpt_pretrain(cfg, 8, attn_impl="flash",
+                                          dropout=0.0)
+        optimizer.AdamOptimizer(1e-3).minimize(loss)
+    train_scope = Scope()
+    exe.run(startup, scope=train_scope, seed=2)
+    ids = np.arange(1, 17).reshape(2, 8)
+    l0, = exe.run(main, feed={"src_ids": ids, "lm_label": ids},
+                  fetch_list=[loss], scope=train_scope)
+    l1, = exe.run(main, feed={"src_ids": ids, "lm_label": ids},
+                  fetch_list=[loss], scope=train_scope)
+    assert l1 < l0, (l0, l1)
     assert not [m for m, mod in sys.modules.items() if mod is not None
                 and (m == "jax" or m.startswith(("jax.", "paddle_tpu.")))]
-    print("served", out[0].shape)
+    print("served", out[0].shape, "trained", float(l0), float(l1))
 """)
 
 
