@@ -27,11 +27,26 @@ JAX, prints one line per phase, and raises on any failure:
    and every step must launch the flash forward and the flash backward 12
    times each.  Then a 2-layer, batch-1, seq-1024 step on the card must
    match the same step run by the port on the CPU.
-5. ``timing`` — each kernel, its plain version and one PyTorch library call
-   computing the same function, with CUDA events, at the main-path shape
-   [96, 2048, 64] causal; the least time the card could take (``bound``);
-   the server's per-bucket batch latency, requests/s and tokens/s, and the
-   training step's time, tokens/s and peak memory.
+5. ``resnet`` — ResNet-50 (1000 classes, 3x224x224, depth 50, random
+   weights from a seed) trained through ``build_resnet_train``,
+   ``MomentumOptimizer(0.1, 0.9).minimize`` and ``Executor().run`` at batch
+   128, float32, TF32 off: the executor's fusion pass rewrites the 36
+   conv1x1 + batch_norm pairs into ``fused_conv1x1_bn``, so every step must
+   launch K3 36 times; one warm-up step and 5 timed steps on one fixed
+   batch, with finite, falling losses.  Then one step on the card against
+   the same step on the host: fused (the card rounds K3's operands to
+   bf16, the host multiplies in float32) on a toy of two bottleneck blocks
+   (loss within 2^-6) and at depth 50, 3x64x64, batch 8 (within 2^-3), and
+   unfused (``FLAGS_graph_fusion`` off, float32 on both sides) at depth 50
+   (loss 1e-4, BN running statistics 2^-10 and classifier gradients 2^-8
+   of their largest magnitude).
+6. ``timing`` — each kernel, its plain version and one PyTorch library call
+   computing the same function, with CUDA events, at the main-path shapes
+   ([96, 2048, 64] causal for K1/K2, ResNet-50's 15 conv1x1 shapes at batch
+   128 for K3); the least time the card could take (``bound``); the
+   server's per-bucket batch latency, requests/s and tokens/s, the GPT
+   training step's time, tokens/s and peak memory, and the ResNet step's
+   time, images/s, peak memory and summed K3 time.
 
 Then one JSON line describing every kernel, the ``nvidia-smi`` line, and a
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -51,6 +66,12 @@ import time
 import numpy as np
 
 ATOL, RTOL = 1e-5, 1e-4                 # kernel vs plain, float32
+# K3 vs its plain version: both sum exact bf16 products in float32, in
+# other orders, so y may differ by a few float32 ulps of the sum of |terms|
+# (16 ulps: 2^-20 of sum |w||x|); s sums N*P values of either sign (2^-14
+# of sum |y|: the sequential part of the kernel's reduction adds up to ~800
+# row partials), s2 positive values (2^-14 relative)
+K3_SUM_RTOL, K3_STAT_RTOL = 2.0 ** -20, 2.0 ** -14
 SERVE_ATOL, SERVE_RTOL = 2e-3, 2e-3     # card vs host logits, float32
 # card vs host training step.  The fused LM head rounds its products to
 # bf16, and a sum taken in another order can round to the neighbouring bf16
@@ -64,20 +85,43 @@ TRAIN_GRAD_ATOL_FRAC, TRAIN_GRAD_TIGHT_FRAC = 2.0 ** -8, 1e-4
 TRAIN_GRAD_TIGHT_SHARE = 1e-4
 SLICE = (96, 2048, 64)                  # 8 sequences x 12 heads, T, d_head
 TRAIN_BATCH, TRAIN_STEPS = 8, 5
+RESNET_BATCH, RESNET_STEPS = 128, 5
+# ResNet card vs host, one step.  The fused step: K3 rounds its operands to
+# bf16 on the card (as the TPU kernel does) and the host multiplies in
+# float32, so each fused product differs by up to 2^-8 relative.  A
+# randomly initialised ResNet-50 amplifies such differences chaotically (a
+# ReLU input within rounding of 0 flips; the loss of a depth-50, 3x64x64,
+# batch-8 step moved by 4.1e-3 with bf16 operands on the host, by 1.4e-2
+# and 3.9e-2 with two builds of K3 on the card), so the fused step is held
+# to 2^-6 on the loss at the toy (two bottleneck blocks, 16 filters, where
+# the noise stays near the bf16 level) and only to 2^-3 at depth 50, a
+# check for gross errors.  The unfused step is float32 on both sides: at
+# depth 50 the loss to 1e-4, every BN running statistic after the step to
+# 2^-10 of its tensor's largest magnitude, and the classifier's gradients
+# to 2^-8 of theirs.  Deeper gradients are reported, not held: at this
+# batch one flipped pixel moves a conv weight's gradient by a few percent
+# (a float64 host product in place of the float32 one moves them by 2-9%
+# of their largest value).
+RESNET_TOY_LOSS_RTOL, RESNET_FUSED_LOSS_RTOL = 2.0 ** -6, 2.0 ** -3
+RESNET_F32_LOSS_RTOL, RESNET_F32_STAT_FRAC = 1e-4, 2.0 ** -10
+RESNET_F32_GRAD_FRAC = 2.0 ** -8
+RESNET_SMALL = dict(class_dim=10, depth=50, image_shape=(3, 64, 64))
+RESNET_SMALL_BATCH = 8
 
-# NVIDIA data-sheet peaks (dense): float32 on the CUDA cores, HBM bandwidth
-_PEAKS = (("PCIe", 51e12, 2.0e12), ("NVL", 60e12, 3.9e12),
-          ("H100", 67e12, 3.35e12), ("H200", 67e12, 4.8e12))
+# NVIDIA data-sheet peaks (dense): float32 on the CUDA cores, bf16 on the
+# tensor cores, HBM bandwidth
+_PEAKS = (("PCIe", 51e12, 756e12, 2.0e12), ("NVL", 60e12, 835e12, 3.9e12),
+          ("H100", 67e12, 989e12, 3.35e12), ("H200", 67e12, 989e12, 4.8e12))
 
 
 def _log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
-def _peaks(name):
-    for key, flops, bw in _PEAKS:
+def _peaks(name, kind="float32"):
+    for key, f32, bf16, bw in _PEAKS:
         if key in name:
-            return flops, bw
+            return (f32 if kind == "float32" else bf16), bw
     raise RuntimeError(f"no peak table entry for card {name!r}")
 
 
@@ -123,16 +167,51 @@ def phase_env():
     return smi
 
 
-def _check(name, got, ref):
+def _check(name, got, ref, extra=None):
+    """Max abs error of ``got`` against ``ref``; raises unless every value
+    is within ``ATOL + RTOL * |ref|`` (plus ``extra``, a per-value or
+    scalar allowance, where given)."""
     import torch
-    bad = ~torch.isclose(got, ref, rtol=RTOL, atol=ATOL)
     err = (got - ref).abs()
+    bound = ATOL + RTOL * ref.abs()
+    if extra is not None:
+        bound = bound + extra
+    bad = ~(err <= bound)
+    bad &= ~((got == ref) | (torch.isnan(got) & torch.isnan(ref)))
     finite = torch.isfinite(err)
     max_abs = float(err[finite].max()) if finite.any() else 0.0
     if bad.any():
+        more = " + sum allowance" if extra is not None else ""
         raise AssertionError(f"{name}: {int(bad.sum())} values outside "
-                             f"atol {ATOL} rtol {RTOL}; max abs {max_abs}")
+                             f"atol {ATOL} rtol {RTOL}{more}; max abs "
+                             f"{max_abs}")
     return max_abs
+
+
+#: ResNet-50's conv1x1 shapes (Cin, Cout, H*W) at 224x224: what K3 gets
+K3_SHAPES = ((64, 64, 3136), (64, 256, 3136), (256, 64, 3136),
+             (256, 128, 3136), (128, 512, 784), (256, 512, 784),
+             (512, 128, 784), (512, 256, 784), (256, 1024, 196),
+             (512, 1024, 196), (1024, 256, 196), (1024, 512, 196),
+             (512, 2048, 49), (1024, 2048, 49), (2048, 512, 49))
+
+
+def check_k3(name, x, w):
+    """K3 against its plain version on the card: y per value within the
+    float32 allowance of its sum, s and s2 within theirs."""
+    import torch
+    from paddle_tpu_torch.kernels import conv_bn as cb
+    y, s, s2 = cb.conv1x1_stats_fwd(x, w)
+    torch.cuda.synchronize()
+    ry, rs, rs2 = cb.conv1x1_stats_plain(x, w)
+    terms = torch.einsum("oc,ncp->nop", w.to(torch.bfloat16).float().abs(),
+                         x.to(torch.bfloat16).float().abs())
+    e_y = _check(name + " y", y, ry, K3_SUM_RTOL * terms)
+    del terms
+    e_s = _check(name + " s", s, rs,
+                 K3_STAT_RTOL * ry.abs().sum(dim=(0, 2)))
+    e_s2 = _check(name + " s2", s2, rs2, K3_STAT_RTOL * rs2)
+    return e_y, e_s, e_s2
 
 
 def phase_kernel():
@@ -196,6 +275,34 @@ def phase_kernel():
              f" dk {errs[1]:.3g} dv {errs[2]:.3g} (atol {ATOL}, rtol "
              f"{RTOL}) ok")
         del got, want
+
+    # K3 at ResNet-50's shapes at the training batch, then the edges
+    k3_cases = [(f"[{RESNET_BATCH}, {ci}, {p}] x [{co}, {ci}]",
+                 RESNET_BATCH, ci, co, p, 1) for ci, co, p in K3_SHAPES]
+    k3_cases += [("N=1 P=49", 1, 512, 2048, 49, 1),
+                 ("Cin 13 Cout 70 P 65 (ragged tiles)", 3, 13, 70, 65, 1),
+                 ("Cin 12 Cout 20 P 49", 5, 12, 20, 49, 1),
+                 ("Cin 3 Cout 5 P 1", 2, 3, 5, 1, 1),
+                 ("stride-2 view of [8, 256, 56, 56]", 8, 256, 512, 3136, 2),
+                 ("stride-2 view of [8, 1024, 14, 14]", 8, 1024, 2048, 196,
+                  2)]
+    worst["conv1x1_stats"] = 0.0
+    for name, n, ci, co, p, stride in k3_cases:
+        side = int(round(p ** 0.5))
+        if stride > 1:
+            x4 = torch.randn(n, ci, side, side, device="cuda", generator=g)
+            x = x4[:, :, ::stride, ::stride].reshape(n, ci, -1)
+            del x4
+        else:
+            x = torch.randn(n, ci, p, device="cuda", generator=g)
+        w = torch.randn(co, ci, device="cuda", generator=g) * ci ** -0.5
+        e_y, e_s, e_s2 = check_k3(name, x, w)
+        worst["conv1x1_stats"] = max(worst["conv1x1_stats"], e_y)
+        _log("kernel", f"conv1x1_stats {name}: max abs err y {e_y:.3g} s "
+             f"{e_s:.3g} s2 {e_s2:.3g} (atol {ATOL}, rtol {RTOL}, + "
+             f"{K3_SUM_RTOL:.3g} sum|w||x| on y, {K3_STAT_RTOL:.3g} of "
+             f"sum|y| / s2 on the stats) ok")
+        del x, w
     return worst
 
 
@@ -438,6 +545,228 @@ def phase_train():
             "loss": loss, "scope": scope, "feed": feed}
 
 
+def _resnet_program(**kw):
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.framework import Program, program_guard
+    from paddle_tpu_torch.models import resnet
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        _, _, loss, accs = resnet.build_resnet_train(**kw)
+        optimizer.MomentumOptimizer(learning_rate=0.1,
+                                    momentum=0.9).minimize(loss)
+    return main, startup, loss, accs
+
+
+def _resnet_feed(batch, class_dim, image_shape, seed=0):
+    """bench.py:208-214: one fixed batch of uniform images and labels."""
+    rng = np.random.RandomState(seed)
+    return {"image": rng.rand(batch, *image_shape).astype(np.float32),
+            "label": rng.randint(0, class_dim, (batch, 1)).astype(np.int64)}
+
+
+def _train_plan(exe):
+    """The executor's one plan of a training program (the fused program
+    it runs in place of the one it was given)."""
+    plan, = [p for p in exe._plans.values()
+             if any(op.type == "momentum" for op, _ in p.ops)]
+    return plan
+
+
+def _fused_shapes(plan):
+    """(Cin, Cout, H*W) of each fused_conv1x1_bn op the plan runs."""
+    block = plan.block
+    out = []
+    for op, _ in plan.ops:
+        if op.type != "fused_conv1x1_bn":
+            continue
+        w = block.var(op.input("Filter")[0]).shape
+        y = block.var(op.output("Y")[0]).shape
+        out.append((int(w[1]), int(w[0]), int(y[2]) * int(y[3])))
+    return out
+
+
+def _toy_resnet_program():
+    """Two bottleneck blocks (strides 1 and 2, 16 filters) on a [16, 8, 8]
+    input, global pooling, fc with softmax: 6 fused conv1x1 + BN pairs."""
+    from paddle_tpu_torch import layers, optimizer
+    from paddle_tpu_torch.framework import Program, program_guard
+    from paddle_tpu_torch.models import resnet
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        img = layers.data("image", shape=[16, 8, 8], dtype="float32")
+        label = layers.data("label", shape=[1], dtype="int64")
+        h = resnet.bottleneck_block(img, 16, 1, "bb0")
+        h = resnet.bottleneck_block(h, 16, 2, "bb1")
+        pred = layers.fc(layers.pool2d(h, pool_type="avg",
+                                       global_pooling=True), size=4,
+                         act="softmax", param_attr="fc_out.w",
+                         bias_attr="fc_out.b")
+        loss = layers.mean(layers.cross_entropy(pred, label))
+        optimizer.MomentumOptimizer(learning_rate=0.1,
+                                    momentum=0.9).minimize(loss)
+    return main, startup, loss
+
+
+def _resnet_small_check(exe, model, fused):
+    """One step on the card against the same step on the host: the toy or
+    depth 50 at 3x64x64, batch 8, with the fusion pass on or off."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.kernels import conv_bn as cb
+    if model == "toy":
+        main, startup, loss = _toy_resnet_program()
+        feed = _resnet_feed(4, 4, (16, 8, 8), seed=1)
+        n_fused, what = 6, "toy (2 bottleneck blocks, 16 filters) batch-4"
+        tol = RESNET_TOY_LOSS_RTOL
+    else:
+        main, startup, loss, _ = _resnet_program(**RESNET_SMALL)
+        feed = _resnet_feed(RESNET_SMALL_BATCH, RESNET_SMALL["class_dim"],
+                            RESNET_SMALL["image_shape"], seed=1)
+        n_fused = 36
+        what = f"depth-50 3x64x64 batch-{RESNET_SMALL_BATCH}"
+        tol = RESNET_FUSED_LOSS_RTOL if fused else RESNET_F32_LOSS_RTOL
+    scope, host_scope = Scope(), Scope()
+    exe.run(startup, scope=scope, seed=7)
+    for name, val in scope.items():
+        host_scope.set_var(name, val.detach().cpu())
+    held = ["fc_out.w@GRAD", "fc_out.b@GRAD"]
+    grads = held + ([] if model == "toy" else [
+        "res3_2.b2.conv.w@GRAD", "res2_0.short.conv.w@GRAD",
+        "res0_0.b0.conv.w@GRAD", "stem.conv.w@GRAD"])
+    fetch = [loss.name] + grads
+    flags.set_flags({"FLAGS_graph_fusion": fused})
+    try:
+        n0 = cb.launch_count()
+        card = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        k3 = cb.launch_count() - n0
+        t_c = time.perf_counter()
+        host = ptt.Executor(ptt.CPUPlace()).run(main, feed=feed,
+                                                fetch_list=fetch,
+                                                scope=host_scope)
+        host_s = time.perf_counter() - t_c
+    finally:
+        flags.set_flags({"FLAGS_graph_fusion": True})
+    if k3 != (n_fused if fused else 0):
+        raise AssertionError(f"K3 launched {k3} times in the "
+                             f"{'fused' if fused else 'unfused'} step")
+    loss_err = abs(float(card[0]) - float(host[0])) / abs(float(host[0]))
+    if not loss_err <= tol:
+        raise AssertionError(f"{what}: card loss {float(card[0])} vs host "
+                             f"{float(host[0])}: rel err {loss_err} > {tol}")
+
+    def frac(c, h):
+        c, h = np.asarray(c, np.float64), np.asarray(h, np.float64)
+        return float(np.abs(c - h).max()) / max(float(np.abs(h).max()),
+                                                1e-30)
+
+    grad_err = {name: frac(c, h)
+                for name, c, h in zip(grads, card[1:], host[1:])}
+    stats = [v.name for v in main.list_vars()
+             if v.name.endswith((".bn.mean", ".bn.var"))]
+    stat_err = max(frac(scope.find_var(n).cpu(), host_scope.find_var(n))
+                   for n in stats)
+    if not fused:
+        bad = {n: e for n, e in grad_err.items()
+               if n in held and not e <= RESNET_F32_GRAD_FRAC}
+        if bad or not stat_err <= RESNET_F32_STAT_FRAC:
+            raise AssertionError(
+                f"unfused card step vs host: classifier gradients {bad} "
+                f"(bound {RESNET_F32_GRAD_FRAC:.3g} x max|g|), BN running "
+                f"statistics {stat_err:.3g} (bound "
+                f"{RESNET_F32_STAT_FRAC:.3g} x max|v|)")
+    how = "fused (K3, bf16 operands)" if fused else "unfused (float32)"
+    _log("resnet", f"{what} {how} step vs host run ({host_s:.1f} s): loss "
+         f"{float(card[0]):.6f} vs {float(host[0]):.6f}, rel err "
+         f"{loss_err:.3g} (rtol {tol:.3g}); {len(stats)} BN running "
+         f"statistics max err / max|v| {stat_err:.3g}"
+         + ("" if fused else f" (bound {RESNET_F32_STAT_FRAC:.3g})")
+         + "; grads max abs err / max|g|: "
+         + "; ".join(f"{n.split('@')[0]} {e:.3g}"
+                     for n, e in grad_err.items())
+         + ("" if fused else f" (classifier's bound "
+                             f"{RESNET_F32_GRAD_FRAC:.3g})")
+         + f"; K3 launches {k3} ok")
+    return {"loss_rel_err": loss_err, "stat_err_frac": stat_err,
+            "grad_err_frac": grad_err}
+
+
+def phase_resnet():
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.kernels import conv_bn as cb
+
+    cfg = dict(class_dim=1000, depth=50, image_shape=(3, 224, 224))
+    t_b = time.perf_counter()
+    main, startup, loss, accs = _resnet_program(**cfg)
+    types = [op.type for op in main.global_block().ops]
+    scope, exe = Scope(), ptt.Executor()
+    exe.run(startup, scope=scope, seed=1234)
+    n_params = sum(int(scope.find_var(p.name).numel())
+                   for p in main.all_parameters() if p.trainable)
+    _log("resnet", f"ResNet-50 training program: {len(types)} ops "
+         f"({types.count('conv2d')} conv2d, {types.count('batch_norm')} "
+         f"batch_norm, {types.count('momentum')} momentum), "
+         f"{n_params / 1e6:.2f} M trainable parameters on {exe.device}; "
+         f"built in {time.perf_counter() - t_b:.1f} s")
+    feed = _resnet_feed(RESNET_BATCH, cfg["class_dim"], cfg["image_shape"])
+    fetch = [loss, accs[0], accs[1]]
+
+    # the main path, counted: a warm-up step and the timed steps
+    cb.reset_launch_count()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()    # earlier phases' and the weights
+    t_w = time.perf_counter()
+    out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    warm_s = time.perf_counter() - t_w
+    per_step = [cb.launch_count()]
+    losses, acc1 = [float(out[0])], [float(out[1])]
+    step_s = []
+    for _ in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        per_step.append(cb.launch_count() - sum(per_step))
+        losses.append(float(out[0]))
+        acc1.append(float(out[1]))
+    launches = cb.launch_count()
+    peak = torch.cuda.max_memory_allocated()
+    plan = _train_plan(exe)
+    shapes = _fused_shapes(plan)
+    ftypes = [op.type for op, _ in plan.ops]
+    step_ms = 1e3 * float(np.mean(step_s))
+    _log("resnet", f"batch {RESNET_BATCH} x 3x224x224 float32: fused plan "
+         f"of {len(ftypes)} ops (36 fused_conv1x1_bn + 36 grads, "
+         f"{ftypes.count('conv2d')} conv2d left); warm-up step "
+         f"{warm_s:.2f} s, then {RESNET_STEPS} steps of "
+         f"{', '.join(f'{1e3 * x:.1f}' for x in step_s)} ms; losses "
+         f"{', '.join(f'{x:.4f}' for x in losses)}; top-1 acc "
+         f"{acc1[0]:.3f} -> {acc1[-1]:.3f}; K3 launches {per_step} = "
+         f"{launches}; peak memory {peak / 2**30:.2f} GiB, of which "
+         f"{held / 2**30:.2f} GiB allocated before the first step")
+    if len(shapes) != 36 or ftypes.count("fused_conv1x1_bn_grad") != 36:
+        raise AssertionError(f"the fusion pass gave {len(shapes)} fused ops "
+                             f"and {ftypes.count('fused_conv1x1_bn_grad')} "
+                             "fused grads, expected 36 and 36")
+    if per_step != [36] * (RESNET_STEPS + 1):
+        raise AssertionError(f"K3 launches per step {per_step}, expected 36 "
+                             f"in each of {RESNET_STEPS + 1} steps")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"ResNet losses not finite and falling: "
+                             f"{losses}")
+    small = {"toy_fused": _resnet_small_check(exe, "toy", True),
+             "fused": _resnet_small_check(exe, "depth50", True),
+             "unfused": _resnet_small_check(exe, "depth50", False)}
+    return {"launches": launches, "per_step": per_step, "losses": losses,
+            "step_ms": step_ms, "step_s": step_s, "warmup_s": warm_s,
+            "images_per_s": RESNET_BATCH / (step_ms / 1e3),
+            "peak_bytes": peak, "held_bytes": held, "shapes": shapes,
+            "small": small,
+            "main": main, "fetch": fetch, "scope": scope, "feed": feed}
+
+
 def _profile_rows(prof):
     """(device ms, count, name) of every kernel and copy on the card; host
     ops (aten, autograd nodes, Function records) only aggregate these."""
@@ -491,6 +820,73 @@ def phase_profile(serve):
             "top": rows[:20]}
 
 
+def phase_resnet_profile(resnet):
+    """Device time of one ResNet-50 step by kernel class, with
+    ``torch.profiler``; the Momentum ops are marked with a
+    ``record_function`` range, whose device total is their kernels'."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework import registry
+    from torch.profiler import ProfilerActivity, profile, record_function
+    exe = ptt.Executor()
+    args = dict(feed=resnet["feed"], fetch_list=resnet["fetch"],
+                scope=resnet["scope"])
+    exe.run(resnet["main"], **args)
+    torch.cuda.synchronize()
+    info = registry.get_op_info("momentum")
+    lower = info.lower
+
+    def marked(ctx, ins, attrs):
+        with record_function("momentum_op"):
+            return lower(ctx, ins, attrs)
+
+    info.lower = marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            exe.run(resnet["main"], **args)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        info.lower = lower
+    # the range's own GPU-side row is a span, not a kernel: leave it out
+    rows = [r for r in _profile_rows(prof) if r[2] != "momentum_op"]
+    momentum_ms = sum(
+        (getattr(e, "device_time_total", None) or
+         getattr(e, "cuda_time_total", 0.0)) / 1e3
+        for e in prof.key_averages() if e.key == "momentum_op"
+        and not str(getattr(e, "device_type", "")).endswith("CUDA"))
+    classes = {"K3 (conv1x1_stats)": 0.0, "cuDNN convolutions": 0.0,
+               "GEMMs": 0.0, "copies": 0.0,
+               "BN, elementwise, reductions, Momentum": 0.0}
+    for ms, _, key in rows:
+        k = key.lower()
+        if "conv1x1_stats" in k or "stats_kernel" in k:
+            cls = "K3 (conv1x1_stats)"
+        elif k.startswith("memcpy") or k.startswith("memset"):
+            cls = "copies"
+        elif any(t in k for t in ("conv", "cudnn", "xmma", "dgrad", "wgrad",
+                                  "fprop", "winograd", "implicit")):
+            cls = "cuDNN convolutions"
+        elif "gemm" in k or "cutlass" in k:
+            cls = "GEMMs"
+        else:
+            cls = "BN, elementwise, reductions, Momentum"
+        classes[cls] += ms
+    kernel_ms = sum(v for c, v in classes.items() if c != "copies")
+    _log("profile", f"ResNet-50 step, batch {RESNET_BATCH}: wall "
+         f"{wall_ms:.1f} ms; kernels {kernel_ms:.1f} ms "
+         f"({100 * kernel_ms / wall_ms:.1f}% of wall)")
+    for cls, ms in classes.items():
+        _log("profile", f"  {ms:9.2f} ms  {cls}")
+    _log("profile", f"  of which Momentum's ops {momentum_ms:.2f} ms")
+    for ms, count, key in rows[:24]:
+        _log("profile", f"  {ms:9.2f} ms  x{count:<4d} {key[:90]}")
+    return {"wall_ms": wall_ms, "kernel_ms": kernel_ms, "classes": classes,
+            "momentum_ms": momentum_ms, "top": rows[:40]}
+
+
 def phase_train_profile(train):
     """Device time of one full-width training step by kernel, with
     ``torch.profiler``: where a step's time goes."""
@@ -518,13 +914,81 @@ def phase_train_profile(train):
     return {"wall_ms": wall_ms, "kernel_ms": kernel_ms, "top": rows[:40]}
 
 
-def _bound(flops, nbytes):
+def _bound(flops, nbytes, kind="float32"):
     import torch
-    peak_flops, peak_bw = _peaks(torch.cuda.get_device_name(0))
+    peak_flops, peak_bw = _peaks(torch.cuda.get_device_name(0), kind)
     t_ops, t_mem = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
     return (max(t_ops, t_mem), "operations" if t_ops >= t_mem else "bytes",
-            f"{flops / 1e9:.1f} GFLOP at {peak_flops / 1e12:.0f} TFLOP/s, "
-            f"{nbytes / 1e6:.0f} MB at {peak_bw / 1e12:.2f} TB/s")
+            f"{flops / 1e9:.1f} GFLOP at {peak_flops / 1e12:.0f} TFLOP/s "
+            f"{kind}, {nbytes / 1e6:.0f} MB at {peak_bw / 1e12:.2f} TB/s")
+
+
+def timing_k3(smi, resnet):
+    """K3 at each of ResNet-50's 15 shapes at the training batch: kernel,
+    plain version, one library composition (a bf16 ``torch.matmul`` of the
+    cast operands plus the two float32 reductions) and the bound (x, w, y
+    and the stats moved once in float32; 2*N*P*Cin*Cout bf16 products at
+    the tensor-core rate); then the per-step sums over the 36 launches."""
+    import torch
+    from paddle_tpu_torch.kernels import conv_bn as cb
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    counts = {sh: resnet["shapes"].count(sh) for sh in K3_SHAPES}
+    if sum(counts.values()) != 36:
+        raise AssertionError(f"fused shapes {resnet['shapes']} are not "
+                             "ResNet-50's")
+    n = RESNET_BATCH
+    rows, totals = [], dict.fromkeys(("ms", "plain_ms", "library_ms",
+                                      "bound_ms"), 0.0)
+    by_bytes = 0.0          # the part of the summed bound set by bytes
+    for ci, co, p in K3_SHAPES:
+        x = torch.randn(n, ci, p, device="cuda", generator=g)
+        w = torch.randn(co, ci, device="cuda", generator=g) * ci ** -0.5
+
+        def library():
+            y = torch.matmul(w.to(torch.bfloat16), x.to(torch.bfloat16))
+            yf = y.float()
+            return yf.sum(dim=(0, 2)), (yf * yf).sum(dim=(0, 2))
+
+        ms = _time_ms(lambda: cb.conv1x1_stats_fwd(x, w), 10)
+        plain_ms = _time_ms(lambda: cb.conv1x1_stats_plain(x, w), 3)
+        library_ms = _time_ms(library, 10)
+        flops = 2.0 * n * p * ci * co
+        nbytes = 4.0 * (n * ci * p + co * ci + n * co * p + 2 * co)
+        bound_ms, bound_by, why = _bound(flops, nbytes, "bfloat16")
+        k = counts[(ci, co, p)]
+        by_bytes += k * bound_ms if bound_by == "bytes" else 0.0
+        rows.append({"shape": [n, ci, co, p], "per_step": k, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "tflops": flops / ms / 1e9})
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", library_ms),
+                         ("bound_ms", bound_ms)):
+            totals[key] += k * val
+        _log("timing", f"conv1x1_stats [{n}, {ci}, {p}] x [{co}, {ci}] "
+             f"(x{k} a step): kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+             f"TFLOP/s), plain {plain_ms:.4f} ms, bf16 matmul + sums "
+             f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+             f"({why}): {100 * bound_ms / ms:.1f}% of bound")
+        del x, w
+    _log("timing", f"conv1x1_stats per ResNet-50 step (36 launches) on "
+         f"{smi}: kernel {totals['ms']:.3f} ms, plain "
+         f"{totals['plain_ms']:.3f} ms, bf16 matmul + sums "
+         f"{totals['library_ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms"
+         f" ({100 * totals['bound_ms'] / totals['ms']:.1f}% of bound)")
+    _log("timing", f"resnet on {smi}: step {resnet['step_ms']:.1f} ms (mean "
+         f"of {RESNET_STEPS}), {resnet['images_per_s']:.1f} images/s, K3 "
+         f"{100 * totals['ms'] / resnet['step_ms']:.1f}% of the step, peak "
+         f"memory {resnet['peak_bytes'] / 2**30:.2f} GiB "
+         f"({(resnet['peak_bytes'] - resnet['held_bytes']) / 2**30:.2f} GiB "
+         f"above what was allocated before the first step)")
+    bound_by = "bytes" if by_bytes >= totals["bound_ms"] / 2 \
+        else "operations"
+    return {"ms": totals["ms"], "plain_ms": totals["plain_ms"],
+            "library_ms": totals["library_ms"],
+            "bound_ms": totals["bound_ms"], "bound_by": bound_by,
+            "per_shape": rows}
 
 
 def phase_timing(smi, serve, train):
@@ -611,6 +1075,8 @@ _KERNELS = (
      "paddle_tpu/pallas/flash_attention.py:179"),
     ("flash_attn_bwd", "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
      "paddle_tpu/pallas/flash_attention.py:499"),
+    ("conv1x1_stats", "paddle_tpu_torch/csrc/conv1x1_stats.cu",
+     "paddle_tpu/pallas/conv_bn.py:143"),
 )
 
 
@@ -618,8 +1084,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", help="also write every measurement here")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one bucket-2048 batch and one "
-                         "training step by kernel")
+                    help="also profile one bucket-2048 batch, one GPT "
+                         "training step and one ResNet-50 step by kernel")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -636,15 +1102,20 @@ def main(argv=None) -> int:
     worst = phase_kernel()
     serve = phase_serve()
     train = phase_train()
+    resnet = phase_resnet()
     timing = phase_timing(smi, serve, train)
+    timing["conv1x1_stats"] = timing_k3(smi, resnet)
+    k3_shapes = timing["conv1x1_stats"].pop("per_shape")
     prof = None
     if args.profile:
         prof = {"serve": phase_profile(serve),
-                "train": phase_train_profile(train)}
+                "train": phase_train_profile(train),
+                "resnet": phase_resnet_profile(resnet)}
     by_path = {"flash_attn_fwd": {"serve": serve["launches"],
                                   "train": train["launches"]["flash_attn_fwd"]},
                "flash_attn_bwd": {"train":
-                                  train["launches"]["flash_attn_bwd"]}}
+                                  train["launches"]["flash_attn_bwd"]},
+               "conv1x1_stats": {"resnet": resnet["launches"]}}
     kernels = [dict(name=name, route="cuda", source=src, replaces=ref,
                     launches=sum(by_path[name].values()),
                     launches_by_path=by_path[name],
@@ -655,11 +1126,15 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.json, "w") as f:
             json.dump({"gpu": smi, "kernels": kernels, "profile": prof,
+                       "conv1x1_stats_shapes": k3_shapes,
                        "serve": {k: v for k, v in serve.items()
                                  if k not in ("scope", "factory")},
                        "train": {k: v for k, v in train.items()
                                  if k not in ("main", "loss", "scope",
-                                              "feed")}},
+                                              "feed")},
+                       "resnet": {k: v for k, v in resnet.items()
+                                  if k not in ("main", "fetch", "scope",
+                                               "feed")}},
                       f, indent=1, default=float)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,8 +1,9 @@
 """CompiledProgram (ref ``python/paddle/fluid/compiler.py``; the port's
 counterpart of ``paddle_tpu/compiler.py:138``).
 
-It wraps a program and runs no passes yet: no graph fusion, no verifier,
-no cost or memory stamps.  The executor runs the wrapped program as it is.
+It wraps a program and runs no passes yet: no verifier, no cost or memory
+stamps, and no graph fusion (the executor runs the fusion pass on a plain
+Program only).  The executor runs the wrapped program as it is.
 """
 
 from __future__ import annotations

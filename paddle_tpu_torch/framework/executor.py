@@ -13,15 +13,23 @@ and the persistables to write back.  ``dispatch_stats()["traces"]`` counts
 plans built — the analog of the reference's compiled-block count, which the
 serving plane holds equal to the number of buckets.
 
+Graph fusion: before it builds the plan of a plain Program, the executor
+runs ``analysis.fusion.fuse_program`` at the real feed batch (the
+reference's plain-Program fusion slot, ``executor.py:1404-1413``) and plans
+the program it returns; the plan key carries the fusion flags' config
+token, so a flag flip re-plans.  A ``CompiledProgram`` runs as it is.
+
 Training: a synthesized ``*_grad`` op differentiates its forward op with
 ``torch.autograd`` (``registry.generic_grad_lower``).  Eager torch has no
 CSE to merge a recomputed forward with the original, so the plan pairs each
 generic grad op with its forward op, from the program alone, and the run
 executes that forward op once under ``torch.enable_grad()`` on detached
 inputs that require grad; its graph waits in a side table until the grad op
-takes it (and frees it).  Everything else runs under ``torch.no_grad()``,
-the optimizer ops included, and their outputs reach the scope through the
-write-back of persistables.
+takes it (and frees it).  A grad op is paired by the forward's type and
+inputs and by the output gradients it carries: a fused op's grad carries
+only ``OG$Y`` of its five outputs.  Everything else runs under
+``torch.no_grad()``, the optimizer ops included, and their outputs reach
+the scope through the write-back of persistables.
 
 Random ops draw from a ``torch.Generator`` on the executor's device, seeded
 per run from ``seed`` or from ``program.random_seed`` and a step counter
@@ -37,6 +45,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..analysis import fusion as _fusion
 from . import registry
 from .core import Program, Variable, default_main_program, grad_var_name
 from .scope import Scope, global_scope
@@ -86,20 +95,27 @@ class FetchHandle:
 
 
 def _fwd_key(op) -> tuple:
-    """What a forward op and its generic grad op share: the type, the
-    input names by slot and the grad names of the outputs by slot."""
+    """What a forward op and its generic grad op share: the type and the
+    input names by slot."""
     return (op.type,
-            tuple(sorted((s, tuple(ns)) for s, ns in op.inputs.items())),
-            tuple(sorted((s, tuple(grad_var_name(n) for n in ns))
-                         for s, ns in op.outputs.items())))
+            tuple(sorted((s, tuple(ns)) for s, ns in op.inputs.items())))
 
 
 def _grad_key(op) -> tuple:
     return (op.attrs["__fwd_type__"],
             tuple(sorted((s[2:], tuple(ns)) for s, ns in op.inputs.items()
-                         if s.startswith("X$"))),
-            tuple(sorted((s[3:], tuple(ns)) for s, ns in op.inputs.items()
-                         if s.startswith("OG$"))))
+                         if s.startswith("X$"))))
+
+
+def _carries_grads_of(grad_op, fwd_op) -> bool:
+    """Whether each output gradient the grad op carries (``OG$<slot>``) is
+    the gradient of ``fwd_op``'s output in that slot.  A grad op may carry
+    fewer slots than its forward has outputs."""
+    for s, ns in grad_op.inputs.items():
+        if s.startswith("OG$") and list(ns) != [
+                grad_var_name(n) for n in fwd_op.outputs.get(s[3:], [])]:
+            return False
+    return True
 
 
 class _Plan:
@@ -126,9 +142,12 @@ class _Plan:
             if registry.is_generic_grad(op):
                 self.ops.append(
                     (op, registry.get_op_info(op.attrs["__fwd_type__"])))
-                cands = fwd_at.get(_grad_key(op))
-                j = self.fwd_of[i] = cands.pop() if cands else None
+                cands = fwd_at.get(_grad_key(op), [])
+                j = next((c for c in reversed(cands)
+                          if _carries_grads_of(op, self.ops[c][0])), None)
+                self.fwd_of[i] = j
                 if j is not None:
+                    cands.remove(j)
                     self.wanted[j] = {s[3:]: [bool(n) for n in ns]
                                       for s, ns in op.outputs.items()
                                       if s.startswith("IG$")}
@@ -236,7 +255,8 @@ class Executor:
         numpy arrays, or as :class:`FetchHandle` s with
         ``return_numpy=False`` (the device work may still be running)."""
         from ..compiler import CompiledProgram
-        if isinstance(program, CompiledProgram):
+        compiled = isinstance(program, CompiledProgram)
+        if compiled:
             program = program.program
         if program is None:
             program = default_main_program()
@@ -245,15 +265,21 @@ class Executor:
         fetch_names = tuple(f.name if isinstance(f, Variable) else f
                             for f in (fetch_list or []))
         feed_names = tuple(sorted(feed))
-        key = (program.fingerprint(), feed_names,
-               tuple(_feed_sig(feed[n]) for n in feed_names), fetch_names,
-               scope._serial)
+        feed_sigs = tuple(_feed_sig(feed[n]) for n in feed_names)
+        key = (program.fingerprint(), feed_names, feed_sigs, fetch_names,
+               scope._serial, compiled, _fusion.config_token())
         with self._lock:
             plan = self._plans.get(key)
             if plan is None:
                 self._stats["cache_misses"] += 1
                 self._stats["traces"] += 1
-                plan = self._plans[key] = _Plan(program, fetch_names)
+                run_prog = program
+                if not compiled:
+                    # the plain-Program fusion slot, at the real batch
+                    run_prog = _fusion.fuse_program(
+                        program, fetch_names, feed_shapes={
+                            n: _feed_sig(v)[0] for n, v in feed.items()})
+                plan = self._plans[key] = _Plan(run_prog, fetch_names)
             else:
                 self._stats["cache_hits"] += 1
             self._stats["steps_dispatched"] += 1

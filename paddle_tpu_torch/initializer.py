@@ -1,10 +1,11 @@
 """Parameter initializers (the subset of ``paddle_tpu/initializer.py`` that
-fc, embedding, layer_norm and create_parameter use; ref
+fc, embedding, conv2d, layer_norm, batch_norm and create_parameter use; ref
 ``python/paddle/fluid/initializer.py``).
 
 Each initializer appends an init op to the *startup* program targeting the
 parameter var, exactly as the reference does: Constant → fill_constant,
-Uniform → uniform_random, Xavier → a scaled uniform.
+Uniform → uniform_random, Normal → gaussian_random, Xavier → a scaled
+uniform.
 """
 
 from __future__ import annotations
@@ -48,6 +49,20 @@ class UniformInitializer(Initializer):
                                "seed": self.seed})
 
 
+class NormalInitializer(Initializer):
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var, block=None):
+        block = block or default_startup_program().global_block()
+        block.create_var(name=var.name, shape=var.shape, dtype=var.dtype,
+                         persistable=True)
+        block.append_op("gaussian_random", outputs={"Out": [var.name]},
+                        attrs={"shape": list(var.shape), "dtype": var.dtype,
+                               "mean": self.loc, "std": self.scale,
+                               "seed": self.seed})
+
+
 def _fan_in_out(var):
     shape = var.shape
     if len(shape) < 2:
@@ -79,6 +94,7 @@ class XavierInitializer(Initializer):
 # aliases matching fluid's public names
 Constant = ConstantInitializer
 Uniform = UniformInitializer
+Normal = NormalInitializer
 Xavier = XavierInitializer
 
 

@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
 #: kernel name -> source file under csrc/
 SOURCES = {"flash_attn_fwd": "flash_attn_fwd.cu",
-           "flash_attn_bwd": "flash_attn_bwd.cu"}
+           "flash_attn_bwd": "flash_attn_bwd.cu",
+           "conv1x1_stats": "conv1x1_stats.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

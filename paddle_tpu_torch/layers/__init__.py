@@ -1,13 +1,15 @@
 """``paddle_tpu_torch.layers`` — the user-facing layer DSL (the subset of
 ``paddle_tpu.layers`` the port runs so far)."""
 
-from . import io, math_ops, nn, tensor  # noqa
+from . import io, math_ops, metric_op, nn, tensor  # noqa
 from .io import data  # noqa
 from .math_ops import scale  # noqa
-from .nn import (embedding, expand, fc, flash_attention,  # noqa
-                 fused_lm_head_ce, layer_norm, matmul, reduce_max,
-                 reduce_mean, reduce_min, reduce_prod, reduce_sum, relu,
-                 reshape, sign, slice, softmax, softmax_with_cross_entropy,
-                 split, transpose, unsqueeze)
+from .metric_op import accuracy  # noqa
+from .nn import (batch_norm, conv2d, cross_entropy, embedding,  # noqa
+                 expand, fc, flash_attention, fused_lm_head_ce, layer_norm,
+                 matmul, mean, pool2d, reduce_max, reduce_mean, reduce_min,
+                 reduce_prod, reduce_sum, relu, reshape, sign, slice,
+                 softmax, softmax_with_cross_entropy, split, topk,
+                 transpose, unsqueeze)
 from .tensor import (cast, create_global_var, create_parameter,  # noqa
                      fill_constant, range)

@@ -1,7 +1,7 @@
 """The layer DSL: Python functions appending ops to the default main program.
 
-The subset of ``paddle_tpu/layers/nn.py`` that the serving and training
-slices use, with
+The subset of ``paddle_tpu/layers/nn.py`` that the serving, GPT training
+and ResNet training slices use, with
 the reference's signatures and op descs (ref ``python/paddle/fluid/layers/
 nn.py``; ``fc`` at :231 is the canonical pattern: LayerHelper -> create
 params -> append ops -> bias -> activation).
@@ -11,8 +11,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..initializer import ConstantInitializer
+from ..framework.core import Variable
+from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
 from .math_ops import _elementwise_binary, scale  # noqa: F401  (re-export)
 
 
@@ -75,8 +77,111 @@ def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
 
 
 # ---------------------------------------------------------------------------
+# conv / pool
+# ---------------------------------------------------------------------------
+
+def _pair(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format="NCHW"):
+    """ref ``paddle_tpu/layers/nn.py:97`` → conv2d op + bias + act; the
+    filter starts from N(0, 2 / (kh·kw·C_in))."""
+    helper = LayerHelper("conv2d", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    groups = groups or 1
+    num_channels = input.shape[1] if data_format == "NCHW" \
+        else input.shape[-1]
+    fs = _pair(filter_size)
+    filter_shape = [num_filters, num_channels // groups] + fs
+    std = (2.0 / (fs[0] * fs[1] * num_channels)) ** 0.5
+    w = helper.create_parameter(param_attr, shape=filter_shape, dtype=dtype,
+                                default_initializer=NormalInitializer(0.0,
+                                                                      std))
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("conv2d", inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [pre_bias]},
+                     attrs={"strides": _pair(stride),
+                            "paddings": _pair(padding),
+                            "dilations": _pair(dilation), "groups": groups,
+                            "data_format": data_format})
+    if bias_attr is False:
+        pre_act = pre_bias
+    else:
+        b = helper.create_parameter(bias_attr, shape=[num_filters],
+                                    dtype=dtype, is_bias=True)
+        pre_act = helper.create_variable_for_type_inference(dtype)
+        helper.append_op("elementwise_add",
+                         inputs={"X": [pre_bias], "Y": [b]},
+                         outputs={"Out": [pre_act]}, attrs={"axis": 1})
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True, data_format="NCHW"):
+    helper = LayerHelper("pool2d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("pool2d", inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"pooling_type": pool_type,
+                            "ksize": _pair(pool_size),
+                            "strides": _pair(pool_stride),
+                            "paddings": _pair(pool_padding),
+                            "global_pooling": global_pooling,
+                            "ceil_mode": ceil_mode, "exclusive": exclusive,
+                            "data_format": data_format})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # normalization / softmax
 # ---------------------------------------------------------------------------
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=False,
+               use_global_stats=False):
+    """ref ``paddle_tpu/layers/nn.py:200`` → batch_norm op.  The running
+    mean and variance are persistable, not trainable, and the op writes
+    them in place (``MeanOut`` is ``Mean``, ``VarianceOut`` is
+    ``Variance``)."""
+    helper = LayerHelper("batch_norm", act=act, name=name)
+    dtype = input.dtype
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale = helper.create_parameter(
+        param_attr, shape=[c], dtype=dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(bias_attr, shape=[c], dtype=dtype,
+                                   is_bias=True)
+    mean = helper.create_parameter(
+        ParamAttr(name=moving_mean_name, trainable=False),
+        shape=[c], dtype="float32",
+        default_initializer=ConstantInitializer(0.0))
+    variance = helper.create_parameter(
+        ParamAttr(name=moving_variance_name, trainable=False),
+        shape=[c], dtype="float32",
+        default_initializer=ConstantInitializer(1.0))
+    mean.stop_gradient = True
+    variance.stop_gradient = True
+    saved_mean = helper.create_variable_for_type_inference("float32", True)
+    saved_var = helper.create_variable_for_type_inference("float32", True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [variance]},
+        outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"momentum": momentum, "epsilon": epsilon,
+               "is_test": is_test, "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(out)
+
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-5,
                param_attr=None, bias_attr=None, act=None, name=None):
@@ -128,6 +233,39 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, sm
     return loss
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("cross_entropy", inputs={"X": [input], "Label": [label]},
+                     outputs={"Y": [out]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    return out
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("mean", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference("int64", True)
+    inputs = {"X": [input]}
+    attrs = {}
+    if isinstance(input, Variable) and isinstance(k, Variable):
+        inputs["K"] = [k]
+    else:
+        attrs["k"] = int(k)
+    helper.append_op("top_k", inputs=inputs,
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs=attrs)
+    return values, indices
 
 
 def fused_lm_head_ce(x, size, label, param_attr=None, bias_attr=None,

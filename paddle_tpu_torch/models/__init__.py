@@ -1,1 +1,1 @@
-from . import transformer  # noqa
+from . import resnet, transformer  # noqa

@@ -1,15 +1,206 @@
-"""Normalization, softmax and loss lowerings (the subset of
-``paddle_tpu/ops/nn_ops.py`` the serving and training slices run)."""
+"""Conv, pooling, normalization, softmax and loss lowerings (the subset of
+``paddle_tpu/ops/nn_ops.py`` the serving, GPT training and ResNet training
+slices run).
+
+Convs lower to ``torch.nn.functional.conv2d`` (cuDNN on the card, TF32 off
+under the port's float32 policy), as the reference leaves them to
+``lax.conv_general_dilated``; data stays NCHW.
+"""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..framework.core import grad_var_name
 from ..framework.registry import register_op
 from .common import X
+
+
+# ---------------------------------------------------------------------------
+# conv and pooling
+# ---------------------------------------------------------------------------
+
+def _pair(v, n=2):
+    if isinstance(v, (list, tuple)):
+        return list(v)
+    return [v] * n
+
+
+@register_op("conv2d")
+def _conv2d(ctx, ins, attrs):
+    """ref ``nn_ops.py:39``: NCHW input, OIHW filter, symmetric padding."""
+    x, w = X(ins, "Input"), X(ins, "Filter")
+    out = F.conv2d(x, w.to(x.dtype), stride=_pair(attrs.get("strides", 1)),
+                   padding=_pair(attrs.get("paddings", 0)),
+                   dilation=_pair(attrs.get("dilations", 1)),
+                   groups=attrs.get("groups", 1) or 1)
+    return {"Output": [out]}
+
+
+def _pool_extra(dim, k, s, p, ceil_mode):
+    """ceil_mode: the extra right/bottom padding that makes the window
+    count ceil (ref ``math/pooling.cc`` output-size arithmetic)."""
+    if not ceil_mode:
+        return 0
+    out_ceil = -(-(dim + 2 * p - k) // s) + 1
+    return max(0, (out_ceil - 1) * s + k - dim - 2 * p)
+
+
+def _pool2d_impl(x, ksize, strides, pads, pooling_type, global_pooling,
+                 adaptive, exclusive, ceil_mode=False):
+    """ref ``nn_ops.py:117``: max pooling pads with -inf; average pooling
+    divides by the window size, or with ``exclusive`` by the number of
+    unpadded elements in the window."""
+    n, c, h, w = x.shape
+    if global_pooling or (adaptive and tuple(ksize) == (1, 1)):
+        if pooling_type == "max":
+            return torch.amax(x, dim=(2, 3), keepdim=True)
+        return torch.mean(x, dim=(2, 3), keepdim=True)
+    if adaptive:
+        oh, ow = ksize
+        if h % oh or w % ow:
+            raise NotImplementedError("adaptive pool needs divisible sizes")
+        xr = x.reshape(n, c, oh, h // oh, ow, w // ow)
+        if pooling_type == "max":
+            return torch.amax(xr, dim=(3, 5))
+        return torch.mean(xr, dim=(3, 5))
+    kh, kw = ksize
+    sh, sw = strides
+    ph, pw = pads
+    eh = _pool_extra(h, kh, sh, ph, ceil_mode)
+    ew = _pool_extra(w, kw, sw, pw, ceil_mode)
+    k, s = (kh, kw), (sh, sw)
+    if pooling_type == "max":
+        if not (eh or ew) and 2 * ph <= kh and 2 * pw <= kw:
+            # torch pads max pooling with -inf itself
+            return F.max_pool2d(x, k, s, padding=(ph, pw))
+        low = float("-inf") if x.is_floating_point() else \
+            torch.iinfo(x.dtype).min
+        xp = F.pad(x, (pw, pw + ew, ph, ph + eh), value=low)
+        return F.max_pool2d(xp, k, s)
+    if not (eh or ew) and 2 * ph <= kh and 2 * pw <= kw:
+        return F.avg_pool2d(x, k, s, padding=(ph, pw),
+                            count_include_pad=not exclusive)
+    xp = F.pad(x, (pw, pw + ew, ph, ph + eh))
+    summed = F.avg_pool2d(xp, k, s, divisor_override=1)
+    if exclusive and (ph or pw or eh or ew):
+        ones = F.pad(torch.ones((1, 1, h, w), dtype=x.dtype, device=x.device),
+                     (pw, pw + ew, ph, ph + eh))
+        return summed / F.avg_pool2d(ones, k, s, divisor_override=1)
+    return summed / (kh * kw)
+
+
+@register_op("pool2d")
+def _pool2d(ctx, ins, attrs):
+    out = _pool2d_impl(
+        X(ins, "X"), _pair(attrs.get("ksize", [1, 1])),
+        _pair(attrs.get("strides", [1, 1])),
+        _pair(attrs.get("paddings", [0, 0])),
+        attrs.get("pooling_type", "max"),
+        attrs.get("global_pooling", False),
+        attrs.get("adaptive", False),
+        attrs.get("exclusive", True),
+        attrs.get("ceil_mode", False))
+    return {"Out": [out]}
+
+
+# ---------------------------------------------------------------------------
+# batch norm
+# ---------------------------------------------------------------------------
+
+def _bn_axes(layout, ndim):
+    if layout == "NHWC":
+        return tuple(range(ndim - 1)), (1,) * (ndim - 1) + (-1,)
+    return (0,) + tuple(range(2, ndim)), (1, -1) + (1,) * (ndim - 2)
+
+
+def _batch_norm_lower(ctx, ins, attrs):
+    """ref ``nn_ops.py:208``.  Training statistics are one-pass, E[x] and
+    E[x²] in float32 with the variance clamped at 0; the running statistics
+    update with ``momentum``; the normalize is one multiply-add in the
+    input's dtype; ``SavedVariance`` holds 1/sqrt(var + eps)."""
+    x = X(ins, "X")
+    scale, bias = X(ins, "Scale"), X(ins, "Bias")
+    mean, var = X(ins, "Mean"), X(ins, "Variance")
+    momentum = attrs.get("momentum", 0.9)
+    eps = attrs.get("epsilon", 1e-5)
+    axes, bshape = _bn_axes(attrs.get("data_layout", "NCHW"), x.dim())
+    if attrs.get("use_global_stats", False) or attrs.get("is_test", False):
+        m, v = mean, var
+        saved_m, saved_v = mean, var
+        mean_out, var_out = mean, var
+    else:
+        xf = x.float()
+        m = torch.mean(xf, dim=axes)
+        v = torch.clamp(torch.mean(torch.square(xf), dim=axes) - m * m,
+                        min=0.0)
+        saved_m, saved_v = m, v
+        mean_out = mean * momentum + m * (1 - momentum)
+        var_out = var * momentum + v * (1 - momentum)
+    inv = torch.rsqrt(v + eps)
+    a = inv * scale
+    b = bias - m * a
+    y = x * a.to(x.dtype).reshape(bshape) + b.to(x.dtype).reshape(bshape)
+    return {"Y": [y], "MeanOut": [mean_out], "VarianceOut": [var_out],
+            "SavedMean": [saved_m],
+            "SavedVariance": [torch.rsqrt(saved_v + eps)]}
+
+
+def _batch_norm_grad_maker(op, block, no_grad_set):
+    """The reference's desc (``nn_ops.py:251``): gradients flow through Y
+    to X, Scale and Bias; the running statistics are state, not inputs of
+    the gradient (a frozen BN reads them as constants)."""
+    g_inputs = {"X$X": op.input("X"), "X$Scale": op.input("Scale"),
+                "X$Bias": op.input("Bias"),
+                "OG$Y": [grad_var_name(n) for n in op.output("Y")]}
+    if op.attrs.get("use_global_stats", False) or \
+            op.attrs.get("is_test", False):
+        g_inputs["X$Mean"] = op.input("Mean")
+        g_inputs["X$Variance"] = op.input("Variance")
+    g_outputs = {
+        "IG$X": [grad_var_name(n) if n not in no_grad_set else ""
+                 for n in op.input("X")],
+        "IG$Scale": [grad_var_name(n) for n in op.input("Scale")],
+        "IG$Bias": [grad_var_name(n) for n in op.input("Bias")]}
+    return [{"type": "batch_norm_explicit_grad", "inputs": g_inputs,
+             "outputs": g_outputs, "attrs": dict(op.attrs)}]
+
+
+register_op("batch_norm", _batch_norm_lower,
+            grad_maker=_batch_norm_grad_maker)
+
+
+@register_op("batch_norm_explicit_grad")
+def _batch_norm_explicit_grad(ctx, ins, attrs):
+    """ref ``nn_ops.py:277``: ``torch.autograd`` through a recomputed
+    normalize.  Training statistics here are two-pass (the biased
+    variance), as the reference's ``jnp.var`` is; the forward's are
+    one-pass."""
+    x, scale, bias = X(ins, "X$X"), X(ins, "X$Scale"), X(ins, "X$Bias")
+    gy = X(ins, "OG$Y")
+    use_global = attrs.get("use_global_stats", False) or \
+        attrs.get("is_test", False)
+    eps = attrs.get("epsilon", 1e-5)
+    axes, bshape = _bn_axes(attrs.get("data_layout", "NCHW"), x.dim())
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x, scale, bias)]
+        x_, s_, b_ = leaves
+        if use_global:
+            m, v = X(ins, "X$Mean"), X(ins, "X$Variance")
+        else:
+            xf = x_.float()
+            m = torch.mean(xf, dim=axes)
+            v = torch.var(xf, dim=axes, unbiased=False)
+        inv = torch.rsqrt(v + eps)
+        a = inv * s_
+        b = b_ - m * a
+        y = x_ * a.to(x_.dtype).reshape(bshape) \
+            + b.to(x_.dtype).reshape(bshape)
+        gx, gs, gb = torch.autograd.grad(y, leaves, gy.to(y.dtype))
+    return {"IG$X": [gx], "IG$Scale": [gs], "IG$Bias": [gb]}
 
 
 @register_op("layer_norm")
@@ -102,6 +293,27 @@ def _swce_grad(ctx, ins, attrs):
         glogits = torch.where(li.unsqueeze(axis) != ignore_index, glogits,
                               torch.zeros_like(glogits))
     return {"LogitsGrad": [glogits]}
+
+
+@register_op("cross_entropy")
+def _cross_entropy(ctx, ins, attrs):
+    """ref ``nn_ops.py:475``: X holds probabilities; the loss is
+    -log(p[label] + 1e-12), or -Σ label·log(p + 1e-12) with soft labels."""
+    x, label = X(ins, "X"), X(ins, "Label")
+    ignore_index = attrs.get("ignore_index", -100)
+    eps = 1e-12
+    if attrs.get("soft_label", False):
+        return {"Y": [-torch.sum(label * torch.log(x + eps), dim=-1,
+                                 keepdim=True)]}
+    li = label
+    if li.dim() == x.dim() and li.shape[-1] == 1:
+        li = li[..., 0]
+    picked = torch.gather(x, -1, li[..., None].long())
+    loss = -torch.log(picked + eps)
+    if ignore_index >= 0:
+        loss = torch.where(li[..., None] != ignore_index, loss,
+                           torch.zeros_like(loss))
+    return {"Y": [loss]}
 
 
 def _lm_head_chunk(x, w, b, label, ignore):

@@ -60,3 +60,9 @@ for _n, _f in _REDUCE.items():
     _make_reduce(_n, _f)
 _make_reduce("reduce_all", _all, no_grad=True)
 _make_reduce("reduce_any", _any, no_grad=True)
+
+
+@register_op("mean")
+def _mean(ctx, ins, attrs):
+    """The mean of all elements, a 0-d tensor (ref ``reduce_ops.py:52``)."""
+    return {"Out": [torch.mean(X(ins, "X"))]}

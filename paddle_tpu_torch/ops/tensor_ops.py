@@ -2,7 +2,7 @@
 ``paddle_tpu/ops/tensor_ops.py`` the serving and training slices run).
 
 Reference kernels: ``operators/fill_constant_op.cc``, ``uniform_random_op.cc``,
-``split_op.cc``, ``reshape_op.cc`` (reshape2), ``transpose_op.cc``,
+``gaussian_random_op.cc``, ``top_k_op.cc``, ``split_op.cc``, ``reshape_op.cc`` (reshape2), ``transpose_op.cc``,
 ``unsqueeze_op.cc``, ``scale_op.cc``, ``lookup_table_op.cc``, ``range_op.cc``,
 ``expand_op.cc``, ``slice_op.cc``, ``sum_op.cc`` (the grad fan-in of
 ``append_backward``), ``assign_op.cc``.  Shape-only ops return views where torch
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..framework.registry import register_op
-from .common import X, XS, canon_dtype, host_values
+from .common import X, XS, canon_dtype, host_values, static_int
 
 
 @register_op("fill_constant")
@@ -40,6 +40,33 @@ def _uniform_random(ctx, ins, attrs):
     out = torch.rand(shape, generator=ctx.generator, device=ctx.device,
                      dtype=torch.float32)
     return {"Out": [(out * (hi - lo) + lo).to(dtype)]}
+
+
+@register_op("gaussian_random", no_grad=True)
+def _gaussian_random(ctx, ins, attrs):
+    """N(mean, std²) from the run's generator.  Draws differ from the
+    reference's jax keys; shape, dtype and distribution agree."""
+    shape = tuple(attrs.get("shape", []))
+    dtype = canon_dtype(attrs.get("dtype", "float32"))
+    out = torch.randn(shape, generator=ctx.generator, device=ctx.device,
+                      dtype=torch.float32)
+    out = out * attrs.get("std", 1.0) + attrs.get("mean", 0.0)
+    return {"Out": [out.to(dtype)]}
+
+
+@register_op("top_k", no_grad=True)
+def _top_k(ctx, ins, attrs):
+    """The k largest values along the last axis and their int64 indices
+    (ref ``tensor_ops.py:476``); ties keep the lower index first."""
+    x = X(ins, "X")
+    k = attrs.get("k", 1)
+    kt = X(ins, "K")
+    if kt is not None:
+        k = static_int(kt, "top_k K")
+    # a stable descending sort, as lax.top_k orders ties (torch.topk
+    # leaves their order unspecified)
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return {"Out": [vals[..., :k]], "Indices": [idx[..., :k]]}
 
 
 @register_op("cast")

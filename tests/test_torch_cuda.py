@@ -16,7 +16,18 @@ have them), so it runs there with the repo's conftest left out:
 - a tiny GPT trained 3 Adam steps on ``cuda:0`` against the same steps on
   the host (loss 1e-5, parameters 2e-5 + 1e-4 relative, the key third of
   ``qkv.b`` within 3 lr: its exact gradient is zero, so Adam steps on
-  rounding noise there), through K1 and K2.
+  rounding noise there), through K1 and K2;
+- the conv1x1 + BN-statistics kernel (K3) against its plain version at
+  ResNet-50's 15 conv1x1 shapes (batch 2) and at the edges: y within
+  1e-5 + 1e-4 relative + 2^-20 of sum |w||x| (both sum exact bf16
+  products in float32, in other orders), s within 2^-14 of sum |y|, s2
+  within 2^-14 relative; its ``autograd.Function`` on the card against
+  the host;
+- a toy ResNet (two bottleneck blocks) trained on the card through the
+  fusion pass against the host: 6 K3 launches a step; the fused step's
+  loss within 2^-6 relative (K3 rounds its operands to bf16 on the card,
+  the host multiplies in float32), the unfused steps (float32 on both
+  sides) to 1e-5 on the loss and 1e-4 + 2e-5 on the parameters.
 """
 
 import numpy as np
@@ -25,6 +36,7 @@ import torch
 
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch.framework import Program, Scope, program_guard
+from paddle_tpu_torch.kernels import conv_bn as cb
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.models import transformer as T
 
@@ -51,6 +63,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the GPU machine)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
 
 
@@ -234,3 +247,135 @@ def test_training_on_the_card_matches_the_host(cuda):
             want = np.concatenate([want[:d], want[2 * d:]])
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=2e-5,
                                    err_msg=p.name)
+
+
+# -- K3: conv1x1 + BN statistics ----------------------------------------------
+
+K3_SHAPES = {
+    **{f"rn50_{ci}_{co}_{p}": (2, ci, co, p) for ci, co, p in (
+        (64, 64, 3136), (64, 256, 3136), (256, 64, 3136), (256, 128, 3136),
+        (128, 512, 784), (256, 512, 784), (512, 128, 784), (512, 256, 784),
+        (256, 1024, 196), (512, 1024, 196), (1024, 256, 196),
+        (1024, 512, 196), (512, 2048, 49), (1024, 2048, 49),
+        (2048, 512, 49))},
+    "n1_p49": (1, 512, 2048, 49),
+    "odd_cin_cout": (3, 13, 70, 65),
+    "ragged_cout": (2, 12, 20, 49),
+    "one_pixel": (2, 3, 5, 1),
+}
+
+
+def _k3_check(x, w):
+    y, s, s2 = cb.conv1x1_stats_fwd(x, w)
+    torch.cuda.synchronize()
+    ry, rs, rs2 = cb.conv1x1_stats_plain(x, w)
+    terms = torch.einsum("oc,ncp->nop", w.to(torch.bfloat16).float().abs(),
+                         x.to(torch.bfloat16).float().abs())
+    assert bool(((y - ry).abs() <= 1e-5 + 1e-4 * ry.abs()
+                 + 2.0 ** -20 * terms).all())
+    assert bool(((s - rs).abs()
+                 <= 2.0 ** -14 * ry.abs().sum(dim=(0, 2)) + 1e-6).all())
+    assert bool(((s2 - rs2).abs() <= 2.0 ** -14 * rs2 + 1e-6).all())
+
+
+@pytest.mark.parametrize("case", sorted(K3_SHAPES))
+def test_k3_matches_plain_version(cuda, case):
+    n, ci, co, p = K3_SHAPES[case]
+    g = torch.Generator().manual_seed(ci + co + p)
+    x = torch.randn(n, ci, p, generator=g).to(cuda)
+    w = (torch.randn(co, ci, generator=g) * ci ** -0.5).to(cuda)
+    n0 = cb.launch_count()
+    _k3_check(x, w)
+    assert cb.launch_count() == n0 + 1
+
+
+def test_k3_on_a_stride_two_view(cuda):
+    """The strided shortcut's input: x[:, :, ::2, ::2], made contiguous."""
+    g = torch.Generator().manual_seed(3)
+    x4 = torch.randn(2, 256, 56, 56, generator=g).to(cuda)
+    w = (torch.randn(512, 256, generator=g) / 16).to(cuda)
+    _k3_check(x4[:, :, ::2, ::2].reshape(2, 256, -1), w)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "layout", "channels"])
+def test_k3_wrapper_refuses_on_the_card(cuda, bad):
+    x, w = torch.randn(2, 8, 49, device=cuda), torch.randn(4, 8, device=cuda)
+    if bad == "dtype":
+        x = x.half()
+    elif bad == "layout":
+        x = torch.randn(2, 49, 8, device=cuda).transpose(1, 2)
+    else:
+        w = torch.randn(4, 9, device=cuda)
+    n0 = cb.launch_count()
+    with pytest.raises((TypeError, ValueError)):
+        cb.conv1x1_stats_fwd(x, w)
+    assert cb.launch_count() == n0
+
+
+def test_k3_function_grads_match_the_host(cuda):
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 64, 196, generator=g)
+    w = torch.randn(32, 64, generator=g) / 8
+    coef = torch.arange(32, dtype=torch.float32)
+    grads = []
+    for dev in ("cpu", cuda):
+        xt = x.to(dev).requires_grad_(True)
+        wt = w.to(dev).requires_grad_(True)
+        y, s, s2 = cb.conv1x1_stats(xt, wt)
+        loss = (y ** 2).sum() * 0.5 + (s * coef.to(dev)).sum() \
+            + (s2 * 0.1).sum()
+        grads.append([t.cpu() for t in torch.autograd.grad(loss, (xt, wt))])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b, a, rtol=1e-4,
+                                   atol=1e-4 * float(a.abs().max()))
+
+
+def _toy_resnet():
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch import optimizer as opt
+    from paddle_tpu_torch.models import resnet
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        img = layers.data("img", shape=[16, 8, 8], dtype="float32")
+        label = layers.data("label", shape=[1], dtype="int64")
+        h = resnet.bottleneck_block(img, 16, 1, "bb0")
+        h = resnet.bottleneck_block(h, 16, 2, "bb1")
+        pred = layers.fc(layers.pool2d(h, pool_type="avg",
+                                       global_pooling=True),
+                         size=4, act="softmax")
+        loss = layers.mean(layers.cross_entropy(pred, label))
+        opt.MomentumOptimizer(0.1, 0.9).minimize(loss)
+    return main, startup, loss
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+def test_toy_resnet_on_the_card_matches_the_host(cuda, fused):
+    from paddle_tpu_torch import flags
+    main, startup, loss = _toy_resnet()
+    exe, host = ptt.Executor(), ptt.Executor(ptt.CPUPlace())
+    scope, host_scope = Scope(), Scope()
+    exe.run(startup, scope=scope, seed=3)
+    for name, val in scope.items():
+        host_scope.set_var(name, val.cpu())
+    rng = np.random.RandomState(0)
+    feed = {"img": rng.rand(4, 16, 8, 8).astype(np.float32),
+            "label": rng.randint(0, 4, (4, 1)).astype(np.int64)}
+    flags.set_flags({"FLAGS_graph_fusion": fused})
+    try:
+        n0 = cb.launch_count()
+        steps = 1 if fused else 3
+        for _ in range(steps):
+            got, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            want, = host.run(main, feed=feed, fetch_list=[loss],
+                             scope=host_scope)
+            np.testing.assert_allclose(got, want,
+                                       rtol=2.0 ** -6 if fused else 1e-5)
+    finally:
+        flags.set_flags({"FLAGS_graph_fusion": True})
+    assert cb.launch_count() - n0 == (6 if fused else 0)
+    if fused:
+        return
+    for p in main.all_parameters():
+        np.testing.assert_allclose(scope.find_var(p.name).cpu().numpy(),
+                                   host_scope.find_var(p.name).numpy(),
+                                   rtol=1e-4, atol=2e-5, err_msg=p.name)

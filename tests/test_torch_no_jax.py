@@ -1,8 +1,9 @@
 """The port stands alone: no JAX and nothing of ``paddle_tpu``.
 
 - in a subprocess where ``import jax`` and ``import paddle_tpu`` fail,
-  importing ``paddle_tpu_torch``, serving one request and taking one Adam
-  step of a tiny GPT on the CPU works;
+  importing ``paddle_tpu_torch``, serving one request, taking one Adam
+  step of a tiny GPT and one Momentum step of a toy ResNet through the
+  graph-fusion pass on the CPU works;
 - a source scan finds no ``jax`` or ``paddle_tpu`` import in the package or
   in ``chip_smoke.py``;
 - ``Executor()`` (the card by default) raises when there is no GPU.
@@ -66,9 +67,32 @@ _BLOCKED = textwrap.dedent("""
     l1, = exe.run(main, feed={"src_ids": ids, "lm_label": ids},
                   fetch_list=[loss], scope=train_scope)
     assert l1 < l0, (l0, l1)
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.models import resnet
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        img = layers.data("img", shape=[8, 8, 8], dtype="float32")
+        label = layers.data("label", shape=[1], dtype="int64")
+        h = resnet.bottleneck_block(img, 4, 2, "bb0")
+        pred = layers.fc(layers.pool2d(h, pool_type="avg",
+                                       global_pooling=True),
+                         size=4, act="softmax")
+        rloss = layers.mean(layers.cross_entropy(pred, label))
+        optimizer.MomentumOptimizer(0.1, 0.9).minimize(rloss)
+    rn_scope = Scope()
+    exe.run(startup, scope=rn_scope, seed=3)
+    rl, = exe.run(main, feed={"img": np.ones((2, 8, 8, 8), np.float32),
+                              "label": np.array([[1], [2]])},
+                  fetch_list=[rloss], scope=rn_scope)
+    plan, = [p for p in exe._plans.values()
+             if any(op.type == "momentum" and "bb0" in op.input("Param")[0]
+                    for op, _ in p.ops)]
+    n_fused = [op.type for op, _ in plan.ops].count("fused_conv1x1_bn")
+    assert n_fused == 3 and np.isfinite(rl), (n_fused, rl)
     assert not [m for m, mod in sys.modules.items() if mod is not None
                 and (m == "jax" or m.startswith(("jax.", "paddle_tpu.")))]
-    print("served", out[0].shape, "trained", float(l0), float(l1))
+    print("served", out[0].shape, "trained", float(l0), float(l1),
+          "resnet", float(rl))
 """)
 
 
@@ -96,6 +120,11 @@ def _sources():
 
 
 def test_no_jax_or_reference_import_in_sources():
+    scanned = {os.path.relpath(p, REPO) for p in _sources()}
+    assert {"paddle_tpu_torch/analysis/fusion.py",
+            "paddle_tpu_torch/framework/ir.py",
+            "paddle_tpu_torch/kernels/conv_bn.py",
+            "paddle_tpu_torch/models/resnet.py"} <= scanned
     offenders = []
     for path in _sources():
         with open(path) as f:
