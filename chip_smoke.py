@@ -11,19 +11,27 @@ JAX, prints one line per phase, and raises on any failure:
    and CUDA versions, and the nvcc build of every kernel from ``csrc/``.
 2. ``kernel`` — each hand-written kernel against its plain PyTorch version
    on the card, at the shapes of the main paths and at the edge cases,
-   float32 with TF32 off: ``|kernel - plain| <= ATOL + RTOL * |plain|``.
+   float32 with TF32 off: ``|kernel - plain| <= ATOL + RTOL * |plain|``
+   (plus, for the bf16 products of K3 and K5, 2^-20 of the sum of the
+   terms' magnitudes, and for the column sums of K3 and K4's backward,
+   2^-14 of theirs).
 3. ``serve``  — the GPT causal LM at BERT-base width (vocab 30522, d 768,
    12 layers, 12 heads, d_inner 3072, max_pos 2048, random weights from a
    seed) behind ``InferenceServer`` with buckets (512, 1024, 2048) and
    ``max_batch`` 8: warmup, then 24 requests of 300-2048 tokens from two
-   tenants.  Every result must be finite ``[len, 30522]`` logits, the
-   flash forward must have launched 12 times per batch dispatched to a
-   bucket >= 1024 (and nowhere else), and one 1100-token request must
-   match the same bucket program run by the port on the CPU.
+   tenants.  Each bucket's program goes through ``CompiledProgram.
+   _optimized`` (the verifier, dead-op elimination, the fusion pass:
+   12 ``fused_dense_act`` at default flags, without the kernel).  Every
+   result must be finite ``[len, 30522]`` logits, the flash forward must
+   have launched 12 times per batch dispatched to a bucket >= 1024 (and
+   nowhere else), and one 1100-token request must match the same bucket
+   program run by the port on the CPU.
 4. ``train``  — the same model trained through the Fluid entry points
    (``build_gpt_pretrain`` with the fused head, ``AdamOptimizer.minimize``,
    ``Executor().run``) at seq 2048, batch 8, float32: one warm-up step and
-   5 timed steps on one fixed batch.  The losses must be finite and fall,
+   5 timed steps on one fixed batch.  The executor's fusion pass rewrites
+   the 12 FFN chains into ``fused_dense_act`` (float32, no kernel at
+   default flags).  The losses must be finite and fall,
    and every step must launch the flash forward and the flash backward 12
    times each.  Then a 2-layer, batch-1, seq-1024 step on the card must
    match the same step run by the port on the CPU.
@@ -40,13 +48,25 @@ JAX, prints one line per phase, and raises on any failure:
    unfused (``FLAGS_graph_fusion`` off, float32 on both sides) at depth 50
    (loss 1e-4, BN running statistics 2^-10 and classifier gradients 2^-8
    of their largest magnitude).
-6. ``timing`` — each kernel, its plain version and one PyTorch library call
+6. ``fused_train`` — the GPT of ``train`` (the same program, batch and
+   seeds) with the fusion autotuner on (``FLAGS_fusion_autotune``, rank
+   threshold 0, verdicts cached in a fresh temporary directory): the plan
+   must hold 12 ``fused_dense_act`` and 1 ``fused_embedding_layer_norm``
+   with ``use_pallas`` set, and their grads (24 ``layer_norm`` left of 25);
+   every autotune verdict must be a win.  One warm-up step (which also
+   times the autotuner's candidates) and 5 timed steps, each launching K5
+   12 times, K4's forward and backward once, K1 and K2 12 times; finite,
+   falling losses.  Then the fused program of a 2-layer, batch-1, seq-1024
+   step runs on the card and on the host, with the train phase's
+   tolerances.
+7. ``timing`` — each kernel, its plain version and one PyTorch library call
    computing the same function, with CUDA events, at the main-path shapes
    ([96, 2048, 64] causal for K1/K2, ResNet-50's 15 conv1x1 shapes at batch
-   128 for K3); the least time the card could take (``bound``); the
-   server's per-bucket batch latency, requests/s and tokens/s, the GPT
-   training step's time, tokens/s and peak memory, and the ResNet step's
-   time, images/s, peak memory and summed K3 time.
+   128 for K3, [16384, 768] for K4, [16384, 768] x [768, 3072] gelu for
+   K5); the least time the card could take (``bound``); the server's
+   per-bucket batch latency, requests/s and tokens/s, the GPT training
+   steps' time, tokens/s and peak memory (plain and fused), and the ResNet
+   step's time, images/s, peak memory and summed K3 time.
 
 Then one JSON line describing every kernel, the ``nvidia-smi`` line, and a
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -83,6 +103,14 @@ SERVE_ATOL, SERVE_RTOL = 2e-3, 2e-3     # card vs host logits, float32
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-4, 2 * 2.0 ** -8
 TRAIN_GRAD_ATOL_FRAC, TRAIN_GRAD_TIGHT_FRAC = 2.0 ** -8, 1e-4
 TRAIN_GRAD_TIGHT_SHARE = 1e-4
+# The fused step's K5 backward recomputes its pre-activation as a bf16
+# product (bf16 result), as the reference's _mba_bwd does: where the card's
+# and the host's float32 sums round to neighbouring bf16 values (~1 in 10^5
+# elements), the activation's derivative moves by a bf16 ulp and a whole
+# column of the FFN weight's gradient moves with it.  Every value stays
+# within the bound above; the share beyond the tight one may reach 1e-3
+# (1.4e-4 of enc_1.ffn.fc1.w@GRAD seen on an H100 80GB HBM3, 700 W)
+FUSED_GRAD_TIGHT_SHARE = 1e-3
 SLICE = (96, 2048, 64)                  # 8 sequences x 12 heads, T, d_head
 TRAIN_BATCH, TRAIN_STEPS = 8, 5
 RESNET_BATCH, RESNET_STEPS = 128, 5
@@ -107,6 +135,20 @@ RESNET_F32_LOSS_RTOL, RESNET_F32_STAT_FRAC = 1e-4, 2.0 ** -10
 RESNET_F32_GRAD_FRAC = 2.0 ** -8
 RESNET_SMALL = dict(class_dim=10, depth=50, image_shape=(3, 64, 64))
 RESNET_SMALL_BATCH = 8
+# K5 against its plain version: both sum exact bf16 products in float32 in
+# other orders, so y gets K3's allowance of 2^-20 of sum |x||w|.  K4's
+# dscale and dbias sum up to 16384 rows of either sign: 2^-14 of the sum of
+# their terms' magnitudes
+K4_SUM_RTOL = 2.0 ** -14
+# the fused path: the autotuner on and every candidate ranked in (the
+# embedding LayerNorm's share is 0.0028, under the default threshold)
+FUSED_FLAGS = {"FLAGS_fusion_autotune": True,
+               "FLAGS_fusion_rank_threshold": 0.0}
+DEFAULT_FLAGS = {"FLAGS_fusion_autotune": False,
+                 "FLAGS_fusion_rank_threshold": 0.02,
+                 "FLAGS_xla_compile_cache_dir": ""}
+#: an autotuner miss runs the fused op once to warm up and 3 times timed
+AUTOTUNE_CALLS = 4
 
 # NVIDIA data-sheet peaks (dense): float32 on the CUDA cores, bf16 on the
 # tensor cores, HBM bandwidth
@@ -303,6 +345,68 @@ def phase_kernel():
              f"{K3_SUM_RTOL:.3g} sum|w||x| on y, {K3_STAT_RTOL:.3g} of "
              f"sum|y| / s2 on the stats) ok")
         del x, w
+
+    # K5 at the fused path's shapes (batch 8 x 2048 tokens and fractions of
+    # it), each activation, then the edges
+    from paddle_tpu_torch.kernels import dense_epilogue as de
+    from paddle_tpu_torch.kernels import layer_norm as ln
+    acts = (("", False), ("relu", False), ("gelu", False), ("gelu", True))
+    k5_cases = [(f"[{m}, 768] x [768, 3072]", m, 768, 3072)
+                for m in (4096, 8192, 16384)]
+    k5_cases += [("M=1", 1, 768, 3072), ("M=513", 513, 768, 3072),
+                 ("ragged N, K: [300, 100] x [100, 130]", 300, 100, 130),
+                 ("ragged M, N, K: [257, 33] x [33, 7]", 257, 33, 7)]
+    worst["dense_epilogue"] = 0.0
+    for name, m, k, n in k5_cases:
+        x = torch.randn(m, k, device="cuda", generator=g)
+        w = torch.randn(k, n, device="cuda", generator=g) * k ** -0.5
+        b = torch.randn(n, device="cuda", generator=g)
+        terms = x.to(torch.bfloat16).float().abs() @ \
+            w.to(torch.bfloat16).float().abs()
+        errs = []
+        for act, approx in acts:
+            y = de.dense_act_fwd(x, w, b, act, approx)
+            torch.cuda.synchronize()
+            ry = de.dense_act_plain(x, w, b, act, approx)
+            what = f"dense_epilogue {name} act {act or 'none'}" + (
+                " (tanh)" if approx else "")
+            errs.append(_check(what, y, ry, K3_SUM_RTOL * terms))
+            del y, ry
+        worst["dense_epilogue"] = max(worst["dense_epilogue"], *errs)
+        _log("kernel", f"dense_epilogue {name}: max abs err y, act none/"
+             f"relu/gelu/gelu-tanh {'/'.join(f'{e:.3g}' for e in errs)} "
+             f"(atol {ATOL}, rtol {RTOL}, + {K3_SUM_RTOL:.3g} sum|x||w|) ok")
+        del x, w, b, terms
+
+    # K4 at the fused path's shape, then the edges
+    k4_cases = [("[16384, 768]", 16384, 768), ("rows 1", 1, 768),
+                ("rows 4099", 4099, 768), ("d 96", 4099, 96),
+                ("d 1000", 4099, 1000), ("d 4096", 4099, 4096)]
+    worst["layer_norm_fwd"] = worst["layer_norm_bwd"] = 0.0
+    for name, rows, d in k4_cases:
+        x = torch.randn(rows, d, device="cuda", generator=g) * 2 + 0.5
+        sc = torch.randn(d, device="cuda", generator=g) + 1
+        bi = torch.randn(d, device="cuda", generator=g)
+        dy = torch.randn(rows, d, device="cuda", generator=g)
+        y = ln.layer_norm_fwd(x, sc, bi, 1e-5)
+        dx, ds, db = ln.layer_norm_bwd(x, sc, dy, 1e-5)
+        torch.cuda.synchronize()
+        ry = ln.layer_norm_fwd_plain(x, sc, bi, 1e-5)
+        rdx, rds, rdb = ln.layer_norm_bwd_plain(x, sc, dy, 1e-5)
+        xhat = ln.layer_norm_fwd_plain(x, torch.ones_like(sc),
+                                       torch.zeros_like(bi), 1e-5)
+        e_y = _check(f"layer_norm_fwd {name} y", y, ry)
+        e_dx = _check(f"layer_norm_bwd {name} dx", dx, rdx)
+        e_ds = _check(f"layer_norm_bwd {name} dscale", ds, rds,
+                      K4_SUM_RTOL * (dy * xhat).abs().sum(dim=0))
+        e_db = _check(f"layer_norm_bwd {name} dbias", db, rdb,
+                      K4_SUM_RTOL * dy.abs().sum(dim=0))
+        worst["layer_norm_fwd"] = max(worst["layer_norm_fwd"], e_y)
+        worst["layer_norm_bwd"] = max(worst["layer_norm_bwd"], e_dx)
+        _log("kernel", f"layer_norm {name}: max abs err y {e_y:.3g} dx "
+             f"{e_dx:.3g} (atol {ATOL}, rtol {RTOL}) dscale {e_ds:.3g} "
+             f"dbias {e_db:.3g} (+ {K4_SUM_RTOL:.3g} sum of |terms|) ok")
+        del x, dy, y, dx, ry, rdx, xhat
     return worst
 
 
@@ -382,6 +486,17 @@ def phase_serve():
         assert np.isfinite(out[0]).all(), "non-finite logits"
     stats = srv.compile_stats()
     assert stats["traces"] == len(buckets), stats
+    # each bucket's plan runs its CompiledProgram._optimized program
+    fused = [[op for op, _ in p.ops if op.type == "fused_dense_act"]
+             for p in srv.executor._plans.values()]
+    if [len(f) for f in fused] != [cfg.n_layer] * len(buckets) or any(
+            op.attrs["use_pallas"] for f in fused for op in f):
+        raise AssertionError(
+            f"bucket plans hold {[len(f) for f in fused]} fused_dense_act "
+            f"ops, expected {cfg.n_layer} each without the kernel")
+    _log("serve", f"CompiledProgram._optimized: {cfg.n_layer} "
+         f"fused_dense_act (use_pallas False) in each of "
+         f"{len(buckets)} bucket programs")
     _log("serve", f"warmup {warmed} buckets in {warm_s:.2f} s; "
          f"{len(reqs)} requests in {len(log)} batches "
          f"{[(b['bucket'], b['occupancy']) for b in log]}; plans built "
@@ -444,7 +559,6 @@ def phase_train():
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.framework import Scope
     from paddle_tpu_torch.kernels import flash_attention as fa
-    from paddle_tpu_torch.models import transformer as T
 
     cfg = _gpt_cfg()
     seq = cfg.max_pos
@@ -466,6 +580,7 @@ def phase_train():
     # the main path, counted: a warm-up step and the timed steps
     fa.reset_launch_count()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()    # earlier phases' and the weights
     t_w = time.perf_counter()
     losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
                             scope=scope)[0])]
@@ -495,9 +610,29 @@ def phase_train():
          f"{', '.join(f'{1e3 * x:.1f}' for x in step_s)} ms; losses "
          f"{', '.join(f'{x:.4f}' for x in losses)}; flash launches "
          f"{launches} = {cfg.n_layer} x {steps} steps each; peak memory "
-         f"{peak / 2**30:.2f} GiB")
+         f"{peak / 2**30:.2f} GiB, of which {held / 2**30:.2f} GiB allocated "
+         f"before the first step")
 
-    # a reduced-depth step on the card against the same step on the host
+    _small_train_check("train", exe)
+    return {"launches": launches, "losses": losses, "step_ms": step_ms,
+            "step_s": step_s, "warmup_s": warm_s,
+            "tokens_per_s": tokens / (step_ms / 1e3),
+            "peak_bytes": peak, "held_bytes": held, "tokens": tokens,
+            "main": main,
+            "loss": loss, "scope": scope, "feed": feed}
+
+
+def _small_train_check(phase, exe, fused=False):
+    """A 2-layer, batch-1, seq-1024 step on the card against the same step
+    on the host: the loss within TRAIN_LOSS_RTOL, four gradients within
+    two bf16 ulps (see the constants).  ``fused``: the host runs the fused
+    program the card's plan ran (the autotuner's verdicts are the card's;
+    the host would time its own)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.analysis import fusion
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.models import transformer as T
+    cfg = _gpt_cfg()
     small = T.BertConfig(vocab_size=cfg.vocab_size, d_model=cfg.d_model,
                          n_layer=2, n_head=cfg.n_head, d_inner=cfg.d_inner,
                          max_pos=1024, dropout=0.0)
@@ -511,9 +646,21 @@ def phase_train():
              "enc_1.ffn.fc1.w@GRAD", "word_embedding@GRAD"]
     fetch = [s_loss.name] + grads
     card = exe.run(s_main, feed=s_feed, fetch_list=fetch, scope=s_scope)
+    host_prog, what = s_main, ""
+    if fused:
+        # the executor's own call, answered from the pass's result cache
+        host_prog = fusion.fuse_program(
+            s_main, fetch, feed_shapes={n: v.shape for n, v in
+                                        s_feed.items()}, device=exe.device)
+        assert host_prog is not s_main, "the small program was not fused"
+        what = " (fused program; verdicts at this shape: " + ", ".join(
+            f"{d['pattern']} {d['verdict']}" + (
+                f" {d['autotune']['base_ms']}/{d['autotune']['fused_ms']} ms"
+                if "autotune" in d else "")
+            for d in host_prog._attrs["fusion"]["candidates"]) + ")"
     t_c = time.perf_counter()
     host = ptt.Executor(ptt.CPUPlace()).run(
-        s_main, feed=s_feed, fetch_list=fetch, scope=host_scope)
+        host_prog, feed=s_feed, fetch_list=fetch, scope=host_scope)
     host_s = time.perf_counter() - t_c
     loss_err = abs(float(card[0]) - float(host[0])) / abs(float(host[0]))
     if loss_err > TRAIN_LOSS_RTOL:
@@ -526,23 +673,145 @@ def phase_train():
         rel = TRAIN_GRAD_RTOL * np.abs(h)
         bad = int((err > TRAIN_GRAD_ATOL_FRAC * top + rel).sum())
         loose = int((err > TRAIN_GRAD_TIGHT_FRAC * top + rel).sum())
-        if bad or loose > TRAIN_GRAD_TIGHT_SHARE * h.size:
+        share = FUSED_GRAD_TIGHT_SHARE if fused else TRAIN_GRAD_TIGHT_SHARE
+        if bad or loose > share * h.size:
             raise AssertionError(
                 f"{name}: {bad} of {h.size} values beyond "
                 f"{TRAIN_GRAD_ATOL_FRAC:.3g} x max|g|, {loose} beyond "
-                f"{TRAIN_GRAD_TIGHT_FRAC} x max|g| (rtol {TRAIN_GRAD_RTOL:.3g})"
-                f"; max abs err {err.max()}, max |g| {top}")
+                f"{TRAIN_GRAD_TIGHT_FRAC} x max|g| (rtol {TRAIN_GRAD_RTOL:.3g}"
+                f", at most {share:g} of them); max abs err {err.max()}, "
+                f"max |g| {top}")
         worst.append(f"{name} {err.max():.3g} (max |g| {top:.3g}, "
                      f"{loose} of {h.size} beyond 1e-4 x max|g|)")
-    _log("train", f"2-layer batch-1 seq-1024 step vs host run "
+    _log(phase, f"2-layer batch-1 seq-1024 step vs host run{what} "
          f"({host_s:.1f} s): loss rel err {loss_err:.3g} (rtol "
          f"{TRAIN_LOSS_RTOL}); grads max abs err {'; '.join(worst)} "
          f"(rtol {TRAIN_GRAD_RTOL:.3g}) ok")
-    return {"launches": launches, "losses": losses, "step_ms": step_ms,
-            "step_s": step_s, "warmup_s": warm_s,
-            "tokens_per_s": tokens / (step_ms / 1e3),
-            "peak_bytes": peak, "tokens": tokens, "main": main,
-            "loss": loss, "scope": scope, "feed": feed}
+
+
+def _adam_plan(exe):
+    """The executor's plan of the training program (the fused program it
+    runs in place of the one it was given)."""
+    plan, = [p for p in exe._plans.values()
+             if any(op.type == "adam" for op, _ in p.ops)]
+    return plan
+
+
+def _fused_launches():
+    from paddle_tpu_torch.kernels import dense_epilogue as de
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import layer_norm as ln
+    return {"dense_epilogue": de.launch_count(),
+            "layer_norm_fwd": ln.launch_count("layer_norm_fwd"),
+            "layer_norm_bwd": ln.launch_count("layer_norm_bwd"),
+            "flash_attn_fwd": fa.launch_count("flash_attn_fwd"),
+            "flash_attn_bwd": fa.launch_count("flash_attn_bwd")}
+
+
+def phase_fused_train():
+    import shutil
+    import tempfile
+
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.kernels import dense_epilogue as de
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import layer_norm as ln
+
+    cfg = _gpt_cfg()
+    seq = cfg.max_pos
+    cache_dir = tempfile.mkdtemp(prefix="fusion_autotune_")
+    flags.set_flags(dict(FUSED_FLAGS, FLAGS_xla_compile_cache_dir=cache_dir))
+    try:
+        main, startup, loss = _train_program(cfg, seq)
+        n_ln = [op.type for op in main.global_block().ops].count(
+            "layer_norm")
+        scope, exe = Scope(), ptt.Executor()
+        exe.run(startup, scope=scope, seed=1234)
+        feed = _train_feed(cfg, TRAIN_BATCH, seq)
+        tokens = TRAIN_BATCH * seq
+
+        # the main path, counted: a warm-up step (the plan, with the
+        # autotuner's timings) and the timed steps
+        for mod in (fa, de, ln):
+            mod.reset_launch_count()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        prev = _fused_launches()
+        per_step, losses, step_s = [], [], []
+        for _ in range(TRAIN_STEPS + 1):
+            t0 = time.perf_counter()
+            out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            now = _fused_launches()
+            per_step.append({k: now[k] - prev[k] for k in now})
+            prev = now
+            losses.append(float(out))
+        launches = _fused_launches()
+        peak = torch.cuda.max_memory_allocated()
+        warm_s = step_s.pop(0)
+        plan = _adam_plan(exe)
+        ftypes = [op.type for op, _ in plan.ops]
+        decisions = plan.block.program._attrs["fusion"]["candidates"]
+        for d in decisions:
+            t = d.get("autotune") or {}
+            _log("fused_train", f"autotune {d['pattern']} at {d['anchor']}: "
+                 f"verdict {d['verdict']}, rank {d['rank']}, base_ms "
+                 f"{t.get('base_ms')}, fused_ms {t.get('fused_ms')}, win "
+                 f"{t.get('win')}, cached {t.get('cached')}")
+        lost = [d for d in decisions if d["verdict"] != "applied"]
+        if lost:
+            raise AssertionError(f"fusion candidates not applied: {lost}")
+        want = {"fused_dense_act": cfg.n_layer,
+                "fused_dense_act_grad": cfg.n_layer,
+                "fused_embedding_layer_norm": 1,
+                "fused_embedding_layer_norm_grad": 1,
+                "layer_norm": n_ln - 1}
+        got = {t: ftypes.count(t) for t in want}
+        unkernelled = [op.type for op, _ in plan.ops
+                       if op.type in want and op.type != "layer_norm"
+                       and not op.attrs["use_pallas"]]
+        if got != want or unkernelled:
+            raise AssertionError(f"fused plan holds {got}, expected {want}; "
+                                 f"without the kernel: {unkernelled}")
+        # the warm-up step also timed each missed candidate's fused op
+        misses = {p: sum(1 for d in decisions if d["pattern"] == p
+                         and not d["autotune"]["cached"])
+                  for p in ("dense_epilogue", "embedding_layer_norm")}
+        step_want = {"dense_epilogue": cfg.n_layer, "layer_norm_fwd": 1,
+                     "layer_norm_bwd": 1, "flash_attn_fwd": cfg.n_layer,
+                     "flash_attn_bwd": cfg.n_layer}
+        warm_want = dict(step_want)
+        warm_want["dense_epilogue"] += AUTOTUNE_CALLS * misses[
+            "dense_epilogue"]
+        warm_want["layer_norm_fwd"] += AUTOTUNE_CALLS * misses[
+            "embedding_layer_norm"]
+        if per_step != [warm_want] + [step_want] * TRAIN_STEPS:
+            raise AssertionError(f"launches per step {per_step}, expected "
+                                 f"{warm_want} then {step_want}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"fused training losses not finite and "
+                                 f"falling: {losses}")
+        step_ms = 1e3 * float(np.mean(step_s))
+        _log("fused_train", f"batch {TRAIN_BATCH} x seq {seq}: fused plan of "
+             f"{len(ftypes)} ops ({got}); warm-up step {warm_s:.2f} s, then "
+             f"{TRAIN_STEPS} steps of "
+             f"{', '.join(f'{1e3 * x:.1f}' for x in step_s)} ms; losses "
+             f"{', '.join(f'{x:.4f}' for x in losses)}; launches per step "
+             f"{per_step[1]} (warm-up {per_step[0]}); peak memory "
+             f"{peak / 2**30:.2f} GiB, of which {held / 2**30:.2f} GiB "
+             f"allocated before the first step")
+        _small_train_check("fused_train", exe, fused=True)
+    finally:
+        flags.set_flags(DEFAULT_FLAGS)
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    return {"launches": launches, "per_step": per_step, "losses": losses,
+            "step_ms": step_ms, "step_s": step_s, "warmup_s": warm_s,
+            "tokens_per_s": tokens / (step_ms / 1e3), "peak_bytes": peak,
+            "held_bytes": held, "decisions": decisions}
 
 
 def _resnet_program(**kw):
@@ -1070,6 +1339,90 @@ def phase_timing(smi, serve, train):
     return out
 
 
+def timing_k45(smi, train, fused):
+    """K5 at [16384, 768] x [768, 3072] with gelu and K4 forward and
+    backward at [16384, 768], the fused path's shapes: kernel, plain
+    version, one library composition and the bound; then the fused
+    training step next to the plain one."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import dense_epilogue as de
+    from paddle_tpu_torch.kernels import layer_norm as ln
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    rows, d, n = TRAIN_BATCH * 2048, 768, 3072
+    per_step = fused["per_step"][-1]          # a timed step's launches
+    out = {}
+
+    # K5: 2·M·K·N bf16 products; x, w, b read and y written in float32
+    x = torch.randn(rows, d, device="cuda", generator=g)
+    w = torch.randn(d, n, device="cuda", generator=g) * d ** -0.5
+    b = torch.randn(n, device="cuda", generator=g)
+    ms = _time_ms(lambda: de.dense_act_fwd(x, w, b, "gelu"), 20)
+    plain_ms = _time_ms(lambda: de.dense_act_plain(x, w, b, "gelu"), 5)
+    library_ms = _time_ms(lambda: F.gelu(torch.matmul(
+        x.to(torch.bfloat16), w.to(torch.bfloat16)).float() + b), 20)
+    flops = 2.0 * rows * d * n
+    bound_ms, bound_by, why = _bound(
+        flops, 4.0 * (rows * d + d * n + n + rows * n), "bfloat16")
+    out["dense_epilogue"] = {"ms": ms, "plain_ms": plain_ms,
+                             "library_ms": library_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by}
+    _log("timing", f"dense_epilogue [{rows}, {d}] x [{d}, {n}] gelu f32 "
+         f"({per_step['dense_epilogue']:g} a step) on {smi}: kernel "
+         f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+         f"{plain_ms:.4f} ms, bf16 matmul + bias + gelu {library_ms:.4f} ms;"
+         f" bound {bound_ms:.4f} ms by {bound_by} ({why}): "
+         f"{100 * bound_ms / ms:.1f}% of bound")
+    del x, w, b
+
+    # K4: x read and y written (forward); x, dy read and dx written
+    # (backward); scale, bias, dscale, dbias once each
+    x = torch.randn(rows, d, device="cuda", generator=g)
+    sc = torch.randn(d, device="cuda", generator=g) + 1
+    bi = torch.randn(d, device="cuda", generator=g)
+    dy = torch.randn(rows, d, device="cuda", generator=g)
+    xg, sg, bg = (t.detach().requires_grad_() for t in (x, sc, bi))
+
+    def lib_fwd():
+        with torch.enable_grad():
+            return F.layer_norm(xg, (d,), sg, bg, 1e-5)
+
+    def lib_fwd_bwd():
+        torch.autograd.grad(lib_fwd(), (xg, sg, bg), dy)
+
+    lib_f = _time_ms(lib_fwd, 20)
+    for name, fn, plain, library, nbytes, flops in (
+            ("layer_norm_fwd", lambda: ln.layer_norm_fwd(x, sc, bi, 1e-5),
+             lambda: ln.layer_norm_fwd_plain(x, sc, bi, 1e-5), lib_f,
+             4.0 * (2 * rows * d + 2 * d), 8.0 * rows * d),
+            ("layer_norm_bwd", lambda: ln.layer_norm_bwd(x, sc, dy, 1e-5),
+             lambda: ln.layer_norm_bwd_plain(x, sc, dy, 1e-5),
+             _time_ms(lib_fwd_bwd, 20) - lib_f,
+             4.0 * (3 * rows * d + 3 * d), 16.0 * rows * d)):
+        ms = _time_ms(fn, 20)
+        plain_ms = _time_ms(plain, 5)
+        bound_ms, bound_by, why = _bound(flops, nbytes)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+        lib_what = "F.layer_norm" + (" fwd+bwd minus fwd"
+                                     if name.endswith("bwd") else "")
+        _log("timing", f"{name} [{rows}, {d}] f32 ({per_step[name]:g} a "
+             f"step) on {smi}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+             f"{lib_what} {library:.4f} ms; bound {bound_ms:.4f} ms by "
+             f"{bound_by} ({why}): {100 * bound_ms / ms:.1f}% of bound")
+    _log("timing", f"fused_train on {smi}: step {fused['step_ms']:.1f} ms "
+         f"(mean of {TRAIN_STEPS}), {fused['tokens_per_s']:.0f} tokens/s, "
+         f"peak memory {fused['peak_bytes'] / 2**30:.2f} GiB "
+         f"({(fused['peak_bytes'] - fused['held_bytes']) / 2**30:.2f} GiB "
+         f"above what was allocated before its first step); train: step "
+         f"{train['step_ms']:.1f} ms, {train['tokens_per_s']:.0f} tokens/s, "
+         f"peak {train['peak_bytes'] / 2**30:.2f} GiB "
+         f"({(train['peak_bytes'] - train['held_bytes']) / 2**30:.2f} GiB "
+         f"above)")
+    return out
+
+
 _KERNELS = (
     ("flash_attn_fwd", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
      "paddle_tpu/pallas/flash_attention.py:179"),
@@ -1077,6 +1430,12 @@ _KERNELS = (
      "paddle_tpu/pallas/flash_attention.py:499"),
     ("conv1x1_stats", "paddle_tpu_torch/csrc/conv1x1_stats.cu",
      "paddle_tpu/pallas/conv_bn.py:143"),
+    ("layer_norm_fwd", "paddle_tpu_torch/csrc/layer_norm.cu",
+     "paddle_tpu/pallas/layer_norm.py:92"),
+    ("layer_norm_bwd", "paddle_tpu_torch/csrc/layer_norm.cu",
+     "paddle_tpu/pallas/layer_norm.py:111"),
+    ("dense_epilogue", "paddle_tpu_torch/csrc/dense_epilogue.cu",
+     "paddle_tpu/pallas/dense_epilogue.py:69"),
 )
 
 
@@ -1102,9 +1461,11 @@ def main(argv=None) -> int:
     worst = phase_kernel()
     serve = phase_serve()
     train = phase_train()
+    fused = phase_fused_train()
     resnet = phase_resnet()
     timing = phase_timing(smi, serve, train)
     timing["conv1x1_stats"] = timing_k3(smi, resnet)
+    timing.update(timing_k45(smi, train, fused))
     k3_shapes = timing["conv1x1_stats"].pop("per_shape")
     prof = None
     if args.profile:
@@ -1112,10 +1473,16 @@ def main(argv=None) -> int:
                 "train": phase_train_profile(train),
                 "resnet": phase_resnet_profile(resnet)}
     by_path = {"flash_attn_fwd": {"serve": serve["launches"],
-                                  "train": train["launches"]["flash_attn_fwd"]},
+                                  "train": train["launches"]["flash_attn_fwd"],
+                                  "fused_train":
+                                  fused["launches"]["flash_attn_fwd"]},
                "flash_attn_bwd": {"train":
-                                  train["launches"]["flash_attn_bwd"]},
+                                  train["launches"]["flash_attn_bwd"],
+                                  "fused_train":
+                                  fused["launches"]["flash_attn_bwd"]},
                "conv1x1_stats": {"resnet": resnet["launches"]}}
+    for name in ("layer_norm_fwd", "layer_norm_bwd", "dense_epilogue"):
+        by_path[name] = {"fused_train": fused["launches"][name]}
     kernels = [dict(name=name, route="cuda", source=src, replaces=ref,
                     launches=sum(by_path[name].values()),
                     launches_by_path=by_path[name],
@@ -1132,6 +1499,7 @@ def main(argv=None) -> int:
                        "train": {k: v for k, v in train.items()
                                  if k not in ("main", "loss", "scope",
                                               "feed")},
+                       "fused_train": fused,
                        "resnet": {k: v for k, v in resnet.items()
                                   if k not in ("main", "fetch", "scope",
                                                "feed")}},

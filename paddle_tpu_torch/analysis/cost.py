@@ -127,6 +127,10 @@ class CostPlan:
         total = float(self.flops) or 1.0
         return {c: f / total for c, f in self.per_class.items()}
 
+    def intensity(self) -> float:
+        """Arithmetic intensity (flops per logical byte accessed)."""
+        return self.flops / self.bytes if self.bytes else 0.0
+
 
 def _slot(op, name):
     """Input slot resolution that also sees a GRAD op's forwarded

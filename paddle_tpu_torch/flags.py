@@ -1,7 +1,8 @@
 """Runtime flags (the port's counterpart of ``paddle_tpu/flags.py``; ref
 ``platform/flags.cc`` and ``core.globals()``).
 
-Only the three graph-fusion flags exist so far, with the reference's names
+The graph-fusion flags, the program verifier's gate and the directory of
+the fusion autotuner's verdicts exist so far, with the reference's names
 and defaults.  ``FLAGS_*`` environment variables seed them at import, as the
 reference's ``__bootstrap__`` does; a malformed value warns and is ignored.
 """
@@ -14,16 +15,24 @@ from typing import Any, Dict
 __all__ = ["get_flags", "set_flags"]
 
 _DEFAULTS: Dict[str, Any] = {
-    # the training-safe fusion pass the executor runs on a plain Program
-    # before it builds a plan (conv1x1 + batch_norm [+ relu] ->
-    # fused_conv1x1_bn); applies on static legality and cost rank
+    # the training-safe fusion pass the executor and CompiledProgram run
+    # before a plan is built (conv1x1 + batch_norm, dense + bias +
+    # activation, embedding + adds + layer_norm); applies on static
+    # legality and cost rank
     "FLAGS_graph_fusion": True,
-    # micro-benchmark each candidate before rewriting it (not ported: the
-    # pass refuses to run with it on)
+    # micro-benchmark each candidate (its chain against the fused op with
+    # the hand-written kernel) on the executor's device and apply the
+    # rewrite with the kernel only where the kernel wins
     "FLAGS_fusion_autotune": False,
     # a candidate whose op class is below this share of the program's
     # analytic flop and byte budget is not worth a rewrite
     "FLAGS_fusion_rank_threshold": 0.02,
+    # the program verifier (analysis/verifier.py) runs in
+    # CompiledProgram._optimized before any pass; error findings raise
+    "FLAGS_program_verify": True,
+    # the reference's name, kept because users' scripts set it: in the port
+    # it only names the directory of the autotuner's fusion_autotune.json
+    "FLAGS_xla_compile_cache_dir": "",
 }
 
 _values: Dict[str, Any] = dict(_DEFAULTS)

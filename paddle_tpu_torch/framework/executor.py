@@ -16,8 +16,11 @@ serving plane holds equal to the number of buckets.
 Graph fusion: before it builds the plan of a plain Program, the executor
 runs ``analysis.fusion.fuse_program`` at the real feed batch (the
 reference's plain-Program fusion slot, ``executor.py:1404-1413``) and plans
-the program it returns; the plan key carries the fusion flags' config
-token, so a flag flip re-plans.  A ``CompiledProgram`` runs as it is.
+the program it returns; a ``CompiledProgram`` plans what its
+``_optimized`` gives (the verifier, dead-op elimination, the fusion pass,
+``fuse_elewise_add_act_pass``).  Either way the pass gets the executor's
+device, where the fusion autotuner times its candidates.  The plan key
+carries the fusion flags' config token, so a flag flip re-plans.
 
 Training: a synthesized ``*_grad`` op differentiates its forward op with
 ``torch.autograd`` (``registry.generic_grad_lower``).  Eager torch has no
@@ -255,9 +258,9 @@ class Executor:
         numpy arrays, or as :class:`FetchHandle` s with
         ``return_numpy=False`` (the device work may still be running)."""
         from ..compiler import CompiledProgram
-        compiled = isinstance(program, CompiledProgram)
-        if compiled:
-            program = program.program
+        compiled = program if isinstance(program, CompiledProgram) else None
+        if compiled is not None:
+            program = compiled.program
         if program is None:
             program = default_main_program()
         scope = scope or global_scope()
@@ -267,18 +270,22 @@ class Executor:
         feed_names = tuple(sorted(feed))
         feed_sigs = tuple(_feed_sig(feed[n]) for n in feed_names)
         key = (program.fingerprint(), feed_names, feed_sigs, fetch_names,
-               scope._serial, compiled, _fusion.config_token())
+               scope._serial, None if compiled is None else compiled._serial,
+               _fusion.config_token())
         with self._lock:
             plan = self._plans.get(key)
             if plan is None:
                 self._stats["cache_misses"] += 1
                 self._stats["traces"] += 1
-                run_prog = program
-                if not compiled:
+                feed_shapes = {n: _feed_sig(v)[0] for n, v in feed.items()}
+                if compiled is not None:
+                    run_prog = compiled._optimized(
+                        fetch_names, feed_shapes, device=self.device)
+                else:
                     # the plain-Program fusion slot, at the real batch
                     run_prog = _fusion.fuse_program(
-                        program, fetch_names, feed_shapes={
-                            n: _feed_sig(v)[0] for n, v in feed.items()})
+                        program, fetch_names, feed_shapes=feed_shapes,
+                        device=self.device)
                 plan = self._plans[key] = _Plan(run_prog, fetch_names)
             else:
                 self._stats["cache_hits"] += 1

@@ -9,12 +9,16 @@ ir.py`` the graph-fusion pass needs (ref ``paddle/fluid/framework/ir/``).
   (``ir/graph_pattern_detector.h``);
 - ``buffer_shared_inplace_pass`` and the ``reference_count_pass`` it
   reads (``ir/memory_optimize_pass/``): the in-place pairs the fusion
-  pass's legality rules check against.
+  pass's legality rules check against;
+- ``dead_op_analysis`` / ``dead_subblock_op_analysis`` (the verifier's
+  ``dead_op`` check) and the ``dead_op_eliminate`` pass;
+- ``fuse_elewise_add_act_pass`` (``ir/fuse_elewise_add_act_pass.cc``),
+  which ``CompiledProgram`` runs after the fusion pass.
 
 Graph building, node order and topology sort are the reference's, so a
 rewrite gives the same program in both packages.  The reference's other
-passes (the inference fusions, dead-op elimination, the viz pass) are not
-ported yet.
+passes (the inference fusions, ``conv_bn_train_fuse_pass``, the viz pass)
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -101,6 +105,9 @@ class Graph:
     def all_var_nodes(self) -> List[Node]:
         return list(self.var_nodes)
 
+    def ops_of_type(self, type: str) -> List[Node]:
+        return [n for n in self.op_nodes if n.name == type]
+
     def topology_sort(self) -> List[Node]:
         """Op nodes in dependency order, ties in node order (ref
         ``graph_helper.cc`` TopologySortOperations)."""
@@ -172,6 +179,11 @@ class Graph:
             nop.inputs = {k: list(v) for k, v in op.inputs.items()}
             nop.outputs = {k: list(v) for k, v in op.outputs.items()}
             blk.ops.append(nop)
+        # sub-block rewrites recorded by a pass (the Graph models one
+        # block): dead_op_eliminate's dead body ops are pruned here
+        sub_dead = self.attrs.get("dead_subblock_ops")
+        if sub_dead:
+            prune_subblock_ops(out, sub_dead)
         out._bump_version()
         return out
 
@@ -181,12 +193,17 @@ class Graph:
 # ---------------------------------------------------------------------------
 
 class Pass:
-    """Base pass: override ``apply_impl(graph) -> graph``."""
+    """Base pass: override ``apply_impl(graph) -> graph``.  The
+    ``protected`` attr names the vars an executor will fetch: a rewrite
+    must not remove their defining ops."""
 
     name = "pass"
 
     def __init__(self, **attrs):
         self.attrs = attrs
+
+    def protected_vars(self) -> frozenset:
+        return frozenset(self.attrs.get("protected") or ())
 
     def apply(self, graph: Graph) -> Graph:
         out = self.apply_impl(graph)
@@ -353,6 +370,13 @@ def _input_node(op_node, slot, i=0):
     return next((v for v in op_node.inputs if v.name == names[i]), None)
 
 
+def _output_node(op_node, slot, i=0):
+    names = op_node.op.output(slot)
+    if not names or i >= len(names):
+        return None
+    return next((v for v in op_node.outputs if v.name == names[i]), None)
+
+
 def _referenced_outside_block0(program, name: str) -> bool:
     """True if an op in a control-flow sub-block touches ``name``: the
     block-0 Graph cannot see those consumers."""
@@ -411,4 +435,192 @@ class BufferSharedInplacePass(Pass):
                     pairs.append((vin.name, op.outputs[0].name))
                     break
         graph.attrs["inplace_pairs"] = pairs
+        return graph
+
+
+# ---------------------------------------------------------------------------
+# Elementwise add + activation (ref ir/fuse_elewise_add_act_pass.cc)
+# ---------------------------------------------------------------------------
+
+@register_pass("fuse_elewise_add_act_pass")
+class FuseElewiseAddActPass(Pass):
+    """elementwise_add + activation -> ``fused_elemwise_activation``
+    (``paddle_tpu/framework/ir.py:718``).  The count lands in
+    ``graph.attrs['fuse_elewise_add_act_count']``."""
+
+    ACTS = ("relu", "scale", "tanh", "sigmoid", "gelu")
+
+    def apply_impl(self, graph: Graph) -> Graph:
+        protected = self.protected_vars()
+        count = 0
+        for add in list(graph.ops_of_type("elementwise_add")):
+            if add not in graph.op_nodes:
+                continue
+            out = add.outputs[0] if add.outputs else None
+            if out is None or len(out.outputs) != 1 or \
+                    out.name in protected:
+                continue
+            act = out.outputs[0]
+            if not act.is_op() or act.name not in self.ACTS:
+                continue
+            # bind by slot: elementwise broadcast is X-major
+            by_name = {v.name: v for v in add.inputs}
+            try:
+                xs = [by_name[add.op.input("X")[0]],
+                      by_name[add.op.input("Y")[0]]]
+            except (KeyError, IndexError):
+                continue
+            extra = {}
+            if act.name == "scale":
+                extra = {"scale": act.op.attrs.get("scale", 1.0),
+                         "bias": act.op.attrs.get("bias", 0.0),
+                         "bias_after_scale":
+                         act.op.attrs.get("bias_after_scale", True)}
+            graph.create_op_node(
+                "fused_elemwise_activation",
+                inputs={"X": [xs[0]], "Y": [xs[1]]},
+                outputs={"Out": [act.outputs[0]]},
+                attrs={"functor_list": ["elementwise_add", act.name],
+                       "axis": add.op.attrs.get("axis", -1), **extra})
+            graph.safe_remove_nodes([add, act, out])
+            count += 1
+        graph.attrs["fuse_elewise_add_act_count"] = count
+        return graph
+
+
+# ---------------------------------------------------------------------------
+# Dead-op analysis and elimination (``paddle_tpu/framework/ir.py:1578-1763``)
+# ---------------------------------------------------------------------------
+
+SIDE_EFFECT_OPS = frozenset({
+    "feed", "fetch", "listen_and_serv", "send", "recv", "print", "assert",
+    "save", "load", "py_func", "gen_nccl_id",
+})
+
+
+def _is_root_op(op, outputs_observed) -> bool:
+    """A liveness root: a side-effecting op, a collective, an op carrying a
+    sub-block, an op without outputs, or one whose output is observed."""
+    if op.type in SIDE_EFFECT_OPS or op.type.startswith("c_"):
+        return True
+    if any(isinstance(v, Block) for v in op.attrs.values()):
+        return True
+    outs = [n for n in op.output_arg_names() if n]
+    return not outs or any(outputs_observed(n) for n in outs)
+
+
+def dead_op_analysis(graph: Graph, protected=frozenset()) -> List[Node]:
+    """The op nodes of ``graph`` whose outputs reach no liveness root: no
+    ``protected`` (fetched) var, no persistable, no var a control-flow
+    sub-block references, no side-effecting op.  The verifier's ``dead_op``
+    check and the ``dead_op_eliminate`` pass share this sweep."""
+    program = graph.program
+    block = program.blocks[graph.block_idx]
+    sub_refs = set()
+    for blk in program.blocks:
+        if blk.idx == graph.block_idx:
+            continue
+        for op in blk.ops:
+            sub_refs.update(op.input_arg_names())
+            sub_refs.update(op.output_arg_names())
+
+    def observed(name):
+        return name in protected or name in sub_refs or (
+            block.has_var(name) and block.var(name).persistable)
+
+    live = {n.id for n in graph.op_nodes if _is_root_op(n.op, observed)}
+    stack = [n for n in graph.op_nodes if n.id in live]
+    while stack:
+        op_node = stack.pop()
+        for v in op_node.inputs:
+            for producer in v.inputs:
+                if producer.id not in live:
+                    live.add(producer.id)
+                    stack.append(producer)
+    return [n for n in graph.op_nodes if n.id not in live]
+
+
+def dead_subblock_op_analysis(program: Program,
+                              protected=frozenset()) -> Dict[int, tuple]:
+    """Per sub-block (idx > 0), the program-order indices of the ops whose
+    outputs reach none of the block's roots: names any other block
+    references (loop-carried vars, conditions, and the enclosing op's
+    string attrs), fetched names, persistables, side-effecting ops.
+    Returns ``{block_idx: (op indices...)}`` for blocks with a dead op."""
+    out: Dict[int, tuple] = {}
+    for block in program.blocks[1:]:
+        ext_refs = set()
+        for other in program.blocks:
+            if other.idx == block.idx:
+                continue
+            for op in other.ops:
+                ext_refs.update(op.input_arg_names())
+                ext_refs.update(op.output_arg_names())
+                if not any(isinstance(v, Block) and v.idx == block.idx
+                           for v in op.attrs.values()):
+                    continue
+                # the enclosing op's attr lists name body vars outside
+                # its input/output slots
+                for av in op.attrs.values():
+                    if isinstance(av, (list, tuple)):
+                        ext_refs.update(x for x in av if isinstance(x, str))
+                    elif isinstance(av, str):
+                        ext_refs.add(av)
+
+        def observed(name, _b=block):
+            return name in protected or name in ext_refs or (
+                _b.has_var(name) and _b.var(name).persistable)
+
+        live = {i for i, op in enumerate(block.ops)
+                if _is_root_op(op, observed)}
+        changed = True
+        while changed:
+            changed = False
+            needed = {n for i in live
+                      for n in block.ops[i].input_arg_names() if n}
+            for i, op in enumerate(block.ops):
+                if i not in live and needed & {
+                        n for n in op.output_arg_names() if n}:
+                    live.add(i)
+                    changed = True
+        dead = tuple(i for i in range(len(block.ops)) if i not in live)
+        if dead:
+            out[block.idx] = dead
+    return out
+
+
+def prune_subblock_ops(program: Program,
+                       dead_map: Dict[int, tuple]) -> int:
+    """Drop the ops :func:`dead_subblock_op_analysis` named from
+    ``program``'s sub-blocks, in place.  Returns how many went."""
+    removed = 0
+    for idx, indices in (dead_map or {}).items():
+        if idx <= 0 or idx >= len(program.blocks):
+            continue
+        block = program.blocks[idx]
+        doomed = set(indices)
+        kept = [op for i, op in enumerate(block.ops) if i not in doomed]
+        removed += len(block.ops) - len(kept)
+        block.ops = kept
+    if removed:
+        program._bump_version()
+    return removed
+
+
+@register_pass("dead_op_eliminate")
+class DeadOpEliminatePass(Pass):
+    """Remove the ops :func:`dead_op_analysis` finds, with their outputs,
+    and record the dead sub-block ops for :meth:`Graph.to_program` to
+    prune.  The count lands in ``graph.attrs['dead_op_eliminate_count']``."""
+
+    def apply_impl(self, graph: Graph) -> Graph:
+        dead = dead_op_analysis(graph, self.protected_vars())
+        # a dead op's consumers are dead too, so its outputs go with it
+        doomed_vars = [v for n in dead for v in n.outputs]
+        graph.safe_remove_nodes(list(dead) + doomed_vars)
+        sub_dead = dead_subblock_op_analysis(graph.program,
+                                             self.protected_vars())
+        graph.attrs["dead_subblock_ops"] = sub_dead
+        graph.attrs["dead_op_eliminate_count"] = \
+            len(dead) + sum(len(v) for v in sub_dead.values())
         return graph

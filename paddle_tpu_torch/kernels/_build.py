@@ -25,7 +25,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: kernel name -> source file under csrc/
 SOURCES = {"flash_attn_fwd": "flash_attn_fwd.cu",
            "flash_attn_bwd": "flash_attn_bwd.cu",
-           "conv1x1_stats": "conv1x1_stats.cu"}
+           "conv1x1_stats": "conv1x1_stats.cu",
+           "layer_norm": "layer_norm.cu",
+           "dense_epilogue": "dense_epilogue.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,0 +1,202 @@
+"""LayerNorm over the last dim (K4): hand-written CUDA kernels and their
+plain versions.
+
+K4 replaces the Pallas TPU kernels ``paddle_tpu/pallas/layer_norm.py``
+``_fwd_pallas`` (:92, ``pl.pallas_call`` at :97, body ``_fwd_kernel`` :44)
+and ``_bwd_pallas`` (:111, call :117, body ``_bwd_kernel`` :54); its source
+is ``paddle_tpu_torch/csrc/layer_norm.cu``, whose header says what bounds it
+on an H100.  For ``x [rows, d]`` and ``scale``, ``bias [d]``, float32:
+
+    m = mean(x), var = max(mean(x²) - m², 0), rstd = rsqrt(var + eps)
+    y = (x - m) · rstd · scale + bias
+
+and the backward ``dx = rstd·(g - mean(g) - x̂·mean(g·x̂))`` with
+``g = dy·scale``, ``dscale = Σ_rows dy·x̂``, ``dbias = Σ_rows dy``.
+
+- :func:`layer_norm_fwd` / :func:`layer_norm_bwd` are the wrappers over
+  contiguous float32 tensors.  A CUDA tensor launches the kernel or raises;
+  a CPU tensor takes the plain version.  Each counts its launches
+  (:func:`launch_count`).
+- :func:`layer_norm_fwd_plain` / :func:`layer_norm_bwd_plain` are the plain
+  versions, the reference's ``_ln_ref`` (:34) and the math of
+  ``_fused_ln_bwd`` (:154).
+- :func:`fused_layer_norm` is the reference's entry (:178): differentiable
+  through :class:`LayerNorm`, whose backward launches K4's backward (the
+  reference's ``_fused_ln`` custom VJP, :143-175).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+_count_lock = threading.Lock()
+_launches = {"layer_norm_fwd": 0, "layer_norm_bwd": 0}  # guarded-by: _count_lock
+
+#: the widest row the kernels hold in registers (8 warps x 4 float4 slots)
+MAX_D = 4096
+
+
+def launch_count(kernel: str = "layer_norm_fwd") -> int:
+    """Launches of ``kernel`` (``layer_norm_fwd`` or ``layer_norm_bwd``)
+    since the last :func:`reset_launch_count`."""
+    with _count_lock:
+        return _launches[kernel]
+
+
+def reset_launch_count() -> None:
+    with _count_lock:
+        for name in _launches:
+            _launches[name] = 0
+
+
+def _count(kernel: str) -> None:
+    with _count_lock:
+        _launches[kernel] += 1
+
+
+def _stats(xf, eps):
+    m = xf.mean(dim=-1, keepdim=True)
+    var = (xf * xf).mean(dim=-1, keepdim=True) - m * m
+    return m, torch.rsqrt(torch.clamp(var, min=0.0) + eps)
+
+
+def layer_norm_fwd_plain(x, scale, bias, eps):
+    """Plain version of K4's forward: float32 statistics, y in x's dtype."""
+    xf = x.float()
+    m, rstd = _stats(xf, eps)
+    y = (xf - m) * rstd * scale.float() + bias.float()
+    return y.to(x.dtype)
+
+
+def layer_norm_bwd_plain(x, scale, dy, eps):
+    """Plain version of K4's backward: ``(dx, dscale, dbias)``, the
+    statistics recomputed from x; dscale and dbias in float32."""
+    xf, dyf = x.float(), dy.float()
+    m, rstd = _stats(xf, eps)
+    xhat = (xf - m) * rstd
+    g = dyf * scale.float()
+    c1 = g.mean(dim=-1, keepdim=True)
+    c2 = (g * xhat).mean(dim=-1, keepdim=True)
+    dx = (rstd * (g - c1 - xhat * c2)).to(x.dtype)
+    return dx, (dyf * xhat).sum(dim=0), dyf.sum(dim=0)
+
+
+def _check(what, x, vectors):
+    for name, t in (("x", x),) + vectors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+        if t.device != x.device:
+            raise ValueError(f"{what}: {name} on {t.device}, x on "
+                             f"{x.device}")
+    if x.dim() != 2 or min(x.shape) == 0:
+        raise ValueError(f"{what}: x must be a non-empty [rows, d], got "
+                         f"{tuple(x.shape)}")
+    d = x.shape[1]
+    for name, t in vectors:
+        want = (d,) if name != "dy" else tuple(x.shape)
+        if tuple(t.shape) != want:
+            raise ValueError(f"{what}: {name} must be {want}, got "
+                             f"{tuple(t.shape)}")
+    if x.device.type == "cuda" and d > MAX_D:
+        raise ValueError(f"{what}: d = {d} exceeds the kernel's {MAX_D}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: no kernel for device {x.device}")
+
+
+def layer_norm_fwd(x, scale, bias, eps):
+    """``y [rows, d]`` for contiguous float32 ``x [rows, d]``, ``scale``,
+    ``bias [d]``.  Launches K4's forward on the current stream for CUDA
+    tensors; CPU tensors take the plain version."""
+    _check("layer_norm_fwd", x, (("scale", scale), ("bias", bias)))
+    if x.device.type == "cpu":
+        return layer_norm_fwd_plain(x, scale, bias, eps)
+    rows, d = x.shape
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _entry("fwd")(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                            y.data_ptr(), rows, d, float(eps), stream)
+    if err != 0:
+        raise RuntimeError(f"layer_norm_fwd kernel launch failed: CUDA "
+                           f"error {err}")
+    _count("layer_norm_fwd")
+    return y
+
+
+def layer_norm_bwd(x, scale, dy, eps):
+    """``(dx [rows, d], dscale [d], dbias [d])`` for contiguous float32
+    ``x``, ``dy [rows, d]`` and ``scale [d]``.  Launches K4's backward
+    (two kernels: the row pass with per-block column partials, then the
+    partials added in a fixed order) for CUDA tensors; CPU tensors take the
+    plain version."""
+    _check("layer_norm_bwd", x, (("scale", scale), ("dy", dy)))
+    if x.device.type == "cpu":
+        return layer_norm_bwd_plain(x, scale, dy, eps)
+    rows, d = x.shape
+    prow = _entry("partial_rows")(rows, d)
+    dx = torch.empty_like(x)
+    part = torch.empty((2, prow, d), dtype=torch.float32, device=x.device)
+    grads = torch.empty((2, d), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _entry("bwd")(x.data_ptr(), scale.data_ptr(), dy.data_ptr(),
+                            dx.data_ptr(), part.data_ptr(), grads.data_ptr(),
+                            rows, d, float(eps), stream)
+    if err != 0:
+        raise RuntimeError(f"layer_norm_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    _count("layer_norm_bwd")
+    return dx, grads[0], grads[1]
+
+
+_entries = {}
+
+
+def _entry(which):
+    if not _entries:
+        from . import _build
+        lib = _build.load("layer_norm")
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        for name, fn, args in (
+                ("fwd", lib.paddle_tpu_torch_layer_norm_fwd_f32,
+                 [p] * 4 + [i, i, f, p]),
+                ("bwd", lib.paddle_tpu_torch_layer_norm_bwd_f32,
+                 [p] * 6 + [i, i, f, p]),
+                ("partial_rows", lib.paddle_tpu_torch_layer_norm_partial_rows,
+                 [i, i])):
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+            _entries[name] = fn
+    return _entries[which]
+
+
+class LayerNorm(torch.autograd.Function):
+    """K4's forward, saving ``(x, scale)``; the backward launches K4's
+    backward, which recomputes the statistics (``_fused_ln``,
+    ``layer_norm.py:143-175``)."""
+
+    @staticmethod
+    def forward(ctx, x2, scale, bias, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x2, scale)
+        return layer_norm_fwd(x2, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, scale = ctx.saved_tensors
+        dx, ds, db = layer_norm_bwd(x2, scale, dy.contiguous(), ctx.eps)
+        return dx, ds.to(scale.dtype), db.to(scale.dtype), None
+
+
+def fused_layer_norm(x, scale, bias, eps=1e-5):
+    """LayerNorm over the last dim of ``x [..., d]`` with float32
+    statistics; ``scale``, ``bias``: ``[d]``.  Differentiable."""
+    d = x.shape[-1]
+    y2 = LayerNorm.apply(x.reshape(-1, d).contiguous(), scale.contiguous(),
+                         bias.contiguous(), float(eps))
+    return y2.reshape(x.shape)

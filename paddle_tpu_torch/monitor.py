@@ -1,0 +1,174 @@
+"""Runtime metrics: the metrics core of ``paddle_tpu/monitor.py``
+(:63-372).
+
+Counters and fixed-bucket histograms with labels, kept in one process-wide
+registry (``REGISTRY``) under the reference's metric names, so a scrape of
+either package reads the same families:
+
+- ``paddle_tpu_fusion_candidates_total{pattern,verdict}`` and
+  ``paddle_tpu_fusion_autotune_total{cache}`` (``analysis/fusion.py``);
+- ``paddle_tpu_verifier_findings_total{check}`` and
+  ``paddle_tpu_verifier_runs_total{cache}`` (``analysis/verifier.py``);
+- ``paddle_tpu_compiler_optimize_total{cache}`` and
+  ``paddle_tpu_compiler_pass_ms{pass}`` (``compiler.py``).
+
+A hot path resolves its label series once (``.labels(...)``) and keeps the
+cell: a bump is then one lock and one add.  Not ported yet: the step tracer,
+the digests, the exporters and the serving families.
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+__all__ = ["Counter", "Histogram", "MetricsRegistry", "REGISTRY"]
+
+#: default microsecond buckets (the reference's)
+DEFAULT_BUCKETS_US = (50.0, 100.0, 250.0, 500.0, 1000.0, 2500.0, 5000.0,
+                      10000.0, 25000.0, 50000.0, 100000.0, 250000.0,
+                      500000.0, 1e6, 5e6, 30e6)
+
+
+class _Cell:
+    """One labeled series of a counter: a lock and a number."""
+
+    __slots__ = ("_mu", "_v")
+
+    def __init__(self):
+        self._mu = threading.Lock()
+        self._v = 0  # guarded-by: _mu
+
+    def inc(self, n=1):
+        with self._mu:
+            self._v += n
+
+    def get(self):
+        with self._mu:
+            return self._v
+
+
+class _HistCell:
+    """One labeled series of a fixed-bucket histogram."""
+
+    __slots__ = ("_mu", "buckets", "counts", "sum", "count")
+
+    def __init__(self, buckets: Tuple[float, ...]):
+        self._mu = threading.Lock()
+        self.buckets = buckets
+        self.counts = [0] * (len(buckets) + 1)  # guarded-by: _mu  (+Inf last)
+        self.sum = 0.0  # guarded-by: _mu
+        self.count = 0  # guarded-by: _mu
+
+    def observe(self, v: float):
+        with self._mu:
+            i = next((i for i, b in enumerate(self.buckets) if v <= b),
+                     len(self.buckets))
+            self.counts[i] += 1
+            self.sum += v
+            self.count += 1
+
+    def snapshot(self):
+        with self._mu:
+            return list(self.counts), self.sum, self.count
+
+
+class _Metric:
+    """A named family of labeled series."""
+
+    kind = "untyped"
+
+    def __init__(self, name: str, help: str = "",
+                 labelnames: Sequence[str] = ()):
+        self.name = name
+        self.help = help
+        self.labelnames = tuple(labelnames)
+        self._mu = threading.Lock()
+        self._series: Dict[Tuple[str, ...], Any] = {}  # guarded-by: _mu
+
+    def _new_cell(self):
+        return _Cell()
+
+    def labels(self, **kv):
+        """The (memoized) cell of one label-value combination."""
+        if set(kv) != set(self.labelnames):
+            raise ValueError(
+                f"metric {self.name!r} expects labels {self.labelnames}, "
+                f"got {tuple(kv)}")
+        key = tuple(str(kv[n]) for n in self.labelnames)
+        with self._mu:
+            cell = self._series.get(key)
+            if cell is None:
+                cell = self._series[key] = self._new_cell()
+            return cell
+
+    def series(self) -> List[Tuple[Dict[str, str], Any]]:
+        with self._mu:
+            items = list(self._series.items())
+        return [(dict(zip(self.labelnames, key)), cell)
+                for key, cell in items]
+
+
+class Counter(_Metric):
+    kind = "counter"
+
+    def inc(self, n=1, **labels):
+        self.labels(**labels).inc(n)
+
+
+class Histogram(_Metric):
+    kind = "histogram"
+
+    def __init__(self, name, help="", labelnames=(),
+                 buckets: Sequence[float] = DEFAULT_BUCKETS_US):
+        super().__init__(name, help, labelnames)
+        self.buckets = tuple(sorted(float(b) for b in buckets))
+
+    def _new_cell(self):
+        return _HistCell(self.buckets)
+
+    def observe(self, v: float, **labels):
+        self.labels(**labels).observe(v)
+
+
+class MetricsRegistry:
+    """Get-or-create metric families by name."""
+
+    def __init__(self):
+        self._mu = threading.Lock()
+        self._metrics: "collections.OrderedDict[str, _Metric]" = \
+            collections.OrderedDict()  # guarded-by: _mu
+
+    def _get_or_create(self, cls, name, help, labelnames, **kw):
+        with self._mu:
+            m = self._metrics.get(name)
+            if m is None:
+                m = self._metrics[name] = cls(name, help, labelnames, **kw)
+                return m
+        if not isinstance(m, cls) or tuple(labelnames) != m.labelnames:
+            raise ValueError(
+                f"metric {name!r} already registered as {m.kind} with "
+                f"labels {m.labelnames}")
+        if "buckets" in kw and tuple(
+                sorted(float(b) for b in kw["buckets"])) != m.buckets:
+            raise ValueError(
+                f"histogram {name!r} already registered with buckets "
+                f"{m.buckets}")
+        return m
+
+    def counter(self, name, help="", labelnames=()) -> Counter:
+        return self._get_or_create(Counter, name, help, labelnames)
+
+    def histogram(self, name, help="", labelnames=(),
+                  buckets: Sequence[float] = DEFAULT_BUCKETS_US) -> Histogram:
+        return self._get_or_create(Histogram, name, help, labelnames,
+                                   buckets=buckets)
+
+    def get(self, name) -> Optional[_Metric]:
+        with self._mu:
+            return self._metrics.get(name)
+
+
+#: the process-wide registry
+REGISTRY = MetricsRegistry()

@@ -1,0 +1,126 @@
+"""The fused ops the graph-fusion pass rewrites to (``analysis/fusion.py``;
+the port's ``paddle_tpu/ops/fused_ops.py``).
+
+Both are exact compositions of the unfused lowerings they replace (the same
+torch calls in the same order), so a fused program trains like the unfused
+one on the default path.  The hand-written kernels engage only where the
+fusion autotuner measured them faster for the shape at hand (the
+``use_pallas`` attr, the reference's name):
+
+- ``fused_dense_act`` runs K5 (``kernels/dense_epilogue.py``) when the
+  activation is one the kernel takes ("", relu, gelu) and M is one the TPU
+  kernel could tile (M <= 512 or M % 8 == 0, ``dense_epilogue.py:74-81``);
+- ``fused_embedding_layer_norm`` runs K4 (``kernels/layer_norm.py``) when
+  it normalizes the last dim and both Scale and Bias are present.
+
+These shape rules are decided before any launch.  The reference instead
+wraps both kernel calls in ``try/except Exception`` and falls back to the
+composition (``fused_ops.py:72-78, 150-155``); the port never catches a
+kernel's error.  Not ported yet: the tagged-dropout stage (it needs the
+dropout op and its Philox stream) and AMP (``_amp_pair``).
+
+Gradients flow through the generic grad op's autograd of these lowerings;
+K5's and K4's ``autograd.Function`` s supply their own backward.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..framework.registry import register_op
+from ..kernels import dense_epilogue, layer_norm
+from .common import X, XS, broadcast_to_x
+from .tensor_ops import gather_rows
+
+
+def _no_amp(ctx, op):
+    if getattr(ctx, "amp", False):
+        raise NotImplementedError(
+            f"{op}: AMP in the fused ops is not ported (it comes with AMP "
+            "for the training steps)")
+
+
+def _k5_tiles(m: int) -> bool:
+    """Whether the TPU kernel could tile M rows: a block of min(512, M)
+    rows halved until it divides M, down to 8 (``dense_epilogue.py:74``)."""
+    return m <= 512 or m % 8 == 0
+
+
+@register_op("fused_dense_act")
+def _fused_dense_act(ctx, ins, attrs):
+    """mul/matmul + elementwise_add(bias) + gelu/relu in one op (pattern
+    ``dense_epilogue``)."""
+    _no_amp(ctx, "fused_dense_act")
+    x, w, b = X(ins, "X"), X(ins, "W"), X(ins, "Bias")
+    xnc = int(attrs.get("x_num_col_dims", 1))
+    act = attrs.get("act", "") or ""
+    approximate = bool(attrs.get("approximate", False))
+    xs, ws = tuple(x.shape), tuple(w.shape)
+    if xnc >= 0:                         # mul semantics
+        x2 = x.reshape(int(np.prod(xs[:xnc])), -1)
+        w2 = w.reshape(ws[0], -1)
+        out_shape = xs[:xnc] + ws[1:]
+    else:                                # matmul semantics (no transpose)
+        x2 = x.reshape(int(np.prod(xs[:-1])), xs[-1])
+        w2 = w
+        out_shape = xs[:-1] + ws[1:]
+    if attrs.get("use_pallas") and act in dense_epilogue.ACTS and \
+            _k5_tiles(x2.shape[0]):
+        out = dense_epilogue.dense_act(x2, w2, b, act, approximate)
+    else:
+        out = torch.matmul(x2, w2)
+        out = out + broadcast_to_x(out, b, int(attrs.get("bias_axis", -1))
+                                   if len(out_shape) == out.dim() else -1)
+        if act == "gelu":
+            out = F.gelu(out, approximate="tanh" if approximate else "none")
+        elif act == "relu":
+            out = torch.relu(out)
+    out = out.reshape(out_shape)
+    if int(attrs.get("seed", 0)):
+        # the tagged dropout tail (fused_ops.py:95-112)
+        p = attrs.get("dropout_prob", 0.5)
+        impl = attrs.get("dropout_implementation", "downgrade_in_infer")
+        if not attrs.get("is_test", False):
+            raise NotImplementedError(
+                "fused_dense_act: the tagged-dropout stage is not ported (it "
+                "needs the dropout op and its Philox stream)")
+        if impl == "downgrade_in_infer":
+            out = out * (1.0 - p)
+    return {"Out": [out]}
+
+
+@register_op("fused_embedding_layer_norm")
+def _fused_embedding_layer_norm(ctx, ins, attrs):
+    """lookup_table [+ elementwise_adds] + layer_norm in one op (pattern
+    ``embedding_layer_norm``): the row gather, the adds and the
+    normalization.  Mean and Variance always come from the two-pass
+    (Welford) variance, as in the reference, not from K4's one-pass
+    statistics."""
+    _no_amp(ctx, "fused_embedding_layer_norm")
+    w, ids = X(ins, "W"), X(ins, "Ids")
+    scale, bias = X(ins, "Scale"), X(ins, "Bias")
+    x = gather_rows(w, ids, attrs.get("padding_idx", -1))
+    for a in XS(ins, "Addends"):
+        x = x + broadcast_to_x(x, a, -1)
+    eps = attrs.get("epsilon", 1e-5)
+    begin = attrs.get("begin_norm_axis", 1)
+    lead = tuple(x.shape[:begin])
+    x2 = x.reshape(int(np.prod(lead)), -1)
+    xf = x2.float()
+    if attrs.get("use_pallas") and begin == x.dim() - 1 and \
+            scale is not None and bias is not None:
+        # the two-pass (Welford) variance and the mean in one reduction
+        v, m = torch.var_mean(xf, dim=1, unbiased=False, keepdim=True)
+        y = layer_norm.fused_layer_norm(x2, scale, bias, eps)
+    else:                                # the layer_norm lowering
+        m = xf.mean(dim=1, keepdim=True)
+        v = xf.var(dim=1, unbiased=False, keepdim=True)
+        y = (x2 - m.to(x2.dtype)) * torch.rsqrt(v + eps).to(x2.dtype)
+        if scale is not None:
+            y = y * scale.to(y.dtype).reshape(1, -1)
+        if bias is not None:
+            y = y + bias.to(y.dtype).reshape(1, -1)
+    return {"Out": [y.reshape(x.shape).to(x.dtype)],
+            "Mean": [m.reshape(lead)], "Variance": [v.reshape(lead)]}

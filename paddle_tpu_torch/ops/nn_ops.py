@@ -16,7 +16,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..framework.core import grad_var_name
 from ..framework.registry import register_op
-from .common import X
+from .common import X, broadcast_to_x
 
 
 # ---------------------------------------------------------------------------
@@ -364,3 +364,28 @@ def _fused_lm_head_ce(ctx, ins, attrs):
         losses.append(checkpoint(_lm_head_chunk, *args, use_reentrant=False)
                       if remat else _lm_head_chunk(*args))
     return {"Loss": [torch.cat(losses).reshape(lead + (1,))]}
+
+
+_UNARY = {"relu": torch.relu, "tanh": torch.tanh, "sigmoid": torch.sigmoid,
+          "gelu": F.gelu}
+
+
+@register_op("fused_elemwise_activation")
+def _fused_elemwise_activation(ctx, ins, attrs):
+    """ref ``operators/fused/fused_elemwise_activation_op.cc``, the target of
+    ``fuse_elewise_add_act_pass`` (``paddle_tpu/ops/nn_ops.py:904``):
+    ``functor_list`` is [binary, unary], applied as unary(binary(x, y))."""
+    x, y = X(ins, "X"), X(ins, "Y")
+    binary, unary = attrs["functor_list"]
+    if binary != "elementwise_add":
+        raise NotImplementedError(f"fused functor {binary}")
+    out = x + broadcast_to_x(x, y, attrs.get("axis", -1))
+    if unary == "scale":
+        s, b = attrs.get("scale", 1.0), attrs.get("bias", 0.0)
+        out = out * s + b if attrs.get("bias_after_scale", True) \
+            else (out + b) * s
+    elif unary in _UNARY:
+        out = _UNARY[unary](out)
+    else:
+        raise NotImplementedError(f"fused functor {unary}")
+    return {"Out": [out]}

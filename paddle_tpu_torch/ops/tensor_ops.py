@@ -150,22 +150,28 @@ def _scale(ctx, ins, attrs):
     return {"Out": [out.to(x.dtype)]}
 
 
-@register_op("lookup_table")
-def _lookup_table(ctx, ins, attrs):
-    """The reference's ``jnp.take`` semantics: ids in [-V, 0) wrap, ids
-    outside [-V, V) give NaN rows.  Ids come from requests: an index past
-    the table must not reach the gather, where the card would fault."""
-    w, ids = X(ins, "W"), X(ins, "Ids")
+def gather_rows(w, ids, padding_idx=-1):
+    """The rows of ``w`` at ``ids`` (a trailing dim of 1 squeezed), with the
+    reference's ``jnp.take`` semantics: ids in [-V, 0) wrap, ids outside
+    [-V, V) give NaN rows, the ``padding_idx`` row reads zeros.  Ids come
+    from requests: an index past the table must not reach the gather, where
+    the card would fault."""
     if ids.dim() >= 2 and ids.shape[-1] == 1:
         ids = ids[..., 0]
     n = w.shape[0]
     valid = (ids >= -n) & (ids < n)
     out = w[torch.where(valid, ids.remainder(n), torch.zeros_like(ids))]
-    out = out.masked_fill(~valid[..., None], float("nan"))
-    pad = attrs.get("padding_idx", -1)
-    if pad is not None and pad != -1:
-        out = out.masked_fill((ids == pad)[..., None], 0.0)
-    return {"Out": [out]}
+    # in place on the fresh gather: masked_fill would copy it first
+    out.masked_fill_(~valid[..., None], float("nan"))
+    if padding_idx is not None and padding_idx != -1:
+        out.masked_fill_((ids == padding_idx)[..., None], 0.0)
+    return out
+
+
+@register_op("lookup_table")
+def _lookup_table(ctx, ins, attrs):
+    return {"Out": [gather_rows(X(ins, "W"), X(ins, "Ids"),
+                                attrs.get("padding_idx", -1))]}
 
 
 @register_op("range")

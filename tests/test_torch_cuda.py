@@ -27,7 +27,17 @@ have them), so it runs there with the repo's conftest left out:
   fusion pass against the host: 6 K3 launches a step; the fused step's
   loss within 2^-6 relative (K3 rounds its operands to bf16 on the card,
   the host multiplies in float32), the unfused steps (float32 on both
-  sides) to 1e-5 on the loss and 1e-4 + 2e-5 on the parameters.
+  sides) to 1e-5 on the loss and 1e-4 + 2e-5 on the parameters;
+- the LayerNorm kernels (K4) against their plain versions, forward and
+  backward, at widths 8 to 4096 (ragged, unaligned): y and dx within
+  1e-5 + 1e-4 relative, dscale and dbias within 2^-14 of the sum of their
+  terms' magnitudes; the dense-epilogue kernel (K5) against its plain
+  version for each activation at ragged M, N and K: y within 1e-5 + 1e-4
+  relative + 2^-20 of sum |x||w|; both ``autograd.Function`` s on the card
+  against the host;
+- a tiny GPT step fused with the kernels' paths (autotune verdicts set to
+  win, rank threshold 0) on the card against the same fused program on the
+  host: one K5 launch per layer, one K4 forward and one backward.
 """
 
 import numpy as np
@@ -37,7 +47,9 @@ import torch
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch.framework import Program, Scope, program_guard
 from paddle_tpu_torch.kernels import conv_bn as cb
+from paddle_tpu_torch.kernels import dense_epilogue as de
 from paddle_tpu_torch.kernels import flash_attention as fa
+from paddle_tpu_torch.kernels import layer_norm as ln
 from paddle_tpu_torch.models import transformer as T
 
 pytestmark = pytest.mark.cuda
@@ -379,3 +391,143 @@ def test_toy_resnet_on_the_card_matches_the_host(cuda, fused):
         np.testing.assert_allclose(scope.find_var(p.name).cpu().numpy(),
                                    host_scope.find_var(p.name).numpy(),
                                    rtol=1e-4, atol=2e-5, err_msg=p.name)
+
+
+# -- K4 and K5 -----------------------------------------------------------------
+
+LN_SHAPES = {"1x8": (1, 8), "37x96": (37, 96), "515x768": (515, 768),
+             "4099x1000": (4099, 1000), "7x4096": (7, 4096), "33x5": (33, 5),
+             "unaligned_9x96": (9, 96)}
+
+
+@pytest.mark.parametrize("case", sorted(LN_SHAPES))
+def test_k4_matches_plain_version(cuda, case):
+    rows, d = LN_SHAPES[case]
+    g = torch.Generator().manual_seed(rows + d)
+    x = (torch.randn(rows, d, generator=g) * 2 + 0.5).to(cuda)
+    if case.startswith("unaligned"):
+        # a view one float past a 16-byte boundary: scalar accesses
+        flat = torch.randn(rows * d + 1, generator=g).to(cuda)
+        x = flat[1:].view(rows, d)
+    s = (torch.randn(d, generator=g) + 1).to(cuda)
+    b = torch.randn(d, generator=g).to(cuda)
+    dy = torch.randn(rows, d, generator=g).to(cuda)
+    n0 = (ln.launch_count("layer_norm_fwd"), ln.launch_count("layer_norm_bwd"))
+    y = ln.layer_norm_fwd(x, s, b, 1e-5)
+    dx, ds, db = ln.layer_norm_bwd(x, s, dy, 1e-5)
+    torch.cuda.synchronize()
+    assert (ln.launch_count("layer_norm_fwd"),
+            ln.launch_count("layer_norm_bwd")) == (n0[0] + 1, n0[1] + 1)
+    ry = ln.layer_norm_fwd_plain(x, s, b, 1e-5)
+    rdx, rds, rdb = ln.layer_norm_bwd_plain(x, s, dy, 1e-5)
+    assert bool(((y - ry).abs() <= 1e-5 + 1e-4 * ry.abs()).all())
+    assert bool(((dx - rdx).abs() <= 1e-5 + 1e-4 * rdx.abs()).all())
+    xhat = ln.layer_norm_fwd_plain(x, torch.ones_like(s),
+                                   torch.zeros_like(b), 1e-5)
+    for got, want, terms in ((ds, rds, (dy * xhat).abs()),
+                             (db, rdb, dy.abs())):
+        assert bool(((got - want).abs()
+                     <= 2.0 ** -14 * terms.sum(dim=0) + 1e-6).all())
+
+
+K5_SHAPES = {"1x64x128": (1, 64, 128), "513x96x130": (513, 96, 130),
+             "256x100x72": (256, 100, 72), "300x768x3072": (300, 768, 3072),
+             "129x33x7": (129, 33, 7)}
+
+
+@pytest.mark.parametrize("act,approximate", [("", False), ("relu", False),
+                                             ("gelu", False), ("gelu", True)],
+                         ids=["none", "relu", "gelu_erf", "gelu_tanh"])
+@pytest.mark.parametrize("case", sorted(K5_SHAPES))
+def test_k5_matches_plain_version(cuda, case, act, approximate):
+    m, k, n = K5_SHAPES[case]
+    g = torch.Generator().manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g).to(cuda)
+    w = (torch.randn(k, n, generator=g) * k ** -0.5).to(cuda)
+    b = torch.randn(n, generator=g).to(cuda)
+    n0 = de.launch_count()
+    y = de.dense_act_fwd(x, w, b, act, approximate)
+    torch.cuda.synchronize()
+    assert de.launch_count() == n0 + 1
+    ry = de.dense_act_plain(x, w, b, act, approximate)
+    terms = x.to(torch.bfloat16).float().abs() @ \
+        w.to(torch.bfloat16).float().abs()
+    assert bool(((y - ry).abs() <= 1e-5 + 1e-4 * ry.abs()
+                 + 2.0 ** -20 * terms).all())
+
+
+@pytest.mark.parametrize("bad", ["dtype", "layout", "inner", "act"])
+def test_k5_wrapper_refuses_on_the_card(cuda, bad):
+    x, w = torch.randn(8, 16, device=cuda), torch.randn(16, 4, device=cuda)
+    b, act = torch.randn(4, device=cuda), "gelu"
+    if bad == "dtype":
+        x = x.half()
+    elif bad == "layout":
+        w = torch.randn(4, 16, device=cuda).t()
+    elif bad == "inner":
+        w = torch.randn(15, 4, device=cuda)
+    else:
+        act = "tanh"
+    n0 = de.launch_count()
+    with pytest.raises((TypeError, ValueError)):
+        de.dense_act_fwd(x, w, b, act)
+    assert de.launch_count() == n0
+
+
+def test_k4_and_k5_functions_match_the_host(cuda):
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(64, 96, generator=g)
+    w = torch.randn(96, 40, generator=g) / 10
+    b = torch.randn(40, generator=g)
+    s, c = torch.randn(40, generator=g) + 1, torch.randn(40, generator=g)
+    grads = []
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_(True) for t in (x, w, b, s, c)]
+        h = de.dense_act(*leaves[:3], "gelu", False)
+        y = ln.fused_layer_norm(h, leaves[3], leaves[4])
+        loss = (y * y).sum()
+        grads.append([t.cpu() for t in torch.autograd.grad(loss, leaves)])
+    for a, b_ in zip(*grads):
+        torch.testing.assert_close(b_, a, rtol=1e-4,
+                                   atol=1e-4 * float(a.abs().max()))
+
+
+def test_fused_tiny_gpt_step_on_the_card_matches_the_host(cuda, monkeypatch):
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch import optimizer as opt
+    from paddle_tpu_torch.analysis import fusion
+    monkeypatch.setattr(fusion, "_autotune", lambda *a, **k: {
+        "base_ms": 1.0, "fused_ms": 0.5, "win": True, "cached": False})
+    cfg = T.BertConfig(vocab_size=64, d_model=32, n_layer=2, n_head=4,
+                       d_inner=64, max_pos=16, dropout=0.0)
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        _, _, loss = T.build_gpt_pretrain(cfg, 16, attn_impl="flash",
+                                          fused_head=True, dropout=0.0)
+        opt.AdamOptimizer(1e-3).minimize(loss)
+    exe, host = ptt.Executor(), ptt.Executor(ptt.CPUPlace())
+    scope, host_scope = Scope(), Scope()
+    exe.run(startup, scope=scope, seed=5)
+    for name, val in scope.items():
+        host_scope.set_var(name, val.cpu())
+    rng = np.random.RandomState(0)
+    ids = rng.randint(1, 64, (2, 16)).astype(np.int64)
+    feed = {"src_ids": ids, "lm_label": np.roll(ids, -1, axis=1)}
+    flags.set_flags({"FLAGS_fusion_autotune": True,
+                     "FLAGS_fusion_rank_threshold": 0.0})
+    try:
+        n0 = (de.launch_count(), ln.launch_count("layer_norm_fwd"),
+              ln.launch_count("layer_norm_bwd"))
+        got, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        counts = (de.launch_count() - n0[0],
+                  ln.launch_count("layer_norm_fwd") - n0[1],
+                  ln.launch_count("layer_norm_bwd") - n0[2])
+        plan, = [p for p in exe._plans.values()
+                 if any(op.type == "adam" for op, _ in p.ops)]
+        want, = host.run(plan.block.program, feed=feed, fetch_list=[loss],
+                         scope=host_scope)
+    finally:
+        flags.set_flags({"FLAGS_fusion_autotune": False,
+                         "FLAGS_fusion_rank_threshold": 0.02})
+    assert counts == (cfg.n_layer, 1, 1)
+    np.testing.assert_allclose(got, want, rtol=1e-4)

@@ -1,0 +1,114 @@
+"""K4 (LayerNorm over the last dim) against the JAX package, on the CPU.
+
+- ``layer_norm_fwd_plain`` (the plain version the CPU path and
+  ``chip_smoke.py`` use) against the reference's ``_ln_ref`` and against
+  ``_fwd_pallas`` run in interpret mode, at rows 1/37/515 x d 8/96/768:
+  y within 1e-5 + 1e-5 relative (float32, the sums in another order);
+- ``layer_norm_bwd_plain`` against ``_bwd_pallas`` in interpret mode: dx
+  within 1e-5 + 1e-5 relative, dscale and dbias (sums over all rows) within
+  1e-5 of the sum of their terms' magnitudes;
+- ``fused_layer_norm`` (the ``autograd.Function``; on CPU tensors the plain
+  versions) against ``jax.vjp`` of the reference's ``fused_layer_norm``
+  (custom VJP) over a 3-D input;
+- the wrappers' contract: CPU tensors take the plain version and count no
+  launch; a wrong dtype, shape or layout raises.
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.kernels import layer_norm as ln
+
+ref_ln = importlib.import_module("paddle_tpu.pallas.layer_norm")
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+SUM_RTOL = 1e-5
+EPS = 1e-5
+
+
+def _inputs(rows, d, seed):
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(rows, d) * 2 + 0.5).astype(np.float32)
+    s = (rng.randn(d) * 0.5 + 1).astype(np.float32)
+    b = (rng.randn(d) * 0.1).astype(np.float32)
+    dy = rng.randn(rows, d).astype(np.float32)
+    return x, s, b, dy
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+SHAPES = [(r, d) for r in (1, 37, 515) for d in (8, 96, 768)]
+
+
+@pytest.mark.parametrize("rows,d", SHAPES)
+def test_forward_plain_matches_reference(rows, d):
+    x, s, b, _ = _inputs(rows, d, seed=rows + d)
+    y = ln.layer_norm_fwd_plain(*_t(x, s, b), EPS)
+    assert y.dtype == torch.float32 and tuple(y.shape) == (rows, d)
+    want_ref = ref_ln._ln_ref(jnp.asarray(x), jnp.asarray(s),
+                              jnp.asarray(b), EPS)
+    want_kernel = ref_ln._fwd_pallas(jnp.asarray(x), jnp.asarray(s),
+                                     jnp.asarray(b), EPS, True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_ref), **TOL)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_kernel), **TOL)
+
+
+@pytest.mark.parametrize("rows,d", SHAPES)
+def test_backward_plain_matches_reference_kernel(rows, d):
+    x, s, _, dy = _inputs(rows, d, seed=3 * rows + d)
+    dx, ds, db = ln.layer_norm_bwd_plain(*_t(x, s, dy), EPS)
+    rdx, rds, rdb = ref_ln._bwd_pallas(jnp.asarray(x), jnp.asarray(s),
+                                       jnp.asarray(dy), EPS, True)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(rdx), **TOL)
+    xhat = np.asarray(ln.layer_norm_fwd_plain(
+        *_t(x, np.ones(d, np.float32), np.zeros(d, np.float32)), EPS))
+    for got, want, terms in ((ds, rds, np.abs(dy * xhat)),
+                             (db, rdb, np.abs(dy))):
+        assert got.dtype == torch.float32 and tuple(got.shape) == (d,)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=SUM_RTOL * terms.sum(axis=0).max())
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 96), (2, 768)])
+def test_function_grads_match_reference_vjp(shape):
+    rng = np.random.RandomState(11)
+    x = (rng.randn(*shape) * 1.5).astype(np.float32)
+    s = (rng.randn(shape[-1]) + 1).astype(np.float32)
+    b = rng.randn(shape[-1]).astype(np.float32)
+    g = rng.randn(*shape).astype(np.float32)
+    xt, st, bt = (torch.from_numpy(a).requires_grad_() for a in (x, s, b))
+    y = ln.fused_layer_norm(xt, st, bt, EPS)
+    got = torch.autograd.grad(y, (xt, st, bt), torch.from_numpy(g))
+    want_y, vjp = jax.vjp(
+        lambda x_, s_, b_: ref_ln.fused_layer_norm(x_, s_, b_, eps=EPS),
+        jnp.asarray(x), jnp.asarray(s), jnp.asarray(b))
+    want = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want_y), **TOL)
+    rows = int(np.prod(shape[:-1]))
+    for a, r in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=1e-5,
+                                   atol=1e-5 * rows)
+
+
+def test_cpu_counts_no_launch_and_bad_inputs_raise():
+    x, s, b, dy = _t(*_inputs(4, 8, seed=0))
+    ln.reset_launch_count()
+    ln.layer_norm_fwd(x, s, b, EPS)
+    ln.layer_norm_bwd(x, s, dy, EPS)
+    assert ln.launch_count("layer_norm_fwd") == 0
+    assert ln.launch_count("layer_norm_bwd") == 0
+    with pytest.raises(TypeError, match="float32"):
+        ln.layer_norm_fwd(x.double(), s, b, EPS)
+    with pytest.raises(ValueError, match="contiguous"):
+        ln.layer_norm_fwd(x.t(), s, b, EPS)
+    with pytest.raises(ValueError, match=r"must be \(8,\)"):
+        ln.layer_norm_fwd(x, s[:4].contiguous(), b, EPS)
+    with pytest.raises(ValueError, match=r"must be \(4, 8\)"):
+        ln.layer_norm_bwd(x, s, dy[:2].contiguous(), EPS)

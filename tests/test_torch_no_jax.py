@@ -1,9 +1,10 @@
 """The port stands alone: no JAX and nothing of ``paddle_tpu``.
 
 - in a subprocess where ``import jax`` and ``import paddle_tpu`` fail,
-  importing ``paddle_tpu_torch``, serving one request, taking one Adam
-  step of a tiny GPT and one Momentum step of a toy ResNet through the
-  graph-fusion pass on the CPU works;
+  importing ``paddle_tpu_torch``, serving one request (through
+  ``CompiledProgram``'s verifier and passes), taking Adam steps of a tiny
+  GPT, with the fusion autotuner on in the last, and one Momentum step of a
+  toy ResNet through the graph-fusion pass on the CPU works;
 - a source scan finds no ``jax`` or ``paddle_tpu`` import in the package or
   in ``chip_smoke.py``;
 - ``Executor()`` (the card by default) raises when there is no GPU.
@@ -67,6 +68,20 @@ _BLOCKED = textwrap.dedent("""
     l1, = exe.run(main, feed={"src_ids": ids, "lm_label": ids},
                   fetch_list=[loss], scope=train_scope)
     assert l1 < l0, (l0, l1)
+    import tempfile
+    from paddle_tpu_torch import flags
+    flags.set_flags({"FLAGS_fusion_autotune": True,
+                     "FLAGS_fusion_rank_threshold": 0.0,
+                     "FLAGS_xla_compile_cache_dir": tempfile.mkdtemp()})
+    l2, = exe.run(main, feed={"src_ids": ids, "lm_label": ids},
+                  fetch_list=[loss], scope=train_scope)
+    tuned = [p for p in exe._plans.values()
+             if p.block.program._attrs.get("fusion", {}).get("candidates")
+             and all("autotune" in d for d in
+                     p.block.program._attrs["fusion"]["candidates"])]
+    assert len(tuned) == 1 and np.isfinite(l2), (len(tuned), l2)
+    flags.set_flags({"FLAGS_fusion_autotune": False,
+                     "FLAGS_fusion_rank_threshold": 0.02})
     from paddle_tpu_torch import layers
     from paddle_tpu_torch.models import resnet
     main, startup = Program(), Program()
@@ -122,9 +137,16 @@ def _sources():
 def test_no_jax_or_reference_import_in_sources():
     scanned = {os.path.relpath(p, REPO) for p in _sources()}
     assert {"paddle_tpu_torch/analysis/fusion.py",
+            "paddle_tpu_torch/analysis/verifier.py",
+            "paddle_tpu_torch/compiler.py",
+            "paddle_tpu_torch/debugger.py",
             "paddle_tpu_torch/framework/ir.py",
             "paddle_tpu_torch/kernels/conv_bn.py",
-            "paddle_tpu_torch/models/resnet.py"} <= scanned
+            "paddle_tpu_torch/kernels/dense_epilogue.py",
+            "paddle_tpu_torch/kernels/layer_norm.py",
+            "paddle_tpu_torch/models/resnet.py",
+            "paddle_tpu_torch/monitor.py",
+            "paddle_tpu_torch/ops/fused_ops.py"} <= scanned
     offenders = []
     for path in _sources():
         with open(path) as f:

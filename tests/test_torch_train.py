@@ -167,16 +167,18 @@ def test_each_forward_op_runs_once_per_step(monkeypatch):
         exe.run(main, feed=_feed(step), fetch_list=[loss], scope=sc)
         assert calls == {"fwd": CFG["n_layer"] * step,
                          "bwd": CFG["n_layer"] * step}
+    # the plan of the training program (the fused program the executor
+    # runs in place of ``main``)
     plan = next(p for p in exe._plans.values()
-                if p.block is main.global_block())
+                if any(op.type == "adam" for op, _ in p.ops))
     assert plan.fwd_of and None not in plan.fwd_of.values()
     assert len(plan.wanted) == len(plan.fwd_of)
 
 
 def test_grad_ops_without_their_forward_recompute_it(monkeypatch):
-    """A grad op whose forward op the plan cannot find (here: the gelu ops
-    are hidden from the pairing) recomputes its forward and gives the same
-    step."""
+    """A grad op whose forward op the plan cannot find (here: the fused
+    dense + gelu ops of the FFNs are hidden from the pairing) recomputes its
+    forward and gives the same step."""
     from paddle_tpu_torch.framework import executor as executor_mod
     main, startup, loss = _build("port", "base", False)
     exe, sc = ptt.Executor(ptt.CPUPlace()), scope.Scope()
@@ -188,13 +190,13 @@ def test_grad_ops_without_their_forward_recompute_it(monkeypatch):
 
     key = executor_mod._fwd_key
     monkeypatch.setattr(executor_mod, "_fwd_key", lambda op: (
-        ("hidden", id(op)) if op.type == "gelu" else key(op)))
+        ("hidden", id(op)) if op.type == "fused_dense_act" else key(op)))
     exe2 = ptt.Executor(ptt.CPUPlace())
     got, = exe2.run(main, feed=_feed(), fetch_list=[loss], scope=sc)
     plan, = exe2._plans.values()
     unpaired = [plan.ops[i][0].type for i, j in plan.fwd_of.items()
                 if j is None]
-    assert unpaired == ["gelu_grad"] * CFG["n_layer"]
+    assert unpaired == ["fused_dense_act_grad"] * CFG["n_layer"]
     np.testing.assert_allclose(got, want, rtol=1e-6)
     for p in main.all_parameters():
         np.testing.assert_allclose(sc.find_var(p.name).numpy(),
