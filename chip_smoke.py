@@ -12,9 +12,11 @@ JAX, prints one line per phase, and raises on any failure:
 2. ``kernel`` — each hand-written kernel against its plain PyTorch version
    on the card, at the shapes of the main paths and at the edge cases,
    float32 with TF32 off: ``|kernel - plain| <= ATOL + RTOL * |plain|``
-   (plus, for the bf16 products of K3 and K5, 2^-20 of the sum of the
-   terms' magnitudes, and for the column sums of K3 and K4's backward,
-   2^-14 of theirs).
+   (plus, for the bf16 products of K3, K5 and K6 and the float32 products
+   of K8, 2^-20 of the sum of the terms' magnitudes, one bf16 ulp for K6's
+   bf16 outputs, and for the column sums of K3, K4's backward and K6, 2^-14
+   of theirs).  K6 at ``rn50_fused_bench``'s four calls and at float32
+   edges; K8 at [4, 512, 64 | 128], block_q 64 and 128.
 3. ``serve``  — the GPT causal LM at BERT-base width (vocab 30522, d 768,
    12 layers, 12 heads, d_inner 3072, max_pos 2048, random weights from a
    seed) behind ``InferenceServer`` with buckets (512, 1024, 2048) and
@@ -59,14 +61,23 @@ JAX, prints one line per phase, and raises on any failure:
    falling losses.  Then the fused program of a 2-layer, batch-1, seq-1024
    step runs on the card and on the host, with the train phase's
    tolerances.
-7. ``timing`` — each kernel, its plain version and one PyTorch library call
+7. ``rn50_fused`` — ``paddle_tpu_torch.tools.rn50_fused_bench.main()``
+   at both ResNet-50 stage shapes (M 802,816 and 200,704, bf16): the fused
+   chain (two K6 launches, the normalize + relu folded into the second)
+   against the library chain, sums within 2^-7 relative, then both timed.
+8. ``attn_ceiling`` — ``paddle_tpu_torch.tools.attn_shape_ceiling.main()``
+   at (T, bh) = (2048, 24), (8192, 6), (16384, 2), d 64: the K8 skeletons
+   (and the forward at d 128) against K1 and K1 + K2; each report printed.
+9. ``timing`` — each kernel, its plain version and one PyTorch library call
    computing the same function, with CUDA events, at the main-path shapes
    ([96, 2048, 64] causal for K1/K2, ResNet-50's 15 conv1x1 shapes at batch
    128 for K3, [16384, 768] for K4, [16384, 768] x [768, 3072] gelu for
-   K5); the least time the card could take (``bound``); the server's
-   per-bucket batch latency, requests/s and tokens/s, the GPT training
-   steps' time, tokens/s and peak memory (plain and fused), and the ResNet
-   step's time, images/s, peak memory and summed K3 time.
+   K5, the four rn50_fused calls for K6, [24, 2048, 64] for K8, which no
+   single library call computes); the least time the card could take
+   (``bound``); the server's per-bucket batch latency, requests/s and
+   tokens/s, the GPT training steps' time, tokens/s and peak memory (plain
+   and fused), and the ResNet step's time, images/s, peak memory and summed
+   K3 time.
 
 Then one JSON line describing every kernel, the ``nvidia-smi`` line, and a
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -147,13 +158,24 @@ FUSED_FLAGS = {"FLAGS_fusion_autotune": True,
 DEFAULT_FLAGS = {"FLAGS_fusion_autotune": False,
                  "FLAGS_fusion_rank_threshold": 0.02,
                  "FLAGS_xla_compile_cache_dir": ""}
-#: an autotuner miss runs the fused op once to warm up and 3 times timed
-AUTOTUNE_CALLS = 4
 
-# NVIDIA data-sheet peaks (dense): float32 on the CUDA cores, bf16 on the
-# tensor cores, HBM bandwidth
-_PEAKS = (("PCIe", 51e12, 756e12, 2.0e12), ("NVL", 60e12, 835e12, 3.9e12),
-          ("H100", 67e12, 989e12, 3.35e12), ("H200", 67e12, 989e12, 4.8e12))
+# K6 against its plain version.  Both multiply the same bf16 operands
+# (products exact in float32) and sum them in float32 in other orders, so a
+# float32 y gets K3's 2^-20 of sum |a||w|; a bf16 y (bf16 x) is the rounding
+# of those sums, and two sums a few float32 ulps apart can round to
+# neighbouring bf16 values: one bf16 ulp more, 2^-7 of |y|.  s and s2 get
+# K3's 2^-14 (they come from the float32 sums in both).
+K6_BF16_RTOL = 2.0 ** -7
+# K8 against its plain version: float32 sums of float32 products at two
+# levels (S = q.k then S.v; dq = (S * dP).k), in other orders than cuBLAS's;
+# 2^-20 of the sum of the terms' magnitudes (|q||k||v| for o, and so on)
+K8_SUM_RTOL = 2.0 ** -20
+# rn50_fused: the fused chain's output sum against the library chain's.
+# The chains round y1 to bf16 at the same place but take the statistics
+# from different values (the float32 sums in K6, the rounded bf16 y1 in
+# the library), so normalized values can round to neighbouring bf16 values:
+# one bf16 ulp, 2^-7, of the sum
+RN50_FUSED_RTOL = 2.0 ** -7
 
 
 def _log(phase, msg):
@@ -161,25 +183,9 @@ def _log(phase, msg):
 
 
 def _peaks(name, kind="float32"):
-    for key, f32, bf16, bw in _PEAKS:
-        if key in name:
-            return (f32 if kind == "float32" else bf16), bw
-    raise RuntimeError(f"no peak table entry for card {name!r}")
-
-
-def _time_ms(fn, iters, warmup=2):
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    from paddle_tpu_torch.tools import timing
+    f32, bf16, bw = timing.peaks(name)
+    return (f32 if kind == "float32" else bf16), bw
 
 
 def phase_env():
@@ -256,6 +262,75 @@ def check_k3(name, x, w):
     return e_y, e_s, e_s2
 
 
+def _k6_terms(x, w, ps, relu):
+    """sum_k |bf16(a)||bf16(w)| per output value, a the prologue's output
+    as the plain version computes it."""
+    import torch
+    a = x.float()
+    if ps is not None:
+        a = (a - ps[0]) * ps[1] * ps[2] + ps[3]
+    if relu:
+        a = torch.relu(a)
+    return a.to(torch.bfloat16).float().abs() @ \
+        w.to(torch.bfloat16).float().abs()
+
+
+def check_k6(name, x, w, ps, relu):
+    """K6 against its plain version on the card: y per value within the
+    allowance of its sum (one bf16 ulp more for a bf16 y), s and s2 within
+    theirs.  Returns the max abs errors and the kernel's outputs."""
+    import torch
+    from paddle_tpu_torch.kernels import conv_bn as cb
+    y, s, s2 = cb.matmul_bn_stats_fwd(x, w, ps, relu)
+    torch.cuda.synchronize()
+    ry, rs, rs2 = cb.matmul_bn_stats_plain(x, w, ps, relu)
+    extra = K3_SUM_RTOL * _k6_terms(x, w, ps, relu)
+    if x.dtype == torch.bfloat16:
+        extra = extra + K6_BF16_RTOL * ry.float().abs()
+    e_y = _check(name + " y", y.float(), ry.float(), extra)
+    del extra
+    e_s = _check(name + " s", s, rs,
+                 K3_STAT_RTOL * ry.float().abs().sum(dim=0))
+    e_s2 = _check(name + " s2", s2, rs2, K3_STAT_RTOL * rs2)
+    return (e_y, e_s, e_s2), (y, s, s2)
+
+
+def check_k8(name, q, k, v, do, block_q):
+    """K8's forward (and its backward unless ``do`` is None) against their
+    plain versions on the card: each value within the float32 allowance of
+    its sum of terms.  Returns the forward's and the backward's max abs
+    errors."""
+    import torch
+    from paddle_tpu_torch.kernels import attn_skeleton as sk
+    bh, t, d = q.shape
+    qa, ka, va = (a.abs() for a in (q, k, v))
+    s_abs = qa @ ka.transpose(1, 2)
+    o = sk.attn_skeleton_fwd(q, k, v, block_q)
+    torch.cuda.synchronize()
+    e_o = _check(name + " o", o, sk.attn_skeleton_fwd_plain(q, k, v),
+                 K8_SUM_RTOL * (s_abs @ va))
+    del o
+    if do is None:
+        return e_o, []
+    grads = sk.attn_skeleton_bwd(q, k, v, do, block_q)
+    torch.cuda.synchronize()
+    rgrads = sk.attn_skeleton_bwd_plain(q, k, v, do, block_q)
+    da = do.abs()
+    ds_abs = s_abs * (da @ va.transpose(1, 2))
+    nq = t // block_q
+
+    def per_block(a, x):
+        return a.view(bh, nq, block_q, t).transpose(2, 3) @ \
+            x.view(bh, nq, block_q, d)
+
+    errs = [_check(f"{name} {n}", g, r, K8_SUM_RTOL * terms)
+            for n, g, r, terms in (
+                ("dq", grads[0], rgrads[0], ds_abs @ ka),
+                ("dkp", grads[1], rgrads[1], per_block(ds_abs, qa)),
+                ("dvp", grads[2], rgrads[2], per_block(s_abs, da)))]
+    return e_o, errs
+
+
 def phase_kernel():
     import torch
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -274,6 +349,10 @@ def phase_kernel():
         ("d=32 causal", 8, 777, 777, 32, True, None),
         ("d=128 causal", 8, 777, 777, 128, True, None),
     ]
+    # K1 and K2 as the attn_ceiling path calls them: non-causal, d 64
+    from paddle_tpu_torch.tools.attn_shape_ceiling import CASES
+    cases += [(f"attn_ceiling [{bh_}, {t_}, 64] non-causal", bh_, t_, t_, 64,
+               False, None) for t_, bh_ in CASES]
     worst = {"flash_attn_fwd": 0.0, "flash_attn_bwd": 0.0}
     for name, bh_, tq, tk, d_, causal, bias_kind in cases:
         q = torch.randn(bh_, tq, d_, device="cuda", generator=g)
@@ -407,6 +486,78 @@ def phase_kernel():
              f"{e_dx:.3g} (atol {ATOL}, rtol {RTOL}) dscale {e_ds:.3g} "
              f"dbias {e_db:.3g} (+ {K4_SUM_RTOL:.3g} sum of |terms|) ok")
         del x, dy, y, dx, ry, rdx, xhat
+
+    # K6 at rn50_fused_bench's four calls (bf16, each stage's second call
+    # normalizing the first's output with its statistics), then the edges
+    from paddle_tpu_torch.tools.rn50_fused_bench import SHAPES
+    worst["matmul_bn_stats"] = 0.0
+    bf16 = torch.bfloat16
+
+    def log_k6(name, errs):
+        worst["matmul_bn_stats"] = max(worst["matmul_bn_stats"], errs[0])
+        _log("kernel", f"matmul_bn_stats {name}: max abs err y {errs[0]:.3g}"
+             f" s {errs[1]:.3g} s2 {errs[2]:.3g} (atol {ATOL}, rtol {RTOL},"
+             f" + {K3_SUM_RTOL:.3g} sum|a||w|, + {K6_BF16_RTOL:.3g} |y| for "
+             f"a bf16 y; {K3_STAT_RTOL:.3g} of sum|y| / s2 on the stats) ok")
+
+    for stage, m, cin, cmid in SHAPES:
+        x = (torch.randn(m, cin, device="cuda", generator=g) * 0.5).to(bf16)
+        w1 = (torch.randn(cin, cmid, device="cuda", generator=g)
+              * 0.05).to(bf16)
+        w2 = (torch.randn(cmid, cmid, device="cuda", generator=g)
+              * 0.05).to(bf16)
+        errs, (y1, s, s2) = check_k6(f"{stage} call 1 [{m}, {cin}] x "
+                                     f"[{cin}, {cmid}] bf16", x, w1, None,
+                                     False)
+        log_k6(f"{stage} call 1", errs)
+        del x
+        mu = s / m
+        inv = torch.rsqrt(s2 / m - mu * mu + 1e-5)
+        ps = (mu, inv, torch.ones_like(mu), torch.zeros_like(mu))
+        errs, _ = check_k6(f"{stage} call 2 (normalize + relu)", y1, w2, ps,
+                           True)
+        log_k6(f"{stage} call 2 [{m}, {cmid}] x [{cmid}, {cmid}] bf16, "
+               f"normalize + relu", errs)
+        del y1
+    for m in (513, 1):
+        for k, n in ((24, 64), (40, 70)):
+            x = torch.randn(m, k, device="cuda", generator=g)
+            w = torch.randn(k, n, device="cuda", generator=g) * k ** -0.5
+            ps = (torch.randn(k, device="cuda", generator=g) * 0.1,
+                  torch.rand(k, device="cuda", generator=g) + 0.5,
+                  1 + torch.randn(k, device="cuda", generator=g) * 0.1,
+                  torch.randn(k, device="cuda", generator=g) * 0.1)
+            for stats, relu in ((None, False), (None, True), (ps, True),
+                                (ps, False)):
+                what = (f"f32 [{m}, {k}] x [{k}, {n}]"
+                        f"{' normalize' if stats else ''}"
+                        f"{' + relu' if relu else ''}")
+                errs, _ = check_k6(what, x, w, stats, relu)
+                log_k6(what, errs)
+
+    # K8 at (bh 4, T 512), d 64 and 128, block_q 64 and 128; then at the
+    # attn_ceiling path's calls: K1/K2's 64-row blocks at each of its cases,
+    # forward and backward at d 64, forward at d 128
+    from paddle_tpu_torch.kernels.flash_attention import BLOCK_Q
+    worst["attn_skeleton_fwd"] = worst["attn_skeleton_bwd"] = 0.0
+    k8_cases = [(4, 512, d, bq, True) for d in (64, 128) for bq in (64, 128)]
+    k8_cases += [(bh_, t_, d, BLOCK_Q, d == 64) for t_, bh_ in CASES
+                 for d in (64, 128)]
+    for bh_, t_, d, block_q, bwd in k8_cases:
+        q, k, v, do = (torch.randn(bh_, t_, d, device="cuda", generator=g)
+                       for _ in range(4))
+        name = f"[{bh_}, {t_}, {d}] block_q {block_q}"
+        e_o, errs = check_k8(name, q, k, v, do if bwd else None, block_q)
+        worst["attn_skeleton_fwd"] = max(worst["attn_skeleton_fwd"], e_o)
+        worst["attn_skeleton_bwd"] = max(worst["attn_skeleton_bwd"], *errs,
+                                         0.0)
+        grads = (f" dq {errs[0]:.3g} dkp {errs[1]:.3g} dvp {errs[2]:.3g}"
+                 if bwd else " (forward only)")
+        _log("kernel", f"attn_skeleton {name}: max abs err o {e_o:.3g}"
+             f"{grads} (atol {ATOL}, rtol {RTOL}, + {K8_SUM_RTOL:.3g} of the "
+             f"sum of |terms|) ok")
+        del q, k, v, do
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -777,18 +928,17 @@ def phase_fused_train():
         if got != want or unkernelled:
             raise AssertionError(f"fused plan holds {got}, expected {want}; "
                                  f"without the kernel: {unkernelled}")
-        # the warm-up step also timed each missed candidate's fused op
-        misses = {p: sum(1 for d in decisions if d["pattern"] == p
-                         and not d["autotune"]["cached"])
-                  for p in ("dense_epilogue", "embedding_layer_norm")}
+        # the warm-up step also ran each missed candidate's fused op as
+        # often as its autotune record says (a warm run and 3 held rounds)
+        tuned = {p: sum(d["autotune"].get("fused_runs", 0) for d in decisions
+                        if d["pattern"] == p)
+                 for p in ("dense_epilogue", "embedding_layer_norm")}
         step_want = {"dense_epilogue": cfg.n_layer, "layer_norm_fwd": 1,
                      "layer_norm_bwd": 1, "flash_attn_fwd": cfg.n_layer,
                      "flash_attn_bwd": cfg.n_layer}
         warm_want = dict(step_want)
-        warm_want["dense_epilogue"] += AUTOTUNE_CALLS * misses[
-            "dense_epilogue"]
-        warm_want["layer_norm_fwd"] += AUTOTUNE_CALLS * misses[
-            "embedding_layer_norm"]
+        warm_want["dense_epilogue"] += tuned["dense_epilogue"]
+        warm_want["layer_norm_fwd"] += tuned["embedding_layer_norm"]
         if per_step != [warm_want] + [step_want] * TRAIN_STEPS:
             raise AssertionError(f"launches per step {per_step}, expected "
                                  f"{warm_want} then {step_want}")
@@ -1200,6 +1350,7 @@ def timing_k3(smi, resnet):
     the tensor-core rate); then the per-step sums over the 36 launches."""
     import torch
     from paddle_tpu_torch.kernels import conv_bn as cb
+    from paddle_tpu_torch.tools.timing import time_fn
     g = torch.Generator(device="cuda")
     g.manual_seed(2)
     counts = {sh: resnet["shapes"].count(sh) for sh in K3_SHAPES}
@@ -1219,9 +1370,10 @@ def timing_k3(smi, resnet):
             yf = y.float()
             return yf.sum(dim=(0, 2)), (yf * yf).sum(dim=(0, 2))
 
-        ms = _time_ms(lambda: cb.conv1x1_stats_fwd(x, w), 10)
-        plain_ms = _time_ms(lambda: cb.conv1x1_stats_plain(x, w), 3)
-        library_ms = _time_ms(library, 10)
+        ms = 1e3 * time_fn(lambda: cb.conv1x1_stats_fwd(x, w), iters=10)
+        plain_ms = 1e3 * time_fn(lambda: cb.conv1x1_stats_plain(x, w),
+                                 iters=3)
+        library_ms = 1e3 * time_fn(library, iters=10)
         flops = 2.0 * n * p * ci * co
         nbytes = 4.0 * (n * ci * p + co * ci + n * co * p + 2 * co)
         bound_ms, bound_by, why = _bound(flops, nbytes, "bfloat16")
@@ -1264,6 +1416,7 @@ def phase_timing(smi, serve, train):
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.tools.timing import time_fn
     bh, t, d = SLICE
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
@@ -1275,13 +1428,14 @@ def phase_timing(smi, serve, train):
     out = {}
 
     # K1: q.k and p.v, 2 flops per FMA; q, k, v read, o and lse written
-    ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v, None, True), 20)
-    plain_ms = _time_ms(
-        lambda: fa.flash_attention_reference(q, k, v, None, True), 5)
+    ms = 1e3 * time_fn(lambda: fa.flash_attention_fwd(q, k, v, None, True),
+                       iters=20)
+    plain_ms = 1e3 * time_fn(
+        lambda: fa.flash_attention_reference(q, k, v, None, True), iters=5)
     q4, k4, v4 = (x.view(8, 12, t, d) for x in (q, k, v))
-    library_ms = _time_ms(
+    library_ms = 1e3 * time_fn(
         lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
-        20)
+        iters=20)
     bound_ms, bound_by, why = _bound(4.0 * d * bh * pairs,
                                      4.0 * (4 * bh * t * d + bh * t))
     out["flash_attn_fwd"] = {"ms": ms, "plain_ms": plain_ms,
@@ -1295,10 +1449,10 @@ def phase_timing(smi, serve, train):
     # K2: S, dP, dV, dK, dQ, 2 flops per FMA each; q, k, v, o, do, lse and
     # delta read, dq, dk, dv written
     o, lse = fa.flash_attention_fwd(q, k, v, None, True)
-    ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, True),
-                  10)
-    plain_ms = _time_ms(lambda: fa.flash_attention_bwd_reference(
-        q, k, v, o, lse, do, None, True), 3)
+    ms = 1e3 * time_fn(
+        lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, True), iters=10)
+    plain_ms = 1e3 * time_fn(lambda: fa.flash_attention_bwd_reference(
+        q, k, v, o, lse, do, None, True), iters=3)
     qg, kg, vg = (x.view(8, 12, t, d).detach().requires_grad_()
                   for x in (q, k, v))
     do4 = do.view(8, 12, t, d)
@@ -1310,7 +1464,8 @@ def phase_timing(smi, serve, train):
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), do4)
 
-    library_ms = _time_ms(sdpa_fwd_bwd, 10) - _time_ms(sdpa_fwd, 10)
+    library_ms = 1e3 * (time_fn(sdpa_fwd_bwd, iters=10)
+                        - time_fn(sdpa_fwd, iters=10))
     bound_ms, bound_by, why = _bound(10.0 * d * bh * pairs,
                                      4.0 * (8 * bh * t * d + 2 * bh * t))
     out["flash_attn_bwd"] = {"ms": ms, "plain_ms": plain_ms,
@@ -1348,6 +1503,7 @@ def timing_k45(smi, train, fused):
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import dense_epilogue as de
     from paddle_tpu_torch.kernels import layer_norm as ln
+    from paddle_tpu_torch.tools.timing import time_fn
     g = torch.Generator(device="cuda")
     g.manual_seed(3)
     rows, d, n = TRAIN_BATCH * 2048, 768, 3072
@@ -1358,10 +1514,11 @@ def timing_k45(smi, train, fused):
     x = torch.randn(rows, d, device="cuda", generator=g)
     w = torch.randn(d, n, device="cuda", generator=g) * d ** -0.5
     b = torch.randn(n, device="cuda", generator=g)
-    ms = _time_ms(lambda: de.dense_act_fwd(x, w, b, "gelu"), 20)
-    plain_ms = _time_ms(lambda: de.dense_act_plain(x, w, b, "gelu"), 5)
-    library_ms = _time_ms(lambda: F.gelu(torch.matmul(
-        x.to(torch.bfloat16), w.to(torch.bfloat16)).float() + b), 20)
+    ms = 1e3 * time_fn(lambda: de.dense_act_fwd(x, w, b, "gelu"), iters=20)
+    plain_ms = 1e3 * time_fn(lambda: de.dense_act_plain(x, w, b, "gelu"),
+                             iters=5)
+    library_ms = 1e3 * time_fn(lambda: F.gelu(torch.matmul(
+        x.to(torch.bfloat16), w.to(torch.bfloat16)).float() + b), iters=20)
     flops = 2.0 * rows * d * n
     bound_ms, bound_by, why = _bound(
         flops, 4.0 * (rows * d + d * n + n + rows * n), "bfloat16")
@@ -1391,17 +1548,17 @@ def timing_k45(smi, train, fused):
     def lib_fwd_bwd():
         torch.autograd.grad(lib_fwd(), (xg, sg, bg), dy)
 
-    lib_f = _time_ms(lib_fwd, 20)
+    lib_f = 1e3 * time_fn(lib_fwd, iters=20)
     for name, fn, plain, library, nbytes, flops in (
             ("layer_norm_fwd", lambda: ln.layer_norm_fwd(x, sc, bi, 1e-5),
              lambda: ln.layer_norm_fwd_plain(x, sc, bi, 1e-5), lib_f,
              4.0 * (2 * rows * d + 2 * d), 8.0 * rows * d),
             ("layer_norm_bwd", lambda: ln.layer_norm_bwd(x, sc, dy, 1e-5),
              lambda: ln.layer_norm_bwd_plain(x, sc, dy, 1e-5),
-             _time_ms(lib_fwd_bwd, 20) - lib_f,
+             1e3 * time_fn(lib_fwd_bwd, iters=20) - lib_f,
              4.0 * (3 * rows * d + 3 * d), 16.0 * rows * d)):
-        ms = _time_ms(fn, 20)
-        plain_ms = _time_ms(plain, 5)
+        ms = 1e3 * time_fn(fn, iters=20)
+        plain_ms = 1e3 * time_fn(plain, iters=5)
         bound_ms, bound_by, why = _bound(flops, nbytes)
         out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library,
                      "bound_ms": bound_ms, "bound_by": bound_by}
@@ -1423,6 +1580,189 @@ def timing_k45(smi, train, fused):
     return out
 
 
+def phase_rn50_fused():
+    """``rn50_fused_bench.main()`` at both stage shapes: the fused chain
+    (two K6 launches) against the library chain, parity then times."""
+    import torch
+    from paddle_tpu_torch.kernels import conv_bn as cb
+    from paddle_tpu_torch.tools import rn50_fused_bench as rfb
+
+    # the main path, counted: the tool's entry point
+    cb.reset_launch_count()
+    t0 = time.perf_counter()
+    shapes = rfb.main()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = cb.launch_count("matmul_bn_stats")
+    for name, r in shapes.items():
+        if r["fused_launches"] != 2:
+            raise AssertionError(f"{name}: the fused chain launched K6 "
+                                 f"{r['fused_launches']} times, not 2")
+        if not (np.isfinite(r["fused_sum"]) and np.isfinite(
+                r["library_sum"]) and r["rel_err"] <= RN50_FUSED_RTOL):
+            raise AssertionError(f"{name}: fused sum {r['fused_sum']} vs "
+                                 f"library {r['library_sum']} (rel "
+                                 f"{r['rel_err']:.3g} > {RN50_FUSED_RTOL})")
+        _log("rn50_fused", f"{name}: fused {r['fused_ms']:.4f} ms, library "
+             f"{r['library_ms']:.4f} ms ({r['speedup']:.3f}x), sums "
+             f"{r['fused_sum']:.6g} / {r['library_sum']:.6g} (rel "
+             f"{r['rel_err']:.3g} <= {RN50_FUSED_RTOL:.3g}), 2 K6 launches "
+             f"a chain ok")
+    expected = rfb.K6_LAUNCHES_PER_SHAPE * len(shapes)
+    if launches != expected:
+        raise AssertionError(f"rn50_fused: {launches} K6 launches, "
+                             f"expected {expected}")
+    _log("rn50_fused", f"{launches} K6 launches in {wall_s:.1f} s (inputs "
+         f"made on the host from the seed included)")
+    return {"shapes": shapes, "launches": launches, "wall_s": wall_s}
+
+
+def phase_attn_ceiling():
+    """``attn_shape_ceiling.main()`` at its three cases: the K8 skeletons
+    and K1 / K1 + K2 timed at each; every report printed."""
+    import torch
+    from paddle_tpu_torch.kernels import attn_skeleton as sk
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.tools import attn_shape_ceiling as asc
+
+    # the main path, counted: the tool's entry point
+    sk.reset_launch_count()
+    fa.reset_launch_count()
+    t0 = time.perf_counter()
+    reports = asc.main([])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {name: mod.launch_count(name) for mod, name in (
+        (sk, "attn_skeleton_fwd"), (sk, "attn_skeleton_bwd"),
+        (fa, "flash_attn_fwd"), (fa, "flash_attn_bwd"))}
+    if len(reports) != len(asc.CASES):
+        raise AssertionError(f"attn_ceiling: {len(reports)} reports")
+    keys = ("fwd_skel_ms", "fwd_skel_d128_ms", "bwd_skel_ms",
+            "flash_fwd_ms", "flash_fwd_bwd_ms")
+    for r in reports:
+        if not all(np.isfinite(r[k_]) and r[k_] > 0 for k_ in keys):
+            raise AssertionError(f"attn_ceiling: bad times in {r}")
+        _log("attn_ceiling", f"T {r['T']} bh {r['bh']} d {r['d']}: "
+             f"skeleton fwd {r['fwd_skel_ms']:.4f} ms "
+             f"({r['fwd_skel_mfu']:.1f}% of {r['peak']['kind']}), d 128 "
+             f"{r['fwd_skel_d128_ms']:.4f} ms (fill_ratio "
+             f"{r['fill_ratio']:.3f}), bwd {r['bwd_skel_ms']:.4f} ms "
+             f"({r['bwd_skel_mfu']:.1f}%); K1 {r['flash_fwd_ms']:.4f} ms "
+             f"= {r['fwd_vs_skel']:.3f}x the skeleton; K1 + K2 "
+             f"{r['flash_fwd_bwd_ms']:.4f} ms = {r['fb_vs_skel']:.3f}x "
+             f"fwd + bwd skeletons ({r['fb_vs_skel_note']})")
+    if not all(launches.values()):
+        raise AssertionError(f"attn_ceiling: a kernel never launched: "
+                             f"{launches}")
+    _log("attn_ceiling", f"launches {launches} in {wall_s:.1f} s")
+    return {"reports": reports, "launches": launches, "wall_s": wall_s}
+
+
+def timing_k68(smi):
+    """K6 at rn50_fused_bench's four calls (bf16): kernel, plain version,
+    one library composition (a bf16 ``torch.matmul`` + the two float32
+    sums, with the normalize + relu pass before the second call's) and the
+    bound (x, w, the statistics in and y, s, s2 out, once each; 2*M*K*N bf16
+    products at the tensor-core rate).  K8 forward and backward at the
+    ceiling tool's first case, [24, 2048, 64], block_q 64: kernel, plain
+    version and the bound (float32 products at the CUDA-core rate; q, k, v
+    (do) read, o (dq and the partials) written); no single PyTorch call
+    computes the skeletons, so no library time."""
+    import torch
+    from paddle_tpu_torch.kernels import attn_skeleton as sk
+    from paddle_tpu_torch.kernels import conv_bn as cb
+    from paddle_tpu_torch.tools.rn50_fused_bench import SHAPES
+    from paddle_tpu_torch.tools.timing import time_fn
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+    bf16 = torch.bfloat16
+    rows, totals = [], dict.fromkeys(("ms", "plain_ms", "library_ms",
+                                      "bound_ms"), 0.0)
+    out = {}
+    for stage, m, cin, cmid in SHAPES:
+        x = (torch.randn(m, cin, device="cuda", generator=g) * 0.5).to(bf16)
+        w1 = (torch.randn(cin, cmid, device="cuda", generator=g)
+              * 0.05).to(bf16)
+        w2 = (torch.randn(cmid, cmid, device="cuda", generator=g)
+              * 0.05).to(bf16)
+        y1, s, s2 = cb.matmul_bn_stats_fwd(x, w1, None, False)
+        mu = s / m
+        inv = torch.rsqrt(s2 / m - mu * mu + 1e-5)
+        gam, bet = torch.ones_like(mu), torch.zeros_like(mu)
+        ps = (mu, inv, gam, bet)
+
+        def lib1():
+            yf = torch.matmul(x, w1).float()
+            return yf.sum(dim=0), (yf * yf).sum(dim=0)
+
+        def lib2():
+            a = torch.relu((y1.float() - mu) * inv * gam + bet).to(bf16)
+            yf = torch.matmul(a, w2).float()
+            return yf.sum(dim=0), (yf * yf).sum(dim=0)
+
+        for call, (xin, w, stats, relu, lib) in enumerate(
+                ((x, w1, None, False, lib1), (y1, w2, ps, True, lib2)), 1):
+            mm, k = xin.shape
+            n = w.shape[1]
+            ms = 1e3 * time_fn(lambda: cb.matmul_bn_stats_fwd(
+                xin, w, stats, relu), iters=20)
+            plain_ms = 1e3 * time_fn(lambda: cb.matmul_bn_stats_plain(
+                xin, w, stats, relu), iters=5)
+            library_ms = 1e3 * time_fn(lib, iters=20)
+            flops = 2.0 * mm * k * n
+            nbytes = 2.0 * (mm * k + k * n + mm * n) + 4.0 * 2 * n + (
+                4.0 * 4 * k if stats else 0.0)
+            bound_ms, bound_by, why = _bound(flops, nbytes, "bfloat16")
+            rows.append({"stage": stage, "call": call, "shape": [mm, k, n],
+                         "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by})
+            for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                             ("library_ms", library_ms),
+                             ("bound_ms", bound_ms)):
+                totals[key] += val
+            what = "normalize + relu + " if stats else ""
+            _log("timing", f"matmul_bn_stats {stage} call {call} [{mm}, {k}]"
+                 f" x [{k}, {n}] bf16 on {smi}: kernel {ms:.4f} ms "
+                 f"({nbytes / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms, "
+                 f"{what}bf16 matmul + sums {library_ms:.4f} ms; bound "
+                 f"{bound_ms:.4f} ms by {bound_by} ({why}): "
+                 f"{100 * bound_ms / ms:.1f}% of bound")
+        del x, y1
+    by = {r["bound_by"] for r in rows}
+    out["matmul_bn_stats"] = dict(
+        totals, bound_by=by.pop() if len(by) == 1 else "bytes and operations",
+        per_call=rows)
+    _log("timing", f"matmul_bn_stats over the 4 calls on {smi}: kernel "
+         f"{totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, library "
+         f"{totals['library_ms']:.4f} ms, bound {totals['bound_ms']:.4f} ms "
+         f"({100 * totals['bound_ms'] / totals['ms']:.1f}% of bound)")
+
+    bh, t, d, bq = 24, 2048, 64, 64
+    q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=g) * 0.1
+                   for _ in range(4))
+    for name, fn, plain, flops, nbytes in (
+            ("attn_skeleton_fwd", lambda: sk.attn_skeleton_fwd(q, k, v, bq),
+             lambda: sk.attn_skeleton_fwd_plain(q, k, v),
+             4.0 * bh * t * t * d, 4.0 * 4 * bh * t * d),
+            ("attn_skeleton_bwd",
+             lambda: sk.attn_skeleton_bwd(q, k, v, do, bq),
+             lambda: sk.attn_skeleton_bwd_plain(q, k, v, do, bq),
+             10.0 * bh * t * t * d,
+             4.0 * (5 * bh * t * d + 2 * bh * (t // bq) * t * d))):
+        ms = 1e3 * time_fn(fn, iters=10)
+        plain_ms = 1e3 * time_fn(plain, iters=3)
+        bound_ms, bound_by, why = _bound(flops, nbytes)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+        _log("timing", f"{name} [{bh}, {t}, {d}] block_q {bq} f32 on {smi}: "
+             f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+             f"{plain_ms:.4f} ms, no single library call; bound "
+             f"{bound_ms:.4f} ms by {bound_by} ({why}): "
+             f"{100 * bound_ms / ms:.1f}% of bound")
+    return out
+
+
 _KERNELS = (
     ("flash_attn_fwd", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
      "paddle_tpu/pallas/flash_attention.py:179"),
@@ -1436,6 +1776,12 @@ _KERNELS = (
      "paddle_tpu/pallas/layer_norm.py:111"),
     ("dense_epilogue", "paddle_tpu_torch/csrc/dense_epilogue.cu",
      "paddle_tpu/pallas/dense_epilogue.py:69"),
+    ("matmul_bn_stats", "paddle_tpu_torch/csrc/matmul_bn_stats.cu",
+     "paddle_tpu/pallas/conv_bn.py:58"),
+    ("attn_skeleton_fwd", "paddle_tpu_torch/csrc/attn_skeleton.cu",
+     "tools/attn_shape_ceiling.py:38"),
+    ("attn_skeleton_bwd", "paddle_tpu_torch/csrc/attn_skeleton.cu",
+     "tools/attn_shape_ceiling.py:78"),
 )
 
 
@@ -1463,10 +1809,14 @@ def main(argv=None) -> int:
     train = phase_train()
     fused = phase_fused_train()
     resnet = phase_resnet()
+    rn50_fused = phase_rn50_fused()
+    ceiling = phase_attn_ceiling()
     timing = phase_timing(smi, serve, train)
     timing["conv1x1_stats"] = timing_k3(smi, resnet)
     timing.update(timing_k45(smi, train, fused))
+    timing.update(timing_k68(smi))
     k3_shapes = timing["conv1x1_stats"].pop("per_shape")
+    k6_calls = timing["matmul_bn_stats"].pop("per_call")
     prof = None
     if args.profile:
         prof = {"serve": phase_profile(serve),
@@ -1480,9 +1830,14 @@ def main(argv=None) -> int:
                                   train["launches"]["flash_attn_bwd"],
                                   "fused_train":
                                   fused["launches"]["flash_attn_bwd"]},
-               "conv1x1_stats": {"resnet": resnet["launches"]}}
+               "conv1x1_stats": {"resnet": resnet["launches"]},
+               "matmul_bn_stats": {"rn50_fused": rn50_fused["launches"]}}
     for name in ("layer_norm_fwd", "layer_norm_bwd", "dense_epilogue"):
         by_path[name] = {"fused_train": fused["launches"][name]}
+    for name in ("attn_skeleton_fwd", "attn_skeleton_bwd", "flash_attn_fwd",
+                 "flash_attn_bwd"):
+        by_path.setdefault(name, {})["attn_ceiling"] = \
+            ceiling["launches"][name]
     kernels = [dict(name=name, route="cuda", source=src, replaces=ref,
                     launches=sum(by_path[name].values()),
                     launches_by_path=by_path[name],
@@ -1494,6 +1849,8 @@ def main(argv=None) -> int:
         with open(args.json, "w") as f:
             json.dump({"gpu": smi, "kernels": kernels, "profile": prof,
                        "conv1x1_stats_shapes": k3_shapes,
+                       "matmul_bn_stats_calls": k6_calls,
+                       "rn50_fused": rn50_fused, "attn_ceiling": ceiling,
                        "serve": {k: v for k, v in serve.items()
                                  if k not in ("scope", "factory")},
                        "train": {k: v for k, v in train.items()

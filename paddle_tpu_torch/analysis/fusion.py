@@ -35,8 +35,8 @@ Its decisions are the reference's:
 4. **Autotune** (``FLAGS_fusion_autotune``): replay the matched chain and
    the fused op with its kernel (``use_pallas``) through the port's
    lowerings on the executor's device, best of 3 after a warm call, and
-   apply the rewrite only where the fused op wins.  Verdicts are cached on
-   (pattern, shapes, batch, device name x count) in memory and in
+   apply the rewrite only where the fused op wins.  Verdicts are cached
+   on (pattern, shapes, batch, device name x count) in memory and in
    ``<FLAGS_xla_compile_cache_dir>/fusion_autotune.json``.  With autotune
    off (the default) the pass applies on legality and rank alone, and the
    fused ops run the exact float32 composition.
@@ -46,10 +46,12 @@ fingerprint must be unchanged by the rewrite (a changed one rolls it back),
 and every decision is counted in
 ``paddle_tpu_fusion_candidates_total{pattern,verdict}``.
 ``FLAGS_graph_fusion`` (default on) is the master gate, and the executor
-keys its plans on :func:`config_token`.  Two differences from the
-reference: a kernel that fails while it is timed raises (the reference
-falls back to rank alone), and pre-device-key cache files are not migrated
-(the port never wrote any).
+keys its plans on :func:`config_token`.  Three differences from the
+reference: on a card each timed round is 5 runs timed by CUDA events on the
+card alone (the reference times one dispatch of a jitted chain on the host
+clock; see :func:`_time_chain`), a kernel that fails while it is timed
+raises (the reference falls back to rank alone), and pre-device-key cache
+files are not migrated (the port never wrote any).
 """
 
 from __future__ import annotations
@@ -875,33 +877,43 @@ def _replay(descs, env, ctx):
                     env[n] = v
 
 
-def _time_chain(descs, ext_vals, device, reps=3) -> float:
-    """Best of ``reps`` timed runs after a warm call (which builds any
-    kernel), in ms; on a card each run ends in a synchronize."""
+def _time_chain(descs, ext_vals, device, reps=3) -> Tuple[float, int]:
+    """``(ms a run, runs made)``: the best of ``reps`` timed rounds after a
+    warm run (which builds any kernel).  On the host a round is one run on
+    the host clock.  On a card a round is ``tools.timing.time_held``'s 5
+    runs, timed on the card alone with CUDA events while the host
+    enqueues them behind a hold kernel.  The reference times one jitted
+    dispatch of the chain; the port replays it op by op, and a
+    synchronized run of a sub-millisecond chain times the host's enqueue of
+    each op instead (on an H100 the embedding-LayerNorm verdict flipped from
+    run to run)."""
     from ..framework.executor import LowerCtx
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+    from ..tools import timing
 
     def run():
         _replay(descs, dict(ext_vals), LowerCtx(device, 0))
 
     with torch.no_grad():
         run()
-        sync()
-        best = float("inf")
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            run()
-            sync()
-            best = min(best, time.perf_counter() - t0)
-    return best * 1e3
+        runs, best = 1, float("inf")
+        if device.type != "cuda":
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                run()
+                best = min(best, time.perf_counter() - t0)
+            return best * 1e3, runs + reps
+        with torch.cuda.device(device):
+            torch.cuda.synchronize(device)
+            for _ in range(reps):
+                sec, n = timing.time_held(run)
+                best, runs = min(best, sec), runs + n
+    return best * 1e3, runs
 
 
 def _autotune(cand: _Candidate, batch: int, device) -> Optional[dict]:
     """Measured fused-vs-base verdict for one candidate, cached on
-    (pattern, shape key, batch, device name x count).  None when the
+    (pattern, shape key, batch, device name x count); a miss's record also
+    holds ``fused_runs``, the runs of the fused op it made.  None when the
     candidate cannot be replayed (unknown shapes): the caller then decides
     on rank alone."""
     if not cand.ext_inputs or not cand.base_descs:
@@ -922,10 +934,11 @@ def _autotune(cand: _Candidate, batch: int, device) -> Optional[dict]:
     fused_descs = [(t, i, o, dict(a, use_pallas=True)
                     if "use_pallas" in a else a)
                    for t, i, o, a in cand.fused_descs]
-    base_ms = _time_chain(cand.base_descs, ext_vals, device)
-    fused_ms = _time_chain(fused_descs, ext_vals, device)
+    base_ms, _ = _time_chain(cand.base_descs, ext_vals, device)
+    fused_ms, fused_runs = _time_chain(fused_descs, ext_vals, device)
     rec = {"base_ms": round(base_ms, 4), "fused_ms": round(fused_ms, 4),
-           "win": bool(fused_ms <= base_ms), "cached": False}
+           "win": bool(fused_ms <= base_ms), "cached": False,
+           "fused_runs": fused_runs}
     with _AUTOTUNE_LOCK:
         _AUTOTUNE_MEM[key] = {k: rec[k] for k in
                               ("base_ms", "fused_ms", "win")}

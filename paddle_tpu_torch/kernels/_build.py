@@ -27,7 +27,9 @@ SOURCES = {"flash_attn_fwd": "flash_attn_fwd.cu",
            "flash_attn_bwd": "flash_attn_bwd.cu",
            "conv1x1_stats": "conv1x1_stats.cu",
            "layer_norm": "layer_norm.cu",
-           "dense_epilogue": "dense_epilogue.cu"}
+           "dense_epilogue": "dense_epilogue.cu",
+           "matmul_bn_stats": "matmul_bn_stats.cu",
+           "attn_skeleton": "attn_skeleton.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

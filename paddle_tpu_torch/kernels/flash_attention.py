@@ -39,6 +39,11 @@ import torch
 
 NEG_INF = -1e30
 
+#: query rows and keys per tile of K1 and K2 (``BQ``/``BK`` in the CUDA
+#: sources); the attention-ceiling tool takes its skeletons' blocks from
+#: them
+BLOCK_Q = BLOCK_K = 64
+
 _count_lock = threading.Lock()
 _launches = {"flash_attn_fwd": 0, "flash_attn_bwd": 0}  # guarded-by: _count_lock
 

@@ -38,6 +38,19 @@ have them), so it runs there with the repo's conftest left out:
 - a tiny GPT step fused with the kernels' paths (autotune verdicts set to
   win, rank threshold 0) on the card against the same fused program on the
   host: one K5 launch per layer, one K4 forward and one backward.
+- the matmul + BN-statistics kernel (K6) against its plain version, float32
+  and bf16 operands, with and without the producer's statistics and relu,
+  at ragged M, K and N: a float32 y within 1e-5 + 1e-4 relative + 2^-20 of
+  sum |a||w|, a bf16 y within one bf16 ulp (2^-7 relative) more, s within
+  2^-14 of sum |y|, s2 within 2^-14 relative; one launch a call, ``mm_stats``
+  one launch forward and none backward, its gradients against the host.
+- the attention skeletons (K8) against their plain versions, d 8 to 128,
+  ``block_q`` 64 to 256: o, dq and the dk/dv partials within 1e-5 + 1e-4
+  relative + 2^-20 of the sum of their terms' magnitudes.
+- one quick run of each tool (``rn50_fused_bench``, ``attn_shape_ceiling``)
+  at small shapes; ``timing.time_held`` times the card alone and repeats
+  (then refuses) a round whose hold ended before the host had enqueued it;
+  the autotuner's chain timing on the card.
 """
 
 import numpy as np
@@ -46,11 +59,13 @@ import torch
 
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch.framework import Program, Scope, program_guard
+from paddle_tpu_torch.kernels import attn_skeleton as sk
 from paddle_tpu_torch.kernels import conv_bn as cb
 from paddle_tpu_torch.kernels import dense_epilogue as de
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import layer_norm as ln
 from paddle_tpu_torch.models import transformer as T
+from paddle_tpu_torch.tools import timing
 
 pytestmark = pytest.mark.cuda
 
@@ -531,3 +546,228 @@ def test_fused_tiny_gpt_step_on_the_card_matches_the_host(cuda, monkeypatch):
                          "FLAGS_fusion_rank_threshold": 0.02})
     assert counts == (cfg.n_layer, 1, 1)
     np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+# -- K6: matmul + BN statistics ------------------------------------------------
+
+# (M, K, N, x dtype, w dtype)
+K6_SHAPES = {
+    "m513_k24_n64_f32": (513, 24, 64, "float32", "float32"),
+    "m1_k40_n70_f32": (1, 40, 70, "float32", "float32"),
+    "m1032_k13_n130_f32": (1032, 13, 130, "float32", "float32"),
+    "m4096_k256_n64_bf16": (4096, 256, 64, "bfloat16", "bfloat16"),
+    "m2048_k64_n128_bf16": (2048, 64, 128, "bfloat16", "bfloat16"),
+    "m300_k40_n9_bf16_x_f32_w": (300, 40, 9, "bfloat16", "float32"),
+    "m257_k33_n17_f32_x_bf16_w": (257, 33, 17, "float32", "bfloat16"),
+}
+
+
+def _k6_inputs(m, k, n, xdt, wdt, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(m, k, generator=g).to(getattr(torch, xdt))
+    w = (torch.randn(k, n, generator=g) * k ** -0.5).to(getattr(torch, wdt))
+    ps = (torch.randn(k, generator=g) * 0.1,
+          torch.rand(k, generator=g) + 0.5,
+          1 + torch.randn(k, generator=g) * 0.1,
+          torch.randn(k, generator=g) * 0.1)
+    return x.to(device), w.to(device), tuple(p.to(device) for p in ps)
+
+
+def _k6_check(x, w, ps, relu):
+    n0 = cb.launch_count("matmul_bn_stats")
+    y, s, s2 = cb.matmul_bn_stats_fwd(x, w, ps, relu=relu)
+    torch.cuda.synchronize()
+    assert cb.launch_count("matmul_bn_stats") == n0 + 1
+    ry, rs, rs2 = cb.matmul_bn_stats_plain(x, w, ps, relu=relu)
+    assert y.dtype == x.dtype and y.shape == ry.shape
+    a = x.float()
+    if ps is not None:
+        a = (a - ps[0]) * ps[1] * ps[2] + ps[3]
+    a = torch.relu(a) if relu else a
+    terms = a.to(torch.bfloat16).float().abs() @ \
+        w.to(torch.bfloat16).float().abs()
+    tol = 1e-5 + 1e-4 * ry.float().abs() + 2.0 ** -20 * terms
+    if x.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * ry.float().abs()
+    assert bool(((y.float() - ry.float()).abs() <= tol).all())
+    assert bool(((s - rs).abs()
+                 <= 2.0 ** -14 * ry.float().abs().sum(dim=0) + 1e-6).all())
+    assert bool(((s2 - rs2).abs() <= 2.0 ** -14 * rs2 + 1e-6).all())
+
+
+@pytest.mark.parametrize("stats,relu", [(False, False), (False, True),
+                                        (True, True)],
+                         ids=["plain", "relu", "norm_relu"])
+@pytest.mark.parametrize("case", sorted(K6_SHAPES))
+def test_k6_matches_plain_version(cuda, case, stats, relu):
+    m, k, n, xdt, wdt = K6_SHAPES[case]
+    x, w, ps = _k6_inputs(m, k, n, xdt, wdt, cuda, seed=m + k + n)
+    _k6_check(x, w, ps if stats else None, relu)
+
+
+def test_k6_unaligned_operands_take_scalar_loads(cuda):
+    """Views one element past a 16-byte boundary (contiguous all the
+    same): the kernel must not use its 16-byte loads there."""
+    g = torch.Generator().manual_seed(11)
+    flat = torch.randn(129 * 64 + 1, generator=g).to(cuda)
+    x = flat[1:].view(129, 64)
+    wflat = torch.randn(64 * 32 + 1, generator=g).to(cuda)
+    w = wflat[1:].view(64, 32)
+    _k6_check(x, w, None, False)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "layout", "inner", "m_rule",
+                                 "stats"])
+def test_k6_wrapper_refuses_on_the_card(cuda, bad):
+    x, w = torch.randn(16, 8, device=cuda), torch.randn(8, 4, device=cuda)
+    ps = None
+    if bad == "dtype":
+        x = x.half()
+    elif bad == "layout":
+        w = torch.randn(4, 8, device=cuda).t()
+    elif bad == "inner":
+        w = torch.randn(7, 4, device=cuda)
+    elif bad == "m_rule":
+        x = torch.randn(1027, 8, device=cuda)
+    else:
+        ps = (torch.zeros(8, device=cuda),) * 3 + (torch.zeros(8),)
+    n0 = cb.launch_count("matmul_bn_stats")
+    with pytest.raises((TypeError, ValueError)):
+        cb.matmul_bn_stats_fwd(x, w, ps)
+    assert cb.launch_count("matmul_bn_stats") == n0
+
+
+def test_mm_stats_launches_and_grads_match_the_host(cuda):
+    g = torch.Generator().manual_seed(12)
+    x = torch.randn(300, 48, generator=g)
+    w = torch.randn(48, 24, generator=g) / 7
+    coef = torch.arange(24, dtype=torch.float32)
+    grads, counts = [], []
+    for dev in ("cpu", cuda):
+        xt = x.to(dev).requires_grad_(True)
+        wt = w.to(dev).requires_grad_(True)
+        n0 = cb.launch_count("matmul_bn_stats")
+        y, s, s2 = cb.mm_stats(xt, wt)
+        n1 = cb.launch_count("matmul_bn_stats")
+        loss = (y ** 2).sum() * 0.5 + (s * coef.to(dev)).sum() \
+            + (s2 * 0.1).sum()
+        grads.append([t.cpu() for t in torch.autograd.grad(loss, (xt, wt))])
+        counts.append((n1 - n0, cb.launch_count("matmul_bn_stats") - n1))
+    assert counts == [(0, 0), (1, 0)]
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b, a, rtol=1e-4,
+                                   atol=1e-4 * float(a.abs().max()))
+
+
+# -- K8: the attention skeletons -----------------------------------------------
+
+# (bh, T, d, block_q)
+K8_SHAPES = {"t128_d64_bq64": (2, 128, 64, 64),
+             "t256_d128_bq128": (2, 256, 128, 128),
+             "t256_d40_bq256": (3, 256, 40, 256),
+             "t192_d8_bq64": (2, 192, 8, 64),
+             "t512_d64_bq128": (4, 512, 64, 128)}
+
+
+@pytest.mark.parametrize("case", sorted(K8_SHAPES))
+def test_k8_matches_plain_versions(cuda, case):
+    bh, t, d, bq = K8_SHAPES[case]
+    g = torch.Generator().manual_seed(t + d)
+    q, k, v, do = (torch.randn(bh, t, d, generator=g).to(cuda)
+                   for _ in range(4))
+    n0 = (sk.launch_count("attn_skeleton_fwd"),
+          sk.launch_count("attn_skeleton_bwd"))
+    o = sk.attn_skeleton_fwd(q, k, v, bq, 64)
+    dq, dkp, dvp = sk.attn_skeleton_bwd(q, k, v, do, bq, 64)
+    torch.cuda.synchronize()
+    assert (sk.launch_count("attn_skeleton_fwd"),
+            sk.launch_count("attn_skeleton_bwd")) == (n0[0] + 1, n0[1] + 1)
+    ro = sk.attn_skeleton_fwd_plain(q, k, v)
+    rdq, rdkp, rdvp = sk.attn_skeleton_bwd_plain(q, k, v, do, bq)
+    qa, ka, va, da = (a.abs() for a in (q, k, v, do))
+    s_abs = qa @ ka.transpose(1, 2)
+    ds_abs = s_abs * (da @ va.transpose(1, 2))
+    nq = t // bq
+
+    def per_block(a, x):
+        return a.view(bh, nq, bq, t).transpose(2, 3) @ x.view(bh, nq, bq, d)
+
+    for got, want, terms in ((o, ro, s_abs @ va), (dq, rdq, ds_abs @ ka),
+                             (dkp, rdkp, per_block(ds_abs, qa)),
+                             (dvp, rdvp, per_block(s_abs, da))):
+        assert got.shape == want.shape
+        assert bool(((got - want).abs() <= 1e-5 + 1e-4 * want.abs()
+                     + 2.0 ** -20 * terms).all())
+
+
+@pytest.mark.parametrize("bad", ["block_q", "d", "dtype"])
+def test_k8_wrappers_refuse_on_the_card(cuda, bad):
+    t, d, bq = 128, 64, 64
+    dtype = torch.float32
+    if bad == "block_q":
+        bq = 96
+    elif bad == "d":
+        d = 136
+    else:
+        dtype = torch.float16
+    q = torch.zeros(2, t, d, device=cuda, dtype=dtype)
+    n0 = sk.launch_count("attn_skeleton_bwd")
+    with pytest.raises((TypeError, ValueError)):
+        sk.attn_skeleton_bwd(q, q, q, q, bq)
+    assert sk.launch_count("attn_skeleton_bwd") == n0
+
+
+# -- the tools -------------------------------------------------------------------
+
+def test_rn50_fused_bench_runs_on_the_card(cuda):
+    from paddle_tpu_torch.tools import rn50_fused_bench as rfb
+    out = rfb.main(shapes=(("small", 8192, 128, 64),))["small"]
+    assert out["fused_launches"] == 2
+    assert out["rel_err"] <= 2.0 ** -7
+    assert out["library_ms"] > 0 and out["fused_ms"] > 0
+
+
+def test_attn_shape_ceiling_probe_runs_on_the_card(cuda):
+    from paddle_tpu_torch.tools import attn_shape_ceiling as asc
+    n0 = sk.launch_count("attn_skeleton_bwd")
+    out = asc.probe(256, 2, iters=(1, 2), reps=1)
+    assert sk.launch_count("attn_skeleton_bwd") - n0 == 1 + 1 + 2
+    for key in ("fwd_skel_ms", "fwd_skel_d128_ms", "bwd_skel_ms",
+                "flash_fwd_ms", "flash_fwd_bwd_ms", "fill_ratio",
+                "fwd_vs_skel", "fb_vs_skel"):
+        assert out[key] > 0, key
+
+
+def test_time_held_times_the_card(cuda):
+    a = torch.randn(512, 512, device=cuda)
+    sec, calls = timing.time_held(torch.matmul, a, a, runs=5)
+    assert calls == 5 and 0 < sec < 0.1
+
+
+def test_time_held_refuses_a_hold_the_host_outran(cuda):
+    """A hold of 1000 cycles ends long before the host has enqueued calls
+    that each sleep 2 ms: every round is repeated with twice the hold, and
+    after the last the timer raises instead of timing the host's gaps."""
+    import time
+    a = torch.ones(8, device=cuda)
+
+    def slow():
+        time.sleep(0.002)
+        a.add_(1)
+
+    with pytest.raises(RuntimeError, match="longer to enqueue"):
+        timing.time_held(slow, runs=3, hold_cycles=1000)
+    torch.cuda.synchronize()
+    assert float(a[0]) == 1 + 3 * timing.HOLD_TRIES
+
+
+def test_autotune_times_a_chain_on_the_card(cuda):
+    from paddle_tpu_torch.analysis import fusion
+    descs = [("elementwise_add", {"X": ["x"], "Y": ["y"]}, {"Out": ["s"]},
+              {"axis": -1}),
+             ("relu", {"X": ["s"]}, {"Out": ["r"]}, {})]
+    vals = {"x": torch.randn(256, 256, device=cuda),
+            "y": torch.randn(256, 256, device=cuda)}
+    ms, runs = fusion._time_chain(descs, vals, cuda)
+    assert 0 < ms < 10
+    assert runs >= 1 + 3 * 5 and (runs - 1) % 5 == 0

@@ -474,6 +474,8 @@ def test_autotune_cache_hit_miss_counters_and_persistence(tmp_path):
     tuned = [d for d in _decisions(fused) if "autotune" in d]
     assert len(tuned) == 2 and not any(d["autotune"]["cached"]
                                        for d in tuned)
+    # a warm run and 3 timed runs of the fused op on the host
+    assert [d["autotune"]["fused_runs"] for d in tuned] == [4, 4]
     fusion.clear_cache()
     hit0 = _counter(monitor, name, cache="hit")
     again = fusion.fuse_program(prog, fetches, feed_shapes={"src": (3, 6)})

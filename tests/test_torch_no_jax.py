@@ -3,8 +3,10 @@
 - in a subprocess where ``import jax`` and ``import paddle_tpu`` fail,
   importing ``paddle_tpu_torch``, serving one request (through
   ``CompiledProgram``'s verifier and passes), taking Adam steps of a tiny
-  GPT, with the fusion autotuner on in the last, and one Momentum step of a
-  toy ResNet through the graph-fusion pass on the CPU works;
+  GPT, with the fusion autotuner on in the last, one Momentum step of a
+  toy ResNet through the graph-fusion pass, and the measurement tools'
+  chains, skeletons and peak table (``paddle_tpu_torch.tools``) on the CPU
+  works;
 - a source scan finds no ``jax`` or ``paddle_tpu`` import in the package or
   in ``chip_smoke.py``;
 - ``Executor()`` (the card by default) raises when there is no GPU.
@@ -28,6 +30,7 @@ _BLOCKED = textwrap.dedent("""
     sys.modules["jax"] = None          # any `import jax` now fails
     sys.modules["paddle_tpu"] = None
     import numpy as np
+    import torch
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.framework import Program, Scope, program_guard
     from paddle_tpu_torch.models import transformer as T
@@ -104,6 +107,19 @@ _BLOCKED = textwrap.dedent("""
                     for op, _ in p.ops)]
     n_fused = [op.type for op, _ in plan.ops].count("fused_conv1x1_bn")
     assert n_fused == 3 and np.isfinite(rl), (n_fused, rl)
+    from paddle_tpu_torch.kernels import attn_skeleton
+    from paddle_tpu_torch.tools import (attn_shape_ceiling, rn50_fused_bench,
+                                        timing)
+    args = rn50_fused_bench.make_inputs(64, 16, 8, np.random.RandomState(0),
+                                        "cpu")
+    fs = float(rn50_fused_bench.fused_chain(*args))
+    ls = float(rn50_fused_bench.library_chain(*args))
+    assert abs(fs - ls) <= 2.0 ** -7 * abs(ls), (fs, ls)
+    q = torch.ones(1, 64, 8)
+    assert attn_skeleton.attn_skeleton_bwd(q, q, q, q)[1].shape == (1, 1,
+                                                                   64, 8)
+    assert timing.peaks("NVIDIA H100 80GB HBM3")[0] == 67e12
+    assert attn_shape_ceiling.CASES[0] == (2048, 24)
     assert not [m for m, mod in sys.modules.items() if mod is not None
                 and (m == "jax" or m.startswith(("jax.", "paddle_tpu.")))]
     print("served", out[0].shape, "trained", float(l0), float(l1),
@@ -146,7 +162,12 @@ def test_no_jax_or_reference_import_in_sources():
             "paddle_tpu_torch/kernels/layer_norm.py",
             "paddle_tpu_torch/models/resnet.py",
             "paddle_tpu_torch/monitor.py",
-            "paddle_tpu_torch/ops/fused_ops.py"} <= scanned
+            "paddle_tpu_torch/ops/fused_ops.py",
+            "paddle_tpu_torch/kernels/attn_skeleton.py",
+            "paddle_tpu_torch/tools/__init__.py",
+            "paddle_tpu_torch/tools/timing.py",
+            "paddle_tpu_torch/tools/rn50_fused_bench.py",
+            "paddle_tpu_torch/tools/attn_shape_ceiling.py"} <= scanned
     offenders = []
     for path in _sources():
         with open(path) as f:
