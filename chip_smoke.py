@@ -16,7 +16,13 @@ JAX, prints one line per phase, and raises on any failure:
    of K8, 2^-20 of the sum of the terms' magnitudes, one bf16 ulp for K6's
    bf16 outputs, and for the column sums of K3, K4's backward and K6, 2^-14
    of theirs).  K6 at ``rn50_fused_bench``'s four calls and at float32
-   edges; K8 at [4, 512, 64 | 128], block_q 64 and 128.
+   edges; K8 at [4, 512, 64 | 128], block_q 64 and 128.  Then the bf16
+   forms of K1-K5 (AMP) against their plain versions: K1/K2 at [96, 2048,
+   64] causal, T 1000 and biased (forward); K3 at the 15 shapes at batch
+   256 (bf16 x, float32 w); K4 at [16384, 768] and 4099 rows; K5 at
+   [16384, 768] x [768, 3072] gelu and relu and M 4097: each bf16 output
+   within one bf16 ulp of its largest magnitude (plus the float32
+   allowance of K3's and K5's sums), the float32 outputs as above.
 3. ``serve``  — the GPT causal LM at BERT-base width (vocab 30522, d 768,
    12 layers, 12 heads, d_inner 3072, max_pos 2048, random weights from a
    seed) behind ``InferenceServer`` with buckets (512, 1024, 2048) and
@@ -37,6 +43,11 @@ JAX, prints one line per phase, and raises on any failure:
    and every step must launch the flash forward and the flash backward 12
    times each.  Then a 2-layer, batch-1, seq-1024 step on the card must
    match the same step run by the port on the CPU.
+   ``amp_train`` — the same under ``amp.decorate(AdamOptimizer(1e-4))``
+   (bf16 AMP, ``bench.py:424``): every step launches the bf16 K1 and K2 12
+   times each and no float32 form; finite, falling losses, the first
+   within 2^-7 of ``train``'s first; every parameter float32 after the
+   steps; a 2-layer AMP step on the card against the host.
 5. ``resnet`` — ResNet-50 (1000 classes, 3x224x224, depth 50, random
    weights from a seed) trained through ``build_resnet_train``,
    ``MomentumOptimizer(0.1, 0.9).minimize`` and ``Executor().run`` at batch
@@ -50,6 +61,12 @@ JAX, prints one line per phase, and raises on any failure:
    unfused (``FLAGS_graph_fusion`` off, float32 on both sides) at depth 50
    (loss 1e-4, BN running statistics 2^-10 and classifier gradients 2^-8
    of their largest magnitude).
+   ``amp_resnet`` — ResNet-50 under ``amp.decorate(MomentumOptimizer(0.1,
+   0.9))`` (``bench.py:189``) at batch 256 (``bench.py:182``): 36 bf16 K3
+   launches a step (bf16 x, float32 master w) and no float32 form; finite,
+   falling losses, parameters float32; an AMP step of the toy and of depth
+   50 at 3x64x64 on the card against the host (the toy's loss, BN running
+   statistics and classifier gradients; depth 50's loss within 2^-3).
 6. ``fused_train`` — the GPT of ``train`` (the same program, batch and
    seeds) with the fusion autotuner on (``FLAGS_fusion_autotune``, rank
    threshold 0, verdicts cached in a fresh temporary directory): the plan
@@ -60,7 +77,9 @@ JAX, prints one line per phase, and raises on any failure:
    12 times, K4's forward and backward once, K1 and K2 12 times; finite,
    falling losses.  Then the fused program of a 2-layer, batch-1, seq-1024
    step runs on the card and on the host, with the train phase's
-   tolerances.
+   tolerances.  ``amp_fused_train`` — the same under AMP: the bf16 K5 and
+   K4 as the autotune verdicts give them (records keyed ``"amp"``), the
+   bf16 K1 and K2 12 times a step.
 7. ``rn50_fused`` — ``paddle_tpu_torch.tools.rn50_fused_bench.main()``
    at both ResNet-50 stage shapes (M 802,816 and 200,704, bf16): the fused
    chain (two K6 launches, the normalize + relu folded into the second)
@@ -77,7 +96,9 @@ JAX, prints one line per phase, and raises on any failure:
    (``bound``); the server's per-bucket batch latency, requests/s and
    tokens/s, the GPT training steps' time, tokens/s and peak memory (plain
    and fused), and the ResNet step's time, images/s, peak memory and summed
-   K3 time.
+   K3 time; the bf16 forms of K1-K5 at the AMP paths' shapes against SDPA,
+   ``F.layer_norm``, and the bf16 matmul compositions, and the three AMP
+   paths' steps.  ``--profile`` adds one AMP GPT step by kernel.
 
 Then one JSON line describing every kernel, the ``nvidia-smi`` line, and a
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -170,6 +191,34 @@ K6_BF16_RTOL = 2.0 ** -7
 # levels (S = q.k then S.v; dq = (S * dP).k), in other orders than cuBLAS's;
 # 2^-20 of the sum of the terms' magnitudes (|q||k||v| for o, and so on)
 K8_SUM_RTOL = 2.0 ** -20
+# The bf16 forms of K1-K5 (AMP) against their plain versions, which widen
+# the same bf16 inputs to float32, compute, and round each output once: the
+# kernels take their float32 sums in other orders and round once too, so a
+# bf16 output may land on the neighbouring bf16 value.  Each bf16 output is
+# held to one bf16 ulp of its largest magnitude (plus, for the products of
+# K3 and K5, the float32 allowance 2^-20 of the sum of |terms|); the float32
+# outputs (lse, s, s2, dscale, dbias) keep the float32 forms' tolerances.
+BF16_ULPS = 1
+AMP_BATCH_RESNET = 256                  # bench.py:182
+# the AMP GPT's first loss against the float32 train phase's first loss
+# (the same weights from the same seed, the same feed): the bf16 products
+# and activations move a loss near log(30522) = 10.3 by a few 1e-4
+# relative; 2^-7 is a check for gross errors
+AMP_LOSS_RTOL = 2.0 ** -7
+# card vs host, one AMP step of the 2-layer toy (seq 1024) and of the toy
+# ResNet: both round the same values to bf16 at the same ops, but cuBLAS,
+# cuDNN and the kernels sum in other orders than the host, and a bf16
+# activation that rounds to the neighbouring value moves everything after
+# it by a bf16 ulp.  The loss within 2^-7 relative; the gradients and BN
+# running statistics held compared (not each value): within 2^-3 of their
+# largest magnitude, a check for gross errors, with the measured share
+# reported.  An AMP step of ResNet-50 at depth 50 is held like the fused
+# float32 one, to RESNET_FUSED_LOSS_RTOL on the loss: both sides round to
+# bf16 at the same ops but in other orders, and a random-init depth-50 net
+# amplifies a bf16-level difference chaotically (its classifier gradients
+# moved by 0.35 of their largest magnitude and its BN statistics by 0.11 on
+# an H100 80GB HBM3, 700 W; the fused float32 step: 0.34 and 0.11)
+AMP_SMALL_LOSS_RTOL, AMP_SMALL_FRAC = 2.0 ** -7, 2.0 ** -3
 # rn50_fused: the fused chain's output sum against the library chain's.
 # The chains round y1 to bf16 at the same place but take the statistics
 # from different values (the float32 sums in K6, the rounded bf16 y1 in
@@ -561,6 +610,161 @@ def phase_kernel():
     return worst
 
 
+def _bf16_ulp(t):
+    """One bf16 ulp of ``t``'s largest magnitude."""
+    top = float(t.float().abs().max())
+    return 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 0.0
+
+
+def _check_bf16(name, got, ref, extra=None):
+    """Max abs error of the bf16 ``got`` against the bf16 ``ref``; raises
+    unless every value is within BF16_ULPS bf16 ulps of ``ref``'s largest
+    magnitude (plus ``extra``, a per-value allowance, where given)."""
+    import torch
+    if got.dtype != torch.bfloat16 or ref.dtype != torch.bfloat16:
+        raise AssertionError(f"{name}: dtypes {got.dtype}, {ref.dtype}, "
+                             "expected bfloat16")
+    err = (got.float() - ref.float()).abs()
+    ulp = _bf16_ulp(ref)
+    bound = BF16_ULPS * ulp + (0.0 if extra is None else extra)
+    bad = ~(err <= bound)
+    if bad.any():
+        raise AssertionError(f"{name}: {int(bad.sum())} values beyond "
+                             f"{BF16_ULPS} bf16 ulp ({ulp:.3g}) of the "
+                             f"largest magnitude; max abs "
+                             f"{float(err.max())}")
+    return float(err.max())
+
+
+def phase_kernel_bf16():
+    """The bf16 forms of K1-K5 (AMP) against their plain versions on the
+    card, at the AMP paths' shapes and the float32 checks' edges: K1/K2 at
+    [96, 2048, 64] causal, a ragged T and the biased forward; K3 at
+    ResNet-50's 15 conv1x1 shapes at batch 256 (bf16 x, the float32
+    master w); K4 at [16384, 768] and a ragged row count; K5 at [16384,
+    768] x [768, 3072] gelu and relu and an M that is not a tile
+    multiple."""
+    import torch
+    from paddle_tpu_torch.kernels import conv_bn as cb
+    from paddle_tpu_torch.kernels import dense_epilogue as de
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import layer_norm as ln
+    g = torch.Generator(device="cuda")
+    g.manual_seed(10)
+    bf16 = torch.bfloat16
+    worst = dict.fromkeys(("flash_attn_fwd_bf16", "flash_attn_bwd_bf16",
+                           "conv1x1_stats_bf16", "layer_norm_fwd_bf16",
+                           "layer_norm_bwd_bf16", "dense_epilogue_bf16"),
+                          0.0)
+    bh, t, d = SLICE
+    for name, bh_, tq, tk, d_, causal, biased in (
+            ("slice [96,2048,64] causal", bh, t, t, d, True, False),
+            ("T=1000 causal", 8, 1000, 1000, 64, True, False),
+            ("bias [1,Tq,Tk] T=700", 8, 700, 700, 64, False, True)):
+        q, k, v = (torch.randn(bh_, n, d_, device="cuda",
+                               generator=g).to(bf16) for n in (tq, tk, tk))
+        bias = torch.randn(1, tq, tk, device="cuda",
+                           generator=g) if biased else None
+        o, lse = fa.flash_attention_fwd(q, k, v, bias, causal)
+        torch.cuda.synchronize()
+        ro, rlse = fa.flash_attention_reference(q, k, v, bias, causal)
+        e_o = _check_bf16(name + " o", o, ro)
+        e_l = _check(name + " lse", lse, rlse)
+        worst["flash_attn_fwd_bf16"] = max(worst["flash_attn_fwd_bf16"],
+                                           e_o)
+        _log("kernel", f"flash_attn_fwd bf16 {name}: max abs err o "
+             f"{e_o:.3g} ({BF16_ULPS} bf16 ulp of max|o|), lse {e_l:.3g} "
+             f"(atol {ATOL}, rtol {RTOL}) ok")
+        del o, lse
+        if biased:
+            continue        # a biased backward is the plain version
+        do = torch.randn(bh_, tq, d_, device="cuda", generator=g).to(bf16)
+        got = fa.flash_attention_bwd(q, k, v, ro, rlse, do, causal)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_bwd_reference(q, k, v, ro, rlse, do, None,
+                                                causal)
+        errs = [_check_bf16(f"{name} {n}", a, b)
+                for n, a, b in zip(("dq", "dk", "dv"), got, want)]
+        worst["flash_attn_bwd_bf16"] = max(worst["flash_attn_bwd_bf16"],
+                                           *errs)
+        _log("kernel", f"flash_attn_bwd bf16 {name}: max abs err dq "
+             f"{errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g} ("
+             f"{BF16_ULPS} bf16 ulp of each max) ok")
+        del got, want, q, k, v, do
+    torch.cuda.empty_cache()
+
+    for ci, co, p in K3_SHAPES:
+        n = AMP_BATCH_RESNET
+        name = f"[{n}, {ci}, {p}] bf16 x [{co}, {ci}] f32"
+        x = torch.randn(n, ci, p, device="cuda", generator=g).to(bf16)
+        w = torch.randn(co, ci, device="cuda", generator=g) * ci ** -0.5
+        y, s, s2 = cb.conv1x1_stats_fwd(x, w)
+        torch.cuda.synchronize()
+        ry, rs, rs2 = cb.conv1x1_stats_plain(x, w)
+        terms = torch.einsum("oc,ncp->nop", w.to(bf16).float().abs(),
+                             x.float().abs())
+        e_y = _check_bf16(name + " y", y, ry, K3_SUM_RTOL * terms)
+        del terms
+        e_s = _check(name + " s", s, rs,
+                     K3_STAT_RTOL * ry.float().abs().sum(dim=(0, 2)))
+        e_s2 = _check(name + " s2", s2, rs2, K3_STAT_RTOL * rs2)
+        worst["conv1x1_stats_bf16"] = max(worst["conv1x1_stats_bf16"], e_y)
+        _log("kernel", f"conv1x1_stats {name}: max abs err y {e_y:.3g} "
+             f"({BF16_ULPS} bf16 ulp of max|y| + {K3_SUM_RTOL:.3g} "
+             f"sum|w||x|), s {e_s:.3g} s2 {e_s2:.3g} ok")
+        del x, y, ry
+    torch.cuda.empty_cache()
+
+    for name, rows, d_ in (("[16384, 768]", 16384, 768),
+                           ("rows 4099", 4099, 768)):
+        x = (torch.randn(rows, d_, device="cuda", generator=g) * 2
+             + 0.5).to(bf16)
+        sc = torch.randn(d_, device="cuda", generator=g) + 1
+        bi = torch.randn(d_, device="cuda", generator=g)
+        dy = torch.randn(rows, d_, device="cuda", generator=g).to(bf16)
+        y = ln.layer_norm_fwd(x, sc, bi, 1e-5)
+        dx, ds, db = ln.layer_norm_bwd(x, sc, dy, 1e-5)
+        torch.cuda.synchronize()
+        ry = ln.layer_norm_fwd_plain(x, sc, bi, 1e-5)
+        rdx, rds, rdb = ln.layer_norm_bwd_plain(x, sc, dy, 1e-5)
+        xhat = ln.layer_norm_fwd_plain(x.float(), torch.ones_like(sc),
+                                       torch.zeros_like(bi), 1e-5)
+        e_y = _check_bf16(f"layer_norm_fwd bf16 {name} y", y, ry)
+        e_dx = _check_bf16(f"layer_norm_bwd bf16 {name} dx", dx, rdx)
+        e_ds = _check(f"layer_norm_bwd bf16 {name} dscale", ds, rds,
+                      K4_SUM_RTOL * (dy.float() * xhat).abs().sum(dim=0))
+        e_db = _check(f"layer_norm_bwd bf16 {name} dbias", db, rdb,
+                      K4_SUM_RTOL * dy.float().abs().sum(dim=0))
+        worst["layer_norm_fwd_bf16"] = max(worst["layer_norm_fwd_bf16"], e_y)
+        worst["layer_norm_bwd_bf16"] = max(worst["layer_norm_bwd_bf16"],
+                                           e_dx)
+        _log("kernel", f"layer_norm bf16 {name}: max abs err y {e_y:.3g} dx "
+             f"{e_dx:.3g} ({BF16_ULPS} bf16 ulp of each max) dscale "
+             f"{e_ds:.3g} dbias {e_db:.3g} (+ {K4_SUM_RTOL:.3g} sum of "
+             f"|terms|) ok")
+
+    for name, m, act in (("[16384, 768] x [768, 3072] gelu", 16384, "gelu"),
+                         ("[16384, 768] x [768, 3072] relu", 16384, "relu"),
+                         ("M=4097 gelu", 4097, "gelu")):
+        x = torch.randn(m, 768, device="cuda", generator=g).to(bf16)
+        w = (torch.randn(768, 3072, device="cuda", generator=g)
+             * 768 ** -0.5).to(bf16)
+        b = torch.randn(3072, device="cuda", generator=g)
+        y = de.dense_act_fwd(x, w, b, act)
+        torch.cuda.synchronize()
+        ry = de.dense_act_plain(x, w, b, act)
+        terms = x.float().abs() @ w.float().abs()
+        e_y = _check_bf16(f"dense_epilogue bf16 {name} y", y, ry,
+                          K3_SUM_RTOL * terms)
+        worst["dense_epilogue_bf16"] = max(worst["dense_epilogue_bf16"], e_y)
+        _log("kernel", f"dense_epilogue bf16 {name}: max abs err y "
+             f"{e_y:.3g} ({BF16_ULPS} bf16 ulp of max|y| + "
+             f"{K3_SUM_RTOL:.3g} sum|x||w|) ok")
+        del x, w, y, ry, terms
+    torch.cuda.empty_cache()
+    return worst
+
+
 def _gpt_cfg():
     from paddle_tpu_torch.models import transformer as T
     return T.BertConfig(vocab_size=30522, d_model=768, n_layer=12,
@@ -685,7 +889,10 @@ def phase_serve():
             "scope": scope, "factory": factory}
 
 
-def _train_program(cfg, seq):
+def _train_program(cfg, seq, amp=False):
+    """``build_gpt_pretrain`` with ``AdamOptimizer(1e-4)``, under
+    ``amp.decorate`` (bench.py:424) when ``amp``."""
+    from paddle_tpu_torch import amp as amp_mod
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.framework import Program, program_guard
     from paddle_tpu_torch.models import transformer as T
@@ -693,7 +900,8 @@ def _train_program(cfg, seq):
     with program_guard(main, startup):
         _, _, loss = T.build_gpt_pretrain(cfg, seq, fused_head=True,
                                           attn_impl="auto", dropout=0.0)
-        optimizer.AdamOptimizer(learning_rate=1e-4).minimize(loss)
+        adam = optimizer.AdamOptimizer(learning_rate=1e-4)
+        (amp_mod.decorate(adam) if amp else adam).minimize(loss)
     return main, startup, loss
 
 
@@ -848,15 +1056,17 @@ def _adam_plan(exe):
     return plan
 
 
-def _fused_launches():
+def _fused_launches(dtype=None):
+    """Launch counts of the GPT paths' kernels on ``dtype`` operands
+    ("float32", "bfloat16"; None: both)."""
     from paddle_tpu_torch.kernels import dense_epilogue as de
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import layer_norm as ln
-    return {"dense_epilogue": de.launch_count(),
-            "layer_norm_fwd": ln.launch_count("layer_norm_fwd"),
-            "layer_norm_bwd": ln.launch_count("layer_norm_bwd"),
-            "flash_attn_fwd": fa.launch_count("flash_attn_fwd"),
-            "flash_attn_bwd": fa.launch_count("flash_attn_bwd")}
+    return {"dense_epilogue": de.launch_count("dense_epilogue", dtype),
+            "layer_norm_fwd": ln.launch_count("layer_norm_fwd", dtype),
+            "layer_norm_bwd": ln.launch_count("layer_norm_bwd", dtype),
+            "flash_attn_fwd": fa.launch_count("flash_attn_fwd", dtype),
+            "flash_attn_bwd": fa.launch_count("flash_attn_bwd", dtype)}
 
 
 def phase_fused_train():
@@ -964,15 +1174,229 @@ def phase_fused_train():
             "held_bytes": held, "decisions": decisions}
 
 
-def _resnet_program(**kw):
+def _amp_launches():
+    """The bf16 and float32 launch counts of the kernels the AMP GPT paths
+    run, as ``<kernel>_bf16`` and ``<kernel>_f32``."""
+    return {k + tag: n for dtype, tag in (("bfloat16", "_bf16"),
+                                          ("float32", "_f32"))
+            for k, n in _fused_launches(dtype).items()}
+
+
+def _frac_err(c, h):
+    """max |c - h| / max |h|, and the share of values beyond two bf16 ulps
+    of their own magnitude plus 1e-3 of the largest."""
+    c, h = np.asarray(c, np.float64), np.asarray(h, np.float64)
+    top = max(float(np.abs(h).max()), 1e-30)
+    err = np.abs(c - h)
+    share = float((err > 2 * 2.0 ** -8 * np.abs(h) + 1e-3 * top).mean())
+    return float(err.max()) / top, share
+
+
+def _small_amp_check(phase, exe, fused=False):
+    """One AMP step of a 2-layer, batch-1, seq-1024 GPT on the card
+    against the same step on the host: the loss within
+    AMP_SMALL_LOSS_RTOL, four gradients within AMP_SMALL_FRAC of their
+    largest magnitude (see the constants).  ``fused``: the host runs the
+    fused program the card's plan ran."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.analysis import fusion
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.models import transformer as T
+    cfg = _gpt_cfg()
+    small = T.BertConfig(vocab_size=cfg.vocab_size, d_model=cfg.d_model,
+                         n_layer=2, n_head=cfg.n_head, d_inner=cfg.d_inner,
+                         max_pos=1024, dropout=0.0)
+    s_main, s_startup, s_loss = _train_program(small, 1024, amp=True)
+    s_scope, host_scope = Scope(), Scope()
+    exe.run(s_startup, scope=s_scope, seed=99)
+    for name, val in s_scope.items():
+        host_scope.set_var(name, val.detach().cpu())
+    s_feed = _train_feed(small, 1, 1024, seed=1)
+    grads = ["lm_out.w@GRAD", "enc_0.attn.qkv.w@GRAD",
+             "enc_1.ffn.fc1.w@GRAD", "word_embedding@GRAD"]
+    fetch = [s_loss.name] + grads
+    card = exe.run(s_main, feed=s_feed, fetch_list=fetch, scope=s_scope)
+    host_prog = s_main
+    if fused:
+        host_prog = fusion.fuse_program(
+            s_main, fetch, feed_shapes={n: v.shape for n, v in
+                                        s_feed.items()}, device=exe.device)
+    t_c = time.perf_counter()
+    host = ptt.Executor(ptt.CPUPlace()).run(
+        host_prog, feed=s_feed, fetch_list=fetch, scope=host_scope)
+    host_s = time.perf_counter() - t_c
+    loss_err = abs(float(card[0]) - float(host[0])) / abs(float(host[0]))
+    errs = {n: _frac_err(c, h) for n, c, h in zip(grads, card[1:], host[1:])}
+    bad = {n: e for n, e in errs.items() if not e[0] <= AMP_SMALL_FRAC}
+    if not loss_err <= AMP_SMALL_LOSS_RTOL or bad:
+        raise AssertionError(f"{phase}: AMP card step vs host: loss "
+                             f"{float(card[0])} vs {float(host[0])} (rel "
+                             f"{loss_err}), gradients beyond "
+                             f"{AMP_SMALL_FRAC} x max|g|: {bad}")
+    _log(phase, f"2-layer batch-1 seq-1024 AMP step vs host run"
+         f"{' (fused program)' if fused else ''} ({host_s:.1f} s): loss "
+         f"{float(card[0]):.6f} vs {float(host[0]):.6f}, rel err "
+         f"{loss_err:.3g} (rtol {AMP_SMALL_LOSS_RTOL:.3g}); grads max err / "
+         f"max|g| (share beyond 2 bf16 ulps + 1e-3 max|g|): "
+         + "; ".join(f"{n.split('@')[0]} {e[0]:.3g} ({e[1]:.2g})"
+                     for n, e in errs.items())
+         + f" (bound {AMP_SMALL_FRAC:.3g}) ok")
+    return {"loss_rel_err": loss_err, "grad_err_frac": errs}
+
+
+def phase_amp_train(train, fused=False):
+    """The GPT of ``train`` under ``amp.decorate(AdamOptimizer(1e-4))``
+    (bench.py:424), batch 8 x 2048, one warm-up and 5 timed steps; with
+    the autotuner on when ``fused``.  Every step launches the bf16 K1 and
+    K2 12 times each and no float32 form; fused, the bf16 K5 and K4 as
+    the autotune verdicts give them (the warm-up step also runs each
+    missed candidate's fused op ``fused_runs`` times).  The losses finite
+    and falling, the first within AMP_LOSS_RTOL of ``train``'s first (the
+    same weights and feed), every parameter float32 after the steps."""
+    import shutil
+    import tempfile
+
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.analysis import fusion
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.kernels import dense_epilogue as de
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import layer_norm as ln
+
+    phase = "amp_fused_train" if fused else "amp_train"
+    cfg = _gpt_cfg()
+    seq = cfg.max_pos
+    cache_dir = tempfile.mkdtemp(prefix="fusion_autotune_")
+    if fused:
+        # a fresh autotune cache: the file then holds this phase's records
+        # only (the pass keeps the float32 phase's in memory and would
+        # write them out beside them)
+        fusion.clear_cache()
+        flags.set_flags(dict(FUSED_FLAGS,
+                             FLAGS_xla_compile_cache_dir=cache_dir))
+    try:
+        main, startup, loss = _train_program(cfg, seq, amp=True)
+        assert main._attrs.get("amp") is True
+        scope, exe = Scope(), ptt.Executor()
+        exe.run(startup, scope=scope, seed=1234)
+        feed = _train_feed(cfg, TRAIN_BATCH, seq)
+        tokens = TRAIN_BATCH * seq
+
+        # the main path, counted: a warm-up step and the timed steps
+        for mod in (fa, de, ln):
+            mod.reset_launch_count()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        prev = _amp_launches()
+        per_step, losses, step_s = [], [], []
+        for _ in range(TRAIN_STEPS + 1):
+            t0 = time.perf_counter()
+            out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            now = _amp_launches()
+            per_step.append({k: now[k] - prev[k] for k in now})
+            prev = now
+            losses.append(float(out))
+        launches = _amp_launches()
+        peak = torch.cuda.max_memory_allocated()
+        warm_s = step_s.pop(0)
+        plan = _adam_plan(exe)
+        ftypes = [op.type for op, _ in plan.ops]
+        step_want = dict.fromkeys(launches, 0)
+        step_want.update(flash_attn_fwd_bf16=cfg.n_layer,
+                         flash_attn_bwd_bf16=cfg.n_layer)
+        warm_want = dict(step_want)
+        decisions = []
+        if fused:
+            decisions = plan.block.program._attrs["fusion"]["candidates"]
+            for d in decisions:
+                t = d.get("autotune") or {}
+                _log(phase, f"autotune {d['pattern']} at {d['anchor']}: "
+                     f"verdict {d['verdict']}, rank {d['rank']}, base_ms "
+                     f"{t.get('base_ms')}, fused_ms {t.get('fused_ms')}, "
+                     f"win {t.get('win')}, cached {t.get('cached')}")
+            with open(os.path.join(cache_dir, "fusion_autotune.json")) as f:
+                keys = [json.loads(k) for k in json.load(f)]
+            if not keys or any(k[-1] != "amp" for k in keys):
+                raise AssertionError(f"autotune records not keyed 'amp': "
+                                     f"{keys}")
+            applied = {p: sum(d["verdict"] == "applied" for d in decisions
+                              if d["pattern"] == p)
+                       for p in ("dense_epilogue", "embedding_layer_norm")}
+            tuned = {p: sum((d.get("autotune") or {}).get("fused_runs", 0)
+                            for d in decisions if d["pattern"] == p)
+                     for p in applied}
+            if ftypes.count("fused_dense_act") != applied["dense_epilogue"] \
+                    or not all(op.attrs["use_pallas"] for op, _ in plan.ops
+                               if op.type in ("fused_dense_act",
+                                              "fused_embedding_layer_norm")):
+                raise AssertionError(f"fused plan: {applied}, fused ops "
+                                     f"{ftypes.count('fused_dense_act')}")
+            step_want.update(
+                dense_epilogue_bf16=applied["dense_epilogue"],
+                layer_norm_fwd_bf16=applied["embedding_layer_norm"],
+                layer_norm_bwd_bf16=applied["embedding_layer_norm"])
+            warm_want = dict(step_want)
+            warm_want["dense_epilogue_bf16"] += tuned["dense_epilogue"]
+            warm_want["layer_norm_fwd_bf16"] += tuned["embedding_layer_norm"]
+        if per_step != [warm_want] + [step_want] * TRAIN_STEPS:
+            raise AssertionError(f"{phase}: launches per step {per_step}, "
+                                 f"expected {warm_want} then {step_want}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"{phase}: losses not finite and falling: "
+                                 f"{losses}")
+        rel = abs(losses[0] - train["losses"][0]) / abs(train["losses"][0])
+        if not rel <= AMP_LOSS_RTOL:
+            raise AssertionError(f"{phase}: first loss {losses[0]} vs the "
+                                 f"float32 step's {train['losses'][0]} "
+                                 f"(rel {rel} > {AMP_LOSS_RTOL})")
+        not_f32 = [p.name for p in main.all_parameters()
+                   if scope.find_var(p.name).dtype != torch.float32]
+        if not_f32:
+            raise AssertionError(f"{phase}: parameters not float32 after "
+                                 f"the steps: {not_f32}")
+        step_ms = 1e3 * float(np.mean(step_s))
+        nz = {k: v for k, v in per_step[1].items() if v}
+        _log(phase, f"batch {TRAIN_BATCH} x seq {seq} bf16 AMP: plan of "
+             f"{len(ftypes)} ops ({ftypes.count('fused_dense_act')} "
+             f"fused_dense_act, {ftypes.count('fused_embedding_layer_norm')}"
+             f" fused_embedding_layer_norm); warm-up step {warm_s:.2f} s, "
+             f"then {TRAIN_STEPS} steps of "
+             f"{', '.join(f'{1e3 * x:.1f}' for x in step_s)} ms; losses "
+             f"{', '.join(f'{x:.4f}' for x in losses)} (first vs float32 "
+             f"{train['losses'][0]:.4f}: rel {rel:.3g}, rtol "
+             f"{AMP_LOSS_RTOL:.3g}); launches per step {nz} (warm-up "
+             f"{ {k: v for k, v in per_step[0].items() if v} }); "
+             f"{len(main.all_parameters())} parameters float32; peak "
+             f"memory {peak / 2**30:.2f} GiB, of which {held / 2**30:.2f} "
+             f"GiB allocated before the first step")
+        small = _small_amp_check(phase, exe, fused)
+    finally:
+        if fused:
+            flags.set_flags(DEFAULT_FLAGS)
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    return {"launches": launches, "per_step": per_step, "losses": losses,
+            "step_ms": step_ms, "step_s": step_s, "warmup_s": warm_s,
+            "tokens_per_s": tokens / (step_ms / 1e3), "peak_bytes": peak,
+            "held_bytes": held, "decisions": decisions, "small": small,
+            "main": main, "loss": loss, "scope": scope, "feed": feed}
+
+
+def _resnet_program(amp=False, **kw):
+    """``build_resnet_train`` with ``MomentumOptimizer(0.1, 0.9)``, under
+    ``amp.decorate`` (bench.py:189) when ``amp``."""
+    from paddle_tpu_torch import amp as amp_mod
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.framework import Program, program_guard
     from paddle_tpu_torch.models import resnet
     main, startup = Program(), Program()
     with program_guard(main, startup):
         _, _, loss, accs = resnet.build_resnet_train(**kw)
-        optimizer.MomentumOptimizer(learning_rate=0.1,
-                                    momentum=0.9).minimize(loss)
+        mom = optimizer.MomentumOptimizer(learning_rate=0.1, momentum=0.9)
+        (amp_mod.decorate(mom) if amp else mom).minimize(loss)
     return main, startup, loss, accs
 
 
@@ -1004,9 +1428,11 @@ def _fused_shapes(plan):
     return out
 
 
-def _toy_resnet_program():
+def _toy_resnet_program(amp=False):
     """Two bottleneck blocks (strides 1 and 2, 16 filters) on a [16, 8, 8]
-    input, global pooling, fc with softmax: 6 fused conv1x1 + BN pairs."""
+    input, global pooling, fc with softmax: 6 fused conv1x1 + BN pairs;
+    under ``amp.decorate`` when ``amp``."""
+    from paddle_tpu_torch import amp as amp_mod
     from paddle_tpu_torch import layers, optimizer
     from paddle_tpu_torch.framework import Program, program_guard
     from paddle_tpu_torch.models import resnet
@@ -1021,25 +1447,29 @@ def _toy_resnet_program():
                          act="softmax", param_attr="fc_out.w",
                          bias_attr="fc_out.b")
         loss = layers.mean(layers.cross_entropy(pred, label))
-        optimizer.MomentumOptimizer(learning_rate=0.1,
-                                    momentum=0.9).minimize(loss)
+        mom = optimizer.MomentumOptimizer(learning_rate=0.1, momentum=0.9)
+        (amp_mod.decorate(mom) if amp else mom).minimize(loss)
     return main, startup, loss
 
 
-def _resnet_small_check(exe, model, fused):
+def _resnet_small_check(exe, model, fused, amp=False):
     """One step on the card against the same step on the host: the toy or
-    depth 50 at 3x64x64, batch 8, with the fusion pass on or off."""
+    depth 50 at 3x64x64, batch 8, with the fusion pass on or off, and under
+    ``amp.decorate`` when ``amp`` (the loss within AMP_SMALL_LOSS_RTOL for
+    the toy, RESNET_FUSED_LOSS_RTOL at depth 50; on the toy the BN running
+    statistics and the classifier's gradients within AMP_SMALL_FRAC of
+    their largest magnitude)."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch import flags
     from paddle_tpu_torch.framework import Scope
     from paddle_tpu_torch.kernels import conv_bn as cb
     if model == "toy":
-        main, startup, loss = _toy_resnet_program()
+        main, startup, loss = _toy_resnet_program(amp)
         feed = _resnet_feed(4, 4, (16, 8, 8), seed=1)
         n_fused, what = 6, "toy (2 bottleneck blocks, 16 filters) batch-4"
-        tol = RESNET_TOY_LOSS_RTOL
+        tol = AMP_SMALL_LOSS_RTOL if amp else RESNET_TOY_LOSS_RTOL
     else:
-        main, startup, loss, _ = _resnet_program(**RESNET_SMALL)
+        main, startup, loss, _ = _resnet_program(amp, **RESNET_SMALL)
         feed = _resnet_feed(RESNET_SMALL_BATCH, RESNET_SMALL["class_dim"],
                             RESNET_SMALL["image_shape"], seed=1)
         n_fused = 36
@@ -1056,9 +1486,9 @@ def _resnet_small_check(exe, model, fused):
     fetch = [loss.name] + grads
     flags.set_flags({"FLAGS_graph_fusion": fused})
     try:
-        n0 = cb.launch_count()
+        cb.reset_launch_count()
         card = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
-        k3 = cb.launch_count() - n0
+        k3 = cb.launch_count("conv1x1_stats")
         t_c = time.perf_counter()
         host = ptt.Executor(ptt.CPUPlace()).run(main, feed=feed,
                                                 fetch_list=fetch,
@@ -1074,37 +1504,42 @@ def _resnet_small_check(exe, model, fused):
         raise AssertionError(f"{what}: card loss {float(card[0])} vs host "
                              f"{float(host[0])}: rel err {loss_err} > {tol}")
 
-    def frac(c, h):
-        c, h = np.asarray(c, np.float64), np.asarray(h, np.float64)
-        return float(np.abs(c - h).max()) / max(float(np.abs(h).max()),
-                                                1e-30)
-
-    grad_err = {name: frac(c, h)
+    grad_err = {name: _frac_err(c, h)[0]
                 for name, c, h in zip(grads, card[1:], host[1:])}
     stats = [v.name for v in main.list_vars()
              if v.name.endswith((".bn.mean", ".bn.var"))]
-    stat_err = max(frac(scope.find_var(n).cpu(), host_scope.find_var(n))
-                   for n in stats)
-    if not fused:
+    stat_err = max(_frac_err(scope.find_var(n).cpu(),
+                             host_scope.find_var(n))[0] for n in stats)
+    # held: float32 on both sides, or AMP on the toy (at depth 50 AMP is
+    # held like the fused float32 step, to the loss: see the constants)
+    strict = not fused or (amp and model == "toy")
+    if strict:
+        g_tol = AMP_SMALL_FRAC if amp else RESNET_F32_GRAD_FRAC
+        s_tol = AMP_SMALL_FRAC if amp else RESNET_F32_STAT_FRAC
         bad = {n: e for n, e in grad_err.items()
-               if n in held and not e <= RESNET_F32_GRAD_FRAC}
-        if bad or not stat_err <= RESNET_F32_STAT_FRAC:
+               if n in held and not e <= g_tol}
+        if bad or not stat_err <= s_tol:
             raise AssertionError(
-                f"unfused card step vs host: classifier gradients {bad} "
-                f"(bound {RESNET_F32_GRAD_FRAC:.3g} x max|g|), BN running "
-                f"statistics {stat_err:.3g} (bound "
-                f"{RESNET_F32_STAT_FRAC:.3g} x max|v|)")
+                f"{'AMP' if amp else 'unfused'} card step vs host: "
+                f"classifier gradients {bad} (bound {g_tol:.3g} x max|g|), "
+                f"BN running statistics {stat_err:.3g} (bound "
+                f"{s_tol:.3g} x max|v|)")
     how = "fused (K3, bf16 operands)" if fused else "unfused (float32)"
-    _log("resnet", f"{what} {how} step vs host run ({host_s:.1f} s): loss "
+    if amp:
+        how = "AMP fused (K3 on bf16 x)"
+    _log("amp_resnet" if amp else "resnet",
+         f"{what} {how} step vs host run ({host_s:.1f} s): loss "
          f"{float(card[0]):.6f} vs {float(host[0]):.6f}, rel err "
          f"{loss_err:.3g} (rtol {tol:.3g}); {len(stats)} BN running "
          f"statistics max err / max|v| {stat_err:.3g}"
-         + ("" if fused else f" (bound {RESNET_F32_STAT_FRAC:.3g})")
+         + ("" if not strict else
+            f" (bound {AMP_SMALL_FRAC if amp else RESNET_F32_STAT_FRAC:.3g})")
          + "; grads max abs err / max|g|: "
          + "; ".join(f"{n.split('@')[0]} {e:.3g}"
                      for n, e in grad_err.items())
-         + ("" if fused else f" (classifier's bound "
-                             f"{RESNET_F32_GRAD_FRAC:.3g})")
+         + ("" if not strict else
+            f" (classifier's bound "
+            f"{AMP_SMALL_FRAC if amp else RESNET_F32_GRAD_FRAC:.3g})")
          + f"; K3 launches {k3} ok")
     return {"loss_rel_err": loss_err, "stat_err_frac": stat_err,
             "grad_err_frac": grad_err}
@@ -1183,6 +1618,81 @@ def phase_resnet():
             "images_per_s": RESNET_BATCH / (step_ms / 1e3),
             "peak_bytes": peak, "held_bytes": held, "shapes": shapes,
             "small": small,
+            "main": main, "fetch": fetch, "scope": scope, "feed": feed}
+
+
+def phase_amp_resnet():
+    """ResNet-50 under ``amp.decorate(MomentumOptimizer(0.1, 0.9))``
+    (bench.py:189) at batch 256 (bench.py:182), 3x224x224: the fusion pass
+    rewrites the 36 conv1x1 + BN pairs, and every step launches the bf16
+    K3 36 times (bf16 x, float32 master w) and no float32 form; one
+    warm-up and 5 timed steps on one fixed batch, finite, falling losses,
+    every parameter float32.  Then one AMP step on the card against the
+    host: the toy (loss, BN running statistics and classifier gradients)
+    and depth 50 at 3x64x64 (the loss; see the constants)."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.kernels import conv_bn as cb
+
+    cfg = dict(class_dim=1000, depth=50, image_shape=(3, 224, 224))
+    main, startup, loss, accs = _resnet_program(True, **cfg)
+    assert main._attrs.get("amp") is True
+    scope, exe = Scope(), ptt.Executor()
+    exe.run(startup, scope=scope, seed=1234)
+    batch = AMP_BATCH_RESNET
+    feed = _resnet_feed(batch, cfg["class_dim"], cfg["image_shape"])
+    fetch = [loss, accs[0], accs[1]]
+
+    # the main path, counted: a warm-up step and the timed steps
+    cb.reset_launch_count()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    per_step, losses, step_s = [], [], []
+    prev = (0, 0)
+    for _ in range(RESNET_STEPS + 1):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        now = (cb.launch_count("conv1x1_stats", "bfloat16"),
+               cb.launch_count("conv1x1_stats", "float32"))
+        per_step.append((now[0] - prev[0], now[1] - prev[1]))
+        prev = now
+        losses.append(float(out[0]))
+    launches = cb.launch_count("conv1x1_stats", "bfloat16")
+    peak = torch.cuda.max_memory_allocated()
+    warm_s = step_s.pop(0)
+    plan = _train_plan(exe)
+    shapes = _fused_shapes(plan)
+    if len(shapes) != 36 or per_step != [(36, 0)] * (RESNET_STEPS + 1):
+        raise AssertionError(f"amp_resnet: {len(shapes)} fused ops, (bf16, "
+                             f"float32) K3 launches per step {per_step}, "
+                             f"expected 36 and (36, 0)")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"amp_resnet losses not finite and falling: "
+                             f"{losses}")
+    not_f32 = [p.name for p in main.all_parameters()
+               if scope.find_var(p.name).dtype != torch.float32]
+    if not_f32:
+        raise AssertionError(f"amp_resnet: parameters not float32: "
+                             f"{not_f32}")
+    step_ms = 1e3 * float(np.mean(step_s))
+    _log("amp_resnet", f"batch {batch} x 3x224x224 bf16 AMP: fused plan of "
+         f"{len(plan.ops)} ops; warm-up step {warm_s:.2f} s, then "
+         f"{RESNET_STEPS} steps of "
+         f"{', '.join(f'{1e3 * x:.1f}' for x in step_s)} ms; losses "
+         f"{', '.join(f'{x:.4f}' for x in losses)}; bf16 K3 launches "
+         f"{[n for n, _ in per_step]} = {launches}, float32 0; "
+         f"{len(main.all_parameters())} parameters float32; peak memory "
+         f"{peak / 2**30:.2f} GiB, of which {held / 2**30:.2f} GiB "
+         f"allocated before the first step")
+    small = {"toy": _resnet_small_check(exe, "toy", True, amp=True),
+             "depth50": _resnet_small_check(exe, "depth50", True, amp=True)}
+    return {"launches": launches, "per_step": per_step, "losses": losses,
+            "step_ms": step_ms, "step_s": step_s, "warmup_s": warm_s,
+            "images_per_s": batch / (step_ms / 1e3), "peak_bytes": peak,
+            "held_bytes": held, "shapes": shapes, "small": small,
             "main": main, "fetch": fetch, "scope": scope, "feed": feed}
 
 
@@ -1306,9 +1816,10 @@ def phase_resnet_profile(resnet):
             "momentum_ms": momentum_ms, "top": rows[:40]}
 
 
-def phase_train_profile(train):
-    """Device time of one full-width training step by kernel, with
-    ``torch.profiler``: where a step's time goes."""
+def phase_train_profile(train, what=""):
+    """Device time of one full-width training step (``what``: "AMP " for
+    the AMP program) by kernel, with ``torch.profiler``: where a step's
+    time goes."""
     import torch
     import paddle_tpu_torch as ptt
     from torch.profiler import ProfilerActivity, profile
@@ -1325,12 +1836,40 @@ def phase_train_profile(train):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     rows = _profile_rows(prof)
     kernel_ms = sum(r[0] for r in rows if not r[2].startswith("Memcpy"))
-    _log("profile", f"training step, batch {TRAIN_BATCH} x seq 2048: wall "
-         f"{wall_ms:.1f} ms; kernels {kernel_ms:.1f} ms "
-         f"({100 * kernel_ms / wall_ms:.1f}% of wall)")
+    # kernel classes by name: the port's kernels, cuBLAS, PyTorch's dtype
+    # casts (AMP), the rest (elementwise, reductions, Adam)
+    classes = dict.fromkeys(("K1", "K2", "K4, K5", "GEMMs", "casts",
+                             "elementwise, reductions, Adam"), 0.0)
+    for ms, _, key in rows:
+        k = key.lower()
+        if k.startswith(("memcpy", "memset")):
+            continue
+        cls = ("K1" if "flash_fwd" in k else "K2" if "flash_bwd" in k
+               else "K4, K5" if any(t in k for t in (
+                   "ln_fwd", "ln_bwd", "colsum", "dense_act", "round_pad"))
+               else "GEMMs" if any(t in k for t in (
+                   "gemm", "cutlass", "nvjet", "xmma"))
+               else "casts" if "copy_kernel" in k
+               else "elementwise, reductions, Adam")
+        classes[cls] += ms
+    _log("profile", f"{what}training step, batch {TRAIN_BATCH} x seq 2048: "
+         f"wall {wall_ms:.1f} ms; kernels {kernel_ms:.1f} ms "
+         f"({100 * kernel_ms / wall_ms:.1f}% of wall): "
+         + ", ".join(f"{c} {ms:.1f}" for c, ms in classes.items()))
     for ms, count, key in rows[:24]:
         _log("profile", f"  {ms:9.2f} ms  x{count:<4d} {key[:90]}")
-    return {"wall_ms": wall_ms, "kernel_ms": kernel_ms, "top": rows[:40]}
+    return {"wall_ms": wall_ms, "kernel_ms": kernel_ms, "classes": classes,
+            "top": rows[:40]}
+
+
+def _held_ms(fn, reps=3):
+    """ms a call of ``fn`` on the card alone: the best of ``reps`` rounds
+    of ``timing.time_held`` after a warm call.  For calls whose host side
+    (wrapper, allocations, autograd) takes about as long as their kernels:
+    a run of calls timed with events would time the host's gaps."""
+    from paddle_tpu_torch.tools.timing import time_held
+    fn()
+    return 1e3 * min(time_held(fn)[0] for _ in range(reps))
 
 
 def _bound(flops, nbytes, kind="float32"):
@@ -1548,17 +2087,21 @@ def timing_k45(smi, train, fused):
     def lib_fwd_bwd():
         torch.autograd.grad(lib_fwd(), (xg, sg, bg), dy)
 
-    lib_f = 1e3 * time_fn(lib_fwd, iters=20)
+    # K4's calls take about as long on the host as on the card, so every
+    # column is the card's time alone (``_held_ms``); the library's backward
+    # is fwd+bwd minus fwd (a run of 20 timed with events read 0.136-0.923
+    # ms on an H100 80GB HBM3, 700 W: the host's enqueue gaps)
+    lib_f = _held_ms(lib_fwd)
     for name, fn, plain, library, nbytes, flops in (
             ("layer_norm_fwd", lambda: ln.layer_norm_fwd(x, sc, bi, 1e-5),
              lambda: ln.layer_norm_fwd_plain(x, sc, bi, 1e-5), lib_f,
              4.0 * (2 * rows * d + 2 * d), 8.0 * rows * d),
             ("layer_norm_bwd", lambda: ln.layer_norm_bwd(x, sc, dy, 1e-5),
              lambda: ln.layer_norm_bwd_plain(x, sc, dy, 1e-5),
-             1e3 * time_fn(lib_fwd_bwd, iters=20) - lib_f,
+             _held_ms(lib_fwd_bwd) - lib_f,
              4.0 * (3 * rows * d + 3 * d), 16.0 * rows * d)):
-        ms = 1e3 * time_fn(fn, iters=20)
-        plain_ms = 1e3 * time_fn(plain, iters=5)
+        ms = _held_ms(fn)
+        plain_ms = _held_ms(plain)
         bound_ms, bound_by, why = _bound(flops, nbytes)
         out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library,
                      "bound_ms": bound_ms, "bound_by": bound_by}
@@ -1577,6 +2120,181 @@ def timing_k45(smi, train, fused):
          f"peak {train['peak_bytes'] / 2**30:.2f} GiB "
          f"({(train['peak_bytes'] - train['held_bytes']) / 2**30:.2f} GiB "
          f"above)")
+    return out
+
+
+def timing_bf16(smi, amp_train, amp_fused, amp_resnet):
+    """The bf16 forms of K1-K5 at the AMP paths' shapes: kernel, plain
+    version, one library call or composition in bf16, and the bound (the
+    bytes at the bf16 sizes over the memory rate; the operations at the
+    rate of the arithmetic the TPU kernel specifies: float32 for K1, K2 and
+    K4, bf16 for the K3 and K5 products).  The libraries' autograd chains
+    (SDPA's and LayerNorm's backward) are timed as slopes of two run
+    lengths.  Then the three AMP paths' steps."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import conv_bn as cb
+    from paddle_tpu_torch.kernels import dense_epilogue as de
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import layer_norm as ln
+    from paddle_tpu_torch.tools.timing import time_fn, time_fn_slope
+    g = torch.Generator(device="cuda")
+    g.manual_seed(12)
+    bf16 = torch.bfloat16
+    out = {}
+
+    def row(name, ms, plain_ms, library_ms, flops, nbytes, kind, what, lib):
+        bound_ms, bound_by, why = _bound(flops, nbytes, kind)
+        out[name] = {"ms": ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+        _log("timing", f"{name} {what} on {smi}: kernel {ms:.4f} ms, plain "
+             f"{plain_ms:.4f} ms, {lib} {library_ms:.4f} ms; bound "
+             f"{bound_ms:.4f} ms by {bound_by} ({why}): "
+             f"{100 * bound_ms / ms:.1f}% of bound")
+
+    # K1 and K2 at [96, 2048, 64] causal, bf16 q, k, v, o, do
+    bh, t, d = SLICE
+    q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=g).to(bf16)
+                   for _ in range(4))
+    pairs = t * (t + 1) // 2
+    q4, k4, v4 = (x.view(8, 12, t, d) for x in (q, k, v))
+    row("flash_attn_fwd_bf16",
+        1e3 * time_fn(lambda: fa.flash_attention_fwd(q, k, v, None, True),
+                      iters=20),
+        1e3 * time_fn(lambda: fa.flash_attention_reference(q, k, v, None,
+                                                           True), iters=5),
+        1e3 * time_fn(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), iters=20),
+        4.0 * d * bh * pairs, 2.0 * 4 * bh * t * d + 4.0 * bh * t, "float32",
+        "[96,2048,64] causal bf16", "sdpa bf16 (p rounded to bf16)")
+    o, lse = fa.flash_attention_fwd(q, k, v, None, True)
+    qg, kg, vg = (x.view(8, 12, t, d).detach().requires_grad_()
+                  for x in (q, k, v))
+    do4 = do.view(8, 12, t, d)
+
+    def sdpa_fwd():
+        with torch.enable_grad():
+            return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), do4)
+
+    row("flash_attn_bwd_bf16",
+        1e3 * time_fn(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                     True), iters=10),
+        1e3 * time_fn(lambda: fa.flash_attention_bwd_reference(
+            q, k, v, o, lse, do, None, True), iters=3),
+        1e3 * (time_fn_slope(sdpa_fwd_bwd) - time_fn_slope(sdpa_fwd)),
+        10.0 * d * bh * pairs,
+        2.0 * 8 * bh * t * d + 4.0 * 2 * bh * t, "float32",
+        "[96,2048,64] causal bf16",
+        "sdpa bf16 backward (fwd+bwd minus fwd, slopes)")
+    del q, k, v, do, o, lse, qg, kg, vg, q4, k4, v4, do4
+    torch.cuda.empty_cache()
+
+    # K3 summed over an AMP ResNet-50 step's 36 launches at batch 256
+    counts = {sh: amp_resnet["shapes"].count(sh) for sh in K3_SHAPES}
+    n = AMP_BATCH_RESNET
+    tot = dict.fromkeys(("ms", "ms_f32_batch", "plain_ms", "library_ms",
+                         "bound_ms", "by_bytes"), 0.0)
+    for ci, co, p in K3_SHAPES:
+        x = torch.randn(n, ci, p, device="cuda", generator=g).to(bf16)
+        w = torch.randn(co, ci, device="cuda", generator=g) * ci ** -0.5
+        xh = x[:RESNET_BATCH]           # the float32 resnet phase's batch
+
+        def library():
+            yf = torch.matmul(w.to(bf16), x).float()
+            return yf.sum(dim=(0, 2)), (yf * yf).sum(dim=(0, 2))
+
+        c = counts[(ci, co, p)]
+        tot["ms"] += c * 1e3 * time_fn(lambda: cb.conv1x1_stats_fwd(x, w),
+                                       iters=10)
+        tot["ms_f32_batch"] += c * 1e3 * time_fn(
+            lambda: cb.conv1x1_stats_fwd(xh, w), iters=10)
+        tot["plain_ms"] += c * 1e3 * time_fn(
+            lambda: cb.conv1x1_stats_plain(x, w), iters=3)
+        tot["library_ms"] += c * 1e3 * time_fn(library, iters=10)
+        # x and y in bf16, w and the sums in float32, once each
+        b_ms, b_by, _ = _bound(2.0 * n * p * ci * co,
+                               2.0 * (n * ci * p + n * co * p)
+                               + 4.0 * co * ci + 4.0 * 2 * co, "bfloat16")
+        tot["bound_ms"] += c * b_ms
+        tot["by_bytes"] += c * b_ms if b_by == "bytes" else 0.0
+        del x, xh, w
+    out["conv1x1_stats_bf16"] = {
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "library_ms": tot["library_ms"], "bound_ms": tot["bound_ms"],
+        "bound_by": "bytes" if tot["by_bytes"] >= tot["bound_ms"] / 2
+        else "operations", "ms_at_batch_128": tot["ms_f32_batch"]}
+    _log("timing", f"conv1x1_stats_bf16 per AMP ResNet-50 step (36 "
+         f"launches, batch {n}, bf16 x) on {smi}: kernel {tot['ms']:.3f} ms,"
+         f" plain {tot['plain_ms']:.3f} ms, bf16 matmul + float32 sums "
+         f"{tot['library_ms']:.3f} ms; bound {tot['bound_ms']:.3f} ms (the "
+         f"sum of each shape's, {tot['by_bytes']:.3f} ms of it by bytes): "
+         f"{100 * tot['bound_ms'] / tot['ms']:.1f}% of bound; the bf16 "
+         f"kernel at the float32 phase's batch {RESNET_BATCH} "
+         f"{tot['ms_f32_batch']:.3f} ms")
+    torch.cuda.empty_cache()
+
+    # K4 at [16384, 768], bf16 x, y, dy, dx
+    rows, d4 = TRAIN_BATCH * 2048, 768
+    x = (torch.randn(rows, d4, device="cuda", generator=g)).to(bf16)
+    sc = torch.randn(d4, device="cuda", generator=g) + 1
+    bi = torch.randn(d4, device="cuda", generator=g)
+    dy = torch.randn(rows, d4, device="cuda", generator=g).to(bf16)
+    xg = x.detach().requires_grad_()
+    sg, bg = (t_.to(bf16).requires_grad_() for t_ in (sc, bi))
+
+    def lib_fwd():
+        with torch.enable_grad():
+            return F.layer_norm(xg, (d4,), sg, bg, 1e-5)
+
+    def lib_fwd_bwd():
+        torch.autograd.grad(lib_fwd(), (xg, sg, bg), dy)
+
+    # every column the card's time alone, as the float32 rows (timing_k45)
+    lib_f = _held_ms(lib_fwd)
+    row("layer_norm_fwd_bf16",
+        _held_ms(lambda: ln.layer_norm_fwd(x, sc, bi, 1e-5)),
+        _held_ms(lambda: ln.layer_norm_fwd_plain(x, sc, bi, 1e-5)),
+        lib_f, 8.0 * rows * d4, 2.0 * 2 * rows * d4 + 4.0 * 2 * d4,
+        "float32", f"[{rows}, {d4}] bf16", "F.layer_norm bf16 (card only)")
+    row("layer_norm_bwd_bf16",
+        _held_ms(lambda: ln.layer_norm_bwd(x, sc, dy, 1e-5)),
+        _held_ms(lambda: ln.layer_norm_bwd_plain(x, sc, dy, 1e-5)),
+        _held_ms(lib_fwd_bwd) - lib_f, 16.0 * rows * d4,
+        2.0 * 3 * rows * d4 + 4.0 * 3 * d4, "float32",
+        f"[{rows}, {d4}] bf16",
+        "F.layer_norm bf16 fwd+bwd minus fwd (card only)")
+    del x, dy, xg
+
+    # K5 at [16384, 768] x [768, 3072] gelu, bf16 x, w and y
+    n5 = 3072
+    x = torch.randn(rows, d4, device="cuda", generator=g).to(bf16)
+    w = (torch.randn(d4, n5, device="cuda", generator=g)
+         * d4 ** -0.5).to(bf16)
+    b = torch.randn(n5, device="cuda", generator=g)
+    bb = b.to(bf16)
+    row("dense_epilogue_bf16",
+        1e3 * time_fn(lambda: de.dense_act_fwd(x, w, b, "gelu"), iters=20),
+        1e3 * time_fn(lambda: de.dense_act_plain(x, w, b, "gelu"), iters=5),
+        1e3 * time_fn(lambda: F.gelu(torch.matmul(x, w) + bb), iters=20),
+        2.0 * rows * d4 * n5, 2.0 * (rows * d4 + d4 * n5 + rows * n5)
+        + 4.0 * n5, "bfloat16", f"[{rows}, {d4}] x [{d4}, {n5}] gelu bf16",
+        "bf16 matmul + bias + F.gelu")
+    del x, w
+    torch.cuda.empty_cache()
+
+    for name, r, unit, per in (
+            ("amp_train", amp_train, "tokens/s", "tokens_per_s"),
+            ("amp_fused_train", amp_fused, "tokens/s", "tokens_per_s"),
+            ("amp_resnet", amp_resnet, "images/s", "images_per_s")):
+        _log("timing", f"{name} on {smi}: step {r['step_ms']:.1f} ms (mean "
+             f"of {len(r['step_s'])}), {r[per]:.0f} {unit}, peak memory "
+             f"{r['peak_bytes'] / 2**30:.2f} GiB "
+             f"({(r['peak_bytes'] - r['held_bytes']) / 2**30:.2f} GiB above "
+             f"what was allocated before its first step)")
     return out
 
 
@@ -1785,6 +2503,11 @@ _KERNELS = (
 )
 
 
+#: the kernels with a bf16 form (AMP), listed as ``<name>_bf16``
+_BF16_FORMS = ("flash_attn_fwd", "flash_attn_bwd", "conv1x1_stats",
+               "layer_norm_fwd", "layer_norm_bwd", "dense_epilogue")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", help="also write every measurement here")
@@ -1805,22 +2528,28 @@ def main(argv=None) -> int:
 
     smi = phase_env()
     worst = phase_kernel()
+    worst.update(phase_kernel_bf16())
     serve = phase_serve()
     train = phase_train()
+    amp_train = phase_amp_train(train)
     fused = phase_fused_train()
+    amp_fused = phase_amp_train(train, fused=True)
     resnet = phase_resnet()
+    amp_resnet = phase_amp_resnet()
     rn50_fused = phase_rn50_fused()
     ceiling = phase_attn_ceiling()
     timing = phase_timing(smi, serve, train)
     timing["conv1x1_stats"] = timing_k3(smi, resnet)
     timing.update(timing_k45(smi, train, fused))
     timing.update(timing_k68(smi))
+    timing.update(timing_bf16(smi, amp_train, amp_fused, amp_resnet))
     k3_shapes = timing["conv1x1_stats"].pop("per_shape")
     k6_calls = timing["matmul_bn_stats"].pop("per_call")
     prof = None
     if args.profile:
         prof = {"serve": phase_profile(serve),
                 "train": phase_train_profile(train),
+                "amp_train": phase_train_profile(amp_train, "AMP "),
                 "resnet": phase_resnet_profile(resnet)}
     by_path = {"flash_attn_fwd": {"serve": serve["launches"],
                                   "train": train["launches"]["flash_attn_fwd"],
@@ -1838,11 +2567,26 @@ def main(argv=None) -> int:
                  "flash_attn_bwd"):
         by_path.setdefault(name, {})["attn_ceiling"] = \
             ceiling["launches"][name]
+    # the bf16 forms, launched by the AMP paths
+    for name in ("flash_attn_fwd", "flash_attn_bwd"):
+        by_path[name + "_bf16"] = {
+            "amp_train": amp_train["launches"][name + "_bf16"],
+            "amp_fused_train": amp_fused["launches"][name + "_bf16"]}
+    for name in ("layer_norm_fwd", "layer_norm_bwd", "dense_epilogue"):
+        by_path[name + "_bf16"] = {
+            "amp_fused_train": amp_fused["launches"][name + "_bf16"]}
+    by_path["conv1x1_stats_bf16"] = {"amp_resnet": amp_resnet["launches"]}
+    missing = [n for n, paths in by_path.items() if not sum(paths.values())]
+    if missing:
+        raise AssertionError(f"kernels never launched on their paths: "
+                             f"{missing}")
     kernels = [dict(name=name, route="cuda", source=src, replaces=ref,
                     launches=sum(by_path[name].values()),
                     launches_by_path=by_path[name],
                     max_abs_err=worst[name], **timing[name])
-               for name, src, ref in _KERNELS]
+               for name, src, ref in _KERNELS + tuple(
+                   (n + "_bf16", src, ref) for n, src, ref in _KERNELS
+                   if n in _BF16_FORMS)]
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
@@ -1859,7 +2603,13 @@ def main(argv=None) -> int:
                        "fused_train": fused,
                        "resnet": {k: v for k, v in resnet.items()
                                   if k not in ("main", "fetch", "scope",
-                                               "feed")}},
+                                               "feed")},
+                       **{name: {k: v for k, v in r.items()
+                                 if k not in ("main", "loss", "fetch",
+                                              "scope", "feed")}
+                          for name, r in (("amp_train", amp_train),
+                                          ("amp_fused_train", amp_fused),
+                                          ("amp_resnet", amp_resnet))}},
                       f, indent=1, default=float)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -25,7 +25,7 @@ from .framework import (Program, Scope, Variable,  # noqa
                         default_startup_program, global_scope,
                         program_guard, scope_guard)
 from .framework.executor import Executor  # noqa
-from . import io, models, optimizer, serving  # noqa
+from . import amp, io, models, optimizer, serving  # noqa
 from .param_attr import ParamAttr  # noqa
 from .place import (CPUPlace, CUDAPlace, device_count,  # noqa
                     is_compiled_with_cuda)

@@ -165,6 +165,7 @@ class _Candidate:
         self.fused_descs: List[tuple] = []
         self.ext_inputs: Dict[str, tuple] = {}
         self.shape_key: tuple = ()
+        self.amp = False                # the program's AMP regime
 
     def all_ops(self) -> List:
         return self.fwd_ops + self.grad_ops
@@ -665,6 +666,9 @@ def _finish_candidate(graph, program, cand, *, fused_type, fused_ins,
     # autotune replay material: the chain's forward descs, the fused op's
     # desc, and the chain's external inputs with their shapes
     block = program.global_block()
+    # the chains are timed in the regime the run will use: an AMP program
+    # runs them through bf16 casts (the reference's fusion.py:735-739)
+    cand.amp = bool(program._attrs.get("amp", False))
     cand.base_descs = [_desc(n.op) for n in cand.fwd_ops]
     cand.fused_descs = [(fused_type,
                          {s: [v.name for v in vs]
@@ -865,11 +869,16 @@ def _fill_value(shape, dtype, batch: int, device):
 def _replay(descs, env, ctx):
     """Run a straight-line chain of op descs through the registered
     lowerings on a value environment: the autotuner's harness for the base
-    chain and the fused op alike."""
+    chain and the fused op alike.  Under AMP each op's inputs pass through
+    ``amp.cast_ins`` as the executor casts them (the fused ops apply the
+    policy themselves)."""
+    from .. import amp as _amp
     from ..framework import registry as _reg
     for typ, ins_names, outs_names, attrs in descs:
         ins = {s: [env.get(n) for n in names]
                for s, names in ins_names.items()}
+        if ctx.amp:
+            ins = _amp.cast_ins(typ, ins)
         outs = _reg.get_op_info(typ).lower(ctx, ins, attrs) or {}
         for s, names in outs_names.items():
             for n, v in zip(names, outs.get(s, [])):
@@ -877,8 +886,10 @@ def _replay(descs, env, ctx):
                     env[n] = v
 
 
-def _time_chain(descs, ext_vals, device, reps=3) -> Tuple[float, int]:
-    """``(ms a run, runs made)``: the best of ``reps`` timed rounds after a
+def _time_chain(descs, ext_vals, device, reps=3,
+                amp=False) -> Tuple[float, int]:
+    """``(ms a run, runs made)``, replayed under the AMP regime ``amp``:
+    the best of ``reps`` timed rounds after a
     warm run (which builds any kernel).  On the host a round is one run on
     the host clock.  On a card a round is ``tools.timing.time_held``'s 5
     runs, timed on the card alone with CUDA events while the host
@@ -891,7 +902,7 @@ def _time_chain(descs, ext_vals, device, reps=3) -> Tuple[float, int]:
     from ..tools import timing
 
     def run():
-        _replay(descs, dict(ext_vals), LowerCtx(device, 0))
+        _replay(descs, dict(ext_vals), LowerCtx(device, 0, amp))
 
     with torch.no_grad():
         run()
@@ -912,15 +923,18 @@ def _time_chain(descs, ext_vals, device, reps=3) -> Tuple[float, int]:
 
 def _autotune(cand: _Candidate, batch: int, device) -> Optional[dict]:
     """Measured fused-vs-base verdict for one candidate, cached on
-    (pattern, shape key, batch, device name x count); a miss's record also
+    (pattern, shape key, batch, device name x count, AMP regime: "amp" or
+    "f32"); a miss's record also
     holds ``fused_runs``, the runs of the fused op it made.  None when the
     candidate cannot be replayed (unknown shapes): the caller then decides
     on rank alone."""
     if not cand.ext_inputs or not cand.base_descs:
         return None
     device = torch.device(device or "cpu")
+    amp = cand.amp
     key = json.dumps([cand.pattern, cand.shape_key, batch,
-                      _device_key(device), "f32"], default=str)
+                      _device_key(device), "amp" if amp else "f32"],
+                     default=str)
     with _AUTOTUNE_LOCK:
         _autotune_load_locked()
         hit = _AUTOTUNE_MEM.get(key)
@@ -934,8 +948,9 @@ def _autotune(cand: _Candidate, batch: int, device) -> Optional[dict]:
     fused_descs = [(t, i, o, dict(a, use_pallas=True)
                     if "use_pallas" in a else a)
                    for t, i, o, a in cand.fused_descs]
-    base_ms, _ = _time_chain(cand.base_descs, ext_vals, device)
-    fused_ms, fused_runs = _time_chain(fused_descs, ext_vals, device)
+    base_ms, _ = _time_chain(cand.base_descs, ext_vals, device, amp=amp)
+    fused_ms, fused_runs = _time_chain(fused_descs, ext_vals, device,
+                                       amp=amp)
     rec = {"base_ms": round(base_ms, 4), "fused_ms": round(fused_ms, 4),
            "win": bool(fused_ms <= base_ms), "cached": False,
            "fused_runs": fused_runs}

@@ -2,16 +2,18 @@
 //
 // Replaces the Pallas TPU kernel paddle_tpu/pallas/conv_bn.py
 // conv1x1_stats_nchw (:143, pallas_call :160, body _nchw_kernel :122).  For
-// x [N, Cin, P] (an NCHW activation, P = H*W) and w [Cout, Cin], float32:
+// x [N, Cin, P] (an NCHW activation, P = H*W) and w [Cout, Cin], each
+// float32 or bf16 (under AMP x arrives in bf16, w is the float32 master):
 //
 //   y[n, co, p] = sum_ci bf16(w[co, ci]) * bf16(x[n, ci, p])   (f32 sums)
 //   s[co]  = sum_{n, p} y[n, co, p]
 //   s2[co] = sum_{n, p} y[n, co, p]^2
 //
-// The operands are rounded to bfloat16 (round to nearest even) as the TPU
-// kernel casts them, and multiplied on the tensor cores with float32
-// accumulation (mma.sync m16n8k16, bf16 in, f32 out), as the TPU's MXU
-// does.
+// The operands are rounded to bfloat16 (round to nearest even; a bf16
+// operand is read as it is) as the TPU kernel casts them, and multiplied on
+// the tensor cores with float32 accumulation (mma.sync m16n8k16, bf16 in,
+// f32 out), as the TPU's MXU does.  y is written in x's type (rounded once
+// from the float32 sum), s and s2 come from the float32 sums (:128-140).
 //
 // Design:
 //  - the product is one GEMM per call: rows are output channels, columns
@@ -38,9 +40,10 @@
 //  - a strided input (the stride-2 shortcut) arrives as a contiguous copy
 //    made by the caller.
 //
-// What bounds it on an H100: at ResNet-50's shapes at batch 128 every call
-// moves more bytes (x, w and y in float32) than its bf16 products need time
-// at the tensor-core rate, so memory bounds the function.  This version
+// What bounds it on an H100: at ResNet-50's shapes every call moves more
+// bytes (x, w and y, float32 or bf16) than its bf16 products need time at
+// the tensor-core rate, so memory bounds the function; bf16 x and y halve
+// those bytes.  This version
 // stages its operands through registers with plain loads (no TMA), one step
 // ahead, into a single shared-memory stage: each step's bf16 conversion and
 // stores sit between two barriers, and at 228 registers a thread one block
@@ -52,6 +55,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "elem.cuh"
 
 namespace {
 
@@ -94,9 +99,11 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
       : "r"(addr));
 }
 
+// TX: the element type of x and y; TW: that of w (float or __nv_bfloat16)
+template <typename TX, typename TW>
 __global__ void __launch_bounds__(THREADS)
-conv1x1_stats_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     float* __restrict__ y, float* __restrict__ part_s,
+conv1x1_stats_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+                     TX* __restrict__ y, float* __restrict__ part_s,
                      float* __restrict__ part_s2, int cin, int cout, int p,
                      long long ncols) {
   // the staged operands during the Cin loop, then half the output tile
@@ -140,18 +147,22 @@ conv1x1_stats_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
   // global loads of one Cin step into registers: w consecutive threads
   // along ci, x consecutive threads along pixels
-  float wr[AL], xr[BL];
+  // staged in their own type and rounded as they are stored: widened to
+  // float32 here, each value would wait for its load before the products
+  // (the bf16 form ran 1.7x slower so)
+  TW wr[AL];
+  TX xr[BL];
   auto fetch = [&](int k0) {
 #pragma unroll
     for (int r = 0; r < AL; ++r) {
       const int idx = tid + r * THREADS;
       const int co = co0 + idx / BK, ci = k0 + idx % BK;
-      wr[r] = (co < cout && ci < cin) ? w[(size_t)co * cin + ci] : 0.f;
+      wr[r] = (co < cout && ci < cin) ? w[(size_t)co * cin + ci] : TW(0.f);
     }
 #pragma unroll
     for (int r = 0; r < BL; ++r) {
       const int ci = k0 + kh + r;
-      xr[r] = (col_ok && ci < cin) ? x[x_base + (size_t)ci * p] : 0.f;
+      xr[r] = (col_ok && ci < cin) ? x[x_base + (size_t)ci * p] : TX(0.f);
     }
   };
 
@@ -161,12 +172,12 @@ conv1x1_stats_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int r = 0; r < AL; ++r) {
       const int idx = tid + r * THREADS;
-      as[idx / BK][idx % BK] = __float2bfloat16_rn(wr[r]);
+      as[idx / BK][idx % BK] = ptt::to_bf16(wr[r]);
     }
 #pragma unroll
     for (int r = 0; r < BL; r += 2)
       *reinterpret_cast<__nv_bfloat162*>(&bs[bc][kh + r]) =
-          __floats2bfloat162_rn(xr[r], xr[r + 1]);
+          __halves2bfloat162(ptt::to_bf16(xr[r]), ptt::to_bf16(xr[r + 1]));
     __syncthreads();
     if (k0 + BK < cin) fetch(k0 + BK);    // in flight during the products
 #pragma unroll
@@ -241,7 +252,7 @@ conv1x1_stats_kernel(const float* __restrict__ x, const float* __restrict__ w,
     if (col_ok) {
       for (int r = tid / BN; r < HM; r += THREADS / BN) {
         const int co = co0 + half * HM + r;
-        if (co < cout) y[y_base + (size_t)co * p] = ys[r][bc];
+        if (co < cout) ptt::st(y + y_base + (size_t)co * p, ys[r][bc]);
       }
     }
     __syncthreads();
@@ -288,13 +299,31 @@ stats_kernel(const float* __restrict__ part_s,
   }
 }
 
+template <typename TX, typename TW>
+int launch(const void* x, const void* w, void* y, float* ps, float* sf,
+           int cin, int cout, int p, long long ncols, long long ctiles,
+           int rtiles, cudaStream_t st) {
+  const size_t rows = (size_t)ctiles;
+  conv1x1_stats_kernel<TX, TW><<<dim3((unsigned)ctiles, rtiles), THREADS, 0,
+                                  st>>>(
+      static_cast<const TX*>(x), static_cast<const TW*>(w),
+      static_cast<TX*>(y), ps, ps + rows * cout, cin, cout, p, ncols);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  stats_kernel<<<(cout + SC - 1) / SC, dim3(SC, SG), 0, st>>>(
+      ps, ps + rows * cout, sf, sf + cout, (int)rows, cout);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// y [n, cout, p]; part: scratch of 2 * ceil(n * p / 128) * cout floats;
-// stats: s then s2, 2 * cout floats.  Returns a cudaError_t (0 = launched).
-extern "C" int paddle_tpu_torch_conv1x1_stats_f32(
+// x [n, cin, p] and y [n, cout, p] in x's type, w [cout, cin]: each float32
+// (x_bf16 / w_bf16 = 0) or bf16 (1); part: scratch of
+// 2 * ceil(n * p / 128) * cout floats; stats: s then s2, 2 * cout floats.
+// Returns a cudaError_t (0 = launched).
+extern "C" int paddle_tpu_torch_conv1x1_stats(
     const void* x, const void* w, void* y, void* part, void* stats, int n,
-    int cin, int cout, int p, void* stream) {
+    int cin, int cout, int p, int x_bf16, int w_bf16, void* stream) {
   if (n <= 0 || cin <= 0 || cout <= 0 || p <= 0) return (int)cudaErrorInvalidValue;
   const long long ncols = (long long)n * p;
   const long long ctiles = (ncols + BN - 1) / BN;
@@ -303,13 +332,12 @@ extern "C" int paddle_tpu_torch_conv1x1_stats_f32(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* ps = static_cast<float*>(part);
   float* sf = static_cast<float*>(stats);
-  const size_t rows = (size_t)ctiles;
-  conv1x1_stats_kernel<<<dim3((unsigned)ctiles, rtiles), THREADS, 0, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<float*>(y), ps, ps + rows * cout, cin, cout, p, ncols);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  stats_kernel<<<(cout + SC - 1) / SC, dim3(SC, SG), 0, st>>>(
-      ps, ps + rows * cout, sf, sf + cout, (int)rows, cout);
-  return (int)cudaGetLastError();
+  using bf = __nv_bfloat16;
+  switch (x_bf16 * 2 + w_bf16) {
+    case 0: return launch<float, float>(x, w, y, ps, sf, cin, cout, p, ncols, ctiles, rtiles, st);
+    case 1: return launch<float, bf>(x, w, y, ps, sf, cin, cout, p, ncols, ctiles, rtiles, st);
+    case 2: return launch<bf, float>(x, w, y, ps, sf, cin, cout, p, ncols, ctiles, rtiles, st);
+    case 3: return launch<bf, bf>(x, w, y, ps, sf, cin, cout, p, ncols, ctiles, rtiles, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

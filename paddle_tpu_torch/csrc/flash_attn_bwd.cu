@@ -1,4 +1,5 @@
-// Flash-attention backward in float32 for Hopper (sm_90a).
+// Flash-attention backward for Hopper (sm_90a): float32 or bf16 operands,
+// float32 arithmetic.
 //
 // Replaces the Pallas TPU kernels of paddle_tpu/pallas/flash_attention.py
 // behind _flash_bwd_pallas (:499): the combined kernel (:446, body
@@ -13,7 +14,13 @@
 //   dq    = sm_scale * ds . k,   dk = sm_scale * ds^T . q   (scale folded
 //                                                            into q)
 //
-// with the causal rule q + (Tk - Tq) >= k, keys past Tk and queries past Tq
+// for q, k, v, o, do of one type, float32 or bf16 (AMP), and lse in
+// float32; dq, dk, dv come out in the operands' type.  Every element is
+// widened to float32 as it is loaded, delta, p, ds and the three gradients
+// are accumulated in float32 and rounded once, on the store (the TPU
+// kernels compute in float32 and round their float32 partials once,
+// :478-484).  With the causal rule q + (Tk - Tq) >= k, keys past Tk and
+// queries past Tq
 // contributing nothing, and p = 0 on every masked pair: a row with no live
 // key at all (causal, Tq > Tk) gets zero gradients, as in the reference
 // (the score NEG_INF there makes p = 0 through s <= NEG_INF/2).  No bias: a
@@ -45,10 +52,14 @@
 // of q/k/v/o/do/lse/delta and dq/dk/dv (0.12 ms at 3.35 TB/s): operations
 // bound it.  Both passes recompute S and dP (14*d flops a pair are run in
 // all), and the inner loops issue one shared-memory load per two FMAs, so
-// shared-memory bandwidth is what this simple version runs into;
-// wgmma/TMA and bf16 are later work.
+// shared-memory bandwidth is what this simple version runs into.  bf16
+// operands halve the bytes, which were never the limit; wgmma/TMA is later
+// work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "elem.cuh"
 
 namespace {
 
@@ -59,9 +70,11 @@ constexpr int TY = 16;          // threads along the tile's rows
 constexpr int RPT = 64 / TY;    // tile rows per thread
 constexpr int CPT = 64 / TX;    // tile columns per thread
 
-// rows of a [bh, t, d] tensor into a [64][ld] shared tile, zero-padded past
-// t rows and past d columns (ld - 1 = NJ * TX >= d); scaled by `scale`
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
+// rows of a [bh, t, d] tensor into a float32 [64][ld] shared tile,
+// zero-padded past t rows and past d columns (ld - 1 = NJ * TX >= d);
+// scaled by `scale`
+template <typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           int row0, int t, int d, int ld,
                                           float scale, int tid) {
   const int w = ld - 1;
@@ -69,36 +82,39 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
     const int r = idx / w, c = idx - r * w;
     const int gr = row0 + r;
     dst[r * ld + c] =
-        (gr < t && c < d) ? src[(long long)gr * d + c] * scale : 0.f;
+        (gr < t && c < d) ? ptt::ld(src + (long long)gr * d + c) * scale
+                          : 0.f;
   }
 }
 
-__global__ void flash_bwd_delta_kernel(const float* __restrict__ o,
-                                       const float* __restrict__ dout,
+template <typename T>
+__global__ void flash_bwd_delta_kernel(const T* __restrict__ o,
+                                       const T* __restrict__ dout,
                                        float* __restrict__ delta,
                                        long long rows, int d) {
   const long long row =
       (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const float* orow = o + row * d;
-  const float* drow = dout + row * d;
+  const T* orow = o + row * d;
+  const T* drow = dout + row * d;
   float acc = 0.f;
-  for (int c = lane; c < d; c += 32) acc = fmaf(orow[c], drow[c], acc);
+  for (int c = lane; c < d; c += 32)
+    acc = fmaf(ptt::ld(orow + c), ptt::ld(drow + c), acc);
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) delta[row] = acc;
 }
 
+// T: the element type of q, k, v, do and the gradients;
 // NJ = ceil(d / 16): head-dim columns each thread accumulates
-template <int NJ>
+template <typename T, int NJ>
 __global__ void __launch_bounds__(TX * TY)
-flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ dout,
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
-                      const float* __restrict__ delta, float* __restrict__ dk,
-                      float* __restrict__ dv, int tq, int tk, int d,
+                      const float* __restrict__ delta, T* __restrict__ dk,
+                      T* __restrict__ dv, int tq, int tk, int d,
                       float sm_scale, int causal) {
   extern __shared__ float smem[];
   const int ld = NJ * TX + 1;   // odd: conflict-free column reads
@@ -118,8 +134,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int k0 = blockIdx.y * BK;
   const int offset = tk - tq;
 
-  const float* qb = q + (long long)bh * tq * d;
-  const float* ob = dout + (long long)bh * tq * d;
+  const T* qb = q + (long long)bh * tq * d;
+  const T* ob = dout + (long long)bh * tq * d;
   const float* lb = lse + (long long)bh * tq;
   const float* db = delta + (long long)bh * tq;
 
@@ -230,26 +246,25 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < RPT; ++i) {
     const int kr = k0 + ty * RPT + i;
     if (kr >= tk) continue;
-    float* dkrow = dk + ((long long)bh * tk + kr) * d;
-    float* dvrow = dv + ((long long)bh * tk + kr) * d;
+    T* dkrow = dk + ((long long)bh * tk + kr) * d;
+    T* dvrow = dv + ((long long)bh * tk + kr) * d;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int col = tx + j * TX;
       if (col < d) {
-        dkrow[col] = acc_k[i][j];
-        dvrow[col] = acc_v[i][j];
+        ptt::st(dkrow + col, acc_k[i][j]);
+        ptt::st(dvrow + col, acc_v[i][j]);
       }
     }
   }
 }
 
-template <int NJ>
+template <typename T, int NJ>
 __global__ void __launch_bounds__(TX * TY)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout,
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
+                    const float* __restrict__ delta, T* __restrict__ dq,
                     int tq, int tk, int d, float sm_scale, int causal) {
   extern __shared__ float smem[];
   const int ld = NJ * TX + 1;
@@ -269,8 +284,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int offset = tk - tq;
 
-  const float* kb = k + (long long)bh * tk * d;
-  const float* vb = v + (long long)bh * tk * d;
+  const T* kb = k + (long long)bh * tk * d;
+  const T* vb = v + (long long)bh * tk * d;
   load_tile(sQ, q + (long long)bh * tq * d, q0, tq, d, ld, sm_scale, tid);
   load_tile(sO, dout + (long long)bh * tq * d, q0, tq, d, ld, 1.f, tid);
   if (tid < BQ) {
@@ -359,87 +374,102 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < RPT; ++i) {
     const int qr = q0 + ty * RPT + i;
     if (qr >= tq) continue;
-    float* row = dq + ((long long)bh * tq + qr) * d;
+    T* row = dq + ((long long)bh * tq + qr) * d;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int col = tx + j * TX;
-      if (col < d) row[col] = acc[i][j] * sm_scale;
+      if (col < d) ptt::st(row + col, acc[i][j] * sm_scale);
     }
   }
 }
 
-template <int NJ>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   const float* o, const float* lse, const float* dout,
-                   float* delta, float* dq, float* dk, float* dv, int bh,
-                   int tq, int tk, int d, float sm_scale, int causal,
-                   cudaStream_t stream) {
+template <typename T, int NJ>
+cudaError_t launch(const T* q, const T* k, const T* v, const T* o,
+                   const float* lse, const T* dout, float* delta, T* dq,
+                   T* dk, T* dv, int bh, int tq, int tk, int d,
+                   float sm_scale, int causal, cudaStream_t stream) {
   const int ld = NJ * TX + 1;
   const size_t smem =
       sizeof(float) * (4 * 64 * (size_t)ld + 64 * 65 + 2 * 64);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_bwd_dkdv_kernel<T, NJ>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<NJ>,
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, NJ>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
 
   const long long rows = (long long)bh * tq;
   const int warps = 8;
-  flash_bwd_delta_kernel<<<(unsigned)((rows + warps - 1) / warps), 32 * warps,
-                           0, stream>>>(o, dout, delta, rows, d);
+  flash_bwd_delta_kernel<T><<<(unsigned)((rows + warps - 1) / warps),
+                              32 * warps, 0, stream>>>(o, dout, delta, rows,
+                                                       d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const dim3 block(TX, TY);
-  flash_bwd_dkdv_kernel<NJ><<<dim3(bh, (tk + BK - 1) / BK), block, smem,
-                              stream>>>(q, k, v, dout, lse, delta, dk, dv, tq,
+  flash_bwd_dkdv_kernel<T, NJ><<<dim3(bh, (tk + BK - 1) / BK), block, smem,
+                                 stream>>>(q, k, v, dout, lse, delta, dk, dv, tq,
                                         tk, d, sm_scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<NJ><<<dim3(bh, (tq + BQ - 1) / BQ), block, smem,
-                            stream>>>(q, k, v, dout, lse, delta, dq, tq, tk,
+  flash_bwd_dq_kernel<T, NJ><<<dim3(bh, (tq + BQ - 1) / BQ), block, smem,
+                               stream>>>(q, k, v, dout, lse, delta, dq, tq, tk,
                                       d, sm_scale, causal);
   return cudaGetLastError();
 }
 
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const void* o,
+             const float* lse, const void* dout, float* delta, void* dq,
+             void* dk, void* dv, int bh, int tq, int tk, int d,
+             float sm_scale, int causal, cudaStream_t s) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* ot = static_cast<const T*>(o);
+  const T* gt = static_cast<const T*>(dout);
+  T* dqt = static_cast<T*>(dq);
+  T* dkt = static_cast<T*>(dk);
+  T* dvt = static_cast<T*>(dv);
+  switch ((d + TX - 1) / TX) {
+    case 1: return (int)launch<T, 1>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, s);
+    case 2: return (int)launch<T, 2>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, s);
+    case 3: return (int)launch<T, 3>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, s);
+    case 4: return (int)launch<T, 4>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, s);
+    case 5: return (int)launch<T, 5>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, s);
+    case 6: return (int)launch<T, 6>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, s);
+    case 7: return (int)launch<T, 7>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, s);
+    case 8: return (int)launch<T, 8>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// Plain C entry point, bound with ctypes.  q/o/do/dq [bh,tq,d], k/v/dk/dv
-// [bh,tk,d], lse/delta [bh,tq]; all float32, contiguous, on the device;
-// delta is scratch the caller allocates.  Launches three kernels on
-// `stream` (delta, dK/dV, dQ) and returns the cudaError_t of the launches
-// (0 when all were accepted).
-extern "C" int paddle_tpu_torch_flash_attn_bwd_f32(
+// Plain C entry point, bound with ctypes.  q/o/do/dq [bh,tq,d] and
+// k/v/dk/dv [bh,tk,d] of one type, float32 (dtype 0) or bf16 (dtype 1);
+// lse/delta [bh,tq] float32; all contiguous, on the device; delta is
+// scratch the caller allocates.  Launches three kernels on `stream` (delta,
+// dK/dV, dQ) and returns the cudaError_t of the launches (0 when all were
+// accepted).
+extern "C" int paddle_tpu_torch_flash_attn_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* delta, void* dq, void* dk,
     void* dv, int bh, int tq, int tk, int d, float sm_scale, int causal,
-    void* stream) {
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const float* of = static_cast<const float*>(o);
+    int dtype, void* stream) {
   const float* lf = static_cast<const float*>(lse);
-  const float* gf = static_cast<const float*>(dout);
   float* df = static_cast<float*>(delta);
-  float* dqf = static_cast<float*>(dq);
-  float* dkf = static_cast<float*>(dk);
-  float* dvf = static_cast<float*>(dv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh <= 0 || tq <= 0 || tk <= 0 || d <= 0 || d > 128 ||
       (tq + BQ - 1) / BQ > 65535 || (tk + BK - 1) / BK > 65535)
     return (int)cudaErrorInvalidValue;
-  switch ((d + TX - 1) / TX) {
-    case 1: return (int)launch<1>(qf, kf, vf, of, lf, gf, df, dqf, dkf, dvf, bh, tq, tk, d, sm_scale, causal, s);
-    case 2: return (int)launch<2>(qf, kf, vf, of, lf, gf, df, dqf, dkf, dvf, bh, tq, tk, d, sm_scale, causal, s);
-    case 3: return (int)launch<3>(qf, kf, vf, of, lf, gf, df, dqf, dkf, dvf, bh, tq, tk, d, sm_scale, causal, s);
-    case 4: return (int)launch<4>(qf, kf, vf, of, lf, gf, df, dqf, dkf, dvf, bh, tq, tk, d, sm_scale, causal, s);
-    case 5: return (int)launch<5>(qf, kf, vf, of, lf, gf, df, dqf, dkf, dvf, bh, tq, tk, d, sm_scale, causal, s);
-    case 6: return (int)launch<6>(qf, kf, vf, of, lf, gf, df, dqf, dkf, dvf, bh, tq, tk, d, sm_scale, causal, s);
-    case 7: return (int)launch<7>(qf, kf, vf, of, lf, gf, df, dqf, dkf, dvf, bh, tq, tk, d, sm_scale, causal, s);
-    case 8: return (int)launch<8>(qf, kf, vf, of, lf, gf, df, dqf, dkf, dvf, bh, tq, tk, d, sm_scale, causal, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (dtype == 0)
+    return dispatch<float>(q, k, v, o, lf, dout, df, dq, dk, dv, bh, tq, tk,
+                           d, sm_scale, causal, s);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(q, k, v, o, lf, dout, df, dq, dk, dv, bh,
+                                   tq, tk, d, sm_scale, causal, s);
+  return (int)cudaErrorInvalidValue;
 }

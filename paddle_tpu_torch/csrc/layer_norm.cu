@@ -2,8 +2,8 @@
 //
 // Replaces the Pallas TPU kernels paddle_tpu/pallas/layer_norm.py
 // _fwd_pallas (:92, pallas_call :97, body _fwd_kernel :44) and _bwd_pallas
-// (:111, pallas_call :117, body _bwd_kernel :54).  For x [rows, d],
-// scale and bias [d], all float32:
+// (:111, pallas_call :117, body _bwd_kernel :54).  For x [rows, d] in
+// float32 or bf16 (AMP) and scale and bias [d] in float32:
 //
 //   m = mean(x), var = max(mean(x^2) - m^2, 0), rstd = rsqrt(var + eps)
 //   y = (x - m) * rstd * scale + bias
@@ -13,13 +13,15 @@
 //
 // exactly the TPU kernel's formulas (one-pass statistics, the variance
 // clamped at 0; the backward recomputes m and rstd from x instead of reading
-// saved statistics).
+// saved statistics).  x and dy are widened to float32 as they are loaded;
+// y and dx are written in x's type, rounded once (:106, :131); the
+// statistics, dscale and dbias stay float32.
 //
 // Design:
 //  - a row is held in registers by a group of WPR warps (1, 2, 4 or 8, the
-//    fewest that keep each thread at <= 4 float4 slots), 8 warps a block:
-//    x (and dy) are read once, y (and dx) written once, with 16-byte
-//    accesses where d % 4 == 0.  The sums are taken in float32, across the
+//    fewest that keep each thread at <= 4 slots of 4 elements), 8 warps a
+//    block: x (and dy) are read once, y (and dx) written once, 4 elements
+//    an access (16 bytes in float32, 8 in bf16) where d % 4 == 0.  The sums are taken in float32, across the
 //    warp with shuffles and across a row group's warps through shared
 //    memory, in a fixed order.
 //  - backward: the TPU kernel carries dscale and dbias across its
@@ -34,8 +36,10 @@
 // per byte moved at most, far below the ~20 flops per byte where the CUDA
 // cores' float32 rate would take over.  At [16384, 768] the forward moves
 // 100.7 MB (x read, y written), the backward 151 MB plus 2 x 512 x 768
-// floats of partials, so 3.35 TB/s bounds them at ~0.030 and ~0.045 ms.
+// floats of partials, so 3.35 TB/s bounds them at ~0.030 and ~0.045 ms;
+// bf16 x, y, dy and dx halve those bytes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,6 +79,26 @@ __device__ __forceinline__ Row4 load4(const float* __restrict__ p, int e,
   return r;
 }
 
+__device__ __forceinline__ Row4 load4(const __nv_bfloat16* __restrict__ p,
+                                      int e, int d, bool vec) {
+  Row4 r;
+  if (vec) {
+    if (e < d) {
+      __align__(8) __nv_bfloat162 t[2];
+      *reinterpret_cast<uint2*>(t) = *reinterpret_cast<const uint2*>(p + e);
+      const float2 a = __bfloat1622float2(t[0]), b = __bfloat1622float2(t[1]);
+      r.v[0] = a.x; r.v[1] = a.y; r.v[2] = b.x; r.v[3] = b.y;
+    } else {
+      r.v[0] = r.v[1] = r.v[2] = r.v[3] = 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      r.v[c] = (e + c < d) ? __bfloat162float(p[e + c]) : 0.f;
+  }
+  return r;
+}
+
 __device__ __forceinline__ void store4(float* __restrict__ p, int e, int d,
                                        bool vec, const Row4& r) {
   if (vec) {
@@ -85,6 +109,22 @@ __device__ __forceinline__ void store4(float* __restrict__ p, int e, int d,
 #pragma unroll
     for (int c = 0; c < 4; ++c)
       if (e + c < d) p[e + c] = r.v[c];
+  }
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* __restrict__ p, int e,
+                                       int d, bool vec, const Row4& r) {
+  if (vec) {
+    if (e < d) {
+      __align__(8) __nv_bfloat162 t[2];
+      t[0] = __floats2bfloat162_rn(r.v[0], r.v[1]);
+      t[1] = __floats2bfloat162_rn(r.v[2], r.v[3]);
+      *reinterpret_cast<uint2*>(p + e) = *reinterpret_cast<const uint2*>(t);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (e + c < d) p[e + c] = __float2bfloat16_rn(r.v[c]);
   }
 }
 
@@ -117,10 +157,11 @@ __device__ __forceinline__ void row_sum2(float& a, float& b,
   }
 }
 
-template <int WPR, int NV>
+// T: the element type of x and y (float or __nv_bfloat16)
+template <typename T, int WPR, int NV>
 __global__ void __launch_bounds__(THREADS)
-ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-              const float* __restrict__ bias, float* __restrict__ y, int rows,
+ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+              const float* __restrict__ bias, T* __restrict__ y, int rows,
               int d, float eps, bool vec) {
   constexpr int G = WARPS / WPR;       // rows a block holds at once
   __shared__ float red[2][WARPS][2];
@@ -128,7 +169,7 @@ ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
   const int lane_in_row = (warp % WPR) * 32 + (threadIdx.x & 31);
   const long long row = (long long)blockIdx.x * G + warp / WPR;
   const bool ok = row < rows;
-  const float* xr = x + (ok ? row : 0) * (long long)d;
+  const T* xr = x + (ok ? row : 0) * (long long)d;
 
   Row4 v[NV];
   float s = 0.f, s2 = 0.f;
@@ -148,7 +189,7 @@ ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
   const float var = fmaxf(s2 * inv_d - m * m, 0.f);
   const float rstd = rsqrtf(var + eps);
   if (!ok) return;
-  float* yr = y + row * (long long)d;
+  T* yr = y + row * (long long)d;
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
     const int e = slot_base<WPR>(j, lane_in_row);
@@ -163,10 +204,11 @@ ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
-template <int WPR, int NV>
+// T: the element type of x, dy and dx
+template <typename T, int WPR, int NV>
 __global__ void __launch_bounds__(THREADS)
-ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-              const float* __restrict__ dy, float* __restrict__ dx,
+ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+              const T* __restrict__ dy, T* __restrict__ dx,
               float* __restrict__ part_ds, float* __restrict__ part_db,
               int rows, int d, float eps, bool vec) {
   constexpr int G = WARPS / WPR;
@@ -193,8 +235,8 @@ ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
        r0 += (long long)gridDim.x * G) {
     const long long row = r0 + grp;
     const bool ok = row < rows;
-    const float* xr = x + (ok ? row : 0) * (long long)d;
-    const float* gr = dy + (ok ? row : 0) * (long long)d;
+    const T* xr = x + (ok ? row : 0) * (long long)d;
+    const T* gr = dy + (ok ? row : 0) * (long long)d;
     Row4 xv[NV], gv[NV];
     float s = 0.f, s2 = 0.f;
 #pragma unroll
@@ -225,7 +267,7 @@ ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
     row_sum2<WPR>(sg, sgx, red, 1);
     const float c1 = sg * inv_d, c2 = sgx * inv_d;
     if (ok) {
-      float* dxr = dx + row * (long long)d;
+      T* dxr = dx + row * (long long)d;
 #pragma unroll
       for (int j = 0; j < NV; ++j) {
         const int e = slot_base<WPR>(j, lane_in_row);
@@ -323,53 +365,81 @@ int warps_per_row(int d) {
   return 0;
 }
 
-template <int WPR, int NV>
-int launch_fwd(const float* x, const float* s, const float* b, float* y,
-               int rows, int d, float eps, bool vec, cudaStream_t st) {
-  constexpr int G = WARPS / WPR;
-  ln_fwd_kernel<WPR, NV><<<(rows + G - 1) / G, THREADS, 0, st>>>(
-      x, s, b, y, rows, d, eps, vec);
-  return (int)cudaGetLastError();
-}
-
-template <int WPR, int NV>
-int launch_bwd(const float* x, const float* s, const float* dy, float* dx,
-               float* part, int prow, int rows, int d, float eps, bool vec,
-               cudaStream_t st) {
-  ln_bwd_kernel<WPR, NV><<<prow, THREADS, 0, st>>>(
-      x, s, dy, dx, part, part + (size_t)prow * d, rows, d, eps, vec);
-  return (int)cudaGetLastError();
-}
-
-#define LN_DISPATCH(FN, ...)                                        \
-  switch (wpr * 8 + nv) {                                           \
-    case 9: return FN<1, 1>(__VA_ARGS__);                           \
-    case 10: return FN<1, 2>(__VA_ARGS__);                          \
-    case 11: return FN<1, 3>(__VA_ARGS__);                          \
-    case 12: return FN<1, 4>(__VA_ARGS__);                          \
-    case 19: return FN<2, 3>(__VA_ARGS__);                          \
-    case 20: return FN<2, 4>(__VA_ARGS__);                          \
-    case 35: return FN<4, 3>(__VA_ARGS__);                          \
-    case 36: return FN<4, 4>(__VA_ARGS__);                          \
-    case 67: return FN<8, 3>(__VA_ARGS__);                          \
-    case 68: return FN<8, 4>(__VA_ARGS__);                          \
-    default: return (int)cudaErrorInvalidValue;                     \
-  }
-
-// 16-byte accesses need d % 4 == 0 and every pointer on a 16-byte boundary
-bool vectorizable(int d, std::initializer_list<const void*> ptrs) {
-  if (d % 4 != 0) return false;
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
-  return true;
-}
-
 // slots a thread holds for d at wpr warps a row: 1..4 when wpr == 1; with
 // more warps the row needs more than 2 slots a thread (else fewer warps
 // would have done), so 3 or 4
 int slots(int d, int wpr) {
   const int v = (d + 3) / 4;
   return (v + 32 * wpr - 1) / (32 * wpr);
+}
+
+template <typename T, int WPR, int NV>
+int launch_fwd(const T* x, const float* s, const float* b, T* y, int rows,
+               int d, float eps, bool vec, cudaStream_t st) {
+  constexpr int G = WARPS / WPR;
+  ln_fwd_kernel<T, WPR, NV><<<(rows + G - 1) / G, THREADS, 0, st>>>(
+      x, s, b, y, rows, d, eps, vec);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int WPR, int NV>
+int launch_bwd(const T* x, const float* s, const T* dy, T* dx, float* part,
+               int prow, int rows, int d, float eps, bool vec,
+               cudaStream_t st) {
+  ln_bwd_kernel<T, WPR, NV><<<prow, THREADS, 0, st>>>(
+      x, s, dy, dx, part, part + (size_t)prow * d, rows, d, eps, vec);
+  return (int)cudaGetLastError();
+}
+
+#define LN_DISPATCH(FN, T, ...)                                     \
+  switch (wpr * 8 + nv) {                                           \
+    case 9: return FN<T, 1, 1>(__VA_ARGS__);                        \
+    case 10: return FN<T, 1, 2>(__VA_ARGS__);                       \
+    case 11: return FN<T, 1, 3>(__VA_ARGS__);                       \
+    case 12: return FN<T, 1, 4>(__VA_ARGS__);                       \
+    case 19: return FN<T, 2, 3>(__VA_ARGS__);                       \
+    case 20: return FN<T, 2, 4>(__VA_ARGS__);                       \
+    case 35: return FN<T, 4, 3>(__VA_ARGS__);                       \
+    case 36: return FN<T, 4, 4>(__VA_ARGS__);                       \
+    case 67: return FN<T, 8, 3>(__VA_ARGS__);                       \
+    case 68: return FN<T, 8, 4>(__VA_ARGS__);                       \
+    default: return (int)cudaErrorInvalidValue;                     \
+  }
+
+// 4-element accesses need d % 4 == 0, the float32 vectors (scale, bias) on
+// a 16-byte boundary and the row tensors on one of 4 elements of type T
+template <typename T>
+bool vectorizable(int d, std::initializer_list<const void*> vectors,
+                  std::initializer_list<const void*> rows) {
+  if (d % 4 != 0) return false;
+  for (const void* p : vectors)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  for (const void* p : rows)
+    if (reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) != 0) return false;
+  return true;
+}
+
+template <typename T>
+int fwd(const void* x, const void* scale, const void* bias, void* y,
+        int rows, int d, float eps, cudaStream_t st) {
+  const int wpr = warps_per_row(d);
+  const int nv = slots(d, wpr);
+  const bool vec = vectorizable<T>(d, {scale, bias}, {x, y});
+  LN_DISPATCH(launch_fwd, T, static_cast<const T*>(x),
+              static_cast<const float*>(scale),
+              static_cast<const float*>(bias), static_cast<T*>(y), rows, d,
+              eps, vec, st)
+}
+
+template <typename T>
+int bwd(const void* x, const void* scale, const void* dy, void* dx,
+        float* pf, int prow, int rows, int d, float eps, cudaStream_t st) {
+  const int wpr = warps_per_row(d);
+  const int nv = slots(d, wpr);
+  const bool vec = vectorizable<T>(d, {scale}, {x, dy, dx});
+  LN_DISPATCH(launch_bwd, T, static_cast<const T*>(x),
+              static_cast<const float*>(scale), static_cast<const T*>(dy),
+              static_cast<T*>(dx), pf, prow, rows, d, eps, vec, st)
 }
 
 }  // namespace
@@ -387,44 +457,40 @@ int paddle_tpu_torch_layer_norm_partial_rows(int rows, int d) {
   return blocks < BWD_BLOCKS ? blocks : BWD_BLOCKS;
 }
 
-// y [rows, d] = LayerNorm(x) * scale + bias; returns a cudaError_t
-int paddle_tpu_torch_layer_norm_fwd_f32(const void* x, const void* scale,
-                                        const void* bias, void* y, int rows,
-                                        int d, float eps, void* stream) {
-  const int wpr = warps_per_row(d);
-  if (rows <= 0 || d <= 0 || wpr == 0) return (int)cudaErrorInvalidValue;
-  const int nv = slots(d, wpr);
-  const bool vec = vectorizable(d, {x, scale, bias, y});
+// y [rows, d] = LayerNorm(x) * scale + bias, x and y float32 (dtype 0) or
+// bf16 (dtype 1), scale and bias float32; returns a cudaError_t
+int paddle_tpu_torch_layer_norm_fwd(const void* x, const void* scale,
+                                    const void* bias, void* y, int rows,
+                                    int d, float eps, int dtype,
+                                    void* stream) {
+  if (rows <= 0 || d <= 0 || warps_per_row(d) == 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  LN_DISPATCH(launch_fwd, static_cast<const float*>(x),
-              static_cast<const float*>(scale),
-              static_cast<const float*>(bias), static_cast<float*>(y), rows,
-              d, eps, vec, st)
+  if (dtype == 0) return fwd<float>(x, scale, bias, y, rows, d, eps, st);
+  if (dtype == 1)
+    return fwd<__nv_bfloat16>(x, scale, bias, y, rows, d, eps, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// dx [rows, d]; part: scratch of 2 * prow * d floats with prow from
-// paddle_tpu_torch_layer_norm_partial_rows; grads: dscale then dbias, 2 * d
-// floats.  Returns a cudaError_t.
-int paddle_tpu_torch_layer_norm_bwd_f32(const void* x, const void* scale,
-                                        const void* dy, void* dx, void* part,
-                                        void* grads, int rows, int d,
-                                        float eps, void* stream) {
-  const int wpr = warps_per_row(d);
-  if (rows <= 0 || d <= 0 || wpr == 0) return (int)cudaErrorInvalidValue;
-  const int nv = slots(d, wpr);
-  const bool vec = vectorizable(d, {x, scale, dy, dx});
+// dx [rows, d] from x and dy [rows, d] (all three float32, dtype 0, or
+// bf16, dtype 1) and scale [d] float32; part: scratch of 2 * prow * d
+// floats with prow from paddle_tpu_torch_layer_norm_partial_rows; grads:
+// dscale then dbias, 2 * d floats.  Returns a cudaError_t.
+int paddle_tpu_torch_layer_norm_bwd(const void* x, const void* scale,
+                                    const void* dy, void* dx, void* part,
+                                    void* grads, int rows, int d, float eps,
+                                    int dtype, void* stream) {
+  if (rows <= 0 || d <= 0 || warps_per_row(d) == 0 ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   const int prow = paddle_tpu_torch_layer_norm_partial_rows(rows, d);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* pf = static_cast<float*>(part);
   float* gf = static_cast<float*>(grads);
-  int err = [&]() -> int {
-    LN_DISPATCH(launch_bwd, static_cast<const float*>(x),
-                static_cast<const float*>(scale),
-                static_cast<const float*>(dy), static_cast<float*>(dx), pf,
-                prow, rows, d, eps, vec, st)
-    return (int)cudaErrorInvalidValue;
-  }();
+  const int err =
+      dtype == 0 ? bwd<float>(x, scale, dy, dx, pf, prow, rows, d, eps, st)
+                 : bwd<__nv_bfloat16>(x, scale, dy, dx, pf, prow, rows, d,
+                                      eps, st);
   if (err != 0) return err;
   colsum_kernel<<<(d + SC - 1) / SC, dim3(SC, SG), 0, st>>>(
       pf, pf + (size_t)prow * d, gf, gf + d, prow, d);

@@ -36,8 +36,15 @@ the scope through the write-back of persistables.
 
 Random ops draw from a ``torch.Generator`` on the executor's device, seeded
 per run from ``seed`` or from ``program.random_seed`` and a step counter
-(the reference's formula).  Left out so far: AMP, the nan/inf sanitizer,
-meshes, and the reference's telemetry.
+(the reference's formula).
+
+AMP: a program that ``amp.decorate(...).minimize`` (or ``amp.enable``)
+marked carries ``_attrs["amp"]``; its runs hand every op's inputs through
+``amp.cast_ins`` before the lowering (the reference's
+``executor.py:859-861``).  A differentiated forward casts after its leaves
+are made (``registry.run_forward``), so master-weight gradients come back
+float32.  Left out so far: the nan/inf sanitizer, meshes, and the
+reference's telemetry.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import amp as _amp
 from ..analysis import fusion as _fusion
 from . import registry
 from .core import Program, Variable, default_main_program, grad_var_name
@@ -55,12 +63,14 @@ from .scope import Scope, global_scope
 
 
 class LowerCtx:
-    """Per-run context handed to op lowerings."""
+    """Per-run context handed to op lowerings; ``amp`` is the program's
+    bf16 AMP flag."""
 
-    def __init__(self, device: torch.device, seed: int):
+    def __init__(self, device: torch.device, seed: int, amp: bool = False):
         self.device = device
         self._seed = int(seed) & 0xFFFFFFFFFFFFFFFF
         self._generator = None
+        self.amp = bool(amp)
 
     @property
     def generator(self) -> torch.Generator:
@@ -69,6 +79,14 @@ class LowerCtx:
             g.manual_seed(self._seed)
             self._generator = g
         return self._generator
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A fetched tensor on the host.  numpy has no bfloat16, so a bf16
+    tensor (an AMP activation) comes back widened to float32, which is
+    exact; ``return_numpy=False`` keeps the tensor and its dtype."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 class FetchHandle:
@@ -85,12 +103,12 @@ class FetchHandle:
 
     def numpy(self) -> np.ndarray:
         if self._event is None:
-            return self.tensor.detach().cpu().numpy()
+            return _to_numpy(self.tensor)
         self._event.synchronize()
         # copy on a side stream: on the dispatching stream the copy would
         # queue behind every batch dispatched after this one
         with torch.cuda.stream(torch.cuda.Stream(self.tensor.device)):
-            return self.tensor.detach().cpu().numpy()
+            return _to_numpy(self.tensor)
 
     def __array__(self, dtype=None, copy=None):
         a = self.numpy()
@@ -134,6 +152,7 @@ class _Plan:
     def __init__(self, program: Program, fetch_names):
         block = program.global_block()
         self.block = block
+        self.amp = bool(program._attrs.get("amp", False))
         self.ops = []
         self.fwd_of: Dict[int, Optional[int]] = {}
         self.wanted: Dict[int, Dict[str, List[bool]]] = {}
@@ -296,14 +315,14 @@ class Executor:
             program.random_seed * 1000003 + step_seed)
         env = {n: self._to_device(v) for n, v in feed.items()}
         with torch.no_grad():
-            self._run_plan(plan, LowerCtx(self.device, seed_val), env,
-                           scope)
+            self._run_plan(plan, LowerCtx(self.device, seed_val, plan.amp),
+                           env, scope)
         if plan.persist_out:
             scope.set_vars({n: env[n] for n in plan.persist_out})
         fetches = [env[n] if n in env else self._read(scope, plan.block, n)
                    for n in fetch_names]
         if return_numpy:
-            return [t.detach().cpu().numpy() for t in fetches]
+            return [_to_numpy(t) for t in fetches]
         return [FetchHandle(t) for t in fetches]
 
     def _read(self, scope: Scope, block, name: str) -> torch.Tensor:
@@ -365,7 +384,10 @@ class Executor:
                 ctx, ins, op.attrs, graphs.pop(fwd) if fwd is not None
                 else None)
         if i in plan.wanted:
+            # casts after making its leaves, when the program is AMP
             graphs[i] = registry.run_forward(info, ctx, ins, op.attrs,
                                              plan.wanted[i])
             return graphs[i][1]
+        if ctx.amp:
+            ins = _amp.cast_ins(op.type, ins)
         return info.lower(ctx, ins, op.attrs) or {}

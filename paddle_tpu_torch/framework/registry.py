@@ -82,6 +82,7 @@ class AbstractCtx:
     """Lowering context for shape inference: meta device, no generator."""
     device = torch.device("meta")
     generator = None
+    amp = False
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -191,7 +192,11 @@ def run_forward(info: OpInfo, ctx, ins: Dict[str, List], attrs,
                 wanted: Optional[Dict[str, List[bool]]] = None) -> Forward:
     """Run a forward lowering under ``torch.enable_grad()`` on detached
     copies of its floating inputs that require grad (those ``wanted``
-    marks; all of them when ``wanted`` is None)."""
+    marks; all of them when ``wanted`` is None).  Under AMP
+    (``ctx.amp``) the inputs are cast after the leaves are made, inside
+    the differentiated function (the reference's ``registry.py:223-227``):
+    a float32 master weight's gradient comes back float32 through the
+    cast, where a cast before the leaves would round it to bf16."""
     leaves = {}
     for slot, vals in ins.items():
         want = [True] * len(vals) if wanted is None else \
@@ -203,7 +208,11 @@ def run_forward(info: OpInfo, ctx, ins: Dict[str, List], attrs,
             row.append(v)
         leaves[slot] = row
     with torch.enable_grad():
-        outs = info.lower(ctx, leaves, attrs) or {}
+        cast = leaves
+        if ctx.amp:
+            from .. import amp
+            cast = amp.cast_ins(info.type, leaves)
+        outs = info.lower(ctx, cast, attrs) or {}
     return leaves, outs
 
 

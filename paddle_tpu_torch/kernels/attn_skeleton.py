@@ -32,34 +32,25 @@ changes no result and is checked for the interface's sake); d is at most
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
+
+from ._launches import LaunchCounts
 
 #: rows of the kernels' tiles; block sizes are multiples of it
 TILE = 64
 
-_count_lock = threading.Lock()
-_launches = {"attn_skeleton_fwd": 0,
-             "attn_skeleton_bwd": 0}  # guarded-by: _count_lock
+_LAUNCHES = LaunchCounts("attn_skeleton_fwd", "attn_skeleton_bwd")
 
 
 def launch_count(kernel: str = "attn_skeleton_fwd") -> int:
     """Launches of ``kernel`` (``attn_skeleton_fwd`` or
     ``attn_skeleton_bwd``) since the last :func:`reset_launch_count`."""
-    with _count_lock:
-        return _launches[kernel]
+    return _LAUNCHES.get(kernel)
 
 
 def reset_launch_count() -> None:
-    with _count_lock:
-        for name in _launches:
-            _launches[name] = 0
-
-
-def _count(kernel: str) -> None:
-    with _count_lock:
-        _launches[kernel] += 1
+    _LAUNCHES.reset()
 
 
 def attn_skeleton_fwd_plain(q, k, v):
@@ -122,7 +113,7 @@ def attn_skeleton_fwd(q, k, v, block_q=TILE, block_k=TILE):
     if err != 0:
         raise RuntimeError(f"attn_skeleton_fwd kernel launch failed: CUDA "
                            f"error {err}")
-    _count("attn_skeleton_fwd")
+    _LAUNCHES.count("attn_skeleton_fwd", q.dtype)
     return o
 
 
@@ -147,7 +138,7 @@ def attn_skeleton_bwd(q, k, v, do, block_q=TILE, block_k=TILE):
     if err != 0:
         raise RuntimeError(f"attn_skeleton_bwd kernel launch failed: CUDA "
                            f"error {err}")
-    _count("attn_skeleton_bwd")
+    _LAUNCHES.count("attn_skeleton_bwd", q.dtype)
     return dq, dkp, dvp
 
 

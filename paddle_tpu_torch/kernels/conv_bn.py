@@ -15,9 +15,11 @@ The operands are rounded to bfloat16 and the products summed in float32,
 as the TPU kernel does (``conv_bn.py:128-131``); y keeps x's dtype and the
 statistics come from the float32 sums.
 
-- :func:`conv1x1_stats_fwd` is the wrapper over contiguous float32
-  tensors.  A CUDA tensor launches the kernel or raises; a CPU tensor takes
-  the plain version.  It counts its launches (:func:`launch_count`).
+- :func:`conv1x1_stats_fwd` is the wrapper over contiguous float32 or bf16
+  tensors (under AMP a bf16 x and the float32 master w; the kernel reads
+  bf16 x and writes bf16 y itself).  A CUDA tensor launches the kernel or
+  raises; a CPU tensor takes the plain version.  It counts its launches by
+  x's dtype (:func:`launch_count`).
 - :func:`conv1x1_stats_plain` is the plain version.
 - :func:`conv1x1_stats` differentiates through :class:`Conv1x1Stats`: K3
   forward, and the reference's backward (``conv_bn.py:192-202``) in
@@ -48,31 +50,28 @@ each ``[K]``:
 from __future__ import annotations
 
 import ctypes
-import threading
+from typing import Optional
 
 import torch
 
-_count_lock = threading.Lock()
-_launches = {"conv1x1_stats": 0,
-             "matmul_bn_stats": 0}  # guarded-by: _count_lock
+from ._launches import LaunchCounts
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+_LAUNCHES = LaunchCounts("conv1x1_stats", "matmul_bn_stats")
+_count = _LAUNCHES.count
 
 
-def launch_count(kernel: str = "conv1x1_stats") -> int:
+def launch_count(kernel: str = "conv1x1_stats",
+                 dtype: Optional[str] = None) -> int:
     """Launches of ``kernel`` (``conv1x1_stats``, K3, or
-    ``matmul_bn_stats``, K6) since the last :func:`reset_launch_count`."""
-    with _count_lock:
-        return _launches[kernel]
+    ``matmul_bn_stats``, K6) with x of ``dtype`` ("float32" or "bfloat16";
+    None: both) since the last :func:`reset_launch_count`."""
+    return _LAUNCHES.get(kernel, dtype)
 
 
 def reset_launch_count() -> None:
-    with _count_lock:
-        for name in _launches:
-            _launches[name] = 0
-
-
-def _count(kernel: str) -> None:
-    with _count_lock:
-        _launches[kernel] += 1
+    _LAUNCHES.reset()
 
 
 def conv1x1_stats_plain(x, w):
@@ -89,8 +88,9 @@ def conv1x1_stats_plain(x, w):
 def _check(x, w):
     what = "conv1x1_stats"
     for name, t in (("x", x), ("w", w)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
+        if t.dtype not in _DTYPES:
+            raise TypeError(f"{what}: {name} must be float32 or bfloat16, "
+                            f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
     if x.dim() != 3 or w.dim() != 2 or w.shape[1] != x.shape[1]:
@@ -109,10 +109,10 @@ COLS = 128
 
 
 def conv1x1_stats_fwd(x, w):
-    """``(y [N, Cout, P], s [Cout], s2 [Cout])`` for contiguous float32
-    ``x [N, Cin, P]`` and ``w [Cout, Cin]``.  Launches the CUDA kernel on
-    the current stream for CUDA tensors; CPU tensors take the plain
-    version."""
+    """``(y [N, Cout, P], s [Cout], s2 [Cout])`` for contiguous ``x [N,
+    Cin, P]`` and ``w [Cout, Cin]``, each float32 or bf16 (y in x's dtype,
+    s and s2 float32).  Launches the CUDA kernel on the current stream for
+    CUDA tensors; CPU tensors take the plain version."""
     _check(x, w)
     if x.device.type == "cpu":
         return conv1x1_stats_plain(x, w)
@@ -121,18 +121,20 @@ def conv1x1_stats_fwd(x, w):
     fn = _entry()
     n, cin, p = x.shape
     cout = w.shape[0]
-    y = torch.empty((n, cout, p), dtype=torch.float32, device=x.device)
+    y = torch.empty((n, cout, p), dtype=x.dtype, device=x.device)
     rows = -(-(n * p) // COLS)
     part = torch.empty((2, rows, cout), dtype=torch.float32, device=x.device)
     stats = torch.empty((2, cout), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(),
-                 stats.data_ptr(), n, cin, cout, p, stream)
+                 stats.data_ptr(), n, cin, cout, p,
+                 int(x.dtype == torch.bfloat16),
+                 int(w.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"conv1x1_stats kernel launch failed: CUDA "
                            f"error {err}")
-    _count("conv1x1_stats")
+    _count("conv1x1_stats", x.dtype)
     return y, stats[0], stats[1]
 
 
@@ -142,8 +144,8 @@ _entry_fn = []
 def _entry():
     if not _entry_fn:
         from . import _build
-        fn = _build.load("conv1x1_stats").paddle_tpu_torch_conv1x1_stats_f32
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        fn = _build.load("conv1x1_stats").paddle_tpu_torch_conv1x1_stats
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _entry_fn.append(fn)
@@ -183,7 +185,7 @@ def conv1x1_stats(x, w):
 # K6: matmul with the producer's batch-norm folded in, and statistics
 # ---------------------------------------------------------------------------
 
-_MM_DTYPES = (torch.float32, torch.bfloat16)
+_MM_DTYPES = _DTYPES
 
 
 def matmul_bn_stats_plain(x, w, producer_stats=None, relu=True):
@@ -263,7 +265,7 @@ def matmul_bn_stats_fwd(x, w, producer_stats=None, relu=True):
     if err != 0:
         raise RuntimeError(f"matmul_bn_stats kernel launch failed: CUDA "
                            f"error {err}")
-    _count("matmul_bn_stats")
+    _count("matmul_bn_stats", x.dtype)
     return y, out[0], out[1]
 
 

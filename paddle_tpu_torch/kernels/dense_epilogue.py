@@ -4,16 +4,19 @@ CUDA kernel and its plain version.
 K5 replaces the Pallas TPU kernel ``paddle_tpu/pallas/dense_epilogue.py``
 ``_mba_fwd_impl`` (:69, ``pl.pallas_call`` at :82, body ``_kernel`` :40);
 its source is ``paddle_tpu_torch/csrc/dense_epilogue.cu``, whose header
-says what bounds it on an H100.  For ``x [M, K]``, ``w [K, N]``, ``b [N]``:
+says what bounds it on an H100.  For ``x [M, K]``, ``w [K, N]`` (each
+float32 or bf16; under AMP both bf16) and a float32 ``b [N]``:
 
     y = act(Σ_k bf16(x)·bf16(w) + b)      (float32 sums, y in x's dtype)
 
 with act one of "" (none), "relu" and "gelu" (erf, or tanh with
 ``approximate``), as the TPU kernel computes it (``:43-49``).
 
-- :func:`dense_act_fwd` is the wrapper over contiguous float32 tensors.  A
-  CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
-  version.  It counts its launches (:func:`launch_count`).
+- :func:`dense_act_fwd` is the wrapper over contiguous tensors; y is in
+  x's dtype (the kernel reads bf16 operands where they lie and writes bf16
+  y itself).  A CUDA tensor launches the kernel or raises; a CPU tensor
+  takes the plain version.  It counts its launches by x's dtype
+  (:func:`launch_count`).
 - :func:`dense_act_plain` is the plain version.
 - :func:`dense_act` differentiates through :class:`DenseAct`: K5 forward,
   and the reference's backward (``_mba_bwd``, :101-117) in PyTorch: the
@@ -26,33 +29,31 @@ with act one of "" (none), "relu" and "gelu" (erf, or tanh with
 from __future__ import annotations
 
 import ctypes
-import threading
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-_count_lock = threading.Lock()
-_launches = {"dense_epilogue": 0}  # guarded-by: _count_lock
+from ._launches import LaunchCounts
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+_LAUNCHES = LaunchCounts("dense_epilogue")
+_count = _LAUNCHES.count
 
 #: activation name -> the kernel's code (gelu's tanh form is code 3)
 ACTS = {"": 0, "relu": 1, "gelu": 2}
 
 
-def launch_count(kernel: str = "dense_epilogue") -> int:
-    """Launches of K5 since the last :func:`reset_launch_count`."""
-    with _count_lock:
-        return _launches[kernel]
+def launch_count(kernel: str = "dense_epilogue",
+                 dtype: Optional[str] = None) -> int:
+    """Launches of K5 with x of ``dtype`` ("float32" or "bfloat16"; None:
+    both) since the last :func:`reset_launch_count`."""
+    return _LAUNCHES.get(kernel, dtype)
 
 
 def reset_launch_count() -> None:
-    with _count_lock:
-        for name in _launches:
-            _launches[name] = 0
-
-
-def _count(kernel: str) -> None:
-    with _count_lock:
-        _launches[kernel] += 1
+    _LAUNCHES.reset()
 
 
 def _act(y, act, approximate):
@@ -76,8 +77,10 @@ def _check(x, w, b, act):
     if act not in ACTS:
         raise ValueError(f"{what}: activation {act!r} not in {sorted(ACTS)}")
     for name, t in (("x", x), ("w", w), ("b", b)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
+        if t.dtype not in (_DTYPES if name != "b" else (torch.float32,)):
+            raise TypeError(f"{what}: {name} must be float32"
+                            f"{' or bfloat16' if name != 'b' else ''}, got "
+                            f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
         if t.device != x.device:
@@ -93,9 +96,10 @@ def _check(x, w, b, act):
 
 
 def dense_act_fwd(x, w, b, act="", approximate=False):
-    """``act(x @ w + b)`` ``[M, N]`` for contiguous float32 ``x [M, K]``,
-    ``w [K, N]``, ``b [N]``.  Launches K5 on the current stream for CUDA
-    tensors; CPU tensors take the plain version."""
+    """``act(x @ w + b)`` ``[M, N]`` in x's dtype for contiguous ``x [M,
+    K]``, ``w [K, N]`` (each float32 or bf16) and float32 ``b [N]``.
+    Launches K5 on the current stream for CUDA tensors; CPU tensors take
+    the plain version."""
     _check(x, w, b, act)
     if x.device.type == "cpu":
         return dense_act_plain(x, w, b, act, approximate)
@@ -103,17 +107,19 @@ def dense_act_fwd(x, w, b, act="", approximate=False):
     m, k = x.shape
     n = w.shape[1]
     code = 3 if act == "gelu" and approximate else ACTS[act]
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    scratch = torch.empty((scratch_elems(m, k, n),), dtype=torch.bfloat16,
-                          device=x.device)
+    xb, wb = int(x.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16)
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    scratch = torch.empty(
+        (scratch_elems(x.data_ptr(), w.data_ptr(), m, k, n, xb, wb),),
+        dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                  scratch.data_ptr(), m, k, n, code, stream)
+                  scratch.data_ptr(), m, k, n, code, xb, wb, stream)
     if err != 0:
         raise RuntimeError(f"dense_act kernel launch failed: CUDA error "
                            f"{err}")
-    _count("dense_epilogue")
+    _count("dense_epilogue", x.dtype)
     return y
 
 
@@ -124,12 +130,12 @@ def _entry():
     if not _entry_fns:
         from . import _build
         lib = _build.load("dense_epilogue")
-        fwd = lib.paddle_tpu_torch_dense_act_f32
-        fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        fwd = lib.paddle_tpu_torch_dense_act
+        fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fwd.restype = ctypes.c_int
         scratch = lib.paddle_tpu_torch_dense_act_scratch
-        scratch.argtypes = [ctypes.c_int] * 3
+        scratch.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
         scratch.restype = ctypes.c_longlong
         _entry_fns.extend((fwd, scratch))
     return _entry_fns

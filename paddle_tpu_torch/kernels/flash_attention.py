@@ -3,17 +3,20 @@ and their plain versions.
 
 K1 replaces the Pallas TPU kernel ``paddle_tpu/pallas/flash_attention.py``
 ``_flash_fwd_pallas`` (:179, ``pl.pallas_call`` at :227, body ``_fwd_kernel``
-:114); its source is ``paddle_tpu_torch/csrc/flash_attn_fwd.cu`` (float32 on
-the CUDA cores, one block per (bh, 64-row q tile), causal tiles above the
-diagonal skipped).  K2 replaces ``_flash_bwd_pallas`` (:499: the combined
+:114); its source is ``paddle_tpu_torch/csrc/flash_attn_fwd.cu`` (float32 arithmetic
+on the CUDA cores over float32 or bf16 operands, one block per (bh, 64-row
+q tile), causal tiles above the diagonal skipped).  K2 replaces ``_flash_bwd_pallas`` (:499: the combined
 kernel :446 and the split kernels :515); its source is
 ``csrc/flash_attn_bwd.cu`` (the FA2 backward in two passes, dK/dV then dQ,
 no atomics).  Each source's header says what bounds it on an H100.
 
 - :func:`flash_attention_fwd` / :func:`flash_attention_bwd` are the
-  wrappers over contiguous float32 ``[bh, T, d]`` tensors.  A CUDA tensor
-  launches the kernel or raises; a CPU tensor takes the plain version.
-  Each counts its launches (:func:`launch_count`).
+  wrappers over contiguous ``[bh, T, d]`` tensors of one dtype, float32 or
+  bf16 (AMP).  The kernels load that dtype and store o, dq, dk, dv in it,
+  computing in float32 as the TPU kernel does (``:144-163``); lse and
+  delta are float32.  A CUDA tensor launches the kernel or raises; a CPU
+  tensor takes the plain version.  Each counts its launches per dtype
+  (:func:`launch_count`).
 - :func:`flash_attention_reference` is K1's plain version, the math of
   ``paddle_tpu``'s ``_flash_fwd_jax``: masked scores are ``NEG_INF``
   (-1e30), causal masking is end-aligned (``q + Tk - Tq >= k``), and a row
@@ -32,10 +35,11 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 from typing import Optional, Tuple
 
 import torch
+
+from ._launches import LaunchCounts
 
 NEG_INF = -1e30
 
@@ -44,26 +48,23 @@ NEG_INF = -1e30
 #: them
 BLOCK_Q = BLOCK_K = 64
 
-_count_lock = threading.Lock()
-_launches = {"flash_attn_fwd": 0, "flash_attn_bwd": 0}  # guarded-by: _count_lock
+#: the operand dtypes the kernels take, by their code in the C entry points
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_LAUNCHES = LaunchCounts("flash_attn_fwd", "flash_attn_bwd")
+_count = _LAUNCHES.count
 
 
-def launch_count(kernel: str = "flash_attn_fwd") -> int:
+def launch_count(kernel: str = "flash_attn_fwd",
+                 dtype: Optional[str] = None) -> int:
     """Launches of ``kernel`` (``flash_attn_fwd`` or ``flash_attn_bwd``)
-    since the last :func:`reset_launch_count`."""
-    with _count_lock:
-        return _launches[kernel]
+    on ``dtype`` operands ("float32" or "bfloat16"; None: both) since the
+    last :func:`reset_launch_count`."""
+    return _LAUNCHES.get(kernel, dtype)
 
 
 def reset_launch_count() -> None:
-    with _count_lock:
-        for name in _launches:
-            _launches[name] = 0
-
-
-def _count(kernel: str) -> None:
-    with _count_lock:
-        _launches[kernel] += 1
+    _LAUNCHES.reset()
 
 
 def mha_reference(q, k, v, bias=None, causal=False, sm_scale=None):
@@ -112,9 +113,13 @@ def flash_attention_reference(q, k, v, bias=None, causal=False,
 
 
 def _check(q, k, v, bias, what="flash_attention_fwd", rows=()):
+    if q.dtype not in DTYPES:
+        raise TypeError(f"{what}: q must be float32 or bfloat16, got "
+                        f"{q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)) + tuple(rows):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{what}: {name} is {t.dtype}, q {q.dtype}: "
+                            "the operands must share one dtype")
         if t.dim() != 3 or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be a contiguous "
                              f"[bh, T, d] tensor")
@@ -142,9 +147,9 @@ def _check(q, k, v, bias, what="flash_attention_fwd", rows=()):
 def flash_attention_fwd(q, k, v, bias: Optional[torch.Tensor] = None,
                         causal: bool = False,
                         sm_scale: Optional[float] = None):
-    """``(o, lse)`` for float32 contiguous ``q [bh,Tq,d]``, ``k/v
-    [bh,Tk,d]`` and an optional additive ``bias [1|bh, Tq, Tk]``; d is a
-    multiple of 8 up to 128.  Launches the CUDA kernel on the current
+    """``(o, lse)`` for contiguous ``q [bh,Tq,d]``, ``k/v [bh,Tk,d]`` (one
+    dtype, float32 or bf16; o in it, lse float32) and an optional additive
+    float32 ``bias [1|bh, Tq, Tk]``; d is a multiple of 8 up to 128.  Launches the CUDA kernel on the current
     stream for CUDA tensors; CPU tensors take the plain version."""
     _check(q, k, v, bias)
     if sm_scale is None:
@@ -171,11 +176,11 @@ def _launch(q, k, v, bias, causal, sm_scale):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  bias.data_ptr() if bias is not None else None,
                  o.data_ptr(), lse.data_ptr(), bh, tq, tk, d, bias_stride,
-                 sm_scale, int(causal), stream)
+                 sm_scale, int(causal), DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd kernel launch failed: CUDA "
                            f"error {err}")
-    _count("flash_attn_fwd")
+    _count("flash_attn_fwd", q.dtype)
     return o, lse
 
 
@@ -188,14 +193,14 @@ def _entry(kernel="flash_attn_fwd"):
         from . import _build
         lib = _build.load(kernel)
         if kernel == "flash_attn_fwd":
-            fn = lib.paddle_tpu_torch_flash_attn_fwd_f32
+            fn = lib.paddle_tpu_torch_flash_attn_fwd
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
                 ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
-                ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_void_p]
         else:
-            fn = lib.paddle_tpu_torch_flash_attn_bwd_f32
+            fn = lib.paddle_tpu_torch_flash_attn_bwd
             fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _entry_fns[kernel] = fn
     return fn
@@ -242,9 +247,11 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, bias=None,
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
                         sm_scale: Optional[float] = None):
-    """``(dq, dk, dv)`` for the float32 contiguous ``q [bh,Tq,d]``, ``k/v
-    [bh,Tk,d]``, the forward's ``o [bh,Tq,d]`` and ``lse [bh,Tq]``, and the
-    output gradient ``do [bh,Tq,d]``; d is a multiple of 8 up to 128.
+    """``(dq, dk, dv)`` for the contiguous ``q [bh,Tq,d]``, ``k/v
+    [bh,Tk,d]``, the forward's ``o [bh,Tq,d]`` and float32 ``lse
+    [bh,Tq]``, and the output gradient ``do [bh,Tq,d]`` (q, k, v, o and do
+    of one dtype, float32 or bf16; the gradients in it, accumulated in
+    float32 and rounded once); d is a multiple of 8 up to 128.
     Launches the CUDA kernel on the current stream for CUDA tensors; CPU
     tensors take the plain version.  (No bias: with one, the backward is
     the plain version on any device, as in the reference.)"""
@@ -276,11 +283,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, tq, tk, d,
-                 float(sm_scale), int(bool(causal)), stream)
+                 float(sm_scale), int(bool(causal)), DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd kernel launch failed: CUDA "
                            f"error {err}")
-    _count("flash_attn_bwd")
+    _count("flash_attn_bwd", q.dtype)
     return dq, dk, dv
 
 

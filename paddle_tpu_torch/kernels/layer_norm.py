@@ -5,18 +5,22 @@ K4 replaces the Pallas TPU kernels ``paddle_tpu/pallas/layer_norm.py``
 ``_fwd_pallas`` (:92, ``pl.pallas_call`` at :97, body ``_fwd_kernel`` :44)
 and ``_bwd_pallas`` (:111, call :117, body ``_bwd_kernel`` :54); its source
 is ``paddle_tpu_torch/csrc/layer_norm.cu``, whose header says what bounds it
-on an H100.  For ``x [rows, d]`` and ``scale``, ``bias [d]``, float32:
+on an H100.  For ``x [rows, d]`` in float32 or bf16 (AMP) and float32
+``scale``, ``bias [d]``:
 
     m = mean(x), var = max(mean(x²) - m², 0), rstd = rsqrt(var + eps)
     y = (x - m) · rstd · scale + bias
 
 and the backward ``dx = rstd·(g - mean(g) - x̂·mean(g·x̂))`` with
-``g = dy·scale``, ``dscale = Σ_rows dy·x̂``, ``dbias = Σ_rows dy``.
+``g = dy·scale``, ``dscale = Σ_rows dy·x̂``, ``dbias = Σ_rows dy``.  The
+statistics, dscale and dbias are float32; y and dx are in x's dtype
+(``:106, :131``).
 
 - :func:`layer_norm_fwd` / :func:`layer_norm_bwd` are the wrappers over
-  contiguous float32 tensors.  A CUDA tensor launches the kernel or raises;
-  a CPU tensor takes the plain version.  Each counts its launches
-  (:func:`launch_count`).
+  contiguous tensors (x, y, dy and dx of one dtype, float32 or bf16; the
+  kernels read and write bf16 themselves).  A CUDA tensor launches the
+  kernel or raises; a CPU tensor takes the plain version.  Each counts its
+  launches per dtype (:func:`launch_count`).
 - :func:`layer_norm_fwd_plain` / :func:`layer_norm_bwd_plain` are the plain
   versions, the reference's ``_ln_ref`` (:34) and the math of
   ``_fused_ln_bwd`` (:154).
@@ -28,33 +32,32 @@ and the backward ``dx = rstd·(g - mean(g) - x̂·mean(g·x̂))`` with
 from __future__ import annotations
 
 import ctypes
-import threading
+from typing import Optional
 
 import torch
 
-_count_lock = threading.Lock()
-_launches = {"layer_norm_fwd": 0, "layer_norm_bwd": 0}  # guarded-by: _count_lock
+from ._launches import LaunchCounts
 
-#: the widest row the kernels hold in registers (8 warps x 4 float4 slots)
+#: the row dtypes the kernels take, by their code in the C entry points
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_LAUNCHES = LaunchCounts("layer_norm_fwd", "layer_norm_bwd")
+_count = _LAUNCHES.count
+
+#: the widest row the kernels hold in registers (8 warps x 4 slots of 4)
 MAX_D = 4096
 
 
-def launch_count(kernel: str = "layer_norm_fwd") -> int:
+def launch_count(kernel: str = "layer_norm_fwd",
+                 dtype: Optional[str] = None) -> int:
     """Launches of ``kernel`` (``layer_norm_fwd`` or ``layer_norm_bwd``)
-    since the last :func:`reset_launch_count`."""
-    with _count_lock:
-        return _launches[kernel]
+    on rows of ``dtype`` ("float32" or "bfloat16"; None: both) since the
+    last :func:`reset_launch_count`."""
+    return _LAUNCHES.get(kernel, dtype)
 
 
 def reset_launch_count() -> None:
-    with _count_lock:
-        for name in _launches:
-            _launches[name] = 0
-
-
-def _count(kernel: str) -> None:
-    with _count_lock:
-        _launches[kernel] += 1
+    _LAUNCHES.reset()
 
 
 def _stats(xf, eps):
@@ -85,9 +88,14 @@ def layer_norm_bwd_plain(x, scale, dy, eps):
 
 
 def _check(what, x, vectors):
+    if x.dtype not in DTYPES:
+        raise TypeError(f"{what}: x must be float32 or bfloat16, got "
+                        f"{x.dtype}")
     for name, t in (("x", x),) + vectors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
+        want = x.dtype if name == "dy" else (
+            torch.float32 if name != "x" else x.dtype)
+        if t.dtype != want:
+            raise TypeError(f"{what}: {name} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
         if t.device != x.device:
@@ -109,9 +117,10 @@ def _check(what, x, vectors):
 
 
 def layer_norm_fwd(x, scale, bias, eps):
-    """``y [rows, d]`` for contiguous float32 ``x [rows, d]``, ``scale``,
-    ``bias [d]``.  Launches K4's forward on the current stream for CUDA
-    tensors; CPU tensors take the plain version."""
+    """``y [rows, d]`` in x's dtype for contiguous ``x [rows, d]`` (float32
+    or bf16) and float32 ``scale``, ``bias [d]``.  Launches K4's forward on
+    the current stream for CUDA tensors; CPU tensors take the plain
+    version."""
     _check("layer_norm_fwd", x, (("scale", scale), ("bias", bias)))
     if x.device.type == "cpu":
         return layer_norm_fwd_plain(x, scale, bias, eps)
@@ -120,17 +129,19 @@ def layer_norm_fwd(x, scale, bias, eps):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _entry("fwd")(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                            y.data_ptr(), rows, d, float(eps), stream)
+                            y.data_ptr(), rows, d, float(eps),
+                            DTYPES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"layer_norm_fwd kernel launch failed: CUDA "
                            f"error {err}")
-    _count("layer_norm_fwd")
+    _count("layer_norm_fwd", x.dtype)
     return y
 
 
 def layer_norm_bwd(x, scale, dy, eps):
-    """``(dx [rows, d], dscale [d], dbias [d])`` for contiguous float32
-    ``x``, ``dy [rows, d]`` and ``scale [d]``.  Launches K4's backward
+    """``(dx [rows, d], dscale [d], dbias [d])`` for contiguous ``x``,
+    ``dy [rows, d]`` (one dtype, float32 or bf16; dx in it) and float32
+    ``scale [d]``; dscale and dbias are float32.  Launches K4's backward
     (two kernels: the row pass with per-block column partials, then the
     partials added in a fixed order) for CUDA tensors; CPU tensors take the
     plain version."""
@@ -146,11 +157,11 @@ def layer_norm_bwd(x, scale, dy, eps):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _entry("bwd")(x.data_ptr(), scale.data_ptr(), dy.data_ptr(),
                             dx.data_ptr(), part.data_ptr(), grads.data_ptr(),
-                            rows, d, float(eps), stream)
+                            rows, d, float(eps), DTYPES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"layer_norm_bwd kernel launch failed: CUDA "
                            f"error {err}")
-    _count("layer_norm_bwd")
+    _count("layer_norm_bwd", x.dtype)
     return dx, grads[0], grads[1]
 
 
@@ -163,10 +174,10 @@ def _entry(which):
         lib = _build.load("layer_norm")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         for name, fn, args in (
-                ("fwd", lib.paddle_tpu_torch_layer_norm_fwd_f32,
-                 [p] * 4 + [i, i, f, p]),
-                ("bwd", lib.paddle_tpu_torch_layer_norm_bwd_f32,
-                 [p] * 6 + [i, i, f, p]),
+                ("fwd", lib.paddle_tpu_torch_layer_norm_fwd,
+                 [p] * 4 + [i, i, f, i, p]),
+                ("bwd", lib.paddle_tpu_torch_layer_norm_bwd,
+                 [p] * 6 + [i, i, f, i, p]),
                 ("partial_rows", lib.paddle_tpu_torch_layer_norm_partial_rows,
                  [i, i])):
             fn.argtypes = args

@@ -1,7 +1,7 @@
 """Runtime metrics: the metrics core of ``paddle_tpu/monitor.py``
 (:63-372).
 
-Counters and fixed-bucket histograms with labels, kept in one process-wide
+Counters, gauges and fixed-bucket histograms with labels, kept in one process-wide
 registry (``REGISTRY``) under the reference's metric names, so a scrape of
 either package reads the same families:
 
@@ -10,7 +10,9 @@ either package reads the same families:
 - ``paddle_tpu_verifier_findings_total{check}`` and
   ``paddle_tpu_verifier_runs_total{cache}`` (``analysis/verifier.py``);
 - ``paddle_tpu_compiler_optimize_total{cache}`` and
-  ``paddle_tpu_compiler_pass_ms{pass}`` (``compiler.py``).
+  ``paddle_tpu_compiler_pass_ms{pass}`` (``compiler.py``);
+- ``paddle_tpu_amp_scale`` and ``paddle_tpu_amp_skipped_steps_total``
+  (``amp.py``).
 
 A hot path resolves its label series once (``.labels(...)``) and keeps the
 cell: a bump is then one lock and one add.  Not ported yet: the step tracer,
@@ -23,7 +25,7 @@ import collections
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-__all__ = ["Counter", "Histogram", "MetricsRegistry", "REGISTRY"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY"]
 
 #: default microsecond buckets (the reference's)
 DEFAULT_BUCKETS_US = (50.0, 100.0, 250.0, 500.0, 1000.0, 2500.0, 5000.0,
@@ -32,7 +34,7 @@ DEFAULT_BUCKETS_US = (50.0, 100.0, 250.0, 500.0, 1000.0, 2500.0, 5000.0,
 
 
 class _Cell:
-    """One labeled series of a counter: a lock and a number."""
+    """One labeled series of a counter or a gauge: a lock and a number."""
 
     __slots__ = ("_mu", "_v")
 
@@ -43,6 +45,10 @@ class _Cell:
     def inc(self, n=1):
         with self._mu:
             self._v += n
+
+    def set(self, v):
+        with self._mu:
+            self._v = v
 
     def get(self):
         with self._mu:
@@ -116,6 +122,24 @@ class Counter(_Metric):
     def inc(self, n=1, **labels):
         self.labels(**labels).inc(n)
 
+    def value(self, **labels):
+        return self.labels(**labels).get()
+
+
+class Gauge(_Metric):
+    """A value that is set (ref ``paddle_tpu/monitor.py:211``)."""
+
+    kind = "gauge"
+
+    def set(self, v, **labels):
+        self.labels(**labels).set(v)
+
+    def inc(self, n=1, **labels):
+        self.labels(**labels).inc(n)
+
+    def value(self, **labels):
+        return self.labels(**labels).get()
+
 
 class Histogram(_Metric):
     kind = "histogram"
@@ -159,6 +183,9 @@ class MetricsRegistry:
 
     def counter(self, name, help="", labelnames=()) -> Counter:
         return self._get_or_create(Counter, name, help, labelnames)
+
+    def gauge(self, name, help="", labelnames=()) -> Gauge:
+        return self._get_or_create(Gauge, name, help, labelnames)
 
     def histogram(self, name, help="", labelnames=(),
                   buckets: Sequence[float] = DEFAULT_BUCKETS_US) -> Histogram:

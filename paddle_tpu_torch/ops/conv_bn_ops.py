@@ -6,8 +6,10 @@ the graph-fusion pass (``analysis/fusion.py``; the port's
 batch_norm (train) [→ relu] computes: the same Y, MeanOut, VarianceOut,
 SavedMean and SavedVariance (as 1/sqrt(var + eps)), the same running-stat
 updates.  On the card the 1x1 conv and the BN sums come from one kernel,
-K3 (``kernels/conv_bn.py``), with bf16 operands as on the TPU; on the host
-the reference's own formula runs (a float32 einsum, then the sums).
+K3 (``kernels/conv_bn.py``), with bf16 operands as on the TPU (under AMP x
+arrives in bf16 and y leaves in bf16); on the host the reference's own
+formula runs (an einsum, in bf16 under AMP as conv2d's white-listed cast
+gives it, else in float32, then float32 sums).
 Gradients flow through the generic grad op's autograd of this lowering.
 """
 
@@ -56,8 +58,12 @@ def _fused_conv1x1_bn(ctx, ins, attrs):
             y_raw, s, s2 = conv_bn.conv1x1_stats(xf, w2)      # K3
         else:
             # the reference's host formula (conv_bn_ops.py:59-73): the
-            # product in float32 (the port has no AMP yet), f32 sums
-            y_raw = torch.einsum("oc,ncp->nop", w2, xf)
+            # product in bf16 under AMP (conv2d is white-listed), else in
+            # float32; float32 sums
+            mm_w, mm_x = w2, xf
+            if ctx.amp:
+                mm_w, mm_x = w2.to(torch.bfloat16), xf.to(torch.bfloat16)
+            y_raw = torch.einsum("oc,ncp->nop", mm_w, mm_x)
             yf = y_raw.float()
             s = torch.sum(yf, dim=(0, 2))
             s2 = torch.sum(torch.square(yf), dim=(0, 2))

@@ -17,7 +17,15 @@ These shape rules are decided before any launch.  The reference instead
 wraps both kernel calls in ``try/except Exception`` and falls back to the
 composition (``fused_ops.py:72-78, 150-155``); the port never catches a
 kernel's error.  Not ported yet: the tagged-dropout stage (it needs the
-dropout op and its Philox stream) and AMP (``_amp_pair``).
+dropout op and its Philox stream).
+
+AMP: the unfused chain casts per op (``amp.cast_ins``: the matmul always
+to bf16, the adds, the activation and LayerNorm's X only for activations
+of rank 3 or more).  One blanket cast over a fused op would change the
+numbers of 2-D activations, so these ops are in no AMP list and apply the
+per-stage policy themselves (:func:`_amp_pair`, the reference's
+``fused_ops.py:34``).  Under AMP the kernels get bf16 operands: K5 bf16 x
+and w, K4 a bf16 x.
 
 Gradients flow through the generic grad op's autograd of these lowerings;
 K5's and K4's ``autograd.Function`` s supply their own backward.
@@ -35,11 +43,13 @@ from .common import X, XS, broadcast_to_x
 from .tensor_ops import gather_rows
 
 
-def _no_amp(ctx, op):
-    if getattr(ctx, "amp", False):
-        raise NotImplementedError(
-            f"{op}: AMP in the fused ops is not ported (it comes with AMP "
-            "for the training steps)")
+def _amp_pair(ctx, *arrs):
+    """bf16 copies of a value group under AMP (the fused analog of one
+    ``amp.cast_ins`` call); the values themselves otherwise."""
+    if not ctx.amp:
+        return arrs
+    return [a.to(torch.bfloat16) if a is not None and a.dtype in (
+        torch.float32, torch.float16) else a for a in arrs]
 
 
 def _k5_tiles(m: int) -> bool:
@@ -51,9 +61,11 @@ def _k5_tiles(m: int) -> bool:
 @register_op("fused_dense_act")
 def _fused_dense_act(ctx, ins, attrs):
     """mul/matmul + elementwise_add(bias) + gelu/relu in one op (pattern
-    ``dense_epilogue``)."""
-    _no_amp(ctx, "fused_dense_act")
+    ``dense_epilogue``).  Under AMP the matmul always runs in bf16 and the
+    bias and activation in bf16 only for outputs of rank 3 or more (the
+    reference's ``fused_ops.py:58-90``); K5 writes x's dtype, bf16."""
     x, w, b = X(ins, "X"), X(ins, "W"), X(ins, "Bias")
+    x, w = _amp_pair(ctx, x, w)
     xnc = int(attrs.get("x_num_col_dims", 1))
     act = attrs.get("act", "") or ""
     approximate = bool(attrs.get("approximate", False))
@@ -71,6 +83,8 @@ def _fused_dense_act(ctx, ins, attrs):
         out = dense_epilogue.dense_act(x2, w2, b, act, approximate)
     else:
         out = torch.matmul(x2, w2)
+        if len(out_shape) >= 3:
+            out, b = _amp_pair(ctx, out, b)
         out = out + broadcast_to_x(out, b, int(attrs.get("bias_axis", -1))
                                    if len(out_shape) == out.dim() else -1)
         if act == "gelu":
@@ -97,13 +111,18 @@ def _fused_embedding_layer_norm(ctx, ins, attrs):
     ``embedding_layer_norm``): the row gather, the adds and the
     normalization.  Mean and Variance always come from the two-pass
     (Welford) variance, as in the reference, not from K4's one-pass
-    statistics."""
-    _no_amp(ctx, "fused_embedding_layer_norm")
+    statistics.  Under AMP the adds and LayerNorm's X are cast to bf16 for
+    activations of rank 3 or more (the reference's ``fused_ops.py:134-142``);
+    K4 then takes bf16 x."""
     w, ids = X(ins, "W"), X(ins, "Ids")
     scale, bias = X(ins, "Scale"), X(ins, "Bias")
     x = gather_rows(w, ids, attrs.get("padding_idx", -1))
     for a in XS(ins, "Addends"):
+        if x.dim() >= 3 or a.dim() >= 3:
+            x, a = _amp_pair(ctx, x, a)
         x = x + broadcast_to_x(x, a, -1)
+    if x.dim() >= 3:
+        x, = _amp_pair(ctx, x)
     eps = attrs.get("epsilon", 1e-5)
     begin = attrs.get("begin_norm_axis", 1)
     lead = tuple(x.shape[:begin])

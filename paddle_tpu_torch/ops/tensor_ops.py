@@ -18,7 +18,7 @@ from ..framework.registry import register_op
 from .common import X, XS, canon_dtype, host_values, static_int
 
 
-@register_op("fill_constant")
+@register_op("fill_constant", no_grad=True)
 def _fill_constant(ctx, ins, attrs):
     shape = attrs.get("shape", [])
     shape_t = X(ins, "ShapeTensor")
@@ -30,7 +30,7 @@ def _fill_constant(ctx, ins, attrs):
                                dtype=dtype, device=ctx.device)]}
 
 
-@register_op("uniform_random")
+@register_op("uniform_random", no_grad=True)
 def _uniform_random(ctx, ins, attrs):
     """U[min, max) from the run's generator.  Draws differ from the
     reference's jax keys; range and shape agree."""
@@ -174,7 +174,7 @@ def _lookup_table(ctx, ins, attrs):
                                 attrs.get("padding_idx", -1))]}
 
 
-@register_op("range")
+@register_op("range", no_grad=True)
 def _range(ctx, ins, attrs):
     def bound(slot, default):
         t = X(ins, slot)

@@ -339,3 +339,50 @@ def test_training_forward_lowering_matches_reference(case):
 def test_no_grad_ops_agree_with_reference(op_type):
     assert registry.get_op_info(op_type).no_grad
     assert ref_registry.get_op_info(op_type).no_grad
+
+
+_SHARED_OPS = sorted(set(registry.registered_ops())
+                     & set(ref_registry.registered_ops()))
+
+
+@pytest.mark.parametrize("op_type", _SHARED_OPS)
+def test_registry_grad_flags_match_reference(op_type):
+    """Every op type both registries hold: the same ``no_grad`` flag and
+    the same choice between a hand-written ``grad_maker`` and the generic
+    grad op (exact, no exceptions)."""
+    mine, ref = registry.get_op_info(op_type), ref_registry.get_op_info(
+        op_type)
+    assert mine.no_grad == ref.no_grad
+    assert (mine.grad_maker is None) == (ref.grad_maker is None)
+
+
+def _range_program(pkg):
+    """``y = x + range(Start=w)``, ``reduce_sum``, ``append_backward``,
+    with ``w`` a parameter: the ops of the training block."""
+    mod = pt if pkg == "ref" else ptt
+    names = ref_names if pkg == "ref" else unique_name
+    main, startup = mod.framework.Program(), mod.framework.Program()
+    with mod.framework.program_guard(main, startup), names.guard():
+        block = main.global_block()
+        x = block.create_var(name="x", shape=(4,), dtype="float32")
+        w = block.create_parameter("w", shape=(1,), dtype="float32")
+        r = block.create_var(name="r", shape=(4,), dtype="float32")
+        y = block.create_var(name="y", shape=(4,), dtype="float32")
+        loss = block.create_var(name="loss", shape=(), dtype="float32")
+        block.append_op("range", inputs={"Start": [w]},
+                        outputs={"Out": [r]},
+                        attrs={"end": 4.0, "step": 1.0, "dtype": "float32"})
+        block.append_op("elementwise_add", inputs={"X": [x], "Y": [r]},
+                        outputs={"Out": [y]}, attrs={"axis": -1})
+        block.append_op("reduce_sum", inputs={"X": [y]},
+                        outputs={"Out": [loss]}, attrs={"reduce_all": True})
+        mod.framework.append_backward(loss)
+    return [op.type for op in main.global_block().ops]
+
+
+def test_range_gets_no_gradient_as_in_the_reference():
+    """A parameter reached only through ``range`` gets no gradient op
+    (``range``, ``fill_constant`` and ``uniform_random`` are no_grad)."""
+    ops = _range_program("port")
+    assert ops == _range_program("ref")
+    assert "range_grad" not in ops and ops.count("sum") == 0

@@ -118,3 +118,40 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case):
         x = torch.zeros(2, 49, 8).transpose(1, 2)
     with pytest.raises((TypeError, ValueError)):
         cb.conv1x1_stats_fwd(x, w)
+
+
+# -- bf16 x (AMP) ------------------------------------------------------------------
+#
+# Under AMP the fused op hands K3 a bf16 x and the float32 master w.  The
+# same seeded x rounded to bf16 in both packages; the reference's kernel in
+# interpret mode writes y in x's dtype, rounded once from the float32 sum,
+# as the plain version does: y within one bf16 ulp of its largest
+# magnitude, s and s2 (float32 sums of the float32 products) within the
+# float32 tolerances above.
+
+def _bf16_ulp(a):
+    top = float(np.abs(np.asarray(a, np.float32)).max())
+    return 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 0.0
+
+
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cin,cout,p", [(13, 21, 49), (64, 64, 196),
+                                        (12, 20, 64)])
+def test_bf16_plain_matches_reference_kernel(cin, cout, p, w_dtype):
+    x, w = _inputs(2, cin, cout, p, seed=cin + cout + p)
+    jx = jnp.asarray(x).astype(jnp.bfloat16)
+    jw = jnp.asarray(w).astype(w_dtype)
+    with jax.disable_jit():
+        ry, rs, rs2 = ref_cb.conv1x1_stats_nchw(jx, jw, interpret=True)
+    y, s, s2 = cb.conv1x1_stats_plain(
+        torch.from_numpy(x).to(torch.bfloat16),
+        torch.from_numpy(w).to(getattr(torch, w_dtype)))
+    assert y.dtype == torch.bfloat16 and str(ry.dtype) == "bfloat16"
+    assert s.dtype == s2.dtype == torch.float32
+    ry = np.asarray(ry, np.float32)
+    np.testing.assert_allclose(y.float().numpy(), ry, rtol=0,
+                               atol=_bf16_ulp(ry))
+    ya = np.abs(ry.astype(np.float64))
+    np.testing.assert_allclose(s.numpy(), np.asarray(rs), rtol=0,
+                               atol=STAT_RTOL * ya.sum(axis=(0, 2)).max())
+    np.testing.assert_allclose(s2.numpy(), np.asarray(rs2), rtol=STAT_RTOL)

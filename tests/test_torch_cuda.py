@@ -771,3 +771,218 @@ def test_autotune_times_a_chain_on_the_card(cuda):
     ms, runs = fusion._time_chain(descs, vals, cuda)
     assert 0 < ms < 10
     assert runs >= 1 + 3 * 5 and (runs - 1) % 5 == 0
+
+
+# -- the bf16 forms of K1-K5 (AMP) -------------------------------------------
+#
+# Each bf16 kernel against its plain version on the same bf16 card tensors.
+# The plain versions widen to float32, compute, and round the output once;
+# the kernels take their float32 sums in other orders and round once too, so
+# a bf16 output may land on the neighbouring bf16 value: within one bf16 ulp
+# of the output's largest magnitude (plus the float32 allowance of the
+# float32 form).  Float32 outputs (lse, s, s2, dscale, dbias) keep the
+# float32 forms' tolerances.
+
+BF16 = torch.bfloat16
+
+
+def _ulp(t):
+    """One bf16 ulp of ``t``'s largest magnitude."""
+    top = float(t.float().abs().max())
+    return 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 0.0
+
+
+def _within_ulp(got, want, extra=0.0, what=""):
+    assert got.dtype == want.dtype == BF16, what
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= _ulp(want) + extra).all()), (
+        what, float(err.max()), _ulp(want))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bf16_k1_matches_plain_version(cuda, case):
+    bh, tq, tk, d, causal, bias_kind = CASES[case]
+    q, k, v, bias = _inputs(bh, tq, tk, d, bias_kind, cuda, seed=5)
+    q, k, v = (t.to(BF16) for t in (q, k, v))
+    n0 = fa.launch_count("flash_attn_fwd", "bfloat16")
+    o, lse = fa.flash_attention_fwd(q, k, v, bias, causal)
+    torch.cuda.synchronize()
+    assert fa.launch_count("flash_attn_fwd", "bfloat16") == n0 + 1
+    ro, rlse = fa.flash_attention_reference(q, k, v, bias, causal)
+    _within_ulp(o, ro, what="o")
+    assert lse.dtype == torch.float32
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", sorted(c for c in CASES
+                                        if CASES[c][5] is None))
+def test_bf16_k2_matches_plain_version(cuda, case):
+    bh, tq, tk, d, causal, _ = CASES[case]
+    q, k, v, o, lse, do = _bwd_inputs(bh, tq, tk, d, causal, cuda, seed=6)
+    q, k, v, o, do = (t.to(BF16) for t in (q, k, v, o, do))
+    n0 = fa.launch_count("flash_attn_bwd", "bfloat16")
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert fa.launch_count("flash_attn_bwd", "bfloat16") == n0 + 1
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, None,
+                                            causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _within_ulp(g, w, what=name)
+
+
+def test_bf16_k1_k2_function_keeps_the_dtype(cuda):
+    q, k, v = (torch.randn(2, 2, 64, 32, device=cuda).to(BF16)
+               .requires_grad_() for _ in range(3))
+    out = fa.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out.float().square().sum(), (q, k, v))
+    assert out.dtype == BF16 and all(g.dtype == BF16 for g in grads)
+
+
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(K3_SHAPES))
+def test_bf16_k3_matches_plain_version(cuda, case, w_dtype):
+    n, ci, co, p = K3_SHAPES[case]
+    g = torch.Generator().manual_seed(ci + co + p + 1)
+    x = torch.randn(n, ci, p, generator=g).to(cuda).to(BF16)
+    w = (torch.randn(co, ci, generator=g) * ci ** -0.5).to(cuda).to(
+        getattr(torch, w_dtype))
+    n0 = cb.launch_count("conv1x1_stats", "bfloat16")
+    y, s, s2 = cb.conv1x1_stats_fwd(x, w)
+    torch.cuda.synchronize()
+    assert cb.launch_count("conv1x1_stats", "bfloat16") == n0 + 1
+    ry, rs, rs2 = cb.conv1x1_stats_plain(x, w)
+    terms = torch.einsum("oc,ncp->nop", w.to(BF16).float().abs(),
+                         x.float().abs())
+    _within_ulp(y, ry, 2.0 ** -20 * terms, "y")
+    yf = torch.einsum("oc,ncp->nop", w.to(BF16).float(), x.float())
+    assert bool(((s - rs).abs()
+                 <= 2.0 ** -14 * yf.abs().sum(dim=(0, 2)) + 1e-6).all())
+    assert bool(((s2 - rs2).abs() <= 2.0 ** -14 * rs2 + 1e-6).all())
+
+
+@pytest.mark.parametrize("case", sorted(LN_SHAPES))
+def test_bf16_k4_matches_plain_version(cuda, case):
+    rows, d = LN_SHAPES[case]
+    g = torch.Generator().manual_seed(rows + d + 1)
+    x = (torch.randn(rows, d, generator=g) * 2 + 0.5).to(cuda).to(BF16)
+    if case.startswith("unaligned"):
+        # a view one element past an 8-byte boundary: scalar accesses
+        flat = torch.randn(rows * d + 1, generator=g).to(cuda).to(BF16)
+        x = flat[1:].view(rows, d)
+    s = (torch.randn(d, generator=g) + 1).to(cuda)
+    b = torch.randn(d, generator=g).to(cuda)
+    dy = torch.randn(rows, d, generator=g).to(cuda).to(BF16)
+    n0 = (ln.launch_count("layer_norm_fwd", "bfloat16"),
+          ln.launch_count("layer_norm_bwd", "bfloat16"))
+    y = ln.layer_norm_fwd(x, s, b, 1e-5)
+    dx, ds, db = ln.layer_norm_bwd(x, s, dy, 1e-5)
+    torch.cuda.synchronize()
+    assert (ln.launch_count("layer_norm_fwd", "bfloat16"),
+            ln.launch_count("layer_norm_bwd", "bfloat16")) == (
+        n0[0] + 1, n0[1] + 1)
+    ry = ln.layer_norm_fwd_plain(x, s, b, 1e-5)
+    rdx, rds, rdb = ln.layer_norm_bwd_plain(x, s, dy, 1e-5)
+    _within_ulp(y, ry, what="y")
+    _within_ulp(dx, rdx, what="dx")
+    assert ds.dtype == db.dtype == torch.float32
+    xhat = ln.layer_norm_fwd_plain(x.float(), torch.ones_like(s),
+                                   torch.zeros_like(b), 1e-5)
+    for got, want, terms in ((ds, rds, (dy.float() * xhat).abs()),
+                             (db, rdb, dy.float().abs())):
+        assert bool(((got - want).abs()
+                     <= 2.0 ** -14 * terms.sum(dim=0) + 1e-6).all())
+
+
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act,approximate", [("", False), ("relu", False),
+                                             ("gelu", False), ("gelu", True)],
+                         ids=["none", "relu", "gelu_erf", "gelu_tanh"])
+@pytest.mark.parametrize("case", sorted(K5_SHAPES))
+def test_bf16_k5_matches_plain_version(cuda, case, act, approximate,
+                                       w_dtype):
+    """bf16 x with bf16 w (the AMP path; read where they lie when K and N
+    are multiples of 8, else through the padded copy) or float32 w."""
+    m, k, n = K5_SHAPES[case]
+    g = torch.Generator().manual_seed(m + k + n + 1)
+    x = torch.randn(m, k, generator=g).to(cuda).to(BF16)
+    w = (torch.randn(k, n, generator=g) * k ** -0.5).to(cuda).to(
+        getattr(torch, w_dtype))
+    b = torch.randn(n, generator=g).to(cuda)
+    n0 = de.launch_count("dense_epilogue", "bfloat16")
+    y = de.dense_act_fwd(x, w, b, act, approximate)
+    torch.cuda.synchronize()
+    assert de.launch_count("dense_epilogue", "bfloat16") == n0 + 1
+    ry = de.dense_act_plain(x, w, b, act, approximate)
+    terms = x.float().abs() @ w.to(BF16).float().abs()
+    _within_ulp(y, ry, 2.0 ** -20 * terms, "y")
+
+
+def test_bf16_k5_reads_an_unaligned_operand_through_the_copy(cuda):
+    g = torch.Generator().manual_seed(11)
+    flat = torch.randn(64 * 96 + 1, generator=g).to(cuda).to(BF16)
+    x = flat[1:].view(64, 96)                # 2 bytes past 16-byte boundary
+    w = (torch.randn(96, 136, generator=g) / 10).to(cuda).to(BF16)
+    b = torch.randn(136, generator=g).to(cuda)
+    y = de.dense_act_fwd(x, w, b, "gelu")
+    torch.cuda.synchronize()
+    _within_ulp(y, de.dense_act_plain(x, w, b, "gelu"),
+                2.0 ** -20 * (x.float().abs() @ w.float().abs()), "y")
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k4", "k5"])
+def test_bf16_wrappers_refuse_mixed_or_other_dtypes(cuda, kernel):
+    """A dtype the kernel does not take raises; it never falls back."""
+    h = torch.float16
+    with pytest.raises((TypeError, ValueError)):
+        if kernel == "k1":
+            q = torch.randn(2, 16, 64, device=cuda).to(BF16)
+            fa.flash_attention_fwd(q, q.float(), q, None, True)
+        elif kernel == "k2":
+            q, k, v, o, lse, do = _bwd_inputs(2, 16, 16, 64, True, cuda)
+            fa.flash_attention_bwd(q.to(BF16), k.to(BF16), v.to(BF16),
+                                   o.to(BF16), lse, do, True)
+        elif kernel == "k3":
+            cb.conv1x1_stats_fwd(torch.randn(2, 8, 49, device=cuda).to(h),
+                                 torch.randn(4, 8, device=cuda))
+        elif kernel == "k4":
+            x = torch.randn(4, 8, device=cuda).to(BF16)
+            ln.layer_norm_bwd(x, torch.ones(8, device=cuda),
+                              torch.randn(4, 8, device=cuda), 1e-5)
+        else:
+            de.dense_act_fwd(torch.randn(8, 16, device=cuda).to(BF16),
+                             torch.randn(16, 4, device=cuda).to(BF16),
+                             torch.randn(4, device=cuda).to(BF16))
+
+
+def test_amp_tiny_gpt_step_on_the_card_matches_the_host(cuda):
+    """One ``amp.decorate(Adam)`` step of a tiny GPT (flash attention, the
+    fused head) on the card against the host: the bf16 K1 and K2 run once
+    a layer; the loss within 2^-7 relative (bf16 products summed in other
+    orders)."""
+    from paddle_tpu_torch import amp, optimizer
+    cfg = T.BertConfig(vocab_size=48, d_model=64, n_layer=2, n_head=2,
+                       d_inner=128, max_pos=64, dropout=0.0)
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        _, _, loss = T.build_gpt_pretrain(cfg, 64, fused_head=True,
+                                          attn_impl="flash", dropout=0.0)
+        amp.decorate(optimizer.AdamOptimizer(1e-3)).minimize(loss)
+    scope, host_scope = Scope(), Scope()
+    exe = ptt.Executor()
+    exe.run(startup, scope=scope, seed=4)
+    for name, val in scope.items():
+        host_scope.set_var(name, val.detach().cpu())
+    rng = np.random.RandomState(2)
+    ids = rng.randint(1, 48, (2, 64)).astype(np.int64)
+    feed = {"src_ids": ids, "lm_label": np.roll(ids, -1, axis=1)}
+    n0 = (fa.launch_count("flash_attn_fwd", "bfloat16"),
+          fa.launch_count("flash_attn_bwd", "bfloat16"))
+    card, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    assert (fa.launch_count("flash_attn_fwd", "bfloat16") - n0[0],
+            fa.launch_count("flash_attn_bwd", "bfloat16") - n0[1]) == (2, 2)
+    host, = ptt.Executor(ptt.CPUPlace()).run(main, feed=feed,
+                                              fetch_list=[loss],
+                                              scope=host_scope)
+    np.testing.assert_allclose(card, host, rtol=2.0 ** -7)
+    for p in main.all_parameters():
+        assert scope.find_var(p.name).dtype == torch.float32

@@ -106,3 +106,36 @@ def test_cpu_counts_no_launch_and_bad_inputs_raise():
         de.dense_act_fwd(x, w[:5].contiguous(), b)
     with pytest.raises(ValueError, match="activation"):
         de.dense_act_fwd(x, w, b, "tanh")
+
+
+# -- bf16 operands (AMP) -----------------------------------------------------------
+#
+# Under AMP the fused op hands K5 bf16 x and w (``_amp_pair``) and the
+# float32 bias.  The same seeded operands rounded to bf16 in both packages;
+# the reference's kernel in interpret mode (under ``jax.disable_jit()``)
+# writes y in x's dtype, rounded once from the float32 sum plus bias and
+# activation, as the plain version does: y within one bf16 ulp of its
+# largest magnitude.
+
+def _bf16_ulp(a):
+    top = float(np.abs(np.asarray(a, np.float32)).max())
+    return 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 0.0
+
+
+@pytest.mark.parametrize("act,approximate", ACTS, ids=ACT_IDS)
+@pytest.mark.parametrize("m,k,n", [(8, 16, 24), (64, 96, 130),
+                                   (512, 40, 24)])
+def test_bf16_plain_matches_reference_kernel(m, k, n, act, approximate):
+    x, w, b = _inputs(m, k, n, seed=m + k + n + 1)
+    with jax.disable_jit():
+        ry = ref_de.matmul_bias_act(
+            jnp.asarray(x).astype(jnp.bfloat16),
+            jnp.asarray(w).astype(jnp.bfloat16), jnp.asarray(b), act=act,
+            approximate=approximate, interpret=True)
+    y = de.dense_act_fwd(torch.from_numpy(x).to(torch.bfloat16),
+                         torch.from_numpy(w).to(torch.bfloat16),
+                         torch.from_numpy(b), act, approximate)
+    assert y.dtype == torch.bfloat16 and str(ry.dtype) == "bfloat16"
+    ry = np.asarray(ry, np.float32)
+    np.testing.assert_allclose(y.float().numpy(), ry, rtol=0,
+                               atol=_bf16_ulp(ry))

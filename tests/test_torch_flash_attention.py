@@ -134,3 +134,50 @@ def test_cpu_path_counts_no_launches():
     q = torch.randn(2, 16, 64)
     fa.flash_attention_fwd(q, q, q, None, True)
     assert fa.launch_count() == 0
+
+
+# -- bf16 operands (AMP) ---------------------------------------------------------
+#
+# The same seeded numpy inputs rounded to bf16 in both packages (both round
+# to nearest even, so the bits agree).  The reference is the Pallas kernel
+# itself, ``_flash_fwd_pallas`` in interpret mode at 8-row blocks, as
+# ``tests/test_attention.py`` runs it; it computes in float32 and rounds o
+# once to bf16, as the port's plain version does.  o within one bf16 ulp of
+# its largest magnitude (the sums in another order can round to the
+# neighbouring value), lse (float32) within 1e-5.  (For rows that see no
+# key, the reference's XLA path; see below.)
+
+def _bf16_ulp(a):
+    top = float(np.abs(np.asarray(a, np.float32)).max())
+    return 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 0.0
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bf16_forward_matches_pallas_interpret(case):
+    b, h, tq, tk, d, causal, bias_kind, _ = CASES[case]
+    q, k, v, bias = _inputs(b, h, tq, tk, d, bias_kind, seed=5)
+    sm = 1.0 / math.sqrt(d)
+    bc = None
+    if bias is not None:
+        b4 = bias[None, None] if bias.ndim == 2 else bias
+        bc = np.ascontiguousarray(
+            b4.reshape(1, tq, tk) if b4.shape[:2] == (1, 1) else
+            np.broadcast_to(b4, (b, h, tq, tk)).reshape(b * h, tq, tk))
+    qc, kc, vc = (x.reshape(b * h, -1, d) for x in (q, k, v))
+    # rows that see no key at all: the Pallas kernel skips their dead
+    # blocks and writes 0, the reference's XLA path (and the port) average
+    # v over the masked keys; the port follows the XLA path
+    # (``test_flash_output_matches_reference``)
+    interpret = case != "masked_rows_causal_tq_gt_tk"
+    ro, rl = ref_fa._flash_fwd(
+        *(jnp.asarray(x).astype(jnp.bfloat16) for x in (qc, kc, vc)),
+        _j(bc), causal, sm, 8, 8, interpret)
+    o, lse = fa.flash_attention_fwd(
+        *(torch.from_numpy(x).to(torch.bfloat16) for x in (qc, kc, vc)),
+        _t(bc), causal, sm)
+    assert o.dtype == torch.bfloat16 and str(ro.dtype) == "bfloat16"
+    assert lse.dtype == torch.float32
+    ro = np.asarray(ro, np.float32)
+    np.testing.assert_allclose(o.float().numpy(), ro, rtol=0,
+                               atol=_bf16_ulp(ro))
+    np.testing.assert_allclose(lse.numpy(), np.asarray(rl), **TOL)

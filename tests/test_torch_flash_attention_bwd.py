@@ -185,3 +185,38 @@ def test_backward_wrapper_refuses_what_the_kernel_does_not_take(bad):
         q, k, v, o, do, lse = (x.to("meta") for x in (q, k, v, o, do, lse))
     with pytest.raises((TypeError, ValueError)):
         fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+
+
+# -- bf16 operands (AMP) ---------------------------------------------------------
+#
+# q, k, v, o and do rounded to bf16 in both packages (the same bits), lse in
+# float32.  The reference is ``_flash_bwd_pallas`` in interpret mode, both
+# kernels: float32 arithmetic, each gradient rounded once to bf16 (the
+# combined kernel's dk/dv partials are float32 and rounded once after their
+# sum).  The port's plain version computes in float32 and rounds once too:
+# each gradient within one bf16 ulp of its largest magnitude.
+
+def _bf16_ulp(a):
+    top = float(np.abs(np.asarray(a, np.float32)).max())
+    return 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 0.0
+
+
+@pytest.mark.parametrize("impl", ["combined", "split"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bf16_backward_matches_pallas_interpret(case, impl):
+    bh, tq, tk, d, causal = CASES[case]
+    q, k, v, o, lse, do = _inputs(bh, tq, tk, d, causal, seed=5)
+    sm = 1.0 / math.sqrt(d)
+    jb = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v, o, do)]
+    want = ref_fa._flash_bwd_pallas(jb[0], jb[1], jb[2], jb[3],
+                                    jnp.asarray(lse), jb[4], causal, sm, 8,
+                                    8, tk - tq, True, impl=impl)
+    tb = [torch.from_numpy(np.array(a)).to(torch.bfloat16)
+          for a in (q, k, v, o, do)]
+    got = fa.flash_attention_bwd(tb[0], tb[1], tb[2], tb[3], _t(lse), tb[4],
+                                 causal, sm)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and str(w.dtype) == "bfloat16"
+        w = np.asarray(w, np.float32)
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=0,
+                                   atol=_bf16_ulp(w), err_msg=name)

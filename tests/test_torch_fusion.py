@@ -212,7 +212,8 @@ def test_fused_op_matches_reference(case):
 
 
 def test_untaken_kernel_paths_raise_not_fall_back():
-    """The tagged-dropout stage and AMP are not ported: they raise."""
+    """The tagged-dropout stage is not ported: it raises.  AMP is
+    (``test_torch_amp.py``): the 3-D dense chain then gives bf16."""
     _, ins, attrs, _ = FUSED_CASES["dense_mul_gelu"]
     info = registry.get_op_info("fused_dense_act")
     ctx = LowerCtx(torch.device("cpu"), 0)
@@ -224,8 +225,8 @@ def test_untaken_kernel_paths_raise_not_fall_back():
     plain = info.lower(ctx, _to_torch(ins), attrs)["Out"][0]
     np.testing.assert_allclose(out.numpy(), 0.75 * plain.numpy(), rtol=1e-6)
     ctx.amp = True
-    with pytest.raises(NotImplementedError, match="AMP"):
-        info.lower(ctx, _to_torch(ins), attrs)
+    assert info.lower(ctx, _to_torch(ins), attrs)["Out"][0].dtype == \
+        torch.bfloat16
 
 
 # -- the pass on the BERT-shaped toy and the tiny GPT ------------------------------

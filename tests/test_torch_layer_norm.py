@@ -112,3 +112,41 @@ def test_cpu_counts_no_launch_and_bad_inputs_raise():
         ln.layer_norm_fwd(x, s[:4].contiguous(), b, EPS)
     with pytest.raises(ValueError, match=r"must be \(4, 8\)"):
         ln.layer_norm_bwd(x, s, dy[:2].contiguous(), EPS)
+
+
+# -- bf16 rows (AMP) ---------------------------------------------------------------
+#
+# x and dy rounded to bf16 in both packages, scale and bias float32.  The
+# reference's kernels in interpret mode compute the statistics in float32
+# and write y and dx in x's dtype, rounded once; dscale and dbias stay
+# float32.  y and dx within one bf16 ulp of their largest magnitude, dscale
+# and dbias within the float32 tolerance above.
+
+def _bf16_ulp(a):
+    top = float(np.abs(np.asarray(a, np.float32)).max())
+    return 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 0.0
+
+
+@pytest.mark.parametrize("rows,d", [(37, 96), (515, 768), (1, 8)])
+def test_bf16_plain_matches_reference_kernels(rows, d):
+    x, s, b, dy = _inputs(rows, d, seed=rows + 2 * d)
+    jx, jdy = (jnp.asarray(a).astype(jnp.bfloat16) for a in (x, dy))
+    tx, tdy = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, dy))
+    ry = ref_ln._fwd_pallas(jx, jnp.asarray(s), jnp.asarray(b), EPS, True)
+    rdx, rds, rdb = ref_ln._bwd_pallas(jx, jnp.asarray(s), jdy, EPS, True)
+    y = ln.layer_norm_fwd(tx, *_t(s, b), EPS)
+    dx, ds, db = ln.layer_norm_bwd(tx, *_t(s), tdy, EPS)
+    for name, got, want in (("y", y, ry), ("dx", dx, rdx)):
+        assert got.dtype == torch.bfloat16 and str(want.dtype) == "bfloat16"
+        want = np.asarray(want, np.float32)
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                                   atol=_bf16_ulp(want), err_msg=name)
+    xhat = np.asarray(ln.layer_norm_fwd_plain(
+        tx.float(), *_t(np.ones(d, np.float32), np.zeros(d, np.float32)),
+        EPS))
+    dyf = tdy.float().numpy()
+    for got, want, terms in ((ds, rds, np.abs(dyf * xhat)),
+                             (db, rdb, np.abs(dyf))):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=SUM_RTOL * terms.sum(axis=0).max())

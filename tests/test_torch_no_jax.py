@@ -3,7 +3,8 @@
 - in a subprocess where ``import jax`` and ``import paddle_tpu`` fail,
   importing ``paddle_tpu_torch``, serving one request (through
   ``CompiledProgram``'s verifier and passes), taking Adam steps of a tiny
-  GPT, with the fusion autotuner on in the last, one Momentum step of a
+  GPT, with the fusion autotuner on in the last, one bf16 AMP step
+  (``amp.decorate``, master weights staying float32), one Momentum step of a
   toy ResNet through the graph-fusion pass, and the measurement tools'
   chains, skeletons and peak table (``paddle_tpu_torch.tools``) on the CPU
   works;
@@ -85,6 +86,19 @@ _BLOCKED = textwrap.dedent("""
     assert len(tuned) == 1 and np.isfinite(l2), (len(tuned), l2)
     flags.set_flags({"FLAGS_fusion_autotune": False,
                      "FLAGS_fusion_rank_threshold": 0.02})
+    from paddle_tpu_torch import amp
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        _, _, aloss = T.build_gpt_pretrain(cfg, 8, attn_impl="flash",
+                                           dropout=0.0)
+        amp.decorate(optimizer.AdamOptimizer(1e-3)).minimize(aloss)
+    amp_scope = Scope()
+    exe.run(startup, scope=amp_scope, seed=2)
+    la, = exe.run(main, feed={"src_ids": ids, "lm_label": ids},
+                  fetch_list=[aloss], scope=amp_scope)
+    assert np.isfinite(la) and all(
+        amp_scope.find_var(p.name).dtype == torch.float32
+        for p in main.all_parameters()), la
     from paddle_tpu_torch import layers
     from paddle_tpu_torch.models import resnet
     main, startup = Program(), Program()
@@ -123,7 +137,7 @@ _BLOCKED = textwrap.dedent("""
     assert not [m for m, mod in sys.modules.items() if mod is not None
                 and (m == "jax" or m.startswith(("jax.", "paddle_tpu.")))]
     print("served", out[0].shape, "trained", float(l0), float(l1),
-          "resnet", float(rl))
+          "amp", float(la), "resnet", float(rl))
 """)
 
 
@@ -152,7 +166,8 @@ def _sources():
 
 def test_no_jax_or_reference_import_in_sources():
     scanned = {os.path.relpath(p, REPO) for p in _sources()}
-    assert {"paddle_tpu_torch/analysis/fusion.py",
+    assert {"paddle_tpu_torch/amp.py",
+            "paddle_tpu_torch/analysis/fusion.py",
             "paddle_tpu_torch/analysis/verifier.py",
             "paddle_tpu_torch/compiler.py",
             "paddle_tpu_torch/debugger.py",
