@@ -87,7 +87,28 @@ JAX, prints one line per phase, and raises on any failure:
 8. ``attn_ceiling`` — ``paddle_tpu_torch.tools.attn_shape_ceiling.main()``
    at (T, bh) = (2048, 24), (8192, 6), (16384, 2), d 64: the K8 skeletons
    (and the forward at d 128) against K1 and K1 + K2; each report printed.
-9. ``timing`` — each kernel, its plain version and one PyTorch library call
+9. ``ring_kernel`` — ring attention (K7) at [24, 8192, 64] (BERT-base at
+   batch 2 x 8192) with sp 4 over ``[cuda:0] * 4`` (four virtual ranks on
+   the one card), float32 and bf16, causal and not: the ring's forward and
+   backward launch K1, K2 and the merge kernel as the schedule says (n^2
+   K1 and K2 and n(n - 1) merges, causal n(n + 1)/2 and n(n - 1)/2); o,
+   lse, dq, dk and dv match the plain ring, the same schedule through the
+   plain K1, K2 and merge (float32: the kernels' 1e-5 + 1e-4 relative;
+   bf16: 4 bf16 ulps of each value + 4 of the tensor's RMS), and K1/K2
+   over the full T (float32: o 2e-5, gradients 2e-4; bf16: 2 bf16 ulps of
+   max|o|, 4 of each gradient's, and 8 of each value + 8 of the RMS); the
+   merge kernel matches its plain version with NEG_INF rows on either side
+   and on both (1e-6; one bf16 ulp).  ``kernel`` and ``kernel_bf16`` hold
+   K1 and K2 (given the ring's delta) at a ring step's [24, 2048, 64]
+   shard, causal and not, against their plain versions.
+10. ``ring_train`` — ``bench.py:531-567``'s 8k line with
+   ``attn_impl="ring"``: BERT-base pretraining at batch 2 x 8192 under
+   ``amp.decorate(AdamOptimizer(1e-4))`` with sp 4 over ``[cuda:0] * 4``,
+   1 warm-up + 3 steps, each launching the bf16 K1 and K2 12 x 16 times and
+   the bf16 merge 12 x 12 times; the same program with
+   ``attn_impl="flash"`` from the same seed and feed, and every ring loss
+   within 1e-4 relative of its step's flash loss.
+11. ``timing`` — each kernel, its plain version and one PyTorch library call
    computing the same function, with CUDA events, at the main-path shapes
    ([96, 2048, 64] causal for K1/K2, ResNet-50's 15 conv1x1 shapes at batch
    128 for K3, [16384, 768] for K4, [16384, 768] x [768, 3072] gelu for
@@ -98,7 +119,11 @@ JAX, prints one line per phase, and raises on any failure:
    and fused), and the ResNet step's time, images/s, peak memory and summed
    K3 time; the bf16 forms of K1-K5 at the AMP paths' shapes against SDPA,
    ``F.layer_norm``, and the bf16 matmul compositions, and the three AMP
-   paths' steps.  ``--profile`` adds one AMP GPT step by kernel.
+   paths' steps; the ring's forward and backward at ``ring_kernel``'s
+   shape (non-causal) against K1/K2 and SDPA over the full T, the plain
+   ring and the bound, the merge kernel at a ring step's shape, and the
+   ring and flash training steps.  ``--profile`` adds one AMP GPT step by
+   kernel.
 
 Then one JSON line describing every kernel, the ``nvidia-smi`` line, and a
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -225,6 +250,30 @@ AMP_SMALL_LOSS_RTOL, AMP_SMALL_FRAC = 2.0 ** -7, 2.0 ** -3
 # the library), so normalized values can round to neighbouring bf16 values:
 # one bf16 ulp, 2^-7, of the sum
 RN50_FUSED_RTOL = 2.0 ** -7
+# ring attention (K7): BERT-base at batch 2 x 8192 (b*h = 24, d 64), sp 4
+# over one card (virtual ranks).  The ring against its plain version (the
+# same schedule through the plain K1, K2 and merge): float32 o, lse, dq,
+# dk and dv within ATOL + RTOL |ref|, as every kernel against its plain
+# version; bf16 every value within RING_BF16_EACH_PLAIN bf16 ulps of itself
+# plus as many of the tensor's RMS: a K1 partial or a merge weight that
+# rounds to the other neighbouring bf16 value moves a merge product by one
+# ulp of that product, and partials reach ~8x the RMS of o.  The ring
+# against K1/K2 over the full T: float32 o within RING_O_TOL and the
+# gradients within RING_GRAD_TOL (abs and rel, the reference tests'
+# tolerances: the ring sums its partials in another order); bf16 o within
+# 2 bf16 ulps of max|o| and each gradient within 4 of its largest
+# magnitude, and besides every value within RING_BF16_EACH_FULL ulps of
+# itself plus as many of the RMS (the ring rounds each of its n partials
+# to bf16, K1/K2 round once).  The merge kernel against its plain version:
+# float32 within 1e-6 + 1e-6 rel, bf16 within one bf16 ulp of each value.
+# The ring's training losses within 1e-4 relative of the flash program's,
+# step by step.
+RING_SLICE, RING_SP = (24, 8192, 64), 4
+RING_BATCH, RING_SEQ, RING_STEPS = 2, 8192, 3
+RING_O_TOL, RING_GRAD_TOL = 2e-5, 2e-4
+RING_BF16_ULPS_O, RING_BF16_ULPS_GRAD = 2, 4
+RING_BF16_EACH_PLAIN, RING_BF16_EACH_FULL = 4, 8
+RING_MERGE_TOL, RING_LOSS_RTOL = 1e-6, 1e-4
 
 
 def _log(phase, msg):
@@ -402,6 +451,11 @@ def phase_kernel():
     from paddle_tpu_torch.tools.attn_shape_ceiling import CASES
     cases += [(f"attn_ceiling [{bh_}, {t_}, 64] non-causal", bh_, t_, t_, 64,
                False, None) for t_, bh_ in CASES]
+    # K1 and K2 as a ring step runs them (ring_kernel, ring_train): a
+    # [24, 2048, 64] shard, K2 given the delta the ring computes once
+    cases += [(f"ring step {_ring_step_shape()} {c}, given delta", 24,
+               2048, 2048, 64, c == "causal", "delta")
+              for c in ("non-causal", "causal")]
     worst = {"flash_attn_fwd": 0.0, "flash_attn_bwd": 0.0}
     for name, bh_, tq, tk, d_, causal, bias_kind in cases:
         q = torch.randn(bh_, tq, d_, device="cuda", generator=g)
@@ -430,10 +484,13 @@ def phase_kernel():
         if bias is not None:
             continue        # a biased backward is the plain version
         do = torch.randn(bh_, tq, d_, device="cuda", generator=g)
-        got = fa.flash_attention_bwd(q, k, v, ro, rlse, do, causal)
+        delta = (torch.sum(do * ro, dim=-1) if bias_kind == "delta"
+                 else None)
+        got = fa.flash_attention_bwd(q, k, v, ro, rlse, do, causal, None,
+                                     delta)
         torch.cuda.synchronize()
         want = fa.flash_attention_bwd_reference(q, k, v, ro, rlse, do, None,
-                                                causal)
+                                                causal, None, delta)
         torch.cuda.synchronize()
         errs = [_check(f"{name} {n}", a, b)
                 for n, a, b in zip(("dq", "dk", "dv"), got, want)]
@@ -639,7 +696,9 @@ def _check_bf16(name, got, ref, extra=None):
 def phase_kernel_bf16():
     """The bf16 forms of K1-K5 (AMP) against their plain versions on the
     card, at the AMP paths' shapes and the float32 checks' edges: K1/K2 at
-    [96, 2048, 64] causal, a ragged T and the biased forward; K3 at
+    [96, 2048, 64] causal, a ragged T, the biased forward, and a ring
+    step's [24, 2048, 64] shard causal and not, K2 given the delta the
+    ring computes once; K3 at
     ResNet-50's 15 conv1x1 shapes at batch 256 (bf16 x, the float32
     master w); K4 at [16384, 768] and a ragged row count; K5 at [16384,
     768] x [768, 3072] gelu and relu and an M that is not a tile
@@ -657,12 +716,18 @@ def phase_kernel_bf16():
                            "layer_norm_bwd_bf16", "dense_epilogue_bf16"),
                           0.0)
     bh, t, d = SLICE
-    for name, bh_, tq, tk, d_, causal, biased in (
-            ("slice [96,2048,64] causal", bh, t, t, d, True, False),
-            ("T=1000 causal", 8, 1000, 1000, 64, True, False),
-            ("bias [1,Tq,Tk] T=700", 8, 700, 700, 64, False, True)):
+    step = _ring_step_shape()
+    for name, bh_, tq, tk, d_, causal, kind in (
+            ("slice [96,2048,64] causal", bh, t, t, d, True, None),
+            ("T=1000 causal", 8, 1000, 1000, 64, True, None),
+            ("bias [1,Tq,Tk] T=700", 8, 700, 700, 64, False, "bias"),
+            (f"ring step {step} non-causal, given delta", 24, 2048, 2048,
+             64, False, "delta"),
+            (f"ring step {step} causal, given delta", 24, 2048, 2048, 64,
+             True, "delta")):
         q, k, v = (torch.randn(bh_, n, d_, device="cuda",
                                generator=g).to(bf16) for n in (tq, tk, tk))
+        biased = kind == "bias"
         bias = torch.randn(1, tq, tk, device="cuda",
                            generator=g) if biased else None
         o, lse = fa.flash_attention_fwd(q, k, v, bias, causal)
@@ -679,10 +744,13 @@ def phase_kernel_bf16():
         if biased:
             continue        # a biased backward is the plain version
         do = torch.randn(bh_, tq, d_, device="cuda", generator=g).to(bf16)
-        got = fa.flash_attention_bwd(q, k, v, ro, rlse, do, causal)
+        delta = (torch.sum(do.float() * ro.float(), dim=-1)
+                 if kind == "delta" else None)
+        got = fa.flash_attention_bwd(q, k, v, ro, rlse, do, causal, None,
+                                     delta)
         torch.cuda.synchronize()
         want = fa.flash_attention_bwd_reference(q, k, v, ro, rlse, do, None,
-                                                causal)
+                                                causal, None, delta)
         errs = [_check_bf16(f"{name} {n}", a, b)
                 for n, a, b in zip(("dq", "dk", "dv"), got, want)]
         worst["flash_attn_bwd_bf16"] = max(worst["flash_attn_bwd_bf16"],
@@ -2376,6 +2444,434 @@ def phase_attn_ceiling():
     return {"reports": reports, "launches": launches, "wall_s": wall_s}
 
 
+# -- ring attention (K7) -----------------------------------------------------
+
+def _ring_mesh():
+    """sp 4 over one card: the four ranks of the ring are virtual (one
+    device named four times, the port's analog of XLA's forced host device
+    count), so every rotation is a no-op and the ranks run in turn."""
+    import torch
+    from paddle_tpu_torch.parallel import make_mesh
+    return make_mesh({"sp": RING_SP}, [torch.device("cuda", 0)] * RING_SP)
+
+
+def _ring_counts():
+    """The launch counts the ring runs, by dtype: K1, K2 and the merge."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import ring_attention as ra
+    return {dt: {"flash_attn_fwd": fa.launch_count("flash_attn_fwd", dt),
+                 "flash_attn_bwd": fa.launch_count("flash_attn_bwd", dt),
+                 "ring_merge": ra.launch_count("ring_merge", dt)}
+            for dt in ("float32", "bfloat16")}
+
+
+def _ring_inputs(g, dtype, n=4):
+    import torch
+    bh, t, d = RING_SLICE
+    return [torch.randn(bh, t, d, device="cuda", generator=g).to(dtype)
+            for _ in range(n)]
+
+
+def _ring_step_shape():
+    """The [b*h, T/n, d] shard a ring step gives K1 and K2."""
+    bh, t, d = RING_SLICE
+    return [bh, t // RING_SP, d]
+
+
+def _ring_check(name, got, ref, each, kernel_tol=False, ulps_of_max=None,
+                tol=None):
+    """``(max abs error, largest share of its bound)`` of the ring's ``got``
+    against ``ref``; raises unless every value is within bounds.  float32 (and every lse): ATOL + RTOL |ref|
+    with ``kernel_tol``, else ``tol`` + ``tol`` |ref|.  bf16: ``each`` bf16
+    ulps of each value plus ``each`` ulps of ``ref``'s RMS, and where given
+    ``ulps_of_max`` ulps of its largest magnitude as well."""
+    import torch
+    err = (got.float() - ref.float()).abs()
+    if got.dtype == torch.bfloat16:
+        r = ref.float()
+        rms = float(r.square().mean().sqrt())
+        bound = each * (2.0 ** (torch.floor(torch.log2(
+            r.abs().clamp_min(1e-30))) - 7) + _bf16_ulp(torch.tensor(rms)))
+        if ulps_of_max is not None:
+            bound = bound.clamp_max(ulps_of_max * _bf16_ulp(ref))
+    elif kernel_tol:
+        bound = ATOL + RTOL * ref.abs()
+    else:
+        bound = tol + tol * ref.abs()
+    bad = ~(err <= bound)
+    if bad.any():
+        raise AssertionError(f"{name}: {int(bad.sum())} values out of "
+                             f"bounds; max abs err {float(err.max())}")
+    return float(err.max()), float((err / bound).max())
+
+
+def phase_ring_kernel():
+    """Ring attention (K7) at [24, 8192, 64] (BERT-base at batch 2 x 8192)
+    with sp 4 over one card (virtual ranks), float32 and bf16, causal and
+    not: the ring's forward and backward (K1, K2 and the merge a step) as
+    the main path, counted; then its o, lse, dq, dk and dv against the
+    plain ring (the same schedule through the plain K1, K2 and merge) and
+    against K1/K2 over the full T, and the merge kernel against its plain
+    version on partials with NEG_INF rows on either side and on both."""
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import ring_attention as ra
+    g = torch.Generator(device="cuda")
+    g.manual_seed(21)
+    devices = list(_ring_mesh().axis_devices("sp"))
+    bh, t, d = RING_SLICE
+    cases = [(dt, causal) for dt in (torch.float32, torch.bfloat16)
+             for causal in (False, True)]
+    inputs = {c: _ring_inputs(g, c[0]) for c in cases}
+
+    # the main path, counted: the ring forward and backward of each case
+    fa.reset_launch_count()
+    ra.reset_launch_count()
+    t0 = time.perf_counter()
+    out = {}
+    for (dt, causal), (q, k, v, do) in inputs.items():
+        o, lse = ra.ring_attention_fwd(q, k, v, devices, causal)
+        out[(dt, causal)] = (o, lse) + ra.ring_attention_bwd(
+            q, k, v, o, lse, do, devices, causal)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = _ring_counts()
+    want = {k_: sum(ra.expected_launches(RING_SP, c)[k_] for c in (False,
+                                                                  True))
+            for k_ in ("flash_attn_fwd", "flash_attn_bwd", "ring_merge")}
+    if launches != {"float32": want, "bfloat16": want}:
+        raise AssertionError(f"ring_kernel: launches {launches}, expected "
+                             f"{want} a dtype")
+    _log("ring_kernel", f"ring fwd + bwd at {list(RING_SLICE)} sp "
+         f"{RING_SP} (virtual ranks on one card), float32 and bf16, causal "
+         f"and not, in {wall_s:.2f} s: launches {launches} (= the schedule's"
+         f" n^2 + n(n+1)/2 K1 and K2, n(n-1) + n(n-1)/2 merges a dtype) ok")
+
+    worst = {"ring_merge": 0.0, "ring_merge_bf16": 0.0}
+    names = ("o", "lse", "dq", "dk", "dv")
+    for (dt, causal), (q, k, v, do) in inputs.items():
+        got = out[(dt, causal)]
+        tag = (f"ring {list(RING_SLICE)} sp {RING_SP} "
+               f"{'causal' if causal else 'non-causal'} "
+               f"{str(dt).replace('torch.', '')}")
+        for name, g_ in zip(names, got):
+            want_dt = torch.float32 if name == "lse" else dt
+            if g_.dtype != want_dt:
+                raise AssertionError(f"{tag} {name}: dtype {g_.dtype}")
+        # against its plain version: the same schedule, plain steps (no
+        # kernel launched)
+        before = _ring_counts()
+        po, plse = ra.ring_attention_fwd(q, k, v, devices, causal,
+                                         plain=True)
+        plain = (po, plse) + ra.ring_attention_bwd(q, k, v, got[0], got[1],
+                                                   do, devices, causal,
+                                                   plain=True)
+        if _ring_counts() != before:
+            raise AssertionError(f"{tag}: the plain ring launched a kernel")
+        errs = [_ring_check(f"{tag} {n_} vs plain", g_, r_,
+                            each=RING_BF16_EACH_PLAIN, kernel_tol=True)
+                for n_, g_, r_ in zip(names, got, plain)]
+        _log("ring_kernel", f"{tag} vs the plain ring: max abs err "
+             + " ".join(f"{n_} {e:.3g} ({u:.2f} of its bound)"
+                        for n_, (e, u) in zip(names, errs))
+             + (f" ({RING_BF16_EACH_PLAIN} bf16 ulps of each value + of "
+                "the RMS)" if dt == torch.bfloat16 else
+                f" (atol {ATOL}, rtol {RTOL})") + " ok")
+        del po, plse, plain
+        # against K1/K2 over the full T
+        ro, rlse = fa.flash_attention_fwd(q, k, v, None, causal)
+        full = (ro, rlse) + fa.flash_attention_bwd(q, k, v, ro, rlse, do,
+                                                   causal)
+        errs = [_ring_check(f"{tag} {n_} vs K1/K2", g_, r_,
+                            each=RING_BF16_EACH_FULL,
+                            ulps_of_max=dict(o=RING_BF16_ULPS_O).get(
+                                n_, RING_BF16_ULPS_GRAD),
+                            tol=RING_O_TOL if n_ in ("o", "lse")
+                            else RING_GRAD_TOL)
+                for n_, g_, r_ in zip(names, got, full)]
+        what = (f"{RING_BF16_ULPS_O} bf16 ulps of max|o|, "
+                f"{RING_BF16_ULPS_GRAD} of each gradient's, and "
+                f"{RING_BF16_EACH_FULL} of each value + of the RMS"
+                if dt == torch.bfloat16 else
+                f"rtol = atol = {RING_O_TOL} o, lse, {RING_GRAD_TOL} grads")
+        _log("ring_kernel", f"{tag} vs K1, K2 over the full T: max abs err "
+             + " ".join(f"{n_} {e:.3g} ({u:.2f} of its bound)"
+                        for n_, (e, u) in zip(names, errs))
+             + f" ({what}) ok")
+        del ro, rlse, full
+    del out
+
+    # the merge kernel against its plain version at a ring step's shape
+    tq = t // RING_SP
+    for dt, key in ((torch.float32, "ring_merge"),
+                    (torch.bfloat16, "ring_merge_bf16")):
+        o1, o2 = (torch.randn(bh, tq, d, device="cuda", generator=g).to(dt)
+                  for _ in range(2))
+        l1, l2 = (torch.randn(bh, tq, device="cuda", generator=g) * 4
+                  for _ in range(2))
+        l1[:, 0:300] = ra.NEG_INF          # masked on the left
+        l2[:, 200:500] = ra.NEG_INF        # on the right (200-299: both)
+        l1[3::5, 1000:] = ra.NEG_INF
+        o, lse = ra.ring_merge(o1, l1, o2, l2)
+        ro, rlse = ra.ring_merge_reference(o1, l1, o2, l2)
+        torch.cuda.synchronize()
+        if not bool((lse[:, 200:300] == ra.NEG_INF).all()):
+            raise AssertionError(f"{key}: rows masked on both sides must "
+                                 "keep lse = NEG_INF")
+        err = (o.float() - ro.float()).abs()
+        if dt == torch.bfloat16:
+            ulp = 2.0 ** (torch.floor(torch.log2(
+                ro.float().abs().clamp_min(1e-30))) - 7)
+            ok, tol = bool((err <= ulp).all()), "one bf16 ulp of each"
+        else:
+            ok = bool((err <= RING_MERGE_TOL
+                       + RING_MERGE_TOL * ro.abs()).all())
+            tol = f"{RING_MERGE_TOL}"
+        e_l = float((lse - rlse).abs().max())
+        if not ok or not e_l <= RING_MERGE_TOL * float(
+                rlse.abs().max()):
+            raise AssertionError(f"{key}: max abs err o {float(err.max())}"
+                                 f" lse {e_l}")
+        worst[key] = max(float(err.max()), e_l)
+        _log("ring_kernel", f"{key} [{bh}, {tq}, {d}] (NEG_INF rows on "
+             f"either side and both) vs plain: max abs err o "
+             f"{float(err.max()):.3g} ({tol}), lse {e_l:.3g} ok")
+    del inputs
+    torch.cuda.empty_cache()
+    return {"launches": launches, "worst": worst, "wall_s": wall_s}
+
+
+def _ring_program(seq, attn_impl):
+    """``bench.py:531-567``'s 8k line: ``build_bert_pretrain`` at seq 8192
+    with the fused head and static positions, under
+    ``amp.decorate(AdamOptimizer(1e-4))``."""
+    from paddle_tpu_torch import amp as amp_mod
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.framework import Program, program_guard
+    from paddle_tpu_torch.models import transformer as T
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        cfg = T.BertConfig(max_pos=seq)
+        _, _, loss = T.build_bert_pretrain(cfg, seq, fused_head=True,
+                                           arange_pos=True,
+                                           attn_impl=attn_impl, dropout=0.0)
+        amp_mod.decorate(optimizer.AdamOptimizer(
+            learning_rate=1e-4)).minimize(loss)
+    return cfg, main, startup, loss
+
+
+def phase_ring_train():
+    """BERT-base pretraining at batch 2 x 8192 under AMP (``bench.py``'s 8k
+    line) with ``attn_impl="ring"`` over sp 4 on one card (virtual ranks),
+    1 warm-up + 3 steps counted: every step launches the bf16 K1 and K2 12
+    x 16 times and the bf16 merge 12 x 12 times; then the same program
+    with ``attn_impl="flash"`` (what the reference's bench runs on one
+    chip) from the same startup seed and feed, and every ring loss held to
+    the flash loss of its step."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import ring_attention as ra
+    from paddle_tpu_torch.parallel import set_mesh
+
+    seq, batch = RING_SEQ, RING_BATCH
+    feed = None
+    results = {}
+    for impl in ("ring", "flash"):
+        cfg, main, startup, loss = _ring_program(seq, impl)
+        types = [op.type for op in main.global_block().ops]
+        n_attn = types.count(f"{impl}_attention")
+        if n_attn != cfg.n_layer:
+            raise AssertionError(f"{impl} program: {n_attn} attention ops")
+        scope, exe = Scope(), ptt.Executor()
+        exe.run(startup, scope=scope, seed=1234)
+        if feed is None:
+            rng = np.random.RandomState(0)
+            feed = {"src_ids": rng.randint(1, cfg.vocab_size, (batch, seq))
+                    .astype(np.int64),
+                    "lm_label": rng.randint(0, cfg.vocab_size, (batch, seq))
+                    .astype(np.int64)}
+            n_params = sum(int(scope.find_var(p.name).numel())
+                           for p in main.all_parameters())
+            _log("ring_train", f"BERT-base pretraining program at seq {seq}:"
+                 f" {len(types)} ops ({n_attn} {impl}_attention), "
+                 f"{n_params / 1e6:.1f} M parameters, AMP")
+        set_mesh(_ring_mesh() if impl == "ring" else None)
+        try:
+            # the main path, counted: a warm-up step and the timed steps
+            fa.reset_launch_count()
+            ra.reset_launch_count()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            prev = _ring_counts()
+            per_step, losses, step_s = [], [], []
+            for _ in range(RING_STEPS + 1):
+                t0 = time.perf_counter()
+                out, = exe.run(main, feed=feed, fetch_list=[loss],
+                               scope=scope)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                now = _ring_counts()
+                per_step.append({dt: {k_: now[dt][k_] - prev[dt][k_]
+                                      for k_ in now[dt]} for dt in now})
+                prev = now
+                losses.append(float(out))
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            set_mesh(None)
+        warm_s = step_s.pop(0)
+        n = RING_SP if impl == "ring" else 1
+        want = {k_: cfg.n_layer * c
+                for k_, c in ra.expected_launches(n, False).items()}
+        step_want = {"bfloat16": want,
+                     "float32": dict.fromkeys(want, 0)}
+        if per_step != [step_want] * (RING_STEPS + 1):
+            raise AssertionError(f"ring_train {impl}: launches per step "
+                                 f"{per_step}, expected {step_want}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"ring_train {impl}: losses {losses}")
+        step_ms = 1e3 * float(np.mean(step_s))
+        results[impl] = {
+            "losses": losses, "step_s": step_s, "step_ms": step_ms,
+            "warmup_s": warm_s, "tokens_per_s": batch * seq / step_ms * 1e3,
+            "peak_bytes": peak, "held_bytes": held,
+            "per_step": per_step[1]["bfloat16"],
+            "launches": {dt: {k_: sum(s[dt][k_] for s in per_step)
+                              for k_ in want} for dt in per_step[0]}}
+        where = (f"sp {RING_SP} (virtual ranks on one card)"
+                 if impl == "ring" else "one card")
+        _log("ring_train", f"{impl} {where}: batch {batch} x seq {seq} AMP:"
+             f" warm-up {warm_s:.2f} s, then {RING_STEPS} steps of "
+             f"{', '.join(f'{1e3 * x:.1f}' for x in step_s)} ms (mean "
+             f"{step_ms:.1f}), {results[impl]['tokens_per_s']:.0f} "
+             f"tokens/s; losses {', '.join(f'{x:.4f}' for x in losses)}; "
+             f"launches a step {per_step[1]['bfloat16']} (bf16); peak "
+             f"memory {peak / 2**30:.2f} GiB, of which {held / 2**30:.2f} "
+             f"GiB allocated before the first step")
+        del scope, exe, main, startup
+        torch.cuda.empty_cache()
+    rels = [abs(r - f) / abs(f) for r, f in zip(results["ring"]["losses"],
+                                                results["flash"]["losses"])]
+    if not all(x <= RING_LOSS_RTOL for x in rels):
+        raise AssertionError(f"ring_train: ring losses "
+                             f"{results['ring']['losses']} vs flash "
+                             f"{results['flash']['losses']} (rel {rels})")
+    _log("ring_train", f"every step's loss ring vs flash: rel "
+         f"{', '.join(f'{x:.3g}' for x in rels)} (rtol {RING_LOSS_RTOL}); "
+         f"a ring step launches {cfg.n_layer} layers x "
+         f"{RING_SP * RING_SP} K1 and K2 and "
+         f"{RING_SP * (RING_SP - 1)} merges (sp {RING_SP}, non-causal) ok")
+    results["loss_rel"] = rels
+    return results
+
+
+def timing_ring(smi, ring_train):
+    """K7 at [24, 8192, 64] non-causal sp 4 over one card (virtual ranks),
+    float32 and bf16: the ring's forward and backward, K1 and K2 over the
+    full T, ``scaled_dot_product_attention`` over the full T (the one
+    library call computing the same function), the plain ring (the plain
+    K1, K2 and merge on the same schedule), and the bound (4 d bh T^2
+    forward and 10 d bh T^2 backward float32 operations, the TPU kernel's
+    arithmetic, on the CUDA cores; q, k, v (o, do) read and o, lse (dq,
+    dk, dv) written once).  Then the merge kernel at a ring step's shape
+    ([24, 2048, 64]), its plain version, and its bytes bound; and the ring
+    training step next to the flash one."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import ring_attention as ra
+    from paddle_tpu_torch.tools.timing import time_fn, time_fn_slope
+    g = torch.Generator(device="cuda")
+    g.manual_seed(22)
+    devices = list(_ring_mesh().axis_devices("sp"))
+    bh, t, d = RING_SLICE
+    b, h = RING_BATCH, bh // RING_BATCH
+    out = {"ring": {}}
+    for dt, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        q, k, v, do = _ring_inputs(g, dt)
+        o, lse = ra.ring_attention_fwd(q, k, v, devices)
+        esz = 4.0 if dt == torch.float32 else 2.0
+        fwd_ms = _held_ms(lambda: ra.ring_attention_fwd(q, k, v, devices))
+        bwd_ms = _held_ms(lambda: ra.ring_attention_bwd(q, k, v, o, lse, do,
+                                                        devices))
+        k1_ms = 1e3 * time_fn(lambda: fa.flash_attention_fwd(q, k, v),
+                              iters=5)
+        ro, rlse = fa.flash_attention_fwd(q, k, v)
+        k2_ms = 1e3 * time_fn(lambda: fa.flash_attention_bwd(
+            q, k, v, ro, rlse, do), iters=3)
+        plain_fwd = 1e3 * time_fn(lambda: ra.ring_attention_fwd(
+            q, k, v, devices, plain=True), iters=2)
+        plain_bwd = 1e3 * time_fn(lambda: ra.ring_attention_bwd(
+            q, k, v, o, lse, do, devices, plain=True), iters=2)
+        q4, k4, v4, do4 = (x.view(b, h, t, d) for x in (q, k, v, do))
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q4, k4, v4))
+
+        def sdpa_fwd():
+            with torch.enable_grad():
+                return F.scaled_dot_product_attention(qg, kg, vg)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), do4)
+
+        sdpa_ms = 1e3 * time_fn(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4), iters=5)
+        sdpa_bwd_ms = 1e3 * (time_fn_slope(sdpa_fwd_bwd)
+                             - time_fn_slope(sdpa_fwd))
+        f_bound, f_by, f_why = _bound(4.0 * d * bh * t * t,
+                                      esz * 4 * bh * t * d + 4.0 * bh * t)
+        b_bound, b_by, b_why = _bound(10.0 * d * bh * t * t,
+                                      esz * 8 * bh * t * d + 4.0 * bh * t)
+        name = "float32" if dt == torch.float32 else "bfloat16"
+        out["ring"][name] = {
+            "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "k1_full_ms": k1_ms,
+            "k2_full_ms": k2_ms, "plain_fwd_ms": plain_fwd,
+            "plain_bwd_ms": plain_bwd, "sdpa_fwd_ms": sdpa_ms,
+            "sdpa_bwd_ms": sdpa_bwd_ms, "fwd_bound_ms": f_bound,
+            "fwd_bound_by": f_by, "bwd_bound_ms": b_bound,
+            "bwd_bound_by": b_by}
+        _log("timing", f"ring (K7) {list(RING_SLICE)} sp {RING_SP} (virtual "
+             f"ranks on one card) non-causal {name} on {smi}: forward "
+             f"{fwd_ms:.3f} ms (K1 over the full T {k1_ms:.3f}, plain ring "
+             f"{plain_fwd:.3f}, SDPA {sdpa_ms:.3f}; bound {f_bound:.3f} by "
+             f"{f_by}, {f_why}), backward {bwd_ms:.3f} ms (K2 over the full"
+             f" T {k2_ms:.3f}, plain ring {plain_bwd:.3f}, SDPA fwd+bwd "
+             f"minus fwd {sdpa_bwd_ms:.3f}; bound {b_bound:.3f} by {b_by}, "
+             f"{b_why})")
+        del q, k, v, do, o, lse, ro, rlse, qg, kg, vg
+        torch.cuda.empty_cache()
+
+        # the merge at a ring step's shape: two partials read, one written
+        tq = t // RING_SP
+        o1, o2 = (torch.randn(bh, tq, d, device="cuda", generator=g).to(dt)
+                  for _ in range(2))
+        l1, l2 = (torch.randn(bh, tq, device="cuda", generator=g)
+                  for _ in range(2))
+        # the card's time alone: a call's host side (two allocations, the
+        # ctypes launch) outlasts its kernel, so event-timed runs of calls
+        # would time the host's gaps
+        ms = _held_ms(lambda: ra.ring_merge(o1, l1, o2, l2))
+        plain_ms = _held_ms(lambda: ra.ring_merge_reference(o1, l1, o2, l2))
+        # per row: 2 exp, 1 log, 2 divisions and ~8 more; 3 per element
+        bound_ms, bound_by, why = _bound(
+            bh * tq * (13.0 + 3.0 * d), esz * 3 * bh * tq * d
+            + 4.0 * 3 * bh * tq)
+        out["ring_merge" + tag] = {"ms": ms, "plain_ms": plain_ms,
+                                   "library_ms": None, "bound_ms": bound_ms,
+                                   "bound_by": bound_by}
+        _log("timing", f"ring_merge{tag} [{bh}, {tq}, {d}] on {smi}: kernel "
+             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, no single library "
+             f"call; bound {bound_ms:.4f} ms by {bound_by} ({why}): "
+             f"{100 * bound_ms / ms:.1f}% of bound")
+        del o1, o2, l1, l2
+    for impl in ("ring", "flash"):
+        r = ring_train[impl]
+        _log("timing", f"ring_train {impl} on {smi}: step {r['step_ms']:.1f}"
+             f" ms (mean of {RING_STEPS}), {r['tokens_per_s']:.0f} tokens/s,"
+             f" peak memory {r['peak_bytes'] / 2**30:.2f} GiB")
+    return out
+
+
 def timing_k68(smi):
     """K6 at rn50_fused_bench's four calls (bf16): kernel, plain version,
     one library composition (a bf16 ``torch.matmul`` + the two float32
@@ -2500,12 +2996,15 @@ _KERNELS = (
      "tools/attn_shape_ceiling.py:38"),
     ("attn_skeleton_bwd", "paddle_tpu_torch/csrc/attn_skeleton.cu",
      "tools/attn_shape_ceiling.py:78"),
+    ("ring_merge", "paddle_tpu_torch/csrc/ring_attention.cu",
+     "paddle_tpu/pallas/ring_attention.py:70"),
 )
 
 
 #: the kernels with a bf16 form (AMP), listed as ``<name>_bf16``
 _BF16_FORMS = ("flash_attn_fwd", "flash_attn_bwd", "conv1x1_stats",
-               "layer_norm_fwd", "layer_norm_bwd", "dense_epilogue")
+               "layer_norm_fwd", "layer_norm_bwd", "dense_epilogue",
+               "ring_merge")
 
 
 def main(argv=None) -> int:
@@ -2529,6 +3028,8 @@ def main(argv=None) -> int:
     smi = phase_env()
     worst = phase_kernel()
     worst.update(phase_kernel_bf16())
+    ring_kernel = phase_ring_kernel()
+    worst.update(ring_kernel["worst"])
     serve = phase_serve()
     train = phase_train()
     amp_train = phase_amp_train(train)
@@ -2538,11 +3039,14 @@ def main(argv=None) -> int:
     amp_resnet = phase_amp_resnet()
     rn50_fused = phase_rn50_fused()
     ceiling = phase_attn_ceiling()
+    ring_train = phase_ring_train()
     timing = phase_timing(smi, serve, train)
     timing["conv1x1_stats"] = timing_k3(smi, resnet)
     timing.update(timing_k45(smi, train, fused))
     timing.update(timing_k68(smi))
     timing.update(timing_bf16(smi, amp_train, amp_fused, amp_resnet))
+    timing.update(timing_ring(smi, ring_train))
+    ring_times = timing.pop("ring")
     k3_shapes = timing["conv1x1_stats"].pop("per_shape")
     k6_calls = timing["matmul_bn_stats"].pop("per_call")
     prof = None
@@ -2576,6 +3080,12 @@ def main(argv=None) -> int:
         by_path[name + "_bf16"] = {
             "amp_fused_train": amp_fused["launches"][name + "_bf16"]}
     by_path["conv1x1_stats_bf16"] = {"amp_resnet": amp_resnet["launches"]}
+    # the ring's paths: ring_kernel runs both dtypes, ring_train (AMP) bf16
+    for name in ("flash_attn_fwd", "flash_attn_bwd", "ring_merge"):
+        for dtype, tag in (("float32", ""), ("bfloat16", "_bf16")):
+            by_path.setdefault(name + tag, {}).update(
+                ring_kernel=ring_kernel["launches"][dtype][name],
+                ring_train=ring_train["ring"]["launches"][dtype][name])
     missing = [n for n, paths in by_path.items() if not sum(paths.values())]
     if missing:
         raise AssertionError(f"kernels never launched on their paths: "
@@ -2595,6 +3105,8 @@ def main(argv=None) -> int:
                        "conv1x1_stats_shapes": k3_shapes,
                        "matmul_bn_stats_calls": k6_calls,
                        "rn50_fused": rn50_fused, "attn_ceiling": ceiling,
+                       "ring_kernel": ring_kernel, "ring_times": ring_times,
+                       "ring_train": ring_train,
                        "serve": {k: v for k, v in serve.items()
                                  if k not in ("scope", "factory")},
                        "train": {k: v for k, v in train.items()

@@ -12,7 +12,8 @@ This package holds the serving slice (the GPT causal LM served through
 (``append_backward``, the static-graph optimizers, and an executor that runs
 the backward pass) and ResNet training through the graph-fusion pass
 (``analysis.fusion``), whose fused conv1x1 + batch-norm op runs a CUDA
-kernel.
+kernel, and ring attention over the ``sp`` axis of a device mesh
+(``parallel``).
 """
 
 from . import ops  # noqa  (registers the op lowerings)
@@ -25,7 +26,7 @@ from .framework import (Program, Scope, Variable,  # noqa
                         default_startup_program, global_scope,
                         program_guard, scope_guard)
 from .framework.executor import Executor  # noqa
-from . import amp, io, models, optimizer, serving  # noqa
+from . import amp, io, models, optimizer, parallel, serving  # noqa
 from .param_attr import ParamAttr  # noqa
 from .place import (CPUPlace, CUDAPlace, device_count,  # noqa
                     is_compiled_with_cuda)

@@ -387,7 +387,8 @@ template <typename T, int NJ>
 cudaError_t launch(const T* q, const T* k, const T* v, const T* o,
                    const float* lse, const T* dout, float* delta, T* dq,
                    T* dk, T* dv, int bh, int tq, int tk, int d,
-                   float sm_scale, int causal, cudaStream_t stream) {
+                   float sm_scale, int causal, int delta_ready,
+                   cudaStream_t stream) {
   const int ld = NJ * TX + 1;
   const size_t smem =
       sizeof(float) * (4 * 64 * (size_t)ld + 64 * 65 + 2 * 64);
@@ -400,13 +401,15 @@ cudaError_t launch(const T* q, const T* k, const T* v, const T* o,
                              (int)smem);
   if (err != cudaSuccess) return err;
 
-  const long long rows = (long long)bh * tq;
-  const int warps = 8;
-  flash_bwd_delta_kernel<T><<<(unsigned)((rows + warps - 1) / warps),
-                              32 * warps, 0, stream>>>(o, dout, delta, rows,
-                                                       d);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (!delta_ready) {
+    const long long rows = (long long)bh * tq;
+    const int warps = 8;
+    flash_bwd_delta_kernel<T><<<(unsigned)((rows + warps - 1) / warps),
+                                32 * warps, 0, stream>>>(o, dout, delta,
+                                                         rows, d);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
 
   const dim3 block(TX, TY);
   flash_bwd_dkdv_kernel<T, NJ><<<dim3(bh, (tk + BK - 1) / BK), block, smem,
@@ -424,7 +427,7 @@ template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* o,
              const float* lse, const void* dout, float* delta, void* dq,
              void* dk, void* dv, int bh, int tq, int tk, int d,
-             float sm_scale, int causal, cudaStream_t s) {
+             float sm_scale, int causal, int delta_ready, cudaStream_t s) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -434,14 +437,14 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
   T* dkt = static_cast<T*>(dk);
   T* dvt = static_cast<T*>(dv);
   switch ((d + TX - 1) / TX) {
-    case 1: return (int)launch<T, 1>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, s);
-    case 2: return (int)launch<T, 2>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, s);
-    case 3: return (int)launch<T, 3>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, s);
-    case 4: return (int)launch<T, 4>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, s);
-    case 5: return (int)launch<T, 5>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, s);
-    case 6: return (int)launch<T, 6>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, s);
-    case 7: return (int)launch<T, 7>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, s);
-    case 8: return (int)launch<T, 8>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, s);
+    case 1: return (int)launch<T, 1>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, delta_ready, s);
+    case 2: return (int)launch<T, 2>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, delta_ready, s);
+    case 3: return (int)launch<T, 3>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, delta_ready, s);
+    case 4: return (int)launch<T, 4>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, delta_ready, s);
+    case 5: return (int)launch<T, 5>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, delta_ready, s);
+    case 6: return (int)launch<T, 6>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, delta_ready, s);
+    case 7: return (int)launch<T, 7>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, delta_ready, s);
+    case 8: return (int)launch<T, 8>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, delta_ready, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -450,15 +453,17 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
 
 // Plain C entry point, bound with ctypes.  q/o/do/dq [bh,tq,d] and
 // k/v/dk/dv [bh,tk,d] of one type, float32 (dtype 0) or bf16 (dtype 1);
-// lse/delta [bh,tq] float32; all contiguous, on the device; delta is
-// scratch the caller allocates.  Launches three kernels on `stream` (delta,
-// dK/dV, dQ) and returns the cudaError_t of the launches (0 when all were
+// lse/delta [bh,tq] float32; all contiguous, on the device.  With
+// delta_ready 0, delta is scratch the caller allocates and the first of three
+// kernels fills it; with delta_ready 1 it holds rowsum(do * o) already (ring
+// attention computes it once per backward, not once per ring step) and only
+// the dK/dV and dQ kernels run.  Launches on `stream` and returns the cudaError_t of the launches (0 when all were
 // accepted).
 extern "C" int paddle_tpu_torch_flash_attn_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* delta, void* dq, void* dk,
     void* dv, int bh, int tq, int tk, int d, float sm_scale, int causal,
-    int dtype, void* stream) {
+    int delta_ready, int dtype, void* stream) {
   const float* lf = static_cast<const float*>(lse);
   float* df = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -467,9 +472,10 @@ extern "C" int paddle_tpu_torch_flash_attn_bwd(
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return dispatch<float>(q, k, v, o, lf, dout, df, dq, dk, dv, bh, tq, tk,
-                           d, sm_scale, causal, s);
+                           d, sm_scale, causal, delta_ready, s);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(q, k, v, o, lf, dout, df, dq, dk, dv, bh,
-                                   tq, tk, d, sm_scale, causal, s);
+                                   tq, tk, d, sm_scale, causal, delta_ready,
+                                   s);
   return (int)cudaErrorInvalidValue;
 }

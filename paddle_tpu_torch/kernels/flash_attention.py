@@ -200,7 +200,7 @@ def _entry(kernel="flash_attn_fwd"):
         else:
             fn = lib.paddle_tpu_torch_flash_attn_bwd
             fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _entry_fns[kernel] = fn
     return fn
@@ -211,20 +211,21 @@ def _entry(kernel="flash_attn_fwd"):
 # ---------------------------------------------------------------------------
 
 def flash_attention_bwd_reference(q, k, v, o, lse, do, bias=None,
-                                  causal=False, sm_scale=None):
+                                  causal=False, sm_scale=None, delta=None):
     """Plain version of the backward: ``(dq, dk, dv, dbias)``, the math of
     ``paddle_tpu``'s ``_flash_bwd_jax`` (flash_attention.py:641) in one
     dense pass.  P is rebuilt from the saved ``lse`` and is 0 wherever the
     score is ``<= NEG_INF / 2`` (masked), so a row with no live key gets
-    zero gradients; ``delta = rowsum(do * o)`` in float32; ``sm_scale`` is
-    folded into q.  ``dbias`` is ``[1|bh, Tq, Tk]`` like the bias (summed
+    zero gradients; ``delta = rowsum(do * o)`` in float32 (or the given
+    ``delta``); ``sm_scale`` is folded into q.  ``dbias`` is ``[1|bh, Tq, Tk]`` like the bias (summed
     over bh for a shared plane), None without a bias."""
     bh, tq, d = q.shape
     tk = k.shape[1]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
-    delta = torch.sum(do32 * o.float(), dim=-1)
+    if delta is None:
+        delta = torch.sum(do32 * o.float(), dim=-1)
     s = torch.matmul(q32 * sm_scale, k32.transpose(1, 2))
     if bias is not None:
         s = s + bias.float()
@@ -246,7 +247,8 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, bias=None,
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
-                        sm_scale: Optional[float] = None):
+                        sm_scale: Optional[float] = None,
+                        delta: Optional[torch.Tensor] = None):
     """``(dq, dk, dv)`` for the contiguous ``q [bh,Tq,d]``, ``k/v
     [bh,Tk,d]``, the forward's ``o [bh,Tq,d]`` and float32 ``lse
     [bh,Tq]``, and the output gradient ``do [bh,Tq,d]`` (q, k, v, o and do
@@ -254,7 +256,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
     float32 and rounded once); d is a multiple of 8 up to 128.
     Launches the CUDA kernel on the current stream for CUDA tensors; CPU
     tensors take the plain version.  (No bias: with one, the backward is
-    the plain version on any device, as in the reference.)"""
+    the plain version on any device, as in the reference.)  ``delta``, a
+    contiguous float32 ``[bh, Tq]`` tensor, is ``rowsum(do * o)`` computed
+    by the caller (ring attention computes it once for all its steps); the
+    kernel then skips its own delta pass."""
     what = "flash_attention_bwd"
     _check(q, k, v, None, what, (("o", o), ("do", do)))
     bh, tq, d = q.shape
@@ -267,23 +272,32 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
         raise ValueError(f"{what}: lse must be a contiguous float32 "
                          f"[{bh}, {tq}] tensor, got {tuple(lse.shape)} "
                          f"{lse.dtype}")
+    if delta is not None and (
+            delta.dtype != torch.float32 or not delta.is_contiguous()
+            or tuple(delta.shape) != (bh, tq) or delta.device != q.device):
+        raise ValueError(f"{what}: delta must be a contiguous float32 "
+                         f"[{bh}, {tq}] tensor, got {tuple(delta.shape)} "
+                         f"{delta.dtype}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, o, lse, do, None,
-                                             causal, sm_scale)[:3]
+                                             causal, sm_scale, delta)[:3]
     if q.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {q.device}")
     fn = _entry("flash_attn_bwd")
     tk = k.shape[1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
+    delta_ready = delta is not None
+    if not delta_ready:
+        delta = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, tq, tk, d,
-                 float(sm_scale), int(bool(causal)), DTYPES[q.dtype], stream)
+                 float(sm_scale), int(bool(causal)), int(delta_ready),
+                 DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd kernel launch failed: CUDA "
                            f"error {err}")

@@ -8,7 +8,8 @@ from .metric_op import accuracy  # noqa
 from .nn import (batch_norm, conv2d, cross_entropy, embedding,  # noqa
                  expand, fc, flash_attention, fused_lm_head_ce, layer_norm,
                  matmul, mean, pool2d, reduce_max, reduce_mean, reduce_min,
-                 reduce_prod, reduce_sum, relu, reshape, sign, slice,
+                 reduce_prod, reduce_sum, relu, reshape, ring_attention,
+                 sign, slice,
                  softmax, softmax_with_cross_entropy, split, topk,
                  transpose, unsqueeze)
 from .tensor import (cast, create_global_var, create_parameter,  # noqa

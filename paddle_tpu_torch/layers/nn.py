@@ -426,3 +426,19 @@ def flash_attention(q, k, v, bias=None, causal=False, sm_scale=None,
                      attrs={"causal": causal, "sm_scale": sm_scale or 0.0,
                             "block_q": block_q or 0, "block_k": block_k or 0})
     return out
+
+
+def ring_attention(q, k, v, causal=False, sm_scale=None, axis_name="sp",
+                   name=None):
+    """Sequence-parallel attention (ref ``paddle_tpu/layers/nn.py:1175``):
+    the ``ring_attention`` op.  Under a current mesh whose ``axis_name``
+    axis has more than one rank, K/V shards rotate over that ring
+    (``paddle_tpu_torch.kernels.ring_attention``); otherwise it runs
+    flash attention."""
+    helper = LayerHelper("ring_attention", name=name)
+    out = helper.create_variable_for_type_inference(q.dtype)
+    helper.append_op("ring_attention", inputs={"Q": [q], "K": [k], "V": [v]},
+                     outputs={"Out": [out]},
+                     attrs={"causal": causal, "sm_scale": sm_scale or 0.0,
+                            "axis_name": axis_name})
+    return out

@@ -27,18 +27,19 @@ def multi_head_attention(queries, keys, values, d_model, n_head,
     """ref dist_transformer.py:958 multi_head_attention.
 
     attn_impl: "base" (matmul→softmax→matmul chain, ref recipe), "flash"
-    (the fused ``flash_attention`` op), or "auto" — flash from T ≥ 1024
-    when no attention-weight dropout is wanted, else base (the reference's
-    rule, ``paddle_tpu/models/transformer.py:37-40``)."""
+    (the fused ``flash_attention`` op), "ring" (the ``ring_attention`` op:
+    the ring over the current mesh's ``sp`` axis, flash without one; no
+    ``attn_bias``), or "auto" — flash from T ≥ 1024 when no
+    attention-weight dropout is wanted, else base (the reference's rule,
+    ``paddle_tpu/models/transformer.py:37-40``)."""
     _no_dropout(dropout_rate)
     d_head = d_model // n_head
     if attn_impl == "auto":
         seq = queries.shape[1] if queries.shape is not None else 0
         exact = (dropout_rate == 0.0) or is_test
         attn_impl = "flash" if (seq and seq >= 1024 and exact) else "base"
-    if attn_impl not in ("base", "flash"):
-        raise NotImplementedError(f"attn_impl={attn_impl!r} is not ported "
-                                  "yet (ring attention: distributed slice)")
+    if attn_impl not in ("base", "flash", "ring"):
+        raise NotImplementedError(f"attn_impl={attn_impl!r} is not ported")
 
     def _proj(x, size, name):
         return layers.fc(x, size=size, num_flatten_dims=2,
@@ -63,6 +64,10 @@ def multi_head_attention(queries, keys, values, d_model, n_head,
     if attn_impl == "flash":
         ctx = layers.flash_attention(q, k, v, bias=attn_bias, causal=causal,
                                      sm_scale=float(d_head) ** -0.5)
+    elif attn_impl == "ring":
+        assert attn_bias is None, "ring attention supports causal= only"
+        ctx = layers.ring_attention(q, k, v, causal=causal,
+                                    sm_scale=float(d_head) ** -0.5)
     else:
         # scaled dot-product attention (ref dist_transformer.py:1034)
         scores = layers.matmul(q, k, transpose_y=True,

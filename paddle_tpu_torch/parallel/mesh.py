@@ -1,0 +1,109 @@
+"""Device meshes: the port of ``paddle_tpu/parallel/mesh.py:24-80,126-130``.
+
+A :class:`Mesh` names the axes of an object ndarray of ``torch.device``,
+as ``jax.sharding.Mesh`` names an array of JAX devices:
+
+- ``dp``  — data parallel
+- ``mp``  — tensor/model parallel
+- ``sp``  — sequence/context parallel (the ring-attention axis)
+- ``pp``  — pipeline stages
+- ``ep``  — expert parallel (MoE)
+
+The contract is the reference's: axes are ordered as :data:`AXES` (names
+outside it follow in the order given), and the sizes must multiply to the
+number of devices, or :func:`make_mesh` raises.  ``devices=None`` means
+every visible CUDA card; with no card it raises (there is no CPU fallback).
+
+An explicit device list may name a device more than once:
+``[torch.device("cpu")] * 8`` or ``[torch.device("cuda", 0)] * 4``.  That
+is the port's analog of XLA's ``--xla_force_host_platform_device_count``,
+with which the reference's tests build their 8-device CPU mesh: each
+position of the mesh is a rank of its own (a *virtual rank*), and the
+ranks that share a device run one after another on it.  Only tests and
+``chip_smoke.py`` build such meshes.
+
+``sharding_for``, ``data_parallel_mesh``, the topology and hierarchical
+meshes and the collectives over a mesh come with the distributed slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+AXES = ("dp", "mp", "sp", "pp", "ep")
+
+_current_mesh: Optional["Mesh"] = None
+
+
+class Mesh:
+    """Named axes over an object ndarray of ``torch.device``.
+
+    ``devices`` has one dimension per axis; ``shape`` maps each axis name
+    to its size, in axis order (``jax.sharding.Mesh.shape``)."""
+
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+        devices = np.asarray(devices, dtype=object)
+        axis_names = tuple(axis_names)
+        if devices.ndim != len(axis_names):
+            raise ValueError(f"mesh of shape {devices.shape} cannot take "
+                             f"the axes {axis_names}")
+        self.devices = devices
+        self.axis_names = axis_names
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names,
+                        (int(s) for s in self.devices.shape)))
+
+    def axis_devices(self, axis_name: str) -> list:
+        """The devices along ``axis_name`` at position 0 of every other
+        axis: the ranks of one ``axis_name`` group, in rank order."""
+        i = self.axis_names.index(axis_name)
+        return list(np.moveaxis(self.devices, i, -1).reshape(
+            -1, self.devices.shape[i])[0])
+
+    def __repr__(self):
+        return f"Mesh({self.shape}, devices={list(self.devices.flat)})"
+
+
+def _cuda_devices() -> list:
+    if not torch.cuda.is_available():
+        raise RuntimeError("make_mesh: no CUDA device is available; pass "
+                           "an explicit device list (e.g. "
+                           "[torch.device('cpu')] * n) to build a mesh of "
+                           "virtual ranks")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def make_mesh(axes: Dict[str, int], devices=None) -> Mesh:
+    """Build a Mesh from {axis_name: size}; sizes must multiply to
+    #devices.  Axis order follows :data:`AXES`, so dp is outermost."""
+    devices = [torch.device(d) for d in (
+        devices if devices is not None else _cuda_devices())]
+    names = [a for a in AXES if a in axes] + \
+        [a for a in axes if a not in AXES]
+    sizes = [int(axes[a]) for a in names]
+    if int(np.prod(sizes)) != len(devices):
+        raise ValueError(f"mesh {axes} needs {int(np.prod(sizes))} devices, "
+                         f"have {len(devices)}")
+    arr = np.empty(len(devices), dtype=object)
+    arr[:] = devices
+    return Mesh(arr.reshape(sizes), axis_names=tuple(names))
+
+
+def set_mesh(mesh: Optional[Mesh]):
+    global _current_mesh
+    _current_mesh = mesh
+
+
+def current_mesh() -> Optional[Mesh]:
+    return _current_mesh
+
+
+def mesh_axis_sizes(mesh: Mesh) -> Dict[str, int]:
+    """{axis_name: size} of a Mesh."""
+    return {str(a): int(s)
+            for a, s in zip(mesh.axis_names, mesh.devices.shape)}

@@ -62,6 +62,7 @@ from paddle_tpu_torch.framework import core, registry, scope, unique_name
 from paddle_tpu_torch.framework.executor import LowerCtx
 from paddle_tpu_torch.models import resnet
 from paddle_tpu_torch.models import transformer as T
+from _port_fixtures import collect_garbage_after_module  # noqa: F401
 
 GPT = dict(vocab_size=64, d_model=64, n_layer=2, n_head=2, d_inner=128,
            max_pos=64, dropout=0.0)

@@ -26,6 +26,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from paddle_tpu_torch.kernels import attn_skeleton as sk
+from _port_fixtures import collect_garbage_after_module  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUM_RTOL, ATOL = 2.0 ** -20, 1e-6

@@ -39,6 +39,7 @@ from paddle_tpu_torch import optimizer as opt
 from paddle_tpu_torch.framework import core, registry, scope, unique_name
 from paddle_tpu_torch.framework.executor import LowerCtx
 from paddle_tpu_torch.models import transformer as T
+from _port_fixtures import collect_garbage_after_module  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 CFG = dict(vocab_size=64, d_model=32, n_layer=2, n_head=4, d_inner=64,

@@ -51,6 +51,16 @@ have them), so it runs there with the repo's conftest left out:
   at small shapes; ``timing.time_held`` times the card alone and repeats
   (then refuses) a round whose hold ended before the host had enqueued it;
   the autotuner's chain timing on the card.
+- ring attention (K7): the merge kernel against its plain version, float32
+  (within 1e-6 + 1e-6 relative) and bf16 (one bf16 ulp of each value), with
+  NEG_INF rows on either side and on both; the ring over ``[cuda:0] * n``
+  (n 2 and 4, virtual ranks) against K1/K2 over the full T (o within 2e-5,
+  gradients within 2e-4 in float32; 2 bf16 ulps of max|o| and 4 of each
+  gradient's in bf16) and against the plain ring (1e-5 + 1e-4 relative;
+  4 bf16 ulps of each value + 4 of the RMS), with the launch counts of
+  ``expected_launches``; K2
+  with a given delta (float32 and bf16) against its plain version given
+  the same delta; the toy BERT ring program on the card against the host.
 """
 
 import numpy as np
@@ -64,7 +74,9 @@ from paddle_tpu_torch.kernels import conv_bn as cb
 from paddle_tpu_torch.kernels import dense_epilogue as de
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import layer_norm as ln
+from paddle_tpu_torch.kernels import ring_attention as ra
 from paddle_tpu_torch.models import transformer as T
+from paddle_tpu_torch.parallel import make_mesh, set_mesh
 from paddle_tpu_torch.tools import timing
 
 pytestmark = pytest.mark.cuda
@@ -986,3 +998,164 @@ def test_amp_tiny_gpt_step_on_the_card_matches_the_host(cuda):
     np.testing.assert_allclose(card, host, rtol=2.0 ** -7)
     for p in main.all_parameters():
         assert scope.find_var(p.name).dtype == torch.float32
+
+
+# -- ring attention (K7) -------------------------------------------------------
+
+
+def _merge_inputs(device, dtype, seed=9):
+    g = torch.Generator().manual_seed(seed)
+    bh, tq, d = 6, 200, 64
+    o1, o2 = (torch.randn(bh, tq, d, generator=g) for _ in range(2))
+    l1, l2 = (torch.randn(bh, tq, generator=g) * 4 for _ in range(2))
+    l1[0, :40] = ra.NEG_INF                 # masked on the left
+    l2[0, 20:60] = ra.NEG_INF               # on the right (20-39: both)
+    l2[3, ::3] = ra.NEG_INF
+    return [x.to(device) for x in (o1.to(dtype), l1, o2.to(dtype), l2)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_merge_matches_plain_version(cuda, dtype):
+    o1, l1, o2, l2 = _merge_inputs(cuda, getattr(torch, dtype))
+    n0 = ra.launch_count("ring_merge", dtype)
+    o, lse = ra.ring_merge(o1, l1, o2, l2)
+    torch.cuda.synchronize()
+    assert ra.launch_count("ring_merge", dtype) == n0 + 1
+    ro, rlse = ra.ring_merge_reference(o1, l1, o2, l2)
+    torch.testing.assert_close(lse, rlse, rtol=1e-6, atol=1e-6)
+    assert bool((lse[0, 20:40] == ra.NEG_INF).all())
+    if dtype == "float32":
+        torch.testing.assert_close(o, ro, rtol=1e-6, atol=1e-6)
+    else:
+        err = (o.float() - ro.float()).abs()
+        ulp = 2.0 ** (torch.floor(torch.log2(ro.float().abs()
+                                             .clamp_min(1e-30))) - 7)
+        assert o.dtype == BF16 and bool((err <= ulp).all()), float(err.max())
+
+
+@pytest.mark.parametrize("bad", ["dtype", "layout", "lse"])
+def test_ring_merge_wrapper_refuses_on_the_card(cuda, bad):
+    o1, l1, o2, l2 = _merge_inputs(cuda, torch.float32)
+    if bad == "dtype":
+        o1, o2 = o1.half(), o2.half()
+    elif bad == "layout":
+        o1 = o1.transpose(0, 1).contiguous().transpose(0, 1)
+    else:
+        l1 = l1.double()
+    n0 = ra.launch_count()
+    with pytest.raises((TypeError, ValueError)):
+        ra.ring_merge(o1, l1, o2, l2)
+    assert ra.launch_count() == n0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_ring_matches_full_attention_on_the_card(cuda, n, causal, dtype):
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(n)
+    q, k, v, do = (torch.randn(4, 256, 64, generator=g).to(cuda).to(dt)
+                   for _ in range(4))
+    devices = [cuda] * n
+    fa.reset_launch_count()
+    ra.reset_launch_count()
+    o, lse = ra.ring_attention_fwd(q, k, v, devices, causal)
+    dq, dk, dv = ra.ring_attention_bwd(q, k, v, o, lse, do, devices, causal)
+    torch.cuda.synchronize()
+    got = {"flash_attn_fwd": fa.launch_count("flash_attn_fwd", dtype),
+           "flash_attn_bwd": fa.launch_count("flash_attn_bwd", dtype),
+           "ring_merge": ra.launch_count("ring_merge", dtype)}
+    assert got == ra.expected_launches(n, causal)
+    ro, rlse = fa.flash_attention_fwd(q, k, v, None, causal)
+    want = fa.flash_attention_bwd(q, k, v, ro, rlse, do, causal)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+    if dtype == "float32":
+        torch.testing.assert_close(o, ro, rtol=2e-5, atol=2e-5)
+        for g_, w_ in zip((dq, dk, dv), want):
+            torch.testing.assert_close(g_, w_, rtol=2e-4, atol=2e-4)
+    else:
+        for name, g_, w_, ulps in zip(("o", "dq", "dk", "dv"),
+                                      (o, dq, dk, dv), (ro,) + want,
+                                      (2, 4, 4, 4)):
+            assert g_.dtype == BF16, name
+            err = float((g_.float() - w_.float()).abs().max())
+            assert err <= ulps * _ulp(w_), (name, err, _ulp(w_))
+    # against the plain ring: the same schedule through the plain steps
+    po, plse = ra.ring_attention_fwd(q, k, v, devices, causal, plain=True)
+    plain = ra.ring_attention_bwd(q, k, v, o, lse, do, devices, causal,
+                                  plain=True)
+    torch.testing.assert_close(lse, plse, rtol=1e-4, atol=1e-5)
+    for name, g_, w_ in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv),
+                            (po,) + plain):
+        if dtype == "float32":
+            torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-5,
+                                       msg=name)
+        else:
+            # 4 bf16 ulps of each value plus 4 of the tensor's RMS
+            w32 = w_.float()
+            each = 2.0 ** (torch.floor(torch.log2(
+                w32.abs().clamp_min(1e-30))) - 7)
+            rms = float(w32.square().mean().sqrt())
+            err = (g_.float() - w32).abs()
+            assert bool((err <= 4 * (each + 2.0 ** (np.floor(np.log2(rms))
+                                                    - 7))).all()), name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_k2_with_a_given_delta_on_the_card(cuda, causal, dtype):
+    """K2 with the caller's delta against its plain version given the same
+    delta.  The delta is rowsum(do * o) plus noise, so a kernel that
+    recomputed its own delta instead would disagree."""
+    q, k, v, o, lse, do = _bwd_inputs(4, 130, 130, 64, causal, cuda)
+    if dtype == "bfloat16":
+        q, k, v, o, do = (x.to(BF16) for x in (q, k, v, o, do))
+    g = torch.Generator().manual_seed(5)
+    delta = (torch.sum(do.float() * o.float(), dim=-1)
+             + torch.randn(4, 130, generator=g).to(cuda))
+    n0 = fa.launch_count("flash_attn_bwd", dtype)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, None, delta)
+    torch.cuda.synchronize()
+    assert fa.launch_count("flash_attn_bwd", dtype) == n0 + 1
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, None,
+                                            causal, None, delta)[:3]
+    for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+        if dtype == "float32":
+            torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-5,
+                                       msg=name)
+        else:
+            _within_ulp(g_, w_, what=name)
+
+
+def test_ring_bert_on_the_card_matches_the_host(cuda):
+    """The toy BERT ring program, 2 SGD steps over 4 virtual ranks on the
+    card and on the host: losses within 1e-5 relative."""
+    from paddle_tpu_torch import optimizer
+    cfg = T.BertConfig(vocab_size=64, d_model=64, n_layer=2, n_head=2,
+                       d_inner=128, max_pos=64, dropout=0.0)
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        _, _, loss = T.build_bert_pretrain(cfg, 64, attn_impl="ring",
+                                           arange_pos=True)
+        optimizer.SGDOptimizer(0.05).minimize(loss)
+    scope, host_scope = Scope(), Scope()
+    exe = ptt.Executor()
+    exe.run(startup, scope=scope, seed=4)
+    for name, val in scope.items():
+        host_scope.set_var(name, val.detach().cpu())
+    rng = np.random.RandomState(2)
+    feed = {"src_ids": rng.randint(1, 64, (2, 64)).astype(np.int64),
+            "lm_label": rng.randint(0, 64, (2, 64)).astype(np.int64)}
+    host_exe = ptt.Executor(ptt.CPUPlace())
+    try:
+        for _ in range(2):
+            set_mesh(make_mesh({"sp": 4}, [cuda] * 4))
+            ra.reset_launch_count()
+            card, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            assert ra.launch_count("ring_merge") == 2 * 12
+            set_mesh(make_mesh({"sp": 4}, [torch.device("cpu")] * 4))
+            host, = host_exe.run(main, feed=feed, fetch_list=[loss],
+                                 scope=host_scope)
+            np.testing.assert_allclose(card, host, rtol=1e-5)
+    finally:
+        set_mesh(None)

@@ -29,6 +29,7 @@ import torch
 
 from paddle_tpu_torch.kernels import dense_epilogue as de
 from paddle_tpu_torch.ops import fused_ops
+from _port_fixtures import collect_garbage_after_module  # noqa: F401
 
 ref_de = importlib.import_module("paddle_tpu.pallas.dense_epilogue")
 

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import flash_attention as fa
+from _port_fixtures import collect_garbage_after_module  # noqa: F401
 
 # the module, not the function paddle_tpu.pallas re-exports under its name
 ref_fa = importlib.import_module("paddle_tpu.pallas.flash_attention")

@@ -57,6 +57,7 @@ from paddle_tpu_torch.compiler import CompiledProgram
 from paddle_tpu_torch.framework import core, registry, scope, unique_name
 from paddle_tpu_torch.framework.executor import LowerCtx
 from paddle_tpu_torch.models import transformer as T
+from _port_fixtures import collect_garbage_after_module  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 DEFAULTS = {"FLAGS_graph_fusion": True, "FLAGS_fusion_autotune": False,

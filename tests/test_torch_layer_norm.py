@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import layer_norm as ln
+from _port_fixtures import collect_garbage_after_module  # noqa: F401
 
 ref_ln = importlib.import_module("paddle_tpu.pallas.layer_norm")
 

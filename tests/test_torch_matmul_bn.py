@@ -35,6 +35,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import conv_bn as cb
+from _port_fixtures import collect_garbage_after_module  # noqa: F401
 
 ref_cb = importlib.import_module("paddle_tpu.pallas.conv_bn")
 

@@ -6,8 +6,8 @@
   GPT, with the fusion autotuner on in the last, one bf16 AMP step
   (``amp.decorate``, master weights staying float32), one Momentum step of a
   toy ResNet through the graph-fusion pass, and the measurement tools'
-  chains, skeletons and peak table (``paddle_tpu_torch.tools``) on the CPU
-  works;
+  chains, skeletons and peak table (``paddle_tpu_torch.tools``), and one
+  ring attention forward + backward over 4 virtual ranks on the CPU work;
 - a source scan finds no ``jax`` or ``paddle_tpu`` import in the package or
   in ``chip_smoke.py``;
 - ``Executor()`` (the card by default) raises when there is no GPU.
@@ -23,6 +23,7 @@ import pytest
 import torch
 
 import paddle_tpu_torch as ptt
+from _port_fixtures import collect_garbage_after_module  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -134,6 +135,17 @@ _BLOCKED = textwrap.dedent("""
                                                                    64, 8)
     assert timing.peaks("NVIDIA H100 80GB HBM3")[0] == 67e12
     assert attn_shape_ceiling.CASES[0] == (2048, 24)
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import ring_attention as ra
+    from paddle_tpu_torch.parallel import make_mesh
+    qkv = [torch.randn(1, 2, 16, 8, generator=torch.Generator().manual_seed(i))
+           .requires_grad_() for i in range(3)]
+    ro = ra.ring_attention(*qkv, make_mesh({"sp": 4}, [torch.device("cpu")]
+                                           * 4), causal=True)
+    ro.sum().backward()
+    want = fa.mha_reference(*(x.detach() for x in qkv), causal=True)
+    assert torch.allclose(ro, want, atol=2e-5) and all(
+        torch.isfinite(x.grad).all() for x in qkv)
     assert not [m for m, mod in sys.modules.items() if mod is not None
                 and (m == "jax" or m.startswith(("jax.", "paddle_tpu.")))]
     print("served", out[0].shape, "trained", float(l0), float(l1),
@@ -182,7 +194,11 @@ def test_no_jax_or_reference_import_in_sources():
             "paddle_tpu_torch/tools/__init__.py",
             "paddle_tpu_torch/tools/timing.py",
             "paddle_tpu_torch/tools/rn50_fused_bench.py",
-            "paddle_tpu_torch/tools/attn_shape_ceiling.py"} <= scanned
+            "paddle_tpu_torch/tools/attn_shape_ceiling.py",
+            "paddle_tpu_torch/kernels/ring_attention.py",
+            "paddle_tpu_torch/ops/attention_ops.py",
+            "paddle_tpu_torch/parallel/__init__.py",
+            "paddle_tpu_torch/parallel/mesh.py"} <= scanned
     offenders = []
     for path in _sources():
         with open(path) as f:

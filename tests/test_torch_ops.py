@@ -9,6 +9,7 @@ int64.  Shape inference is held the same way: both packages append the op
 to a block and infer its outputs' shapes (``-1`` batch dims included).
 """
 
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +22,7 @@ from paddle_tpu.framework import registry as ref_registry
 from paddle_tpu.framework.executor import LowerCtx as RefCtx
 from paddle_tpu_torch.framework import core, registry, scope, unique_name
 from paddle_tpu_torch.framework.executor import LowerCtx
+from _port_fixtures import collect_garbage_after_module  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 

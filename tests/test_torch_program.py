@@ -28,6 +28,7 @@ from paddle_tpu.framework import unique_name as ref_names
 from paddle_tpu.models import transformer as RT
 from paddle_tpu_torch.framework import core, scope, unique_name
 from paddle_tpu_torch.models import transformer as T
+from _port_fixtures import collect_garbage_after_module  # noqa: F401
 
 CFG = dict(vocab_size=48, d_model=16, n_layer=2, n_head=2, d_inner=32,
            max_pos=64, dropout=0.0)

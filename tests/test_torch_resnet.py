@@ -47,6 +47,7 @@ from paddle_tpu_torch.analysis import fusion
 from paddle_tpu_torch.framework import core, registry, scope, unique_name
 from paddle_tpu_torch.framework.executor import LowerCtx
 from paddle_tpu_torch.models import resnet
+from _port_fixtures import collect_garbage_after_module  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 LOSS_RTOL = 1e-5

@@ -26,6 +26,7 @@ import torch
 from paddle_tpu_torch.tools import attn_shape_ceiling as asc
 from paddle_tpu_torch.tools import rn50_fused_bench as rfb
 from paddle_tpu_torch.tools import timing
+from _port_fixtures import collect_garbage_after_module  # noqa: F401
 
 ref_cb = importlib.import_module("paddle_tpu.pallas.conv_bn")
 

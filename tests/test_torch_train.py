@@ -23,6 +23,7 @@ products of the fused head as the port (and the TPU) does; jitted on the
 CPU, XLA keeps those products in float32 (see ``test_torch_backward.py``).
 """
 
+
 import jax
 import numpy as np
 import pytest
@@ -40,6 +41,7 @@ from paddle_tpu_torch import optimizer as opt
 from paddle_tpu_torch.framework import core, scope, unique_name
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.models import transformer as T
+from _port_fixtures import collect_garbage_after_module  # noqa: F401
 
 CFG = dict(vocab_size=64, d_model=32, n_layer=2, n_head=4, d_inner=64,
            max_pos=16, dropout=0.0)
