@@ -17,8 +17,13 @@ JAX, prints one line per phase, and raises on any failure:
    bf16 outputs, and for the column sums of K3, K4's backward and K6, 2^-14
    of theirs).  K6 at ``rn50_fused_bench``'s four calls and at float32
    edges; K8 at [4, 512, 64 | 128], block_q 64 and 128.  Then the bf16
-   forms of K1-K5 (AMP) against their plain versions: K1/K2 at [96, 2048,
-   64] causal, T 1000 and biased (forward); K3 at the 15 shapes at batch
+   forms of K1-K5 (AMP) against their plain versions: K1/K2 (their own
+   Hopper sources, TMA and bf16 ``wgmma``; their ptxas lines and shared
+   memory printed first) at [96, 2048, 64] causal, T 1000, biased
+   (forward), d 128 at T 130, d 40 ragged non-causal and causal Tq < Tk,
+   each line also counting the outputs that differ from the plain
+   version's and how many of those lie nearer zero;
+   K3 at the 15 shapes at batch
    256 (bf16 x, float32 w); K4 at [16384, 768] and 4099 rows; K5 at
    [16384, 768] x [768, 3072] gelu and relu and M 4097: each bf16 output
    within one bf16 ulp of its largest magnitude (plus the float32
@@ -122,8 +127,9 @@ JAX, prints one line per phase, and raises on any failure:
    paths' steps; the ring's forward and backward at ``ring_kernel``'s
    shape (non-causal) against K1/K2 and SDPA over the full T, the plain
    ring and the bound, the merge kernel at a ring step's shape, and the
-   ring and flash training steps.  ``--profile`` adds one AMP GPT step by
-   kernel.
+   ring and flash training steps.  ``--profile`` adds, by kernel class, a
+   bucket-2048 serving batch, a float32 and an AMP GPT step, a ResNet-50
+   step and one step of each ``ring_train`` program (ring and flash).
 
 Then one JSON line describing every kernel, the ``nvidia-smi`` line, and a
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -310,7 +316,31 @@ def phase_env():
              f"{len(regs)} functions, registers max {max(regs, default=0)},"
              f" spill stores max {max(spills, default=0)} bytes")
     _log("env", f"kernel build wall time {total:.2f} s")
-    return smi
+    return smi, built
+
+
+def _ptxas_lines(log):
+    """``(function, what ptxas -v says of it)`` for each entry function of
+    a build log: registers, barriers, stack, spills, and the performance
+    notes (C7512 and the like) that name it."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            k = re.search(r"(flash_(?:fwd|bwd)_sm90_(?:\w*?_)?kernel)"
+                          r"(?:ILi(\d+)E)?", m.group(1))
+            name = (f"{k.group(1)}<{k.group(2)}>" if k and k.group(2)
+                    else k.group(1) if k else m.group(1))
+            out[name] = []
+        elif name and ("Used" in ln or "spill" in ln):
+            out[name].append(ln.split(":", 1)[-1].strip())
+    for ln in log.splitlines():
+        if "Performance Loss" in ln:
+            for fn in out:
+                base, _, d = fn.partition("<")
+                if base in ln and (not d or f"ILi{d[:-1]}E" in ln):
+                    out[fn].append(ln.split(":", 1)[-1].strip()[:90])
+    return out
 
 
 def _check(name, got, ref, extra=None):
@@ -693,12 +723,27 @@ def _check_bf16(name, got, ref, extra=None):
     return float(err.max())
 
 
-def phase_kernel_bf16():
+def _flips(got, ref):
+    """How many of the bf16 ``got`` differ from the bf16 ``ref`` (each by
+    landing on the other neighbour of a float32 value), and the share of
+    those nearer zero: about half when the two sums differ only in order,
+    more when one of them drifts toward zero."""
+    diff = got != ref
+    n = int(diff.sum())
+    toward = int((diff & (got.float().abs() < ref.float().abs())).sum())
+    return (f"{n} of {got.numel()} ({100 * n / got.numel():.3f}%) differ "
+            f"from the plain version's, {100 * toward / max(n, 1):.0f}% of "
+            "them nearer zero")
+
+
+def phase_kernel_bf16(built):
     """The bf16 forms of K1-K5 (AMP) against their plain versions on the
-    card, at the AMP paths' shapes and the float32 checks' edges: K1/K2 at
-    [96, 2048, 64] causal, a ragged T, the biased forward, and a ring
-    step's [24, 2048, 64] shard causal and not, K2 given the delta the
-    ring computes once; K3 at
+    card, at the AMP paths' shapes and the float32 checks' edges: K1/K2
+    (the Hopper kernels, whose ptxas lines from ``built``, the build log,
+    and shared memory it prints first) at [96, 2048, 64] causal, a ragged
+    T, the biased forward, d 128 at T 130, d 40 ragged non-causal, causal
+    Tq < Tk, and a ring step's [24, 2048, 64] shard causal and not, K2
+    given the delta the ring computes once; K3 at
     ResNet-50's 15 conv1x1 shapes at batch 256 (bf16 x, the float32
     master w); K4 at [16384, 768] and a ragged row count; K5 at [16384,
     768] x [768, 3072] gelu and relu and an M that is not a tile
@@ -708,6 +753,16 @@ def phase_kernel_bf16():
     from paddle_tpu_torch.kernels import dense_epilogue as de
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import layer_norm as ln
+    for lib in ("flash_attn_fwd_sm90", "flash_attn_bwd_sm90"):
+        if lib not in built:
+            _log("kernel", f"{lib}: built before this run, no ptxas log")
+            continue
+        for fn, lines in _ptxas_lines(built[lib]["log"]).items():
+            _log("kernel", f"ptxas {lib} {fn}: {'; '.join(lines)}")
+    for d_ in (64, 128):
+        _log("kernel", f"bf16 K1/K2 dynamic shared memory a block at d <= "
+             f"{d_}: " + ", ".join(f"{k} {v} bytes" for k, v in
+                                   fa.sm90_shared_bytes(d_).items()))
     g = torch.Generator(device="cuda")
     g.manual_seed(10)
     bf16 = torch.bfloat16
@@ -721,6 +776,9 @@ def phase_kernel_bf16():
             ("slice [96,2048,64] causal", bh, t, t, d, True, None),
             ("T=1000 causal", 8, 1000, 1000, 64, True, None),
             ("bias [1,Tq,Tk] T=700", 8, 700, 700, 64, False, "bias"),
+            ("d=128 T=130 causal", 24, 130, 130, 128, True, None),
+            ("d=40 Tq=77 Tk=90 non-causal", 24, 77, 90, 40, False, None),
+            ("causal Tq=512 < Tk=2048", 24, 512, 2048, 64, True, None),
             (f"ring step {step} non-causal, given delta", 24, 2048, 2048,
              64, False, "delta"),
             (f"ring step {step} causal, given delta", 24, 2048, 2048, 64,
@@ -739,7 +797,7 @@ def phase_kernel_bf16():
                                            e_o)
         _log("kernel", f"flash_attn_fwd bf16 {name}: max abs err o "
              f"{e_o:.3g} ({BF16_ULPS} bf16 ulp of max|o|), lse {e_l:.3g} "
-             f"(atol {ATOL}, rtol {RTOL}) ok")
+             f"(atol {ATOL}, rtol {RTOL}) ok; o: {_flips(o, ro)}")
         del o, lse
         if biased:
             continue        # a biased backward is the plain version
@@ -757,7 +815,8 @@ def phase_kernel_bf16():
                                            *errs)
         _log("kernel", f"flash_attn_bwd bf16 {name}: max abs err dq "
              f"{errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g} ("
-             f"{BF16_ULPS} bf16 ulp of each max) ok")
+             f"{BF16_ULPS} bf16 ulp of each max) ok; dv: "
+             f"{_flips(got[2], want[2])}")
         del got, want, q, k, v, do
     torch.cuda.empty_cache()
 
@@ -1884,30 +1943,26 @@ def phase_resnet_profile(resnet):
             "momentum_ms": momentum_ms, "top": rows[:40]}
 
 
-def phase_train_profile(train, what=""):
-    """Device time of one full-width training step (``what``: "AMP " for
-    the AMP program) by kernel, with ``torch.profiler``: where a step's
-    time goes."""
+def _profile_step(label, step):
+    """Device time of one call of ``step`` (a full training step; one call
+    before it warms up) by kernel class, with ``torch.profiler``: where a
+    step's time goes."""
     import torch
-    import paddle_tpu_torch as ptt
     from torch.profiler import ProfilerActivity, profile
-    exe = ptt.Executor()
-    args = dict(feed=train["feed"], fetch_list=[train["loss"]],
-                scope=train["scope"])
-    exe.run(train["main"], **args)
+    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        exe.run(train["main"], **args)
+        step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     rows = _profile_rows(prof)
     kernel_ms = sum(r[0] for r in rows if not r[2].startswith("Memcpy"))
     # kernel classes by name: the port's kernels, cuBLAS, PyTorch's dtype
     # casts (AMP), the rest (elementwise, reductions, Adam)
-    classes = dict.fromkeys(("K1", "K2", "K4, K5", "GEMMs", "casts",
-                             "elementwise, reductions, Adam"), 0.0)
+    classes = dict.fromkeys(("K1", "K2", "K4, K5", "K7 merge", "GEMMs",
+                             "casts", "elementwise, reductions, Adam"), 0.0)
     for ms, _, key in rows:
         k = key.lower()
         if k.startswith(("memcpy", "memset")):
@@ -1915,19 +1970,31 @@ def phase_train_profile(train, what=""):
         cls = ("K1" if "flash_fwd" in k else "K2" if "flash_bwd" in k
                else "K4, K5" if any(t in k for t in (
                    "ln_fwd", "ln_bwd", "colsum", "dense_act", "round_pad"))
+               else "K7 merge" if "ring_merge" in k
                else "GEMMs" if any(t in k for t in (
                    "gemm", "cutlass", "nvjet", "xmma"))
                else "casts" if "copy_kernel" in k
                else "elementwise, reductions, Adam")
         classes[cls] += ms
-    _log("profile", f"{what}training step, batch {TRAIN_BATCH} x seq 2048: "
-         f"wall {wall_ms:.1f} ms; kernels {kernel_ms:.1f} ms "
-         f"({100 * kernel_ms / wall_ms:.1f}% of wall): "
+    _log("profile", f"{label}: wall {wall_ms:.1f} ms; kernels "
+         f"{kernel_ms:.1f} ms ({100 * kernel_ms / wall_ms:.1f}% of wall): "
          + ", ".join(f"{c} {ms:.1f}" for c, ms in classes.items()))
     for ms, count, key in rows[:24]:
         _log("profile", f"  {ms:9.2f} ms  x{count:<4d} {key[:90]}")
     return {"wall_ms": wall_ms, "kernel_ms": kernel_ms, "classes": classes,
             "top": rows[:40]}
+
+
+def phase_train_profile(train, what=""):
+    """One full-width GPT training step (``what``: "AMP " for the AMP
+    program) by kernel class."""
+    import paddle_tpu_torch as ptt
+    exe = ptt.Executor()
+    args = dict(feed=train["feed"], fetch_list=[train["loss"]],
+                scope=train["scope"])
+    return _profile_step(
+        f"{what}training step, batch {TRAIN_BATCH} x seq 2048",
+        lambda: exe.run(train["main"], **args))
 
 
 def _held_ms(fn, reps=3):
@@ -2195,8 +2262,9 @@ def timing_bf16(smi, amp_train, amp_fused, amp_resnet):
     """The bf16 forms of K1-K5 at the AMP paths' shapes: kernel, plain
     version, one library call or composition in bf16, and the bound (the
     bytes at the bf16 sizes over the memory rate; the operations at the
-    rate of the arithmetic the TPU kernel specifies: float32 for K1, K2 and
-    K4, bf16 for the K3 and K5 products).  The libraries' autograd chains
+    rate of the arithmetic the kernel runs: bf16 tensor cores for K1 and K2
+    (their S, dP and split P, dS products) and the K3 and K5 products,
+    float32 for K4).  The libraries' autograd chains
     (SDPA's and LayerNorm's backward) are timed as slopes of two run
     lengths.  Then the three AMP paths' steps."""
     import torch
@@ -2234,7 +2302,7 @@ def timing_bf16(smi, amp_train, amp_fused, amp_resnet):
                                                            True), iters=5),
         1e3 * time_fn(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=True), iters=20),
-        4.0 * d * bh * pairs, 2.0 * 4 * bh * t * d + 4.0 * bh * t, "float32",
+        4.0 * d * bh * pairs, 2.0 * 4 * bh * t * d + 4.0 * bh * t, "bfloat16",
         "[96,2048,64] causal bf16", "sdpa bf16 (p rounded to bf16)")
     o, lse = fa.flash_attention_fwd(q, k, v, None, True)
     qg, kg, vg = (x.view(8, 12, t, d).detach().requires_grad_()
@@ -2255,7 +2323,7 @@ def timing_bf16(smi, amp_train, amp_fused, amp_resnet):
             q, k, v, o, lse, do, None, True), iters=3),
         1e3 * (time_fn_slope(sdpa_fwd_bwd) - time_fn_slope(sdpa_fwd)),
         10.0 * d * bh * pairs,
-        2.0 * 8 * bh * t * d + 4.0 * 2 * bh * t, "float32",
+        2.0 * 8 * bh * t * d + 4.0 * 2 * bh * t, "bfloat16",
         "[96,2048,64] causal bf16",
         "sdpa bf16 backward (fwd+bwd minus fwd, slopes)")
     del q, k, v, do, o, lse, qg, kg, vg, q4, k4, v4, do4
@@ -2660,14 +2728,15 @@ def _ring_program(seq, attn_impl):
     return cfg, main, startup, loss
 
 
-def phase_ring_train():
+def phase_ring_train(profile=False):
     """BERT-base pretraining at batch 2 x 8192 under AMP (``bench.py``'s 8k
     line) with ``attn_impl="ring"`` over sp 4 on one card (virtual ranks),
     1 warm-up + 3 steps counted: every step launches the bf16 K1 and K2 12
     x 16 times and the bf16 merge 12 x 12 times; then the same program
     with ``attn_impl="flash"`` (what the reference's bench runs on one
     chip) from the same startup seed and feed, and every ring loss held to
-    the flash loss of its step."""
+    the flash loss of its step.  With ``profile``, two more steps of each
+    program after the counted ones, the second by kernel class."""
     import torch
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.framework import Scope
@@ -2718,6 +2787,11 @@ def phase_ring_train():
                 prev = now
                 losses.append(float(out))
             peak = torch.cuda.max_memory_allocated()
+            if profile:
+                prof = _profile_step(
+                    f"ring_train {impl} step, batch {batch} x seq {seq}",
+                    lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                    scope=scope))
         finally:
             set_mesh(None)
         warm_s = step_s.pop(0)
@@ -2737,6 +2811,7 @@ def phase_ring_train():
             "warmup_s": warm_s, "tokens_per_s": batch * seq / step_ms * 1e3,
             "peak_bytes": peak, "held_bytes": held,
             "per_step": per_step[1]["bfloat16"],
+            "profile": prof if profile else None,
             "launches": {dt: {k_: sum(s[dt][k_] for s in per_step)
                               for k_ in want} for dt in per_step[0]}}
         where = (f"sp {RING_SP} (virtual ranks on one card)"
@@ -2772,11 +2847,12 @@ def timing_ring(smi, ring_train):
     full T, ``scaled_dot_product_attention`` over the full T (the one
     library call computing the same function), the plain ring (the plain
     K1, K2 and merge on the same schedule), and the bound (4 d bh T^2
-    forward and 10 d bh T^2 backward float32 operations, the TPU kernel's
-    arithmetic, on the CUDA cores; q, k, v (o, do) read and o, lse (dq,
-    dk, dv) written once).  Then the merge kernel at a ring step's shape
-    ([24, 2048, 64]), its plain version, and its bytes bound; and the ring
-    training step next to the flash one."""
+    forward and 10 d bh T^2 backward operations at the rate of the
+    dtype's K1/K2: float32 on the CUDA cores, bf16 on the tensor cores;
+    q, k, v (o, do) read and o, lse (dq, dk, dv) written once).  Then the
+    merge kernel at a ring step's shape ([24, 2048, 64]), its plain
+    version, and its bytes bound; and the ring training step next to the
+    flash one."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -2818,11 +2894,13 @@ def timing_ring(smi, ring_train):
             q4, k4, v4), iters=5)
         sdpa_bwd_ms = 1e3 * (time_fn_slope(sdpa_fwd_bwd)
                              - time_fn_slope(sdpa_fwd))
-        f_bound, f_by, f_why = _bound(4.0 * d * bh * t * t,
-                                      esz * 4 * bh * t * d + 4.0 * bh * t)
-        b_bound, b_by, b_why = _bound(10.0 * d * bh * t * t,
-                                      esz * 8 * bh * t * d + 4.0 * bh * t)
         name = "float32" if dt == torch.float32 else "bfloat16"
+        f_bound, f_by, f_why = _bound(4.0 * d * bh * t * t,
+                                      esz * 4 * bh * t * d + 4.0 * bh * t,
+                                      name)
+        b_bound, b_by, b_why = _bound(10.0 * d * bh * t * t,
+                                      esz * 8 * bh * t * d + 4.0 * bh * t,
+                                      name)
         out["ring"][name] = {
             "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "k1_full_ms": k1_ms,
             "k2_full_ms": k2_ms, "plain_fwd_ms": plain_fwd,
@@ -3005,14 +3083,19 @@ _KERNELS = (
 _BF16_FORMS = ("flash_attn_fwd", "flash_attn_bwd", "conv1x1_stats",
                "layer_norm_fwd", "layer_norm_bwd", "dense_epilogue",
                "ring_merge")
+#: the bf16 forms with a source of their own (K1/K2 redesigned for Hopper)
+_BF16_SOURCES = {
+    "flash_attn_fwd": "paddle_tpu_torch/csrc/flash_attn_fwd_sm90.cu",
+    "flash_attn_bwd": "paddle_tpu_torch/csrc/flash_attn_bwd_sm90.cu"}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", help="also write every measurement here")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one bucket-2048 batch, one GPT "
-                         "training step and one ResNet-50 step by kernel")
+                    help="also profile one bucket-2048 batch, a float32 "
+                         "and an AMP GPT step, one ResNet-50 step and a "
+                         "step of each ring_train program by kernel")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3025,9 +3108,9 @@ def main(argv=None) -> int:
     # bf16 products (the fused LM head) accumulate in float32 throughout
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
-    smi = phase_env()
+    smi, built = phase_env()
     worst = phase_kernel()
-    worst.update(phase_kernel_bf16())
+    worst.update(phase_kernel_bf16(built))
     ring_kernel = phase_ring_kernel()
     worst.update(ring_kernel["worst"])
     serve = phase_serve()
@@ -3039,7 +3122,7 @@ def main(argv=None) -> int:
     amp_resnet = phase_amp_resnet()
     rn50_fused = phase_rn50_fused()
     ceiling = phase_attn_ceiling()
-    ring_train = phase_ring_train()
+    ring_train = phase_ring_train(args.profile)
     timing = phase_timing(smi, serve, train)
     timing["conv1x1_stats"] = timing_k3(smi, resnet)
     timing.update(timing_k45(smi, train, fused))
@@ -3054,7 +3137,9 @@ def main(argv=None) -> int:
         prof = {"serve": phase_profile(serve),
                 "train": phase_train_profile(train),
                 "amp_train": phase_train_profile(amp_train, "AMP "),
-                "resnet": phase_resnet_profile(resnet)}
+                "resnet": phase_resnet_profile(resnet),
+                **{f"ring_train_{impl}": ring_train[impl]["profile"]
+                   for impl in ("ring", "flash")}}
     by_path = {"flash_attn_fwd": {"serve": serve["launches"],
                                   "train": train["launches"]["flash_attn_fwd"],
                                   "fused_train":
@@ -3095,8 +3180,8 @@ def main(argv=None) -> int:
                     launches_by_path=by_path[name],
                     max_abs_err=worst[name], **timing[name])
                for name, src, ref in _KERNELS + tuple(
-                   (n + "_bf16", src, ref) for n, src, ref in _KERNELS
-                   if n in _BF16_FORMS)]
+                   (n + "_bf16", _BF16_SOURCES.get(n, src), ref)
+                   for n, src, ref in _KERNELS if n in _BF16_FORMS)]
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)

@@ -1,5 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a): float32 or bf16 operands,
-// float32 arithmetic.
+// Flash-attention backward for Hopper (sm_90a): float32 operands and
+// arithmetic.  (bf16 operands go to flash_attn_bwd_sm90.cu.)
 //
 // Replaces the Pallas TPU kernels of paddle_tpu/pallas/flash_attention.py
 // behind _flash_bwd_pallas (:499): the combined kernel (:446, body
@@ -14,14 +14,10 @@
 //   dq    = sm_scale * ds . k,   dk = sm_scale * ds^T . q   (scale folded
 //                                                            into q)
 //
-// for q, k, v, o, do of one type, float32 or bf16 (AMP), and lse in
-// float32; dq, dk, dv come out in the operands' type.  Every element is
-// widened to float32 as it is loaded, delta, p, ds and the three gradients
-// are accumulated in float32 and rounded once, on the store (the TPU
-// kernels compute in float32 and round their float32 partials once,
-// :478-484).  With the causal rule q + (Tk - Tq) >= k, keys past Tk and
-// queries past Tq
-// contributing nothing, and p = 0 on every masked pair: a row with no live
+// for float32 q, k, v, o, do, lse, dq, dk and dv: delta, p, ds and the
+// three gradients are float32, as in the TPU kernels.  With the causal rule
+// q + (Tk - Tq) >= k, keys past Tk and queries past Tq contributing
+// nothing, and p = 0 on every masked pair: a row with no live
 // key at all (causal, Tq > Tk) gets zero gradients, as in the reference
 // (the score NEG_INF there makes p = 0 through s <= NEG_INF/2).  No bias: a
 // biased backward runs the plain version, as the reference runs
@@ -52,14 +48,9 @@
 // of q/k/v/o/do/lse/delta and dq/dk/dv (0.12 ms at 3.35 TB/s): operations
 // bound it.  Both passes recompute S and dP (14*d flops a pair are run in
 // all), and the inner loops issue one shared-memory load per two FMAs, so
-// shared-memory bandwidth is what this simple version runs into.  bf16
-// operands halve the bytes, which were never the limit; wgmma/TMA is later
-// work.
+// shared-memory bandwidth is what this simple version runs into.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include "elem.cuh"
 
 namespace {
 
@@ -73,8 +64,7 @@ constexpr int CPT = 64 / TX;    // tile columns per thread
 // rows of a [bh, t, d] tensor into a float32 [64][ld] shared tile,
 // zero-padded past t rows and past d columns (ld - 1 = NJ * TX >= d);
 // scaled by `scale`
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int row0, int t, int d, int ld,
                                           float scale, int tid) {
   const int w = ld - 1;
@@ -82,39 +72,37 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
     const int r = idx / w, c = idx - r * w;
     const int gr = row0 + r;
     dst[r * ld + c] =
-        (gr < t && c < d) ? ptt::ld(src + (long long)gr * d + c) * scale
+        (gr < t && c < d) ? src[(long long)gr * d + c] * scale
                           : 0.f;
   }
 }
 
-template <typename T>
-__global__ void flash_bwd_delta_kernel(const T* __restrict__ o,
-                                       const T* __restrict__ dout,
+__global__ void flash_bwd_delta_kernel(const float* __restrict__ o,
+                                       const float* __restrict__ dout,
                                        float* __restrict__ delta,
                                        long long rows, int d) {
   const long long row =
       (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const T* orow = o + row * d;
-  const T* drow = dout + row * d;
+  const float* orow = o + row * d;
+  const float* drow = dout + row * d;
   float acc = 0.f;
   for (int c = lane; c < d; c += 32)
-    acc = fmaf(ptt::ld(orow + c), ptt::ld(drow + c), acc);
+    acc = fmaf(orow[c], drow[c], acc);
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) delta[row] = acc;
 }
 
-// T: the element type of q, k, v, do and the gradients;
 // NJ = ceil(d / 16): head-dim columns each thread accumulates
-template <typename T, int NJ>
+template <int NJ>
 __global__ void __launch_bounds__(TX * TY)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
                       const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, int tq, int tk, int d,
+                      const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv, int tq, int tk, int d,
                       float sm_scale, int causal) {
   extern __shared__ float smem[];
   const int ld = NJ * TX + 1;   // odd: conflict-free column reads
@@ -134,8 +122,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.y * BK;
   const int offset = tk - tq;
 
-  const T* qb = q + (long long)bh * tq * d;
-  const T* ob = dout + (long long)bh * tq * d;
+  const float* qb = q + (long long)bh * tq * d;
+  const float* ob = dout + (long long)bh * tq * d;
   const float* lb = lse + (long long)bh * tq;
   const float* db = delta + (long long)bh * tq;
 
@@ -246,25 +234,25 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < RPT; ++i) {
     const int kr = k0 + ty * RPT + i;
     if (kr >= tk) continue;
-    T* dkrow = dk + ((long long)bh * tk + kr) * d;
-    T* dvrow = dv + ((long long)bh * tk + kr) * d;
+    float* dkrow = dk + ((long long)bh * tk + kr) * d;
+    float* dvrow = dv + ((long long)bh * tk + kr) * d;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int col = tx + j * TX;
       if (col < d) {
-        ptt::st(dkrow + col, acc_k[i][j]);
-        ptt::st(dvrow + col, acc_v[i][j]);
+        dkrow[col] = acc_k[i][j];
+        dvrow[col] = acc_v[i][j];
       }
     }
   }
 }
 
-template <typename T, int NJ>
+template <int NJ>
 __global__ void __launch_bounds__(TX * TY)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int tq, int tk, int d, float sm_scale, int causal) {
   extern __shared__ float smem[];
   const int ld = NJ * TX + 1;
@@ -284,8 +272,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int offset = tk - tq;
 
-  const T* kb = k + (long long)bh * tk * d;
-  const T* vb = v + (long long)bh * tk * d;
+  const float* kb = k + (long long)bh * tk * d;
+  const float* vb = v + (long long)bh * tk * d;
   load_tile(sQ, q + (long long)bh * tq * d, q0, tq, d, ld, sm_scale, tid);
   load_tile(sO, dout + (long long)bh * tq * d, q0, tq, d, ld, 1.f, tid);
   if (tid < BQ) {
@@ -374,29 +362,29 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < RPT; ++i) {
     const int qr = q0 + ty * RPT + i;
     if (qr >= tq) continue;
-    T* row = dq + ((long long)bh * tq + qr) * d;
+    float* row = dq + ((long long)bh * tq + qr) * d;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int col = tx + j * TX;
-      if (col < d) ptt::st(row + col, acc[i][j] * sm_scale);
+      if (col < d) row[col] = acc[i][j] * sm_scale;
     }
   }
 }
 
-template <typename T, int NJ>
-cudaError_t launch(const T* q, const T* k, const T* v, const T* o,
-                   const float* lse, const T* dout, float* delta, T* dq,
-                   T* dk, T* dv, int bh, int tq, int tk, int d,
+template <int NJ>
+cudaError_t launch(const float* q, const float* k, const float* v, const float* o,
+                   const float* lse, const float* dout, float* delta, float* dq,
+                   float* dk, float* dv, int bh, int tq, int tk, int d,
                    float sm_scale, int causal, int delta_ready,
                    cudaStream_t stream) {
   const int ld = NJ * TX + 1;
   const size_t smem =
       sizeof(float) * (4 * 64 * (size_t)ld + 64 * 65 + 2 * 64);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<T, NJ>,
+      flash_bwd_dkdv_kernel<NJ>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, NJ>,
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<NJ>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
@@ -404,7 +392,7 @@ cudaError_t launch(const T* q, const T* k, const T* v, const T* o,
   if (!delta_ready) {
     const long long rows = (long long)bh * tq;
     const int warps = 8;
-    flash_bwd_delta_kernel<T><<<(unsigned)((rows + warps - 1) / warps),
+    flash_bwd_delta_kernel<<<(unsigned)((rows + warps - 1) / warps),
                                 32 * warps, 0, stream>>>(o, dout, delta,
                                                          rows, d);
     err = cudaGetLastError();
@@ -412,39 +400,38 @@ cudaError_t launch(const T* q, const T* k, const T* v, const T* o,
   }
 
   const dim3 block(TX, TY);
-  flash_bwd_dkdv_kernel<T, NJ><<<dim3(bh, (tk + BK - 1) / BK), block, smem,
+  flash_bwd_dkdv_kernel<NJ><<<dim3(bh, (tk + BK - 1) / BK), block, smem,
                                  stream>>>(q, k, v, dout, lse, delta, dk, dv, tq,
                                         tk, d, sm_scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T, NJ><<<dim3(bh, (tq + BQ - 1) / BQ), block, smem,
+  flash_bwd_dq_kernel<NJ><<<dim3(bh, (tq + BQ - 1) / BQ), block, smem,
                                stream>>>(q, k, v, dout, lse, delta, dq, tq, tk,
                                       d, sm_scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* o,
              const float* lse, const void* dout, float* delta, void* dq,
              void* dk, void* dv, int bh, int tq, int tk, int d,
              float sm_scale, int causal, int delta_ready, cudaStream_t s) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* ot = static_cast<const T*>(o);
-  const T* gt = static_cast<const T*>(dout);
-  T* dqt = static_cast<T*>(dq);
-  T* dkt = static_cast<T*>(dk);
-  T* dvt = static_cast<T*>(dv);
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* ot = static_cast<const float*>(o);
+  const float* gt = static_cast<const float*>(dout);
+  float* dqt = static_cast<float*>(dq);
+  float* dkt = static_cast<float*>(dk);
+  float* dvt = static_cast<float*>(dv);
   switch ((d + TX - 1) / TX) {
-    case 1: return (int)launch<T, 1>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, delta_ready, s);
-    case 2: return (int)launch<T, 2>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, delta_ready, s);
-    case 3: return (int)launch<T, 3>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, delta_ready, s);
-    case 4: return (int)launch<T, 4>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, delta_ready, s);
-    case 5: return (int)launch<T, 5>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, delta_ready, s);
-    case 6: return (int)launch<T, 6>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, delta_ready, s);
-    case 7: return (int)launch<T, 7>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, delta_ready, s);
-    case 8: return (int)launch<T, 8>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, delta_ready, s);
+    case 1: return (int)launch<1>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, delta_ready, s);
+    case 2: return (int)launch<2>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, delta_ready, s);
+    case 3: return (int)launch<3>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, delta_ready, s);
+    case 4: return (int)launch<4>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, delta_ready, s);
+    case 5: return (int)launch<5>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, delta_ready, s);
+    case 6: return (int)launch<6>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, delta_ready, s);
+    case 7: return (int)launch<7>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, delta_ready, s);
+    case 8: return (int)launch<8>(qt, kt, vt, ot, lse, gt, delta, dqt, dkt, dvt, bh, tq, tk, d, sm_scale, causal, delta_ready, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -452,30 +439,23 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 // Plain C entry point, bound with ctypes.  q/o/do/dq [bh,tq,d] and
-// k/v/dk/dv [bh,tk,d] of one type, float32 (dtype 0) or bf16 (dtype 1);
+// k/v/dk/dv [bh,tk,d] float32 (bf16 operands go to flash_attn_bwd_sm90.cu);
 // lse/delta [bh,tq] float32; all contiguous, on the device.  With
 // delta_ready 0, delta is scratch the caller allocates and the first of three
 // kernels fills it; with delta_ready 1 it holds rowsum(do * o) already (ring
 // attention computes it once per backward, not once per ring step) and only
-// the dK/dV and dQ kernels run.  Launches on `stream` and returns the cudaError_t of the launches (0 when all were
-// accepted).
+// the dK/dV and dQ kernels run.  Launches on `stream` and returns the
+// cudaError_t of the launches (0 when all were accepted).
 extern "C" int paddle_tpu_torch_flash_attn_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* delta, void* dq, void* dk,
     void* dv, int bh, int tq, int tk, int d, float sm_scale, int causal,
-    int delta_ready, int dtype, void* stream) {
-  const float* lf = static_cast<const float*>(lse);
-  float* df = static_cast<float*>(delta);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+    int delta_ready, void* stream) {
   if (bh <= 0 || tq <= 0 || tk <= 0 || d <= 0 || d > 128 ||
       (tq + BQ - 1) / BQ > 65535 || (tk + BK - 1) / BK > 65535)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, o, lf, dout, df, dq, dk, dv, bh, tq, tk,
-                           d, sm_scale, causal, delta_ready, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, lf, dout, df, dq, dk, dv, bh,
-                                   tq, tk, d, sm_scale, causal, delta_ready,
-                                   s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(q, k, v, o, static_cast<const float*>(lse), dout,
+                  static_cast<float*>(delta), dq, dk, dv, bh, tq, tk, d,
+                  sm_scale, causal, delta_ready,
+                  static_cast<cudaStream_t>(stream));
 }

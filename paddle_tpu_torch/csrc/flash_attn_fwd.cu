@@ -1,5 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a): float32 or bf16 operands,
-// float32 arithmetic.
+// Flash-attention forward for Hopper (sm_90a): float32 operands and
+// arithmetic.  (bf16 operands go to flash_attn_fwd_sm90.cu.)
 //
 // Replaces the Pallas TPU kernel paddle_tpu/pallas/flash_attention.py
 // _flash_fwd_pallas (:179, pallas_call :227, body _fwd_kernel :114).  It
@@ -8,10 +8,8 @@
 //   o   = softmax(q * sm_scale . k^T + bias, causal end-aligned) . v
 //   lse = m + log(l)                                   (float32, [bh, Tq])
 //
-// for q, k, v of one type, float32 or bf16 (AMP), with o in that type and
-// lse in float32: every element is widened to float32 as it is loaded and
-// the products, p and the accumulation are float32 (the TPU kernel's body
-// upcasts the same way, :144-163); o is rounded once, on the store.  Masked
+// for float32 q, k, v, o and lse: the products, p and the accumulation are
+// float32, as in the TPU kernel's body (:144-163).  Masked
 // scores are NEG_INF = -1e30 (not -inf), the causal rule
 // q + (Tk - Tq) >= k, and l == 0 read as 1 (a row whose every score is -inf
 // gives o = 0, lse = m).  Keys past Tk contribute nothing.
@@ -22,8 +20,8 @@
 //    the TPU's sequential ik grid axis and its VMEM carry.
 //  - causal tiles wholly above the diagonal are skipped; masks run only on
 //    diagonal and ragged tiles (the rule of _block_dispatch :76-111).
-//  - Q, K, V and the P tile sit in shared memory in float32 (padded rows
-//    keep the loads free of bank conflicts); all arithmetic is float32 on
+//  - Q, K, V and the P tile sit in shared memory (padded rows keep the
+//    loads free of bank conflicts); all arithmetic is float32 on
 //    the CUDA cores.  At d = 64 the block needs 66 KB and at d = 128 113 KB, so the
 //    dynamic shared-memory limit is raised before each launch.
 //
@@ -31,16 +29,10 @@
 // live triangle is 51.6 GFLOP against 202 MB of q/k/v/o/lse, so the float32
 // CUDA-core rate (67 TFLOP/s, 0.77 ms) bounds it, not memory (0.06 ms).  The
 // inner loops issue one shared-memory load per two FMAs, so shared-memory
-// bandwidth, not the FMA rate, is what this simple version runs into.  bf16
-// operands halve the bytes (101 MB), which were never the limit; a bf16
-// wgmma/TMA form would change the arithmetic the reference specifies
-// (float32 products) and is a tolerance decision for later work.
+// bandwidth, not the FMA rate, is what this simple version runs into.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
-
-#include "elem.cuh"
 
 namespace {
 
@@ -65,13 +57,12 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
-// T: the element type of q, k, v and o (float or __nv_bfloat16);
 // NJ = ceil(d / 16): head-dim columns of o each thread accumulates
-template <typename T, int NJ>
+template <int NJ>
 __global__ void __launch_bounds__(TX * TY)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ bias,
-                 T* __restrict__ o, float* __restrict__ lse, int tq, int tk,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ bias,
+                 float* __restrict__ o, float* __restrict__ lse, int tq, int tk,
                  int d, long long bias_stride, float sm_scale, int causal) {
   extern __shared__ float smem[];
   const int ldq = d + 1;        // odd strides: conflict-free column reads
@@ -92,16 +83,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int offset = tk - tq;
 
-  const T* qb = q + (long long)bh * tq * d;
-  const T* kb = k + (long long)bh * tk * d;
-  const T* vb = v + (long long)bh * tk * d;
+  const float* qb = q + (long long)bh * tq * d;
+  const float* kb = k + (long long)bh * tk * d;
+  const float* vb = v + (long long)bh * tk * d;
   const float* bb = bias ? bias + (long long)bh * bias_stride : nullptr;
 
   for (int idx = tid; idx < BQ * d; idx += TX * TY) {
     const int r = idx / d, c = idx - r * d;
     const int qr = q0 + r;
     sQ[r * ldq + c] =
-        qr < tq ? ptt::ld(qb + (long long)qr * d + c) * sm_scale : 0.f;
+        qr < tq ? qb[(long long)qr * d + c] * sm_scale : 0.f;
   }
 
   float m[RPT], l[RPT], acc[RPT][NJ];
@@ -128,8 +119,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = idx / ldv, c = idx - r * ldv;
       const int kr = k0 + r;
       const bool in = kr < tk && c < d;
-      if (c < d) sK[r * ldk + c] = in ? ptt::ld(kb + (long long)kr * d + c) : 0.f;
-      sV[r * ldv + c] = in ? ptt::ld(vb + (long long)kr * d + c) : 0.f;
+      if (c < d) sK[r * ldk + c] = in ? kb[(long long)kr * d + c] : 0.f;
+      sV[r * ldv + c] = in ? vb[(long long)kr * d + c] : 0.f;
     }
     __syncthreads();
 
@@ -211,17 +202,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qr = q0 + ty * RPT + i;
     if (qr >= tq) continue;
     const float ls = l[i] == 0.f ? 1.f : l[i];
-    T* orow = o + ((long long)bh * tq + qr) * d;
+    float* orow = o + ((long long)bh * tq + qr) * d;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int col = tx + j * TX;
-      if (col < d) ptt::st(orow + col, acc[i][j] / ls);
+      if (col < d) orow[col] = acc[i][j] / ls;
     }
     if (tx == 0) lse[(long long)bh * tq + qr] = m[i] + logf(ls);
   }
 }
 
-template <typename T, int NJ>
+template <int NJ>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* bias, void* o, float* lse, int bh, int tq,
                    int tk, int d, long long bias_stride, float sm_scale,
@@ -231,32 +222,31 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       sizeof(float) * ((size_t)BQ * (d + 1) + (size_t)BK * (d + 1) +
                        (size_t)BK * ldv + (size_t)BQ * (BK + 1));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (tq + BQ - 1) / BQ);
   const dim3 block(TX, TY);
-  flash_fwd_kernel<T, NJ><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, static_cast<T*>(o), lse, tq, tk, d,
+  flash_fwd_kernel<NJ><<<grid, block, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), bias, static_cast<float*>(o), lse, tq, tk, d,
       bias_stride, sm_scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const float* bias,
              void* o, float* lse, int bh, int tq, int tk, int d,
              long long bias_stride, float sm_scale, int causal,
              cudaStream_t s) {
   switch ((d + TX - 1) / TX) {
-    case 1: return (int)launch<T, 1>(q, k, v, bias, o, lse, bh, tq, tk, d, bias_stride, sm_scale, causal, s);
-    case 2: return (int)launch<T, 2>(q, k, v, bias, o, lse, bh, tq, tk, d, bias_stride, sm_scale, causal, s);
-    case 3: return (int)launch<T, 3>(q, k, v, bias, o, lse, bh, tq, tk, d, bias_stride, sm_scale, causal, s);
-    case 4: return (int)launch<T, 4>(q, k, v, bias, o, lse, bh, tq, tk, d, bias_stride, sm_scale, causal, s);
-    case 5: return (int)launch<T, 5>(q, k, v, bias, o, lse, bh, tq, tk, d, bias_stride, sm_scale, causal, s);
-    case 6: return (int)launch<T, 6>(q, k, v, bias, o, lse, bh, tq, tk, d, bias_stride, sm_scale, causal, s);
-    case 7: return (int)launch<T, 7>(q, k, v, bias, o, lse, bh, tq, tk, d, bias_stride, sm_scale, causal, s);
-    case 8: return (int)launch<T, 8>(q, k, v, bias, o, lse, bh, tq, tk, d, bias_stride, sm_scale, causal, s);
+    case 1: return (int)launch<1>(q, k, v, bias, o, lse, bh, tq, tk, d, bias_stride, sm_scale, causal, s);
+    case 2: return (int)launch<2>(q, k, v, bias, o, lse, bh, tq, tk, d, bias_stride, sm_scale, causal, s);
+    case 3: return (int)launch<3>(q, k, v, bias, o, lse, bh, tq, tk, d, bias_stride, sm_scale, causal, s);
+    case 4: return (int)launch<4>(q, k, v, bias, o, lse, bh, tq, tk, d, bias_stride, sm_scale, causal, s);
+    case 5: return (int)launch<5>(q, k, v, bias, o, lse, bh, tq, tk, d, bias_stride, sm_scale, causal, s);
+    case 6: return (int)launch<6>(q, k, v, bias, o, lse, bh, tq, tk, d, bias_stride, sm_scale, causal, s);
+    case 7: return (int)launch<7>(q, k, v, bias, o, lse, bh, tq, tk, d, bias_stride, sm_scale, causal, s);
+    case 8: return (int)launch<8>(q, k, v, bias, o, lse, bh, tq, tk, d, bias_stride, sm_scale, causal, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -264,25 +254,18 @@ int dispatch(const void* q, const void* k, const void* v, const float* bias,
 }  // namespace
 
 // Plain C entry point, bound with ctypes.  q [bh,tq,d], k/v [bh,tk,d] and
-// o [bh,tq,d] of one type, float32 (dtype 0) or bf16 (dtype 1); bias
+// o [bh,tq,d] float32 (bf16 operands go to flash_attn_fwd_sm90.cu); bias
 // [bh or 1, tq, tk] float32 or null (bias_stride = tq*tk per bh, or 0 for a
 // shared plane), lse [bh,tq] float32; all contiguous, on the device.
 // Returns the cudaError_t of the launch (0 when it was accepted).
 extern "C" int paddle_tpu_torch_flash_attn_fwd(
     const void* q, const void* k, const void* v, const void* bias, void* o,
     void* lse, int bh, int tq, int tk, int d, long long bias_stride,
-    float sm_scale, int causal, int dtype, void* stream) {
-  const float* bf = static_cast<const float*>(bias);
-  float* lf = static_cast<float*>(lse);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+    float sm_scale, int causal, void* stream) {
   if (bh <= 0 || tq <= 0 || tk <= 0 || d <= 0 || d > 128 ||
       (tq + BQ - 1) / BQ > 65535)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, bf, o, lf, bh, tq, tk, d, bias_stride,
-                           sm_scale, causal, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, bf, o, lf, bh, tq, tk, d,
-                                   bias_stride, sm_scale, causal, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(q, k, v, static_cast<const float*>(bias), o,
+                  static_cast<float*>(lse), bh, tq, tk, d, bias_stride,
+                  sm_scale, causal, static_cast<cudaStream_t>(stream));
 }

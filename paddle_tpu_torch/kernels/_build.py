@@ -25,6 +25,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: kernel name -> source file under csrc/
 SOURCES = {"flash_attn_fwd": "flash_attn_fwd.cu",
            "flash_attn_bwd": "flash_attn_bwd.cu",
+           "flash_attn_fwd_sm90": "flash_attn_fwd_sm90.cu",
+           "flash_attn_bwd_sm90": "flash_attn_bwd_sm90.cu",
            "conv1x1_stats": "conv1x1_stats.cu",
            "layer_norm": "layer_norm.cu",
            "dense_epilogue": "dense_epilogue.cu",

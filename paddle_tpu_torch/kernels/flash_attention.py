@@ -3,20 +3,32 @@ and their plain versions.
 
 K1 replaces the Pallas TPU kernel ``paddle_tpu/pallas/flash_attention.py``
 ``_flash_fwd_pallas`` (:179, ``pl.pallas_call`` at :227, body ``_fwd_kernel``
-:114); its source is ``paddle_tpu_torch/csrc/flash_attn_fwd.cu`` (float32 arithmetic
-on the CUDA cores over float32 or bf16 operands, one block per (bh, 64-row
-q tile), causal tiles above the diagonal skipped).  K2 replaces ``_flash_bwd_pallas`` (:499: the combined
-kernel :446 and the split kernels :515); its source is
-``csrc/flash_attn_bwd.cu`` (the FA2 backward in two passes, dK/dV then dQ,
-no atomics).  Each source's header says what bounds it on an H100.
+:114), K2 ``_flash_bwd_pallas`` (:499: the combined kernel :446 and the
+split kernels :515).  Each has two CUDA sources, by operand dtype
+(:data:`DTYPES`):
+
+- float32: ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``,
+  float32 arithmetic on the CUDA cores (one block per (bh, 64-row tile),
+  the FA2 backward in two passes, dK/dV then dQ, no atomics);
+- bf16 (AMP): ``csrc/flash_attn_fwd_sm90.cu`` and
+  ``csrc/flash_attn_bwd_sm90.cu``, redesigned for Hopper: TMA copies into a
+  ring of shared-memory stages with mbarriers, a producer warpgroup and two
+  consumer warpgroups, bf16 ``wgmma`` with float32 sums.  S and dP are
+  exact bf16 products; P and dS, float32 values, each go into the tensor
+  cores as three bf16 terms (hi + mid + lo), which hold them exactly, so
+  the kernels compute the float32 formula up to the order of the sums
+  (the same two-pass backward, no atomics).
+
+Each source's header says what bounds it on an H100.
 
 - :func:`flash_attention_fwd` / :func:`flash_attention_bwd` are the
   wrappers over contiguous ``[bh, T, d]`` tensors of one dtype, float32 or
   bf16 (AMP).  The kernels load that dtype and store o, dq, dk, dv in it,
-  computing in float32 as the TPU kernel does (``:144-163``); lse and
-  delta are float32.  A CUDA tensor launches the kernel or raises; a CPU
-  tensor takes the plain version.  Each counts its launches per dtype
-  (:func:`launch_count`).
+  each rounded once from a float32 sum; lse and delta are float32.  A CUDA
+  tensor launches the kernel of its dtype or raises; a CPU tensor takes
+  the plain version.  Each counts its launches per dtype
+  (:func:`launch_count`) under one name, ``flash_attn_fwd`` or
+  ``flash_attn_bwd``, whichever source ran.
 - :func:`flash_attention_reference` is K1's plain version, the math of
   ``paddle_tpu``'s ``_flash_fwd_jax``: masked scores are ``NEG_INF``
   (-1e30), causal masking is end-aligned (``q + Tk - Tq >= k``), and a row
@@ -48,8 +60,10 @@ NEG_INF = -1e30
 #: them
 BLOCK_Q = BLOCK_K = 64
 
-#: the operand dtypes the kernels take, by their code in the C entry points
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the operand dtypes the kernels take, and the (forward, backward)
+#: libraries of ``kernels/_build.py`` that take each
+DTYPES = {torch.float32: ("flash_attn_fwd", "flash_attn_bwd"),
+          torch.bfloat16: ("flash_attn_fwd_sm90", "flash_attn_bwd_sm90")}
 
 _LAUNCHES = LaunchCounts("flash_attn_fwd", "flash_attn_bwd")
 _count = _LAUNCHES.count
@@ -162,8 +176,18 @@ def flash_attention_fwd(q, k, v, bias: Optional[torch.Tensor] = None,
     return _launch(q, k, v, bias, bool(causal), float(sm_scale))
 
 
+def _aligned(what, *tensors):
+    """The bf16 kernels read q, k, v (and do) by TMA, which needs 16-byte
+    aligned bases."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: bf16 operands must start on a 16-byte "
+                         "boundary (the kernel reads them by TMA)")
+
+
 def _launch(q, k, v, bias, causal, sm_scale):
-    fn = _entry()
+    if q.dtype == torch.bfloat16:
+        _aligned("flash_attention_fwd", q, k, v)
+    fn = _entry(DTYPES[q.dtype][0])
     bh, tq, d = q.shape
     tk = k.shape[1]
     o = torch.empty_like(q)
@@ -176,7 +200,7 @@ def _launch(q, k, v, bias, causal, sm_scale):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  bias.data_ptr() if bias is not None else None,
                  o.data_ptr(), lse.data_ptr(), bh, tq, tk, d, bias_stride,
-                 sm_scale, int(causal), DTYPES[q.dtype], stream)
+                 sm_scale, int(causal), stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd kernel launch failed: CUDA "
                            f"error {err}")
@@ -187,23 +211,38 @@ def _launch(q, k, v, bias, causal, sm_scale):
 _entry_fns = {}
 
 
-def _entry(kernel="flash_attn_fwd"):
-    fn = _entry_fns.get(kernel)
+def _entry(library):
+    """The C entry point of ``library`` (a value of :data:`DTYPES`); the
+    float32 and bf16 sources share each direction's signature."""
+    fn = _entry_fns.get(library)
     if fn is None:
         from . import _build
-        lib = _build.load(kernel)
-        if kernel == "flash_attn_fwd":
-            fn = lib.paddle_tpu_torch_flash_attn_fwd
+        fn = getattr(_build.load(library), f"paddle_tpu_torch_{library}")
+        if library.startswith("flash_attn_fwd"):
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
                 ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_void_p]
         else:
-            fn = lib.paddle_tpu_torch_flash_attn_bwd
             fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
-                ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _entry_fns[kernel] = fn
+        _entry_fns[library] = fn
     return fn
+
+
+def sm90_shared_bytes(d: int) -> dict:
+    """The dynamic shared memory a block of each bf16 (Hopper) kernel takes
+    at head dim ``d``: ``{"fwd", "bwd_dkdv", "bwd_dq"}`` in bytes, as the
+    sources lay it out (``ptxas -v`` reports static shared memory only).
+    Builds the libraries at first use."""
+    from . import _build
+    fwd = getattr(_build.load("flash_attn_fwd_sm90"),
+                  "paddle_tpu_torch_flash_attn_fwd_sm90_smem")
+    bwd = getattr(_build.load("flash_attn_bwd_sm90"),
+                  "paddle_tpu_torch_flash_attn_bwd_sm90_smem")
+    fwd.argtypes, bwd.argtypes = [ctypes.c_int], [ctypes.c_int] * 2
+    fwd.restype = bwd.restype = ctypes.c_int
+    return {"fwd": fwd(d), "bwd_dkdv": bwd(d, 0), "bwd_dq": bwd(d, 1)}
 
 
 # ---------------------------------------------------------------------------
@@ -285,7 +324,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
                                              causal, sm_scale, delta)[:3]
     if q.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {q.device}")
-    fn = _entry("flash_attn_bwd")
+    if q.dtype == torch.bfloat16:
+        _aligned(what, q, k, v, do)
+    fn = _entry(DTYPES[q.dtype][1])
     tk = k.shape[1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta_ready = delta is not None
@@ -297,7 +338,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
                  lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, tq, tk, d,
                  float(sm_scale), int(bool(causal)), int(delta_ready),
-                 DTYPES[q.dtype], stream)
+                 stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd kernel launch failed: CUDA "
                            f"error {err}")

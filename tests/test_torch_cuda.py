@@ -9,7 +9,10 @@ have them), so it runs there with the repo's conftest left out:
 - the flash-attention forward (K1) and backward (K2) kernels against their
   plain versions on the same card tensors, over the edge cases of the CPU
   parity tests (rtol 1e-4, atol 1e-5, float32), counting one launch per
-  call;
+  call; the bf16 forms (the Hopper sources, TMA and ``wgmma``) over the
+  same cases, K2 with a given delta too, within one bf16 ulp of each
+  output's largest magnitude, and their refusal of an operand that is not
+  16-byte aligned;
 - the wrappers refuse what the kernels do not take, on the card too;
 - a tiny GPT served by ``InferenceServer()`` on ``cuda:0`` (the default
   executor) against the same program run on the host (1e-4 on the logits);
@@ -840,6 +843,47 @@ def test_bf16_k2_matches_plain_version(cuda, case):
                                             causal)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         _within_ulp(g, w, what=name)
+
+
+@pytest.mark.parametrize("case", sorted(c for c in CASES
+                                        if CASES[c][5] is None))
+def test_bf16_k2_with_a_given_delta_matches_plain_version(cuda, case):
+    """The bf16 K2's delta_ready path (ring attention's) at every shape of
+    CASES against the plain backward given the same delta: rowsum(do * o)
+    plus noise, so a kernel that computed its own delta would disagree."""
+    bh, tq, tk, d, causal, _ = CASES[case]
+    q, k, v, o, lse, do = _bwd_inputs(bh, tq, tk, d, causal, cuda, seed=7)
+    q, k, v, o, do = (t.to(BF16) for t in (q, k, v, o, do))
+    g = torch.Generator().manual_seed(8)
+    delta = (torch.sum(do.float() * o.float(), dim=-1)
+             + torch.randn(bh, tq, generator=g).to(cuda))
+    n0 = fa.launch_count("flash_attn_bwd", "bfloat16")
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, None, delta)
+    torch.cuda.synchronize()
+    assert fa.launch_count("flash_attn_bwd", "bfloat16") == n0 + 1
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, None,
+                                            causal, None, delta)
+    for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+        _within_ulp(g_, w_, what=name)
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
+def test_bf16_k1_k2_refuse_an_operand_off_16_bytes(cuda, kernel):
+    """The bf16 kernels read their operands by TMA, which needs 16-byte
+    aligned bases: a contiguous view two bytes in is refused, not run."""
+    q, k, v, o, lse, do = _bwd_inputs(2, 16, 16, 64, True, cuda)
+    q, k, v, o, do = (t.to(BF16) for t in (q, k, v, o, do))
+    q = torch.empty(q.numel() + 1, dtype=BF16, device=cuda)[1:].view(
+        q.shape).copy_(q)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    name = f"flash_attn_{kernel}"
+    n0 = fa.launch_count(name, "bfloat16")
+    with pytest.raises(ValueError, match="16-byte"):
+        if kernel == "fwd":
+            fa.flash_attention_fwd(q, k, v, None, True)
+        else:
+            fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+    assert fa.launch_count(name, "bfloat16") == n0
 
 
 def test_bf16_k1_k2_function_keeps_the_dtype(cuda):

@@ -5,7 +5,10 @@ The same numpy inputs go through ``paddle_tpu.pallas.flash_attention``
 port's ``flash_attention``/``flash_attention_fwd`` (whose CPU path is the
 plain version of the CUDA kernel).  Tolerance: 1e-5 absolute and relative,
 float32.  The CUDA kernel itself is held against the plain version on the
-card by ``tests/test_torch_cuda.py`` (and by ``chip_smoke.py``).
+card by ``tests/test_torch_cuda.py`` (and by ``chip_smoke.py``).  The
+arithmetic of the bf16 Hopper kernels (bf16 products summed in float32, P
+and dS as three bf16 terms) is emulated here and held to the bounds the card
+checks use.
 """
 
 import importlib
@@ -182,3 +185,143 @@ def test_bf16_forward_matches_pallas_interpret(case):
     np.testing.assert_allclose(o.float().numpy(), ro, rtol=0,
                                atol=_bf16_ulp(ro))
     np.testing.assert_allclose(lse.numpy(), np.asarray(rl), **TOL)
+
+
+# -- the arithmetic of the Hopper bf16 kernels, emulated on the CPU -----------
+#
+# ``csrc/flash_attn_fwd_sm90.cu`` and ``csrc/flash_attn_bwd_sm90.cu`` compute
+# S = q.k^T and dP = do.v^T as bf16 ``wgmma`` products with float32 sums (a
+# product of two bf16 values is exact in float32, so a float32 matmul of the
+# bf16 values is the same arithmetic up to the order of the sums), scale the
+# float32 S, and give the float32 P and dS to the tensor cores as three bf16
+# terms, hi = bf16(x), mid = bf16(x - hi) and lo = x - hi - mid, which hold x
+# exactly, each product issued three times.  The emulation below does that in
+# PyTorch, the forward tile by tile (128 keys, the online softmax with its
+# rescaling), and holds it to the bounds the card checks use: o within one
+# bf16 ulp of its largest magnitude of the Pallas kernel in interpret mode
+# and lse within 1e-5, each gradient within one bf16 ulp of its largest
+# magnitude of the port's plain backward.
+
+# (bh, Tq, Tk, d, causal)
+SM90_CASES = {
+    "causal_t260": (2, 260, 260, 64, True),
+    "ragged_d40_noncausal": (2, 77, 90, 40, False),
+    "causal_tq_lt_tk": (2, 96, 260, 64, True),
+    "d128_t130_causal": (2, 130, 130, 128, True),
+}
+
+
+def _split(x):
+    """The three bf16 terms of float32 ``x``, widened back to float32."""
+    hi = x.to(torch.bfloat16).float()
+    mid = (x - hi).to(torch.bfloat16).float()
+    return hi, mid, (x - hi - mid).to(torch.bfloat16).float()
+
+
+def _terms_dot(x, b):
+    """x . b as the kernels issue it: one product per bf16 term of x."""
+    return sum(torch.matmul(t, b) for t in _split(x))
+
+
+def _causal_live(tq, tk):
+    return (torch.arange(tq)[:, None] + (tk - tq)
+            >= torch.arange(tk)[None, :])
+
+
+def _emulate_sm90_fwd(q, k, v, causal, sm_scale, block=128):
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    live = _causal_live(tq, tk)
+    m = torch.full((bh, tq, 1), fa.NEG_INF)
+    l = torch.zeros(bh, tq, 1)
+    acc = torch.zeros(bh, tq, d)
+    for k0 in range(0, tk, block):
+        kb, vb = kf[:, k0:k0 + block], vf[:, k0:k0 + block]
+        s = torch.matmul(qf, kb.transpose(1, 2)) * sm_scale
+        if causal:
+            s = s.masked_fill(~live[:, k0:k0 + block], fa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = alpha * acc + _terms_dot(p, vb)
+        m = m_new
+    l = torch.where(l == 0, torch.ones_like(l), l)
+    return (acc / l).to(torch.bfloat16), (m + torch.log(l))[..., 0]
+
+
+def _emulate_sm90_bwd(q, k, v, o, lse, do, causal, sm_scale):
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    tq, tk = q.shape[1], k.shape[1]
+    delta = torch.sum(dof * o.float(), dim=-1, keepdim=True)
+    s = torch.matmul(qf, kf.transpose(1, 2)) * sm_scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        p = torch.where(_causal_live(tq, tk), p, torch.zeros_like(p))
+    ds = p * (torch.matmul(dof, vf.transpose(1, 2)) - delta)
+    dv = _terms_dot(p.transpose(1, 2), dof)
+    dk = _terms_dot(ds.transpose(1, 2), qf) * sm_scale
+    dq = _terms_dot(ds, kf) * sm_scale
+    return tuple(x.to(torch.bfloat16) for x in (dq, dk, dv))
+
+
+def _sm90_inputs(bh, tq, tk, d, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(bh, t, d).astype(np.float32) for t in (tq, tk, tk, tq)]
+
+
+@pytest.mark.parametrize("case", sorted(SM90_CASES))
+def test_sm90_arithmetic_forward_matches_pallas_interpret(case):
+    bh, tq, tk, d, causal = SM90_CASES[case]
+    q, k, v, _ = _sm90_inputs(bh, tq, tk, d, seed=7)
+    sm = 1.0 / math.sqrt(d)
+    ro, rl = ref_fa._flash_fwd(
+        *(jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)), None,
+        causal, sm, 128, 128, True)
+    o, lse = _emulate_sm90_fwd(
+        *(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)),
+        causal, sm)
+    ro = np.asarray(ro, np.float32)
+    np.testing.assert_allclose(o.float().numpy(), ro, rtol=0,
+                               atol=_bf16_ulp(ro))
+    np.testing.assert_allclose(lse.numpy(), np.asarray(rl), **TOL)
+
+
+@pytest.mark.parametrize("case", sorted(SM90_CASES))
+def test_sm90_arithmetic_backward_matches_plain_version(case):
+    bh, tq, tk, d, causal = SM90_CASES[case]
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
+                   for x in _sm90_inputs(bh, tq, tk, d, seed=8))
+    sm = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_attention_reference(q, k, v, None, causal, sm)
+    got = _emulate_sm90_bwd(q, k, v, o, lse, do, causal, sm)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, None,
+                                            causal, sm)[:3]
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype == torch.bfloat16
+        w = w.float().numpy()
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=0,
+                                   atol=_bf16_ulp(w), err_msg=name)
+
+
+def test_three_bf16_terms_hold_a_float32_exactly():
+    """The kernels' split of P and dS: hi + mid + lo is the float32 value
+    bit for bit (24 significant bits, 8 a bf16 term), over the range
+    softmax weights and their gradients take; two terms leave ~2^-18."""
+    rng = np.random.RandomState(9)
+    x = torch.from_numpy((rng.randn(1 << 16) * np.exp(rng.uniform(
+        -60, 10, 1 << 16))).astype(np.float32))
+    hi, mid, lo = _split(x)
+    assert torch.equal(hi + mid + lo, x)
+    two = (hi + (x - hi).to(torch.bfloat16).float() - x).abs() / x.abs()
+    assert 2.0 ** -20 < float(two.max()) <= 2.0 ** -17
+
+
+def test_bf16_goes_to_the_hopper_sources():
+    from paddle_tpu_torch.kernels import _build
+    assert fa.DTYPES[torch.bfloat16] == ("flash_attn_fwd_sm90",
+                                         "flash_attn_bwd_sm90")
+    assert fa.DTYPES[torch.float32] == ("flash_attn_fwd", "flash_attn_bwd")
+    for lib in sum(fa.DTYPES.values(), ()):
+        assert (_build.CSRC / _build.SOURCES[lib]).is_file(), lib
