@@ -15,10 +15,15 @@ JAX, prints one line per phase, and raises on any failure:
    (plus, for the bf16 products of K3, K5 and K6 and the float32 products
    of K8, 2^-20 of the sum of the terms' magnitudes, one bf16 ulp for K6's
    bf16 outputs, and for the column sums of K3, K4's backward and K6, 2^-14
-   of theirs).  K6 at ``rn50_fused_bench``'s four calls and at float32
-   edges; K8 at [4, 512, 64 | 128], block_q 64 and 128.  Then the bf16
-   forms of K1-K5 (AMP) against their plain versions: K1/K2 (their own
-   Hopper sources, TMA and bf16 ``wgmma``; their ptxas lines and shared
+   of theirs).  K1/K2 run their Hopper sources in both dtypes (TMA, bf16
+   ``wgmma``; float32 as six bf16 term products a product): the float32
+   form's ptxas lines and shared memory are printed first, and each
+   float32 K1/K2 line also counts the outputs more than 4 float32 ulps from
+   the plain version's and how many of those lie nearer zero (and, without
+   a bias at Tq = Tk, the same for SDPA float32's o as a yardstick).  K6 at
+   ``rn50_fused_bench``'s four calls and at float32 edges; K8 at [4, 512,
+   64 | 128], block_q 64 and 128.  Then the bf16 forms of K1-K5 (AMP)
+   against their plain versions: K1/K2 (their ptxas lines and shared
    memory printed first) at [96, 2048, 64] causal, T 1000, biased
    (forward), d 128 at T 130, d 40 ragged non-causal and causal Tq < Tk,
    each line also counting the outputs that differ from the plain
@@ -119,12 +124,15 @@ JAX, prints one line per phase, and raises on any failure:
    128 for K3, [16384, 768] for K4, [16384, 768] x [768, 3072] gelu for
    K5, the four rn50_fused calls for K6, [24, 2048, 64] for K8, which no
    single library call computes); the least time the card could take
-   (``bound``); the server's per-bucket batch latency, requests/s and
-   tokens/s, the GPT training steps' time, tokens/s and peak memory (plain
-   and fused), and the ResNet step's time, images/s, peak memory and summed
-   K3 time; the bf16 forms of K1-K5 at the AMP paths' shapes against SDPA,
-   ``F.layer_norm``, and the bf16 matmul compositions, and the three AMP
-   paths' steps; the ring's forward and backward at ``ring_kernel``'s
+   (``bound``; for the float32 K1/K2 and ring at the rate of float32
+   products as six bf16 term products, 989 / 6 TFLOP/s on an H100, with
+   the CUDA-core rate's beside it); the server's per-bucket batch
+   latency, requests/s and tokens/s, the GPT training steps' time, tokens/s
+   and peak memory (plain and fused), and the ResNet step's time, images/s,
+   peak memory and summed K3 time; the bf16 forms of K1-K5 at the AMP
+   paths' shapes against SDPA, ``F.layer_norm``, and the bf16 matmul
+   compositions, and the three AMP paths' steps; the ring's forward and
+   backward at ``ring_kernel``'s
    shape (non-causal) against K1/K2 and SDPA over the full T, the plain
    ring and the bound, the merge kernel at a ring step's shape, and the
    ring and flash training steps.  ``--profile`` adds, by kernel class, a
@@ -286,9 +294,19 @@ def _log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
+#: bf16 tensor-core products a float32-exact product takes in K1/K2's
+#: float32 form (the six term products of weight 2^-16 and above)
+F32_TERM_PRODUCTS = 6
+
+
 def _peaks(name, kind="float32"):
+    """``(FLOP/s, bytes/s)`` of the card ``name`` for ``kind``: "float32"
+    on the CUDA cores, "bfloat16" on the tensor cores, or "float32_split",
+    float32-exact products as bf16 term products on the tensor cores."""
     from paddle_tpu_torch.tools import timing
     f32, bf16, bw = timing.peaks(name)
+    if kind == "float32_split":
+        return bf16 / F32_TERM_PRODUCTS, bw
     return (f32 if kind == "float32" else bf16), bw
 
 
@@ -323,22 +341,24 @@ def _ptxas_lines(log):
     """``(function, what ptxas -v says of it)`` for each entry function of
     a build log: registers, barriers, stack, spills, and the performance
     notes (C7512 and the like) that name it."""
-    out, name = {}, None
+    out, mangled, name = {}, {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             k = re.search(r"(flash_(?:fwd|bwd)_sm90_(?:\w*?_)?kernel)"
-                          r"(?:ILi(\d+)E)?", m.group(1))
-            name = (f"{k.group(1)}<{k.group(2)}>" if k and k.group(2)
+                          r"(?:I((?:Li\d+E)+|\d*\w+?)E)?", m.group(1))
+            args = (re.findall(r"Li(\d+)E", k.group(2)) or
+                    [re.sub(r"^\d+", "", k.group(2))] if k and k.group(2)
+                    else [])
+            name = (f"{k.group(1)}<{', '.join(args)}>" if args
                     else k.group(1) if k else m.group(1))
-            out[name] = []
+            out[name], mangled[name] = [], k.group(0) if k else m.group(1)
         elif name and ("Used" in ln or "spill" in ln):
             out[name].append(ln.split(":", 1)[-1].strip())
     for ln in log.splitlines():
         if "Performance Loss" in ln:
             for fn in out:
-                base, _, d = fn.partition("<")
-                if base in ln and (not d or f"ILi{d[:-1]}E" in ln):
+                if mangled[fn] in ln:
                     out[fn].append(ln.split(":", 1)[-1].strip()[:90])
     return out
 
@@ -459,9 +479,56 @@ def check_k8(name, q, k, v, do, block_q):
     return e_o, errs
 
 
-def phase_kernel():
+def _sm90_report(built, dtype):
+    """Log the ptxas lines of the Hopper K1/K2 form for ``dtype`` (from
+    ``built``, the build log) and its dynamic shared memory a block beside
+    the other form's."""
     import torch
     from paddle_tpu_torch.kernels import flash_attention as fa
+    f32 = dtype == torch.float32
+    form, other = ("float32", torch.bfloat16) if f32 else ("bf16",
+                                                          torch.float32)
+    for lib in ("flash_attn_fwd_sm90", "flash_attn_bwd_sm90"):
+        if lib not in built:
+            _log("kernel", f"{lib}: built before this run, no ptxas log")
+            continue
+        for fn, lines in _ptxas_lines(built[lib]["log"]).items():
+            mine = (fn.endswith(", 3>") or fn.endswith("<f>")
+                    or "split_planes" in fn) if f32 else (
+                fn.endswith(", 1>") or fn.endswith("<__nv_bfloat16>"))
+            if mine:
+                _log("kernel", f"ptxas {lib} ({form}) {fn}: "
+                     f"{'; '.join(lines)}")
+    for d_ in (64, 128):
+        mine, theirs = (fa.sm90_shared_bytes(d_, t) for t in (dtype, other))
+        _log("kernel", f"{form} K1/K2 dynamic shared memory a block at d <= "
+             f"{d_}: " + ", ".join(f"{k} {v} bytes ({theirs[k]} in the "
+                                   f"{'bf16' if f32 else 'float32'} form)"
+                                   for k, v in mine.items()))
+
+
+def _ulps_off(got, ref, ulps=4):
+    """How many float32 values of ``got`` lie more than ``ulps`` float32
+    ulps of the plain version's value from it, and the share of those
+    nearer zero (about half when the sums differ only in order, more when
+    one side's sums truncate)."""
+    import torch
+    r = ref.abs()
+    ulp = torch.where(r > 0, torch.exp2(torch.floor(torch.log2(r)) - 23),
+                      torch.full_like(r, 2.0 ** -149))
+    off = (got - ref).abs() > ulps * ulp
+    n = int(off.sum())
+    toward = int((off & (got.abs() < r)).sum())
+    return (f"{n} of {got.numel()} ({100 * n / got.numel():.1f}%) beyond "
+            f"{ulps} float32 ulps of the plain version's, "
+            f"{100 * toward / max(n, 1):.0f}% of them nearer zero")
+
+
+def phase_kernel(built):
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    _sm90_report(built, torch.float32)
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     bh, t, d = SLICE
@@ -509,8 +576,16 @@ def phase_kernel():
             rows = o[:, 5::17]
             assert bool((rows == 0).all()), "fully masked rows must give o=0"
         worst["flash_attn_fwd"] = max(worst["flash_attn_fwd"], e_o, e_l)
+        yardstick = ""
+        if bias is None and tq == tk:
+            # the library's float32 attention counted the same way
+            sdpa = F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                  is_causal=causal)[0]
+            yardstick = f"; SDPA float32's o: {_ulps_off(sdpa, ro)}"
+            del sdpa
         _log("kernel", f"flash_attn_fwd {name}: max abs err o {e_o:.3g} "
-             f"lse {e_l:.3g} (atol {ATOL}, rtol {RTOL}) ok")
+             f"lse {e_l:.3g} (atol {ATOL}, rtol {RTOL}) ok; o: "
+             f"{_ulps_off(o, ro)}{yardstick}")
         if bias is not None:
             continue        # a biased backward is the plain version
         do = torch.randn(bh_, tq, d_, device="cuda", generator=g)
@@ -530,7 +605,8 @@ def phase_kernel():
         worst["flash_attn_bwd"] = max(worst["flash_attn_bwd"], *errs)
         _log("kernel", f"flash_attn_bwd {name}: max abs err dq {errs[0]:.3g}"
              f" dk {errs[1]:.3g} dv {errs[2]:.3g} (atol {ATOL}, rtol "
-             f"{RTOL}) ok")
+             f"{RTOL}) ok; dq: {_ulps_off(got[0], want[0])}; dv: "
+             f"{_ulps_off(got[2], want[2])}")
         del got, want
 
     # K3 at ResNet-50's shapes at the training batch, then the edges
@@ -753,16 +829,7 @@ def phase_kernel_bf16(built):
     from paddle_tpu_torch.kernels import dense_epilogue as de
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import layer_norm as ln
-    for lib in ("flash_attn_fwd_sm90", "flash_attn_bwd_sm90"):
-        if lib not in built:
-            _log("kernel", f"{lib}: built before this run, no ptxas log")
-            continue
-        for fn, lines in _ptxas_lines(built[lib]["log"]).items():
-            _log("kernel", f"ptxas {lib} {fn}: {'; '.join(lines)}")
-    for d_ in (64, 128):
-        _log("kernel", f"bf16 K1/K2 dynamic shared memory a block at d <= "
-             f"{d_}: " + ", ".join(f"{k} {v} bytes" for k, v in
-                                   fa.sm90_shared_bytes(d_).items()))
+    _sm90_report(built, torch.bfloat16)
     g = torch.Generator(device="cuda")
     g.manual_seed(10)
     bf16 = torch.bfloat16
@@ -1961,13 +2028,15 @@ def _profile_step(label, step):
     kernel_ms = sum(r[0] for r in rows if not r[2].startswith("Memcpy"))
     # kernel classes by name: the port's kernels, cuBLAS, PyTorch's dtype
     # casts (AMP), the rest (elementwise, reductions, Adam)
-    classes = dict.fromkeys(("K1", "K2", "K4, K5", "K7 merge", "GEMMs",
-                             "casts", "elementwise, reductions, Adam"), 0.0)
+    classes = dict.fromkeys(("K1", "K2", "K1/K2 float32 split pass",
+                             "K4, K5", "K7 merge", "GEMMs", "casts",
+                             "elementwise, reductions, Adam"), 0.0)
     for ms, _, key in rows:
         k = key.lower()
         if k.startswith(("memcpy", "memset")):
             continue
         cls = ("K1" if "flash_fwd" in k else "K2" if "flash_bwd" in k
+               else "K1/K2 float32 split pass" if "split_planes" in k
                else "K4, K5" if any(t in k for t in (
                    "ln_fwd", "ln_bwd", "colsum", "dense_act", "round_pad"))
                else "K7 merge" if "ring_merge" in k
@@ -2011,9 +2080,11 @@ def _bound(flops, nbytes, kind="float32"):
     import torch
     peak_flops, peak_bw = _peaks(torch.cuda.get_device_name(0), kind)
     t_ops, t_mem = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+    rate = (f"float32 as {F32_TERM_PRODUCTS} bf16 term products"
+            if kind == "float32_split" else kind)
     return (max(t_ops, t_mem), "operations" if t_ops >= t_mem else "bytes",
-            f"{flops / 1e9:.1f} GFLOP at {peak_flops / 1e12:.0f} TFLOP/s "
-            f"{kind}, {nbytes / 1e6:.0f} MB at {peak_bw / 1e12:.2f} TB/s")
+            f"{flops / 1e9:.1f} GFLOP at {peak_flops / 1e12:.1f} TFLOP/s "
+            f"{rate}, {nbytes / 1e6:.0f} MB at {peak_bw / 1e12:.2f} TB/s")
 
 
 def timing_k3(smi, resnet):
@@ -2110,15 +2181,20 @@ def phase_timing(smi, serve, train):
     library_ms = 1e3 * time_fn(
         lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
         iters=20)
-    bound_ms, bound_by, why = _bound(4.0 * d * bh * pairs,
-                                     4.0 * (4 * bh * t * d + bh * t))
+    # the bound at the float32 form's rate, six bf16 term products a
+    # float32 product on the tensor cores; the CUDA-core rate beside it
+    flops, nbytes = 4.0 * d * bh * pairs, 4.0 * (4 * bh * t * d + bh * t)
+    bound_ms, bound_by, why = _bound(flops, nbytes, "float32_split")
+    core_ms = _bound(flops, nbytes)[0]
     out["flash_attn_fwd"] = {"ms": ms, "plain_ms": plain_ms,
                              "library_ms": library_ms, "bound_ms": bound_ms,
                              "bound_by": bound_by}
     _log("timing", f"flash_attn_fwd [96,2048,64] causal f32 on {smi}: "
          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-         f"sdpa {library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-         f"({why}): {100 * bound_ms / ms:.1f}% of bound")
+         f"sdpa {library_ms:.4f} ms ({ms / library_ms:.3f}x); bound "
+         f"{bound_ms:.4f} ms by {bound_by} ({why}): "
+         f"{100 * bound_ms / ms:.1f}% of bound; {core_ms:.4f} ms at the "
+         f"CUDA-core float32 rate")
 
     # K2: S, dP, dV, dK, dQ, 2 flops per FMA each; q, k, v, o, do, lse and
     # delta read, dq, dk, dv written
@@ -2140,16 +2216,18 @@ def phase_timing(smi, serve, train):
 
     library_ms = 1e3 * (time_fn(sdpa_fwd_bwd, iters=10)
                         - time_fn(sdpa_fwd, iters=10))
-    bound_ms, bound_by, why = _bound(10.0 * d * bh * pairs,
-                                     4.0 * (8 * bh * t * d + 2 * bh * t))
+    flops, nbytes = 10.0 * d * bh * pairs, 4.0 * (8 * bh * t * d + 2 * bh * t)
+    bound_ms, bound_by, why = _bound(flops, nbytes, "float32_split")
+    core_ms = _bound(flops, nbytes)[0]
     out["flash_attn_bwd"] = {"ms": ms, "plain_ms": plain_ms,
                              "library_ms": library_ms, "bound_ms": bound_ms,
                              "bound_by": bound_by}
     _log("timing", f"flash_attn_bwd [96,2048,64] causal f32 on {smi}: "
          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward "
-         f"{library_ms:.4f} ms (forward+backward minus forward); bound "
-         f"{bound_ms:.4f} ms by {bound_by} ({why}): "
-         f"{100 * bound_ms / ms:.1f}% of bound")
+         f"{library_ms:.4f} ms (forward+backward minus forward; "
+         f"{ms / library_ms:.3f}x); bound {bound_ms:.4f} ms by {bound_by} "
+         f"({why}): {100 * bound_ms / ms:.1f}% of bound; {core_ms:.4f} ms "
+         f"at the CUDA-core float32 rate")
 
     per_batch = serve["launches"] / max(serve["flash_batches"], 1)
     _log("timing", f"flash launches per batch at buckets >= 1024: "
@@ -2504,7 +2582,10 @@ def phase_attn_ceiling():
              f"({r['bwd_skel_mfu']:.1f}%); K1 {r['flash_fwd_ms']:.4f} ms "
              f"= {r['fwd_vs_skel']:.3f}x the skeleton; K1 + K2 "
              f"{r['flash_fwd_bwd_ms']:.4f} ms = {r['fb_vs_skel']:.3f}x "
-             f"fwd + bwd skeletons ({r['fb_vs_skel_note']})")
+             f"fwd + bwd skeletons ({r['fb_vs_skel_note']}); the skeletons "
+             f"run float32 products on the CUDA cores, K1/K2 float32 as "
+             f"bf16 term products on the tensor cores, so ratios below 1 "
+             f"are expected")
     if not all(launches.values()):
         raise AssertionError(f"attn_ceiling: a kernel never launched: "
                              f"{launches}")
@@ -2848,7 +2929,8 @@ def timing_ring(smi, ring_train):
     library call computing the same function), the plain ring (the plain
     K1, K2 and merge on the same schedule), and the bound (4 d bh T^2
     forward and 10 d bh T^2 backward operations at the rate of the
-    dtype's K1/K2: float32 on the CUDA cores, bf16 on the tensor cores;
+    dtype's K1/K2 on the tensor cores: bf16, or float32 as six bf16 term
+    products, with the CUDA-core float32 rate beside it;
     q, k, v (o, do) read and o, lse (dq, dk, dv) written once).  Then the
     merge kernel at a ring step's shape ([24, 2048, 64]), its plain
     version, and its bytes bound; and the ring training step next to the
@@ -2895,12 +2977,18 @@ def timing_ring(smi, ring_train):
         sdpa_bwd_ms = 1e3 * (time_fn_slope(sdpa_fwd_bwd)
                              - time_fn_slope(sdpa_fwd))
         name = "float32" if dt == torch.float32 else "bfloat16"
+        kind = "float32_split" if dt == torch.float32 else name
         f_bound, f_by, f_why = _bound(4.0 * d * bh * t * t,
                                       esz * 4 * bh * t * d + 4.0 * bh * t,
-                                      name)
+                                      kind)
         b_bound, b_by, b_why = _bound(10.0 * d * bh * t * t,
                                       esz * 8 * bh * t * d + 4.0 * bh * t,
-                                      name)
+                                      kind)
+        if dt == torch.float32:
+            f_why += (f"; {_bound(4.0 * d * bh * t * t, 0.0)[0]:.3f} ms at "
+                      "the CUDA-core float32 rate")
+            b_why += (f"; {_bound(10.0 * d * bh * t * t, 0.0)[0]:.3f} ms at "
+                      "the CUDA-core float32 rate")
         out["ring"][name] = {
             "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "k1_full_ms": k1_ms,
             "k2_full_ms": k2_ms, "plain_fwd_ms": plain_fwd,
@@ -3056,9 +3144,9 @@ def timing_k68(smi):
 
 
 _KERNELS = (
-    ("flash_attn_fwd", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
+    ("flash_attn_fwd", "paddle_tpu_torch/csrc/flash_attn_fwd_sm90.cu",
      "paddle_tpu/pallas/flash_attention.py:179"),
-    ("flash_attn_bwd", "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+    ("flash_attn_bwd", "paddle_tpu_torch/csrc/flash_attn_bwd_sm90.cu",
      "paddle_tpu/pallas/flash_attention.py:499"),
     ("conv1x1_stats", "paddle_tpu_torch/csrc/conv1x1_stats.cu",
      "paddle_tpu/pallas/conv_bn.py:143"),
@@ -3083,10 +3171,6 @@ _KERNELS = (
 _BF16_FORMS = ("flash_attn_fwd", "flash_attn_bwd", "conv1x1_stats",
                "layer_norm_fwd", "layer_norm_bwd", "dense_epilogue",
                "ring_merge")
-#: the bf16 forms with a source of their own (K1/K2 redesigned for Hopper)
-_BF16_SOURCES = {
-    "flash_attn_fwd": "paddle_tpu_torch/csrc/flash_attn_fwd_sm90.cu",
-    "flash_attn_bwd": "paddle_tpu_torch/csrc/flash_attn_bwd_sm90.cu"}
 
 
 def main(argv=None) -> int:
@@ -3109,7 +3193,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     smi, built = phase_env()
-    worst = phase_kernel()
+    worst = phase_kernel(built)
     worst.update(phase_kernel_bf16(built))
     ring_kernel = phase_ring_kernel()
     worst.update(ring_kernel["worst"])
@@ -3180,7 +3264,7 @@ def main(argv=None) -> int:
                     launches_by_path=by_path[name],
                     max_abs_err=worst[name], **timing[name])
                for name, src, ref in _KERNELS + tuple(
-                   (n + "_bf16", _BF16_SOURCES.get(n, src), ref)
+                   (n + "_bf16", src, ref)
                    for n, src, ref in _KERNELS if n in _BF16_FORMS)]
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),

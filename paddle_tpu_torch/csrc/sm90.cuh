@@ -1,15 +1,24 @@
-// Hopper (sm_90a) building blocks shared by the bf16 flash-attention
-// kernels (flash_attn_fwd_sm90.cu, flash_attn_bwd_sm90.cu), in raw PTX:
-// mbarriers, TMA tile loads, wgmma descriptors and the three wgmma shapes
-// the kernels issue, the exact three-term bf16 split of a float32 operand
-// into register-A fragments and its product, and the host-side TMA tensor
-// map of a [n, t, d] bf16 tensor.
+// Hopper (sm_90a) building blocks shared by the flash-attention kernels
+// (flash_attn_fwd_sm90.cu, flash_attn_bwd_sm90.cu), in raw PTX: mbarriers,
+// TMA tile loads, wgmma descriptors and the three wgmma shapes the kernels
+// issue, the exact three-term bf16 split of a float32 operand (in
+// registers as wgmma's A fragments, or in device memory as three bf16
+// planes that TMA loads like any bf16 tile) and the products over those
+// terms, and the host-side TMA tensor map of a [n, t, d] bf16 tensor.
+//
+// Term planes.  The kernels take bf16 operands as they are (T = 1 term
+// plane) and float32 operands as three planes, hi = bf16(x), mid = bf16(x -
+// hi), lo = bf16(x - hi - mid), which hold x exactly (24 significant bits,
+// 8 a term).  A product of two split operands is issued as the six bf16
+// products of weight 2^-16 and above; the three dropped (mid.lo, lo.mid,
+// lo.lo) are at most ~2^-24 of the product, below float32's own rounding.
 //
 // Shared-memory tiles.  A tile of R rows and a head dim padded to D (64 or
 // 128) is kept as D / 64 column panels of R rows x 64 bf16 (128 bytes a
 // row), each filled by TMA with the 128-byte swizzle in boxes of 64 x 64
 // (8 KB); panels and boxes start on 1024-byte boundaries, where the
-// swizzle pattern repeats.  wgmma reads such a panel:
+// swizzle pattern repeats, and a split operand's T planes of a tile follow
+// one another.  wgmma reads such a panel:
 //  - K-major (the reduction runs along the row): 8-row groups 1024 bytes
 //    apart (SBO), k16 steps 32 bytes apart inside the 128-byte row;
 //  - MN-major (the reduction runs down the rows, transposed B): 16-row k
@@ -95,6 +104,21 @@ __device__ __forceinline__ void tma_load_tile(uint8_t* dst,
     for (int b = 0; b < nbox; ++b)
       tma_load_3d(dst + p * rows * PANEL_ROW + b * BOX * PANEL_ROW, map, bar,
                   p * 64, row0 + b * BOX, n);
+}
+
+// the T term planes of the tile at leading index `n` of a map over the
+// planes of `nlead` leading indices each (plane p at n + p * nlead), as
+// tma_load_tile loads one, into T tiles of `rows` rows one after another
+template <int D, int T>
+__device__ __forceinline__ void tma_load_planes(uint8_t* dst,
+                                                const CUtensorMap* map,
+                                                uint64_t* bar, int row0,
+                                                int n, int nlead, int rows,
+                                                int nbox) {
+#pragma unroll
+  for (int p = 0; p < T; ++p)
+    tma_load_tile<D>(dst + p * rows * D * 2, map, bar, row0, n + p * nlead,
+                     rows, nbox);
 }
 
 // --- wgmma ----------------------------------------------------------------
@@ -252,18 +276,80 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
 }
 
 
+// The terms of the five lower products of two split operands, by weight:
+// 2^-8 (hi.mid, mid.hi), then 2^-16 (hi.lo, mid.mid, lo.hi); t = 0..4
+__device__ __forceinline__ constexpr int low_a(int t) {
+  return t == 1 || t == 3 ? 1 : t == 4 ? 2 : 0;
+}
+__device__ __forceinline__ constexpr int low_b(int t) {
+  return t == 0 || t == 3 ? 1 : t == 2 ? 2 : 0;
+}
+
+// hi (and lo) = A . B^T over a reduction of D columns (D / 64 panels x 4
+// k16 steps), A and B K-major in shared memory: `a` is the warpgroup's 64
+// rows in the first panel of A's first term plane, A's panels `a_panel`
+// bytes apart and its planes `a_plane` apart; likewise `b`.  With T = 1
+// (bf16 operands) one chain into hi.  With T = 3 (split float32 operands)
+// hi = A_hi . B_hi and lo = the five lower products, each chain from zero
+// (the tensor cores' float32 sums truncate, so no small term is added into
+// the large chain); the caller adds lo into hi (finish_product).  Issues
+// the wgmmas only: the caller fences, commits and waits.
+template <int D, int T, int N>
+__device__ __forceinline__ void product_ss(float (&hi)[N], float (&lo)[N],
+                                           const uint8_t* a,
+                                           uint32_t a_panel,
+                                           uint32_t a_plane,
+                                           const uint8_t* b,
+                                           uint32_t b_panel,
+                                           uint32_t b_plane) {
+#pragma unroll
+  for (int p = 0; p < D / 64; ++p)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(hi, desc_k(a + p * a_panel, kk), desc_k(b + p * b_panel, kk),
+               p + kk > 0);
+  if constexpr (T == 3) {
+#pragma unroll
+    for (int t = 0; t < 5; ++t)
+#pragma unroll
+      for (int p = 0; p < D / 64; ++p)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss(lo,
+                   desc_k(a + low_a(t) * a_plane + p * a_panel, kk),
+                   desc_k(b + low_b(t) * b_plane + p * b_panel, kk),
+                   t + p + kk > 0);
+  }
+}
+
+// after the wait for product_ss: hi += lo (T = 3)
+template <int T, int N>
+__device__ __forceinline__ void finish_product(float (&hi)[N],
+                                               float (&lo)[N]) {
+  fence_regs(hi);
+  if constexpr (T == 3) {
+    fence_regs(lo);
+#pragma unroll
+    for (int i = 0; i < N; ++i) hi[i] += lo[i];
+  }
+}
+
 // acc += x . B, where x is a 64 x (16 * K) float32 operand given as its
 // three bf16 terms (split_a: hi, mid, lo, K k16 steps each) and B a tile of
 // 16 * K rows read MN-major, whose 64-column panels are `panel_bytes`
-// apart; acc is the m64 accumulator of all D = 64 * (N / 32) columns.  The
-// tensor cores' float32 sums truncate, and a long chain of them drifts
-// toward zero, so each panel's product starts from zero in two short
-// chains, the hi terms' and the mid and lo terms' (no small term is added
-// into a larger sum), and joins acc by float32 adds.  Waits for its wgmmas.
-template <int K, int N>
+// apart, bf16 (T = 1) or the three term planes of a float32 tile (T = 3),
+// `plane_bytes` apart; acc is the m64 accumulator of all D = 64 * (N / 32)
+// columns.  The tensor cores' float32 sums truncate, and a long chain of
+// them drifts toward zero, so each panel's product starts from zero in two
+// short chains, x_hi . B_hi and the lower products (T = 1: mid and lo
+// times B; T = 3: the five of weight 2^-8 and 2^-16), so that no small
+// term is added into the larger sum, and joins acc by float32 adds.  Waits
+// for its wgmmas.
+template <int K, int N, int T>
 __device__ __forceinline__ void add_split_product(
     float (&acc)[N], const uint32_t (&hi)[K][4], const uint32_t (&mid)[K][4],
-    const uint32_t (&lo)[K][4], const uint8_t* b, uint32_t panel_bytes) {
+    const uint32_t (&lo)[K][4], const uint8_t* b, uint32_t panel_bytes,
+    uint32_t plane_bytes) {
 #pragma unroll
   for (int p = 0; p < N / 32; ++p) {
     const uint8_t* bp = b + p * panel_bytes;
@@ -272,12 +358,32 @@ __device__ __forceinline__ void add_split_product(
 #pragma unroll
     for (int kk = 0; kk < K; ++kk)
       wgmma_rs(th, hi[kk], desc_mn(bp, kk, panel_bytes), kk > 0);
+    if constexpr (T == 1) {
 #pragma unroll
-    for (int kk = 0; kk < K; ++kk)
-      wgmma_rs(tl, mid[kk], desc_mn(bp, kk, panel_bytes), kk > 0);
+      for (int kk = 0; kk < K; ++kk)
+        wgmma_rs(tl, mid[kk], desc_mn(bp, kk, panel_bytes), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < K; ++kk)
-      wgmma_rs(tl, lo[kk], desc_mn(bp, kk, panel_bytes), 1);
+      for (int kk = 0; kk < K; ++kk)
+        wgmma_rs(tl, lo[kk], desc_mn(bp, kk, panel_bytes), 1);
+    } else {
+      const uint8_t* bm = bp + plane_bytes;
+      const uint8_t* bl = bm + plane_bytes;
+#pragma unroll
+      for (int kk = 0; kk < K; ++kk)
+        wgmma_rs(tl, hi[kk], desc_mn(bm, kk, panel_bytes), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < K; ++kk)
+        wgmma_rs(tl, mid[kk], desc_mn(bp, kk, panel_bytes), 1);
+#pragma unroll
+      for (int kk = 0; kk < K; ++kk)
+        wgmma_rs(tl, hi[kk], desc_mn(bl, kk, panel_bytes), 1);
+#pragma unroll
+      for (int kk = 0; kk < K; ++kk)
+        wgmma_rs(tl, mid[kk], desc_mn(bm, kk, panel_bytes), 1);
+#pragma unroll
+      for (int kk = 0; kk < K; ++kk)
+        wgmma_rs(tl, lo[kk], desc_mn(bp, kk, panel_bytes), 1);
+    }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(th);
@@ -285,6 +391,77 @@ __device__ __forceinline__ void add_split_product(
 #pragma unroll
     for (int j = 0; j < 32; ++j) acc[32 * p + j] += th[j] + tl[j];
   }
+}
+
+// two neighbouring outputs, rounded once to the output dtype
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// --- float32 operands into term planes ----------------------------------
+
+// the three bf16 terms of each of the n float32 values of x: hi to
+// planes[i], mid to planes[n + i], lo to planes[2n + i].  V = 4 reads 16
+// bytes a thread (x 16-byte aligned, n a multiple of 4), V = 1 one value.
+template <int V>
+__global__ void split_planes_kernel(const float* __restrict__ x,
+                                    __nv_bfloat16* __restrict__ planes,
+                                    long long n) {
+  const long long stride = (long long)gridDim.x * blockDim.x * V;
+  for (long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * V;
+       i < n; i += stride) {
+    float v[V];
+    if constexpr (V == 4) {
+      const float4 f = *reinterpret_cast<const float4*>(x + i);
+      v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+    } else {
+      v[0] = x[i];
+    }
+    __nv_bfloat16 t[3][V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      t[0][e] = __float2bfloat16_rn(v[e]);
+      const float r = v[e] - __bfloat162float(t[0][e]);
+      t[1][e] = __float2bfloat16_rn(r);
+      t[2][e] = __float2bfloat16_rn(r - __bfloat162float(t[1][e]));
+    }
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      if constexpr (V == 4) {
+        const __nv_bfloat162 a = __halves2bfloat162(t[p][0], t[p][1]);
+        const __nv_bfloat162 b = __halves2bfloat162(t[p][2], t[p][3]);
+        *reinterpret_cast<uint2*>(planes + p * n + i) =
+            make_uint2(*reinterpret_cast<const uint32_t*>(&a),
+                       *reinterpret_cast<const uint32_t*>(&b));
+      } else {
+        planes[p * n + i] = t[p][0];
+      }
+    }
+  }
+}
+
+// launches split_planes_kernel on `stream` (16-byte loads where x allows);
+// returns the launch's cudaError_t
+inline int split_planes(const float* x, __nv_bfloat16* planes, long long n,
+                        cudaStream_t stream) {
+  const bool vec = (reinterpret_cast<uintptr_t>(x) & 15) == 0 && n % 4 == 0;
+  const int threads = 256;
+  const long long items = vec ? n / 4 : n;
+  const long long blocks = (items + threads - 1) / threads;
+  const unsigned grid = (unsigned)(blocks < 132 * 32 ? blocks : 132 * 32);
+  if (vec)
+    split_planes_kernel<4><<<grid, threads, 0, stream>>>(x, planes, n);
+  else
+    split_planes_kernel<1><<<grid, threads, 0, stream>>>(x, planes, n);
+  return (int)cudaGetLastError();
 }
 
 // --- host: TMA tensor maps --------------------------------------------------

@@ -23,9 +23,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
 #: kernel name -> source file under csrc/
-SOURCES = {"flash_attn_fwd": "flash_attn_fwd.cu",
-           "flash_attn_bwd": "flash_attn_bwd.cu",
-           "flash_attn_fwd_sm90": "flash_attn_fwd_sm90.cu",
+SOURCES = {"flash_attn_fwd_sm90": "flash_attn_fwd_sm90.cu",
            "flash_attn_bwd_sm90": "flash_attn_bwd_sm90.cu",
            "conv1x1_stats": "conv1x1_stats.cu",
            "layer_norm": "layer_norm.cu",

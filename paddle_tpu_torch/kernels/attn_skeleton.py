@@ -15,9 +15,11 @@ float32 ``q, k, v, do [bh, T, d]``:
 
 with ``_i`` the i-th block of ``block_q`` query rows, so the partials are
 ``[bh, T / block_q, T, d]``, as the TPU's combined backward writes them.
-The kernels keep K1's and K2's 64 x 64 tiles, thread layout and float32
-CUDA-core arithmetic, so "real kernel / skeleton" measures K1/K2's softmax
-and bookkeeping, not another GEMM.  ``block_q`` and ``block_k`` must be
+The kernels keep the 64 x 64 tiles, thread layout and float32 CUDA-core
+arithmetic of K1's and K2's first design, so "real kernel / skeleton"
+measured that design's softmax and bookkeeping, not another GEMM; K1 and K2
+now run their products on the tensor cores (float32 as bf16 term products),
+which puts them below their skeletons.  ``block_q`` and ``block_k`` must be
 multiples of 64 dividing T (the kernels' tiles are 64 rows; ``block_k``
 changes no result and is checked for the interface's sake); d is at most
 128.

@@ -4,20 +4,21 @@ and their plain versions.
 K1 replaces the Pallas TPU kernel ``paddle_tpu/pallas/flash_attention.py``
 ``_flash_fwd_pallas`` (:179, ``pl.pallas_call`` at :227, body ``_fwd_kernel``
 :114), K2 ``_flash_bwd_pallas`` (:499: the combined kernel :446 and the
-split kernels :515).  Each has two CUDA sources, by operand dtype
-(:data:`DTYPES`):
+split kernels :515).  Both dtypes (:data:`DTYPES`) run the Hopper sources
+``csrc/flash_attn_fwd_sm90.cu`` and ``csrc/flash_attn_bwd_sm90.cu``: TMA
+copies into a ring of shared-memory stages with mbarriers, a producer
+warpgroup and consumer warpgroups, bf16 ``wgmma`` with float32 sums, and
+the FA2 backward in two passes (dK/dV, then dQ), no atomics.
 
-- float32: ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``,
-  float32 arithmetic on the CUDA cores (one block per (bh, 64-row tile),
-  the FA2 backward in two passes, dK/dV then dQ, no atomics);
-- bf16 (AMP): ``csrc/flash_attn_fwd_sm90.cu`` and
-  ``csrc/flash_attn_bwd_sm90.cu``, redesigned for Hopper: TMA copies into a
-  ring of shared-memory stages with mbarriers, a producer warpgroup and two
-  consumer warpgroups, bf16 ``wgmma`` with float32 sums.  S and dP are
-  exact bf16 products; P and dS, float32 values, each go into the tensor
-  cores as three bf16 terms (hi + mid + lo), which hold them exactly, so
-  the kernels compute the float32 formula up to the order of the sums
-  (the same two-pass backward, no atomics).
+- bf16 (AMP): S and dP are exact bf16 products; P and dS, float32 values,
+  each go into the tensor cores as three bf16 terms (hi + mid + lo), which
+  hold them exactly, so the kernels compute the float32 formula up to the
+  order of the sums.
+- float32: a split pass writes q, k, v (and do) as three bf16 term planes
+  each into scratch the wrapper allocates, and every product is issued as
+  the six bf16 term products of weight 2^-16 and above: float32-exact
+  products on the tensor cores (up to ~2^-24 of the sum of the terms'
+  magnitudes, below float32's rounding).
 
 Each source's header says what bounds it on an H100.
 
@@ -25,10 +26,11 @@ Each source's header says what bounds it on an H100.
   wrappers over contiguous ``[bh, T, d]`` tensors of one dtype, float32 or
   bf16 (AMP).  The kernels load that dtype and store o, dq, dk, dv in it,
   each rounded once from a float32 sum; lse and delta are float32.  A CUDA
-  tensor launches the kernel of its dtype or raises; a CPU tensor takes
-  the plain version.  Each counts its launches per dtype
+  tensor launches the kernel's form for its dtype or raises; a CPU tensor
+  takes the plain version.  Each counts its launches per dtype
   (:func:`launch_count`) under one name, ``flash_attn_fwd`` or
-  ``flash_attn_bwd``, whichever source ran.
+  ``flash_attn_bwd``; the float32 form's split pass is part of its
+  launch.
 - :func:`flash_attention_reference` is K1's plain version, the math of
   ``paddle_tpu``'s ``_flash_fwd_jax``: masked scores are ``NEG_INF``
   (-1e30), causal masking is end-aligned (``q + Tk - Tq >= k``), and a row
@@ -55,14 +57,14 @@ from ._launches import LaunchCounts
 
 NEG_INF = -1e30
 
-#: query rows and keys per tile of K1 and K2 (``BQ``/``BK`` in the CUDA
-#: sources); the attention-ceiling tool takes its skeletons' blocks from
-#: them
+#: query rows a consumer warpgroup of K1 and K2 takes, and keys a K/V tile
+#: of their float32 form; the attention-ceiling tool takes its skeletons'
+#: blocks from them
 BLOCK_Q = BLOCK_K = 64
 
 #: the operand dtypes the kernels take, and the (forward, backward)
 #: libraries of ``kernels/_build.py`` that take each
-DTYPES = {torch.float32: ("flash_attn_fwd", "flash_attn_bwd"),
+DTYPES = {torch.float32: ("flash_attn_fwd_sm90", "flash_attn_bwd_sm90"),
           torch.bfloat16: ("flash_attn_fwd_sm90", "flash_attn_bwd_sm90")}
 
 _LAUNCHES = LaunchCounts("flash_attn_fwd", "flash_attn_bwd")
@@ -178,10 +180,20 @@ def flash_attention_fwd(q, k, v, bias: Optional[torch.Tensor] = None,
 
 def _aligned(what, *tensors):
     """The bf16 kernels read q, k, v (and do) by TMA, which needs 16-byte
-    aligned bases."""
+    aligned bases (float32 operands reach TMA through the term planes,
+    scratch the wrapper allocates)."""
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{what}: bf16 operands must start on a 16-byte "
                          "boundary (the kernel reads them by TMA)")
+
+
+def _planes(q, *others):
+    """Scratch for the three bf16 term planes of each float32 operand
+    (``q`` and each of ``others``), None for bf16 operands."""
+    if q.dtype != torch.float32:
+        return None
+    n = sum(t.numel() for t in (q,) + others)
+    return torch.empty(3 * n, dtype=torch.bfloat16, device=q.device)
 
 
 def _launch(q, k, v, bias, causal, sm_scale):
@@ -192,6 +204,7 @@ def _launch(q, k, v, bias, causal, sm_scale):
     tk = k.shape[1]
     o = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
+    planes = _planes(q, k, v)
     bias_stride = 0
     if bias is not None and bias.shape[0] == bh and bh > 1:
         bias_stride = tq * tk
@@ -199,8 +212,10 @@ def _launch(q, k, v, bias, causal, sm_scale):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  bias.data_ptr() if bias is not None else None,
-                 o.data_ptr(), lse.data_ptr(), bh, tq, tk, d, bias_stride,
-                 sm_scale, int(causal), stream)
+                 o.data_ptr(), lse.data_ptr(),
+                 planes.data_ptr() if planes is not None else None,
+                 bh, tq, tk, d, bias_stride, sm_scale, int(causal),
+                 int(planes is not None), stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd kernel launch failed: CUDA "
                            f"error {err}")
@@ -212,37 +227,39 @@ _entry_fns = {}
 
 
 def _entry(library):
-    """The C entry point of ``library`` (a value of :data:`DTYPES`); the
-    float32 and bf16 sources share each direction's signature."""
+    """The C entry point of ``library`` (a value of :data:`DTYPES`), which
+    takes both dtypes (its ``f32`` argument says which)."""
     fn = _entry_fns.get(library)
     if fn is None:
         from . import _build
         fn = getattr(_build.load(library), f"paddle_tpu_torch_{library}")
         if library.startswith("flash_attn_fwd"):
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
                 ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
-                ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_void_p]
         else:
-            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
-                ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [
+                ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _entry_fns[library] = fn
     return fn
 
 
-def sm90_shared_bytes(d: int) -> dict:
-    """The dynamic shared memory a block of each bf16 (Hopper) kernel takes
-    at head dim ``d``: ``{"fwd", "bwd_dkdv", "bwd_dq"}`` in bytes, as the
-    sources lay it out (``ptxas -v`` reports static shared memory only).
-    Builds the libraries at first use."""
+def sm90_shared_bytes(d: int, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The dynamic shared memory a block of each kernel takes at head dim
+    ``d`` for ``dtype`` operands: ``{"fwd", "bwd_dkdv", "bwd_dq"}`` in
+    bytes, as the sources lay it out (``ptxas -v`` reports static shared
+    memory only).  Builds the libraries at first use."""
     from . import _build
     fwd = getattr(_build.load("flash_attn_fwd_sm90"),
                   "paddle_tpu_torch_flash_attn_fwd_sm90_smem")
     bwd = getattr(_build.load("flash_attn_bwd_sm90"),
                   "paddle_tpu_torch_flash_attn_bwd_sm90_smem")
-    fwd.argtypes, bwd.argtypes = [ctypes.c_int], [ctypes.c_int] * 2
+    fwd.argtypes, bwd.argtypes = [ctypes.c_int] * 2, [ctypes.c_int] * 3
     fwd.restype = bwd.restype = ctypes.c_int
-    return {"fwd": fwd(d), "bwd_dkdv": bwd(d, 0), "bwd_dq": bwd(d, 1)}
+    f32 = int(dtype == torch.float32)
+    return {"fwd": fwd(d, f32), "bwd_dkdv": bwd(d, 0, f32),
+            "bwd_dq": bwd(d, 1, f32)}
 
 
 # ---------------------------------------------------------------------------
@@ -329,6 +346,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
     fn = _entry(DTYPES[q.dtype][1])
     tk = k.shape[1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    planes = _planes(q, k, v, do)
     delta_ready = delta is not None
     if not delta_ready:
         delta = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
@@ -336,9 +354,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, tq, tk, d,
-                 float(sm_scale), int(bool(causal)), int(delta_ready),
-                 stream)
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 planes.data_ptr() if planes is not None else None,
+                 bh, tq, tk, d, float(sm_scale), int(bool(causal)),
+                 int(delta_ready), int(planes is not None), stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd kernel launch failed: CUDA "
                            f"error {err}")

@@ -8,8 +8,10 @@ unavoidable memory movement and nothing else, so
     real kernel / skeleton
 
 is the share of the softmax and its bookkeeping, and ``flops / skeleton
-time`` the rate the shape allows on this design.  The skeletons keep K1's
-and K2's 64 x 64 tiles, thread layout and float32 CUDA-core arithmetic.
+time`` the rate the shape allows on this design.  The skeletons keep the
+64 x 64 tiles, thread layout and float32 CUDA-core arithmetic of K1's and
+K2's first design; K1 and K2 now run on the tensor cores (float32 as six
+bf16 term products a product), so both ratios fall below 1.
 
 ``fill_ratio`` is t(d = 128) / (2 t(d = 64)) of the forward skeleton.  On
 a TPU it tested whether d = 64 fills only half of the 128-lane matrix unit

@@ -6,11 +6,12 @@ have them), so it runs there with the repo's conftest left out:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-- the flash-attention forward (K1) and backward (K2) kernels against their
-  plain versions on the same card tensors, over the edge cases of the CPU
-  parity tests (rtol 1e-4, atol 1e-5, float32), counting one launch per
-  call; the bf16 forms (the Hopper sources, TMA and ``wgmma``) over the
-  same cases, K2 with a given delta too, within one bf16 ulp of each
+- the flash-attention forward (K1) and backward (K2) kernels (the Hopper
+  sources, TMA and ``wgmma``; float32 as six bf16 term products) against
+  their plain versions on the same card tensors, over the edge cases of
+  the CPU parity tests (rtol 1e-4, atol 1e-5, float32, also from an
+  operand off 16 bytes), counting one launch per call; the bf16 forms over
+  the same cases, K2 with a given delta too, within one bf16 ulp of each
   output's largest magnitude, and their refusal of an operand that is not
   16-byte aligned;
 - the wrappers refuse what the kernels do not take, on the card too;
@@ -884,6 +885,30 @@ def test_bf16_k1_k2_refuse_an_operand_off_16_bytes(cuda, kernel):
         else:
             fa.flash_attention_bwd(q, k, v, o, lse, do, True)
     assert fa.launch_count(name, "bfloat16") == n0
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
+def test_k1_k2_take_a_float32_operand_off_16_bytes(cuda, kernel):
+    """The float32 form reads q, k, v and do only in its split pass (TMA
+    reads the term planes, scratch of its own), so a contiguous view one
+    float past a 16-byte boundary runs, through the pass's scalar loads,
+    and matches the plain version."""
+    q, k, v, o, lse, do = _bwd_inputs(2, 130, 130, 64, True, cuda, seed=9)
+    qu = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape).copy_(q)
+    assert qu.is_contiguous() and qu.data_ptr() % 16
+    name = f"flash_attn_{kernel}"
+    n0 = fa.launch_count(name, "float32")
+    if kernel == "fwd":
+        got = fa.flash_attention_fwd(qu, k, v, None, True)
+        want = fa.flash_attention_reference(q, k, v, None, True)
+    else:
+        got = fa.flash_attention_bwd(qu, k, v, o, lse, do, True)
+        want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, None,
+                                                True)[:3]
+    torch.cuda.synchronize()
+    assert fa.launch_count(name, "float32") == n0 + 1
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-5)
 
 
 def test_bf16_k1_k2_function_keeps_the_dtype(cuda):

@@ -6,9 +6,10 @@ port's ``flash_attention``/``flash_attention_fwd`` (whose CPU path is the
 plain version of the CUDA kernel).  Tolerance: 1e-5 absolute and relative,
 float32.  The CUDA kernel itself is held against the plain version on the
 card by ``tests/test_torch_cuda.py`` (and by ``chip_smoke.py``).  The
-arithmetic of the bf16 Hopper kernels (bf16 products summed in float32, P
-and dS as three bf16 terms) is emulated here and held to the bounds the card
-checks use.
+arithmetic of the Hopper kernels is emulated here and held to the bounds
+the card checks use: bf16 (bf16 products summed in float32, P and dS as
+three bf16 terms) and float32 (every operand as three bf16 terms, every
+product as six term products).
 """
 
 import importlib
@@ -319,9 +320,123 @@ def test_three_bf16_terms_hold_a_float32_exactly():
 
 
 def test_bf16_goes_to_the_hopper_sources():
+    """Both operand dtypes run the Hopper sources (float32 as term planes),
+    and every source a dtype names is registered and present."""
     from paddle_tpu_torch.kernels import _build
-    assert fa.DTYPES[torch.bfloat16] == ("flash_attn_fwd_sm90",
-                                         "flash_attn_bwd_sm90")
-    assert fa.DTYPES[torch.float32] == ("flash_attn_fwd", "flash_attn_bwd")
+    for dtype in (torch.bfloat16, torch.float32):
+        assert fa.DTYPES[dtype] == ("flash_attn_fwd_sm90",
+                                    "flash_attn_bwd_sm90"), dtype
     for lib in sum(fa.DTYPES.values(), ()):
         assert (_build.CSRC / _build.SOURCES[lib]).is_file(), lib
+
+
+# -- the float32 form: every product as six bf16 term products ----------------
+#
+# For float32 q, k, v (and do) the Hopper kernels first write each operand
+# as its three bf16 term planes and issue every product as the six term
+# products of weight 2^-16 and above, in two chains from zero (hi . hi; the
+# five lower ones) that join by a float32 add; P and dS are split in
+# registers the same way.  The forward takes 64-key tiles.  The emulation
+# below does that in PyTorch (a float32 matmul of bf16-valued terms is the
+# same arithmetic up to the order of the sums) and holds it to the card
+# checks' float32 bounds, 1e-5 + 1e-4 relative: the forward against the
+# Pallas kernel in interpret mode, the backward against the plain version.
+
+KERNEL_TOL = dict(rtol=1e-4, atol=1e-5)     # chip_smoke.py's ATOL, RTOL
+LOWER_TERMS = ((0, 1), (1, 0), (0, 2), (1, 1), (2, 0))
+
+
+def _six(a, b):
+    """a . b as the float32 form issues it: the product of the hi terms
+    plus the five lower term products (the three of weight 2^-24 and below
+    dropped)."""
+    at, bt = _split(a), _split(b)
+    return torch.matmul(at[0], bt[0]) + sum(
+        torch.matmul(at[i], bt[j]) for i, j in LOWER_TERMS)
+
+
+def _emulate_sm90_fwd_f32(q, k, v, causal, sm_scale, block=64):
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    live = _causal_live(tq, tk)
+    m = torch.full((bh, tq, 1), fa.NEG_INF)
+    l = torch.zeros(bh, tq, 1)
+    acc = torch.zeros(bh, tq, d)
+    for k0 in range(0, tk, block):
+        kb, vb = k[:, k0:k0 + block], v[:, k0:k0 + block]
+        s = _six(q, kb.transpose(1, 2)) * sm_scale
+        if causal:
+            s = s.masked_fill(~live[:, k0:k0 + block], fa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = alpha * acc + _six(p, vb)
+        m = m_new
+    l = torch.where(l == 0, torch.ones_like(l), l)
+    return acc / l, (m + torch.log(l))[..., 0]
+
+
+def _emulate_sm90_bwd_f32(q, k, v, o, lse, do, causal, sm_scale):
+    tq, tk = q.shape[1], k.shape[1]
+    delta = torch.sum(do * o, dim=-1, keepdim=True)
+    p = torch.exp(_six(q, k.transpose(1, 2)) * sm_scale - lse[..., None])
+    if causal:
+        p = torch.where(_causal_live(tq, tk), p, torch.zeros_like(p))
+    ds = p * (_six(do, v.transpose(1, 2)) - delta)
+    dv = _six(p.transpose(1, 2), do)
+    dk = _six(ds.transpose(1, 2), q) * sm_scale
+    dq = _six(ds, k) * sm_scale
+    return dq, dk, dv
+
+
+def test_three_bf16_terms_hold_float32_operands_exactly():
+    """The split pass over q, k, v and do: hi + mid + lo is the float32
+    value bit for bit at magnitudes 1e-30 to 1e30 of both signs, each term
+    within 2^-8 of the one before (8 significant bits a term)."""
+    rng = np.random.RandomState(11)
+    n = 1 << 16
+    x = torch.from_numpy((rng.choice([-1.0, 1.0], n) * 10.0 ** rng.uniform(
+        -30, 30, n)).astype(np.float32))
+    hi, mid, lo = _split(x)
+    assert torch.equal(hi + mid + lo, x)
+    assert bool((mid.abs() <= hi.abs() * 2.0 ** -8).all())
+    assert bool((lo.abs() <= mid.abs() * 2.0 ** -8).all())
+    # the six term products keep a product of two such values to ~2^-24
+    # (where the product stays in float32's range)
+    xs = x[(x.abs() > 1e-15) & (x.abs() < 1e15)]
+    xt, yt = _split(xs), _split(xs.flip(0))
+    six = xt[0] * yt[0] + sum(xt[i] * yt[j] for i, j in LOWER_TERMS)
+    exact = xs.double() * xs.flip(0).double()
+    assert float(((six.double() - exact).abs() / exact.abs()).max()) \
+        < 2.0 ** -22
+
+
+@pytest.mark.parametrize("case", sorted(SM90_CASES))
+def test_sm90_float32_arithmetic_forward_matches_pallas_interpret(case):
+    bh, tq, tk, d, causal = SM90_CASES[case]
+    q, k, v, _ = _sm90_inputs(bh, tq, tk, d, seed=12)
+    sm = 1.0 / math.sqrt(d)
+    ro, rl = ref_fa._flash_fwd(*(jnp.asarray(x) for x in (q, k, v)), None,
+                               causal, sm, 128, 128, True)
+    o, lse = _emulate_sm90_fwd_f32(
+        *(torch.from_numpy(x) for x in (q, k, v)), causal, sm)
+    assert str(ro.dtype) == "float32"
+    np.testing.assert_allclose(o.numpy(), np.asarray(ro), **KERNEL_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(rl), **KERNEL_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(SM90_CASES))
+def test_sm90_float32_arithmetic_backward_matches_plain_version(case):
+    bh, tq, tk, d, causal = SM90_CASES[case]
+    q, k, v, do = (torch.from_numpy(x)
+                   for x in _sm90_inputs(bh, tq, tk, d, seed=13))
+    sm = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_attention_reference(q, k, v, None, causal, sm)
+    got = _emulate_sm90_bwd_f32(q, k, v, o, lse, do, causal, sm)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, None,
+                                            causal, sm)[:3]
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w.numpy(), err_msg=name,
+                                   **KERNEL_TOL)
