@@ -20,19 +20,22 @@ JAX, prints one line per phase, and raises on any failure:
    form's ptxas lines and shared memory are printed first, and each
    float32 K1/K2 line also counts the outputs more than 4 float32 ulps from
    the plain version's and how many of those lie nearer zero (and, without
-   a bias at Tq = Tk, the same for SDPA float32's o as a yardstick).  K6 at
+   a bias at Tq = Tk, the same for SDPA float32's o as a yardstick); the
+   cases include head dims 12 and 20, which run zero-padded.  K6 at
    ``rn50_fused_bench``'s four calls and at float32 edges; K8 at [4, 512,
    64 | 128], block_q 64 and 128.  Then the bf16 forms of K1-K5 (AMP)
    against their plain versions: K1/K2 (their ptxas lines and shared
    memory printed first) at [96, 2048, 64] causal, T 1000, biased
-   (forward), d 128 at T 130, d 40 ragged non-causal and causal Tq < Tk,
-   each line also counting the outputs that differ from the plain
-   version's and how many of those lie nearer zero;
+   (forward), d 128 at T 130, d 40 ragged non-causal, causal Tq < Tk and
+   d 12 and 20, each line also counting the outputs that differ from the
+   plain version's and how many of those lie nearer zero;
    K3 at the 15 shapes at batch
    256 (bf16 x, float32 w); K4 at [16384, 768] and 4099 rows; K5 at
    [16384, 768] x [768, 3072] gelu and relu and M 4097: each bf16 output
    within one bf16 ulp of its largest magnitude (plus the float32
-   allowance of K3's and K5's sums), the float32 outputs as above.
+   allowance of K3's and K5's sums), the float32 outputs as above; the K3
+   and K5 lines count their flipped outputs the same way (K5 and the bf16
+   K3 run on the Hopper GEMM core, ``csrc/sm90_gemm.cuh``).
 3. ``serve``  — the GPT causal LM at BERT-base width (vocab 30522, d 768,
    12 layers, 12 heads, d_inner 3072, max_pos 2048, random weights from a
    seed) behind ``InferenceServer`` with buckets (512, 1024, 2048) and
@@ -123,7 +126,9 @@ JAX, prints one line per phase, and raises on any failure:
    ([96, 2048, 64] causal for K1/K2, ResNet-50's 15 conv1x1 shapes at batch
    128 for K3, [16384, 768] for K4, [16384, 768] x [768, 3072] gelu for
    K5, the four rn50_fused calls for K6, [24, 2048, 64] for K8, which no
-   single library call computes); the least time the card could take
+   single library call computes; the bf16 K3 also shape by shape, with the
+   route its x takes: TMA, or raw slabs laid out by the producer); the
+   least time the card could take
    (``bound``; for the float32 K1/K2 and ring at the rate of float32
    products as six bf16 term products, 989 / 6 TFLOP/s on an H100, with
    the CUDA-core rate's beside it); the server's per-bucket batch
@@ -137,7 +142,8 @@ JAX, prints one line per phase, and raises on any failure:
    ring and the bound, the merge kernel at a ring step's shape, and the
    ring and flash training steps.  ``--profile`` adds, by kernel class, a
    bucket-2048 serving batch, a float32 and an AMP GPT step, a ResNet-50
-   step and one step of each ``ring_train`` program (ring and flash).
+   step (float32 and AMP) and one step of each ``ring_train`` program
+   (ring and flash).
 
 Then one JSON line describing every kernel, the ``nvidia-smi`` line, and a
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -543,6 +549,9 @@ def phase_kernel(built):
         ("fully masked rows (causal Tq > Tk)", 4, 200, 72, 64, True, None),
         ("d=32 causal", 8, 777, 777, 32, True, None),
         ("d=128 causal", 8, 777, 777, 128, True, None),
+        # head dims that are not multiples of 8 run zero-padded
+        ("d=12 causal", 8, 300, 300, 12, True, None),
+        ("d=20 Tq=77 Tk=90 non-causal", 8, 77, 90, 20, False, None),
     ]
     # K1 and K2 as the attn_ceiling path calls them: non-causal, d 64
     from paddle_tpu_torch.tools.attn_shape_ceiling import CASES
@@ -846,6 +855,8 @@ def phase_kernel_bf16(built):
             ("d=128 T=130 causal", 24, 130, 130, 128, True, None),
             ("d=40 Tq=77 Tk=90 non-causal", 24, 77, 90, 40, False, None),
             ("causal Tq=512 < Tk=2048", 24, 512, 2048, 64, True, None),
+            ("d=12 T=300 causal", 24, 300, 300, 12, True, None),
+            ("d=20 Tq=77 Tk=90 non-causal", 24, 77, 90, 20, False, None),
             (f"ring step {step} non-causal, given delta", 24, 2048, 2048,
              64, False, "delta"),
             (f"ring step {step} causal, given delta", 24, 2048, 2048, 64,
@@ -905,7 +916,7 @@ def phase_kernel_bf16(built):
         worst["conv1x1_stats_bf16"] = max(worst["conv1x1_stats_bf16"], e_y)
         _log("kernel", f"conv1x1_stats {name}: max abs err y {e_y:.3g} "
              f"({BF16_ULPS} bf16 ulp of max|y| + {K3_SUM_RTOL:.3g} "
-             f"sum|w||x|), s {e_s:.3g} s2 {e_s2:.3g} ok")
+             f"sum|w||x|), s {e_s:.3g} s2 {e_s2:.3g} ok; y: {_flips(y, ry)}")
         del x, y, ry
     torch.cuda.empty_cache()
 
@@ -953,7 +964,7 @@ def phase_kernel_bf16(built):
         worst["dense_epilogue_bf16"] = max(worst["dense_epilogue_bf16"], e_y)
         _log("kernel", f"dense_epilogue bf16 {name}: max abs err y "
              f"{e_y:.3g} ({BF16_ULPS} bf16 ulp of max|y| + "
-             f"{K3_SUM_RTOL:.3g} sum|x||w|) ok")
+             f"{K3_SUM_RTOL:.3g} sum|x||w|) ok; y: {_flips(y, ry)}")
         del x, w, y, ry, terms
     torch.cuda.empty_cache()
     return worst
@@ -1943,10 +1954,11 @@ def phase_profile(serve):
             "top": rows[:20]}
 
 
-def phase_resnet_profile(resnet):
-    """Device time of one ResNet-50 step by kernel class, with
-    ``torch.profiler``; the Momentum ops are marked with a
-    ``record_function`` range, whose device total is their kernels'."""
+def phase_resnet_profile(resnet, what="", batch=RESNET_BATCH):
+    """Device time of one ResNet-50 step (``what``: "AMP " for the AMP
+    program, at ``batch``) by kernel class, with ``torch.profiler``; the
+    Momentum ops are marked with a ``record_function`` range, whose device
+    total is their kernels'."""
     import torch
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.framework import registry
@@ -1981,11 +1993,13 @@ def phase_resnet_profile(resnet):
         for e in prof.key_averages() if e.key == "momentum_op"
         and not str(getattr(e, "device_type", "")).endswith("CUDA"))
     classes = {"K3 (conv1x1_stats)": 0.0, "cuDNN convolutions": 0.0,
-               "GEMMs": 0.0, "copies": 0.0,
+               "GEMMs": 0.0, "copies": 0.0, "casts": 0.0,
                "BN, elementwise, reductions, Momentum": 0.0}
     for ms, _, key in rows:
         k = key.lower()
-        if "conv1x1_stats" in k or "stats_kernel" in k:
+        if any(t in k for t in ("conv1x1_stats", "stats_kernel",
+                                "conv_tma_kernel", "conv_gather_kernel",
+                                "round_w_kernel")):
             cls = "K3 (conv1x1_stats)"
         elif k.startswith("memcpy") or k.startswith("memset"):
             cls = "copies"
@@ -1994,11 +2008,13 @@ def phase_resnet_profile(resnet):
             cls = "cuDNN convolutions"
         elif "gemm" in k or "cutlass" in k:
             cls = "GEMMs"
+        elif "copy_kernel" in k:
+            cls = "casts"
         else:
             cls = "BN, elementwise, reductions, Momentum"
         classes[cls] += ms
     kernel_ms = sum(v for c, v in classes.items() if c != "copies")
-    _log("profile", f"ResNet-50 step, batch {RESNET_BATCH}: wall "
+    _log("profile", f"{what}ResNet-50 step, batch {batch}: wall "
          f"{wall_ms:.1f} ms; kernels {kernel_ms:.1f} ms "
          f"({100 * kernel_ms / wall_ms:.1f}% of wall)")
     for cls, ms in classes.items():
@@ -2412,6 +2428,7 @@ def timing_bf16(smi, amp_train, amp_fused, amp_resnet):
     n = AMP_BATCH_RESNET
     tot = dict.fromkeys(("ms", "ms_f32_batch", "plain_ms", "library_ms",
                          "bound_ms", "by_bytes"), 0.0)
+    k3_rows = []
     for ci, co, p in K3_SHAPES:
         x = torch.randn(n, ci, p, device="cuda", generator=g).to(bf16)
         w = torch.randn(co, ci, device="cuda", generator=g) * ci ** -0.5
@@ -2422,25 +2439,36 @@ def timing_bf16(smi, amp_train, amp_fused, amp_resnet):
             return yf.sum(dim=(0, 2)), (yf * yf).sum(dim=(0, 2))
 
         c = counts[(ci, co, p)]
-        tot["ms"] += c * 1e3 * time_fn(lambda: cb.conv1x1_stats_fwd(x, w),
-                                       iters=10)
+        ms = 1e3 * time_fn(lambda: cb.conv1x1_stats_fwd(x, w), iters=10)
+        lib_ms = 1e3 * time_fn(library, iters=10)
+        tot["ms"] += c * ms
         tot["ms_f32_batch"] += c * 1e3 * time_fn(
             lambda: cb.conv1x1_stats_fwd(xh, w), iters=10)
         tot["plain_ms"] += c * 1e3 * time_fn(
             lambda: cb.conv1x1_stats_plain(x, w), iters=3)
-        tot["library_ms"] += c * 1e3 * time_fn(library, iters=10)
+        tot["library_ms"] += c * lib_ms
         # x and y in bf16, w and the sums in float32, once each
-        b_ms, b_by, _ = _bound(2.0 * n * p * ci * co,
-                               2.0 * (n * ci * p + n * co * p)
-                               + 4.0 * co * ci + 4.0 * 2 * co, "bfloat16")
+        b_ms, b_by, why = _bound(2.0 * n * p * ci * co,
+                                 2.0 * (n * ci * p + n * co * p)
+                                 + 4.0 * co * ci + 4.0 * 2 * co, "bfloat16")
         tot["bound_ms"] += c * b_ms
         tot["by_bytes"] += c * b_ms if b_by == "bytes" else 0.0
+        route = "TMA" if p % 8 == 0 else "raw slabs laid out by the producer"
+        k3_rows.append({"shape": [n, ci, co, p], "per_step": c, "ms": ms,
+                        "library_ms": lib_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "route": route})
+        _log("timing", f"conv1x1_stats_bf16 [{n}, {ci}, {p}] x [{co}, {ci}] "
+             f"(x{c} a step, x by {route}) on {smi}: kernel {ms:.4f} ms, "
+             f"bf16 matmul + float32 sums {lib_ms:.4f} ms; bound "
+             f"{b_ms:.4f} ms by {b_by} ({why}): {100 * b_ms / ms:.1f}% of "
+             f"bound")
         del x, xh, w
     out["conv1x1_stats_bf16"] = {
         "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "library_ms": tot["library_ms"], "bound_ms": tot["bound_ms"],
         "bound_by": "bytes" if tot["by_bytes"] >= tot["bound_ms"] / 2
-        else "operations", "ms_at_batch_128": tot["ms_f32_batch"]}
+        else "operations", "ms_at_batch_128": tot["ms_f32_batch"],
+        "per_shape": k3_rows}
     _log("timing", f"conv1x1_stats_bf16 per AMP ResNet-50 step (36 "
          f"launches, batch {n}, bf16 x) on {smi}: kernel {tot['ms']:.3f} ms,"
          f" plain {tot['plain_ms']:.3f} ms, bf16 matmul + float32 sums "
@@ -3178,8 +3206,9 @@ def main(argv=None) -> int:
     ap.add_argument("--json", help="also write every measurement here")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one bucket-2048 batch, a float32 "
-                         "and an AMP GPT step, one ResNet-50 step and a "
-                         "step of each ring_train program by kernel")
+                         "and an AMP GPT step, a float32 and an AMP "
+                         "ResNet-50 step and a step of each ring_train "
+                         "program by kernel")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3215,6 +3244,7 @@ def main(argv=None) -> int:
     timing.update(timing_ring(smi, ring_train))
     ring_times = timing.pop("ring")
     k3_shapes = timing["conv1x1_stats"].pop("per_shape")
+    k3_bf16_shapes = timing["conv1x1_stats_bf16"].pop("per_shape")
     k6_calls = timing["matmul_bn_stats"].pop("per_call")
     prof = None
     if args.profile:
@@ -3222,6 +3252,8 @@ def main(argv=None) -> int:
                 "train": phase_train_profile(train),
                 "amp_train": phase_train_profile(amp_train, "AMP "),
                 "resnet": phase_resnet_profile(resnet),
+                "amp_resnet": phase_resnet_profile(
+                    amp_resnet, "AMP ", AMP_BATCH_RESNET),
                 **{f"ring_train_{impl}": ring_train[impl]["profile"]
                    for impl in ("ring", "flash")}}
     by_path = {"flash_attn_fwd": {"serve": serve["launches"],
@@ -3272,6 +3304,7 @@ def main(argv=None) -> int:
         with open(args.json, "w") as f:
             json.dump({"gpu": smi, "kernels": kernels, "profile": prof,
                        "conv1x1_stats_shapes": k3_shapes,
+                       "conv1x1_stats_bf16_shapes": k3_bf16_shapes,
                        "matmul_bn_stats_calls": k6_calls,
                        "rn50_fused": rn50_fused, "attn_ceiling": ceiling,
                        "ring_kernel": ring_kernel, "ring_times": ring_times,

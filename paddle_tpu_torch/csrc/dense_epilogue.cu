@@ -9,77 +9,76 @@
 //
 // with act one of none, relu, gelu (erf) and gelu (tanh), and y in x's type
 // (:84, :90).  The operands are rounded to bfloat16 (round to nearest even)
-// as the TPU kernel casts them, multiplied on the tensor cores with float32
-// accumulation (mma.sync m16n8k16, bf16 in, f32 out), as the TPU's MXU does;
-// the bias and the activation are applied to the float32 accumulators, and
-// y is written once, rounded once where it is bf16.
+// as the TPU kernel casts them and multiplied on the tensor cores with
+// float32 accumulation, as the TPU's MXU does; the bias and the activation
+// are applied to the float32 accumulators, and y is written once, rounded
+// once where it is bf16.
 //
-// Design:
+// Design: the GEMM core of sm90_gemm.cuh (persistent blocks, a 4-stage TMA
+// ring, a producer warpgroup and two consumer warpgroups that take 128 x
+// 128 output tiles in turn, bf16 wgmma m64n128k16 into float32
+// accumulators; one warpgroup's epilogue runs beside the other's
+// products).
+//  - A is x, K-major, through a 2-d tensor map in 128 x 64 boxes; B is w,
+//    n contiguous, so MN-major (wgmma's transpose bit), in 64 x 64 boxes.
+//    TMA fills the ragged M, N and K edges with zeros.
 //  - a bf16 operand whose rows are whole 16-byte chunks (K, respectively
-//    N, a multiple of 8, and a 16-byte aligned start) is read by the GEMM
-//    where it lies: the tile loads zero-fill the rows and chunks past the
-//    operand's edge (cp.async with a source size of 0).  A float32 operand
-//    (or a bf16 one of another shape) is first rounded to bf16 into a
-//    zero-padded copy whose sides are multiples of the GEMM's tiles (M and
-//    N of 128, K of 32), which costs ~2 bytes read and ~1 written per
-//    element in float32 (x: 75 MB of 261 at the main path's shape); the TPU
-//    casts inside the kernel.  Only the epilogue masks the ragged M and N.
-//  - the GEMM: one block of 8 warps per 128 x 128 output tile; the K loop
-//    runs over 32-deep stages, 4 of them in shared memory filled by
-//    cp.async (16-byte copies, three stages in flight while one is
-//    multiplied).  x's tile is stored [128][32] (k contiguous, as ldmatrix
-//    wants A), w's tile [32][128] as it lies in memory (n contiguous), so B's
-//    fragments come from ldmatrix.trans; rows are padded by 8 elements to
-//    keep ldmatrix free of bank conflicts.  Each warp owns a 32 x 64 tile:
-//    2 x 8 mma tiles with their float32 accumulators in registers.
-//  - the epilogue adds b and applies the activation on the accumulator
-//    fragments and writes y (two consecutive values a thread and row).
+//    N, a multiple of 8, and a 16-byte aligned start) is read where it
+//    lies.  A float32 operand (or a bf16 one of another shape) is first
+//    rounded to bf16 into a copy whose rows are padded to a multiple of 8
+//    (round_pad_kernel: ~2 bytes read and ~1 written per element in
+//    float32, x: 75 MB of 261 at the main path's shape); the TPU casts
+//    inside the kernel.
+//  - the epilogue adds b and applies the activation (a template
+//    parameter: one kernel each) to the float32 sums, stages the tile in
+//    shared memory (bf16 whole, float32 in 64-row halves) and writes it
+//    with TMA stores, which drop what lies past M and N and run while the
+//    warpgroup goes on; y's rows must be whole 16-byte chunks for that,
+//    and otherwise the epilogue stores from its registers.
 //
 // What bounds it on an H100: at the main path's shape, x [16384, 768] @
-// w [768, 3072], 77.3 GFLOP of bf16 products at 989 TFLOP/s take 0.078 ms,
-// the 261 MB of x, w, b and y in float32 at 3.35 TB/s also 0.078 ms: the
-// two bounds meet.  In bf16 (AMP) the operands and y move 131 MB (0.039
-// ms), so the products bound it.  mma.sync reaches about two thirds of the
-// tensor cores' rate on Hopper (wgmma the rest), so this version cannot
-// reach the bound; a TMA + wgmma kernel is the next step.
+// w [768, 3072], 77.3 GFLOP of bf16 products at 989 TFLOP/s take 0.078 ms;
+// in bf16 (AMP) x, w and y move 131 MB (0.039 ms), so the products bound
+// it.  In float32 the 261 MB of x, w, b and y also take 0.078 ms: the two
+// bounds meet, and the rounding pass adds its own pass over x and w.  On
+// an H100 80GB HBM3 at 700 W a tile's products take ~5.3 us (shared
+// memory's bandwidth, sm90_gemm.cuh), and the epilogue ~1.4 us without an
+// activation but ~12 us with gelu's erf: the gelu form is bound by its
+// epilogue, ~2.2 times the products' time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "elem.cuh"
+#include "sm90_gemm.cuh"
 
 namespace {
 
-constexpr int BM = 128;         // output rows per block
-constexpr int BN = 128;         // output columns per block
-constexpr int BK = 32;          // depth per stage
+using namespace sm90g;
+
 constexpr int STAGES = 4;
-constexpr int AP = BK + 8;      // padded row of the A tile (k contiguous)
-constexpr int BP = BN + 8;      // padded row of the B tile (n contiguous)
-constexpr int THREADS = 256;    // 8 warps: 4 along M x 2 along N
-constexpr int WM = 32;          // rows per warp
-constexpr int WN = 64;          // columns per warp
-constexpr int A_STAGE = BM * AP;        // bf16 elements of one A stage
-constexpr int B_STAGE = BK * BP;        // bf16 elements of one B stage
-constexpr int SMEM = STAGES * (A_STAGE + B_STAGE) * 2;   // bytes
+struct Layout {
+  Stages<STAGES> g;
+  OutTiles out;
+};
 
 enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_GELU_TANH = 3 };
 
 // dst[r][c] = bf16(src[r][c]) inside [rows, cols], 0 in the padding up to
-// [rows_p, cols_p]; each thread writes 8 consecutive columns (16 bytes).
-// vec: 16-byte loads of a float32 source
+// cols_p columns (a multiple of 8); each thread writes 8 consecutive
+// columns (16 bytes).  vec: 16-byte loads of a float32 source
 template <typename S>
 __global__ void __launch_bounds__(256)
 round_pad_kernel(const S* __restrict__ src, __nv_bfloat16* __restrict__ dst,
-                 int rows, int cols, int rows_p, int cols_p, bool vec) {
-  const long long chunks = (long long)rows_p * (cols_p / 8);
+                 int rows, int cols, int cols_p, bool vec) {
+  const long long chunks = (long long)rows * (cols_p / 8);
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < chunks; i += (long long)gridDim.x * blockDim.x) {
     const int r = (int)(i / (cols_p / 8));
     const int c0 = (int)(i % (cols_p / 8)) * 8;
     float v[8];
-    if (sizeof(S) == 4 && r < rows && vec && c0 + 8 <= cols) {
+    if (sizeof(S) == 4 && vec && c0 + 8 <= cols) {
       const float4* p =
           reinterpret_cast<const float4*>(src + (size_t)r * cols + c0);
       const float4 a = p[0], b = p[1];
@@ -88,9 +87,8 @@ round_pad_kernel(const S* __restrict__ src, __nv_bfloat16* __restrict__ dst,
     } else {
 #pragma unroll
       for (int k = 0; k < 8; ++k)
-        v[k] = (r < rows && c0 + k < cols)
-                   ? ptt::ld(src + (size_t)r * cols + c0 + k)
-                   : 0.f;
+        v[k] = c0 + k < cols ? ptt::ld(src + (size_t)r * cols + c0 + k)
+                             : 0.f;
     }
     __align__(16) __nv_bfloat162 o[4];
 #pragma unroll
@@ -100,59 +98,9 @@ round_pad_kernel(const S* __restrict__ src, __nv_bfloat16* __restrict__ dst,
   }
 }
 
-// 16 bytes from gmem into smem, or 16 zero bytes when !in (the source is
-// then not read: its size is 0)
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool in) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(in ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 bf16 matrices; lane l gives the address of row (l % 8) of
-// matrix l / 8
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* row) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// the same, each matrix transposed: from rows of k (n contiguous) it gives
-// the "col" B fragments of mma.sync
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* row) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ float activate(float v, int act) {
-  switch (act) {
+template <int ACT>
+__device__ __forceinline__ float activate(float v) {
+  switch (ACT) {
     case ACT_RELU:
       return fmaxf(v, 0.f);
     case ACT_GELU:
@@ -187,121 +135,102 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float v0,
   }
 }
 
-// An operand as the GEMM reads it: bf16 rows of `ld` elements, of which
-// `rows` x `cols` hold values (the tile loads zero-fill the rest); `cols`
-// is a multiple of 8
-struct Operand {
-  const __nv_bfloat16* p;
-  int ld, rows, cols;
-};
-
-// y [M, N] = act(x . w + bias); ktiles = ceil(K / BK)
-template <typename TY>
-__global__ void __launch_bounds__(THREADS)
-dense_act_kernel(Operand xa, Operand wa, const float* __restrict__ bias,
-                 TY* __restrict__ y, int m, int n, int ktiles, int act) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto as = reinterpret_cast<__nv_bfloat16(*)[BM][AP]>(smem);   // [S][BM][AP]
-  auto bs = reinterpret_cast<__nv_bfloat16(*)[BK][BP]>(
-      smem + STAGES * A_STAGE * 2);                             // [S][BK][BP]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int warp_m = warp & 3;
-  const int warp_n = warp >> 2;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-
-  // one stage: A 128 rows x 4 chunks, B 32 rows x 16 chunks of 16 bytes;
-  // two chunks of each a thread
-  auto load_stage = [&](int stage, int k0) {
+// y [m, n] = act(x . w + bias) over tiles (m tile mt, column tile ct).
+// TMA_Y: y's rows are whole 16-byte chunks, and each tile goes out by TMA
+// stores from a staged copy (map_y); else from the registers.
+template <typename TY, int ACT, bool TMA_Y>
+__global__ void __launch_bounds__(THREADS, 1)
+dense_act_kernel(const __grid_constant__ CUtensorMap map_x,
+                 const __grid_constant__ CUtensorMap map_w,
+                 const __grid_constant__ CUtensorMap map_y,
+                 const float* __restrict__ bias, TY* __restrict__ y, int m,
+                 int n, Tiles tl, int ktiles) {
+  Layout& sm = smem<Layout>();
+  const int c = setup<40>(sm.g, 1);
+  if (c < 0) {
+    if (threadIdx.x == 0)
+      produce(sm.g, tl, ktiles,
+              [&](int s, uint64_t* full, int mt, int ct, int kt) {
+                mbar_expect_tx(full, A_BYTES + B_BYTES);
+                tma_load_2d(sm.g.a[s], &map_x, full, kt * BK, mt * BM);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int idx = tid + r * THREADS;
-      const int row = idx >> 2, ch = idx & 3;
-      const int gr = m0 + row, gc = k0 + ch * 8;
-      const bool in = gr < xa.rows && gc < xa.cols;
-      cp_async16(&as[stage][row][ch * 8],
-                 in ? xa.p + (size_t)gr * xa.ld + gc : xa.p, in);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int idx = tid + r * THREADS;
-      const int row = idx >> 4, ch = idx & 15;
-      const int gr = k0 + row, gc = n0 + ch * 8;
-      const bool in = gr < wa.rows && gc < wa.cols;
-      cp_async16(&bs[stage][row][ch * 8],
-                 in ? wa.p + (size_t)gr * wa.ld + gc : wa.p, in);
-    }
-  };
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load_stage(s, s * BK);
-    cp_async_commit();
+                for (int j = 0; j < BN / 64; ++j)
+                  tma_load_2d(sm.g.b[s] + j * B_PANEL, &map_w, full,
+                              ct * BN + 64 * j, kt * BK);
+              });
+    return;
   }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    // refill the stage every warp finished multiplying at kt - 1
-    const int next = kt + STAGES - 1;
-    if (next < ktiles) load_stage(next % STAGES, next * BK);
-    cp_async_commit();
-    const int st = kt % STAGES;
-#pragma unroll
-    for (int kb = 0; kb < BK; kb += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldmatrix_x4(a[i], &as[st][warp_m * WM + i * 16 + (lane & 15)]
-                             [kb + (lane >> 4) * 8]);
-#pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        // matrices: k 0-7 and 8-15 of n-tile j, then of n-tile j + 1
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, &bs[st][kb + ((lane >> 3) & 1) * 8 + (lane & 7)]
-                                [warp_n * WN + j * 8 + (lane >> 4) * 8]);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc[i][j], a[i], b[0], b[1]);
-          mma_bf16(acc[i][j + 1], a[i], b[2], b[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // epilogue: this thread holds rows (g, g + 8) of each 16-row tile i and
-  // columns (2t, 2t + 1) of each 8-column tile j of its warp's 32 x 64
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const bool pair_ok = n % 2 == 0;       // paired stores stay aligned
+  if constexpr (TMA_Y) {
+    // a bf16 tile staged whole (32 KB), a float32 one in 64-row halves
+    constexpr int HALVES = sizeof(TY) == 2 ? 1 : 2;
+    constexpr int ROWS = BM / HALVES, PER = 128 / sizeof(TY);
+    consume(sm.g, c, tl, ktiles, [&](float (&acc)[2][ACC], int mt, int ct) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = n0 + warp_n * WN + j * 8 + 2 * t;
-    if (col >= n) continue;
-    const bool two = col + 1 < n;
-    const float b0 = bias[col], b1 = two ? bias[col + 1] : 0.f;
+      for (int hp = 0; hp < HALVES; ++hp)
+        store_staged(
+            sm.out.v[c], c,
+            [&](uint8_t* buf) {
+              const uint32_t tile = smem_u32(buf);
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+              for (int i = 0; i < BN / 8; ++i) {
+                const int cl = 8 * i + 2 * (lane % 4), col = ct * BN + cl;
+                const float b0 = col < n ? bias[col] : 0.f;
+                const float b1 = col + 1 < n ? bias[col + 1] : 0.f;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + warp_m * WM + i * 16 + h * 8 + g;
-        if (row >= m) continue;
-        store_pair(y + (size_t)row * n + col,
-                   activate(acc[i][j][h * 2] + b0, act),
-                   activate(acc[i][j][h * 2 + 1] + b1, act), two, pair_ok);
-      }
+                for (int h = 0; h < 2; ++h) {
+                  if (HALVES == 2 && h != hp) continue;
+#pragma unroll
+                  for (int r = 0; r < 2; ++r)
+                    stage2<TY>(tile, ROWS,
+                               64 * (h - hp) + 16 * warp + lane / 4 + 8 * r,
+                               cl, activate<ACT>(acc[h][4 * i + 2 * r] + b0),
+                               activate<ACT>(acc[h][4 * i + 2 * r + 1] + b1));
+                }
+              }
+            },
+            [&](uint8_t* buf) {
+#pragma unroll
+              for (int j = 0; j < BN / PER; ++j)
+                tma_store_2d(&map_y, buf + j * ROWS * 128, ct * BN + PER * j,
+                             mt * BM + ROWS * hp);
+            });
+    });
+    if (threadIdx.x % 128 == 0) bulk_wait();
+    return;
   }
+  consume(sm.g, c, tl, ktiles, [&](float (&acc)[2][ACC], int mt, int ct) {
+    // column pair by column pair, each pair's 4 rows (h, r): a pair's
+    // bias is loaded once and its accumulators free as they are stored
+    const int col0 = ct * BN + 2 * (lane % 4);
+    TY* yrow[2][2];
+    bool row_ok[2][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = mt * BM + 64 * h + 16 * warp + lane / 4 + 8 * r;
+        row_ok[h][r] = row < m;
+        yrow[h][r] = y + (size_t)row * n;
+      }
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      const int col = col0 + 8 * i;
+      if (col >= n) continue;
+      const bool two = col + 1 < n;
+      const float b0 = bias[col], b1 = two ? bias[col + 1] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (row_ok[h][r])
+            store_pair(yrow[h][r] + col,
+                       activate<ACT>(acc[h][4 * i + 2 * r] + b0),
+                       activate<ACT>(acc[h][4 * i + 2 * r + 1] + b1), two,
+                       pair_ok);
+    }
+  });
 }
 
 long long round_up(long long v, long long to) { return (v + to - 1) / to * to; }
@@ -313,94 +242,130 @@ bool direct(const void* p, int cols, int is_bf16) {
 }
 
 int launch_round_pad(const void* src, int is_bf16, __nv_bfloat16* dst,
-                     int rows, int cols, int rows_p, int cols_p,
-                     cudaStream_t st) {
-  const long long chunks = (long long)rows_p * (cols_p / 8);
+                     int rows, int cols, int cols_p, cudaStream_t st) {
+  const long long chunks = (long long)rows * (cols_p / 8);
   long long blocks = (chunks + 255) / 256;
   if (blocks > 8192) blocks = 8192;
   if (is_bf16) {
     round_pad_kernel<__nv_bfloat16><<<(unsigned)blocks, 256, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(src), dst, rows, cols, rows_p,
-        cols_p, false);
+        static_cast<const __nv_bfloat16*>(src), dst, rows, cols, cols_p,
+        false);
   } else {
     // 16-byte loads need 16-byte rows and a 16-byte aligned start
     const bool vec =
         cols % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0;
     round_pad_kernel<float><<<(unsigned)blocks, 256, 0, st>>>(
-        static_cast<const float*>(src), dst, rows, cols, rows_p, cols_p,
-        vec);
+        static_cast<const float*>(src), dst, rows, cols, cols_p, vec);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename TY>
-int launch_gemm(Operand xa, Operand wa, const float* b, void* y, int m,
-                int n, int ktiles, int act, cudaStream_t st) {
+// x: bf16 [m, k] with rows of ldx elements; w: bf16 [k, n], rows of ldw
+template <typename TY, int ACT, bool TMA_Y>
+int launch_gemm(const __nv_bfloat16* x, int ldx, const __nv_bfloat16* w,
+                int ldw, const float* b, void* y, int m, int k, int n,
+                cudaStream_t st) {
+  CUtensorMap mx, mw, my = {};
+  int err = encode_2d(&mx, x, m, k, ldx, BM);
+  if (err == 0) err = encode_2d(&mw, w, k, n, ldw, BK);
+  if (err == 0 && TMA_Y)
+    err = encode_2d(&my, y, m, n, n, sizeof(TY) == 2 ? BM : BM / 2,
+                    sizeof(TY) == 4);
+  if (err != 0) return err;
+  const long long m_tiles = (m + BM - 1) / BM, n_tiles = (n + BN - 1) / BN;
+  if (m_tiles * n_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // the column tiles innermost: the blocks working at one time share x's
+  // rows (x is read from device memory once) and w stays in L2
+  const Tiles tl{(int)m_tiles, (int)n_tiles, false};
+  constexpr int smem_size = smem_bytes<Layout>();
   cudaError_t e = cudaFuncSetAttribute(
-      dense_act_kernel<TY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM);
+      dense_act_kernel<TY, ACT, TMA_Y>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_size);
   if (e != cudaSuccess) return (int)e;
-  dense_act_kernel<TY><<<dim3((unsigned)((n + BN - 1) / BN),
-                              (unsigned)((m + BM - 1) / BM)),
-                         THREADS, SMEM, st>>>(xa, wa, b, static_cast<TY*>(y),
-                                              m, n, ktiles, act);
+  dense_act_kernel<TY, ACT, TMA_Y><<<grid_for(tl.count()), THREADS,
+                                     smem_size, st>>>(
+      mx, mw, my, b, static_cast<TY*>(y), m, n, tl, (k + BK - 1) / BK);
   return (int)cudaGetLastError();
+}
+
+// y by TMA stores where its rows are whole 16-byte chunks
+template <typename TY, int ACT>
+int launch_store(const __nv_bfloat16* x, int ldx, const __nv_bfloat16* w,
+                 int ldw, const float* b, void* y, int m, int k, int n,
+                 cudaStream_t st) {
+  if (n * sizeof(TY) % 16 == 0)
+    return launch_gemm<TY, ACT, true>(x, ldx, w, ldw, b, y, m, k, n, st);
+  return launch_gemm<TY, ACT, false>(x, ldx, w, ldw, b, y, m, k, n, st);
+}
+
+// one kernel an activation (its code alone in the epilogue)
+template <typename TY>
+int launch_act(const __nv_bfloat16* x, int ldx, const __nv_bfloat16* w,
+               int ldw, const float* b, void* y, int m, int k, int n,
+               int act, cudaStream_t st) {
+  switch (act) {
+    case ACT_RELU:
+      return launch_store<TY, ACT_RELU>(x, ldx, w, ldw, b, y, m, k, n, st);
+    case ACT_GELU:
+      return launch_store<TY, ACT_GELU>(x, ldx, w, ldw, b, y, m, k, n, st);
+    case ACT_GELU_TANH:
+      return launch_store<TY, ACT_GELU_TANH>(x, ldx, w, ldw, b, y, m, k, n,
+                                             st);
+    default:
+      return launch_store<TY, ACT_NONE>(x, ldx, w, ldw, b, y, m, k, n, st);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// bf16 elements of scratch the wrapper allocates: the padded copies of the
+// bf16 elements of scratch the wrapper allocates: the rounded copies of the
 // operands the GEMM cannot read where they lie (x, then w)
 long long paddle_tpu_torch_dense_act_scratch(const void* x, const void* w,
                                              int m, int k, int n, int x_bf16,
                                              int w_bf16) {
   long long elems = 0;
-  if (!direct(x, k, x_bf16)) elems += round_up(m, BM) * round_up(k, BK);
-  if (!direct(w, n, w_bf16)) elems += round_up(k, BK) * round_up(n, BN);
+  if (!direct(x, k, x_bf16)) elems += (long long)m * round_up(k, 8);
+  if (!direct(w, n, w_bf16)) elems += (long long)k * round_up(n, 8);
   return elems;
 }
 
 // y [m, n] = act(x [m, k] @ w [k, n] + b [n]); x and w float32 or bf16
 // (x_bf16, w_bf16), b float32, y in x's type; scratch: the bf16 elements
-// paddle_tpu_torch_dense_act_scratch names; act: 0 none, 1 relu, 2 gelu
-// (erf), 3 gelu (tanh).  Returns a cudaError_t (0 = launched).
+// paddle_tpu_torch_dense_act_scratch names (16-byte aligned); act: 0 none,
+// 1 relu, 2 gelu (erf), 3 gelu (tanh).  Returns a cudaError_t (0 =
+// launched), or sm90::TENSOR_MAP_ERROR + the CUresult of a tensor map.
 int paddle_tpu_torch_dense_act(const void* x, const void* w, const void* b,
                                void* y, void* scratch, int m, int k, int n,
                                int act, int x_bf16, int w_bf16,
                                void* stream) {
   if (m <= 0 || k <= 0 || n <= 0 || act < 0 || act > 3)
     return (int)cudaErrorInvalidValue;
-  const long long mp = round_up(m, BM), kp = round_up(k, BK),
-                  np = round_up(n, BN);
-  if (mp / BM > 65535 || kp > 0x7fffffffLL || np > 0x7fffffffLL)
+  const long long kp = round_up(k, 8), np = round_up(n, 8);
+  if (kp > 0x7fffffffLL || np > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   __nv_bfloat16* free_at = static_cast<__nv_bfloat16*>(scratch);
-  Operand xa, wa;
-  if (direct(x, k, x_bf16)) {
-    xa = {static_cast<const __nv_bfloat16*>(x), k, m, k};
-  } else {
-    const int err = launch_round_pad(x, x_bf16, free_at, m, k, (int)mp,
-                                     (int)kp, st);
+  const __nv_bfloat16* xa = static_cast<const __nv_bfloat16*>(x);
+  const __nv_bfloat16* wa = static_cast<const __nv_bfloat16*>(w);
+  int ldx = k, ldw = n;
+  if (!direct(x, k, x_bf16)) {
+    const int err = launch_round_pad(x, x_bf16, free_at, m, k, (int)kp, st);
     if (err != 0) return err;
-    xa = {free_at, (int)kp, (int)mp, (int)kp};
-    free_at += mp * kp;
+    xa = free_at, ldx = (int)kp;
+    free_at += (long long)m * kp;
   }
-  if (direct(w, n, w_bf16)) {
-    wa = {static_cast<const __nv_bfloat16*>(w), n, k, n};
-  } else {
-    const int err = launch_round_pad(w, w_bf16, free_at, k, n, (int)kp,
-                                     (int)np, st);
+  if (!direct(w, n, w_bf16)) {
+    const int err = launch_round_pad(w, w_bf16, free_at, k, n, (int)np, st);
     if (err != 0) return err;
-    wa = {free_at, (int)np, (int)kp, (int)np};
+    wa = free_at, ldw = (int)np;
   }
-  const int ktiles = (int)(kp / BK);
   const float* bf = static_cast<const float*>(b);
-  return x_bf16 ? launch_gemm<__nv_bfloat16>(xa, wa, bf, y, m, n, ktiles,
-                                             act, st)
-                : launch_gemm<float>(xa, wa, bf, y, m, n, ktiles, act, st);
+  return x_bf16 ? launch_act<__nv_bfloat16>(xa, ldx, wa, ldw, bf, y, m, k, n,
+                                            act, st)
+                : launch_act<float>(xa, ldx, wa, ldw, bf, y, m, k, n, act,
+                                    st);
 }
 
 }  // extern "C"

@@ -16,10 +16,13 @@ as the TPU kernel does (``conv_bn.py:128-131``); y keeps x's dtype and the
 statistics come from the float32 sums.
 
 - :func:`conv1x1_stats_fwd` is the wrapper over contiguous float32 or bf16
-  tensors (under AMP a bf16 x and the float32 master w; the kernel reads
-  bf16 x and writes bf16 y itself).  A CUDA tensor launches the kernel or
-  raises; a CPU tensor takes the plain version.  It counts its launches by
-  x's dtype (:func:`launch_count`).
+  tensors (under AMP a bf16 x and the float32 master w).  A bf16 x runs
+  the form on the Hopper GEMM core (``csrc/sm90_gemm.cuh``: TMA and
+  ``wgmma``), which reads x where it lies at every ResNet-50 shape
+  (:func:`bf16_operand` says when it takes a padded copy) and writes bf16
+  y itself; a float32 x the first design's ``mma.sync`` form.  A CUDA
+  tensor launches the kernel or raises; a CPU tensor takes the plain
+  version.  It counts its launches by x's dtype (:func:`launch_count`).
 - :func:`conv1x1_stats_plain` is the plain version.
 - :func:`conv1x1_stats` differentiates through :class:`Conv1x1Stats`: K3
   forward, and the reference's backward (``conv_bn.py:192-202``) in
@@ -118,6 +121,8 @@ def conv1x1_stats_fwd(x, w):
         return conv1x1_stats_plain(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"conv1x1_stats: no kernel for device {x.device}")
+    if x.dtype == torch.bfloat16:
+        return _launch_bf16(x, w)
     fn = _entry()
     n, cin, p = x.shape
     cout = w.shape[0]
@@ -129,10 +134,54 @@ def conv1x1_stats_fwd(x, w):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(),
                  stats.data_ptr(), n, cin, cout, p,
-                 int(x.dtype == torch.bfloat16),
                  int(w.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"conv1x1_stats kernel launch failed: CUDA "
+                           f"error {err}")
+    _count("conv1x1_stats", x.dtype)
+    return y, stats[0], stats[1]
+
+
+#: the widest image row (pixels) the bf16 form lays out of a raw slab; a
+#: wider row must be whole 16-byte chunks, for TMA
+GATHER_MAX_P = 256
+
+
+def bf16_operand(x):
+    """x as the bf16 form reads it: channels a multiple of 8, a 16-byte
+    aligned base, and image rows of whole 16-byte chunks (TMA) or of at most
+    :data:`GATHER_MAX_P` pixels (laid out from raw slabs).  ResNet-50's x
+    is all of that as it lies; another x is copied with zero channels, and
+    zero pixels past a wide ragged row, appended."""
+    n, cin, p = x.shape
+    pad_c = -cin % 8
+    pad_p = -p % 8 if p > GATHER_MAX_P else 0
+    if pad_c or pad_p or x.data_ptr() % 16:
+        x = torch.nn.functional.pad(x, (0, pad_p, 0, pad_c))
+    return x
+
+
+def _launch_bf16(x, w):
+    """The bf16 form (bf16 x and y, float32 or bf16 w) on the Hopper GEMM
+    core (``csrc/sm90_gemm.cuh``)."""
+    fn, part_rows = _entry_bf16()
+    n, cin, p = x.shape
+    cout = w.shape[0]
+    xk = bf16_operand(x)
+    cx, px = xk.shape[1], xk.shape[2]
+    y = torch.empty((n, cout, p), dtype=x.dtype, device=x.device)
+    wcopy = torch.empty((cout * (-(-cin // 8) * 8),), dtype=torch.bfloat16,
+                        device=x.device)
+    part = torch.empty((2, part_rows(n, cin, p, px, cout), cout),
+                       dtype=torch.float32, device=x.device)
+    stats = torch.empty((2, cout), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(xk.data_ptr(), w.data_ptr(), y.data_ptr(), wcopy.data_ptr(),
+                 part.data_ptr(), stats.data_ptr(), n, cin, cx, cout, p, px,
+                 int(w.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"conv1x1_stats bf16 kernel launch failed: CUDA "
                            f"error {err}")
     _count("conv1x1_stats", x.dtype)
     return y, stats[0], stats[1]
@@ -145,11 +194,29 @@ def _entry():
     if not _entry_fn:
         from . import _build
         fn = _build.load("conv1x1_stats").paddle_tpu_torch_conv1x1_stats
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _entry_fn.append(fn)
     return _entry_fn[0]
+
+
+_entry_bf16_fns = []
+
+
+def _entry_bf16():
+    if not _entry_bf16_fns:
+        from . import _build
+        lib = _build.load("conv1x1_stats")
+        fn = lib.paddle_tpu_torch_conv1x1_stats_bf16
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        rows = lib.paddle_tpu_torch_conv1x1_stats_bf16_rows
+        rows.argtypes = [ctypes.c_int] * 5
+        rows.restype = ctypes.c_longlong
+        _entry_bf16_fns.extend((fn, rows))
+    return _entry_bf16_fns
 
 
 class Conv1x1Stats(torch.autograd.Function):

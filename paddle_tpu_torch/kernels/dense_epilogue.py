@@ -3,8 +3,9 @@ CUDA kernel and its plain version.
 
 K5 replaces the Pallas TPU kernel ``paddle_tpu/pallas/dense_epilogue.py``
 ``_mba_fwd_impl`` (:69, ``pl.pallas_call`` at :82, body ``_kernel`` :40);
-its source is ``paddle_tpu_torch/csrc/dense_epilogue.cu``, whose header
-says what bounds it on an H100.  For ``x [M, K]``, ``w [K, N]`` (each
+its source is ``paddle_tpu_torch/csrc/dense_epilogue.cu``, on the Hopper
+GEMM core ``csrc/sm90_gemm.cuh`` (TMA and ``wgmma``), whose headers say
+what bounds it on an H100.  For ``x [M, K]``, ``w [K, N]`` (each
 float32 or bf16; under AMP both bf16) and a float32 ``b [N]``:
 
     y = act(Σ_k bf16(x)·bf16(w) + b)      (float32 sums, y in x's dtype)

@@ -24,8 +24,13 @@ Each source's header says what bounds it on an H100.
 
 - :func:`flash_attention_fwd` / :func:`flash_attention_bwd` are the
   wrappers over contiguous ``[bh, T, d]`` tensors of one dtype, float32 or
-  bf16 (AMP).  The kernels load that dtype and store o, dq, dk, dv in it,
-  each rounded once from a float32 sum; lse and delta are float32.  A CUDA
+  bf16 (AMP), at any head dim d > 0 as the reference takes.  On the card
+  the kernels run d up to :data:`MAX_HEAD_DIM` (128), a d that is not a
+  multiple of 8 on zero-padded copies (exact: zero columns add nothing to
+  q·kᵀ or p·v; ``sm_scale`` comes from the true d); above 128 they raise
+  (their tiles' shared memory).  The kernels load that dtype and store o,
+  dq, dk, dv in it, each rounded once from a float32 sum; lse and delta
+  are float32.  A CUDA
   tensor launches the kernel's form for its dtype or raises; a CPU tensor
   takes the plain version.  Each counts its launches per dtype
   (:func:`launch_count`) under one name, ``flash_attn_fwd`` or
@@ -145,9 +150,9 @@ def _check(q, k, v, bias, what="flash_attention_fwd", rows=()):
     if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
         raise ValueError(f"flash_attention_fwd: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)} disagree")
-    if d % 8 or d > 128 or tq == 0 or k.shape[1] == 0:
-        raise ValueError(f"flash_attention_fwd: head dim {d} must be a "
-                         "multiple of 8 and at most 128, with T > 0")
+    if d == 0 or tq == 0 or k.shape[1] == 0:
+        raise ValueError(f"flash_attention_fwd: head dim {d} and T must be "
+                         "positive")
     if bias is not None:
         tk = k.shape[1]
         if (bias.dtype != torch.float32 or not bias.is_contiguous()
@@ -165,17 +170,49 @@ def flash_attention_fwd(q, k, v, bias: Optional[torch.Tensor] = None,
                         sm_scale: Optional[float] = None):
     """``(o, lse)`` for contiguous ``q [bh,Tq,d]``, ``k/v [bh,Tk,d]`` (one
     dtype, float32 or bf16; o in it, lse float32) and an optional additive
-    float32 ``bias [1|bh, Tq, Tk]``; d is a multiple of 8 up to 128.  Launches the CUDA kernel on the current
-    stream for CUDA tensors; CPU tensors take the plain version."""
+    float32 ``bias [1|bh, Tq, Tk]``, at any head dim d > 0.  Launches the
+    CUDA kernel on the current stream for CUDA tensors (d up to
+    :data:`MAX_HEAD_DIM`; a d that is not a multiple of 8 runs on
+    zero-padded copies, :func:`padded_head_dim`); CPU tensors take the
+    plain version."""
     _check(q, k, v, bias)
+    d = q.shape[-1]
     if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+        sm_scale = 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, bias, causal, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd: no kernel for device "
                          f"{q.device}")
-    return _launch(q, k, v, bias, bool(causal), float(sm_scale))
+    dp = padded_head_dim("flash_attention_fwd", d)
+    o, lse = _launch(*(pad_head_dim(x, dp) for x in (q, k, v)), bias,
+                     bool(causal), float(sm_scale))
+    return (o if dp == d else o[..., :d].contiguous()), lse
+
+
+#: the largest head dim the kernels take on the card
+MAX_HEAD_DIM = 128
+
+
+def padded_head_dim(what, d):
+    """The head dim the kernels run at for a true head dim ``d``: d rounded
+    up to a multiple of 8.  The padding is exact: zero columns add nothing
+    to q·kᵀ or to p·v, and the caller's ``sm_scale`` comes from the true d.
+    Raises above :data:`MAX_HEAD_DIM`."""
+    if d > MAX_HEAD_DIM:
+        raise ValueError(
+            f"{what}: head dim {d} is above {MAX_HEAD_DIM}, the largest the "
+            "Hopper kernels take: their tiles hold whole head-dim rows of q, "
+            "k and v in shared memory, and at d <= 128 they already take "
+            "193-198 KB of the 227 KB a block may use")
+    return -(-d // 8) * 8
+
+
+def pad_head_dim(x, dp):
+    """``x [..., d]`` zero-padded to ``dp`` columns (a new contiguous
+    tensor, so it starts on 16 bytes as TMA needs), or ``x`` at d == dp."""
+    d = x.shape[-1]
+    return x if d == dp else torch.nn.functional.pad(x, (0, dp - d))
 
 
 def _aligned(what, *tensors):
@@ -309,13 +346,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
     [bh,Tk,d]``, the forward's ``o [bh,Tq,d]`` and float32 ``lse
     [bh,Tq]``, and the output gradient ``do [bh,Tq,d]`` (q, k, v, o and do
     of one dtype, float32 or bf16; the gradients in it, accumulated in
-    float32 and rounded once); d is a multiple of 8 up to 128.
-    Launches the CUDA kernel on the current stream for CUDA tensors; CPU
-    tensors take the plain version.  (No bias: with one, the backward is
-    the plain version on any device, as in the reference.)  ``delta``, a
-    contiguous float32 ``[bh, Tq]`` tensor, is ``rowsum(do * o)`` computed
-    by the caller (ring attention computes it once for all its steps); the
-    kernel then skips its own delta pass."""
+    float32 and rounded once), at any head dim d > 0.
+    Launches the CUDA kernel on the current stream for CUDA tensors (d up
+    to :data:`MAX_HEAD_DIM`, zero-padded to a multiple of 8 as the forward
+    does); CPU tensors take the plain version.  (No bias: with one, the
+    backward is the plain version on any device, as in the reference.)
+    ``delta``, a contiguous float32 ``[bh, Tq]`` tensor, is ``rowsum(do *
+    o)`` computed by the caller (ring attention computes it once for all
+    its steps); the kernel then skips its own delta pass."""
     what = "flash_attention_bwd"
     _check(q, k, v, None, what, (("o", o), ("do", do)))
     bh, tq, d = q.shape
@@ -341,6 +379,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
                                              causal, sm_scale, delta)[:3]
     if q.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {q.device}")
+    dp = padded_head_dim(what, d)
+    grads = _launch_bwd(*(pad_head_dim(x, dp) for x in (q, k, v, o)), lse,
+                        pad_head_dim(do, dp), causal, sm_scale, delta)
+    return grads if dp == d else tuple(g[..., :d].contiguous()
+                                       for g in grads)
+
+
+def _launch_bwd(q, k, v, o, lse, do, causal, sm_scale, delta):
+    what = "flash_attention_bwd"
+    bh, tq, d = q.shape
     if q.dtype == torch.bfloat16:
         _aligned(what, q, k, v, do)
     fn = _entry(DTYPES[q.dtype][1])

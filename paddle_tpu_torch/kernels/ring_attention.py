@@ -55,7 +55,9 @@ mask, and n(n + 1)/2 of each kernel and n(n - 1)/2 merges causal
 - :func:`ring_attention_fwd` / :func:`ring_attention_bwd`: the ring over
   ``[bh, T, d]`` tensors and a list of rank devices of the tensors' device
   type (no hidden move to another device); with ``plain=True`` the same
-  schedule runs through the plain versions (the ring's reference).
+  schedule runs through the plain versions (the ring's reference).  On
+  the card a head dim that is not a multiple of 8 is zero-padded once per
+  ring op, not once per step (K1/K2's rule, ``padded_head_dim``).
 - :class:`RingAttention`: the ``autograd.Function``; :func:`ring_attention`
   the ``[b, h, T, d]`` entry over a mesh axis.
 """
@@ -299,6 +301,16 @@ def _check_ring(q, k, v, devices):
                          f"{q.device.type} devices only")
 
 
+def _head_dim(q, plain):
+    """The head dim the ring's steps run at: on the card the kernels'
+    (:func:`~.flash_attention.padded_head_dim`: q, k, v, o and do are
+    zero-padded once per ring op, not once per step), else q's own."""
+    d = q.shape[-1]
+    if plain or q.device.type == "cpu":
+        return d
+    return fa.padded_head_dim("ring attention", d)
+
+
 def _scale(q, sm_scale):
     return 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None \
         else float(sm_scale)
@@ -316,10 +328,13 @@ def ring_attention_fwd(q, k, v, devices, causal: bool = False,
     q's device."""
     _check_ring(q, k, v, devices)
     fwd, _, merge = _step_fns(plain)
-    os_, lses = _fwd_shards(_shard(q, devices), _shard(k, devices),
-                            _shard(v, devices), devices, bool(causal),
-                            _scale(q, sm_scale), fwd, merge)
-    return _gather(os_, q.device), _gather(lses, q.device)
+    scale, d, dp = _scale(q, sm_scale), q.shape[-1], _head_dim(q, plain)
+    os_, lses = _fwd_shards(*(_shard(fa.pad_head_dim(x, dp), devices)
+                              for x in (q, k, v)), devices, bool(causal),
+                            scale, fwd, merge)
+    o = _gather(os_, q.device)
+    return (o if dp == d else o[..., :d].contiguous()), \
+        _gather(lses, q.device)
 
 
 def ring_attention_bwd(q, k, v, o, lse, do, devices, causal: bool = False,
@@ -330,11 +345,15 @@ def ring_attention_bwd(q, k, v, o, lse, do, devices, causal: bool = False,
     version on CPU shards, or with ``plain``)."""
     _check_ring(q, k, v, devices)
     _, bwd, _ = _step_fns(plain)
+    scale, d, dp = _scale(q, sm_scale), q.shape[-1], _head_dim(q, plain)
+    pad = [fa.pad_head_dim(x, dp) for x in (q, k, v, o)]
     dqs, dks, dvs = _bwd_shards(
-        *(_shard(x, devices) for x in (q, k, v, o, lse, do)), devices,
-        bool(causal), _scale(q, sm_scale), bwd)
-    return (_gather(dqs, q.device), _gather(dks, k.device),
-            _gather(dvs, v.device))
+        *(_shard(x, devices) for x in pad + [lse, fa.pad_head_dim(do, dp)]),
+        devices, bool(causal), scale, bwd)
+    grads = (_gather(dqs, q.device), _gather(dks, k.device),
+             _gather(dvs, v.device))
+    return grads if dp == d else tuple(g[..., :d].contiguous()
+                                       for g in grads)
 
 
 class RingAttention(torch.autograd.Function):

@@ -65,6 +65,14 @@ have them), so it runs there with the repo's conftest left out:
   ``expected_launches``; K2
   with a given delta (float32 and bf16) against its plain version given
   the same delta; the toy BERT ring program on the card against the host.
+- head dims off 8 (zero-padded on the card): K1 and K2 at d = 12 and 20
+  in both dtypes against their plain versions at the true d, the ring at
+  d = 20 against the plain ring, and d = 136 refused with the reason;
+- K5 and the bf16 K3 on the Hopper GEMM core: K5 at a ragged M (4097), K
+  and N off multiples of 8 and x or w one element off 16 bytes, both
+  dtypes; the bf16 K3 at Cout 64, P 49 and 196 with a short last column
+  tile, P 56 (TMA), Cin 13, the stride-2 shortcut's copies (P 196 and
+  49) and an x off 16 bytes, under K3's bf16 bounds above.
 """
 
 import numpy as np
@@ -1228,3 +1236,182 @@ def test_ring_bert_on_the_card_matches_the_host(cuda):
             np.testing.assert_allclose(card, host, rtol=1e-5)
     finally:
         set_mesh(None)
+
+
+# -- head dims that are not multiples of 8 (run zero-padded), and above 128 --
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [12, 20])
+def test_k1_k2_at_a_head_dim_off_8(cuda, d, dtype):
+    """K1 and K2 at head dim 12 and 20 (zero-padded to 16 and 24 on the
+    card) against their plain versions at the true d: float32 within 1e-4
+    relative + 1e-5, bf16 within one bf16 ulp of each output's largest
+    magnitude; one launch each, outputs of the true d."""
+    dt = getattr(torch, dtype)
+    q, k, v, o, lse, do = _bwd_inputs(4, 77, 90, d, False, cuda)
+    q, k, v, do = (x.to(dt) for x in (q, k, v, do))
+    n0 = (fa.launch_count("flash_attn_fwd", dtype),
+          fa.launch_count("flash_attn_bwd", dtype))
+    got_o, got_lse = fa.flash_attention_fwd(q, k, v, None, False)
+    ro, rlse = fa.flash_attention_reference(q, k, v, None, False)
+    grads = fa.flash_attention_bwd(q, k, v, ro, rlse, do, False)
+    torch.cuda.synchronize()
+    assert (fa.launch_count("flash_attn_fwd", dtype),
+            fa.launch_count("flash_attn_bwd", dtype)) == (n0[0] + 1,
+                                                          n0[1] + 1)
+    want = fa.flash_attention_bwd_reference(q, k, v, ro, rlse, do, None,
+                                            False)[:3]
+    assert got_o.shape == q.shape and all(
+        g_.shape == x.shape for g_, x in zip(grads, (q, k, v)))
+    torch.testing.assert_close(got_lse, rlse, rtol=1e-4, atol=1e-5)
+    for name, g_, w_ in zip(("o", "dq", "dk", "dv"), (got_o,) + grads,
+                            (ro,) + tuple(want)):
+        if dtype == "float32":
+            torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-5,
+                                       msg=name)
+        else:
+            _within_ulp(g_, w_, what=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_at_a_head_dim_off_8(cuda, dtype):
+    """The ring over [cuda:0] * 4 at d = 20 against its plain version (the
+    same schedule through the plain K1, K2 and merge): float32 within
+    1e-4 relative + 1e-5, bf16 within 4 bf16 ulps of each value plus 4 of
+    the tensor's RMS (the ring's tolerances in chip_smoke.py)."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(21)
+    q, k, v, do = (torch.randn(4, 256, 20, generator=g).to(cuda).to(dt)
+                   for _ in range(4))
+    devices = [cuda] * 4
+    o, lse = ra.ring_attention_fwd(q, k, v, devices, causal=True)
+    grads = ra.ring_attention_bwd(q, k, v, o, lse, do, devices, causal=True)
+    ro, rlse = ra.ring_attention_fwd(q, k, v, devices, causal=True,
+                                     plain=True)
+    want = ra.ring_attention_bwd(q, k, v, ro, rlse, do, devices,
+                                 causal=True, plain=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-5)
+    for name, g_, w_ in zip(("o", "dq", "dk", "dv"), (o,) + grads,
+                            (ro,) + want):
+        assert g_.shape == w_.shape == q.shape, name
+        if dtype == "float32":
+            torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-5,
+                                       msg=name)
+        else:
+            gf, wf = g_.float(), w_.float()
+            ulp = torch.exp2(torch.floor(torch.log2(wf.abs().clamp_min(
+                1e-30))) - 7)
+            rms = float(wf.square().mean().sqrt())
+            bound = 4 * ulp + 4 * 2.0 ** (np.floor(np.log2(rms)) - 7)
+            assert bool(((gf - wf).abs() <= bound).all()), name
+
+
+def test_k1_refuses_a_head_dim_above_128_with_the_reason(cuda):
+    q = torch.randn(2, 16, 136, device=cuda)
+    n0 = fa.launch_count()
+    with pytest.raises(ValueError, match="shared memory"):
+        fa.flash_attention_fwd(q, q, q, None, True)
+    with pytest.raises(ValueError, match="shared memory"):
+        ra.ring_attention_fwd(q, q, q, [cuda] * 2)
+    assert fa.launch_count() == n0
+
+
+# -- K5 and the bf16 K3 on the Hopper GEMM core (csrc/sm90_gemm.cuh) ---------
+
+# (M, K, N): a ragged M over the full width, K and N off 8 (the rounded
+# copy), a ragged everything
+K5_CORE = {"4097x768x3072": (4097, 768, 3072), "4097x100x130":
+           (4097, 100, 130), "300x36x20": (300, 36, 20)}
+
+
+@pytest.mark.parametrize("off", ["aligned", "x_off_16", "w_off_16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(K5_CORE))
+def test_k5_core_edges(cuda, case, dtype, off):
+    """K5 at a ragged M, K and N off multiples of 8, and with x or w one
+    element past a 16-byte boundary (read through the rounded copy):
+    float32 y within 1e-5 + 1e-4 relative + 2^-20 of sum |x||w|, bf16 y
+    within one bf16 ulp of its largest magnitude plus that sum term."""
+    m, k, n = K5_CORE[case]
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(m + k + n)
+
+    def operand(rows, cols, scale, shifted):
+        t = torch.randn(rows * cols + 1, generator=g) * scale
+        t = t.to(cuda).to(dt)
+        return t[1:].view(rows, cols) if shifted else t[:-1].view(rows, cols)
+
+    x = operand(m, k, 1.0, off == "x_off_16")
+    w = operand(k, n, k ** -0.5, off == "w_off_16")
+    b = torch.randn(n, generator=g).to(cuda)
+    n0 = de.launch_count("dense_epilogue", dtype)
+    y = de.dense_act_fwd(x, w, b, "gelu")
+    torch.cuda.synchronize()
+    assert de.launch_count("dense_epilogue", dtype) == n0 + 1
+    ry = de.dense_act_plain(x, w, b, "gelu")
+    terms = x.to(BF16).float().abs() @ w.to(BF16).float().abs()
+    if dtype == "float32":
+        assert bool(((y - ry).abs() <= 1e-5 + 1e-4 * ry.abs()
+                     + 2.0 ** -20 * terms).all())
+    else:
+        _within_ulp(y, ry, 2.0 ** -20 * terms, "y")
+
+
+# (n, Cin, Cout, P): Cout 64 (half a 128-row tile), P 49 and 196 (rows that
+# are not whole 16-byte chunks: laid out from raw slabs) with a last column
+# tile short of images or pixels, P 56 (whole chunks: TMA), Cin off 8, a
+# wide ragged P (x padded for TMA, y stored from the registers), and 12 k
+# steps (both warpgroups on each laid-out stage, Cout off 256)
+K3_CORE = {"cout64_p49": (3, 64, 64, 49), "cout64_p196": (3, 128, 64, 196),
+           "p49_tail": (5, 256, 200, 49), "p196_tail": (3, 96, 72, 196),
+           "p56_tma": (3, 64, 136, 56), "cin13_p196": (2, 13, 40, 196),
+           "p300_padded_x": (2, 16, 24, 300),
+           "cin768_p49_shared": (2, 768, 300, 49)}
+
+
+@pytest.mark.parametrize("case", sorted(K3_CORE))
+def test_bf16_k3_core_edges(cuda, case):
+    """The bf16 K3 on the GEMM core at its layout edges: y within one bf16
+    ulp of its largest magnitude + 2^-20 of sum |w||x|, s within 2^-14 of
+    sum |y|, s2 within 2^-14 relative; one launch."""
+    n, ci, co, p = K3_CORE[case]
+    g = torch.Generator().manual_seed(ci + co + p + 7)
+    x = torch.randn(n, ci, p, generator=g).to(cuda).to(BF16)
+    w = (torch.randn(co, ci, generator=g) * ci ** -0.5).to(cuda)
+    n0 = cb.launch_count("conv1x1_stats", "bfloat16")
+    _bf16_k3_check(x, w)
+    assert cb.launch_count("conv1x1_stats", "bfloat16") == n0 + 1
+
+
+def _bf16_k3_check(x, w):
+    y, s, s2 = cb.conv1x1_stats_fwd(x, w)
+    torch.cuda.synchronize()
+    ry, rs, rs2 = cb.conv1x1_stats_plain(x, w)
+    terms = torch.einsum("oc,ncp->nop", w.to(BF16).float().abs(),
+                         x.float().abs())
+    _within_ulp(y, ry, 2.0 ** -20 * terms, "y")
+    yf = torch.einsum("oc,ncp->nop", w.to(BF16).float(), x.float())
+    assert bool(((s - rs).abs()
+                 <= 2.0 ** -14 * yf.abs().sum(dim=(0, 2)) + 1e-6).all())
+    assert bool(((s2 - rs2).abs() <= 2.0 ** -14 * rs2 + 1e-6).all())
+
+
+@pytest.mark.parametrize("side", [28, 14])
+def test_bf16_k3_on_a_stride_two_copy(cuda, side):
+    """The strided shortcut's bf16 input, x[:, :, ::2, ::2] made contiguous
+    (P = 196 and 49), as the fused op hands it to K3."""
+    g = torch.Generator().manual_seed(side)
+    x4 = torch.randn(2, 256, side, side, generator=g).to(cuda).to(BF16)
+    w = (torch.randn(512, 256, generator=g) / 16).to(cuda)
+    _bf16_k3_check(x4[:, :, ::2, ::2].contiguous().reshape(2, 256, -1), w)
+
+
+def test_bf16_k3_reads_an_operand_off_16_bytes(cuda):
+    """x one element past a 16-byte boundary: the kernel reads an aligned
+    copy (channels padded to 8 on the way)."""
+    g = torch.Generator().manual_seed(31)
+    flat = torch.randn(2 * 64 * 196 + 1, generator=g).to(cuda).to(BF16)
+    x = flat[1:].view(2, 64, 196)
+    w = (torch.randn(48, 64, generator=g) / 8).to(cuda)
+    _bf16_k3_check(x, w)

@@ -125,7 +125,9 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
     elif bad == "layout":
         q = torch.randn(2, 64, 16).transpose(1, 2)
     elif bad == "head_dim":
-        q, k, v = (torch.randn(2, 16, 12) for _ in range(3))
+        # any d > 0 runs on the CPU (tests/test_torch_head_dim.py); none
+        # runs at d = 0
+        q, k, v = (torch.randn(2, 16, 0) for _ in range(3))
     elif bad == "bias":
         bias = torch.zeros(3, 16, 16)
     elif bad == "device":
