@@ -34,8 +34,12 @@ JAX, prints one line per phase, and raises on any failure:
    [16384, 768] x [768, 3072] gelu and relu and M 4097: each bf16 output
    within one bf16 ulp of its largest magnitude (plus the float32
    allowance of K3's and K5's sums), the float32 outputs as above; the K3
-   and K5 lines count their flipped outputs the same way (K5 and the bf16
-   K3 run on the Hopper GEMM core, ``csrc/sm90_gemm.cuh``).
+   and K5 lines count their flipped outputs the same way (K3 in both
+   dtypes, K5 and K6 run on the Hopper GEMM core, ``csrc/sm90_gemm.cuh``;
+   the float32 K3 and K6 build their A operands in registers: their ptxas
+   lines are printed first, and ``tools/gemm_flips.py`` prints a digest of
+   each output with the share off the plain version's value at the float32
+   K3's 15 shapes at batch 128 and K6's calls).
 3. ``serve``  — the GPT causal LM at BERT-base width (vocab 30522, d 768,
    12 layers, 12 heads, d_inner 3072, max_pos 2048, random weights from a
    seed) behind ``InferenceServer`` with buckets (512, 1024, 2048) and
@@ -126,9 +130,12 @@ JAX, prints one line per phase, and raises on any failure:
    ([96, 2048, 64] causal for K1/K2, ResNet-50's 15 conv1x1 shapes at batch
    128 for K3, [16384, 768] for K4, [16384, 768] x [768, 3072] gelu for
    K5, the four rn50_fused calls for K6, [24, 2048, 64] for K8, which no
-   single library call computes; the bf16 K3 also shape by shape, with the
-   route its x takes: TMA, or raw slabs laid out by the producer); the
-   least time the card could take
+   single library call computes; K3 in both dtypes also shape by shape,
+   with the route its x takes: TMA, or raw slabs (laid out by the producer
+   in bf16, read from the slab into registers in float32); the float32
+   K3, K6 and their library calls also on the card alone, as K4, in
+   ``held_ms`` and ``library_held_ms``); the least time the card could
+   take
    (``bound``; for the float32 K1/K2 and ring at the rate of float32
    products as six bf16 term products, 989 / 6 TFLOP/s on an H100, with
    the CUDA-core rate's beside it); the server's per-bucket batch
@@ -513,6 +520,35 @@ def _sm90_report(built, dtype):
                                    for k, v in mine.items()))
 
 
+def _core_report(built):
+    """Log what ptxas says of each kernel of the float32 K3 and of K6,
+    which build A in registers: registers, spills, and its performance
+    notes (C7507: the setmaxnreg split ignored; C7512: wgmmas serialized)."""
+    for lib, tag in (("conv1x1_stats", "conv_f32_kernel"),
+                     ("matmul_bn_stats", "mm_stats_kernel")):
+        if lib not in built:
+            _log("kernel", f"{lib}: built before this run, no ptxas log")
+            continue
+        name, out = None, {}
+        for ln in built[lib]["log"].splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                k = re.search(tag + r"I(\w+?)EEv", m.group(1))
+                name = f"{tag}<{k.group(1)}>" if k else None
+                if name:
+                    out[name] = []
+            elif name and ("Used" in ln or "spill" in ln or "C75" in ln):
+                out[name].append(ln.split(":", 1)[-1].strip()[:90])
+        for fn, lines in out.items():
+            _log("kernel", f"ptxas {lib} {fn}: {'; '.join(lines)}")
+    # ptxas names no function in this note: counted a library
+    for lib in ("conv1x1_stats", "matmul_bn_stats", "dense_epilogue"):
+        if lib in built:
+            n = built[lib]["log"].count("C7507")
+            _log("kernel", f"ptxas {lib}: {n} kernels with (C7507) "
+                 "'setmaxnreg' ignored")
+
+
 def _ulps_off(got, ref, ulps=4):
     """How many float32 values of ``got`` lie more than ``ulps`` float32
     ulps of the plain version's value from it, and the share of those
@@ -619,6 +655,7 @@ def phase_kernel(built):
         del got, want
 
     # K3 at ResNet-50's shapes at the training batch, then the edges
+    _core_report(built)
     k3_cases = [(f"[{RESNET_BATCH}, {ci}, {p}] x [{co}, {ci}]",
                  RESNET_BATCH, ci, co, p, 1) for ci, co, p in K3_SHAPES]
     k3_cases += [("N=1 P=49", 1, 512, 2048, 49, 1),
@@ -629,6 +666,7 @@ def phase_kernel(built):
                  ("stride-2 view of [8, 1024, 14, 14]", 8, 1024, 2048, 196,
                   2)]
     worst["conv1x1_stats"] = 0.0
+    from paddle_tpu_torch.kernels import conv_bn as cb
     for name, n, ci, co, p, stride in k3_cases:
         side = int(round(p ** 0.5))
         if stride > 1:
@@ -640,7 +678,9 @@ def phase_kernel(built):
         w = torch.randn(co, ci, device="cuda", generator=g) * ci ** -0.5
         e_y, e_s, e_s2 = check_k3(name, x, w)
         worst["conv1x1_stats"] = max(worst["conv1x1_stats"], e_y)
-        _log("kernel", f"conv1x1_stats {name}: max abs err y {e_y:.3g} s "
+        _log("kernel", f"conv1x1_stats {name} (x by {cb.f32_route(p)}"
+             f"{', copied' if cb.f32_operand(x) is not x else ''}): max abs"
+             f" err y {e_y:.3g} s "
              f"{e_s:.3g} s2 {e_s2:.3g} (atol {ATOL}, rtol {RTOL}, + "
              f"{K3_SUM_RTOL:.3g} sum|w||x| on y, {K3_STAT_RTOL:.3g} of "
              f"sum|y| / s2 on the stats) ok")
@@ -755,6 +795,17 @@ def phase_kernel(built):
                         f"{' + relu' if relu else ''}")
                 errs, _ = check_k6(what, x, w, stats, relu)
                 log_k6(what, errs)
+
+    # the float32 K3's and K6's outputs against their plain versions, bit
+    # by bit: digests and the share off (tools/gemm_flips.py)
+    from paddle_tpu_torch.tools import gemm_flips
+    for case, r in gemm_flips.run(
+            os.path.dirname(os.path.abspath(__file__)),
+            ("conv1x1_stats_f32", "matmul_bn_stats")).items():
+        _log("kernel", f"digest {case}: {r['digest']}, {r['n']} of "
+             f"{r['total']} off the plain version's, "
+             f"{100 * r['toward'] / max(r['n'], 1):.0f}% of them nearer zero")
+    torch.cuda.empty_cache()
 
     # K8 at (bh 4, T 512), d 64 and 128, block_q 64 and 128; then at the
     # attn_ceiling path's calls: K1/K2's 64-row blocks at each of its cases,
@@ -1999,7 +2050,7 @@ def phase_resnet_profile(resnet, what="", batch=RESNET_BATCH):
         k = key.lower()
         if any(t in k for t in ("conv1x1_stats", "stats_kernel",
                                 "conv_tma_kernel", "conv_gather_kernel",
-                                "round_w_kernel")):
+                                "conv_f32_kernel", "round_w_kernel")):
             cls = "K3 (conv1x1_stats)"
         elif k.startswith("memcpy") or k.startswith("memset"):
             cls = "copies"
@@ -2108,7 +2159,10 @@ def timing_k3(smi, resnet):
     plain version, one library composition (a bf16 ``torch.matmul`` of the
     cast operands plus the two float32 reductions) and the bound (x, w, y
     and the stats moved once in float32; 2*N*P*Cin*Cout bf16 products at
-    the tensor-core rate); then the per-step sums over the 36 launches."""
+    the tensor-core rate); then the per-step sums over the 36 launches.
+    ``ms`` and ``library_ms`` are runs of event-timed calls, as in earlier
+    runs; ``held_ms`` and ``library_held_ms`` the card alone
+    (``_held_ms``), without the wrapper's host gaps."""
     import torch
     from paddle_tpu_torch.kernels import conv_bn as cb
     from paddle_tpu_torch.tools.timing import time_fn
@@ -2119,7 +2173,8 @@ def timing_k3(smi, resnet):
         raise AssertionError(f"fused shapes {resnet['shapes']} are not "
                              "ResNet-50's")
     n = RESNET_BATCH
-    rows, totals = [], dict.fromkeys(("ms", "plain_ms", "library_ms",
+    rows, totals = [], dict.fromkeys(("ms", "held_ms", "plain_ms",
+                                      "library_ms", "library_held_ms",
                                       "bound_ms"), 0.0)
     by_bytes = 0.0          # the part of the summed bound set by bytes
     for ci, co, p in K3_SHAPES:
@@ -2132,33 +2187,43 @@ def timing_k3(smi, resnet):
             return yf.sum(dim=(0, 2)), (yf * yf).sum(dim=(0, 2))
 
         ms = 1e3 * time_fn(lambda: cb.conv1x1_stats_fwd(x, w), iters=10)
+        held_ms = _held_ms(lambda: cb.conv1x1_stats_fwd(x, w))
         plain_ms = 1e3 * time_fn(lambda: cb.conv1x1_stats_plain(x, w),
                                  iters=3)
         library_ms = 1e3 * time_fn(library, iters=10)
+        library_held_ms = _held_ms(library)
         flops = 2.0 * n * p * ci * co
         nbytes = 4.0 * (n * ci * p + co * ci + n * co * p + 2 * co)
         bound_ms, bound_by, why = _bound(flops, nbytes, "bfloat16")
         k = counts[(ci, co, p)]
         by_bytes += k * bound_ms if bound_by == "bytes" else 0.0
+        route = cb.f32_route(p)
         rows.append({"shape": [n, ci, co, p], "per_step": k, "ms": ms,
-                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     "held_ms": held_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms,
+                     "library_held_ms": library_held_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "tflops": flops / ms / 1e9})
-        for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                         ("library_ms", library_ms),
+                     "tflops": flops / ms / 1e9, "route": route})
+        for key, val in (("ms", ms), ("held_ms", held_ms),
+                         ("plain_ms", plain_ms), ("library_ms", library_ms),
+                         ("library_held_ms", library_held_ms),
                          ("bound_ms", bound_ms)):
             totals[key] += k * val
         _log("timing", f"conv1x1_stats [{n}, {ci}, {p}] x [{co}, {ci}] "
-             f"(x{k} a step): kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
-             f"TFLOP/s), plain {plain_ms:.4f} ms, bf16 matmul + sums "
-             f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-             f"({why}): {100 * bound_ms / ms:.1f}% of bound")
+             f"(x{k} a step, x by {route}) on {smi}: kernel {ms:.4f} ms "
+             f"({flops / ms / 1e9:.1f} TFLOP/s; {held_ms:.4f} alone), plain "
+             f"{plain_ms:.4f} ms, bf16 matmul + sums {library_ms:.4f} ms "
+             f"({library_held_ms:.4f} alone); bound {bound_ms:.4f} ms by "
+             f"{bound_by} ({why}): {100 * bound_ms / ms:.1f}% of bound "
+             f"({100 * bound_ms / held_ms:.1f}% alone)")
         del x, w
     _log("timing", f"conv1x1_stats per ResNet-50 step (36 launches) on "
-         f"{smi}: kernel {totals['ms']:.3f} ms, plain "
-         f"{totals['plain_ms']:.3f} ms, bf16 matmul + sums "
-         f"{totals['library_ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms"
-         f" ({100 * totals['bound_ms'] / totals['ms']:.1f}% of bound)")
+         f"{smi}: kernel {totals['ms']:.3f} ms ({totals['held_ms']:.3f} "
+         f"alone), plain {totals['plain_ms']:.3f} ms, bf16 matmul + sums "
+         f"{totals['library_ms']:.3f} ms ({totals['library_held_ms']:.3f} "
+         f"alone), bound {totals['bound_ms']:.3f} ms"
+         f" ({100 * totals['bound_ms'] / totals['ms']:.1f}% of bound, "
+         f"{100 * totals['bound_ms'] / totals['held_ms']:.1f}% alone)")
     _log("timing", f"resnet on {smi}: step {resnet['step_ms']:.1f} ms (mean "
          f"of {RESNET_STEPS}), {resnet['images_per_s']:.1f} images/s, K3 "
          f"{100 * totals['ms'] / resnet['step_ms']:.1f}% of the step, peak "
@@ -2167,8 +2232,10 @@ def timing_k3(smi, resnet):
          f"above what was allocated before the first step)")
     bound_by = "bytes" if by_bytes >= totals["bound_ms"] / 2 \
         else "operations"
-    return {"ms": totals["ms"], "plain_ms": totals["plain_ms"],
+    return {"ms": totals["ms"], "held_ms": totals["held_ms"],
+            "plain_ms": totals["plain_ms"],
             "library_ms": totals["library_ms"],
+            "library_held_ms": totals["library_held_ms"],
             "bound_ms": totals["bound_ms"], "bound_by": bound_by,
             "per_shape": rows}
 
@@ -3071,7 +3138,8 @@ def timing_k68(smi):
     one library composition (a bf16 ``torch.matmul`` + the two float32
     sums, with the normalize + relu pass before the second call's) and the
     bound (x, w, the statistics in and y, s, s2 out, once each; 2*M*K*N bf16
-    products at the tensor-core rate).  K8 forward and backward at the
+    products at the tensor-core rate); ``ms`` and ``library_ms`` event-timed
+    as in earlier runs, ``held_ms`` and ``library_held_ms`` the card alone.  K8 forward and backward at the
     ceiling tool's first case, [24, 2048, 64], block_q 64: kernel, plain
     version and the bound (float32 products at the CUDA-core rate; q, k, v
     (do) read, o (dq and the partials) written); no single PyTorch call
@@ -3084,7 +3152,8 @@ def timing_k68(smi):
     g = torch.Generator(device="cuda")
     g.manual_seed(4)
     bf16 = torch.bfloat16
-    rows, totals = [], dict.fromkeys(("ms", "plain_ms", "library_ms",
+    rows, totals = [], dict.fromkeys(("ms", "held_ms", "plain_ms",
+                                      "library_ms", "library_held_ms",
                                       "bound_ms"), 0.0)
     out = {}
     for stage, m, cin, cmid in SHAPES:
@@ -3114,37 +3183,48 @@ def timing_k68(smi):
             n = w.shape[1]
             ms = 1e3 * time_fn(lambda: cb.matmul_bn_stats_fwd(
                 xin, w, stats, relu), iters=20)
+            held_ms = _held_ms(lambda: cb.matmul_bn_stats_fwd(xin, w, stats,
+                                                              relu))
             plain_ms = 1e3 * time_fn(lambda: cb.matmul_bn_stats_plain(
                 xin, w, stats, relu), iters=5)
             library_ms = 1e3 * time_fn(lib, iters=20)
+            library_held_ms = _held_ms(lib)
             flops = 2.0 * mm * k * n
             nbytes = 2.0 * (mm * k + k * n + mm * n) + 4.0 * 2 * n + (
                 4.0 * 4 * k if stats else 0.0)
             bound_ms, bound_by, why = _bound(flops, nbytes, "bfloat16")
             rows.append({"stage": stage, "call": call, "shape": [mm, k, n],
-                         "ms": ms, "plain_ms": plain_ms,
-                         "library_ms": library_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by})
-            for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         "ms": ms, "held_ms": held_ms,
+                         "plain_ms": plain_ms, "library_ms": library_ms,
+                         "library_held_ms": library_held_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by})
+            for key, val in (("ms", ms), ("held_ms", held_ms),
+                             ("plain_ms", plain_ms),
                              ("library_ms", library_ms),
+                             ("library_held_ms", library_held_ms),
                              ("bound_ms", bound_ms)):
                 totals[key] += val
             what = "normalize + relu + " if stats else ""
             _log("timing", f"matmul_bn_stats {stage} call {call} [{mm}, {k}]"
                  f" x [{k}, {n}] bf16 on {smi}: kernel {ms:.4f} ms "
-                 f"({nbytes / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms, "
-                 f"{what}bf16 matmul + sums {library_ms:.4f} ms; bound "
+                 f"({nbytes / ms / 1e6:.0f} GB/s; {held_ms:.4f} alone), "
+                 f"plain {plain_ms:.4f} ms, {what}bf16 matmul + sums "
+                 f"{library_ms:.4f} ms ({library_held_ms:.4f} alone); bound "
                  f"{bound_ms:.4f} ms by {bound_by} ({why}): "
-                 f"{100 * bound_ms / ms:.1f}% of bound")
+                 f"{100 * bound_ms / ms:.1f}% of bound "
+                 f"({100 * bound_ms / held_ms:.1f}% alone)")
         del x, y1
     by = {r["bound_by"] for r in rows}
     out["matmul_bn_stats"] = dict(
         totals, bound_by=by.pop() if len(by) == 1 else "bytes and operations",
         per_call=rows)
     _log("timing", f"matmul_bn_stats over the 4 calls on {smi}: kernel "
-         f"{totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, library "
-         f"{totals['library_ms']:.4f} ms, bound {totals['bound_ms']:.4f} ms "
-         f"({100 * totals['bound_ms'] / totals['ms']:.1f}% of bound)")
+         f"{totals['ms']:.4f} ms ({totals['held_ms']:.4f} alone), plain "
+         f"{totals['plain_ms']:.4f} ms, library {totals['library_ms']:.4f} "
+         f"ms ({totals['library_held_ms']:.4f} alone), bound "
+         f"{totals['bound_ms']:.4f} ms "
+         f"({100 * totals['bound_ms'] / totals['ms']:.1f}% of bound, "
+         f"{100 * totals['bound_ms'] / totals['held_ms']:.1f}% alone)")
 
     bh, t, d, bq = 24, 2048, 64, 64
     q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=g) * 0.1

@@ -12,12 +12,15 @@
 // operand is read as it is) as the TPU kernel casts them, and multiplied on
 // the tensor cores with float32 accumulation, as the TPU's MXU does.  y is
 // written in x's type (rounded once from the float32 sum), s and s2 come
-// from the float32 sums (:128-140).  Two forms, by x's type:
+// from the float32 sums (:128-140).  Both forms run on the GEMM core of
+// sm90_gemm.cuh (persistent blocks, a producer warpgroup filling a ring of
+// shared-memory stages, two consumer warpgroups taking tiles in turn with
+// bf16 wgmma into float32 accumulators); each consumer warpgroup adds its
+// tiles' statistics into its own row of a partials buffer [2 x blocks,
+// Cout] in a fixed order, and a second kernel sums the rows per channel in
+// a fixed order: deterministic, no atomics.
 //
-// The bf16 form (AMP: bf16 x and y, the float32 master w or a bf16 w) runs
-// on the GEMM core of sm90_gemm.cuh (persistent blocks, a producer
-// warpgroup filling a ring of shared-memory stages, two consumer
-// warpgroups with bf16 wgmma into float32 accumulators):
+// The bf16 form (AMP: bf16 x and y, the float32 master w or a bf16 w):
 //  - rows are output channels: A is w, rounded once a call into a bf16
 //    copy [Cout, Cin rounded up to 8] and read K-major by TMA.  Columns are
 //    pixels: B is x, n contiguous, so MN-major.  A column tile holds whole
@@ -25,8 +28,7 @@
 //    otherwise) fits in 128 columns, two images at P = 49; else 128 pixels
 //    of one image (P = 3136, 784: 25 and 7 tiles an image; P = 196: 2).
 //    The TPU takes one whole P row per block, because no 128-multiple
-//    divides 3136, 784, 196 or 49; the mma.sync form below flattens the
-//    N * P pixels instead, which TMA cannot describe.
+//    divides 3136, 784, 196 or 49.
 //  - where an image row is whole 16-byte chunks (P = 3136, 784), TMA loads
 //    B from a 3-d map [N][Cin][P] in boxes of 64 pixels x 64 channels of
 //    one image, the consumer warpgroups take 128-channel tiles in turn
@@ -42,20 +44,45 @@
 //    stage over 256 channels, since the layout bounds those tiles; y goes
 //    out from the registers (its rows are not whole 16-byte chunks).
 //  - the epilogue sums each channel's y and y^2 over the tile's valid
-//    pixels from the float32 accumulators; each consumer warpgroup adds
-//    its tiles' sums into its own row of a partials buffer [2 x blocks,
-//    Cout], one thread a channel, in a fixed order, and the second kernel
-//    sums the rows per channel in a fixed order: deterministic, no
-//    atomics.
+//    pixels from the float32 accumulators.
 //
-// The float32 form (float32 x and y) keeps the first design: one GEMM over
-// the flattened N*P pixels (column c is pixel c % P of image c / P), a
-// block of 8 warps per 128 x 128 tile, each Cin step staging 32 channels
-// of w and x in shared memory through registers, rounded to bf16 as they
-// are stored, one step ahead; 2 x 8 mma.sync m16n8k16 tiles a warp; y
-// staged through shared memory for coalesced rows; the statistics reduced
-// per 128-pixel column tile into partials and summed by the same second
-// kernel.  Its redesign on the core is queued.
+// The float32 form (float32 x and y): wgmma takes no float32 operand but
+// as tf32, which is not the TPU kernel's arithmetic, and takes a shared-
+// memory operand MN-major only in 16-bit types; so x reaches the tensor
+// cores through registers:
+//  - rows are pixels: A is x, loaded by the producer in float32 as it lies
+//    and read by each consumer thread from the stage into the registers of
+//    its A fragments, rounded to bf16 there (sm90_gemm.cuh consume_rs).
+//    Columns are output channels: B is the bf16 copy of w, read K-major.
+//    Tiles are 128 pixels x 128 channels, the channel tiles innermost (the
+//    blocks working at one time share x's tile in L2).
+//  - TMA route, where an image row is whole 16-byte chunks in float32
+//    (P % 4 == 0: P = 3136, 784, 196, 30 of a ResNet-50 step's 36
+//    launches): a tile is 128 pixels of one image, loaded from a 3-d map
+//    [N][Cin][P] in boxes of 32 pixels x 64 channels (128-byte swizzle;
+//    pixels past P and channels past Cin arrive as zeros, which add exact
+//    zeros to the products and the statistics).  A thread's fragment
+//    reads (rows 16w + l/4 (+8), channels 2(l%4) (+1, +8, +9)) fall on 32
+//    distinct banks under the swizzle.  y [N][Cout][P] goes out by TMA
+//    stores from a tile staged transposed (channel rows, 64 pixels a half)
+//    in the boxes' layout.
+//  - slab route, P <= 64 (P = 49, 6 launches): a tile holds two images,
+//    one a 64-row half; the producer copies each image's slab of the
+//    stage's channels ([64, P], contiguous) with one cp.async.bulk, and the
+//    consumers read their fragments from the slab where it landed.  Row r
+//    of a half is pixel 32(w/2) + 4(w%2) + 8(g/2) + g%2 + 2(r%16 >= 8) (w
+//    the warp, g = l/4): at P = 49 a warp's 32 reads then fall on 32
+//    distinct banks.  Rows past P or the last image, and channels past the
+//    slab, are zeroed in the registers.  y goes out from the same tile
+//    staged as [channels][P], one cp.async.bulk store an image (its
+//    channels' rows are contiguous in y).
+//  - another x is first copied with zero padding by the wrapper (a row
+//    P > 64 with P % 4 != 0: pixels padded to 4; Cin * P % 4 != 0 at
+//    P <= 64: channels padded to 4; an unaligned base), and y whose rows
+//    no store above can take goes out from the registers.
+//  - the products sum each k16 step of bf16 products into one float32
+//    accumulator, in order, as the mma.sync form before it did: y is the
+//    same bits.
 //
 // A strided input (the stride-2 shortcut) arrives as a contiguous copy
 // made by the caller.
@@ -63,14 +90,19 @@
 // What bounds it on an H100: at ResNet-50's shapes every call moves more
 // bytes (x and y) than its products need time at the tensor-core rate, so
 // memory bounds the function except for the late-stage shapes with large
-// Cin and Cout at P = 49 ((1024, 2048, 49) by operations); an AMP step's 36
-// launches have a bound of 2.605 ms.  On an H100 80GB HBM3 at 700 W the
-// bf16 form takes ~7.8 ms a step: at the TMA shapes a tile's one to four
-// k steps are short beside its epilogue (2.5-3 us a tile), and at P = 196
-// and 49 the three laying-out warps bound the stage rate (~1.5-2 us a
-// stage of 64 channels) and y's register stores its epilogue (~12 us a
-// tile).  The float32 form stages its operands through registers into a
-// single shared-memory stage (the products run at 20-70 TFLOP/s).
+// Cin and Cout at P = 49 ((1024, 2048, 49) by operations); a float32 step's
+// 36 launches at batch 128 have a bound of 2.535 ms, an AMP step's at batch
+// 256 of 2.605 ms.  On an H100 80GB HBM3 at 700 W the bf16 form takes ~8.3
+// ms an AMP step: at the TMA shapes a tile's one to four k steps are short
+// beside its epilogue (2.5-3 us a tile), and at P = 196 and 49 the three
+// laying-out warps bound the stage rate (~1.5-2 us a stage of 64 channels)
+// and y's register stores its epilogue (~12 us a tile).  The float32
+// form takes ~4.4 ms a step at batch 128 (58% of its bound); its consumer
+// builds A from 32 KB of shared memory a stage (64 loads a thread) beside
+// the products, which take turns between the warpgroups.  Its shapes
+// reach 61-82% of their bounds at P = 3136 and 784, 30-47% at P = 196 and
+// 22-30% at P = 49, whose pixel tiles' x is read from L2 again for each
+// of up to 16 channel tiles, over up to 32 k steps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,214 +113,7 @@
 
 namespace {
 
-// --- the float32 form: mma.sync, operands staged through registers --------
-
-namespace f32k {
-
-constexpr int BM = 128;         // output channels per block
-constexpr int BN = 128;         // pixels (columns) per block
-constexpr int BK = 32;          // input channels per stage
-constexpr int KP = BK + 8;      // padded row length of the staged tiles
-constexpr int THREADS = 256;    // 8 warps: 4 along channels x 2 along pixels
-constexpr int WM = 32;          // channels per warp
-constexpr int WN = 64;          // pixels per warp
-constexpr int HM = BM / 2;      // output rows staged per epilogue pass
-constexpr int YP = BN + 4;      // padded row length of the output tile
-constexpr int AL = BM * BK / THREADS;   // w values a thread stages per step
-constexpr int BL = BN * BK / THREADS;   // x values a thread stages per step
-static_assert(BM * KP * 2 + BN * KP * 2 <= HM * YP * 4,
-              "the staged operands fit in the output tile's space");
-static_assert(BL * 2 == BK, "a thread stages half a column of x");
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row (l % 8) of matrix l / 8
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* row) {
-  const unsigned addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// x and y float32; TW: the element type of w (float or __nv_bfloat16)
-template <typename TW>
-__global__ void __launch_bounds__(THREADS)
-conv1x1_stats_kernel(const float* __restrict__ x, const TW* __restrict__ w,
-                     float* __restrict__ y, float* __restrict__ part_s,
-                     float* __restrict__ part_s2, int cin, int cout, int p,
-                     long long ncols) {
-  // the staged operands during the Cin loop, then half the output tile
-  __shared__ __align__(16) unsigned char smem[HM * YP * 4];
-  __shared__ float red[2][2][BM];                      // [warp_n][s|s2][row]
-  auto as = reinterpret_cast<__nv_bfloat16 (*)[KP]>(smem);       // [BM][KP]
-  auto bs = reinterpret_cast<__nv_bfloat16 (*)[KP]>(smem + BM * KP * 2);
-  auto ys = reinterpret_cast<float (*)[YP]>(smem);               // [HM][YP]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int warp_m = warp & 3;          // channel quarter of the block
-  const int warp_n = warp >> 2;         // pixel half of the block
-  const int g = lane >> 2;              // fragment row group
-  const int t = lane & 3;               // thread in group
-  const long long col0 = (long long)blockIdx.x * BN;
-  const int co0 = blockIdx.y * BM;
-
-  // this thread stages x's pixel column col0 + bc, input channels
-  // kh .. kh + BL - 1 of each step, and writes that column of y at the end
-  const int bc = tid % BN;
-  const int kh = (tid / BN) * BL;
-  const long long my_col = col0 + bc;
-  const bool col_ok = my_col < ncols;
-  size_t x_base = 0, y_base = 0;
-  if (col_ok) {
-    const long long n = my_col / p;
-    const long long pix = my_col - n * p;
-    x_base = (size_t)n * cin * p + (size_t)pix;
-    y_base = (size_t)n * cout * p + (size_t)pix;
-  }
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-
-  // global loads of one Cin step into registers: w consecutive threads
-  // along ci, x consecutive threads along pixels
-  // staged in their own type and rounded as they are stored: widened to
-  // float32 here, each value would wait for its load before the products
-  // (the bf16 form ran 1.7x slower so)
-  TW wr[AL];
-  float xr[BL];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int r = 0; r < AL; ++r) {
-      const int idx = tid + r * THREADS;
-      const int co = co0 + idx / BK, ci = k0 + idx % BK;
-      wr[r] = (co < cout && ci < cin) ? w[(size_t)co * cin + ci] : TW(0.f);
-    }
-#pragma unroll
-    for (int r = 0; r < BL; ++r) {
-      const int ci = k0 + kh + r;
-      xr[r] = (col_ok && ci < cin) ? x[x_base + (size_t)ci * p] : 0.f;
-    }
-  };
-
-  fetch(0);
-  for (int k0 = 0; k0 < cin; k0 += BK) {
-    // round to bf16 into shared memory (x transposed: k-contiguous rows)
-#pragma unroll
-    for (int r = 0; r < AL; ++r) {
-      const int idx = tid + r * THREADS;
-      as[idx / BK][idx % BK] = ptt::to_bf16(wr[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < BL; r += 2)
-      *reinterpret_cast<__nv_bfloat162*>(&bs[bc][kh + r]) =
-          __halves2bfloat162(ptt::to_bf16(xr[r]), ptt::to_bf16(xr[r + 1]));
-    __syncthreads();
-    if (k0 + BK < cin) fetch(k0 + BK);    // in flight during the products
-#pragma unroll
-    for (int kb = 0; kb < BK; kb += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldmatrix_x4(a[i], &as[warp_m * WM + i * 16 + (lane & 15)]
-                             [kb + (lane >> 4) * 8]);
-#pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        uint32_t b[4];          // b0, b1 of tile j, then of tile j + 1
-        ldmatrix_x4(b, &bs[warp_n * WN + j * 8 + (lane & 7) +
-                           ((lane >> 4) << 3)][kb + ((lane >> 3) & 1) * 8]);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc[i][j], a[i][0], a[i][1], a[i][2], a[i][3], b[0],
-                   b[1]);
-          mma_bf16(acc[i][j + 1], a[i][0], a[i][1], a[i][2], a[i][3], b[2],
-                   b[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // epilogue.  This thread holds rows (g, g + 8) of each 16-row tile i and
-  // columns (2t, 2t + 1) of each 8-column tile j of its warp's 32 x 64.
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = warp_m * WM + i * 16 + h * 8 + g;   // in the block
-      float s = 0.f, s2 = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (col0 + warp_n * WN + j * 8 + 2 * t + e < ncols) {
-            const float v = acc[i][j][h * 2 + e];
-            s += v;
-            s2 = fmaf(v, v, s2);
-          }
-        }
-      // the four threads of a row group hold the warp's 64 columns of it
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, 2);
-      if (t == 0) {
-        red[warp_n][0][row] = s;
-        red[warp_n][1][row] = s2;
-      }
-    }
-  // y through shared memory in two passes of 64 rows, so each row is
-  // written by consecutive threads on consecutive pixels
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    if ((warp_m >> 1) == half) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e)
-              ys[(warp_m & 1) * WM + i * 16 + h * 8 + g]
-                [warp_n * WN + j * 8 + 2 * t + e] = acc[i][j][h * 2 + e];
-    }
-    __syncthreads();
-    if (col_ok) {
-      for (int r = tid / BN; r < HM; r += THREADS / BN) {
-        const int co = co0 + half * HM + r;
-        if (co < cout) ptt::st(y + y_base + (size_t)co * p, ys[r][bc]);
-      }
-    }
-    __syncthreads();
-  }
-  // the two pixel-half warps of each row, added in order
-  if (tid < BM && co0 + tid < cout) {
-    const size_t at = (size_t)blockIdx.x * cout + co0 + tid;
-    part_s[at] = red[0][0][tid] + red[1][0][tid];
-    part_s2[at] = red[0][1][tid] + red[1][1][tid];
-  }
-}
+// --- shared by both forms ----------------------------------------------------
 
 constexpr int SC = 32;          // channels per stats block
 constexpr int SG = 8;           // row groups per stats block
@@ -331,18 +156,301 @@ int launch_stats(float* ps, float* sf, int rows, int cout, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// rounds w [cout, cin] into wcopy [cout, ceil8(cin)] and makes its map
+// (boxes of 64 k x 128 rows); returns a cudaError_t or TENSOR_MAP_ERROR +
+// the CUresult
 template <typename TW>
-int launch(const void* x, const void* w, void* y, float* ps, float* sf,
-           int cin, int cout, int p, long long ncols, long long ctiles,
-           int rtiles, cudaStream_t st) {
-  const size_t rows = (size_t)ctiles;
-  conv1x1_stats_kernel<TW><<<dim3((unsigned)ctiles, rtiles), THREADS, 0,
-                                  st>>>(
-      static_cast<const float*>(x), static_cast<const TW*>(w),
-      static_cast<float*>(y), ps, ps + rows * cout, cin, cout, p, ncols);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return launch_stats(ps, sf, (int)rows, cout, st);
+int round_w_map(const void* w, __nv_bfloat16* wcopy, CUtensorMap* map,
+                int cout, int cin, cudaStream_t st) {
+  const int err = sm90g::round_w<TW>(w, wcopy, cout, cin, st);
+  if (err != 0) return err;
+  return sm90g::encode_2d(map, wcopy, cout, cin, (cin + 7) / 8 * 8,
+                          sm90g::BM);
+}
+
+// --- the float32 form: float32 x and y, A built in registers -----------------
+
+namespace f32k {
+
+using namespace sm90g;
+
+// the float32 form's register split: the slab route's producer spills
+// below 40 registers (ptxas), and the consumers fit in 232
+constexpr int PRODUCER_REGS = 40;
+constexpr int STAGES = 3;
+constexpr int A_TILE = BM * BK * 4;       // 128 pixels x 64 channels: 32 KB
+constexpr int SLAB_MAX_P = 64;            // the widest image of the slab route
+constexpr int SLAB_BYTES = BK * SLAB_MAX_P * 4;   // an image's slab: 16 KB
+static_assert(2 * SLAB_BYTES == A_TILE, "two slabs fill an A stage");
+
+struct Layout {
+  Stages<STAGES, BM, A_TILE> g;   // B: w's copy, 128 channels x 64 k
+  OutTiles out;                   // y's tiles, staged for the stores
+  float red[2][4][2][BN];         // column_stats, a consumer warpgroup each
+};
+
+// how y goes out: from the registers, by TMA stores of a staged tile
+// (rows of whole 16-byte chunks), or one bulk store an image (slab route)
+enum { Y_REGS = 0, Y_TMA = 1, Y_BULK = 2 };
+
+struct Args {
+  const float* x;            // [n, cx, px]: cx >= cin channels, px >= p
+  float* y;                  // [n, cout, p]
+  float* part_s;             // [2 gridDim.x, cout], zeroed (then part_s2)
+  float* part_s2;
+  int n, cx, cout, p, px;
+  int per_img;               // TMA route: pixel tiles an image; slab: 0
+  Tiles tiles;               // pixel tiles x channel tiles (innermost)
+  int ktiles;
+};
+
+// the pixel of row r = 16 w + g (+ 8 hi) of a slab route half
+__device__ __forceinline__ int slab_pixel(int w, int g, int hi) {
+  return 32 * (w / 2) + 4 * (w % 2) + 8 * (g / 2) + g % 2 + 2 * hi;
+}
+
+__device__ __forceinline__ float lds_f32(uint32_t at) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(at) : "memory");
+  return v;
+}
+
+// SLAB: the route (else TMA); YS: how y goes out
+template <bool SLAB, int YS>
+__global__ void __launch_bounds__(THREADS, 1)
+conv_f32_kernel(const __grid_constant__ CUtensorMap map_w,
+                const __grid_constant__ CUtensorMap map_x,
+                const __grid_constant__ CUtensorMap map_y, const Args a) {
+  Layout& sm = smem<Layout>();
+  init_barriers(sm.g, 1);
+  if (threadIdx.x < 128) {
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0)
+      produce(sm.g, a.tiles, a.ktiles,
+              [&](int s, uint64_t* full, int mt, int ct, int kt) {
+                if constexpr (SLAB) {
+                  const int img0 = 2 * mt, imgs = min(2, a.n - img0);
+                  const int rows = min(BK, a.cx - kt * BK);
+                  const uint32_t bytes = (uint32_t)rows * a.px * 4;
+                  mbar_expect_tx(full, B_BYTES + imgs * bytes);
+                  tma_load_2d(sm.g.b[s], &map_w, full, kt * BK, ct * BN);
+                  for (int il = 0; il < imgs; ++il)
+                    bulk_load(sm.g.a[s] + il * SLAB_BYTES,
+                              a.x + ((long long)(img0 + il) * a.cx +
+                                     kt * BK) * a.px,
+                              bytes, full);
+                } else {
+                  const int img = mt / a.per_img;
+                  const int p0 = (mt % a.per_img) * BM;
+                  mbar_expect_tx(full, A_TILE + B_BYTES);
+                  tma_load_2d(sm.g.b[s], &map_w, full, kt * BK, ct * BN);
+#pragma unroll
+                  for (int j = 0; j < BM / 32; ++j)
+                    tma_load_3d(sm.g.a[s] + j * BK * PANEL_ROW, &map_x, full,
+                                p0 + 32 * j, kt * BK, img);
+                }
+              });
+    return;
+  }
+  regs_inc<consumer_regs(PRODUCER_REGS)>();
+  const int c = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  // the row in a half of this thread's fragment rows g + 8 hi: its pixel
+  // (slab route), or its row in the half's 64 (TMA route)
+  auto pix = [&](int hi) {
+    return SLAB ? slab_pixel(warp, g, hi) : 16 * warp + g + 8 * hi;
+  };
+  // the byte offset in a stage's first half of this thread's A value of
+  // row set hi, channel 2t + e (then + 16 kk + 8 j): the slab's
+  // [channel][P], or the boxes' 64-channel rows of 32 pixels (the
+  // swizzle's chunk is the pixel's, xor the channel's row % 8 = 2t + e)
+  auto off = [&](int hi, int e) -> uint32_t {
+    const int k = 2 * t + e;
+    if constexpr (SLAB) return (uint32_t)(k * a.px + pix(hi)) * 4;
+    const int q = 16 * (warp % 2) + g + 8 * hi;      // pixel in the panel
+    return (warp / 2) * BK * PANEL_ROW + k * PANEL_ROW +
+           (((q / 4) ^ k) * 16) + (q % 4) * 4;
+  };
+  const uint32_t kstep = SLAB ? 8 * a.px * 4 : 8 * PANEL_ROW;   // 8 channels
+  auto load_a = [&](uint32_t (&f)[4][4], int s, int h, int kt, int mt) {
+    const uint32_t as = smem_u32(sm.g.a[s]) +
+                        h * (SLAB ? SLAB_BYTES : 2 * BK * PANEL_ROW);
+    const bool img_ok = !SLAB || 2 * mt + h < a.n;
+    const int krows = SLAB ? min(BK, a.cx - kt * BK) : BK;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const bool ok = img_ok && (!SLAB || pix(hi) < a.p);
+      const uint32_t at0 = as + off(hi, 0), at1 = as + off(hi, 1);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const uint32_t step = (2 * kk + j) * kstep;
+          float v0 = lds_f32(at0 + step);
+          float v1 = lds_f32(at1 + step);
+          if constexpr (SLAB) {
+            const int k = 16 * kk + 8 * j + 2 * t;
+            v0 = ok && k < krows ? v0 : 0.f;
+            v1 = ok && k + 1 < krows ? v1 : 0.f;
+          }
+          f[kk][2 * j + hi] = pack_bf16(v0, v1);
+        }
+    }
+  };
+  auto desc_b = [&](int s, int kk) { return desc_k(sm.g.b[s], kk); };
+  consume_rs<ACC, 0>(
+      sm.g, c, a.tiles, a.ktiles, load_a, desc_b,
+      [&](float (&acc)[2][ACC], int mt, int ct) {
+        const long long prow = (long long)(2 * blockIdx.x + c) * a.cout;
+        column_stats<ACC>(acc, sm.red[c], c, a.part_s + prow,
+                          a.part_s2 + prow, ct * BN, a.cout);
+        // the tile's images and first pixel
+        const int img0 = SLAB ? 2 * mt : mt / a.per_img;
+        const int p0 = SLAB ? 0 : (mt % a.per_img) * BM;
+        if constexpr (YS == Y_REGS) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int hi = 0; hi < 2; ++hi) {
+              const int img = SLAB ? img0 + h : img0;
+              const int px = SLAB ? pix(hi) : p0 + 64 * h + pix(hi);
+              if (img >= a.n || px >= a.p) continue;
+              float* yr = a.y + (long long)img * a.cout * a.p + px;
+#pragma unroll
+              for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const int ch = ct * BN + 8 * i + 2 * t + e;
+                  if (ch < a.cout)
+                    yr[(long long)ch * a.p] = acc[h][4 * i + 2 * hi + e];
+                }
+            }
+        } else if constexpr (YS == Y_TMA) {
+          // a half's 64 pixels x 128 channels, staged as channel rows
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (p0 + 64 * h >= a.p) continue;
+            store_staged(
+                sm.out.v[c], c,
+                [&](uint8_t* buf) {
+                  const uint32_t tile = smem_u32(buf);
+#pragma unroll
+                  for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+                    for (int hi = 0; hi < 2; ++hi)
+#pragma unroll
+                      for (int e = 0; e < 2; ++e)
+                        stage1f(tile, BN, 8 * i + 2 * t + e, pix(hi),
+                                acc[h][4 * i + 2 * hi + e]);
+                },
+                [&](uint8_t* buf) {
+#pragma unroll
+                  for (int j = 0; j < 2; ++j)
+                    tma_store_3d(&map_y, buf + j * BN * PANEL_ROW,
+                                 p0 + 64 * h + 32 * j, ct * BN, img0);
+                });
+          }
+        } else {
+          // an image's [channels][P] block of y is contiguous
+          const int nch = min(BN, a.cout - ct * BN);
+          const uint32_t row8 = 8 * a.p * 4;        // 8 channels of it
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (img0 + h >= a.n) continue;
+            store_staged(
+                sm.out.v[c], c,
+                [&](uint8_t* buf) {
+#pragma unroll
+                  for (int hi = 0; hi < 2; ++hi) {
+                    if (pix(hi) >= a.p) continue;
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                      uint32_t at = smem_u32(buf) +
+                                    ((2 * t + e) * a.p + pix(hi)) * 4;
+#pragma unroll
+                      for (int i = 0; i < BN / 8; ++i, at += row8)
+                        asm volatile("st.shared.f32 [%0], %1;\n"
+                                     :: "r"(at),
+                                        "f"(acc[h][4 * i + 2 * hi + e])
+                                     : "memory");
+                    }
+                  }
+                },
+                [&](uint8_t* buf) {
+                  bulk_store(a.y + ((long long)(img0 + h) * a.cout +
+                                    ct * BN) * a.p,
+                             buf, (uint32_t)(nch * a.p * 4));
+                });
+          }
+        }
+        if constexpr (YS != Y_REGS) wait_stores_after_last(a.tiles, mt, ct);
+      });
+}
+
+// how a call runs: its route, tiles and grid; m_tiles 0 if the tiles
+// overflow an int
+struct Plan {
+  bool slab;
+  int per_img;
+  Tiles tiles;
+  unsigned grid;
+};
+
+Plan plan(int n, int cout, int p, bool slab) {
+  Plan pl;
+  pl.slab = slab;
+  pl.per_img = pl.slab ? 0 : (p + BM - 1) / BM;
+  long long m_tiles = pl.slab ? (n + 1) / 2 : (long long)n * pl.per_img;
+  const long long n_tiles = (cout + BN - 1) / BN;
+  if (m_tiles * n_tiles > 0x7fffffffLL) m_tiles = 0;
+  pl.tiles = {(int)m_tiles, (int)n_tiles, false};
+  pl.grid = grid_for(m_tiles * n_tiles);
+  return pl;
+}
+
+template <bool SLAB, int YS>
+int run(const CUtensorMap& mw, const CUtensorMap& mx, const CUtensorMap& my,
+        const Args& a, unsigned grid, cudaStream_t st) {
+  constexpr int bytes = smem_bytes<Layout>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      conv_f32_kernel<SLAB, YS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (e != cudaSuccess) return (int)e;
+  conv_f32_kernel<SLAB, YS><<<grid, THREADS, bytes, st>>>(mw, mx, my, a);
+  return (int)cudaGetLastError();
+}
+
+template <typename TW>
+int launch(const void* x, const void* w, void* y, __nv_bfloat16* wcopy,
+           float* part, float* stats, int n, int cin, int cx, int cout,
+           int p, int px, bool slab, cudaStream_t st) {
+  CUtensorMap mw, mx = {}, my = {};
+  int err = round_w_map<TW>(w, wcopy, &mw, cout, cin, st);
+  if (err != 0) return err;
+  const Plan pl = plan(n, cout, p, slab);
+  if (pl.tiles.m_tiles == 0) return (int)cudaErrorInvalidValue;
+  const int rows = 2 * pl.grid;          // one a consumer warpgroup
+  const cudaError_t e = cudaMemsetAsync(
+      part, 0, sizeof(float) * 2 * rows * cout, st);
+  if (e != cudaSuccess) return (int)e;
+  const Args a{static_cast<const float*>(x), static_cast<float*>(y), part,
+               part + (size_t)rows * cout, n, cx, cout, p, px, pl.per_img,
+               pl.tiles, (cin + BK - 1) / BK};
+  if (pl.slab) {
+    err = (long long)cout * p % 4 == 0
+              ? run<true, Y_BULK>(mw, mx, my, a, pl.grid, st)
+              : run<true, Y_REGS>(mw, mx, my, a, pl.grid, st);
+  } else {
+    const bool tma_y = p % 4 == 0;
+    err = encode_3d_f32(&mx, x, px, cx, n, BK);
+    if (err == 0 && tma_y) err = encode_3d_f32(&my, y, p, cout, n, BN);
+    if (err != 0) return err;
+    err = tma_y ? run<false, Y_TMA>(mw, mx, my, a, pl.grid, st)
+                : run<false, Y_REGS>(mw, mx, my, a, pl.grid, st);
+  }
+  if (err != 0) return err;
+  return launch_stats(part, stats, rows, cout, st);
 }
 
 }  // namespace f32k
@@ -719,20 +827,6 @@ conv_gather_kernel(const __grid_constant__ CUtensorMap map_w, const Args a) {
           });
 }
 
-// w [cout, cin] (float32 or bf16) rounded to bf16 rows of cin8 elements
-template <typename TW>
-__global__ void __launch_bounds__(256)
-round_w_kernel(const TW* __restrict__ w, __nv_bfloat16* __restrict__ out,
-               int cout, int cin, int cin8) {
-  const long long n = (long long)cout * cin8;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n; i += (long long)gridDim.x * blockDim.x) {
-    const int r = (int)(i / cin8), k = (int)(i % cin8);
-    out[i] = k < cin ? ptt::to_bf16(w[(long long)r * cin + k])
-                     : __float2bfloat16_rn(0.f);
-  }
-}
-
 Cols columns(int p, bool tma) {
   // TMA lands an image's pixels in whole 64-column panels; a gathered
   // image's take 16-byte chunks
@@ -784,16 +878,8 @@ template <typename TW>
 int launch(const void* x, const void* w, void* y, __nv_bfloat16* wcopy,
            float* part, float* stats, int n, int cin, int cx, int cout,
            int p, int px, cudaStream_t st) {
-  const int cin8 = (cin + 7) / 8 * 8;
-  const long long welems = (long long)cout * cin8;
-  const long long wblocks = (welems + 255) / 256;
-  round_w_kernel<TW><<<(unsigned)(wblocks < 1024 ? wblocks : 1024), 256, 0,
-                       st>>>(static_cast<const TW*>(w), wcopy, cout, cin,
-                             cin8);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
   CUtensorMap mw;
-  err = encode_2d(&mw, wcopy, cout, cin, cin8, BM);
+  int err = round_w_map<TW>(w, wcopy, &mw, cout, cin, st);
   if (err != 0) return err;
   const Plan pl = plan(n, cin, cout, p, px);
   if (pl.tiles.m_tiles == 0) return (int)cudaErrorInvalidValue;
@@ -835,7 +921,7 @@ int launch(const void* x, const void* w, void* y, __nv_bfloat16* wcopy,
   }
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  return f32k::launch_stats(part, stats, rows, cout, st);
+  return launch_stats(part, stats, rows, cout, st);
 }
 
 }  // namespace bf16k
@@ -844,27 +930,43 @@ int launch(const void* x, const void* w, void* y, __nv_bfloat16* wcopy,
 
 extern "C" {
 
-// x [n, cin, p] float32 and y [n, cout, p] float32, w [cout, cin] float32
-// (w_bf16 = 0) or bf16 (1); part: scratch of 2 * ceil(n * p / 128) * cout
-// floats; stats: s then s2, 2 * cout floats.  Returns a cudaError_t (0 =
-// launched).
+// the rows of the float32 form's partials (one a consumer warpgroup of its
+// grid) for n images of p pixels and cout output channels, read by the
+// slab route (slab = 1) or by TMA (0)
+long long paddle_tpu_torch_conv1x1_stats_rows(int n, int p, int cout,
+                                              int slab) {
+  return 2 * (long long)f32k::plan(n, cout, p, slab != 0).grid;
+}
+
+// The float32 form: x [n, cx, px] float32 (cx >= cin channels, those past
+// cin zero; px >= p pixels, those past p zero; 16-byte aligned), read by
+// the route the caller names: TMA (slab = 0; px a multiple of 4) or slabs
+// (slab = 1; px = p <= 64, cx * px a multiple of 4); w [cout, cin]
+// float32 (w_bf16 = 0) or bf16 (1), y [n, cout, p] float32; wcopy:
+// scratch of cout * ceil8(cin) bf16 (16-byte aligned); part: 2 * rows * cout floats (rows from
+// paddle_tpu_torch_conv1x1_stats_rows); stats: s then s2.  Returns a
+// cudaError_t (0 = launched), or sm90::TENSOR_MAP_ERROR + the CUresult of
+// a tensor map.
 int paddle_tpu_torch_conv1x1_stats(const void* x, const void* w, void* y,
-                                   void* part, void* stats, int n, int cin,
-                                   int cout, int p, int w_bf16,
+                                   void* wcopy, void* part, void* stats,
+                                   int n, int cin, int cx, int cout, int p,
+                                   int px, int slab, int w_bf16,
                                    void* stream) {
-  using namespace f32k;
-  if (n <= 0 || cin <= 0 || cout <= 0 || p <= 0) return (int)cudaErrorInvalidValue;
-  const long long ncols = (long long)n * p;
-  const long long ctiles = (ncols + BN - 1) / BN;
-  const int rtiles = (cout + BM - 1) / BM;
-  if (rtiles > 65535 || ctiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || cin <= 0 || cout <= 0 || p <= 0 || cx < cin || px < p ||
+      (slab ? px != p || px > f32k::SLAB_MAX_P || (long long)cx * px % 4
+            : px % 4) ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(y) % 16 ||
+      reinterpret_cast<uintptr_t>(wcopy) % 16)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* wc = static_cast<__nv_bfloat16*>(wcopy);
   float* ps = static_cast<float*>(part);
   float* sf = static_cast<float*>(stats);
-  return w_bf16 ? launch<__nv_bfloat16>(x, w, y, ps, sf, cin, cout, p,
-                                        ncols, ctiles, rtiles, st)
-                : launch<float>(x, w, y, ps, sf, cin, cout, p, ncols, ctiles,
-                                rtiles, st);
+  return w_bf16 ? f32k::launch<__nv_bfloat16>(x, w, y, wc, ps, sf, n, cin,
+                                              cx, cout, p, px, slab != 0, st)
+                : f32k::launch<float>(x, w, y, wc, ps, sf, n, cin, cx, cout,
+                                      p, px, slab != 0, st);
 }
 
 // the rows of the bf16 form's partials (one a consumer warpgroup of its

@@ -14,104 +14,111 @@
 //
 // y is written in x's type (rounded to nearest even for bf16); s and s2 come
 // from the float32 accumulators, not from the rounded y.  The normalize is
-// four separately rounded operations (__fsub_rn, __fmul_rn, __fadd_rn), so
-// nvcc cannot contract it into FMAs: the float32 value before the bf16
-// rounding is the one the plain PyTorch ops give, bit for bit.
+// four separately rounded operations (__fsub_rn, __fmul_rn, __fmul_rn,
+// __fadd_rn), so nvcc cannot contract it into FMAs: the float32 value before
+// the bf16 rounding is the one the plain PyTorch ops give, bit for bit.
 //
-// Design (simple and right first, K3's staging pattern):
-//  - one block of 8 warps per (128-row, 64-column) output tile, on a 1-D
-//    grid (row tile = block / column tiles, column tiles fastest, so blocks
-//    sharing an x tile run side by side and share it through L2).  Each
-//    warp owns a 32 x 32 tile: 2 x 4 mma.sync m16n8k16 tiles (bf16 in,
-//    float32 accumulators in registers).
-//  - each 32-deep K step loads x's and w's tiles into registers (16-byte
-//    loads where the rows allow, a step ahead, in flight during the
-//    products), then applies the prologue while it stores them into shared
-//    memory as bf16: the normalize and the relu on x, then the bf16
-//    rounding.  Rows past M and columns past K are zero AFTER the prologue
-//    (a padded 0 would normalize to (0 - mu) * inv * g + b), so they add
-//    exact zeros to the products and to the statistics.  x's tile is stored
-//    [128][40] (k contiguous, as ldmatrix wants A), w's [32][72] as it lies
-//    (n contiguous; B fragments by ldmatrix.trans); the padded rows keep
-//    ldmatrix free of bank conflicts.
-//  - the epilogue writes y from the fragments (two consecutive values a
-//    thread and row) and sums each column's y and y^2 over the tile's valid
-//    rows: over a thread's 4 rows, across the 8 lanes holding the column,
-//    then the 4 warps along M in order, into a partials row per row tile.
-//    The TPU carries s and s2 across its sequential grid; blocks here run in
-//    no order, so a second kernel adds the partials per column in a fixed
-//    order: deterministic, no atomics.
+// Design: the GEMM core of sm90_gemm.cuh (persistent blocks, a producer
+// warpgroup keeping a ring of TMA stages filled, two consumer warpgroups
+// taking output tiles in turn, so one runs its epilogue while the other
+// runs its products; bf16 wgmma into float32 accumulators):
+//  - A is x, K-major, loaded by TMA in its own type (128 rows x 128 bytes a
+//    box: 64 bf16 or 32 float32 columns; 4 stages of bf16, 3 of float32);
+//    a stage also holds its 64 k's statistics (mu, inv, g, b), one
+//    cp.async.bulk from a [K][4] copy.  A bf16 x with no statistics and no
+//    relu goes straight into SS wgmma; every other x is read by each
+//    consumer thread from the stage into the registers of its A fragments,
+//    normalized, relu'd and rounded to bf16 there (consume_rs).  Rows past
+//    M and columns past K are zeroed AFTER the prologue (a padded 0 would
+//    normalize to (0 - mu) * inv * g + b), so they add exact zeros to the
+//    products and to the statistics.
+//  - B is w, rounded once a call into a bf16 copy [K, N rounded up to 8]
+//    (at most 512 x 128 on the tool's path, so it stays in L2), MN-major, as
+//    K5's w.  Tiles are 128 rows x 64 columns where N <= 64 (wgmma m64n64),
+//    else 128 x 128.
+//  - the epilogue sums each column's y and y^2 over the tile's rows from
+//    the float32 accumulators (sm90_gemm.cuh column_stats) into its
+//    warpgroup's row of a partials buffer [2 x blocks, N], and a second
+//    kernel adds the rows per column in a fixed order: deterministic, no
+//    atomics.  y goes out by TMA stores of a staged tile where its rows are
+//    whole 16-byte chunks, else from the registers.
+//  - each k16 step's bf16 products are summed into one float32 accumulator
+//    in order, as the mma.sync form before it did: y is the same bits.
 //
 // What bounds it on an H100: at the ResNet-50 stage shapes of
 // paddle_tpu_torch/tools/rn50_fused_bench.py every call moves far more bytes
 // than its bf16 products need time (stage0's first call: x 411 MB + y 103 MB
 // in bf16, 0.15 ms at 3.35 TB/s, against 26 GFLOP, 0.027 ms at 989 TFLOP/s),
-// so memory bounds it.  This version's loads go through registers into one
-// shared-memory stage with two barriers a step; a TMA-fed ring of stages is
-// the next step.
+// so memory bounds it: x streams through the ring once while the other
+// warpgroup's epilogue runs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "elem.cuh"
+#include "sm90_gemm.cuh"
+
 namespace {
 
-constexpr int BM = 128;         // output rows per block
-constexpr int BN = 64;          // output columns per block
-constexpr int BK = 32;          // depth per step
-constexpr int AP = BK + 8;      // padded row of the x tile (k contiguous)
-constexpr int BP = BN + 8;      // padded row of the w tile (n contiguous)
-constexpr int THREADS = 256;    // 8 warps: 4 along M x 2 along N
-constexpr int WM = 32;          // rows per warp
-constexpr int WN = 32;          // columns per warp
-static_assert(BM * BK / 8 == 2 * THREADS, "two 8-value x chunks a thread");
-static_assert(BK * BN / 8 == THREADS, "one 8-value w chunk a thread");
+using namespace sm90g;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// the register split: the consumers of 128-column tiles spill at 232
+// registers (ptxas) and fit in 240; the producer fits in 24
+constexpr int PRODUCER_REGS = 24;
+constexpr int P_BYTES = BK * 16;        // a stage's k statistics: 64 float4
+
+template <typename TX, int BNK>
+struct Layout {
+  static constexpr int A_TILE = BM * BK * (int)sizeof(TX);
+  Stages<sizeof(TX) == 2 ? 4 : 3, BM, A_TILE + P_BYTES, BK * BNK * 2> g;
+  OutTiles out;                   // y's tiles, staged for TMA stores
+  float red[2][4][2][BNK];        // column_stats, a consumer warpgroup each
+};
+
+struct Args {
+  void* y;                   // [m, n], x's type
+  float* part_s;             // [2 gridDim.x, n], zeroed (then part_s2)
+  float* part_s2;
+  const float4* pk;          // [k] of (mu, inv, g, b), or null
+  int m, k, n, relu;
+  Tiles tiles;               // row tiles x column tiles (innermost)
+  int ktiles;
+};
+
+// the prologue of one value of column k: normalize (four separately
+// rounded operations) with q = (mu, inv, g, b), then relu
+__device__ __forceinline__ float prologue(float v, float4 q, bool stats,
+                                          bool relu) {
+  if (stats)
+    v = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v, q.x), q.y), q.z), q.w);
+  if (relu) v = v < 0.f ? 0.f : v;
+  return v;
 }
 
-// 8 consecutive values from 16-byte aligned memory
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-// row[c .. c + 7] with zeros past `cols`; `vec`: the row's 16-byte loads
-// are aligned wherever c is a multiple of 8
-template <typename T>
-__device__ __forceinline__ void fetch8(const T* row, int c, int cols,
-                                       bool vec, float (&v)[8]) {
-  if (vec && c + 8 <= cols) {
-    load8(row + c, v);
+// columns k, k + 1 (k even) of a stage's A row R (row % 8 == g) as float32:
+// a bf16 tile is one box of 64 columns, a float32 one two boxes of 32
+template <typename TX>
+__device__ __forceinline__ float2 load_pair(const uint8_t* as, int R, int k,
+                                            int g) {
+  if constexpr (sizeof(TX) == 2) {
+    const uint32_t at = smem_u32(as) + R * PANEL_ROW +
+                        ((((k / 8) ^ g) & 7) * 16) + (k % 8) * 2;
+    uint32_t u;
+    asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(u) : "r"(at) : "memory");
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
   } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = c + e < cols ? to_f32(row[c + e]) : 0.f;
+    const uint32_t at = smem_u32(as) + (k / 32) * BM * PANEL_ROW +
+                        R * PANEL_ROW + (((((k % 32) / 4) ^ g) & 7) * 16) +
+                        (k % 4) * 4;
+    float2 v;
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+                 : "=f"(v.x), "=f"(v.y) : "r"(at) : "memory");
+    return v;
   }
 }
 
-__device__ __forceinline__ void store8_bf16(__nv_bfloat16* dst,
-                                            const float (&v)[8]) {
-  __align__(16) __nv_bfloat162 o[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) o[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
-}
-
+// two neighbouring outputs of a row in y's type, paired where aligned
 __device__ __forceinline__ void store_out(float* dst, float v0, float v1,
                                           bool two, bool pair) {
   if (two && pair) {
@@ -121,7 +128,6 @@ __device__ __forceinline__ void store_out(float* dst, float v0, float v1,
     if (two) dst[1] = v1;
   }
 }
-
 __device__ __forceinline__ void store_out(__nv_bfloat16* dst, float v0,
                                           float v1, bool two, bool pair) {
   if (two && pair) {
@@ -132,215 +138,139 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* dst, float v0,
   }
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 bf16 matrices; lane l gives the address of row (l % 8) of
-// matrix l / 8
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* row) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// the same, each matrix transposed: from rows of k (n contiguous) it gives
-// the "col" B fragments of mma.sync
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* row) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// stats: mu, inv, g, b as 4 rows of k floats, or null for no normalize
-template <typename TX, typename TW>
-__global__ void __launch_bounds__(THREADS)
-mm_bn_stats_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
-                   const float* __restrict__ stats, TX* __restrict__ y,
-                   float* __restrict__ part_s, float* __restrict__ part_s2,
-                   int m, int k, int n, int ntn, int relu, int vec_x,
-                   int vec_w) {
-  __shared__ __align__(16) __nv_bfloat16 as[BM][AP];
-  __shared__ __align__(16) __nv_bfloat16 bs[BK][BP];
-  __shared__ float red[4][2][BN];       // [warp_m][s|s2][column]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int warp_m = warp & 3;
-  const int warp_n = warp >> 2;
-  const int g = lane >> 2;              // fragment row group
-  const int t = lane & 3;               // thread in group
-  const int mt = blockIdx.x / ntn;
-  const int n0 = (blockIdx.x % ntn) * BN;
-  const long long m0 = (long long)mt * BM;
-  const float* mu = stats;
-  const float* inv = stats ? stats + k : nullptr;
-  const float* gam = stats ? stats + 2 * k : nullptr;
-  const float* bet = stats ? stats + 3 * k : nullptr;
-
-  // this thread's x chunks: rows xrow[r], depth xc .. xc + 7 of each step;
-  // its w chunk: depth wrow, columns n0 + wc .. + 7
-  const int xc = (tid & 3) * 8;
-  int xrow[2];
-  bool xok[2];
+// RS: A built in registers (else SS, a bf16 x as it lies); TMA_Y: y by TMA
+// stores of a staged tile (map_y), else from the registers
+template <typename TX, int BNK, bool RS, bool TMA_Y>
+__global__ void __launch_bounds__(THREADS, 1)
+mm_stats_kernel(const __grid_constant__ CUtensorMap map_x,
+                const __grid_constant__ CUtensorMap map_w,
+                const __grid_constant__ CUtensorMap map_y, const Args a) {
+  using L = Layout<TX, BNK>;
+  constexpr int NA = BNK / 2;
+  L& sm = smem<L>();
+  init_barriers(sm.g, 1);
+  if (threadIdx.x < 128) {
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0)
+      produce(sm.g, a.tiles, a.ktiles,
+              [&](int s, uint64_t* full, int mt, int ct, int kt) {
+                const int prow = a.pk ? min(BK, a.k - kt * BK) : 0;
+                mbar_expect_tx(full, L::A_TILE + BK * BNK * 2 + prow * 16);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    xrow[r] = (tid >> 2) + r * (BM / 2);
-    xok[r] = m0 + xrow[r] < m;
+                for (int j = 0; j < L::A_TILE / (BM * PANEL_ROW); ++j)
+                  tma_load_2d(sm.g.a[s] + j * BM * PANEL_ROW, &map_x, full,
+                              kt * BK + j * (PANEL_ROW / (int)sizeof(TX)),
+                              mt * BM);
+#pragma unroll
+                for (int j = 0; j < BNK / 64; ++j)
+                  tma_load_2d(sm.g.b[s] + j * B_PANEL, &map_w, full,
+                              ct * BNK + 64 * j, kt * BK);
+                if (prow > 0)
+                  bulk_load(sm.g.a[s] + L::A_TILE, a.pk + kt * BK, prow * 16,
+                            full);
+              });
+    return;
   }
-  const int wrow = tid >> 3;
-  const int wc = (tid & 7) * 8;
-
-  float xv[2][8], wv[8];
-  auto fetch = [&](int k0) {
+  regs_inc<consumer_regs(PRODUCER_REGS)>();
+  const int c = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  auto epi = [&](float (&acc)[2][NA], int mt, int ct) {
+    const long long prow = (long long)(2 * blockIdx.x + c) * a.n;
+    column_stats<NA>(acc, sm.red[c], c, a.part_s + prow, a.part_s2 + prow,
+                     ct * BNK, a.n);
+    if constexpr (TMA_Y) {
+      // a bf16 tile, or a float32 one of 64 columns, staged whole (at most
+      // 32 KB); a float32 one of 128 columns in 64-row halves
+      constexpr int HALVES = sizeof(TX) == 2 || BNK == 64 ? 1 : 2;
+      constexpr int ROWS = BM / HALVES, PER = 128 / (int)sizeof(TX);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (xok[r]) {
-        fetch8(x + (size_t)(m0 + xrow[r]) * k, k0 + xc, k, vec_x, xv[r]);
-      } else {
+      for (int hp = 0; hp < HALVES; ++hp)
+        store_staged(
+            sm.out.v[c], c,
+            [&](uint8_t* buf) {
+              const uint32_t tile = smem_u32(buf);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) xv[r][e] = 0.f;
-      }
-    }
-    if (k0 + wrow < k) {
-      fetch8(w + (size_t)(k0 + wrow) * n + n0, wc, n - n0, vec_w, wv);
+              for (int i = 0; i < BNK / 8; ++i)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  if (HALVES == 2 && h != hp) continue;
+#pragma unroll
+                  for (int hi = 0; hi < 2; ++hi)
+                    stage2<TX>(tile, ROWS,
+                               64 * (h - hp) + 16 * warp + g + 8 * hi,
+                               8 * i + 2 * t, acc[h][4 * i + 2 * hi],
+                               acc[h][4 * i + 2 * hi + 1]);
+                }
+            },
+            [&](uint8_t* buf) {
+#pragma unroll
+              for (int j = 0; j < BNK / PER; ++j)
+                tma_store_2d(&map_y, buf + j * ROWS * PANEL_ROW,
+                             ct * BNK + PER * j, mt * BM + ROWS * hp);
+            });
+      wait_stores_after_last(a.tiles, mt, ct);
     } else {
+      TX* y = static_cast<TX*>(a.y);
+      const bool pair = a.n % 2 == 0;     // paired stores stay aligned
 #pragma unroll
-      for (int e = 0; e < 8; ++e) wv[e] = 0.f;
-    }
-  };
-
-  // the prologue on the fetched x values, then both tiles into shared
-  // memory as bf16
-  auto stage = [&](int k0) {
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float a[8];
+        for (int hi = 0; hi < 2; ++hi) {
+          const long long row =
+              (long long)mt * BM + 64 * h + 16 * warp + g + 8 * hi;
+          if (row >= a.m) continue;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int kk = k0 + xc + e;
-        const bool ok = xok[r] && kk < k;
-        float v = xv[r][e];
-        if (stats != nullptr && ok)
-          v = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v, __ldg(mu + kk)),
-                                            __ldg(inv + kk)),
-                                  __ldg(gam + kk)),
-                        __ldg(bet + kk));
-        if (relu) v = v < 0.f ? 0.f : v;
-        a[e] = ok ? v : 0.f;
-      }
-      store8_bf16(&as[xrow[r]][xc], a);
-    }
-    store8_bf16(&bs[wrow][wc], wv);
-  };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-
-  fetch(0);
-  for (int k0 = 0; k0 < k; k0 += BK) {
-    stage(k0);
-    __syncthreads();
-    if (k0 + BK < k) fetch(k0 + BK);    // in flight during the products
-#pragma unroll
-    for (int kb = 0; kb < BK; kb += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldmatrix_x4(a[i], &as[warp_m * WM + i * 16 + (lane & 15)]
-                             [kb + (lane >> 4) * 8]);
-#pragma unroll
-      for (int j = 0; j < 4; j += 2) {
-        // matrices: k 0-7 and 8-15 of n-tile j, then of n-tile j + 1
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, &bs[kb + ((lane >> 3) & 1) * 8 + (lane & 7)]
-                                [warp_n * WN + j * 8 + (lane >> 4) * 8]);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc[i][j], a[i], b[0], b[1]);
-          mma_bf16(acc[i][j + 1], a[i], b[2], b[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // epilogue: this thread holds rows (g, g + 8) of each 16-row tile i and
-  // columns (2t, 2t + 1) of each 8-column tile j of its warp's 32 x 32
-  const bool pair = n % 2 == 0;         // two-value stores stay aligned
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long row = m0 + warp_m * WM + i * 16 + h * 8 + g;
-      if (row >= m) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + warp_n * WN + j * 8 + 2 * t;
-        if (col >= n) continue;
-        store_out(y + (size_t)row * n + col, acc[i][j][h * 2],
-                  acc[i][j][h * 2 + 1], col + 1 < n, pair);
-      }
-    }
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float s = 0.f, s2 = 0.f;
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          if (m0 + warp_m * WM + i * 16 + h * 8 + g < m) {
-            const float v = acc[i][j][h * 2 + e];
-            s += v;
-            s2 = fmaf(v, v, s2);
+          for (int i = 0; i < BNK / 8; ++i) {
+            const int col = ct * BNK + 8 * i + 2 * t;
+            if (col >= a.n) continue;
+            store_out(y + row * a.n + col, acc[h][4 * i + 2 * hi],
+                      acc[h][4 * i + 2 * hi + 1], col + 1 < a.n, pair);
           }
         }
-      // the 8 lanes of one t hold the warp's 32 rows of this column
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-        s2 += __shfl_xor_sync(0xffffffffu, s2, off);
-      }
-      if (g == 0) {
-        red[warp_m][0][warp_n * WN + j * 8 + 2 * t + e] = s;
-        red[warp_m][1][warp_n * WN + j * 8 + 2 * t + e] = s2;
-      }
     }
-  __syncthreads();
-  // the four row-quarter warps of each column, added in order
-  if (tid < BN && n0 + tid < n) {
-    const size_t at = (size_t)mt * n + n0 + tid;
-    part_s[at] = (red[0][0][tid] + red[1][0][tid]) + (red[2][0][tid] +
-                                                      red[3][0][tid]);
-    part_s2[at] = (red[0][1][tid] + red[1][1][tid]) + (red[2][1][tid] +
-                                                       red[3][1][tid]);
+  };
+  if constexpr (RS) {
+    const bool stats = a.pk != nullptr, relu = a.relu != 0;
+    auto load_a = [&](uint32_t (&f)[4][4], int s, int h, int kt, int mt) {
+      const uint8_t* as = sm.g.a[s];
+      const float4* prm = reinterpret_cast<const float4*>(as + L::A_TILE);
+      const int r0 = 64 * h + 16 * warp + g;       // row in the tile
+      // rows left in x from this thread's first row of the half
+      const long long rows_left = a.m - ((long long)mt * BM + r0);
+      const int klim = a.k - kt * BK;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int k = 16 * kk + 8 * j + 2 * t;    // the pair's first k
+          float4 q0 = {}, q1 = {};
+          if (stats) {
+            q0 = prm[k];
+            q1 = prm[k + 1];
+          }
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {
+            const float2 v = load_pair<TX>(as, r0 + 8 * hi, k, g);
+            const float v0 = prologue(v.x, q0, stats, relu);
+            const float v1 = prologue(v.y, q1, stats, relu);
+            const bool ok = 8 * hi < rows_left;
+            f[kk][2 * j + hi] = pack_bf16(ok && k < klim ? v0 : 0.f,
+                                          ok && k + 1 < klim ? v1 : 0.f);
+          }
+        }
+    };
+    auto desc_b = [&](int s, int kk) {
+      return desc_mn(sm.g.b[s], kk, B_PANEL);
+    };
+    consume_rs<NA, 1>(sm.g, c, a.tiles, a.ktiles, load_a, desc_b, epi);
+  } else {
+    consume<NA>(sm.g, c, a.tiles, a.ktiles, epi);
   }
 }
 
 constexpr int SC = 32;          // columns per stats block
-constexpr int SG = 32;          // row groups per stats block (N is small:
-                                // 64 or 128 columns over thousands of rows)
+constexpr int SG = 32;          // row groups per stats block
 
 // s[c] and s2[c] from the partials [rows, n], in a fixed order: row group g
 // sums rows g, g + SG, ...; the SG group sums are added in order.
@@ -373,26 +303,80 @@ stats_kernel(const float* __restrict__ part_s,
   }
 }
 
-template <typename TX, typename TW>
-int launch(const void* x, const void* w, const float* stats, void* y,
-           float* part, float* out, int m, int k, int n, int relu,
-           cudaStream_t st) {
-  const long long mtiles = (m + BM - 1) / BM;
-  const int ntn = (n + BN - 1) / BN;
-  if (mtiles * ntn > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  // 16-byte loads: an aligned start and rows a multiple of 16 bytes
-  const int per16x = 16 / (int)sizeof(TX), per16w = 16 / (int)sizeof(TW);
-  const int vec_x = reinterpret_cast<uintptr_t>(x) % 16 == 0 && k % per16x == 0;
-  const int vec_w = reinterpret_cast<uintptr_t>(w) % 16 == 0 && n % per16w == 0;
-  float* ps = part;
-  float* ps2 = part + (size_t)mtiles * n;
-  mm_bn_stats_kernel<TX, TW><<<(unsigned)(mtiles * ntn), THREADS, 0, st>>>(
-      static_cast<const TX*>(x), static_cast<const TW*>(w), stats,
-      static_cast<TX*>(y), ps, ps2, m, k, n, ntn, relu, vec_x, vec_w);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+// a call's tiles (128 rows x bnk columns, the column tiles innermost: the
+// blocks working at one time share x's rows) and grid; m_tiles 0 if the
+// tiles overflow an int
+struct Plan {
+  int bnk;
+  Tiles tiles;
+  unsigned grid;
+};
+
+Plan plan(int m, int n) {
+  Plan pl;
+  pl.bnk = n <= 64 ? 64 : 128;
+  long long m_tiles = (m + BM - 1) / BM;
+  const long long n_tiles = (n + pl.bnk - 1) / pl.bnk;
+  if (m_tiles * n_tiles > 0x7fffffffLL) m_tiles = 0;
+  pl.tiles = {(int)m_tiles, (int)n_tiles, false};
+  pl.grid = grid_for(m_tiles * n_tiles);
+  return pl;
+}
+
+template <typename TX, int BNK, bool RS, bool TMA_Y>
+int run(const CUtensorMap& mx, const CUtensorMap& mw, const CUtensorMap& my,
+        const Args& a, unsigned grid, cudaStream_t st) {
+  constexpr int bytes = smem_bytes<Layout<TX, BNK>>();
+  auto kernel = mm_stats_kernel<TX, BNK, RS, TMA_Y>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, THREADS, bytes, st>>>(mx, mw, my, a);
+  return (int)cudaGetLastError();
+}
+
+// the kernel for x's type, the tile width, the A path and y's store
+template <typename TX, int BNK>
+int run_for(const CUtensorMap& mx, const CUtensorMap& mw,
+            const CUtensorMap& my, const Args& a, bool tma_y, unsigned grid,
+            cudaStream_t st) {
+  const bool rs = sizeof(TX) == 4 || a.pk != nullptr || a.relu;
+  if (rs)
+    return tma_y ? run<TX, BNK, true, true>(mx, mw, my, a, grid, st)
+                 : run<TX, BNK, true, false>(mx, mw, my, a, grid, st);
+  if constexpr (sizeof(TX) == 2)
+    return tma_y ? run<TX, BNK, false, true>(mx, mw, my, a, grid, st)
+                 : run<TX, BNK, false, false>(mx, mw, my, a, grid, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename TX>
+int launch(const void* x, int kx, const __nv_bfloat16* wcopy,
+           const float4* pk, void* y, float* part, float* out, int m, int k,
+           int n, int relu, cudaStream_t st) {
+  const Plan pl = plan(m, n);
+  if (pl.tiles.m_tiles == 0) return (int)cudaErrorInvalidValue;
+  constexpr bool F32 = sizeof(TX) == 4;
+  // y's rows whole 16-byte chunks: TMA stores, staged in at most 32 KB
+  const bool tma_y = (long long)n * sizeof(TX) % 16 == 0;
+  const int y_rows = F32 && pl.bnk == 128 ? BM / 2 : BM;
+  CUtensorMap mx, mw, my = {};
+  const int n8 = (n + 7) / 8 * 8;
+  int err = encode_2d(&mx, x, m, k, kx, BM, F32);
+  if (err == 0) err = encode_2d(&mw, wcopy, k, n, n8, BK);
+  if (err == 0 && tma_y) err = encode_2d(&my, y, m, n, n, y_rows, F32);
+  if (err != 0) return err;
+  const int rows = 2 * pl.grid;            // one a consumer warpgroup
+  const cudaError_t e = cudaMemsetAsync(
+      part, 0, sizeof(float) * 2 * rows * n, st);
+  if (e != cudaSuccess) return (int)e;
+  const Args a{y, part, part + (size_t)rows * n, pk, m, k, n, relu,
+               pl.tiles, (k + BK - 1) / BK};
+  err = pl.bnk == 64 ? run_for<TX, 64>(mx, mw, my, a, tma_y, pl.grid, st)
+                     : run_for<TX, 128>(mx, mw, my, a, tma_y, pl.grid, st);
+  if (err != 0) return err;
   stats_kernel<<<(n + SC - 1) / SC, dim3(SC, SG), 0, st>>>(
-      ps, ps2, out, out + n, (int)mtiles, n);
+      part, part + (size_t)rows * n, out, out + n, rows, n);
   return (int)cudaGetLastError();
 }
 
@@ -400,35 +384,44 @@ int launch(const void* x, const void* w, const float* stats, void* y,
 
 extern "C" {
 
-// rows of the partials buffer the wrapper allocates: 2 * rows * n floats
-long long paddle_tpu_torch_matmul_bn_stats_rows(int m) {
-  return (m + BM - 1) / BM;
+// rows of the partials buffer the wrapper allocates (2 * rows * n floats):
+// one a consumer warpgroup of the grid for m rows and n columns
+long long paddle_tpu_torch_matmul_bn_stats_rows(int m, int n) {
+  return 2 * (long long)plan(m, n).grid;
 }
 
-// y [m, n] (x's type) = act(norm(x [m, k])) @ w [k, n]; x and w float32
-// (0) or bfloat16 (1) each; stats: mu, inv, g, b as 4 x k float32, or null
-// for no normalize; part: scratch of 2 * rows * n floats; out: s then s2,
-// 2 * n floats.  Returns a cudaError_t (0 = launched).
+// y [m, n] (x's type) = act(norm(x [m, k])) @ w [k, n]; x float32 (x_bf16
+// 0) or bfloat16 (1) in rows of kx >= k elements (whole 16-byte chunks,
+// 16-byte aligned), w [k, n] float32 (w_bf16 0) or bfloat16 (1); pk: the
+// statistics as k float32 (mu, inv, g, b) quadruples (16-byte aligned), or
+// null for no normalize; wcopy: scratch of k * ceil8(n) bf16 (16-byte
+// aligned); part: 2 * rows * n floats (rows from
+// paddle_tpu_torch_matmul_bn_stats_rows); out: s then s2, 2 * n floats.
+// Returns a cudaError_t (0 = launched), or sm90::TENSOR_MAP_ERROR + the
+// CUresult of a tensor map.
 int paddle_tpu_torch_matmul_bn_stats(const void* x, const void* w,
-                                     const void* stats, void* y, void* part,
-                                     void* out, int m, int k, int n,
-                                     int x_bf16, int w_bf16, int relu,
-                                     void* stream) {
-  if (m <= 0 || k <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+                                     const void* pk, void* y, void* wcopy,
+                                     void* part, void* out, int m, int k,
+                                     int kx, int n, int x_bf16, int w_bf16,
+                                     int relu, void* stream) {
+  const int size = x_bf16 ? 2 : 4;
+  if (m <= 0 || k <= 0 || n <= 0 || kx < k || (long long)kx * size % 16 ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(y) % 16 ||
+      reinterpret_cast<uintptr_t>(wcopy) % 16 ||
+      reinterpret_cast<uintptr_t>(pk) % 16)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* sf = static_cast<const float*>(stats);
+  auto* wc = static_cast<__nv_bfloat16*>(wcopy);
+  const int err = w_bf16 ? round_w<__nv_bfloat16>(w, wc, k, n, st)
+                         : round_w<float>(w, wc, k, n, st);
+  if (err != 0) return err;
+  const float4* pq = static_cast<const float4*>(pk);
   float* pf = static_cast<float*>(part);
   float* of = static_cast<float*>(out);
-  if (x_bf16 && w_bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, w, sf, y, pf, of, m, k, n,
-                                                relu, st);
-  if (x_bf16)
-    return launch<__nv_bfloat16, float>(x, w, sf, y, pf, of, m, k, n, relu,
-                                        st);
-  if (w_bf16)
-    return launch<float, __nv_bfloat16>(x, w, sf, y, pf, of, m, k, n, relu,
-                                        st);
-  return launch<float, float>(x, w, sf, y, pf, of, m, k, n, relu, st);
+  return x_bf16 ? launch<__nv_bfloat16>(x, kx, wc, pq, y, pf, of, m, k, n,
+                                        relu, st)
+                : launch<float>(x, kx, wc, pq, y, pf, of, m, k, n, relu, st);
 }
 
 }  // extern "C"

@@ -1,13 +1,18 @@
 // Hopper (sm_90a) GEMM core shared by the dense layer with its epilogue
-// (K5, dense_epilogue.cu) and the bf16 1x1 convolution with batch-norm
-// statistics (K3, conv1x1_stats.cu):
+// (K5, dense_epilogue.cu), the 1x1 convolution with batch-norm statistics
+// (K3, conv1x1_stats.cu) and the matmul with the producer's batch-norm
+// folded in (K6, matmul_bn_stats.cu):
 //
 //   D [M, N] = A [M, K] . B [K, N]        bf16 operands, float32 sums
 //
-// with A K-major (k contiguous: x of K5, the bf16 copy of w of K3) and B
-// MN-major (n contiguous: w of K5, the pixels of x of K3), handed tile by
-// tile to an epilogue that each kernel writes itself.  Built on sm90.cuh
-// (mbarriers, TMA, wgmma descriptors).
+// handed tile by tile to an epilogue that each kernel writes itself.  A
+// reaches the tensor cores K-major from shared memory (x of K5, the bf16
+// copy of w of the bf16 K3, a bf16 x of K6: consume) or from registers,
+// built by the consumer from a stage that holds the operand in its own
+// type and layout (the float32 x of K3, x of K6 with its prologue:
+// consume_rs); B is MN-major (w of K5 and K6, the pixels of x of the bf16
+// K3) or K-major (the bf16 copy of w of the float32 K3).  Built on
+// sm90.cuh (mbarriers, TMA, wgmma descriptors).
 //
 // Design:
 //  - one persistent block of 384 threads on each SM walks output tiles of
@@ -31,10 +36,12 @@
 //  - a consumer warpgroup issues bf16 wgmma m64n128k16 (B transposed) for
 //    its two 64-row halves into 2 x 64 float32 accumulators a thread: four
 //    k16 steps a stage, one group kept in flight, a stage freed once the
-//    group after it waits.  setmaxnreg gives the consumers 232 registers
-//    and the producer 40 (208 and 88 where the producer lays B out).
-//    Waits on mbarriers suspend the thread, so a waiting warp leaves its
-//    scheduler to the epilogue's warps.
+//    group after it waits.  setmaxnreg is to give the consumers the
+//    producer's registers; ptxas ignores it in K5 and the bf16 K3 (see
+//    setup) and honours it where the kernel splits in its own branches
+//    (the float32 K3, K6: consumer_regs).  Waits on mbarriers suspend the
+//    thread, so a waiting warp leaves its scheduler to the epilogue's
+//    warps.
 //  - the epilogue is a functor called with the accumulators of a finished
 //    tile: thread (warp w, lane l) holds rows 64h + 16w + l/4 (+ 8) and
 //    columns 8i + 2(l % 4) + {0, 1} of the tile as acc[h][4i + {0, 1}]
@@ -57,6 +64,7 @@
 // and where the producer lays B out, its three warps (~1-2 us a stage).
 #pragma once
 
+#include "elem.cuh"
 #include "sm90.cuh"
 
 namespace sm90g {
@@ -81,12 +89,16 @@ struct OutTiles {
 
 // the ring of S stages and its barriers; A tiles of AR rows: BM
 // (ping-pong, a warpgroup a tile) or 2 BM (cooperative: both warpgroups on
-// one tile of 2 BM rows, BM each, sharing its B)
-template <int S, int AR = BM>
+// one tile of 2 BM rows, BM each, sharing its B).  A stage holds A_STAGE_
+// bytes of A (bf16 boxes by default; a kernel that builds A in registers
+// keeps its operand there in its own type and layout) and B_STAGE_ of B.
+template <int S, int AR = BM, int A_STAGE_ = AR * BK * 2,
+          int B_STAGE_ = B_BYTES>
 struct Stages {
-  static constexpr int A_STAGE = AR * BK * 2;
+  static constexpr int COUNT = S, ROWS = AR;
+  static constexpr int A_STAGE = A_STAGE_, B_STAGE = B_STAGE_;
   uint8_t a[S][A_STAGE];
-  uint8_t b[S][B_BYTES];
+  uint8_t b[S][B_STAGE];
   uint64_t full[S];
   uint64_t empty[S];
   uint64_t turn[2];     // consumer warpgroup c may start its next products
@@ -243,6 +255,78 @@ __device__ __forceinline__ void wgmma_ss_mn(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// the accumulator operands of an m64n64 and an m64n128 wgmma
+#define SM90G_D32                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define SM90G_D64                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+#define SM90G_OUT32(d)                                                     \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+#define SM90G_OUT64(d)                                                     \
+  SM90G_OUT32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),       \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),      \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),      \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),      \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),      \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),      \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d[32] (+)= A . B over k16: A [64 x 16] K-major and B [16 x 64] MN-major
+// (transposed), both in shared memory; scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90G_D32
+      ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : SM90G_OUT32(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64] (+)= A . B over k16: A [64 x 16] bf16 in registers (the fragment
+// layout of split_a, sm90.cuh), B in shared memory, K-major (TB 0: B
+// [128 x 16], k contiguous) or MN-major (TB 1, B transposed: [16 x 128], n
+// contiguous); scale_d 0 overwrites d.  The 64-column form is sm90.cuh's
+// wgmma_rs (B MN-major).
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90G_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : SM90G_OUT64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  static_assert(TB == 1, "the 64-column register-A wgmma takes B MN-major");
+  wgmma_rs(d, a, db, scale_d);
+}
+
+// two values as the bf16 pair of an A fragment register (round to nearest
+// even; lo in the low half: the lower k)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 // --- the walk over tiles ---------------------------------------------------
 
 // The output tiles: m_tiles x n_tiles (BM x BN each), walked with the m
@@ -275,23 +359,36 @@ struct Ring {
   }
 };
 
-// Sets up the barriers (the block's first thread) and the register split;
-// returns the consumer warpgroup (0 or 1), or -1 in the producer warpgroup.
+// Sets up the barriers (the block's first thread) and waits for the block.
 // `full_arrivals`: 1 where one thread's expect_tx and TMA fill a stage,
 // else the number of producer threads that store into it.
-template <int PRODUCER_REGS, int S, int AR>
-__device__ __forceinline__ int setup(Stages<S, AR>& sm, int full_arrivals) {
+template <class G>
+__device__ __forceinline__ void init_barriers(G& sm, int full_arrivals) {
   if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
+    for (int s = 0; s < G::COUNT; ++s) {
       mbar_init(&sm.full[s], full_arrivals);
       // one arrival per consuming warp
-      mbar_init(&sm.empty[s], AR == BM ? 4 : 8);
+      mbar_init(&sm.empty[s], G::ROWS == BM ? 4 : 8);
     }
     mbar_init(&sm.turn[0], 1);
     mbar_init(&sm.turn[1], 1);
     mbar_fence_init();
   }
   __syncthreads();
+}
+
+// init_barriers and the register split; returns the consumer warpgroup (0
+// or 1), or -1 in the producer warpgroup.  ptxas ignores this split in K5
+// and the bf16 K3 ((C7507) "'setmaxnreg' ignored to maintain minimum
+// register requirements": a split made before the kernel's branch, and a
+// wait for the bulk stores after the consumer's last tile), so every
+// thread there keeps the entry count (168 at 384 threads).  The kernels
+// that build A in registers split in their own branches instead
+// (consumer_regs) and wait for their stores in the tile loop
+// (wait_stores_after_last).
+template <int PRODUCER_REGS, class G>
+__device__ __forceinline__ int setup(G& sm, int full_arrivals) {
+  init_barriers(sm, full_arrivals);
   if (threadIdx.x < 128) {
     regs_dec<PRODUCER_REGS>();
     return -1;
@@ -302,14 +399,23 @@ __device__ __forceinline__ int setup(Stages<S, AR>& sm, int full_arrivals) {
   return threadIdx.x / 128 - 1;
 }
 
+// The consumers' registers where the producer warpgroup keeps `producer`
+// of the block's 168 a thread at 384 threads (a multiple of 8, as
+// setmaxnreg takes): a kernel calls regs_dec<P>() first thing in its
+// producer branch and regs_inc<consumer_regs(P)>() first thing in its
+// consumers' (after init_barriers, the two branches never joining)
+__host__ __device__ constexpr int consumer_regs(int producer) {
+  return (504 - producer) / 2;
+}
+
 // The producer's walk: for each of this block's tiles (m tile mt, column
 // tile ct) and k step kt, waits for the stage to be free and calls
 // fill(ring stage s, full barrier, mt, ct, kt).  Run by the threads that
 // fill stages (one thread, or several).
-template <int S, int AR, class Fill>
-__device__ __forceinline__ void produce(Stages<S, AR>& sm, const Tiles& tl,
-                                        int ktiles, Fill fill) {
-  Ring<S> r;
+template <class G, class Fill>
+__device__ __forceinline__ void produce(G& sm, const Tiles& tl, int ktiles,
+                                        Fill fill) {
+  Ring<G::COUNT> r;
   for (int t = blockIdx.x; t < tl.count(); t += gridDim.x) {
     int mt, ct;
     tl.at(t, mt, ct);
@@ -322,7 +428,8 @@ __device__ __forceinline__ void produce(Stages<S, AR>& sm, const Tiles& tl,
 
 // Consumer warpgroup c's walk.  Ping-pong (AR = BM): the block's tiles c,
 // c + 2, c + 4, ... (in the producer's order); acc = A . B over each
-// tile's k steps, then epi(acc, mt, ct) with the layout of the header.
+// tile's k steps, then epi(acc, mt, ct) with the layout of the header
+// (NA = 64 accumulators a 64-row half: 128 columns; 32: 64 columns).
 // The two warpgroups' products take turns (`turn`): a warpgroup starts a
 // tile's products once the other has seen every stage of its own tile
 // arrive.  So each `full` barrier has completed the use of its stage
@@ -330,15 +437,14 @@ __device__ __forceinline__ void produce(Stages<S, AR>& sm, const Tiles& tl,
 // and the tensor cores run one tile at a time while the other warpgroup
 // runs its epilogue.  Cooperative (AR = 2 BM): both warpgroups take every
 // tile, c its rows BM c .. BM c + BM - 1, and epi gets m tile 2 mt + c.
-template <int S, int AR, class Epi>
-__device__ __forceinline__ void consume(Stages<S, AR>& sm, int c,
-                                        const Tiles& tl, int ktiles,
-                                        Epi epi) {
-  constexpr bool COOP = AR == 2 * BM;
-  Ring<S> r;
+template <int NA = ACC, class G, class Epi>
+__device__ __forceinline__ void consume(G& sm, int c, const Tiles& tl,
+                                        int ktiles, Epi epi) {
+  constexpr bool COOP = G::ROWS == 2 * BM;
+  Ring<G::COUNT> r;
   if (!COOP) r.skip(c * ktiles);
   const int lane = threadIdx.x % 32;
-  float acc[2][ACC];
+  float acc[2][NA];
   uint32_t turns = 0;                  // turns this warpgroup has waited
   for (int t = blockIdx.x + (COOP ? 0 : c) * gridDim.x; t < tl.count();
        t += (COOP ? 1 : 2) * gridDim.x) {
@@ -376,6 +482,142 @@ __device__ __forceinline__ void consume(Stages<S, AR>& sm, int c,
     epi(acc, COOP ? 2 * mt + c : mt, ct);
     if (!COOP) r.skip(ktiles);    // the other warpgroup's tile
   }
+}
+
+// Consumer warpgroup c's walk (ping-pong, as consume) with A built in
+// registers: for each k step and 64-row half h, load_a(a, s, h, kt, mt)
+// fills a[kk] with the bf16 A fragments of the half's four k16 steps from
+// stage s (the operand in its own type and layout, transformed there), and
+// the warpgroup issues them with B from the stage (descriptor desc_b(s, kk),
+// K-major for TB 0, MN-major for TB 1).  Each (k step, half) is one wgmma
+// group, so a half's A is built while the group before it runs; the
+// registers of a group (a0 for half 0, a1 for half 1) are built again only
+// after wgmma_wait_one has seen that group complete.
+template <int NA, int TB, class G, class LoadA, class DescB, class Epi>
+__device__ __forceinline__ void consume_rs(G& sm, int c, const Tiles& tl,
+                                           int ktiles, LoadA load_a,
+                                           DescB desc_b, Epi epi) {
+  Ring<G::COUNT> r;
+  r.skip(c * ktiles);
+  const int lane = threadIdx.x % 32;
+  float acc[2][NA];
+  uint32_t a0[4][4], a1[4][4];
+  uint32_t turns = 0;
+  for (int t = blockIdx.x + c * gridDim.x; t < tl.count();
+       t += 2 * gridDim.x) {
+    int mt, ct;
+    tl.at(t, mt, ct);
+    if (c == 1 || t != (int)blockIdx.x) wait(&sm.turn[c], turns++ & 1);
+    int prev = -1;
+    for (int kt = 0; kt < ktiles; ++kt, r.next()) {
+      wait(&sm.full[r.s], r.phase);
+      load_a(a0, r.s, 0, kt, mt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs_n<TB>(acc[0], a0[kk], desc_b(r.s, kk), kt + kk > 0);
+      wgmma_commit();
+      // the group of (kt - 1, half 1) is done: a1 and stage kt - 1 are free
+      wgmma_wait_one();
+      if (prev >= 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&sm.empty[prev]);
+      }
+      load_a(a1, r.s, 1, kt, mt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs_n<TB>(acc[1], a1[kk], desc_b(r.s, kk), kt + kk > 0);
+      wgmma_commit();
+      wgmma_wait_one();        // (kt, half 0) is done: a0 is free
+      prev = r.s;
+    }
+    if (threadIdx.x % 128 == 0) mbar_arrive(&sm.turn[c ^ 1]);
+    wgmma_wait_all();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.empty[prev]);
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    epi(acc, mt, ct);
+    r.skip(ktiles);            // the other warpgroup's tile
+  }
+}
+
+// The epilogue's batch-norm statistics: the sums of each tile column's
+// values and squares over the tile's rows (rows the kernel zeroed, or that
+// TMA filled with zeros, add exact zeros), added into this warpgroup's row
+// of the partials (ps, ps2: columns col0 .. col0 + 2 NA - 1, those below
+// ncols).  In a fixed order, so deterministic without atomics: within the
+// thread's four rows, across the eight lanes that hold the column
+// (xor-shuffles over l / 4), across the four warps (red: [4][2][2 NA]
+// floats in shared memory, this warpgroup's), then by the column's thread.
+template <int NA>
+__device__ __forceinline__ void column_stats(const float (&acc)[2][NA],
+                                             float (*red)[2][2 * NA], int c,
+                                             float* ps, float* ps2, int col0,
+                                             int ncols) {
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  wg_sync(c);                 // the last tile's reads of red are done
+#pragma unroll
+  for (int i = 0; i < NA / 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float s = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float v = acc[h][4 * i + 2 * r + e];
+          s += v;
+          s2 = fmaf(v, v, s2);
+        }
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+        s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+      }
+      if (lane < 4) {
+        red[warp][0][8 * i + 2 * lane + e] = s;
+        red[warp][1][8 * i + 2 * lane + e] = s2;
+      }
+    }
+  wg_sync(c);
+  const int j = threadIdx.x % 128;
+  if (j < 2 * NA && col0 + j < ncols) {
+    ps[col0 + j] += (red[0][0][j] + red[1][0][j]) + (red[2][0][j] + red[3][0][j]);
+    ps2[col0 + j] += (red[0][1][j] + red[1][1][j]) + (red[2][1][j] + red[3][1][j]);
+  }
+}
+
+// Stores the float32 value of (row, col) into a staging tile at shared
+// address `tile` laid out as TMA boxes of `rows` rows x 32 columns (128-byte
+// rows, 128-byte swizzle), panels rows * 128 bytes apart: a tile whose
+// rows are the accumulator's columns (a transposed store)
+__device__ __forceinline__ void stage1f(uint32_t tile, int rows, int row,
+                                        int col, float v) {
+  const uint32_t at = tile + (col / 32) * rows * 128 + row * 128 +
+                      ((((col % 32) / 4) ^ (row & 7)) * 16) + (col % 4) * 4;
+  asm volatile("st.shared.f32 [%0], %1;\n" :: "r"(at), "f"(v) : "memory");
+}
+
+// `bytes` (a multiple of 16) from shared memory to device memory (both
+// 16-byte aligned), asynchronously, in the thread's bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      :: "l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
+}
+
+// `bytes` (a multiple of 16) from device memory to shared memory (both
+// 16-byte aligned), completing as transactions on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // Stores the neighbouring values (row, col), (row, col + 1) (col even)
@@ -423,6 +665,20 @@ __device__ __forceinline__ void store_staged(uint8_t* buf, int c, W write,
   }
 }
 
+// The end of an epilogue that stored with store_staged: after the
+// warpgroup's last tile (t, in the walk's order, the last below `count`
+// for this warpgroup) its issuing thread waits until the stores have read
+// their shared memory, so the block may exit.  Called inside the tile loop:
+// ptxas ignores the kernel's setmaxnreg split ((C7507), every thread then
+// keeps 168 registers) when a consumer waits for its bulk stores after the
+// loop, and serializes the wgmmas of a consumer that needs more (C7512).
+__device__ __forceinline__ void wait_stores_after_last(const Tiles& tl,
+                                                       int mt, int ct) {
+  const int t = tl.m_inner ? mt + ct * tl.m_tiles : ct + mt * tl.n_tiles;
+  if (threadIdx.x % 128 == 0 && t + 2 * (int)gridDim.x >= tl.count())
+    bulk_wait_read();
+}
+
 // --- host -------------------------------------------------------------------
 
 // the map of a bf16 (or, `f32`, float32) matrix of `rows` x `cols` (row
@@ -448,6 +704,57 @@ inline int encode_2d(CUtensorMap* map, const void* base, long long rows,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
+}
+
+// the map of a float32 tensor [d2, d1, d0] (d0 a multiple of 4, the base
+// 16-byte aligned) in boxes of 32 x `box1` x 1 with the 128-byte swizzle;
+// reads past its edges fill zeros, stores past them are dropped.  Returns
+// 0 or TENSOR_MAP_ERROR + the CUresult.
+inline int encode_3d_f32(CUtensorMap* map, const void* base, long long d0,
+                         long long d1, long long d2, int box1) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return TENSOR_MAP_ERROR + (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1,
+                              (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)(d0 * 4),
+                                 (cuuint64_t)(d0 * d1 * 4)};
+  const cuuint32_t box[3] = {32, (cuuint32_t)box1, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
+}
+
+// src [rows, cols] (float32 or bf16) rounded to bf16 rows of cols8
+// elements (zeros past cols): the bf16 copy of w that the kernels read by
+// TMA
+template <typename T>
+__global__ void __launch_bounds__(256)
+round_w_kernel(const T* __restrict__ src, __nv_bfloat16* __restrict__ out,
+               int rows, int cols, int cols8) {
+  const long long n = (long long)rows * cols8;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n; i += (long long)gridDim.x * blockDim.x) {
+    const int r = (int)(i / cols8), k = (int)(i % cols8);
+    out[i] = k < cols ? ptt::to_bf16(src[(long long)r * cols + k])
+                      : __float2bfloat16_rn(0.f);
+  }
+}
+
+// launches round_w_kernel on `st`; returns its cudaError_t
+template <typename T>
+int round_w(const void* src, __nv_bfloat16* out, int rows, int cols,
+            cudaStream_t st) {
+  const int cols8 = (cols + 7) / 8 * 8;
+  const long long blocks = ((long long)rows * cols8 + 255) / 256;
+  round_w_kernel<T><<<(unsigned)(blocks < 1024 ? blocks : 1024), 256, 0,
+                      st>>>(static_cast<const T*>(src), out, rows, cols,
+                            cols8);
+  return (int)cudaGetLastError();
 }
 
 // blocks of a persistent grid over `tiles` tiles: one a streaming

@@ -16,12 +16,14 @@ as the TPU kernel does (``conv_bn.py:128-131``); y keeps x's dtype and the
 statistics come from the float32 sums.
 
 - :func:`conv1x1_stats_fwd` is the wrapper over contiguous float32 or bf16
-  tensors (under AMP a bf16 x and the float32 master w).  A bf16 x runs
-  the form on the Hopper GEMM core (``csrc/sm90_gemm.cuh``: TMA and
-  ``wgmma``), which reads x where it lies at every ResNet-50 shape
-  (:func:`bf16_operand` says when it takes a padded copy) and writes bf16
-  y itself; a float32 x the first design's ``mma.sync`` form.  A CUDA
-  tensor launches the kernel or raises; a CPU tensor takes the plain
+  tensors (under AMP a bf16 x and the float32 master w).  Both dtypes run
+  on the Hopper GEMM core (``csrc/sm90_gemm.cuh``: TMA and ``wgmma``),
+  which reads x where it lies at every ResNet-50 shape and writes y
+  itself: a bf16 x as B (:func:`bf16_operand` says when it takes a padded
+  copy); a float32 x as A, rounded to bf16 in the registers of its
+  fragments, by TMA where a row is whole 16-byte chunks and from bulk-
+  copied slabs at P <= 64 (:func:`f32_route`, :func:`f32_operand`).  A
+  CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
   version.  It counts its launches by x's dtype (:func:`launch_count`).
 - :func:`conv1x1_stats_plain` is the plain version.
 - :func:`conv1x1_stats` differentiates through :class:`Conv1x1Stats`: K3
@@ -42,8 +44,10 @@ each ``[K]``:
 - :func:`matmul_bn_stats_fwd` is the wrapper, with the reference's shape
   rule (an M above 1024 needs a dividing block of at least 8 rows, so
   M % 8 == 0) checked before any launch.  A CUDA tensor launches the kernel
-  or raises; a CPU tensor takes the plain version.  It counts its launches
-  under ``matmul_bn_stats``.
+  (on the GEMM core: x by TMA in its own type, A built in registers where
+  the prologue or a float32 x needs it; :func:`mm_operand` says when x is
+  copied first) or raises; a CPU tensor takes the plain version.  It
+  counts its launches under ``matmul_bn_stats``.
 - :func:`matmul_bn_stats_plain` is the plain version.
 - :func:`mm_stats` differentiates through :class:`MmStats`: K6 with no
   statistics and no relu forward, and the reference's ``_mm_stats_bwd``
@@ -106,11 +110,6 @@ def _check(x, w):
                          f"{tuple(w.shape)}")
 
 
-#: pixels per column tile of the kernel (its grid runs over the N*P
-#: pixels of all images; each tile writes one row of partial sums)
-COLS = 128
-
-
 def conv1x1_stats_fwd(x, w):
     """``(y [N, Cout, P], s [Cout], s2 [Cout])`` for contiguous ``x [N,
     Cin, P]`` and ``w [Cout, Cin]``, each float32 or bf16 (y in x's dtype,
@@ -123,18 +122,62 @@ def conv1x1_stats_fwd(x, w):
         raise ValueError(f"conv1x1_stats: no kernel for device {x.device}")
     if x.dtype == torch.bfloat16:
         return _launch_bf16(x, w)
-    fn = _entry()
+    return _launch_f32(x, w)
+
+
+#: the widest image (pixels) the float32 form reads from bulk-copied slabs,
+#: two images a 128-row tile; a wider one is read by TMA.  The wrapper
+#: names the route to the kernel, whose slab buffers hold this many pixels
+#: (``f32k::SLAB_MAX_P``)
+SLAB_MAX_P = 64
+
+
+def f32_route(p):
+    """How the float32 form reads an image of ``p`` pixels: ``"slab"``
+    (one bulk copy of each image's channel slab a stage, two images a
+    tile) up to :data:`SLAB_MAX_P` pixels, else ``"TMA"`` (boxes of 32
+    pixels x 64 channels of a 3-d tensor map)."""
+    return "slab" if p <= SLAB_MAX_P else "TMA"
+
+
+def f32_operand(x):
+    """x as the float32 form reads it: a 16-byte aligned base, and image
+    rows of whole 16-byte chunks (``P % 4 == 0``, TMA) or, at
+    ``P <= SLAB_MAX_P``, image slabs of whole 16-byte chunks
+    (``Cin * P % 4 == 0``).  ResNet-50's x is all of that as it lies;
+    another x is copied with zero pixels (TMA), or zero channels (slab),
+    appended."""
+    n, cin, p = x.shape
+    pad_c = pad_p = 0
+    if f32_route(p) == "slab":
+        pad_c = -cin % 4 if cin * p % 4 else 0
+    else:
+        pad_p = -p % 4
+    if pad_c or pad_p or x.data_ptr() % 16:
+        x = torch.nn.functional.pad(x, (0, pad_p, 0, pad_c))
+    return x
+
+
+def _launch_f32(x, w):
+    """The float32 form (float32 x and y, float32 or bf16 w) on the Hopper
+    GEMM core, x's fragments rounded to bf16 in registers."""
+    fn, part_rows = _entry_f32()
     n, cin, p = x.shape
     cout = w.shape[0]
+    xk = f32_operand(x)
+    cx, px = xk.shape[1], xk.shape[2]
+    slab = int(f32_route(p) == "slab")
     y = torch.empty((n, cout, p), dtype=x.dtype, device=x.device)
-    rows = -(-(n * p) // COLS)
-    part = torch.empty((2, rows, cout), dtype=torch.float32, device=x.device)
+    wcopy = torch.empty((cout * (-(-cin // 8) * 8),), dtype=torch.bfloat16,
+                        device=x.device)
+    part = torch.empty((2, part_rows(n, p, cout, slab), cout),
+                       dtype=torch.float32, device=x.device)
     stats = torch.empty((2, cout), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(),
-                 stats.data_ptr(), n, cin, cout, p,
-                 int(w.dtype == torch.bfloat16), stream)
+        err = fn(xk.data_ptr(), w.data_ptr(), y.data_ptr(), wcopy.data_ptr(),
+                 part.data_ptr(), stats.data_ptr(), n, cin, cx, cout, p, px,
+                 slab, int(w.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"conv1x1_stats kernel launch failed: CUDA "
                            f"error {err}")
@@ -187,18 +230,22 @@ def _launch_bf16(x, w):
     return y, stats[0], stats[1]
 
 
-_entry_fn = []
+_entry_f32_fns = []
 
 
-def _entry():
-    if not _entry_fn:
+def _entry_f32():
+    if not _entry_f32_fns:
         from . import _build
-        fn = _build.load("conv1x1_stats").paddle_tpu_torch_conv1x1_stats
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        lib = _build.load("conv1x1_stats")
+        fn = lib.paddle_tpu_torch_conv1x1_stats
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _entry_fn.append(fn)
-    return _entry_fn[0]
+        rows = lib.paddle_tpu_torch_conv1x1_stats_rows
+        rows.argtypes = [ctypes.c_int] * 4
+        rows.restype = ctypes.c_longlong
+        _entry_f32_fns.extend((fn, rows))
+    return _entry_f32_fns
 
 
 _entry_bf16_fns = []
@@ -307,6 +354,18 @@ def _check_mm(x, w, producer_stats):
     return torch.stack([p.reshape(-1).float() for p in producer_stats])
 
 
+def mm_operand(x):
+    """x as K6 reads it: a 16-byte aligned base and rows of whole 16-byte
+    chunks (K a multiple of 8 in bf16, of 4 in float32), the rule of the
+    TMA map that loads it in its own type.  The tool's x is all of that as
+    it lies; another x is copied with zero columns appended (the kernel
+    zeroes columns past K after the prologue, so they add nothing)."""
+    pad = -x.shape[1] % (16 // x.element_size())
+    if pad or x.data_ptr() % 16:
+        x = torch.nn.functional.pad(x, (0, pad))
+    return x
+
+
 def matmul_bn_stats_fwd(x, w, producer_stats=None, relu=True):
     """``(y [M, N], s [N], s2 [N])`` for contiguous ``x [M, K]`` and ``w [K,
     N]`` (float32 or bfloat16 each; y in x's dtype), the producer's
@@ -319,14 +378,22 @@ def matmul_bn_stats_fwd(x, w, producer_stats=None, relu=True):
     fn, rows = _mm_entry()
     m, k = x.shape
     n = w.shape[1]
+    xk = mm_operand(x)
+    # the statistics as K (mu, inv, g, b) quadruples: a stage's k in one
+    # bulk copy
+    pk = stats.t().contiguous() if stats is not None else None
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    part = torch.empty((2, rows(m), n), dtype=torch.float32, device=x.device)
+    wcopy = torch.empty((k * (-(-n // 8) * 8),), dtype=torch.bfloat16,
+                        device=x.device)
+    part = torch.empty((2, rows(m, n), n), dtype=torch.float32,
+                       device=x.device)
     out = torch.empty((2, n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(),
-                 stats.data_ptr() if stats is not None else None,
-                 y.data_ptr(), part.data_ptr(), out.data_ptr(), m, k, n,
+        err = fn(xk.data_ptr(), w.data_ptr(),
+                 pk.data_ptr() if pk is not None else None,
+                 y.data_ptr(), wcopy.data_ptr(), part.data_ptr(),
+                 out.data_ptr(), m, k, xk.shape[1], n,
                  int(x.dtype == torch.bfloat16),
                  int(w.dtype == torch.bfloat16), int(bool(relu)), stream)
     if err != 0:
@@ -344,11 +411,11 @@ def _mm_entry():
         from . import _build
         lib = _build.load("matmul_bn_stats")
         fn = lib.paddle_tpu_torch_matmul_bn_stats
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         rows = lib.paddle_tpu_torch_matmul_bn_stats_rows
-        rows.argtypes = [ctypes.c_int]
+        rows.argtypes = [ctypes.c_int] * 2
         rows.restype = ctypes.c_longlong
         _mm_entry_fns.extend((fn, rows))
     return _mm_entry_fns

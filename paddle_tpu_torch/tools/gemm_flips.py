@@ -1,17 +1,30 @@
-"""How the bf16 GEMM kernels round: the share of K5's and the bf16 K3's
-bf16 outputs that land on the other bf16 neighbour of the plain version's
-value, and which way those lean.
+"""How the GEMM-core kernels round: the share of their outputs that differ
+from the plain version's value, which way those lean, and a digest of each
+output.
 
     python3 paddle_tpu_torch/tools/gemm_flips.py [--root DIR] [--json PATH]
 
-Runs K5 (``dense_act_fwd``, bf16 x and w) at the AMP path's shapes and the
-bf16 K3 (``conv1x1_stats_fwd``, bf16 x, float32 w) at ResNet-50's 15
-conv1x1 shapes at batch 256 on the card, each against its plain version on
-the same seeded inputs.  Both sum exact bf16 products in float32, in other
-orders; a bf16 output that differs was rounded from a float32 sum on the
-other side of a rounding boundary.  About half of those lie nearer zero
-when the sums differ only in order; more when the kernel's sums drift
-toward zero (the tensor cores' float32 sums truncate).
+Runs on the card, each case against its plain version on the same seeded
+inputs:
+
+- ``dense_epilogue``: K5 (``dense_act_fwd``, bf16 x and w) at the AMP
+  path's shapes;
+- ``conv1x1_stats_bf16``: the bf16 K3 (``conv1x1_stats_fwd``, bf16 x,
+  float32 w) at ResNet-50's 15 conv1x1 shapes at batch 256;
+- ``conv1x1_stats_f32``: the float32 K3 (float32 x and w) at the same 15
+  shapes at batch 128 (the float32 ResNet-50 path's batch);
+- ``matmul_bn_stats``: K6 at ``rn50_fused_bench``'s four calls' shapes
+  (bf16; the second call of each stage normalizes its seeded x with x's
+  own column statistics and a seeded gamma and beta, then relu, so every
+  checkout gets the same inputs) and one float32 call with producer
+  statistics and relu.
+
+Each sums exact bf16 products in float32, in another order than the plain
+version; an output that differs was rounded from a float32 sum on the other
+side of a rounding boundary (bf16 outputs), or is another float32 sum
+(float32 outputs).  About half of those lie nearer zero when the sums
+differ only in order; more when the kernel's sums drift toward zero (the
+tensor cores' float32 sums truncate).
 
 The kernels come from the ``paddle_tpu_torch`` found under ``--root``
 (default: the checkout holding this file), so one seeded run can be made
@@ -40,6 +53,20 @@ K3_SHAPES = ((64, 64, 3136), (64, 256, 3136), (256, 64, 3136),
              (512, 1024, 196), (1024, 256, 196), (1024, 512, 196),
              (512, 2048, 49), (1024, 2048, 49), (2048, 512, 49))
 K3_BATCH = 256
+#: the float32 ResNet-50 path's batch
+K3_F32_BATCH = 128
+#: (name, M, K, N, x dtype, statistics and relu) of K6: rn50_fused_bench's
+#: four calls at batch 256, then a float32 call with producer statistics
+K6_CASES = (("stage0 call 1", 256 * 56 * 56, 256, 64, "bfloat16", False),
+            ("stage0 call 2", 256 * 56 * 56, 64, 64, "bfloat16", True),
+            ("stage1 call 1", 256 * 28 * 28, 512, 128, "bfloat16", False),
+            ("stage1 call 2", 256 * 28 * 28, 128, 128, "bfloat16", True),
+            ("float32 [65536, 256] x [256, 64]", 65536, 256, 64, "float32",
+             True))
+#: the kernels a run takes (chip_smoke.py's kernel phase runs the float32
+#: K3's and K6's)
+KERNELS = ("dense_epilogue", "conv1x1_stats_bf16", "conv1x1_stats_f32",
+           "matmul_bn_stats")
 
 
 def flips(got, ref):
@@ -58,9 +85,9 @@ def digest(t):
     return hashlib.sha1(raw.numpy().tobytes()).hexdigest()[:12]
 
 
-def run(root):
-    """One line per case; returns ``{case: {"n", "toward", "total",
-    "digest"}}``."""
+def run(root, kernels=KERNELS):
+    """One line per case of each of ``kernels``; returns ``{case: {"n",
+    "toward", "total", "digest"}}``."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
     from paddle_tpu_torch.kernels import conv_bn as cb
@@ -79,23 +106,56 @@ def run(root):
               f"the plain version's, {100 * toward / max(n, 1):.0f}% of them "
               f"nearer zero; y's digest {out[name]['digest']}", flush=True)
 
-    for i, (name, m, k, n, act) in enumerate(K5_CASES):
-        g = torch.Generator(device="cuda").manual_seed(100 + i)
-        x = torch.randn(m, k, device="cuda", generator=g).to(bf16)
-        w = (torch.randn(k, n, device="cuda", generator=g)
-             * k ** -0.5).to(bf16)
-        b = torch.randn(n, device="cuda", generator=g)
-        report(f"dense_epilogue bf16 {name}", de.dense_act_fwd(x, w, b, act),
-               de.dense_act_plain(x, w, b, act))
-        del x, w
-    for i, (ci, co, p) in enumerate(K3_SHAPES):
-        g = torch.Generator(device="cuda").manual_seed(200 + i)
-        x = torch.randn(K3_BATCH, ci, p, device="cuda", generator=g).to(bf16)
-        w = torch.randn(co, ci, device="cuda", generator=g) * ci ** -0.5
-        report(f"conv1x1_stats bf16 [{K3_BATCH}, {ci}, {p}] x [{co}, {ci}]",
-               cb.conv1x1_stats_fwd(x, w)[0], cb.conv1x1_stats_plain(x, w)[0])
-        del x, w
-        torch.cuda.empty_cache()
+    if "dense_epilogue" in kernels:
+        for i, (name, m, k, n, act) in enumerate(K5_CASES):
+            g = torch.Generator(device="cuda").manual_seed(100 + i)
+            x = torch.randn(m, k, device="cuda", generator=g).to(bf16)
+            w = (torch.randn(k, n, device="cuda", generator=g)
+                 * k ** -0.5).to(bf16)
+            b = torch.randn(n, device="cuda", generator=g)
+            report(f"dense_epilogue bf16 {name}",
+                   de.dense_act_fwd(x, w, b, act),
+                   de.dense_act_plain(x, w, b, act))
+            del x, w
+    for dtype, tag, batch, seed in ((bf16, "bf16", K3_BATCH, 200),
+                                    (torch.float32, "f32", K3_F32_BATCH,
+                                     300)):
+        if f"conv1x1_stats_{tag}" not in kernels:
+            continue
+        for i, (ci, co, p) in enumerate(K3_SHAPES):
+            g = torch.Generator(device="cuda").manual_seed(seed + i)
+            x = torch.randn(batch, ci, p, device="cuda",
+                            generator=g).to(dtype)
+            w = torch.randn(co, ci, device="cuda", generator=g) * ci ** -0.5
+            report(f"conv1x1_stats {tag} [{batch}, {ci}, {p}] x [{co}, {ci}]",
+                   cb.conv1x1_stats_fwd(x, w)[0],
+                   cb.conv1x1_stats_plain(x, w)[0])
+            del x, w
+            torch.cuda.empty_cache()
+    if "matmul_bn_stats" in kernels:
+        for i, (name, m, k, n, dt, norm) in enumerate(K6_CASES):
+            g = torch.Generator(device="cuda").manual_seed(400 + i)
+            x = (torch.randn(m, k, device="cuda", generator=g)
+                 * 0.5).to(getattr(torch, dt))
+            w = (torch.randn(k, n, device="cuda", generator=g)
+                 * 0.05).to(bf16)
+            ps = None
+            if norm:
+                # the statistics of x as a first call's plain version gives
+                # them: the same inputs in every checkout
+                xf = x.float()
+                mu = xf.mean(dim=0)
+                inv = torch.rsqrt((xf * xf).mean(dim=0) - mu * mu + 1e-5)
+                ps = (mu, inv, 1 + 0.1 * torch.randn(k, device="cuda",
+                                                     generator=g),
+                      0.1 * torch.randn(k, device="cuda", generator=g))
+                del xf
+            report(f"matmul_bn_stats {dt} {name} [{m}, {k}] x [{k}, {n}]"
+                   + (" normalize + relu" if norm else ""),
+                   cb.matmul_bn_stats_fwd(x, w, ps, relu=norm)[0],
+                   cb.matmul_bn_stats_plain(x, w, ps, relu=norm)[0])
+            del x, w
+            torch.cuda.empty_cache()
     n = sum(v["n"] for v in out.values())
     toward = sum(v["toward"] for v in out.values())
     print(f"all cases: {n} of {sum(v['total'] for v in out.values())} "

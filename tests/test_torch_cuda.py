@@ -73,6 +73,15 @@ have them), so it runs there with the repo's conftest left out:
   dtypes; the bf16 K3 at Cout 64, P 49 and 196 with a short last column
   tile, P 56 (TMA), Cin 13, the stride-2 shortcut's copies (P 196 and
   49) and an x off 16 bytes, under K3's bf16 bounds above.
+- the float32 K3 on the core (A built in registers): short last pixel
+  tiles at P 3136, 784 and 196 (TMA), P 49 with N 1 and an odd N (slab),
+  P 64 and 4 (slab), Cin off 4 (a copy with zero channels or pixels), P
+  off 4 above 64 (a copy; y from the registers), Cout * P off 4 at the
+  slab route (y from the registers), w in float32 and bf16, and an x off
+  16 bytes, under K3's float32 bounds above; K6 on the core at N 64 and
+  128 (and a ragged 130), M and K ragged, with and without the producer's
+  statistics and relu, x in bf16 and float32, and with x and w off 16
+  bytes, under K6's bounds above.
 """
 
 import numpy as np
@@ -1415,3 +1424,75 @@ def test_bf16_k3_reads_an_operand_off_16_bytes(cuda):
     x = flat[1:].view(2, 64, 196)
     w = (torch.randn(48, 64, generator=g) / 8).to(cuda)
     _bf16_k3_check(x, w)
+
+
+# -- the float32 K3 and K6 on the Hopper GEMM core ------------------------------
+
+# (n, Cin, Cout, P): short last pixel tiles on the TMA route (3136 = 24 x
+# 128 + 64, 784 = 6 x 128 + 16, 196 = 128 + 68) with a ragged channel tile,
+# the slab route (P <= 64) with one image, an odd image count and Cout * P
+# off 4 (y from the registers), Cin off 4 at both routes (channels or
+# pixels copied), P off 4 above 64 (x copied, y from the registers)
+K3_F32_CORE = {"p3136_tail": (2, 64, 136, 3136), "p784_tail": (2, 128, 64,
+                                                                 784),
+               "p196_tail": (3, 96, 72, 196), "p49_n1": (1, 512, 2048, 49),
+               "p49_odd_n": (5, 256, 200, 49), "p64_slab": (3, 64, 40, 64),
+               "p4_slab": (5, 16, 8, 4), "slab_y_regs": (3, 8, 5, 49),
+               "cin13_p196": (2, 13, 40, 196), "cin6_p49": (3, 6, 20, 49),
+               "p301_padded_x": (2, 16, 24, 301)}
+
+
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(K3_F32_CORE))
+def test_f32_k3_core_edges(cuda, case, w_dtype):
+    """The float32 K3 on the GEMM core at its routes' edges: K3's float32
+    bounds; one launch."""
+    n, ci, co, p = K3_F32_CORE[case]
+    g = torch.Generator().manual_seed(ci + co + p + 11)
+    x = torch.randn(n, ci, p, generator=g).to(cuda)
+    w = (torch.randn(co, ci, generator=g) * ci ** -0.5).to(cuda)
+    w = w.to(getattr(torch, w_dtype))
+    n0 = cb.launch_count("conv1x1_stats", "float32")
+    _k3_check(x, w)
+    assert cb.launch_count("conv1x1_stats", "float32") == n0 + 1
+
+
+@pytest.mark.parametrize("p", [784, 49])
+def test_f32_k3_reads_an_operand_off_16_bytes(cuda, p):
+    """x one element past a 16-byte boundary: the kernel reads an aligned
+    copy, on either route."""
+    g = torch.Generator().manual_seed(p)
+    flat = torch.randn(2 * 64 * p + 1, generator=g).to(cuda)
+    x = flat[1:].view(2, 64, p)
+    w = (torch.randn(48, 64, generator=g) / 8).to(cuda)
+    _k3_check(x, w)
+
+
+@pytest.mark.parametrize("stats,relu", [(False, False), (False, True),
+                                        (True, True), (True, False)],
+                         ids=["plain", "relu", "norm_relu", "norm"])
+@pytest.mark.parametrize("xdt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n", [64, 128, 130])
+def test_k6_core_edges(cuda, n, xdt, stats, relu):
+    """K6 on the GEMM core at 64- and 128-column tiles, a ragged M (past a
+    128-row tile) and K (past a 64-deep stage), each A path (SS for a bf16
+    x with neither, A built in registers otherwise): K6's bounds; one
+    launch."""
+    x, w, ps = _k6_inputs(1000, 72, n, xdt, xdt, cuda, seed=n + len(xdt))
+    _k6_check(x, w, ps if stats else None, relu)
+
+
+@pytest.mark.parametrize("stats", [False, True], ids=["plain", "norm_relu"])
+@pytest.mark.parametrize("xdt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n", [64, 128])
+def test_k6_core_takes_operands_off_16_bytes(cuda, n, xdt, stats):
+    """x and w one element past a 16-byte boundary: x through its aligned
+    copy, w through the bf16 copy every call makes."""
+    dt = getattr(torch, xdt)
+    g = torch.Generator().manual_seed(n + 5)
+    x = torch.randn(300 * 64 + 1, generator=g).to(cuda).to(dt)[1:]
+    w = (torch.randn(64 * n + 1, generator=g) / 8).to(cuda).to(dt)[1:]
+    x, w = x.view(300, 64), w.view(64, n)
+    assert x.data_ptr() % 16 and w.data_ptr() % 16
+    _, _, ps = _k6_inputs(300, 64, n, xdt, xdt, cuda, seed=1)
+    _k6_check(x, w, ps if stats else None, stats)
