@@ -22,8 +22,11 @@ JAX, prints one line per phase, and raises on any failure:
    the plain version's and how many of those lie nearer zero (and, without
    a bias at Tq = Tk, the same for SDPA float32's o as a yardstick); the
    cases include head dims 12 and 20, which run zero-padded.  K6 at
-   ``rn50_fused_bench``'s four calls and at float32 edges; K8 at [4, 512,
-   64 | 128], block_q 64 and 128.  Then the bf16 forms of K1-K5 (AMP)
+   ``rn50_fused_bench``'s four calls and at float32 edges; K8 (Hopper,
+   float32 as bf16 term products: its ptxas lines, C7507 / C7512 notes,
+   HGMMA count in SASS and shared memory printed first) at [4, 512, 64 |
+   128], block_q 64 and 128, at the ``attn_ceiling`` path's calls, and
+   with rows scaled by 2^-8..2^8.  Then the bf16 forms of K1-K5 (AMP)
    against their plain versions: K1/K2 (their ptxas lines and shared
    memory printed first) at [96, 2048, 64] causal, T 1000, biased
    (forward), d 128 at T 130, d 40 ragged non-causal, causal Tq < Tk and
@@ -103,7 +106,10 @@ JAX, prints one line per phase, and raises on any failure:
    against the library chain, sums within 2^-7 relative, then both timed.
 8. ``attn_ceiling`` — ``paddle_tpu_torch.tools.attn_shape_ceiling.main()``
    at (T, bh) = (2048, 24), (8192, 6), (16384, 2), d 64: the K8 skeletons
-   (and the forward at d 128) against K1 and K1 + K2; each report printed.
+   (and the forward at d 128) against K1 and K1 + K2; each report printed
+   with ``fwd_vs_skel`` and ``fb_vs_skel`` (the skeletons run K1/K2's
+   float32 arithmetic, so each is at least 1 where the skeleton is the
+   ceiling it should be).
 9. ``ring_kernel`` — ring attention (K7) at [24, 8192, 64] (BERT-base at
    batch 2 x 8192) with sp 4 over ``[cuda:0] * 4`` (four virtual ranks on
    the one card), float32 and bf16, causal and not: the ring's forward and
@@ -129,14 +135,15 @@ JAX, prints one line per phase, and raises on any failure:
    computing the same function, with CUDA events, at the main-path shapes
    ([96, 2048, 64] causal for K1/K2, ResNet-50's 15 conv1x1 shapes at batch
    128 for K3, [16384, 768] for K4, [16384, 768] x [768, 3072] gelu for
-   K5, the four rn50_fused calls for K6, [24, 2048, 64] for K8, which no
-   single library call computes; K3 in both dtypes also shape by shape,
-   with the route its x takes: TMA, or raw slabs (laid out by the producer
-   in bf16, read from the slab into registers in float32); the float32
+   K5, the four rn50_fused calls for K6, [24, 2048, 64] for K8 (its bound
+   at the term-product rate), which no single library call computes; K3
+   in both dtypes also shape by shape, with the route its x takes: TMA,
+   or raw slabs (laid out by the producer in bf16, read from the slab into
+   registers in float32); the float32
    K3, K6 and their library calls also on the card alone, as K4, in
    ``held_ms`` and ``library_held_ms``); the least time the card could
    take
-   (``bound``; for the float32 K1/K2 and ring at the rate of float32
+   (``bound``; for the float32 K1/K2, K8 and ring at the rate of float32
    products as six bf16 term products, 989 / 6 TFLOP/s on an H100, with
    the CUDA-core rate's beside it); the server's per-bucket batch
    latency, requests/s and tokens/s, the GPT training steps' time, tokens/s
@@ -307,11 +314,6 @@ def _log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
-#: bf16 tensor-core products a float32-exact product takes in K1/K2's
-#: float32 form (the six term products of weight 2^-16 and above)
-F32_TERM_PRODUCTS = 6
-
-
 def _peaks(name, kind="float32"):
     """``(FLOP/s, bytes/s)`` of the card ``name`` for ``kind``: "float32"
     on the CUDA cores, "bfloat16" on the tensor cores, or "float32_split",
@@ -319,7 +321,7 @@ def _peaks(name, kind="float32"):
     from paddle_tpu_torch.tools import timing
     f32, bf16, bw = timing.peaks(name)
     if kind == "float32_split":
-        return bf16 / F32_TERM_PRODUCTS, bw
+        return timing.f32_split_flops(name), bw
     return (f32 if kind == "float32" else bf16), bw
 
 
@@ -520,6 +522,26 @@ def _sm90_report(built, dtype):
                                    for k, v in mine.items()))
 
 
+def _ptxas_by_kernel(log, pattern):
+    """``{kernel<template arguments>: [what ptxas -v says of it]}`` for the
+    entry functions of a build log whose names match ``pattern``:
+    registers, spills, and the notes C7507 (the setmaxnreg split ignored)
+    and C7512 (wgmmas serialized) where ptxas names the function."""
+    name, out = None, {}
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            k = re.search(f"({pattern})I(\\w+?)EEv", m.group(1))
+            name = None
+            if k:
+                args = ", ".join(re.findall(r"L[ib](\d+)E", k.group(2)))
+                name = f"{k.group(1)}<{args or k.group(2)}>"
+                out[name] = []
+        elif name and ("Used" in ln or "spill" in ln or "C75" in ln):
+            out[name].append(ln.split(":", 1)[-1].strip()[:90])
+    return out
+
+
 def _core_report(built):
     """Log what ptxas says of each kernel of the float32 K3 and of K6,
     which build A in registers: registers, spills, and its performance
@@ -529,17 +551,7 @@ def _core_report(built):
         if lib not in built:
             _log("kernel", f"{lib}: built before this run, no ptxas log")
             continue
-        name, out = None, {}
-        for ln in built[lib]["log"].splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", ln)
-            if m:
-                k = re.search(tag + r"I(\w+?)EEv", m.group(1))
-                name = f"{tag}<{k.group(1)}>" if k else None
-                if name:
-                    out[name] = []
-            elif name and ("Used" in ln or "spill" in ln or "C75" in ln):
-                out[name].append(ln.split(":", 1)[-1].strip()[:90])
-        for fn, lines in out.items():
+        for fn, lines in _ptxas_by_kernel(built[lib]["log"], tag).items():
             _log("kernel", f"ptxas {lib} {fn}: {'; '.join(lines)}")
     # ptxas names no function in this note: counted a library
     for lib in ("conv1x1_stats", "matmul_bn_stats", "dense_epilogue"):
@@ -547,6 +559,86 @@ def _core_report(built):
             n = built[lib]["log"].count("C7507")
             _log("kernel", f"ptxas {lib}: {n} kernels with (C7507) "
                  "'setmaxnreg' ignored")
+
+
+def _sass_hgmma(lib):
+    """``{function: HGMMA instructions in its SASS}`` of the built library
+    ``lib`` (``cuobjdump -sass``, beside nvcc): the ``wgmma`` a kernel
+    really issues."""
+    from paddle_tpu_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(lib))],
+                          capture_output=True, text=True, check=True).stdout
+    out, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            out[fn] = 0
+        elif fn and "HGMMA" in ln:
+            out[fn] += 1
+    return out
+
+
+def _k8_report(built):
+    """Log what ptxas says of each kernel of K8's source (registers,
+    spills, and the notes C7507, 'setmaxnreg' ignored, and C7512, wgmmas
+    serialized), the HGMMA instructions in each skeleton kernel's SASS
+    (none fails: the skeletons run on the tensor cores) and the dynamic
+    shared memory a block takes at d 64 and 128, which must equal
+    ``attn_skeleton.shared_bytes`` (the layout the CPU tests hold to the
+    227 KB a block may use)."""
+    import ctypes
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import attn_skeleton as sk
+    lib = "attn_skeleton"
+    if lib not in built:
+        _log("kernel", f"{lib}: built before this run, no ptxas log")
+    else:
+        log = built[lib]["log"]
+        for fn, lines in _ptxas_by_kernel(
+                log, r"skeleton_(?:fwd|bwd)_sm90_kernel|"
+                     r"split_planes_kernel").items():
+            _log("kernel", f"ptxas {lib} {fn}: {'; '.join(lines)}")
+        _log("kernel", f"ptxas {lib}: {log.count('C7507')} notes (C7507) "
+             f"'setmaxnreg' ignored, {log.count('C7512')} (C7512) wgmma "
+             "serialized")
+    hgmma = {}
+    for fn, n in _sass_hgmma(lib).items():
+        k = re.search(r"(skeleton_(?:fwd|bwd)_sm90_kernel)I(\w+?)EEv", fn)
+        if k:
+            args = ", ".join(re.findall(r"L[ib](\d+)E", k.group(2)))
+            hgmma[f"{k.group(1)}<{args}>"] = n
+    if len(hgmma) != 6 or not all(hgmma.values()):
+        raise AssertionError(f"K8's kernels issue no wgmma (HGMMA in SASS): "
+                             f"{hgmma}")
+    _log("kernel", f"SASS {lib}: HGMMA instructions "
+         + ", ".join(f"{k} {v}" for k, v in sorted(hgmma.items())))
+    fn = _build.load(lib).paddle_tpu_torch_attn_skeleton_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    for d in (64, 128):
+        got = {key: fn(d, which) for which, key in enumerate(
+            ("fwd", "bwd", "bwd_block_q_gt_64"))}
+        want = {"fwd": sk.shared_bytes(d)["fwd"],
+                "bwd": sk.shared_bytes(d)["bwd"],
+                "bwd_block_q_gt_64": sk.shared_bytes(d, 128)["bwd"]}
+        if got != want:
+            raise AssertionError(f"K8 shared memory at d {d}: the source "
+                                 f"lays out {got}, shared_bytes says {want}")
+        _log("kernel", f"K8 dynamic shared memory a block at d <= {d}: "
+             + ", ".join(f"{k} {v} bytes" for k, v in got.items())
+             + f" (of {sk.MAX_SHARED_BYTES})")
+
+
+def _high_range(x, g):
+    """``x`` with each row (the last dim) scaled by 2^e, e an integer
+    drawn uniformly from [-8, 8]: a K8 input whose products span 2^±24,
+    so that a two-term split or one long tensor-core chain would break the
+    2^-20-of-terms check."""
+    import torch
+    e = torch.randint(-8, 9, x.shape[:-1] + (1,), device=x.device,
+                      generator=g)
+    return x * torch.exp2(e.float())
 
 
 def _ulps_off(got, ref, ulps=4):
@@ -809,20 +901,29 @@ def phase_kernel(built):
 
     # K8 at (bh 4, T 512), d 64 and 128, block_q 64 and 128; then at the
     # attn_ceiling path's calls: K1/K2's 64-row blocks at each of its cases,
-    # forward and backward at d 64, forward at d 128
+    # forward and backward at d 64, forward at d 128; then inputs whose rows
+    # are scaled by 2^-8..2^8 (_high_range) at both backward layouts
     from paddle_tpu_torch.kernels.flash_attention import BLOCK_Q
+    _k8_report(built)
     worst["attn_skeleton_fwd"] = worst["attn_skeleton_bwd"] = 0.0
-    k8_cases = [(4, 512, d, bq, True) for d in (64, 128) for bq in (64, 128)]
-    k8_cases += [(bh_, t_, d, BLOCK_Q, d == 64) for t_, bh_ in CASES
+    k8_cases = [(4, 512, d, bq, True, False) for d in (64, 128)
+                for bq in (64, 128)]
+    k8_cases += [(bh_, t_, d, BLOCK_Q, d == 64, False) for t_, bh_ in CASES
                  for d in (64, 128)]
-    for bh_, t_, d, block_q, bwd in k8_cases:
+    k8_cases += [(4, 512, d, bq, True, True) for d, bq in ((64, 64),
+                                                           (128, 128))]
+    for bh_, t_, d, block_q, bwd, wide in k8_cases:
         q, k, v, do = (torch.randn(bh_, t_, d, device="cuda", generator=g)
                        for _ in range(4))
-        name = f"[{bh_}, {t_}, {d}] block_q {block_q}"
+        if wide:
+            q, k, v, do = (_high_range(x, g) for x in (q, k, v, do))
+        name = (f"[{bh_}, {t_}, {d}] block_q {block_q}"
+                f"{' rows scaled 2^-8..2^8' if wide else ''}")
         e_o, errs = check_k8(name, q, k, v, do if bwd else None, block_q)
-        worst["attn_skeleton_fwd"] = max(worst["attn_skeleton_fwd"], e_o)
-        worst["attn_skeleton_bwd"] = max(worst["attn_skeleton_bwd"], *errs,
-                                         0.0)
+        if not wide:    # scaled rows' errors scale with them (up to 2^24)
+            worst["attn_skeleton_fwd"] = max(worst["attn_skeleton_fwd"], e_o)
+            worst["attn_skeleton_bwd"] = max(worst["attn_skeleton_bwd"],
+                                             *errs, 0.0)
         grads = (f" dq {errs[0]:.3g} dkp {errs[1]:.3g} dvp {errs[2]:.3g}"
                  if bwd else " (forward only)")
         _log("kernel", f"attn_skeleton {name}: max abs err o {e_o:.3g}"
@@ -2145,6 +2246,7 @@ def _held_ms(fn, reps=3):
 
 def _bound(flops, nbytes, kind="float32"):
     import torch
+    from paddle_tpu_torch.tools.timing import F32_TERM_PRODUCTS
     peak_flops, peak_bw = _peaks(torch.cuda.get_device_name(0), kind)
     t_ops, t_mem = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
     rate = (f"float32 as {F32_TERM_PRODUCTS} bf16 term products"
@@ -2674,13 +2776,10 @@ def phase_attn_ceiling():
              f"({r['fwd_skel_mfu']:.1f}% of {r['peak']['kind']}), d 128 "
              f"{r['fwd_skel_d128_ms']:.4f} ms (fill_ratio "
              f"{r['fill_ratio']:.3f}), bwd {r['bwd_skel_ms']:.4f} ms "
-             f"({r['bwd_skel_mfu']:.1f}%); K1 {r['flash_fwd_ms']:.4f} ms "
-             f"= {r['fwd_vs_skel']:.3f}x the skeleton; K1 + K2 "
-             f"{r['flash_fwd_bwd_ms']:.4f} ms = {r['fb_vs_skel']:.3f}x "
-             f"fwd + bwd skeletons ({r['fb_vs_skel_note']}); the skeletons "
-             f"run float32 products on the CUDA cores, K1/K2 float32 as "
-             f"bf16 term products on the tensor cores, so ratios below 1 "
-             f"are expected")
+             f"({r['bwd_skel_mfu']:.1f}%); K1 {r['flash_fwd_ms']:.4f} ms, "
+             f"fwd_vs_skel {r['fwd_vs_skel']:.3f}; K1 + K2 "
+             f"{r['flash_fwd_bwd_ms']:.4f} ms, fb_vs_skel "
+             f"{r['fb_vs_skel']:.3f} ({r['fb_vs_skel_note']})")
     if not all(launches.values()):
         raise AssertionError(f"attn_ceiling: a kernel never launched: "
                              f"{launches}")
@@ -3139,11 +3238,14 @@ def timing_k68(smi):
     sums, with the normalize + relu pass before the second call's) and the
     bound (x, w, the statistics in and y, s, s2 out, once each; 2*M*K*N bf16
     products at the tensor-core rate); ``ms`` and ``library_ms`` event-timed
-    as in earlier runs, ``held_ms`` and ``library_held_ms`` the card alone.  K8 forward and backward at the
-    ceiling tool's first case, [24, 2048, 64], block_q 64: kernel, plain
-    version and the bound (float32 products at the CUDA-core rate; q, k, v
-    (do) read, o (dq and the partials) written); no single PyTorch call
-    computes the skeletons, so no library time."""
+    as in earlier runs, ``held_ms`` and ``library_held_ms`` the card
+    alone.  K8 forward and backward at the ceiling tool's first case, [24,
+    2048, 64], block_q 64: kernel (its split pass included), plain version
+    and the bound (float32-exact products as six bf16 term products on the
+    tensor cores, the arithmetic the skeletons run, with the CUDA-core
+    float32 rate's time beside; q, k, v (do) read, o (dq and the partials)
+    written); no single PyTorch call computes the skeletons, so no library
+    time."""
     import torch
     from paddle_tpu_torch.kernels import attn_skeleton as sk
     from paddle_tpu_torch.kernels import conv_bn as cb
@@ -3240,14 +3342,16 @@ def timing_k68(smi):
              4.0 * (5 * bh * t * d + 2 * bh * (t // bq) * t * d))):
         ms = 1e3 * time_fn(fn, iters=10)
         plain_ms = 1e3 * time_fn(plain, iters=3)
-        bound_ms, bound_by, why = _bound(flops, nbytes)
+        bound_ms, bound_by, why = _bound(flops, nbytes, "float32_split")
+        core_ms = _bound(flops, nbytes)[0]
         out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
                      "bound_ms": bound_ms, "bound_by": bound_by}
         _log("timing", f"{name} [{bh}, {t}, {d}] block_q {bq} f32 on {smi}: "
              f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
              f"{plain_ms:.4f} ms, no single library call; bound "
              f"{bound_ms:.4f} ms by {bound_by} ({why}): "
-             f"{100 * bound_ms / ms:.1f}% of bound")
+             f"{100 * bound_ms / ms:.1f}% of bound; {core_ms:.4f} ms at the "
+             f"CUDA-core float32 rate")
     return out
 
 
@@ -3266,9 +3370,9 @@ _KERNELS = (
      "paddle_tpu/pallas/dense_epilogue.py:69"),
     ("matmul_bn_stats", "paddle_tpu_torch/csrc/matmul_bn_stats.cu",
      "paddle_tpu/pallas/conv_bn.py:58"),
-    ("attn_skeleton_fwd", "paddle_tpu_torch/csrc/attn_skeleton.cu",
+    ("attn_skeleton_fwd", "paddle_tpu_torch/csrc/attn_skeleton_sm90.cu",
      "tools/attn_shape_ceiling.py:38"),
-    ("attn_skeleton_bwd", "paddle_tpu_torch/csrc/attn_skeleton.cu",
+    ("attn_skeleton_bwd", "paddle_tpu_torch/csrc/attn_skeleton_sm90.cu",
      "tools/attn_shape_ceiling.py:78"),
     ("ring_merge", "paddle_tpu_torch/csrc/ring_attention.cu",
      "paddle_tpu/pallas/ring_attention.py:70"),

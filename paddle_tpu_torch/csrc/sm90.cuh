@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
-// (flash_attn_fwd_sm90.cu, flash_attn_bwd_sm90.cu), in raw PTX: mbarriers,
-// TMA tile loads, wgmma descriptors and the three wgmma shapes the kernels
-// issue, the exact three-term bf16 split of a float32 operand (in
+// (flash_attn_fwd_sm90.cu, flash_attn_bwd_sm90.cu), the attention skeletons
+// (attn_skeleton_sm90.cu) and the GEMM core (sm90_gemm.cuh), in raw PTX:
+// mbarriers, TMA tile loads, wgmma descriptors and the wgmma shapes the
+// kernels issue, the exact three-term bf16 split of a float32 operand (in
 // registers as wgmma's A fragments, or in device memory as three bf16
 // planes that TMA loads like any bf16 tile) and the products over those
 // terms, and the host-side TMA tensor map of a [n, t, d] bf16 tensor.
@@ -273,6 +274,29 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(scale_d));
+}
+
+// d[32] (+)= A . B over k16: A [16 x 64] and B [16 x 64], both MN-major in
+// shared memory (transposed; descriptors of desc_mn's form); scale_d 0
+// overwrites d.  The attention skeleton's dq = dS . K reads dS from the
+// tile it staged with keys as rows.
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 

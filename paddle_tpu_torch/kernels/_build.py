@@ -29,7 +29,7 @@ SOURCES = {"flash_attn_fwd_sm90": "flash_attn_fwd_sm90.cu",
            "layer_norm": "layer_norm.cu",
            "dense_epilogue": "dense_epilogue.cu",
            "matmul_bn_stats": "matmul_bn_stats.cu",
-           "attn_skeleton": "attn_skeleton.cu",
+           "attn_skeleton": "attn_skeleton_sm90.cu",
            "ring_attention": "ring_attention.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,33 +1,40 @@
 """Per-shape ceiling of the flash-attention kernels on the card, from
 skeleton kernels (K8): the flash forward minus the softmax (the q·kᵀ and
-s·v products, S kept in shared memory, no [T, T] traffic) and the combined
-backward minus the softmax (the same five products and the real dk/dv
-partial writes).  A skeleton does the real kernel's products and
-unavoidable memory movement and nothing else, so
+s·v products, S kept on chip, no [T, T] traffic) and the combined backward
+minus the softmax (the same five products and the real dk/dv partial
+writes).  A skeleton does the real kernel's products and unavoidable memory
+movement and nothing else, so
 
     real kernel / skeleton
 
 is the share of the softmax and its bookkeeping, and ``flops / skeleton
-time`` the rate the shape allows on this design.  The skeletons keep the
-64 x 64 tiles, thread layout and float32 CUDA-core arithmetic of K1's and
-K2's first design; K1 and K2 now run on the tensor cores (float32 as six
-bf16 term products a product), so both ratios fall below 1.
+time`` the rate the shape allows on this design.  The skeletons run in the
+float32 K1/K2's arithmetic on the tensor cores (each operand split into
+three bf16 term planes by a split pass that is part of the launch, as it is
+of K1's and K2's; every float32 product as six bf16 term products), so both
+ratios are at least 1 where the skeleton is the ceiling it should be.  The
+split pass reads the operands and writes their planes: 94 MB for the
+forward and 126 MB for the backward at [24, 2048, 64], at least 0.028 and
+0.038 ms at an H100's 3.35 TB/s, about a tenth of the forward skeleton's
+time and a twentieth of the backward's (PERF.md).
 
 ``fill_ratio`` is t(d = 128) / (2 t(d = 64)) of the forward skeleton.  On
 a TPU it tested whether d = 64 fills only half of the 128-lane matrix unit
-(a ratio near 0.5); on the CUDA cores every FMA is one lane's, so a ratio
-near 1.0 (d = 128 takes twice the time) is expected, and the probe reports
-what it measures.
+(a ratio near 0.5).  On Hopper each ``wgmma`` reads whole 64-column panels
+of the head dim, so d = 128 is twice the products of d = 64 on the same
+tiles; the probe reports what it measures.
 
 ``fb_vs_skel`` sets K1 + K2 (through ``flash_attention`` with autograd)
 against the forward skeleton plus the backward skeleton.  The port's K2
-runs two passes (dK/dV, then dQ) that both recompute S and dP, 14·d flops
-a (q, k) pair, while the backward skeleton does the TPU combined kernel's
-10·d and writes its partials instead.
+runs two passes (dK/dV, then dQ) that both recompute S and dP, 14*d flops a
+(q, k) pair, while the backward skeleton does the TPU combined kernel's
+10*d in one pass and writes its partials instead.
 
 Timing: CUDA events around a plain loop of calls, the slope over two
 iteration counts, each the minimum over repetitions (:mod:`.timing`).
-MFU is against the card's float32 CUDA-core peak.
+MFU is against the card's rate for float32-exact products as bf16 term
+products on the tensor cores (``timing.f32_split_flops``: the bf16 peak
+/ 6).
 
     python -m paddle_tpu_torch.tools.attn_shape_ceiling [--quick] [--t T]
 
@@ -48,13 +55,13 @@ from . import timing
 
 #: (T, bh) at d = 64
 CASES = ((2048, 24), (8192, 6), (16384, 2))
-PEAK_KIND = "float32 on the CUDA cores"
+PEAK_KIND = "float32 as 6 bf16 term products on the tensor cores"
 FB_NOTE = ("K1 + K2: K2 runs two passes that recompute S and dP (14*d flops "
            "a pair); the backward skeleton runs the combined kernel's 10*d "
-           "and writes per-q-block dk/dv partials")
+           "in one pass and writes per-q-block dk/dv partials")
 
 
-def analyse(out, peak_flops):
+def analyse(out, peak):
     """Adds the rates and ratios to a report holding ``T``, ``bh``, ``d``
     and the times ``fwd_skel_ms``, ``fwd_skel_d128_ms``, ``bwd_skel_ms``,
     ``flash_fwd_ms``, ``flash_fwd_bwd_ms``."""
@@ -62,9 +69,9 @@ def analyse(out, peak_flops):
     f_fwd = 4.0 * bh * t * t * d                  # QK + PV, 2 flops an FMA
     f_bwd = 10.0 * bh * t * t * d                 # 5 products
     fwd_skel, bwd_skel = out["fwd_skel_ms"], out["bwd_skel_ms"]
-    out["peak"] = {"kind": PEAK_KIND, "flops": peak_flops}
-    out["fwd_skel_mfu"] = f_fwd / (fwd_skel / 1e3) / peak_flops * 100
-    out["bwd_skel_mfu"] = f_bwd / (bwd_skel / 1e3) / peak_flops * 100
+    out["peak"] = {"kind": PEAK_KIND, "flops": peak}
+    out["fwd_skel_mfu"] = f_fwd / (fwd_skel / 1e3) / peak * 100
+    out["bwd_skel_mfu"] = f_bwd / (bwd_skel / 1e3) / peak * 100
     out["fill_ratio"] = out["fwd_skel_d128_ms"] / (2 * fwd_skel)
     out["fwd_vs_skel"] = out["flash_fwd_ms"] / fwd_skel
     out["fb_vs_skel"] = out["flash_fwd_bwd_ms"] / (fwd_skel + bwd_skel)
@@ -120,7 +127,7 @@ def probe(t, bh, d=64, device=None, iters=(8, 40), reps=3):
             return torch.autograd.grad(o.sum(), leaves)
 
     out["flash_fwd_bwd_ms"] = slope_ms(fwd_bwd)
-    analyse(out, timing.peaks(out["device"])[0])
+    analyse(out, timing.f32_split_flops(out["device"]))
     print(json.dumps(out), flush=True)
     return out
 

@@ -13,7 +13,9 @@
   kernels from the host).
 - :func:`peaks` — NVIDIA's data-sheet peaks (dense) of the card by name:
   float32 on the CUDA cores, bf16 on the tensor cores, and HBM bandwidth.
-  A card the table does not know raises.
+  A card the table does not know raises.  :func:`f32_split_flops` is the
+  rate of float32-exact products issued as bf16 term products on the
+  tensor cores, the arithmetic of the float32 K1, K2 and K8.
 
 The callables may return anything (a tensor or a tuple of them); their
 results are dropped.  Every function here needs a CUDA device and raises
@@ -37,6 +39,11 @@ SLOPE_ITERS, SLOPE_REPS = (8, 40), 3
 HOLD_CYCLES, HOLD_TRIES = 20_000_000, 4
 
 
+#: bf16 tensor-core products a float32-exact product takes in the float32
+#: K1, K2 and K8 (the six term products of weight 2^-16 and above)
+F32_TERM_PRODUCTS = 6
+
+
 def peaks(name: str) -> Tuple[float, float, float]:
     """``(f32 FLOP/s, bf16 FLOP/s, HBM bytes/s)`` of the card ``name``
     (``torch.cuda.get_device_name``); raises for a card not in the table."""
@@ -44,6 +51,12 @@ def peaks(name: str) -> Tuple[float, float, float]:
         if key in name:
             return f32, bf16, bw
     raise RuntimeError(f"no peak table entry for card {name!r}")
+
+
+def f32_split_flops(name: str) -> float:
+    """FLOP/s of float32-exact products as bf16 term products on the card
+    ``name``: its bf16 tensor-core peak / :data:`F32_TERM_PRODUCTS`."""
+    return peaks(name)[1] / F32_TERM_PRODUCTS
 
 
 def _need_cuda(what: str) -> None:

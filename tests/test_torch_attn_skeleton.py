@@ -13,6 +13,17 @@
 - the wrappers' contract: blocks that are not multiples of 64 dividing T,
   a d above 128, other dtypes and shapes raise; CPU tensors take the plain
   versions and count no launch.
+- the shared memory a block of each kernel takes (``shared_bytes``, the
+  source's layouts: the forward, the backward at block_q 64 and above),
+  within the 227 KB an H100 block may use at every d from 1 to 128.
+- the kernels' arithmetic emulated on the CPU (each float32 operand and
+  each product that feeds another split into three bf16 terms, every
+  product as the six term products of weight 2^-16 and above in two
+  chains, hi.hi and the lower five, each 64-key or 64-query tile's product
+  joined to its sum by float32 adds) against the reference skeletons,
+  within the same 2^-20 of the terms' magnitudes, on inputs whose rows are
+  scaled by 2^-8..2^8; with two terms in place of three it misses that
+  bound.
 """
 
 import importlib.util
@@ -161,3 +172,121 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(case, which):
             sk.attn_skeleton_fwd(q, k, v, block_q=bq, block_k=bk)
         else:
             sk.attn_skeleton_bwd(q, k, v, do, block_q=bq, block_k=bk)
+
+
+# (key of shared_bytes, block_q) -> bytes at d <= 64 and d <= 128, as
+# csrc/attn_skeleton_sm90.cu lays them out (the card test holds the
+# source's own numbers to shared_bytes)
+SMEM_LAYOUTS = {"fwd": (("fwd", 64), (148544, 197696)),
+                "bwd_block_q_64": (("bwd", 64), (197696, 222272)),
+                "bwd_block_q_128": (("bwd", 128), (173120, 222272))}
+
+
+@pytest.mark.parametrize("layout", sorted(SMEM_LAYOUTS))
+def test_shared_memory_fits_a_block_at_every_head_dim(layout):
+    (key, bq), (at64, at128) = SMEM_LAYOUTS[layout]
+    sizes = {d: sk.shared_bytes(d, bq)[key] for d in range(1, 129)}
+    assert max(sizes.values()) <= sk.MAX_SHARED_BYTES == 232448
+    assert {sizes[d] for d in range(1, 65)} == {at64}
+    assert {sizes[d] for d in range(65, 129)} == {at128}
+
+
+def _terms(x, n=3):
+    """The first ``n`` bf16 terms of float32 ``x``, as float32 tensors
+    (three sum to x exactly)."""
+    out = []
+    for _ in range(n):
+        t = x.to(torch.bfloat16).float()
+        out.append(t)
+        x = x - t
+    return out
+
+
+# the term pairs of a float32-exact product: hi.hi, then the lower five
+# (hi.mid, mid.hi, hi.lo, mid.mid, lo.hi); with two terms, the products of
+# hi and mid
+_PAIRS = {3: ((0, 1), (1, 0), (0, 2), (1, 1), (2, 0)),
+          2: ((0, 1), (1, 0), (1, 1))}
+
+
+def _emulated(a, b, n):
+    """a @ b as the kernels issue it: the hi.hi chain and the lower
+    products' chain, each from zero, joined by one float32 add."""
+    ta, tb = _terms(a, n), _terms(b, n)
+    lo = sum(ta[i] @ tb[j] for i, j in _PAIRS[n])
+    return ta[0] @ tb[0] + lo
+
+
+def _emulated_skeletons(q, k, v, do, block_q, n=3):
+    """o, dq, dkp, dvp with the kernels' tiling: 64-key tiles joined to o
+    and dq, 64-query sub-tiles joined to a block's partials, in order."""
+    bh, t, d = q.shape
+    o, dq = torch.zeros_like(q), torch.zeros_like(q)
+    dkp = torch.zeros(bh, t // block_q, t, d)
+    dvp = torch.zeros_like(dkp)
+    for j in range(0, t, 64):
+        kj, vj = k[:, j:j + 64], v[:, j:j + 64]
+        for i in range(0, t, 64):
+            qi, oi = q[:, i:i + 64], do[:, i:i + 64]
+            s = _emulated(qi, kj.transpose(1, 2), n)
+            o[:, i:i + 64] += _emulated(s, vj, n)
+            ds = s * _emulated(oi, vj.transpose(1, 2), n)
+            dq[:, i:i + 64] += _emulated(ds, kj, n)
+            dvp[:, i // block_q, j:j + 64] += _emulated(s.transpose(1, 2),
+                                                        oi, n)
+            dkp[:, i // block_q, j:j + 64] += _emulated(ds.transpose(1, 2),
+                                                        qi, n)
+    return o, dq, dkp, dvp
+
+
+def _high_range_inputs(bh, t, d, seed):
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(bh, t, d) * 2.0 ** rng.randint(-8, 9, (bh, t, 1))
+             ).astype(np.float32) for _ in range(4)]
+
+
+def _reference_skeletons(q, k, v, do, block_q):
+    bh, t, d = q.shape
+    with pltpu.force_tpu_interpret_mode():
+        o = ref._fwd_skeleton(bh, t, d, block_q, 64)(
+            *(jnp.asarray(a) for a in (q, k, v)))
+        grads = ref._bwd_skeleton(bh, t, d, block_q, 64)(
+            *(jnp.asarray(a) for a in (q, k, v, do)))
+    return (o,) + tuple(grads)
+
+
+def _terms_of_skeletons(q, k, v, do, block_q):
+    bh, t, d = q.shape
+    nq = t // block_q
+    s_abs = np.abs(q) @ np.abs(k).transpose(0, 2, 1)
+    ds_abs = s_abs * (np.abs(do) @ np.abs(v).transpose(0, 2, 1))
+
+    def per_block(a, x):
+        return (a.reshape(bh, nq, block_q, t).transpose(0, 1, 3, 2)
+                @ np.abs(x).reshape(bh, nq, block_q, d))
+
+    return (s_abs @ np.abs(v), ds_abs @ np.abs(k), per_block(ds_abs, q),
+            per_block(s_abs, do))
+
+
+@pytest.mark.parametrize("block_q", [64, 128])
+def test_kernel_arithmetic_holds_the_bound_on_high_range_inputs(block_q):
+    q, k, v, do = _high_range_inputs(2, 256, 64, seed=block_q)
+    want = _reference_skeletons(q, k, v, do, block_q)
+    got = _emulated_skeletons(*(torch.from_numpy(a) for a in (q, k, v, do)),
+                              block_q)
+    for g, w, terms, what in zip(got, want, _terms_of_skeletons(
+            q, k, v, do, block_q), ("o", "dq", "dkp", "dvp")):
+        _within(g, w, terms, what)
+
+
+def test_two_terms_miss_the_bound():
+    q, k, v, do = _high_range_inputs(2, 128, 64, seed=2)
+    want = _reference_skeletons(q, k, v, do, 64)
+    got = _emulated_skeletons(*(torch.from_numpy(a) for a in (q, k, v, do)),
+                              64, n=2)
+    terms = _terms_of_skeletons(q, k, v, do, 64)
+    over = [float((np.abs(g.numpy() - np.asarray(w))
+                   / (ATOL + SUM_RTOL * t)).max())
+            for g, w, t in zip(got, want, terms)]
+    assert max(over) > 1, over

@@ -48,9 +48,13 @@ have them), so it runs there with the repo's conftest left out:
   sum |a||w|, a bf16 y within one bf16 ulp (2^-7 relative) more, s within
   2^-14 of sum |y|, s2 within 2^-14 relative; one launch a call, ``mm_stats``
   one launch forward and none backward, its gradients against the host.
-- the attention skeletons (K8) against their plain versions, d 8 to 128,
-  ``block_q`` 64 to 256: o, dq and the dk/dv partials within 1e-5 + 1e-4
-  relative + 2^-20 of the sum of their terms' magnitudes.
+- the attention skeletons (K8, Hopper: float32 as bf16 term products)
+  against their plain versions, d 8 to 128 (and d 12, zero-padded),
+  ``block_q`` 64 to 256, the tool's own [24, 2048, 64], and inputs whose
+  rows are scaled by 2^-8..2^8: o, dq and the dk/dv partials within
+  1e-5 + 1e-4 relative + 2^-20 of the sum of their terms' magnitudes; one
+  launch of each wrapper at d 128, T 192; the shared memory the source
+  lays out equals ``attn_skeleton.shared_bytes``.
 - one quick run of each tool (``rn50_fused_bench``, ``attn_shape_ceiling``)
   at small shapes; ``timing.time_held`` times the card alone and repeats
   (then refuses) a round whose hold ended before the host had enqueued it;
@@ -699,15 +703,26 @@ K8_SHAPES = {"t128_d64_bq64": (2, 128, 64, 64),
              "t256_d128_bq128": (2, 256, 128, 128),
              "t256_d40_bq256": (3, 256, 40, 256),
              "t192_d8_bq64": (2, 192, 8, 64),
-             "t512_d64_bq128": (4, 512, 64, 128)}
+             "t512_d64_bq128": (4, 512, 64, 128),
+             # the attention-ceiling tool's first case
+             "t2048_d64_bq64_tool": (24, 2048, 64, 64),
+             "t128_d12_bq64_padded": (2, 128, 12, 64)}
+# (bh, T, d, block_q) with every row of q, k, v, do scaled by 2^-8..2^8:
+# products spanning 2^+-24, where two bf16 terms (~2^-17 of each value) or
+# one tensor-core chain over all tiles would exceed 2^-20 of the terms
+K8_HIGH_RANGE = {"d64_bq64": (4, 512, 64, 64),
+                 "d128_bq64": (2, 256, 128, 64),
+                 "d64_bq256": (2, 512, 64, 256),
+                 "d128_bq128": (2, 256, 128, 128)}
 
 
-@pytest.mark.parametrize("case", sorted(K8_SHAPES))
-def test_k8_matches_plain_versions(cuda, case):
-    bh, t, d, bq = K8_SHAPES[case]
-    g = torch.Generator().manual_seed(t + d)
-    q, k, v, do = (torch.randn(bh, t, d, generator=g).to(cuda)
-                   for _ in range(4))
+def _k8_check(cuda, bh, t, d, bq, seed, high_range=False):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(bh, t, d, generator=g) for _ in range(4))
+    if high_range:
+        q, k, v, do = (x * torch.exp2(torch.randint(
+            -8, 9, (bh, t, 1), generator=g).float()) for x in (q, k, v, do))
+    q, k, v, do = (x.to(cuda) for x in (q, k, v, do))
     n0 = (sk.launch_count("attn_skeleton_fwd"),
           sk.launch_count("attn_skeleton_bwd"))
     o = sk.attn_skeleton_fwd(q, k, v, bq, 64)
@@ -731,6 +746,38 @@ def test_k8_matches_plain_versions(cuda, case):
         assert got.shape == want.shape
         assert bool(((got - want).abs() <= 1e-5 + 1e-4 * want.abs()
                      + 2.0 ** -20 * terms).all())
+
+
+@pytest.mark.parametrize("case", sorted(K8_SHAPES))
+def test_k8_matches_plain_versions(cuda, case):
+    bh, t, d, bq = K8_SHAPES[case]
+    _k8_check(cuda, bh, t, d, bq, t + d)
+
+
+@pytest.mark.parametrize("case", sorted(K8_HIGH_RANGE))
+def test_k8_high_range_inputs_match_plain_versions(cuda, case):
+    bh, t, d, bq = K8_HIGH_RANGE[case]
+    _k8_check(cuda, bh, t, d, bq, 7 * t + d, high_range=True)
+
+
+def test_k8_d128_t192_launches_each_kernel_once(cuda):
+    """T = 192 is not a multiple of the forward's 128-row q tiles (its last
+    tile is half past T); d 128 takes the backward's one-consumer layout."""
+    sk.reset_launch_count()
+    _k8_check(cuda, 2, 192, 128, 64, 192)
+    assert sk.launch_count("attn_skeleton_fwd") == 1
+    assert sk.launch_count("attn_skeleton_bwd") == 1
+
+
+@pytest.mark.parametrize("d", [8, 64, 100, 128])
+def test_k8_shared_memory_is_what_the_helper_says(cuda, d):
+    import ctypes
+    from paddle_tpu_torch.kernels import _build
+    fn = _build.load("attn_skeleton").paddle_tpu_torch_attn_skeleton_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    assert fn(d, 0) == sk.shared_bytes(d)["fwd"]
+    assert fn(d, 1) == sk.shared_bytes(d, 64)["bwd"]
+    assert fn(d, 2) == sk.shared_bytes(d, 128)["bwd"]
 
 
 @pytest.mark.parametrize("bad", ["block_q", "d", "dtype"])

@@ -12,7 +12,8 @@
 - ``timing``: the peak table by card name, an unknown card raises, and
   every timer raises without a CUDA device (as do both tools' entry points).
 - ``attn_shape_ceiling.analyse``: MFU, ``fill_ratio`` and the two ratios on
-  given times.
+  given times; the peak it is given and reports is the rate of float32
+  products as six bf16 term products on the tensor cores.
 """
 
 import importlib
@@ -166,3 +167,24 @@ def test_ceiling_cases_and_blocks_come_from_the_port():
     from paddle_tpu_torch.kernels import flash_attention as fa
     assert asc.CASES == ((2048, 24), (8192, 6), (16384, 2))
     assert fa.BLOCK_Q == fa.BLOCK_K == 64
+
+
+@pytest.mark.parametrize("name", ["NVIDIA H100 80GB HBM3", "NVIDIA H200"])
+def test_ceiling_peak_is_the_term_product_rate(name):
+    """The skeletons run float32 as six bf16 term products, as K1/K2 do, so
+    their MFU is against the bf16 tensor-core peak / 6 (164.8 TFLOP/s on an
+    H100), not the CUDA cores' float32 rate."""
+    assert timing.F32_TERM_PRODUCTS == 6
+    assert timing.f32_split_flops(name) == timing.peaks(name)[1] / 6
+    out = {"T": 2048, "bh": 24, "d": 64, "fwd_skel_ms": 0.25,
+           "fwd_skel_d128_ms": 0.5, "bwd_skel_ms": 1.0, "flash_fwd_ms": 0.32,
+           "flash_fwd_bwd_ms": 1.49}
+    asc.analyse(out, timing.f32_split_flops(name))
+    assert out["peak"] == {"kind": asc.PEAK_KIND,
+                           "flops": pytest.approx(989e12 / 6)}
+    assert "6 bf16 term products on the tensor cores" in asc.PEAK_KIND
+    f_fwd = 4.0 * 24 * 2048 ** 2 * 64
+    assert out["fwd_skel_mfu"] == pytest.approx(
+        f_fwd / 0.25e-3 / (989e12 / 6) * 100)
+    assert out["fwd_vs_skel"] == pytest.approx(1.28)
+    assert out["fb_vs_skel"] == pytest.approx(1.49 / 1.25)
