@@ -123,7 +123,8 @@ JAX, prints one line per phase, and raises on any failure:
    merge kernel matches its plain version with NEG_INF rows on either side
    and on both (1e-6; one bf16 ulp).  ``kernel`` and ``kernel_bf16`` hold
    K1 and K2 (given the ring's delta) at a ring step's [24, 2048, 64]
-   shard, causal and not, against their plain versions.
+   shard, causal and not, against their plain versions.  ``kernel``
+   prints what ptxas says of the merge and K4's row backward.
 10. ``ring_train`` — ``bench.py:531-567``'s 8k line with
    ``attn_impl="ring"``: BERT-base pretraining at batch 2 x 8192 under
    ``amp.decorate(AdamOptimizer(1e-4))`` with sp 4 over ``[cuda:0] * 4``,
@@ -154,7 +155,11 @@ JAX, prints one line per phase, and raises on any failure:
    backward at ``ring_kernel``'s
    shape (non-causal) against K1/K2 and SDPA over the full T, the plain
    ring and the bound, the merge kernel at a ring step's shape, and the
-   ring and flash training steps.  ``--profile`` adds, by kernel class, a
+   ring and flash training steps.  The merge (as the ring calls it, in
+   place) and K4's backward are timed warm (the same inputs call after
+   call, L2-resident) and cold (input sets of more than the 50 MB L2 in
+   all, in turn): their ``ms`` and share of the bound are the cold time,
+   ``warm_ms`` the other.  ``--profile`` adds, by kernel class, a
    bucket-2048 serving batch, a float32 and an AMP GPT step, a ResNet-50
    step (float32 and AMP) and one step of each ``ring_train`` program
    (ring and flash).
@@ -308,6 +313,10 @@ RING_O_TOL, RING_GRAD_TOL = 2e-5, 2e-4
 RING_BF16_ULPS_O, RING_BF16_ULPS_GRAD = 2, 4
 RING_BF16_EACH_PLAIN, RING_BF16_EACH_FULL = 4, 8
 RING_MERGE_TOL, RING_LOSS_RTOL = 1e-6, 1e-4
+# input sets of the cold timings of the merge (6 x 19 MB in bf16, at a ring
+# step's [24, 2048, 64]) and of K4's backward (3 x 50 MB in bf16, at [16384,
+# 768]): more than the card's 50 MB L2 in all
+MERGE_COLD_SETS, K4_COLD_SETS = 6, 3
 
 
 def _log(phase, msg):
@@ -561,6 +570,52 @@ def _core_report(built):
                  "'setmaxnreg' ignored")
 
 
+def _k4_k7_report(built):
+    """Log what ptxas says of the K4 row backward (per row type and units
+    a lane), its second pass and the merge kernel (per type and elements
+    an access): registers, shared memory and spills; and how many clusters
+    of the row backward the card holds at once against its grid's."""
+    pat = (r"(ln_bwd_row_kernel|ring_merge_kernel)I(f|13__nv_bfloat16)"
+           r"Li(\d+)E")
+    for lib in ("layer_norm", "ring_attention"):
+        if lib not in built:
+            _log("kernel", f"{lib}: built before this run, no ptxas log")
+            continue
+        name, lines = None, {}
+        for ln in built[lib]["log"].splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                k = re.search(pat, m.group(1))
+                if k:
+                    kind = "float" if k.group(2) == "f" else "bf16"
+                    name = f"{k.group(1)}<{kind}, {k.group(3)}>"
+                else:
+                    name = ("colsum_rows_kernel" if "colsum_rows_kernel"
+                            in m.group(1) else None)
+                if name:
+                    lines[name] = []
+            elif name and ("Used" in ln or "spill" in ln):
+                lines[name].append(ln.split(":", 1)[-1].strip()[:90])
+        for fn, what in lines.items():
+            _log("kernel", f"ptxas {lib} {fn}: {'; '.join(what)}")
+    import ctypes
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import layer_norm as ln
+    lib = _build.load("layer_norm")
+    active = lib.paddle_tpu_torch_layer_norm_active_clusters
+    active.argtypes, active.restype = [ctypes.c_int], ctypes.c_int
+    for dtype, code in ln.DTYPES.items():
+        n = active(code)
+        if n <= 0:
+            raise AssertionError(f"K4 row backward {dtype}: occupancy query "
+                                 f"failed (CUDA error {-n})")
+        grid = ln.ROW_CLUSTERS[dtype]
+        _log("kernel", f"K4 row backward {dtype} at d {ln.ROW_MAX_D[dtype]}:"
+             f" the card holds {n} clusters of 8 blocks at once; its grid "
+             f"takes at most {grid} ("
+             f"{'one wave' if n >= grid else 'more than one wave'})")
+
+
 def _sass_hgmma(lib):
     """``{function: HGMMA instructions in its SASS}`` of the built library
     ``lib`` (``cuobjdump -sass``, beside nvcc): the ``wgmma`` a kernel
@@ -663,6 +718,7 @@ def phase_kernel(built):
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
     _sm90_report(built, torch.float32)
+    _k4_k7_report(built)
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     bh, t, d = SLICE
@@ -2440,6 +2496,7 @@ def timing_k45(smi, train, fused):
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import dense_epilogue as de
     from paddle_tpu_torch.kernels import layer_norm as ln
+    from paddle_tpu_torch.tools.k4_k7_compare import cold_ms
     from paddle_tpu_torch.tools.timing import time_fn
     g = torch.Generator(device="cuda")
     g.manual_seed(3)
@@ -2488,8 +2545,14 @@ def timing_k45(smi, train, fused):
     # K4's calls take about as long on the host as on the card, so every
     # column is the card's time alone (``_held_ms``); the library's backward
     # is fwd+bwd minus fwd (a run of 20 timed with events read 0.136-0.923
-    # ms on an H100 80GB HBM3, 700 W: the host's enqueue gaps)
+    # ms on an H100 80GB HBM3, 700 W: the host's enqueue gaps).  The
+    # backward is also timed cold (input sets in turn, ``cold_ms``), and
+    # its share of the bound uses that time
     lib_f = _held_ms(lib_fwd)
+    cold_sets = [(x, dy)] + [
+        (torch.randn(rows, d, device="cuda", generator=g),
+         torch.randn(rows, d, device="cuda", generator=g))
+        for _ in range(K4_COLD_SETS - 1)]
     for name, fn, plain, library, nbytes, flops in (
             ("layer_norm_fwd", lambda: ln.layer_norm_fwd(x, sc, bi, 1e-5),
              lambda: ln.layer_norm_fwd_plain(x, sc, bi, 1e-5), lib_f,
@@ -2498,17 +2561,27 @@ def timing_k45(smi, train, fused):
              lambda: ln.layer_norm_bwd_plain(x, sc, dy, 1e-5),
              _held_ms(lib_fwd_bwd) - lib_f,
              4.0 * (3 * rows * d + 3 * d), 16.0 * rows * d)):
-        ms = _held_ms(fn)
+        warm_ms = ms = _held_ms(fn)
+        if name == "layer_norm_bwd":
+            ms = cold_ms([
+                lambda s=s: ln.layer_norm_bwd(s[0], sc, s[1], 1e-5)
+                for s in cold_sets])
         plain_ms = _held_ms(plain)
         bound_ms, bound_by, why = _bound(flops, nbytes)
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library,
-                     "bound_ms": bound_ms, "bound_by": bound_by}
+        out[name] = {"ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms,
+                     "library_ms": library, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
         lib_what = "F.layer_norm" + (" fwd+bwd minus fwd"
                                      if name.endswith("bwd") else "")
+        basis = (f"cold {ms:.4f} ms ({K4_COLD_SETS} input sets in turn), "
+                 f"warm {warm_ms:.4f} ms" if name == "layer_norm_bwd"
+                 else f"{ms:.4f} ms")
         _log("timing", f"{name} [{rows}, {d}] f32 ({per_step[name]:g} a "
-             f"step) on {smi}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+             f"step) on {smi}: kernel {basis}, plain {plain_ms:.4f} ms, "
              f"{lib_what} {library:.4f} ms; bound {bound_ms:.4f} ms by "
-             f"{bound_by} ({why}): {100 * bound_ms / ms:.1f}% of bound")
+             f"{bound_by} ({why}): {100 * bound_ms / ms:.1f}% of bound"
+             + (" cold" if name == "layer_norm_bwd" else ""))
+    del cold_sets
     _log("timing", f"fused_train on {smi}: step {fused['step_ms']:.1f} ms "
          f"(mean of {TRAIN_STEPS}), {fused['tokens_per_s']:.0f} tokens/s, "
          f"peak memory {fused['peak_bytes'] / 2**30:.2f} GiB "
@@ -2536,21 +2609,31 @@ def timing_bf16(smi, amp_train, amp_fused, amp_resnet):
     from paddle_tpu_torch.kernels import dense_epilogue as de
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import layer_norm as ln
+    from paddle_tpu_torch.tools.k4_k7_compare import cold_ms
     from paddle_tpu_torch.tools.timing import time_fn, time_fn_slope
     g = torch.Generator(device="cuda")
     g.manual_seed(12)
     bf16 = torch.bfloat16
     out = {}
 
-    def row(name, ms, plain_ms, library_ms, flops, nbytes, kind, what, lib):
+    def row(name, ms, plain_ms, library_ms, flops, nbytes, kind, what, lib,
+            warm_ms=None):
+        """``ms`` is cold where ``warm_ms`` is given (the share of the
+        bound uses it)."""
         bound_ms, bound_by, why = _bound(flops, nbytes, kind)
         out[name] = {"ms": ms, "plain_ms": plain_ms,
                      "library_ms": library_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by}
-        _log("timing", f"{name} {what} on {smi}: kernel {ms:.4f} ms, plain "
+        basis = f"{ms:.4f} ms"
+        if warm_ms is not None:
+            out[name]["warm_ms"] = warm_ms
+            basis = (f"cold {ms:.4f} ms (input sets in turn), warm "
+                     f"{warm_ms:.4f} ms")
+        _log("timing", f"{name} {what} on {smi}: kernel {basis}, plain "
              f"{plain_ms:.4f} ms, {lib} {library_ms:.4f} ms; bound "
              f"{bound_ms:.4f} ms by {bound_by} ({why}): "
-             f"{100 * bound_ms / ms:.1f}% of bound")
+             f"{100 * bound_ms / ms:.1f}% of bound"
+             + (" cold" if warm_ms is not None else ""))
 
     # K1 and K2 at [96, 2048, 64] causal, bf16 q, k, v, o, do
     bh, t, d = SLICE
@@ -2671,14 +2754,20 @@ def timing_bf16(smi, amp_train, amp_fused, amp_resnet):
         _held_ms(lambda: ln.layer_norm_fwd_plain(x, sc, bi, 1e-5)),
         lib_f, 8.0 * rows * d4, 2.0 * 2 * rows * d4 + 4.0 * 2 * d4,
         "float32", f"[{rows}, {d4}] bf16", "F.layer_norm bf16 (card only)")
+    cold_sets = [(x, dy)] + [
+        (torch.randn(rows, d4, device="cuda", generator=g).to(bf16),
+         torch.randn(rows, d4, device="cuda", generator=g).to(bf16))
+        for _ in range(K4_COLD_SETS - 1)]
     row("layer_norm_bwd_bf16",
-        _held_ms(lambda: ln.layer_norm_bwd(x, sc, dy, 1e-5)),
+        cold_ms([lambda s=s: ln.layer_norm_bwd(s[0], sc, s[1], 1e-5)
+                 for s in cold_sets]),
         _held_ms(lambda: ln.layer_norm_bwd_plain(x, sc, dy, 1e-5)),
         _held_ms(lib_fwd_bwd) - lib_f, 16.0 * rows * d4,
         2.0 * 3 * rows * d4 + 4.0 * 3 * d4, "float32",
         f"[{rows}, {d4}] bf16",
-        "F.layer_norm bf16 fwd+bwd minus fwd (card only)")
-    del x, dy, xg
+        "F.layer_norm bf16 fwd+bwd minus fwd (card only)",
+        warm_ms=_held_ms(lambda: ln.layer_norm_bwd(x, sc, dy, 1e-5)))
+    del x, dy, xg, cold_sets
 
     # K5 at [16384, 768] x [768, 3072] gelu, bf16 x, w and y
     n5 = 3072
@@ -3133,6 +3222,7 @@ def timing_ring(smi, ring_train):
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import ring_attention as ra
+    from paddle_tpu_torch.tools.k4_k7_compare import cold_ms
     from paddle_tpu_torch.tools.timing import time_fn, time_fn_slope
     g = torch.Generator(device="cuda")
     g.manual_seed(22)
@@ -3201,29 +3291,40 @@ def timing_ring(smi, ring_train):
         del q, k, v, do, o, lse, ro, rlse, qg, kg, vg
         torch.cuda.empty_cache()
 
-        # the merge at a ring step's shape: two partials read, one written
+        # the merge at a ring step's shape as the ring calls it (in place
+        # into the running partial): two partials read, one written.  The
+        # card's time alone (a call's host side outlasts its kernel), warm
+        # (the same 19 MB, bf16, call after call: they stay in the 50 MB
+        # L2) and cold (input sets of more than 50 MB in all, in turn),
+        # which the share of the bound uses
         tq = t // RING_SP
-        o1, o2 = (torch.randn(bh, tq, d, device="cuda", generator=g).to(dt)
-                  for _ in range(2))
-        l1, l2 = (torch.randn(bh, tq, device="cuda", generator=g)
-                  for _ in range(2))
-        # the card's time alone: a call's host side (two allocations, the
-        # ctypes launch) outlasts its kernel, so event-timed runs of calls
-        # would time the host's gaps
-        ms = _held_ms(lambda: ra.ring_merge(o1, l1, o2, l2))
+        sets = [[torch.randn(bh, tq, d, device="cuda", generator=g).to(dt),
+                 torch.randn(bh, tq, device="cuda", generator=g),
+                 torch.randn(bh, tq, d, device="cuda", generator=g).to(dt),
+                 torch.randn(bh, tq, device="cuda", generator=g)]
+                for _ in range(MERGE_COLD_SETS)]
+        calls = [lambda s=s: ra.ring_merge(*s, out=(s[0], s[1]))
+                 for s in sets]
+        warm_ms = _held_ms(calls[0])
+        ms = cold_ms(calls)
+        o1, l1, o2, l2 = sets[0]
         plain_ms = _held_ms(lambda: ra.ring_merge_reference(o1, l1, o2, l2))
         # per row: 2 exp, 1 log, 2 divisions and ~8 more; 3 per element
         bound_ms, bound_by, why = _bound(
             bh * tq * (13.0 + 3.0 * d), esz * 3 * bh * tq * d
             + 4.0 * 3 * bh * tq)
-        out["ring_merge" + tag] = {"ms": ms, "plain_ms": plain_ms,
-                                   "library_ms": None, "bound_ms": bound_ms,
+        out["ring_merge" + tag] = {"ms": ms, "warm_ms": warm_ms,
+                                   "plain_ms": plain_ms, "library_ms": None,
+                                   "bound_ms": bound_ms,
                                    "bound_by": bound_by}
-        _log("timing", f"ring_merge{tag} [{bh}, {tq}, {d}] on {smi}: kernel "
-             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, no single library "
-             f"call; bound {bound_ms:.4f} ms by {bound_by} ({why}): "
-             f"{100 * bound_ms / ms:.1f}% of bound")
-        del o1, o2, l1, l2
+        _log("timing", f"ring_merge{tag} [{bh}, {tq}, {d}] in place on "
+             f"{smi}: kernel cold {ms:.4f} ms ({MERGE_COLD_SETS} input "
+             f"sets in turn), warm {warm_ms:.4f} ms (L2), plain "
+             f"{plain_ms:.4f} ms, no single library call; bound "
+             f"{bound_ms:.4f} ms by {bound_by} ({why}): "
+             f"{100 * bound_ms / ms:.1f}% of bound cold "
+             f"({100 * bound_ms / warm_ms:.1f}% warm)")
+        del sets, calls, o1, o2, l1, l2
     for impl in ("ring", "flash"):
         r = ring_train[impl]
         _log("timing", f"ring_train {impl} on {smi}: step {r['step_ms']:.1f}"

@@ -46,6 +46,16 @@ _count = _LAUNCHES.count
 
 #: the widest row the kernels hold in registers (8 warps x 4 slots of 4)
 MAX_D = 4096
+#: the widest row the backward's one-warp-a-row form takes, by row dtype
+#: (``RowForm`` in the source: the widest ptxas holds without spills)
+ROW_MAX_D = {torch.float32: 768, torch.bfloat16: 1024}
+#: that form's grid: at most this many clusters (of 8 blocks of 8 warps, at
+#: least a row a warp), one partial row each
+ROW_CLUSTERS = {torch.float32: 12, torch.bfloat16: 12}
+ROWS_PER_CLUSTER = 8 * 8
+#: the wider rows' multi-warp backward: at most this many blocks, one
+#: partial row each
+WIDE_BLOCKS = 512
 
 
 def launch_count(kernel: str = "layer_norm_fwd",
@@ -87,6 +97,29 @@ def layer_norm_bwd_plain(x, scale, dy, eps):
     return dx, (dyf * xhat).sum(dim=0), dyf.sum(dim=0)
 
 
+def _check_width(what, d):
+    if d > MAX_D:
+        raise ValueError(f"{what}: d = {d} exceeds the kernel's {MAX_D}")
+
+
+def partial_rows(rows: int, d: int, dtype: torch.dtype) -> int:
+    """The partial rows of dscale and dbias K4's backward writes for ``x
+    [rows, d]`` of ``dtype`` (its scratch is ``[2, partial_rows, d]``
+    float32): up to :data:`ROW_MAX_D`, one a cluster of the one-warp-a-row
+    form; wider, one a block of the multi-warp form (``wpr`` warps a row,
+    8 / wpr rows a block).  The rule of the source's
+    ``paddle_tpu_torch_layer_norm_partial_rows``, which refuses a launch
+    given another count.  Raises for a d the kernels do not take."""
+    _check_width("layer_norm_bwd", d)
+    if rows <= 0 or d <= 0:
+        raise ValueError(f"layer_norm_bwd: rows {rows} and d {d} must be "
+                         "positive")
+    if d <= ROW_MAX_D[dtype]:
+        return min(ROW_CLUSTERS[dtype], -(-rows // ROWS_PER_CLUSTER))
+    wpr = next(w for w in (1, 2, 4, 8) if -(-d // 4) <= 32 * w * 4)
+    return min(WIDE_BLOCKS, -(-rows // (8 // wpr)))
+
+
 def _check(what, x, vectors):
     if x.dtype not in DTYPES:
         raise TypeError(f"{what}: x must be float32 or bfloat16, got "
@@ -110,8 +143,8 @@ def _check(what, x, vectors):
         if tuple(t.shape) != want:
             raise ValueError(f"{what}: {name} must be {want}, got "
                              f"{tuple(t.shape)}")
-    if x.device.type == "cuda" and d > MAX_D:
-        raise ValueError(f"{what}: d = {d} exceeds the kernel's {MAX_D}")
+    if x.device.type == "cuda":
+        _check_width(what, d)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: no kernel for device {x.device}")
 
@@ -142,22 +175,24 @@ def layer_norm_bwd(x, scale, dy, eps):
     """``(dx [rows, d], dscale [d], dbias [d])`` for contiguous ``x``,
     ``dy [rows, d]`` (one dtype, float32 or bf16; dx in it) and float32
     ``scale [d]``; dscale and dbias are float32.  Launches K4's backward
-    (two kernels: the row pass with per-block column partials, then the
-    partials added in a fixed order) for CUDA tensors; CPU tensors take the
-    plain version."""
+    (two kernels: the row pass with column partials, one row a cluster of
+    the one-warp-a-row form or a block of the multi-warp form, then the
+    partials added in a fixed order; :func:`partial_rows`) for CUDA
+    tensors; CPU tensors take the plain version."""
     _check("layer_norm_bwd", x, (("scale", scale), ("dy", dy)))
     if x.device.type == "cpu":
         return layer_norm_bwd_plain(x, scale, dy, eps)
     rows, d = x.shape
-    prow = _entry("partial_rows")(rows, d)
+    prow = partial_rows(rows, d, x.dtype)
     dx = torch.empty_like(x)
     part = torch.empty((2, prow, d), dtype=torch.float32, device=x.device)
     grads = torch.empty((2, d), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _entry("bwd")(x.data_ptr(), scale.data_ptr(), dy.data_ptr(),
-                            dx.data_ptr(), part.data_ptr(), grads.data_ptr(),
-                            rows, d, float(eps), DTYPES[x.dtype], stream)
+                            dx.data_ptr(), part.data_ptr(), prow,
+                            grads.data_ptr(), rows, d, float(eps),
+                            DTYPES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"layer_norm_bwd kernel launch failed: CUDA "
                            f"error {err}")
@@ -177,9 +212,9 @@ def _entry(which):
                 ("fwd", lib.paddle_tpu_torch_layer_norm_fwd,
                  [p] * 4 + [i, i, f, i, p]),
                 ("bwd", lib.paddle_tpu_torch_layer_norm_bwd,
-                 [p] * 6 + [i, i, f, i, p]),
+                 [p] * 5 + [i, p, i, i, f, i, p]),
                 ("partial_rows", lib.paddle_tpu_torch_layer_norm_partial_rows,
-                 [i, i])):
+                 [i, i, i])):
             fn.argtypes = args
             fn.restype = ctypes.c_int
             _entries[name] = fn

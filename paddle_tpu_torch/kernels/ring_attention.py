@@ -51,7 +51,11 @@ mask, and n(n + 1)/2 of each kernel and n(n - 1)/2 merges causal
 (:func:`expected_launches`).
 
 - :func:`ring_merge` / :func:`ring_merge_reference`: the merge kernel's
-  wrapper (counted per dtype, :func:`launch_count`) and its plain version.
+  wrapper (counted per dtype, :func:`launch_count`; ``out=`` takes the
+  result, ``(o1, lse1)`` itself for an in-place merge) and its plain
+  version.  The ring's kernel steps merge in place into each rank's
+  running partial, so a merge allocates nothing; the plain ring returns
+  new tensors.
 - :func:`ring_attention_fwd` / :func:`ring_attention_bwd`: the ring over
   ``[bh, T, d]`` tensors and a list of rank devices of the tensors' device
   type (no hidden move to another device); with ``plain=True`` the same
@@ -148,18 +152,58 @@ def _check_merge(o1, lse1, o2, lse2):
                              f"{o1.device}")
 
 
-def ring_merge(o1, lse1, o2, lse2):
+def _overlaps(a, b) -> bool:
+    """Whether the memory of ``a`` and ``b`` overlaps (both contiguous)."""
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return (a0 < b0 + b.numel() * b.element_size()
+            and b0 < a0 + a.numel() * a.element_size())
+
+
+def _check_out(out, o1, lse1, o2, lse2):
+    """``out = (o, lse)`` takes the merge: o like o1 and lse like lse1,
+    contiguous on o1's device; o may be o1 itself and lse lse1 (an
+    in-place merge), and otherwise neither overlaps any input or the
+    other."""
+    o, lse = out
+    for name, t, like in (("o", o, o1), ("lse", lse, lse1)):
+        if (t.dtype != like.dtype or t.shape != like.shape
+                or t.device != like.device or not t.is_contiguous()):
+            raise ValueError(f"ring_merge: out {name} must be a contiguous "
+                             f"{tuple(like.shape)} {like.dtype} tensor on "
+                             f"{like.device}")
+    if _overlaps(o, lse):
+        raise ValueError("ring_merge: out o and lse overlap")
+    for name, t, own in (("o", o, o1), ("lse", lse, lse1)):
+        for other in (o1, lse1, o2, lse2):
+            in_place = other is own and t.data_ptr() == own.data_ptr()
+            if _overlaps(t, other) and not in_place:
+                raise ValueError(f"ring_merge: out {name} may be "
+                                 f"{'o1' if name == 'o' else 'lse1'} itself "
+                                 "but must overlap no other input")
+
+
+def ring_merge(o1, lse1, o2, lse2, out=None):
     """``(o, lse)``: the partials ``(o1, lse1)`` and ``(o2, lse2)`` merged
-    by their logsumexps.  Launches the merge kernel on the current stream
-    for CUDA tensors; CPU tensors take the plain version."""
+    by their logsumexps, into new tensors or into ``out``, an ``(o, lse)``
+    pair (``(o1, lse1)`` itself merges in place; see :func:`_check_out`),
+    which is returned.  Launches the merge kernel on the current stream
+    for CUDA tensors; CPU tensors take the plain version, copied into
+    ``out`` where given."""
     _check_merge(o1, lse1, o2, lse2)
+    if out is not None and not (out[0] is o1 and out[1] is lse1):
+        _check_out(out, o1, lse1, o2, lse2)
     if o1.device.type == "cpu":
-        return ring_merge_reference(o1, lse1, o2, lse2)
+        o, lse = ring_merge_reference(o1, lse1, o2, lse2)
+        if out is None:
+            return o, lse
+        out[0].copy_(o)
+        out[1].copy_(lse)
+        return out
     if o1.device.type != "cuda":
         raise ValueError(f"ring_merge: no kernel for device {o1.device}")
     bh, tq, d = o1.shape
-    o = torch.empty_like(o1)
-    lse = torch.empty_like(lse1)
+    o, lse = (torch.empty_like(o1), torch.empty_like(lse1)) if out is None \
+        else out
     with torch.cuda.device(o1.device):
         stream = torch.cuda.current_stream(o1.device).cuda_stream
         err = _entry()(o1.data_ptr(), lse1.data_ptr(), o2.data_ptr(),
@@ -259,13 +303,20 @@ def _plain_bwd(q, k, v, o, lse, do, causal, sm_scale, delta):
                                             causal, sm_scale, delta)[:3]
 
 
+def _merge_in_place(o_run, lse_run, o_p, lse_p):
+    """The merge kernel writing into the running partial's own buffers: a
+    rank's running partial is K1's output of its first step or the previous
+    merge's, so the ring owns it, and no merge allocates."""
+    return ring_merge(o_run, lse_run, o_p, lse_p, out=(o_run, lse_run))
+
+
 def _step_fns(plain: bool):
-    """The per-step (forward, backward, merge): the kernels, or with
-    ``plain`` their plain versions."""
+    """The per-step (forward, backward, merge): the kernels (the merge in
+    place), or with ``plain`` their plain versions (new tensors)."""
     if plain:
         return (fa.flash_attention_reference, _plain_bwd,
                 ring_merge_reference)
-    return fa.flash_attention_fwd, fa.flash_attention_bwd, ring_merge
+    return fa.flash_attention_fwd, fa.flash_attention_bwd, _merge_in_place
 
 
 def _shard(x: torch.Tensor, devices) -> List[torch.Tensor]:

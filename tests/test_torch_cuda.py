@@ -86,6 +86,21 @@ have them), so it runs there with the repo's conftest left out:
   128 (and a ragged 130), M and K ragged, with and without the producer's
   statistics and relu, x in bf16 and float32, and with x and w off 16
   bytes, under K6's bounds above.
+- the merge kernel redesigned (16-byte accesses, a lane group a row): o
+  and lse equal to the plain version's bit for bit in both dtypes at d 8,
+  12, 20, 64, 128 and 136 over 1015 rows with NEG_INF rows on either side
+  and on both, and from an o1 off 16 bytes (the scalar form); ``out=(o1,
+  lse1)`` gives the bits of a fresh output; an out over another input is
+  refused;
+- K4's backward redesigned (a warp a row up to ``layer_norm.ROW_MAX_D``,
+  cluster sums of dscale and dbias), both dtypes, at d 4, 12, 760, 768,
+  the limit, the limit + 4 (the multi-warp form) and 4096, rows 1, 7 and
+  16385, and on views off 16 bytes: dx within 1e-5 + 1e-4 relative in
+  float32 (plus the one-pass variance's allowance where a row is
+  ill-conditioned) and one bf16 ulp of max|dx| in bf16, dscale and dbias
+  within 2^-14 of the sum of their terms' magnitudes, a second call bit
+  for bit; the wrapper's scratch rule equals the source's, which refuses
+  another count.
 """
 
 import numpy as np
@@ -1543,3 +1558,185 @@ def test_k6_core_takes_operands_off_16_bytes(cuda, n, xdt, stats):
     assert x.data_ptr() % 16 and w.data_ptr() % 16
     _, _, ps = _k6_inputs(300, 64, n, xdt, xdt, cuda, seed=1)
     _k6_check(x, w, ps if stats else None, stats)
+
+
+# -- the merge (K7) and the K4 backward redesigned for Hopper ---------------
+
+
+MERGE_DIMS = [8, 12, 20, 64, 128, 136]
+
+
+def _merge_rows(device, dtype, d, seed, bh=5, tq=203):
+    """Partials of bh * tq rows (1015: no multiple of a block's rows) with
+    NEG_INF rows on the left, on the right and on both."""
+    g = torch.Generator().manual_seed(seed)
+    o1, o2 = (torch.randn(bh, tq, d, generator=g) for _ in range(2))
+    l1, l2 = (torch.randn(bh, tq, generator=g) * 4 for _ in range(2))
+    l1[0, :40] = ra.NEG_INF
+    l2[0, 20:60] = ra.NEG_INF               # 20-39: masked on both sides
+    l2[3, ::3] = ra.NEG_INF
+    l1[4, 1::7] = ra.NEG_INF
+    return [x.to(device) for x in (o1.to(dtype), l1, o2.to(dtype), l2)]
+
+
+@pytest.mark.parametrize("d", MERGE_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_merge_equals_plain_version_bit_for_bit(cuda, dtype, d):
+    """The 16-byte form (d * size a multiple of 16) and the scalar form
+    (bf16 d 12 and 20) give the plain version's o and lse exactly."""
+    o1, l1, o2, l2 = _merge_rows(cuda, getattr(torch, dtype), d, seed=d)
+    n0 = ra.launch_count("ring_merge", dtype)
+    o, lse = ra.ring_merge(o1, l1, o2, l2)
+    torch.cuda.synchronize()
+    assert ra.launch_count("ring_merge", dtype) == n0 + 1
+    ro, rlse = ra.ring_merge_reference(o1, l1, o2, l2)
+    assert torch.equal(o, ro) and torch.equal(lse, rlse)
+    assert bool((lse[0, 20:40] == ra.NEG_INF).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_merge_off_16_bytes_takes_the_scalar_form(cuda, dtype):
+    """o1 one element past a 16-byte boundary: the scalar form, the same
+    bits as the plain version and as the 16-byte form on aligned copies."""
+    dt = getattr(torch, dtype)
+    a1, l1, o2, l2 = _merge_rows(cuda, dt, 64, seed=3)
+    flat = torch.empty(a1.numel() + 1, dtype=dt, device=cuda)
+    o1 = flat[1:].view(a1.shape)
+    o1.copy_(a1)
+    assert o1.data_ptr() % 16
+    o, lse = ra.ring_merge(o1, l1, o2, l2)
+    ro, rlse = ra.ring_merge_reference(o1, l1, o2, l2)
+    vo, vlse = ra.ring_merge(a1, l1, o2, l2)
+    torch.cuda.synchronize()
+    assert torch.equal(o, ro) and torch.equal(lse, rlse)
+    assert torch.equal(o, vo) and torch.equal(lse, vlse)
+
+
+@pytest.mark.parametrize("d", [12, 64, 136])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_merge_in_place_gives_the_fresh_bits(cuda, dtype, d):
+    """``out=(o1, lse1)``: the merge written over the first partial equals
+    the merge into new tensors, and returns the out pair."""
+    o1, l1, o2, l2 = _merge_rows(cuda, getattr(torch, dtype), d, seed=d + 1)
+    o, lse = ra.ring_merge(o1, l1, o2, l2)
+    a, b = o1.clone(), l1.clone()
+    got = ra.ring_merge(a, b, o2, l2, out=(a, b))
+    torch.cuda.synchronize()
+    assert got[0] is a and got[1] is b
+    assert torch.equal(a, o) and torch.equal(b, lse)
+
+
+def test_ring_merge_refuses_an_out_over_another_input(cuda):
+    o1, l1, o2, l2 = _merge_rows(cuda, torch.float32, 64, seed=4)
+    n0 = ra.launch_count()
+    for out in ((o2, l1), (o1, l2), (o1[:, :100].contiguous(), l1)):
+        with pytest.raises(ValueError):
+            ra.ring_merge(o1, l1, o2, l2, out=out)
+    assert ra.launch_count() == n0
+
+
+def _variance_allowance(x, s, dy, eps=1e-5):
+    """Per value of dx, 4 float32 ulps of kappa times its row's largest
+    term, kappa = (m^2 + var) / (var + eps): the one-pass variance both
+    versions take (the TPU kernel's formula) keeps only 1 / kappa of
+    float32's precision.  At d 4 a row of nearly equal values has kappa in
+    the hundreds (16385 rows of the test's inputs): there the plain
+    version itself misses a float64 evaluation of the formula by more than
+    1e-4 relative, and the replaced kernel missed the plain version at the
+    same values as this one.  Elsewhere the allowance is far below 1e-5."""
+    xf, g = x.double(), dy.double() * s.double()
+    m = xf.mean(dim=1, keepdim=True)
+    var = ((xf * xf).mean(dim=1, keepdim=True) - m * m).clamp(min=0)
+    rstd = torch.rsqrt(var + eps)
+    xh = (xf - m) * rstd
+    terms = rstd * (g.abs() + g.mean(dim=1, keepdim=True).abs()
+                    + xh.abs() * (g * xh).mean(dim=1, keepdim=True).abs())
+    kappa = (m * m + var) / (var + eps)
+    return (4 * 2.0 ** -24 * kappa * terms.amax(dim=1, keepdim=True)).float()
+
+
+def _k4_bwd_check(x, s, dy):
+    """K4's backward against its plain version (dx: 1e-5 + 1e-4 relative in
+    float32, with the one-pass variance's allowance, one bf16 ulp of
+    max|dx| in bf16; dscale and dbias 2^-14 of the sum of their terms'
+    magnitudes) and against a second call, bit for bit."""
+    n0 = ln.launch_count("layer_norm_bwd")
+    dx, ds, db = ln.layer_norm_bwd(x, s, dy, 1e-5)
+    again = ln.layer_norm_bwd(x, s, dy, 1e-5)
+    torch.cuda.synchronize()
+    assert ln.launch_count("layer_norm_bwd") == n0 + 2
+    rdx, rds, rdb = ln.layer_norm_bwd_plain(x, s, dy, 1e-5)
+    if x.dtype == BF16:
+        _within_ulp(dx, rdx, what="dx")
+    else:
+        assert bool(((dx - rdx).abs() <= 1e-5 + 1e-4 * rdx.abs()
+                     + _variance_allowance(x, s, dy)).all())
+    xhat = ln.layer_norm_fwd_plain(x.float(), torch.ones_like(s),
+                                   torch.zeros_like(s), 1e-5)
+    dyf = dy.float()
+    for got, want, terms in ((ds, rds, (dyf * xhat).abs()),
+                             (db, rdb, dyf.abs())):
+        assert got.dtype == torch.float32
+        assert bool(((got - want).abs()
+                     <= 2.0 ** -14 * terms.sum(dim=0) + 1e-6).all())
+    for a, b in zip((dx, ds, db), again):
+        assert torch.equal(a, b)
+
+
+def _k4_width(d, dtype):
+    limit = ln.ROW_MAX_D[dtype]
+    return {"limit": limit, "limit+4": limit + 4}.get(d) or int(d)
+
+
+@pytest.mark.parametrize("rows", [1, 7, 16385])
+@pytest.mark.parametrize("d", ["4", "12", "760", "768", "limit", "limit+4",
+                               "4096"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k4_backward_at_the_row_form_edges(cuda, dtype, d, rows):
+    """The one-warp-a-row form up to its widest d (12 and bf16 4 and 12
+    with element accesses), the multi-warp form past it, at 1, 7 and
+    16385 rows."""
+    dt = getattr(torch, dtype)
+    d = _k4_width(d, dt)
+    g = torch.Generator().manual_seed(rows + d)
+    x = (torch.randn(rows, d, generator=g) * 2 + 0.5).to(cuda).to(dt)
+    s = (torch.randn(d, generator=g) + 1).to(cuda)
+    dy = torch.randn(rows, d, generator=g).to(cuda).to(dt)
+    _k4_bwd_check(x, s, dy)
+
+
+@pytest.mark.parametrize("d", ["12", "768", "limit", "4096"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k4_backward_on_views_off_16_bytes(cuda, dtype, d):
+    """x and dy one element past a 16-byte boundary: element accesses."""
+    dt = getattr(torch, dtype)
+    d = _k4_width(d, dt)
+    rows = 33
+    g = torch.Generator().manual_seed(d + 9)
+    x = (torch.randn(rows * d + 1, generator=g) * 2 + 0.5).to(cuda).to(dt)
+    dy = torch.randn(rows * d + 1, generator=g).to(cuda).to(dt)
+    x, dy = x[1:].view(rows, d), dy[1:].view(rows, d)
+    assert x.data_ptr() % 16 and dy.data_ptr() % 16
+    s = (torch.randn(d, generator=g) + 1).to(cuda)
+    _k4_bwd_check(x, s, dy)
+
+
+def test_k4_partial_rows_agree_with_the_source(cuda):
+    """The wrapper's scratch rule (``partial_rows``) is the source's, and
+    the source refuses a launch given another count."""
+    fn = ln._entry("partial_rows")
+    for dtype, code in ln.DTYPES.items():
+        for rows in (1, 63, 64, 65, 1024, 16385):
+            for d in (4, 12, 760, 768, 769, 1024, 1025, 2048, 4096):
+                assert fn(rows, d, code) == ln.partial_rows(rows, d, dtype), (
+                    dtype, rows, d)
+    x = torch.randn(100, 768, device=cuda)
+    s = torch.ones(768, device=cuda)
+    prow = ln.partial_rows(100, 768, torch.float32)
+    part = torch.empty(2, prow + 1, 768, device=cuda)
+    grads = torch.empty(2, 768, device=cuda)
+    err = ln._entry("bwd")(x.data_ptr(), s.data_ptr(), x.data_ptr(),
+                           torch.empty_like(x).data_ptr(), part.data_ptr(),
+                           prow + 1, grads.data_ptr(), 100, 768, 1e-5, 0,
+                           torch.cuda.current_stream().cuda_stream)
+    assert err != 0

@@ -115,6 +115,37 @@ def test_cpu_counts_no_launch_and_bad_inputs_raise():
         ln.layer_norm_bwd(x, s, dy[:2].contiguous(), EPS)
 
 
+# (rows, d, dtype, partial rows): the one-warp-a-row backward up to d 768
+# (float32) and 1024 (bf16), one partial row a cluster of 64 warps, at most
+# 12; wider rows the multi-warp backward, one a block of 8 / wpr rows, at
+# most 512
+PARTIAL_ROWS = [(1, 4, "float32", 1), (64, 768, "float32", 1),
+                (65, 768, "float32", 2), (16384, 768, "float32", 12),
+                (16385, 760, "bfloat16", 12), (700, 1024, "bfloat16", 11),
+                (16384, 772, "float32", 512), (7, 1028, "bfloat16", 4),
+                (4099, 1000, "float32", 512), (16385, 4096, "float32", 512),
+                (9, 4096, "bfloat16", 9), (100, 2048, "float32", 50)]
+
+
+@pytest.mark.parametrize("rows,d,dtype,want", PARTIAL_ROWS)
+def test_backward_scratch_follows_the_row_and_wide_forms(rows, d, dtype,
+                                                         want):
+    assert ln.partial_rows(rows, d, getattr(torch, dtype)) == want
+
+
+def test_backward_scratch_refuses_what_the_kernels_refuse():
+    """The widths the card's kernels refuse raise the wrappers' error; the
+    CPU wrappers take them (the plain versions)."""
+    with pytest.raises(ValueError, match="exceeds the kernel's 4096"):
+        ln.partial_rows(8, 4097, torch.float32)
+    for rows, d in ((0, 8), (8, 0)):
+        with pytest.raises(ValueError, match="positive"):
+            ln.partial_rows(rows, d, torch.bfloat16)
+    x, s, _, dy = _t(*_inputs(3, 4097, seed=1))
+    dx, ds, db = ln.layer_norm_bwd(x, s, dy, EPS)
+    assert tuple(dx.shape) == (3, 4097) and tuple(ds.shape) == (4097,)
+
+
 # -- bf16 rows (AMP) ---------------------------------------------------------------
 #
 # x and dy rounded to bf16 in both packages, scale and bias float32.  The

@@ -183,6 +183,81 @@ def test_merge_matches_reference_merge(dtype):
     np.testing.assert_allclose(gl, rl, rtol=2.0 ** -22, atol=0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_merge_into_out_equals_the_fresh_merge_and_reference(dtype):
+    """``out=(o1, lse1)`` (the ring's in-place merge) on CPU tensors: the
+    out pair is returned and holds the bits of the merge into new tensors,
+    which the reference's ``_merge`` matches as above."""
+    o1, l1, o2, l2, masked = _merge_inputs()
+    td = getattr(torch, dtype)
+    t1, t2 = (torch.from_numpy(x).to(td) for x in (o1, o2))
+    tl1, tl2 = torch.from_numpy(l1), torch.from_numpy(l2)
+    fo, fl = ra.ring_merge(t1, tl1, t2, tl2)
+    a, b = t1.clone(), tl1.clone()
+    got = ra.ring_merge(a, b, t2, tl2, out=(a, b))
+    assert got[0] is a and got[1] is b
+    assert torch.equal(a, fo) and torch.equal(b, fl)
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    with jax.disable_jit():
+        ro, rl = ref_ring_mod._merge(jnp.asarray(o1).astype(jd),
+                                     jnp.asarray(l1),
+                                     jnp.asarray(o2).astype(jd),
+                                     jnp.asarray(l2))
+    ro = np.asarray(ro.astype(jnp.float32))
+    np.testing.assert_array_equal(a.float().numpy()[masked], ro[masked])
+    np.testing.assert_allclose(b.numpy(), np.asarray(rl), rtol=2.0 ** -22,
+                               atol=0)
+
+
+def test_merge_out_refuses_memory_of_another_input():
+    """An out tensor may be o1 (lse1) itself, never memory of another
+    input, and must have o1's (lse1's) shape and dtype."""
+    o1, l1, o2, l2, _ = _merge_inputs()
+    t1, tl1, t2, tl2 = (torch.from_numpy(x) for x in (o1, l1, o2, l2))
+    for out in ((t2, tl1), (t1, tl2), (t1[:, :8].contiguous(), tl1),
+                (t1, tl1.double()), (torch.empty_like(t1), t2[0, :, 0])):
+        with pytest.raises(ValueError, match="out"):
+            ra.ring_merge(t1, tl1, t2, tl2, out=out)
+    fresh = (torch.empty_like(t1), torch.empty_like(tl1))
+    assert ra.ring_merge(t1, tl1, t2, tl2, out=fresh) is fresh
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_ring_forward_merges_in_place_and_matches_reference_ring(
+        monkeypatch, causal):
+    """The ring's kernel steps merge into each rank's running partial
+    (``out`` is ``(o1, lse1)`` itself); the forward still matches the
+    reference ring under shard_map at sp 4."""
+    real_merge = ra.ring_merge
+    in_place = []
+
+    def merge(o1, lse1, o2, lse2, out=None):
+        in_place.append(out is not None and out[0] is o1
+                        and out[1] is lse1)
+        return real_merge(o1, lse1, o2, lse2, out=out)
+
+    monkeypatch.setattr(ra, "ring_merge", merge)
+    q, k, v = (_rand((1, 2, 32, 8), i) for i in range(3))
+    want = np.asarray(_ref_ring(4, causal)(q, k, v))
+    got = ra.ring_attention(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), _port_mesh(4),
+                            causal=causal)
+    assert in_place == [True] * ra.expected_launches(4, causal)["ring_merge"]
+    np.testing.assert_allclose(got.numpy(), want, **O_TOL)
+
+
+def test_expected_launches_are_the_schedules():
+    """n^2 K1 and K2 and n(n - 1) merges without a mask, n(n + 1)/2 and
+    n(n - 1)/2 causal: the counts chip_smoke.py holds the ring to."""
+    want = {(1, False): (1, 0), (2, False): (4, 2), (4, False): (16, 12),
+            (8, False): (64, 56), (1, True): (1, 0), (2, True): (3, 1),
+            (4, True): (10, 6), (8, True): (36, 28)}
+    for (n, causal), (steps, merges) in want.items():
+        assert ra.expected_launches(n, causal) == {
+            "flash_attn_fwd": steps, "flash_attn_bwd": steps,
+            "ring_merge": merges}
+
+
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("n", [1, 2, 4, 8])
 def test_ring_schedule_launches(monkeypatch, n, causal):
@@ -202,9 +277,9 @@ def test_ring_schedule_launches(monkeypatch, n, causal):
         calls["flash_attn_bwd"].append(bool(causal))
         return real_bwd(q, k, v, o, lse, do, causal, sm_scale, delta)
 
-    def merge(*a):
+    def merge(*a, **kw):
         calls["ring_merge"] += 1
-        return real_merge(*a)
+        return real_merge(*a, **kw)
 
     monkeypatch.setattr(fa, "flash_attention_fwd", fwd)
     monkeypatch.setattr(fa, "flash_attention_bwd", bwd)
