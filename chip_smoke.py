@@ -54,6 +54,23 @@ JAX, prints one line per phase, and raises on any failure:
    have launched 12 times per batch dispatched to a bucket >= 1024 (and
    nowhere else), and one 1100-token request must match the same bucket
    program run by the port on the CPU.
+   ``decode`` — the same model and weights behind ``DecodeServer`` over
+   ``DecodeEngine(cfg, scope, max_slots=8)`` at the flag defaults (page_len
+   16, max_seq 2048: 128 pages a slot, 1025 pages, 2 x 604 MB of pools),
+   the step captured once as a CUDA graph: 15 requests with prompts of
+   32-384 tokens (seed 11) from two tenants and ``max_new_tokens`` 32, then
+   a 16th repeating the shortest prompt with ``eos_id`` its first greedy
+   token, which must return that one token; every request the right length,
+   ``trace_count`` 1 and no page in use at the end.  Two requests' logits,
+   teacher-forced through the engine at every position, against the
+   bucket-512 serving program on the card (``SERVE_ATOL``/``SERVE_RTOL``),
+   each generated token its argmax or within that tolerance of it (counted);
+   64 positions against a ``DecodeEngine(place=CPUPlace())``; the graph
+   against the uncaptured step on the same inputs and pools (bit for bit,
+   else within 1e-6 relative); the iteration's median and p90 ms at
+   occupancy 8, tokens/s, the graph against the uncaptured step over 50
+   iterations, peak card memory, and under ``--profile`` both steps by
+   kernel.  No hand-written kernel launches on this path.
 4. ``train``  — the same model trained through the Fluid entry points
    (``build_gpt_pretrain`` with the fused head, ``AdamOptimizer.minimize``,
    ``Executor().run``) at seq 2048, batch 8, float32: one warm-up step and
@@ -189,6 +206,12 @@ ATOL, RTOL = 1e-5, 1e-4                 # kernel vs plain, float32
 # row partials), s2 positive values (2^-14 relative)
 K3_SUM_RTOL, K3_STAT_RTOL = 2.0 ** -20, 2.0 ** -14
 SERVE_ATOL, SERVE_RTOL = 2e-3, 2e-3     # card vs host logits, float32
+# the decode phase: slots, requests (the last one an EOS repeat), prompt
+# lengths, tokens generated a request, iterations of the uncaptured step
+# timed against the graph, and the positions run again on the host
+DECODE_SLOTS, DECODE_REQUESTS, DECODE_NEW = 8, 16, 32
+DECODE_PROMPT = (32, 384)
+DECODE_UNCAPTURED_ITERS, DECODE_HOST_POSITIONS = 50, 64
 # card vs host training step.  The fused LM head rounds its products to
 # bf16, and a sum taken in another order can round to the neighbouring bf16
 # value; the head's weight gradient adds up one bf16-rounded partial per
@@ -1300,6 +1323,279 @@ def phase_serve():
             "launches": launches, "flash_batches": flash_batches,
             "per_bucket_ms": per_bucket, "batches": log,
             "scope": scope, "factory": factory}
+
+
+#: every hand-written kernel's launch counter, by name: no kernel launches
+#: on the decode path (its attention is plain einsum, as the reference's)
+_KERNEL_MODULES = {
+    "flash_attn_fwd": "flash_attention", "flash_attn_bwd": "flash_attention",
+    "conv1x1_stats": "conv_bn", "matmul_bn_stats": "conv_bn",
+    "layer_norm_fwd": "layer_norm", "layer_norm_bwd": "layer_norm",
+    "dense_epilogue": "dense_epilogue", "attn_skeleton_fwd": "attn_skeleton",
+    "attn_skeleton_bwd": "attn_skeleton", "ring_merge": "ring_attention"}
+
+
+def _kernel_module(name):
+    import importlib
+    return importlib.import_module(
+        "paddle_tpu_torch.kernels." + _KERNEL_MODULES[name])
+
+
+def _launches_nonzero():
+    counts = {n: _kernel_module(n).launch_count(n) for n in _KERNEL_MODULES}
+    return {n: c for n, c in counts.items() if c}
+
+
+def _teacher_forced(eng, toks, slot=0):
+    """The engine's logits at every position of ``toks``, fed one token an
+    iteration into ``slot`` (alone in the batch), then the slot freed."""
+    S = eng.max_slots
+    assert eng.reserve_slot(slot, -(-len(toks) // eng.page_len))
+    ids, pos = np.zeros(S, np.int32), np.zeros(S, np.int32)
+    active = np.arange(S) == slot
+    out = []
+    for t, tok in enumerate(toks):
+        ids[slot], pos[slot] = tok, t
+        out.append(eng.run_iteration(ids, pos, active)[slot])
+    eng.release_slot(slot)
+    return np.stack(out)
+
+
+def _within(got, ref):
+    err = np.abs(got - ref)
+    return err, bool((err <= SERVE_ATOL + SERVE_RTOL * np.abs(ref)).all())
+
+
+def phase_decode(serve, profile=False):
+    """The paged-KV decode path at BERT-base width: ``DecodeServer`` over a
+    ``DecodeEngine`` whose step is one captured CUDA graph."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.serving import DecodeEngine, DecodeServer
+
+    cfg = _gpt_cfg()
+    scope = serve["scope"]
+    for name in _KERNEL_MODULES:
+        _kernel_module(name).reset_launch_count()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    eng = DecodeEngine(cfg, scope, max_slots=DECODE_SLOTS)
+    pages_a_slot = -(-cfg.max_pos // 16)
+    if (eng.page_len, eng.max_seq, eng.max_pages, eng.cache.n_pages) != \
+            (16, cfg.max_pos, pages_a_slot, 1 + DECODE_SLOTS * pages_a_slot):
+        raise AssertionError("the flag defaults did not size the engine")
+    pool = eng.cache.pool_bytes()
+    _log("decode", f"DecodeEngine on {eng.device}: {DECODE_SLOTS} slots, "
+         f"page_len {eng.page_len}, max_seq {eng.max_seq} "
+         f"({eng.max_pages} pages a slot), {eng.cache.n_pages} pages; "
+         f"pool_bytes {pool} (2 x {pool / 2e6:.1f} MB)")
+
+    srv = DecodeServer(eng).start()
+    rng = np.random.RandomState(11)
+    lengths = rng.randint(DECODE_PROMPT[0], DECODE_PROMPT[1] + 1,
+                          DECODE_REQUESTS - 1)
+    prompts = [rng.randint(1, cfg.vocab_size, (n,)).astype(np.int64)
+               for n in lengths]
+    t0 = time.perf_counter()
+    futs = [srv.submit("tenant_a" if i % 2 else "tenant_b", p,
+                       max_new_tokens=DECODE_NEW)
+            for i, p in enumerate(prompts)]
+    gens = [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t0
+    log = srv.iter_log()
+    # the 16th request repeats the shortest prompt with eos_id set to its
+    # first greedy token: it must return exactly that token
+    j = int(np.argmin(lengths))
+    eos = int(gens[j][0])
+    eos_gen = srv.submit("tenant_a", prompts[j], max_new_tokens=DECODE_NEW,
+                         eos_id=eos).result(timeout=600)
+    if not srv.drain(60):
+        raise AssertionError("decode drain did not finish")
+    srv.stop()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    bad = [(i, len(g)) for i, g in enumerate(gens) if len(g) != DECODE_NEW]
+    if bad or list(eos_gen) != [eos]:
+        raise AssertionError(f"wrong generation lengths {bad}; EOS request "
+                             f"gave {list(eos_gen)}, expected [{eos}]")
+    if eng.trace_count != 1 or eng.cache.pages_in_use() != 0:
+        raise AssertionError(f"trace_count {eng.trace_count}, pages in use "
+                             f"{eng.cache.pages_in_use()}: expected 1, 0")
+    tokens = sum(len(g) for g in gens)
+    occ8 = [r["iter_ms"] for r in log if r["occupancy"] == DECODE_SLOTS]
+    step8 = [r["step_ms"] for r in log if r["occupancy"] == DECODE_SLOTS]
+    it_med, it_p90 = np.median(occ8), np.percentile(occ8, 90)
+    _log("decode", f"{DECODE_REQUESTS} requests ({DECODE_REQUESTS - 1} "
+         f"prompts of {lengths.min()}-{lengths.max()} tokens from two "
+         f"tenants + 1 EOS request, ok), max_new_tokens {DECODE_NEW}: "
+         f"{tokens} tokens generated in {wall:.3f} s over {len(log)} "
+         f"iterations = {tokens / wall:.1f} tokens/s; trace_count "
+         f"{eng.trace_count}, pages in use 0")
+    _log("decode", f"iteration at occupancy {DECODE_SLOTS} ({len(occ8)} "
+         f"iterations, host clock): median {it_med:.4f} ms, p90 "
+         f"{it_p90:.4f} ms; the step alone (replay + logits to the host) "
+         f"median {np.median(step8):.4f} ms, p90 "
+         f"{np.percentile(step8, 90):.4f} ms")
+    _log("decode", f"peak card memory {peak / 2**30:.3f} GiB, of which "
+         f"{held / 2**30:.3f} GiB allocated before the engine; pools "
+         f"{pool / 2**30:.3f} GiB")
+
+    # the card against the full-context serving program at bucket 512, run
+    # by the port on the card: logits at every position (teacher-forced
+    # through the engine on a fresh slot), and each generated token the
+    # program's argmax, or within the tolerance of it
+    prog, _, fetch = _factory(cfg)(512)
+    exe = ptt.Executor()
+    picks = [int(i) for i in np.argsort(lengths)[::-1][:2]]
+    ties, worst, forced = [], 0.0, {}
+    for i in picks:
+        toks = np.concatenate([prompts[i], gens[i]]).astype(np.int64)
+        feed = np.zeros((1, 512), np.int64)
+        feed[0, :len(toks)] = toks
+        ref, = exe.run(prog, feed={"src_ids": feed}, fetch_list=fetch,
+                       scope=scope)
+        ref = ref[0, :len(toks)]
+        got = forced[i] = _teacher_forced(eng, toks)
+        err, ok = _within(got, ref)
+        if not ok:
+            raise AssertionError(f"decode logits of request {i} differ from "
+                                 f"the program's: max abs {err.max()}")
+        worst = max(worst, float(err.max()))
+        for n, g in enumerate(gens[i]):
+            row = ref[len(prompts[i]) - 1 + n]
+            top = int(np.argmax(row))
+            if top == int(g):
+                continue
+            if row[top] - row[g] > SERVE_ATOL + SERVE_RTOL * abs(row[top]):
+                raise AssertionError(
+                    f"request {i} token {n}: generated {int(g)}, the "
+                    f"program's argmax {top} by {row[top] - row[g]}")
+            ties.append((i, n))
+    _log("decode", f"card vs the bucket-512 program on the card, requests "
+         f"{picks} ({[len(prompts[i]) + DECODE_NEW for i in picks]} "
+         f"positions): max abs err {worst:.3g} (atol {SERVE_ATOL}, rtol "
+         f"{SERVE_RTOL}) ok; generated tokens off the program's argmax "
+         f"within the tolerance: {len(ties)} (request, token) {ties}")
+
+    # the card against the host engine over the same weights
+    host = DecodeEngine(cfg, {n: t.cpu() for n, t in eng.params.items()},
+                        max_slots=1, max_seq=DECODE_HOST_POSITIONS,
+                        place=ptt.CPUPlace())
+    toks = np.concatenate([prompts[picks[0]], gens[picks[0]]])[
+        :DECODE_HOST_POSITIONS]
+    err, ok = _within(forced[picks[0]][:DECODE_HOST_POSITIONS],
+                      _teacher_forced(host, toks))
+    if not ok:
+        raise AssertionError(f"card vs host decode logits: max abs "
+                             f"{err.max()}")
+    _log("decode", f"card vs DecodeEngine(place=CPUPlace()), "
+         f"{DECODE_HOST_POSITIONS} positions: max abs err {err.max():.3g} "
+         f"ok")
+    del host
+
+    # the graph against the uncaptured step on the same inputs and pools:
+    # every slot active, full page tables, random pool contents
+    dev = eng.device
+    S = DECODE_SLOTS
+    for s in range(S):
+        assert eng.reserve_slot(s, eng.max_pages)
+    g = torch.Generator(device=dev).manual_seed(12)
+    eng.cache.k.normal_(generator=g)
+    eng.cache.v.normal_(generator=g)
+    ids = rng.randint(1, cfg.vocab_size, S).astype(np.int32)
+    pos = rng.randint(0, eng.max_seq - 2 * DECODE_UNCAPTURED_ITERS,
+                      S).astype(np.int32)
+    active = np.ones(S, bool)
+    k0, v0 = eng.cache.k.clone(), eng.cache.v.clone()
+    table = torch.as_tensor(eng.page_table, dtype=torch.long, device=dev)
+
+    def eager(ids, pos):
+        return eng.model.step_eager(
+            eng.params, k0, v0, torch.as_tensor(ids, device=dev).long(),
+            torch.as_tensor(pos, device=dev).long(), table,
+            torch.as_tensor(active, device=dev)).cpu().numpy()
+
+    lg = eng.run_iteration(ids, pos, active)
+    le = eager(ids, pos)
+    diffs = {"logits": float(np.abs(lg - le).max()),
+             "k": float((eng.cache.k - k0)[:, 1:].abs().max()),
+             "v": float((eng.cache.v - v0)[:, 1:].abs().max())}
+    scale = {"logits": float(np.abs(le).max()),
+             "k": float(k0.abs().max()), "v": float(v0.abs().max())}
+    if any(d > 1e-6 * scale[n] for n, d in diffs.items()):
+        raise AssertionError(f"graph vs uncaptured step: {diffs}")
+    _log("decode", "graph vs the uncaptured step, same inputs and pools "
+         "(8 slots active, full tables): " + (
+             "logits and pools bit for bit" if not any(diffs.values()) else
+             f"largest differences {diffs} (within 1e-6 of {scale})"))
+
+    # what the graph buys: the same step replayed and run uncaptured, each
+    # iteration ending with the logits on the host
+    times = {}
+    for name, fn in (("graph", lambda i, p: eng.run_iteration(i, p, active)),
+                     ("uncaptured", eager)):
+        fn(ids, pos)
+        ms = []
+        for it in range(DECODE_UNCAPTURED_ITERS):
+            t1 = time.perf_counter()
+            fn(ids, pos + it)
+            ms.append((time.perf_counter() - t1) * 1e3)
+        times[name] = ms
+    med = {n: float(np.median(v)) for n, v in times.items()}
+    _log("decode", f"{DECODE_UNCAPTURED_ITERS} iterations at occupancy "
+         f"{S}, host clock: graph median {med['graph']:.4f} ms (p90 "
+         f"{np.percentile(times['graph'], 90):.4f}), uncaptured median "
+         f"{med['uncaptured']:.4f} ms (p90 "
+         f"{np.percentile(times['uncaptured'], 90):.4f}): "
+         f"{med['uncaptured'] / med['graph']:.2f}x")
+
+    prof = None
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as tprofile
+        prof = {}
+        for name, fn in (("graph",
+                          lambda: eng.run_iteration(ids, pos, active)),
+                         ("uncaptured", lambda: eager(ids, pos))):
+            fn()
+            torch.cuda.synchronize()
+            with tprofile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as pr:
+                t1 = time.perf_counter()
+                for _ in range(5):
+                    fn()
+                wall_ms = (time.perf_counter() - t1) * 1e3 / 5
+            rows = _profile_rows(pr)
+            copy_ms = sum(r[0] for r in rows if r[2].startswith("Memcpy"))
+            kernel_ms = (sum(r[0] for r in rows) - copy_ms) / 5
+            prof[name] = {"wall_ms": wall_ms, "kernel_ms": kernel_ms,
+                          "copy_ms": copy_ms / 5, "top": rows[:12]}
+            _log("decode", f"profile, {name} step at occupancy {S}: wall "
+                 f"{wall_ms:.4f} ms, kernels {kernel_ms:.4f} ms "
+                 f"({100 * kernel_ms / wall_ms:.1f}% of wall), copies "
+                 f"{copy_ms / 5:.4f} ms a step")
+            for ms, count, key in rows[:8]:
+                _log("decode", f"  {ms / 5:9.4f} ms  x{count // 5:<4d} "
+                     f"{key[:90]}")
+    for s in range(S):
+        eng.release_slot(s)
+    launched = _launches_nonzero()
+    if launched:
+        raise AssertionError(f"kernels launched on the decode path: "
+                             f"{launched}")
+    _log("decode", "no hand-written kernel launched across the phase")
+    out = {"requests": DECODE_REQUESTS, "tokens": tokens, "wall_s": wall,
+           "iterations": len(log), "tokens_per_s": tokens / wall,
+           "iter_ms_occ8": {"median": float(it_med), "p90": float(it_p90),
+                            "n": len(occ8)},
+           "step_ms_occ8_median": float(np.median(step8)),
+           "graph_vs_uncaptured_ms": med, "peak_bytes": peak,
+           "held_bytes": held, "pool_bytes": pool, "ties": ties,
+           "max_abs_err_program": worst, "graph_diffs": diffs,
+           "trace_count": eng.trace_count, "profile": prof}
+    del eng, srv, k0, v0, table
+    torch.cuda.empty_cache()
+    return out
 
 
 def _train_program(cfg, seq, amp=False):
@@ -3490,7 +3786,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", help="also write every measurement here")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one bucket-2048 batch, a float32 "
+                    help="also profile one bucket-2048 batch, a decode "
+                         "step (graph and uncaptured), a float32 "
                          "and an AMP GPT step, a float32 and an AMP "
                          "ResNet-50 step and a step of each ring_train "
                          "program by kernel")
@@ -3512,6 +3809,7 @@ def main(argv=None) -> int:
     ring_kernel = phase_ring_kernel()
     worst.update(ring_kernel["worst"])
     serve = phase_serve()
+    decode = phase_decode(serve, args.profile)
     train = phase_train()
     amp_train = phase_amp_train(train)
     fused = phase_fused_train()
@@ -3593,7 +3891,7 @@ def main(argv=None) -> int:
                        "matmul_bn_stats_calls": k6_calls,
                        "rn50_fused": rn50_fused, "attn_ceiling": ceiling,
                        "ring_kernel": ring_kernel, "ring_times": ring_times,
-                       "ring_train": ring_train,
+                       "ring_train": ring_train, "decode": decode,
                        "serve": {k: v for k, v in serve.items()
                                  if k not in ("scope", "factory")},
                        "train": {k: v for k, v in train.items()

@@ -8,7 +8,9 @@ a Pallas kernel on the TPU, the port runs a CUDA kernel written for Hopper
 held against; the port imports none of it and no JAX.
 
 This package holds the serving slice (the GPT causal LM served through
-:class:`paddle_tpu_torch.serving.InferenceServer`), the training slice
+:class:`paddle_tpu_torch.serving.InferenceServer`, and generating through
+:class:`paddle_tpu_torch.serving.DecodeServer` over a paged KV cache, the
+decode step one captured CUDA graph), the training slice
 (``append_backward``, the static-graph optimizers, and an executor that runs
 the backward pass) and ResNet training through the graph-fusion pass
 (``analysis.fusion``), whose fused conv1x1 + batch-norm op runs a CUDA

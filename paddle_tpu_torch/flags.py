@@ -1,9 +1,10 @@
 """Runtime flags (the port's counterpart of ``paddle_tpu/flags.py``; ref
 ``platform/flags.cc`` and ``core.globals()``).
 
-The graph-fusion flags, the program verifier's gate and the directory of
-the fusion autotuner's verdicts exist so far, with the reference's names
-and defaults.  ``FLAGS_*`` environment variables seed them at import, as the
+The graph-fusion flags, the program verifier's gate, the directory of the
+fusion autotuner's verdicts, the decode server's paged-KV and retry flags
+and the fault-injection table exist so far, with the reference's names and
+defaults.  ``FLAGS_*`` environment variables seed them at import, as the
 reference's ``__bootstrap__`` does; a malformed value warns and is ignored.
 """
 
@@ -33,6 +34,17 @@ _DEFAULTS: Dict[str, Any] = {
     # the reference's name, kept because users' scripts set it: in the port
     # it only names the directory of the autotuner's fusion_autotune.json
     "FLAGS_xla_compile_cache_dir": "",
+    # transient-fault absorption: how many times the decode loop re-runs a
+    # step whose dispatch raised a transient error (injected faults, errors
+    # tagged by resilience.mark_transient) before failing its requests
+    "FLAGS_serving_max_retries": 1,
+    # paged KV cache of the decode engine: the page length in tokens, and
+    # the page-pool size (0 = 1 + slots x pages a slot's window needs)
+    "FLAGS_serving_kv_page_len": 16,
+    "FLAGS_serving_kv_pages": 0,
+    # deterministic fault injection, "site:spec[;site:spec...]"
+    # (resilience.parse_fault_inject); setting it reloads the table
+    "FLAGS_fault_inject": "",
 }
 
 _values: Dict[str, Any] = dict(_DEFAULTS)
@@ -46,18 +58,29 @@ def _coerce(name: str, raw):
         return bool(raw)
     if isinstance(default, float):
         return float(raw)
+    if isinstance(default, int):
+        return int(raw)
+    if isinstance(default, str):
+        return str(raw)
     return raw
 
 
 def set_flags(flags: Dict[str, Any]) -> None:
     """ref ``paddle.set_flags``.  Every name and value is checked before
-    any is applied."""
+    any is applied; ``FLAGS_fault_inject`` is parsed then, so a malformed
+    spec is refused up front, and applying it reloads the injection
+    table."""
+    from . import resilience
     coerced = {}
     for name, value in flags.items():
         if name not in _DEFAULTS:
             raise ValueError(f"unknown flag {name!r}")
         coerced[name] = _coerce(name, value)
+        if name == "FLAGS_fault_inject":
+            resilience.parse_fault_inject(coerced[name])
     _values.update(coerced)
+    if "FLAGS_fault_inject" in coerced:
+        resilience.configure(coerced["FLAGS_fault_inject"])
 
 
 def get_flags(flags) -> Dict[str, Any]:

@@ -223,21 +223,9 @@ class Executor:
     on the host must ask for it."""
 
     def __init__(self, place=None):
-        from ..place import CUDAPlace
-        if place is None:
-            place = CUDAPlace(0)
-        device = place.device
-        if device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    f"Executor({place!r}): no CUDA device is available; "
-                    "pass CPUPlace() to run on the host")
-            if device.index >= torch.cuda.device_count():
-                raise RuntimeError(
-                    f"Executor({place!r}): only "
-                    f"{torch.cuda.device_count()} CUDA device(s)")
-        self.place = place
-        self.device = device
+        from ..place import CUDAPlace, checked_device
+        self.device = checked_device(place, "Executor")
+        self.place = CUDAPlace(0) if place is None else place
         self._lock = threading.Lock()
         self._plans: Dict[Any, _Plan] = {}  # guarded-by: _lock
         counters = ("traces", "cache_hits", "cache_misses",

@@ -12,11 +12,23 @@ either package reads the same families:
 - ``paddle_tpu_compiler_optimize_total{cache}`` and
   ``paddle_tpu_compiler_pass_ms{pass}`` (``compiler.py``);
 - ``paddle_tpu_amp_scale`` and ``paddle_tpu_amp_skipped_steps_total``
-  (``amp.py``).
+  (``amp.py``);
+- the decode server's families: the load gauges and the generated-token
+  counter declared here (ref :873-890), the per-tenant KV-page plane
+  (ref :913-929), and beside their writers
+  ``paddle_tpu_serving_batch_occupancy{mode}``,
+  ``paddle_tpu_serving_batches_total{bucket}``,
+  ``paddle_tpu_serving_faults_absorbed_total`` (``serving/scheduler.py``),
+  ``paddle_tpu_serving_kv_pages_in_use`` and
+  ``paddle_tpu_serving_kv_page_events_total{event}``
+  (``serving/kv_cache.py``), and ``paddle_tpu_fault_injected_total{site}``
+  (``resilience.py``).
 
 A hot path resolves its label series once (``.labels(...)``) and keeps the
-cell: a bump is then one lock and one add.  Not ported yet: the step tracer,
-the digests, the exporters and the serving families.
+cell: a bump is then one lock and one add.  Not ported yet: the step tracer
+and its spans, the digests, the exporters, the series retirement on tenant
+eviction, the per-phase latency histogram and the SLO families, and the
+batch server's telemetry.
 """
 
 from __future__ import annotations
@@ -199,3 +211,43 @@ class MetricsRegistry:
 
 #: the process-wide registry
 REGISTRY = MetricsRegistry()
+
+
+# -- the decode server's load gauges (ref paddle_tpu/monitor.py:873-890) ----
+
+SERVING_LAST_OCC_GAUGE = REGISTRY.gauge(
+    "paddle_tpu_serving_last_batch_occupancy",
+    "occupancy (real requests) of the most recently dispatched serving "
+    "batch / decode iteration — the instantaneous load form of the "
+    "paddle_tpu_serving_batch_occupancy histogram, carried in the gang "
+    "heartbeat digest as 'occ'")
+SERVING_FREE_SLOTS_GAUGE = REGISTRY.gauge(
+    "paddle_tpu_serving_free_decode_slots",
+    "KV decode slots currently unoccupied (digest key 'slots'; 0 = the "
+    "decode batch is full and new requests queue)")
+SERVING_TPS_GAUGE = REGISTRY.gauge(
+    "paddle_tpu_serving_tokens_per_s",
+    "decode throughput: generated tokens per second over a short "
+    "trailing window (digest key 'tps')")
+SERVING_TOKENS_CTR = REGISTRY.counter(
+    "paddle_tpu_serving_generated_tokens_total",
+    "tokens generated by the decode loop (prefill consumption excluded)")
+
+# -- the per-tenant KV-page plane (ref paddle_tpu/monitor.py:913-929) -------
+
+SERVING_KV_TENANT_PAGES = REGISTRY.gauge(
+    "paddle_tpu_serving_kv_tenant_pages",
+    "KV-cache pages currently owned by the tenant's in-flight decode "
+    "requests — the per-tenant occupancy slice of "
+    "paddle_tpu_serving_kv_pages_in_use", ("tenant",))
+SERVING_KV_TENANT_FRAG = REGISTRY.gauge(
+    "paddle_tpu_serving_kv_tenant_frag",
+    "internal fragmentation of the tenant's KV pages in [0,1]: "
+    "1 - written_tokens / (pages * page_len) — reserved-but-unwritten "
+    "tail capacity (worst-case admission reservations inflate it early "
+    "in a request's life)", ("tenant",))
+SERVING_KV_TENANT_ALLOC_CTR = REGISTRY.counter(
+    "paddle_tpu_serving_kv_tenant_pages_total",
+    "KV pages RESERVED for the tenant's requests at admission, "
+    "cumulative (folds to tenant=\"retired\" on eviction so "
+    "counter_totals() stays exact across tenant churn)", ("tenant",))

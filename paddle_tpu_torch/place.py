@@ -34,6 +34,26 @@ class CUDAPlace:
         return f"CUDAPlace({self.device_id})"
 
 
+def checked_device(place, owner: str) -> torch.device:
+    """``place``'s device (``CUDAPlace(0)`` when None), refused when it
+    names a CUDA device this process does not have: a run on the host must
+    ask for ``CPUPlace()``, it never falls back to it.  ``owner`` names the
+    caller in the error."""
+    if place is None:
+        place = CUDAPlace(0)
+    device = place.device
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{owner}({place!r}): no CUDA device is available; "
+                "pass CPUPlace() to run on the host")
+        if device.index >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"{owner}({place!r}): only "
+                f"{torch.cuda.device_count()} CUDA device(s)")
+    return device
+
+
 def is_compiled_with_cuda() -> bool:
     return torch.cuda.is_available()
 

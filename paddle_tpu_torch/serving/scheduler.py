@@ -1,20 +1,33 @@
-"""Continuous-batching scheduler over the executor (the port's
-``ContinuousBatcher`` of ``paddle_tpu/serving/scheduler.py``).
+"""Continuous-batching schedulers (the port of
+``paddle_tpu/serving/scheduler.py``).  Two execution loops, one admission
+contract:
 
-An admission queue is drained by a scheduler thread that coalesces queued
-requests into the widest same-bucket batch available (waiting at most
-``batch_wait_ms`` for stragglers), pads the batch to the bucket's fixed
-(width, seq) shape, and dispatches through ``Executor.run(...,
-return_numpy=False)``: the run returns once the batch's kernels are queued
-on the card, so host assembly of the next batch overlaps the device work of
-this one.  A separate completion thread materializes the fetches (each
-``FetchHandle`` waits on the CUDA event recorded at dispatch), slices each
-request's rows back out with the bucket padding trimmed, and resolves the
-futures.
+- :class:`ContinuousBatcher` (stateless request/response models): an
+  admission queue drained by a scheduler thread that coalesces queued
+  requests into the widest same-bucket batch available (waiting at most
+  ``batch_wait_ms`` for stragglers), pads the batch to the bucket's fixed
+  (width, seq) shape, and dispatches through ``Executor.run(...,
+  return_numpy=False)``: the run returns once the batch's kernels are
+  queued on the card, so host assembly of the next batch overlaps the
+  device work of this one.  A separate completion thread materializes the
+  fetches (each ``FetchHandle`` waits on the CUDA event recorded at
+  dispatch), slices each request's rows back out with the bucket padding
+  trimmed, and resolves the futures.  A dispatch error fails its batch.
 
-Not ported yet (ROADMAP): the per-tenant/per-phase telemetry, the request
-trace spans, fault injection and transient-fault retries, the watchdog and
-the paged-KV ``DecodeScheduler``.  A dispatch error fails its batch.
+- :class:`DecodeScheduler` (GPT token generation): drives the
+  :class:`~paddle_tpu_torch.serving.kv_cache.DecodeEngine` — each iteration
+  runs ONE step (on the card, one replay of the captured graph) over the
+  fixed slot batch; requests join a free slot (prefill consumes prompt
+  tokens one per iteration through the same step), leave on EOS/max-tokens
+  (pages freed), and the batch composition changes every iteration with
+  nothing rebuilt.  A transient step fault (``FLAGS_fault_inject`` fires,
+  errors tagged by ``resilience.mark_transient``) is ABSORBED: the step
+  re-runs up to ``FLAGS_serving_max_retries`` times before its requests
+  fail — counted in ``paddle_tpu_serving_faults_absorbed_total``.
+
+Not ported yet (ROADMAP): the batcher's telemetry and its transient-fault
+retries, the request trace spans and per-phase latency histogram, the
+watchdog, and the decode loop's numerics sentinel on the logits.
 """
 
 from __future__ import annotations
@@ -25,6 +38,28 @@ import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+
+from .. import monitor as _monitor
+
+OCCUPANCY_HIST = _monitor.REGISTRY.histogram(
+    "paddle_tpu_serving_batch_occupancy",
+    "real requests per dispatched batch/decode iteration (mean > 1 == "
+    "continuous batching is actually coalescing), by mode: 'batch' for "
+    "the coalescing batcher, 'decode' for the KV decode loop — a "
+    "process running both must not blend them in per-server views",
+    labelnames=("mode",),
+    buckets=(1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0, 24.0, 32.0, 64.0))
+BATCHES_CTR = _monitor.REGISTRY.counter(
+    "paddle_tpu_serving_batches_total",
+    "dispatched serving batches / decode iterations, by bucket "
+    "(bucket='decode' for the KV-cache loop)", ("bucket",))
+FAULTS_ABSORBED_CTR = _monitor.REGISTRY.counter(
+    "paddle_tpu_serving_faults_absorbed_total",
+    "transient dispatch faults absorbed by a batch re-dispatch "
+    "(requests completed anyway)")
+
+#: decode iterations kept by ``DecodeScheduler.iter_log``
+ITER_LOG_LEN = 65536
 
 #: dispatched batches waiting for the completion thread, beyond the one it
 #: is materializing.  Each holds its fetches on the card (2 GB of logits for
@@ -61,19 +96,25 @@ class ServingFuture:
 
 
 class Request:
-    """One admitted request: per-example feeds (no batch dim) + future."""
+    """One admitted request: per-example feeds (no batch dim), or a decode
+    prompt with its generation limits, + future."""
 
     __slots__ = ("tenant", "feeds", "seq_len", "bucket", "future",
-                 "t_submit")
+                 "t_submit", "prompt", "max_new_tokens", "eos_id")
 
     def __init__(self, tenant: str, feeds: Optional[Dict[str, Any]] = None,
-                 seq_len: int = 0, bucket: int = 0):
+                 seq_len: int = 0, bucket: int = 0,
+                 prompt=None, max_new_tokens: int = 0,
+                 eos_id: Optional[int] = None):
         self.tenant = tenant
         self.feeds = feeds
         self.seq_len = seq_len
         self.bucket = bucket
         self.future = ServingFuture()
         self.t_submit = time.perf_counter()
+        self.prompt = prompt
+        self.max_new_tokens = max_new_tokens
+        self.eos_id = eos_id
 
 
 class ContinuousBatcher:
@@ -128,6 +169,10 @@ class ContinuousBatcher:
             self._pending += 1
             self._cv.notify()
         return True
+
+    def queue_depth(self) -> int:
+        with self._cv:
+            return len(self._queue)
 
     def drain(self, timeout_s: float = 60.0) -> bool:
         """Block until every admitted request has resolved (completed or
@@ -313,3 +358,297 @@ class ContinuousBatcher:
             with self._cv:
                 self._pending -= len(batch)
                 self._cv.notify_all()
+
+
+class _SlotState:
+    __slots__ = ("req", "tokens", "pos", "generated")
+
+    def __init__(self, req: Request):
+        self.req = req
+        self.tokens: List[int] = [int(t) for t in np.asarray(
+            req.prompt).ravel()]
+        self.pos = 0
+        self.generated: List[int] = []
+
+
+class DecodeScheduler:
+    """Continuous-batching loop over the paged-KV decode engine.
+
+    One thread, one step built once: every iteration admits queued
+    requests into free slots, feeds each active slot its current token
+    (prompt token during prefill, previous argmax during generation), and
+    retires slots whose request hit EOS / max_new_tokens — freeing their
+    pages for the next request with ``trace_count`` flat."""
+
+    def __init__(self, engine, on_complete, on_fail,
+                 max_retries: int = 1):
+        self._engine = engine
+        self._on_complete = on_complete
+        self._on_fail = on_fail
+        self._max_retries = int(max_retries)
+        self._cv = threading.Condition()
+        self._queue: collections.deque = collections.deque()  # guarded-by: _cv
+        self._pending = 0   # guarded-by: _cv
+        self._stop = False  # guarded-by: _cv
+        self._slots: List[Optional[_SlotState]] = \
+            [None] * engine.max_slots
+        self._thread: Optional[threading.Thread] = None
+        #: trailing (t, n_generated) window for the tokens/s gauge —
+        #: touched only by the decode thread
+        self._tok_win: collections.deque = collections.deque()
+        #: per-tenant KV-page ownership — admits happen in _admit_locked
+        #: and releases in _retire/_run_step, all on the decode thread, so
+        #: no lock; statusz readers go through kv_census(), which snapshots
+        #: the slot list
+        self._tenant_pages: Dict[str, int] = {}
+        #: one record per decode iteration (the newest ITER_LOG_LEN)
+        self._log_mu = threading.Lock()
+        self._iter_log: collections.deque = collections.deque(
+            maxlen=ITER_LOG_LEN)  # guarded-by: _log_mu
+
+    def start(self) -> None:
+        self._thread = threading.Thread(
+            target=self._loop, name="serving-decode", daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        """Stop accepting work; the loop exits once every admitted request
+        has resolved."""
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+        if self._thread is not None:
+            self._thread.join(10.0)
+
+    def enqueue(self, req: Request) -> bool:
+        """False when the decode loop has been stopped (see
+        :meth:`ContinuousBatcher.enqueue`)."""
+        with self._cv:
+            if self._stop:
+                return False
+            self._queue.append(req)
+            self._pending += 1
+            self._cv.notify()
+        return True
+
+    def queue_depth(self) -> int:
+        with self._cv:
+            return len(self._queue)
+
+    def drain(self, timeout_s: float = 60.0) -> bool:
+        deadline = time.monotonic() + timeout_s
+        with self._cv:
+            while self._pending > 0:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return False
+                self._cv.wait(min(left, 0.1))
+        return True
+
+    def iter_log(self) -> List[dict]:
+        """One record per decode iteration: ``occupancy`` (slots stepped),
+        ``step_ms`` (host clock around the engine's step, the logits on
+        the host included) and ``iter_ms`` (the loop's whole iteration:
+        admission, page growth, the step, the argmaxes, retirements)."""
+        with self._log_mu:
+            return list(self._iter_log)
+
+    def free_slots(self) -> int:
+        return sum(1 for st in list(self._slots) if st is None)
+
+    # -- decode loop ---------------------------------------------------------
+    def _admit_locked(self) -> None:
+        # guarded-by-caller: _cv
+        for s, state in enumerate(self._slots):
+            if state is not None or not self._queue:
+                continue
+            req = self._queue[0]
+            # reserve the request's WORST-CASE pages now: admission is the
+            # only safe wait point (completions run on this same thread, so
+            # a mid-flight page stall could never resolve)
+            need = -(-(int(np.asarray(req.prompt).size)
+                       + req.max_new_tokens) // self._engine.page_len)
+            if not self._engine.reserve_slot(s, max(1, need)):
+                break               # pool exhausted: wait for completions
+            self._queue.popleft()
+            self._slots[s] = _SlotState(req)
+            self._kv_account(req.tenant,
+                             len(self._engine.cache.pages_of(s)),
+                             reserved=True)
+
+    def _loop(self) -> None:
+        eng = self._engine
+        S = eng.max_slots
+        while True:
+            t_l0 = time.perf_counter()
+            with self._cv:
+                self._admit_locked()
+                active_slots = [s for s in range(S)
+                                if self._slots[s] is not None]
+                if not active_slots:
+                    if self._stop:
+                        return
+                    self._cv.wait(0.1)
+                    continue
+            ids = np.zeros(S, np.int32)
+            pos = np.zeros(S, np.int32)
+            active = np.zeros(S, bool)
+            stepped = []
+            for s in active_slots:
+                st = self._slots[s]
+                # the page covering this position must exist BEFORE the
+                # step writes into it; an exhausted pool parks the slot for
+                # this iteration (completions will free pages)
+                if not eng.ensure_page(s, st.pos):
+                    continue
+                ids[s] = st.tokens[st.pos]
+                pos[s] = st.pos
+                active[s] = True
+                stepped.append(s)
+            if not stepped:
+                time.sleep(0.001)
+                continue
+            _monitor.SERVING_FREE_SLOTS_GAUGE.set(
+                float(S - len(active_slots)))
+            t_i0 = time.perf_counter()
+            logits = self._run_step(ids, pos, active, stepped)
+            t_i1 = time.perf_counter()
+            if logits is None:
+                continue
+            BATCHES_CTR.inc(1, bucket="decode")
+            OCCUPANCY_HIST.observe(float(len(stepped)), mode="decode")
+            _monitor.SERVING_LAST_OCC_GAUGE.set(float(len(stepped)))
+            now = time.perf_counter()
+            n_gen = 0
+            for s in stepped:
+                st = self._slots[s]
+                st.pos += 1
+                if st.pos < len(st.tokens):
+                    continue                   # prefill: next prompt token
+                nxt = int(np.argmax(logits[s]))
+                st.tokens.append(nxt)
+                st.generated.append(nxt)
+                n_gen += 1
+                done = (len(st.generated) >= st.req.max_new_tokens
+                        or (st.req.eos_id is not None
+                            and nxt == st.req.eos_id)
+                        or st.pos + 1 >= eng.max_seq)
+                if done:
+                    self._retire(s, st, now)
+            self._update_token_rate(now, n_gen)
+            rec = {"occupancy": len(stepped),
+                   "step_ms": (t_i1 - t_i0) * 1e3,
+                   "iter_ms": (time.perf_counter() - t_l0) * 1e3}
+            with self._log_mu:
+                self._iter_log.append(rec)
+
+    def _run_step(self, ids, pos, active, stepped):
+        from .. import resilience as _resil
+        attempt = 0
+        while True:
+            try:
+                _resil.maybe_inject("serving.decode_step")
+                return self._engine.run_iteration(ids, pos, active)
+            except Exception as e:
+                # retry only while the pools survived the failure (the
+                # port's in-place pools always do; the reference's donated
+                # ones do not when the step died inside the device call)
+                alive = self._engine.cache.buffers_alive()
+                if (alive and _resil.is_transient(e)
+                        and attempt < self._max_retries):
+                    attempt += 1
+                    FAULTS_ABSORBED_CTR.inc()
+                    continue
+                # every active slot's cached prefix rides those pools — all
+                # of them are lost, not just this iteration's set
+                failed = [s for s in range(len(self._slots))
+                          if self._slots[s] is not None] \
+                    if not alive else list(stepped)
+                for s in failed:
+                    st = self._slots[s]
+                    self._kv_account(
+                        st.req.tenant,
+                        -len(self._engine.cache.pages_of(s)))
+                    self._engine.release_slot(s)
+                    self._slots[s] = None
+                    self._on_fail(st.req, e)
+                if not alive:
+                    self._engine.cache.reinit_pools()
+                with self._cv:
+                    self._pending -= len(failed)
+                    self._cv.notify_all()
+                return None
+
+    def _kv_account(self, tenant, delta: int, reserved: bool = False) -> None:
+        """Per-tenant KV-page bookkeeping (decode thread only): the
+        occupancy gauge tracks pages currently owned by the tenant's
+        requests, and each admission's reservation bumps the cumulative
+        counter."""
+        tenant = str(tenant)
+        total = max(self._tenant_pages.get(tenant, 0) + int(delta), 0)
+        self._tenant_pages[tenant] = total
+        _monitor.SERVING_KV_TENANT_PAGES.set(float(total), tenant=tenant)
+        if total == 0:
+            # no pages -> no fragmentation: the frag gauge is otherwise
+            # written only by kv_census() scrapes and would freeze at the
+            # last in-flight value after the tenant's requests retire
+            _monitor.SERVING_KV_TENANT_FRAG.set(0.0, tenant=tenant)
+        if reserved and delta > 0:
+            _monitor.SERVING_KV_TENANT_ALLOC_CTR.inc(int(delta),
+                                                     tenant=tenant)
+
+    def kv_census(self) -> Dict[str, dict]:
+        """Per-tenant KV-page occupancy + internal fragmentation (the
+        statusz memory section): for every in-flight request, pages owned
+        vs positions actually written — ``frag = 1 - written / (pages *
+        page_len)`` is the reserved-but-unwritten tail.  Also refreshes the
+        per-tenant fragmentation gauge.  Reads a snapshot of the slot list,
+        so a concurrent decode iteration costs at most a stale row."""
+        page_len = int(self._engine.page_len)
+        census: Dict[str, dict] = {}
+        for s, st in enumerate(list(self._slots)):
+            if st is None:
+                continue
+            t = str(st.req.tenant)
+            row = census.setdefault(
+                t, {"pages": 0, "written_tokens": 0, "requests": 0})
+            row["pages"] += len(self._engine.cache.pages_of(s))
+            row["written_tokens"] += int(st.pos)
+            row["requests"] += 1
+        for t, row in census.items():
+            cap = row["pages"] * page_len
+            row["frag"] = round(1.0 - row["written_tokens"] / cap,
+                                4) if cap else 0.0
+            _monitor.SERVING_KV_TENANT_FRAG.set(row["frag"], tenant=t)
+        return census
+
+    def _update_token_rate(self, now: float, n_gen: int,
+                           window_s: float = 5.0) -> None:
+        """Windowed generated-tokens/s into the tokens/s gauge (decode
+        thread only — no lock)."""
+        if n_gen:
+            _monitor.SERVING_TOKENS_CTR.inc(n_gen)
+        win = self._tok_win
+        win.append((now, n_gen))
+        while win and now - win[0][0] > window_s:
+            win.popleft()
+        # a lone sample after an idle gap carries no rate information:
+        # floor its span at 1 s so the first token back doesn't publish a
+        # phantom 1000 tok/s spike
+        span = max(now - win[0][0], 1.0 if len(win) == 1 else 1e-3)
+        _monitor.SERVING_TPS_GAUGE.set(
+            round(sum(n for _, n in win) / span, 3))
+
+    def _retire(self, s, st, now) -> None:
+        self._kv_account(st.req.tenant,
+                         -len(self._engine.cache.pages_of(s)))
+        self._engine.release_slot(s)
+        self._slots[s] = None
+        out = np.asarray(st.generated, np.int32)
+        e2e_ms = (time.perf_counter() - st.req.t_submit) * 1e3
+        _monitor.SERVING_FREE_SLOTS_GAUGE.set(float(sum(
+            1 for x in self._slots if x is None)))
+        self._on_complete(st.req, out, e2e_ms)
+        with self._cv:
+            self._pending -= 1
+            self._cv.notify_all()

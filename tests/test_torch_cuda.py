@@ -101,6 +101,12 @@ have them), so it runs there with the repo's conftest left out:
   within 2^-14 of the sum of their terms' magnitudes, a second call bit
   for bit; the wrapper's scratch rule equals the source's, which refuses
   another count.
+- the decode step captured as a CUDA graph (a tiny GPT): a replay equals
+  the uncaptured step on the same inputs and pools, logits and pools bit
+  for bit (else within 1e-6 relative); after ``reinit_pools`` a replay
+  still writes into the live pools (zeroed in place, never reallocated);
+  two engines in one process capture once each and agree; a
+  ``DecodeServer`` on the card generates what one on the host does.
 """
 
 import numpy as np
@@ -1740,3 +1746,99 @@ def test_k4_partial_rows_agree_with_the_source(cuda):
                            prow + 1, grads.data_ptr(), 100, 768, 1e-5, 0,
                            torch.cuda.current_stream().cuda_stream)
     assert err != 0
+
+
+DECODE_CFG = dict(vocab_size=48, d_model=32, n_layer=2, n_head=2,
+                  d_inner=64, max_pos=64, dropout=0.0)
+
+
+def _decode_weights():
+    cfg = T.BertConfig(**DECODE_CFG)
+    scope, startup = Scope(), Program()
+    with program_guard(Program(), startup):
+        T.build_gpt_serving(cfg, 8)
+    ptt.Executor(ptt.CPUPlace()).run(startup, scope=scope, seed=5)
+    return cfg, {n: v.numpy() for n, v in scope.items()}
+
+
+def _prefill(eng, n_slots, n_steps, seed=0):
+    """Teacher-force ``n_steps`` positions of random tokens into the first
+    ``n_slots`` slots; returns the next step's (ids, pos, active)."""
+    rng = np.random.RandomState(seed)
+    S = eng.max_slots
+    for s in range(n_slots):
+        assert eng.reserve_slot(s, -(-(n_steps + 1) // eng.page_len))
+    active = np.arange(S) < n_slots
+    for t in range(n_steps):
+        eng.run_iteration(rng.randint(1, 48, S), np.full(S, t), active)
+    return rng.randint(1, 48, S), np.full(S, n_steps), active
+
+
+def _close_or_equal(got, want):
+    if not torch.equal(got, want):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * scale)
+
+
+def test_decode_graph_matches_the_uncaptured_step(cuda):
+    cfg, w = _decode_weights()
+    eng = ptt.serving.DecodeEngine(cfg, w, max_slots=4, page_len=4,
+                                   max_seq=32)
+    assert eng.device == cuda and eng.cache.k.is_cuda
+    ids, pos, active = _prefill(eng, 3, 9)
+    k0, v0 = eng.cache.k.clone(), eng.cache.v.clone()
+    got = torch.from_numpy(eng.run_iteration(ids, pos, active))
+    want = eng.model.step_eager(
+        eng.params, k0, v0, torch.as_tensor(ids, device=cuda),
+        torch.as_tensor(pos, device=cuda),
+        torch.as_tensor(eng.page_table, dtype=torch.long, device=cuda),
+        torch.as_tensor(active, device=cuda))
+    _close_or_equal(got, want.cpu())
+    _close_or_equal(eng.cache.k[:, 1:], k0[:, 1:])
+    _close_or_equal(eng.cache.v[:, 1:], v0[:, 1:])
+    assert eng.trace_count == 1
+
+
+def test_decode_graph_writes_the_live_pools_after_reinit(cuda):
+    cfg, w = _decode_weights()
+    eng = ptt.serving.DecodeEngine(cfg, w, max_slots=2, page_len=4,
+                                   max_seq=32)
+    ids, pos, active = _prefill(eng, 2, 5)
+    k_ptr = eng.cache.k.data_ptr()
+    eng.cache.reinit_pools()
+    assert eng.cache.k.data_ptr() == k_ptr and not eng.cache.k.any()
+    eng.run_iteration(ids, pos, active)
+    page = eng.page_table[0, pos[0] // 4]
+    written = eng.cache.k[:, page, pos[0] % 4]
+    assert bool(written.abs().sum(-1).gt(0).all())
+    # only this step's positions hold values: the rest stayed zeroed
+    assert int((eng.cache.k[:, 1:].abs().sum((-1, -2)) > 0).sum()) == \
+        cfg.n_layer * int(active.sum())
+    assert eng.trace_count == 1
+
+
+def test_two_decode_engines_capture_once_each(cuda):
+    cfg, w = _decode_weights()
+    engs = [ptt.serving.DecodeEngine(cfg, w, max_slots=2, page_len=4,
+                                     max_seq=32) for _ in range(2)]
+    outs = [_prefill(e, 2, 6, seed=3) for e in engs]
+    logits = [e.run_iteration(*o) for e, o in zip(engs, outs)]
+    np.testing.assert_array_equal(logits[0], logits[1])
+    assert [e.trace_count for e in engs] == [1, 1]
+
+
+def test_decode_server_on_the_card_matches_the_host(cuda):
+    cfg, w = _decode_weights()
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(1, 48, (n,)) for n in (3, 7, 12, 5, 9)]
+    gens = []
+    for place in (ptt.CUDAPlace(0), ptt.CPUPlace()):
+        eng = ptt.serving.DecodeEngine(cfg, w, max_slots=3, page_len=4,
+                                       max_seq=32, place=place)
+        srv = ptt.serving.DecodeServer(eng).start()
+        futs = [srv.submit("t", p, max_new_tokens=6) for p in prompts]
+        gens.append([list(f.result(timeout=120)) for f in futs])
+        assert srv.drain(10)
+        srv.stop()
+        assert eng.trace_count == 1 and eng.cache.pages_in_use() == 0
+    assert gens[0] == gens[1]

@@ -2,7 +2,8 @@
 
 - in a subprocess where ``import jax`` and ``import paddle_tpu`` fail,
   importing ``paddle_tpu_torch``, serving one request (through
-  ``CompiledProgram``'s verifier and passes), taking Adam steps of a tiny
+  ``CompiledProgram``'s verifier and passes), generating from one prompt
+  through ``DecodeServer`` over a host ``DecodeEngine``, taking Adam steps of a tiny
   GPT, with the fusion autotuner on in the last, one bf16 AMP step
   (``amp.decorate``, master weights staying float32), one Momentum step of a
   toy ResNet through the graph-fusion pass, and the measurement tools'
@@ -10,7 +11,8 @@
   ring attention forward + backward over 4 virtual ranks on the CPU work;
 - a source scan finds no ``jax`` or ``paddle_tpu`` import in the package or
   in ``chip_smoke.py``;
-- ``Executor()`` (the card by default) raises when there is no GPU.
+- ``Executor()`` and ``DecodeEngine()`` (the card by default) raise when
+  there is no GPU.
 """
 
 import os
@@ -58,6 +60,13 @@ _BLOCKED = textwrap.dedent("""
     srv.drain(10)
     srv.stop()
     assert out[0].shape == (5, 48), out[0].shape
+    eng = ptt.serving.DecodeEngine(cfg, scope, max_slots=2, page_len=4,
+                                   max_seq=16, place=ptt.CPUPlace())
+    dsrv = ptt.serving.DecodeServer(eng).start()
+    gen = dsrv.submit("t", [3, 9, 17], max_new_tokens=4).result(timeout=60)
+    dsrv.drain(10)
+    dsrv.stop()
+    assert len(gen) == 4 and eng.trace_count == 1, (gen, eng.trace_count)
 
     from paddle_tpu_torch import optimizer
     main, startup = Program(), Program()
@@ -148,7 +157,7 @@ _BLOCKED = textwrap.dedent("""
         torch.isfinite(x.grad).all() for x in qkv)
     assert not [m for m, mod in sys.modules.items() if mod is not None
                 and (m == "jax" or m.startswith(("jax.", "paddle_tpu.")))]
-    print("served", out[0].shape, "trained", float(l0), float(l1),
+    print("served", out[0].shape, "generated", len(gen), "trained", float(l0), float(l1),
           "amp", float(la), "resnet", float(rl))
 """)
 
@@ -160,7 +169,7 @@ def test_port_imports_and_serves_with_jax_blocked():
                          env=env, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert "served (5, 48)" in res.stdout
+    assert "served (5, 48) generated 4" in res.stdout
 
 
 _FORBIDDEN = re.compile(
@@ -198,7 +207,10 @@ def test_no_jax_or_reference_import_in_sources():
             "paddle_tpu_torch/kernels/ring_attention.py",
             "paddle_tpu_torch/ops/attention_ops.py",
             "paddle_tpu_torch/parallel/__init__.py",
-            "paddle_tpu_torch/parallel/mesh.py"} <= scanned
+            "paddle_tpu_torch/parallel/mesh.py",
+            "paddle_tpu_torch/resilience.py",
+            "paddle_tpu_torch/serving/kv_cache.py",
+            "paddle_tpu_torch/serving/scheduler.py"} <= scanned
     offenders = []
     for path in _sources():
         with open(path) as f:
@@ -215,6 +227,8 @@ def test_default_executor_needs_a_gpu():
         ptt.Executor()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ptt.serving.InferenceServer(lambda seq: None, ptt.Scope())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ptt.serving.DecodeEngine(None, {})
     assert ptt.Executor(ptt.CPUPlace()).device == torch.device("cpu")
 
 
