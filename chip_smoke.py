@@ -180,6 +180,28 @@ JAX, prints one line per phase, and raises on any failure:
    bucket-2048 serving batch, a float32 and an AMP GPT step, a ResNet-50
    step (float32 and AMP) and one step of each ``ring_train`` program
    (ring and flash).
+12. ``bert_train`` — BERT-base MLM pretraining at ``bench.py:264-300``'s
+   full configuration with its default dropout 0.1 (``BertConfig()``,
+   batch 128 x seq 128, fused head, arange positions, AMP Adam) and the
+   fusion autotuner on, 1 + 5 steps: finite losses, the bf16 dropout
+   kernel launched 98 times a timed step (49 dropouts, 49 gradients), the
+   bf16 K5 and K4 as the verdicts give them; then a 2-layer AMP step of
+   the same width, autotuned, against the host at the same masks (the
+   bits depend only on the seed and the tags), and the fused 2-layer
+   float32 program against the unfused one on the card (3 steps, losses
+   within 1e-5 relative); ``--profile`` adds one step by kernel class.
+   ``bert_masked`` — the ``masked_gather=20`` line (``bench.py:323-357``),
+   1 + 3 steps.  ``transformer_wmt`` — Transformer-base WMT
+   (``bench.py:579-625``: V 37000, d 512, 6 + 6 layers, batch 32 x seq
+   256, AMP Adam), 1 + 3 steps, 86 dropout launches a step.
+   ``se_resnext`` — SE-ResNeXt-50 (3x224x224, 1000 classes, Momentum,
+   float32, TF32 off) at batch 64, 1 + 3 steps; whether the 1x1 conv + BN
+   pairs went to K3 is reported.  The ``kernel`` phases hold the dropout
+   kernel against its plain version bit for bit (out, mask and both
+   gradient forms) at [128, 128, 768] and [128, 12, 128, 128], p 0.1,
+   0.5, 0.001, 0 and 1, both implementations, with the keep rate within 5
+   binomial standard deviations; ``timing`` times it cold at [128, 12,
+   128, 128] beside ``F.dropout``, and the new paths' steps.
 
 Then one JSON line describing every kernel, the ``nvidia-smi`` line, and a
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -340,6 +362,38 @@ RING_MERGE_TOL, RING_LOSS_RTOL = 1e-6, 1e-4
 # step's [24, 2048, 64]) and of K4's backward (3 x 50 MB in bf16, at [16384,
 # 768]): more than the card's 50 MB L2 in all
 MERGE_COLD_SETS, K4_COLD_SETS = 6, 3
+# the dropout kernel against its plain version, bit for bit, at BERT-base's
+# shapes at batch 128 x 128 (a sublayer's output, the attention weights),
+# with the keep rate within DROPOUT_SIGMAS binomial standard deviations of
+# 1 - threshold / 256; timed cold over DROPOUT_COLD_SETS input sets (50 MB
+# each in bf16 at [128, 12, 128, 128])
+DROPOUT_SHAPES = ((128, 128, 768), (128, 12, 128, 128))
+DROPOUT_PS, DROPOUT_SIGMAS, DROPOUT_COLD_SETS = (0.1, 0.5, 0.001, 0.0,
+                                                 1.0), 5, 3
+# the training configurations dropout unblocks: bench.py's BERT-base line
+# (bench.py:264-300: BertConfig(), seq 128, batch 128, fused head, arange
+# positions, AMP Adam 1e-4) with the fusion autotuner on, 1 + 5 steps; its
+# masked_gather=20 line (bench.py:323-357), 1 + 3; Transformer-base WMT
+# (bench.py:579-625: V 37000, d 512, 6 + 6 layers, 8 heads, F 2048, batch
+# 32, seq 256, fused head, AMP Adam), 1 + 3; SE-ResNeXt-50 (3x224x224, 1000
+# classes, Momentum(0.1, 0.9), float32, TF32 off) at batch 64, 1 + 3
+BERT_BATCH, BERT_SEQ, BERT_STEPS = 128, 128, 5
+# the 2-layer AMP step against the host: 16 x 128 tokens, so the autotuner
+# times the FFN products at M 2048
+BERT_SMALL_BATCH = 16
+BERT_MASKED, BERT_MASKED_STEPS = 20, 3
+WMT = dict(vocab=37000, d_model=512, n_layer=6, n_head=8, d_inner=2048)
+WMT_BATCH, WMT_SEQ, WMT_STEPS = 32, 256, 3
+SE_BATCH, SE_STEPS, SE_IMAGE = 64, 3, (3, 224, 224)
+# a dropout a sublayer: BERT-base 1 + 4 x 12 = 49 a forward (the embedding,
+# each layer's attention weights, attention output, FFN hidden and FFN
+# output), as many gradients; the NMT's encoder 1 + 4 x 6, its decoder
+# 3 x 6 (self- and cross-attention weights, FFN hidden)
+BERT_DROPOUTS, WMT_DROPOUTS = 2 * 49, 2 * 43
+# the fused 2-layer BERT (autotuner off) against the unfused one on the
+# card, float32, 3 steps: the fused tail regenerates the unfused op's masks,
+# so the losses differ only by the products' order (1e-5 relative)
+FUSED_UNFUSED_RTOL = 1e-5
 
 
 def _log(phase, msg):
@@ -1010,6 +1064,7 @@ def phase_kernel(built):
              f"sum of |terms|) ok")
         del q, k, v, do
     torch.cuda.empty_cache()
+    worst.update(check_dropout("float32"))
     return worst
 
 
@@ -1198,6 +1253,7 @@ def phase_kernel_bf16(built):
              f"{K3_SUM_RTOL:.3g} sum|x||w|) ok; y: {_flips(y, ry)}")
         del x, w, y, ry, terms
     torch.cuda.empty_cache()
+    worst.update(check_dropout("bfloat16"))
     return worst
 
 
@@ -1332,7 +1388,8 @@ _KERNEL_MODULES = {
     "conv1x1_stats": "conv_bn", "matmul_bn_stats": "conv_bn",
     "layer_norm_fwd": "layer_norm", "layer_norm_bwd": "layer_norm",
     "dense_epilogue": "dense_epilogue", "attn_skeleton_fwd": "attn_skeleton",
-    "attn_skeleton_bwd": "attn_skeleton", "ring_merge": "ring_attention"}
+    "attn_skeleton_bwd": "attn_skeleton", "ring_merge": "ring_attention",
+    "dropout": "dropout"}
 
 
 def _kernel_module(name):
@@ -2549,8 +2606,8 @@ def _profile_step(label, step):
     # kernel classes by name: the port's kernels, cuBLAS, PyTorch's dtype
     # casts (AMP), the rest (elementwise, reductions, Adam)
     classes = dict.fromkeys(("K1", "K2", "K1/K2 float32 split pass",
-                             "K4, K5", "K7 merge", "GEMMs", "casts",
-                             "elementwise, reductions, Adam"), 0.0)
+                             "K4, K5", "K7 merge", "dropout", "GEMMs",
+                             "casts", "elementwise, reductions, Adam"), 0.0)
     for ms, _, key in rows:
         k = key.lower()
         if k.startswith(("memcpy", "memset")):
@@ -2560,6 +2617,7 @@ def _profile_step(label, step):
                else "K4, K5" if any(t in k for t in (
                    "ln_fwd", "ln_bwd", "colsum", "dense_act", "round_pad"))
                else "K7 merge" if "ring_merge" in k
+               else "dropout" if "dropout_kernel" in k
                else "GEMMs" if any(t in k for t in (
                    "gemm", "cutlass", "nvjet", "xmma"))
                else "casts" if "copy_kernel" in k
@@ -3752,6 +3810,541 @@ def timing_k68(smi):
     return out
 
 
+def _bits_equal(a, b):
+    import torch
+    it = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.contiguous().view(it),
+                                              b.contiguous().view(it))
+
+
+def check_dropout(dtype):
+    """The dropout kernel against its plain version on the card, bit for
+    bit: out and mask at DROPOUT_SHAPES for each p of DROPOUT_PS in both
+    implementations, and the gradient (the same stream on an output
+    gradient, and the stored mask in place of the stream); the keep rate
+    within DROPOUT_SIGMAS binomial standard deviations."""
+    import torch
+    from paddle_tpu_torch.kernels import dropout as dk
+    from paddle_tpu_torch.ops.nn_ops import dropout_scale
+    phase = "kernel" if dtype == "float32" else "kernel_bf16"
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(16)
+    worst, rates, cases = 0.0, [], 0
+    for shape in DROPOUT_SHAPES:
+        x = torch.randn(shape, device="cuda", generator=g).to(dt)
+        dy = torch.randn(shape, device="cuda", generator=g).to(dt)
+        n = x.numel()
+        for i, p in enumerate(DROPOUT_PS):
+            stream = dk.tagged_stream(0x5EED00000000 + 977 * i,
+                                      0x7FFFFF00 + i)
+            thr = dk.threshold(p)
+            for impl in ("upscale_in_train", "downgrade_in_infer"):
+                scale = dropout_scale({"dropout_prob": p,
+                                       "dropout_implementation": impl})
+                out, mask = dk.dropout_fwd(x, stream, thr, scale,
+                                           want_mask=True)
+                ref, rmask = dk.dropout_plain(x, stream, thr, scale,
+                                              want_mask=True)
+                gx = dk.dropout_fwd(dy, stream, thr, scale)[0]
+                gref = dk.dropout_plain(dy, stream, thr, scale)[0]
+                gm = dk.dropout_fwd(dy, None, 0, scale, mask_in=mask)[0]
+                torch.cuda.synchronize()
+                for what, a, b in (("out", out, ref), ("grad", gx, gref),
+                                   ("grad from the mask", gm, gref)):
+                    if not _bits_equal(a, b):
+                        raise AssertionError(
+                            f"dropout {dtype} {shape} p {p} {impl}: {what} "
+                            f"differs from the plain version: max abs "
+                            f"{float((a.float() - b.float()).abs().max())}")
+                if not torch.equal(mask, rmask):
+                    raise AssertionError(f"dropout {dtype} {shape} p {p}: "
+                                         f"{int((mask != rmask).sum())} mask "
+                                         f"bytes differ")
+                worst = max(worst, float((out.float() - ref.float()).abs()
+                                         .max()))
+                cases += 1
+            kept = int(mask.sum())
+            q = 1 - thr / 256
+            sd = (n * q * (1 - q)) ** 0.5
+            if (q in (0.0, 1.0) and kept != q * n) or \
+                    abs(kept - q * n) > DROPOUT_SIGMAS * sd:
+                raise AssertionError(f"dropout p {p}: kept {kept} of {n}, "
+                                     f"expected {q * n:.0f} +- "
+                                     f"{DROPOUT_SIGMAS} x {sd:.1f}")
+            rates.append(f"p {p}: {(kept - q * n) / max(sd, 1e-30):+.2f} sd")
+        del x, dy, out, mask, ref, rmask, gx, gref, gm
+    _log(phase, f"dropout {dtype}: {cases} cases at {list(DROPOUT_SHAPES)} "
+         f"(p {list(DROPOUT_PS)}, both implementations): out, mask and both "
+         f"gradient forms bit for bit with the plain version; keep rate vs "
+         f"1 - threshold/256 at [128, 12, 128, 128] in sd: "
+         f"{'; '.join(rates[len(DROPOUT_PS):])} ok")
+    return {"dropout" + ("" if dtype == "float32" else "_bf16"): worst}
+
+
+def timing_dropout(smi, bert, wmt, se):
+    """The dropout kernel at BERT's attention weights [128, 12, 128, 128]
+    (p 0.1, upscale_in_train), both dtypes: cold over input sets of more
+    than the L2 in all (its share of the bound uses that time), warm, its
+    plain version, and ``F.dropout`` at the same shape and dtype (cold).
+    The bound: x read and out written at the card's bytes rate, against
+    ~9 operations an element (the product, compare and select, and 10
+    Philox rounds of ~10 integer operations per 16 elements) at its
+    float32 rate."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import dropout as dk
+    from paddle_tpu_torch.tools.k4_k7_compare import cold_ms
+    from paddle_tpu_torch.tools.timing import time_fn
+    g = torch.Generator(device="cuda")
+    g.manual_seed(17)
+    shape = DROPOUT_SHAPES[1]
+    stream, thr, scale = dk.tagged_stream(3, 5), dk.threshold(0.1), 1 / 0.9
+    out = {}
+    for dtype, name in (("float32", "dropout"), ("bfloat16", "dropout_bf16")):
+        dt = getattr(torch, dtype)
+        sets = [torch.randn(shape, device="cuda", generator=g).to(dt)
+                for _ in range(DROPOUT_COLD_SETS)]
+        n = sets[0].numel()
+        ms = cold_ms([lambda s=s: dk.dropout_fwd(s, stream, thr, scale)
+                      for s in sets])
+        warm = _held_ms(lambda: dk.dropout_fwd(sets[0], stream, thr, scale))
+        # the plain version's host side (its small constant tensors) takes
+        # longer than its kernels: timed with events over a run of calls
+        plain = 1e3 * time_fn(lambda: dk.dropout_plain(sets[0], stream, thr,
+                                                       scale), iters=5)
+        library = cold_ms([lambda s=s: F.dropout(s, 0.1, training=True)
+                           for s in sets])
+        nbytes = 2.0 * n * sets[0].element_size()
+        bound_ms, bound_by, why = _bound(n * (3 + 100 / 16), nbytes)
+        out[name] = {"ms": ms, "warm_ms": warm, "plain_ms": plain,
+                     "library_ms": library, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "shape": list(shape)}
+        _log("timing", f"{name} {list(shape)} p 0.1 on {smi}: kernel cold "
+             f"{ms:.4f} ms ({DROPOUT_COLD_SETS} input sets in turn), warm "
+             f"{warm:.4f} ms, plain {plain:.4f} ms, F.dropout cold "
+             f"{library:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+             f"({why}): {100 * bound_ms / ms:.1f}% of bound cold")
+        del sets
+    for label, r in (("bert_train", bert), ("transformer_wmt", wmt),
+                     ("se_resnext", se)):
+        _log("timing", f"{label} on {smi}: step {r['step_ms']:.1f} ms (mean "
+             f"of {len(r['step_s'])}), {r['rate']:.0f} {r['unit']}/s, peak "
+             f"memory {r['peak_bytes'] / 2**30:.2f} GiB "
+             f"({(r['peak_bytes'] - r['held_bytes']) / 2**30:.2f} GiB above "
+             f"what was allocated before its first step)")
+    return out
+
+
+def _dropout_launches():
+    from paddle_tpu_torch.kernels import dropout as dk
+    return {d: dk.launch_count("dropout", d) for d in ("float32",
+                                                        "bfloat16")}
+
+
+def _run_steps(phase, exe, main, feed, loss, scope, steps, counts):
+    """A warm-up step and ``steps`` timed ones, each ending in a
+    synchronize; ``counts()`` read after each.  Returns the losses, the
+    timed steps' seconds, the warm-up's, each step's launches and the
+    peak memory above what was held before the first step."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    prev, per_step, losses, step_s = counts(), [], [], []
+    for _ in range(steps + 1):
+        t0 = time.perf_counter()
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        now = counts()
+        per_step.append({k: now[k] - prev[k] for k in now})
+        prev = now
+        losses.append(float(out))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{phase}: losses not finite: {losses}")
+    warm_s = step_s.pop(0)
+    return {"losses": losses, "step_s": step_s, "warmup_s": warm_s,
+            "step_ms": 1e3 * float(np.mean(step_s)), "per_step": per_step,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "held_bytes": held}
+
+
+def _bert_program(cfg, seq, amp=True, masked_gather=None):
+    """``build_bert_pretrain`` as bench.py builds it (fused head, arange
+    positions) under ``amp.decorate(AdamOptimizer(1e-4))`` when ``amp``."""
+    from paddle_tpu_torch import amp as amp_mod
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.framework import Program, program_guard
+    from paddle_tpu_torch.models import transformer as T
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        _, _, loss = T.build_bert_pretrain(cfg, seq, fused_head=True,
+                                           arange_pos=True,
+                                           masked_gather=masked_gather)
+        adam = optimizer.AdamOptimizer(learning_rate=1e-4)
+        (amp_mod.decorate(adam) if amp else adam).minimize(loss)
+    return main, startup, loss
+
+
+def _bert_feed(cfg, batch, seq, seed=0, n_mask=None):
+    """bench.py's feeds: random ids, every position labelled (or, with
+    ``n_mask``, n_mask distinct positions a sequence and their labels)."""
+    rng = np.random.RandomState(seed)
+    if n_mask:
+        pos = np.stack([rng.choice(seq, n_mask, replace=False) + i * seq
+                        for i in range(batch)]).astype(np.int64)
+        return {"src_ids": rng.randint(1, cfg.vocab_size, (batch, seq)),
+                "mask_pos": pos,
+                "lm_label": rng.randint(1, cfg.vocab_size, (batch, n_mask))}
+    return {"src_ids": rng.randint(1, cfg.vocab_size, (batch, seq)),
+            "lm_label": rng.randint(0, cfg.vocab_size, (batch, seq))}
+
+
+def _bert_small_checks(exe):
+    """Two 2-layer BERTs of BERT-base's width at seq 128.  (1) The AMP
+    program, fused and autotuned on the card (the flags are the caller's),
+    one step at batch BERT_SMALL_BATCH against the same fused program on
+    the host at the same seed: the masks are the same by design (the bits depend only on
+    the seed and the tags), so the two differ by the AMP tolerances only.
+    (2) float32, autotuner off: the fused program against the unfused one
+    (``FLAGS_graph_fusion`` off) on the card, 3 steps at batch 8 from the
+    same weights: losses within FUSED_UNFUSED_RTOL."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.analysis import fusion
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.models import transformer as T
+    small = T.BertConfig(n_layer=2)
+    s_main, s_startup, s_loss = _bert_program(small, BERT_SEQ)
+    s_scope, host_scope = Scope(), Scope()
+    exe.run(s_startup, scope=s_scope, seed=99)
+    for name, val in s_scope.items():
+        host_scope.set_var(name, val.detach().cpu())
+    feed = _bert_feed(small, BERT_SMALL_BATCH, BERT_SEQ, seed=1)
+    grads = ["mlm_out.w@GRAD", "enc_0.attn.qkv.w@GRAD",
+             "enc_1.ffn.fc1.w@GRAD", "word_embedding@GRAD"]
+    fetch = [s_loss.name] + grads
+    card = exe.run(s_main, feed=feed, fetch_list=fetch, scope=s_scope,
+                   seed=7)
+    host_prog = fusion.fuse_program(
+        s_main, fetch, feed_shapes={n: v.shape for n, v in feed.items()},
+        device=exe.device)
+    n_tail = sum(op.type == "fused_dense_act" and bool(op.attrs["seed"])
+                 for op in host_prog.global_block().ops)
+    t_c = time.perf_counter()
+    host = ptt.Executor(ptt.CPUPlace()).run(
+        host_prog, feed=feed, fetch_list=fetch, scope=host_scope, seed=7)
+    host_s = time.perf_counter() - t_c
+    loss_err = abs(float(card[0]) - float(host[0])) / abs(float(host[0]))
+    errs = {n: _frac_err(c, h) for n, c, h in zip(grads, card[1:], host[1:])}
+    bad = {n: e for n, e in errs.items() if not e[0] <= AMP_SMALL_FRAC}
+    if not loss_err <= AMP_SMALL_LOSS_RTOL or bad:
+        raise AssertionError(f"bert_train: AMP card step vs host: loss "
+                             f"{float(card[0])} vs {float(host[0])} (rel "
+                             f"{loss_err}), gradients beyond "
+                             f"{AMP_SMALL_FRAC} x max|g|: {bad}")
+    verdicts = ", ".join(
+        f"{d['pattern']} {d['verdict']}" for d in
+        host_prog._attrs.get("fusion", {}).get("candidates", []))
+    _log("bert_train", f"2-layer batch-{BERT_SMALL_BATCH} seq-{BERT_SEQ} AMP "
+         f"step, autotuned ({n_tail} fused_dense_act with the dropout tail; "
+         f"verdicts {verdicts}), "
+         f"vs the host at the same masks ({host_s:.1f} s): loss "
+         f"{float(card[0]):.6f} vs {float(host[0]):.6f}, rel err "
+         f"{loss_err:.3g} (rtol {AMP_SMALL_LOSS_RTOL:.3g}); grads max err / "
+         f"max|g| (share beyond 2 bf16 ulps + 1e-3 max|g|): "
+         + "; ".join(f"{n.split('@')[0]} {e[0]:.3g} ({e[1]:.2g})"
+                     for n, e in errs.items())
+         + f" (bound {AMP_SMALL_FRAC:.3g}) ok")
+
+    saved = flags.get_flags(["FLAGS_fusion_autotune", "FLAGS_graph_fusion"])
+    f_main, f_startup, f_loss = _bert_program(small, BERT_SEQ, amp=False)
+    init = Scope()
+    exe.run(f_startup, scope=init, seed=98)
+    runs, n_fused = {}, {}
+    try:
+        for fused in (True, False):
+            flags.set_flags({"FLAGS_fusion_autotune": False,
+                             "FLAGS_graph_fusion": fused})
+            sc = Scope()
+            for name, val in init.items():
+                sc.set_var(name, val.clone())
+            fexe = ptt.Executor()
+            runs[fused] = [float(fexe.run(
+                f_main, feed=_bert_feed(small, 8, BERT_SEQ, seed=step),
+                fetch_list=[f_loss], scope=sc, seed=50 + step)[0])
+                for step in range(3)]
+            plan = _adam_plan(fexe)
+            n_fused[fused] = sum(op.type == "fused_dense_act" and
+                                 bool(op.attrs["seed"])
+                                 for op, _ in plan.ops)
+    finally:
+        flags.set_flags(saved)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs[True], runs[False]))
+    if n_fused != {True: 2, False: 0} or not rel <= FUSED_UNFUSED_RTOL:
+        raise AssertionError(f"bert_train: fused vs unfused float32: losses "
+                             f"{runs}, rel {rel}; fused dropout tails "
+                             f"{n_fused}")
+    _log("bert_train", f"2-layer batch-8 float32, fused ({n_fused[True]} "
+         f"dropout tails, autotuner off) vs unfused on the card, 3 steps: "
+         f"losses {', '.join(f'{x:.6f}' for x in runs[True])} vs "
+         f"{', '.join(f'{x:.6f}' for x in runs[False])}, max rel "
+         f"{rel:.3g} (rtol {FUSED_UNFUSED_RTOL}) ok")
+    return {"amp_loss_rel_err": loss_err, "amp_grad_err_frac": errs,
+            "amp_dropout_tails": n_tail, "amp_verdicts": verdicts,
+            "fused_losses": runs[True], "unfused_losses": runs[False],
+            "fused_vs_unfused_rel": rel}
+
+
+def phase_bert_train(profile=False):
+    """BERT-base MLM pretraining at bench.py's full configuration with its
+    default dropout 0.1, the fusion autotuner on: the 12 FFN chains become
+    ``fused_dense_act`` with the dropout tail (the bf16 K5 where the
+    autotuner measured it faster) and the embedding LayerNorm the bf16 K4;
+    every dropout and dropout gradient runs the dropout kernel in bf16.
+    1 + BERT_STEPS steps; then the 2-layer checks (``_bert_small_checks``)
+    and, with ``profile``, one step by kernel class."""
+    import shutil
+    import tempfile
+
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.analysis import fusion
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.models import transformer as T
+
+    cfg = T.BertConfig()
+    assert cfg.dropout == 0.1
+    cache_dir = tempfile.mkdtemp(prefix="fusion_autotune_")
+    fusion.clear_cache()
+    flags.set_flags(dict(FUSED_FLAGS, FLAGS_xla_compile_cache_dir=cache_dir))
+    try:
+        main, startup, loss = _bert_program(cfg, BERT_SEQ)
+        types = [op.type for op in main.global_block().ops]
+        n_drop = types.count("dropout") + types.count("dropout_grad")
+        if n_drop != BERT_DROPOUTS:
+            raise AssertionError(f"bert_train: {n_drop} dropout ops, "
+                                 f"expected {BERT_DROPOUTS}")
+        scope, exe = Scope(), ptt.Executor()
+        exe.run(startup, scope=scope, seed=1234)
+        n_params = sum(int(scope.find_var(p.name).numel())
+                       for p in main.all_parameters())
+        feed = _bert_feed(cfg, BERT_BATCH, BERT_SEQ)
+        for name in _KERNEL_MODULES:
+            _kernel_module(name).reset_launch_count()
+
+        def counts():
+            c = {k + "_bf16": v for k, v in _fused_launches("bfloat16")
+                 .items()}
+            c.update({"dropout_" + d: n for d, n in
+                      _dropout_launches().items()})
+            return c
+
+        r = _run_steps("bert_train", exe, main, feed, loss, scope,
+                       BERT_STEPS, counts)
+        plan = _adam_plan(exe)
+        ftypes = [op.type for op, _ in plan.ops]
+        decisions = plan.block.program._attrs["fusion"]["candidates"]
+        applied = {p: sum(d["verdict"] == "applied" for d in decisions
+                          if d["pattern"] == p)
+                   for p in ("dense_epilogue", "embedding_layer_norm")}
+        tails = sum(op.type == "fused_dense_act" and bool(op.attrs["seed"])
+                    for op, _ in plan.ops)
+        launches = {k: sum(s[k] for s in r["per_step"])
+                    for k in r["per_step"][0]}
+        step = r["per_step"][-1]
+        want = {"dropout_bfloat16": BERT_DROPOUTS, "dropout_float32": 0,
+                "dense_epilogue_bf16": applied["dense_epilogue"],
+                "layer_norm_fwd_bf16": applied["embedding_layer_norm"],
+                "layer_norm_bwd_bf16": applied["embedding_layer_norm"]}
+        got = {k: step[k] for k in want}
+        if any(s["dropout_bfloat16"] != BERT_DROPOUTS
+               for s in r["per_step"][1:]) or got != want or \
+                not launches["dense_epilogue_bf16"] or \
+                not launches["layer_norm_fwd_bf16"] or \
+                not launches["layer_norm_bwd_bf16"]:
+            raise AssertionError(f"bert_train: launches per step "
+                                 f"{r['per_step']}, expected {want} a timed "
+                                 f"step and K5, K4 bf16 launched")
+        tokens = BERT_BATCH * BERT_SEQ
+        r.update(launches=launches, tokens=tokens, n_params=n_params,
+                 rate=tokens / (r["step_ms"] / 1e3), unit="tokens",
+                 applied=applied, tails=tails, ops=len(ftypes))
+        _log("bert_train", f"BERT-base MLM (vocab {cfg.vocab_size}, d "
+             f"{cfg.d_model}, {cfg.n_layer} layers, dropout {cfg.dropout}; "
+             f"{n_params / 1e6:.1f} M parameters), batch {BERT_BATCH} x seq "
+             f"{BERT_SEQ}, AMP Adam, autotuner on: plan of {len(ftypes)} ops "
+             f"({ftypes.count('fused_dense_act')} fused_dense_act, {tails} "
+             f"with the dropout tail; applied {applied}); warm-up step "
+             f"{r['warmup_s']:.2f} s, then {BERT_STEPS} steps of "
+             f"{', '.join(f'{1e3 * x:.1f}' for x in r['step_s'])} ms "
+             f"({r['rate']:.0f} tokens/s); losses "
+             f"{', '.join(f'{x:.4f}' for x in r['losses'])}; launches a "
+             f"step { {k: v for k, v in step.items() if v} } (warm-up "
+             f"{ {k: v for k, v in r['per_step'][0].items() if v} }); peak "
+             f"memory {r['peak_bytes'] / 2**30:.2f} GiB, of which "
+             f"{r['held_bytes'] / 2**30:.2f} GiB allocated before the first "
+             f"step")
+        r["small"] = _bert_small_checks(exe)
+        if profile:
+            r["profile"] = _profile_step(
+                f"BERT-base AMP training step, batch {BERT_BATCH} x seq "
+                f"{BERT_SEQ} (autotuned)",
+                lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope))
+    finally:
+        flags.set_flags(DEFAULT_FLAGS)
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    return r
+
+
+def phase_bert_masked():
+    """bench.py's masked-gather BERT-base line: the encoder output gathered
+    to 20 positions a sequence before the head; AMP Adam, default flags,
+    1 + BERT_MASKED_STEPS steps."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.models import transformer as T
+    cfg = T.BertConfig()
+    main, startup, loss = _bert_program(cfg, BERT_SEQ,
+                                        masked_gather=BERT_MASKED)
+    types = [op.type for op in main.global_block().ops]
+    assert types.count("gather") == 1, types.count("gather")
+    scope, exe = Scope(), ptt.Executor()
+    exe.run(startup, scope=scope, seed=1234)
+    feed = _bert_feed(cfg, BERT_BATCH, BERT_SEQ, n_mask=BERT_MASKED)
+    r = _run_steps("bert_masked", exe, main, feed, loss, scope,
+                   BERT_MASKED_STEPS, _dropout_launches)
+    if any(s["bfloat16"] != BERT_DROPOUTS for s in r["per_step"]):
+        raise AssertionError(f"bert_masked: dropout launches a step "
+                             f"{r['per_step']}, expected {BERT_DROPOUTS}")
+    tokens = BERT_BATCH * BERT_SEQ
+    r.update(rate=tokens / (r["step_ms"] / 1e3), unit="tokens",
+             launches={"dropout_bf16": sum(s["bfloat16"]
+                                           for s in r["per_step"])})
+    _log("bert_masked", f"BERT-base, masked_gather {BERT_MASKED}, batch "
+         f"{BERT_BATCH} x seq {BERT_SEQ}, AMP Adam: warm-up step "
+         f"{r['warmup_s']:.2f} s, then {BERT_MASKED_STEPS} steps of "
+         f"{', '.join(f'{1e3 * x:.1f}' for x in r['step_s'])} ms "
+         f"({r['rate']:.0f} tokens/s); losses "
+         f"{', '.join(f'{x:.4f}' for x in r['losses'])}; dropout launches "
+         f"{BERT_DROPOUTS} a step, bf16; peak memory "
+         f"{r['peak_bytes'] / 2**30:.2f} GiB")
+    return r
+
+
+def phase_transformer_wmt():
+    """Transformer-base WMT14 en-de at bench.py's configuration (WMT): AMP
+    Adam, default flags, 1 + WMT_STEPS steps; every dropout and dropout
+    gradient (43 + 43 a step) through the bf16 dropout kernel."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import amp as amp_mod
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.framework import Program, Scope, program_guard
+    from paddle_tpu_torch.models import transformer as T
+    v, seq = WMT["vocab"], WMT_SEQ
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        _, _, loss = T.build_transformer_nmt(
+            v, v, seq, d_model=WMT["d_model"], n_layer=WMT["n_layer"],
+            n_head=WMT["n_head"], d_inner=WMT["d_inner"], fused_head=True)
+        amp_mod.decorate(optimizer.AdamOptimizer(1e-4)).minimize(loss)
+    types = [op.type for op in main.global_block().ops]
+    n_drop = types.count("dropout") + types.count("dropout_grad")
+    if n_drop != WMT_DROPOUTS or types.count("assign_value") != 1:
+        raise AssertionError(f"transformer_wmt: {n_drop} dropout ops "
+                             f"(expected {WMT_DROPOUTS}), "
+                             f"{types.count('assign_value')} assign_value")
+    scope, exe = Scope(), ptt.Executor()
+    exe.run(startup, scope=scope, seed=1234)
+    n_params = sum(int(scope.find_var(p.name).numel())
+                   for p in main.all_parameters())
+    rng = np.random.RandomState(0)
+    pos = np.tile(np.arange(seq), (WMT_BATCH, 1))
+    feed = {"src_ids": rng.randint(1, v, (WMT_BATCH, seq)), "src_pos": pos,
+            "trg_ids": rng.randint(1, v, (WMT_BATCH, seq)), "trg_pos": pos,
+            "label": rng.randint(1, v, (WMT_BATCH, seq))}
+    r = _run_steps("transformer_wmt", exe, main, feed, loss.name, scope,
+                   WMT_STEPS, _dropout_launches)
+    if any(s["bfloat16"] != WMT_DROPOUTS or s["float32"]
+           for s in r["per_step"]):
+        raise AssertionError(f"transformer_wmt: dropout launches a step "
+                             f"{r['per_step']}, expected {WMT_DROPOUTS} "
+                             f"bf16")
+    tokens = 2 * WMT_BATCH * seq
+    r.update(rate=tokens / (r["step_ms"] / 1e3), unit="tokens",
+             n_params=n_params,
+             launches={"dropout_bf16": sum(s["bfloat16"]
+                                           for s in r["per_step"])})
+    _log("transformer_wmt", f"Transformer-base NMT (V {v}, d "
+         f"{WMT['d_model']}, {WMT['n_layer']} + {WMT['n_layer']} layers, "
+         f"{WMT['n_head']} heads, F {WMT['d_inner']}, dropout 0.1; "
+         f"{n_params / 1e6:.1f} M parameters), batch {WMT_BATCH} x seq {seq}"
+         f", AMP Adam: warm-up step {r['warmup_s']:.2f} s, then {WMT_STEPS} "
+         f"steps of {', '.join(f'{1e3 * x:.1f}' for x in r['step_s'])} ms "
+         f"({r['rate']:.0f} source + target tokens/s); losses "
+         f"{', '.join(f'{x:.4f}' for x in r['losses'])}; dropout launches "
+         f"{WMT_DROPOUTS} a step, bf16; peak memory "
+         f"{r['peak_bytes'] / 2**30:.2f} GiB, of which "
+         f"{r['held_bytes'] / 2**30:.2f} GiB allocated before the first "
+         f"step")
+    return r
+
+
+def phase_se_resnext():
+    """SE-ResNeXt-50 (``build_se_resnext_train``: 3x224x224, 1000 classes,
+    cardinality 32, the head's dropout 0.5) under
+    ``MomentumOptimizer(0.1, 0.9)``, float32, TF32 off, batch SE_BATCH,
+    1 + SE_STEPS steps: finite losses, the head's dropout and its gradient
+    through the float32 kernel each step; whether the fusion pass took the
+    1x1 conv + BN pairs into K3 is reported, not held."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.framework import Program, Scope, program_guard
+    from paddle_tpu_torch.kernels import conv_bn as cb
+    from paddle_tpu_torch.models import resnet
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        loss, _, _ = resnet.build_se_resnext_train(image_shape=SE_IMAGE)
+        optimizer.MomentumOptimizer(0.1, 0.9).minimize(loss)
+    scope, exe = Scope(), ptt.Executor()
+    exe.run(startup, scope=scope, seed=1234)
+    rng = np.random.RandomState(0)
+    feed = {"img": rng.rand(SE_BATCH, *SE_IMAGE).astype(np.float32),
+            "label": rng.randint(0, 1000, (SE_BATCH, 1))}
+
+    def counts():
+        c = _dropout_launches()
+        c["conv1x1_stats"] = cb.launch_count("conv1x1_stats")
+        return c
+
+    assert not torch.backends.cudnn.allow_tf32
+    r = _run_steps("se_resnext", exe, main, feed, loss.name, scope, SE_STEPS,
+                   counts)
+    if any(s["float32"] != 2 or s["bfloat16"] for s in r["per_step"]):
+        raise AssertionError(f"se_resnext: dropout launches a step "
+                             f"{r['per_step']}, expected 2 float32")
+    plan = _train_plan(exe)
+    ftypes = [op.type for op, _ in plan.ops]
+    r.update(rate=SE_BATCH / (r["step_ms"] / 1e3), unit="images",
+             fused_conv1x1_bn=ftypes.count("fused_conv1x1_bn"),
+             k3_per_step=r["per_step"][-1]["conv1x1_stats"],
+             launches={"dropout": sum(s["float32"] for s in r["per_step"])})
+    _log("se_resnext", f"SE-ResNeXt-50 (32 x 4d groups, SE ratio 16), batch "
+         f"{SE_BATCH} x {'x'.join(map(str, SE_IMAGE))}, Momentum, float32, TF32 off: warm-up "
+         f"step {r['warmup_s']:.2f} s, then {SE_STEPS} steps of "
+         f"{', '.join(f'{1e3 * x:.1f}' for x in r['step_s'])} ms "
+         f"({r['rate']:.1f} images/s); losses "
+         f"{', '.join(f'{x:.4f}' for x in r['losses'])}; the fusion pass "
+         f"took {r['fused_conv1x1_bn']} conv1x1 + BN pairs into "
+         f"fused_conv1x1_bn (K3 launches a step: {r['k3_per_step']}); "
+         f"dropout launches 2 a step, float32; peak memory "
+         f"{r['peak_bytes'] / 2**30:.2f} GiB")
+    return r
+
+
 _KERNELS = (
     ("flash_attn_fwd", "paddle_tpu_torch/csrc/flash_attn_fwd_sm90.cu",
      "paddle_tpu/pallas/flash_attention.py:179"),
@@ -3773,13 +4366,15 @@ _KERNELS = (
      "tools/attn_shape_ceiling.py:78"),
     ("ring_merge", "paddle_tpu_torch/csrc/ring_attention.cu",
      "paddle_tpu/pallas/ring_attention.py:70"),
+    ("dropout", "paddle_tpu_torch/csrc/dropout.cu",
+     "paddle_tpu/ops/nn_ops.py:647"),
 )
 
 
 #: the kernels with a bf16 form (AMP), listed as ``<name>_bf16``
 _BF16_FORMS = ("flash_attn_fwd", "flash_attn_bwd", "conv1x1_stats",
                "layer_norm_fwd", "layer_norm_bwd", "dense_epilogue",
-               "ring_merge")
+               "ring_merge", "dropout")
 
 
 def main(argv=None) -> int:
@@ -3789,8 +4384,8 @@ def main(argv=None) -> int:
                     help="also profile one bucket-2048 batch, a decode "
                          "step (graph and uncaptured), a float32 "
                          "and an AMP GPT step, a float32 and an AMP "
-                         "ResNet-50 step and a step of each ring_train "
-                         "program by kernel")
+                         "ResNet-50 step, a step of each ring_train "
+                         "program and a bert_train step by kernel")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3819,12 +4414,17 @@ def main(argv=None) -> int:
     rn50_fused = phase_rn50_fused()
     ceiling = phase_attn_ceiling()
     ring_train = phase_ring_train(args.profile)
+    bert = phase_bert_train(args.profile)
+    bert_masked = phase_bert_masked()
+    wmt = phase_transformer_wmt()
+    se = phase_se_resnext()
     timing = phase_timing(smi, serve, train)
     timing["conv1x1_stats"] = timing_k3(smi, resnet)
     timing.update(timing_k45(smi, train, fused))
     timing.update(timing_k68(smi))
     timing.update(timing_bf16(smi, amp_train, amp_fused, amp_resnet))
     timing.update(timing_ring(smi, ring_train))
+    timing.update(timing_dropout(smi, bert, wmt, se))
     ring_times = timing.pop("ring")
     k3_shapes = timing["conv1x1_stats"].pop("per_shape")
     k3_bf16_shapes = timing["conv1x1_stats_bf16"].pop("per_shape")
@@ -3838,7 +4438,8 @@ def main(argv=None) -> int:
                 "amp_resnet": phase_resnet_profile(
                     amp_resnet, "AMP ", AMP_BATCH_RESNET),
                 **{f"ring_train_{impl}": ring_train[impl]["profile"]
-                   for impl in ("ring", "flash")}}
+                   for impl in ("ring", "flash")},
+                "bert_train": bert["profile"]}
     by_path = {"flash_attn_fwd": {"serve": serve["launches"],
                                   "train": train["launches"]["flash_attn_fwd"],
                                   "fused_train":
@@ -3870,6 +4471,15 @@ def main(argv=None) -> int:
             by_path.setdefault(name + tag, {}).update(
                 ring_kernel=ring_kernel["launches"][dtype][name],
                 ring_train=ring_train["ring"]["launches"][dtype][name])
+    # the dropout kernel: float32 on se_resnext, bf16 on the AMP paths
+    by_path["dropout"] = {"se_resnext": se["launches"]["dropout"]}
+    by_path["dropout_bf16"] = {
+        "bert_train": bert["launches"]["dropout_bfloat16"],
+        "bert_masked": bert_masked["launches"]["dropout_bf16"],
+        "transformer_wmt": wmt["launches"]["dropout_bf16"]}
+    for name in ("dense_epilogue", "layer_norm_fwd", "layer_norm_bwd"):
+        by_path[name + "_bf16"]["bert_train"] = \
+            bert["launches"][name + "_bf16"]
     missing = [n for n, paths in by_path.items() if not sum(paths.values())]
     if missing:
         raise AssertionError(f"kernels never launched on their paths: "
@@ -3892,6 +4502,8 @@ def main(argv=None) -> int:
                        "rn50_fused": rn50_fused, "attn_ceiling": ceiling,
                        "ring_kernel": ring_kernel, "ring_times": ring_times,
                        "ring_train": ring_train, "decode": decode,
+                       "bert_train": bert, "bert_masked": bert_masked,
+                       "transformer_wmt": wmt, "se_resnext": se,
                        "serve": {k: v for k, v in serve.items()
                                  if k not in ("scope", "factory")},
                        "train": {k: v for k, v in train.items()

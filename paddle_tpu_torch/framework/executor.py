@@ -36,7 +36,12 @@ the scope through the write-back of persistables.
 
 Random ops draw from a ``torch.Generator`` on the executor's device, seeded
 per run from ``seed`` or from ``program.random_seed`` and a step counter
-(the reference's formula).
+(the reference's formula).  Dropout draws from stateless Philox streams
+keyed by that seed (``LowerCtx.rng`` / ``rng_tagged``): a tagged stream is
+a pure function of (seed, tag), so a grad op regenerates its forward's
+mask; a grad op that recomputes a counter-stream forward rewinds the
+counter to where the forward drew (``rng_marks``, the reference's
+``executor.py:862-869, 897-918``).
 
 AMP: a program that ``amp.decorate(...).minimize`` (or ``amp.enable``)
 marked carries ``_attrs["amp"]``; its runs hand every op's inputs through
@@ -57,6 +62,7 @@ import torch
 
 from .. import amp as _amp
 from ..analysis import fusion as _fusion
+from ..kernels import dropout as _dropout
 from . import registry
 from .core import Program, Variable, default_main_program, grad_var_name
 from .scope import Scope, global_scope
@@ -71,6 +77,20 @@ class LowerCtx:
         self._seed = int(seed) & 0xFFFFFFFFFFFFFFFF
         self._generator = None
         self.amp = bool(amp)
+        self._counter = 0
+        # output name of a stateful_rng op -> the counter before it ran
+        self.rng_marks: Dict[str, int] = {}
+
+    def rng(self) -> _dropout.Stream:
+        """A fresh counter stream each call (``executor.py:731-733``)."""
+        self._counter += 1
+        return _dropout.counter_stream(self._seed, self._counter)
+
+    def rng_tagged(self, tag: int) -> _dropout.Stream:
+        """The op tag's stream, independent of the order ops run in: an op
+        and its grad op draw the same bits (``executor.py:735-742``); the
+        counter word's kind keeps it apart from :meth:`rng`'s streams."""
+        return _dropout.tagged_stream(self._seed, tag)
 
     @property
     def generator(self) -> torch.Generator:
@@ -368,9 +388,15 @@ class Executor:
                     vals.append(self._read(scope, plan.block, n))
             ins[slot] = vals
         if grad:
+            if fwd is None and info.stateful_rng:
+                return self._replay_grad(op, ctx, ins)
             return registry.generic_grad_lower(
                 ctx, ins, op.attrs, graphs.pop(fwd) if fwd is not None
                 else None)
+        if info.stateful_rng:
+            for n in op.output_arg_names():
+                if n:
+                    ctx.rng_marks[n] = ctx._counter
         if i in plan.wanted:
             # casts after making its leaves, when the program is AMP
             graphs[i] = registry.run_forward(info, ctx, ins, op.attrs,
@@ -379,3 +405,20 @@ class Executor:
         if ctx.amp:
             ins = _amp.cast_ins(op.type, ins)
         return info.lower(ctx, ins, op.attrs) or {}
+
+    @staticmethod
+    def _replay_grad(op, ctx, ins):
+        """A generic grad op recomputing a forward that draws random bits:
+        the counter rewinds to where the forward drew, so the recompute
+        draws the same bits, then comes back (``executor.py:897-918``)."""
+        mark = next((ctx.rng_marks[n[:-len("@GRAD")]]
+                     for s, ns in op.inputs.items() if s.startswith("OG$")
+                     for n in ns if n and n.endswith("@GRAD")
+                     and n[:-len("@GRAD")] in ctx.rng_marks), None)
+        if mark is None:
+            return registry.generic_grad_lower(ctx, ins, op.attrs)
+        saved, ctx._counter = ctx._counter, mark
+        try:
+            return registry.generic_grad_lower(ctx, ins, op.attrs)
+        finally:
+            ctx._counter = saved

@@ -31,24 +31,30 @@ from .core import Block, Operator, grad_var_name
 class OpInfo:
     def __init__(self, type: str, lower: Callable, infer: Optional[Callable],
                  grad_maker: Optional[Callable] = None,
-                 no_grad: bool = False):
+                 no_grad: bool = False, stateful_rng: bool = False):
         self.type = type
         self.lower = lower
         self.infer = infer
         self.grad_maker = grad_maker    # None -> generic autograd grad
         self.no_grad = no_grad
+        # draws random bits: a grad op that recomputes it from the run's
+        # counter stream replays the forward's draws (executor rng_marks)
+        self.stateful_rng = stateful_rng
 
 
 _REGISTRY: Dict[str, OpInfo] = {}
 
 
 def register_op(type: str, lower: Callable = None, *, infer: Callable = None,
-                grad_maker: Callable = None, no_grad: bool = False):
+                grad_maker: Callable = None, no_grad: bool = False,
+                stateful_rng: bool = False):
     """Register an op lowering (``infer`` overrides shape inference,
     ``grad_maker`` the generic grad desc, ``no_grad`` marks an op without
-    gradient).  Usable as decorator or call."""
+    gradient, ``stateful_rng`` one that draws random bits).  Usable as
+    decorator or call."""
     def deco(fn):
-        _REGISTRY[type] = OpInfo(type, fn, infer, grad_maker, no_grad)
+        _REGISTRY[type] = OpInfo(type, fn, infer, grad_maker, no_grad,
+                                 stateful_rng)
         return fn
     if lower is not None:
         return deco(lower)
@@ -79,10 +85,17 @@ SENTINEL = 9973
 
 
 class AbstractCtx:
-    """Lowering context for shape inference: meta device, no generator."""
+    """Lowering context for shape inference: meta device, no generator;
+    its random streams are placeholders (no bits are drawn on meta)."""
     device = torch.device("meta")
     generator = None
     amp = False
+
+    def rng(self):
+        return None
+
+    def rng_tagged(self, tag):
+        return None
 
 
 def dtype_name(dtype: torch.dtype) -> str:

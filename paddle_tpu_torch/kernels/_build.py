@@ -30,7 +30,8 @@ SOURCES = {"flash_attn_fwd_sm90": "flash_attn_fwd_sm90.cu",
            "dense_epilogue": "dense_epilogue.cu",
            "matmul_bn_stats": "matmul_bn_stats.cu",
            "attn_skeleton": "attn_skeleton_sm90.cu",
-           "ring_attention": "ring_attention.cu"}
+           "ring_attention": "ring_attention.cu",
+           "dropout": "dropout.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

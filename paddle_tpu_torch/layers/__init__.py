@@ -5,12 +5,12 @@ from . import io, math_ops, metric_op, nn, tensor  # noqa
 from .io import data  # noqa
 from .math_ops import scale  # noqa
 from .metric_op import accuracy  # noqa
-from .nn import (batch_norm, conv2d, cross_entropy, embedding,  # noqa
-                 expand, fc, flash_attention, fused_lm_head_ce, layer_norm,
-                 matmul, mean, pool2d, reduce_max, reduce_mean, reduce_min,
-                 reduce_prod, reduce_sum, relu, reshape, ring_attention,
-                 sign, slice,
-                 softmax, softmax_with_cross_entropy, split, topk,
-                 transpose, unsqueeze)
-from .tensor import (cast, create_global_var, create_parameter,  # noqa
-                     fill_constant, range)
+from .nn import (batch_norm, conv2d, cross_entropy, dropout,  # noqa
+                 embedding, expand, fc, flash_attention, fused_lm_head_ce,
+                 gather, layer_norm, matmul, mean, pool2d, reduce_max,
+                 reduce_mean, reduce_min, reduce_prod, reduce_sum, relu,
+                 reshape, ring_attention, sigmoid, sign, slice, softmax,
+                 softmax_with_cross_entropy, split, topk, transpose,
+                 unsqueeze)
+from .tensor import (assign, cast, create_global_var,  # noqa
+                     create_parameter, fill_constant, range)

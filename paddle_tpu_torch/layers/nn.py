@@ -1,7 +1,7 @@
 """The layer DSL: Python functions appending ops to the default main program.
 
-The subset of ``paddle_tpu/layers/nn.py`` that the serving, GPT training
-and ResNet training slices use, with
+The subset of ``paddle_tpu/layers/nn.py`` that the serving, training and
+ResNet slices use, with
 the reference's signatures and op descs (ref ``python/paddle/fluid/layers/
 nn.py``; ``fc`` at :231 is the canonical pattern: LayerHelper -> create
 params -> append ops -> bias -> activation).
@@ -402,7 +402,48 @@ def _unary(op_type, x, name=None, **attrs):
 
 
 def relu(x, name=None): return _unary("relu", x, name)
+def sigmoid(x, name=None): return _unary("sigmoid", x, name)
 def sign(x, name=None): return _unary("sign", x, name)
+
+
+# ---------------------------------------------------------------------------
+# dropout and gather
+# ---------------------------------------------------------------------------
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    """ref ``paddle_tpu/layers/nn.py:507`` (``operators/dropout_op.cc``).
+
+    The keep mask is one byte of a Philox stream an element
+    (``paddle_tpu_torch.kernels.dropout``), so the drop probability is
+    quantized to multiples of 1/256, and a tiny nonzero ``dropout_prob``
+    drops at least 1/256 of the elements.  The op's tag is ``seed`` when
+    given (two ops given one seed draw the same pattern), else the crc32
+    of its output's name: the op and its grad op draw the same bits from
+    the run's seed and the tag, so the mask is regenerated, not stored.
+    ``seed=0`` makes an untagged op, whose grad reads its stored mask."""
+    import zlib
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference("uint8", True)
+    tag = seed if seed is not None else \
+        (zlib.crc32(out.name.encode()) & 0x7FFFFFFF) or 1
+    helper.append_op("dropout", inputs={"X": [x]},
+                     outputs={"Out": [out], "Mask": [mask]},
+                     attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+                            "seed": tag,
+                            "dropout_implementation": dropout_implementation})
+    return out
+
+
+def gather(input, index, overwrite=True):
+    """ref ``paddle_tpu/layers/nn.py:693``: rows of ``input`` at
+    ``index``."""
+    helper = LayerHelper("gather")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("gather", inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]})
+    return out
 
 
 # ---------------------------------------------------------------------------

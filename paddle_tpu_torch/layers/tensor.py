@@ -3,6 +3,8 @@ port runs so far; ref ``python/paddle/fluid/layers/tensor.py``)."""
 
 from __future__ import annotations
 
+import numpy as np
+
 from ..framework.core import Variable, convert_dtype
 from ..layer_helper import LayerHelper
 
@@ -31,6 +33,27 @@ def create_global_var(shape, value, dtype, persistable=False,
                  attrs={"shape": list(shape), "dtype": dtype,
                         "value": float(value)})
     return var
+
+
+def assign(input, output=None):
+    """ref ``paddle_tpu/layers/tensor.py:67``: a Variable is copied by the
+    ``assign`` op; a numpy array (or anything ``np.asarray`` takes) becomes
+    an ``assign_value`` op holding its values."""
+    helper = LayerHelper("assign")
+    if isinstance(input, Variable):
+        if output is None:
+            output = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op("assign", inputs={"X": [input]},
+                         outputs={"Out": [output]})
+    else:
+        arr = np.asarray(input)
+        if output is None:
+            output = helper.create_variable_for_type_inference(str(arr.dtype))
+        helper.append_op("assign_value", outputs={"Out": [output]},
+                         attrs={"shape": list(arr.shape),
+                                "dtype": str(arr.dtype),
+                                "values": arr.reshape(-1).tolist()})
+    return output
 
 
 def cast(x, dtype):

@@ -1,7 +1,8 @@
 """ResNet family (the port's ``paddle_tpu/models/resnet.py``; ref fluid
 image_classification recipe).  Same layers, names and op descs as the
-reference, so both packages build the same training program.  SE-ResNeXt
-is not ported yet (it needs dropout).
+reference, so both packages build the same training program: ResNet
+(``resnet``, ``build_resnet_train``) and SE-ResNeXt (``se_resnext``,
+``build_se_resnext_train``, ref ``resnet.py:134-196``).
 """
 
 from __future__ import annotations
@@ -130,3 +131,70 @@ def build_resnet_train(class_dim=1000, depth=50, image_shape=(3, 224, 224),
     acc1 = layers.accuracy(pred, label, k=1)
     acc5 = layers.accuracy(pred, label, k=5)
     return (img, label), pred, avg_cost, (acc1, acc5)
+
+
+# -- SE-ResNeXt (ref tests/unittests/dist_se_resnext.py SE_ResNeXt) ----------
+
+def squeeze_excitation(input, num_channels, reduction_ratio, name,
+                       is_test=False):
+    """SE block: global-pool → bottleneck fc → sigmoid channel gates."""
+    pool = layers.pool2d(input, global_pooling=True, pool_type="avg")
+    squeeze = layers.fc(pool, size=num_channels // reduction_ratio,
+                        act="relu",
+                        param_attr=ParamAttr(name=f"{name}.sq.w"),
+                        bias_attr=ParamAttr(name=f"{name}.sq.b"))
+    excitation = layers.fc(squeeze, size=num_channels, act="sigmoid",
+                           param_attr=ParamAttr(name=f"{name}.ex.w"),
+                           bias_attr=ParamAttr(name=f"{name}.ex.b"))
+    scale = layers.reshape(excitation, shape=[-1, num_channels, 1, 1])
+    return input * scale
+
+
+def se_bottleneck_block(input, num_filters, stride, cardinality,
+                        reduction_ratio, name, is_test=False):
+    conv0 = conv_bn_layer(input, num_filters, 1, act="relu",
+                          name=f"{name}.b0", is_test=is_test)
+    conv1 = conv_bn_layer(conv0, num_filters, 3, stride=stride,
+                          groups=cardinality, act="relu",
+                          name=f"{name}.b1", is_test=is_test)
+    conv2 = conv_bn_layer(conv1, num_filters * 2, 1, name=f"{name}.b2",
+                          is_test=is_test)
+    scaled = squeeze_excitation(conv2, num_filters * 2, reduction_ratio,
+                                name=f"{name}.se", is_test=is_test)
+    short = shortcut(input, num_filters * 2, stride, f"{name}.short",
+                     is_test=is_test)
+    return layers.relu(short + scaled)
+
+
+def se_resnext(input, class_dim=1000, depth=50, cardinality=32,
+               reduction_ratio=16, is_test=False):
+    """SE-ResNeXt-{50,101,152} (ref dist_se_resnext.py net()); the head's
+    dropout is 0.5, ``downgrade_in_infer``."""
+    counts = {50: [3, 4, 6, 3], 101: [3, 4, 23, 3],
+              152: [3, 8, 36, 3]}[depth]
+    conv = conv_bn_layer(input, 64, 7, stride=2, act="relu",
+                         name="se_stem", is_test=is_test)
+    x = layers.pool2d(conv, pool_size=3, pool_stride=2, pool_padding=1)
+    filters = [128, 256, 512, 1024]
+    for stage, (nf, cnt) in enumerate(zip(filters, counts)):
+        for blk in range(cnt):
+            stride = 2 if blk == 0 and stage > 0 else 1
+            x = se_bottleneck_block(x, nf, stride, cardinality,
+                                    reduction_ratio,
+                                    f"se{stage}_{blk}", is_test=is_test)
+    pool = layers.pool2d(x, global_pooling=True, pool_type="avg")
+    drop = layers.dropout(pool, dropout_prob=0.5, is_test=is_test)
+    return layers.fc(drop, size=class_dim, act="softmax",
+                     param_attr=ParamAttr(name="se_fc_out.w"),
+                     bias_attr=ParamAttr(name="se_fc_out.b"))
+
+
+def build_se_resnext_train(class_dim=1000, depth=50,
+                           image_shape=(3, 224, 224), is_test=False):
+    img = layers.data("img", shape=list(image_shape), dtype="float32")
+    label = layers.data("label", shape=[1], dtype="int64")
+    pred = se_resnext(img, class_dim=class_dim, depth=depth,
+                      is_test=is_test)
+    loss = layers.mean(layers.cross_entropy(pred, label))
+    acc = layers.accuracy(pred, label)
+    return loss, acc, [img, label]

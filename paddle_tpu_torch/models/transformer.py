@@ -1,23 +1,21 @@
-"""Transformer encoder, the GPT serving program and the BERT/GPT pretraining
-programs, built from the layer DSL.
+"""Transformer encoder, the GPT serving program, the BERT/GPT pretraining
+programs and the Transformer-base NMT program, built from the layer DSL.
 
 The port's copy of ``paddle_tpu/models/transformer.py`` (ref
 ``python/paddle/fluid/tests/unittests/dist_transformer.py:958,1034``): the
 op lists, variable names and parameter names are the reference's, so a
 scope of ``paddle_tpu`` parameters serves and trains here unchanged.
-Dropout is not ported yet: the programs build with dropout 0.
+Dropout is the reference's: after the embedding LayerNorm, on the
+attention weights (the "base" chain only), on each sublayer's output and on
+the FFN's hidden activation, all ``upscale_in_train``.
 """
 
 from __future__ import annotations
 
+import numpy as np
+
 from .. import layers
 from ..param_attr import ParamAttr
-
-
-def _no_dropout(rate):
-    if rate:
-        raise NotImplementedError(
-            "dropout is not ported yet; build with dropout 0")
 
 
 def multi_head_attention(queries, keys, values, d_model, n_head,
@@ -31,8 +29,8 @@ def multi_head_attention(queries, keys, values, d_model, n_head,
     the ring over the current mesh's ``sp`` axis, flash without one; no
     ``attn_bias``), or "auto" — flash from T ≥ 1024 when no
     attention-weight dropout is wanted, else base (the reference's rule,
-    ``paddle_tpu/models/transformer.py:37-40``)."""
-    _no_dropout(dropout_rate)
+    ``paddle_tpu/models/transformer.py:37-40``).  The fused paths skip
+    attention-weight dropout, as the reference's do."""
     d_head = d_model // n_head
     if attn_impl == "auto":
         seq = queries.shape[1] if queries.shape is not None else 0
@@ -84,6 +82,10 @@ def multi_head_attention(queries, keys, values, d_model, n_head,
                                 scale=-1e9)
             scores = scores + mask
         weights = layers.softmax(scores)
+        if dropout_rate:
+            weights = layers.dropout(
+                weights, dropout_prob=dropout_rate, is_test=is_test,
+                dropout_implementation="upscale_in_train")
         ctx = layers.matmul(weights, v)                   # [b, h, t, dh]
     ctx = layers.transpose(ctx, perm=[0, 2, 1, 3])
     ctx = layers.reshape(ctx, shape=[0, 0, d_model])
@@ -97,7 +99,9 @@ def positionwise_ffn(x, d_inner, d_model, dropout_rate=0.0, is_test=False,
     h = layers.fc(x, size=d_inner, num_flatten_dims=2, act=act,
                   param_attr=ParamAttr(name=f"{param_prefix}.fc1.w"),
                   bias_attr=ParamAttr(name=f"{param_prefix}.fc1.b"))
-    _no_dropout(dropout_rate)
+    if dropout_rate:
+        h = layers.dropout(h, dropout_prob=dropout_rate, is_test=is_test,
+                           dropout_implementation="upscale_in_train")
     return layers.fc(h, size=d_model, num_flatten_dims=2,
                      param_attr=ParamAttr(name=f"{param_prefix}.fc2.w"),
                      bias_attr=ParamAttr(name=f"{param_prefix}.fc2.b"))
@@ -107,16 +111,22 @@ def encoder_layer(x, d_model, d_inner, n_head, dropout_rate=0.0,
                   attn_bias=None, is_test=False, idx=0, attn_impl="base",
                   causal=False):
     """post-LN residual block (ref dist_transformer encoder_layer)."""
-    _no_dropout(dropout_rate)
     attn = multi_head_attention(x, x, x, d_model, n_head, dropout_rate,
                                 attn_bias, is_test,
                                 param_prefix=f"enc_{idx}.attn",
                                 attn_impl=attn_impl, causal=causal)
+    if dropout_rate:
+        attn = layers.dropout(attn, dropout_prob=dropout_rate,
+                              is_test=is_test,
+                              dropout_implementation="upscale_in_train")
     x = layers.layer_norm(x + attn, begin_norm_axis=2,
                           param_attr=ParamAttr(name=f"enc_{idx}.ln1.w"),
                           bias_attr=ParamAttr(name=f"enc_{idx}.ln1.b"))
     ffn = positionwise_ffn(x, d_inner, d_model, dropout_rate, is_test,
                            param_prefix=f"enc_{idx}.ffn")
+    if dropout_rate:
+        ffn = layers.dropout(ffn, dropout_prob=dropout_rate, is_test=is_test,
+                             dropout_implementation="upscale_in_train")
     return layers.layer_norm(x + ffn, begin_norm_axis=2,
                              param_attr=ParamAttr(name=f"enc_{idx}.ln2.w"),
                              bias_attr=ParamAttr(name=f"enc_{idx}.ln2.b"))
@@ -129,7 +139,6 @@ def encoder(src_ids, pos_ids, vocab_size, max_pos, n_layer, d_model, d_inner,
     """BERT-style embedding + N encoder layers.  ``arange_pos=True``: the
     position embedding is a static slice of the table broadcast over the
     batch (positions 0..T-1 for every row)."""
-    _no_dropout(dropout_rate)
     emb = layers.embedding(src_ids, size=[vocab_size, d_model],
                            param_attr=ParamAttr(name="word_embedding"))
     if arange_pos:
@@ -149,6 +158,9 @@ def encoder(src_ids, pos_ids, vocab_size, max_pos, n_layer, d_model, d_inner,
     x = layers.layer_norm(x, begin_norm_axis=2,
                           param_attr=ParamAttr(name="pre_encoder.ln.w"),
                           bias_attr=ParamAttr(name="pre_encoder.ln.b"))
+    if dropout_rate:
+        x = layers.dropout(x, dropout_prob=dropout_rate, is_test=is_test,
+                           dropout_implementation="upscale_in_train")
     for i in range(n_layer):
         x = encoder_layer(x, d_model, d_inner, n_head, dropout_rate,
                           attn_bias, is_test, idx=i, attn_impl=attn_impl,
@@ -202,23 +214,34 @@ def build_bert_pretrain(cfg: BertConfig, seq_len, is_test=False,
                         arange_pos=False, masked_gather=None):
     """Masked-LM pretraining net: ids+mask-labels → mean masked CE loss
     (ref ``transformer.py:221``).  Labels use 0 ([PAD]) for unmasked
-    positions, which are excluded from loss and denominator.  The dense
-    head only: ``masked_gather`` needs the ``gather`` op, not ported yet."""
-    if masked_gather:
-        raise NotImplementedError("masked_gather needs the gather op, "
-                                  "not ported yet")
+    positions, which are excluded from loss and denominator.
+
+    ``masked_gather=N`` (ref ``:236-262``): feed ``mask_pos`` ([b, N]
+    flattened absolute positions, b_idx * seq + pos) and ``lm_label`` [b,
+    N]; the encoder output is gathered to the N masked positions of each
+    sequence before the head."""
     dropout = cfg.dropout if dropout is None else dropout
     src_ids = layers.data("src_ids", shape=[seq_len], dtype="int64")
     pos_ids = None if arange_pos else \
         layers.data("pos_ids", shape=[seq_len], dtype="int64")
-    lm_label = layers.data("lm_label", shape=[seq_len], dtype="int64")
+    label_len = masked_gather if masked_gather else seq_len
+    lm_label = layers.data("lm_label", shape=[label_len], dtype="int64")
+    mask_pos = layers.data("mask_pos", shape=[label_len], dtype="int64") \
+        if masked_gather else None
     enc = encoder(src_ids, pos_ids, cfg.vocab_size, cfg.max_pos, cfg.n_layer,
                   cfg.d_model, cfg.d_inner, cfg.n_head, dropout,
                   is_test=is_test, attn_impl=attn_impl,
                   arange_pos=arange_pos)
+    if masked_gather:
+        flat = layers.reshape(enc, shape=[-1, cfg.d_model])
+        enc = layers.reshape(
+            layers.gather(flat, layers.reshape(mask_pos, shape=[-1])),
+            shape=[-1, label_len, cfg.d_model])
     logits, avg_loss = _lm_head_loss(enc, cfg, lm_label, fused_head,
                                      "mlm_out")
     feeds = [src_ids] if arange_pos else [src_ids, pos_ids]
+    if mask_pos is not None:
+        feeds.append(mask_pos)
     feeds.append(lm_label)
     return tuple(feeds), logits, avg_loss
 
@@ -256,3 +279,65 @@ def build_gpt_serving(cfg: BertConfig, seq_len, attn_impl="auto"):
                        param_attr=ParamAttr(name="lm_out.w"),
                        bias_attr=ParamAttr(name="lm_out.b"))
     return (src_ids,), logits
+
+
+# -- Transformer-base NMT (BASELINE config #3, WMT14 en-de) ------------------
+
+def build_transformer_nmt(src_vocab, trg_vocab, seq_len, d_model=512,
+                          n_layer=6, n_head=8, d_inner=2048, dropout=0.1,
+                          is_test=False, fused_head=False):
+    """Encoder-decoder NMT Transformer (ref ``transformer.py:336``, after
+    dist_transformer.py transformer()).
+
+    Decoder self-attention adds a causal bias (an ``assign_value``
+    constant); cross-attention attends the encoder output.
+    ``fused_head=True`` computes projection + CE with the chunked
+    ``fused_lm_head_ce`` op (no bias); ``logits`` is then None."""
+    src_ids = layers.data("src_ids", shape=[seq_len], dtype="int64")
+    src_pos = layers.data("src_pos", shape=[seq_len], dtype="int64")
+    trg_ids = layers.data("trg_ids", shape=[seq_len], dtype="int64")
+    trg_pos = layers.data("trg_pos", shape=[seq_len], dtype="int64")
+    label = layers.data("label", shape=[seq_len], dtype="int64")
+
+    enc_out = encoder(src_ids, src_pos, src_vocab, seq_len + 1, n_layer,
+                      d_model, d_inner, n_head, dropout, is_test=is_test)
+
+    # causal bias [1, 1, t, t]
+    causal = np.triu(np.full((seq_len, seq_len), -1e9, np.float32), k=1)
+    causal_var = layers.assign(causal.reshape(1, 1, seq_len, seq_len))
+    causal_var.stop_gradient = True
+
+    x = layers.embedding(trg_ids, size=[trg_vocab, d_model],
+                         param_attr=ParamAttr(name="trg_word_embedding"))
+    pos = layers.embedding(trg_pos, size=[seq_len + 1, d_model],
+                           param_attr=ParamAttr(name="trg_pos_embedding"))
+    x = x + pos
+    x = layers.layer_norm(x, begin_norm_axis=2)
+    for i in range(n_layer):
+        attn = multi_head_attention(x, x, x, d_model, n_head, dropout,
+                                    attn_bias=causal_var, is_test=is_test,
+                                    param_prefix=f"dec_{i}.self")
+        x = layers.layer_norm(x + attn, begin_norm_axis=2)
+        cross = multi_head_attention(x, enc_out, enc_out, d_model, n_head,
+                                     dropout, is_test=is_test,
+                                     param_prefix=f"dec_{i}.cross")
+        x = layers.layer_norm(x + cross, begin_norm_axis=2)
+        ffn = positionwise_ffn(x, d_inner, d_model, dropout, is_test,
+                               param_prefix=f"dec_{i}.ffn", act="relu")
+        x = layers.layer_norm(x + ffn, begin_norm_axis=2)
+
+    if fused_head:
+        loss = layers.fused_lm_head_ce(
+            x, trg_vocab, label, bias_attr=False,
+            param_attr=ParamAttr(name="nmt_out.w"), ignore_index=0)
+        logits = None
+    else:
+        logits = layers.fc(x, size=trg_vocab, num_flatten_dims=2,
+                           param_attr=ParamAttr(name="nmt_out.w"),
+                           bias_attr=False)
+        loss = layers.softmax_with_cross_entropy(
+            logits, layers.unsqueeze(label, [2]), ignore_index=0)
+    mask = layers.cast(label > 0, "float32")
+    avg_loss = layers.reduce_sum(loss * layers.unsqueeze(mask, [2])) / \
+        (layers.reduce_sum(mask) + 1e-6)
+    return (src_ids, src_pos, trg_ids, trg_pos, label), logits, avg_loss

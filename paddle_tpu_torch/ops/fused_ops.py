@@ -16,8 +16,9 @@ fusion autotuner measured them faster for the shape at hand (the
 These shape rules are decided before any launch.  The reference instead
 wraps both kernel calls in ``try/except Exception`` and falls back to the
 composition (``fused_ops.py:72-78, 150-155``); the port never catches a
-kernel's error.  Not ported yet: the tagged-dropout stage (it needs the
-dropout op and its Philox stream).
+kernel's error.  ``fused_dense_act``'s tagged-dropout tail runs the dropout
+kernel (``kernels/dropout.py``) on the tag's stream, after K5 or after the
+torch product, whichever the op took.
 
 AMP: the unfused chain casts per op (``amp.cast_ins``: the matmul always
 to bf16, the adds, the activation and LayerNorm's X only for activations
@@ -39,7 +40,9 @@ import torch.nn.functional as F
 
 from ..framework.registry import register_op
 from ..kernels import dense_epilogue, layer_norm
+from ..kernels import dropout as dropout_k
 from .common import X, XS, broadcast_to_x
+from .nn_ops import dropout_infer, dropout_scale
 from .tensor_ops import gather_rows
 
 
@@ -58,10 +61,10 @@ def _k5_tiles(m: int) -> bool:
     return m <= 512 or m % 8 == 0
 
 
-@register_op("fused_dense_act")
+@register_op("fused_dense_act", stateful_rng=True)
 def _fused_dense_act(ctx, ins, attrs):
-    """mul/matmul + elementwise_add(bias) + gelu/relu in one op (pattern
-    ``dense_epilogue``).  Under AMP the matmul always runs in bf16 and the
+    """mul/matmul + elementwise_add(bias) + gelu/relu [+ tagged dropout] in
+    one op (pattern ``dense_epilogue``).  Under AMP the matmul always runs in bf16 and the
     bias and activation in bf16 only for outputs of rank 3 or more (the
     reference's ``fused_ops.py:58-90``); K5 writes x's dtype, bf16."""
     x, w, b = X(ins, "X"), X(ins, "W"), X(ins, "Bias")
@@ -92,16 +95,18 @@ def _fused_dense_act(ctx, ins, attrs):
         elif act == "relu":
             out = torch.relu(out)
     out = out.reshape(out_shape)
-    if int(attrs.get("seed", 0)):
-        # the tagged dropout tail (fused_ops.py:95-112)
-        p = attrs.get("dropout_prob", 0.5)
-        impl = attrs.get("dropout_implementation", "downgrade_in_infer")
-        if not attrs.get("is_test", False):
-            raise NotImplementedError(
-                "fused_dense_act: the tagged-dropout stage is not ported (it "
-                "needs the dropout op and its Philox stream)")
-        if impl == "downgrade_in_infer":
-            out = out * (1.0 - p)
+    tag = int(attrs.get("seed", 0))
+    if tag:
+        # the tagged dropout tail (fused_ops.py:94-112): the dropout op's
+        # stream, so the mask is the unfused op's; its backward runs the
+        # kernel on the output gradient
+        if attrs.get("is_test", False):
+            out = dropout_infer(out, attrs)
+        else:
+            out = dropout_k.dropout(
+                out, ctx.rng_tagged(tag),
+                dropout_k.threshold(attrs.get("dropout_prob", 0.5)),
+                dropout_scale(attrs))
     return {"Out": [out]}
 
 

@@ -53,6 +53,7 @@ def _make_activation(name, fn):
 _make_activation("relu", torch.relu)
 _make_activation("sign", torch.sign)
 _make_activation("sqrt", torch.sqrt)
+_make_activation("sigmoid", torch.sigmoid)
 
 
 @register_op("gelu")

@@ -1,5 +1,5 @@
-"""Conv, pooling, normalization, softmax and loss lowerings (the subset of
-``paddle_tpu/ops/nn_ops.py`` the serving, GPT training and ResNet training
+"""Conv, pooling, normalization, softmax, loss and dropout lowerings (the
+subset of ``paddle_tpu/ops/nn_ops.py`` the serving, training and ResNet
 slices run).
 
 Convs lower to ``torch.nn.functional.conv2d`` (cuDNN on the card, TF32 off
@@ -16,6 +16,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..framework.core import grad_var_name
 from ..framework.registry import register_op
+from ..kernels import dropout as dropout_k
 from .common import X, broadcast_to_x
 
 
@@ -389,3 +390,77 @@ def _fused_elemwise_activation(ctx, ins, attrs):
     else:
         raise NotImplementedError(f"fused functor {unary}")
     return {"Out": [out]}
+
+
+# ---------------------------------------------------------------------------
+# dropout (ref nn_ops.py:643-709): the mask drawn and applied by the dropout
+# kernel (kernels/dropout.py) on a Philox stream; a tagged op's grad
+# regenerates the mask from its tag, an untagged op's grad reads ``Mask``
+# ---------------------------------------------------------------------------
+
+def dropout_scale(attrs) -> float:
+    """The factor kept elements take, forward and backward: 1 / (1 - p)
+    for ``upscale_in_train`` (p < 1), else 1 (at p = 1 nothing is kept)."""
+    p = attrs.get("dropout_prob", 0.5)
+    impl = attrs.get("dropout_implementation", "downgrade_in_infer")
+    return 1.0 / (1.0 - p) if impl == "upscale_in_train" and p < 1.0 \
+        else 1.0
+
+
+def dropout_infer(x, attrs):
+    """The ``is_test`` output: x scaled by 1 - p for
+    ``downgrade_in_infer``, x itself for ``upscale_in_train``; the factor
+    rounded to x's dtype, as the reference's product rounds it."""
+    p = attrs.get("dropout_prob", 0.5)
+    if attrs.get("dropout_implementation",
+                 "downgrade_in_infer") != "downgrade_in_infer":
+        return x
+    return x * torch.tensor(dropout_k.rounded_scale(1.0 - p, x.dtype),
+                            dtype=x.dtype, device=x.device)
+
+
+def _dropout_lower(ctx, ins, attrs):
+    x = X(ins, "X")
+    if attrs.get("is_test", False):
+        return {"Out": [dropout_infer(x, attrs)],
+                "Mask": [torch.ones(x.shape, dtype=torch.uint8,
+                                    device=x.device)]}
+    thresh = dropout_k.threshold(attrs.get("dropout_prob", 0.5))
+    tag = int(attrs.get("seed", 0))
+    if tag:
+        # the grad op regenerates the mask: none is written
+        out, _ = dropout_k.dropout_fwd(x, ctx.rng_tagged(tag), thresh,
+                                       dropout_scale(attrs))
+        return {"Out": [out]}
+    out, mask = dropout_k.dropout_fwd(x, ctx.rng(), thresh,
+                                      dropout_scale(attrs), want_mask=True)
+    return {"Out": [out], "Mask": [mask]}
+
+
+def _dropout_grad_maker(op, block, no_grad_set):
+    """ref ``nn_ops.py:685``: an untagged op's grad reads its ``Mask``, the
+    only way to replay it."""
+    g_inputs = {"OutGrad": [grad_var_name(n) for n in op.output("Out")]}
+    if not op.attrs.get("seed", 0):
+        g_inputs["Mask"] = op.output("Mask")
+    g_outputs = {"XGrad": [grad_var_name(n) for n in op.input("X")]}
+    return [{"type": "dropout_grad", "inputs": g_inputs,
+             "outputs": g_outputs, "attrs": dict(op.attrs)}]
+
+
+register_op("dropout", _dropout_lower, grad_maker=_dropout_grad_maker,
+            stateful_rng=True)
+
+
+@register_op("dropout_grad", stateful_rng=True)
+def _dropout_grad(ctx, ins, attrs):
+    gout = X(ins, "OutGrad")
+    tag = int(attrs.get("seed", 0))
+    if tag:
+        stream, thresh, mask = ctx.rng_tagged(tag), dropout_k.threshold(
+            attrs.get("dropout_prob", 0.5)), None
+    else:
+        stream, thresh, mask = None, 0, X(ins, "Mask")
+    gx, _ = dropout_k.dropout_fwd(gout, stream, thresh, dropout_scale(attrs),
+                                  mask_in=mask)
+    return {"XGrad": [gx]}

@@ -5,7 +5,8 @@ Reference kernels: ``operators/fill_constant_op.cc``, ``uniform_random_op.cc``,
 ``gaussian_random_op.cc``, ``top_k_op.cc``, ``split_op.cc``, ``reshape_op.cc`` (reshape2), ``transpose_op.cc``,
 ``unsqueeze_op.cc``, ``scale_op.cc``, ``lookup_table_op.cc``, ``range_op.cc``,
 ``expand_op.cc``, ``slice_op.cc``, ``sum_op.cc`` (the grad fan-in of
-``append_backward``), ``assign_op.cc``.  Shape-only ops return views where torch
+``append_backward``), ``assign_op.cc``, ``assign_value_op.cc``,
+``gather_op.cc``.  Shape-only ops return views where torch
 can; a consumer that needs contiguous memory asks for it.
 """
 
@@ -30,7 +31,7 @@ def _fill_constant(ctx, ins, attrs):
                                dtype=dtype, device=ctx.device)]}
 
 
-@register_op("uniform_random", no_grad=True)
+@register_op("uniform_random", no_grad=True, stateful_rng=True)
 def _uniform_random(ctx, ins, attrs):
     """U[min, max) from the run's generator.  Draws differ from the
     reference's jax keys; range and shape agree."""
@@ -42,7 +43,7 @@ def _uniform_random(ctx, ins, attrs):
     return {"Out": [(out * (hi - lo) + lo).to(dtype)]}
 
 
-@register_op("gaussian_random", no_grad=True)
+@register_op("gaussian_random", no_grad=True, stateful_rng=True)
 def _gaussian_random(ctx, ins, attrs):
     """N(mean, std²) from the run's generator.  Draws differ from the
     reference's jax keys; shape, dtype and distribution agree."""
@@ -222,3 +223,34 @@ def _sum(ctx, ins, attrs):
 @register_op("assign")
 def _assign(ctx, ins, attrs):
     return {"Out": [X(ins, "X")]}
+
+
+@register_op("assign_value", no_grad=True)
+def _assign_value(ctx, ins, attrs):
+    """A constant from the op's attrs (ref ``tensor_ops.py:200``)."""
+    return {"Out": [torch.tensor(
+        attrs["values"], dtype=canon_dtype(attrs.get("dtype", "float32")),
+        device=ctx.device).reshape(tuple(attrs["shape"]))]}
+
+
+@register_op("gather")
+def _gather(ctx, ins, attrs):
+    """``jnp.take(x, index, axis)`` (ref ``tensor_ops.py:242``): an index
+    of shape [n, 1] is squeezed; indices in [-n, 0) wrap, and outside
+    [-n, n) give NaN (float x), as :func:`gather_rows`.  Its gradient is
+    the generic autograd one (a scatter-add)."""
+    x, idx = X(ins, "X"), X(ins, "Index")
+    if idx.dim() == 2 and idx.shape[1] == 1:
+        idx = idx[:, 0]
+    axis = attrs.get("axis", 0)
+    axis = axis + x.dim() if axis < 0 else axis
+    n = x.shape[axis]
+    valid = (idx >= -n) & (idx < n)
+    safe = torch.where(valid, idx.remainder(n), torch.zeros_like(idx))
+    out = torch.index_select(x, axis, safe.reshape(-1)).reshape(
+        tuple(x.shape[:axis]) + tuple(idx.shape) + tuple(x.shape[axis + 1:]))
+    if x.is_floating_point():
+        out = out.masked_fill(~valid.reshape(
+            (1,) * axis + tuple(idx.shape) + (1,) * (x.dim() - axis - 1)),
+            float("nan"))
+    return {"Out": [out]}

@@ -107,6 +107,13 @@ have them), so it runs there with the repo's conftest left out:
   still writes into the live pools (zeroed in place, never reallocated);
   two engines in one process capture once each and agree; a
   ``DecodeServer`` on the card generates what one on the host does.
+- the dropout kernel against its plain version bit for bit (out and mask,
+  float32 and bf16, ragged lengths, views off 16 bytes, a stored mask in
+  place of the stream, p 0 and 1), one launch a call; its
+  ``autograd.Function`` regenerates the mask in the backward; a tiny BERT
+  at dropout 0.1 trains a step on the card as on the host (the same bits
+  by design: loss 1e-5 relative); a CUDA tensor the kernel does not take,
+  or a launch that fails, raises (no plain fallback).
 """
 
 import numpy as np
@@ -118,6 +125,7 @@ from paddle_tpu_torch.framework import Program, Scope, program_guard
 from paddle_tpu_torch.kernels import attn_skeleton as sk
 from paddle_tpu_torch.kernels import conv_bn as cb
 from paddle_tpu_torch.kernels import dense_epilogue as de
+from paddle_tpu_torch.kernels import dropout as dk
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import layer_norm as ln
 from paddle_tpu_torch.kernels import ring_attention as ra
@@ -1842,3 +1850,94 @@ def test_decode_server_on_the_card_matches_the_host(cuda):
         srv.stop()
         assert eng.trace_count == 1 and eng.cache.pages_in_use() == 0
     assert gens[0] == gens[1]
+
+
+
+# -- dropout -----------------------------------------------------------------
+
+DROPOUT_CASES = {"bert_ffn": ((128, 3072), 0), "ragged": ((7, 333), 0),
+                 "off_16_bytes": ((5, 100), 1), "one": ((1,), 0)}
+
+
+@pytest.mark.parametrize("p", [0.1, 0.5, 0.001, 0.0, 1.0])
+@pytest.mark.parametrize("case", sorted(DROPOUT_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dropout_kernel_equals_plain_version_bit_for_bit(cuda, dtype, case,
+                                                         p):
+    shape, off = DROPOUT_CASES[case]
+    g = torch.Generator().manual_seed(3)
+    n = int(np.prod(shape))
+    x = torch.randn(n + off, generator=g).to(cuda, getattr(torch, dtype))
+    x = x[off:].reshape(shape)
+    stream = dk.tagged_stream(0x123456789AB, 0x7FFFFFF1)
+    n0 = dk.launch_count("dropout", dtype)
+    out, mask = dk.dropout_fwd(x, stream, dk.threshold(p), 1 / (1 - p)
+                               if p < 1 else 1.0, want_mask=True)
+    torch.cuda.synchronize()
+    assert dk.launch_count("dropout", dtype) == n0 + 1
+    want, wmask = dk.dropout_plain(x, stream, dk.threshold(p),
+                                   1 / (1 - p) if p < 1 else 1.0,
+                                   want_mask=True)
+    assert torch.equal(mask, wmask)
+    assert torch.equal(out.view(torch.int16 if dtype == "bfloat16"
+                                else torch.int32),
+                       want.view(torch.int16 if dtype == "bfloat16"
+                                 else torch.int32))
+    # the stored mask in place of the stream (an untagged op's gradient)
+    again, none = dk.dropout_fwd(x, None, 0, 2.0, mask_in=mask)
+    assert none is None and torch.equal(again, dk.dropout_plain(
+        x, None, 0, 2.0, mask_in=mask)[0])
+
+
+def test_dropout_function_regenerates_the_mask_on_the_card(cuda):
+    x = (torch.rand(64, 771, device=cuda) + 0.5).requires_grad_()
+    stream = dk.counter_stream(99, 4)
+    out = dk.dropout(x, stream, dk.threshold(0.25), 4 / 3)
+    g, = torch.autograd.grad(out.sum(), x)
+    torch.cuda.synchronize()
+    assert torch.equal(g != 0, out != 0)
+    assert torch.equal(out.cpu(), dk.dropout_plain(
+        x.detach().cpu(), stream, dk.threshold(0.25), 4 / 3)[0])
+
+
+def test_dropout_kernel_refuses_rather_than_falls_back(cuda, monkeypatch):
+    x = torch.ones(64, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        dk.dropout_fwd(x, dk.tagged_stream(1, 2), 26, 1.0)
+    x = torch.ones(64, device=cuda)
+    with pytest.raises(ValueError, match="threshold"):
+        dk.dropout_fwd(x, dk.tagged_stream(1, 2), 257, 1.0)
+    dk._entry()
+    monkeypatch.setitem(dk._entries, "dropout", lambda *a: 98)
+    monkeypatch.setattr(dk, "dropout_plain", None)  # never reached
+    n0 = dk.launch_count()
+    with pytest.raises(RuntimeError, match="CUDA error 98"):
+        dk.dropout_fwd(x, dk.tagged_stream(1, 2), 26, 1.0)
+    assert dk.launch_count() == n0
+
+
+def test_bert_step_with_dropout_on_the_card_matches_the_host(cuda):
+    cfg = T.BertConfig(vocab_size=64, d_model=32, n_layer=2, n_head=4,
+                       d_inner=64, max_pos=16, dropout=0.1)
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        _, _, loss = T.build_bert_pretrain(cfg, 16, fused_head=True,
+                                           arange_pos=True)
+        ptt.optimizer.AdamOptimizer(1e-3).minimize(loss)
+    host_scope, card_scope = Scope(), Scope()
+    host = ptt.Executor(ptt.CPUPlace())
+    host.run(startup, scope=host_scope, seed=1)
+    for n, v in host_scope.items():
+        card_scope.set_var(n, v.to(cuda))
+    rng = np.random.RandomState(0)
+    ids = rng.randint(1, 64, (2, 16))
+    feed = {"src_ids": ids, "lm_label": np.where(rng.rand(2, 16) < 0.3,
+                                                 ids, 0)}
+    n0 = dk.launch_count("dropout", "float32")
+    got, = ptt.Executor().run(main, feed=feed, fetch_list=[loss],
+                              scope=card_scope, seed=5)
+    want, = host.run(main, feed=feed, fetch_list=[loss], scope=host_scope,
+                     seed=5)
+    # 9 dropouts and their 9 gradients, two of each in a fused FFN
+    assert dk.launch_count("dropout", "float32") - n0 == 18
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)

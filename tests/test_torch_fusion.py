@@ -213,17 +213,21 @@ def test_fused_op_matches_reference(case):
 
 
 def test_untaken_kernel_paths_raise_not_fall_back():
-    """The tagged-dropout stage is not ported: it raises.  AMP is
-    (``test_torch_amp.py``): the 3-D dense chain then gives bf16."""
+    """The tagged-dropout stage runs the dropout kernel's path (on the
+    host its plain version) on the tag's stream: the unfused op's mask.
+    AMP (``test_torch_amp.py``): the 3-D dense chain then gives bf16."""
+    from paddle_tpu_torch.kernels import dropout as dk
     _, ins, attrs, _ = FUSED_CASES["dense_mul_gelu"]
     info = registry.get_op_info("fused_dense_act")
     ctx = LowerCtx(torch.device("cpu"), 0)
-    with pytest.raises(NotImplementedError, match="tagged-dropout"):
-        info.lower(ctx, _to_torch(ins), dict(attrs, seed=7,
-                                             dropout_prob=0.1))
+    plain = info.lower(ctx, _to_torch(ins), attrs)["Out"][0]
+    dropped = info.lower(ctx, _to_torch(ins), dict(
+        attrs, seed=7, dropout_prob=0.1))["Out"][0]
+    want, _ = dk.dropout_plain(plain, ctx.rng_tagged(7), dk.threshold(0.1),
+                               1.0)
+    assert torch.equal(dropped, want) and bool((dropped == 0).any())
     out = info.lower(ctx, _to_torch(ins), dict(
         attrs, seed=7, dropout_prob=0.25, is_test=True))["Out"][0]
-    plain = info.lower(ctx, _to_torch(ins), attrs)["Out"][0]
     np.testing.assert_allclose(out.numpy(), 0.75 * plain.numpy(), rtol=1e-6)
     ctx.amp = True
     assert info.lower(ctx, _to_torch(ins), attrs)["Out"][0].dtype == \

@@ -195,6 +195,10 @@ def test_no_jax_or_reference_import_in_sources():
             "paddle_tpu_torch/framework/ir.py",
             "paddle_tpu_torch/kernels/conv_bn.py",
             "paddle_tpu_torch/kernels/dense_epilogue.py",
+            "paddle_tpu_torch/kernels/dropout.py",
+            "paddle_tpu_torch/models/transformer.py",
+            "paddle_tpu_torch/ops/nn_ops.py",
+            "paddle_tpu_torch/ops/tensor_ops.py",
             "paddle_tpu_torch/kernels/layer_norm.py",
             "paddle_tpu_torch/models/resnet.py",
             "paddle_tpu_torch/monitor.py",
