@@ -202,6 +202,36 @@ JAX, prints one line per phase, and raises on any failure:
    0.5, 0.001, 0 and 1, both implementations, with the keep rate within 5
    binomial standard deviations; ``timing`` times it cold at [128, 12,
    128, 128] beside ``F.dropout``, and the new paths' steps.
+13. ``recompute_train`` — ``bert_train``'s BERT-base (batch 128 x seq
+   128, dropout 0.1, AMP, autotuner on) under LAMB (weight decay 0.01,
+   none on LayerNorm scales and biases), built twice at one seed: (a)
+   ``amp.decorate(LambOptimizer).minimize`` and (b) through
+   ``RecomputeOptimizer`` over the 12 layer outputs (``checkpoints=[]``);
+   one autotune cache, the same weights, 1 + 3 steps each: each step's
+   loss, the median step time and tokens/s, the peak memory and the part
+   above what was allocated before the program's first step, and the
+   launches a step of the bf16 K5, K4 and dropout kernel, which must equal
+   what the planned program's ops give (the recomputed chains' included).
+   (a) and (b) must give the same losses to the bit and (b) the lower peak
+   above its start.
+14. ``optimizers`` — the 10 optimizer classes this slice added, and
+   Lookahead, ModelAverage and ExponentialMovingAverage over Adam: a
+   2-layer BERT of BERT-base's width (float32 with the dense LM head, TF32
+   off, dropout 0.1, batch 4 x 128) takes 3 steps on the card and on the
+   host, each from the host's state: losses within 1e-5 relative, and
+   what the update reads (the gradients) within 1e-5 as the norm of the
+   difference over the host's.  The update itself is held on the same
+   inputs: the host runs the program's update ops from the same state on
+   the card's gradients, and every element of every parameter and
+   accumulator (and of the averages ``apply()`` puts in the scope) must be
+   within 1e-5 of the largest of its tensor.  (A step-normalizing
+   optimizer turns float32 noise in a near-zero gradient, such as the key
+   third of each ``qkv.b``, whose exact gradient is zero, into a step of
+   either sign; fed the same gradient, no element is exempt.)  LAMB's and
+   LARS's updates run under ``torch.cuda.set_sync_debug_mode("error")``.
+   Then the new initializers on the card: the truncated normal's bound,
+   mean and std, MSRA's scales, Bilinear's and NumpyArray's values equal
+   to the host's.
 
 Then one JSON line describing every kernel, the ``nvidia-smi`` line, and a
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -394,6 +424,19 @@ BERT_DROPOUTS, WMT_DROPOUTS = 2 * 49, 2 * 43
 # card, float32, 3 steps: the fused tail regenerates the unfused op's masks,
 # so the losses differ only by the products' order (1e-5 relative)
 FUSED_UNFUSED_RTOL = 1e-5
+# recompute_train: bert_train's BERT-base under LAMB (You et al. 2019, the
+# large-batch BERT recipe: weight decay 0.01, none on LayerNorm scales and
+# biases), with and without RecomputeOptimizer, 1 + RECOMPUTE_STEPS steps
+RECOMPUTE_STEPS, LAMB_LR, LAMB_DECAY = 3, 1e-4, 0.01
+# optimizers: a 2-layer BERT of BERT-base's width, float32, OPT_STEPS steps
+# on the card and on the host at batch OPT_BATCH x 128: float32 products in
+# other orders, so losses within 1e-5 relative and each gradient within
+# 1e-5 (norm of the difference over the norm); the update on the same
+# inputs, each element within 1e-5 of its tensor's largest; the new
+# initializers' draws within OPT_INIT_SE standard errors of their mean and
+# std
+OPT_STEPS, OPT_BATCH = 3, 4
+OPT_LOSS_RTOL, OPT_STATE_RTOL, OPT_INIT_SE = 1e-5, 1e-5, 5.0
 
 
 def _log(phase, msg):
@@ -4377,6 +4420,468 @@ _BF16_FORMS = ("flash_attn_fwd", "flash_attn_bwd", "conv1x1_stats",
                "ring_merge", "dropout")
 
 
+def _lamb_excluded(param):
+    """The BERT recipe's LAMB: no weight decay on LayerNorm scales and
+    biases (``enc_i.ln1.w``, ``pre_encoder.ln.w``, every ``*.b``)."""
+    return param.name.endswith(".b") or ".ln" in param.name
+
+
+def _recompute_program(cfg, seq, recompute):
+    """``build_bert_pretrain`` as ``_bert_program`` builds it, under
+    ``amp.decorate(LambOptimizer)``: (a) as it is, (b) through
+    ``RecomputeOptimizer`` with the layer outputs ``checkpoints=[]``
+    collects.  Fresh names, so (a) and (b) name every var alike."""
+    from paddle_tpu_torch import amp as amp_mod
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.framework import Program, program_guard
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.models import transformer as T
+    main, startup = Program(), Program()
+    with program_guard(main, startup), unique_name.guard():
+        ckpts = [] if recompute else None
+        _, _, loss = T.build_bert_pretrain(cfg, seq, fused_head=True,
+                                           arange_pos=True,
+                                           checkpoints=ckpts)
+        opt = optimizer.LambOptimizer(
+            LAMB_LR, lamb_weight_decay=LAMB_DECAY,
+            exclude_from_weight_decay_fn=_lamb_excluded)
+        if recompute:
+            opt = optimizer.RecomputeOptimizer(opt)
+            opt._set_checkpoints(ckpts)
+        amp_mod.decorate(opt).minimize(loss)
+    return main, startup, loss
+
+
+def _optimizer_plan(exe, op_type):
+    plan, = [p for p in exe._plans.values()
+             if any(op.type == op_type for op, _ in p.ops)]
+    return plan
+
+
+def _planned_launches(plan):
+    """The launches a step of ``plan`` makes, from its ops: K5 one a
+    ``fused_dense_act`` with its kernel, K4 forward and backward one a
+    ``fused_embedding_layer_norm`` and its grad with the kernel, and the
+    dropout kernel one a ``dropout``, a ``dropout_grad`` and a fused op or
+    fused grad op with a dropout tail."""
+    ops = [op for op, _ in plan.ops]
+
+    def n(op_type, kernel=False, tail=False):
+        return sum(op.type == op_type
+                   and (not kernel or bool(op.attrs.get("use_pallas")))
+                   and (not tail or op.attrs.get("dropout_prob", 0) > 0)
+                   for op in ops)
+    return {"dense_epilogue_bf16": n("fused_dense_act", kernel=True),
+            "layer_norm_fwd_bf16": n("fused_embedding_layer_norm",
+                                     kernel=True),
+            "layer_norm_bwd_bf16": n("fused_embedding_layer_norm_grad",
+                                     kernel=True),
+            "dropout_bfloat16": n("dropout") + n("dropout_grad")
+            + n("fused_dense_act", tail=True)
+            + n("fused_dense_act_grad", tail=True)}
+
+
+def phase_recompute_train():
+    """BERT-base at ``bert_train``'s configuration (``BertConfig()``, batch
+    128 x seq 128, dropout 0.1, fused head, arange positions, AMP, the
+    fusion autotuner on) under the published large-batch BERT optimizer,
+    LAMB, built twice at one seed: (a) ``amp.decorate(Lamb).minimize`` and
+    (b) ``amp.decorate(RecomputeOptimizer(Lamb))`` over the 12 layer
+    outputs.  Both share one autotune cache, start from the same weights
+    and take 1 + RECOMPUTE_STEPS steps on one batch: their losses must be
+    equal to the bit, (b)'s peak above what was allocated before its first
+    step lower than (a)'s, and each timed step's K5, K4 and dropout
+    launches those its plan's ops give."""
+    import shutil
+    import tempfile
+
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.analysis import fusion
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.framework.recompute import RECOMPUTE_SUFFIX
+    from paddle_tpu_torch.models import transformer as T
+
+    cfg = T.BertConfig()
+    cache_dir = tempfile.mkdtemp(prefix="fusion_autotune_")
+    fusion.clear_cache()
+    flags.set_flags(dict(FUSED_FLAGS, FLAGS_xla_compile_cache_dir=cache_dir))
+    feed = _bert_feed(cfg, BERT_BATCH, BERT_SEQ)
+    out = {}
+    try:
+        progs = {k: _recompute_program(cfg, BERT_SEQ, k == "b")
+                 for k in ("a", "b")}
+        init, exe = Scope(), ptt.Executor()
+        exe.run(progs["a"][1], scope=init, seed=1234)
+        scopes = {}
+        for k in progs:
+            scopes[k] = Scope()
+            for name, val in init.items():
+                scopes[k].set_var(name, val.clone())
+        del init
+        for name in _KERNEL_MODULES:
+            _kernel_module(name).reset_launch_count()
+
+        def counts():
+            c = {k + "_bf16": v for k, v in _fused_launches("bfloat16")
+                 .items()}
+            c.update({"dropout_" + d: n for d, n in
+                      _dropout_launches().items()})
+            return c
+
+        for k, (main, _, loss) in progs.items():
+            kexe = ptt.Executor()
+            r = _run_steps(f"recompute_train ({k})", kexe, main, feed, loss,
+                           scopes[k], RECOMPUTE_STEPS, counts)
+            plan = _optimizer_plan(kexe, "lamb")
+            want = _planned_launches(plan)
+            for s in r["per_step"][1:]:
+                got = {n: s[n] for n in want}
+                if got != want or s["dropout_float32"]:
+                    raise AssertionError(
+                        f"recompute_train ({k}): launches a step {s}, "
+                        f"the plan's ops give {want}")
+            ops = [op for op, _ in plan.ops]
+            r.update(
+                launches={n: sum(s[n] for s in r["per_step"])
+                          for n in r["per_step"][0]},
+                planned=want, ops=len(ops),
+                recomputed=sum(any(RECOMPUTE_SUFFIX in n
+                                   for n in op.output_arg_names())
+                               for op in ops),
+                barriers=sum(op.type == "optimization_barrier"
+                             for op in ops),
+                median_ms=1e3 * float(np.median(r["step_s"])),
+                above_bytes=r["peak_bytes"] - r["held_bytes"])
+            r["rate"] = BERT_BATCH * BERT_SEQ / (r["median_ms"] / 1e3)
+            out[k] = r
+            _log("recompute_train", f"({k}) BERT-base, batch {BERT_BATCH} x "
+                 f"seq {BERT_SEQ}, AMP LAMB"
+                 + (f", recompute over the {cfg.n_layer} layer outputs"
+                    if k == "b" else "")
+                 + f": plan of {len(ops)} ops ({r['recomputed']} recomputed,"
+                 f" {r['barriers']} barriers); warm-up "
+                 f"{r['warmup_s']:.2f} s, steps "
+                 f"{', '.join(f'{1e3 * x:.1f}' for x in r['step_s'])} ms "
+                 f"(median {r['median_ms']:.1f}, {r['rate']:.0f} tokens/s); "
+                 f"losses {', '.join(repr(x) for x in r['losses'])}; "
+                 f"launches a step {want} (the plan's); peak "
+                 f"{r['peak_bytes'] / 2**30:.3f} GiB, "
+                 f"{r['above_bytes'] / 2**30:.3f} GiB above the "
+                 f"{r['held_bytes'] / 2**30:.3f} GiB held before the first "
+                 f"step")
+            del kexe, plan, ops
+            torch.cuda.empty_cache()
+    finally:
+        flags.set_flags(DEFAULT_FLAGS)
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    a, b = out["a"], out["b"]
+    equal = np.array_equal(np.asarray(a["losses"], np.float32),
+                           np.asarray(b["losses"], np.float32))
+    if not equal:
+        raise AssertionError(f"recompute_train: losses (a) {a['losses']} "
+                             f"and (b) {b['losses']} differ")
+    if not b["above_bytes"] < a["above_bytes"]:
+        raise AssertionError(f"recompute_train: (b) holds "
+                             f"{b['above_bytes']} bytes above its start, "
+                             f"(a) {a['above_bytes']}")
+    _log("recompute_train", f"(a) and (b) losses equal to the bit over "
+         f"{RECOMPUTE_STEPS + 1} steps; peak above start "
+         f"{a['above_bytes'] / 2**30:.3f} -> "
+         f"{b['above_bytes'] / 2**30:.3f} GiB; median step "
+         f"{a['median_ms']:.1f} -> {b['median_ms']:.1f} ms "
+         f"({b['median_ms'] / a['median_ms']:.3f}x) ok")
+    return out
+
+
+# optimizers: name -> a maker of the optimizer
+def _optimizer_cases():
+    from paddle_tpu_torch import optimizer as O
+    return {
+        "LarsMomentum": lambda: O.LarsMomentumOptimizer(0.1, 0.9),
+        "AdamW": lambda: O.AdamWOptimizer(1e-3, weight_decay=0.01),
+        "Adamax": lambda: O.AdamaxOptimizer(1e-3),
+        "Adagrad": lambda: O.AdagradOptimizer(
+            1e-2, initial_accumulator_value=0.1),
+        "DecayedAdagrad": lambda: O.DecayedAdagradOptimizer(1e-3),
+        "Adadelta": lambda: O.AdadeltaOptimizer(1.0),
+        "RMSProp": lambda: O.RMSPropOptimizer(1e-3, momentum=0.5,
+                                              centered=True),
+        "Ftrl": lambda: O.FtrlOptimizer(1e-3, l1=1e-4, l2=1e-4),
+        "Lamb": lambda: O.LambOptimizer(
+            1e-3, exclude_from_weight_decay_fn=_lamb_excluded),
+        "DGCMomentum": lambda: O.DGCMomentumOptimizer(0.1, 0.9),
+        "Lookahead": lambda: O.LookaheadOptimizer(O.AdamOptimizer(1e-3),
+                                                  alpha=0.5, k=2),
+        "ModelAverage": lambda: O.AdamOptimizer(1e-3),
+        "ExponentialMovingAverage": lambda: O.AdamOptimizer(1e-3),
+    }
+
+
+class _NoHostSync:
+    """Run the lowerings of ``op_types`` under
+    ``torch.cuda.set_sync_debug_mode("error")``: an update that reads a
+    value back to the host raises.  Counts the guarded calls that ran an
+    update (shape inference calls a lowering on meta tensors too)."""
+
+    def __init__(self, op_types):
+        from paddle_tpu_torch.framework import registry
+        self.infos = [registry.get_op_info(t) for t in op_types]
+        self.calls = 0
+
+    def __enter__(self):
+        import torch
+        self.saved = [info.lower for info in self.infos]
+
+        def guarded(lower):
+            def run(ctx, ins, attrs):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return lower(ctx, ins, attrs)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    self.calls += ctx.device.type != "meta"
+            return run
+        for info in self.infos:
+            info.lower = guarded(info.lower)
+        return self
+
+    def __exit__(self, *exc):
+        for info, lower in zip(self.infos, self.saved):
+            info.lower = lower
+
+
+def _rel_diff(card, host):
+    c, h = card.detach().double().cpu(), host.detach().double()
+    return float((c - h).norm() / max(float(h.norm()), 1e-30))
+
+
+def _update_program(main):
+    """The ops of ``main`` after its backward (the optimizer's, with the
+    wrappers' that follow them) as a program of their own, and the names
+    they read that no op of theirs writes and no scope holds: the
+    gradients, which a run of it is fed."""
+    upd = main.clone()
+    blk = upd.global_block()
+    split = 1 + max(i for i, op in enumerate(blk.ops)
+                    if op.attrs.get("op_role") == "backward")
+    blk.ops = blk.ops[split:]
+    upd._bump_version()
+    made, fed = set(), []
+    for op in blk.ops:
+        for n in op.input_arg_names():
+            if n and n not in made and n not in fed and not (
+                    blk.has_var(n) and blk.var(n).persistable):
+                fed.append(n)
+        made.update(op.output_arg_names())
+    return upd, fed
+
+
+def _check_update(name, card, want):
+    """Every tensor of ``card`` against ``want`` (name -> tensor), the
+    host's update from the same state and inputs: integers equal,
+    floating ones each element within OPT_STATE_RTOL of the largest
+    element of its tensor.  Returns the worst (that difference, name)."""
+    import torch
+    worst = (0.0, None)
+    for n, c in card.items():
+        c, h = c.detach().cpu(), want[n].detach().cpu()
+        if not c.is_floating_point():
+            if not torch.equal(c, h):
+                raise AssertionError(f"optimizers {name}: {n} {c} vs {h}")
+            continue
+        c, h = c.double(), h.double()
+        err = float((c - h).abs().max()) / max(float(h.abs().max()), 1e-30)
+        if not err <= OPT_STATE_RTOL:
+            raise AssertionError(f"optimizers {name}: {n} differs by {err} "
+                                 f"of its largest element (bound "
+                                 f"{OPT_STATE_RTOL})")
+        worst = max(worst, (err, n), key=lambda t: t[0])
+    return worst
+
+
+def _check_initializers():
+    """The startup program with each new initializer on the card: the
+    truncated normal within its bound, mean and std within OPT_INIT_SE
+    standard errors, MSRA's uniform and normal scales, Bilinear's and
+    NumpyArray's values equal to the host's."""
+    import math
+
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import initializer as I
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.framework import Program, Scope, program_guard
+    shape, fan_in = [1024, 1024], 1024
+    inits = {"trunc": I.TruncatedNormal(loc=0.0, scale=0.02),
+             "msra_u": I.MSRA(), "msra_n": I.MSRA(uniform=False),
+             "bilinear": I.Bilinear(),
+             "numpy": I.NumpyArrayInitializer(
+                 np.random.RandomState(3).randn(64, 48).astype(np.float32))}
+    shapes = {"bilinear": [16, 8, 4, 4], "numpy": [64, 48]}
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        for n, init in inits.items():
+            layers.create_parameter(shapes.get(n, shape), "float32", name=n,
+                                    default_initializer=init)
+    card, host = Scope(), Scope()
+    ptt.Executor().run(startup, scope=card, seed=17)
+    ptt.Executor(ptt.CPUPlace()).run(startup, scope=host, seed=17)
+    trunc_std = math.sqrt(1 - 4 * math.exp(-2) / math.sqrt(2 * math.pi)
+                          / math.erf(math.sqrt(2)))
+    report = {}
+    for n, mean, std, bound in (
+            ("trunc", 0.0, 0.02 * trunc_std, 0.04),
+            ("msra_u", 0.0, math.sqrt(6.0 / fan_in) / math.sqrt(3.0),
+             math.sqrt(6.0 / fan_in)),
+            ("msra_n", 0.0, math.sqrt(2.0 / fan_in), None)):
+        w = card.find_var(n)
+        assert w.is_cuda and tuple(w.shape) == tuple(shape), (n, w.shape)
+        w = w.double().cpu().reshape(-1)
+        k = w.numel()
+        m, s = float(w.mean()), float(w.std())
+        ok = abs(m - mean) <= OPT_INIT_SE * std / math.sqrt(k) and \
+            abs(s - std) <= OPT_INIT_SE * std / math.sqrt(2 * k) and \
+            (bound is None or float((w - mean).abs().max()) <= bound * (
+                1 + 1e-6))
+        if not ok:
+            raise AssertionError(f"optimizers: {n} on the card: mean {m}, "
+                                 f"std {s}, want {mean}, {std}, bound "
+                                 f"{bound}")
+        report[n] = {"mean": m, "std": s, "want_std": std}
+    for n in ("bilinear", "numpy"):
+        if not torch.equal(card.find_var(n).cpu(), host.find_var(n)):
+            raise AssertionError(f"optimizers: {n} differs on the card")
+    return report
+
+
+def phase_optimizers():
+    """The 10 optimizer classes this slice added, and Lookahead,
+    ModelAverage and ExponentialMovingAverage over Adam: a 2-layer BERT of
+    BERT-base's width (dropout 0.1, float32 with the dense LM head, TF32
+    off) takes OPT_STEPS steps on the card and on the host at the same
+    seeds, each from the host's state: the losses within OPT_LOSS_RTOL, and what the update
+    ops read (the gradients) within OPT_STATE_RTOL as ``_rel_diff`` says.
+    The host then runs the update ops (``_update_program``) from that same
+    state on the card's gradients, and every parameter and accumulator the
+    card wrote must match it as ``_check_update`` says, the averages
+    ``apply()`` puts in the scope after the last step likewise.  LAMB's and
+    LARS's updates run under sync-debug "error"; then, on the card, the
+    new initializers (``_check_initializers``)."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.framework import (Program, Scope, program_guard,
+                                            scope_guard, unique_name)
+    from paddle_tpu_torch.models import transformer as T
+
+    cfg = T.BertConfig(n_layer=2)
+    feeds = [_bert_feed(cfg, OPT_BATCH, BERT_SEQ, seed=s)
+             for s in range(OPT_STEPS)]
+    out = {}
+    for name, make in _optimizer_cases().items():
+        main, startup = Program(), Program()
+        with program_guard(main, startup), unique_name.guard():
+            # the dense head: the fused one rounds its products to bf16,
+            # and a sum the card and the host take in other orders can
+            # round to neighbouring bf16 values
+            _, _, loss = T.build_bert_pretrain(cfg, BERT_SEQ,
+                                               arange_pos=True)
+            opt = make()
+            opt.minimize(loss)
+            avg = None
+            if name == "ModelAverage":
+                avg = O.ModelAverage(0.15, min_average_window=1,
+                                     max_average_window=2)
+            elif name == "ExponentialMovingAverage":
+                avg = O.ExponentialMovingAverage(0.9)
+                avg.update()
+        upd, fed = _update_program(main)
+        host_scope, card_scope, want_scope = Scope(), Scope(), Scope()
+        host = ptt.Executor(ptt.CPUPlace())
+        host.run(startup, scope=host_scope, seed=21)
+        names = [v.name for v in startup.global_block().vars.values()]
+        card = ptt.Executor()
+        guard = _NoHostSync(("lamb", "lars_momentum"))
+        got, want, card_s, host_s = [], [], 0.0, 0.0
+        worst, worst_in = (0.0, None), (0.0, None)
+        for s, f in enumerate(feeds):
+            # each step starts from the host's state: a step's difference
+            # is its own, not the sum of the steps before it
+            for n in names:
+                v = host_scope.find_var(n)
+                card_scope.set_var(n, v.to(card.device))
+                want_scope.set_var(n, v.clone())
+            t0 = time.perf_counter()
+            with guard:
+                c_out = card.run(main, feed=f, fetch_list=[loss] + fed,
+                                 scope=card_scope, seed=60 + s)
+            t1 = time.perf_counter()
+            h_out = host.run(main, feed=f, fetch_list=[loss] + fed,
+                             scope=host_scope, seed=60 + s)
+            card_s, host_s = card_s + t1 - t0, \
+                host_s + time.perf_counter() - t1
+            got.append(float(c_out[0]))
+            want.append(float(h_out[0]))
+            for n, c, h in zip(fed, c_out[1:], h_out[1:]):
+                err = _rel_diff(torch.from_numpy(c), torch.from_numpy(h))
+                if not err <= OPT_STATE_RTOL:
+                    raise AssertionError(f"optimizers {name}: {n} "
+                                         f"difference {err} (bound "
+                                         f"{OPT_STATE_RTOL})")
+                worst_in = max(worst_in, (err, n), key=lambda t: t[0])
+            # the host's update from the same state on the card's inputs
+            host.run(upd, feed=dict(zip(fed, c_out[1:])), scope=want_scope)
+            worst = max(worst, _check_update(
+                name, {n: card_scope.find_var(n) for n in names},
+                {n: want_scope.find_var(n) for n in names}),
+                key=lambda t: t[0])
+        loss_err = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        if not loss_err <= OPT_LOSS_RTOL:
+            raise AssertionError(f"optimizers {name}: losses {got} on the "
+                                 f"card, {want} on the host")
+        if avg is not None:
+            params = [p.name for p in main.all_parameters()]
+            averaged = []
+            for sc in (card_scope, want_scope):
+                trained = {n: sc.find_var(n) for n in params}
+                with scope_guard(sc), avg.apply():
+                    averaged.append({n: sc.find_var(n) for n in params})
+                if any(sc.find_var(n) is not trained[n] for n in params):
+                    raise AssertionError(f"optimizers {name}: apply() did "
+                                         f"not restore the parameters")
+            worst = max(worst, _check_update(name + " apply()", *averaged),
+                        key=lambda t: t[0])
+        n_ops = {t: [op.type for op in main.global_block().ops].count(t)
+                 for t in ("lamb", "lars_momentum")}
+        if guard.calls != OPT_STEPS * sum(n_ops.values()) or (
+                name in ("Lamb", "LarsMomentum") and not guard.calls):
+            raise AssertionError(f"optimizers {name}: {guard.calls} guarded "
+                                 f"updates for {n_ops} ops")
+        out[name] = {"losses": got, "host_losses": want,
+                     "loss_rel_err": loss_err, "worst_input": worst_in,
+                     "worst_update": worst, "card_s": card_s,
+                     "host_s": host_s, "no_sync_updates": guard.calls}
+        _log("optimizers", f"{name}: {OPT_STEPS} steps card vs host "
+             f"({card_s:.2f} / {host_s:.2f} s): losses "
+             f"{', '.join(f'{x:.6f}' for x in got)}, max rel {loss_err:.2g}"
+             f" (rtol {OPT_LOSS_RTOL}); worst of {len(fed)} update inputs "
+             f"{worst_in[1]} {worst_in[0]:.2g} (norm, rtol {OPT_STATE_RTOL})"
+             f"; update on the card's inputs: worst {worst[1]} "
+             f"{worst[0]:.2g} of its largest element (bound "
+             f"{OPT_STATE_RTOL}, every element held)"
+             + (f"; {guard.calls} updates under sync-debug \"error\""
+                if guard.calls else "") + " ok")
+        torch.cuda.empty_cache()
+    out["initializers"] = _check_initializers()
+    _log("optimizers", "initializers on the card: " + "; ".join(
+        f"{n} mean {r['mean']:.3g} std {r['std']:.5g} (want "
+        f"{r['want_std']:.5g})" for n, r in out["initializers"].items())
+        + "; Bilinear and NumpyArray equal to the host ok")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", help="also write every measurement here")
@@ -4418,6 +4923,8 @@ def main(argv=None) -> int:
     bert_masked = phase_bert_masked()
     wmt = phase_transformer_wmt()
     se = phase_se_resnext()
+    recompute = phase_recompute_train()
+    optimizers = phase_optimizers()
     timing = phase_timing(smi, serve, train)
     timing["conv1x1_stats"] = timing_k3(smi, resnet)
     timing.update(timing_k45(smi, train, fused))
@@ -4480,6 +4987,14 @@ def main(argv=None) -> int:
     for name in ("dense_epilogue", "layer_norm_fwd", "layer_norm_bwd"):
         by_path[name + "_bf16"]["bert_train"] = \
             bert["launches"][name + "_bf16"]
+    # recompute_train: (a) and (b), the recomputed chains' launches included
+    for name, key in (("dense_epilogue_bf16", "dense_epilogue_bf16"),
+                      ("layer_norm_fwd_bf16", "layer_norm_fwd_bf16"),
+                      ("layer_norm_bwd_bf16", "layer_norm_bwd_bf16"),
+                      ("dropout_bf16", "dropout_bfloat16")):
+        for k in ("a", "b"):
+            by_path[name][f"recompute_train_{k}"] = \
+                recompute[k]["launches"][key]
     missing = [n for n, paths in by_path.items() if not sum(paths.values())]
     if missing:
         raise AssertionError(f"kernels never launched on their paths: "
@@ -4504,6 +5019,8 @@ def main(argv=None) -> int:
                        "ring_train": ring_train, "decode": decode,
                        "bert_train": bert, "bert_masked": bert_masked,
                        "transformer_wmt": wmt, "se_resnext": se,
+                       "recompute_train": recompute,
+                       "optimizers": optimizers,
                        "serve": {k: v for k, v in serve.items()
                                  if k not in ("scope", "factory")},
                        "train": {k: v for k, v in train.items()

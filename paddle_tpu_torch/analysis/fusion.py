@@ -66,7 +66,9 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from .. import monitor as _monitor
-from ..framework.core import Block, Program
+from ..framework.core import Block, Program, grad_var_name
+from ..framework.recompute import (RECOMPUTE_SUFFIX, dead_barriers,
+                                   source_name)
 
 __all__ = ["FusionDecision", "FusionReport", "analyze_program",
            "clear_cache", "config_token", "fuse_program"]
@@ -198,6 +200,21 @@ def _out_node_by_name(op_node, name):
     return next((v for v in op_node.outputs if v.name == name), None)
 
 
+def _grad_of(name: str) -> str:
+    """The gradient name the backward carries for a forward value: a
+    recomputed clone's ``v@RECOMPUTE`` carries ``v``'s (``v@GRAD``)."""
+    return grad_var_name(source_name(name))
+
+
+def _cloned(program, name: str) -> bool:
+    """Whether the recompute transform cloned the op writing ``name``:
+    the backward then reads the clone, whose candidate takes the grad
+    chain."""
+    block = program.global_block()
+    return block.has_var(name + RECOMPUTE_SUFFIX) or \
+        block.has_var(name + RECOMPUTE_SUFFIX + "@DEAD")
+
+
 def _grad_consumer(graph, grad_name: str, type_: str, slot: str):
     """The op node of ``type_`` whose ``slot`` input is ``grad_name``:
     how the backward chain is walked."""
@@ -316,7 +333,7 @@ def _conv_bn_grad_chain(graph, conv_n, bn_n, relu_n, out_node):
     """The relu_grad → batch_norm_explicit_grad → conv2d_grad chain of
     one matched forward, or None when absent."""
     chain = []
-    g = out_node.name + "@GRAD"
+    g = _grad_of(out_node.name)
     if relu_n is not None:
         rg = _grad_consumer(graph, g, "relu_grad", "OG$Out")
         if rg is None or rg.op.attrs.get("__fwd_type__") != "relu":
@@ -469,7 +486,7 @@ def _dense_grad_chain(graph, mm_type, out_node, drop_n, act_n):
     """[dropout_grad →] act_grad → elementwise_add_grad → mm_grad of one
     matched forward (``fusion.py:507``), or None."""
     chain = []
-    g = out_node.name + "@GRAD"
+    g = _grad_of(out_node.name)
     if drop_n is not None:
         dg = _grad_consumer(graph, g, "dropout_grad", "OutGrad")
         if dg is None or dg.op.input("Mask"):
@@ -588,7 +605,7 @@ def _embedding_ln_grad_chain(graph, y_node, chain_ops, lt_n):
     match (``fusion.py:651``), or None.  The add grads' IG$Y outputs carry
     the external addends' gradients, which the fused grad op must keep
     producing ('' for an addend that takes none)."""
-    lng = _grad_consumer(graph, y_node.name + "@GRAD",
+    lng = _grad_consumer(graph, _grad_of(y_node.name),
                          "layer_norm_grad", "OG$Y")
     if lng is None or lng.op.attrs.get("__fwd_type__") != "layer_norm":
         return None
@@ -638,7 +655,11 @@ def _finish_candidate(graph, program, cand, *, fused_type, fused_ins,
     in the addends' order."""
     if cand.reject_rule:
         return
-    if _has_grad_ops(program) and not grad_chain:
+    if _cloned(program, out_node.name):
+        # a recomputed original: its clone takes the grad chain, and the
+        # legality rules hold no grad op reads what the rewrite removes
+        grad_chain = None
+    elif _has_grad_ops(program) and not grad_chain:
         cand.reject_rule = "missing_grad_rewrite"
         return
     cand.grad_ops = list(grad_chain or ())
@@ -689,8 +710,9 @@ def _finish_candidate(graph, program, cand, *, fused_type, fused_ins,
         ext[v.name] = (tuple(var.shape), str(var.dtype or "float32"))
     cand.ext_inputs = ext
     out_var = getattr(out_node, "var", None)
+    # by source names: a recomputed chain and its clone share a verdict
     cand.shape_key = tuple(sorted(
-        (n, s) for n, (s, _) in ext.items())) + (
+        (source_name(n), s) for n, (s, _) in ext.items())) + (
         ("out", tuple(out_var.shape) if out_var is not None and
          out_var.shape else ()),)
 
@@ -708,7 +730,7 @@ def _finish_candidate(graph, program, cand, *, fused_type, fused_ins,
             # optimizer ops downstream are untouched
             g_ins = {"X$" + slot: list(nodes)
                      for slot, nodes in fused_ins.items()}
-            og_name = out_node.name + "@GRAD"
+            og_name = _grad_of(out_node.name)
             g_ins["OG$" + og_slot_name] = [next(
                 (v for gop in cand.grad_ops
                  for v in [_node_by_name(gop, og_name)] if v is not None),
@@ -743,7 +765,7 @@ def _finish_candidate(graph, program, cand, *, fused_type, fused_ins,
                     gname or "" for gname in addend_grads]
             doomed += list(cand.grad_ops) + list(cand.grad_internal)
         g.safe_remove_nodes(doomed)
-        return fused_node
+        return fused_node, gnode if cand.grad_ops else None
 
     cand.build = build
 
@@ -1093,6 +1115,12 @@ def _fuse(program: Program, fetch_names, batch: int, dry_run: bool,
 
     report = FusionReport()
     graph = ir.Graph(program)
+    # a recomputed program's unread barriers would be consumers of the
+    # original chains' values (the executor skips them)
+    dead = {id(op) for op in dead_barriers(
+        [n.op for n in graph.op_nodes], fetch_names)}
+    graph.safe_remove_nodes([x for n in graph.op_nodes if id(n.op) in dead
+                             for x in [n] + n.outputs])
     candidates: List[_Candidate] = []
     for matcher in _MATCHERS:
         candidates.extend(matcher(graph, program, fetch_names))
@@ -1162,7 +1190,13 @@ def _fuse(program: Program, fetch_names, batch: int, dry_run: bool,
         return program, report
 
     for cand, use_pallas in applied:
-        cand.build(graph, use_pallas=use_pallas)
+        fwd_node, grad_node = cand.build(graph, use_pallas=use_pallas)
+        # the rank ``to_program`` keeps for a recomputed program: the
+        # forward where its last op ran, the grad where its first one did
+        graph.rank[fwd_node.id] = max(graph.rank[n.id] for n in cand.fwd_ops)
+        if grad_node is not None:
+            graph.rank[grad_node.id] = min(graph.rank[n.id]
+                                           for n in cand.grad_ops)
     fused = graph.to_program()
     report.applied = len(applied)
 

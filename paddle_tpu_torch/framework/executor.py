@@ -30,8 +30,11 @@ executes that forward op once under ``torch.enable_grad()`` on detached
 inputs that require grad; its graph waits in a side table until the grad op
 takes it (and frees it).  A grad op is paired by the forward's type and
 inputs and by the output gradients it carries: a fused op's grad carries
-only ``OG$Y`` of its five outputs.  Everything else runs under
-``torch.no_grad()``, the optimizer ops included, and their outputs reach
+only ``OG$Y`` of its five outputs.  After ``framework/recompute.py`` a grad
+op pairs with the clone of its forward (names compared by source), so the
+original runs without a graph and the clone's graph lives from its chain,
+just before the segment's backward, to the grad op.  Everything else runs
+under ``torch.no_grad()``, the optimizer ops included, and their outputs reach
 the scope through the write-back of persistables.
 
 Random ops draw from a ``torch.Generator`` on the executor's device, seeded
@@ -65,6 +68,7 @@ from ..analysis import fusion as _fusion
 from ..kernels import dropout as _dropout
 from . import registry
 from .core import Program, Variable, default_main_program, grad_var_name
+from .recompute import dead_barriers, source_name
 from .scope import Scope, global_scope
 
 
@@ -137,24 +141,30 @@ class FetchHandle:
 
 def _fwd_key(op) -> tuple:
     """What a forward op and its generic grad op share: the type and the
-    input names by slot."""
+    input names by slot, each name as its source (``recompute.source_name``:
+    a recomputed clone reads ``v@RBAR`` or ``v@RECOMPUTE`` where the grad op
+    of the original reads ``v``)."""
     return (op.type,
-            tuple(sorted((s, tuple(ns)) for s, ns in op.inputs.items())))
+            tuple(sorted((s, tuple(map(source_name, ns)))
+                         for s, ns in op.inputs.items())))
 
 
 def _grad_key(op) -> tuple:
     return (op.attrs["__fwd_type__"],
-            tuple(sorted((s[2:], tuple(ns)) for s, ns in op.inputs.items()
+            tuple(sorted((s[2:], tuple(map(source_name, ns)))
+                         for s, ns in op.inputs.items()
                          if s.startswith("X$"))))
 
 
 def _carries_grads_of(grad_op, fwd_op) -> bool:
     """Whether each output gradient the grad op carries (``OG$<slot>``) is
-    the gradient of ``fwd_op``'s output in that slot.  A grad op may carry
-    fewer slots than its forward has outputs."""
+    the gradient of ``fwd_op``'s output in that slot (of its source, for a
+    recomputed clone's ``v@RECOMPUTE``).  A grad op may carry fewer slots
+    than its forward has outputs."""
     for s, ns in grad_op.inputs.items():
         if s.startswith("OG$") and list(ns) != [
-                grad_var_name(n) for n in fwd_op.outputs.get(s[3:], [])]:
+                grad_var_name(source_name(n))
+                for n in fwd_op.outputs.get(s[3:], [])]:
             return False
     return True
 
@@ -167,7 +177,9 @@ class _Plan:
     the forward op whose graph it takes (None when the block holds no such
     op: the grad op then recomputes its forward); ``wanted`` maps each
     forward op so taken to the input gradients its grad op wants, by
-    slot."""
+    slot.  In a recomputed program a grad op takes its forward's clone,
+    the latest op of that key before it; a barrier nobody reads is left
+    out."""
 
     def __init__(self, program: Program, fetch_names):
         block = program.global_block()
@@ -177,8 +189,9 @@ class _Plan:
         self.fwd_of: Dict[int, Optional[int]] = {}
         self.wanted: Dict[int, Dict[str, List[bool]]] = {}
         fwd_at: Dict[tuple, List[int]] = {}
+        dead = {id(op) for op in dead_barriers(block.ops, fetch_names)}
         for op in block.ops:
-            if op.type in ("feed", "fetch"):
+            if op.type in ("feed", "fetch") or id(op) in dead:
                 continue
             i = len(self.ops)
             if registry.is_generic_grad(op):

@@ -23,11 +23,13 @@ are not ported yet.
 
 from __future__ import annotations
 
+import heapq
 import itertools
 from collections import deque
 from typing import Callable, Dict, List, Optional, Sequence
 
 from .core import Block, Operator, Program, Variable
+from .recompute import is_recomputed
 
 _node_ids = itertools.count()
 
@@ -70,6 +72,9 @@ class Graph:
         self.attrs: Dict[str, object] = {}
         self.op_nodes: List[Node] = []      # in program order
         self.var_nodes: List[Node] = []
+        # op node id -> its place in the program (``to_program`` keeps a
+        # recomputed program's order by it); a pass may rank a new node
+        self.rank: Dict[int, float] = {}
         block = program.blocks[block_idx]
         latest: Dict[str, Node] = {}        # name -> current SSA def
 
@@ -79,6 +84,7 @@ class Graph:
 
         for op in block.ops:
             op_node = Node("op", op.type, op=op)
+            self.rank[op_node.id] = len(self.op_nodes)
             self.op_nodes.append(op_node)
             for name in op.input_arg_names():
                 if not name:
@@ -108,26 +114,66 @@ class Graph:
     def ops_of_type(self, type: str) -> List[Node]:
         return [n for n in self.op_nodes if n.name == type]
 
-    def topology_sort(self) -> List[Node]:
+    def topology_sort(self, priority: Optional[Dict[int, int]] = None
+                      ) -> List[Node]:
         """Op nodes in dependency order, ties in node order (ref
-        ``graph_helper.cc`` TopologySortOperations)."""
-        indeg: Dict[int, int] = {}
+        ``graph_helper.cc`` TopologySortOperations).  With ``priority``
+        (op node id -> rank), the ready op of the lowest rank goes first:
+        an order of ranks that respects the dependencies comes back as it
+        is.
+
+        Besides the data edges, a write of a name waits for the reads and
+        the write of its version before that come before it in the
+        program (``self.rank``).  The reference's sort has only the data
+        edges: an op updating a persistable in place that nothing feeds,
+        such as Adamax's ``scale`` of its beta1 power, ran first, before
+        the update reading the old power."""
+        indeg: Dict[int, int] = {op.id: 0 for op in self.op_nodes}
         succ: Dict[int, List[Node]] = {}
+
+        def edge(a, b):
+            succ.setdefault(a.id, []).append(b)
+            indeg[b.id] += 1
+
         for op in self.op_nodes:
-            indeg.setdefault(op.id, 0)
             for v in op.outputs:
                 for consumer in v.outputs:
-                    succ.setdefault(op.id, []).append(consumer)
-                    indeg[consumer.id] = indeg.get(consumer.id, 0) + 1
-        ready = deque(op for op in self.op_nodes if indeg[op.id] == 0)
+                    edge(op, consumer)
+        versions: Dict[str, List[Node]] = {}
+        for v in self.var_nodes:
+            versions.setdefault(v.name, []).append(v)
+        for vs in versions.values():
+            for before, v in zip(vs, vs[1:]):
+                for writer in v.inputs:
+                    for other in itertools.chain(before.outputs,
+                                                 before.inputs):
+                        # where a data edge already orders the pair, a
+                        # second one would move the writer in the queue
+                        if self.rank[other.id] < self.rank[writer.id] \
+                                and writer not in succ.get(other.id, ()):
+                            edge(other, writer)
+        if priority is None:            # breadth first, the reference's
+            ready = deque()
+            push, pop = ready.append, ready.popleft
+        else:
+            ready = []
+
+            def push(op):
+                heapq.heappush(ready, (priority[op.id], op.id, op))
+
+            def pop():
+                return heapq.heappop(ready)[2]
+        for op in self.op_nodes:
+            if indeg[op.id] == 0:
+                push(op)
         order: List[Node] = []
         while ready:
-            op = ready.popleft()
+            op = pop()
             order.append(op)
             for consumer in succ.get(op.id, []):
                 indeg[consumer.id] -= 1
                 if indeg[consumer.id] == 0:
-                    ready.append(consumer)
+                    push(consumer)
         if len(order) != len(self.op_nodes):
             raise RuntimeError("graph has a cycle; pass produced invalid IR")
         return order
@@ -135,6 +181,8 @@ class Graph:
     def create_op_node(self, type: str, inputs: Dict[str, List[Node]],
                        outputs: Dict[str, List[Node]],
                        attrs: Optional[dict] = None) -> Node:
+        """A new op node; its rank, until a pass sets another, is just
+        after its inputs' producers."""
         block = self.program.blocks[self.block_idx]
         op = Operator(block, type, attrs=attrs or {})
         op.inputs = {slot: [v.name for v in vs] for slot, vs in inputs.items()}
@@ -150,6 +198,9 @@ class Graph:
                 node.outputs.append(v)
                 v.inputs.append(node)
         self.op_nodes.append(node)
+        self.rank[node.id] = 0.5 + max(
+            (self.rank[p.id] for vs in inputs.values() for v in vs
+             for p in v.inputs), default=-1)
         return node
 
     def safe_remove_nodes(self, nodes: Sequence[Node]) -> None:
@@ -162,7 +213,12 @@ class Graph:
 
     def to_program(self) -> Program:
         """A new Program: block 0 from this graph in topological order,
-        the other blocks cloned from the source."""
+        the other blocks cloned from the source.  A recomputed program
+        (``recompute.is_recomputed``) keeps its order, ranked by
+        ``self.rank``: the executor runs ops in list order, and there the
+        order is the memory plan (each recomputed chain just before the
+        backward that reads it), where the breadth-first order would run
+        every chain in the forward pass."""
         out = self.program.clone()
         blk = out.global_block()
         for v in self.var_nodes:
@@ -171,7 +227,8 @@ class Graph:
                                dtype=v.var.dtype,
                                persistable=v.var.persistable)
         blk.ops = []
-        for op_node in self.topology_sort():
+        for op_node in self.topology_sort(
+                self.rank if is_recomputed(self.program) else None):
             op = op_node.op
             attrs = {k: out.blocks[val.idx] if isinstance(val, Block)
                      else val for k, val in op.attrs.items()}

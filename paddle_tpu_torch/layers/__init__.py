@@ -1,13 +1,14 @@
 """``paddle_tpu_torch.layers`` — the user-facing layer DSL (the subset of
 ``paddle_tpu.layers`` the port runs so far)."""
 
-from . import io, math_ops, metric_op, nn, tensor  # noqa
+from . import control_flow, io, math_ops, metric_op, nn, tensor  # noqa
+from .control_flow import equal, increment  # noqa
 from .io import data  # noqa
 from .math_ops import scale  # noqa
 from .metric_op import accuracy  # noqa
 from .nn import (batch_norm, conv2d, cross_entropy, dropout,  # noqa
-                 embedding, expand, fc, flash_attention, fused_lm_head_ce,
-                 gather, layer_norm, matmul, mean, pool2d, reduce_max,
+                 elementwise_mod, embedding, expand, fc, flash_attention,
+                 fused_lm_head_ce, gather, layer_norm, matmul, mean, pool2d, reduce_max,
                  reduce_mean, reduce_min, reduce_prod, reduce_sum, relu,
                  reshape, ring_attention, sigmoid, sign, slice, softmax,
                  softmax_with_cross_entropy, split, topk, transpose,

@@ -393,6 +393,11 @@ def slice(input, axes, starts, ends):
 # elementwise unary
 # ---------------------------------------------------------------------------
 
+def elementwise_mod(x, y, axis=-1, act=None, name=None):
+    """ref ``paddle_tpu/layers/nn.py:829``: ``x mod y``, the sign of y."""
+    return _elementwise_binary(x, y, "elementwise_mod", axis=axis, act=act)
+
+
 def _unary(op_type, x, name=None, **attrs):
     helper = LayerHelper(op_type, name=name)
     out = helper.create_variable_for_type_inference(x.dtype)

@@ -134,11 +134,13 @@ def encoder_layer(x, d_model, d_inner, n_head, dropout_rate=0.0,
 
 def encoder(src_ids, pos_ids, vocab_size, max_pos, n_layer, d_model, d_inner,
             n_head, dropout_rate=0.0, attn_bias=None, is_test=False,
-            type_ids=None, n_types=2, attn_impl="base", arange_pos=False,
-            causal=False):
-    """BERT-style embedding + N encoder layers.  ``arange_pos=True``: the
-    position embedding is a static slice of the table broadcast over the
-    batch (positions 0..T-1 for every row)."""
+            type_ids=None, n_types=2, attn_impl="base", checkpoints=None,
+            arange_pos=False, causal=False):
+    """BERT-style embedding + N encoder layers.  ``checkpoints=[]``
+    collects each layer's output, the segment boundaries of
+    ``RecomputeOptimizer`` (ref ``transformer.py:139-176``).
+    ``arange_pos=True``: the position embedding is a static slice of the
+    table broadcast over the batch (positions 0..T-1 for every row)."""
     emb = layers.embedding(src_ids, size=[vocab_size, d_model],
                            param_attr=ParamAttr(name="word_embedding"))
     if arange_pos:
@@ -165,6 +167,8 @@ def encoder(src_ids, pos_ids, vocab_size, max_pos, n_layer, d_model, d_inner,
         x = encoder_layer(x, d_model, d_inner, n_head, dropout_rate,
                           attn_bias, is_test, idx=i, attn_impl=attn_impl,
                           causal=causal)
+        if checkpoints is not None:
+            checkpoints.append(x)
     return x
 
 
@@ -211,10 +215,13 @@ def _lm_head_loss(enc, cfg, lm_label, fused_head, param_name):
 
 def build_bert_pretrain(cfg: BertConfig, seq_len, is_test=False,
                         dropout=None, attn_impl="base", fused_head=False,
-                        arange_pos=False, masked_gather=None):
+                        checkpoints=None, arange_pos=False,
+                        masked_gather=None):
     """Masked-LM pretraining net: ids+mask-labels → mean masked CE loss
     (ref ``transformer.py:221``).  Labels use 0 ([PAD]) for unmasked
     positions, which are excluded from loss and denominator.
+    ``checkpoints=[]`` collects each layer's output for
+    ``RecomputeOptimizer``.
 
     ``masked_gather=N`` (ref ``:236-262``): feed ``mask_pos`` ([b, N]
     flattened absolute positions, b_idx * seq + pos) and ``lm_label`` [b,
@@ -231,7 +238,7 @@ def build_bert_pretrain(cfg: BertConfig, seq_len, is_test=False,
     enc = encoder(src_ids, pos_ids, cfg.vocab_size, cfg.max_pos, cfg.n_layer,
                   cfg.d_model, cfg.d_inner, cfg.n_head, dropout,
                   is_test=is_test, attn_impl=attn_impl,
-                  arange_pos=arange_pos)
+                  checkpoints=checkpoints, arange_pos=arange_pos)
     if masked_gather:
         flat = layers.reshape(enc, shape=[-1, cfg.d_model])
         enc = layers.reshape(
@@ -247,7 +254,8 @@ def build_bert_pretrain(cfg: BertConfig, seq_len, is_test=False,
 
 
 def build_gpt_pretrain(cfg: BertConfig, seq_len, is_test=False,
-                       dropout=None, attn_impl="auto", fused_head=True):
+                       dropout=None, attn_impl="auto", fused_head=True,
+                       checkpoints=None):
     """Decoder-only causal LM (ref ``transformer.py:270``): ids → causal
     transformer → next-token CE.  ``lm_label`` is the next-token target
     (the input pipeline shifts; label 0 = [PAD] is excluded from the
@@ -258,7 +266,7 @@ def build_gpt_pretrain(cfg: BertConfig, seq_len, is_test=False,
     enc = encoder(src_ids, None, cfg.vocab_size, cfg.max_pos, cfg.n_layer,
                   cfg.d_model, cfg.d_inner, cfg.n_head, dropout,
                   is_test=is_test, attn_impl=attn_impl,
-                  arange_pos=True, causal=True)
+                  checkpoints=checkpoints, arange_pos=True, causal=True)
     logits, avg_loss = _lm_head_loss(enc, cfg, lm_label, fused_head,
                                      "lm_out")
     return (src_ids, lm_label), logits, avg_loss

@@ -27,6 +27,8 @@ _ELEMENTWISE = {
     "elementwise_pow": torch.pow,
     "elementwise_min": torch.minimum,
     "elementwise_max": torch.maximum,
+    # the sign of the divisor, as jnp.mod (Python's %)
+    "elementwise_mod": torch.remainder,
 }
 
 

@@ -2,15 +2,18 @@
 ``paddle_tpu/ops/tensor_ops.py`` the serving and training slices run).
 
 Reference kernels: ``operators/fill_constant_op.cc``, ``uniform_random_op.cc``,
-``gaussian_random_op.cc``, ``top_k_op.cc``, ``split_op.cc``, ``reshape_op.cc`` (reshape2), ``transpose_op.cc``,
-``unsqueeze_op.cc``, ``scale_op.cc``, ``lookup_table_op.cc``, ``range_op.cc``,
-``expand_op.cc``, ``slice_op.cc``, ``sum_op.cc`` (the grad fan-in of
-``append_backward``), ``assign_op.cc``, ``assign_value_op.cc``,
-``gather_op.cc``.  Shape-only ops return views where torch
+``gaussian_random_op.cc``, ``truncated_gaussian_random_op.cc``,
+``increment_op.cc``, ``top_k_op.cc``, ``split_op.cc``, ``reshape_op.cc``
+(reshape2), ``transpose_op.cc``, ``unsqueeze_op.cc``, ``scale_op.cc``,
+``lookup_table_op.cc``, ``range_op.cc``, ``expand_op.cc``, ``slice_op.cc``,
+``sum_op.cc`` (the grad fan-in of ``append_backward``), ``assign_op.cc``,
+``assign_value_op.cc``, ``gather_op.cc``.  Shape-only ops return views where torch
 can; a consumer that needs contiguous memory asks for it.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -53,6 +56,31 @@ def _gaussian_random(ctx, ins, attrs):
                       dtype=torch.float32)
     out = out * attrs.get("std", 1.0) + attrs.get("mean", 0.0)
     return {"Out": [out.to(dtype)]}
+
+
+@register_op("truncated_gaussian_random", no_grad=True, stateful_rng=True)
+def _truncated_gaussian_random(ctx, ins, attrs):
+    """N(mean, std²) truncated at two standard deviations (ref
+    ``tensor_ops.py:58-65``), by the inverse normal CDF of a uniform draw
+    from the run's generator between the CDF's values at -2 and 2.  Draws
+    differ from the reference's jax keys; shape, dtype, bounds and
+    distribution agree."""
+    shape = tuple(attrs.get("shape", []))
+    dtype = canon_dtype(attrs.get("dtype", "float32"))
+    lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
+    u = torch.rand(shape, generator=ctx.generator, device=ctx.device,
+                   dtype=torch.float32)
+    z = (torch.erfinv(lo + (hi - lo) * u) * math.sqrt(2.0)).clamp_(-2.0, 2.0)
+    out = z * attrs.get("std", 1.0) + attrs.get("mean", 0.0)
+    return {"Out": [out.to(dtype)]}
+
+
+@register_op("increment")
+def _increment(ctx, ins, attrs):
+    """x + step in x's dtype (ref ``tensor_ops.py:428``)."""
+    x = X(ins, "X")
+    return {"Out": [x + torch.tensor(attrs.get("step", 1.0), dtype=x.dtype,
+                                     device=x.device)]}
 
 
 @register_op("top_k", no_grad=True)

@@ -114,6 +114,12 @@ have them), so it runs there with the repo's conftest left out:
   at dropout 0.1 trains a step on the card as on the host (the same bits
   by design: loss 1e-5 relative); a CUDA tensor the kernel does not take,
   or a launch that fails, raises (no plain fallback).
+- activation recompute: a 2-layer BERT (d 256, dropout 0.1, AMP, LAMB)
+  with and without ``RecomputeOptimizer`` over its layer outputs, 3 steps
+  on the card from the same weights: the same losses to the bit, and the
+  recomputed program's peak above its start lower; the LAMB and LARS
+  updates on card tensors under ``torch.cuda.set_sync_debug_mode("error")``
+  (no host sync) against their host lowerings.
 """
 
 import numpy as np
@@ -1941,3 +1947,81 @@ def test_bert_step_with_dropout_on_the_card_matches_the_host(cuda):
     # 9 dropouts and their 9 gradients, two of each in a fused FFN
     assert dk.launch_count("dropout", "float32") - n0 == 18
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+def _recompute_bert(recompute):
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.framework import unique_name
+    cfg = T.BertConfig(vocab_size=1000, d_model=256, n_layer=2, n_head=4,
+                       d_inner=1024, max_pos=128, dropout=0.1)
+    main, startup = Program(), Program()
+    with program_guard(main, startup), unique_name.guard():
+        ckpts = [] if recompute else None
+        _, _, loss = T.build_bert_pretrain(cfg, 128, fused_head=True,
+                                           arange_pos=True,
+                                           checkpoints=ckpts)
+        opt = optimizer.LambOptimizer(1e-3)
+        if recompute:
+            opt = optimizer.RecomputeOptimizer(opt)
+            opt._set_checkpoints(ckpts)
+        amp.decorate(opt).minimize(loss)
+    return main, startup, loss
+
+
+def test_recompute_on_the_card_matches_and_lowers_the_peak(cuda):
+    init = Scope()
+    ptt.Executor().run(_recompute_bert(False)[1], scope=init, seed=3)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(1, 1000, (16, 128))
+    feed = {"src_ids": ids, "lm_label": np.where(rng.rand(16, 128) < 0.3,
+                                                 ids, 0)}
+    losses, above = {}, {}
+    for recompute in (False, True):
+        main, _, loss = _recompute_bert(recompute)
+        sc = Scope()
+        for n, v in init.items():
+            sc.set_var(n, v.clone())
+        exe = ptt.Executor()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        losses[recompute] = [float(exe.run(main, feed=feed,
+                                           fetch_list=[loss], scope=sc,
+                                           seed=10 + s)[0])
+                             for s in range(3)]
+        above[recompute] = torch.cuda.max_memory_allocated() - held
+        del sc, exe
+    assert losses[True] == losses[False]
+    assert above[True] < above[False], above
+
+
+@pytest.mark.parametrize("op_type", ["lamb", "lars_momentum"])
+def test_lamb_and_lars_updates_never_sync_with_the_host(cuda, op_type):
+    from paddle_tpu_torch.framework import registry
+    from paddle_tpu_torch.framework.executor import LowerCtx
+    g = torch.Generator().manual_seed(0)
+    p, grad = torch.randn(768, 3072, generator=g), \
+        torch.randn(768, 3072, generator=g) * 1e-2
+    ins = {"Param": [p], "Grad": [grad],
+           "LearningRate": [torch.tensor([1e-3])]}
+    if op_type == "lamb":
+        ins.update(Moment1=[torch.zeros_like(p)],
+                   Moment2=[torch.zeros_like(p)],
+                   Beta1Pow=[torch.tensor([0.9])],
+                   Beta2Pow=[torch.tensor([0.999])])
+    else:
+        ins.update(Velocity=[torch.zeros_like(p)])
+    lower = registry.get_op_info(op_type).lower
+    want = lower(LowerCtx(torch.device("cpu"), 0), ins, {})
+    card_ins = {s: [v.to(cuda) for v in vs] for s, vs in ins.items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = lower(LowerCtx(cuda, 0), card_ins, {})
+        with pytest.raises(RuntimeError):
+            card_ins["Param"][0].sum().item()     # the mode is on
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for slot, vals in want.items():
+        for w, c in zip(vals, got[slot]):
+            torch.testing.assert_close(c.cpu(), w, rtol=1e-6, atol=1e-7)
