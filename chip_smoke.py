@@ -104,6 +104,34 @@ JAX, prints one line per phase, and raises on any failure:
    falling losses, parameters float32; an AMP step of the toy and of depth
    50 at 3x64x64 on the card against the host (the toy's loss, BN running
    statistics and classifier gradients; depth 50's loss within 2^-3).
+   ``predict`` (after ``resnet``) — the inference engine.  The GPT of
+   ``serve`` (its weights) built with the dense attention recipe
+   (``build_gpt_serving(cfg, 2048, attn_impl="base")``, the causal mask
+   built in the graph), saved with ``save_inference_model`` and loaded by
+   ``create_paddle_predictor(AnalysisConfig(dir))``: the analysis passes
+   must leave 12 ``flash_attention`` ops, each with the mask as its Bias,
+   and no softmax; a batch of 4 x 2048 seeded ids runs once to warm up
+   and 3 times timed through ``run`` (ids in, logits out to the host), then
+   3 times through ``zero_copy_run`` (the logits stay on the card), each
+   run launching the biased float32 K1 12 times and no other kernel; the
+   logits of sequence 0 within ``SERVE_ATOL``/``SERVE_RTOL`` of the same
+   analyzed program run on the host (``program_as_function`` over the
+   params on the host); ``NativePaddlePredictor`` (the dense chain and the
+   exact GELU) timed and its largest logit difference recorded, not held;
+   a second predictor on the directory one engine-cache hit.  The biased
+   K1 alone at that shape ([48, 2048, 64], a [1, 2048, 2048] bias) against
+   its plain version, then timed beside the plain version and SDPA with
+   the same mask.  ResNet-50 inference (``resnet(img, depth=50,
+   is_test=True)``) over the ``resnet`` phase's trained scope, batch 64,
+   float32: ``conv_bn_fuse_count`` 53, and the probabilities and the
+   classifier's logits of the analyzed program against the native one
+   (``PREDICT_*`` constants), no kernel launched.  The toy ResNet's
+   training program through ``apply_passes(..., ["conv_bn_train_fuse_pass"])``
+   before ``minimize``, graph fusion off: 6 ``fused_conv1x1_bn``, K3
+   launched 6 times a step, 3 Momentum steps with losses within
+   ``RESNET_TOY_LOSS_RTOL`` of the unrewritten program's.  Each part
+   prints its times (run, load and analysis on the host) and peak card
+   memory beside the card's name and power limit.
 6. ``fused_train`` — the GPT of ``train`` (the same program, batch and
    seeds) with the fusion autotuner on (``FLAGS_fusion_autotune``, rank
    threshold 0, verdicts cached in a fresh temporary directory): the plan
@@ -437,6 +465,26 @@ RECOMPUTE_STEPS, LAMB_LR, LAMB_DECAY = 3, 1e-4, 0.01
 # std
 OPT_STEPS, OPT_BATCH = 3, 4
 OPT_LOSS_RTOL, OPT_STATE_RTOL, OPT_INIT_SE = 1e-5, 1e-5, 5.0
+# predict: the GPT serving artifact (the dense recipe, attn_impl="base") at
+# batch PREDICT_BATCH x PREDICT_SEQ, a warm-up and PREDICT_RUNS timed runs
+# of each predictor; ResNet-50 inference at batch PREDICT_RESNET_BATCH,
+# the folded program (conv_bn_fuse_pass) against the native one on the
+# card.  The fold multiplies each filter by gamma / sigma in float64 and
+# rounds once to float32, which moves each conv's float32 sums by a few
+# ulps, and cuDNN may pick another algorithm for the folded conv: on the
+# host (depth 50, 3x64x64, batch 8, BN statistics moved off their initial
+# values) the classifier's logits moved by at most 7.3e-7 of their largest
+# magnitude and the probabilities by 3.0e-7 absolute and 2.2e-5 relative;
+# held at 2^-14 of the largest logit and 1e-5 + 1e-3 relative, 30-80x
+# that.
+# conv_bn_train_fuse_pass: PREDICT_TRAIN_STEPS Momentum steps of the toy,
+# the rewritten program (K3) against the unrewritten one (float32), the
+# loss within RESNET_TOY_LOSS_RTOL (K3 rounds its operands to bf16)
+PREDICT_BATCH, PREDICT_SEQ, PREDICT_RUNS = 4, 2048, 3
+PREDICT_RESNET_BATCH = 64
+PREDICT_RESNET_ATOL, PREDICT_RESNET_RTOL = 1e-5, 1e-3
+PREDICT_LOGIT_FRAC = 2.0 ** -14
+PREDICT_TRAIN_STEPS = 3
 
 
 def _log(phase, msg):
@@ -2237,13 +2285,14 @@ def _fused_shapes(plan):
     return out
 
 
-def _toy_resnet_program(amp=False):
+def _toy_resnet_program(amp=False, passes=()):
     """Two bottleneck blocks (strides 1 and 2, 16 filters) on a [16, 8, 8]
     input, global pooling, fc with softmax: 6 fused conv1x1 + BN pairs;
-    under ``amp.decorate`` when ``amp``."""
+    under ``amp.decorate`` when ``amp``.  ``passes`` go over the forward
+    program (``ir.apply_passes``) before ``minimize``."""
     from paddle_tpu_torch import amp as amp_mod
     from paddle_tpu_torch import layers, optimizer
-    from paddle_tpu_torch.framework import Program, program_guard
+    from paddle_tpu_torch.framework import Program, ir, program_guard
     from paddle_tpu_torch.models import resnet
     main, startup = Program(), Program()
     with program_guard(main, startup):
@@ -2256,6 +2305,10 @@ def _toy_resnet_program(amp=False):
                          act="softmax", param_attr="fc_out.w",
                          bias_attr="fc_out.b")
         loss = layers.mean(layers.cross_entropy(pred, label))
+    if passes:
+        main = ir.apply_passes(main, passes)
+        loss = main.global_block().var(loss.name)
+    with program_guard(main, startup):
         mom = optimizer.MomentumOptimizer(learning_rate=0.1, momentum=0.9)
         (amp_mod.decorate(mom) if amp else mom).minimize(loss)
     return main, startup, loss
@@ -2503,6 +2556,372 @@ def phase_amp_resnet():
             "images_per_s": batch / (step_ms / 1e3), "peak_bytes": peak,
             "held_bytes": held, "shapes": shapes, "small": small,
             "main": main, "fetch": fetch, "scope": scope, "feed": feed}
+
+
+def _reset_launches():
+    """Every kernel's launch counter to 0."""
+    for name in _KERNEL_MODULES:
+        _kernel_module(name).reset_launch_count()
+
+
+def _predict_k1(smi, pred_ids_shape):
+    """The biased float32 K1 at the predictor's shape ([b*h, T, 64] with
+    the in-graph causal mask as a [1, T, T] bias) against its plain
+    version, then the three timed: the kernel, the plain version and
+    SDPA float32 with the same additive mask.  Not counted in the path's
+    launches (the counters are reset before the path runs)."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    cfg = _gpt_cfg()
+    b, t = pred_ids_shape
+    bh, d = b * cfg.n_head, cfg.d_model // cfg.n_head
+    g = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v = (torch.randn(bh, t, d, device="cuda", generator=g)
+               for _ in range(3))
+    bias = torch.triu(torch.full((t, t), -1e9, device="cuda"),
+                      diagonal=1)[None]
+    scale = d ** -0.5
+    o, lse = fa.flash_attention_fwd(q, k, v, bias, False, scale)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, bias, False,
+                                                  scale)
+    err = _check("flash_attn_fwd biased (predict)", o, o_ref)
+    _check("flash_attn_fwd biased lse (predict)", lse, lse_ref)
+    ms = _held_ms(lambda: fa.flash_attention_fwd(q, k, v, bias, False,
+                                                 scale))
+    plain_ms = _held_ms(lambda: fa.flash_attention_reference(
+        q, k, v, bias, False, scale))
+    q4, k4, v4 = (x.view(b, cfg.n_head, t, d) for x in (q, k, v))
+    lib_ms = _held_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=bias[0], scale=scale))
+    flops = 4 * bh * t * t * d
+    nbytes = 4 * (4 * bh * t * d + t * t + bh * t)
+    bound_ms, bound_by, how = _bound(flops, nbytes, "float32_split")
+    _log("predict", f"{smi}: biased float32 K1 at [{bh}, {t}, {d}] with a "
+         f"[1, {t}, {t}] bias: max abs err {err:.3g} vs plain; {ms:.4f} ms "
+         f"(plain {plain_ms:.3f}, SDPA float32 with the mask "
+         f"{lib_ms:.4f}; bound {bound_ms:.4f} by {bound_by}: {how})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def _predict_gpt(smi, serve, tmp):
+    """The GPT serving artifact through the predictor (see phase_predict)."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import inference as inf
+    from paddle_tpu_torch.framework import Program, program_guard
+    from paddle_tpu_torch.framework.function import program_as_function
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import transformer as T
+
+    cfg = _gpt_cfg()
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        _, logits = T.build_gpt_serving(cfg, PREDICT_SEQ, attn_impl="base")
+    path = os.path.join(tmp, "gpt")
+    t0 = time.perf_counter()
+    ptt.save_inference_model(path, ["src_ids"], [logits], None,
+                             main_program=main, scope=serve["scope"])
+    save_s = time.perf_counter() - t0
+    ctr = inf.api._ENGINE_CTR
+    hits, misses = ctr.value(cache="hit"), ctr.value(cache="miss")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    pred = inf.create_paddle_predictor(inf.AnalysisConfig(path))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ops = pred.program.global_block().ops
+    types = [op.type for op in ops]
+    flash = [op for op in ops if op.type == "flash_attention"]
+    n_fc = types.count("fc")
+    if len(flash) != cfg.n_layer or "softmax" in types or any(
+            not op.input("Bias") or op.attrs["causal"] for op in flash):
+        raise AssertionError(
+            f"predict: the analyzed GPT holds {len(flash)} flash_attention "
+            f"ops (want {cfg.n_layer}, each with the mask as Bias), "
+            f"softmax {types.count('softmax')}")
+    if pred.device.type != "cuda" or any(
+            t.device.type != "cuda" for t in pred._params.values()):
+        raise AssertionError("predict: the predictor's params are not on "
+                             "the card")
+    rng = np.random.RandomState(17)
+    ids = rng.randint(1, cfg.vocab_size,
+                      (PREDICT_BATCH, PREDICT_SEQ)).astype(np.int64)
+    feed = [inf.PaddleTensor(ids, name="src_ids")]
+
+    # the main path, counted: a warm-up run, then the timed runs (host in,
+    # host out), then zero-copy runs (the logits stay on the card)
+    _reset_launches()
+    per_run, run_s, zc_s = [], [], []
+
+    def counted(fn):
+        before = fa.launch_count("flash_attn_fwd", "float32")
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        per_run.append(fa.launch_count("flash_attn_fwd", "float32")
+                       - before)
+        return out, dt
+
+    out, _ = counted(lambda: pred.run(feed)[0].as_ndarray())
+    for _ in range(PREDICT_RUNS):
+        out, dt = counted(lambda: pred.run(feed)[0].as_ndarray())
+        run_s.append(dt)
+    pred.get_input_tensor("src_ids").copy_from_cpu(ids)
+    for _ in range(PREDICT_RUNS):
+        _, dt = counted(pred.zero_copy_run)
+        zc_s.append(dt)
+    launches = fa.launch_count("flash_attn_fwd", "float32")
+    others = {n: c for n, c in _launches_nonzero().items()
+              if n != "flash_attn_fwd"}
+    peak = torch.cuda.max_memory_allocated()
+    zc = pred.get_output_tensor(pred.get_output_names()[0]).copy_to_cpu()
+    if per_run != [cfg.n_layer] * (2 * PREDICT_RUNS + 1) or others or \
+            fa.launch_count("flash_attn_fwd", "bfloat16"):
+        raise AssertionError(f"predict: K1 launches a run {per_run} "
+                             f"(want {cfg.n_layer} each), other kernels "
+                             f"{others}")
+    if out.shape != (PREDICT_BATCH, PREDICT_SEQ, cfg.vocab_size) or \
+            not np.isfinite(out).all() or not np.array_equal(out, zc):
+        raise AssertionError(f"predict: logits {out.shape}, finite "
+                             f"{np.isfinite(out).all()}, zero-copy equal "
+                             f"{np.array_equal(out, zc)}")
+
+    # the same analyzed program on the host, one sequence (plain versions)
+    host_fn = program_as_function(pred.program, pred.feed_names,
+                                  pred.fetch_names)
+    t0 = time.perf_counter()
+    ref = host_fn({n: v.cpu() for n, v in pred._params.items()},
+                  ids[:1])[0].numpy()[0]
+    host_s = time.perf_counter() - t0
+    err = np.abs(out[0] - ref)
+    if not (err <= SERVE_ATOL + SERVE_RTOL * np.abs(ref)).all():
+        raise AssertionError(f"predict: logits differ from the host run of "
+                             f"the analyzed program: max abs {err.max()}")
+
+    # the native predictor (dense chain, exact GELU): recorded, not held
+    _reset_launches()
+    native = inf.NativePaddlePredictor(inf.AnalysisConfig(path))
+    native.run(feed)
+    nat_s = []
+    for _ in range(PREDICT_RUNS):
+        t = time.perf_counter()
+        nat = native.run(feed)[0].as_ndarray()
+        nat_s.append(time.perf_counter() - t)
+    nat_k1 = fa.launch_count("flash_attn_fwd")
+    nat_err = float(np.abs(nat - out).max())
+    second = inf.create_paddle_predictor(inf.AnalysisConfig(path))
+    hit, miss = ctr.value(cache="hit") - hits, ctr.value(cache="miss") - \
+        misses
+    if second._engine is not pred._engine or (hit, miss) != (1, 2):
+        raise AssertionError(f"predict: engine cache hit {hit} miss {miss}"
+                             f" (want 1 and 2: analysis, native)")
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    ms = [1e3 * x for x in run_s]
+    zms = [1e3 * x for x in zc_s]
+    nms = [1e3 * x for x in nat_s]
+    _log("predict", f"{smi}: GPT serving artifact (seq {PREDICT_SEQ}, "
+         f"attn_impl base) saved in {save_s:.2f} s; load + analysis passes "
+         f"{load_s:.2f} s (host): {len(flash)} flash_attention (Bias: the "
+         f"in-graph mask), {n_fc} fc, {len(types)} ops; passes "
+         f"{ {k: v for k, v in pred.pass_counts.items() if v} }")
+    _log("predict", f"{smi}: batch {PREDICT_BATCH} x {PREDICT_SEQ}: run "
+         f"(ids in, logits out to the host) {', '.join(f'{x:.1f}' for x in ms)}"
+         f" ms; zero_copy_run (logits kept on the card) "
+         f"{', '.join(f'{x:.1f}' for x in zms)} ms; K1 launches a run "
+         f"{per_run} = {launches}, no other kernel; peak memory "
+         f"{peak / 2**30:.2f} GiB, {held / 2**30:.2f} GiB held before")
+    _log("predict", f"sequence 0 vs the host run of the analyzed program "
+         f"({host_s:.1f} s): max abs err {err.max():.3g} (atol {SERVE_ATOL}"
+         f", rtol {SERVE_RTOL}) ok; NativePaddlePredictor (dense chain, "
+         f"exact GELU, K1 launches {nat_k1}): "
+         f"{', '.join(f'{x:.1f}' for x in nms)} ms a run, max |logit "
+         f"delta| {nat_err:.3g} (not held); engine cache hit {hit} miss "
+         f"{miss}")
+    del pred, native, second
+    inf.clear_engine_cache()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_run": per_run, "run_ms": ms,
+            "zero_copy_ms": zms, "native_ms": nms, "load_s": load_s,
+            "save_s": save_s, "host_err": float(err.max()),
+            "native_err": nat_err, "native_k1": nat_k1, "n_fc": n_fc,
+            "n_flash": len(flash), "peak_bytes": peak, "held_bytes": held}
+
+
+def _predict_resnet(smi, resnet, tmp):
+    """ResNet-50 inference through the predictor (see phase_predict)."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import inference as inf
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.framework import Program, Scope, program_guard
+    from paddle_tpu_torch.models import resnet as rn
+
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        img = layers.data("image", shape=[3, 224, 224], dtype="float32")
+        probs = rn.resnet(img, class_dim=1000, depth=50, is_test=True)
+    # the classifier's logits, the softmax's input, are fetched too
+    sm, = [op for op in main.global_block().ops if op.type == "softmax"]
+    logits = main.global_block().var(sm.input("X")[0])
+    scope = resnet["scope"]
+    need = [v.name for v in main.list_vars() if v.persistable]
+    if any(scope.find_var(n) is None for n in need):
+        # the trained scope's names differ: seeded weights instead
+        scope = Scope()
+        ptt.Executor().run(startup, scope=scope, seed=1234)
+        origin = "seeded weights"
+    else:
+        origin = "the resnet phase's trained scope (BN statistics moved)"
+    path = os.path.join(tmp, "resnet50")
+    ptt.save_inference_model(path, ["image"], [probs, logits], None,
+                             main_program=main, scope=scope)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = inf.create_paddle_predictor(inf.AnalysisConfig(path))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    native = inf.NativePaddlePredictor(inf.AnalysisConfig(path))
+    types = [op.type for op in pred.program.global_block().ops]
+    n_fold = pred.pass_counts["conv_bn_fuse_count"]
+    n_fusion = types.count("conv2d_fusion")
+    if n_fold != 53 or "batch_norm" in types:
+        raise AssertionError(f"predict: conv_bn_fuse_count {n_fold} "
+                             f"(want 53), batch_norm left "
+                             f"{types.count('batch_norm')}")
+    xs = np.random.RandomState(23).rand(
+        PREDICT_RESNET_BATCH, 3, 224, 224).astype(np.float32)
+    feed = [inf.PaddleTensor(xs, name="image")]
+    _reset_launches()
+    times = {}
+    outs = {}
+    for name, p in (("analysis", pred), ("native", native)):
+        p.run(feed)
+        times[name] = []
+        for _ in range(PREDICT_RUNS):
+            t = time.perf_counter()
+            outs[name] = [o.as_ndarray() for o in p.run(feed)]
+            times[name].append(1e3 * (time.perf_counter() - t))
+    moved = _launches_nonzero()
+    (got, got_l), (want, want_l) = outs["analysis"], outs["native"]
+    err = np.abs(got - want)
+    ok = err <= PREDICT_RESNET_ATOL + PREDICT_RESNET_RTOL * np.abs(want)
+    l_err = float(np.abs(got_l - want_l).max() / np.abs(want_l).max())
+    if got.shape != (PREDICT_RESNET_BATCH, 1000) or not ok.all() or \
+            not l_err <= PREDICT_LOGIT_FRAC or moved:
+        raise AssertionError(
+            f"predict: ResNet-50 analysis vs native on the card: shape "
+            f"{got.shape}, probabilities max abs err {err.max()} (atol "
+            f"{PREDICT_RESNET_ATOL}, rtol {PREDICT_RESNET_RTOL}), logits "
+            f"max err / max|logit| {l_err} (bound {PREDICT_LOGIT_FRAC}); "
+            f"kernels launched {moved}")
+    agree = float((got.argmax(1) == want.argmax(1)).mean())
+    _log("predict", f"{smi}: ResNet-50 inference over {origin}, batch "
+         f"{PREDICT_RESNET_BATCH} x 3x224x224 float32, TF32 off: load + "
+         f"passes {load_s:.2f} s (host); conv_bn_fuse_count {n_fold}, "
+         f"conv2d_fusion {n_fusion}, fused_elemwise_activation "
+         f"{types.count('fused_elemwise_activation')}, {len(types)} ops "
+         f"(native {len(native.program.global_block().ops)}); run "
+         f"{', '.join(f'{x:.1f}' for x in times['analysis'])} ms, native "
+         f"{', '.join(f'{x:.1f}' for x in times['native'])} ms; "
+         f"vs native: logits max err / max|logit| {l_err:.3g} (max|logit| "
+         f"{np.abs(want_l).max():.3g}, bound {PREDICT_LOGIT_FRAC:.3g}), "
+         f"probabilities max abs err {err.max():.3g} (atol "
+         f"{PREDICT_RESNET_ATOL}, rtol {PREDICT_RESNET_RTOL}), top-1 "
+         f"agreement {agree:.3f}; no kernel launched")
+    del pred, native
+    inf.clear_engine_cache()
+    torch.cuda.empty_cache()
+    return {"load_s": load_s, "conv_bn_fuse_count": n_fold,
+            "conv2d_fusion": n_fusion, "run_ms": times["analysis"],
+            "native_ms": times["native"], "max_abs_err": float(err.max()),
+            "logit_err_frac": l_err,
+            "top1_agreement": agree, "weights": origin}
+
+
+def _predict_train_pass(smi):
+    """``conv_bn_train_fuse_pass`` on the toy's training program (see
+    phase_predict)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.kernels import conv_bn as cb
+
+    main, startup, loss = _toy_resnet_program(
+        passes=("conv_bn_train_fuse_pass",))
+    plain, plain_startup, plain_loss = _toy_resnet_program()
+    types = [op.type for op in main.global_block().ops]
+    if types.count("fused_conv1x1_bn") != 6:
+        raise AssertionError(f"predict: the pass gave "
+                             f"{types.count('fused_conv1x1_bn')} "
+                             f"fused_conv1x1_bn, want 6")
+    feed = _resnet_feed(4, 4, (16, 8, 8), seed=1)
+    exe = ptt.Executor()
+    scopes = {k: Scope() for k in ("fused", "plain")}
+    exe.run(startup, scope=scopes["fused"], seed=7)
+    exe.run(plain_startup, scope=scopes["plain"], seed=7)
+    for n, v in scopes["fused"].items():      # the same weights in both
+        if scopes["plain"].find_var(n) is not None:
+            scopes["plain"].set_var(n, v.clone())
+    losses = {"fused": [], "plain": []}
+    flags.set_flags({"FLAGS_graph_fusion": False})
+    try:
+        _reset_launches()
+        for _ in range(PREDICT_TRAIN_STEPS):
+            losses["fused"].append(float(exe.run(
+                main, feed=feed, fetch_list=[loss],
+                scope=scopes["fused"])[0]))
+        launches = cb.launch_count("conv1x1_stats", "float32")
+        others = {n: c for n, c in _launches_nonzero().items()
+                  if n != "conv1x1_stats"}
+        for _ in range(PREDICT_TRAIN_STEPS):
+            losses["plain"].append(float(exe.run(
+                plain, feed=feed, fetch_list=[plain_loss],
+                scope=scopes["plain"])[0]))
+    finally:
+        flags.set_flags({"FLAGS_graph_fusion": True})
+    errs = [abs(f - p) / abs(p) for f, p in zip(losses["fused"],
+                                                losses["plain"])]
+    if launches != 6 * PREDICT_TRAIN_STEPS or others or \
+            not max(errs) <= RESNET_TOY_LOSS_RTOL:
+        raise AssertionError(
+            f"predict: conv_bn_train_fuse_pass: K3 launches {launches} "
+            f"(want {6 * PREDICT_TRAIN_STEPS}), others {others}; losses "
+            f"{losses} rel err {max(errs)} (rtol {RESNET_TOY_LOSS_RTOL})")
+    _log("predict", f"{smi}: toy training program through apply_passes("
+         f"conv_bn_train_fuse_pass) before minimize, graph fusion off: 6 "
+         f"fused_conv1x1_bn, K3 launches {launches} over "
+         f"{PREDICT_TRAIN_STEPS} steps; losses "
+         f"{', '.join(f'{x:.6f}' for x in losses['fused'])} vs the "
+         f"unrewritten program's "
+         f"{', '.join(f'{x:.6f}' for x in losses['plain'])}: rel err max "
+         f"{max(errs):.3g} (rtol {RESNET_TOY_LOSS_RTOL:.3g}) ok")
+    return {"launches": launches, "losses": losses, "loss_rel_err": errs}
+
+
+def phase_predict(smi, serve, resnet):
+    """The inference engine on the card: the GPT serving artifact through
+    ``AnalysisPredictor`` (attention_fuse_pass onto the biased K1),
+    ResNet-50 inference through conv_bn_fuse_pass, and
+    conv_bn_train_fuse_pass on a training program (K3)."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_predict_")
+    try:
+        gpt = _predict_gpt(smi, serve, tmp)
+        k1 = _predict_k1(smi, (PREDICT_BATCH, PREDICT_SEQ))
+        rn = _predict_resnet(smi, resnet, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    train = _predict_train_pass(smi)
+    return {"gpt": gpt, "biased_k1": k1, "resnet": rn, "train_pass": train,
+            "launches": gpt["launches"],
+            "train_pass_launches": train["launches"]}
 
 
 def _profile_rows(prof):
@@ -4915,6 +5334,7 @@ def main(argv=None) -> int:
     fused = phase_fused_train()
     amp_fused = phase_amp_train(train, fused=True)
     resnet = phase_resnet()
+    predict = phase_predict(smi, serve, resnet)
     amp_resnet = phase_amp_resnet()
     rn50_fused = phase_rn50_fused()
     ceiling = phase_attn_ceiling()
@@ -4950,12 +5370,15 @@ def main(argv=None) -> int:
     by_path = {"flash_attn_fwd": {"serve": serve["launches"],
                                   "train": train["launches"]["flash_attn_fwd"],
                                   "fused_train":
-                                  fused["launches"]["flash_attn_fwd"]},
+                                  fused["launches"]["flash_attn_fwd"],
+                                  "predict": predict["launches"]},
                "flash_attn_bwd": {"train":
                                   train["launches"]["flash_attn_bwd"],
                                   "fused_train":
                                   fused["launches"]["flash_attn_bwd"]},
-               "conv1x1_stats": {"resnet": resnet["launches"]},
+               "conv1x1_stats": {"resnet": resnet["launches"],
+                                 "conv_bn_train_pass":
+                                 predict["train_pass_launches"]},
                "matmul_bn_stats": {"rn50_fused": rn50_fused["launches"]}}
     for name in ("layer_norm_fwd", "layer_norm_bwd", "dense_epilogue"):
         by_path[name] = {"fused_train": fused["launches"][name]}
@@ -5020,7 +5443,7 @@ def main(argv=None) -> int:
                        "bert_train": bert, "bert_masked": bert_masked,
                        "transformer_wmt": wmt, "se_resnext": se,
                        "recompute_train": recompute,
-                       "optimizers": optimizers,
+                       "optimizers": optimizers, "predict": predict,
                        "serve": {k: v for k, v in serve.items()
                                  if k not in ("scope", "factory")},
                        "train": {k: v for k, v in train.items()

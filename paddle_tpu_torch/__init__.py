@@ -15,7 +15,9 @@ decode step one captured CUDA graph), the training slice
 the backward pass) and ResNet training through the graph-fusion pass
 (``analysis.fusion``), whose fused conv1x1 + batch-norm op runs a CUDA
 kernel, and ring attention over the ``sp`` axis of a device mesh
-(``parallel``).
+(``parallel``), and the inference engine: ``save_inference_model``,
+``load_inference_model`` and :mod:`paddle_tpu_torch.inference`'s
+``AnalysisPredictor`` over the IR pass library (``framework.ir``).
 """
 
 from . import ops  # noqa  (registers the op lowerings)
@@ -29,6 +31,8 @@ from .framework import (Program, Scope, Variable,  # noqa
                         program_guard, scope_guard)
 from .framework.executor import Executor  # noqa
 from . import amp, io, models, optimizer, parallel, serving  # noqa
+from . import inference  # noqa
+from .io import load_inference_model, save_inference_model  # noqa
 from .param_attr import ParamAttr  # noqa
 from .place import (CPUPlace, CUDAPlace, device_count,  # noqa
                     is_compiled_with_cuda)

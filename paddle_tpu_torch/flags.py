@@ -13,7 +13,7 @@ from __future__ import annotations
 import os
 from typing import Any, Dict
 
-__all__ = ["get_flags", "set_flags"]
+__all__ = ["get_flags", "set_flags", "warn_noop"]
 
 _DEFAULTS: Dict[str, Any] = {
     # the training-safe fusion pass the executor and CompiledProgram run
@@ -92,6 +92,21 @@ def get_flags(flags) -> Dict[str, Any]:
             raise ValueError(f"unknown flag {name!r}")
         out[name] = _values[name]
     return out
+
+
+_warned_noop_knobs = set()
+
+
+def warn_noop(knob: str, why: str = "") -> None:
+    """Log once that a reference-parity knob has no effect in the port
+    (``paddle_tpu/flags.py:702``)."""
+    if knob in _warned_noop_knobs:
+        return
+    _warned_noop_knobs.add(knob)
+    import logging
+    logging.getLogger("paddle_tpu_torch").warning(
+        "%s is accepted for API parity but has no effect%s",
+        knob, f" ({why})" if why else "")
 
 
 def _bootstrap_from_env() -> None:

@@ -58,7 +58,7 @@ reference's telemetry.
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -336,8 +336,8 @@ class Executor:
             program.random_seed * 1000003 + step_seed)
         env = {n: self._to_device(v) for n, v in feed.items()}
         with torch.no_grad():
-            self._run_plan(plan, LowerCtx(self.device, seed_val, plan.amp),
-                           env, scope)
+            run_plan(plan, LowerCtx(self.device, seed_val, plan.amp), env,
+                     lambda name: self._read(scope, plan.block, name))
         if plan.persist_out:
             scope.set_vars({n: env[n] for n in plan.persist_out})
         fetches = [env[n] if n in env else self._read(scope, plan.block, n)
@@ -361,77 +361,83 @@ class Executor:
             scope.set_var(name, v)
         return v
 
-    def _run_plan(self, plan: _Plan, ctx: LowerCtx, env: Dict[str, Any],
-                  scope: Scope) -> None:
-        graphs: Dict[int, registry.Forward] = {}   # kept, by forward op
-        try:
-            for i, (op, info) in enumerate(plan.ops):
-                try:
-                    outs = self._run_op(plan, i, op, info, ctx, env, scope,
-                                        graphs)
-                except Exception as e:
-                    raise RuntimeError(
-                        f"{type(e).__name__} while running op {op.type!r}: "
-                        f"{e}\n  {_op_context(plan.block, op)}") from e
-                for slot, names in op.outputs.items():
-                    for n, val in zip(names, outs.get(slot, [])):
-                        if n and val is not None:
-                            env[n] = val.detach()
-                for n in plan.free_after[i]:
-                    env.pop(n, None)
-        finally:
-            graphs.clear()      # a raised error's traceback must not pin them
 
-    def _run_op(self, plan, i, op, info, ctx, env, scope, graphs):
-        grad = i in plan.fwd_of
-        fwd = plan.fwd_of.get(i)
-        ins = {}
-        for slot, names in op.inputs.items():
-            if fwd is not None and slot.startswith("X$"):
-                continue
-            vals = []
-            for n in names:
-                if not n:
-                    vals.append(None)
-                elif n in env:
-                    vals.append(env[n])
-                elif grad and slot.startswith("OG$"):
-                    vals.append(None)   # an output nobody differentiated
-                else:
-                    vals.append(self._read(scope, plan.block, n))
-            ins[slot] = vals
-        if grad:
-            if fwd is None and info.stateful_rng:
-                return self._replay_grad(op, ctx, ins)
-            return registry.generic_grad_lower(
-                ctx, ins, op.attrs, graphs.pop(fwd) if fwd is not None
-                else None)
-        if info.stateful_rng:
-            for n in op.output_arg_names():
-                if n:
-                    ctx.rng_marks[n] = ctx._counter
-        if i in plan.wanted:
-            # casts after making its leaves, when the program is AMP
-            graphs[i] = registry.run_forward(info, ctx, ins, op.attrs,
-                                             plan.wanted[i])
-            return graphs[i][1]
-        if ctx.amp:
-            ins = _amp.cast_ins(op.type, ins)
-        return info.lower(ctx, ins, op.attrs) or {}
+def run_plan(plan: _Plan, ctx: LowerCtx, env: Dict[str, Any],
+             read: Callable[[str], torch.Tensor]) -> None:
+    """Run a block's plan op by op on ``env`` (name -> tensor): each op's
+    outputs land in it, and each temporary leaves it after its last
+    reader.  ``read(name)`` gives an input that ``env`` lacks (the
+    executor reads the scope).  ``Executor.run`` and
+    ``framework.function``'s callables run their blocks through it."""
+    graphs: Dict[int, registry.Forward] = {}   # kept, by forward op
+    try:
+        for i, (op, info) in enumerate(plan.ops):
+            try:
+                outs = _run_op(plan, i, op, info, ctx, env, read, graphs)
+            except Exception as e:
+                raise RuntimeError(
+                    f"{type(e).__name__} while running op {op.type!r}: "
+                    f"{e}\n  {_op_context(plan.block, op)}") from e
+            for slot, names in op.outputs.items():
+                for n, val in zip(names, outs.get(slot, [])):
+                    if n and val is not None:
+                        env[n] = val.detach()
+            for n in plan.free_after[i]:
+                env.pop(n, None)
+    finally:
+        graphs.clear()      # a raised error's traceback must not pin them
 
-    @staticmethod
-    def _replay_grad(op, ctx, ins):
-        """A generic grad op recomputing a forward that draws random bits:
-        the counter rewinds to where the forward drew, so the recompute
-        draws the same bits, then comes back (``executor.py:897-918``)."""
-        mark = next((ctx.rng_marks[n[:-len("@GRAD")]]
-                     for s, ns in op.inputs.items() if s.startswith("OG$")
-                     for n in ns if n and n.endswith("@GRAD")
-                     and n[:-len("@GRAD")] in ctx.rng_marks), None)
-        if mark is None:
-            return registry.generic_grad_lower(ctx, ins, op.attrs)
-        saved, ctx._counter = ctx._counter, mark
-        try:
-            return registry.generic_grad_lower(ctx, ins, op.attrs)
-        finally:
-            ctx._counter = saved
+
+def _run_op(plan, i, op, info, ctx, env, read, graphs):
+    grad = i in plan.fwd_of
+    fwd = plan.fwd_of.get(i)
+    ins = {}
+    for slot, names in op.inputs.items():
+        if fwd is not None and slot.startswith("X$"):
+            continue
+        vals = []
+        for n in names:
+            if not n:
+                vals.append(None)
+            elif n in env:
+                vals.append(env[n])
+            elif grad and slot.startswith("OG$"):
+                vals.append(None)   # an output nobody differentiated
+            else:
+                vals.append(read(n))
+        ins[slot] = vals
+    if grad:
+        if fwd is None and info.stateful_rng:
+            return _replay_grad(op, ctx, ins)
+        return registry.generic_grad_lower(
+            ctx, ins, op.attrs, graphs.pop(fwd) if fwd is not None
+            else None)
+    if info.stateful_rng:
+        for n in op.output_arg_names():
+            if n:
+                ctx.rng_marks[n] = ctx._counter
+    if i in plan.wanted:
+        # casts after making its leaves, when the program is AMP
+        graphs[i] = registry.run_forward(info, ctx, ins, op.attrs,
+                                         plan.wanted[i])
+        return graphs[i][1]
+    if ctx.amp:
+        ins = _amp.cast_ins(op.type, ins)
+    return info.lower(ctx, ins, op.attrs) or {}
+
+
+def _replay_grad(op, ctx, ins):
+    """A generic grad op recomputing a forward that draws random bits:
+    the counter rewinds to where the forward drew, so the recompute
+    draws the same bits, then comes back (``executor.py:897-918``)."""
+    mark = next((ctx.rng_marks[n[:-len("@GRAD")]]
+                 for s, ns in op.inputs.items() if s.startswith("OG$")
+                 for n in ns if n and n.endswith("@GRAD")
+                 and n[:-len("@GRAD")] in ctx.rng_marks), None)
+    if mark is None:
+        return registry.generic_grad_lower(ctx, ins, op.attrs)
+    saved, ctx._counter = ctx._counter, mark
+    try:
+        return registry.generic_grad_lower(ctx, ins, op.attrs)
+    finally:
+        ctx._counter = saved

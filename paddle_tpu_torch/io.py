@@ -12,8 +12,15 @@
   bfloat16 values travel as their uint16 bits and the meta records the true
   dtype.
 
+- :func:`save_inference_model` / :func:`load_inference_model` write and
+  read the reference's inference artifact (``io.py:299-356``): the program
+  pruned to its targets and cloned for test, as the program JSON of
+  ``Program.serialize_to_string`` with ``feed_names`` / ``fetch_names`` in
+  ``__model__``, and beside it only the persistables that program uses.
+
 So a model saved by ``paddle_tpu`` serves and trains on in the port, and a
-scope the port trained loads into ``paddle_tpu``.
+scope the port trained loads into ``paddle_tpu``; an inference artifact
+either package saves loads in the other's predictor.
 """
 
 from __future__ import annotations
@@ -21,18 +28,20 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .framework.core import PROGRAM_FORMAT_VERSION, default_main_program
+from .framework.core import (PROGRAM_FORMAT_VERSION, Program, Variable,
+                             default_main_program)
 from .framework.scope import Scope, global_scope
 from .version import __version__
 
 __all__ = ["params_from_numpy", "params_to_numpy", "save_vars",
            "save_params", "save_persistables", "load_vars", "load_params",
-           "load_persistables"]
+           "load_persistables", "save_inference_model",
+           "load_inference_model"]
 
 
 def _to_tensor(arr: np.ndarray, dtype_name: Optional[str],
@@ -223,3 +232,57 @@ def load_persistables(executor=None, dirname=None, main_program=None,
                       filename=None, scope=None):
     load_vars(executor, dirname, main_program, None, _is_persistable,
               filename, scope)
+
+
+def save_inference_model(dirname, feeded_var_names: Sequence[str],
+                         target_vars: Sequence, executor=None,
+                         main_program: Optional[Program] = None,
+                         model_filename=None, params_filename=None,
+                         export_for_deployment=True, scope=None):
+    """ref io.py:933 — prune to the fetch targets, switch to test mode,
+    save the program and the persistables it uses.  Returns the feed
+    names."""
+    program = main_program or default_main_program()
+    scope = scope or global_scope()
+    target_names = [t.name if isinstance(t, Variable) else t
+                    for t in target_vars]
+    infer = program.clone(for_test=True)._prune(target_names)
+    os.makedirs(dirname, exist_ok=True)
+    used = set()
+    for op in infer.global_block().ops:
+        used.update(op.input_arg_names())
+        used.update(op.output_arg_names())
+    pvars = [v for v in infer.list_vars() if _is_persistable(v)
+             and v.name in used]
+    payload = json.loads(infer.serialize_to_string())
+    payload["feed_names"] = list(feeded_var_names)
+    payload["fetch_names"] = list(target_names)
+    with open(os.path.join(dirname, model_filename or "__model__"),
+              "wb") as f:
+        f.write(json.dumps(payload).encode("utf-8"))
+    save_vars(executor, dirname, infer, pvars, None, params_filename,
+              scope)
+    return list(feeded_var_names)
+
+
+def load_inference_model(dirname, executor=None, model_filename=None,
+                         params_filename=None, scope=None):
+    """ref io.py:1113 → (program, feed_names, fetch_names).  Only the vars
+    ``__meta__.json`` lists are read: the pruned program's var table still
+    names training-only persistables the save left out."""
+    scope = scope or global_scope()
+    with open(os.path.join(dirname, model_filename or "__model__"),
+              "rb") as f:
+        payload = json.loads(f.read().decode("utf-8"))
+    program = Program.parse_from_string(json.dumps(payload).encode("utf-8"))
+    saved = None
+    meta_path = os.path.join(dirname, "__meta__.json")
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            saved = set(json.load(f)["vars"])
+    vars = [v for v in program.list_vars() if _is_persistable(v)
+            and (saved is None or v.name in saved)]
+    load_vars(executor, dirname, program, vars, None, params_filename,
+              scope)
+    return (program, payload.get("feed_names", []),
+            payload.get("fetch_names", []))

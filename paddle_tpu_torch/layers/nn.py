@@ -379,6 +379,18 @@ def expand(x, expand_times, name=None):
     return out
 
 
+def flatten(x, axis=1, name=None):
+    """ref ``paddle_tpu/layers/nn.py:620``: the ``flatten2`` op, x as
+    [prod(shape[:axis]), prod(shape[axis:])]."""
+    helper = LayerHelper("flatten", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op("flatten2", inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axis": axis})
+    return out
+
+
 def slice(input, axes, starts, ends):
     helper = LayerHelper("slice")
     out = helper.create_variable_for_type_inference(input.dtype)
@@ -409,6 +421,7 @@ def _unary(op_type, x, name=None, **attrs):
 def relu(x, name=None): return _unary("relu", x, name)
 def sigmoid(x, name=None): return _unary("sigmoid", x, name)
 def sign(x, name=None): return _unary("sign", x, name)
+def square(x, name=None): return _unary("square", x, name)
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,15 @@ def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
                                    default_initializer)
 
 
+def concat(input, axis=0, name=None):
+    """ref ``paddle_tpu/layers/tensor.py:51``: the ``concat`` op."""
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op("concat", inputs={"X": list(input)},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
 def create_global_var(shape, value, dtype, persistable=False,
                       force_cpu=False, name=None):
     """A var of the global block that the startup program fills with

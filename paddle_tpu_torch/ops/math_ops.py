@@ -56,6 +56,7 @@ _make_activation("relu", torch.relu)
 _make_activation("sign", torch.sign)
 _make_activation("sqrt", torch.sqrt)
 _make_activation("sigmoid", torch.sigmoid)
+_make_activation("square", torch.square)
 
 
 @register_op("gelu")

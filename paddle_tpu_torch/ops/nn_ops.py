@@ -371,6 +371,28 @@ _UNARY = {"relu": torch.relu, "tanh": torch.tanh, "sigmoid": torch.sigmoid,
           "gelu": F.gelu}
 
 
+@register_op("fc")
+def _fc(ctx, ins, attrs):
+    """The fc that ``fc_fuse_pass`` makes (ref ``nn_ops.py:887``,
+    ``operators/fc_op.cc``): Input flattened at in_num_col_dims, times W,
+    plus Bias, then the activation.  Its gelu is the tanh form, as the
+    reference's ``jax.nn.gelu`` default, where the ``gelu`` op is exact."""
+    x, w, b = X(ins, "Input"), X(ins, "W"), X(ins, "Bias")
+    ncd = attrs.get("in_num_col_dims", 1)
+    lead = tuple(x.shape[:ncd])
+    out = torch.matmul(x.reshape(int(np.prod(lead)), -1), w)
+    if b is not None:
+        out = out + b.reshape(1, -1)
+    act = attrs.get("activation_type", "")
+    if act == "gelu":
+        out = F.gelu(out, approximate="tanh")
+    elif act:
+        if act not in _UNARY:
+            raise NotImplementedError(f"fc activation {act!r}")
+        out = _UNARY[act](out)
+    return {"Out": [out.reshape(lead + (w.shape[1],))]}
+
+
 @register_op("fused_elemwise_activation")
 def _fused_elemwise_activation(ctx, ins, attrs):
     """ref ``operators/fused/fused_elemwise_activation_op.cc``, the target of

@@ -4,7 +4,8 @@
 Reference kernels: ``operators/fill_constant_op.cc``, ``uniform_random_op.cc``,
 ``gaussian_random_op.cc``, ``truncated_gaussian_random_op.cc``,
 ``increment_op.cc``, ``top_k_op.cc``, ``split_op.cc``, ``reshape_op.cc``
-(reshape2), ``transpose_op.cc``, ``unsqueeze_op.cc``, ``scale_op.cc``,
+(reshape2), ``transpose_op.cc``, ``unsqueeze_op.cc``, ``flatten_op.cc``
+(flatten2), ``concat_op.cc``, ``scale_op.cc``,
 ``lookup_table_op.cc``, ``range_op.cc``, ``expand_op.cc``, ``slice_op.cc``,
 ``sum_op.cc`` (the grad fan-in of ``append_backward``), ``assign_op.cc``,
 ``assign_value_op.cc``, ``gather_op.cc``.  Shape-only ops return views where torch
@@ -162,6 +163,23 @@ def _unsqueeze2(ctx, ins, attrs):
 def _transpose2(ctx, ins, attrs):
     x = X(ins, "X")
     return {"Out": [x.permute(*attrs["axis"])], "XShape": [_xshape(x)]}
+
+
+@register_op("flatten2")
+def _flatten2(ctx, ins, attrs):
+    """[prod(shape[:axis]), prod(shape[axis:])] (ref ``tensor_ops.py:159``)."""
+    x = X(ins, "X")
+    axis = attrs.get("axis", 1)
+    lead = int(np.prod(x.shape[:axis])) if axis > 0 else 1
+    return {"Out": [x.reshape(lead, -1)], "XShape": [_xshape(x)]}
+
+
+register_op("flatten", _flatten2)
+
+
+@register_op("concat")
+def _concat(ctx, ins, attrs):
+    return {"Out": [torch.cat(XS(ins, "X"), dim=attrs.get("axis", 0))]}
 
 
 @register_op("scale")

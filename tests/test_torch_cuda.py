@@ -120,6 +120,13 @@ have them), so it runs there with the repo's conftest left out:
   recomputed program's peak above its start lower; the LAMB and LARS
   updates on card tensors under ``torch.cuda.set_sync_debug_mode("error")``
   (no host sync) against their host lowerings.
+- the inference engine: a tiny GPT artifact built with the dense attention
+  chain (T 1024) through ``AnalysisPredictor`` on ``cuda:0``: one biased
+  K1 launch a layer a run, the logits within 1e-4 of the host predictor's;
+  a toy ResNet artifact through ``conv_bn_fuse_pass`` (the folded weights
+  on the card) within 1e-4 of the host's; ``conv_bn_train_fuse_pass``
+  through ``apply_passes`` before ``minimize``: 6 K3 launches a step, the
+  loss within 2^-6 of the host's (K3 rounds its operands to bf16).
 """
 
 import numpy as np
@@ -2025,3 +2032,101 @@ def test_lamb_and_lars_updates_never_sync_with_the_host(cuda, op_type):
     for slot, vals in want.items():
         for w, c in zip(vals, got[slot]):
             torch.testing.assert_close(c.cpu(), w, rtol=1e-6, atol=1e-7)
+
+
+def _tiny_gpt_artifact(path, seq=1024):
+    cfg = T.BertConfig(vocab_size=64, d_model=64, n_layer=2, n_head=2,
+                       d_inner=128, max_pos=seq, dropout=0.0)
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        _, logits = T.build_gpt_serving(cfg, seq, attn_impl="base")
+    sc = Scope()
+    exe = ptt.Executor(ptt.CPUPlace())
+    exe.run(startup, scope=sc, seed=3)
+    ptt.save_inference_model(str(path), ["src_ids"], [logits], exe,
+                             main_program=main, scope=sc)
+    return cfg
+
+
+def _predictors(path):
+    from paddle_tpu_torch import inference as inf
+    host = inf.AnalysisConfig(str(path))
+    host.disable_gpu()
+    return (inf.create_paddle_predictor(inf.AnalysisConfig(str(path))),
+            inf.create_paddle_predictor(host))
+
+
+def test_predictor_on_the_card_runs_the_biased_k1(cuda, tmp_path):
+    from paddle_tpu_torch import inference as inf
+    cfg = _tiny_gpt_artifact(tmp_path)
+    card, host = _predictors(tmp_path)
+    assert card.device == cuda and all(
+        t.device == cuda for t in card._params.values())
+    ids = np.random.RandomState(0).randint(1, 64, (2, 1024))
+    fa.reset_launch_count()
+    got = card.run([inf.PaddleTensor(ids, name="src_ids")])[0].as_ndarray()
+    assert fa.launch_count("flash_attn_fwd") == cfg.n_layer
+    want = host.run([inf.PaddleTensor(ids, name="src_ids")])[0].as_ndarray()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_predictor_on_the_card_folds_conv_bn(cuda, tmp_path):
+    from paddle_tpu_torch import inference as inf
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.models import resnet
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        img = layers.data("image", shape=[16, 8, 8], dtype="float32")
+        h = resnet.bottleneck_block(img, 16, 1, "bb0", is_test=True)
+        h = resnet.bottleneck_block(h, 16, 2, "bb1", is_test=True)
+        pred = layers.fc(layers.pool2d(h, pool_type="avg",
+                                       global_pooling=True), size=4)
+    sc = Scope()
+    exe = ptt.Executor(ptt.CPUPlace())
+    exe.run(startup, scope=sc, seed=5)
+    ptt.save_inference_model(str(tmp_path), ["image"], [pred], exe,
+                             main_program=main, scope=sc)
+    card, host = _predictors(tmp_path)
+    assert card.pass_counts["conv_bn_fuse_count"] == 8
+    xs = np.random.RandomState(1).rand(4, 16, 8, 8).astype(np.float32)
+    got = card.run([inf.PaddleTensor(xs, name="image")])[0].as_ndarray()
+    want = host.run([inf.PaddleTensor(xs, name="image")])[0].as_ndarray()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_conv_bn_train_pass_launches_k3(cuda):
+    from paddle_tpu_torch import flags, layers, optimizer
+    from paddle_tpu_torch.framework import ir
+    from paddle_tpu_torch.models import resnet
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        img = layers.data("img", shape=[16, 8, 8], dtype="float32")
+        label = layers.data("label", shape=[1], dtype="int64")
+        h = resnet.bottleneck_block(img, 16, 1, "bb0")
+        h = resnet.bottleneck_block(h, 16, 2, "bb1")
+        pred = layers.fc(layers.pool2d(h, pool_type="avg",
+                                       global_pooling=True), size=4,
+                         act="softmax")
+        loss = layers.mean(layers.cross_entropy(pred, label))
+    fused = ir.apply_passes(main, ["conv_bn_train_fuse_pass"])
+    floss = fused.global_block().var(loss.name)
+    with program_guard(fused, startup):
+        optimizer.MomentumOptimizer(0.1, 0.9).minimize(floss)
+    rng = np.random.RandomState(0)
+    feed = {"img": rng.rand(4, 16, 8, 8).astype(np.float32),
+            "label": rng.randint(0, 4, (4, 1)).astype(np.int64)}
+    card_scope, host_scope = Scope(), Scope()
+    ptt.Executor().run(startup, scope=card_scope, seed=3)
+    for n, v in card_scope.items():
+        host_scope.set_var(n, v.cpu())
+    flags.set_flags({"FLAGS_graph_fusion": False})
+    try:
+        cb.reset_launch_count()
+        got, = ptt.Executor().run(fused, feed=feed, fetch_list=[floss],
+                                  scope=card_scope)
+        assert cb.launch_count("conv1x1_stats") == 6
+        want, = ptt.Executor(ptt.CPUPlace()).run(
+            fused, feed=feed, fetch_list=[floss], scope=host_scope)
+    finally:
+        flags.set_flags({"FLAGS_graph_fusion": True})
+    assert abs(float(got) - float(want)) <= 2.0 ** -6 * abs(float(want))

@@ -210,7 +210,7 @@ def test_the_new_op_types_are_registered():
            "optimization_barrier", "increment", "elementwise_mod",
            "truncated_gaussian_random"}
     ops = registry.registered_ops()
-    assert new <= set(ops) and len(ops) == 89
+    assert new <= set(ops) and len(ops) == 98
     assert {c[0] for c in list(CASES.values()) + list(
         MISC_CASES.values())} == new - {"truncated_gaussian_random"}
 
