@@ -260,6 +260,28 @@ JAX, prints one line per phase, and raises on any failure:
    Then the new initializers on the card: the truncated normal's bound,
    mean and std, MSRA's scales, Bilinear's and NumpyArray's values equal
    to the host's.
+15. ``preempt_train`` (after ``train``) — preemption-safe training of the
+   ``train`` phase's GPT (batch 8 x 2048, float32, Adam 1e-4, dropout
+   0.0, TF32 off), each run a child process of
+   ``paddle_tpu_torch.tools.preempt_runner``: 8 steps under
+   ``resume_or_init``, ``CheckpointDaemon(interval_steps=2)`` and
+   ``PreemptionGuard``, the same seeded weights and the batch keyed by
+   the step.  (a1), (a2) uninterrupted; (b) under
+   ``FLAGS_fault_inject=checkpoint.write:once`` pauses at the boundary
+   after step 4 until the phase's SIGTERM, drains, writes its emergency
+   checkpoint and exits 0; (c) resumes in a fresh process and trains
+   steps 4-7.  (c)'s restored state must equal (b)'s saved state bit for
+   bit (a digest a persistable), (b) + (c)'s losses (a1)'s bit for bit
+   (or, when (a1) and (a2) differ, within their largest difference, the
+   first differing step named), (b)'s counters read 1 injected fault, 1
+   retry and 0 give-ups at ``checkpoint.write``, and each child launches
+   the float32 K1 and K2 12 times a step.  It prints the bytes a
+   checkpoint, the training thread's stall per capture, the daemon's
+   save (copy to the host, write, fsync), SIGTERM to exit, the restore,
+   the step with the daemon against ``train``'s, the peak card memory
+   above start across a capture, and the free disk before and after.
+   Checkpoints go under ``tempfile``'s directory and are deleted once
+   read.
 
 Then one JSON line describing every kernel, the ``nvidia-smi`` line, and a
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -312,6 +334,8 @@ TRAIN_GRAD_TIGHT_SHARE = 1e-4
 FUSED_GRAD_TIGHT_SHARE = 1e-3
 SLICE = (96, 2048, 64)                  # 8 sequences x 12 heads, T, d_head
 TRAIN_BATCH, TRAIN_STEPS = 8, 5
+# preempt_train: steps a run, the daemon's interval, and a child's time limit
+PREEMPT_STEPS, PREEMPT_INTERVAL, PREEMPT_TIMEOUT_S = 8, 2, 300
 RESNET_BATCH, RESNET_STEPS = 128, 5
 # ResNet card vs host, one step.  The fused step: K3 rounds its operands to
 # bf16 on the card (as the TPU kernel does) and the host multiplies in
@@ -1836,6 +1860,91 @@ def phase_train():
             "peak_bytes": peak, "held_bytes": held, "tokens": tokens,
             "main": main,
             "loss": loss, "scope": scope, "feed": feed}
+
+
+def phase_preempt_train(train):
+    """The SIGTERM drill of ``tools.preempt_runner`` at full width."""
+    import torch
+    from paddle_tpu_torch.tools import preempt_runner as pr
+
+    torch.cuda.empty_cache()      # the children need the card's memory
+    cfg = _gpt_cfg()
+    t0 = time.perf_counter()
+    runs = pr.drill("full", cpu=False, steps=PREEMPT_STEPS,
+                    interval=PREEMPT_INTERVAL, timeout=PREEMPT_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    report = pr.check(runs, PREEMPT_STEPS)
+    half = PREEMPT_STEPS // 2
+    trained = {"a1": PREEMPT_STEPS, "a2": PREEMPT_STEPS, "b": half,
+               "c": PREEMPT_STEPS - half}
+    launches = {"flash_attn_fwd": 0, "flash_attn_bwd": 0}
+    for name, steps in trained.items():
+        for k, n in runs[name]["launches"].items():
+            if n != cfg.n_layer * steps:
+                raise AssertionError(
+                    f"preempt_train ({name}): float32 {k} launched {n} "
+                    f"times in {steps} steps, expected {cfg.n_layer} a "
+                    f"step")
+            launches[k] += n
+    if report["first_diff_a1_a2"] is not None:
+        _log("preempt_train", f"(a1) and (a2) differ from step "
+             f"{report['first_diff_a1_a2']} (largest loss gap "
+             f"{report['a1_a2_max_gap']:.3e}): the resume is held to it")
+    names = ("a1", "a2", "b", "c")
+    captures = [c["ms"] for n in names for c in runs[n]["capture"]]
+    persists = [p for n in names for p in runs[n]["persist"]]
+    a1_steps = [runs["a1"]["step_ms"][str(i)]
+                for i in range(1, PREEMPT_STEPS)]
+    peak = max((b for n in names for b in runs[n]["capture_peak_bytes"]),
+               default=0)
+    c = runs["c"]
+    out = {
+        "launches": launches, "report": report, "wall_s": wall,
+        "bytes": runs["a1"]["bytes"],
+        "capture_ms": captures,
+        "capture_ms_median": float(np.median(captures)),
+        "save_ms": [p["ms"] for p in persists],
+        "host_copy_ms": [p["host_copy_ms"] for p in persists],
+        "sigterm_to_exit_ms": runs["b"]["sigterm_to_exit_ms"],
+        "emergency_ms": [e["ms"] for e in runs["b"]["emergency"]],
+        "drain_ms": [e["ms"] for e in runs["b"]["drain"]],
+        "restore_ms": [r["ms"] for r in c["restore"]],
+        "resume_s": c["resume_s"],
+        "step_ms_a1": a1_steps,
+        "step_ms_median": float(np.median(a1_steps)),
+        "train_step_ms": train["step_ms"],
+        "capture_peak_bytes": peak,
+        "disk_free": runs["disk_free"],
+        "losses": {n: runs[n]["losses"] for n in names},
+        "child_wall_s": {n: runs[n]["wall_s"] for n in names}}
+    _log("preempt_train",
+         f"{out['bytes'] / 1e9:.3f} GB a checkpoint "
+         f"({len(runs['b']['digests_end'])} persistables); "
+         f"training-thread stall per capture: median "
+         f"{out['capture_ms_median']:.2f} ms over {len(captures)} "
+         f"captures (max {max(captures):.2f}); daemon save (copy to the "
+         f"host, write, fsync): {', '.join(f'{x:.0f}' for x in out['save_ms'])} ms "
+         f"(host copy {', '.join(f'{x:.1f}' for x in out['host_copy_ms'])} ms)")
+    out["digest_ms_b"] = 1e3 * runs["b"]["digest_s"]
+    _log("preempt_train",
+         f"SIGTERM to exit {out['sigterm_to_exit_ms']:.0f} ms (drain "
+         f"{out['drain_ms']}, emergency checkpoint {out['emergency_ms']} "
+         f"ms, the drill's digests of the saved state "
+         f"{out['digest_ms_b']:.0f} ms); resume: restore {out['restore_ms']} ms, resume_or_init "
+         f"{c['resume_s']:.2f} s; step with the daemon: median "
+         f"{out['step_ms_median']:.1f} ms ({', '.join(f'{x:.1f}' for x in a1_steps)}) "
+         f"against train's {train['step_ms']:.1f} ms; peak card memory "
+         f"above start across a capture {peak / 2**30:.3f} GiB; free disk "
+         f"{', '.join(f'{x / 2**30:.1f}' for x in out['disk_free'])} GiB")
+    _log("preempt_train",
+         f"restored state == saved state (bitwise, all persistables); "
+         f"losses (b)+(c) vs (a1): bitwise {report['bitwise']}, largest "
+         f"difference {report['resume_max_diff']:.3e} (a1-a2 gap "
+         f"{report['a1_a2_max_gap']:.3e}); (b) checkpoint.write: "
+         f"{report['counters_b']}; float32 K1/K2 launches {launches}; "
+         f"children {', '.join(f'{n} {s:.1f} s' for n, s in out['child_wall_s'].items())}, "
+         f"phase {wall:.1f} s")
+    return out
 
 
 def _small_train_check(phase, exe, fused=False):
@@ -5330,6 +5439,7 @@ def main(argv=None) -> int:
     serve = phase_serve()
     decode = phase_decode(serve, args.profile)
     train = phase_train()
+    preempt = phase_preempt_train(train)
     amp_train = phase_amp_train(train)
     fused = phase_fused_train()
     amp_fused = phase_amp_train(train, fused=True)
@@ -5418,6 +5528,9 @@ def main(argv=None) -> int:
         for k in ("a", "b"):
             by_path[name][f"recompute_train_{k}"] = \
                 recompute[k]["launches"][key]
+    # preempt_train: the float32 K1/K2 of its four child processes
+    for name in ("flash_attn_fwd", "flash_attn_bwd"):
+        by_path[name]["preempt_train"] = preempt["launches"][name]
     missing = [n for n, paths in by_path.items() if not sum(paths.values())]
     if missing:
         raise AssertionError(f"kernels never launched on their paths: "
@@ -5444,6 +5557,7 @@ def main(argv=None) -> int:
                        "transformer_wmt": wmt, "se_resnext": se,
                        "recompute_train": recompute,
                        "optimizers": optimizers, "predict": predict,
+                       "preempt_train": preempt,
                        "serve": {k: v for k, v in serve.items()
                                  if k not in ("scope", "factory")},
                        "train": {k: v for k, v in train.items()

@@ -2,10 +2,13 @@
 ``platform/flags.cc`` and ``core.globals()``).
 
 The graph-fusion flags, the program verifier's gate, the directory of the
-fusion autotuner's verdicts, the decode server's paged-KV and retry flags
-and the fault-injection table exist so far, with the reference's names and
-defaults.  ``FLAGS_*`` environment variables seed them at import, as the
-reference's ``__bootstrap__`` does; a malformed value warns and is ignored.
+fusion autotuner's verdicts, the decode server's paged-KV and retry flags,
+the fault-injection table, the step tracer's flags, the hung-step
+watchdog's, the checkpoint daemon's cadence and capture flags and the
+retry engine's budget flags exist so far, with the reference's names,
+defaults, validation and side effects.  ``FLAGS_*`` environment variables
+seed them at import, as the reference's ``__bootstrap__`` does; a
+malformed value warns and is ignored.
 """
 
 from __future__ import annotations
@@ -45,6 +48,40 @@ _DEFAULTS: Dict[str, Any] = {
     # deterministic fault injection, "site:spec[;site:spec...]"
     # (resilience.parse_fault_inject); setting it reloads the table
     "FLAGS_fault_inject": "",
+    # the retry engine's budget at the PS sites (resilience.RetryPolicy.
+    # from_flags): retries after the first attempt, and the deadline in ms
+    "FLAGS_rpc_deadline": 180000,
+    "FLAGS_rpc_retry_times": 3,
+    # circuit breaker: after a retry budget is exhausted, fail calls fast
+    # for this many seconds, then let one half-open probe through; 0
+    # disables the breaker
+    "FLAGS_rpc_circuit_break_secs": 0.0,
+    # the step tracer (monitor.TRACER): span recording, export at process
+    # exit into this directory, and the ring's capacity
+    "FLAGS_telemetry": True,
+    "FLAGS_telemetry_export_path": "",
+    "FLAGS_telemetry_max_events": 200000,
+    # hung-step watchdog: a watched dispatch or fetch exceeding this many
+    # seconds dumps every thread's stack and the telemetry ring and raises
+    # HungStepError in the hung thread; 0 disables it
+    "FLAGS_watchdog_timeout_s": 0.0,
+    # where watchdog dumps land ("" = the system temp dir)
+    "FLAGS_watchdog_dump_dir": "",
+    # "abort": SIGABRT the process when a hung call has not returned a
+    # grace window past its deadline (a hang inside C, where the async
+    # raise cannot land); "" disables the tier
+    "FLAGS_watchdog_escalate": "",
+    # checkpoint daemon cadence (resilience.CheckpointDaemon): capture
+    # every N completed steps and/or every S seconds; 0 disables a trigger
+    "FLAGS_checkpoint_interval_steps": 0,
+    "FLAGS_checkpoint_interval_secs": 0.0,
+    # capture in groups of at most this many MiB, each group on its way to
+    # the host before the next is copied: bounds the capture's extra card
+    # bytes at the chunk; 0 = one pass of device copies (2x the state)
+    "FLAGS_checkpoint_capture_chunk_mb": 0,
+    # adaptive cadence: defer a capture until the last save took at most
+    # this fraction of the gap since the previous capture; 0 disables
+    "FLAGS_checkpoint_cadence_stretch_frac": 0.0,
 }
 
 _values: Dict[str, Any] = dict(_DEFAULTS)
@@ -78,9 +115,37 @@ def set_flags(flags: Dict[str, Any]) -> None:
         coerced[name] = _coerce(name, value)
         if name == "FLAGS_fault_inject":
             resilience.parse_fault_inject(coerced[name])
+        if name == "FLAGS_watchdog_escalate" and \
+                coerced[name] not in ("", "abort"):
+            raise ValueError(
+                f"FLAGS_watchdog_escalate must be '' or 'abort', got "
+                f"{coerced[name]!r}")
     _values.update(coerced)
-    if "FLAGS_fault_inject" in coerced:
-        resilience.configure(coerced["FLAGS_fault_inject"])
+    for name, value in coerced.items():
+        _apply_side_effect(name, value)
+
+
+def _apply_side_effect(name: str, value) -> None:
+    from . import monitor, resilience
+    if name == "FLAGS_fault_inject":
+        resilience.configure(value)       # validated in set_flags
+    elif name == "FLAGS_telemetry":
+        monitor.TRACER.enabled = bool(value)
+    elif name == "FLAGS_telemetry_max_events":
+        monitor.TRACER.set_capacity(int(value))
+    elif name == "FLAGS_telemetry_export_path":
+        if value:
+            monitor.enable_export_on_exit(str(value))
+        else:
+            monitor.disable_export_on_exit()
+    elif name == "FLAGS_watchdog_timeout_s":
+        resilience.WATCHDOG.set_timeout(float(value))
+    elif name == "FLAGS_watchdog_escalate":
+        resilience.WATCHDOG.escalate = str(value)
+    elif name in ("FLAGS_rpc_retry_times", "FLAGS_rpc_deadline"):
+        # the reference's native PS client reads these from the
+        # environment; mirrored as the reference does
+        os.environ[name] = str(int(value))
 
 
 def get_flags(flags) -> Dict[str, Any]:

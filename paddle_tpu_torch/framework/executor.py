@@ -51,12 +51,25 @@ marked carries ``_attrs["amp"]``; its runs hand every op's inputs through
 ``amp.cast_ins`` before the lowering (the reference's
 ``executor.py:859-861``).  A differentiated forward casts after its leaves
 are made (``registry.run_forward``), so master-weight gradients come back
-float32.  Left out so far: the nan/inf sanitizer, meshes, and the
+float32.
+
+Resilience (``resilience.py``): a run's ops execute under
+``WATCHDOG.watch("executor.dispatch")`` with the ``executor.dispatch``
+injection site inside, and fetches materialize under
+``WATCHDOG.watch("fetch.materialize")`` with ``fetch.materialize`` inside
+(``FetchHandle.numpy`` too); a failed run keeps its plan.  Step hooks
+(``add_step_hook``) run after every run once the scope holds the step's
+outputs, the checkpoint daemon's capture point; on the card each run
+records a CUDA event, and ``drain()`` waits for the events still pending,
+the preemption guard's barrier before a checkpoint.
+
+Left out so far: the nan/inf sanitizer, meshes, and the rest of the
 reference's telemetry.
 """
 
 from __future__ import annotations
 
+import collections
 import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -64,6 +77,7 @@ import numpy as np
 import torch
 
 from .. import amp as _amp
+from .. import resilience as _resil
 from ..analysis import fusion as _fusion
 from ..kernels import dropout as _dropout
 from . import registry
@@ -126,13 +140,15 @@ class FetchHandle:
             self._event.record(torch.cuda.current_stream(tensor.device))
 
     def numpy(self) -> np.ndarray:
-        if self._event is None:
-            return _to_numpy(self.tensor)
-        self._event.synchronize()
-        # copy on a side stream: on the dispatching stream the copy would
-        # queue behind every batch dispatched after this one
-        with torch.cuda.stream(torch.cuda.Stream(self.tensor.device)):
-            return _to_numpy(self.tensor)
+        with _resil.WATCHDOG.watch("fetch.materialize"):
+            _resil.maybe_inject("fetch.materialize")
+            if self._event is None:
+                return _to_numpy(self.tensor)
+            self._event.synchronize()
+            # copy on a side stream: on the dispatching stream the copy
+            # would queue behind every batch dispatched after this one
+            with torch.cuda.stream(torch.cuda.Stream(self.tensor.device)):
+                return _to_numpy(self.tensor)
 
     def __array__(self, dtype=None, copy=None):
         a = self.numpy()
@@ -265,10 +281,56 @@ class Executor:
                     "steps_dispatched")
         self._stats = dict.fromkeys(counters, 0)  # guarded-by: _lock
         self._step_seed = 0  # guarded-by: _lock
+        self._step_hooks: List[Any] = []  # guarded-by: _lock
+        # an event per dispatched run on the card, not yet seen complete
+        self._inflight: collections.deque = \
+            collections.deque()  # guarded-by: _lock
 
     def close(self):
         with self._lock:
             self._plans.clear()
+            self._inflight.clear()
+
+    # -- step-boundary hooks (ref executor.py:1273-1290) ---------------------
+    def add_step_hook(self, fn) -> None:
+        """Register ``fn(executor, scope)`` to run after every completed
+        ``run()``, once the scope holds the step's outputs (still being
+        computed on the card: a hook that needs host values copies on the
+        device and waits elsewhere, as the checkpoint daemon does).  Every
+        run counts, startup programs included; hooks run on the
+        dispatching thread, and a hook's exception fails the run."""
+        with self._lock:
+            if fn not in self._step_hooks:
+                self._step_hooks.append(fn)
+
+    def remove_step_hook(self, fn) -> None:
+        with self._lock:
+            if fn in self._step_hooks:
+                self._step_hooks.remove(fn)
+
+    def drain(self) -> int:
+        """Wait until every run dispatched on the card has finished there,
+        so the scope's values are computed (ref executor.py:2137-2157).
+        Returns the number of runs waited on; on the host, 0."""
+        with self._lock:
+            pending = list(self._inflight)
+            self._inflight.clear()
+        waited = 0
+        for ev in pending:
+            if not ev.query():
+                ev.synchronize()
+                waited += 1
+        return waited
+
+    def _note_dispatched(self) -> None:
+        if self.device.type != "cuda":
+            return
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        with self._lock:
+            while self._inflight and self._inflight[0].query():
+                self._inflight.popleft()
+            self._inflight.append(ev)
 
     def dispatch_stats(self) -> Dict[str, int]:
         """Counters the serving plane reads: plans built (``traces``,
@@ -335,15 +397,26 @@ class Executor:
         seed_val = seed if seed is not None else (
             program.random_seed * 1000003 + step_seed)
         env = {n: self._to_device(v) for n, v in feed.items()}
-        with torch.no_grad():
+        # an injected fault or a hang raises around the ops, and the plan
+        # stays cached (ref executor.py:1636-1660): a recovered fault must
+        # not pay a re-plan
+        with _resil.WATCHDOG.watch("executor.dispatch"), torch.no_grad():
+            _resil.maybe_inject("executor.dispatch")
             run_plan(plan, LowerCtx(self.device, seed_val, plan.amp), env,
                      lambda name: self._read(scope, plan.block, name))
+        self._note_dispatched()
         if plan.persist_out:
             scope.set_vars({n: env[n] for n in plan.persist_out})
+        with self._lock:
+            hooks = list(self._step_hooks)
+        for h in hooks:
+            h(self, scope)
         fetches = [env[n] if n in env else self._read(scope, plan.block, n)
                    for n in fetch_names]
         if return_numpy:
-            return [_to_numpy(t) for t in fetches]
+            with _resil.WATCHDOG.watch("fetch.materialize"):
+                _resil.maybe_inject("fetch.materialize")
+                return [_to_numpy(t) for t in fetches]
         return [FetchHandle(t) for t in fetches]
 
     def _read(self, scope: Scope, block, name: str) -> torch.Tensor:

@@ -12,6 +12,14 @@
   bfloat16 values travel as their uint16 bits and the meta records the true
   dtype.
 
+  A save is staged beside ``dirname``, every file fsynced, and published
+  by :func:`_atomic_publish_dir` (ref ``io.py:41-132``): files of an
+  earlier save that this one does not write are hard-linked in, the old
+  directory is parked at ``<dirname>.old.<pid>`` and rolled back if the
+  second rename fails, and the parent is fsynced.  :func:`load_vars`
+  first runs :func:`_recover_interrupted_swap`, so a saver that died
+  between the two renames leaves a loadable directory.
+
 - :func:`save_inference_model` / :func:`load_inference_model` write and
   read the reference's inference artifact (``io.py:299-356``): the program
   pruned to its targets and cloned for test, as the program JSON of
@@ -41,7 +49,7 @@ from .version import __version__
 __all__ = ["params_from_numpy", "params_to_numpy", "save_vars",
            "save_params", "save_persistables", "load_vars", "load_params",
            "load_persistables", "save_inference_model",
-           "load_inference_model"]
+           "load_inference_model", "get_program_persistable_vars"]
 
 
 def _to_tensor(arr: np.ndarray, dtype_name: Optional[str],
@@ -104,11 +112,131 @@ def _is_parameter(var) -> bool:
     return bool(var.is_parameter)
 
 
+def get_program_persistable_vars(program: Program):
+    return [v for v in program.list_vars() if _is_persistable(v)]
+
+
+def _dtype_name(t, arr: np.ndarray) -> str:
+    return ("bfloat16" if isinstance(t, torch.Tensor)
+            and t.dtype == torch.bfloat16 else str(arr.dtype))
+
+
+def _fsync_dir(path: str) -> None:
+    """fsync a directory, so that renames inside it survive a crash (a
+    file's own fsync does not persist its directory entry)."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return                   # a platform without directory open
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+
+
+def _fsync_file(path: str) -> None:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _write_blobs(dirpath: str, arrays: Dict[str, np.ndarray],
+                 dtypes: Dict[str, str], filename=None) -> None:
+    """Write ``arrays`` into the (new, empty) directory ``dirpath`` in the
+    format of ``save_vars``: one ``.npy`` per var, or one ``.npz`` named
+    ``filename``, and ``__meta__.json``; fsync every file and the
+    directory."""
+    if filename is not None:
+        np.savez(os.path.join(dirpath, filename), **arrays)
+    else:
+        for name, arr in arrays.items():
+            np.save(os.path.join(dirpath, name.replace("/", "__")), arr)
+    meta = {name: {"shape": list(arr.shape), "dtype": dtypes[name]}
+            for name, arr in arrays.items()}
+    with open(os.path.join(dirpath, "__meta__.json"), "w") as f:
+        json.dump({"filename": filename, "vars": meta,
+                   "version": PROGRAM_FORMAT_VERSION,
+                   "framework_version": __version__}, f)
+        f.flush()
+        os.fsync(f.fileno())
+    for entry in os.listdir(dirpath):
+        if entry != "__meta__.json":
+            _fsync_file(os.path.join(dirpath, entry))
+    _fsync_dir(dirpath)
+
+
+def _atomic_publish_dir(tmpdir: str, dst: str,
+                        preserve_existing: bool = True) -> None:
+    """Publish the fully written staging directory ``tmpdir`` at ``dst``
+    (ref ``io.py:59-111``).  Files ``dst`` holds that ``tmpdir`` lacks (an
+    inference model's ``__model__``, a user's ``assets/``) are hard-linked
+    in first (copied where links fail).  The directories then swap by two
+    renames; a failed second rename rolls the old directory back, and a
+    process dying between them leaves it at ``<dst>.old.<pid>``, which
+    :func:`_recover_interrupted_swap` renames back.  The parent is
+    fsynced last."""
+    dst = os.path.abspath(dst)
+    if os.path.isdir(dst):
+        if preserve_existing:
+            for entry in os.listdir(dst):
+                src, keep = os.path.join(dst, entry), os.path.join(tmpdir,
+                                                                   entry)
+                if os.path.exists(keep):
+                    continue     # the fresh save wins
+                try:
+                    if os.path.isdir(src):
+                        shutil.copytree(src, keep, copy_function=os.link)
+                    elif os.path.isfile(src):
+                        os.link(src, keep)
+                except OSError:
+                    if os.path.isdir(src):
+                        shutil.rmtree(keep, ignore_errors=True)
+                        shutil.copytree(src, keep)
+                    elif os.path.isfile(src):
+                        shutil.copy2(src, keep)
+        old = dst + f".old.{os.getpid()}"
+        shutil.rmtree(old, ignore_errors=True)
+        os.rename(dst, old)
+        try:
+            os.rename(tmpdir, dst)
+        except BaseException:
+            os.rename(old, dst)      # roll the good directory back
+            raise
+        shutil.rmtree(old, ignore_errors=True)
+    else:
+        os.replace(tmpdir, dst)
+    _fsync_dir(os.path.dirname(dst) or ".")
+
+
+def _recover_interrupted_swap(dirname: str) -> None:
+    """``dirname`` missing beside a ``<dirname>.old.<pid>``: a saver died
+    between the two renames of the publish, and the sibling is the last
+    complete save.  Rename it back (the newest when there are several)."""
+    import glob
+    import warnings
+    dst = os.path.abspath(dirname)
+    if os.path.isdir(dst):
+        return
+    leftovers = sorted(glob.glob(dst + ".old.*"), key=os.path.getmtime)
+    if not leftovers:
+        return
+    warnings.warn(
+        f"param dir {dirname!r} missing but {leftovers[-1]!r} exists — a "
+        "save died mid-publish; recovering the last complete state")
+    os.rename(leftovers[-1], dst)
+    _fsync_dir(os.path.dirname(dst) or ".")
+
+
 def save_vars(executor=None, dirname=None, main_program=None, vars=None,
               predicate=None, filename=None, scope=None):
-    """ref io.py save_vars.  The blobs and ``__meta__.json`` are written to
-    a staging directory beside ``dirname`` and then renamed into place, so
-    a save that fails leaves an earlier save whole."""
+    """ref io.py save_vars.  The blobs and ``__meta__.json`` are written
+    and fsynced in a staging directory beside ``dirname`` and published by
+    :func:`_atomic_publish_dir`, so a save that fails or dies leaves an
+    earlier save whole."""
     program = main_program or default_main_program()
     scope = scope or global_scope()
     if vars is None:
@@ -121,42 +249,15 @@ def save_vars(executor=None, dirname=None, main_program=None, vars=None,
             raise ValueError(f"variable {v.name!r} has no value in scope — "
                              "run the startup program before saving")
         arrays[v.name] = _to_numpy(t)
-        dtypes[v.name] = ("bfloat16" if isinstance(t, torch.Tensor)
-                          and t.dtype == torch.bfloat16
-                          else str(arrays[v.name].dtype))
+        dtypes[v.name] = _dtype_name(t, arrays[v.name])
     dst = os.path.abspath(dirname)
     os.makedirs(os.path.dirname(dst) or ".", exist_ok=True)
     tmp = dst.rstrip(os.sep) + f".tmp.{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     try:
-        if filename is not None:
-            np.savez(os.path.join(tmp, filename), **arrays)
-        else:
-            for name, arr in arrays.items():
-                np.save(os.path.join(tmp, name.replace("/", "__")), arr)
-        meta = {name: {"shape": list(arr.shape), "dtype": dtypes[name]}
-                for name, arr in arrays.items()}
-        with open(os.path.join(tmp, "__meta__.json"), "w") as f:
-            json.dump({"filename": filename, "vars": meta,
-                       "version": PROGRAM_FORMAT_VERSION,
-                       "framework_version": __version__}, f)
-        if os.path.isdir(dst):
-            # files of an earlier save that this one does not rewrite stay
-            for entry in os.listdir(dst):
-                src, keep = os.path.join(dst, entry), os.path.join(tmp, entry)
-                if os.path.exists(keep):
-                    continue
-                if os.path.isdir(src):
-                    shutil.copytree(src, keep)
-                else:
-                    shutil.copy2(src, keep)
-            old = dst + f".old.{os.getpid()}"
-            os.rename(dst, old)
-            os.rename(tmp, dst)
-            shutil.rmtree(old, ignore_errors=True)
-        else:
-            os.replace(tmp, dst)
+        _write_blobs(tmp, arrays, dtypes, filename)
+        _atomic_publish_dir(tmp, dst)
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
@@ -183,6 +284,7 @@ def load_vars(executor=None, dirname=None, main_program=None, vars=None,
     program = main_program or default_main_program()
     scope = scope or global_scope()
     device = executor.device if executor is not None else torch.device("cpu")
+    _recover_interrupted_swap(dirname)
     meta_path = os.path.join(dirname, "__meta__.json")
     var_meta = {}
     if os.path.exists(meta_path):

@@ -12,7 +12,12 @@ contract:
   device work of this one.  A separate completion thread materializes the
   fetches (each ``FetchHandle`` waits on the CUDA event recorded at
   dispatch), slices each request's rows back out with the bucket padding
-  trimmed, and resolves the futures.  A dispatch error fails its batch.
+  trimmed, and resolves the futures.  The dispatch runs under
+  ``WATCHDOG.watch("serving.batch_dispatch")`` with that injection site
+  inside; a transient fault re-dispatches up to ``FLAGS_serving_max_retries``
+  times (``paddle_tpu_serving_faults_absorbed_total``, a
+  ``serving.fault_absorbed`` tracer instant); any other error, or an
+  exhausted budget, fails the batch.
 
 - :class:`DecodeScheduler` (GPT token generation): drives the
   :class:`~paddle_tpu_torch.serving.kv_cache.DecodeEngine` — each iteration
@@ -25,9 +30,12 @@ contract:
   re-runs up to ``FLAGS_serving_max_retries`` times before its requests
   fail — counted in ``paddle_tpu_serving_faults_absorbed_total``.
 
-Not ported yet (ROADMAP): the batcher's telemetry and its transient-fault
-retries, the request trace spans and per-phase latency histogram, the
-watchdog, and the decode loop's numerics sentinel on the logits.
+The decode step runs under ``WATCHDOG.watch("serving.decode_step")``, and
+each iteration is a ``serving.decode_iter`` tracer span.
+
+Not ported yet (ROADMAP): the batcher's counters and histograms, the
+request trace spans and per-phase latency histogram, and the decode loop's
+numerics sentinel on the logits.
 """
 
 from __future__ import annotations
@@ -121,12 +129,13 @@ class ContinuousBatcher:
     """Bucket-coalescing scheduler + completion pipeline (batch mode)."""
 
     def __init__(self, executor, scope, bucket_plan, on_complete, on_fail,
-                 batch_wait_ms: float = 0.0):
+                 max_retries: int = 1, batch_wait_ms: float = 0.0):
         self._exe = executor
         self._scope = scope
         self._plan = bucket_plan
         self._on_complete = on_complete      # (request, result, latency_ms)
         self._on_fail = on_fail              # (request, exception)
+        self._max_retries = int(max_retries)
         self._wait_s = max(0.0, float(batch_wait_ms)) / 1e3
         self._cv = threading.Condition()
         self._queue: collections.deque = collections.deque()  # guarded-by: _cv
@@ -272,14 +281,14 @@ class ContinuousBatcher:
                     self._plan.plan(bucket)
                 feed = self._assemble(batch, bucket, feed_names, width,
                                       compiled.program)
-                handles = self._exe.run(
-                    compiled, feed=feed, fetch_list=list(fetch_names),
-                    scope=self._scope, return_numpy=False)
             except Exception as e:
-                # a malformed request or a failed run fails ITS batch and
-                # never this thread: a dead scheduler would strand every
-                # later request's future
+                # a malformed request fails ITS batch and never this
+                # thread: a dead scheduler would strand every later
+                # request's future
                 self._fail_batch(batch, e)
+                continue
+            handles = self._dispatch(compiled, feed, fetch_names, batch)
+            if handles is None:
                 continue
             meta = {"bucket": bucket, "width": width,
                     "occupancy": len(batch), "t_d0": t_d0,
@@ -309,6 +318,33 @@ class ContinuousBatcher:
                            [(0, 0)] * (a.ndim - 1))
             feed[name] = a
         return feed
+
+    def _dispatch(self, compiled, feed, fetch_names, batch):
+        """Run the batch; a transient fault re-dispatches up to the retry
+        budget, anything else (or an exhausted budget) fails the batch's
+        futures and returns None."""
+        from .. import resilience as _resil
+        attempt = 0
+        while True:
+            try:
+                # a dispatch hung past FLAGS_watchdog_timeout_s raises
+                # HungStepError here: not transient, so it fails the batch
+                with _resil.WATCHDOG.watch("serving.batch_dispatch"):
+                    _resil.maybe_inject("serving.batch_dispatch")
+                    return self._exe.run(
+                        compiled, feed=feed, fetch_list=list(fetch_names),
+                        scope=self._scope, return_numpy=False)
+            except Exception as e:
+                if _resil.is_transient(e) and attempt < self._max_retries:
+                    attempt += 1
+                    FAULTS_ABSORBED_CTR.inc()
+                    if _monitor.TRACER.enabled:
+                        _monitor.TRACER.instant(
+                            "serving.fault_absorbed", "serving",
+                            {"attempt": attempt, "error": repr(e)[:120]})
+                    continue
+                self._fail_batch(batch, e)
+                return None
 
     def _fail_batch(self, batch, err) -> None:
         for r in batch:
@@ -393,6 +429,7 @@ class DecodeScheduler:
         self._slots: List[Optional[_SlotState]] = \
             [None] * engine.max_slots
         self._thread: Optional[threading.Thread] = None
+        self._iter = 0      # decode-loop iterations (loop thread only)
         #: trailing (t, n_generated) window for the tokens/s gauge —
         #: touched only by the decode thread
         self._tok_win: collections.deque = collections.deque()
@@ -510,9 +547,14 @@ class DecodeScheduler:
                 continue
             _monitor.SERVING_FREE_SLOTS_GAUGE.set(
                 float(S - len(active_slots)))
+            self._iter += 1
             t_i0 = time.perf_counter()
             logits = self._run_step(ids, pos, active, stepped)
             t_i1 = time.perf_counter()
+            if _monitor.TRACER.enabled:
+                _monitor.TRACER.add_complete(
+                    "serving.decode_iter", "serving", t_i0, t_i1,
+                    {"iter": self._iter, "occupancy": len(stepped)})
             if logits is None:
                 continue
             BATCHES_CTR.inc(1, bucket="decode")
@@ -547,8 +589,11 @@ class DecodeScheduler:
         attempt = 0
         while True:
             try:
-                _resil.maybe_inject("serving.decode_step")
-                return self._engine.run_iteration(ids, pos, active)
+                # a hung decode iteration dumps stacks and fails its
+                # requests (HungStepError is not transient)
+                with _resil.WATCHDOG.watch("serving.decode_step"):
+                    _resil.maybe_inject("serving.decode_step")
+                    return self._engine.run_iteration(ids, pos, active)
             except Exception as e:
                 # retry only while the pools survived the failure (the
                 # port's in-place pools always do; the reference's donated

@@ -164,15 +164,19 @@ class InferenceServer(_ServerBase):
     ``executor`` the server runs on ``Executor()``, i.e. ``cuda:0``.
     Defaults are the reference's flag defaults: ``max_batch`` 8,
     ``batch_wait_ms`` 2, no tenant quota, buckets powers of two from 8 to
-    ``max_seq`` (512).
+    ``max_seq`` (512), ``max_retries`` ``FLAGS_serving_max_retries`` (a
+    batch whose dispatch raised a transient fault is re-dispatched that
+    many times).
     """
 
     def __init__(self, program_factory: Callable[[int], tuple], scope,
                  buckets=None, max_batch: Optional[int] = None,
                  max_seq: Optional[int] = None, executor=None,
                  tenant_quota: Optional[int] = None,
-                 batch_wait_ms: Optional[float] = None):
+                 batch_wait_ms: Optional[float] = None,
+                 max_retries: Optional[int] = None):
         from ..framework.executor import Executor
+        from ..flags import get_flags
         if buckets is None:
             buckets = parse_buckets("", max_len=int(max_seq or 512))
         self.buckets = tuple(sorted(int(b) for b in buckets))
@@ -181,9 +185,13 @@ class InferenceServer(_ServerBase):
         super().__init__(tenant_quota)
         self.plan = BucketPlan(self.buckets, program_factory,
                                int(max_batch or 8))
+        if max_retries is None:
+            max_retries = get_flags("FLAGS_serving_max_retries")[
+                "FLAGS_serving_max_retries"]
         self._sched = ContinuousBatcher(
             self.executor, scope, self.plan,
             on_complete=self._on_complete, on_fail=self._on_fail,
+            max_retries=max_retries,
             batch_wait_ms=2.0 if batch_wait_ms is None else batch_wait_ms)
 
     def warmup(self, buckets=None) -> int:

@@ -127,6 +127,13 @@ have them), so it runs there with the repo's conftest left out:
   on the card) within 1e-4 of the host's; ``conv_bn_train_fuse_pass``
   through ``apply_passes`` before ``minimize``: 6 K3 launches a step, the
   loss within 2^-6 of the host's (K3 rounds its operands to bf16).
+- preemption-safe training: the checkpoint daemon's capture on the card
+  (a flat buffer a dtype, and in chunks) runs under
+  ``torch.cuda.set_sync_debug_mode("error")`` (no host wait on the
+  training thread), and what it commits equals the scope at its step
+  boundary bit for bit although the next step and in-place writes to the
+  live tensors were queued right behind it; ``Executor.drain()`` waits
+  for a run still queued behind a long kernel and reports it.
 """
 
 import numpy as np
@@ -2130,3 +2137,70 @@ def test_conv_bn_train_pass_launches_k3(cuda):
     finally:
         flags.set_flags({"FLAGS_graph_fusion": True})
     assert abs(float(got) - float(want)) <= 2.0 ** -6 * abs(float(want))
+
+
+# -- preemption-safe training ---------------------------------------------------
+
+def _tiny_gpt_on_the_card():
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.tools import preempt_runner as pr
+    with unique_name.guard():
+        main, startup, loss = pr.build("tiny")
+    sc, exe = Scope(), ptt.Executor()
+    exe.run(startup, scope=sc)
+    exe.run(main, feed=pr.batch("tiny", 0), fetch_list=[loss], scope=sc)
+    return pr, main, loss, sc, exe
+
+
+@pytest.mark.parametrize("chunk_mb", [0, 1])
+def test_daemon_capture_on_the_card_equals_the_boundary_state(
+        cuda, tmp_path, chunk_mb):
+    from paddle_tpu_torch import resilience
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    pr, main, loss, sc, exe = _tiny_gpt_on_the_card()
+    names = [v.name for v in ptt.io.get_program_persistable_vars(main)]
+    torch.cuda.synchronize()
+    want = {n: ptt.io._to_numpy(sc.find_var(n)).copy() for n in names}
+    ckpt = CheckpointManager(str(tmp_path / "run"))
+    daemon = resilience.CheckpointDaemon(ckpt, program=main, scope=sc,
+                                         capture_chunk_mb=chunk_mb)
+    torch.cuda._sleep(int(2e8))      # the capture is queued, not run
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert daemon.capture(1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # the next step and in-place writes queued behind the capture
+    exe.run(main, feed=pr.batch("tiny", 1), fetch_list=[loss], scope=sc,
+            return_numpy=False)
+    for n in names:
+        sc.find_var(n).add_(1.0)
+    assert daemon.stop() == 1
+    fresh = Scope()
+    assert ckpt.restore(scope=fresh) == 1
+    for n in names:
+        got = ptt.io._to_numpy(fresh.find_var(n))
+        assert got.dtype == want[n].dtype and np.array_equal(
+            got.view(np.uint8), want[n].view(np.uint8)), n
+    ckpt.close()
+
+
+def test_executor_drain_waits_for_queued_runs(cuda):
+    from paddle_tpu_torch import layers, optimizer
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        x = layers.data("x", shape=[64], dtype="float32")
+        loss = layers.mean(layers.fc(x, size=64))
+        optimizer.SGD(0.1).minimize(loss)
+    sc, exe = Scope(), ptt.Executor()
+    exe.run(startup, scope=sc)
+    feed = {"x": np.ones((8, 64), np.float32)}
+    exe.run(main, feed=feed, fetch_list=[loss], scope=sc)
+    exe.drain()
+    torch.cuda._sleep(int(2e9))      # a long kernel ahead of the runs
+    for _ in range(3):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=sc,
+                return_numpy=False)
+    assert exe.drain() >= 1
+    assert not exe._inflight
+    assert exe.drain() == 0

@@ -365,8 +365,10 @@ def test_fault_inject_flag_parsing():
                 "serving.decode_step:p=2"):
         with pytest.raises(ValueError):
             resilience.parse_fault_inject(bad)
-    with pytest.raises(ValueError, match="watchdog, not ported"):
-        resilience.parse_fault_inject("serving.decode_step:once,hang=5")
+    # hang mode parses since the watchdog is ported
+    hang = resilience.parse_fault_inject(
+        "serving.decode_step:once,hang=5")["serving.decode_step"]
+    assert (hang.mode, hang.hang_s, hang.at) == ("hang", 5.0, 1)
     # a malformed spec is refused before anything is applied
     with pytest.raises(ValueError):
         flags.set_flags({"FLAGS_serving_kv_page_len": 8,
