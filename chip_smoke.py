@@ -282,6 +282,39 @@ JAX, prints one line per phase, and raises on any failure:
    above start across a capture, and the free disk before and after.
    Checkpoints go under ``tempfile``'s directory and are deleted once
    read.
+16. ``observe_train`` (after ``optimizers``) — the time and memory planes
+   on ``train``'s executor and GPT (float32, batch 8 x 2048): one step
+   opens a ``torch.profiler`` window (``FLAGS_profile_sample_*``) of 2
+   steps, the HBM accountant on.  Fatal: the window ``ok`` and no window,
+   summary or accountant error; ``summary.json`` holds 2 steps; in those
+   steps each flash entry point's kernel events (``flash_fwd_sm90``, and
+   K2's delta, dK/dV and dQ passes) as many as its wrapper's launches,
+   nothing else classed attention (K1 + 3 x K2 events); the per-class
+   shares, recomputed unrounded from the trace, sum to 1 within 1e-6 and
+   match the published ones; 0 <= idle fraction < 1, 0 < measured MFU <=
+   1, each step's device ms within its span; ``paddle_tpu_step_mfu`` set;
+   the ledger's time to dispatch and host-blocked time non-zero; the
+   accountant's live, peak and headroom gauges published (budget = live +
+   headroom).  Prints the plan's peak beside the measured one, measured
+   and live MFU, the idle fraction, the top kernels and the shares; then
+   the step in three legs, alternating (host clocks, 4 x 3 steps each):
+   as by default (the accountant on), with the planes idle, and idle
+   without the executor's device-timeline range.
+   ``observe_resnet`` — ResNet-50 float32 at batch 256 through the fusion
+   pass, 1 warm-up + 3 steps (the last 2 in a window): 36 K3 a step,
+   finite falling losses, the window's checks as above, the unfused and
+   fused programs' planned peaks beside the measured one, the three legs
+   as above; then the
+   ``memory.oom`` drill through ``Executor.run`` (an ``InjectedFault``
+   with the summary and the dump's path, the dump's sums re-adding,
+   ``paddle_tpu_oom_total{site="injected"}`` 1) and a real
+   ``torch.cuda.OutOfMemoryError`` (twice the card) through
+   ``hbm.oom_forensics``, its requested size read.  ``observe_serve`` —
+   ``serve``'s GPT at bucket 2048 under a ``FLAGS_memory_budget_mb``
+   between the bucket program's planned peaks at widths 4 and 8: the
+   bucket admits 4, ``statusz`` reports the budget, 6 requests answered,
+   K1 12 times a batch; a ``DecodeEngine(max_slots=8)`` moves the
+   accountant's ``kv_pages`` class by exactly its ``pool_bytes()``.
 
 Then one JSON line describing every kernel, the ``nvidia-smi`` line, and a
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -509,6 +542,13 @@ PREDICT_RESNET_BATCH = 64
 PREDICT_RESNET_ATOL, PREDICT_RESNET_RTOL = 1e-5, 1e-3
 PREDICT_LOGIT_FRAC = 2.0 ** -14
 PREDICT_TRAIN_STEPS = 3
+# the time and memory planes (observe_*): a sampled window's steps, the
+# overhead measurement's rounds and steps a leg, ResNet-50 float32 at
+# batch 256 (ROADMAP Queue 1 item 1), the requests served under a budget
+OBSERVE_WINDOW_STEPS = 2
+OBSERVE_OVERHEAD_ROUNDS, OBSERVE_OVERHEAD_STEPS = 4, 3
+OBSERVE_RESNET_BATCH, OBSERVE_RESNET_STEPS = 256, 3
+OBSERVE_SERVE_REQUESTS = 6
 
 
 def _log(phase, msg):
@@ -1858,7 +1898,7 @@ def phase_train():
             "step_s": step_s, "warmup_s": warm_s,
             "tokens_per_s": tokens / (step_ms / 1e3),
             "peak_bytes": peak, "held_bytes": held, "tokens": tokens,
-            "main": main,
+            "main": main, "exe": exe,
             "loss": loss, "scope": scope, "feed": feed}
 
 
@@ -5410,6 +5450,585 @@ def phase_optimizers():
     return out
 
 
+# ---------------------------------------------------------------------------
+# the time and memory planes on the main paths
+# ---------------------------------------------------------------------------
+
+#: the flash kernels' entry points as Kineto names them, and how many of
+#: each a K1 (fwd) or K2 (bwd) launch runs: K2 is three kernels (delta,
+#: dK/dV, dQ); the float32 split passes are elementwise (a cast)
+_FLASH_EVENTS = {"flash_fwd_sm90_kernel": "flash_attn_fwd",
+                 "flash_bwd_sm90_delta_kernel": "flash_attn_bwd",
+                 "flash_bwd_sm90_dkdv_kernel": "flash_attn_bwd",
+                 "flash_bwd_sm90_dq_kernel": "flash_attn_bwd"}
+
+
+def _plane_counts():
+    """The sampling profiler's windows and summaries and the accountant's
+    samples, by outcome: every count but ``ok`` must stay 0."""
+    from paddle_tpu_torch import monitor
+    out = {}
+    for fam, outcomes in (("paddle_tpu_profile_windows_total",
+                           ("ok", "error", "empty")),
+                          ("paddle_tpu_profile_summaries_total",
+                           ("ok", "error", "empty")),
+                          ("paddle_tpu_hbm_samples_total",
+                           ("ok", "error"))):
+        m = monitor.REGISTRY.get(fam)
+        for o in outcomes:
+            out[f"{fam}{{{o}}}"] = 0 if m is None else m.value(outcome=o)
+    return out
+
+
+def _plane_errors(before):
+    """Counts other than ``ok`` that moved since ``before``."""
+    after = _plane_counts()
+    return {k: after[k] - before.get(k, 0) for k in after
+            if not k.endswith("{ok}") and after[k] != before.get(k, 0)}
+
+
+def _sampled_window(phase, run_step, steps):
+    """Run one step that opens a ``torch.profiler`` window
+    (``FLAGS_profile_sample_every_n_steps`` set to its step id), then
+    ``steps`` steps inside it (the window closes at the end of the last);
+    the launch counts are read and reset after the first step.  Returns the
+    window's manifest entry, its summary, the per-step device events and
+    the launches of the first step and of the window's."""
+    import tempfile
+    from paddle_tpu_torch import flags, profiler
+    from paddle_tpu_torch.analysis import device_profile as dp
+    from paddle_tpu_torch.framework import executor as ex
+    base = tempfile.mkdtemp(prefix=f"{phase}_windows_")
+    saved = flags.get_flags(["FLAGS_profile_sample_every_n_steps",
+                             "FLAGS_profile_sample_window_steps",
+                             "FLAGS_profile_sample_dir"])
+    opened_at = ex.last_step_id() + 1
+    flags.set_flags({"FLAGS_profile_sample_every_n_steps": opened_at,
+                     "FLAGS_profile_sample_window_steps": steps,
+                     "FLAGS_profile_sample_dir": base})
+    try:
+        run_step()
+        if ex.last_step_id() != opened_at:
+            raise AssertionError(f"{phase}: the window's first step took id "
+                                 f"{ex.last_step_id()}, not {opened_at}")
+        first = {name: _kernel_module(name).launch_count(name)
+                 for name in _KERNEL_MODULES}
+        _reset_launches()
+        for _ in range(steps):
+            run_step()
+        launches = {name: _kernel_module(name).launch_count(name)
+                    for name in _KERNEL_MODULES}
+        profiler.SAMPLER.close()
+    finally:
+        flags.set_flags(saved)
+    with open(os.path.join(base, "manifest.json")) as f:
+        w, = json.load(f)["windows"]
+    if (w["start_step"], w["end_step"]) != (opened_at + 1,
+                                            opened_at + 1 + steps):
+        raise AssertionError(f"{phase}: window {w}, expected steps "
+                             f"[{opened_at + 1}, {opened_at + 1 + steps})")
+    with open(os.path.join(w["dir"], "summary.json")) as f:
+        summary = json.load(f)
+    trace = dp.parse_trace(os.path.join(w["dir"], profiler.TRACE_FILE))
+    by_step = dp.kernels_by_step(trace)
+    events = {s: by_step.get(s, []) for s in range(w["start_step"],
+                                                   w["end_step"])}
+    return {"window": w, "summary": summary, "events": events,
+            "all_events": [e for evs in by_step.values() for e in evs],
+            "launches": launches, "first_launches": first, "dir": base}
+
+
+def _check_summary(phase, got, steps):
+    """The fatal checks every sampled window's summary meets.  The
+    per-class shares, recomputed unrounded from the trace's device events,
+    sum to 1 within 1e-6, and each published share (rounded to 6
+    decimals) is its recomputed one within 1e-6."""
+    from paddle_tpu_torch.analysis import device_profile as dp
+    summary = got["summary"]
+    if summary["n_steps"] != steps:
+        raise AssertionError(f"{phase}: summary holds {summary['n_steps']} "
+                             f"steps, expected {steps}")
+    cls_ms = {}
+    for e in got["all_events"]:
+        c = dp.classify_kernel(e["name"])
+        cls_ms[c] = cls_ms.get(c, 0.0) + e["dur"]
+    total = sum(cls_ms.values())
+    shares = {c: v / total for c, v in cls_ms.items()}
+    published = summary["per_class_share"]
+    if abs(sum(shares.values()) - 1.0) > 1e-6 or set(shares) != set(
+            published) or any(abs(shares[c] - published[c]) > 1e-6
+                              for c in shares):
+        raise AssertionError(f"{phase}: per-class shares {shares} (sum "
+                             f"{sum(shares.values())}), published "
+                             f"{published}")
+    idle = summary["idle_frac"]
+    if idle is None or not 0 <= idle < 1:
+        raise AssertionError(f"{phase}: idle fraction {idle}")
+    mfu = summary["measured"]["mfu_measured"]
+    if mfu is None or not 0 < mfu <= 1:
+        raise AssertionError(f"{phase}: measured MFU {mfu}")
+    for r in summary["steps"]:
+        if not 0 < r["device_ms"] <= r["span_ms"]:
+            raise AssertionError(f"{phase}: step {r['step']} device "
+                                 f"{r['device_ms']} ms, span "
+                                 f"{r['span_ms']} ms")
+
+
+def _check_attention_events(phase, got):
+    """The window's steps hold as many events of each flash entry point as
+    their wrappers counted launches, and nothing else classed attention
+    (K1 + 3 x K2 events).  Returns the attention events' names and the
+    count by entry point."""
+    from paddle_tpu_torch.analysis import device_profile as dp
+    events = [e for evs in got["events"].values() for e in evs]
+    attn = [e["name"] for e in events
+            if dp.classify_kernel(e["name"]) == "attention"]
+    per_name = {n: sum(n in a for a in attn) for n in _FLASH_EVENTS}
+    want = {n: got["launches"][k] for n, k in _FLASH_EVENTS.items()}
+    k1, k2 = (got["launches"][k] for k in ("flash_attn_fwd",
+                                            "flash_attn_bwd"))
+    if per_name != want or len(attn) != k1 + 3 * k2:
+        raise AssertionError(f"{phase}: attention-class kernel events "
+                             f"{len(attn)} by entry point {per_name}, "
+                             f"expected {want} (K1 {k1} + 3 x K2 {k2}); "
+                             f"names {sorted(set(attn))[:6]}")
+    return attn, per_name
+
+
+def _top_kernels(summary, n=8):
+    return [(k["name"][:60], k["op_class"], round(k["ms"] / max(
+        summary["n_steps"], 1), 3), k["count"]) for k in
+        summary["kernels"][:n]]
+
+
+def _hbm_gauges():
+    from paddle_tpu_torch import hbm
+    return {"live": hbm.HBM_LIVE_GAUGE.value(),
+            "peak": hbm.HBM_PEAK_GAUGE.value(),
+            "budget": hbm.HBM_BUDGET_GAUGE.value(),
+            "headroom": hbm.HBM_HEADROOM_GAUGE.value(),
+            "drift": hbm.HBM_DRIFT_GAUGE.value(),
+            **{c: cell.get() for c, cell in hbm._CLASS_CELLS.items()}}
+
+
+class _NoRange:
+    """A stand-in for the executor's ``_StepRange`` that does nothing."""
+
+    def __init__(self, *a):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def _planes_overhead(phase, smi, step):
+    """Host clocks of ``step()`` (synchronized) in three legs, alternating
+    over OBSERVE_OVERHEAD_ROUNDS rounds of OBSERVE_OVERHEAD_STEPS: the
+    planes as they run by default (no window, the HBM accountant on),
+    idle (the accountant off), and idle with the executor's step range
+    taken out by a local monkeypatch."""
+    import torch
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.framework import executor as ex
+    real = ex._StepRange
+    legs = {"default": [], "idle": [], "no_range": []}
+    try:
+        for _ in range(OBSERVE_OVERHEAD_ROUNDS):
+            for leg, times in legs.items():
+                flags.set_flags({"FLAGS_hbm_telemetry": leg == "default"})
+                ex._StepRange = _NoRange if leg == "no_range" else real
+                for _ in range(OBSERVE_OVERHEAD_STEPS):
+                    t0 = time.perf_counter()
+                    step()
+                    torch.cuda.synchronize()
+                    times.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        ex._StepRange = real
+        flags.set_flags({"FLAGS_hbm_telemetry": True})
+    med = {k: float(np.median(v)) for k, v in legs.items()}
+    iqr = {k: (float(np.percentile(v, 25)), float(np.percentile(v, 75)))
+           for k, v in legs.items()}
+    _log(phase, f"overhead (host clocks, {len(legs['idle'])} steps a leg, "
+         f"alternating): step median {med['default']:.2f} ms as by default "
+         f"(accountant on), {med['idle']:.2f} ms with the planes idle, "
+         f"{med['no_range']:.2f} ms without the step range too; quartiles "
+         f"{ {k: tuple(round(x, 2) for x in v) for k, v in iqr.items()} } "
+         f"on {smi}")
+    return {"steps_ms": legs, "median": med, "quartiles": iqr}
+
+
+def phase_observe_train(smi, train):
+    """``train``'s GPT (its executor, scope and batch) with one sampled
+    window of OBSERVE_WINDOW_STEPS steps and the HBM accountant on; then the
+    step with the planes idle against the step without the step range."""
+    import shutil
+    import torch
+    from paddle_tpu_torch import flags, hbm, monitor, profiler
+    from paddle_tpu_torch.analysis import memory as amem
+    from paddle_tpu_torch.framework import executor as ex
+    exe, main, scope = train["exe"], train["main"], train["scope"]
+    feed, loss = train["feed"], train["loss"]
+    cfg = _gpt_cfg()
+    flags.set_flags({"FLAGS_hbm_telemetry": True})
+    counts = _plane_counts()
+    ledger0 = exe.dispatch_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+
+    def step():
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+
+    got = _sampled_window("observe_train", step, OBSERVE_WINDOW_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    assert hbm.ACCOUNTANT.drain(60), "the HBM accountant did not drain"
+    errors = _plane_errors(counts)
+    if errors:
+        raise AssertionError(f"observe_train: telemetry errors {errors} "
+                             f"(last window error "
+                             f"{profiler.last_window_error()})")
+    s = got["summary"]
+    _check_summary("observe_train", got, OBSERVE_WINDOW_STEPS)
+    k1, k2 = (got["launches"][k] for k in ("flash_attn_fwd",
+                                            "flash_attn_bwd"))
+    if (k1, k2) != (cfg.n_layer * OBSERVE_WINDOW_STEPS,) * 2:
+        raise AssertionError(f"observe_train: K1/K2 launched {k1}/{k2} in "
+                             f"the window")
+    attn, per_name = _check_attention_events("observe_train", got)
+    mfu_live = monitor.REGISTRY.get("paddle_tpu_step_mfu").value(
+        executor=str(exe._stats.serial))
+    if not 0 < mfu_live <= 1:
+        raise AssertionError(f"observe_train: live MFU {mfu_live}")
+    ledger = exe.dispatch_stats()
+    d = {k: ledger[k] - ledger0[k] for k in ("steps_dispatched",
+                                              "time_to_dispatch_us",
+                                              "host_block_us",
+                                              "materialize_block_us",
+                                              "throttle_block_us")}
+    if not (d["time_to_dispatch_us"] > 0 and d["host_block_us"] > 0):
+        raise AssertionError(f"observe_train: ledger {d}")
+    g = _hbm_gauges()
+    if not (g["live"] > 0 and g["peak"] >= g["live"] and g["headroom"] > 0
+            and g["budget"] == g["live"] + g["headroom"]):
+        raise AssertionError(f"observe_train: HBM gauges {g}")
+    mplan = amem.plan_memory(main, [loss.name], batch_size=TRAIN_BATCH)
+    per_class = {c: round(v, 4) for c, v in s["per_class_share"].items()}
+    n_steps = d["steps_dispatched"]
+    n_events = sum(len(v) for v in got["events"].values())
+    _log("observe_train", f"window steps [{got['window']['start_step']}, "
+         f"{got['window']['end_step']}): {n_events} device events, "
+         f"attention-class {len(attn)} = K1 {k1} + 3 x K2 {k2} "
+         f"{per_name}; idle fraction {s['idle_frac']:.4f}; measured MFU "
+         f"{s['measured']['mfu_measured']:.4f}, live MFU {mfu_live:.4f} "
+         f"(peak {s['measured']['peak_flops']:.3g} FLOP/s, analytic "
+         f"{s['measured']['flops_per_step']:.4g} flops a step); steps "
+         f"{[(r['step'], r['device_ms'], r['span_ms']) for r in s['steps']]}"
+         f" (device ms, span ms) on {smi}")
+    _log("observe_train", f"per-class device shares {per_class}; top "
+         f"kernels (name, class, ms a step, count) {_top_kernels(s)}")
+    _log("observe_train", f"memory: plan peak {mplan.peak_bytes / 2**30:.3f}"
+         f" GiB at op #{mplan.peak_pos} ({mplan.peak_op}), steady "
+         f"{mplan.steady_bytes / 2**30:.3f} GiB; measured peak "
+         f"{peak / 2**30:.3f} GiB ({(peak - held) / 2**30:.3f} above the "
+         f"{held / 2**30:.3f} GiB held before); accountant live "
+         f"{g['live'] / 2**30:.3f} GiB, headroom {g['headroom'] / 2**30:.2f}"
+         f" GiB, drift {g['drift']:.4f}, params {g['params'] / 2**30:.3f}, "
+         f"opt_state {g['opt_state'] / 2**30:.3f}, activations "
+         f"{g['activations'] / 2**30:.3f} GiB")
+    _log("observe_train", f"ledger over {n_steps} steps: time to dispatch "
+         f"{d['time_to_dispatch_us'] / n_steps / 1e3:.2f} ms a step, host "
+         f"blocked {d['host_block_us'] / n_steps / 1e3:.2f} ms a step "
+         f"(materialize {d['materialize_block_us'] / n_steps / 1e3:.2f}, "
+         f"throttle {d['throttle_block_us'] / n_steps / 1e3:.2f})")
+    shutil.rmtree(got["dir"], ignore_errors=True)
+
+    over = _planes_overhead("observe_train", smi, step)
+    # after the steady steps the live gauge's 9 intervals are all steps
+    mfu_end = monitor.REGISTRY.get("paddle_tpu_step_mfu").value(
+        executor=str(exe._stats.serial))
+    step_ms = monitor.REGISTRY.get("paddle_tpu_step_device_ms").value(
+        executor=str(exe._stats.serial))
+    _log("observe_train", f"then the live gauges: step {step_ms:.2f} ms, "
+         f"MFU {mfu_end:.4f}")
+    return {"window": got["window"], "summary": {
+                k: s[k] for k in ("steps", "n_steps", "per_class_share",
+                                  "per_class_ms", "idle_frac", "measured",
+                                  "device_ms_total", "unattributed_ms")},
+            "kernels": s["kernels"], "mfu_live": mfu_live,
+            "attention_events": len(attn), "per_name": per_name,
+            "launches": {k: v for k, v in got["launches"].items() if v},
+            "plan_peak_bytes": mplan.peak_bytes,
+            "plan_steady_bytes": mplan.steady_bytes,
+            "measured_peak_bytes": peak, "held_bytes": held,
+            "hbm": g, "ledger": d, "overhead": over,
+            "live_after_overhead": {"step_ms": step_ms, "mfu": mfu_end}}
+
+
+def _dump_sums(path):
+    """The budget arithmetic lines of an OOM dump, checked to re-add."""
+    nums = {}
+    with open(path) as f:
+        for line in f:
+            k, _, v = line.strip().partition(": ")
+            if k.endswith("_bytes") or k == "measured_plus_requested":
+                nums[k] = int(v)
+    if nums["measured_plus_requested"] != nums["measured_bytes"] + \
+            nums["requested_bytes"] or nums["deficit_bytes"] != \
+            nums["measured_plus_requested"] - nums["budget_bytes"]:
+        raise AssertionError(f"OOM dump {path}: sums do not re-add {nums}")
+    return nums
+
+
+def phase_observe_resnet(smi):
+    """ResNet-50 float32 at OBSERVE_RESNET_BATCH through the fusion pass
+    (K3), 1 warm-up + OBSERVE_RESNET_STEPS steps, the middle ones in a
+    sampled window; the plan's peak beside the measured one; then the
+    ``memory.oom`` drill through ``Executor.run`` and a real
+    ``torch.cuda.OutOfMemoryError`` through ``oom_forensics``."""
+    import re as _re
+    import shutil
+    import tempfile
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import flags, hbm, resilience
+    from paddle_tpu_torch.analysis import memory as amem
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.kernels import conv_bn as cb
+    cfg = dict(class_dim=1000, depth=50, image_shape=(3, 224, 224))
+    main, startup, loss, accs = _resnet_program(**cfg)
+    scope, exe = Scope(), ptt.Executor()
+    exe.run(startup, scope=scope, seed=1234)
+    feed = _resnet_feed(OBSERVE_RESNET_BATCH, cfg["class_dim"],
+                        cfg["image_shape"])
+    t_p = time.perf_counter()
+    mplan = amem.plan_memory(main, [loss.name],
+                             batch_size=OBSERVE_RESNET_BATCH)
+    plan_s = time.perf_counter() - t_p
+    counts = _plane_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    losses = []
+
+    def step():
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0]))
+
+    cb.reset_launch_count()
+    t_w = time.perf_counter()
+    step()                                   # the warm-up: plans, fuses
+    warm_s = time.perf_counter() - t_w
+    warm_k3 = cb.launch_count()
+    # the window opens at the end of the first step after the warm-up and
+    # holds the next OBSERVE_RESNET_STEPS - 1
+    got = _sampled_window("observe_resnet", step, OBSERVE_RESNET_STEPS - 1)
+    first_k3 = got["first_launches"]["conv1x1_stats"] - warm_k3
+    window_k3 = got["launches"]["conv1x1_stats"]
+    k3 = warm_k3 + first_k3 + window_k3
+    peak = torch.cuda.max_memory_allocated()
+    assert hbm.ACCOUNTANT.drain(60), "the HBM accountant did not drain"
+    errors = _plane_errors(counts)
+    if errors:
+        raise AssertionError(f"observe_resnet: telemetry errors {errors}")
+    _check_summary("observe_resnet", got, OBSERVE_RESNET_STEPS - 1)
+    if (warm_k3, first_k3, window_k3) != (
+            36, 36, 36 * (OBSERVE_RESNET_STEPS - 1)):
+        raise AssertionError(
+            f"observe_resnet: K3 launched {warm_k3} in the warm-up, "
+            f"{first_k3} in the first step and {window_k3} in the window's "
+            f"{OBSERVE_RESNET_STEPS - 1}, expected 36 a step")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"observe_resnet: losses not finite and "
+                             f"falling: {losses}")
+    fplan = [p for p in exe._plans.values()
+             if any(op.type == "momentum" for op, _ in p.ops)][0]
+    fused_peak = amem.plan_memory(fplan.program, [loss.name],
+                                  batch_size=OBSERVE_RESNET_BATCH).peak_bytes
+    s = got["summary"]
+    _log("observe_resnet", f"batch {OBSERVE_RESNET_BATCH} x 3x224x224 "
+         f"float32: warm-up {warm_s:.2f} s, losses "
+         f"{', '.join(f'{x:.4f}' for x in losses)}; K3 {warm_k3} + "
+         f"{first_k3} + {window_k3} = {k3}; "
+         f"window steps {[(r['step'], r['device_ms'], r['span_ms']) for r in s['steps']]}"
+         f" (device ms, span ms); idle fraction {s['idle_frac']:.4f}, "
+         f"measured MFU {s['measured']['mfu_measured']:.4f} on {smi}")
+    _log("observe_resnet", f"per-class device shares "
+         f"{ {c: round(v, 4) for c, v in s['per_class_share'].items()} }; "
+         f"top kernels {_top_kernels(s)}")
+    _log("observe_resnet", f"memory: plan peak (unfused program) "
+         f"{mplan.peak_bytes / 2**30:.3f} GiB at op #{mplan.peak_pos} "
+         f"({mplan.peak_op}), the fused program's "
+         f"{fused_peak / 2**30:.3f} GiB (planned in {plan_s:.2f} s); "
+         f"measured peak {peak / 2**30:.3f} GiB, "
+         f"{(peak - held) / 2**30:.3f} above the {held / 2**30:.3f} GiB "
+         f"held before the warm-up")
+
+    over = _planes_overhead("observe_resnet", smi, lambda: exe.run(
+        main, feed=feed, fetch_list=[loss], scope=scope))
+
+    # the memory.oom drill through Executor.run
+    dump_dir = tempfile.mkdtemp(prefix="oom_dumps_")
+    flags.set_flags({"FLAGS_oom_dump_dir": dump_dir})
+    try:
+        n_inj = hbm.OOM_CTR.value(site="injected")
+        flags.set_flags({"FLAGS_fault_inject": "memory.oom:once"})
+        try:
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            raise AssertionError("observe_resnet: the memory.oom drill did "
+                                 "not raise")
+        except resilience.InjectedFault as e:
+            msg = str(e)
+        finally:
+            flags.set_flags({"FLAGS_fault_inject": ""})
+        m = _re.search(r"oom forensics dump: (\S+)", msg)
+        if m is None or "device memory summary" not in msg:
+            raise AssertionError(f"observe_resnet: drill error lacks the "
+                                 f"report: {msg[:400]}")
+        drill = _dump_sums(m.group(1))
+        if hbm.OOM_CTR.value(site="injected") != n_inj + 1 or n_inj != 0:
+            raise AssertionError("observe_resnet: oom_total{injected} "
+                                 f"{hbm.OOM_CTR.value(site='injected')}")
+        if drill["plan_peak_bytes"] != fused_peak:
+            raise AssertionError(f"observe_resnet: the dump's plan peak "
+                                 f"{drill['plan_peak_bytes']} is not the "
+                                 f"fused program's {fused_peak}")
+        # a real OutOfMemoryError: a request larger than the card
+        total = torch.cuda.get_device_properties(0).total_memory
+        n_real = hbm.OOM_CTR.value(site="dispatch")
+        try:
+            torch.empty(2 * total, dtype=torch.uint8, device="cuda")
+            raise AssertionError("observe_resnet: a 2x-card allocation "
+                                 "succeeded")
+        except torch.cuda.OutOfMemoryError as e:
+            err = e
+        path = hbm.oom_forensics(err, scope=scope, program=main,
+                                 fetch_names=[loss.name],
+                                 batch=OBSERVE_RESNET_BATCH)
+        real = _dump_sums(path)
+        if abs(real["requested_bytes"] - 2 * total) > total // 100 or \
+                hbm.OOM_CTR.value(site="dispatch") != n_real + 1:
+            raise AssertionError(f"observe_resnet: requested "
+                                 f"{real['requested_bytes']} of "
+                                 f"{2 * total} ({str(err)[:160]})")
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    finally:
+        flags.set_flags({"FLAGS_oom_dump_dir": ""})
+        shutil.rmtree(dump_dir, ignore_errors=True)
+        shutil.rmtree(got["dir"], ignore_errors=True)
+    _log("observe_resnet", f"memory.oom drill: InjectedFault with the "
+         f"summary and dump, oom_total{{injected}} 1, dump sums re-add "
+         f"(measured {drill['measured_bytes'] / 2**30:.3f} GiB, plan peak "
+         f"{drill['plan_peak_bytes'] / 2**30:.3f} GiB, budget "
+         f"{drill['budget_bytes'] / 2**30:.2f} GiB); real OOM "
+         f"{str(err).splitlines()[0][:100]!r}: requested "
+         f"{real['requested_bytes']} bytes read, deficit "
+         f"{real['deficit_bytes'] / 2**30:.2f} GiB; the next step ran")
+    return {"losses": losses, "launches": k3,
+            "window": got["window"], "summary": {
+                k: s[k] for k in ("steps", "n_steps", "per_class_share",
+                                  "per_class_ms", "idle_frac", "measured",
+                                  "device_ms_total", "unattributed_ms")},
+            "kernels": s["kernels"],
+            "plan_peak_bytes": mplan.peak_bytes,
+            "fused_plan_peak_bytes": fused_peak, "plan_s": plan_s,
+            "measured_peak_bytes": peak, "held_bytes": held,
+            "overhead": over, "oom_drill": drill, "oom_real": real}
+
+
+def phase_observe_serve(smi, serve):
+    """``serve``'s GPT at bucket 2048 under a FLAGS_memory_budget_mb between
+    the bucket program's plan peaks at widths 4 and 8: the bucket admits 4;
+    then a DecodeEngine's pools in the accountant's kv_pages class."""
+    import gc
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import flags, hbm
+    from paddle_tpu_torch.analysis import memory as amem
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    cfg, factory, scope = _gpt_cfg(), serve["factory"], serve["scope"]
+    prog, _, fetch = factory(2048)
+    p4, p8 = (amem.plan_memory(prog, fetch, batch_size=w).peak_bytes
+              for w in (4, 8))
+    budget_mb = (p4 + p8) // 2 >> 20
+    if not p4 <= budget_mb << 20 < p8:
+        raise AssertionError(f"observe_serve: no budget between {p4} and "
+                             f"{p8}")
+    flags.set_flags({"FLAGS_memory_budget_mb": budget_mb})
+    try:
+        srv = ptt.serving.InferenceServer(factory, scope, buckets=(2048,),
+                                          max_batch=8, batch_wait_ms=20.0)
+        rng = np.random.RandomState(11)
+        reqs = [rng.randint(1, cfg.vocab_size, (int(n),)).astype(np.int64)
+                for n in rng.randint(1100, 2049, OBSERVE_SERVE_REQUESTS)]
+        fa.reset_launch_count()
+        srv.warmup()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        srv.start()
+        futs = [srv.submit(f"t{i % 2}", {"src_ids": ids})
+                for i, ids in enumerate(reqs)]
+        outs = [f.result(timeout=600) for f in futs]
+        assert srv.drain(120), "drain did not finish"
+        peak = torch.cuda.max_memory_allocated()
+        st = srv.statusz()
+        srv.stop()
+        launches = fa.launch_count()
+        log = srv.batch_log()
+    finally:
+        flags.set_flags({"FLAGS_memory_budget_mb": 0})
+    width = st["memory"]["per_bucket"]["2048"]["width"]
+    if width != 4 or st["memory"]["budget_mb"] != budget_mb:
+        raise AssertionError(f"observe_serve: statusz memory {st['memory']}"
+                             f", expected width 4 under {budget_mb} MiB")
+    for ids, out in zip(reqs, outs):
+        if out[0].shape != (len(ids), cfg.vocab_size) or \
+                not np.isfinite(out[0]).all():
+            raise AssertionError("observe_serve: a request's logits")
+    if launches != cfg.n_layer * (len(log) + 1) or \
+            any(b["occupancy"] > 4 for b in log):
+        raise AssertionError(f"observe_serve: K1 launched {launches} for "
+                             f"{len(log)} batches + warm-up, batches "
+                             f"{[b['occupancy'] for b in log]}")
+    _log("observe_serve", f"bucket 2048 under FLAGS_memory_budget_mb "
+         f"{budget_mb} (plan peaks {p4 / 2**30:.3f} GiB at width 4, "
+         f"{p8 / 2**30:.3f} at 8): width {width}; {len(reqs)} requests in "
+         f"{len(log)} batches {[b['occupancy'] for b in log]}, K1 launches "
+         f"{launches}; measured peak {peak / 2**30:.3f} GiB "
+         f"({(peak - held) / 2**30:.3f} above the {held / 2**30:.3f} held) "
+         f"against the plan's {st['memory']['per_bucket']['2048']['static_peak_bytes'] / 2**30:.3f}"
+         f" on {smi}")
+
+    # a DecodeEngine's pools in the accountant's kv_pages class
+    def kv_sample():
+        hbm.ACCOUNTANT.note_step(0, None, None, 0)
+        assert hbm.ACCOUNTANT.drain(60)
+        return hbm._CLASS_CELLS["kv_pages"].get()
+
+    gc.collect()
+    before = kv_sample()
+    eng = ptt.serving.DecodeEngine(cfg, scope, max_slots=8)
+    pool = eng.cache.pool_bytes()
+    after = kv_sample()
+    if after - before != pool:
+        raise AssertionError(f"observe_serve: kv_pages moved by "
+                             f"{after - before}, the engine's pools are "
+                             f"{pool} bytes")
+    del eng
+    gc.collect()
+    _log("observe_serve", f"DecodeEngine(max_slots 8): kv_pages "
+         f"{before / 2**30:.3f} -> {after / 2**30:.3f} GiB, its "
+         f"pool_bytes() {pool / 2**30:.3f} GiB")
+    return {"budget_mb": budget_mb, "plan_peak_w4": p4, "plan_peak_w8": p8,
+            "width": width, "launches": launches,
+            "batches": [b["occupancy"] for b in log],
+            "measured_peak_bytes": peak, "held_bytes": held,
+            "kv_pool_bytes": pool}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", help="also write every measurement here")
@@ -5455,6 +6074,9 @@ def main(argv=None) -> int:
     se = phase_se_resnext()
     recompute = phase_recompute_train()
     optimizers = phase_optimizers()
+    observe_train = phase_observe_train(smi, train)
+    observe_resnet = phase_observe_resnet(smi)
+    observe_serve = phase_observe_serve(smi, serve)
     timing = phase_timing(smi, serve, train)
     timing["conv1x1_stats"] = timing_k3(smi, resnet)
     timing.update(timing_k45(smi, train, fused))
@@ -5531,6 +6153,11 @@ def main(argv=None) -> int:
     # preempt_train: the float32 K1/K2 of its four child processes
     for name in ("flash_attn_fwd", "flash_attn_bwd"):
         by_path[name]["preempt_train"] = preempt["launches"][name]
+    # the time and memory planes' paths: the sampled window's steps
+    for name in ("flash_attn_fwd", "flash_attn_bwd"):
+        by_path[name]["observe_train"] = observe_train["launches"][name]
+    by_path["conv1x1_stats"]["observe_resnet"] = observe_resnet["launches"]
+    by_path["flash_attn_fwd"]["observe_serve"] = observe_serve["launches"]
     missing = [n for n, paths in by_path.items() if not sum(paths.values())]
     if missing:
         raise AssertionError(f"kernels never launched on their paths: "
@@ -5562,7 +6189,10 @@ def main(argv=None) -> int:
                                  if k not in ("scope", "factory")},
                        "train": {k: v for k, v in train.items()
                                  if k not in ("main", "loss", "scope",
-                                              "feed")},
+                                              "feed", "exe")},
+                       "observe_train": observe_train,
+                       "observe_resnet": observe_resnet,
+                       "observe_serve": observe_serve,
                        "fused_train": fused,
                        "resnet": {k: v for k, v in resnet.items()
                                   if k not in ("main", "fetch", "scope",

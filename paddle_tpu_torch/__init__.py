@@ -17,7 +17,11 @@ the backward pass) and ResNet training through the graph-fusion pass
 kernel, and ring attention over the ``sp`` axis of a device mesh
 (``parallel``), and the inference engine: ``save_inference_model``,
 ``load_inference_model`` and :mod:`paddle_tpu_torch.inference`'s
-``AnalysisPredictor`` over the IR pass library (``framework.ir``).
+``AnalysisPredictor`` over the IR pass library (``framework.ir``), and the
+time and memory planes: the executor's dispatch ledger and live MFU,
+:mod:`paddle_tpu_torch.profiler` (host events, ``torch.profiler`` windows),
+``analysis.device_profile``, ``analysis.memory``, :mod:`paddle_tpu_torch.
+memory` and :mod:`paddle_tpu_torch.hbm`.
 """
 
 from . import ops  # noqa  (registers the op lowerings)
@@ -32,6 +36,7 @@ from .framework import (Program, Scope, Variable,  # noqa
 from .framework.executor import Executor  # noqa
 from . import amp, io, models, optimizer, parallel, serving  # noqa
 from . import inference  # noqa
+from . import hbm, memory, profiler  # noqa
 from .io import load_inference_model, save_inference_model  # noqa
 from .param_attr import ParamAttr  # noqa
 from .place import (CPUPlace, CUDAPlace, device_count,  # noqa

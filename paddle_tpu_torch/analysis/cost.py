@@ -15,6 +15,8 @@ the port keeps the reference's accounting exactly:
 
 Plans are cached on (program fingerprint, fetch tuple, batch).  The
 reference's XLA cross-check (``xla_cost_*``) has no counterpart here.
+:func:`device_peak_flops` is the one MFU denominator, of the executor's
+live gauge and of the measured one (``analysis/device_profile.py``).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import numpy as np
 
 from ..framework.core import Block, Program
 
-__all__ = ["CostPlan", "plan_cost"]
+__all__ = ["CostPlan", "device_peak_flops", "plan_cost"]
 
 #: op type -> roofline class.  Grad ops inherit their forward's class;
 #: anything unlisted is "other".
@@ -93,6 +95,28 @@ def _numel(shape) -> int:
     for d in shape:
         n *= max(int(d), 1)
     return n
+
+
+def device_peak_flops(device=None) -> float:
+    """Peak dense bf16 FLOP/s of one card (ref ``cost.py:138-158``): the
+    denominator of the live and the measured MFU alike.  A CUDA card takes
+    its bf16 tensor-core peak from ``tools.timing.PEAKS`` by name (an H100
+    SXM: 989e12, NVIDIA's H100 data sheet, dense BF16 Tensor Core, the
+    rate PERF.md's bf16 bounds divide by); the host, and a card the table
+    does not know, get the reference's nominal 1e12."""
+    import torch
+    if device is None:
+        if not torch.cuda.is_available():
+            return 1e12
+        device = torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 1e12
+    from ..tools.timing import peaks
+    try:
+        return float(peaks(torch.cuda.get_device_name(device))[1])
+    except RuntimeError:
+        return 1e12
 
 
 def _var_bytes(block: Block, name, batch_size: int) -> int:

@@ -23,16 +23,19 @@ int64_feed          (none)     classification: int64 feeds whose consumers
 collective_order    error/     collective ops not totally ordered by data
                     warning    dependencies (error when an unordered pair
                                has the same signature)
+memory_budget       warning    the batch-1 static peak-memory plan exceeds
+                               FLAGS_memory_budget_mb
 ==================  =========  ==============================================
 
 Results are cached on (program fingerprint, fetch tuple), so a program is
 verified once per mutation, and stamp ``program._attrs["verify"]``: the
 int64 feed classification, the collective fingerprint (the dependency-
 ordered collective sequence and the fetch list, hashed) and the analytic
-cost plan (``analysis.cost``).  Not ported yet: the memory, comms and
-sharding plans (``verifier.py:766, 810, 830``) and the ``memory_budget`` and
-sharding checks, which need planes the port lacks; their stamps are
-``None``.
+cost plan (``analysis.cost``) and the static memory plan
+(``analysis.memory``, batch 1), whose peak past ``FLAGS_memory_budget_mb``
+is a ``memory_budget`` warning.  Not ported yet: the comms and sharding
+plans (``verifier.py:810, 830``) and the sharding checks, which need planes
+the port lacks; their stamps are ``None``.
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ __all__ = [
 CHECKS = (
     "def_before_use", "uninitialized_read", "dangling_fetch",
     "dangling_feed", "shape_consistency", "dead_op", "use_after_donate",
-    "int64_feed", "collective_order",
+    "int64_feed", "collective_order", "memory_budget",
 )
 
 _FINDINGS = _monitor.REGISTRY.counter(
@@ -117,8 +120,11 @@ class VerifyResult:
     dead_ops: Tuple[int, ...] = ()   # block-0 indices of dead ops
     #: {sub-block idx: (op indices...)} of dead body compute
     dead_subblock_ops: Dict[int, tuple] = field(default_factory=dict)
-    #: analytic flops/bytes plan (analysis.cost.CostPlan; None if planning
+    #: static memory plan (analysis.memory.MemoryPlan; None if planning
     #: failed — a plan never blocks verification)
+    memory_plan: Optional[object] = None
+    #: analytic flops/bytes plan (analysis.cost.CostPlan; None if planning
+    #: failed)
     cost_plan: Optional[object] = None
 
     def errors(self) -> List[Diagnostic]:
@@ -581,6 +587,34 @@ def _check_collective_order(program: Program, graph, fetch_names, diags):
     return h.hexdigest()
 
 
+def _check_memory(program: Program, fetch_names, diags):
+    """The static memory plan at batch 1 (``verifier.py:766-795``), a
+    per-example lower bound cached on the fingerprint; a
+    ``memory_budget`` warning when ``FLAGS_memory_budget_mb`` is set and
+    even that bound exceeds it.  A planning failure never blocks
+    verification."""
+    from . import memory as _memory
+    try:
+        plan = _memory.plan_memory(program, fetch_names, batch_size=1)
+    except Exception:
+        return None
+    from ..flags import get_flags
+    budget_mb = int(get_flags("FLAGS_memory_budget_mb")
+                    ["FLAGS_memory_budget_mb"])
+    if budget_mb > 0 and plan.peak_bytes > budget_mb << 20:
+        top = ", ".join(f"{t} #{p}" for p, t, _, _ in plan.top_ops(3))
+        diags.append(Diagnostic(
+            "memory_budget", "warning",
+            f"static peak-memory estimate {plan.peak_bytes >> 20} MiB "
+            f"(batch=1 lower bound) exceeds FLAGS_memory_budget_mb="
+            f"{budget_mb}; heaviest ops: {top}",
+            op_type=plan.peak_op, op_index=plan.peak_pos,
+            fix_hint="shrink the model/batch, enable sharding, or raise "
+                     "the budget; see analysis.memory.plan_memory("
+                     "...).report() for the full attribution table"))
+    return plan
+
+
 def _check_cost(program: Program, fetch_names):
     """The analytic flops/bytes plan at batch 1 (``verifier.py:797``);
     informational, and a planning failure never blocks verification."""
@@ -626,17 +660,25 @@ def _verify_cached(program: Program, fetch_names) -> \
         _classify_int64_feeds(program, fetch_names)
     result.collective_fingerprint = _check_collective_order(
         program, graph, fetch_names, diags)
+    result.memory_plan = _check_memory(program, fetch_names, diags)
     result.cost_plan = _check_cost(program, fetch_names)
     for d in diags:
         _FINDING_CELLS[d.check].inc()
     if result.int64_dynamic:
         _FINDING_CELLS["int64_feed"].inc(len(result.int64_dynamic))
     plan = result.cost_plan
+    mem = result.memory_plan
     program._attrs["verify"] = {
         "int64_dynamic": sorted(result.int64_dynamic),
         "int64_static": sorted(result.int64_static),
         "collective_fingerprint": result.collective_fingerprint,
-        "memory": None,
+        "memory": None if mem is None else {
+            "peak_bytes": mem.peak_bytes,
+            "resident_bytes": mem.resident_bytes,
+            "steady_bytes": mem.steady_bytes,
+            "peak_op": mem.peak_op,
+            "top_ops": [(p, t, b) for p, t, b, _ in mem.top_ops(5)],
+        },
         "cost": None if plan is None else {
             "flops": plan.flops, "bytes": plan.bytes,
             "per_class": dict(plan.per_class),

@@ -4,8 +4,10 @@
 The graph-fusion flags, the program verifier's gate, the directory of the
 fusion autotuner's verdicts, the decode server's paged-KV and retry flags,
 the fault-injection table, the step tracer's flags, the hung-step
-watchdog's, the checkpoint daemon's cadence and capture flags and the
-retry engine's budget flags exist so far, with the reference's names,
+watchdog's, the checkpoint daemon's cadence and capture flags, the retry
+engine's budget flags, the executor's throttle and ``FLAGS_benchmark``,
+the memory budget, the sampling profiler's and the HBM accountant's flags
+exist so far, with the reference's names,
 defaults, validation and side effects.  ``FLAGS_*`` environment variables
 seed them at import, as the reference's ``__bootstrap__`` does; a
 malformed value warns and is ignored.
@@ -82,6 +84,43 @@ _DEFAULTS: Dict[str, Any] = {
     # adaptive cadence: defer a capture until the last save took at most
     # this fraction of the gap since the previous capture; 0 disables
     "FLAGS_checkpoint_cadence_stretch_frac": 0.0,
+    # per-step device sync so wall timing is attributable (normally steps
+    # pipeline asynchronously); wins over the in-flight throttle
+    "FLAGS_benchmark": False,
+    # async dispatch throttle: at most this many runs on the card before
+    # run() waits for the oldest one's event; 0 disables it
+    "FLAGS_executor_max_inflight_steps": 2,
+    # HBM budget in MiB (analysis/memory.py, hbm.py): a verified program
+    # whose batch-1 peak plan exceeds it gets a "memory_budget" warning,
+    # the batch server halves a bucket's width until its plan fits, and
+    # the accountant's headroom is budget - live; 0 = no budget
+    "FLAGS_memory_budget_mb": 0,
+    # sampling profiler (profiler.SAMPLER): every N executor dispatches
+    # open a torch.profiler window of window_steps steps under dir
+    # (window_<step>/, at most max_windows kept, oldest deleted first; a
+    # manifest.json maps each window to its step range); 0 disables
+    "FLAGS_profile_sample_every_n_steps": 0,
+    "FLAGS_profile_sample_window_steps": 4,
+    "FLAGS_profile_sample_dir": "",
+    "FLAGS_profile_sample_max_windows": 8,
+    # open a window the moment the median dispatch interval regresses by
+    # this fraction over the best median seen; 0 disables
+    "FLAGS_profile_sample_regress_frac": 0.0,
+    # the HBM accountant (hbm.ACCOUNTANT): sample live card bytes off the
+    # training thread every N dispatched steps, peak over the last
+    # FLAGS_hbm_window samples
+    "FLAGS_hbm_telemetry": True,
+    "FLAGS_hbm_sample_every_n_steps": 1,
+    "FLAGS_hbm_window": 16,
+    # record each plan's allocator peak over its first run
+    # (hbm.record_xla_plan, the reference's name)
+    "FLAGS_hbm_record_plans": False,
+    # open a profiler window (trigger "hbm_regress") when the measured
+    # headroom shrinks by this fraction under the best seen; 0 disables
+    "FLAGS_hbm_headroom_regress_frac": 0.0,
+    # where OOM forensics dumps land ("" = FLAGS_watchdog_dump_dir, else
+    # the system temp dir)
+    "FLAGS_oom_dump_dir": "",
 }
 
 _values: Dict[str, Any] = dict(_DEFAULTS)
@@ -142,6 +181,28 @@ def _apply_side_effect(name: str, value) -> None:
         resilience.WATCHDOG.set_timeout(float(value))
     elif name == "FLAGS_watchdog_escalate":
         resilience.WATCHDOG.escalate = str(value)
+    elif name in ("FLAGS_profile_sample_every_n_steps",
+                  "FLAGS_profile_sample_window_steps",
+                  "FLAGS_profile_sample_dir",
+                  "FLAGS_profile_sample_max_windows",
+                  "FLAGS_profile_sample_regress_frac"):
+        from . import profiler
+        fl = _values
+        profiler.SAMPLER.configure(
+            int(fl["FLAGS_profile_sample_every_n_steps"]),
+            int(fl["FLAGS_profile_sample_window_steps"]),
+            str(fl["FLAGS_profile_sample_dir"]),
+            int(fl["FLAGS_profile_sample_max_windows"]),
+            regress_frac=float(fl["FLAGS_profile_sample_regress_frac"]))
+    elif name in ("FLAGS_hbm_telemetry", "FLAGS_hbm_sample_every_n_steps",
+                  "FLAGS_hbm_window", "FLAGS_hbm_headroom_regress_frac"):
+        from . import hbm
+        fl = _values
+        hbm.ACCOUNTANT.configure(
+            bool(fl["FLAGS_hbm_telemetry"]),
+            int(fl["FLAGS_hbm_sample_every_n_steps"]),
+            int(fl["FLAGS_hbm_window"]),
+            float(fl["FLAGS_hbm_headroom_regress_frac"]))
     elif name in ("FLAGS_rpc_retry_times", "FLAGS_rpc_deadline"):
         # the reference's native PS client reads these from the
         # environment; mirrored as the reference does

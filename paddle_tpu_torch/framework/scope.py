@@ -12,9 +12,14 @@ from __future__ import annotations
 
 import contextlib
 import itertools
+import weakref
 from typing import Any, Dict, Iterator, Optional
 
 _scope_serials = itertools.count()
+
+#: every live Scope (weak): the host's live-bytes reader
+#: (``memory.live_bytes`` on the CPU) sums the tensors they hold
+LIVE_SCOPES: "weakref.WeakSet" = weakref.WeakSet()
 
 
 class Scope:
@@ -23,6 +28,7 @@ class Scope:
         self._vars: Dict[str, Any] = {}
         self.kids = []
         self._serial = next(_scope_serials)
+        LIVE_SCOPES.add(self)
 
     def var(self, name: str):
         """Create-or-get, like ref Scope::Var."""

@@ -82,6 +82,10 @@ class _Cell:
         with self._mu:
             return self._v
 
+    def reset(self):
+        with self._mu:
+            self._v = 0
+
 
 class _HistCell:
     """One labeled series of a fixed-bucket histogram."""
@@ -106,6 +110,12 @@ class _HistCell:
     def snapshot(self):
         with self._mu:
             return list(self.counts), self.sum, self.count
+
+    def reset(self):
+        with self._mu:
+            self.counts = [0] * (len(self.buckets) + 1)
+            self.sum = 0.0
+            self.count = 0
 
 
 class _Metric:
@@ -142,6 +152,27 @@ class _Metric:
             items = list(self._series.items())
         return [(dict(zip(self.labelnames, key)), cell)
                 for key, cell in items]
+
+    def fold(self, src: Dict[str, str], dst: Optional[Dict[str, str]]):
+        """Retire the ``src`` series: add its value into ``dst`` (made on
+        demand) and drop it (ref :174-196), so a fresh-executor-per-request
+        loop does not grow the registry while ``counter_totals()`` stays
+        exact.  ``dst=None`` only drops it (a dead instance's gauge)."""
+        skey = tuple(str(src[n]) for n in self.labelnames)
+        with self._mu:
+            cell = self._series.pop(skey, None)
+        if cell is None or dst is None:
+            return
+        dcell = self.labels(**dst)
+        if isinstance(cell, _HistCell):
+            counts, s, c = cell.snapshot()
+            with dcell._mu:
+                for i, n in enumerate(counts):
+                    dcell.counts[i] += n
+                dcell.sum += s
+                dcell.count += c
+        else:
+            dcell.inc(cell.get())
 
 
 class Counter(_Metric):
@@ -490,8 +521,9 @@ def counter_totals() -> Dict[str, float]:
 
 def export(dirpath: str, trace: bool = True) -> Dict[str, str]:
     """Write ``metrics.json``, ``metrics.prom`` and (when ``trace``)
-    ``trace.json`` under ``dirpath``; returns {kind: path}.  The port has
-    no classic profiler yet, so the trace holds the tracer's events."""
+    ``trace.json`` under ``dirpath``; returns {kind: path}.  The trace goes
+    through ``profiler.chrome_trace``: the profiler's RecordEvent events
+    and the tracer's spans on one timeline."""
     os.makedirs(dirpath, exist_ok=True)
     paths = {}
     p = os.path.join(dirpath, "metrics.json")
@@ -503,10 +535,9 @@ def export(dirpath: str, trace: bool = True) -> Dict[str, str]:
         f.write(REGISTRY.to_prometheus())
     paths["prom"] = p
     if trace:
+        from . import profiler
         p = os.path.join(dirpath, "trace.json")
-        with open(p, "w") as f:
-            json.dump({"traceEvents": TRACER.chrome_events(),
-                       "displayTimeUnit": "ms"}, f)
+        profiler.chrome_trace(p)
         paths["trace"] = p
     return paths
 

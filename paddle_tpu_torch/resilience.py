@@ -743,6 +743,17 @@ def _refuse_gang(gang, who: str) -> None:
 
 # -- background checkpoint daemon (ref :869-1318) ----------------------------
 
+def _report_capture_bytes(n: int) -> None:
+    """Attribute the in-flight capture copies' card bytes to the HBM
+    accountant's ``ckpt_capture`` class (ref resilience.py:858-866);
+    best-effort, telemetry never touches the checkpoint path."""
+    try:
+        from . import hbm as _hbm
+        _hbm.set_ckpt_capture_bytes(n)
+    except Exception:
+        pass
+
+
 class CheckpointDaemon:
     """Checkpoints taken off the training thread.
 
@@ -789,10 +800,12 @@ class CheckpointDaemon:
     or ``daemon.attach(exe)`` after the startup program: every completed
     ``run()`` is then a step.
 
+    The capture's card copies are reported to the HBM accountant's
+    ``ckpt_capture`` class while they exist (``hbm.set_ckpt_capture_bytes``).
     Not ported yet: the numerics quarantine gate (``analysis/numerics.py``;
     :meth:`_quarantined` returns False, as the reference does at
-    ``FLAGS_numerics`` "off", its default), the HBM accountant's capture
-    report (``hbm.py``) and the gang announce (Queue 1 item 3).
+    ``FLAGS_numerics`` "off", its default) and the gang announce (Queue 1
+    item 3).
     """
 
     def __init__(self, checkpoint, program=None, scope=None,
@@ -978,6 +991,7 @@ class CheckpointDaemon:
                 chunks += 1
             group = []
             group_bytes = 0
+            _report_capture_bytes(0)
 
         for v in get_program_persistable_vars(program):
             val = scope.find_var(v.name)
@@ -997,6 +1011,7 @@ class CheckpointDaemon:
                     _flush_group()
                 group.append((v.name, val.detach().clone()))
                 group_bytes += nbytes
+                _report_capture_bytes(group_bytes)
             elif isinstance(val, torch.Tensor):
                 state[v.name] = val.detach().clone()
             else:
@@ -1006,6 +1021,9 @@ class CheckpointDaemon:
         flats = [(torch.cat([t.reshape(-1) for _, t in items]),
                   [(n, tuple(t.shape)) for n, t in items])
                  for items in on_card.values()]
+        if flats:
+            _report_capture_bytes(sum(f.numel() * f.element_size()
+                                      for f, _ in flats))
         event = None
         if device is not None:
             event = torch.cuda.Event()
@@ -1078,6 +1096,8 @@ class CheckpointDaemon:
         t0 = time.monotonic()
         t_p0 = time.perf_counter()
         host = self._to_host(state, event, flats or [])
+        # the capture's card copies are gone now
+        _report_capture_bytes(0)
         t_p1 = time.perf_counter()
         if not self.checkpoint.save_arrays(step, host, force=True,
                                            kind=kind):

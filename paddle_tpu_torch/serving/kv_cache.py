@@ -26,9 +26,11 @@ window with positions past ``pos`` masked), so its logits match the
 full-context serving program's.  It runs no hand-written kernel: the
 reference's attention here is plain einsum too.
 
-Not ported yet (ROADMAP): the HBM accountant's registration of the pools
-(``hbm.register_kv_pool``) and the sharding gate of ``DecodeEngine(program=
-...)`` (``analysis/sharding.py`` ``check_decode_hostable``).
+Each cache registers its pools with the HBM accountant
+(``hbm.register_kv_pool``), which attributes their bytes to the
+``kv_pages`` class.  Not ported yet (ROADMAP): the sharding gate of
+``DecodeEngine(program=...)`` (``analysis/sharding.py``
+``check_decode_hostable``).
 """
 
 from __future__ import annotations
@@ -78,6 +80,10 @@ class PagedKVCache:
         self._mu = threading.Lock()
         self._free: List[int] = list(range(1, n_pages))  # guarded-by: _mu
         self._owned: Dict[int, List[int]] = {}  # guarded-by: _mu
+        # the pools' bytes are the accountant's kv_pages class (weakly
+        # registered: telemetry never keeps a dead engine's pools alive)
+        from .. import hbm as _hbm
+        _hbm.register_kv_pool(self)
 
     def alloc_page(self, slot: int) -> Optional[int]:
         """Grant ``slot`` one more page; None when the pool is exhausted

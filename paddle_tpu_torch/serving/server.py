@@ -10,8 +10,11 @@ work while it finishes everything admitted.  Rejections are counted in
 :attr:`TenantPlane.rejected`.  Not ported yet (ROADMAP): the per-tenant
 quota overrides, tenant generations and eviction, the monitor series of
 the tenant plane, the SLO evaluator (``statusz()["slo"]`` is None), the
-HTTP surface, the signal handlers and ``serve_until_terminated``, and the
-memory budget (``FLAGS_memory_budget_mb``).
+HTTP surface, the signal handlers and ``serve_until_terminated``.  Both
+servers report the memory budget (``FLAGS_memory_budget_mb``) in
+``statusz()["memory"]``, under which :class:`InferenceServer` admits each
+bucket's batch width, and register ``statusz`` with the OOM forensics'
+census when they start.
 """
 
 from __future__ import annotations
@@ -129,6 +132,10 @@ class _ServerBase:
         if not self._started:
             self._sched.start()
             self._started = True
+            # OOM forensics census: a dump includes this server's memory
+            # section (weakly registered: it never keeps a server alive)
+            from .. import hbm as _hbm
+            _hbm.register_census(self.statusz)
         return self
 
     def drain(self, timeout_s: float = 60.0) -> bool:
@@ -166,7 +173,8 @@ class InferenceServer(_ServerBase):
     ``batch_wait_ms`` 2, no tenant quota, buckets powers of two from 8 to
     ``max_seq`` (512), ``max_retries`` ``FLAGS_serving_max_retries`` (a
     batch whose dispatch raised a transient fault is re-dispatched that
-    many times).
+    many times), ``memory_budget_mb`` ``FLAGS_memory_budget_mb`` (each
+    bucket's width halves until its static peak plan fits it).
     """
 
     def __init__(self, program_factory: Callable[[int], tuple], scope,
@@ -174,9 +182,13 @@ class InferenceServer(_ServerBase):
                  max_seq: Optional[int] = None, executor=None,
                  tenant_quota: Optional[int] = None,
                  batch_wait_ms: Optional[float] = None,
-                 max_retries: Optional[int] = None):
+                 max_retries: Optional[int] = None,
+                 memory_budget_mb: Optional[int] = None):
         from ..framework.executor import Executor
         from ..flags import get_flags
+        if memory_budget_mb is None:
+            memory_budget_mb = get_flags("FLAGS_memory_budget_mb")[
+                "FLAGS_memory_budget_mb"]
         if buckets is None:
             buckets = parse_buckets("", max_len=int(max_seq or 512))
         self.buckets = tuple(sorted(int(b) for b in buckets))
@@ -184,7 +196,8 @@ class InferenceServer(_ServerBase):
         self.executor = executor or Executor()
         super().__init__(tenant_quota)
         self.plan = BucketPlan(self.buckets, program_factory,
-                               int(max_batch or 8))
+                               int(max_batch or 8),
+                               memory_budget_mb=int(memory_budget_mb))
         if max_retries is None:
             max_retries = get_flags("FLAGS_serving_max_retries")[
                 "FLAGS_serving_max_retries"]
@@ -252,6 +265,23 @@ class InferenceServer(_ServerBase):
         :meth:`ContinuousBatcher.batch_log`)."""
         return self._sched.batch_log()
 
+    def statusz(self) -> Dict[str, Any]:
+        out = super().statusz()
+        out["buckets"] = {str(b): self.plan.width_of(b)
+                          for b in self.buckets}
+        out["compile"] = self.compile_stats()
+        # memory section: the budget in force and each built bucket's
+        # admitted width and static peak at that width (a cold bucket
+        # reports None: statusz never triggers a build)
+        out["memory"] = {
+            "budget_mb": int(self.plan._budget),
+            "per_bucket": {
+                str(b): {"width": self.plan.width_of(b),
+                         "static_peak_bytes": self.plan.static_peak_of(b)}
+                for b in self.buckets},
+        }
+        return out
+
 
 class DecodeServer(_ServerBase):
     """Continuous-batching token-generation server (GPT causal LM).
@@ -314,11 +344,13 @@ class DecodeServer(_ServerBase):
                         "free": self._sched.free_slots()}
         out["kv_pages_in_use"] = self.engine.cache.pages_in_use()
         out["tokens_per_s"] = float(_monitor.SERVING_TPS_GAUGE.value())
-        # memory section: the KV pool census with per-tenant page
-        # occupancy and internal fragmentation (the reference's budget_mb
-        # waits for FLAGS_memory_budget_mb)
+        # memory section: the budget in force and the KV pool census with
+        # per-tenant page occupancy and internal fragmentation
+        from ..flags import get_flags
         cache = self.engine.cache
         out["memory"] = {
+            "budget_mb": int(get_flags("FLAGS_memory_budget_mb")
+                             ["FLAGS_memory_budget_mb"]),
             "kv": {"page_len": int(self.engine.page_len),
                    "pages_total": int(cache.n_pages),
                    "pages_in_use": int(cache.pages_in_use()),

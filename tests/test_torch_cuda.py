@@ -133,7 +133,20 @@ have them), so it runs there with the repo's conftest left out:
   training thread), and what it commits equals the scope at its step
   boundary bit for bit although the next step and in-place writes to the
   live tensors were queued right behind it; ``Executor.drain()`` waits
-  for a run still queued behind a long kernel and reports it.
+  for a run still queued behind a long kernel and reports it (the
+  in-flight throttle off).
+- the time and memory planes: a sampled ``torch.profiler`` window over
+  two steps of the tiny GPT on the card joins each K1 / K2 kernel to its
+  step by the ``paddle_tpu.step#<id>`` device annotation (as many
+  ``flash_fwd_sm90`` events as K1 launches, each step's device ms within
+  its span); the in-flight throttle waits (counted and timed) once more
+  than ``FLAGS_executor_max_inflight_steps`` runs are queued; a real
+  ``torch.cuda.OutOfMemoryError`` goes through ``hbm.oom_forensics``
+  (its requested size read, the dump's sums re-adding); ``memory.
+  live_bytes`` is ``torch.cuda.memory_allocated``; the daemon's capture
+  reports its card copies' bytes and clears them after the save;
+  ``FLAGS_hbm_record_plans`` records a plan's first run (the bytes held
+  when it began and the allocator's peak above them).
 """
 
 import numpy as np
@@ -2197,10 +2210,171 @@ def test_executor_drain_waits_for_queued_runs(cuda):
     feed = {"x": np.ones((8, 64), np.float32)}
     exe.run(main, feed=feed, fetch_list=[loss], scope=sc)
     exe.drain()
-    torch.cuda._sleep(int(2e9))      # a long kernel ahead of the runs
-    for _ in range(3):
-        exe.run(main, feed=feed, fetch_list=[loss], scope=sc,
-                return_numpy=False)
-    assert exe.drain() >= 1
-    assert not exe._inflight
-    assert exe.drain() == 0
+    # the in-flight throttle off: run() must not wait behind the kernel
+    ptt.flags.set_flags({"FLAGS_executor_max_inflight_steps": 0})
+    try:
+        torch.cuda._sleep(int(2e9))      # a long kernel ahead of the runs
+        for _ in range(3):
+            exe.run(main, feed=feed, fetch_list=[loss], scope=sc,
+                    return_numpy=False)
+        assert exe.drain() >= 1
+        assert not exe._inflight
+        assert exe.drain() == 0
+    finally:
+        ptt.flags.set_flags({"FLAGS_executor_max_inflight_steps": 2})
+
+
+def _fc_program():
+    from paddle_tpu_torch import layers, optimizer
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        x = layers.data("x", shape=[64], dtype="float32")
+        loss = layers.mean(layers.fc(x, size=64))
+        optimizer.SGD(0.1).minimize(loss)
+    sc, exe = Scope(), ptt.Executor()
+    exe.run(startup, scope=sc)
+    return main, loss, sc, exe, {"x": np.ones((8, 64), np.float32)}
+
+
+def test_throttle_waits_past_the_inflight_limit(cuda):
+    main, loss, sc, exe, feed = _fc_program()
+    exe.run(main, feed=feed, fetch_list=[loss], scope=sc)
+    ptt.flags.set_flags({"FLAGS_executor_max_inflight_steps": 1})
+    try:
+        before = exe.dispatch_stats()
+        torch.cuda._sleep(int(1e9))      # the runs queue behind it
+        for _ in range(3):
+            exe.run(main, feed=feed, fetch_list=[loss], scope=sc,
+                    return_numpy=False)
+        st = exe.dispatch_stats()
+    finally:
+        ptt.flags.set_flags({"FLAGS_executor_max_inflight_steps": 2})
+    assert st["throttle_waits"] - before["throttle_waits"] == 2
+    assert st["throttle_block_us"] > before["throttle_block_us"] + 1e5
+    assert st["host_block_us"] - before["host_block_us"] == pytest.approx(
+        st["throttle_block_us"] - before["throttle_block_us"])
+    assert st["steps_in_flight"] <= 1
+    exe.drain()
+
+
+def test_sampled_window_joins_k1_k2_to_steps(cuda, tmp_path):
+    import json
+    import os
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.analysis import device_profile as dp
+    pr, main, loss, sc, exe = _tiny_gpt_on_the_card()
+    base = str(tmp_path / "samples")
+    saved = ptt.flags.get_flags(["FLAGS_profile_sample_every_n_steps",
+                                 "FLAGS_profile_sample_window_steps",
+                                 "FLAGS_profile_sample_dir"])
+    from paddle_tpu_torch.framework import executor as ex
+    nxt = ex.last_step_id() + 1
+    # a window opens at the end of step nxt and holds the next two
+    ptt.flags.set_flags({"FLAGS_profile_sample_every_n_steps": nxt,
+                         "FLAGS_profile_sample_window_steps": 2,
+                         "FLAGS_profile_sample_dir": base})
+    try:
+        exe.run(main, feed=pr.batch("tiny", 1), fetch_list=[loss], scope=sc)
+        fa.reset_launch_count()
+        for i in range(2):
+            exe.run(main, feed=pr.batch("tiny", 2 + i), fetch_list=[loss],
+                    scope=sc)
+        k1, k2 = fa.launch_count(), fa.launch_count("flash_attn_bwd")
+        exe.run(main, feed=pr.batch("tiny", 4), fetch_list=[loss], scope=sc)
+        profiler.SAMPLER.close()
+    finally:
+        ptt.flags.set_flags(saved)
+    w, = json.load(open(os.path.join(base, "manifest.json")))["windows"]
+    assert (w["start_step"], w["end_step"]) == (nxt + 1, nxt + 3)
+    trace = dp.parse_trace(os.path.join(w["dir"], profiler.TRACE_FILE))
+    by_step = dp.kernels_by_step(trace)
+    names = [e["name"] for s in (nxt + 1, nxt + 2) for e in by_step[s]]
+    assert k1 > 0 and k2 > 0
+    assert sum("flash_fwd_sm90_kernel" in n for n in names) == k1
+    assert sum("flash_bwd_sm90_dq_kernel" in n for n in names) == k2
+    s = json.load(open(os.path.join(w["dir"], "summary.json")))
+    assert s["n_steps"] == 2
+    assert all(0 < r["device_ms"] <= r["span_ms"] for r in s["steps"])
+    assert s["per_class_share"]["attention"] > 0
+
+
+def test_real_oom_through_forensics(cuda, tmp_path):
+    from paddle_tpu_torch import hbm, memory
+    ptt.flags.set_flags({"FLAGS_oom_dump_dir": str(tmp_path)})
+    try:
+        total = torch.cuda.get_device_properties(0).total_memory
+        with pytest.raises(torch.cuda.OutOfMemoryError) as ei:
+            torch.empty(2 * total, dtype=torch.uint8, device=cuda)
+        assert memory._is_oom_error(ei.value)
+        want = hbm.parse_requested_bytes(str(ei.value))
+        assert abs(want - 2 * total) <= 0.01 * total
+        n = hbm.OOM_CTR.value(site="dispatch")
+        path = hbm.oom_forensics(ei.value)
+        assert hbm.OOM_CTR.value(site="dispatch") == n + 1
+    finally:
+        ptt.flags.set_flags({"FLAGS_oom_dump_dir": ""})
+    nums = {}
+    for line in open(path):
+        k, _, v = line.partition(": ")
+        if k.endswith("_bytes") or k == "measured_plus_requested":
+            nums[k] = int(v)
+    assert nums["requested_bytes"] == want
+    assert nums["budget_bytes"] == total
+    assert nums["measured_plus_requested"] == \
+        nums["measured_bytes"] + nums["requested_bytes"]
+    assert nums["deficit_bytes"] == \
+        nums["measured_plus_requested"] - nums["budget_bytes"]
+
+
+def test_live_bytes_is_memory_allocated(cuda):
+    from paddle_tpu_torch import memory
+    x = torch.empty(1 << 20, device=cuda)
+    assert memory.live_bytes() == torch.cuda.memory_allocated()
+    st = memory.device_memory_stats()
+    assert st["bytes_in_use"] == torch.cuda.memory_allocated()
+    assert st["bytes_limit"] == torch.cuda.mem_get_info()[1]
+    assert st["peak_bytes_in_use"] >= st["bytes_in_use"]
+    del x
+
+
+@pytest.mark.parametrize("chunk_mb", [0, 1])
+def test_daemon_reports_capture_bytes_on_the_card(cuda, tmp_path,
+                                                  monkeypatch, chunk_mb):
+    from paddle_tpu_torch import hbm, resilience
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    pr, main, loss, sc, exe = _tiny_gpt_on_the_card()
+    reports = []
+    monkeypatch.setattr(hbm, "set_ckpt_capture_bytes", reports.append)
+    names = [v.name for v in ptt.io.get_program_persistable_vars(main)]
+    total = sum(sc.find_var(n).numel() * sc.find_var(n).element_size()
+                for n in names)
+    daemon = resilience.CheckpointDaemon(
+        CheckpointManager(str(tmp_path / "run")), program=main, scope=sc,
+        capture_chunk_mb=chunk_mb)
+    assert daemon.capture(1)
+    assert daemon.stop() == 1
+    if chunk_mb:
+        assert 0 < max(reports) <= max(1 << 20, max(
+            sc.find_var(n).numel() * sc.find_var(n).element_size()
+            for n in names))
+    else:
+        assert max(reports) == total
+    assert reports[-1] == 0
+
+
+def test_record_plans_measures_a_plans_first_run(cuda):
+    from paddle_tpu_torch import hbm, memory
+    main, loss, sc, exe, feed = _fc_program()
+    before = set(memory.hbm_plans())
+    ptt.flags.set_flags({"FLAGS_hbm_record_plans": True})
+    try:
+        exe.run(main, feed=feed, fetch_list=[loss], scope=sc)
+        exe.run(main, feed=feed, fetch_list=[loss], scope=sc)  # planned
+    finally:
+        ptt.flags.set_flags({"FLAGS_hbm_record_plans": False})
+    new = {t: p for t, p in memory.hbm_plans().items() if t not in before}
+    (tag, plan), = new.items()
+    assert tag.startswith(loss.name)
+    assert plan["argument_bytes"] > 0 and plan["temp_bytes"] > 0
+    assert plan["peak_bytes"] == plan["argument_bytes"] + plan["temp_bytes"]
+    assert hbm.XLA_PLAN_GAUGE.value() == plan["peak_bytes"]

@@ -17,8 +17,8 @@ Checks:
 - an injected transient fault is absorbed (``faults_absorbed_total`` + 1);
   a non-transient one fails only the stepped requests and frees their
   pages, and the server serves the next request;
-- ``statusz()`` and ``kv_census()`` keys equal the reference's, apart from
-  ``memory.budget_mb`` (its flag is not ported);
+- ``statusz()`` and ``kv_census()`` keys equal the reference's,
+  ``memory.budget_mb`` included;
 - ``params_from_scope``'s ``KeyError``; ``DecodeEngine()`` needs a GPU;
   the fault-injection flag's parsing.
 """
@@ -305,10 +305,10 @@ def test_non_transient_fault_fails_the_stepped_requests_only(weights):
     srv.stop()
 
 
-def _keys(d, drop=()):
-    return {k: _keys(v, drop) if isinstance(v, dict) and k != "tenants"
+def _keys(d):
+    return {k: _keys(v) if isinstance(v, dict) and k != "tenants"
             and k != "per_tenant" else None
-            for k, v in d.items() if k not in drop}
+            for k, v in d.items()}
 
 
 def test_statusz_and_census_keys_match_reference(weights):
@@ -322,7 +322,8 @@ def test_statusz_and_census_keys_match_reference(weights):
         with s._sched._cv:
             s._sched._admit_locked()
     r_st, p_st = ref.statusz(), srv.statusz()
-    assert _keys(p_st) == _keys(r_st, drop=("budget_mb",))
+    assert _keys(p_st) == _keys(r_st)
+    assert p_st["memory"]["budget_mb"] == r_st["memory"]["budget_mb"] == 0
     r_row = ref._sched.kv_census()["census_t"]
     p_row = srv._sched.kv_census()["census_t"]
     assert set(p_row) == set(r_row) == \

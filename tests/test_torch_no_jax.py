@@ -299,7 +299,12 @@ def test_no_jax_or_reference_import_in_sources():
             "paddle_tpu_torch/layers/tensor.py",
             "paddle_tpu_torch/checkpoint.py",
             "paddle_tpu_torch/tools/preempt_runner.py",
-            "paddle_tpu_torch/serving/server.py"} <= scanned
+            "paddle_tpu_torch/serving/server.py",
+            "paddle_tpu_torch/memory.py",
+            "paddle_tpu_torch/analysis/memory.py",
+            "paddle_tpu_torch/hbm.py",
+            "paddle_tpu_torch/profiler.py",
+            "paddle_tpu_torch/analysis/device_profile.py"} <= scanned
     offenders = []
     for path in _sources():
         with open(path) as f:
@@ -307,6 +312,61 @@ def test_no_jax_or_reference_import_in_sources():
                 offenders.append(f"{os.path.relpath(path, REPO)}: "
                                  f"{m.group(0).strip()}")
     assert offenders == []
+
+
+_PLANES_BLOCKED = textwrap.dedent("""
+    import json, os, sys, tempfile
+    sys.modules["jax"] = None
+    sys.modules["paddle_tpu"] = None
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import flags, hbm, optimizer, profiler
+    from paddle_tpu_torch.analysis import device_profile, memory
+    from paddle_tpu_torch.framework import Program, Scope, program_guard
+    from paddle_tpu_torch.models import transformer as T
+
+    cfg = T.BertConfig(vocab_size=48, d_model=16, n_layer=2, n_head=2,
+                       d_inner=32, max_pos=64, dropout=0.0)
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        _, _, loss = T.build_gpt_pretrain(cfg, 8, attn_impl="flash",
+                                          dropout=0.0)
+        optimizer.AdamOptimizer(1e-3).minimize(loss)
+    plan = memory.plan_memory(main, [loss], batch_size=2)
+    assert plan.peak_bytes > plan.steady_bytes > 0, plan.report()
+    d = tempfile.mkdtemp()
+    flags.set_flags({"FLAGS_profile_sample_every_n_steps": 2,
+                     "FLAGS_profile_sample_window_steps": 2,
+                     "FLAGS_profile_sample_dir": d})
+    scope, exe = Scope(), ptt.Executor(ptt.CPUPlace())
+    exe.run(startup, scope=scope, seed=2)
+    ids = np.arange(1, 17).reshape(2, 8)
+    for _ in range(4):
+        exe.run(main, feed={"src_ids": ids, "lm_label": ids},
+                fetch_list=[loss], scope=scope)
+    profiler.SAMPLER.close()
+    w, = json.load(open(os.path.join(d, "manifest.json")))["windows"]
+    s = json.load(open(os.path.join(w["dir"], "summary.json")))
+    assert s["n_steps"] == w["end_step"] - w["start_step"] == 2, s
+    assert hbm.ACCOUNTANT.drain(30) and hbm.HBM_LIVE_GAUGE.value() > 0
+    assert profiler.dispatch_stats()["steps_dispatched"] == 5
+    assert not [m for m, mod in sys.modules.items() if mod is not None
+                and (m == "jax" or m.startswith(("jax.", "paddle_tpu.")))]
+    print("window", w["start_step"], w["end_step"], "peak", plan.peak_bytes)
+""")
+
+
+def test_planes_run_with_jax_blocked():
+    """A sampled profiler window (trace, manifest, summary), the HBM
+    accountant and a static memory plan, with JAX and the reference
+    unimportable."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run([sys.executable, "-c", _PLANES_BLOCKED], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "window " in res.stdout
 
 
 def test_default_executor_needs_a_gpu():
