@@ -313,8 +313,32 @@ JAX, prints one line per phase, and raises on any failure:
    ``serve``'s GPT at bucket 2048 under a ``FLAGS_memory_budget_mb``
    between the bucket program's planned peaks at widths 4 and 8: the
    bucket admits 4, ``statusz`` reports the budget, 6 requests answered,
-   K1 12 times a batch; a ``DecodeEngine(max_slots=8)`` moves the
-   accountant's ``kv_pages`` class by exactly its ``pool_bytes()``.
+   K1 12 times a batch; F2 (PR 21): a lone batch of 4 peaks above what is
+   held within the budget (x ``F2_SLACK``), one width-4 step's fetch holds
+   exactly its logits after the step, and the 6 requests peak within the
+   budget times the batches alive at once (``alive_stats()``); a
+   ``DecodeEngine(max_slots=8)`` moves the accountant's ``kv_pages`` class
+   by exactly its ``pool_bytes()``.
+   ``numerics`` — ``bench.py:959``'s MLP at ``FLAGS_numerics`` off,
+   sentinel and full, 3 + 40 steps each: the loss fingerprints equal, no
+   forced sync and no materialization inside the timed steps, the
+   overheads in steps/s; ``train``'s GPT (float32, 8 x 2048) from seeded
+   weights at sentinel beside off, 1 + 3 steps and one CUDA-only profiled
+   step each: the losses equal to the bit, K1/K2 12 times a step, the
+   kernels the sentinel adds a step; then the two modes' steps
+   interleaved on one executor (4 rounds) for the overhead; the poison drill (a capture every
+   step, ``numerics.poison`` on step 4: one trip, one quarantine hold, the
+   checkpoint at step 3, a profiler window with ``trigger: "anomaly"``);
+   a small GPT's decode loop with NaN'd weights records one
+   ``nonfinite_logits`` anomaly.
+   ``serve_plane`` — ``serve``'s GPT at buckets 512 and 2048 with an
+   ``FLAGS_serving_slo`` target and the scrape endpoint on 127.0.0.1: each
+   request's five phase spans sum to its ``e2e_ms`` within 10% + 0.05 ms
+   and its dispatch span carries a step >= 1 and ``pad_rows`` = width -
+   occupancy; ``/metrics``, ``/healthz``, ``/statusz`` answer 200 with the
+   SLO state; ``shrink_widths()`` halves both buckets and the next
+   bucket-2048 batch runs at width 4; evicting a tenant folds its series
+   into ``tenant="retired"``; K1 12 times a bucket-2048 batch.
 
 Then one JSON line describing every kernel, the ``nvidia-smi`` line, and a
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -549,6 +573,23 @@ OBSERVE_WINDOW_STEPS = 2
 OBSERVE_OVERHEAD_ROUNDS, OBSERVE_OVERHEAD_STEPS = 4, 3
 OBSERVE_RESNET_BATCH, OBSERVE_RESNET_STEPS = 256, 3
 OBSERVE_SERVE_REQUESTS = 6
+# F2: the bucket's lone batch of 4 peaks above what is held within the
+# budget, and the six requests within the budget times the batches alive
+# at once; the slack covers the allocator's rounding to its blocks
+F2_SLACK = 1.05
+# what a served step may leave allocated beside its fetch's logits
+F2_LEFT_BYTES = 1 << 20
+# the numerics plane (numerics): bench.py:959's MLP, 3 + 40 steps a mode;
+# train's GPT at sentinel beside off, 1 + 3 steps each and one profiled
+# step; the poison drill's step that enters poisoned
+NUMERICS_MLP_WARMUP, NUMERICS_MLP_STEPS = 3, 40
+NUMERICS_GPT_STEPS = 3
+NUMERICS_GPT_ROUNDS = 4
+NUMERICS_POISON_AT = 4
+# the serving plane (serve_plane): the SLO target, and the gate of
+# tools/serving_smoke.py:219 on a request's phase sum against its e2e_ms
+SERVE_PLANE_SLO = "*:p99_ms=60000,avail=99"
+TRACE_SUM_RTOL, TRACE_SUM_ATOL_MS = 0.10, 0.05
 
 
 def _log(phase, msg):
@@ -5938,10 +5979,23 @@ def phase_observe_resnet(smi):
             "overhead": over, "oom_drill": drill, "oom_real": real}
 
 
+def _active_blocks():
+    """{address: bytes} of the allocator's live blocks
+    (``torch.cuda.memory_snapshot``)."""
+    import torch
+    return {b["address"]: b["size"]
+            for seg in torch.cuda.memory_snapshot()
+            for b in seg["blocks"] if b["state"] == "active_allocated"}
+
+
 def phase_observe_serve(smi, serve):
     """``serve``'s GPT at bucket 2048 under a FLAGS_memory_budget_mb between
-    the bucket program's plan peaks at widths 4 and 8: the bucket admits 4;
-    then a DecodeEngine's pools in the accountant's kv_pages class."""
+    the bucket program's plan peaks at widths 4 and 8: the bucket admits 4.
+    F2: a lone batch of 4 requests peaks above what is held within the
+    budget (x F2_SLACK), and the bytes its fetch holds after the step are
+    its logits; then 6 requests peak within the budget times the batches
+    alive at once (the batcher's run-ahead).  Then a DecodeEngine's pools in
+    the accountant's kv_pages class."""
     import gc
     import torch
     import paddle_tpu_torch as ptt
@@ -5965,19 +6019,55 @@ def phase_observe_serve(smi, serve):
                 for n in rng.randint(1100, 2049, OBSERVE_SERVE_REQUESTS)]
         fa.reset_launch_count()
         srv.warmup()
+        # F2, the lone batch: 4 requests submitted together, resolved and
+        # their batch released before the next measurement
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lone_held = torch.cuda.memory_allocated()
+        srv.start()
+        lone = [srv.submit("lone", {"src_ids": ids}) for ids in reqs[:4]]
+        lone_outs = [f.result(timeout=600) for f in lone]
+        deadline = time.monotonic() + 60
+        while srv.alive_stats()["alive"] and time.monotonic() < deadline:
+            time.sleep(0.01)
+        torch.cuda.synchronize()
+        lone_peak = torch.cuda.max_memory_allocated() - lone_held
+        lone_alive = srv.alive_stats(reset=True)
+        lone_log = srv.batch_log()
+        # the six requests, the batcher running ahead as it does
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
-        srv.start()
         futs = [srv.submit(f"t{i % 2}", {"src_ids": ids})
                 for i, ids in enumerate(reqs)]
         outs = [f.result(timeout=600) for f in futs]
         assert srv.drain(120), "drain did not finish"
         peak = torch.cuda.max_memory_allocated()
+        alive = srv.alive_stats()
         st = srv.statusz()
         srv.stop()
         launches = fa.launch_count()
-        log = srv.batch_log()
+        log = srv.batch_log()[len(lone_log):]
+        # attribution: one width-4 step through the same program and plan,
+        # its fetch kept on the card; what stays allocated is what the
+        # fetch holds, the rest of the peak is the step's temporaries
+        compiled, feed_names, fetch_names, width4 = srv.plan.plan(2048)
+        feed = {"src_ids": np.zeros((width4, 2048), np.int64)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = _active_blocks()
+        step_held = torch.cuda.memory_allocated()
+        handle, = srv.executor.run(compiled, feed=feed,
+                                   fetch_list=list(fetch_names),
+                                   scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        step_peak = torch.cuda.max_memory_allocated() - step_held
+        fetch_bytes = torch.cuda.memory_allocated() - step_held
+        logits_bytes = handle.tensor.numel() * handle.tensor.element_size()
+        # the blocks the step left allocated: the logits and what else
+        left = sorted((v for k, v in _active_blocks().items()
+                       if k not in before), reverse=True)
+        del handle
     finally:
         flags.set_flags({"FLAGS_memory_budget_mb": 0})
     width = st["memory"]["per_bucket"]["2048"]["width"]
@@ -5988,11 +6078,50 @@ def phase_observe_serve(smi, serve):
         if out[0].shape != (len(ids), cfg.vocab_size) or \
                 not np.isfinite(out[0]).all():
             raise AssertionError("observe_serve: a request's logits")
-    if launches != cfg.n_layer * (len(log) + 1) or \
+    n_batches = len(log) + len(lone_log)
+    if launches != cfg.n_layer * (n_batches + 1) or \
             any(b["occupancy"] > 4 for b in log):
         raise AssertionError(f"observe_serve: K1 launched {launches} for "
-                             f"{len(log)} batches + warm-up, batches "
+                             f"{n_batches} batches + warm-up, batches "
                              f"{[b['occupancy'] for b in log]}")
+    for ids, out in zip(reqs, lone_outs):
+        if out[0].shape != (len(ids), cfg.vocab_size) or \
+                not np.isfinite(out[0]).all():
+            raise AssertionError("observe_serve: a lone request's logits")
+    budget_bytes = budget_mb << 20
+    plan4 = st["memory"]["per_bucket"]["2048"]["static_peak_bytes"]
+    _log("observe_serve", f"F2 lone batch: {len(lone_log)} batch "
+         f"{[b['occupancy'] for b in lone_log]}, {lone_alive['max_alive']} "
+         f"alive at once, peak {lone_peak / 2**30:.3f} GiB above the "
+         f"{lone_held / 2**30:.3f} held against the plan's "
+         f"{plan4 / 2**30:.3f} and the budget's {budget_bytes / 2**30:.3f} "
+         f"({lone_peak / plan4:.3f}x the plan); one width-4 step alone: "
+         f"peak {step_peak / 2**30:.3f} GiB above held, its fetch holding "
+         f"{fetch_bytes / 2**30:.3f} GiB after the step (the logits "
+         f"{logits_bytes / 2**30:.3f}; blocks left {left[:6]} bytes) on "
+         f"{smi}")
+    if len(lone_log) != 1 or lone_alive["max_alive"] != 1 or \
+            lone_peak > budget_bytes * F2_SLACK:
+        raise AssertionError(
+            f"observe_serve: F2 lone batch peaked {lone_peak} bytes above "
+            f"held, over the budget {budget_bytes} x {F2_SLACK} "
+            f"({len(lone_log)} batches, {lone_alive} alive)")
+    if not 0 <= fetch_bytes - logits_bytes <= F2_LEFT_BYTES:
+        raise AssertionError(f"observe_serve: a step leaves {fetch_bytes} "
+                             f"bytes allocated, its logits "
+                             f"{logits_bytes} (blocks {left[:8]})")
+    if peak - held > budget_bytes * alive["max_alive"] * F2_SLACK:
+        raise AssertionError(
+            f"observe_serve: F2 six requests peaked {peak - held} bytes "
+            f"above held, over the budget {budget_bytes} x "
+            f"{alive['max_alive']} batches alive x {F2_SLACK}")
+    _log("observe_serve", f"F2 six requests: batches "
+         f"{[b['occupancy'] for b in log]} with "
+         f"{[b['alive_at_dispatch'] for b in log]} alive at each dispatch, "
+         f"at most {alive['max_alive']} at once; peak "
+         f"{(peak - held) / 2**30:.3f} GiB above held = "
+         f"{(peak - held) / lone_peak:.3f}x the lone batch's, within "
+         f"{alive['max_alive']} x the budget on {smi}")
     _log("observe_serve", f"bucket 2048 under FLAGS_memory_budget_mb "
          f"{budget_mb} (plan peaks {p4 / 2**30:.3f} GiB at width 4, "
          f"{p8 / 2**30:.3f} at 8): width {width}; {len(reqs)} requests in "
@@ -6025,8 +6154,471 @@ def phase_observe_serve(smi, serve):
     return {"budget_mb": budget_mb, "plan_peak_w4": p4, "plan_peak_w8": p8,
             "width": width, "launches": launches,
             "batches": [b["occupancy"] for b in log],
+            "alive_at_dispatch": [b["alive_at_dispatch"] for b in log],
+            "max_alive": alive["max_alive"],
             "measured_peak_bytes": peak, "held_bytes": held,
+            "lone_peak_above_held": lone_peak, "lone_held": lone_held,
+            "step_peak_above_held": step_peak, "fetch_bytes": fetch_bytes,
+            "logits_bytes": logits_bytes, "blocks_left": left,
             "kv_pool_bytes": pool}
+
+
+def _numerics_mlp(mode):
+    """``bench.py:959`` ``bench_numerics``' MLP on the card at one
+    FLAGS_numerics mode, seeded: 3 warm-up and 40 timed lazy-fetch steps.
+    Returns steps/s, the loss fingerprint, frames decoded, the forced
+    syncs and the fetch materializations inside the timed steps."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import flags, layers, optimizer
+    from paddle_tpu_torch.analysis import numerics
+    from paddle_tpu_torch.framework import (Program, Scope, program_guard,
+                                            unique_name)
+    flags.set_flags({"FLAGS_numerics": mode})
+    numerics.ENGINE.reset()
+    main, startup = Program(), Program()
+    with program_guard(main, startup), unique_name.guard():
+        x = layers.data("x", shape=[256], dtype="float32")
+        h = layers.fc(x, size=512, act="relu")
+        h = layers.fc(h, size=512, act="relu")
+        loss = layers.mean(layers.fc(h, size=256))
+        optimizer.SGD(0.01).minimize(loss)
+    scope, exe = Scope(), ptt.Executor()
+    exe.run(startup, scope=scope, seed=7)
+    feed = {"x": torch.from_numpy(np.linspace(-1, 1, 256 * 256, dtype=np.float32)
+                                  .reshape(256, 256)).cuda()}
+    handles = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)[0]
+               for _ in range(NUMERICS_MLP_WARMUP)]
+    exe.drain()
+    forced0 = numerics.FORCED_SYNC_CTR.value()
+    mat0 = exe.dispatch_stats()["fetch_materializations"]
+    t0 = time.perf_counter()
+    for _ in range(NUMERICS_MLP_STEPS):
+        handles.append(exe.run(main, feed=feed, fetch_list=[loss],
+                               scope=scope, return_numpy=False)[0])
+    mats = exe.dispatch_stats()["fetch_materializations"] - mat0
+    handles[-1].numpy()                 # one sync bounds the pipeline
+    dt = time.perf_counter() - t0
+    forced = numerics.FORCED_SYNC_CTR.value() - forced0
+    losses = [float(h.numpy()) for h in handles]
+    numerics.ENGINE.poll(force=True)
+    return {"steps_per_s": NUMERICS_MLP_STEPS / dt,
+            "fingerprint": numerics.loss_fingerprint(losses),
+            "frames": numerics.ENGINE.frames_processed,
+            "forced_syncs": forced, "materializations": mats,
+            "last_gnorm": (numerics.ENGINE.last_frame.global_gnorm
+                           if numerics.ENGINE.last_frame else None)}
+
+
+def _count_kernels(run):
+    """Kernels one call of ``run`` launches on the card (a CUDA-only
+    ``torch.profiler`` trace; copies and memsets excluded)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset", "[memory]")))
+
+
+def _numerics_gpt(mode, cfg, feed):
+    """``train``'s GPT (float32, 8 x 2048) from seeded weights in a fresh
+    scope at one mode: 1 + NUMERICS_GPT_STEPS steps (host clock, each
+    ending in its loss), then one step under a CUDA-only profiler whose
+    kernels are counted."""
+    import gc
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.analysis import numerics
+    from paddle_tpu_torch.framework import Scope
+    flags.set_flags({"FLAGS_numerics": mode})
+    numerics.ENGINE.reset()
+    main, startup, loss = _train_program(cfg, cfg.max_pos)
+    scope, exe = Scope(), ptt.Executor()
+    exe.run(startup, scope=scope, seed=1234)
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scope)[0])]
+    step_s = []
+    for _ in range(NUMERICS_GPT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0]))
+        step_s.append(time.perf_counter() - t0)
+    kernels = _count_kernels(lambda: exe.run(
+        main, feed=feed, fetch_list=[loss], scope=scope))
+    numerics.ENGINE.poll(force=True)
+    f = numerics.ENGINE.last_frame
+    out = {"losses": losses, "step_ms": [1e3 * x for x in step_s],
+           "kernels_a_step": kernels,
+           "frames": numerics.ENGINE.frames_processed,
+           "gnorm": None if f is None else f.global_gnorm,
+           "nonfinite": None if f is None else f.nonfinite}
+    del exe, scope
+    gc.collect()
+    return out
+
+
+def _numerics_gpt_interleaved(cfg, feed):
+    """The sentinel's cost on the GPT step, fairly: one scope and executor
+    (a plan a mode, both warm), NUMERICS_GPT_ROUNDS rounds of an off step
+    then a sentinel step (host clock, each ending in its loss)."""
+    import gc
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.framework import Scope
+    main, startup, loss = _train_program(cfg, cfg.max_pos)
+    scope, exe = Scope(), ptt.Executor()
+    exe.run(startup, scope=scope, seed=1234)
+    times = {"off": [], "sentinel": []}
+    for r in range(NUMERICS_GPT_ROUNDS + 1):
+        for mode in ("off", "sentinel"):
+            flags.set_flags({"FLAGS_numerics": mode})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            if r:                       # round 0 builds the plans
+                times[mode].append(1e3 * (time.perf_counter() - t0))
+    flags.set_flags({"FLAGS_numerics": "off"})
+    del exe, scope
+    gc.collect()
+    return times
+
+
+def _numerics_drill():
+    """The poison drill of ``tools/numerics_smoke.py`` on the card: the
+    MLP at sentinel under a CheckpointDaemon capturing every step, the
+    ``numerics.poison`` site firing on step NUMERICS_POISON_AT; two more
+    steps feed the anomaly's profiler window."""
+    import shutil
+    import tempfile
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import flags, layers, optimizer, profiler
+    from paddle_tpu_torch.analysis import numerics
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.framework import (Program, Scope, program_guard,
+                                            unique_name)
+    from paddle_tpu_torch.resilience import CheckpointDaemon
+    prof_dir = tempfile.mkdtemp(prefix="chip_smoke_numerics_prof_")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_numerics_ckpt_")
+    flags.set_flags({"FLAGS_numerics": "sentinel",
+                     "FLAGS_profile_sample_dir": prof_dir})
+    numerics.ENGINE.reset()
+    main, startup = Program(), Program()
+    with program_guard(main, startup), unique_name.guard():
+        x = layers.data("x", shape=[256], dtype="float32")
+        h = layers.fc(x, size=512, act="relu")
+        loss = layers.mean(layers.fc(h, size=256))
+        optimizer.SGD(0.01).minimize(loss)
+    scope, exe = Scope(), ptt.Executor()
+    exe.run(startup, scope=scope, seed=7)
+    feed = {"x": np.linspace(-1, 1, 64 * 256, dtype=np.float32)
+            .reshape(64, 256)}
+    ckpt = CheckpointManager(ckpt_dir, max_to_keep=20)
+    daemon = CheckpointDaemon(ckpt, program=main, scope=scope,
+                              interval_steps=1).start()
+    holds0 = numerics.QUARANTINE_CTR.value()
+    flags.set_flags({"FLAGS_fault_inject":
+                     f"numerics.poison:once@{NUMERICS_POISON_AT}"})
+    try:
+        taken = []
+        for step in range(1, NUMERICS_POISON_AT + 1):
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                    return_numpy=False)
+            taken.append(daemon.step_completed(step, scope=scope))
+        for _ in range(2):
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        last = daemon.stop()
+        numerics.ENGINE.poll(force=True)
+        profiler.SAMPLER.close()
+        with open(os.path.join(prof_dir, "manifest.json")) as f:
+            triggers = [w["trigger"] for w in json.load(f)["windows"]]
+        out = {"taken": taken, "last_committed": last,
+               "latest_step": ckpt.latest_step(),
+               "trips": sum(1 for r in numerics.ENGINE.anomalies
+                            if r["kind"] == "nonfinite"),
+               "poisoned_since": numerics.poisoned_since(),
+               "holds": numerics.QUARANTINE_CTR.value() - holds0,
+               "triggers": triggers}
+    finally:
+        flags.set_flags({"FLAGS_fault_inject": "", "FLAGS_numerics": "off",
+                         "FLAGS_profile_sample_dir": ""})
+        numerics.clear_quarantine()
+        shutil.rmtree(prof_dir, ignore_errors=True)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return out
+
+
+def _numerics_decode_drill():
+    """A small GPT's decode loop on the card with every weight NaN'd: its
+    logits are non-finite from the first iteration, and the sentinel
+    records one ``nonfinite_logits`` anomaly for the episode."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.analysis import numerics
+    from paddle_tpu_torch.framework import Program, Scope, program_guard
+    from paddle_tpu_torch.models import transformer as T
+    cfg = T.BertConfig(vocab_size=64, d_model=32, n_layer=1, n_head=2,
+                       d_inner=64, max_pos=64, dropout=0.0)
+    scope = Scope()
+    startup = Program()
+    with program_guard(Program(), startup):
+        T.build_gpt_serving(cfg, 8, attn_impl="base")
+    ptt.Executor().run(startup, scope=scope, seed=5)
+    for name, v in list(scope.items()):
+        if v.is_floating_point():
+            scope.set_var(name, v * float("nan"))
+    flags.set_flags({"FLAGS_numerics": "sentinel"})
+    numerics.ENGINE.reset()
+    try:
+        eng = ptt.serving.DecodeEngine(cfg, scope, max_slots=2,
+                                       page_len=4, max_seq=32)
+        dsrv = ptt.serving.DecodeServer(eng).start()
+        gen = dsrv.submit("nan_t", [3, 5, 7], max_new_tokens=4).result(
+            timeout=300)
+        assert dsrv.drain(60)
+        dsrv.stop()
+        recs = [r for r in numerics.ENGINE.anomalies
+                if r["kind"] == "nonfinite_logits"]
+        counted = numerics.NONFINITE_CTR.value(var_class="logits")
+    finally:
+        flags.set_flags({"FLAGS_numerics": "off"})
+    return {"generated": len(gen), "records": len(recs),
+            "nonfinite_logits": counted}
+
+
+def phase_numerics(smi):
+    """The numerics plane on the card: the MLP at off / sentinel / full
+    (loss fingerprints equal, overheads in steps/s, no forced sync), the
+    GPT step at sentinel beside off (losses equal to the bit, K1/K2
+    launched, kernels added a step), the poison drill and the decode
+    logits drill.  Every check is fatal."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.analysis import numerics
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    try:
+        mlp = {m: _numerics_mlp(m) for m in ("off", "sentinel", "full")}
+    finally:
+        flags.set_flags({"FLAGS_numerics": "off"})
+    fps = {m: r["fingerprint"] for m, r in mlp.items()}
+    if len(set(fps.values())) != 1:
+        raise AssertionError(f"numerics: MLP loss fingerprints differ "
+                             f"across modes: {fps}")
+    for m in ("sentinel", "full"):
+        r = mlp[m]
+        if r["forced_syncs"] or r["materializations"] or \
+                r["frames"] < NUMERICS_MLP_WARMUP + NUMERICS_MLP_STEPS:
+            raise AssertionError(f"numerics: MLP at {m}: {r}")
+    ovh = {m: mlp["off"]["steps_per_s"] / mlp[m]["steps_per_s"] - 1.0
+           for m in ("sentinel", "full")}
+    rates = ", ".join(f"{m} {r['steps_per_s']:.1f}" for m, r in mlp.items())
+    _log("numerics", f"MLP (bench.py:959) {NUMERICS_MLP_STEPS} steps: "
+         f"{rates} steps/s; overhead sentinel {100 * ovh['sentinel']:.2f}%, full "
+         f"{100 * ovh['full']:.2f}%; fingerprints equal ({fps['off'][:12]}); "
+         f"frames decoded {mlp['sentinel']['frames']}, forced syncs 0 on "
+         f"{smi}")
+
+    cfg = _gpt_cfg()
+    feed = _train_feed(cfg, TRAIN_BATCH, cfg.max_pos)
+    fa.reset_launch_count()
+    try:
+        gpt = {m: _numerics_gpt(m, cfg, feed) for m in ("off", "sentinel")}
+        inter = _numerics_gpt_interleaved(cfg, feed)
+    finally:
+        flags.set_flags({"FLAGS_numerics": "off"})
+    launches = {k: fa.launch_count(k)
+                for k in ("flash_attn_fwd", "flash_attn_bwd")}
+    # each fresh run: warm-up, timed steps, the profiled step; then the
+    # interleaved leg's plan-building round and its rounds
+    runs = 2 * (NUMERICS_GPT_STEPS + 2) + 2 * (NUMERICS_GPT_ROUNDS + 1)
+    off, sen = gpt["off"], gpt["sentinel"]
+    if np.array(off["losses"], np.float32).tobytes() != \
+            np.array(sen["losses"], np.float32).tobytes():
+        raise AssertionError(f"numerics: GPT losses at sentinel "
+                             f"{sen['losses']} differ from off "
+                             f"{off['losses']}")
+    if any(n != cfg.n_layer * runs for n in launches.values()):
+        raise AssertionError(f"numerics: K1/K2 launched {launches} in "
+                             f"{runs} GPT steps")
+    if sen["frames"] < NUMERICS_GPT_STEPS + 2 or sen["nonfinite"] != 0 \
+            or not np.isfinite(sen["gnorm"]) or sen["gnorm"] <= 0:
+        raise AssertionError(f"numerics: GPT frames {sen}")
+    added = sen["kernels_a_step"] - off["kernels_a_step"]
+    med = {m: float(np.median(v)) for m, v in inter.items()}
+    _log("numerics", f"GPT 8 x 2048 float32: losses equal to the bit "
+         f"({', '.join(f'{x:.6f}' for x in sen['losses'])}); fresh runs' "
+         f"steps off {', '.join(f'{x:.1f}' for x in off['step_ms'])} ms, "
+         f"sentinel {', '.join(f'{x:.1f}' for x in sen['step_ms'])} ms; "
+         f"kernels a step {off['kernels_a_step']} -> "
+         f"{sen['kernels_a_step']} (+{added}); global grad norm "
+         f"{sen['gnorm']:.4f}; K1/K2 {launches} on {smi}")
+    _log("numerics", f"GPT interleaved on one executor, "
+         f"{NUMERICS_GPT_ROUNDS} rounds: off "
+         f"{', '.join(f'{x:.1f}' for x in inter['off'])} ms, sentinel "
+         f"{', '.join(f'{x:.1f}' for x in inter['sentinel'])} ms; medians "
+         f"{med['off']:.1f} / {med['sentinel']:.1f} ms "
+         f"({100 * (med['sentinel'] / med['off'] - 1):+.2f}%) on {smi}")
+
+    drill = _numerics_drill()
+    want_taken = [True] * (NUMERICS_POISON_AT - 1) + [False]
+    if drill["taken"] != want_taken or drill["trips"] != 1 or \
+            drill["holds"] != 1 or \
+            drill["latest_step"] != NUMERICS_POISON_AT - 1 or \
+            "anomaly" not in drill["triggers"]:
+        raise AssertionError(f"numerics: poison drill {drill}")
+    _log("numerics", f"poison drill: step {NUMERICS_POISON_AT} entered "
+         f"poisoned, the engine tripped {drill['trips']} time (poisoned "
+         f"since step {drill['poisoned_since']}), captures "
+         f"{drill['taken']}, quarantine holds +{drill['holds']}, the "
+         f"checkpoint stays at step {drill['latest_step']}, windows "
+         f"{drill['triggers']}")
+    dec = _numerics_decode_drill()
+    if dec["records"] != 1 or dec["generated"] != 4 or \
+            dec["nonfinite_logits"] <= 0:
+        raise AssertionError(f"numerics: decode logits drill {dec}")
+    _log("numerics", f"decode logits drill: {dec['nonfinite_logits']:.0f} "
+         f"non-finite logits counted, {dec['records']} nonfinite_logits "
+         f"record")
+    numerics.ENGINE.reset()
+    return {"mlp": mlp, "overhead": ovh, "gpt": gpt,
+            "gpt_interleaved_ms": inter, "gpt_interleaved_median_ms": med,
+            "kernels_added_a_step": added, "launches": launches,
+            "drill": drill, "decode_drill": dec}
+
+
+def _http_get(url):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def phase_serve_plane(smi, serve):
+    """``serve``'s GPT behind the serving plane: the tracer on, an
+    FLAGS_serving_slo target, the scrape endpoint on 127.0.0.1 (port 0).
+    Every request's phase spans sum to its e2e_ms (10% + 0.05 ms), each
+    dispatch span carries its step and padding; the endpoints answer 200
+    with the SLO state; shrink_widths halves bucket 2048 and the next batch
+    runs at it; evicting a tenant retires its series.  Every check is
+    fatal."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import flags, monitor
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    cfg, factory, scope = _gpt_cfg(), serve["factory"], serve["scope"]
+    flags.set_flags({"FLAGS_serving_slo": SERVE_PLANE_SLO,
+                     "FLAGS_telemetry": True})
+    rng = np.random.RandomState(21)
+    reqs = [(f"plane_{'ab'[i % 2]}", rng.randint(
+        1, cfg.vocab_size, (int(n),)).astype(np.int64))
+        for i, n in enumerate([300, 420, 1500, 1800, 2000, 480])]
+    fa.reset_launch_count()
+    try:
+        srv = ptt.serving.InferenceServer(factory, scope,
+                                          buckets=(512, 2048), max_batch=8,
+                                          batch_wait_ms=20.0)
+        srv.warmup()
+        torch.cuda.synchronize()
+        srv.start()
+        http = srv.enable_http(0, host="127.0.0.1")
+        futs = [srv.submit(t, {"src_ids": ids}) for t, ids in reqs]
+        outs = [f.result(timeout=600) for f in futs]
+        srv._slo_eval_safe()
+        codes = {p: _http_get(http.url + p) for p in
+                 ("/metrics", "/healthz", "/statusz")}
+        st = json.loads(codes["/statusz"][1])
+        shrunk = srv.shrink_widths()
+        extra = rng.randint(1, cfg.vocab_size, (1700,)).astype(np.int64)
+        extra_out = srv.submit("plane_a", {"src_ids": extra}).result(
+            timeout=600)
+        log = srv.batch_log()
+        evicted_before = sum(
+            c.get() for lbl, c in monitor.SERVING_REQ_CTR.series()
+            if lbl.get("tenant") in ("plane_a", "retired"))
+        srv.tenants.evict("plane_a")
+        metrics_after = _http_get(http.url + "/metrics")[1]
+        assert srv.drain(120)
+        srv.stop()
+    finally:
+        flags.set_flags({"FLAGS_serving_slo": ""})
+    launches = fa.launch_count()
+    for (t, ids), out in zip(reqs + [("plane_a", extra)],
+                             outs + [extra_out]):
+        if out[0].shape != (len(ids), cfg.vocab_size) or \
+                not np.isfinite(out[0]).all():
+            raise AssertionError(f"serve_plane: a request's logits {t}")
+    # the request trace chains, by trace id
+    spans = {}
+    for ph, name, cat, _tid, t0, dur, args in list(monitor.TRACER._events):
+        if ph == "X" and cat == "serving" and args and \
+                str(args.get("tenant", "")).startswith("plane_"):
+            spans.setdefault(args["trace"], []).append((t0, dur, name,
+                                                        args))
+    worst = 0.0
+    for trace, chain in spans.items():
+        chain.sort()
+        names = [n for _t0, _d, n, _a in chain]
+        if names != ["serving.admit", "serving.queue_wait",
+                     "serving.batch_wait", "serving.dispatch",
+                     "serving.materialize"]:
+            raise AssertionError(f"serve_plane: trace {trace}: {names}")
+        e2e = chain[-1][3]["e2e_ms"]
+        total = 1e3 * sum(d for _t0, d, _n, _a in chain)   # s -> ms
+        worst = max(worst, abs(total - e2e) / e2e)
+        if abs(total - e2e) > TRACE_SUM_RTOL * e2e + TRACE_SUM_ATOL_MS:
+            raise AssertionError(f"serve_plane: trace {trace} phases sum "
+                                 f"to {total} ms, e2e {e2e} ms")
+        d = chain[3][3]
+        if d["step"] < 1 or d["pad_rows"] != d["width"] - d["occupancy"]:
+            raise AssertionError(f"serve_plane: dispatch span {d}")
+    if len(spans) != len(reqs) + 1:
+        raise AssertionError(f"serve_plane: {len(spans)} trace chains for "
+                             f"{len(reqs) + 1} requests")
+    if any(c != 200 for c, _ in codes.values()) or st["slo"] is None or \
+            "paddle_tpu_serving_phase_ms" not in codes["/metrics"][1]:
+        raise AssertionError(f"serve_plane: endpoints "
+                             f"{ {p: c for p, (c, _) in codes.items()} }, "
+                             f"statusz slo {st.get('slo')}")
+    if shrunk != {512: 4, 2048: 4} or log[-1]["bucket"] != 2048 or \
+            log[-1]["width"] != 4:
+        raise AssertionError(f"serve_plane: shrink_widths {shrunk}, last "
+                             f"batch {log[-1]}")
+    if any(lbl.get("tenant") == "plane_a"
+           for fam in (monitor.SERVING_REQ_CTR, monitor.SERVING_PHASE_HIST,
+                       monitor.SERVING_LAT_HIST)
+           for lbl, _c in fam.series()) or 'tenant="plane_a"' in \
+            metrics_after:
+        raise AssertionError("serve_plane: plane_a's series survived its "
+                             "eviction")
+    retired = sum(c.get() for lbl, c in monitor.SERVING_REQ_CTR.series()
+                  if lbl.get("tenant") in ("plane_a", "retired"))
+    if retired != evicted_before:
+        raise AssertionError(f"serve_plane: requests_total moved "
+                             f"{evicted_before} -> {retired} on eviction")
+    k1_batches = sum(1 for b in log if b["bucket"] >= 1024) + 1
+    if launches != cfg.n_layer * k1_batches:
+        raise AssertionError(f"serve_plane: K1 launched {launches}, "
+                             f"expected {cfg.n_layer} x {k1_batches}")
+    _log("serve_plane", f"{len(spans)} request trace chains, phase sums "
+         f"within {100 * worst:.3f}% of e2e; batches "
+         f"{[(b['bucket'], b['width'], b['occupancy']) for b in log]}; "
+         f"endpoints {[c for c, _ in codes.values()]}, statusz slo "
+         f"{sorted(st['slo'])}; shrink_widths {shrunk}; plane_a evicted, "
+         f"its series folded into retired; K1 launches {launches} on "
+         f"{smi}")
+    return {"traces": len(spans), "worst_phase_sum_rel": worst,
+            "batches": [(b["bucket"], b["width"], b["occupancy"])
+                        for b in log],
+            "codes": {p: c for p, (c, _) in codes.items()},
+            "slo": st["slo"], "shrunk": shrunk, "launches": launches}
 
 
 def main(argv=None) -> int:
@@ -6077,6 +6669,8 @@ def main(argv=None) -> int:
     observe_train = phase_observe_train(smi, train)
     observe_resnet = phase_observe_resnet(smi)
     observe_serve = phase_observe_serve(smi, serve)
+    numerics = phase_numerics(smi)
+    serve_plane = phase_serve_plane(smi, serve)
     timing = phase_timing(smi, serve, train)
     timing["conv1x1_stats"] = timing_k3(smi, resnet)
     timing.update(timing_k45(smi, train, fused))
@@ -6158,6 +6752,10 @@ def main(argv=None) -> int:
         by_path[name]["observe_train"] = observe_train["launches"][name]
     by_path["conv1x1_stats"]["observe_resnet"] = observe_resnet["launches"]
     by_path["flash_attn_fwd"]["observe_serve"] = observe_serve["launches"]
+    # the numerics and serving planes' paths
+    for name in ("flash_attn_fwd", "flash_attn_bwd"):
+        by_path[name]["numerics"] = numerics["launches"][name]
+    by_path["flash_attn_fwd"]["serve_plane"] = serve_plane["launches"]
     missing = [n for n, paths in by_path.items() if not sum(paths.values())]
     if missing:
         raise AssertionError(f"kernels never launched on their paths: "
@@ -6193,6 +6791,7 @@ def main(argv=None) -> int:
                        "observe_train": observe_train,
                        "observe_resnet": observe_resnet,
                        "observe_serve": observe_serve,
+                       "numerics": numerics, "serve_plane": serve_plane,
                        "fused_train": fused,
                        "resnet": {k: v for k, v in resnet.items()
                                   if k not in ("main", "fetch", "scope",

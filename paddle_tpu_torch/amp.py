@@ -99,10 +99,11 @@ class DynamicLossScaler:
     """Dynamic loss-scaling state machine (ref decorator.py:208
     ``update_loss_scaling``): halve the scale (and skip the step) on a
     non-finite gradient, grow it after ``incr_every_n_steps`` consecutive
-    clean steps.  The live scale is the ``paddle_tpu_amp_scale`` gauge and
-    skipped steps count in ``paddle_tpu_amp_skipped_steps_total``.  (The
-    reference also records each scale move as an ``amp.loss_scale``
-    numerics anomaly; that record waits for the numerics plane.)"""
+    clean steps.  The live scale is the ``paddle_tpu_amp_scale`` gauge,
+    skipped steps count in ``paddle_tpu_amp_skipped_steps_total``, and each
+    skipped step and scale move is a numerics anomaly record
+    (``analysis.numerics.record_anomaly``, the ``amp.loss_scale`` tracer
+    instant; ref amp.py:114-152)."""
 
     def __init__(self, init_loss_scaling=2 ** 15, incr_every_n_steps=1000,
                  decr_every_n_nan_or_inf=2, incr_ratio=2.0,
@@ -127,6 +128,13 @@ class DynamicLossScaler:
             "(non-finite gradients at the current scale)")
         self._gauge.set(self.scale)
 
+    def _event(self, kind, value=None, detail=None):
+        from .analysis import numerics as _numerics
+        _numerics.record_anomaly(
+            kind, step=self._step, value=value,
+            detail=dict(detail or (), scale=self.scale),
+            instant="amp.loss_scale")
+
     def update(self, found_inf) -> bool:
         """Feed one step's found-non-finite verdict; True when the step's
         update is to be applied, False when it is to be skipped."""
@@ -137,16 +145,24 @@ class DynamicLossScaler:
             self._skip_ctr.inc()
             if self._bad_steps >= self.decr_every_n_nan_or_inf:
                 self._bad_steps = 0
+                old = self.scale
                 self.scale = max(self.scale * self.decr_ratio,
                                  self.min_scale)
                 self._gauge.set(self.scale)
+                self._event("loss_scale_decreased", value=self.scale,
+                            detail={"from": old})
+            else:
+                self._event("step_skipped", value=self.scale)
             return False
         self._bad_steps = 0
         self._good_steps += 1
         if self._good_steps >= self.incr_every_n_steps:
             self._good_steps = 0
+            old = self.scale
             self.scale = self.scale * self.incr_ratio
             self._gauge.set(self.scale)
+            self._event("loss_scale_increased", value=self.scale,
+                        detail={"from": old})
         return True
 
 

@@ -12,13 +12,17 @@ the port's counterpart of ``paddle_tpu/compiler.py``).
    otherwise consume the bias + activation tails the dense-epilogue pattern
    targets;
 4. ``fuse_elewise_add_act_pass`` when ``BuildStrategy.fuse_elewise_add_act_
-   ops`` is set (the default).
+   ops`` is set (the default);
+5. under ``FLAGS_numerics`` the numerics census after fusion
+   (``analysis.numerics.plan_numerics``, ref ``compiler.py:241-251``),
+   stamped into ``_attrs["numerics"]``: the activations a full-mode step
+   traces are the ones the rewritten program produces.
 
 Results are cached per CompiledProgram on the reference's key (program
-version, fetch set, fusion config, batch) and the device the fusion
-autotuner timed on.  Each pass's wall time goes to the
+version, fetch set, fusion config, batch), the numerics mode and the device
+the fusion autotuner timed on.  Each pass's wall time goes to the
 ``paddle_tpu_compiler_pass_ms{pass}`` histogram.  Not ported yet: the
-transient-fault retries, the numerics census, the tracer spans, data
+transient-fault retries, the tracer spans, data
 parallelism and the GSPMD partition.
 """
 
@@ -88,11 +92,13 @@ class CompiledProgram:
         docstring), for ``fetch_names`` at the batch of ``feed_shapes``, on
         ``device`` (the host by default)."""
         from .analysis import fusion as _fusion
+        from .analysis import numerics as _numerics
         from .flags import get_flags
         from .framework import ir
         batch = _fusion._batch_of(feed_shapes)
         key = (self._program.fingerprint(), frozenset(fetch_names),
-               _fusion.config_token(), batch, _fusion._device_key(device))
+               _fusion.config_token(), batch, _fusion._device_key(device),
+               _numerics.mode())
         prog = self._optimized_cache.get(key)
         if prog is not None:
             _OPT_HIT.inc()
@@ -121,5 +127,9 @@ class CompiledProgram:
             if g.attrs.get("fuse_elewise_add_act_count"):
                 with _timed_pass("to_program"):
                     prog = g.to_program()
+        if _numerics.mode() != "off":
+            with _timed_pass("numerics_spec"):
+                prog._attrs["numerics"] = _numerics.plan_numerics(
+                    prog, fetch_names)
         self._optimized_cache[key] = prog
         return prog

@@ -6,9 +6,11 @@ fusion autotuner's verdicts, the decode server's paged-KV and retry flags,
 the fault-injection table, the step tracer's flags, the hung-step
 watchdog's, the checkpoint daemon's cadence and capture flags, the retry
 engine's budget flags, the executor's throttle and ``FLAGS_benchmark``,
-the memory budget, the sampling profiler's and the HBM accountant's flags
-exist so far, with the reference's names,
-defaults, validation and side effects.  ``FLAGS_*`` environment variables
+the memory budget, the sampling profiler's and the HBM accountant's flags,
+the numerics plane's (``FLAGS_numerics*``, ``FLAGS_check_nan_inf``), the
+serving SLO plane's (``FLAGS_serving_slo*``) and the metrics endpoint's
+(``FLAGS_metrics_port``, ``FLAGS_metrics_host``) exist so far, with the
+reference's names, defaults, validation and side effects.  ``FLAGS_*`` environment variables
 seed them at import, as the reference's ``__bootstrap__`` does; a
 malformed value warns and is ignored.
 """
@@ -121,7 +123,48 @@ _DEFAULTS: Dict[str, Any] = {
     # where OOM forensics dumps land ("" = FLAGS_watchdog_dump_dir, else
     # the system temp dir)
     "FLAGS_oom_dump_dir": "",
+    # every float output of every op is checked after the op runs, and a
+    # non-finite one is reported naming the Fluid op that made it (one
+    # host sync an op: off by default, as in the reference)
+    "FLAGS_check_nan_inf": False,
+    # the numerics plane (analysis/numerics.py): "off", "sentinel" (NaN/Inf
+    # trips over the step's gradients and weight state and the global grad
+    # norm, one reduction a tensor) or "full" (adds per-variable grad norms
+    # and absmax, update ratios, activations and log2 histograms); the
+    # statistics reach the host off the step, and the mode is part of the
+    # executor's plan key
+    "FLAGS_numerics": "off",
+    # spike detection: a grad norm above factor x its windowed median
+    # fires a grad_spike record (re-armed at factor / 2)
+    "FLAGS_numerics_spike_factor": 10.0,
+    "FLAGS_numerics_window": 16,
+    # per-variable gauge series held at once (top-K by norm / ratio)
+    "FLAGS_numerics_topk": 8,
+    # a poisoned step holds the checkpoint daemon's captures
+    "FLAGS_numerics_quarantine": True,
+    # per-tenant SLO objectives (serving/slo.py), e.g.
+    # "tenantA:p99_ms=250,avail=99.9;*:p99_ms=500"; "" turns the plane off
+    "FLAGS_serving_slo": "",
+    # the burn-rate windows, the breach threshold (on both windows;
+    # recovery at half of it on the fast one) and the evaluator's cadence
+    "FLAGS_serving_slo_fast_window_s": 60.0,
+    "FLAGS_serving_slo_slow_window_s": 600.0,
+    "FLAGS_serving_slo_burn_threshold": 10.0,
+    "FLAGS_serving_slo_eval_interval_s": 1.0,
+    # refuse a breached tenant's new submits (reason "slo_shed")
+    "FLAGS_serving_slo_shed": False,
+    # the /metrics /healthz /statusz endpoint (serving/httpd.py): its port
+    # (0 disables it) and bind address
+    "FLAGS_metrics_port": 0,
+    "FLAGS_metrics_host": "0.0.0.0",
 }
+
+_NUMERICS_FLAGS = ("FLAGS_numerics", "FLAGS_numerics_spike_factor",
+                   "FLAGS_numerics_window", "FLAGS_numerics_topk",
+                   "FLAGS_numerics_quarantine")
+_SLO_NUMERIC = ("FLAGS_serving_slo_fast_window_s",
+                "FLAGS_serving_slo_slow_window_s",
+                "FLAGS_serving_slo_burn_threshold")
 
 _values: Dict[str, Any] = dict(_DEFAULTS)
 
@@ -159,6 +202,28 @@ def set_flags(flags: Dict[str, Any]) -> None:
             raise ValueError(
                 f"FLAGS_watchdog_escalate must be '' or 'abort', got "
                 f"{coerced[name]!r}")
+        if name == "FLAGS_numerics" and \
+                coerced[name] not in ("off", "sentinel", "full"):
+            raise ValueError(
+                "FLAGS_numerics must be 'off', 'sentinel' or 'full', "
+                f"got {coerced[name]!r}")
+        if name == "FLAGS_serving_slo" and coerced[name]:
+            from .serving.slo import parse_slo
+            parse_slo(coerced[name])
+    if any(n in coerced for n in _SLO_NUMERIC):
+        # the pair and threshold in force after this call (new values over
+        # the current ones) must hold, so a bad pair is refused here
+        eff = {n: float(coerced.get(n, _values[n])) for n in _SLO_NUMERIC}
+        fast = eff["FLAGS_serving_slo_fast_window_s"]
+        slow = eff["FLAGS_serving_slo_slow_window_s"]
+        if not 0 < fast <= slow:
+            raise ValueError(
+                "SLO windows must satisfy 0 < fast <= slow (got "
+                f"fast={fast}, slow={slow})")
+        if eff["FLAGS_serving_slo_burn_threshold"] <= 0:
+            raise ValueError(
+                "FLAGS_serving_slo_burn_threshold must be > 0 (got "
+                f"{eff['FLAGS_serving_slo_burn_threshold']})")
     _values.update(coerced)
     for name, value in coerced.items():
         _apply_side_effect(name, value)
@@ -203,6 +268,15 @@ def _apply_side_effect(name: str, value) -> None:
             int(fl["FLAGS_hbm_sample_every_n_steps"]),
             int(fl["FLAGS_hbm_window"]),
             float(fl["FLAGS_hbm_headroom_regress_frac"]))
+    elif name in _NUMERICS_FLAGS:
+        from .analysis import numerics
+        fl = _values
+        numerics.configure(
+            str(fl["FLAGS_numerics"]),
+            spike_factor=float(fl["FLAGS_numerics_spike_factor"]),
+            window=int(fl["FLAGS_numerics_window"]),
+            topk=int(fl["FLAGS_numerics_topk"]),
+            quarantine=bool(fl["FLAGS_numerics_quarantine"]))
     elif name in ("FLAGS_rpc_retry_times", "FLAGS_rpc_deadline"):
         # the reference's native PS client reads these from the
         # environment; mirrored as the reference does

@@ -86,8 +86,30 @@ CUDA events).  An OOM out of the ops (``torch.cuda.OutOfMemoryError``, or
 the ``memory.oom`` drill site) goes through ``hbm.oom_forensics``, gets
 ``memory.summary`` appended and is re-raised; a real one drops the plan.
 
-Left out so far: the nan/inf sanitizer, meshes, the numerics and comms
-planes.
+Numerics (``analysis/numerics.py``, ref ``executor.py:933-1005,
+1832-1843``): under ``FLAGS_numerics`` ``sentinel`` or ``full`` the run
+hands each value the step wrote to a ``numerics.StepStats`` as it lets go
+of it (a temporary after its last reader, the rest at the step's end), which
+reduces them in multi-tensor batches into the reference's packed stats
+vector; the vector goes to pinned host memory behind the step (a
+non-blocking copy and an event) and ``ENGINE.note_step`` decodes it once the
+event has completed, so the training thread never waits on it.  Weight
+pairs are the read-write persistables before and after the step.  The mode
+is part of the plan key, so a flip re-plans.  The ``numerics.poison``
+injection site corrupts one float read-write persistable on its way into
+the step (ref ``executor.py:1527-1533``), so the step's own statistics show
+the NaN.  ``FLAGS_check_nan_inf`` checks every float output of every op
+after it runs (one host sync an op) and prints the Fluid op that made a
+non-finite value (ref ``executor.py:814-876``).
+
+Memory: an ``elementwise_add`` of a bias into a ``mul`` / ``matmul``
+product that dies at the add runs in place when no autograd graph and no
+numerics statistics read the product (``_Plan._inplace_adds``), as the
+static memory plan and the reference's compiler reuse that buffer; a served
+LM head then holds its logits once.
+
+Left out so far: meshes and the comms plane.  The reference's donation
+aliasing check has nothing to guard: the eager step donates no buffer.
 """
 
 from __future__ import annotations
@@ -107,6 +129,7 @@ from .. import memory as _memory
 from .. import monitor as _monitor
 from .. import resilience as _resil
 from ..analysis import fusion as _fusion
+from ..analysis import numerics as _numerics
 from ..analysis.device_profile import step_annotation
 from ..kernels import dropout as _dropout
 from . import registry
@@ -597,6 +620,8 @@ class _Plan:
             self.ops.append((op, registry.get_op_info(op.type)))
             fwd_at.setdefault(_fwd_key(op), []).append(i)
         persistable = {n for n, v in block.vars.items() if v.persistable}
+        persistable_float = {n for n in persistable
+                             if "float" in str(block.vars[n].dtype)}
         keep = set(fetch_names) | persistable
         last: Dict[str, int] = {}
         written = set()
@@ -617,6 +642,40 @@ class _Plan:
                 self.free_after[i].append(n)
         self.persist_out = sorted(written & persistable)
         self.persistables = sorted(persistable & set(last))
+        self.inplace_add = self._inplace_adds(keep)
+        # every name an op of the step writes (the numerics plane's
+        # ``written``), and the float read-write persistables the step
+        # also reads, in order (the ``numerics.poison`` drill's targets)
+        self.written = frozenset(written)
+        read = set()
+        for op, _ in self.ops:
+            for ns in op.inputs.values():
+                read.update(n for n in ns if n)
+        self.poison_targets = [n for n in self.persist_out
+                               if n in read and n in persistable_float]
+
+    def _inplace_adds(self, keep) -> frozenset:
+        """The ``elementwise_add`` ops that may add into their X: X is the
+        fresh product of a ``mul`` / ``matmul`` and dies at the add, and
+        neither op's autograd graph is kept.  Running them in place keeps
+        one output buffer where the static memory plan counts one (the
+        reference's compiler reuses the dying buffer the same way); out of
+        place, a served LM head holds its [B, T, vocab] logits twice."""
+        producer: Dict[str, int] = {}
+        out = set()
+        for i, (op, _) in enumerate(self.ops):
+            if (op.type == "elementwise_add" and i not in self.fwd_of
+                    and i not in self.wanted):
+                x = op.inputs.get("X", [None])[0]
+                j = producer.get(x)
+                if (x and x not in keep and x in self.free_after[i]
+                        and j is not None and j not in self.wanted
+                        and self.ops[j][0].type in ("mul", "matmul")):
+                    out.add(i)
+            for n in op.output_arg_names():
+                if n:
+                    producer[n] = i
+        return frozenset(out)
 
 
 def _feed_sig(x):
@@ -797,9 +856,12 @@ class Executor:
                             for f in (fetch_list or []))
         feed_names = tuple(sorted(feed))
         feed_sigs = tuple(_feed_sig(feed[n]) for n in feed_names)
+        num_mode = _numerics.mode()
+        check_nan = bool(get_flags("FLAGS_check_nan_inf")
+                         ["FLAGS_check_nan_inf"])
         key = (program.fingerprint(), feed_names, feed_sigs, fetch_names,
                scope._serial, None if compiled is None else compiled._serial,
-               _fusion.config_token())
+               _fusion.config_token(), num_mode, check_nan)
         stats = self._stats
         with self._lock:
             plan = self._plans.get(key)
@@ -825,6 +887,13 @@ class Executor:
             program.random_seed * 1000003 + step_seed)
         env = {n: self._to_device(v) for n, v in feed.items()}
         feeds = list(env.values())
+        num = rw_in = None
+        if num_mode != "off":
+            num = _numerics.StepStats(
+                num_mode, plan.written, feed_names, plan.persist_out,
+                plan.program._attrs.get("numerics"))
+            if num_mode == "full":
+                rw_in = [scope.find_var(n) for n in plan.persist_out]
         record = fresh and self.device.type == "cuda" and \
             _hbm().plans_enabled()
         if record:
@@ -844,9 +913,20 @@ class Executor:
                 # the OOM drill: an injected fault here takes the path a
                 # real out-of-memory error of the ops below takes
                 _resil.maybe_inject("memory.oom")
+                self._maybe_poison(plan, scope, env)
                 run_plan(plan, LowerCtx(self.device, seed_val, plan.amp),
                          env, lambda name: self._read(scope, plan.block,
-                                                      name))
+                                                      name),
+                         observe=num, check_nan=check_nan)
+                if num is not None:
+                    for n in plan.written:
+                        if n in env:
+                            num.offer(n, env[n])
+                    layout, packed = num.finish(
+                        plan.persist_out, rw_in or (),
+                        [env.get(n) for n in plan.persist_out],
+                        device=self.device, force=True)
+                    num = (layout, _numerics.StatsCopy(packed))
         except Exception as e:
             self._raise_with_forensics(e, key, plan, scope, feeds)
         tdisp = time.perf_counter()
@@ -877,6 +957,10 @@ class Executor:
         if med is not None and cost is not None:
             stats.set_step_timing(med * 1e3, cost[0] / med / cost[1])
         _maybe_sample_step(step_id, med * 1e3 if med is not None else None)
+        if num is not None:
+            # in flight: the engine decodes the frame once its copy's
+            # event has completed, so this never waits on the card
+            _numerics.ENGINE.note_step(step_id, num[1], num[0])
         if plan.persist_out:
             scope.set_vars({n: env[n] for n in plan.persist_out})
         with self._lock:
@@ -921,6 +1005,21 @@ class Executor:
             return out
         stats.incr("lazy_fetch_steps")
         return [FetchHandle(t, stats, step_id) for t in fetches]
+
+    def _maybe_poison(self, plan, scope, env) -> None:
+        """The ``numerics.poison`` drill (ref executor.py:1527-1533): when
+        the site fires, the first float read-write persistable the step
+        reads enters it multiplied by NaN, as an overflow inside the step
+        would leave it; the step's own statistics then show it."""
+        try:
+            _resil.maybe_inject("numerics.poison")
+        except _resil.InjectedFault:
+            for n in plan.poison_targets:
+                v = scope.find_var(n)
+                if isinstance(v, torch.Tensor) and v.dim() >= 1:
+                    v = self._read(scope, plan.block, n)
+                    env[n] = v * float("nan")
+                    return
 
     def _raise_with_forensics(self, e, key, plan, scope, feeds):
         """Re-raise a failed run's error.  An out-of-memory error (a real
@@ -977,29 +1076,74 @@ class Executor:
 
 
 def run_plan(plan: _Plan, ctx: LowerCtx, env: Dict[str, Any],
-             read: Callable[[str], torch.Tensor]) -> None:
+             read: Callable[[str], torch.Tensor], observe=None,
+             check_nan: bool = False) -> None:
     """Run a block's plan op by op on ``env`` (name -> tensor): each op's
     outputs land in it, and each temporary leaves it after its last
-    reader.  ``read(name)`` gives an input that ``env`` lacks (the
-    executor reads the scope).  ``Executor.run`` and
-    ``framework.function``'s callables run their blocks through it."""
+    reader, handed to ``observe.offer`` first when the numerics plane
+    watches the step.  ``read(name)`` gives an input that ``env`` lacks
+    (the executor reads the scope).  ``check_nan`` is
+    ``FLAGS_check_nan_inf``.  ``Executor.run`` and ``framework.function``'s
+    callables run their blocks through it."""
     graphs: Dict[int, registry.Forward] = {}   # kept, by forward op
     try:
         for i, (op, info) in enumerate(plan.ops):
             try:
-                outs = _run_op(plan, i, op, info, ctx, env, read, graphs)
+                if i in plan.inplace_add and observe is None:
+                    outs = _add_in_place(op, ctx, env, read)
+                else:
+                    outs = None
+                if outs is None:
+                    outs = _run_op(plan, i, op, info, ctx, env, read,
+                                   graphs)
             except Exception as e:
                 raise RuntimeError(
                     f"{type(e).__name__} while running op {op.type!r}: "
                     f"{e}\n  {_op_context(plan.block, op)}") from e
+            if check_nan and i not in plan.fwd_of:
+                _sanitize_outputs(op, outs)
             for slot, names in op.outputs.items():
                 for n, val in zip(names, outs.get(slot, [])):
                     if n and val is not None:
                         env[n] = val.detach()
             for n in plan.free_after[i]:
-                env.pop(n, None)
+                v = env.pop(n, None)
+                if observe is not None and v is not None:
+                    observe.offer(n, v)
     finally:
         graphs.clear()      # a raised error's traceback must not pin them
+
+
+def _add_in_place(op, ctx, env, read):
+    """An ``elementwise_add`` of :meth:`_Plan._inplace_adds` into its dying
+    X, or None when this run's operands do not allow it (AMP casts, a type
+    promotion, a Y that broadcasts X itself).  Skipped while the numerics
+    plane watches the step: its statistics read X's value when X dies."""
+    from ..ops.common import broadcast_to_x
+    if ctx.amp:
+        return None
+    x = env[op.inputs["X"][0]]
+    yn = op.inputs["Y"][0]
+    y = env[yn] if yn in env else read(yn)
+    y = broadcast_to_x(x, y, op.attrs.get("axis", -1))
+    if (torch.result_type(x, y) != x.dtype or x.device != y.device
+            or torch.broadcast_shapes(x.shape, y.shape) != x.shape):
+        return None
+    return {"Out": [x.add_(y)]}
+
+
+def _sanitize_outputs(op, outs) -> None:
+    """``FLAGS_check_nan_inf`` (ref executor.py:814-832): name the Fluid op
+    whose float output holds a non-finite value.  Each check reads one
+    flag back to the host, so it waits for the op; a hit is printed and
+    the step goes on, as the reference's debug print does."""
+    for slot, vals in outs.items():
+        for j, v in enumerate(vals):
+            if not (isinstance(v, torch.Tensor) and v.is_floating_point()):
+                continue
+            if not bool(torch.isfinite(v).all()):
+                print(f"FLAGS_check_nan_inf: non-finite value in output "
+                      f"{slot}[{j}] of op {op.type}", flush=True)
 
 
 def _run_op(plan, i, op, info, ctx, env, read, graphs):

@@ -13,9 +13,12 @@ either package reads the same families:
   ``paddle_tpu_compiler_pass_ms{pass}`` (``compiler.py``);
 - ``paddle_tpu_amp_scale`` and ``paddle_tpu_amp_skipped_steps_total``
   (``amp.py``);
-- the decode server's families: the load gauges and the generated-token
-  counter declared here (ref :873-890), the per-tenant KV-page plane
-  (ref :913-929), and beside their writers
+- the servers' families: the per-tenant request counters, queue gauge,
+  latency and per-phase latency histograms declared here (ref :833-871),
+  the load gauges and the generated-token counter (ref :873-890), the SLO
+  plane's burn, breached and breach-event series (ref :891-907), the
+  per-tenant KV-page plane (ref :913-929), all retired together on tenant
+  eviction (``retire_tenant_series``), and beside their writers
   ``paddle_tpu_serving_batch_occupancy{mode}``,
   ``paddle_tpu_serving_batches_total{bucket}``,
   ``paddle_tpu_serving_faults_absorbed_total`` (``serving/scheduler.py``),
@@ -35,9 +38,7 @@ watchdog's dump reads; ``export(dir)`` writes ``metrics.json``,
 recording, ``FLAGS_telemetry_max_events`` sizes the ring and
 ``FLAGS_telemetry_export_path`` exports at process exit.
 
-Not ported yet: the digests, the series retirement on tenant eviction, the
-per-phase latency histogram and the SLO families, and the batch server's
-telemetry.
+Not ported yet: the heartbeat digests and the gang and fleet families.
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY",
            "StepTracer", "TRACER", "span", "export", "telemetry_snapshot",
            "counter_totals", "enable_export_on_exit",
-           "disable_export_on_exit"]
+           "disable_export_on_exit", "retire_tenant_series"]
 
 #: default microsecond buckets (the reference's)
 DEFAULT_BUCKETS_US = (50.0, 100.0, 250.0, 500.0, 1000.0, 2500.0, 5000.0,
@@ -333,6 +334,45 @@ def _fmt_labels(labels: Dict[str, str], **extra) -> str:
 REGISTRY = MetricsRegistry()
 
 
+# -- the request server's per-tenant families (ref paddle_tpu/monitor.py:
+# 833-871): the tenant plane, the schedulers and retire_tenant_series below
+# all touch them, and tenant churn retires through retire_tenant_series
+
+SERVING_REQ_CTR = REGISTRY.counter(
+    "paddle_tpu_serving_requests_total",
+    "requests ADMITTED into the serving queue, per tenant", ("tenant",))
+SERVING_DONE_CTR = REGISTRY.counter(
+    "paddle_tpu_serving_completed_total",
+    "requests completed (future resolved with a result), per tenant",
+    ("tenant",))
+SERVING_FAIL_CTR = REGISTRY.counter(
+    "paddle_tpu_serving_failed_total",
+    "requests failed (future resolved with an error), per tenant",
+    ("tenant",))
+SERVING_REJECT_CTR = REGISTRY.counter(
+    "paddle_tpu_serving_rejected_total",
+    "requests refused at admission, per tenant and reason "
+    "(quota / draining / too_long)", ("tenant", "reason"))
+SERVING_QUEUE_GAUGE = REGISTRY.gauge(
+    "paddle_tpu_serving_queue_depth",
+    "requests currently queued + in flight, per tenant", ("tenant",))
+SERVING_LAT_HIST = REGISTRY.histogram(
+    "paddle_tpu_serving_latency_ms",
+    "end-to-end request latency (submit -> future resolved), ms, per "
+    "tenant", ("tenant",),
+    buckets=(1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0,
+             1000.0, 2500.0, 5000.0, 10000.0, 30000.0, 120000.0))
+SERVING_PHASE_HIST = REGISTRY.histogram(
+    "paddle_tpu_serving_phase_ms",
+    "per-request phase latency (ms) of the serving pipeline by phase "
+    "(admit / queue_wait / batch_wait / dispatch / decode / "
+    "materialize), tenant and bucket (bucket='decode' for the KV decode "
+    "loop) — phases partition submit->resolve, so their sum is the "
+    "request's end-to-end latency and p99 decomposes by phase",
+    ("phase", "tenant", "bucket"),
+    buckets=(0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
+             500.0, 1000.0, 2500.0, 5000.0, 10000.0, 30000.0))
+
 # -- the decode server's load gauges (ref paddle_tpu/monitor.py:873-890) ----
 
 SERVING_LAST_OCC_GAUGE = REGISTRY.gauge(
@@ -371,6 +411,57 @@ SERVING_KV_TENANT_ALLOC_CTR = REGISTRY.counter(
     "KV pages RESERVED for the tenant's requests at admission, "
     "cumulative (folds to tenant=\"retired\" on eviction so "
     "counter_totals() stays exact across tenant churn)", ("tenant",))
+
+
+# -- the SLO plane's per-tenant series (ref paddle_tpu/monitor.py:891-907) ---
+
+SLO_BURN_GAUGE = REGISTRY.gauge(
+    "paddle_tpu_slo_burn_rate",
+    "per-tenant SLO error-budget burn rate, by window ('fast' / "
+    "'slow'): (bad-event fraction in the window) / (1 - objective) — "
+    "1.0 means the budget is consumed exactly at the rate the SLO "
+    "allows, a sustained burn above the threshold on BOTH windows is a "
+    "breach", ("tenant", "window"))
+SLO_BREACHED_GAUGE = REGISTRY.gauge(
+    "paddle_tpu_slo_breached",
+    "1 while the tenant's SLO is in breach (multi-window burn rate over "
+    "threshold; clears with hysteresis at threshold/2 on the fast "
+    "window)", ("tenant",))
+SLO_BREACH_CTR = REGISTRY.counter(
+    "paddle_tpu_slo_breach_total",
+    "SLO breach EVENTS per tenant (each breach->recovery cycle counts "
+    "once; the instant is also recorded in the trace ring as "
+    "'slo.breach')", ("tenant",))
+
+
+def retire_tenant_series(tenant) -> None:
+    """Registry hygiene for tenant eviction (ref monitor.py:931-965): the
+    tenant's counter and histogram series fold into ``tenant="retired"``
+    (``counter_totals()`` stays exact) and its gauges drop (a departed
+    tenant has no queue, no pages and no burn)."""
+    src = {"tenant": str(tenant)}
+    dst = {"tenant": "retired"}
+    SERVING_REQ_CTR.fold(src, dst)
+    SERVING_DONE_CTR.fold(src, dst)
+    SERVING_FAIL_CTR.fold(src, dst)
+    SERVING_LAT_HIST.fold(src, dst)
+    for labels, _cell in SERVING_REJECT_CTR.series():
+        if labels.get("tenant") == str(tenant):
+            SERVING_REJECT_CTR.fold(
+                labels, {"tenant": "retired",
+                         "reason": labels.get("reason", "")})
+    for labels, _cell in SERVING_PHASE_HIST.series():
+        if labels.get("tenant") == str(tenant):
+            SERVING_PHASE_HIST.fold(labels, dict(labels, tenant="retired"))
+    SERVING_QUEUE_GAUGE.fold(src, None)
+    SERVING_KV_TENANT_ALLOC_CTR.fold(src, dst)
+    SERVING_KV_TENANT_PAGES.fold(src, None)
+    SERVING_KV_TENANT_FRAG.fold(src, None)
+    SLO_BREACH_CTR.fold(src, dst)
+    SLO_BREACHED_GAUGE.fold(src, None)
+    for labels, _cell in SLO_BURN_GAUGE.series():
+        if labels.get("tenant") == str(tenant):
+            SLO_BURN_GAUGE.fold(labels, None)
 
 
 # -- the step tracer (ref paddle_tpu/monitor.py:987-1211) --------------------

@@ -802,9 +802,8 @@ class CheckpointDaemon:
 
     The capture's card copies are reported to the HBM accountant's
     ``ckpt_capture`` class while they exist (``hbm.set_ckpt_capture_bytes``).
-    Not ported yet: the numerics quarantine gate (``analysis/numerics.py``;
-    :meth:`_quarantined` returns False, as the reference does at
-    ``FLAGS_numerics`` "off", its default) and the gang announce (Queue 1
+    Under ``FLAGS_numerics`` a poisoned run holds every capture
+    (:meth:`_quarantined`).  Not ported yet: the gang announce (Queue 1
     item 3).
     """
 
@@ -954,10 +953,26 @@ class CheckpointDaemon:
 
     @staticmethod
     def _quarantined(step: int, kind: str) -> bool:
-        """The numerics quarantine gate.  ``analysis/numerics.py`` is not
-        ported, and the reference's gate holds nothing at its default
-        ``FLAGS_numerics`` "off": no capture is held."""
-        return False
+        """The numerics quarantine gate (ref resilience.py:1064-1091): once
+        the anomaly engine has the run poisoned (NaN/Inf in grads or
+        weights), every capture is held, so a snapshot of poisoned state
+        never becomes the recovery point.  The engine is polled with
+        ``force`` first (captures are rare, so the wait is off the steady
+        path), which closes the race where the poisoning step's statistics
+        are still on their way when its own capture comes due."""
+        from .analysis import numerics as _numerics
+        if _numerics.mode() == "off":
+            return False
+        _numerics.ENGINE.poll(force=True)
+        if not _numerics.is_poisoned():
+            return False
+        _numerics.QUARANTINE_CTR.inc()
+        if _monitor.TRACER.enabled:
+            _monitor.TRACER.instant(
+                "checkpoint.quarantine_hold", "checkpoint",
+                {"step": int(step), "kind": kind,
+                 "poisoned_since": _numerics.poisoned_since()})
+        return True
 
     def capture(self, step: int, scope=None, kind: str = "daemon") -> bool:
         """Snapshot every persistable of the program at a step boundary

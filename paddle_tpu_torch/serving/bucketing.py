@@ -10,7 +10,9 @@ length into op attrs (position-table slices, causal-mask ranges), so the
 server materializes one program per bucket through a ``program_factory``.
 Width admission (``bucketing.py:142-157``): under a memory budget a
 bucket's batch width starts at ``max_batch`` and halves until the bucket
-program's static peak plan (``analysis.memory``) fits it.
+program's static peak plan (``analysis.memory``) fits it, and
+``shrink_widths`` halves every built bucket's width (ref
+``bucketing.py:159-178``), taking effect at the next batch.
 """
 
 from __future__ import annotations
@@ -27,6 +29,10 @@ BUCKET_WIDTH_GAUGE = _monitor.REGISTRY.gauge(
     "admitted batch width per compile bucket (lowered below "
     "FLAGS_serving_max_batch when the static HBM plan at full width "
     "exceeds FLAGS_memory_budget_mb)", ("bucket",))
+PAD_TOKENS_CTR = _monitor.REGISTRY.counter(
+    "paddle_tpu_serving_padding_rows_total",
+    "dummy batch rows dispatched to keep bucket shapes fixed (the "
+    "occupancy complement: rows = batches*width - real requests)")
 
 
 def parse_buckets(spec: str, max_len: int = 512) -> Tuple[int, ...]:
@@ -144,6 +150,25 @@ class BucketPlan:
                 return width
             width //= 2
         return width
+
+    def shrink_widths(self) -> Dict[int, int]:
+        """Halve the admitted width of every built bucket (floor 1): the
+        degradation rung for a replica short of card memory.  The scheduler
+        reads the width from the memoized entry at every batch, so the
+        next batch runs at it (the executor builds one new plan for the
+        new feed shape).  Cold buckets keep their planned width.  Returns
+        {bucket: new width}."""
+        out: Dict[int, int] = {}
+        with self._mu:
+            for bucket, entry in list(self._plans.items()):
+                compiled, feeds, fetches, width = entry
+                new = max(1, int(width) // 2)
+                if new != width:
+                    self._plans[bucket] = (compiled, feeds, fetches, new)
+                out[bucket] = new
+        for bucket, w in out.items():
+            BUCKET_WIDTH_GAUGE.set(w, bucket=str(bucket))
+        return out
 
     def width_of(self, bucket: int) -> Optional[int]:
         """Admitted width of a built bucket plan; None for a cold bucket

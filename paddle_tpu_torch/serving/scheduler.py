@@ -31,16 +31,31 @@ contract:
   fail — counted in ``paddle_tpu_serving_faults_absorbed_total``.
 
 The decode step runs under ``WATCHDOG.watch("serving.decode_step")``, and
-each iteration is a ``serving.decode_iter`` tracer span.
+each iteration is a ``serving.decode_iter`` tracer span.  Under
+``FLAGS_numerics`` the decode loop scans each iteration's logits, already
+on the host, for non-finite values (``numerics.note_nonfinite``, class
+``logits``).
 
-Not ported yet (ROADMAP): the batcher's counters and histograms, the
-request trace spans and per-phase latency histogram, and the decode loop's
-numerics sentinel on the logits.
+Request tracing (ref ``scheduler.py:44-111, 430-460``): every request gets
+a trace id, and when it resolves its phase spans (``serving.admit``,
+``queue_wait``, ``batch_wait``, ``dispatch``, ``materialize``; the decode
+loop's ``decode`` in place of the batch phases) partition submit to
+resolve, each tagged with the trace id, tenant and bucket, and land in the
+tracer ring and ``paddle_tpu_serving_phase_ms``.  The dispatch span carries
+the executor's step id, the batch width, occupancy and padding.  Both
+loops stamp ``last_alive_wall`` whenever they wake.
+
+Run-ahead: the batcher dispatches up to :data:`MAX_QUEUED_BATCHES` batches
+beyond the one the completion thread is materializing, so up to three
+batches' fetches can be alive on the card at once; ``alive_stats()`` reports
+the batches from the start of their dispatch until they resolve, and the
+most seen at once.
 """
 
 from __future__ import annotations
 
 import collections
+import itertools
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -48,6 +63,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from .. import monitor as _monitor
+from ..framework.executor import last_step_id
+from .bucketing import PAD_TOKENS_CTR
 
 OCCUPANCY_HIST = _monitor.REGISTRY.histogram(
     "paddle_tpu_serving_batch_occupancy",
@@ -74,6 +91,49 @@ ITER_LOG_LEN = 65536
 #: a bucket-2048 GPT batch) until it is copied out, so the scheduler stops
 #: dispatching here instead of running ahead of the copies.
 MAX_QUEUED_BATCHES = 2
+
+#: wall clock of the most recent scheduler-loop wake (batcher dispatch or
+#: decode iteration): the serving plane's liveness, not traffic — idle loops
+#: keep touching it on their bounded waits, a loop wedged in a dispatch stops
+last_alive_wall = 0.0
+
+
+def _touch_alive() -> None:
+    global last_alive_wall
+    last_alive_wall = time.time()
+
+
+#: per-process request trace ids: every span of a request's life carries it
+_TRACE_IDS = itertools.count(1)
+
+
+def _emit_request_trace(req: "Request", phases, e2e_ms: float,
+                        bucket=None, extra=None) -> None:
+    """Emit the request's phase spans, each tagged with its trace id, tenant
+    and bucket, into the tracer ring and the per-phase latency histogram.
+    ``phases`` is an ordered list of (name, t0, t1) ``perf_counter``
+    boundaries that partition submit -> resolve, so the phases sum to the
+    measured end-to-end latency; ``extra`` maps a phase name to extra span
+    args."""
+    bucket = str(req.bucket if bucket is None else bucket)
+    tenant = str(req.tenant)
+    tracer = _monitor.TRACER
+    for name, t0, t1 in phases:
+        if t0 is None or t1 is None or t1 < t0:
+            continue
+        _monitor.SERVING_PHASE_HIST.observe(
+            (t1 - t0) * 1e3, phase=name, tenant=tenant, bucket=bucket)
+        if tracer.enabled:
+            args = {"trace": req.trace_id, "tenant": tenant,
+                    "bucket": bucket}
+            if name == "materialize":
+                # the last span carries the measured e2e, so a reader can
+                # check the phase sum against it
+                args["e2e_ms"] = round(e2e_ms, 3)
+            if extra and name in extra:
+                args.update(extra[name])
+            tracer.add_complete("serving." + name, "serving", t0, t1,
+                                args)
 
 
 class ServingFuture:
@@ -108,7 +168,8 @@ class Request:
     prompt with its generation limits, + future."""
 
     __slots__ = ("tenant", "feeds", "seq_len", "bucket", "future",
-                 "t_submit", "prompt", "max_new_tokens", "eos_id")
+                 "t_submit", "prompt", "max_new_tokens", "eos_id",
+                 "admit_gen", "trace_id", "tm")
 
     def __init__(self, tenant: str, feeds: Optional[Dict[str, Any]] = None,
                  seq_len: int = 0, bucket: int = 0,
@@ -123,6 +184,12 @@ class Request:
         self.prompt = prompt
         self.max_new_tokens = max_new_tokens
         self.eos_id = eos_id
+        self.admit_gen = 0   # the tenant's incarnation at admission
+        self.trace_id = next(_TRACE_IDS)
+        # phase boundaries (perf_counter), written along the request's
+        # handoffs (submit -> scheduler -> completion thread), each through
+        # a lock, so a reader sees the marks of every finished phase
+        self.tm: Dict[str, float] = {"submit": self.t_submit}
 
 
 class ContinuousBatcher:
@@ -147,6 +214,9 @@ class ContinuousBatcher:
         self._log_mu = threading.Lock()
         self._log: List[dict] = []  # guarded-by: _log_mu
         self._threads: List[threading.Thread] = []
+        # batches dispatched and not yet resolved, and the most at once
+        self._alive = 0             # guarded-by: _done_cv
+        self._max_alive = 0         # guarded-by: _done_cv
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> None:
@@ -174,6 +244,7 @@ class ContinuousBatcher:
         with self._cv:
             if self._stop:
                 return False
+            req.tm["enq"] = time.perf_counter()
             self._queue.append(req)
             self._pending += 1
             self._cv.notify()
@@ -182,6 +253,19 @@ class ContinuousBatcher:
     def queue_depth(self) -> int:
         with self._cv:
             return len(self._queue)
+
+    def alive_stats(self, reset: bool = False) -> Dict[str, int]:
+        """``alive``: batches whose dispatch has started and that have not
+        resolved yet (the one being dispatched, those waiting for the
+        completion thread and the one it is materializing), each holding
+        its step's memory or its fetches on the card; ``max_alive``: the
+        most at once since the last reset.  ``reset`` restarts
+        ``max_alive`` at the current count."""
+        with self._done_cv:
+            out = {"alive": self._alive, "max_alive": self._max_alive}
+            if reset:
+                self._max_alive = self._alive
+        return out
 
     def drain(self, timeout_s: float = 60.0) -> bool:
         """Block until every admitted request has resolved (completed or
@@ -208,7 +292,9 @@ class ContinuousBatcher:
         to the window for stragglers; None on stop with an empty queue."""
         with self._cv:
             while not self._queue and not self._stop:
+                _touch_alive()
                 self._cv.wait(0.1)
+            _touch_alive()
             if not self._queue:
                 return None
             bucket = self._queue[0].bucket
@@ -240,10 +326,12 @@ class ContinuousBatcher:
         out: List[Request] = []
         if n <= 0:
             return out
+        now = time.perf_counter()
         keep: collections.deque = collections.deque()
         while self._queue:
             r = self._queue.popleft()
             if r.bucket == bucket and len(out) < n:
+                r.tm["pop"] = now        # queue_wait ends here
                 out.append(r)
             else:
                 keep.append(r)
@@ -275,7 +363,6 @@ class ContinuousBatcher:
             if not batch:
                 continue             # bucket-plan failure already handled
             bucket = batch[0].bucket
-            t_d0 = time.perf_counter()
             try:
                 compiled, feed_names, fetch_names, width = \
                     self._plan.plan(bucket)
@@ -287,15 +374,34 @@ class ContinuousBatcher:
                 # request's future
                 self._fail_batch(batch, e)
                 continue
+            PAD_TOKENS_CTR.inc(width - len(batch))
+            # a batch is alive on the card from its dispatch's start (its
+            # step allocates as it is issued) until it resolves
+            with self._done_cv:
+                self._alive += 1
+                self._max_alive = max(self._max_alive, self._alive)
+                alive = self._alive
+            t_d0 = time.perf_counter()
             handles = self._dispatch(compiled, feed, fetch_names, batch)
+            t_d1 = time.perf_counter()
+            BATCHES_CTR.inc(1, bucket=str(bucket))
+            OCCUPANCY_HIST.observe(float(len(batch)), mode="batch")
+            _monitor.SERVING_LAST_OCC_GAUGE.set(float(len(batch)))
             if handles is None:
+                self._resolved()
                 continue
+            # this thread dispatched the executor's latest step, so its id
+            # names the batch's step (the executor.dispatch span's)
             meta = {"bucket": bucket, "width": width,
-                    "occupancy": len(batch), "t_d0": t_d0,
-                    "t_d1": time.perf_counter()}
+                    "occupancy": len(batch), "t_d0": t_d0, "t_d1": t_d1,
+                    "step": last_step_id(), "alive": alive}
             with self._done_cv:
                 self._done_q.append((batch, handles, meta))
                 self._done_cv.notify()
+            # the completion thread owns the batch now: a reference kept
+            # here would hold its fetches on the card through the next
+            # batch's step, beyond what alive_stats() counts
+            del handles, feed
 
     @staticmethod
     def _assemble(batch, bucket, feed_names, width, program):
@@ -380,24 +486,48 @@ class ContinuousBatcher:
                         result.append(row)
                     results.append(result)
             except Exception as e:
+                del handles
                 self._fail_batch(batch, e)
+                self._resolved()
                 continue
             now = time.perf_counter()
             with self._log_mu:
                 self._log.append({
                     "bucket": bucket, "width": meta["width"],
                     "occupancy": meta["occupancy"],
+                    "alive_at_dispatch": meta["alive"],
                     "dispatch_ms": (meta["t_d1"] - meta["t_d0"]) * 1e3,
                     "latency_ms": (now - meta["t_d0"]) * 1e3})
+            pad = meta["width"] - meta["occupancy"]
+            dispatch_args = {
+                "step": meta["step"], "width": meta["width"],
+                "occupancy": meta["occupancy"], "pad_rows": pad,
+                "pad_frac": round(pad / float(meta["width"]), 4)}
             for r, result in zip(batch, results):
-                self._on_complete(r, result, (now - r.t_submit) * 1e3)
+                e2e_ms = (now - r.t_submit) * 1e3
+                _emit_request_trace(r, (
+                    ("admit", r.tm.get("submit"), r.tm.get("enq")),
+                    ("queue_wait", r.tm.get("enq"), r.tm.get("pop")),
+                    ("batch_wait", r.tm.get("pop"), meta["t_d0"]),
+                    ("dispatch", meta["t_d0"], meta["t_d1"]),
+                    ("materialize", meta["t_d1"], now),
+                ), e2e_ms, extra={"dispatch": dispatch_args})
+                self._on_complete(r, result, e2e_ms)
             with self._cv:
                 self._pending -= len(batch)
                 self._cv.notify_all()
+            # release the batch's fetches before waiting for the next one
+            del handles, outs, results
+            self._resolved()
+
+    def _resolved(self) -> None:
+        """A dispatched batch resolved (completed or failed)."""
+        with self._done_cv:
+            self._alive -= 1
 
 
 class _SlotState:
-    __slots__ = ("req", "tokens", "pos", "generated")
+    __slots__ = ("req", "tokens", "pos", "generated", "iters")
 
     def __init__(self, req: Request):
         self.req = req
@@ -405,6 +535,7 @@ class _SlotState:
             req.prompt).ravel()]
         self.pos = 0
         self.generated: List[int] = []
+        self.iters = 0          # decode iterations this request rode
 
 
 class DecodeScheduler:
@@ -463,6 +594,7 @@ class DecodeScheduler:
         with self._cv:
             if self._stop:
                 return False
+            req.tm["enq"] = time.perf_counter()
             self._queue.append(req)
             self._pending += 1
             self._cv.notify()
@@ -508,6 +640,7 @@ class DecodeScheduler:
             if not self._engine.reserve_slot(s, max(1, need)):
                 break               # pool exhausted: wait for completions
             self._queue.popleft()
+            req.tm["slot"] = time.perf_counter()   # queue_wait ends
             self._slots[s] = _SlotState(req)
             self._kv_account(req.tenant,
                              len(self._engine.cache.pages_of(s)),
@@ -517,6 +650,7 @@ class DecodeScheduler:
         eng = self._engine
         S = eng.max_slots
         while True:
+            _touch_alive()
             t_l0 = time.perf_counter()
             with self._cv:
                 self._admit_locked()
@@ -557,6 +691,7 @@ class DecodeScheduler:
                     {"iter": self._iter, "occupancy": len(stepped)})
             if logits is None:
                 continue
+            self._logits_sentinel(logits, stepped)
             BATCHES_CTR.inc(1, bucket="decode")
             OCCUPANCY_HIST.observe(float(len(stepped)), mode="decode")
             _monitor.SERVING_LAST_OCC_GAUGE.set(float(len(stepped)))
@@ -565,6 +700,7 @@ class DecodeScheduler:
             for s in stepped:
                 st = self._slots[s]
                 st.pos += 1
+                st.iters += 1
                 if st.pos < len(st.tokens):
                     continue                   # prefill: next prompt token
                 nxt = int(np.argmax(logits[s]))
@@ -623,6 +759,21 @@ class DecodeScheduler:
                     self._pending -= len(failed)
                     self._cv.notify_all()
                 return None
+
+    def _logits_sentinel(self, logits, stepped) -> None:
+        """The decode path's numerics sentinel (ref scheduler.py:663-682):
+        under ``FLAGS_numerics`` a non-finite logit means the model or KV
+        state is poisoned and every argmax after it is garbage; count it
+        under class ``logits`` with one anomaly record an episode.  The
+        logits are on the host already, so the scan waits on nothing."""
+        from ..analysis import numerics as _numerics
+        if _numerics.mode() == "off":
+            return
+        sub = logits[stepped] if len(stepped) < logits.shape[0] else logits
+        bad = int(sub.size - np.count_nonzero(np.isfinite(sub)))
+        _numerics.note_nonfinite(
+            "logits", bad, step=self._iter,
+            detail={"slots": list(map(int, stepped))} if bad else None)
 
     def _kv_account(self, tenant, delta: int, reserved: bool = False) -> None:
         """Per-tenant KV-page bookkeeping (decode thread only): the
@@ -690,7 +841,17 @@ class DecodeScheduler:
         self._engine.release_slot(s)
         self._slots[s] = None
         out = np.asarray(st.generated, np.int32)
-        e2e_ms = (time.perf_counter() - st.req.t_submit) * 1e3
+        done_t = time.perf_counter()
+        e2e_ms = (done_t - st.req.t_submit) * 1e3
+        tm = st.req.tm
+        _emit_request_trace(st.req, (
+            ("admit", tm.get("submit"), tm.get("enq")),
+            ("queue_wait", tm.get("enq"), tm.get("slot")),
+            ("decode", tm.get("slot"), now),
+            ("materialize", now, done_t),
+        ), e2e_ms, bucket="decode",
+            extra={"decode": {"iters": st.iters,
+                              "generated": len(st.generated)}})
         _monitor.SERVING_FREE_SLOTS_GAUGE.set(float(sum(
             1 for x in self._slots if x is None)))
         self._on_complete(st.req, out, e2e_ms)

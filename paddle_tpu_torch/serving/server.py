@@ -1,27 +1,38 @@
-"""Multi-tenant inference servers: tenant plane + graceful drain (the port's
-``paddle_tpu/serving/server.py``).
+"""Multi-tenant inference servers: tenant plane, SLO plane and graceful
+drain (the port of ``paddle_tpu/serving/server.py``).
 
 Two servers share one admission plane (:class:`_ServerBase`):
 :class:`InferenceServer` serves request/response models through bucketized
 continuous batching, :class:`DecodeServer` generates tokens through the
 paged-KV decode engine.  Admission is per tenant: an outstanding quota
-(``tenant_quota``) is enforced at submit, and a draining server rejects new
-work while it finishes everything admitted.  Rejections are counted in
-:attr:`TenantPlane.rejected`.  Not ported yet (ROADMAP): the per-tenant
-quota overrides, tenant generations and eviction, the monitor series of
-the tenant plane, the SLO evaluator (``statusz()["slo"]`` is None), the
-HTTP surface, the signal handlers and ``serve_until_terminated``.  Both
-servers report the memory budget (``FLAGS_memory_budget_mb``) in
-``statusz()["memory"]``, under which :class:`InferenceServer` admits each
-bucket's batch width, and register ``statusz`` with the OOM forensics'
-census when they start.
+(``tenant_quota``, or a tenant's own from ``set_quota``) is enforced at
+submit, and a draining server rejects new work while it finishes everything
+admitted.  Every tenant has a request counter, a queue-depth gauge and a
+latency histogram in ``monitor``; ``TenantPlane.evict`` retires them
+(``monitor.retire_tenant_series``) and bumps the tenant's generation, so a
+request admitted before the eviction accounts to ``tenant="retired"``.
+
+The SLO plane (``serving/slo.py``): with ``FLAGS_serving_slo`` set, every
+resolved request feeds a ``BurnRateEvaluator`` that a small thread
+evaluates every ``FLAGS_serving_slo_eval_interval_s``; ``statusz()["slo"]``
+is its state, and ``FLAGS_serving_slo_shed`` refuses a breached tenant's
+new work.  ``enable_http`` serves ``/metrics``, ``/healthz`` and
+``/statusz`` (``serving/httpd.py``); ``serve_until_terminated`` blocks
+until SIGTERM or SIGINT (whose handlers only set an event), then drains and
+returns 0 when nothing was dropped.  Both servers report the memory budget
+(``FLAGS_memory_budget_mb``) in ``statusz()["memory"]``, under which
+:class:`InferenceServer` admits each bucket's batch width
+(``shrink_widths`` halves them), and register ``statusz`` with the OOM
+forensics' census when they start.
 """
 
 from __future__ import annotations
 
+import signal
 import threading
 import time
-from typing import Any, Callable, Dict, Optional
+import warnings
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 
@@ -36,43 +47,115 @@ class AdmissionError(RuntimeError):
 
 
 class TenantPlane:
-    """Per-tenant admission bookkeeping: outstanding (queued + in-flight)
-    requests per tenant against one quota (0 = unlimited), and counts of
-    rejected submits."""
+    """Per-tenant admission and telemetry bookkeeping (ref server.py:34-146):
+    outstanding (queued + in-flight) requests per tenant against its quota
+    (0 = unlimited), its monitor series, and counts of rejected submits
+    (:attr:`rejected`, by (tenant, reason))."""
 
-    def __init__(self, quota: int = 0):
+    def __init__(self, default_quota: int = 0, on_evict=None):
         self._mu = threading.Lock()
+        self._on_evict = on_evict    # eviction hook (the SLO plane's forget)
         self._outstanding: Dict[str, int] = {}  # guarded-by: _mu
+        self._quotas: Dict[str, int] = {}  # guarded-by: _mu
+        self._evicted: set = set()  # guarded-by: _mu
+        # incarnation counter, bumped on evict: a request carries the
+        # generation it was admitted under, so a straggler from before an
+        # eviction neither shrinks the re-admitted tenant's count nor
+        # re-mints its folded series
+        self._gen: Dict[str, int] = {}  # guarded-by: _mu
+        self._default_quota = int(default_quota)
         #: (tenant, reason) -> rejected submits
         self.rejected: Dict[tuple, int] = {}  # guarded-by: _mu
-        self._quota = int(quota)
+
+    def generation(self, tenant: str) -> int:
+        with self._mu:
+            return self._gen.get(str(tenant), 0)
+
+    def is_current(self, tenant: str, gen: Optional[int]) -> bool:
+        """True while the request's incarnation is live: the tenant is not
+        evicted and (when the request carries one) its admission generation
+        is the current one."""
+        tenant = str(tenant)
+        with self._mu:
+            if tenant in self._evicted:
+                return False
+            return gen is None or gen == self._gen.get(tenant, 0)
+
+    def set_quota(self, tenant: str, quota: int) -> None:
+        with self._mu:
+            self._quotas[str(tenant)] = int(quota)
 
     def try_admit(self, tenant: str) -> bool:
-        """Reserve one outstanding unit; False when over quota."""
+        """Reserve one outstanding unit; False when over quota (the caller
+        counts the rejection)."""
         tenant = str(tenant)
         with self._mu:
+            quota = self._quotas.get(tenant, self._default_quota)
             cur = self._outstanding.get(tenant, 0)
-            if self._quota > 0 and cur >= self._quota:
+            if quota > 0 and cur >= quota:
                 return False
             self._outstanding[tenant] = cur + 1
+            depth = cur + 1
+            # a fresh submit is a new incarnation: it may mint series again
+            self._evicted.discard(tenant)
+        _monitor.SERVING_REQ_CTR.inc(1, tenant=tenant)
+        _monitor.SERVING_QUEUE_GAUGE.set(depth, tenant=tenant)
         return True
 
-    def release(self, tenant: str) -> None:
-        """One admitted request resolved (completed or failed)."""
-        tenant = str(tenant)
+    def _account(self, tenant: str, gen: Optional[int]) -> tuple:
+        """(label to account under, depth or None): a request of an evicted
+        tenant, or of an earlier incarnation, lands in the "retired" series
+        and leaves the new incarnation's count alone."""
         with self._mu:
-            self._outstanding[tenant] = max(
-                0, self._outstanding.get(tenant, 1) - 1)
+            stale = gen is not None and gen != self._gen.get(tenant, 0)
+            if tenant in self._evicted or stale:
+                return "retired", None
+            depth = max(0, self._outstanding.get(tenant, 1) - 1)
+            self._outstanding[tenant] = depth
+            return tenant, depth
+
+    def complete(self, tenant: str, latency_ms: float,
+                 gen: Optional[int] = None) -> None:
+        label, depth = self._account(str(tenant), gen)
+        _monitor.SERVING_DONE_CTR.inc(1, tenant=label)
+        _monitor.SERVING_LAT_HIST.observe(latency_ms, tenant=label)
+        if depth is not None:
+            _monitor.SERVING_QUEUE_GAUGE.set(depth, tenant=label)
+
+    def fail(self, tenant: str, gen: Optional[int] = None) -> None:
+        label, depth = self._account(str(tenant), gen)
+        _monitor.SERVING_FAIL_CTR.inc(1, tenant=label)
+        if depth is not None:
+            _monitor.SERVING_QUEUE_GAUGE.set(depth, tenant=label)
 
     def reject(self, tenant: str, reason: str) -> None:
+        tenant = str(tenant)
         with self._mu:
-            key = (str(tenant), reason)
+            if tenant in self._evicted:
+                tenant = "retired"
+            key = (tenant, reason)
             self.rejected[key] = self.rejected.get(key, 0) + 1
+        _monitor.SERVING_REJECT_CTR.inc(1, tenant=tenant, reason=reason)
 
     def snapshot(self) -> Dict[str, int]:
         """Per-tenant outstanding (queued + in-flight) counts."""
         with self._mu:
-            return dict(self._outstanding)
+            return {t: n for t, n in self._outstanding.items()
+                    if t not in self._evicted}
+
+    def evict(self, tenant: str) -> None:
+        """Drop the tenant and retire its registry series (counters fold
+        into ``tenant="retired"``, totals exact).  Its in-flight requests
+        finish normally and account to "retired"."""
+        tenant = str(tenant)
+        with self._mu:
+            self._outstanding.pop(tenant, None)
+            self._quotas.pop(tenant, None)
+            self._evicted.add(tenant)
+            self._gen[tenant] = self._gen.get(tenant, 0) + 1
+        _monitor.retire_tenant_series(tenant)
+        if self._on_evict is not None:
+            self._on_evict(tenant)
 
     def outstanding(self, tenant: str) -> int:
         with self._mu:
@@ -87,13 +170,47 @@ def _failed(msg: str) -> ServingFuture:
 
 
 class _ServerBase:
-    """Admission, completion, drain and stop, shared by both servers."""
+    """Admission, completion, the SLO loop, the scrape endpoint, drain,
+    signals and stop, shared by both servers (ref server.py:149-351)."""
 
     def __init__(self, tenant_quota: Optional[int] = None):
-        self.tenants = TenantPlane(int(tenant_quota or 0))
+        from ..flags import get_flags
+        from .slo import BurnRateEvaluator
+        fl = get_flags(["FLAGS_serving_slo_shed",
+                        "FLAGS_serving_slo_eval_interval_s"])
+        self.tenants = TenantPlane(int(tenant_quota or 0),
+                                   on_evict=self._forget_slo)
         self._draining = threading.Event()
         self._started = False
+        self._old_handlers: Dict[int, Any] = {}
         self._sched = None       # set by the subclass
+        #: the per-tenant burn-rate state machine; None = SLO plane off
+        self.slo = BurnRateEvaluator.from_flags()
+        self._slo_shed = bool(fl["FLAGS_serving_slo_shed"])
+        self._slo_interval = float(fl["FLAGS_serving_slo_eval_interval_s"])
+        self._slo_stop = threading.Event()
+        self._slo_thread: Optional[threading.Thread] = None
+        self._slo_eval_warned = False
+        self._http = None        # MetricsHTTPServer (enable_http)
+
+    def _forget_slo(self, tenant: str) -> None:
+        """Tenant-eviction hook: the evaluator stops tracking the tenant, or
+        its next tick would re-mint the series just retired."""
+        if self.slo is not None:
+            self.slo.forget(tenant)
+
+    def _slo_eval_safe(self) -> None:
+        """One evaluator tick.  The loop outlives an evaluator bug, but not
+        silently: the first failure warns with the error, since stale
+        breach-free gauges during an outage mislead."""
+        try:
+            self.slo.evaluate()
+        except Exception as e:
+            if not self._slo_eval_warned:
+                self._slo_eval_warned = True
+                warnings.warn(
+                    "serving SLO evaluator failed — burn/breach gauges "
+                    f"are stale until it recovers: {e!r}")
 
     # -- admission -----------------------------------------------------------
     def _admit(self, tenant: str) -> Optional[str]:
@@ -102,6 +219,11 @@ class _ServerBase:
         if self._draining.is_set():
             self.tenants.reject(tenant, "draining")
             return "draining"
+        if (self._slo_shed and self.slo is not None
+                and self.slo.in_breach(tenant)):
+            # shed on burn: new work would only deepen the breach
+            self.tenants.reject(tenant, "slo_shed")
+            return "slo_shed"
         if not self.tenants.try_admit(tenant):
             self.tenants.reject(tenant, "quota")
             return "quota"
@@ -114,6 +236,7 @@ class _ServerBase:
         return _failed(msg)
 
     def _enqueue(self, req: Request) -> ServingFuture:
+        req.admit_gen = self.tenants.generation(req.tenant)
         if not self._sched.enqueue(req):
             # enqueue raced stop(): nothing will ever service the queue
             self._on_fail(req, AdmissionError("server stopped"))
@@ -121,11 +244,19 @@ class _ServerBase:
 
     def _on_complete(self, req: Request, result, latency_ms: float):
         req.future._resolve(result)
-        self.tenants.release(req.tenant)
+        self.tenants.complete(req.tenant, latency_ms, gen=req.admit_gen)
+        # a request resolving after its tenant's eviction must not
+        # un-forget the tenant in the SLO plane
+        if self.slo is not None \
+                and self.tenants.is_current(req.tenant, req.admit_gen):
+            self.slo.record(req.tenant, ok=True, latency_ms=latency_ms)
 
     def _on_fail(self, req: Request, err: BaseException):
         req.future._fail(err)
-        self.tenants.release(req.tenant)
+        self.tenants.fail(req.tenant, gen=req.admit_gen)
+        if self.slo is not None \
+                and self.tenants.is_current(req.tenant, req.admit_gen):
+            self.slo.record(req.tenant, ok=False)
 
     # -- lifecycle -----------------------------------------------------------
     def start(self):
@@ -136,7 +267,16 @@ class _ServerBase:
             # section (weakly registered: it never keeps a server alive)
             from .. import hbm as _hbm
             _hbm.register_census(self.statusz)
+        if self.slo is not None and self._slo_thread is None:
+            self._slo_stop.clear()
+            self._slo_thread = threading.Thread(
+                target=self._slo_loop, name="serving-slo", daemon=True)
+            self._slo_thread.start()
         return self
+
+    def _slo_loop(self) -> None:
+        while not self._slo_stop.wait(self._slo_interval):
+            self._slo_eval_safe()
 
     def drain(self, timeout_s: float = 60.0) -> bool:
         """Stop admitting and block until every in-flight request has
@@ -147,17 +287,89 @@ class _ServerBase:
     def stop(self) -> None:
         self._draining.set()
         self._sched.stop()
+        self._slo_stop.set()
+        if self._slo_thread is not None:
+            self._slo_thread.join(timeout=2.0)
+            self._slo_thread = None      # start() can relaunch it
+        if self.slo is not None:
+            self._slo_eval_safe()          # the final state for an export
+        if self._http is not None:
+            self._http.stop()
+            self._http = None
 
     def queue_depth(self) -> int:
         return self._sched.queue_depth()
 
+    # -- the scrape endpoint -------------------------------------------------
+    def _health(self):
+        draining = self._draining.is_set()
+        return (not draining, "draining" if draining else "ok")
+
     def statusz(self) -> Dict[str, Any]:
-        """Operational snapshot (subclasses extend).  ``slo`` is None: the
-        SLO plane is not ported."""
+        """Operational snapshot for ``/statusz`` (subclasses extend)."""
         return {"draining": self._draining.is_set(),
                 "queue_depth": self.queue_depth(),
                 "tenants": self.tenants.snapshot(),
-                "slo": None}
+                "slo": self.slo.state() if self.slo is not None else None}
+
+    def enable_http(self, port: Optional[int] = None,
+                    host: Optional[str] = None):
+        """Start this server's ``/metrics`` ``/healthz`` ``/statusz``
+        endpoint (idempotent).  ``port=None`` reads ``FLAGS_metrics_port``,
+        whose default 0 means disabled: the call then returns None.  An
+        explicit ``port=0`` binds an ephemeral port (read ``.port``).
+        ``host=None`` reads ``FLAGS_metrics_host``."""
+        if self._http is not None:
+            return self._http
+        from ..flags import get_flags
+        if port is None:
+            port = int(get_flags("FLAGS_metrics_port")
+                       ["FLAGS_metrics_port"])
+            if port <= 0:
+                return None
+        if host is None:
+            host = str(get_flags("FLAGS_metrics_host")
+                       ["FLAGS_metrics_host"])
+        from .httpd import MetricsHTTPServer
+        self._http = MetricsHTTPServer(
+            port=int(port), host=host, health_fn=self._health,
+            status_fn=self.statusz).start()
+        return self._http
+
+    # -- SIGTERM graceful drain ----------------------------------------------
+    def install_signal_handlers(
+            self, signals: Sequence[int] = (signal.SIGTERM,
+                                            signal.SIGINT)) -> None:
+        for s in signals:
+            self._old_handlers[s] = signal.signal(s, self._handler)
+
+    def _handler(self, signum, frame):
+        # only an Event.set: taking a metric or tracer lock while
+        # interrupting the main thread's own critical section could
+        # deadlock at the moment the drain must run
+        self._draining.set()
+
+    def serve_until_terminated(self, poll_s: float = 0.05,
+                               drain_timeout_s: float = 60.0) -> int:
+        """Block until SIGTERM or SIGINT, then drain and return the exit
+        code (0 = no in-flight request dropped).  With
+        ``FLAGS_metrics_port`` set the scrape endpoint runs meanwhile, and
+        ``/healthz`` answers 503 from the moment draining starts."""
+        self.install_signal_handlers()
+        from ..flags import get_flags
+        if self._http is None and int(
+                get_flags("FLAGS_metrics_port")["FLAGS_metrics_port"]) > 0:
+            self.enable_http()
+        try:
+            while not self._draining.is_set():
+                time.sleep(poll_s)
+            ok = self.drain(drain_timeout_s)
+        finally:
+            for s, h in self._old_handlers.items():
+                signal.signal(s, h)
+            self._old_handlers.clear()
+            self.stop()
+        return 0 if ok else 1
 
 
 class InferenceServer(_ServerBase):
@@ -251,7 +463,9 @@ class InferenceServer(_ServerBase):
         if reason is not None:
             return _failed(f"tenant {tenant!r} rejected ({reason})")
         req = Request(tenant, feeds=feeds, seq_len=n, bucket=bucket)
-        req.t_submit = t0
+        # the admit phase starts at submit's entry, so the phase chain
+        # partitions the whole measured latency
+        req.t_submit = req.tm["submit"] = t0
         return self._enqueue(req)
 
     def compile_stats(self) -> Dict[str, int]:
@@ -264,6 +478,17 @@ class InferenceServer(_ServerBase):
         """Per-batch records of the scheduler (see
         :meth:`ContinuousBatcher.batch_log`)."""
         return self._sched.batch_log()
+
+    def alive_stats(self, reset: bool = False):
+        """Batches on the card at once (see
+        :meth:`ContinuousBatcher.alive_stats`)."""
+        return self._sched.alive_stats(reset)
+
+    def shrink_widths(self) -> Dict[int, int]:
+        """Halve every built bucket's admitted batch width (ref
+        server.py:470, the fleet's degradation rung); the next batch of a
+        bucket runs at its new width."""
+        return self.plan.shrink_widths()
 
     def statusz(self) -> Dict[str, Any]:
         out = super().statusz()
@@ -280,6 +505,17 @@ class InferenceServer(_ServerBase):
                          "static_peak_bytes": self.plan.static_peak_of(b)}
                 for b in self.buckets},
         }
+        occ = _monitor.REGISTRY.get("paddle_tpu_serving_batch_occupancy")
+        if occ is not None:
+            tot_sum = tot_n = 0.0
+            for labels, cell in occ.series():
+                if labels.get("mode") != "batch":
+                    continue    # a coexisting decode loop's iterations
+                _counts, s, c = cell.snapshot()
+                tot_sum += s
+                tot_n += c
+            if tot_n:
+                out["mean_occupancy"] = round(tot_sum / tot_n, 3)
         return out
 
 
@@ -326,7 +562,7 @@ class DecodeServer(_ServerBase):
             return _failed(f"tenant {tenant!r} rejected ({reason})")
         req = Request(tenant, prompt=prompt,
                       max_new_tokens=int(max_new_tokens), eos_id=eos_id)
-        req.t_submit = t0
+        req.t_submit = req.tm["submit"] = t0
         return self._enqueue(req)
 
     def compile_stats(self) -> Dict[str, int]:

@@ -17,7 +17,9 @@
   ``fc``), and ``apply_passes`` of
   ``conv_bn_train_fuse_pass``, and a checkpoint daemon's save of the tiny
   GPT of ``tools/preempt_runner.py`` and its resume in a fresh scope
-  (``resume_or_init``, the state bit for bit), work;
+  (``resume_or_init``, the state bit for bit), work; so do full-mode
+  numerics statistics of a small MLP and an SLO-tracked request served
+  behind the scrape endpoint;
 - a source scan finds no ``jax`` or ``paddle_tpu`` import in the package or
   in ``chip_smoke.py``;
 - ``Executor()`` and ``DecodeEngine()`` (the card by default) raise when
@@ -304,7 +306,11 @@ def test_no_jax_or_reference_import_in_sources():
             "paddle_tpu_torch/analysis/memory.py",
             "paddle_tpu_torch/hbm.py",
             "paddle_tpu_torch/profiler.py",
-            "paddle_tpu_torch/analysis/device_profile.py"} <= scanned
+            "paddle_tpu_torch/analysis/device_profile.py",
+            "paddle_tpu_torch/analysis/numerics.py",
+            "paddle_tpu_torch/serving/slo.py",
+            "paddle_tpu_torch/serving/httpd.py",
+            "paddle_tpu_torch/serving/bucketing.py"} <= scanned
     offenders = []
     for path in _sources():
         with open(path) as f:
@@ -367,6 +373,65 @@ def test_planes_run_with_jax_blocked():
                          timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "window " in res.stdout
+
+
+_NUMERICS_SERVING_BLOCKED = textwrap.dedent("""
+    import json, sys, urllib.request
+    sys.modules["jax"] = None
+    sys.modules["paddle_tpu"] = None
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import flags, layers
+    from paddle_tpu_torch.analysis import numerics
+    from paddle_tpu_torch.framework import Program, Scope, program_guard
+
+    flags.set_flags({"FLAGS_numerics": "full",
+                     "FLAGS_serving_slo": "*:p99_ms=500"})
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        x = layers.data("x", shape=[8], dtype="float32")
+        loss = layers.mean(layers.fc(layers.fc(x, 16, act="relu"), 4))
+        ptt.optimizer.SGD(0.1).minimize(loss)
+    scope, exe = Scope(), ptt.Executor(ptt.CPUPlace())
+    exe.run(startup, scope=scope, seed=1)
+    for _ in range(3):
+        exe.run(main, feed={"x": np.ones((4, 8), np.float32)},
+                fetch_list=[loss], scope=scope)
+    numerics.ENGINE.poll(force=True)
+    f = numerics.ENGINE.last_frame
+    assert f.grads and f.weights and f.global_gnorm > 0, f.grads
+
+    def factory(seq):
+        prog, st = Program(), Program()
+        with program_guard(prog, st):
+            v = layers.data("v", shape=[seq], dtype="float32")
+            out = layers.concat([v, v], axis=1)
+        return prog, ["v"], [out.name]
+    srv = ptt.serving.InferenceServer(factory, Scope(), buckets=(8,),
+                                      max_batch=2, executor=exe).start()
+    http = srv.enable_http(0, host="127.0.0.1")
+    srv.submit("t", {"v": np.ones(4, np.float32)}).result(timeout=60)
+    srv._slo_eval_safe()
+    st = json.loads(urllib.request.urlopen(http.url + "/statusz").read())
+    assert st["slo"]["t"]["breached"] is False, st
+    srv.drain(10)
+    srv.stop()
+    assert not [m for m, mod in sys.modules.items() if mod is not None
+                and (m == "jax" or m.startswith(("jax.", "paddle_tpu.")))]
+    print("numerics", len(f.grads), "slo", sorted(st["slo"]))
+""")
+
+
+def test_numerics_and_serving_planes_run_with_jax_blocked():
+    """Full-mode statistics of a small MLP, an SLO-tracked served request
+    and the scrape endpoint, with JAX and the reference unimportable."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run([sys.executable, "-c", _NUMERICS_SERVING_BLOCKED],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "numerics " in res.stdout
 
 
 def test_default_executor_needs_a_gpu():
