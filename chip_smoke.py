@@ -339,6 +339,25 @@ JAX, prints one line per phase, and raises on any failure:
    SLO state; ``shrink_widths()`` halves both buckets and the next
    bucket-2048 batch runs at width 4; evicting a tenant folds its series
    into ``tenant="retired"``; K1 12 times a bucket-2048 batch.
+   ``serve_fleet`` — ``serve``'s GPT behind the serving fleet: (a) two
+   ``ReplicaEndpoint``s on 127.0.0.1, each over its own ``InferenceServer``
+   (bucket 32, ``max_batch`` 4, flash attention), behind one
+   ``FleetRouter``: 8 requests of 4-12 tokens from two tenants routed one
+   at a time, each within ``FLEET_ATOL`` + ``FLEET_RTOL`` of the same
+   request submitted directly (routed and direct p50/p99, the largest
+   frame's bytes and JSON times printed); the 8 again from 4 clients while
+   one endpoint stops: no failure, ``reroutes{reason="dead"}`` >= 1, the
+   router's ledger exact, K1 12 times a batch; (b) a ``DecodeServer`` (8
+   slots) behind an endpoint: 4 greedy prompts through
+   ``FleetRouter.decode`` equal to its direct ``submit`` token for token;
+   (c) ``paddle_tpu_torch/tools/fleet_smoke.py --width full`` over
+   ``serve``'s weights (``io.save_persistables``), every replica's probe
+   logits within ``FLEET_ATOL`` + ``FLEET_RTOL`` of an in-process server's
+   over ``serve``'s scope: replica processes on this card for ``drain`` (SIGTERM: exit 0, drain
+   re-routes), ``kill`` (SIGKILL: dead re-routes, p99) and ``scale`` (one
+   scale-up, one death repair, one idle retire through the drain, exit 0),
+   no client-visible failure; each child loads the kernels built above and
+   reports its K1 launches (12 a batch), peak memory and time to READY.
 
 Then one JSON line describing every kernel, the ``nvidia-smi`` line, and a
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -590,6 +609,14 @@ NUMERICS_POISON_AT = 4
 # tools/serving_smoke.py:219 on a request's phase sum against its e2e_ms
 SERVE_PLANE_SLO = "*:p99_ms=60000,avail=99"
 TRACE_SUM_RTOL, TRACE_SUM_ATOL_MS = 0.10, 0.05
+# the serving fleet (serve_fleet): routed logits against the same server's
+# direct ones (batches may be made up differently); requests of 4-12
+# tokens, whose logits (len x 30522 float32) travel as JSON lists; the
+# decode prompts; the chaos drill's time limit
+FLEET_ATOL, FLEET_RTOL = 1e-5, 1e-4
+FLEET_BUCKET, FLEET_REQUESTS, FLEET_TOKENS = 32, 8, (4, 12)
+FLEET_DECODE_PROMPTS, FLEET_DECODE_LEN, FLEET_DECODE_NEW = 4, (8, 32), 16
+FLEET_SMOKE_TIMEOUT_S = 600
 
 
 def _log(phase, msg):
@@ -1459,14 +1486,14 @@ def _gpt_cfg():
                         n_head=12, d_inner=3072, max_pos=2048, dropout=0.0)
 
 
-def _factory(cfg):
+def _factory(cfg, attn_impl="auto"):
     from paddle_tpu_torch.framework import Program, program_guard
     from paddle_tpu_torch.models import transformer as T
 
     def factory(seq):
         prog, startup = Program(), Program()
         with program_guard(prog, startup):
-            _, logits = T.build_gpt_serving(cfg, seq, attn_impl="auto")
+            _, logits = T.build_gpt_serving(cfg, seq, attn_impl=attn_impl)
         return prog, ["src_ids"], [logits.name]
     return factory
 
@@ -6621,6 +6648,341 @@ def phase_serve_plane(smi, serve):
             "slo": st["slo"], "shrunk": shrunk, "launches": launches}
 
 
+def _wait_fresh(router, n, timeout_s=15.0):
+    """Until the router's prober has heard from ``n`` replicas."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        view = router.replica_view()
+        if sum(1 for r in view.values() if r["fresh"]) >= n:
+            return
+        time.sleep(0.05)
+    raise AssertionError(f"serve_fleet: replicas never fresh: "
+                         f"{router.replica_view()}")
+
+
+def _fleet_in_process(cfg, scope):
+    """(a): two endpoints, each over its own InferenceServer on the card,
+    behind one router: 8 requests routed one by one and the same 8 submitted
+    directly, then the 8 again from 4 client threads while one endpoint
+    stops."""
+    import threading
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.serving import FleetRouter, ReplicaEndpoint
+    factory = _factory(cfg, attn_impl="flash")
+    srvs, eps = [], []
+    for i in range(2):
+        sc = Scope()              # the same tensors, a scope a server
+        for name, val in scope.items():
+            sc.set_var(name, val)
+        srv = ptt.serving.InferenceServer(
+            factory, sc, buckets=(FLEET_BUCKET,), max_batch=4,
+            batch_wait_ms=2.0)
+        srv.warmup()
+        srvs.append(srv.start())
+        eps.append(ReplicaEndpoint(srv, host="127.0.0.1",
+                                   replica_id=f"fleet-{i}").start())
+    router = FleetRouter([e.address for e in eps],
+                         digest_ttl_s=3.0).start()
+    rng = np.random.RandomState(31)
+    reqs = [(f"fleet_{'ab'[i % 2]}",
+             rng.randint(1, cfg.vocab_size, (int(n),)).astype(np.int64))
+            for i, n in enumerate(rng.randint(FLEET_TOKENS[0],
+                                              FLEET_TOKENS[1] + 1,
+                                              FLEET_REQUESTS))]
+    try:
+        _wait_fresh(router, 2)
+        torch.cuda.synchronize()
+        for name in _KERNEL_MODULES:
+            _kernel_module(name).reset_launch_count()
+        dead0 = monitor.FLEET_REROUTE_CTR.value(reason="dead")
+        routed, lat_routed = [], []
+        for t, ids in reqs:
+            t0 = time.perf_counter()
+            out = router.infer(t, {"src_ids": ids})
+            lat_routed.append((time.perf_counter() - t0) * 1e3)
+            routed.append(np.asarray(out[0], np.float32))
+        direct, lat_direct = [], []
+        for t, ids in reqs:
+            t0 = time.perf_counter()
+            out = srvs[0].submit(t, {"src_ids": ids}).result(timeout=600)
+            lat_direct.append((time.perf_counter() - t0) * 1e3)
+            direct.append(out[0])
+        # the largest response's frame: bytes, JSON encode and decode
+        big = max(range(len(reqs)), key=lambda i: len(reqs[i][1]))
+        t0 = time.perf_counter()
+        body = json.dumps({"ok": True, "outputs": [routed[big].tolist()]},
+                          sort_keys=True).encode("utf-8")
+        t1 = time.perf_counter()
+        json.loads(body.decode("utf-8"))
+        t2 = time.perf_counter()
+        frame = {"bytes": len(body) + 4, "tokens": len(reqs[big][1]),
+                 "encode_ms": (t1 - t0) * 1e3, "decode_ms": (t2 - t1) * 1e3}
+        # the kill leg: 4 clients, endpoint 0 stops after 3 answers
+        got, errors, mu = {}, [], threading.Lock()
+        three = threading.Event()
+
+        def client(idx):
+            for i in range(idx, len(reqs), 4):
+                try:
+                    out = router.infer(reqs[i][0], {"src_ids": reqs[i][1]})
+                    with mu:
+                        got[i] = np.asarray(out[0], np.float32)
+                        if len(got) >= 3:
+                            three.set()
+                except Exception as e:        # counted, checked below
+                    with mu:
+                        errors.append(repr(e))
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(4)]
+        t_kill = time.perf_counter()
+        for th in threads:
+            th.start()
+        three.wait(timeout=600)
+        eps[0].stop()
+        for th in threads:
+            th.join(timeout=600)
+        kill_s = time.perf_counter() - t_kill
+        snap = router.snapshot()
+        dead = monitor.FLEET_REROUTE_CTR.value(reason="dead") - dead0
+        torch.cuda.synchronize()
+        launches = fa.launch_count("flash_attn_fwd")
+        others = _launches_nonzero()
+        batches = sum(len(s.batch_log()) for s in srvs)
+    finally:
+        router.stop()
+        for e in eps:
+            e.stop()
+        for s in srvs:
+            s.drain(120)
+            s.stop()
+    worst = 0.0
+    for i, (t, ids) in enumerate(reqs):
+        for what, o in (("routed", routed[i]), ("kill leg", got.get(i))):
+            if o is None or o.shape != (len(ids), cfg.vocab_size) or \
+                    not np.isfinite(o).all():
+                raise AssertionError(f"serve_fleet: {what} request {i}: "
+                                     f"{None if o is None else o.shape}")
+            err = np.abs(o - direct[i])
+            worst = max(worst, float(err.max()))
+            if not (err <= FLEET_ATOL + FLEET_RTOL
+                    * np.abs(direct[i])).all():
+                raise AssertionError(
+                    f"serve_fleet: {what} request {i} differs from the "
+                    f"direct submit by {err.max()} (atol {FLEET_ATOL} "
+                    f"rtol {FLEET_RTOL})")
+    if errors or snap["failed"] or snap["rejected"] or \
+            snap["completed"] != snap["admitted"] or \
+            snap["admitted"] != 2 * len(reqs):
+        raise AssertionError(f"serve_fleet: kill leg errors {errors[:3]}, "
+                             f"ledger {snap}")
+    if dead < 1:
+        raise AssertionError("serve_fleet: no reroutes{reason=dead} after "
+                             "an endpoint stopped mid-stream")
+    if launches != cfg.n_layer * batches or launches == 0:
+        raise AssertionError(f"serve_fleet: K1 launched {launches}, "
+                             f"expected {cfg.n_layer} x {batches} batches")
+    return {"requests": 2 * len(reqs), "max_abs_err": worst,
+            "routed_p50_ms": float(np.percentile(lat_routed, 50)),
+            "routed_p99_ms": float(np.percentile(lat_routed, 99)),
+            "direct_p50_ms": float(np.percentile(lat_direct, 50)),
+            "direct_p99_ms": float(np.percentile(lat_direct, 99)),
+            "frame": frame, "dead_reroutes": dead, "kill_leg_s": kill_s,
+            "batches": batches, "launches": launches,
+            "other_launches": {k: v for k, v in others.items()
+                               if k != "flash_attn_fwd"},
+            "ledger": {k: snap[k] for k in ("admitted", "completed",
+                                            "failed", "rejected")}}
+
+
+def _fleet_decode(cfg, scope, pool_bytes):
+    """(b): a DecodeServer behind an endpoint; the router's greedy tokens
+    against the same server's direct submit.  The engine is ``decode``'s
+    (``pool_bytes`` its pools)."""
+    from paddle_tpu_torch.serving import (DecodeEngine, DecodeServer,
+                                          FleetRouter, ReplicaEndpoint)
+    eng = DecodeEngine(cfg, scope, max_slots=DECODE_SLOTS)
+    if eng.cache.pool_bytes() != pool_bytes:
+        raise AssertionError(f"serve_fleet: decode pools "
+                             f"{eng.cache.pool_bytes()} != {pool_bytes}")
+    srv = DecodeServer(eng).start()
+    ep = ReplicaEndpoint(srv, host="127.0.0.1",
+                         replica_id="fleet-decode").start()
+    router = FleetRouter([ep.address], digest_ttl_s=3.0).start()
+    rng = np.random.RandomState(41)
+    prompts = [rng.randint(1, cfg.vocab_size, (int(n),)).astype(np.int64)
+               for n in rng.randint(FLEET_DECODE_LEN[0],
+                                    FLEET_DECODE_LEN[1] + 1,
+                                    FLEET_DECODE_PROMPTS)]
+    try:
+        t0 = time.perf_counter()
+        routed = [router.decode("fleet_dec", p,
+                                max_new_tokens=FLEET_DECODE_NEW)
+                  for p in prompts]
+        routed_s = time.perf_counter() - t0
+        direct = [[int(x) for x in srv.submit(
+            "fleet_dec", p, max_new_tokens=FLEET_DECODE_NEW).result(600)]
+            for p in prompts]
+    finally:
+        router.stop()
+        ep.stop()
+        srv.drain(120)
+        srv.stop()
+    if routed != direct or any(len(r) != FLEET_DECODE_NEW for r in routed):
+        raise AssertionError(f"serve_fleet: routed decode {routed} != "
+                             f"direct {direct}")
+    return {"prompts": len(prompts), "tokens": FLEET_DECODE_NEW,
+            "routed_s": routed_s, "traces": int(eng.trace_count)}
+
+
+def _fleet_replicas(cfg, scope):
+    """(c): ``tools/fleet_smoke.py --width full`` for drain, kill and
+    scale: replica processes on this card serving ``scope``'s weights
+    (saved here with ``io.save_persistables``), loading the kernels built
+    above.  The tool holds every replica's probe logits against the same
+    probe served here in process over ``scope`` (``--expect``).  Returns
+    its FLEET RESULT."""
+    import shutil
+    import tempfile
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.tools import fleet_smoke
+    tool = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "paddle_tpu_torch", "tools", "fleet_smoke.py")
+    env = dict(os.environ, PADDLE_TPU_TORCH_BUILD_DIR=str(
+        _build.build_dir()))
+    wdir = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    try:
+        factory = _factory(cfg, attn_impl="flash")
+        prog = factory(FLEET_BUCKET)[0]
+        ptt.io.save_persistables(None, os.path.join(wdir, "w"),
+                                 main_program=prog, scope=scope)
+        sc = Scope()              # the same tensors, the server's own scope
+        for name, val in scope.items():
+            sc.set_var(name, val)
+        expect = fleet_smoke.serve_probe(factory, sc, ptt.Executor(),
+                                         "full")
+        if expect.shape != (fleet_smoke.REQUEST_TOKENS["full"],
+                            cfg.vocab_size) or not np.isfinite(expect).all():
+            raise AssertionError(f"serve_fleet: probe logits {expect.shape}")
+        np.save(os.path.join(wdir, "expect.npy"), expect)
+        r = subprocess.run(
+            [sys.executable, tool, "--width", "full",
+             "--weights", os.path.join(wdir, "w"),
+             "--expect", os.path.join(wdir, "expect.npy"),
+             "--scenario", "drain", "kill", "scale"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env, timeout=FLEET_SMOKE_TIMEOUT_S)
+    finally:
+        shutil.rmtree(wdir, ignore_errors=True)
+    lines = r.stdout.splitlines()
+    for ln in lines:
+        if ln.startswith("fleet ") or ln.startswith("weights "):
+            _log("serve_fleet", ln)
+    res = [ln for ln in lines if ln.startswith("FLEET RESULT ")]
+    if r.returncode != 0 or "FLEET SMOKE PASS" not in lines or not res:
+        tail = "\n".join(ln for ln in lines
+                         if not ln.startswith("STATS"))[-6000:]
+        raise AssertionError(f"serve_fleet: fleet_smoke exited "
+                             f"{r.returncode}:\n{tail}")
+    out = json.loads(res[-1][len("FLEET RESULT "):])["scenarios"]
+    _check_fleet_result(out, cfg.n_layer)
+    return out
+
+
+def _check_fleet_result(out, n_layer):
+    """fleet_smoke's numbers against the phase's contract: the drained
+    child exited 0, re-routes of each kind, one scale-up, one death
+    repair, one idle retire whose child exited 0, and every child prebuilt,
+    served, and launched K1 ``n_layer`` times a batch."""
+    d, k, sc = out["drain"], out["kill"], out["scale"]
+    if d["drained_rc"] != 0 or d["drain_reroutes"] < 1:
+        raise AssertionError(f"serve_fleet: drain {d}")
+    if k["dead_reroutes"] < 1:
+        raise AssertionError(f"serve_fleet: kill {k}")
+    if (sc["scale_up"], sc["death_repair"], sc["idle_retire"],
+            sc["retired_rc"]) != (1, 1, 1, [0]):
+        raise AssertionError(f"serve_fleet: scale {sc}")
+    for name, scen in out.items():
+        for ch in scen["children"]:
+            st = ch["stats"]
+            if st is None or st["prebuilt"] is not True:
+                raise AssertionError(f"serve_fleet: {name} child {ch}: no "
+                                     "stats, or it built its kernels")
+            if st["batches"] == 0 or st["k1"] < n_layer * \
+                    st["batches"] or (st["final"] and st["k1"] !=
+                                      n_layer * st["batches"]):
+                raise AssertionError(f"serve_fleet: {name} child {ch}: K1 "
+                                     f"against its batches")
+
+
+def phase_serve_fleet(smi, serve, decode):
+    """``serve``'s GPT behind the serving fleet.  (a) two
+    ``ReplicaEndpoint``s over two ``InferenceServer``s (bucket 32,
+    ``max_batch`` 4, flash attention) behind a ``FleetRouter``: 8 requests
+    of 4-12 tokens from two tenants, routed and direct, the routed logits
+    within ``FLEET_ATOL`` + ``FLEET_RTOL`` of the direct ones; the same
+    requests from 4 clients while one endpoint stops: no failure,
+    ``reroutes{dead}`` >= 1, the ledger exact, K1 12 times a batch.  (b) a
+    ``DecodeServer`` (8 slots) behind an endpoint: 4 greedy prompts through
+    ``FleetRouter.decode`` equal to the same server's ``submit``, token
+    for token.  (c) ``fleet_smoke.py --width full`` (drain, kill, scale:
+    replica processes on this card, each replica's probe logits within
+    ``FLEET_ATOL`` + ``FLEET_RTOL`` of an in-process server's).  Every
+    check is fatal."""
+    import torch
+    cfg, scope = _gpt_cfg(), serve["scope"]
+    t_phase = time.perf_counter()
+    a = _fleet_in_process(cfg, scope)
+    fr = a["frame"]
+    _log("serve_fleet", f"(a) {a['requests']} requests over 2 endpoints, "
+         f"max |routed - direct| {a['max_abs_err']:.3g} (atol {FLEET_ATOL} "
+         f"rtol {FLEET_RTOL}); routed p50/p99 {a['routed_p50_ms']:.1f}/"
+         f"{a['routed_p99_ms']:.1f} ms, direct {a['direct_p50_ms']:.1f}/"
+         f"{a['direct_p99_ms']:.1f} ms (one at a time); largest frame "
+         f"{fr['bytes']} bytes ({fr['tokens']} tokens), JSON encode "
+         f"{fr['encode_ms']:.1f} ms decode {fr['decode_ms']:.1f} ms; kill "
+         f"leg {a['kill_leg_s']:.2f} s, {a['dead_reroutes']:.0f} dead "
+         f"reroute(s), ledger {a['ledger']}; K1 {a['launches']} = "
+         f"{cfg.n_layer} x {a['batches']} batches, other kernels "
+         f"{a['other_launches']}")
+    b = _fleet_decode(cfg, scope, decode["pool_bytes"])
+    torch.cuda.empty_cache()
+    _log("serve_fleet", f"(b) {b['prompts']} prompts x {b['tokens']} "
+         f"greedy tokens routed in {b['routed_s']:.2f} s, equal to the "
+         f"direct submit; decode traces {b['traces']}")
+    t_c = time.perf_counter()
+    c = _fleet_replicas(cfg, scope)
+    c_s = time.perf_counter() - t_c
+    kids = [(name, ch) for name, scen in c.items()
+            for ch in scen["children"]]
+    for name, ch in kids:
+        st = ch["stats"]
+        _log("serve_fleet", f"(c) {name} child {ch['addr']}: rc "
+             f"{ch['rc']}, spawn to READY {ch['spawn_to_ready_s']:.2f} s "
+             f"(its own clock: imports {st['imported_s']:.2f} s, weights "
+             f"on the card {st['loaded_s']:.2f} s, READY "
+             f"{st['ready_s']:.2f} s), K1 {st['k1']} over "
+             f"{st['batches']} batches, peak "
+             f"{st['peak_bytes'] / 2**20:.1f} MiB allocated")
+    wall = time.perf_counter() - t_phase
+    _log("serve_fleet", f"(c) {c_s:.1f} s: drain p99 "
+         f"{c['drain']['p99_ms']:.1f} ms, kill p99 "
+         f"{c['kill']['p99_ms']:.1f} ms, scale-up after "
+         f"{c['scale']['scale_up_s']:.2f} s of spike (p99 "
+         f"{c['scale']['p99_spike_ms']:.1f} ms), recovered p99 "
+         f"{c['scale']['p99_recovered_ms']:.1f} ms < "
+         f"{c['scale']['slo_p99_ms']:.1f} ms; phase wall {wall:.1f} s on "
+         f"{smi}")
+    return {"in_process": a, "decode": b, "replicas": c,
+            "replicas_s": c_s, "wall_s": wall, "launches": a["launches"],
+            "replica_launches": sum(ch["stats"]["k1"] for _n, ch in kids)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", help="also write every measurement here")
@@ -6671,6 +7033,7 @@ def main(argv=None) -> int:
     observe_serve = phase_observe_serve(smi, serve)
     numerics = phase_numerics(smi)
     serve_plane = phase_serve_plane(smi, serve)
+    serve_fleet = phase_serve_fleet(smi, serve, decode)
     timing = phase_timing(smi, serve, train)
     timing["conv1x1_stats"] = timing_k3(smi, resnet)
     timing.update(timing_k45(smi, train, fused))
@@ -6756,6 +7119,10 @@ def main(argv=None) -> int:
     for name in ("flash_attn_fwd", "flash_attn_bwd"):
         by_path[name]["numerics"] = numerics["launches"][name]
     by_path["flash_attn_fwd"]["serve_plane"] = serve_plane["launches"]
+    # the serving fleet: in process, and the replica processes' own counts
+    by_path["flash_attn_fwd"]["serve_fleet"] = serve_fleet["launches"]
+    by_path["flash_attn_fwd"]["serve_fleet_replicas"] = \
+        serve_fleet["replica_launches"]
     missing = [n for n, paths in by_path.items() if not sum(paths.values())]
     if missing:
         raise AssertionError(f"kernels never launched on their paths: "
@@ -6792,6 +7159,7 @@ def main(argv=None) -> int:
                        "observe_resnet": observe_resnet,
                        "observe_serve": observe_serve,
                        "numerics": numerics, "serve_plane": serve_plane,
+                       "serve_fleet": serve_fleet,
                        "fused_train": fused,
                        "resnet": {k: v for k, v in resnet.items()
                                   if k not in ("main", "fetch", "scope",

@@ -8,8 +8,9 @@ watchdog's, the checkpoint daemon's cadence and capture flags, the retry
 engine's budget flags, the executor's throttle and ``FLAGS_benchmark``,
 the memory budget, the sampling profiler's and the HBM accountant's flags,
 the numerics plane's (``FLAGS_numerics*``, ``FLAGS_check_nan_inf``), the
-serving SLO plane's (``FLAGS_serving_slo*``) and the metrics endpoint's
-(``FLAGS_metrics_port``, ``FLAGS_metrics_host``) exist so far, with the
+serving SLO plane's (``FLAGS_serving_slo*``), the metrics endpoint's
+(``FLAGS_metrics_port``, ``FLAGS_metrics_host``) and the serving fleet's
+and its autoscaler's (``FLAGS_fleet_*``) exist so far, with the
 reference's names, defaults, validation and side effects.  ``FLAGS_*`` environment variables
 seed them at import, as the reference's ``__bootstrap__`` does; a
 malformed value warns and is ignored.
@@ -157,6 +158,39 @@ _DEFAULTS: Dict[str, Any] = {
     # (0 disables it) and bind address
     "FLAGS_metrics_port": 0,
     "FLAGS_metrics_host": "0.0.0.0",
+    # the serving fleet (serving/fleet.py): FleetRouter placement,
+    # "least_loaded" (the fresh replica with the smallest srv_q, ties
+    # round-robin) or "round_robin"
+    "FLAGS_fleet_route_policy": "least_loaded",
+    # load-report freshness: the srv_q/occ/slots/tps digest keys ride only
+    # while a serving loop woke within this many seconds, and a replica
+    # whose report is older is held out of placement; must be > 0
+    "FLAGS_fleet_digest_ttl_s": 10.0,
+    # the fleet autoscaler (serving/autoscaler.py): the live replica count
+    # stays inside [min, max] (validated as an effective pair)
+    "FLAGS_fleet_min_replicas": 1,
+    "FLAGS_fleet_max_replicas": 4,
+    # the controller's tick; the *_ticks flags count in units of it (> 0)
+    "FLAGS_fleet_scale_eval_interval_s": 2.0,
+    # consecutive ticks the scale-up (fleet SLO breached and mean srv_q >=
+    # queue_high) / scale-down (no breach, empty queues, per-replica rate
+    # under idle_qps) condition must hold before the target moves
+    "FLAGS_fleet_scale_up_ticks": 2,
+    "FLAGS_fleet_scale_down_ticks": 5,
+    # no further target change this long after one (death repair exempt)
+    "FLAGS_fleet_scale_cooldown_s": 30.0,
+    "FLAGS_fleet_queue_high": 4.0,
+    "FLAGS_fleet_idle_qps": 0.5,
+    # breached ticks before admission shedding engages (only while a spawn
+    # is in flight or the fleet is at max, and only with
+    # FLAGS_serving_slo_shed)
+    "FLAGS_fleet_shed_after_ticks": 2,
+    # a replica under this headroom fraction gets a bucket-width shrink
+    # first, then after the grace ticks a drain and respawn; in [0, 1)
+    "FLAGS_fleet_oom_headroom_frac": 0.10,
+    "FLAGS_fleet_shrink_grace_ticks": 3,
+    # wait after a failed spawn before retrying (>= 0)
+    "FLAGS_fleet_spawn_backoff_s": 10.0,
 }
 
 _NUMERICS_FLAGS = ("FLAGS_numerics", "FLAGS_numerics_spike_factor",
@@ -210,6 +244,7 @@ def set_flags(flags: Dict[str, Any]) -> None:
         if name == "FLAGS_serving_slo" and coerced[name]:
             from .serving.slo import parse_slo
             parse_slo(coerced[name])
+        _check_fleet_flag(name, coerced[name])
     if any(n in coerced for n in _SLO_NUMERIC):
         # the pair and threshold in force after this call (new values over
         # the current ones) must hold, so a bad pair is refused here
@@ -224,9 +259,46 @@ def set_flags(flags: Dict[str, Any]) -> None:
             raise ValueError(
                 "FLAGS_serving_slo_burn_threshold must be > 0 (got "
                 f"{eff['FLAGS_serving_slo_burn_threshold']})")
+    fleet_size = ("FLAGS_fleet_min_replicas", "FLAGS_fleet_max_replicas")
+    if any(n in coerced for n in fleet_size):
+        # the bounds in force after this call must form 1 <= min <= max
+        eff = {n: int(coerced.get(n, _values[n])) for n in fleet_size}
+        lo = eff["FLAGS_fleet_min_replicas"]
+        hi = eff["FLAGS_fleet_max_replicas"]
+        if not 1 <= lo <= hi:
+            raise ValueError(
+                "fleet size bounds must satisfy 1 <= min <= max (got "
+                f"min={lo}, max={hi})")
     _values.update(coerced)
     for name, value in coerced.items():
         _apply_side_effect(name, value)
+
+
+def _check_fleet_flag(name: str, value) -> None:
+    """The reference's per-flag checks of the fleet flags."""
+    if name == "FLAGS_fleet_route_policy" and \
+            value not in ("least_loaded", "round_robin"):
+        raise ValueError(
+            "FLAGS_fleet_route_policy must be 'least_loaded' or "
+            f"'round_robin', got {value!r}")
+    if name == "FLAGS_fleet_digest_ttl_s" and value <= 0:
+        raise ValueError(
+            "FLAGS_fleet_digest_ttl_s must be > 0 (a zero/negative TTL "
+            f"would blind placement), got {value!r}")
+    if name == "FLAGS_fleet_scale_eval_interval_s" and value <= 0:
+        raise ValueError(
+            f"FLAGS_fleet_scale_eval_interval_s must be > 0, got {value!r}")
+    if name in ("FLAGS_fleet_scale_cooldown_s", "FLAGS_fleet_spawn_backoff_s",
+                "FLAGS_fleet_queue_high", "FLAGS_fleet_idle_qps") \
+            and value < 0:
+        raise ValueError(f"{name} must be >= 0, got {value!r}")
+    if name in ("FLAGS_fleet_scale_up_ticks", "FLAGS_fleet_scale_down_ticks",
+                "FLAGS_fleet_shed_after_ticks",
+                "FLAGS_fleet_shrink_grace_ticks") and value < 1:
+        raise ValueError(f"{name} must be >= 1, got {value!r}")
+    if name == "FLAGS_fleet_oom_headroom_frac" and not 0 <= value < 1:
+        raise ValueError(
+            f"FLAGS_fleet_oom_headroom_frac must be in [0, 1), got {value!r}")
 
 
 def _apply_side_effect(name: str, value) -> None:

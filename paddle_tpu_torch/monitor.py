@@ -38,7 +38,22 @@ watchdog's dump reads; ``export(dir)`` writes ``metrics.json``,
 recording, ``FLAGS_telemetry_max_events`` sizes the ring and
 ``FLAGS_telemetry_export_path`` exports at process exit.
 
-Not ported yet: the heartbeat digests and the gang and fleet families.
+The heartbeat digest (ref :405-830): ``metrics_digest()`` is a compact,
+byte-capped (``DIGEST_MAX_BYTES``, ``capped_digest``) snapshot of this
+process's health under the reference's keys: ``step_ms``, ``mfu``,
+``mfu_m``, ``queue``, ``steps``, ``inflight``, the serving load ``srv_q`` /
+``occ`` / ``slots`` / ``tps`` (while a serving loop woke within
+``FLAGS_fleet_digest_ttl_s``), the numerics plane's ``gnorm`` / ``nanf``,
+and the HBM accountant's ``hbm`` / ``hdrm``.  A ``ReplicaEndpoint`` sends
+its load keys with every reply.  The fleet families (ref :520-590): the
+router's re-route ledger and per-replica state, the failover histogram
+(observed by the router's re-routed requests), and the autoscaler's decision counter, target, live size, shed switch and width
+shrinks.
+
+Not ported yet: the ``comm_ms`` / ``comm_wait`` / ``comm_bw`` digest keys
+(they come with ``analysis/comms.py``), and the ``paddle_tpu_gang_*`` and
+``paddle_tpu_coordinator_*`` families with the coordinator that folds the
+digests (ROADMAP Queue 1 items 2-3).
 """
 
 from __future__ import annotations
@@ -47,6 +62,7 @@ import collections
 import contextlib
 import json
 import os
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -54,7 +70,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY",
            "StepTracer", "TRACER", "span", "export", "telemetry_snapshot",
            "counter_totals", "enable_export_on_exit",
-           "disable_export_on_exit", "retire_tenant_series"]
+           "disable_export_on_exit", "retire_tenant_series",
+           "metrics_digest", "capped_digest", "DIGEST_MAX_BYTES"]
 
 #: default microsecond buckets (the reference's)
 DEFAULT_BUCKETS_US = (50.0, 100.0, 250.0, 500.0, 1000.0, 2500.0, 5000.0,
@@ -462,6 +479,233 @@ def retire_tenant_series(tenant) -> None:
     for labels, _cell in SLO_BURN_GAUGE.series():
         if labels.get("tenant") == str(tenant):
             SLO_BURN_GAUGE.fold(labels, None)
+
+
+# -- the serving fleet and its autoscaler (ref paddle_tpu/monitor.py:520-590)
+
+FLEET_REROUTE_CTR = REGISTRY.counter(
+    "paddle_tpu_fleet_reroutes_total",
+    "requests the FleetRouter moved off their placed replica, by reason "
+    "(drain = the replica refused admission while draining; dead = the "
+    "forward hit a transport error; circuit = the replica's breaker was "
+    "open at placement; error = the replica failed the request "
+    "non-transiently) — the chaos-drill ledger: completed requests = "
+    "first-try successes + exactly these", ("reason",))
+FLEET_REPLICA_STATE = REGISTRY.gauge(
+    "paddle_tpu_fleet_replica_state",
+    "router's placement view of each replica: 0=up 1=draining 2=dead "
+    "3=stale (load digest older than FLAGS_fleet_digest_ttl_s — held "
+    "out of least-loaded placement until it proves liveness again)",
+    ("replica",))
+FLEET_FAILOVER_HIST = REGISTRY.histogram(
+    "paddle_tpu_fleet_failover_ms",
+    "wall ms from a forward/coordinator failure to the request landing "
+    "on a healthy target (router reroutes and gang-client coordinator "
+    "failovers both observe here) — the p99 the chaos gate bounds",
+    buckets=(1.0, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0, 1000.0,
+             2500.0, 5000.0, 15000.0, 60000.0))
+FLEET_SCALE_CTR = REGISTRY.counter(
+    "paddle_tpu_fleet_scale_total",
+    "autoscaler scale decisions, by direction and reason (up/burn_queue "
+    "= sustained SLO burn + queue pressure raised the target; up/death "
+    "= a dead replica is being replaced to restore the target; "
+    "up/oom = a replica that kept breaching headroom after its bucket "
+    "shrink is being respawned fresh; down/idle = sustained idle "
+    "drained-and-retired one) — counted once per decision, never per "
+    "spawn attempt", ("dir", "reason"))
+FLEET_TARGET_GAUGE = REGISTRY.gauge(
+    "paddle_tpu_fleet_target_replicas",
+    "the autoscaler's current target fleet size (clamped to "
+    "[FLAGS_fleet_min_replicas, FLAGS_fleet_max_replicas])")
+FLEET_SIZE_GAUGE = REGISTRY.gauge(
+    "paddle_tpu_fleet_live_replicas",
+    "replicas the router currently counts as placeable (up or stale — "
+    "draining and dead replicas are out); TGT vs SIZE is the gangtop "
+    "footer")
+FLEET_SHED_GAUGE = REGISTRY.gauge(
+    "paddle_tpu_fleet_shedding",
+    "1 while the autoscaler has engaged fleet-wide admission shedding "
+    "(SLO breach sustained past FLAGS_fleet_shed_after_ticks with a "
+    "spawn in flight or the fleet at max), else 0")
+FLEET_SHRINK_CTR = REGISTRY.counter(
+    "paddle_tpu_fleet_width_shrinks_total",
+    "bucket-width shrink control ops the autoscaler sent to replicas "
+    "reporting HBM headroom under FLAGS_fleet_oom_headroom_frac (the "
+    "degradation ladder's first rung; the replica is named in the "
+    "autoscaler.shrink trace instant)")
+
+
+# -- the heartbeat digest (ref paddle_tpu/monitor.py:405-830) ----------------
+
+#: a digest's serialized size cap: ``capped_digest`` drops keys to fit
+DIGEST_MAX_BYTES = 512
+
+_PKG = __name__.rpartition(".")[0]
+
+
+def _newest_executor_value(name: str):
+    """The value of the newest live executor's series of ``name`` (the
+    highest ``executor`` serial; the "retired" fold is skipped)."""
+    fam = REGISTRY.get(name)
+    if fam is None:
+        return None
+    best, best_serial = None, -1
+    for labels, cell in fam.series():
+        try:
+            serial = int(labels.get("executor", -1))
+        except (TypeError, ValueError):
+            continue
+        if serial > best_serial:
+            best_serial, best = serial, cell.get()
+    return best
+
+
+def _last_cell(name: str):
+    fam = REGISTRY.get(name)
+    if fam is None:
+        return None
+    cells = [cell.get() for _, cell in fam.series()]
+    return cells[-1] if cells else None
+
+
+def metrics_digest() -> Dict[str, Any]:
+    """Compact snapshot of this process's health (ref :594-736): the newest
+    executor's step-time estimate and live MFU, the measured MFU while a
+    profiler window published recently, dataloader queue depth, steps
+    dispatched and steps in flight, the serving load while a serving loop
+    is alive, the numerics plane's global gradient norm and non-finite
+    count, and the HBM accountant's live bytes and headroom.  Reads a few
+    families, never a whole collect."""
+    digest: Dict[str, Any] = {}
+    ms = _newest_executor_value("paddle_tpu_step_device_ms")
+    if ms is not None:
+        digest["step_ms"] = round(float(ms), 3)
+    mfu = _newest_executor_value("paddle_tpu_step_mfu")
+    if mfu is not None:
+        digest["mfu"] = round(float(mfu), 5)
+    if _measured_mfu_fresh():
+        fam = REGISTRY.get("paddle_tpu_step_mfu_measured")
+        if fam is not None:
+            v = fam.value()
+            if v:
+                digest["mfu_m"] = round(float(v), 5)
+    qd = REGISTRY.get("paddle_tpu_dataloader_queue_depth")
+    if qd is not None:
+        vals = [cell.get() for labels, cell in qd.series()
+                if labels.get("pipeline") != "retired"]
+        if vals:
+            digest["queue"] = float(sum(vals))
+    steps_fam = REGISTRY.get("paddle_tpu_executor_steps_dispatched")
+    if steps_fam is not None:
+        total = sum(cell.get() for _, cell in steps_fam.series())
+        if total:
+            digest["steps"] = int(total)
+    exe_mod = sys.modules.get(_PKG + ".framework.executor")
+    if exe_mod is not None:
+        try:
+            digest["inflight"] = int(sum(
+                len(e._inflight) for e in list(exe_mod._EXECUTORS)))
+        except Exception:
+            pass
+    # the serving load, only while a serving loop proves it is alive: a
+    # wedged scheduler's last report would read as an idle replica
+    if _serving_digest_fresh():
+        sq = REGISTRY.get("paddle_tpu_serving_queue_depth")
+        if sq is not None:
+            vals = [cell.get() for labels, cell in sq.series()
+                    if labels.get("tenant") != "retired"]
+            if vals:
+                digest["srv_q"] = float(sum(vals))
+        for key, fam_name in (
+                ("occ", "paddle_tpu_serving_last_batch_occupancy"),
+                ("slots", "paddle_tpu_serving_free_decode_slots"),
+                ("tps", "paddle_tpu_serving_tokens_per_s")):
+            v = _last_cell(fam_name)
+            if v is not None:
+                digest[key] = round(float(v), 3)
+    # the numerics plane: nanf rides whenever gnorm does
+    gn = _last_cell("paddle_tpu_numerics_global_grad_norm")
+    if gn is not None:
+        digest["gnorm"] = round(float(gn), 4)
+        nf = REGISTRY.get("paddle_tpu_numerics_nonfinite_total")
+        if nf is not None:
+            digest["nanf"] = int(sum(cell.get() for _, cell in nf.series()))
+    # the HBM accountant: hdrm only while a budget is known
+    if _hbm_digest_fresh():
+        mod = sys.modules.get(_PKG + ".hbm")
+        sample = getattr(mod.ACCOUNTANT, "last_sample", None) \
+            if mod is not None else None
+        if sample is not None:
+            live, headroom = sample
+            digest["hbm"] = int(live)
+            if headroom is not None:
+                digest["hdrm"] = int(headroom)
+    return digest
+
+
+#: how long the hbm/hdrm keys outlive the accountant's last publish
+_HBM_DIGEST_TTL_S = 120.0
+
+#: mfu_m's freshness window: profiler windows are sparse by design
+_MFU_MEASURED_TTL_S = 600.0
+
+
+def _hbm_digest_fresh() -> bool:
+    mod = sys.modules.get(_PKG + ".hbm")
+    if mod is None:
+        return False
+    last = getattr(mod.ACCOUNTANT, "last_publish_wall", 0.0)
+    return bool(last) and time.time() - last <= _HBM_DIGEST_TTL_S
+
+
+def _measured_mfu_fresh() -> bool:
+    mod = sys.modules.get(_PKG + ".analysis.device_profile")
+    if mod is None:
+        return False
+    last = getattr(mod, "last_publish_wall", 0.0)
+    return bool(last) and time.time() - last <= _MFU_MEASURED_TTL_S
+
+
+def _serving_digest_fresh() -> bool:
+    """The serving keys ride only while a serving loop (batcher dispatch
+    or decode iteration) woke within ``FLAGS_fleet_digest_ttl_s``:
+    liveness, not traffic, so an idle healthy replica keeps reporting."""
+    mod = sys.modules.get(_PKG + ".serving.scheduler")
+    if mod is None:
+        return False
+    last = getattr(mod, "last_alive_wall", 0.0)
+    try:
+        from .flags import get_flags
+        ttl = float(get_flags("FLAGS_fleet_digest_ttl_s")
+                    ["FLAGS_fleet_digest_ttl_s"])
+    except Exception:
+        ttl = 10.0
+    return bool(last) and time.time() - last <= ttl
+
+
+#: the digest's keys, most important first: ``capped_digest`` drops from
+#: the end of this list, and drops keys not on it before any that are
+#: (the reference's order, the comms keys included)
+_DIGEST_PRIORITY = ("step_ms", "comm_wait", "nanf", "gnorm", "hbm",
+                    "hdrm", "mfu", "mfu_m", "comm_ms", "comm_bw",
+                    "srv_q", "queue", "inflight", "occ", "slots", "tps",
+                    "steps")
+
+
+def capped_digest(digest: Dict[str, Any],
+                  max_bytes: int = DIGEST_MAX_BYTES) -> Dict[str, Any]:
+    """Drop keys until the sorted-key JSON fits ``max_bytes``: unknown
+    extras first (reverse-sorted), then known keys from least to most
+    important; ``step_ms`` goes last."""
+    d = dict(digest)
+    while d and len(json.dumps(d, sort_keys=True)) > max_bytes:
+        extras = sorted((k for k in d if k not in _DIGEST_PRIORITY),
+                        reverse=True)
+        if extras:
+            d.pop(extras[0])
+        else:
+            d.pop(next(k for k in reversed(_DIGEST_PRIORITY) if k in d))
+    return d
 
 
 # -- the step tracer (ref paddle_tpu/monitor.py:987-1211) --------------------

@@ -13,6 +13,10 @@
 - :mod:`slo` — per-tenant SLO objectives and multi-window burn rates.
 - :mod:`httpd` — the live scrape surface: ``/metrics`` ``/healthz``
   ``/statusz`` on ``FLAGS_metrics_port``.
+- :mod:`fleet` — ``ReplicaEndpoint`` (a TCP front for one server) and
+  ``FleetRouter`` (placement, re-routes, fleet-wide quota and SLO).
+- :mod:`autoscaler` — ``AutoscalerPolicy`` (the pure decision table) and
+  ``FleetAutoscaler`` (the loop that spawns, retires, sheds and shrinks).
 
 Every request carries a trace id from admission through queueing, batch
 coalescing, dispatch (with the executor's step id) and materialization: its
@@ -28,3 +32,6 @@ from .httpd import MetricsHTTPServer  # noqa
 from .server import (AdmissionError, DecodeServer,  # noqa
                      InferenceServer, TenantPlane)
 from .slo import BurnRateEvaluator, SLOTarget, parse_slo  # noqa
+from .fleet import FleetError, FleetRouter, ReplicaEndpoint  # noqa
+from .autoscaler import (AutoscalerPolicy, Decision,  # noqa
+                         FleetAutoscaler)

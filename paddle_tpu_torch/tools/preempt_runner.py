@@ -14,7 +14,11 @@ under :func:`resilience.resume_or_init`, ``CheckpointDaemon(interval_steps
 is the GPT at BERT-base width (vocab 30522, d 768, 12 layers, 12 heads,
 d_inner 3072, max_pos 2048) at batch 8 x 2048 on the card, TF32 off
 (and bf16 products reduced in float32, as ``chip_smoke.py`` sets);
-``tiny`` a 2-layer GPT (d 64, 4 heads, seq 64, batch 2).  With
+``tiny`` a 2-layer GPT (d 64, 4 heads, seq 64, batch 2).  The child pins
+the host's intra-op and inter-op thread pools to ``THREADS`` (1) before it
+builds anything: the host's float32 sums then run in one fixed order
+whatever the machine's cores and load, so two children given the same
+arguments compute the same bits.  With
 ``--pause-after K`` the child prints ``PAUSED K`` once step K is complete
 and waits at that boundary for a signal: the parent's SIGTERM is the go, so
 nothing races a sleep.  The last line of its output is ``RESULT {json}``:
@@ -63,6 +67,8 @@ SIZES = {
 LR = 1e-4
 SEED = 1234
 SITE = "checkpoint.write"
+#: torch's intra-op and inter-op threads in every child
+THREADS = 1
 
 
 def build(size: str):
@@ -118,6 +124,9 @@ def _span_ms(events, name) -> List[dict]:
 
 def child(args) -> None:
     import torch
+    # before any parallel work: the inter-op pool is fixed at its first use
+    torch.set_num_threads(THREADS)
+    torch.set_num_interop_threads(THREADS)
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch import checkpoint, monitor, resilience
     from paddle_tpu_torch.framework import Scope
@@ -139,7 +148,9 @@ def child(args) -> None:
            # the state a resumed child restored
            "digests_start": digests(scope, main) if start else None,
            "losses": {},
-           "step_ms": {}, "capture_peak_bytes": [], "preempted": False}
+           "step_ms": {}, "capture_peak_bytes": [], "preempted": False,
+           "threads": [torch.get_num_threads(),
+                       torch.get_num_interop_threads()]}
     fa.reset_launch_count()
     daemon = resilience.CheckpointDaemon(
         ckpt, program=main, scope=scope,

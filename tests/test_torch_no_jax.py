@@ -19,7 +19,8 @@
   GPT of ``tools/preempt_runner.py`` and its resume in a fresh scope
   (``resume_or_init``, the state bit for bit), work; so do full-mode
   numerics statistics of a small MLP and an SLO-tracked request served
-  behind the scrape endpoint;
+  behind the scrape endpoint, and one request routed through a
+  ``FleetRouter`` over an in-process ``ReplicaEndpoint``;
 - a source scan finds no ``jax`` or ``paddle_tpu`` import in the package or
   in ``chip_smoke.py``;
 - ``Executor()`` and ``DecodeEngine()`` (the card by default) raise when
@@ -310,7 +311,13 @@ def test_no_jax_or_reference_import_in_sources():
             "paddle_tpu_torch/analysis/numerics.py",
             "paddle_tpu_torch/serving/slo.py",
             "paddle_tpu_torch/serving/httpd.py",
-            "paddle_tpu_torch/serving/bucketing.py"} <= scanned
+            "paddle_tpu_torch/serving/bucketing.py",
+            "paddle_tpu_torch/serving/fleet.py",
+            "paddle_tpu_torch/serving/autoscaler.py",
+            "paddle_tpu_torch/distributed/__init__.py",
+            "paddle_tpu_torch/distributed/coordinator.py",
+            "paddle_tpu_torch/tools/latency_report.py",
+            "paddle_tpu_torch/tools/fleet_smoke.py"} <= scanned
     offenders = []
     for path in _sources():
         with open(path) as f:
@@ -410,28 +417,44 @@ _NUMERICS_SERVING_BLOCKED = textwrap.dedent("""
     srv = ptt.serving.InferenceServer(factory, Scope(), buckets=(8,),
                                       max_batch=2, executor=exe).start()
     http = srv.enable_http(0, host="127.0.0.1")
-    srv.submit("t", {"v": np.ones(4, np.float32)}).result(timeout=60)
+    direct = srv.submit("t", {"v": np.ones(4, np.float32)}).result(
+        timeout=60)
     srv._slo_eval_safe()
     st = json.loads(urllib.request.urlopen(http.url + "/statusz").read())
     assert st["slo"]["t"]["breached"] is False, st
+    from paddle_tpu_torch.distributed import coordinator
+    from paddle_tpu_torch.serving import autoscaler, fleet
+    from paddle_tpu_torch.tools import latency_report
+    ep = fleet.ReplicaEndpoint(srv).start()
+    router = fleet.FleetRouter([ep.address])
+    routed = router.infer("t", {"v": np.ones(4, np.float32)})
+    assert np.array_equal(np.asarray(routed[0]), direct[0]), routed
+    assert router.snapshot()["completed"] == 1
+    ep.stop()
+    assert autoscaler.AutoscalerPolicy().target == 1
+    assert coordinator.MAX_FRAME_BYTES == 16 << 20
+    assert callable(latency_report.report)
     srv.drain(10)
     srv.stop()
     assert not [m for m, mod in sys.modules.items() if mod is not None
                 and (m == "jax" or m.startswith(("jax.", "paddle_tpu.")))]
-    print("numerics", len(f.grads), "slo", sorted(st["slo"]))
+    print("numerics", len(f.grads), "slo", sorted(st["slo"]), "routed")
 """)
 
 
 def test_numerics_and_serving_planes_run_with_jax_blocked():
-    """Full-mode statistics of a small MLP, an SLO-tracked served request
-    and the scrape endpoint, with JAX and the reference unimportable."""
+    """Full-mode statistics of a small MLP, an SLO-tracked served request,
+    the scrape endpoint, and a request routed by a ``FleetRouter`` over a
+    ``ReplicaEndpoint`` (the fleet, autoscaler, frame-protocol and
+    latency_report modules imported), with JAX and the reference
+    unimportable."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     res = subprocess.run([sys.executable, "-c", _NUMERICS_SERVING_BLOCKED],
                          cwd=REPO, env=env, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert "numerics " in res.stdout
+    assert "numerics " in res.stdout and " routed" in res.stdout
 
 
 def test_default_executor_needs_a_gpu():

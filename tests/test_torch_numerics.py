@@ -626,3 +626,29 @@ def test_amp_decorate_wires_scaler():
     assert opt.loss_scaler is not None and opt._loss_scaling == 256.0
     assert amp.decorate(ptt.optimizer.SGD(0.1),
                         use_dynamic_loss_scaling=False).loss_scaler is None
+
+
+def test_digest_carries_gnorm_and_nanf():
+    """The reference's test of the heartbeat digest's numerics keys."""
+    _train("sentinel", steps=3)
+    d = monitor.metrics_digest()
+    assert "gnorm" in d and d["gnorm"] >= 0
+    # nanf is the cumulative process count (monotonic, like any counter)
+    assert "nanf" in d and d["nanf"] == int(
+        monitor.counter_totals()["paddle_tpu_numerics_nonfinite_total"])
+    capped = monitor.capped_digest(
+        dict(d, **{f"extra{i:02d}": float(i) for i in range(100)}))
+    assert len(json.dumps(capped, sort_keys=True)) <= \
+        monitor.DIGEST_MAX_BYTES
+    # every known key beside the serving keys fits the cap with room, and
+    # the priority order keeps nanf/gnorm ahead of the serving load keys
+    full = {"step_ms": 1234.567, "mfu": 0.54321, "srv_q": 123.0,
+            "queue": 12.0, "inflight": 2, "occ": 7.5, "slots": 3.0,
+            "tps": 512.25, "steps": 123456, "gnorm": 1234.5678,
+            "nanf": 99999}
+    assert len(json.dumps(full, sort_keys=True)) <= \
+        monitor.DIGEST_MAX_BYTES
+    tiny = monitor.capped_digest(full, max_bytes=40)
+    assert "step_ms" in tiny
+    assert "nanf" in tiny
+    assert "tps" not in tiny and "steps" not in tiny

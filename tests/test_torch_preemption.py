@@ -356,16 +356,28 @@ def test_tiny_gpt_preempted_and_resumed_equals_uninterrupted(tmp_path):
 
 
 def test_sigterm_drill_through_the_runner(tmp_path):
+    # the uninterrupted baseline is a child of the same runner (threads
+    # pinned, as in b and c), so the bitwise check holds child against
+    # child; the in-process run, in a worker whose thread pools and load
+    # the test does not control, ties the runner to the executor at 1e-5
     steps = 4
     main, startup, loss = _port_gpt()
     exe, sc = ptt.Executor(ptt.CPUPlace()), scope.Scope()
     exe.run(startup, scope=sc)
-    want = _train(main, loss, exe, sc, range(steps))
+    here = _train(main, loss, exe, sc, range(steps))
+    a = pr.spawn(str(tmp_path / "base"), steps, 1, "tiny", cpu=True,
+                 timeout=120)
+    assert a["threads"] == [pr.THREADS] * 2 and not a["preempted"]
+    want = [a["losses"][str(i)] for i in range(steps)]
+    np.testing.assert_allclose([pr._loss(x) for x in want],
+                               [pr._loss(x) for x in here],
+                               rtol=1e-5, atol=0)
     d = str(tmp_path / "run")
     b = pr.spawn(d, steps, 1, "tiny", cpu=True, pause_after=steps // 2,
                  env={"FLAGS_fault_inject": "checkpoint.write:once"},
                  timeout=120)
     c = pr.spawn(d, steps, 1, "tiny", cpu=True, timeout=120)
+    assert b["threads"] == c["threads"] == [pr.THREADS] * 2
     assert b["paused"] and b["preempted"] and b["rc"] == 0
     assert b["committed"] == steps // 2 and c["start"] == steps // 2
     assert c["digests_start"] == b["digests_end"]

@@ -667,6 +667,187 @@ def test_monitor_registers_the_reference_serving_families():
     assert want and want <= _families("paddle_tpu_torch/monitor.py")
 
 
+def test_monitor_registers_the_reference_fleet_families():
+    want = {n for n in _families("paddle_tpu/monitor.py")
+            if n.startswith("paddle_tpu_fleet_")}
+    assert len(want) == 8 and want <= _families("paddle_tpu_torch/monitor.py")
+
+
+# -- the heartbeat digest ------------------------------------------------------
+
+def test_metrics_digest_carries_serving_load():
+    """The reference's test; the scheduler's liveness stamp is set here
+    (the reference's relies on an earlier test's serving loop)."""
+    import paddle_tpu_torch.serving.scheduler as sched
+    old = sched.last_alive_wall
+    sched.last_alive_wall = time.time()
+    try:
+        monitor.SERVING_QUEUE_GAUGE.set(3, tenant="dg_a")
+        monitor.SERVING_QUEUE_GAUGE.set(2, tenant="dg_b")
+        monitor.SERVING_QUEUE_GAUGE.set(99, tenant="retired")  # excluded
+        monitor.SERVING_LAST_OCC_GAUGE.set(4)
+        monitor.SERVING_FREE_SLOTS_GAUGE.set(1)
+        monitor.SERVING_TPS_GAUGE.set(123.456)
+        d = monitor.metrics_digest()
+        assert d["srv_q"] >= 5.0        # dg_a + dg_b (other tests may add)
+        assert d["occ"] == 4.0 and d["slots"] == 1.0
+        assert d["tps"] == 123.456
+        # the serving keys survive a cap after the core keys
+        capped = monitor.capped_digest(dict(d), max_bytes=2048)
+        assert "srv_q" in capped
+    finally:
+        sched.last_alive_wall = old
+        monitor.SERVING_QUEUE_GAUGE.fold({"tenant": "dg_a"}, None)
+        monitor.SERVING_QUEUE_GAUGE.fold({"tenant": "dg_b"}, None)
+        monitor.SERVING_QUEUE_GAUGE.fold({"tenant": "retired"}, None)
+
+
+def _oversize_digest(seed):
+    rng = np.random.RandomState(seed)
+    keys = list(monitor._DIGEST_PRIORITY)
+    d = {k: round(float(rng.rand() * 10 ** rng.randint(0, 9)), 5)
+         for k in keys if rng.rand() < 0.8}
+    for i in range(int(rng.randint(0, 40))):
+        d[f"x{rng.randint(1000):03d}_{i}"] = float(rng.rand())
+    return d
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("cap", [40, 120, 300, 512])
+def test_capped_digest_matches_reference(seed, cap):
+    d = _oversize_digest(seed)
+    assert monitor._DIGEST_PRIORITY == ref_monitor._DIGEST_PRIORITY
+    assert monitor.DIGEST_MAX_BYTES == ref_monitor.DIGEST_MAX_BYTES
+    got = monitor.capped_digest(d, max_bytes=cap)
+    assert got == ref_monitor.capped_digest(d, max_bytes=cap)
+    assert len(json.dumps(got, sort_keys=True)) <= cap or not got
+
+
+def test_digest_freshness_gates_the_hbm_keys(monkeypatch):
+    from paddle_tpu_torch import hbm
+    monkeypatch.setattr(hbm.ACCOUNTANT, "last_sample", (1000, 24))
+    monkeypatch.setattr(hbm.ACCOUNTANT, "last_publish_wall", time.time())
+    d = monitor.metrics_digest()
+    assert (d["hbm"], d["hdrm"]) == (1000, 24)
+    monkeypatch.setattr(hbm.ACCOUNTANT, "last_sample", (1000, None))
+    d = monitor.metrics_digest()
+    assert d["hbm"] == 1000 and "hdrm" not in d
+    monkeypatch.setattr(hbm.ACCOUNTANT, "last_publish_wall",
+                        time.time() - 1e4)
+    assert "hbm" not in monitor.metrics_digest()
+
+
+# -- latency_report ------------------------------------------------------------
+
+def test_latency_report_decomposes_exported_trace(tmp_path):
+    """The reference's test, on the port's tool."""
+    from paddle_tpu_torch.tools import latency_report
+
+    def span(name, trace, tenant, bucket, ts, dur_ms, **extra):
+        return {"ph": "X", "name": "serving." + name, "cat": "serving",
+                "ts": ts, "dur": dur_ms * 1e3,
+                "args": dict(trace=trace, tenant=tenant, bucket=bucket,
+                             **extra)}
+
+    events = []
+    for i, e2e in enumerate((10.0, 30.0)):      # two lat_t requests
+        t = 1000 + i
+        events += [
+            span("admit", t, "lat_t", "8", 0, 1.0),
+            span("queue_wait", t, "lat_t", "8", 1e3, 2.0),
+            span("batch_wait", t, "lat_t", "8", 3e3, 1.0),
+            span("dispatch", t, "lat_t", "8", 4e3, e2e - 5.0,
+                 step=7, pad_frac=0.25 * i),
+            span("materialize", t, "lat_t", "8", (e2e - 1.0) * 1e3,
+                 1.0, e2e_ms=e2e),
+        ]
+    events += [
+        span("admit", 2000, "dec_t", "decode", 0, 1.0),
+        span("queue_wait", 2000, "dec_t", "decode", 1e3, 1.0),
+        span("decode", 2000, "dec_t", "decode", 2e3, 17.0),
+        span("materialize", 2000, "dec_t", "decode", 19e3, 1.0,
+             e2e_ms=20.0),
+    ]
+    # an in-flight chain, and bare executor steps that a serving trace
+    # must not count twice
+    events.append(span("admit", 3000, "lat_t", "8", 0, 1.0))
+    exec_spans = [
+        {"ph": "X", "name": "executor.dispatch", "ts": 0,
+         "dur": 5e3, "args": {"step": 7}},
+        {"ph": "X", "name": "fetch.materialize", "ts": 6e3,
+         "dur": 2e3, "args": {"n": 1, "step": 7}},
+    ]
+    events += exec_spans
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+
+    rep = latency_report.report(latency_report.load_chains(str(path)))
+    assert rep["total_requests"] == 3
+    assert rep["in_flight_at_export"] == 1
+    by_key = {(g["tenant"], g["bucket"]): g for g in rep["groups"]}
+    assert ("untagged", "untagged") not in by_key
+    # an executor-only trace decomposes under 'untagged'
+    xpath = tmp_path / "exec_trace.json"
+    xpath.write_text(json.dumps({"traceEvents": exec_spans}))
+    xrep = latency_report.report(latency_report.load_chains(str(xpath)))
+    assert xrep["total_requests"] == 1
+    unt = xrep["groups"][0]
+    assert (unt["tenant"], unt["bucket"]) == ("untagged", "untagged")
+    assert unt["phases"]["dispatch"] == {"p50_ms": 5.0, "p99_ms": 5.0}
+    assert unt["phases"]["materialize"] == {"p50_ms": 2.0, "p99_ms": 2.0}
+    assert unt["e2e"] == {"p50_ms": 7.0, "p99_ms": 7.0}
+    lat = by_key[("lat_t", "8")]
+    assert lat["requests"] == 2
+    assert lat["e2e"] == {"p50_ms": 10.0, "p99_ms": 30.0}
+    assert lat["phases"]["dispatch"]["p99_ms"] == 25.0
+    assert lat["phases"]["admit"] == {"p50_ms": 1.0, "p99_ms": 1.0}
+    assert "decode" not in lat["phases"]
+    assert lat["pad_frac_p50"] == 0.0
+    dec = by_key[("dec_t", "decode")]
+    assert dec["phases"]["decode"] == {"p50_ms": 17.0, "p99_ms": 17.0}
+    assert "batch_wait" not in dec["phases"]
+    only = latency_report.report(latency_report.load_chains(str(path)),
+                                 tenant="dec_t")
+    assert [g["tenant"] for g in only["groups"]] == ["dec_t"]
+    text = latency_report.render(rep)
+    assert "lat_t" in text and "dec_t" in text and "PAD" in text
+
+
+def test_latency_report_matches_reference_on_the_ports_trace(tmp_path,
+                                                             capsys):
+    import latency_report as ref_lr   # tools/latency_report.py
+    from paddle_tpu_torch.tools import latency_report as lr
+    monitor.TRACER.clear()
+    srv = _server(buckets=(8, 16))
+    srv.warmup()
+    srv.start()
+    try:
+        futs = [srv.submit(f"lr_{'ab'[i % 2]}",
+                           {"x": np.arange(1, n + 1, dtype=np.float32)},
+                           seq_len=n)
+                for i, n in enumerate((3, 5, 8, 11, 16, 2, 9))]
+        for f in futs:
+            f.result(timeout=60)
+    finally:
+        srv.stop()
+    paths = monitor.export(str(tmp_path / "exp"))
+    path = paths["trace"]
+    for kw in ({}, {"tenant": "lr_a"}, {"bucket": "16"},
+               {"tenant": "lr_b", "bucket": "8"}):
+        got = lr.report(lr.load_chains(path), **kw)
+        want = ref_lr.report(ref_lr.load_chains(path), **kw)
+        assert got == want, kw
+        assert lr.render(got) == ref_lr.render(want)
+    assert got["total_requests"] >= 1
+    assert lr.report(lr.load_chains(path))["total_requests"] == 7
+    for argv in ([path], [path, "--json"], [path, "--json", "--tenant",
+                                           "lr_a"], [path, "--bucket", "8"]):
+        rc = lr.main(argv)
+        mine = capsys.readouterr().out
+        assert rc == ref_lr.main(argv) == 0
+        assert mine == capsys.readouterr().out, argv
+
+
 # -- F2: a served step holds its logits once ---------------------------------
 
 def _gpt_serving_plan(train=False):
