@@ -260,6 +260,27 @@ JAX, prints one line per phase, and raises on any failure:
    Then the new initializers on the card: the truncated normal's bound,
    mean and std, MSRA's scales, Bilinear's and NumpyArray's values equal
    to the host's.
+   ``dp_train`` (after ``train``) — collective data parallelism: ``train``'s
+   GPT and batch (8 x 2048, float32) over ``make_mesh({"dp": 4}, [cuda:0] *
+   4)``, four virtual ranks of 2 sequences.  (a) ``GradAllReduce`` + Adam
+   from the startup seed of a single-device run of the untranspiled
+   program on the same batch (run first, 1 + 4 steps, weights compared):
+   each step's mean over the 4 stacked losses within ``DP_LOSS_RTOL`` of
+   the single-device loss; every rank's trainable parameters equal bit for
+   bit at every step (``Executor.verify_replicas``); K1 and K2 12 x 4 x 5
+   times each; ``paddle_tpu_collective_bytes_total`` moved by the comms
+   plan's payload (every parameter x 4 B) x 5 exactly; the comms monitor
+   drained with ``paddle_tpu_comm_step_ms`` > 0, the wait 0 and the digest
+   carrying ``comm_ms`` / ``comm_wait`` / ``comm_bw``; the dp peak memory
+   below the single-device peak; the step beside the single-device step
+   and the collective segment's event-timed ms.  (b) ``DGCMomentumOptimizer
+   (DGC_LR, 0.9, rampup_begin_step=1, sparsity=[0.999])`` through
+   ``DGCGradAllReduce``, 3 steps: the first two losses (the second follows
+   the dense step) against 2 steps of Momentum + ``GradAllReduce`` within
+   ``DP_LOSS_RTOL``, the sparse steps' losses and every U/V finite; the
+   allgathered pairs' bytes against the dense allreduce's.  K1/K2 are
+   also held against their plain versions at a rank's [24, 2048, 64] in
+   ``kernel``.
 15. ``preempt_train`` (after ``train``) — preemption-safe training of the
    ``train`` phase's GPT (batch 8 x 2048, float32, Adam 1e-4, dropout
    0.0, TF32 off), each run a child process of
@@ -410,6 +431,12 @@ TRAIN_GRAD_TIGHT_SHARE = 1e-4
 FUSED_GRAD_TIGHT_SHARE = 1e-3
 SLICE = (96, 2048, 64)                  # 8 sequences x 12 heads, T, d_head
 TRAIN_BATCH, TRAIN_STEPS = 8, 5
+# dp_train: virtual ranks on the card, timed steps after a warm-up, the DGC
+# steps, its learning rate and sparsity; dp losses against one device's
+# (the gradient sums run in another order)
+DP_RANKS, DP_STEPS, DGC_STEPS = 4, 4, 3
+DGC_LR, DGC_SPARSITY = 1e-3, 0.999
+DP_LOSS_RTOL = 1e-4
 # preempt_train: steps a run, the daemon's interval, and a child's time limit
 PREEMPT_STEPS, PREEMPT_INTERVAL, PREEMPT_TIMEOUT_S = 8, 2, 300
 RESNET_BATCH, RESNET_STEPS = 128, 5
@@ -1024,6 +1051,8 @@ def phase_kernel(built):
     bh, t, d = SLICE
     cases = [
         ("slice [96,2048,64] causal", bh, t, t, d, True, None),
+        # a dp_train rank's call: 2 sequences x 12 heads
+        ("dp rank [24,2048,64] causal", 24, t, t, d, True, None),
         ("T=1000 causal", 8, 1000, 1000, 64, True, None),
         ("T=1000 non-causal", 8, 1000, 1000, 64, False, None),
         ("bias [1,Tq,Tk]", 8, 700, 700, 64, False, "one"),
@@ -1968,6 +1997,269 @@ def phase_train():
             "peak_bytes": peak, "held_bytes": held, "tokens": tokens,
             "main": main, "exe": exe,
             "loss": loss, "scope": scope, "feed": feed}
+
+
+def _dp_program(cfg, seq, make_opt, transpiler=None):
+    """``_train_program``'s GPT under names of its own, minimized by
+    ``make_opt()`` and, given a transpiler, transpiled for DP_RANKS
+    endpoints (rank 0)."""
+    from paddle_tpu_torch.framework import (Program, program_guard,
+                                            unique_name)
+    from paddle_tpu_torch.models import transformer as T
+    with unique_name.guard():
+        main, startup = Program(), Program()
+        with program_guard(main, startup):
+            _, _, loss = T.build_gpt_pretrain(cfg, seq, fused_head=True,
+                                              attn_impl="auto", dropout=0.0)
+            make_opt().minimize(loss)
+            if transpiler is not None:
+                eps = ",".join(f"127.0.0.1:{6170 + i}"
+                               for i in range(DP_RANKS))
+                transpiler.transpile(startup_program=startup,
+                                     main_program=main, rank=0,
+                                     endpoints=eps,
+                                     current_endpoint=eps.split(",")[0])
+    return main, startup, loss
+
+
+def _weights_digest(scope, main):
+    """Each parameter's float64 sum: two startups at one seed agree."""
+    return {p.name: float(scope.find_var(p.name).double().sum())
+            for p in main.all_parameters()}
+
+
+def _dp_steps(exe, main, loss, scope, feed, steps):
+    """``steps`` steps on one batch, each ending in a synchronize: the
+    losses (one per rank in collective mode), the seconds of each step,
+    the peak memory and what was allocated before the first step."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(np.asarray(out, np.float64).reshape(-1))
+    return losses, step_s, torch.cuda.max_memory_allocated(), held
+
+
+def _dp_losses_match(phase, want, got):
+    """Each step's mean over the ranks' losses against the reference run's
+    (its mean over ranks too) within DP_LOSS_RTOL; the worst ratio."""
+    worst = 0.0
+    for step, (w, g) in enumerate(zip(want, got)):
+        rel = abs(g.mean() - w.mean()) / abs(w.mean())
+        if not (np.isfinite(g).all() and rel <= DP_LOSS_RTOL):
+            raise AssertionError(f"{phase}: step {step} losses {g} against "
+                                 f"{w} (relative {rel:.3g}, limit "
+                                 f"{DP_LOSS_RTOL})")
+        worst = max(worst, rel)
+    return worst
+
+
+def phase_dp_train(smi, train):
+    """Collective data parallelism at full width: ``train``'s GPT and batch
+    (8 x 2048) over a ``dp`` mesh of DP_RANKS virtual ranks on this card.
+    (a) ``GradAllReduce`` + Adam against the untranspiled program on one
+    device from the same startup seed; (b) ``DGCGradAllReduce`` +
+    ``DGCMomentumOptimizer`` against ``GradAllReduce`` + Momentum."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import monitor, optimizer
+    from paddle_tpu_torch.analysis import comms
+    from paddle_tpu_torch.distributed import GradAllReduce
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.parallel import (DGCGradAllReduce, make_mesh,
+                                           set_mesh)
+    from paddle_tpu_torch.parallel.dgc import topk_count
+
+    t_phase = time.perf_counter()
+    cfg = _gpt_cfg()
+    seq = cfg.max_pos
+    feed = train["feed"]
+    steps = DP_STEPS + 1
+    kernels = ("flash_attn_fwd", "flash_attn_bwd")
+
+    def adam():
+        return optimizer.AdamOptimizer(learning_rate=1e-4)
+
+    # (a) one device, the untranspiled program, the same global batch
+    main1, start1, loss1 = _dp_program(cfg, seq, adam)
+    sc1, exe1 = Scope(), ptt.Executor()
+    exe1.run(start1, scope=sc1, seed=1234)
+    w0 = _weights_digest(sc1, main1)
+    n_params = sum(int(sc1.find_var(p).numel()) for p in w0)
+    one, one_s, one_peak, one_held = _dp_steps(exe1, main1, loss1, sc1,
+                                               feed, steps)
+    del sc1, exe1
+    torch.cuda.empty_cache()
+
+    set_mesh(make_mesh({"dp": DP_RANKS}, [torch.device("cuda", 0)]
+                       * DP_RANKS))
+    try:
+        main4, start4, loss4 = _dp_program(cfg, seq, adam, GradAllReduce())
+        sc4, exe4 = Scope(), ptt.Executor()
+        exe4.run(start4, scope=sc4, seed=1234)
+        if _weights_digest(sc4, main4) != w0:
+            raise AssertionError("dp_train: the dp startup's weights differ "
+                                 "from the single-device run's")
+        exe4.verify_replicas = True
+        cplan = comms.plan_comms(main4, [loss4.name],
+                                 batch_size=TRAIN_BATCH, nranks=DP_RANKS)
+        bytes0 = monitor.counter_totals().get(
+            "paddle_tpu_collective_bytes_total", 0)
+        fa.reset_launch_count()
+        dp, dp_s, dp_peak, dp_held = _dp_steps(exe4, main4, loss4, sc4, feed,
+                                               steps)
+        launches = {k: fa.launch_count(k) for k in kernels}
+        moved = monitor.counter_totals()[
+            "paddle_tpu_collective_bytes_total"] - bytes0
+        replicas = dict(exe4.replica_report)
+        if not comms.MONITOR.drain(60):
+            raise AssertionError("dp_train: the comms monitor did not drain")
+        comm_ms = comms.COMM_STEP_MS_GAUGE.value()
+        comm_wait = comms.COMM_WAIT_MS_GAUGE.value()
+        bus_bw = comms.COMM_BW_GAUGE.value()
+        digest = monitor.metrics_digest()
+        del sc4, exe4
+        torch.cuda.empty_cache()
+
+        worst = _dp_losses_match("dp_train", one, dp)
+        if any(l.shape != (DP_RANKS,) for l in dp):
+            raise AssertionError(f"dp_train: stacked losses {dp}")
+        want = cfg.n_layer * DP_RANKS * steps
+        if launches != {k: want for k in kernels}:
+            raise AssertionError(f"dp_train: K1/K2 launched {launches}, "
+                                 f"expected {want} each")
+        if cplan.payload_bytes != 4 * n_params or \
+                moved != cplan.payload_bytes * steps:
+            raise AssertionError(
+                f"dp_train: {moved} collective bytes over {steps} steps, "
+                f"plan {cplan.payload_bytes} a step, {n_params} params")
+        if replicas["mismatched"] or replicas["ranks"] != DP_RANKS:
+            raise AssertionError(f"dp_train: replicas {replicas}")
+        if not (comm_ms > 0 and comm_wait == 0 and
+                {"comm_ms", "comm_wait", "comm_bw"} <= set(digest)):
+            raise AssertionError(f"dp_train: comms plane comm_ms {comm_ms},"
+                                 f" wait {comm_wait}, digest {digest}")
+        if not dp_peak < one_peak:
+            raise AssertionError(f"dp_train: dp-{DP_RANKS} peak {dp_peak} "
+                                 f"not below one device's {one_peak}")
+        one_ms = 1e3 * float(np.mean(one_s[1:]))
+        dp_ms = 1e3 * float(np.mean(dp_s[1:]))
+        gib = 2.0 ** 30
+        _log("dp_train", f"(a) GradAllReduce + Adam over dp {DP_RANKS} "
+             f"virtual ranks on cuda:0, batch {TRAIN_BATCH} x {seq} ("
+             f"{TRAIN_BATCH // DP_RANKS} sequences a rank), 1 + {DP_STEPS} "
+             f"steps: losses {[round(float(l.mean()), 6) for l in dp]} "
+             f"(mean over ranks) against one device's "
+             f"{[round(float(l.mean()), 6) for l in one]}, worst relative "
+             f"{worst:.3g} (limit {DP_LOSS_RTOL}); last step per rank "
+             f"{[round(float(x), 6) for x in dp[-1]]}")
+        _log("dp_train", f"replicas: {replicas['tensors']} trainable "
+             f"tensors compared bit for bit over {DP_RANKS} ranks every "
+             f"step, 0 differ; K1/K2 {launches} = {cfg.n_layer} x "
+             f"{DP_RANKS} x {steps}; collective bytes {moved} = plan "
+             f"{cplan.payload_bytes} ({cplan.payload_bytes / 1e9:.4f} GB, "
+             f"{n_params} params x 4 B, {len(cplan.collectives)} "
+             f"allreduces) x {steps}; wire {cplan.wire_bytes} B a step")
+        _log("dp_train", f"step {dp_ms:.1f} ms (timed steps "
+             f"{', '.join(f'{1e3 * x:.1f}' for x in dp_s[1:])}; warm-up "
+             f"{dp_s[0]:.2f} s) against one device's {one_ms:.1f} ms "
+             f"({', '.join(f'{1e3 * x:.1f}' for x in one_s[1:])}; warm-up "
+             f"{one_s[0]:.2f} s), replica check included; collective "
+             f"segment (CUDA events from the first allreduce to the last) "
+             f"{comm_ms:.2f} ms median, wait {comm_wait} ms, bus_bw "
+             f"{bus_bw:.4f} of {cplan.link_bw / 1e9:.0f} GB/s (HBM, not a "
+             f"link: virtual ranks); on {smi}")
+        _log("dp_train", f"peak memory {dp_peak / gib:.3f} GiB "
+             f"({(dp_peak - dp_held) / gib:.3f} above the {dp_held / gib:.3f}"
+             f" held) against one device's {one_peak / gib:.3f} "
+             f"({(one_peak - one_held) / gib:.3f} above); the per-rank "
+             f"gradients of ranks 1-{DP_RANKS - 1} hold "
+             f"{(DP_RANKS - 1) * cplan.payload_bytes / gib:.3f} GiB more")
+
+        # (b) DGC: its dense first step against Momentum + GradAllReduce
+        def momentum():
+            return optimizer.MomentumOptimizer(DGC_LR, 0.9)
+
+        mainm, startm, lossm = _dp_program(cfg, seq, momentum,
+                                           GradAllReduce())
+        scm, exem = Scope(), ptt.Executor()
+        exem.run(startm, scope=scm, seed=1234)
+        mom, _, _, _ = _dp_steps(exem, mainm, lossm, scm, feed, 2)
+        del scm, exem
+        torch.cuda.empty_cache()
+
+        def dgc():
+            return optimizer.DGCMomentumOptimizer(
+                DGC_LR, 0.9, rampup_begin_step=1, sparsity=[DGC_SPARSITY])
+
+        maind, startd, lossd = _dp_program(cfg, seq, dgc, DGCGradAllReduce())
+        scd, exed = Scope(), ptt.Executor()
+        exed.run(startd, scope=scd, seed=1234)
+        fa.reset_launch_count()
+        ld, ld_s, ld_peak, _ = _dp_steps(exed, maind, lossd, scd, feed,
+                                         DGC_STEPS)
+        dgc_launches = {k: fa.launch_count(k) for k in kernels}
+        worst_d = _dp_losses_match("dp_train (b)", mom, ld[:2])
+        uv = [n for n in scd.local_var_names()
+              if n.endswith(("@DGC_U", "@DGC_V"))]
+        bad = [n for n in uv if not bool(torch.isfinite(
+            scd.find_var(n)).all())]
+        if bad or not uv or not all(np.isfinite(l).all() for l in ld):
+            raise AssertionError(f"dp_train (b): losses {ld}, non-finite "
+                                 f"U/V {bad[:4]} of {len(uv)}")
+        want = cfg.n_layer * DP_RANKS * DGC_STEPS
+        if dgc_launches != {k: want for k in kernels}:
+            raise AssertionError(f"dp_train (b): K1/K2 launched "
+                                 f"{dgc_launches}, expected {want} each")
+        dgc_ops = [op for op in maind.global_block().ops
+                   if op.type == "dgc_allreduce"]
+        numels = [int(maind.global_block().var(op.input("U")[0]).shape[0])
+                  for op in dgc_ops]
+        sparse_b = sum(DP_RANKS * topk_count(n, DGC_SPARSITY) * (8 + 4)
+                       for n in numels)
+        dense_b = 4 * sum(numels)
+        del scd, exed
+        torch.cuda.empty_cache()
+        _log("dp_train", f"(b) DGCGradAllReduce + DGCMomentumOptimizer("
+             f"{DGC_LR}, 0.9, rampup_begin_step=1, sparsity="
+             f"[{DGC_SPARSITY}]), {len(dgc_ops)} dgc_allreduce ops: losses "
+             f"{[round(float(l.mean()), 6) for l in ld]}; steps 1-2 against"
+             f" Momentum + GradAllReduce's {[round(float(l.mean()), 6) for l in mom]}"
+             f" (worst relative {worst_d:.3g}; step 2 follows the dense "
+             f"update); steps 2-{DGC_STEPS} sparse, {len(uv)} U/V tensors "
+             f"finite; steps {', '.join(f'{1e3 * x:.1f}' for x in ld_s)} "
+             f"ms, peak {ld_peak / gib:.3f} GiB; allgathered (int64 index, "
+             f"float32 value) pairs {sparse_b} B a step over {DP_RANKS} "
+             f"ranks against the dense allreduce's {dense_b} B; K1/K2 "
+             f"{dgc_launches}")
+    finally:
+        set_mesh(None)
+    wall = time.perf_counter() - t_phase
+    _log("dp_train", f"phase wall time {wall:.1f} s")
+    return {"launches": launches, "dgc_launches": dgc_launches,
+            "losses": [l.tolist() for l in dp],
+            "single_losses": [l.tolist() for l in one],
+            "worst_rel": worst, "step_ms": dp_ms, "single_step_ms": one_ms,
+            "step_s": dp_s, "single_step_s": one_s,
+            "comm_step_ms": comm_ms, "comm_wait_ms": comm_wait,
+            "bus_bw": bus_bw, "payload_bytes": cplan.payload_bytes,
+            "wire_bytes": cplan.wire_bytes, "collective_bytes": moved,
+            "replica_tensors": replicas["tensors"], "peak_bytes": dp_peak,
+            "held_bytes": dp_held, "single_peak_bytes": one_peak,
+            "single_held_bytes": one_held,
+            "dgc": {"losses": [l.tolist() for l in ld],
+                    "momentum_losses": [l.tolist() for l in mom],
+                    "worst_rel": worst_d, "step_s": ld_s,
+                    "peak_bytes": ld_peak, "sparse_bytes": sparse_b,
+                    "dense_bytes": dense_b, "ops": len(dgc_ops)},
+            "wall_s": wall}
 
 
 def phase_preempt_train(train):
@@ -7012,6 +7304,7 @@ def main(argv=None) -> int:
     serve = phase_serve()
     decode = phase_decode(serve, args.profile)
     train = phase_train()
+    dp_train = phase_dp_train(smi, train)
     preempt = phase_preempt_train(train)
     amp_train = phase_amp_train(train)
     fused = phase_fused_train()
@@ -7119,6 +7412,10 @@ def main(argv=None) -> int:
     for name in ("flash_attn_fwd", "flash_attn_bwd"):
         by_path[name]["numerics"] = numerics["launches"][name]
     by_path["flash_attn_fwd"]["serve_plane"] = serve_plane["launches"]
+    # collective data parallelism: dp 4 virtual ranks, (a) and (b)
+    for name in ("flash_attn_fwd", "flash_attn_bwd"):
+        by_path[name]["dp_train"] = dp_train["launches"][name]
+        by_path[name]["dp_train_dgc"] = dp_train["dgc_launches"][name]
     # the serving fleet: in process, and the replica processes' own counts
     by_path["flash_attn_fwd"]["serve_fleet"] = serve_fleet["launches"]
     by_path["flash_attn_fwd"]["serve_fleet_replicas"] = \
@@ -7156,6 +7453,7 @@ def main(argv=None) -> int:
                                  if k not in ("main", "loss", "scope",
                                               "feed", "exe")},
                        "observe_train": observe_train,
+                       "dp_train": dp_train,
                        "observe_resnet": observe_resnet,
                        "observe_serve": observe_serve,
                        "numerics": numerics, "serve_plane": serve_plane,

@@ -21,7 +21,10 @@ kernel, and ring attention over the ``sp`` axis of a device mesh
 time and memory planes: the executor's dispatch ledger and live MFU,
 :mod:`paddle_tpu_torch.profiler` (host events, ``torch.profiler`` windows),
 ``analysis.device_profile``, ``analysis.memory``, :mod:`paddle_tpu_torch.
-memory` and :mod:`paddle_tpu_torch.hbm`.
+memory` and :mod:`paddle_tpu_torch.hbm`, and data parallelism in the
+executor's collective mode (:mod:`paddle_tpu_torch.distributed`: the ``c_*``
+ops, the ``GradAllReduce`` / ``LocalSGD`` transpilers, the fleet facade;
+``parallel.DGCGradAllReduce``; the comms plane ``analysis.comms``).
 """
 
 from . import ops  # noqa  (registers the op lowerings)

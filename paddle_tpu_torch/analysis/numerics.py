@@ -448,9 +448,11 @@ class StatsCopy:
     training thread once the event has completed.  On the host the vector
     is already there."""
 
-    __slots__ = ("host", "event")
+    __slots__ = ("host", "event", "shape")
 
     def __init__(self, vec: torch.Tensor):
+        # a collective step's vector is [nranks, L]: one row a rank
+        self.shape = tuple(vec.shape)
         if vec.is_cuda:
             n = vec.numel()
             with _PINNED_MU:
@@ -458,7 +460,7 @@ class StatsCopy:
                 host = free.pop() if free else None
             if host is None:
                 host = torch.empty(n, dtype=torch.float32, pin_memory=True)
-            host.copy_(vec, non_blocking=True)
+            host.view(self.shape).copy_(vec, non_blocking=True)
             self.host = host
             self.event = torch.cuda.Event()
             self.event.record(torch.cuda.current_stream(vec.device))
@@ -475,7 +477,7 @@ class StatsCopy:
         if self.event is None:
             return self.host.numpy().astype(np.float64)
         self.event.synchronize()
-        out = self.host.numpy().astype(np.float64)
+        out = self.host.numpy().astype(np.float64).reshape(self.shape)
         with _PINNED_MU:
             free = _PINNED.setdefault(out.size, [])
             if len(free) < _PINNED_KEEP:

@@ -33,9 +33,12 @@ int64 feed classification, the collective fingerprint (the dependency-
 ordered collective sequence and the fetch list, hashed) and the analytic
 cost plan (``analysis.cost``) and the static memory plan
 (``analysis.memory``, batch 1), whose peak past ``FLAGS_memory_budget_mb``
-is a ``memory_budget`` warning.  Not ported yet: the comms and sharding
-plans (``verifier.py:810, 830``) and the sharding checks, which need planes
-the port lacks; their stamps are ``None``.
+is a ``memory_budget`` warning, and the static comms plan
+(``analysis.comms``, batch 1), whose fingerprint folds into the collective
+fingerprint (``verifier.py:917-931``): ranks whose comms plans differ
+(payload bytes, nranks) carry different fingerprints.  Not ported yet: the
+sharding plan (``verifier.py:830``) and the sharding checks, which come
+with the GSPMD slice; its stamp is ``None``.
 """
 
 from __future__ import annotations
@@ -126,6 +129,10 @@ class VerifyResult:
     #: analytic flops/bytes plan (analysis.cost.CostPlan; None if planning
     #: failed)
     cost_plan: Optional[object] = None
+    #: static comms plan (analysis.comms.CommsPlan; None for a program
+    #: that launches no collectives, or when planning failed); its
+    #: fingerprint folds into ``collective_fingerprint``
+    comms_plan: Optional[object] = None
 
     def errors(self) -> List[Diagnostic]:
         return [d for d in self.diagnostics if d.severity == "error"]
@@ -625,6 +632,25 @@ def _check_cost(program: Program, fetch_names):
         return None
 
 
+def _check_comms(program: Program, fetch_names):
+    """The static comms plan at batch 1 (``verifier.py:810``): per-
+    collective payload and wire bytes and the comm-vs-compute verdict;
+    informational, and a planning failure never blocks verification."""
+    from . import comms as _comms
+    try:
+        return _comms.plan_comms(program, fetch_names, batch_size=1)
+    except Exception:
+        return None
+
+
+def _comms_attrs(plan):
+    from . import comms as _comms
+    try:
+        return _comms.stamp_attrs(plan)
+    except Exception:
+        return None
+
+
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
@@ -662,6 +688,14 @@ def _verify_cached(program: Program, fetch_names) -> \
         program, graph, fetch_names, diags)
     result.memory_plan = _check_memory(program, fetch_names, diags)
     result.cost_plan = _check_cost(program, fetch_names)
+    result.comms_plan = _check_comms(program, fetch_names)
+    if result.comms_plan is not None and \
+            result.collective_fingerprint is not None:
+        # one token for the gang to compare: a divergent comms plan
+        # mismatches exactly like a divergent collective sequence
+        result.collective_fingerprint = hashlib.sha1(
+            (result.collective_fingerprint + "|"
+             + result.comms_plan.fingerprint).encode()).hexdigest()
     for d in diags:
         _FINDING_CELLS[d.check].inc()
     if result.int64_dynamic:
@@ -684,7 +718,7 @@ def _verify_cached(program: Program, fetch_names) -> \
             "per_class": dict(plan.per_class),
             "intensity": plan.intensity(),
         },
-        "comms": None,
+        "comms": _comms_attrs(result.comms_plan),
         "sharding": None,
     }
     with _CACHE_LOCK:

@@ -21,9 +21,12 @@ the port's counterpart of ``paddle_tpu/compiler.py``).
 Results are cached per CompiledProgram on the reference's key (program
 version, fetch set, fusion config, batch), the numerics mode and the device
 the fusion autotuner timed on.  Each pass's wall time goes to the
-``paddle_tpu_compiler_pass_ms{pass}`` histogram.  Not ported yet: the
-transient-fault retries, the tracer spans, data
-parallelism and the GSPMD partition.
+``paddle_tpu_compiler_pass_ms{pass}`` histogram.  A transpiled collective
+program (``distributed.GradAllReduce`` / ``LocalSGD``) keeps its
+``_attrs["collective"]``, and the executor runs it in collective mode.  Not
+ported yet: the transient-fault retries, the tracer spans and
+``with_data_parallel`` / ``with_distributed`` / ``with_gspmd`` (the GSPMD
+slice).
 """
 
 from __future__ import annotations

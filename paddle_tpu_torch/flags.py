@@ -9,8 +9,9 @@ engine's budget flags, the executor's throttle and ``FLAGS_benchmark``,
 the memory budget, the sampling profiler's and the HBM accountant's flags,
 the numerics plane's (``FLAGS_numerics*``, ``FLAGS_check_nan_inf``), the
 serving SLO plane's (``FLAGS_serving_slo*``), the metrics endpoint's
-(``FLAGS_metrics_port``, ``FLAGS_metrics_host``) and the serving fleet's
-and its autoscaler's (``FLAGS_fleet_*``) exist so far, with the
+(``FLAGS_metrics_port``, ``FLAGS_metrics_host``), the serving fleet's
+and its autoscaler's (``FLAGS_fleet_*``) and the comms plane's
+(``FLAGS_comms_telemetry``, ``FLAGS_comms_gate_timeout_s``) exist so far, with the
 reference's names, defaults, validation and side effects.  ``FLAGS_*`` environment variables
 seed them at import, as the reference's ``__bootstrap__`` does; a
 malformed value warns and is ignored.
@@ -191,6 +192,15 @@ _DEFAULTS: Dict[str, Any] = {
     "FLAGS_fleet_shrink_grace_ticks": 3,
     # wait after a failed spawn before retrying (>= 0)
     "FLAGS_fleet_spawn_backoff_s": 10.0,
+    # the comms plane (analysis/comms.py): the executor's collective mode
+    # bumps the per-collective byte counters after each step and hands the
+    # step's timing record to the off-thread comms monitor (a few counter
+    # bumps and one queue append a step)
+    "FLAGS_comms_telemetry": True,
+    # how long the pre-collective timestamp exchange through the gang
+    # coordinator waits for every rank; read by nothing yet: the
+    # coordinator and its comm gate come with the multi-process slice
+    "FLAGS_comms_gate_timeout_s": 10.0,
 }
 
 _NUMERICS_FLAGS = ("FLAGS_numerics", "FLAGS_numerics_spike_factor",

@@ -108,13 +108,42 @@ numerics statistics read the product (``_Plan._inplace_adds``), as the
 static memory plan and the reference's compiler reuse that buffer; a served
 LM head then holds its logits once.
 
-Left out so far: meshes and the comms plane.  The reference's donation
-aliasing check has nothing to guard: the eager step donates no buffer.
+Collective mode (ref ``executor.py:925-1087``): a program the collective
+transpilers stamped (``_attrs["collective"] = {"nranks", "rank"}``) runs
+over the ``dp`` ranks: the ``dp`` axis of ``parallel.current_mesh()``
+(virtual ranks allowed), else the visible cards; fewer devices than ranks
+raise.  Batched feeds split on dim 0 (a batch the ranks do not divide
+raises), scalar feeds replicate, rank r draws from ``seed + r * 1000003``.
+The plan is cut into segments at its collective ops (``OpInfo.
+collective``): each segment runs for rank 0, then rank 1, ..., then the
+collective's group lowering runs over every rank, so one rank's activations
+and autograd graphs are alive at a time (a GradAllReduce program's first
+collective follows the backward).  Every rank reads the scope's one value
+of each persistable, and no rank's write reaches the scope before the step
+ends: there the trainable parameters come from rank 0
+(``verify_replicas`` compares every rank's bit for bit), other floating
+read-write persistables become the mean over ranks and integer ones the
+maximum.  Fetches come back stacked per rank (``f[None]`` over ``dp``),
+numerics statistics as one row a rank, and the dispatch ledger counts one
+step a run.  The plan key carries the collective stamp and the ranks'
+devices.  A collective op an autograd graph would differentiate raises
+``NotImplementedError`` (the GSPMD slice).  The comms plane (ref
+``executor.py:406-432, 1553-1566, 1718-1740``, under
+``FLAGS_comms_telemetry``): ``collective.launch`` fires before each
+collective step; after one that did not fail the step counts in
+``paddle_tpu_collective_launches_total{kind="shard_map_step"}``, the plan's
+byte cells are bumped, and from a plan's second step on the step's record
+(the collective segment's two marks, CUDA events on the card) goes to
+``analysis.comms.MONITOR`` off the training thread.
+
+The reference's donation aliasing check has nothing to guard: the eager
+step donates no buffer.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 import itertools
 import threading
 import time
@@ -162,6 +191,12 @@ _CLASS_SHARE_GAUGE = _monitor.REGISTRY.gauge(
 _ANALYTIC_FLOPS_GAUGE = _monitor.REGISTRY.gauge(
     "paddle_tpu_analytic_step_flops",
     "analytic flops per step of the most recently dispatched plan")
+#: collective steps, under the reference's label (ref executor.py:61-64,218)
+_COLLECTIVE_CTR = _monitor.REGISTRY.counter(
+    "paddle_tpu_collective_launches_total",
+    "host-launched collectives by kind (a collective-mode step counts "
+    "once under kind=shard_map_step)", ("kind",))
+_COLL_STEP = _COLLECTIVE_CTR.labels(kind="shard_map_step")
 
 _HELP = {
     "cache_hits": "dispatches served by the compiled-block cache",
@@ -398,6 +433,51 @@ def _publish_cost(plan, cost) -> None:
     _published_cost[0] = weakref.ref(plan)
 
 
+def _resolve_comms(plan, feeds, nranks):
+    """Once per collective plan: the static comms plan at the real feed
+    batch and its bound byte-counter cells (ref executor.py:406-432).
+    ``(plan, cells)`` or None; comms modeling never breaks a dispatch."""
+    try:
+        from ..analysis import comms
+        cplan = comms.plan_comms(plan.program, plan.fetch_names,
+                                 batch_size=_feed_batch(feeds),
+                                 nranks=nranks)
+        if cplan is None:
+            return None
+        return cplan, comms.bound_byte_cells(cplan)
+    except Exception:
+        return None
+
+
+def _mark(device: torch.device):
+    """A point on the rank's timeline: a recorded CUDA event on the card,
+    the host clock elsewhere (the host runs the ops as it launches them)."""
+    if device.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(device))
+        return ev
+    return time.perf_counter()
+
+
+def _sync_state(vals: List[torch.Tensor]) -> torch.Tensor:
+    """A non-parameter read-write persistable's value after a collective
+    step (ref executor.py:1031-1068): the mean over the ranks for floating
+    types, summed in float64 so that equal values come back exactly; the
+    maximum for the rest (counters advance alike).  On rank 0's device."""
+    if len(vals) == 1:
+        return vals[0]
+    dev = vals[0].device
+    if vals[0].is_floating_point():
+        acc = vals[0].to(torch.float64)
+        for v in vals[1:]:
+            acc += v.to(dev, torch.float64)
+        return (acc / len(vals)).to(vals[0].dtype)
+    out = vals[0]
+    for v in vals[1:]:
+        out = torch.maximum(out, v.to(dev))
+    return out
+
+
 def _resolve_hbm_info(plan, feeds):
     """Once per plan: the class name-sets (parameters vs other
     persistables: optimizer state, BN statistics) and the static plan's
@@ -460,13 +540,17 @@ class _StepRange:
 
 class LowerCtx:
     """Per-run context handed to op lowerings; ``amp`` is the program's
-    bf16 AMP flag."""
+    bf16 AMP flag, ``rank`` / ``nranks`` the rank a collective-mode run
+    runs for and the ranks of its ``dp`` axis (0 / 1 otherwise)."""
 
-    def __init__(self, device: torch.device, seed: int, amp: bool = False):
+    def __init__(self, device: torch.device, seed: int, amp: bool = False,
+                 rank: int = 0, nranks: int = 1):
         self.device = device
         self._seed = int(seed) & 0xFFFFFFFFFFFFFFFF
         self._generator = None
         self.amp = bool(amp)
+        self.rank = rank
+        self.nranks = nranks
         self._counter = 0
         # output name of a stateful_rng op -> the counter before it ran
         self.rng_marks: Dict[str, int] = {}
@@ -594,6 +678,7 @@ class _Plan:
         # resolved on the plan's first run (cost, memory)
         self.cost_info = _UNSET
         self.hbm_info = _UNSET
+        self.comms_info = _UNSET
         self.amp = bool(program._attrs.get("amp", False))
         self.ops = []
         self.fwd_of: Dict[int, Optional[int]] = {}
@@ -605,8 +690,10 @@ class _Plan:
                 continue
             i = len(self.ops)
             if registry.is_generic_grad(op):
-                self.ops.append(
-                    (op, registry.get_op_info(op.attrs["__fwd_type__"])))
+                info = registry.get_op_info(op.attrs["__fwd_type__"])
+                if info.collective:
+                    raise registry.collective_grad_error(info.type)
+                self.ops.append((op, info))
                 cands = fwd_at.get(_grad_key(op), [])
                 j = next((c for c in reversed(cands)
                           if _carries_grads_of(op, self.ops[c][0])), None)
@@ -642,6 +729,13 @@ class _Plan:
                 self.free_after[i].append(n)
         self.persist_out = sorted(written & persistable)
         self.persistables = sorted(persistable & set(last))
+        # collective mode: the collective ops the schedule cuts the plan
+        # at, and the trainable parameters every rank updates alike
+        self.collective_at = [i for i, (_, info) in enumerate(self.ops)
+                              if info.collective]
+        self.trainable_out = frozenset(
+            n for n in self.persist_out
+            if block.vars[n].is_parameter and block.vars[n].trainable)
         self.inplace_add = self._inplace_adds(keep)
         # every name an op of the step writes (the numerics plane's
         # ``written``), and the float read-write persistables the step
@@ -719,6 +813,11 @@ class Executor:
         self._last_dispatch_t: Optional[float] = None  # guarded-by: _lock
         self._step_win: collections.deque = \
             collections.deque(maxlen=9)  # guarded-by: _lock
+        # collective mode: compare every rank's trainable parameters bit
+        # for bit at the end of each step (one host sync a parameter) and
+        # raise on a difference; the last step's count in replica_report
+        self.verify_replicas = False
+        self.replica_report: Optional[Dict[str, Any]] = None
         _EXECUTORS.add(self)
         # the ledger's series fold into executor="retired" when this
         # executor dies (the callback holds only the stats object)
@@ -859,9 +958,16 @@ class Executor:
         num_mode = _numerics.mode()
         check_nan = bool(get_flags("FLAGS_check_nan_inf")
                          ["FLAGS_check_nan_inf"])
+        # collective mode: the transpiler's stamp and the ranks' devices
+        # key the plan too (neither is in the program's fingerprint), so a
+        # plan built for one rank count never runs another
+        coll = program._attrs.get("collective")
+        devices = self._collective_devices(coll) if coll else None
+        coll_tok = None if devices is None else (
+            tuple(sorted(coll.items())), tuple(map(str, devices)))
         key = (program.fingerprint(), feed_names, feed_sigs, fetch_names,
                scope._serial, None if compiled is None else compiled._serial,
-               _fusion.config_token(), num_mode, check_nan)
+               _fusion.config_token(), num_mode, check_nan, coll_tok)
         stats = self._stats
         with self._lock:
             plan = self._plans.get(key)
@@ -885,10 +991,18 @@ class Executor:
             step_seed = self._step_seed
         seed_val = seed if seed is not None else (
             program.random_seed * 1000003 + step_seed)
-        env = {n: self._to_device(v) for n, v in feed.items()}
-        feeds = list(env.values())
+        if devices is None:
+            env = {n: self._to_device(v) for n, v in feed.items()}
+            feeds = list(env.values())
+        else:
+            ranks = self._split_feeds(feed, devices)
+            feeds = list(feed.values())
+            # the drill site and the comms plane's launch record precede
+            # the collective step (ref executor.py:1553-1566)
+            _resil.maybe_inject("collective.launch")
+            comms_note = self._comms_prelaunch(plan, feeds, len(devices))
         num = rw_in = None
-        if num_mode != "off":
+        if devices is None and num_mode != "off":
             num = _numerics.StepStats(
                 num_mode, plan.written, feed_names, plan.persist_out,
                 plan.program._attrs.get("numerics"))
@@ -913,12 +1027,17 @@ class Executor:
                 # the OOM drill: an injected fault here takes the path a
                 # real out-of-memory error of the ops below takes
                 _resil.maybe_inject("memory.oom")
-                self._maybe_poison(plan, scope, env)
-                run_plan(plan, LowerCtx(self.device, seed_val, plan.amp),
-                         env, lambda name: self._read(scope, plan.block,
-                                                      name),
-                         observe=num, check_nan=check_nan)
-                if num is not None:
+                if devices is not None:
+                    state, fetched, num, segment = self._run_collective(
+                        plan, devices, ranks, scope, seed_val, num_mode,
+                        check_nan, feed_names)
+                else:
+                    read = functools.partial(self._read, scope, plan.block)
+                    self._maybe_poison(plan, scope, env, read)
+                    run_plan(plan, LowerCtx(self.device, seed_val, plan.amp),
+                             env, read, observe=num, check_nan=check_nan)
+                    state = fetched = env
+                if devices is None and num is not None:
                     for n in plan.written:
                         if n in env:
                             num.offer(n, env[n])
@@ -935,6 +1054,8 @@ class Executor:
             _hbm().record_xla_plan(
                 ",".join(fetch_names) or "<block>", _hbm()._MeasuredPlan(
                     before, torch.cuda.max_memory_allocated(self.device)))
+        if devices is not None:
+            self._comms_account(comms_note, step_id, segment, fresh, tdisp)
         stats.incr("steps_dispatched")
         stats.incr("time_to_dispatch_us", (tdisp - t0) * 1e6)
         if _monitor.TRACER.enabled:
@@ -962,7 +1083,7 @@ class Executor:
             # event has completed, so this never waits on the card
             _numerics.ENGINE.note_step(step_id, num[1], num[0])
         if plan.persist_out:
-            scope.set_vars({n: env[n] for n in plan.persist_out})
+            scope.set_vars({n: state[n] for n in plan.persist_out})
         with self._lock:
             hooks = list(self._step_hooks)
         for h in hooks:
@@ -975,7 +1096,8 @@ class Executor:
             if info is _UNSET:
                 info = plan.hbm_info = _resolve_hbm_info(plan, feeds)
             acc.note_step(step_id, scope, info, 0)
-        fetches = [env[n] if n in env else self._read(scope, plan.block, n)
+        fetches = [fetched[n] if n in fetched
+                   else self._read(scope, plan.block, n)
                    for n in fetch_names]
         fl = get_flags(["FLAGS_benchmark",
                         "FLAGS_executor_max_inflight_steps"])
@@ -1006,20 +1128,212 @@ class Executor:
         stats.incr("lazy_fetch_steps")
         return [FetchHandle(t, stats, step_id) for t in fetches]
 
-    def _maybe_poison(self, plan, scope, env) -> None:
+    def _maybe_poison(self, plan, scope, env, read) -> None:
         """The ``numerics.poison`` drill (ref executor.py:1527-1533): when
         the site fires, the first float read-write persistable the step
         reads enters it multiplied by NaN, as an overflow inside the step
-        would leave it; the step's own statistics then show it."""
+        would leave it; the step's own statistics then show it.  ``env``
+        and ``read`` are the rank's (in collective mode, the last rank's
+        only)."""
         try:
             _resil.maybe_inject("numerics.poison")
         except _resil.InjectedFault:
             for n in plan.poison_targets:
                 v = scope.find_var(n)
                 if isinstance(v, torch.Tensor) and v.dim() >= 1:
-                    v = self._read(scope, plan.block, n)
-                    env[n] = v * float("nan")
+                    env[n] = read(n) * float("nan")
                     return
+
+    # -- collective mode (ref executor.py:1010-1087) -------------------------
+    def _collective_devices(self, coll) -> List[torch.device]:
+        """The devices of a collective program's ranks: the ``dp`` axis of
+        the current mesh (virtual ranks allowed), else the visible cards.
+        Fewer devices than ``nranks`` raise (ref executor.py:1025-1028):
+        there is no fallback to fewer ranks."""
+        from ..parallel.mesh import current_mesh
+        mesh = current_mesh()
+        if mesh is not None and "dp" in mesh.axis_names:
+            devs, where = mesh.axis_devices("dp"), "the current mesh's dp axis"
+        else:
+            devs = [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())] \
+                if torch.cuda.is_available() else []
+            where = "the visible CUDA devices"
+        nranks = int(coll.get("nranks", 0) or 0) or len(devs)
+        if not 1 <= nranks <= len(devs):
+            raise ValueError(
+                f"collective mode needs {nranks} devices, have {len(devs)} "
+                f"({where}); set a dp mesh (parallel.set_mesh(make_mesh("
+                f"{{'dp': {nranks}}}, devices)))")
+        devs = devs[:nranks]
+        if any(d.type != self.device.type for d in devs):
+            raise ValueError(f"collective mode: the ranks' devices "
+                             f"{devs} are not of this executor's device "
+                             f"type ({self.device})")
+        return devs
+
+    def _split_feeds(self, feed, devices) -> List[Dict[str, torch.Tensor]]:
+        """Each rank's feeds: a batched feed split on dim 0, a scalar one
+        replicated (ref executor.py:1071-1072).  A batch the ranks do not
+        divide raises."""
+        n = len(devices)
+        envs: List[Dict[str, torch.Tensor]] = [{} for _ in devices]
+        for name, v in feed.items():
+            t = self._to_device(v)
+            if t.dim() == 0:
+                for env, d in zip(envs, devices):
+                    env[name] = t.to(d)
+                continue
+            if t.shape[0] % n:
+                raise ValueError(
+                    f"collective mode: feed {name!r} has batch "
+                    f"{t.shape[0]}, which {n} ranks do not divide")
+            m = t.shape[0] // n
+            for r, (env, d) in enumerate(zip(envs, devices)):
+                env[name] = t[r * m:(r + 1) * m].to(d)
+        return envs
+
+    def _rank_reader(self, scope, block, device):
+        """A rank's reader of the scope: the one value of a persistable,
+        on the rank's device (copied once a step for a rank on another
+        device).  Nothing a rank writes reaches the scope before the
+        step ends, so no rank reads another's update."""
+        copies: Dict[str, torch.Tensor] = {}
+
+        def read(name):
+            v = self._read(scope, block, name)
+            if v.device == device:
+                return v
+            if name not in copies:
+                copies[name] = v.to(device)
+            return copies[name]
+        return read
+
+    def _run_collective(self, plan, devices, envs, scope, seed_val,
+                        num_mode, check_nan, feed_names):
+        """One collective step over the ranks of ``devices``.  The plan is
+        cut into segments at its collective ops: each segment runs for rank
+        0, then rank 1, ..., then the collective runs over all ranks, so
+        one rank's activations and autograd graphs are alive at a time.
+        Rank r draws from ``seed + r * 1000003`` (mod 2**32, ref
+        executor.py:1046-1048).  At the end the trainable parameters come
+        from rank 0 and the other read-write persistables are synced
+        (:func:`_sync_state`); the fetches come back stacked per rank, in
+        the reference's shapes.  Returns (state, fetched, numerics,
+        segment): the persistables to write, the fetches, the stacked
+        numerics frame, and the collective segment's two timeline marks
+        (None without a collective op)."""
+        n = len(devices)
+        ctxs = [LowerCtx(d, (seed_val + r * 1000003) & 0xFFFFFFFF, plan.amp,
+                         rank=r, nranks=n) for r, d in enumerate(devices)]
+        reads = [self._rank_reader(scope, plan.block, d) for d in devices]
+        stats = [None] * n
+        if num_mode != "off":
+            stats = [_numerics.StepStats(
+                num_mode, plan.written, feed_names, plan.persist_out,
+                plan.program._attrs.get("numerics")) for _ in devices]
+        rw_in = [scope.find_var(k) for k in plan.persist_out] \
+            if num_mode == "full" else ()
+        self._maybe_poison(plan, scope, envs[-1], reads[-1])
+        graphs: List[Dict[int, registry.Forward]] = [{} for _ in devices]
+        cuts = plan.collective_at
+        marks = []
+        try:
+            lo = 0
+            for c in cuts + [len(plan.ops)]:
+                for r in range(n):
+                    _run_ops(plan, lo, c, ctxs[r], envs[r], reads[r],
+                             graphs[r], stats[r], check_nan)
+                if c == len(plan.ops):
+                    break
+                if c == cuts[0]:
+                    marks.append(_mark(devices[0]))
+                _run_collective_op(plan, c, ctxs, envs, reads, stats,
+                                   check_nan)
+                if c == cuts[-1]:
+                    marks.append(_mark(devices[0]))
+                lo = c + 1
+        finally:
+            for g in graphs:
+                g.clear()
+        num = None
+        if stats[0] is not None:
+            packed = []
+            for env, st, d in zip(envs, stats, devices):
+                for k in plan.written:
+                    if k in env:
+                        st.offer(k, env[k])
+                layout, p = st.finish(plan.persist_out, rw_in,
+                                      [env.get(k) for k in plan.persist_out],
+                                      device=d, force=True)
+                packed.append(p.to(devices[0]))
+            # one row a rank: the frame adds counts, maxes absmax
+            num = (layout, _numerics.StatsCopy(torch.stack(packed)))
+        state = {}
+        mismatched = []
+        for k in plan.persist_out:
+            vals = [env[k] for env in envs]
+            if k in plan.trainable_out:
+                if self.verify_replicas and not all(
+                        torch.equal(vals[0], v.to(vals[0].device))
+                        for v in vals[1:]):
+                    mismatched.append(k)
+                state[k] = vals[0]
+            else:
+                state[k] = _sync_state(vals)
+        if self.verify_replicas:
+            self.replica_report = {"tensors": len(plan.trainable_out),
+                                   "ranks": n, "mismatched": mismatched}
+            if mismatched:
+                raise RuntimeError(
+                    f"collective mode: the ranks' trainable parameters "
+                    f"differ after the step: {mismatched}")
+        fetched = {}
+        for k in plan.fetch_names:
+            vals = [env[k] if k in env else read(k)
+                    for env, read in zip(envs, reads)]
+            fetched[k] = torch.cat([v[None].to(devices[0]) for v in vals])
+        return state, fetched, num, (tuple(marks) if marks else None)
+
+    def _comms_prelaunch(self, plan, feeds, nranks):
+        """``FLAGS_comms_telemetry``: the plan's comms plan and byte cells
+        (resolved once per plan) and the launch time, or None.  Never
+        raises: telemetry must not fail a step.  The straggler wait is 0
+        until the gang coordinator's comm gate (multi-process slice)."""
+        from ..flags import get_flags
+        try:
+            if not get_flags("FLAGS_comms_telemetry")[
+                    "FLAGS_comms_telemetry"]:
+                return None
+            info = plan.comms_info
+            if info is _UNSET:
+                info = plan.comms_info = _resolve_comms(plan, feeds, nranks)
+            if info is None:
+                return None
+            return info[0], info[1], time.perf_counter()
+        except Exception:
+            return None
+
+    def _comms_account(self, note, step_id, segment, fresh, tdisp):
+        """After a collective step that did not fail (ref
+        executor.py:1718-1740): count the step, bump the byte cells, and
+        hand the record to the comms monitor (off this thread), except for
+        a plan's first step, as the reference skips a compiling call."""
+        _COLL_STEP.inc()
+        if note is None:
+            return
+        cplan, cells, t_launch = note
+        try:
+            for cell, payload in cells:
+                cell.inc(payload)
+            if not fresh:
+                probe = segment[1] if segment is not None and \
+                    hasattr(segment[1], "synchronize") else None
+                from ..analysis import comms
+                comms.MONITOR.note_launch(step_id, probe, cplan, t_launch,
+                                          tdisp, None, segment)
+        except Exception:
+            pass     # telemetry must never fail a step
 
     def _raise_with_forensics(self, e, key, plan, scope, feeds):
         """Re-raise a failed run's error.  An out-of-memory error (a real
@@ -1087,31 +1401,66 @@ def run_plan(plan: _Plan, ctx: LowerCtx, env: Dict[str, Any],
     callables run their blocks through it."""
     graphs: Dict[int, registry.Forward] = {}   # kept, by forward op
     try:
-        for i, (op, info) in enumerate(plan.ops):
-            try:
-                if i in plan.inplace_add and observe is None:
-                    outs = _add_in_place(op, ctx, env, read)
-                else:
-                    outs = None
-                if outs is None:
-                    outs = _run_op(plan, i, op, info, ctx, env, read,
-                                   graphs)
-            except Exception as e:
-                raise RuntimeError(
-                    f"{type(e).__name__} while running op {op.type!r}: "
-                    f"{e}\n  {_op_context(plan.block, op)}") from e
-            if check_nan and i not in plan.fwd_of:
-                _sanitize_outputs(op, outs)
-            for slot, names in op.outputs.items():
-                for n, val in zip(names, outs.get(slot, [])):
-                    if n and val is not None:
-                        env[n] = val.detach()
-            for n in plan.free_after[i]:
-                v = env.pop(n, None)
-                if observe is not None and v is not None:
-                    observe.offer(n, v)
+        _run_ops(plan, 0, len(plan.ops), ctx, env, read, graphs, observe,
+                 check_nan)
     finally:
         graphs.clear()      # a raised error's traceback must not pin them
+
+
+def _op_error(plan, op, e) -> RuntimeError:
+    return RuntimeError(f"{type(e).__name__} while running op {op.type!r}: "
+                        f"{e}\n  {_op_context(plan.block, op)}")
+
+
+def _run_ops(plan: _Plan, lo: int, hi: int, ctx: LowerCtx, env, read,
+             graphs, observe, check_nan) -> None:
+    """Run ``plan.ops[lo:hi]`` for one rank (:func:`run_plan`); ``graphs``
+    holds the rank's kept forward graphs across calls."""
+    for i in range(lo, hi):
+        op, info = plan.ops[i]
+        try:
+            if i in plan.inplace_add and observe is None:
+                outs = _add_in_place(op, ctx, env, read)
+            else:
+                outs = None
+            if outs is None:
+                outs = _run_op(plan, i, op, info, ctx, env, read, graphs)
+        except Exception as e:
+            raise _op_error(plan, op, e) from e
+        _take_outputs(plan, i, op, outs, env, observe, check_nan)
+
+
+def _run_collective_op(plan, i, ctxs, envs, reads, stats, check_nan):
+    """Collective op ``i`` over every rank at once: its group lowering
+    takes the ranks' inputs and gives each rank its outputs."""
+    op, info = plan.ops[i]
+    ins_list = []
+    for env, read in zip(envs, reads):
+        ins = {slot: [None if not n else env[n] if n in env else read(n)
+                      for n in names]
+               for slot, names in op.inputs.items()}
+        ins_list.append(_amp.cast_ins(op.type, ins) if plan.amp else ins)
+    try:
+        outs_list = info.lower(ctxs, ins_list, op.attrs)
+    except Exception as e:
+        raise _op_error(plan, op, e) from e
+    for env, outs, st in zip(envs, outs_list, stats):
+        _take_outputs(plan, i, op, outs, env, st, check_nan)
+
+
+def _take_outputs(plan, i, op, outs, env, observe, check_nan) -> None:
+    """Op ``i``'s outputs into ``env``, then its last-read temporaries out
+    of it (handed to ``observe`` first)."""
+    if check_nan and i not in plan.fwd_of:
+        _sanitize_outputs(op, outs)
+    for slot, names in op.outputs.items():
+        for n, val in zip(names, outs.get(slot, [])):
+            if n and val is not None:
+                env[n] = val.detach()
+    for n in plan.free_after[i]:
+        v = env.pop(n, None)
+        if observe is not None and v is not None:
+            observe.offer(n, v)
 
 
 def _add_in_place(op, ctx, env, read):
@@ -1181,7 +1530,7 @@ def _run_op(plan, i, op, info, ctx, env, read, graphs):
         return graphs[i][1]
     if ctx.amp:
         ins = _amp.cast_ins(op.type, ins)
-    return info.lower(ctx, ins, op.attrs) or {}
+    return registry.lower_one(info, ctx, ins, op.attrs) or {}
 
 
 def _replay_grad(op, ctx, ins):

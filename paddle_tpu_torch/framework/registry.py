@@ -31,7 +31,8 @@ from .core import Block, Operator, grad_var_name
 class OpInfo:
     def __init__(self, type: str, lower: Callable, infer: Optional[Callable],
                  grad_maker: Optional[Callable] = None,
-                 no_grad: bool = False, stateful_rng: bool = False):
+                 no_grad: bool = False, stateful_rng: bool = False,
+                 collective: bool = False):
         self.type = type
         self.lower = lower
         self.infer = infer
@@ -40,6 +41,10 @@ class OpInfo:
         # draws random bits: a grad op that recomputes it from the run's
         # counter stream replays the forward's draws (executor rng_marks)
         self.stateful_rng = stateful_rng
+        # a group lowering over every rank of the dp axis at once:
+        # ``lower(ctxs, ins_list, attrs) -> outs_list``, one entry a rank
+        # (see :func:`lower_one`)
+        self.collective = collective
 
 
 _REGISTRY: Dict[str, OpInfo] = {}
@@ -47,14 +52,15 @@ _REGISTRY: Dict[str, OpInfo] = {}
 
 def register_op(type: str, lower: Callable = None, *, infer: Callable = None,
                 grad_maker: Callable = None, no_grad: bool = False,
-                stateful_rng: bool = False):
+                stateful_rng: bool = False, collective: bool = False):
     """Register an op lowering (``infer`` overrides shape inference,
     ``grad_maker`` the generic grad desc, ``no_grad`` marks an op without
-    gradient, ``stateful_rng`` one that draws random bits).  Usable as
-    decorator or call."""
+    gradient, ``stateful_rng`` one that draws random bits, ``collective``
+    a group lowering over the ranks of the executor's collective mode).
+    Usable as decorator or call."""
     def deco(fn):
         _REGISTRY[type] = OpInfo(type, fn, infer, grad_maker, no_grad,
-                                 stateful_rng)
+                                 stateful_rng, collective)
         return fn
     if lower is not None:
         return deco(lower)
@@ -75,6 +81,25 @@ def registered_ops() -> List[str]:
     return sorted(_REGISTRY)
 
 
+def lower_one(info: OpInfo, ctx, ins: Dict[str, List], attrs):
+    """Run ``info``'s lowering for one rank: a collective op's group
+    lowering over a group of one, which is its identity (its single-device
+    semantics, the reference's ``collective_axis`` None)."""
+    if info.collective:
+        return info.lower([ctx], [ins], attrs)[0]
+    return info.lower(ctx, ins, attrs)
+
+
+def collective_grad_error(fwd_type: str) -> NotImplementedError:
+    """The error for a collective op an autograd graph would differentiate:
+    collectives with gradients come with the GSPMD slice, and a collective
+    never computes a wrong gradient quietly."""
+    return NotImplementedError(
+        f"op {fwd_type!r} is a collective in the forward of a program "
+        f"with a backward; collectives with gradients (the GSPMD slice: "
+        f"with_data_parallel / with_gspmd) are not ported yet")
+
+
 # ---------------------------------------------------------------------------
 # build-time shape/dtype inference (ref framework/operator.cc:913 InferShape)
 # ---------------------------------------------------------------------------
@@ -90,6 +115,7 @@ class AbstractCtx:
     device = torch.device("meta")
     generator = None
     amp = False
+    rank, nranks = 0, 1
 
     def rng(self):
         return None
@@ -136,7 +162,7 @@ def infer_op(op: Operator, block: Block) -> None:
                 arrs.append(torch.empty(shape, dtype=getattr(torch, v.dtype),
                                         device="meta"))
             ins[slot] = arrs
-        outs = info.lower(AbstractCtx(), ins, op.attrs)
+        outs = lower_one(info, AbstractCtx(), ins, op.attrs)
         for slot, names in op.outputs.items():
             for n, t in zip(names, outs.get(slot, [])):
                 if t is None:
@@ -209,7 +235,10 @@ def run_forward(info: OpInfo, ctx, ins: Dict[str, List], attrs,
     (``ctx.amp``) the inputs are cast after the leaves are made, inside
     the differentiated function (the reference's ``registry.py:223-227``):
     a float32 master weight's gradient comes back float32 through the
-    cast, where a cast before the leaves would round it to bf16."""
+    cast, where a cast before the leaves would round it to bf16.  A
+    collective op raises :func:`collective_grad_error`."""
+    if info.collective:
+        raise collective_grad_error(info.type)
     leaves = {}
     for slot, vals in ins.items():
         want = [True] * len(vals) if wanted is None else \

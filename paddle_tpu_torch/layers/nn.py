@@ -252,6 +252,16 @@ def mean(x, name=None):
     return out
 
 
+def square_error_cost(input, label):
+    """ref ``paddle_tpu/layers/nn.py:388``: (input - label)^2."""
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("square_error_cost",
+                     inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [out]})
+    return out
+
+
 def topk(input, k, name=None):
     helper = LayerHelper("top_k", name=name)
     values = helper.create_variable_for_type_inference(input.dtype)
@@ -405,6 +415,11 @@ def slice(input, axes, starts, ends):
 # elementwise unary
 # ---------------------------------------------------------------------------
 
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    """ref ``paddle_tpu/layers/nn.py:805``: ``x - y``."""
+    return _elementwise_binary(x, y, "elementwise_sub", axis=axis, act=act)
+
+
 def elementwise_mod(x, y, axis=-1, act=None, name=None):
     """ref ``paddle_tpu/layers/nn.py:829``: ``x mod y``, the sign of y."""
     return _elementwise_binary(x, y, "elementwise_mod", axis=axis, act=act)
@@ -422,6 +437,7 @@ def relu(x, name=None): return _unary("relu", x, name)
 def sigmoid(x, name=None): return _unary("sigmoid", x, name)
 def sign(x, name=None): return _unary("sign", x, name)
 def square(x, name=None): return _unary("square", x, name)
+def tanh(x, name=None): return _unary("tanh", x, name)
 
 
 # ---------------------------------------------------------------------------

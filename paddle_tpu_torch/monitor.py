@@ -44,16 +44,18 @@ process's health under the reference's keys: ``step_ms``, ``mfu``,
 ``mfu_m``, ``queue``, ``steps``, ``inflight``, the serving load ``srv_q`` /
 ``occ`` / ``slots`` / ``tps`` (while a serving loop woke within
 ``FLAGS_fleet_digest_ttl_s``), the numerics plane's ``gnorm`` / ``nanf``,
-and the HBM accountant's ``hbm`` / ``hdrm``.  A ``ReplicaEndpoint`` sends
+the HBM accountant's ``hbm`` / ``hdrm``, and the comms plane's ``comm_ms``
+/ ``comm_wait`` / ``comm_bw`` (while ``analysis.comms.MONITOR`` published
+within ``_COMM_DIGEST_TTL_S``; ``comm_wait`` and ``comm_bw`` ride whenever
+``comm_ms`` does).  A ``ReplicaEndpoint`` sends
 its load keys with every reply.  The fleet families (ref :520-590): the
 router's re-route ledger and per-replica state, the failover histogram
 (observed by the router's re-routed requests), and the autoscaler's decision counter, target, live size, shed switch and width
 shrinks.
 
-Not ported yet: the ``comm_ms`` / ``comm_wait`` / ``comm_bw`` digest keys
-(they come with ``analysis/comms.py``), and the ``paddle_tpu_gang_*`` and
-``paddle_tpu_coordinator_*`` families with the coordinator that folds the
-digests (ROADMAP Queue 1 items 2-3).
+Not ported yet: the ``paddle_tpu_gang_*`` and ``paddle_tpu_coordinator_*``
+families with the coordinator that folds the digests (the multi-process
+slice).
 """
 
 from __future__ import annotations
@@ -640,11 +642,26 @@ def metrics_digest() -> Dict[str, Any]:
             digest["hbm"] = int(live)
             if headroom is not None:
                 digest["hdrm"] = int(headroom)
+    # the comms plane, only while its monitor published recently: a rank
+    # that stopped dispatching collectives must not carry frozen medians
+    if _comm_digest_fresh():
+        cm = _last_cell("paddle_tpu_comm_step_ms")
+        if cm is not None:
+            digest["comm_ms"] = round(float(cm), 3)
+            cw = _last_cell("paddle_tpu_comm_wait_ms")
+            if cw is not None:
+                digest["comm_wait"] = round(float(cw), 3)
+            bw = _last_cell("paddle_tpu_collective_bus_bw")
+            if bw is not None:
+                digest["comm_bw"] = round(float(bw), 5)
     return digest
 
 
 #: how long the hbm/hdrm keys outlive the accountant's last publish
 _HBM_DIGEST_TTL_S = 120.0
+
+#: how long the comm_* keys outlive the comms monitor's last publish
+_COMM_DIGEST_TTL_S = 120.0
 
 #: mfu_m's freshness window: profiler windows are sparse by design
 _MFU_MEASURED_TTL_S = 600.0
@@ -656,6 +673,14 @@ def _hbm_digest_fresh() -> bool:
         return False
     last = getattr(mod.ACCOUNTANT, "last_publish_wall", 0.0)
     return bool(last) and time.time() - last <= _HBM_DIGEST_TTL_S
+
+
+def _comm_digest_fresh() -> bool:
+    mod = sys.modules.get(_PKG + ".analysis.comms")
+    if mod is None:
+        return False
+    last = getattr(mod.MONITOR, "last_publish_wall", 0.0)
+    return bool(last) and time.time() - last <= _COMM_DIGEST_TTL_S
 
 
 def _measured_mfu_fresh() -> bool:

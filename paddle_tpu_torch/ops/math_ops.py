@@ -57,6 +57,7 @@ _make_activation("sign", torch.sign)
 _make_activation("sqrt", torch.sqrt)
 _make_activation("sigmoid", torch.sigmoid)
 _make_activation("square", torch.square)
+_make_activation("tanh", torch.tanh)
 
 
 @register_op("gelu")

@@ -296,6 +296,12 @@ def _swce_grad(ctx, ins, attrs):
     return {"LogitsGrad": [glogits]}
 
 
+@register_op("square_error_cost")
+def _square_error_cost(ctx, ins, attrs):
+    """ref ``paddle_tpu/ops/nn_ops.py:509``: (x - y)^2 elementwise."""
+    return {"Out": [torch.square(X(ins, "X") - X(ins, "Y"))]}
+
+
 @register_op("cross_entropy")
 def _cross_entropy(ctx, ins, attrs):
     """ref ``nn_ops.py:475``: X holds probabilities; the loss is

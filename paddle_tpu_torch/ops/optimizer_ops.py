@@ -267,12 +267,6 @@ def _proximal_adagrad(ctx, ins, attrs):
                          .to(p.dtype)], "MomentOut": [m_new]}
 
 
-@register_op("dgc_momentum", no_grad=True)
-def _dgc_momentum(ctx, ins, attrs):
-    """ref ``optimizer_ops.py:285``: momentum, on one process."""
-    return _momentum(ctx, ins, attrs)
-
-
 @register_op("average_accumulates", no_grad=True)
 def _average_accumulates(ctx, ins, attrs):
     """ref ``optimizer_ops.py:292-316``: ModelAverage's running sums; the

@@ -498,9 +498,10 @@ class LambOptimizer(AdamOptimizer):
 
 class DGCMomentumOptimizer(MomentumOptimizer):
     """ref optimizer.py:809 (``paddle_tpu/optimizer.py:582``): deep
-    gradient compression.  On one process it is Momentum, its ops tagged
-    with the compression settings (the reference's multi-process rewrite
-    into ``dgc_allreduce`` + ``dgc_momentum`` is not ported)."""
+    gradient compression.  Untranspiled it is Momentum, its ops tagged with
+    the compression settings; ``parallel.DGCGradAllReduce`` rewrites the
+    tagged ops into ``dgc_allreduce`` + ``dgc_momentum`` for the executor's
+    collective mode."""
 
     def __init__(self, learning_rate, momentum, rampup_begin_step=0,
                  rampup_step=1, sparsity=(0.999,),

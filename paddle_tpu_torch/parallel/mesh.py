@@ -1,4 +1,4 @@
-"""Device meshes: the port of ``paddle_tpu/parallel/mesh.py:24-80,126-130``.
+"""Device meshes: the port of ``paddle_tpu/parallel/mesh.py:24-80,126-153``.
 
 A :class:`Mesh` names the axes of an object ndarray of ``torch.device``,
 as ``jax.sharding.Mesh`` names an array of JAX devices:
@@ -22,8 +22,14 @@ position of the mesh is a rank of its own (a *virtual rank*), and the
 ranks that share a device run one after another on it.  Only tests and
 ``chip_smoke.py`` build such meshes.
 
-``sharding_for``, ``data_parallel_mesh``, the topology and hierarchical
-meshes and the collectives over a mesh come with the distributed slice.
+The executor's collective mode runs a transpiled program over the ``dp``
+axis of the current mesh (``framework/executor.py``), so a ``dp`` mesh of
+virtual ranks trains data-parallel on one card or on the host.
+:func:`data_parallel_mesh` takes the first n cards,
+:func:`make_hierarchical_mesh` builds the two-level ``("dcn", "ici")`` mesh
+and :func:`hierarchical_allreduce` reduces per-rank tensors over it, intra
+axis first.  ``sharding_for`` and the topology mesh come with the GSPMD
+slice.
 """
 
 from __future__ import annotations
@@ -94,6 +100,15 @@ def make_mesh(axes: Dict[str, int], devices=None) -> Mesh:
     return Mesh(arr.reshape(sizes), axis_names=tuple(names))
 
 
+def data_parallel_mesh(n: Optional[int] = None) -> Mesh:
+    """A ``dp`` mesh over the first ``n`` visible cards (all of them when
+    ``n`` is None); raises with no card."""
+    devs = _cuda_devices()
+    if n is not None:
+        devs = devs[:n]
+    return make_mesh({"dp": len(devs)}, devs)
+
+
 def set_mesh(mesh: Optional[Mesh]):
     global _current_mesh
     _current_mesh = mesh
@@ -107,3 +122,49 @@ def mesh_axis_sizes(mesh: Mesh) -> Dict[str, int]:
     """{axis_name: size} of a Mesh."""
     return {str(a): int(s)
             for a, s in zip(mesh.axis_names, mesh.devices.shape)}
+
+
+def make_hierarchical_mesh(inter: int, intra: int, devices=None) -> Mesh:
+    """Two-level data-parallel mesh (ref ``mesh.py:132``; the reference's
+    ``NCCLCommunicator::InitHierarchicalCtxs`` inter/intra-node rings):
+    axes ``("dcn", "ici")``, the slow inter-node level outermost."""
+    return make_mesh({"dcn": inter, "ici": intra}, devices)
+
+
+def hierarchical_allreduce(tensors: Sequence[torch.Tensor], mesh: Mesh,
+                           inter_axis: str = "dcn",
+                           intra_axis: str = "ici") -> list:
+    """The two-stage allreduce over a hierarchical mesh (ref ``mesh.py:146``,
+    ``nccl_helper.h:246``): ``tensors`` holds one tensor a rank, in the
+    order of ``mesh.devices.flat``.  Each group of the fast intra axis is
+    summed first, in rank order on its first rank's device, then the
+    groups' sums over the inter axis on rank 0's device.  Returns one
+    tensor a rank, each on that rank's device; no rank's output aliases
+    another's.  The port has no ``shard_map``, so the function takes the
+    ranks' tensors at once, where the reference's runs inside one."""
+    shape = mesh.devices.shape
+    names = mesh.axis_names
+    if len(tensors) != mesh.devices.size:
+        raise ValueError(f"{len(tensors)} tensors for a mesh of "
+                         f"{mesh.devices.size} ranks")
+    grid = np.arange(mesh.devices.size).reshape(shape)
+    rest = [a for a in names if a not in (inter_axis, intra_axis)]
+    grid = np.transpose(grid, [names.index(a) for a in rest]
+                        + [names.index(inter_axis), names.index(intra_axis)])
+    out: list = [None] * len(tensors)
+    for group in grid.reshape(-1, shape[names.index(inter_axis)],
+                              shape[names.index(intra_axis)]):
+        partials = []
+        for row in group:                       # intra axis first
+            dev = tensors[row[0]].device
+            acc = tensors[row[0]].clone()
+            for r in row[1:]:
+                acc.add_(tensors[r].to(dev))
+            partials.append(acc)
+        dev = partials[0].device                # then the inter axis
+        total = partials[0]
+        for p in partials[1:]:
+            total.add_(p.to(dev))
+        for r in group.reshape(-1):
+            out[r] = total.to(tensors[r].device, copy=True)
+    return out

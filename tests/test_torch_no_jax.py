@@ -20,7 +20,9 @@
   (``resume_or_init``, the state bit for bit), work; so do full-mode
   numerics statistics of a small MLP and an SLO-tracked request served
   behind the scrape endpoint, and one request routed through a
-  ``FleetRouter`` over an in-process ``ReplicaEndpoint``;
+  ``FleetRouter`` over an in-process ``ReplicaEndpoint``, and two
+  ``GradAllReduce`` steps of a tiny MLP in collective mode over a ``dp``
+  mesh of two virtual ranks (the comms plan stamped, the bytes counted);
 - a source scan finds no ``jax`` or ``paddle_tpu`` import in the package or
   in ``chip_smoke.py``;
 - ``Executor()`` and ``DecodeEngine()`` (the card by default) raise when
@@ -316,6 +318,12 @@ def test_no_jax_or_reference_import_in_sources():
             "paddle_tpu_torch/serving/autoscaler.py",
             "paddle_tpu_torch/distributed/__init__.py",
             "paddle_tpu_torch/distributed/coordinator.py",
+            "paddle_tpu_torch/distributed/collective_ops.py",
+            "paddle_tpu_torch/distributed/transpiler.py",
+            "paddle_tpu_torch/distributed/env.py",
+            "paddle_tpu_torch/distributed/fleet.py",
+            "paddle_tpu_torch/parallel/dgc.py",
+            "paddle_tpu_torch/analysis/comms.py",
             "paddle_tpu_torch/tools/latency_report.py",
             "paddle_tpu_torch/tools/fleet_smoke.py"} <= scanned
     offenders = []
@@ -455,6 +463,65 @@ def test_numerics_and_serving_planes_run_with_jax_blocked():
                          timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "numerics " in res.stdout and " routed" in res.stdout
+
+
+_COLLECTIVE_BLOCKED = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None
+    sys.modules["paddle_tpu"] = None
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import layers, monitor, optimizer
+    from paddle_tpu_torch.analysis import comms, verifier
+    from paddle_tpu_torch.distributed import GradAllReduce
+    from paddle_tpu_torch.framework import Program, Scope, program_guard
+    from paddle_tpu_torch.parallel import make_mesh, set_mesh
+
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        x = layers.data("x", shape=[8], dtype="float32")
+        y = layers.data("y", shape=[1], dtype="float32")
+        h = layers.fc(x, size=16, act="tanh")
+        loss = layers.mean(layers.square_error_cost(layers.fc(h, 1), y))
+        optimizer.SGD(0.1).minimize(loss)
+        GradAllReduce().transpile(startup_program=startup,
+                                  main_program=main, rank=0,
+                                  endpoints="127.0.0.1:1,127.0.0.1:2",
+                                  current_endpoint="127.0.0.1:1")
+    verifier.verify_program(main, [loss.name])
+    stamp = main._attrs["verify"]["comms"]
+    assert stamp["nranks"] == 2 and len(stamp["collectives"]) == 4, stamp
+    scope, exe = Scope(), ptt.Executor(ptt.CPUPlace())
+    exe.run(startup, scope=scope, seed=1)
+    set_mesh(make_mesh({"dp": 2}, [torch.device("cpu")] * 2))
+    xv = np.random.RandomState(0).rand(8, 8).astype(np.float32)
+    before = monitor.counter_totals().get(
+        "paddle_tpu_collective_bytes_total", 0)
+    for _ in range(2):
+        out, = exe.run(main, feed={"x": xv, "y": xv[:, :1]},
+                       fetch_list=[loss], scope=scope)
+    assert comms.MONITOR.drain(30)
+    got = monitor.counter_totals()["paddle_tpu_collective_bytes_total"]
+    assert got - before == 2 * stamp["payload_bytes"], (got, before)
+    assert out.shape == (2,) and np.isfinite(out).all(), out
+    assert not [m for m, mod in sys.modules.items() if mod is not None
+                and (m == "jax" or m.startswith(("jax.", "paddle_tpu.")))]
+    print("collective", out.shape, "bytes", got - before)
+""")
+
+
+def test_collective_mode_runs_with_jax_blocked():
+    """Two GradAllReduce steps of a tiny MLP over a dp mesh of two virtual
+    ranks, the verifier's comms stamp and the byte counter, with JAX and
+    the reference unimportable."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run([sys.executable, "-c", _COLLECTIVE_BLOCKED],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "collective (2,) bytes " in res.stdout
 
 
 def test_default_executor_needs_a_gpu():

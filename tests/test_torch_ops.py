@@ -65,6 +65,8 @@ CASES = {
     "gelu_erf": ("gelu", {"X": [_f(3, 7) * 3]}, {}),
     "gelu_tanh": ("gelu", {"X": [_f(3, 7) * 3]}, {"approximate": True}),
     "relu": ("relu", {"X": [np.array([[-1.0, 0.0, 2.5]], np.float32)]}, {}),
+    "tanh": ("tanh", {"X": [_f(3, 7) * 3]}, {}),
+    "square_error_cost": ("square_error_cost", {"X": [_f(4, 1)], "Y": [_f(4, 1, seed=1)]}, {}),
     "sign": ("sign", {"X": [np.array([[-3.0, 0.0, 0.5, -0.0]], np.float32)]}, {}),
     "layer_norm_last": ("layer_norm", {"X": [_f(2, 3, 8) * 2 + 1], "Scale": [_f(8, seed=1)], "Bias": [_f(8, seed=2)]}, {"epsilon": 1e-5, "begin_norm_axis": 2}),
     "layer_norm_two_dims": ("layer_norm", {"X": [_f(2, 3, 8)], "Scale": [_f(24, seed=1)], "Bias": [_f(24, seed=2)]}, {"epsilon": 1e-3, "begin_norm_axis": 1}),
@@ -203,3 +205,37 @@ def test_common_helpers_match_reference():
     ref = ref_common.XS({"X": [None, jnp.asarray(a), jnp.asarray(b)]}, "X")
     assert [tuple(t.shape) for t in got] == [r.shape for r in ref]
     assert common.XS({}, "X") == ref_common.XS({}, "X") == []
+
+
+def test_dp_layers_build_like_the_reference():
+    """``tanh``, ``elementwise_sub`` and ``square_error_cost`` (the layers of
+    the reference's data-parallel test programs) build the same serialized
+    program in both packages, and the port's forward runs it."""
+    import json
+
+    import paddle_tpu as pt
+    import paddle_tpu_torch as ptt
+    from paddle_tpu.framework import unique_name as ref_names
+
+    def build(pkg, names):
+        main, startup = pkg.Program(), pkg.Program()
+        with pkg.program_guard(main, startup), names.guard():
+            x = pkg.layers.data("x", shape=[4], dtype="float32")
+            y = pkg.layers.data("y", shape=[4], dtype="float32")
+            h = pkg.layers.tanh(pkg.layers.elementwise_sub(x, y))
+            loss = pkg.layers.mean(pkg.layers.square_error_cost(h, y))
+        return main, startup, loss
+
+    ref_main, _, ref_loss = build(pt, ref_names)
+    main, startup, loss = build(ptt, unique_name)
+    assert json.loads(main.serialize_to_string()) == \
+        json.loads(ref_main.serialize_to_string())
+    xv, yv = _f(3, 4), _f(3, 4, seed=1)
+    exe = ptt.Executor(ptt.CPUPlace())
+    exe.run(startup)
+    got, = exe.run(main, feed={"x": xv, "y": yv}, fetch_list=[loss])
+    ref_exe = pt.Executor()
+    ref_exe.run(pt.default_startup_program())
+    want, = ref_exe.run(ref_main, feed={"x": xv, "y": yv},
+                        fetch_list=[ref_loss])
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)

@@ -39,7 +39,7 @@ from paddle_tpu.framework import registry as ref_registry
 from paddle_tpu.framework import scope_guard as ref_scope_guard
 from paddle_tpu.framework import unique_name as ref_names
 from paddle_tpu.framework.executor import LowerCtx as RefCtx
-from paddle_tpu.ops import optimizer_ops as ref_optimizer_ops
+from paddle_tpu.parallel import dgc as ref_dgc
 from paddle_tpu_torch import layers
 from paddle_tpu_torch import optimizer as opt
 from paddle_tpu_torch.framework import core, registry, scope, unique_name
@@ -180,10 +180,12 @@ MISC_CASES = {
 
 
 # the reference registers ``dgc_momentum`` twice: momentum on one process
-# (``ops/optimizer_ops.py:285``, the port's) and, once
-# ``paddle_tpu.parallel.dgc`` is imported, the multi-process update on a
-# compressed gradient, which replaces it in the registry
-_REF_LOWERINGS = {"dgc_momentum": ref_optimizer_ops._dgc_momentum}
+# (``ops/optimizer_ops.py:285``) and, once ``paddle_tpu.parallel.dgc`` is
+# imported, the update on DGC's compressed, momentum-corrected gradient,
+# which replaces it in the registry.  Only ``DGCGradAllReduce`` (in that
+# module) writes the op, and the port's package imports its ``parallel.dgc``,
+# so the port's op is the latter
+_REF_LOWERINGS = {"dgc_momentum": ref_dgc._dgc_momentum}
 
 
 def _ref_lower(op_type, ins, attrs):
@@ -210,7 +212,7 @@ def test_the_new_op_types_are_registered():
            "optimization_barrier", "increment", "elementwise_mod",
            "truncated_gaussian_random"}
     ops = registry.registered_ops()
-    assert new <= set(ops) and len(ops) == 98
+    assert new <= set(ops) and len(ops) == 116
     assert {c[0] for c in list(CASES.values()) + list(
         MISC_CASES.values())} == new - {"truncated_gaussian_random"}
 
