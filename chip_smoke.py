@@ -281,6 +281,22 @@ JAX, prints one line per phase, and raises on any failure:
    allgathered pairs' bytes against the dense allreduce's.  K1/K2 are
    also held against their plain versions at a rank's [24, 2048, 64] in
    ``kernel``.
+   ``gspmd_train`` (after ``dp_train``) — GSPMD: the same GPT, batch and
+   Adam through ``CompiledProgram(main).with_gspmd(axes={"dp": 2, "mp":
+   2}, rules="mp_hidden_vocab", zero_stage=1)`` over
+   ``make_topology_mesh(..., [cuda:0] * 4)``, 1 + ``DP_STEPS`` steps,
+   against ``dp_train``'s single-device run (same startup seed and feed).
+   ``choose_rules``' per-table report at full width is printed; each
+   step's loss within ``DP_LOSS_RTOL`` of the single-device loss; the
+   gathered parameters after the last step within
+   ``GSPMD_PARAM_ATOL``; K1 and K2 launched as often as the lowered
+   program's ``flash_attention`` ops x 4 ranks x steps (the plan gathers q,
+   k and v whole, so each rank runs all 12 heads of its 4 sequences at
+   [48, 2048, 64]); ``paddle_tpu_collective_bytes_total`` moved by exactly
+   steps x the sharding plan's payload; an Adam moment a ``ShardedValue``
+   with dim 0 over dp, ``per_device_nbytes`` its shard; the peak above
+   held at most 4 x the per-shard static plan of the chosen table, and
+   printed beside the single-device run's with the step time.
 15. ``preempt_train`` (after ``train``) — preemption-safe training of the
    ``train`` phase's GPT (batch 8 x 2048, float32, Adam 1e-4, dropout
    0.0, TF32 off), each run a child process of
@@ -437,6 +453,13 @@ TRAIN_BATCH, TRAIN_STEPS = 8, 5
 DP_RANKS, DP_STEPS, DGC_STEPS = 4, 4, 3
 DGC_LR, DGC_SPARSITY = 1e-3, 0.999
 DP_LOSS_RTOL = 1e-4
+# gspmd_train: the parameters after 1 + DP_STEPS Adam steps at lr 1e-4
+# against the single-device run's.  Adam moves an element by about lr a
+# step whatever its gradient's size, so float32 noise in a near-zero
+# gradient (the key third of each qkv.b, whose exact gradient is 0) can
+# move it by up to steps x lr: the bound.
+GSPMD_AXES, GSPMD_RULES = {"dp": 2, "mp": 2}, "mp_hidden_vocab"
+GSPMD_PARAM_ATOL = (1 + DP_STEPS) * 1e-4
 # preempt_train: steps a run, the daemon's interval, and a child's time limit
 PREEMPT_STEPS, PREEMPT_INTERVAL, PREEMPT_TIMEOUT_S = 8, 2, 300
 RESNET_BATCH, RESNET_STEPS = 128, 5
@@ -2095,6 +2118,8 @@ def phase_dp_train(smi, train):
     n_params = sum(int(sc1.find_var(p).numel()) for p in w0)
     one, one_s, one_peak, one_held = _dp_steps(exe1, main1, loss1, sc1,
                                                feed, steps)
+    # gspmd_train holds its gathered parameters to these
+    one_params = {p: sc1.find_var(p).detach().cpu() for p in w0}
     del sc1, exe1
     torch.cuda.empty_cache()
 
@@ -2253,13 +2278,166 @@ def phase_dp_train(smi, train):
             "wire_bytes": cplan.wire_bytes, "collective_bytes": moved,
             "replica_tensors": replicas["tensors"], "peak_bytes": dp_peak,
             "held_bytes": dp_held, "single_peak_bytes": one_peak,
-            "single_held_bytes": one_held,
+            "single_held_bytes": one_held, "single_params": one_params,
+            "feed": feed,
+            "weights_digest": w0,
             "dgc": {"losses": [l.tolist() for l in ld],
                     "momentum_losses": [l.tolist() for l in mom],
                     "worst_rel": worst_d, "step_s": ld_s,
                     "peak_bytes": ld_peak, "sparse_bytes": sparse_b,
                     "dense_bytes": dense_b, "ops": len(dgc_ops)},
             "wall_s": wall}
+
+
+def phase_gspmd_train(smi, dp_train):
+    """GSPMD at full width (module docstring): ``train``'s GPT and batch
+    under ``with_gspmd(GSPMD_AXES, GSPMD_RULES, zero_stage=1)`` over four
+    virtual ranks on this card, against ``dp_train``'s single-device run
+    of the same program, seed, feed and steps."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import monitor, optimizer
+    from paddle_tpu_torch.analysis.sharding import plan_sharding
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.hbm import per_device_nbytes
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.parallel import (ShardedValue, choose_rules,
+                                           make_topology_mesh)
+
+    t_phase = time.perf_counter()
+    cfg = _gpt_cfg()
+    seq = cfg.max_pos
+    steps = DP_STEPS + 1
+    kernels = ("flash_attn_fwd", "flash_attn_bwd")
+    gib = 2.0 ** 30
+    n = int(np.prod(list(GSPMD_AXES.values())))
+
+    def adam():
+        return optimizer.AdamOptimizer(learning_rate=1e-4)
+
+    main, startup, loss = _dp_program(cfg, seq, adam)
+    t0 = time.perf_counter()
+    _, report = choose_rules(main, GSPMD_AXES, fetch_names=[loss.name],
+                             batch_size=TRAIN_BATCH, budget_mb=0)
+    choose_s = time.perf_counter() - t0
+    for r in report:
+        _log("gspmd_train", f"choose_rules {r['rules']}: per-shard peak "
+             f"{r['per_shard_peak_bytes'] / 1e9:.2f} GB, steady "
+             f"{r['per_shard_steady_bytes'] / 1e9:.2f} GB, "
+             f"{r['sharded_params']} sharded vars, {r['reshard_edges']} "
+             f"reshard edges, {r['reshard_bytes'] / 1e9:.3f} GB payload a "
+             f"step, est comm {r['est_comm_ms']:.2f} ms vs compute "
+             f"{r['est_compute_ms']:.2f} ms ({r['bound']}-bound)")
+    per_shard = {r["rules"]: r["per_shard_peak_bytes"] for r in report}
+    sc, exe = Scope(), ptt.Executor()
+    exe.run(startup, scope=sc, seed=1234)
+    if _weights_digest(sc, main) != dp_train["weights_digest"]:
+        raise AssertionError("gspmd_train: the startup's weights differ "
+                             "from the single-device run's")
+    mesh = make_topology_mesh(GSPMD_AXES, [torch.device("cuda", 0)] * n)
+    compiled = ptt.CompiledProgram(main).with_gspmd(
+        mesh=mesh, rules=GSPMD_RULES, zero_stage=1)
+    stamp = main._attrs["partition"]
+    bytes0 = monitor.counter_totals().get(
+        "paddle_tpu_collective_bytes_total", 0)
+    fa.reset_launch_count()
+    losses, step_s, peak, held = _dp_steps(
+        exe, compiled, loss, sc, dp_train["feed"], steps)
+    launches = {k: fa.launch_count(k) for k in kernels}
+    moved = monitor.counter_totals()[
+        "paddle_tpu_collective_bytes_total"] - bytes0
+    plan = plan_sharding(main, [loss.name], batch_size=TRAIN_BATCH)
+    layout = next(p.spmd for p in exe._plans.values() if p.spmd)
+    n_flash = [op.type for op in layout.program.global_block().ops].count(
+        "flash_attention")
+    one = [np.asarray(l) for l in dp_train["single_losses"]]
+    worst = _dp_losses_match("gspmd_train", one, losses)
+    want = n_flash * n * steps
+    if launches != {k: want for k in kernels}:
+        raise AssertionError(f"gspmd_train: K1/K2 launched {launches}, the "
+                             f"lowered program implies {n_flash} x {n} x "
+                             f"{steps} = {want} each")
+    if moved != steps * plan.payload_bytes or plan.unexplained:
+        raise AssertionError(
+            f"gspmd_train: {moved} collective bytes over {steps} steps, "
+            f"plan {plan.payload_bytes} a step ({len(plan.unexplained)} "
+            "unexplained edges)")
+    moment = next((n_, sc.find_var(n_)) for n_ in sc.local_var_names()
+                  if n_.startswith("enc_0.ffn.fc1.w_moment1"))
+    mv = moment[1]
+    if not (isinstance(mv, ShardedValue) and mv.spec[0] == "dp" and
+            per_device_nbytes(mv) == mv.nbytes // n):
+        raise AssertionError(f"gspmd_train: {moment[0]} is {mv!r}")
+    diffs = {}
+    for p, want_t in dp_train["single_params"].items():
+        v = sc.find_var(p)
+        got = v.to_global() if isinstance(v, ShardedValue) else v
+        diffs[p] = float((got.detach().cpu() - want_t).abs().max())
+    worst_p = max(diffs, key=diffs.get)
+    plan4 = n * per_shard[stamp["rules"]]
+    if not peak - held <= plan4:
+        raise AssertionError(f"gspmd_train: peak {peak - held} B above held"
+                             f" exceeds {n} x the per-shard static plan "
+                             f"({plan4} B)")
+    if not diffs[worst_p] <= GSPMD_PARAM_ATOL:
+        raise AssertionError(f"gspmd_train: parameter {worst_p} differs "
+                             f"by {diffs[worst_p]:.3g} from the single-"
+                             f"device run's (limit {GSPMD_PARAM_ATOL})")
+    edges = {}
+    for e in plan.edges:
+        k = (e.kind, e.reason, e.direction)
+        c, b = edges.get(k, (0, 0))
+        edges[k] = (c + 1, b + e.payload_bytes)
+    step_ms = 1e3 * float(np.mean(step_s[1:]))
+    one_ms = dp_train["single_step_ms"]
+    one_above = dp_train["single_peak_bytes"] - \
+        dp_train["single_held_bytes"]
+    sharded = sum(isinstance(sc.find_var(v), ShardedValue)
+                  for v in sc.local_var_names())
+    _log("gspmd_train", f"with_gspmd(axes={GSPMD_AXES}, rules="
+         f"{GSPMD_RULES!r}, zero_stage=1) over {n} virtual ranks on "
+         f"cuda:0: {len(stamp['params'])} sharded parameters, "
+         f"{len(plan.edges)} reshard edges (0 unexplained), "
+         f"{plan.payload_bytes / 1e9:.3f} GB payload a step, the lowered "
+         f"program {len(layout.program.global_block().ops)} ops, "
+         f"{layout.n_collectives} collectives; choose_rules "
+         f"{choose_s:.1f} s")
+    for k, (c, b) in sorted(edges.items()):
+        _log("gspmd_train", f"  {k[0]:<14} {k[1]:<12} {k[2]}: {c} edges, "
+             f"{b / 1e6:.1f} MB")
+    _log("gspmd_train", f"losses {[round(float(l.mean()), 6) for l in losses]}"
+         f" against one device's {[round(float(l.mean()), 6) for l in one]}"
+         f", worst relative {worst:.3g} (limit {DP_LOSS_RTOL}); gathered "
+         f"parameters after {steps} steps within {diffs[worst_p]:.3g} "
+         f"({worst_p}; limit {GSPMD_PARAM_ATOL:.1e}), median "
+         f"{float(np.median(list(diffs.values()))):.3g}; K1/K2 {launches} "
+         f"= {n_flash} x {n} ranks x {steps} steps; collective bytes "
+         f"{moved} = plan x {steps}; {sharded} ShardedValues in the scope, "
+         f"{moment[0]} {mv.spec} holds {per_device_nbytes(mv)} B a rank "
+         f"of {mv.nbytes}")
+    _log("gspmd_train", f"step {step_ms:.1f} ms (timed steps "
+         f"{', '.join(f'{1e3 * x:.1f}' for x in step_s[1:])}; warm-up "
+         f"{step_s[0]:.2f} s, the lowering included) against one device's "
+         f"{one_ms:.1f} ms; peak {(peak - held) / gib:.3f} GiB above the "
+         f"{held / gib:.3f} held, against one device's {one_above / gib:.3f}"
+         f" and {n} x the per-shard static plan's {plan4 / gib:.3f}; on "
+         f"{smi}")
+    del sc, exe, compiled
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    _log("gspmd_train", f"phase wall time {wall:.1f} s")
+    return {"launches": launches, "losses": [l.tolist() for l in losses],
+            "worst_rel": worst, "param_max_diff": diffs[worst_p],
+            "param_worst": worst_p, "step_ms": step_ms, "step_s": step_s,
+            "single_step_ms": one_ms, "peak_bytes": peak,
+            "held_bytes": held, "single_above_bytes": one_above,
+            "per_shard_plan_bytes": per_shard, "collective_bytes": moved,
+            "payload_bytes": plan.payload_bytes,
+            "wire_bytes": plan.wire_bytes, "edges": len(plan.edges),
+            "edge_kinds": {"/".join(k): v for k, v in edges.items()},
+            "report": report, "choose_rules_s": choose_s,
+            "lowered_ops": len(layout.program.global_block().ops),
+            "collectives": layout.n_collectives, "wall_s": wall}
 
 
 def phase_preempt_train(train):
@@ -7305,6 +7483,7 @@ def main(argv=None) -> int:
     decode = phase_decode(serve, args.profile)
     train = phase_train()
     dp_train = phase_dp_train(smi, train)
+    gspmd_train = phase_gspmd_train(smi, dp_train)
     preempt = phase_preempt_train(train)
     amp_train = phase_amp_train(train)
     fused = phase_fused_train()
@@ -7416,6 +7595,7 @@ def main(argv=None) -> int:
     for name in ("flash_attn_fwd", "flash_attn_bwd"):
         by_path[name]["dp_train"] = dp_train["launches"][name]
         by_path[name]["dp_train_dgc"] = dp_train["dgc_launches"][name]
+        by_path[name]["gspmd_train"] = gspmd_train["launches"][name]
     # the serving fleet: in process, and the replica processes' own counts
     by_path["flash_attn_fwd"]["serve_fleet"] = serve_fleet["launches"]
     by_path["flash_attn_fwd"]["serve_fleet_replicas"] = \
@@ -7453,7 +7633,10 @@ def main(argv=None) -> int:
                                  if k not in ("main", "loss", "scope",
                                               "feed", "exe")},
                        "observe_train": observe_train,
-                       "dp_train": dp_train,
+                       "dp_train": {k: v for k, v in dp_train.items()
+                                    if k not in ("single_params", "feed",
+                                                 "weights_digest")},
+                       "gspmd_train": gspmd_train,
                        "observe_resnet": observe_resnet,
                        "observe_serve": observe_serve,
                        "numerics": numerics, "serve_plane": serve_plane,

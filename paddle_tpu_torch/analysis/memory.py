@@ -27,8 +27,8 @@ fingerprint, the verifier's key, so steady-state dispatch never re-plans.
 The eager executor also holds each differentiated forward's autograd graph
 from the forward op to its grad op, which the plan does not count: the
 card's measured peak is above the plan by that much (PERF.md).
-``plan_sharded_memory`` waits for the sharding plane (ROADMAP Queue 1
-item 3).
+``plan_sharded_memory`` is the per-shard plan the GSPMD rule-table planner
+prices each candidate table with.
 """
 
 from __future__ import annotations
@@ -233,16 +233,47 @@ def plan_memory(program: Program, fetch_names=(),
 def plan_sharded_memory(program: Program, fetch_names=(),
                         batch_size: int = 1, specs=None,
                         axis_sizes=None) -> MemoryPlan:
-    """The per-shard plan of the GSPMD rule-table planner (ref
-    ``memory.py:235-276``): not ported; the sharding plane is ROADMAP
-    Queue 1 item 3."""
-    raise NotImplementedError(
-        "plan_sharded_memory needs the sharding plane (analysis/"
-        "sharding.py), ROADMAP Queue 1 item 3: not ported yet")
+    """The per-shard :func:`plan_memory` of the GSPMD rule-table planner
+    (ref ``memory.py:235-276``): each var named in ``specs`` ({name ->
+    dist_spec}) is charged its slice, its bytes over the product of the
+    sizes (``axis_sizes``) of the mesh axes in its spec, rounded up; the
+    rest cost their full bytes on every shard.  Cached with the plans,
+    the layout in the key."""
+    fetch_names = tuple(
+        f.name if hasattr(f, "name") else f for f in (fetch_names or ()))
+    axis_sizes = dict(axis_sizes or {})
+    shard_div: Dict[str, int] = {}
+    for name, spec in (specs or {}).items():
+        d = 1
+        for ax in (spec or ()):
+            for a in (ax if isinstance(ax, (tuple, list)) else (ax,)):
+                d *= max(int(axis_sizes.get(a, 1) or 1), 1)
+        if d > 1:
+            shard_div[name] = d
+    key = (program.fingerprint(), fetch_names, int(batch_size),
+           tuple(sorted(shard_div.items())))
+    with _CACHE_LOCK:
+        cached = _CACHE.get(key)
+    if cached is not None:
+        _PLAN_HIT.inc()
+        return cached
+    _PLAN_MISS.inc()
+    with _monitor.TRACER.span("memory.plan_sharded", "compile",
+                              fetches=len(fetch_names),
+                              sharded=len(shard_div)):
+        plan = _plan(program, fetch_names, int(batch_size),
+                     shard_div=shard_div)
+    with _CACHE_LOCK:
+        if key not in _CACHE:
+            if len(_CACHE) >= _CACHE_CAP:
+                _CACHE.pop(next(iter(_CACHE)))
+            _CACHE[key] = plan
+        plan = _CACHE[key]
+    return plan
 
 
 def _plan(program: Program, fetch_names: tuple,
-          batch_size: int) -> MemoryPlan:
+          batch_size: int, shard_div=None) -> MemoryPlan:
     from ..framework import ir
     from ..framework.core import Block as _Block
     block = program.global_block()
@@ -251,6 +282,14 @@ def _plan(program: Program, fetch_names: tuple,
     pos = {n.id: i for i, n in enumerate(order)}
     n_ops = len(order)
     end = n_ops                      # end-of-step boundary position
+    shard_div = shard_div or {}
+
+    def vb(v, name):
+        """``_var_bytes``, over the shard count of a sharded var (rounded
+        up: a ragged shard is padded)."""
+        b = _var_bytes(v, batch_size)
+        d = shard_div.get(name, 1)
+        return -(-b // d) if d > 1 else b
 
     fetched = set(fetch_names)
     # rw persistables: donated, so old+new share ONE buffer all step
@@ -271,7 +310,7 @@ def _plan(program: Program, fetch_names: tuple,
                 kind = "persist" if v.persistable else (
                     "feed" if getattr(v, "is_data", False) else None)
                 if kind is not None:
-                    b = _var_bytes(v, batch_size)
+                    b = vb(v, name)
                     resident += b
                     resident_names.append((name, b, kind))
 
@@ -327,19 +366,19 @@ def _plan(program: Program, fetch_names: tuple,
             if rentry is not None:
                 rentry[1] = max(rentry[1], last)
             else:
-                intervals[root] = [d, last, _var_bytes(rv, batch_size)
+                intervals[root] = [d, last, vb(rv, root)
                                    if rv is not None else 0, "temp"]
             continue
         if entry is not None:
             entry[0] = min(entry[0], d)
             entry[1] = max(entry[1], last)
         else:
-            intervals[name] = [d, last, _var_bytes(v, batch_size), "temp"]
+            intervals[name] = [d, last, vb(v, name), "temp"]
 
     # fetched rw persistables cost one defensive copy (the reference
     # executor's donation-aliasing copy), live from step end onward
     copy_bytes = sum(
-        _var_bytes(block.var(n), batch_size) for n in fetched
+        vb(block.var(n), n) for n in fetched
         if block.has_var(n) and block.var(n).persistable and n in written)
 
     # difference-array sweep: O(ops + vars), not O(ops * vars) — this

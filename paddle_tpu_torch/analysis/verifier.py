@@ -25,6 +25,11 @@ collective_order    error/     collective ops not totally ordered by data
                                has the same signature)
 memory_budget       warning    the batch-1 static peak-memory plan exceeds
                                FLAGS_memory_budget_mb
+spec_conflict       error/     two consumers demand incompatible shardings
+                    warning    of one var (``analysis.sharding``)
+shard_divisibility  warning    a mapped dim the mesh axis does not divide
+                               was kept replicated
+mesh_axis_overuse   error      one spec uses a mesh axis twice
 ==================  =========  ==============================================
 
 Results are cached on (program fingerprint, fetch tuple), so a program is
@@ -36,9 +41,13 @@ cost plan (``analysis.cost``) and the static memory plan
 is a ``memory_budget`` warning, and the static comms plan
 (``analysis.comms``, batch 1), whose fingerprint folds into the collective
 fingerprint (``verifier.py:917-931``): ranks whose comms plans differ
-(payload bytes, nranks) carry different fingerprints.  Not ported yet: the
-sharding plan (``verifier.py:830``) and the sharding checks, which come
-with the GSPMD slice; its stamp is ``None``.
+(payload bytes, nranks) carry different fingerprints, and the static
+sharding plan of a partitioned program (``analysis.sharding``, batch 1,
+``verifier.py:830-851``), whose diagnostics are the three sharding checks
+and whose ``#resh=`` token folds into the collective fingerprint with the
+partition fingerprint (``verifier.py:918-955``): ranks whose rule tables
+or reshard plans differ carry different fingerprints, and the final
+``#rules=<table>`` suffix names the table.
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ CHECKS = (
     "def_before_use", "uninitialized_read", "dangling_fetch",
     "dangling_feed", "shape_consistency", "dead_op", "use_after_donate",
     "int64_feed", "collective_order", "memory_budget",
+    "spec_conflict", "shard_divisibility", "mesh_axis_overuse",
 )
 
 _FINDINGS = _monitor.REGISTRY.counter(
@@ -133,6 +143,10 @@ class VerifyResult:
     #: that launches no collectives, or when planning failed); its
     #: fingerprint folds into ``collective_fingerprint``
     comms_plan: Optional[object] = None
+    #: static GSPMD sharding plan (analysis.sharding.ShardingPlan; None for
+    #: an unpartitioned program or when planning failed); its errors block
+    #: verification, as the rule-table refusal at optimize time
+    sharding_plan: Optional[object] = None
 
     def errors(self) -> List[Diagnostic]:
         return [d for d in self.diagnostics if d.severity == "error"]
@@ -651,6 +665,42 @@ def _comms_attrs(plan):
         return None
 
 
+def _check_sharding(program: Program, fetch_names, diags):
+    """The static sharding plan of a partitioned program at batch 1
+    (``verifier.py:830-845``): its spec_conflict / mesh_axis_overuse errors
+    are the optimize-time refusal of a rule table; a planner crash never
+    blocks."""
+    from . import sharding as _sharding
+    try:
+        plan = _sharding.plan_sharding(program, fetch_names, batch_size=1)
+    except Exception:
+        return None
+    if plan is not None:
+        diags.extend(plan.diagnostics)
+    return plan
+
+
+def _sharding_attrs(plan):
+    from . import sharding as _sharding
+    try:
+        return _sharding.stamp_attrs(plan)
+    except Exception:
+        return None
+
+
+def _partition_token(program: Program) -> Optional[str]:
+    """The partition fingerprint of the program's ``_attrs["partition"]``
+    stamp, or None when it is unpartitioned."""
+    stamp = program._attrs.get("partition")
+    if not stamp:
+        return None
+    try:
+        from ..parallel.partitioner import partition_fingerprint
+        return partition_fingerprint(stamp)
+    except Exception:
+        return None
+
+
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
@@ -662,8 +712,11 @@ def _verify_cached(program: Program, fetch_names) -> \
     from ..framework import ir
     fetch_names = tuple(
         f.name if hasattr(f, "name") else f for f in (fetch_names or ()))
-    # the fetch order is part of the collective fingerprint
-    key = (program.fingerprint(), fetch_names)
+    # the fetch order is part of the collective fingerprint; the partition
+    # stamp lives in _attrs, outside the structural fingerprint, so a
+    # re-partitioned program re-verifies
+    ptok = _partition_token(program)
+    key = (program.fingerprint(), fetch_names, ptok)
     with _CACHE_LOCK:
         cached = _CACHE.get(key)
     if cached is not None:
@@ -689,6 +742,7 @@ def _verify_cached(program: Program, fetch_names) -> \
     result.memory_plan = _check_memory(program, fetch_names, diags)
     result.cost_plan = _check_cost(program, fetch_names)
     result.comms_plan = _check_comms(program, fetch_names)
+    result.sharding_plan = _check_sharding(program, fetch_names, diags)
     if result.comms_plan is not None and \
             result.collective_fingerprint is not None:
         # one token for the gang to compare: a divergent comms plan
@@ -696,6 +750,18 @@ def _verify_cached(program: Program, fetch_names) -> \
         result.collective_fingerprint = hashlib.sha1(
             (result.collective_fingerprint + "|"
              + result.comms_plan.fingerprint).encode()).hexdigest()
+    if ptok:
+        # the partition stamp and the reshard plan's "#resh=" token fold
+        # in too; "#rules=<table>" stays the final token, so a mismatch
+        # report names both ranks' tables (ref verifier.py:930-955)
+        resh = ""
+        if result.sharding_plan is not None:
+            resh = "#resh=" + result.sharding_plan.resh_token
+        base = result.collective_fingerprint or ""
+        digest = hashlib.sha1(
+            (base + "|" + ptok + resh).encode()).hexdigest()
+        result.collective_fingerprint = \
+            digest + resh + ptok[ptok.index("#"):]
     for d in diags:
         _FINDING_CELLS[d.check].inc()
     if result.int64_dynamic:
@@ -719,7 +785,7 @@ def _verify_cached(program: Program, fetch_names) -> \
             "intensity": plan.intensity(),
         },
         "comms": _comms_attrs(result.comms_plan),
-        "sharding": None,
+        "sharding": _sharding_attrs(result.sharding_plan),
     }
     with _CACHE_LOCK:
         fresh = key not in _CACHE

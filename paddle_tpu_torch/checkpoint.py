@@ -23,7 +23,9 @@ from ``all_steps()`` at once, from the disk once the newer step is
 written), ``save_interval_steps`` skips off-interval saves unless
 ``force``.
 
-Not ported yet: ``save_server`` (the PS snapshot, ROADMAP Queue 1 item 3).
+Not ported yet: ``save_server`` (the PS snapshot, ROADMAP Queue 1 item 3)
+and sharded checkpoints: a capture of a partitioned run's sharded state
+(``parallel.spmd.ShardedValue``) raises (item 3 (i)).
 """
 
 from __future__ import annotations
@@ -90,6 +92,16 @@ def _host_arrays(state: Dict[str, Any]):
                 arr = arr.view(np.uint16)
         arrays[name] = arr
     return arrays, dtypes
+
+
+def _refuse_sharded(name: str, val) -> None:
+    """A partitioned (SPMD) run's sharded state is not checkpointed yet:
+    its capture raises rather than write one rank's block as the var."""
+    if hasattr(val, "locals") and hasattr(val, "sharding"):
+        raise NotImplementedError(
+            f"checkpoint capture of the sharded var {name!r} "
+            f"({val.spec}): sharded checkpoints are ROADMAP Queue 1 item "
+            "3 (i)")
 
 
 class CheckpointManager:
@@ -182,6 +194,7 @@ class CheckpointManager:
                     f"persistable var {v.name!r} has no value in the "
                     "scope; did you run the startup program before "
                     "checkpointing?")
+            _refuse_sharded(v.name, val)
             state[v.name] = val
         return state
 

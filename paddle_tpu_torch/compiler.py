@@ -23,10 +23,23 @@ version, fetch set, fusion config, batch), the numerics mode and the device
 the fusion autotuner timed on.  Each pass's wall time goes to the
 ``paddle_tpu_compiler_pass_ms{pass}`` histogram.  A transpiled collective
 program (``distributed.GradAllReduce`` / ``LocalSGD``) keeps its
-``_attrs["collective"]``, and the executor runs it in collective mode.  Not
-ported yet: the transient-fault retries, the tracer spans and
-``with_data_parallel`` / ``with_distributed`` / ``with_gspmd`` (the GSPMD
-slice).
+``_attrs["collective"]``, and the executor runs it in collective mode.
+
+SPMD (ref ``compiler.py:268-432``): :meth:`CompiledProgram.
+with_data_parallel` (a ``dp`` mesh over the given places),
+:meth:`~CompiledProgram.with_distributed` (parameters laid out by their
+``dist_spec``, optionally ZeRO-1) and :meth:`~CompiledProgram.with_gspmd`
+(the logical-axis partitioner picks or applies a rule table, ZeRO-1 on by
+default) set a mesh, and the executor runs the optimized program lowered
+to one per-rank program over its ranks (:meth:`~CompiledProgram._lower`,
+``parallel.spmd``).  The rank layout is the reference's
+``_build_in_shardings``: feeds follow their spec (batch on ``dp`` by
+default), parameters their ``dist_spec``, accumulators their parameter's
+through ``shard_like``, plus ``dp`` on a free, divisible dim 0 under
+ZeRO-1.  Each reconfiguration takes a new serial, so no plan built for the
+old one runs.  A program run on a mesh skips the fusion passes: the
+lowering knows the unfused op set.  Not ported yet: the transient-fault
+retries and the tracer spans.
 """
 
 from __future__ import annotations
@@ -35,6 +48,8 @@ import contextlib
 import itertools
 import time
 from typing import Optional
+
+import torch
 
 from . import monitor as _monitor
 from .framework.core import Program
@@ -84,6 +99,9 @@ class CompiledProgram:
         self._build_strategy = build_strategy or BuildStrategy()
         self._serial = next(_cp_serials)
         self._optimized_cache = {}
+        self._mesh = None
+        self._input_specs = {}
+        self._zero_stage = 0
 
     @property
     def program(self) -> Program:
@@ -99,9 +117,14 @@ class CompiledProgram:
         from .flags import get_flags
         from .framework import ir
         batch = _fusion._batch_of(feed_shapes)
+        ptok = None
+        if self._program._attrs.get("partition"):
+            # the stamp lives in _attrs, outside the structural fingerprint
+            from .parallel.partitioner import partition_fingerprint
+            ptok = partition_fingerprint(self._program._attrs["partition"])
         key = (self._program.fingerprint(), frozenset(fetch_names),
                _fusion.config_token(), batch, _fusion._device_key(device),
-               _numerics.mode())
+               _numerics.mode(), ptok, self._mesh is not None)
         prog = self._optimized_cache.get(key)
         if prog is not None:
             _OPT_HIT.inc()
@@ -119,11 +142,13 @@ class CompiledProgram:
         if g.attrs.get("dead_op_eliminate_count"):
             with _timed_pass("to_program"):
                 prog = g.to_program()
-        with _timed_pass("graph_fusion"):
-            prog = _fusion.fuse_program(prog, fetch_names,
-                                        feed_shapes=feed_shapes,
-                                        device=device)
-        if self._build_strategy.fuse_elewise_add_act_ops:
+        if self._mesh is None:
+            with _timed_pass("graph_fusion"):
+                prog = _fusion.fuse_program(prog, fetch_names,
+                                            feed_shapes=feed_shapes,
+                                            device=device)
+        if self._build_strategy.fuse_elewise_add_act_ops and \
+                self._mesh is None:
             with _timed_pass("fuse_elewise_add_act"):
                 g = ir.get_pass("fuse_elewise_add_act_pass",
                                 protected=protected).apply(ir.Graph(prog))
@@ -136,3 +161,137 @@ class CompiledProgram:
                     prog, fetch_names)
         self._optimized_cache[key] = prog
         return prog
+
+    # -- SPMD (ref compiler.py:268-432) -------------------------------------
+    def with_data_parallel(self, loss_name=None, build_strategy=None,
+                           exec_strategy=None, share_vars_from=None,
+                           places=None):
+        """Split the batch over a ``dp`` mesh: ``places`` (Places or
+        devices; an int takes that many cards), every visible card by
+        default.  Parameters stay replicated; each gradient is all-reduced
+        over the ranks before the optimizer reads it.  ``loss_name``,
+        ``exec_strategy`` and ``share_vars_from`` are the reference's
+        signature: the global-batch loss needs no name here."""
+        from .parallel.mesh import make_mesh
+        if build_strategy is not None:
+            self._build_strategy = build_strategy
+        if isinstance(places, int):
+            devices = [torch.device("cuda", i) for i in range(places)]
+        elif places:
+            devices = [getattr(p, "device", p) for p in places]
+        else:
+            devices = None
+        self._mesh = make_mesh(
+            {"dp": len(devices) if devices else
+             max(torch.cuda.device_count(), 1)}, devices)
+        self._input_specs, self._zero_stage = {}, 0
+        # a reconfiguration changes what the executor lowers without
+        # touching the program fingerprint: a new serial invalidates the
+        # plans built for the old one
+        self._serial = next(_cp_serials)
+        return self
+
+    def with_distributed(self, mesh=None, axes=None, input_specs=None,
+                         zero_stage=0, devices=None):
+        """SPMD over an explicit mesh: parameters laid out by their
+        ``dist_spec`` annotations, feeds by ``input_specs`` (batch on
+        ``dp`` by default); ``zero_stage=1`` also splits optimizer state
+        over ``dp`` (ZeRO-1).  ``axes`` builds the mesh over ``devices``
+        (every visible card by default)."""
+        from .parallel.mesh import make_mesh
+        if mesh is None and axes is None:
+            raise ValueError(
+                "with_distributed() needs either `mesh` (a parallel.Mesh) "
+                "or `axes` (e.g. {'dp': 2, 'mp': 4})")
+        self._mesh = mesh if mesh is not None else make_mesh(axes, devices)
+        self._input_specs = dict(input_specs or {})
+        if zero_stage not in (0, 1):
+            raise ValueError("zero_stage must be 0 or 1 (ZeRO-1: "
+                             "optimizer-state sharding)")
+        self._zero_stage = int(zero_stage)
+        self._serial = next(_cp_serials)
+        return self
+
+    def with_gspmd(self, axes=None, mesh=None, rules=None, zero_stage=1,
+                   input_specs=None, fetch_names=(), batch_size: int = 1,
+                   budget_mb=None, devices=None):
+        """Model parallelism through the logical-axis partitioner
+        (``parallel.partitioner``): infer each parameter's logical axes,
+        apply a rule table (``rules="auto"``: the cheapest-traffic table
+        whose per-shard static peak fits ``FLAGS_memory_budget_mb``, or
+        ``budget_mb``) and run SPMD over a topology mesh, ZeRO-1 on by
+        default.  ``rules`` is a table name (``"replicated"``,
+        ``"mp_hidden"``, ``"mp_hidden_vocab"``), a ``{logical_axis:
+        mesh_axis}`` dict, a ``LogicalAxisRules`` or ``"auto"``; None reads
+        ``FLAGS_gspmd_rules``, and with neither ``mesh`` nor ``axes``
+        ``FLAGS_gspmd_mesh`` gives the axes (one mp axis over every card
+        when empty).  The stamp lands in ``program._attrs["partition"]``."""
+        from .flags import get_flags
+        from .parallel import partitioner as _part
+        from .parallel.mesh import make_topology_mesh, mesh_axis_sizes
+        if rules is None:
+            rules = get_flags("FLAGS_gspmd_rules")["FLAGS_gspmd_rules"]
+        if mesh is None:
+            if axes is None:
+                spec = get_flags("FLAGS_gspmd_mesh")["FLAGS_gspmd_mesh"]
+                if spec:
+                    axes = {k: int(v) for k, v in
+                            (kv.split(":") for kv in spec.split(","))}
+                else:
+                    axes = {"dp": 1,
+                            "mp": len(devices) if devices else
+                            max(torch.cuda.device_count(), 1)}
+            mesh = make_topology_mesh(axes, devices)
+        self._mesh = mesh
+        if zero_stage not in (0, 1):
+            raise ValueError("zero_stage must be 0 or 1 (ZeRO-1: "
+                             "optimizer-state sharding)")
+        fetch_names = tuple(
+            f.name if hasattr(f, "name") else f for f in fetch_names)
+        stamp = _part.partition_program(
+            self._program, mesh_axis_sizes(mesh), rules=rules,
+            fetch_names=fetch_names, batch_size=batch_size,
+            budget_mb=budget_mb)
+        self._input_specs = dict(input_specs or {})
+        self._zero_stage = int(zero_stage)
+        # the analysis prices ZeRO-1's split off the stamp, and the
+        # partition fingerprint hashes it
+        stamp["zero_stage"] = self._zero_stage
+        # the new stamp changes the verify stamp: drop what was cached for
+        # the program before, and take a new serial
+        self._program._attrs.pop("verify", None)
+        self._optimized_cache = {}
+        self._serial = next(_cp_serials)
+        return self
+
+    def _lower(self, fetch_names=(), feed_shapes=None, device=None):
+        """The ``parallel.spmd.SpmdLayout`` the executor runs for this
+        configuration at the batch of ``feed_shapes``: the optimized
+        program, its sharding plan (the stamp's, or the ``dist_spec`` s'
+        over the mesh) and the per-rank program lowered from them."""
+        from .analysis import fusion as _fusion
+        from .analysis.sharding import plan_sharding
+        from .parallel.mesh import mesh_axis_sizes
+        from .parallel.spmd import lower_program
+        prog = self._optimized(fetch_names, feed_shapes, device=device)
+        batch = _fusion._batch_of(feed_shapes)
+        if prog._attrs.get("partition"):
+            plan = plan_sharding(prog, fetch_names, batch_size=batch)
+        else:
+            block = prog.global_block()
+            specs = {n: tuple(v.dist_spec) for n, v in block.vars.items()
+                     if v.is_parameter and getattr(v, "dist_spec", None)
+                     and any(v.dist_spec)}
+            plan = plan_sharding(prog, fetch_names, batch_size=batch,
+                                 specs=specs,
+                                 axis_sizes=mesh_axis_sizes(self._mesh),
+                                 rules=None, zero_stage=self._zero_stage)
+        for name, spec in self._input_specs.items():
+            want = plan.specs.get(name)
+            if tuple(spec or ()) != tuple(want or ())[:len(spec or ())]:
+                raise NotImplementedError(
+                    f"input_specs[{name!r}] = {spec}: feeds laid out other "
+                    f"than the sharding plan's {want} (batch on 'dp') are "
+                    "not lowered yet (ROADMAP Queue 1 item 3 (i))")
+        return lower_program(prog, fetch_names, batch, self._mesh, plan,
+                             zero_stage=self._zero_stage)

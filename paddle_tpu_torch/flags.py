@@ -10,8 +10,9 @@ the memory budget, the sampling profiler's and the HBM accountant's flags,
 the numerics plane's (``FLAGS_numerics*``, ``FLAGS_check_nan_inf``), the
 serving SLO plane's (``FLAGS_serving_slo*``), the metrics endpoint's
 (``FLAGS_metrics_port``, ``FLAGS_metrics_host``), the serving fleet's
-and its autoscaler's (``FLAGS_fleet_*``) and the comms plane's
-(``FLAGS_comms_telemetry``, ``FLAGS_comms_gate_timeout_s``) exist so far, with the
+and its autoscaler's (``FLAGS_fleet_*``), the comms plane's
+(``FLAGS_comms_telemetry``, ``FLAGS_comms_gate_timeout_s``) and GSPMD's
+(``FLAGS_gspmd_mesh``, ``FLAGS_gspmd_rules``) exist so far, with the
 reference's names, defaults, validation and side effects.  ``FLAGS_*`` environment variables
 seed them at import, as the reference's ``__bootstrap__`` does; a
 malformed value warns and is ignored.
@@ -201,6 +202,14 @@ _DEFAULTS: Dict[str, Any] = {
     # coordinator waits for every rank; read by nothing yet: the
     # coordinator and its comm gate come with the multi-process slice
     "FLAGS_comms_gate_timeout_s": 10.0,
+    # GSPMD (parallel/partitioner.py): the default mesh of
+    # CompiledProgram.with_gspmd when neither `mesh` nor `axes` is given,
+    # "axis:size[,axis:size...]" ("" = one mp axis over every visible
+    # card), and its default rule table: "auto" (the cheapest-traffic
+    # table whose per-shard static peak fits FLAGS_memory_budget_mb) or a
+    # table name ("replicated", "mp_hidden", "mp_hidden_vocab")
+    "FLAGS_gspmd_mesh": "",
+    "FLAGS_gspmd_rules": "auto",
 }
 
 _NUMERICS_FLAGS = ("FLAGS_numerics", "FLAGS_numerics_spike_factor",
@@ -246,6 +255,22 @@ def set_flags(flags: Dict[str, Any]) -> None:
             raise ValueError(
                 f"FLAGS_watchdog_escalate must be '' or 'abort', got "
                 f"{coerced[name]!r}")
+        if name == "FLAGS_gspmd_mesh" and coerced[name]:
+            # the "axis:size,..." grammar refuses here, not in with_gspmd
+            try:
+                parsed = {k: int(v) for k, v in
+                          (kv.split(":") for kv in coerced[name].split(","))}
+            except Exception:
+                raise ValueError(
+                    "FLAGS_gspmd_mesh must be 'axis:size[,axis:size...]' "
+                    f"e.g. 'dp:2,mp:4', got {coerced[name]!r}")
+            if not parsed or any(s <= 0 for s in parsed.values()):
+                raise ValueError(
+                    f"FLAGS_gspmd_mesh sizes must be positive: "
+                    f"{coerced[name]!r}")
+        if name == "FLAGS_gspmd_rules" and coerced[name] != "auto":
+            from .parallel.partitioner import rule_table
+            rule_table(coerced[name])   # raises on an unknown table name
         if name == "FLAGS_numerics" and \
                 coerced[name] not in ("off", "sentinel", "full"):
             raise ValueError(

@@ -443,6 +443,11 @@ class Program:
                               regularizer=v.regularizer,
                               need_clip=v.need_clip)
                 nv.seq_len_var = v.seq_len_var
+                # GSPMD layout: a clone (the optimized program) keeps the
+                # parameter specs and the accumulators' parameter links
+                nv.dist_spec = v.dist_spec
+                if getattr(v, "shard_like", None):
+                    nv.shard_like = v.shard_like
                 if getattr(v, "is_data", False):
                     nv.is_data = True
                 nb.vars[name] = nv

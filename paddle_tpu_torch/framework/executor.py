@@ -126,8 +126,8 @@ read-write persistables become the mean over ranks and integer ones the
 maximum.  Fetches come back stacked per rank (``f[None]`` over ``dp``),
 numerics statistics as one row a rank, and the dispatch ledger counts one
 step a run.  The plan key carries the collective stamp and the ranks'
-devices.  A collective op an autograd graph would differentiate raises
-``NotImplementedError`` (the GSPMD slice).  The comms plane (ref
+devices.  A collective's grad op is its group VJP (``registry.
+collective_grad_info``), a collective of its own.  The comms plane (ref
 ``executor.py:406-432, 1553-1566, 1718-1740``, under
 ``FLAGS_comms_telemetry``): ``collective.launch`` fires before each
 collective step; after one that did not fail the step counts in
@@ -135,6 +135,22 @@ collective step; after one that did not fail the step counts in
 byte cells are bumped, and from a plan's second step on the step's record
 (the collective segment's two marks, CUDA events on the card) goes to
 ``analysis.comms.MONITOR`` off the training thread.
+
+SPMD mode (ref ``executor.py:954-960, 1395, 1543-1566, 1718``): a
+``CompiledProgram`` configured by ``with_data_parallel`` /
+``with_distributed`` / ``with_gspmd`` runs its optimized program through
+``parallel.spmd.lower_program`` (once a plan) into a per-rank program over
+the compiled program's mesh (virtual ranks allowed), which runs like a
+collective program over every rank of the mesh.  Feeds are split by their
+layouts, the scope's persistables are read as each rank's block (a global
+tensor sliced, a ``parallel.spmd.ShardedValue`` taken), the step writes
+back replicated values from rank 0 and sharded ones as ``ShardedValue`` s,
+and fetches come back global (gathered).  Each lowered collective counts
+its sharding-plan edges' payload in ``paddle_tpu_collective_bytes_total``
+when it runs; collectives outside the plan count in
+``paddle_tpu_gspmd_unplanned_bytes_total{reason}``.  Numerics statistics
+are not taken in SPMD mode yet (ROADMAP): a partitioned run under
+``FLAGS_numerics`` raises.
 
 The reference's donation aliasing check has nothing to guard: the eager
 step donates no buffer.
@@ -439,6 +455,12 @@ def _resolve_comms(plan, feeds, nranks):
     ``(plan, cells)`` or None; comms modeling never breaks a dispatch."""
     try:
         from ..analysis import comms
+        if plan.spmd is not None:
+            # a partitioned program: its reshard plan projected, one cell
+            # an edge (ref executor.py:417-425)
+            from ..analysis.sharding import as_comms_plan
+            cplan = as_comms_plan(plan.spmd.plan)
+            return cplan, comms.bound_byte_cells(cplan)
         cplan = comms.plan_comms(plan.program, plan.fetch_names,
                                  batch_size=_feed_batch(feeds),
                                  nranks=nranks)
@@ -541,11 +563,15 @@ class _StepRange:
 class LowerCtx:
     """Per-run context handed to op lowerings; ``amp`` is the program's
     bf16 AMP flag, ``rank`` / ``nranks`` the rank a collective-mode run
-    runs for and the ranks of its ``dp`` axis (0 / 1 otherwise)."""
+    runs for and the ranks of its ``dp`` axis (0 / 1 otherwise); in SPMD
+    mode ``mesh`` is the ranks' mesh and ``coords`` the rank's coordinate
+    on each of its axes."""
 
     def __init__(self, device: torch.device, seed: int, amp: bool = False,
-                 rank: int = 0, nranks: int = 1):
+                 rank: int = 0, nranks: int = 1, mesh=None, coords=None):
         self.device = device
+        self.mesh = mesh
+        self.coords = coords or {}
         self._seed = int(seed) & 0xFFFFFFFFFFFFFFFF
         self._generator = None
         self.amp = bool(amp)
@@ -692,7 +718,10 @@ class _Plan:
             if registry.is_generic_grad(op):
                 info = registry.get_op_info(op.attrs["__fwd_type__"])
                 if info.collective:
-                    raise registry.collective_grad_error(info.type)
+                    # a group VJP over every rank: no graph to pair with
+                    self.ops.append((op, registry.collective_grad_info(
+                        info, op.type)))
+                    continue
                 self.ops.append((op, info))
                 cands = fwd_at.get(_grad_key(op), [])
                 j = next((c for c in reversed(cands)
@@ -704,8 +733,10 @@ class _Plan:
                                       for s, ns in op.outputs.items()
                                       if s.startswith("IG$")}
                 continue
-            self.ops.append((op, registry.get_op_info(op.type)))
-            fwd_at.setdefault(_fwd_key(op), []).append(i)
+            info = registry.get_op_info(op.type)
+            self.ops.append((op, info))
+            if not info.collective:
+                fwd_at.setdefault(_fwd_key(op), []).append(i)
         persistable = {n for n, v in block.vars.items() if v.persistable}
         persistable_float = {n for n in persistable
                              if "float" in str(block.vars[n].dtype)}
@@ -728,6 +759,8 @@ class _Plan:
             if n not in keep:
                 self.free_after[i].append(n)
         self.persist_out = sorted(written & persistable)
+        # SPMD mode: the lowering's layouts (parallel.spmd.SpmdLayout)
+        self.spmd = None
         self.persistables = sorted(persistable & set(last))
         # collective mode: the collective ops the schedule cuts the plan
         # at, and the trainable parameters every rank updates alike
@@ -961,10 +994,20 @@ class Executor:
         # collective mode: the transpiler's stamp and the ranks' devices
         # key the plan too (neither is in the program's fingerprint), so a
         # plan built for one rank count never runs another
-        coll = program._attrs.get("collective")
-        devices = self._collective_devices(coll) if coll else None
+        spmd_mesh = getattr(compiled, "_mesh", None)
+        coll = None if spmd_mesh is not None else \
+            program._attrs.get("collective")
+        if spmd_mesh is not None:
+            devices = self._spmd_devices(spmd_mesh)
+            if num_mode != "off":
+                raise NotImplementedError(
+                    "FLAGS_numerics statistics of a partitioned (SPMD) "
+                    "program are not taken yet (ROADMAP Queue 1 item 3 "
+                    "(i)); set FLAGS_numerics to 'off'")
+        else:
+            devices = self._collective_devices(coll) if coll else None
         coll_tok = None if devices is None else (
-            tuple(sorted(coll.items())), tuple(map(str, devices)))
+            tuple(sorted((coll or {}).items())), tuple(map(str, devices)))
         key = (program.fingerprint(), feed_names, feed_sigs, fetch_names,
                scope._serial, None if compiled is None else compiled._serial,
                _fusion.config_token(), num_mode, check_nan, coll_tok)
@@ -976,7 +1019,11 @@ class Executor:
                 stats.incr("cache_misses")
                 stats.incr("traces")
                 feed_shapes = {n: _feed_sig(v)[0] for n, v in feed.items()}
-                if compiled is not None:
+                if spmd_mesh is not None:
+                    layout = compiled._lower(fetch_names, feed_shapes,
+                                             device=self.device)
+                    run_prog = layout.program
+                elif compiled is not None:
                     run_prog = compiled._optimized(
                         fetch_names, feed_shapes, device=self.device)
                 else:
@@ -984,7 +1031,13 @@ class Executor:
                     run_prog = _fusion.fuse_program(
                         program, fetch_names, feed_shapes=feed_shapes,
                         device=self.device)
-                plan = self._plans[key] = _Plan(run_prog, fetch_names)
+                if spmd_mesh is not None:
+                    plan = _Plan(run_prog, [layout.fetches[f][0]
+                                            for f in fetch_names])
+                    plan.spmd = layout
+                else:
+                    plan = _Plan(run_prog, fetch_names)
+                self._plans[key] = plan
             else:
                 stats.incr("cache_hits")
             self._step_seed += 1
@@ -995,7 +1048,9 @@ class Executor:
             env = {n: self._to_device(v) for n, v in feed.items()}
             feeds = list(env.values())
         else:
-            ranks = self._split_feeds(feed, devices)
+            ranks = plan.spmd.split_feeds(feed, self._to_device) \
+                if plan.spmd is not None else \
+                self._split_feeds(feed, devices)
             feeds = list(feed.values())
             # the drill site and the comms plane's launch record precede
             # the collective step (ref executor.py:1553-1566)
@@ -1028,9 +1083,10 @@ class Executor:
                 # real out-of-memory error of the ops below takes
                 _resil.maybe_inject("memory.oom")
                 if devices is not None:
-                    state, fetched, num, segment = self._run_collective(
-                        plan, devices, ranks, scope, seed_val, num_mode,
-                        check_nan, feed_names)
+                    state, fetched, num, segment, moved = \
+                        self._run_collective(
+                            plan, devices, ranks, scope, seed_val, num_mode,
+                            check_nan, feed_names)
                 else:
                     read = functools.partial(self._read, scope, plan.block)
                     self._maybe_poison(plan, scope, env, read)
@@ -1055,7 +1111,8 @@ class Executor:
                 ",".join(fetch_names) or "<block>", _hbm()._MeasuredPlan(
                     before, torch.cuda.max_memory_allocated(self.device)))
         if devices is not None:
-            self._comms_account(comms_note, step_id, segment, fresh, tdisp)
+            self._comms_account(comms_note, step_id, segment, fresh, tdisp,
+                                moved, plan.spmd is not None)
         stats.incr("steps_dispatched")
         stats.incr("time_to_dispatch_us", (tdisp - t0) * 1e6)
         if _monitor.TRACER.enabled:
@@ -1172,6 +1229,16 @@ class Executor:
                              f"type ({self.device})")
         return devs
 
+    def _spmd_devices(self, mesh) -> List[torch.device]:
+        """The ranks of an SPMD program: its mesh's devices in flat order,
+        of this executor's device type (no fallback to another)."""
+        devs = [torch.device(d) for d in mesh.devices.flat]
+        if any(d.type != self.device.type for d in devs):
+            raise ValueError(f"SPMD mode: the mesh's devices {devs} are not "
+                             f"of this executor's device type "
+                             f"({self.device})")
+        return devs
+
     def _split_feeds(self, feed, devices) -> List[Dict[str, torch.Tensor]]:
         """Each rank's feeds: a batched feed split on dim 0, a scalar one
         replicated (ref executor.py:1071-1072).  A batch the ranks do not
@@ -1224,9 +1291,22 @@ class Executor:
         numerics frame, and the collective segment's two timeline marks
         (None without a collective op)."""
         n = len(devices)
-        ctxs = [LowerCtx(d, (seed_val + r * 1000003) & 0xFFFFFFFF, plan.amp,
-                         rank=r, nranks=n) for r, d in enumerate(devices)]
-        reads = [self._rank_reader(scope, plan.block, d) for d in devices]
+        layout = plan.spmd
+        if layout is not None:
+            from ..parallel.mesh import rank_coords
+            ctxs = [LowerCtx(d, (seed_val + r * 1000003) & 0xFFFFFFFF,
+                             plan.amp, rank=r, nranks=n, mesh=layout.mesh,
+                             coords=rank_coords(layout.mesh, r))
+                    for r, d in enumerate(devices)]
+            read_global = functools.partial(self._read, scope, plan.block)
+            reads = [layout.reader(scope, read_global, r)
+                     for r in range(n)]
+        else:
+            ctxs = [LowerCtx(d, (seed_val + r * 1000003) & 0xFFFFFFFF,
+                             plan.amp, rank=r, nranks=n)
+                    for r, d in enumerate(devices)]
+            reads = [self._rank_reader(scope, plan.block, d)
+                     for d in devices]
         stats = [None] * n
         if num_mode != "off":
             stats = [_numerics.StepStats(
@@ -1238,6 +1318,7 @@ class Executor:
         graphs: List[Dict[int, registry.Forward]] = [{} for _ in devices]
         cuts = plan.collective_at
         marks = []
+        moved: List[tuple] = []
         try:
             lo = 0
             for c in cuts + [len(plan.ops)]:
@@ -1249,7 +1330,7 @@ class Executor:
                 if c == cuts[0]:
                     marks.append(_mark(devices[0]))
                 _run_collective_op(plan, c, ctxs, envs, reads, stats,
-                                   check_nan)
+                                   check_nan, moved)
                 if c == cuts[-1]:
                     marks.append(_mark(devices[0]))
                 lo = c + 1
@@ -1263,17 +1344,25 @@ class Executor:
                 for k in plan.written:
                     if k in env:
                         st.offer(k, env[k])
-                layout, p = st.finish(plan.persist_out, rw_in,
-                                      [env.get(k) for k in plan.persist_out],
-                                      device=d, force=True)
+                layout_, p = st.finish(plan.persist_out, rw_in,
+                                       [env.get(k) for k in plan.persist_out],
+                                       device=d, force=True)
                 packed.append(p.to(devices[0]))
             # one row a rank: the frame adds counts, maxes absmax
-            num = (layout, _numerics.StatsCopy(torch.stack(packed)))
+            num = (layout_, _numerics.StatsCopy(torch.stack(packed)))
         state = {}
         mismatched = []
         for k in plan.persist_out:
             vals = [env[k] for env in envs]
-            if k in plan.trainable_out:
+            if layout is not None:
+                replicated = not any(layout.scope_specs.get(k) or ())
+                if self.verify_replicas and replicated and \
+                        k in plan.trainable_out and not all(
+                            torch.equal(vals[0], v.to(vals[0].device))
+                            for v in vals[1:]):
+                    mismatched.append(k)
+                state[k] = layout.assemble(k, vals)
+            elif k in plan.trainable_out:
                 if self.verify_replicas and not all(
                         torch.equal(vals[0], v.to(vals[0].device))
                         for v in vals[1:]):
@@ -1289,11 +1378,19 @@ class Executor:
                     f"collective mode: the ranks' trainable parameters "
                     f"differ after the step: {mismatched}")
         fetched = {}
-        for k in plan.fetch_names:
-            vals = [env[k] if k in env else read(k)
-                    for env, read in zip(envs, reads)]
-            fetched[k] = torch.cat([v[None].to(devices[0]) for v in vals])
-        return state, fetched, num, (tuple(marks) if marks else None)
+        if layout is not None:
+            for f, (k, _) in layout.fetches.items():
+                fetched[f] = layout.gather(
+                    f, [env[k] if k in env else read(k)
+                        for env, read in zip(envs, reads)])
+        else:
+            for k in plan.fetch_names:
+                vals = [env[k] if k in env else read(k)
+                        for env, read in zip(envs, reads)]
+                fetched[k] = torch.cat([v[None].to(devices[0])
+                                        for v in vals])
+        return state, fetched, num, (tuple(marks) if marks else None), \
+            moved
 
     def _comms_prelaunch(self, plan, feeds, nranks):
         """``FLAGS_comms_telemetry``: the plan's comms plan and byte cells
@@ -1314,18 +1411,31 @@ class Executor:
         except Exception:
             return None
 
-    def _comms_account(self, note, step_id, segment, fresh, tdisp):
+    def _comms_account(self, note, step_id, segment, fresh, tdisp,
+                       moved=(), spmd=False):
         """After a collective step that did not fail (ref
         executor.py:1718-1740): count the step, bump the byte cells, and
         hand the record to the comms monitor (off this thread), except for
-        a plan's first step, as the reference skips a compiling call."""
+        a plan's first step, as the reference skips a compiling call.  In
+        SPMD mode the cells are the sharding plan's edges, bumped by the
+        collectives that ran (``moved``); collectives outside the plan
+        count under ``paddle_tpu_gspmd_unplanned_bytes_total``."""
         _COLL_STEP.inc()
         if note is None:
             return
         cplan, cells, t_launch = note
         try:
-            for cell, payload in cells:
-                cell.inc(payload)
+            if spmd:
+                from ..parallel.spmd import UNPLANNED_BYTES_CTR
+                for edges, reason, nbytes in moved:
+                    for k in edges:
+                        cell, payload = cells[k]
+                        cell.inc(payload)
+                    if reason:
+                        UNPLANNED_BYTES_CTR.inc(nbytes, reason=reason)
+            else:
+                for cell, payload in cells:
+                    cell.inc(payload)
             if not fresh:
                 probe = segment[1] if segment is not None and \
                     hasattr(segment[1], "synchronize") else None
@@ -1430,13 +1540,18 @@ def _run_ops(plan: _Plan, lo: int, hi: int, ctx: LowerCtx, env, read,
         _take_outputs(plan, i, op, outs, env, observe, check_nan)
 
 
-def _run_collective_op(plan, i, ctxs, envs, reads, stats, check_nan):
+def _run_collective_op(plan, i, ctxs, envs, reads, stats, check_nan,
+                       moved=None):
     """Collective op ``i`` over every rank at once: its group lowering
-    takes the ranks' inputs and gives each rank its outputs."""
+    takes the ranks' inputs and gives each rank its outputs.  An op the
+    SPMD lowering emitted appends to ``moved`` the sharding-plan edges it
+    ran, or its reason and bytes when it is outside the plan."""
     op, info = plan.ops[i]
     ins_list = []
     for env, read in zip(envs, reads):
-        ins = {slot: [None if not n else env[n] if n in env else read(n)
+        # an output gradient nobody made is a zero cotangent (None)
+        ins = {slot: [None if not n else env[n] if n in env else
+                      None if slot.startswith("OG$") else read(n)
                       for n in names]
                for slot, names in op.inputs.items()}
         ins_list.append(_amp.cast_ins(op.type, ins) if plan.amp else ins)
@@ -1444,6 +1559,19 @@ def _run_collective_op(plan, i, ctxs, envs, reads, stats, check_nan):
         outs_list = info.lower(ctxs, ins_list, op.attrs)
     except Exception as e:
         raise _op_error(plan, op, e) from e
+    if moved is not None and ("edges" in op.attrs
+                              or "unplanned" in op.attrs):
+        nbytes = int(op.attrs.get("unplanned_payload") or 0)
+        if op.attrs.get("unplanned") and not nbytes:
+            # the logical payload: one rank's input a ring
+            from ..parallel.mesh import mesh_axis_sizes
+            ring = mesh_axis_sizes(ctxs[0].mesh).get(
+                op.attrs.get("mesh_axis"), 1) if ctxs[0].mesh else 1
+            xs = [ins["X"][0] for ins in ins_list if ins.get("X")]
+            nbytes = sum(int(x.numel()) * x.element_size()
+                         for x in xs) // max(ring, 1)
+        moved.append((op.attrs.get("edges") or (),
+                      op.attrs.get("unplanned"), nbytes))
     for env, outs, st in zip(envs, outs_list, stats):
         _take_outputs(plan, i, op, outs, env, st, check_nan)
 

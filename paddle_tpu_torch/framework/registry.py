@@ -32,7 +32,7 @@ class OpInfo:
     def __init__(self, type: str, lower: Callable, infer: Optional[Callable],
                  grad_maker: Optional[Callable] = None,
                  no_grad: bool = False, stateful_rng: bool = False,
-                 collective: bool = False):
+                 collective: bool = False, grad=None):
         self.type = type
         self.lower = lower
         self.infer = infer
@@ -45,6 +45,10 @@ class OpInfo:
         # ``lower(ctxs, ins_list, attrs) -> outs_list``, one entry a rank
         # (see :func:`lower_one`)
         self.collective = collective
+        # a collective's gradient: a callable giving its group VJP
+        # ``vjp(ctxs, ins_list, attrs) -> outs_list`` over the grad op's
+        # X$/OG$ inputs and IG$ outputs (None: not differentiable)
+        self.grad = grad
 
 
 _REGISTRY: Dict[str, OpInfo] = {}
@@ -52,15 +56,17 @@ _REGISTRY: Dict[str, OpInfo] = {}
 
 def register_op(type: str, lower: Callable = None, *, infer: Callable = None,
                 grad_maker: Callable = None, no_grad: bool = False,
-                stateful_rng: bool = False, collective: bool = False):
+                stateful_rng: bool = False, collective: bool = False,
+                grad=None):
     """Register an op lowering (``infer`` overrides shape inference,
     ``grad_maker`` the generic grad desc, ``no_grad`` marks an op without
     gradient, ``stateful_rng`` one that draws random bits, ``collective``
-    a group lowering over the ranks of the executor's collective mode).
-    Usable as decorator or call."""
+    a group lowering over the ranks of the executor's collective mode,
+    ``grad`` a callable giving a collective's group VJP).  Usable as
+    decorator or call."""
     def deco(fn):
         _REGISTRY[type] = OpInfo(type, fn, infer, grad_maker, no_grad,
-                                 stateful_rng, collective)
+                                 stateful_rng, collective, grad)
         return fn
     if lower is not None:
         return deco(lower)
@@ -90,14 +96,18 @@ def lower_one(info: OpInfo, ctx, ins: Dict[str, List], attrs):
     return info.lower(ctx, ins, attrs)
 
 
-def collective_grad_error(fwd_type: str) -> NotImplementedError:
-    """The error for a collective op an autograd graph would differentiate:
-    collectives with gradients come with the GSPMD slice, and a collective
-    never computes a wrong gradient quietly."""
-    return NotImplementedError(
-        f"op {fwd_type!r} is a collective in the forward of a program "
-        f"with a backward; collectives with gradients (the GSPMD slice: "
-        f"with_data_parallel / with_gspmd) are not ported yet")
+def collective_grad_info(fwd_info: OpInfo, grad_type: str) -> OpInfo:
+    """The grad op of a collective: its group VJP, run as a collective of
+    its own (every rank's output gradient at once).  A collective with no
+    VJP raises ``NotImplementedError``, as the reference's ``lax.pmax``
+    has no differentiation rule: a collective never computes a wrong
+    gradient quietly."""
+    if fwd_info.grad is None:
+        raise NotImplementedError(
+            f"op {fwd_info.type!r} is a collective with no gradient (the "
+            f"reference's lowering of it has no differentiation rule); a "
+            f"program cannot differentiate through it")
+    return OpInfo(grad_type, fwd_info.grad(), None, collective=True)
 
 
 # ---------------------------------------------------------------------------
@@ -236,9 +246,12 @@ def run_forward(info: OpInfo, ctx, ins: Dict[str, List], attrs,
     the differentiated function (the reference's ``registry.py:223-227``):
     a float32 master weight's gradient comes back float32 through the
     cast, where a cast before the leaves would round it to bf16.  A
-    collective op raises :func:`collective_grad_error`."""
+    collective's gradient is its group VJP (:func:`collective_grad_info`),
+    never autograd through one rank."""
     if info.collective:
-        raise collective_grad_error(info.type)
+        raise NotImplementedError(
+            f"op {info.type!r} is a collective: its gradient is its group "
+            f"VJP (registry.collective_grad_info), not autograd")
     leaves = {}
     for slot, vals in ins.items():
         want = [True] * len(vals) if wanted is None else \

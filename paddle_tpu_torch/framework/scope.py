@@ -4,8 +4,13 @@ The port's copy of ``paddle_tpu/framework/scope.py`` (reference
 ``framework/scope.h:46``): a name -> value map with parent fallback.  Values
 are ``torch.Tensor``s on the executor's device; an executor that finds a
 numpy array or a tensor on another device moves it to its device and stores
-it back.  Temporaries never enter a Scope: the executor frees each one after
-its last reader.
+it back; a partitioned (SPMD) run's sharded parameters and ZeRO-1 state
+are ``parallel.spmd.ShardedValue`` s.  Temporaries never enter a Scope: the
+executor frees each one after its last reader.
+
+``epoch`` counts the batch write-backs (``set_vars``, once a step), so a
+reader can tell with one compare that the scope advanced; ``materialize``
+waits until a value's device work is done (ref ``scope.py:31-90``).
 """
 
 from __future__ import annotations
@@ -28,6 +33,9 @@ class Scope:
         self._vars: Dict[str, Any] = {}
         self.kids = []
         self._serial = next(_scope_serials)
+        # batch write-backs (one a step): every var a step wrote lands
+        # under one epoch
+        self.epoch = 0
         LIVE_SCOPES.add(self)
 
     def var(self, name: str):
@@ -55,7 +63,25 @@ class Scope:
         self._vars[name] = value
 
     def set_vars(self, mapping: Dict[str, Any]) -> None:
+        """One step's write-back: one update, one epoch bump (per-name
+        ``set_var`` s would let a reader see step N's moments beside step
+        N-1's parameters)."""
         self._vars.update(mapping)
+        self.epoch += 1
+
+    def materialize(self, name: str):
+        """``name``'s value (parent fallback) once the device work that
+        computes it is done, or None: where a host reader's wait is
+        attributed, instead of inside a numpy coercion."""
+        s = self._owning_scope(name)
+        if s is None:
+            return None
+        v = s._vars[name]
+        for t in getattr(v, "locals", None) or [v]:
+            if getattr(t, "is_cuda", False):
+                import torch
+                torch.cuda.current_stream(t.device).synchronize()
+        return v
 
     def erase(self, name: str) -> None:
         s = self._owning_scope(name)

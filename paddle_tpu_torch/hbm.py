@@ -429,9 +429,12 @@ def _scope_nbytes(scope, name: str) -> int:
 
 
 def per_device_nbytes(v) -> int:
-    """Bytes one card holds for a value: a tensor's ``numel x
-    element_size`` (the port shards nothing yet), a numpy array's
-    ``nbytes``."""
+    """Bytes one rank holds for a value (ref ``hbm.py:446-460``): a
+    ``parallel.spmd.ShardedValue`` its shard (a GSPMD parameter, a ZeRO-1
+    moment: 1/dp of its global bytes), a tensor its ``numel x
+    element_size``, a numpy array its ``nbytes``."""
+    if hasattr(v, "local_nbytes"):
+        return int(v.local_nbytes)
     numel = getattr(v, "numel", None)
     if callable(numel):
         return int(numel()) * int(v.element_size())

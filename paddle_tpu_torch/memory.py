@@ -57,15 +57,18 @@ def _host_live_bytes() -> int:
     seen = set()
     total = 0
     for scope in list(LIVE_SCOPES):
-        for _, v in list(scope.items()):
-            if not isinstance(v, torch.Tensor) or v.device.type != "cpu":
-                continue
-            st = v.untyped_storage()
-            key = st.data_ptr()
-            if key in seen:
-                continue
-            seen.add(key)
-            total += int(st.nbytes())
+        for _, val in list(scope.items()):
+            # a sharded value (SPMD) holds one tensor a rank
+            for v in getattr(val, "locals", None) or [val]:
+                if not isinstance(v, torch.Tensor) or \
+                        v.device.type != "cpu":
+                    continue
+                st = v.untyped_storage()
+                key = st.data_ptr()
+                if key in seen:
+                    continue
+                seen.add(key)
+                total += int(st.nbytes())
     return total
 
 

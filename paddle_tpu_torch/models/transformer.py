@@ -291,6 +291,31 @@ def build_gpt_serving(cfg: BertConfig, seq_len, attn_impl="auto"):
 
 # -- Transformer-base NMT (BASELINE config #3, WMT14 en-de) ------------------
 
+def annotate_tensor_parallel(program=None):
+    """The Megatron layout by parameter name, as ``dist_spec`` s (ref
+    ``transformer.py:312``): q/k/v/qkv and fc1 column-parallel, out and
+    fc2 row-parallel, the word embedding and the MLM head vocab-sharded,
+    all over ``mp``.  ``CompiledProgram.with_distributed`` lays the
+    parameters out so."""
+    from ..framework.core import default_main_program
+    program = program or default_main_program()
+    for p in program.all_parameters():
+        n = p.name
+        if n.endswith((".q.w", ".k.w", ".v.w", ".qkv.w", ".fc1.w")):
+            p.dist_spec = (None, "mp")          # column parallel
+        elif n.endswith((".q.b", ".k.b", ".v.b", ".qkv.b", ".fc1.b")):
+            p.dist_spec = ("mp",)
+        elif n.endswith((".out.w", ".fc2.w")):
+            p.dist_spec = ("mp", None)          # row parallel
+        elif n == "word_embedding":
+            p.dist_spec = ("mp", None)          # vocab sharded
+        elif n == "mlm_out.w":
+            p.dist_spec = (None, "mp")
+        elif n == "mlm_out.b":
+            p.dist_spec = ("mp",)
+    return program
+
+
 def build_transformer_nmt(src_vocab, trg_vocab, seq_len, d_model=512,
                           n_layer=6, n_head=8, d_inner=2048, dropout=0.1,
                           is_test=False, fused_head=False):

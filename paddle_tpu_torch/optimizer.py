@@ -76,6 +76,10 @@ class Optimizer:
             name=unique_name.generate(f"{param.name}_{name}"),
             shape=shape, dtype=dtype or param.dtype, persistable=True,
             stop_gradient=True)
+        # accumulators shard like their parameter, resolved when a
+        # partitioned program is lowered (ref optimizer.py:84-87), so a
+        # layout applied after minimize() still reaches them
+        var.shard_like = param.name
         sb = default_startup_program().global_block()
         sb.create_var(name=var.name, shape=shape, dtype=var.dtype,
                       persistable=True)

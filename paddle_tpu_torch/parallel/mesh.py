@@ -1,4 +1,4 @@
-"""Device meshes: the port of ``paddle_tpu/parallel/mesh.py:24-80,126-153``.
+"""Device meshes: the port of ``paddle_tpu/parallel/mesh.py``.
 
 A :class:`Mesh` names the axes of an object ndarray of ``torch.device``,
 as ``jax.sharding.Mesh`` names an array of JAX devices:
@@ -28,8 +28,11 @@ virtual ranks trains data-parallel on one card or on the host.
 :func:`data_parallel_mesh` takes the first n cards,
 :func:`make_hierarchical_mesh` builds the two-level ``("dcn", "ici")`` mesh
 and :func:`hierarchical_allreduce` reduces per-rank tensors over it, intra
-axis first.  ``sharding_for`` and the topology mesh come with the GSPMD
-slice.
+axis first.  GSPMD's pieces: :func:`make_topology_mesh` (on the card
+:func:`make_mesh`'s order: there is no ICI to map), :func:`sharding_for`
+(a ``parallel.spmd.Sharding`` for a spec, axes the mesh lacks dropped) and
+:func:`axis_groups` (the ranks that share their coordinates on every other
+axis: the ring of a collective over one axis of a 2-D mesh).
 """
 
 from __future__ import annotations
@@ -168,3 +171,50 @@ def hierarchical_allreduce(tensors: Sequence[torch.Tensor], mesh: Mesh,
         for r in group.reshape(-1):
             out[r] = total.to(tensors[r].device, copy=True)
     return out
+
+
+def _axis_in(mesh: Mesh, axis) -> bool:
+    if isinstance(axis, (tuple, list)):
+        return all(a in mesh.axis_names for a in axis)
+    return axis in mesh.axis_names
+
+
+def sharding_for(mesh: Mesh, spec):
+    """A ``parallel.spmd.Sharding`` of ``spec`` (None = replicated, else a
+    tuple of axis names or None per dim) over ``mesh``; axes the mesh
+    lacks are dropped, so a tp-annotated model runs unchanged on a
+    dp-only mesh (ref ``mesh.py:64-74``)."""
+    from .spmd import Sharding
+    if spec is None:
+        return Sharding(mesh, ())
+    return Sharding(mesh, tuple(
+        (a if (a is not None and _axis_in(mesh, a)) else None)
+        for a in spec))
+
+
+def make_topology_mesh(axes: Dict[str, int], devices=None) -> Mesh:
+    """The GSPMD partitioner's mesh (ref ``mesh.py:82-124``).  The
+    reference asks ``mesh_utils`` to put the inner axes on adjacent chips
+    of the ICI torus; one host's cards (NVLink all to all) have no such
+    order to find, so this is :func:`make_mesh`'s, and its errors."""
+    return make_mesh(axes, devices)
+
+
+def rank_coords(mesh: Mesh, rank: int) -> Dict[str, int]:
+    """{axis: index} of flat rank ``rank`` (the order of
+    ``mesh.devices.flat``)."""
+    idx = np.unravel_index(int(rank), mesh.devices.shape)
+    return {a: int(i) for a, i in zip(mesh.axis_names, idx)}
+
+
+def axis_groups(mesh: Mesh, axis: str) -> list:
+    """The rings of ``axis``: lists of flat ranks that share their
+    coordinates on every other axis, each in ``axis`` order.  Every rank
+    is in exactly one group; an axis the mesh lacks makes one group a
+    rank."""
+    grid = np.arange(mesh.devices.size).reshape(mesh.devices.shape)
+    if axis not in mesh.axis_names:
+        return [[int(r)] for r in grid.flat]
+    i = mesh.axis_names.index(axis)
+    return [[int(r) for r in row] for row in
+            np.moveaxis(grid, i, -1).reshape(-1, grid.shape[i])]

@@ -1015,6 +1015,8 @@ class CheckpointDaemon:
                     f"persistable var {v.name!r} has no value in the "
                     "scope; did you run the startup program before "
                     "enabling the checkpoint daemon?")
+            from .checkpoint import _refuse_sharded
+            _refuse_sharded(v.name, val)
             if isinstance(val, torch.Tensor) and val.is_cuda:
                 device = val.device
                 if not chunk_bytes:   # copied below, a flat buffer a dtype

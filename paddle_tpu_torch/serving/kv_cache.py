@@ -28,9 +28,10 @@ reference's attention here is plain einsum too.
 
 Each cache registers its pools with the HBM accountant
 (``hbm.register_kv_pool``), which attributes their bytes to the
-``kv_pages`` class.  Not ported yet (ROADMAP): the sharding gate of
-``DecodeEngine(program=...)`` (``analysis/sharding.py``
-``check_decode_hostable``).
+``kv_pages`` class.  ``DecodeEngine(program=...)`` runs the GSPMD-serving
+gate (``analysis.sharding.check_decode_hostable``): the pools hold whole
+heads on one card, so an mp-sharded decode program raises ``ValueError``
+naming its specs.
 """
 
 from __future__ import annotations
@@ -360,9 +361,11 @@ class DecodeEngine:
         from ..flags import get_flags
         from ..place import checked_device
         if program is not None:
-            raise NotImplementedError(
-                "DecodeEngine(program=...): the decode-hostability gate "
-                "(analysis/sharding.py check_decode_hostable) is not ported")
+            # the GSPMD-serving gate (ref kv_cache.py:283-290): the pools
+            # hold whole heads and unsharded parameters on one card, so an
+            # mp-sharded decode program is refused here, naming its specs
+            from ..analysis.sharding import check_decode_hostable
+            check_decode_hostable(program)
         self.device = checked_device(place, "DecodeEngine")
         fl = get_flags(["FLAGS_serving_kv_page_len",
                         "FLAGS_serving_kv_pages"])

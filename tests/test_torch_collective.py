@@ -8,8 +8,10 @@ The reference runs collective mode through its ``shard_map`` over n of the
   reference's per-rank outputs on seeded inputs exactly (XLA's CPU
   allreduce also sums float32 in rank order), and each is the identity
   outside collective mode;
-- a ``c_*`` op in the forward of a program with a backward raises
-  ``NotImplementedError`` (collectives with gradients: the GSPMD slice);
+- a ``c_*`` op without a gradient (``c_allreduce_max``, as the reference's
+  ``lax.pmax``) in the forward of a program with a backward raises
+  ``NotImplementedError``, and autograd through one rank of a collective
+  does too (the gradients of the others: ``test_torch_collective_grads``);
 - ``hierarchical_allreduce`` over ``make_hierarchical_mesh(2, 4)`` sums all
   ranks (the reference's ``test_parallel.py`` case);
 - training: the reference's ``test_comms.py`` MLP under ``GradAllReduce``
@@ -191,28 +193,28 @@ def test_bootstrap_ops_do_nothing_and_transpile_adds_them():
 
 
 def test_collective_under_autograd_raises_not_implemented():
-    """A collective in the forward of a program with a backward must never
-    compute a wrong gradient quietly."""
+    """A collective with no gradient in the forward of a program with a
+    backward must never compute a wrong gradient quietly."""
     main, startup = ptt.Program(), ptt.Program()
     with ptt.program_guard(main, startup):
         x = ptt.layers.data("x", shape=[4], dtype="float32")
         h = ptt.layers.fc(x, size=4)
         blk = main.global_block()
-        s = blk.create_var(name="h_sum", dtype="float32")
-        blk.append_op("c_allreduce_sum", inputs={"X": [h]},
+        s = blk.create_var(name="h_max", dtype="float32")
+        blk.append_op("c_allreduce_max", inputs={"X": [h]},
                       outputs={"Out": [s]}, attrs={"ring_id": 0})
         loss = ptt.layers.mean(s)
         opt.SGDOptimizer(0.1).minimize(loss)
     exe = ptt.Executor(ptt.CPUPlace())
     exe.run(startup)
     xv = np.ones((4, 4), np.float32)
-    with pytest.raises(NotImplementedError, match="GSPMD"):
+    with pytest.raises(NotImplementedError, match="no gradient"):
         exe.run(main, feed={"x": xv}, fetch_list=[loss])
     main._attrs["collective"] = {"nranks": 2, "rank": 0}
     _dp_mesh(2)
-    with pytest.raises(NotImplementedError, match="GSPMD"):
+    with pytest.raises(NotImplementedError, match="no gradient"):
         exe.run(main, feed={"x": xv}, fetch_list=[loss])
-    with pytest.raises(NotImplementedError, match="GSPMD"):
+    with pytest.raises(NotImplementedError, match="group VJP"):
         registry.run_forward(registry.get_op_info("c_allreduce_sum"),
                              None, {"X": [torch.ones(2)]}, {})
 

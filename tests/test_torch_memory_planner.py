@@ -168,8 +168,21 @@ def test_plan_cache_and_report():
     report = p1.report(3)
     assert report.startswith("static HBM plan (batch=2): peak ")
     assert report.count("[info] hbm_peak") == 3
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        memory.plan_sharded_memory(main, fetch, specs={})
+    # the per-shard plan (GSPMD's planner): no spec is the plain plan, a
+    # sharded layout the reference's per-shard bytes
+    assert memory.plan_sharded_memory(main, fetch, batch_size=2,
+                                      specs={}).peak_bytes == p1.peak_bytes
+    ref_main, ref_fetch = _gpt_train("ref")
+    specs = {n: (None, "mp") for n, v in main.global_block().vars.items()
+             if v.is_parameter and len(v.shape or ()) == 2}
+    sizes = {"dp": 2, "mp": 4}
+    got = memory.plan_sharded_memory(main, fetch, batch_size=2, specs=specs,
+                                     axis_sizes=sizes)
+    want = ref_memory.plan_sharded_memory(ref_main, ref_fetch, batch_size=2,
+                                          specs=specs, axis_sizes=sizes)
+    assert (got.peak_bytes, got.resident_bytes, got.steady_bytes) == \
+        (want.peak_bytes, want.resident_bytes, want.steady_bytes)
+    assert got.resident_bytes < p1.resident_bytes
 
 
 @pytest.mark.parametrize("prog", ["gpt_train", "toy_resnet"])

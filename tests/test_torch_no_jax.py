@@ -22,7 +22,9 @@
   behind the scrape endpoint, and one request routed through a
   ``FleetRouter`` over an in-process ``ReplicaEndpoint``, and two
   ``GradAllReduce`` steps of a tiny MLP in collective mode over a ``dp``
-  mesh of two virtual ranks (the comms plan stamped, the bytes counted);
+  mesh of two virtual ranks (the comms plan stamped, the bytes counted),
+  and one ``with_gspmd`` step of a tiny MLP over dp 2 x mp 2 virtual ranks
+  (the plan's bytes counted, the Adam moment a dp-sharded value);
 - a source scan finds no ``jax`` or ``paddle_tpu`` import in the package or
   in ``chip_smoke.py``;
 - ``Executor()`` and ``DecodeEngine()`` (the card by default) raise when
@@ -285,6 +287,10 @@ def test_no_jax_or_reference_import_in_sources():
             "paddle_tpu_torch/ops/attention_ops.py",
             "paddle_tpu_torch/parallel/__init__.py",
             "paddle_tpu_torch/parallel/mesh.py",
+            "paddle_tpu_torch/parallel/partitioner.py",
+            "paddle_tpu_torch/parallel/spmd.py",
+            "paddle_tpu_torch/analysis/sharding.py",
+            "paddle_tpu_torch/distributed/collective_ops.py",
             "paddle_tpu_torch/resilience.py",
             "paddle_tpu_torch/serving/kv_cache.py",
             "paddle_tpu_torch/serving/scheduler.py",
@@ -508,13 +514,44 @@ _COLLECTIVE_BLOCKED = textwrap.dedent("""
     assert not [m for m, mod in sys.modules.items() if mod is not None
                 and (m == "jax" or m.startswith(("jax.", "paddle_tpu.")))]
     print("collective", out.shape, "bytes", got - before)
+    from paddle_tpu_torch.analysis.sharding import plan_sharding
+    from paddle_tpu_torch.parallel import ShardedValue
+    set_mesh(None)
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        x = layers.data("x", shape=[8], dtype="float32")
+        y = layers.data("y", shape=[1], dtype="int64")
+        h = layers.fc(x, size=16, act="relu")
+        pred = layers.fc(h, size=4, act="softmax")
+        loss = layers.mean(layers.cross_entropy(pred, y))
+        optimizer.AdamOptimizer(0.01).minimize(loss)
+    scope = Scope()
+    exe.run(startup, scope=scope, seed=2)
+    compiled = ptt.CompiledProgram(main).with_gspmd(
+        axes={"dp": 2, "mp": 2}, rules="mp_hidden", zero_stage=1,
+        devices=[torch.device("cpu")] * 4)
+    before = monitor.counter_totals().get(
+        "paddle_tpu_collective_bytes_total", 0)
+    gl, = exe.run(compiled, feed={
+        "x": xv, "y": np.zeros((8, 1), np.int64)}, fetch_list=[loss],
+        scope=scope)
+    moved = monitor.counter_totals()[
+        "paddle_tpu_collective_bytes_total"] - before
+    plan = plan_sharding(main, [loss.name], batch_size=8)
+    assert moved == plan.payload_bytes and np.isfinite(gl), (moved, gl)
+    assert any(isinstance(scope.find_var(n), ShardedValue)
+               for n in scope.local_var_names() if "moment1" in n)
+    assert not [m for m, mod in sys.modules.items() if mod is not None
+                and (m == "jax" or m.startswith(("jax.", "paddle_tpu.")))]
+    print("gspmd", gl.shape, "bytes", moved)
 """)
 
 
 def test_collective_mode_runs_with_jax_blocked():
     """Two GradAllReduce steps of a tiny MLP over a dp mesh of two virtual
-    ranks, the verifier's comms stamp and the byte counter, with JAX and
-    the reference unimportable."""
+    ranks, the verifier's comms stamp and the byte counter, then a
+    with_gspmd step over dp 2 x mp 2, with JAX and the reference
+    unimportable."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     res = subprocess.run([sys.executable, "-c", _COLLECTIVE_BLOCKED],
@@ -522,6 +559,7 @@ def test_collective_mode_runs_with_jax_blocked():
                          timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "collective (2,) bytes " in res.stdout
+    assert "gspmd () bytes " in res.stdout
 
 
 def test_default_executor_needs_a_gpu():
