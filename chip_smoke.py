@@ -297,13 +297,40 @@ JAX, prints one line per phase, and raises on any failure:
    with dim 0 over dp, ``per_device_nbytes`` its shard; the peak above
    held at most 4 x the per-shard static plan of the chosen table, and
    printed beside the single-device run's with the step time.
-15. ``preempt_train`` (after ``train``) — preemption-safe training of the
-   ``train`` phase's GPT (batch 8 x 2048, float32, Adam 1e-4, dropout
-   0.0, TF32 off), each run a child process of
-   ``paddle_tpu_torch.tools.preempt_runner``: 8 steps under
-   ``resume_or_init``, ``CheckpointDaemon(interval_steps=2)`` and
-   ``PreemptionGuard``, the same seeded weights and the batch keyed by
-   the step.  (a1), (a2) uninterrupted; (b) under
+   ``gang_train`` (after ``gspmd_train``) — several processes: two
+   trainer processes of ``python -m paddle_tpu_torch.distributed.launch
+   --nproc_per_node 2`` share this card, each running
+   ``paddle_tpu_torch/tools/collective_runner.py`` under the launcher's
+   gang coordinator with ``FLAGS_gang_step_barrier`` on and heartbeats
+   live; the exchange between them is gloo over pinned host memory (one
+   card: NCCL refuses two ranks of a communicator on one device).  (a)
+   ``train``'s GPT (batch 8 x 2048, 4 sequences a process: process p feeds
+   rows [4p, 4p + 4) of ``dp_train``'s feed) under ``GradAllReduce`` +
+   Adam, 1 + 4 steps; (b) the same GPT under ``with_distributed(axes=
+   {"dp": 2}, zero_stage=1)``, 1 + 2 steps.  Each: both processes' startup
+   weights, losses and final parameters equal bit for bit, each loss
+   within ``GANG_LOSS_RTOL`` of ``dp_train``'s one-device run, K1 and K2
+   12 a step a process, the collective bytes the plan's payload x steps
+   (the comms plan; the sharding plan).  (c) ring attention at
+   ``RING_SLICE``, float32, non-causal, sp 2 across the processes (the
+   K/V and dK/dV rotations a send and a receive): each process's half of
+   o, lse, dq, dk, dv within rtol = atol ``RING_O_TOL`` / ``RING_GRAD_TOL``
+   of the plain dense attention over the whole T, K1/K2/merge 2/2/1 a
+   process.  (d) the elastic drill of ``tools/gang_smoke.py`` at
+   preempt_runner's ``full2`` (d 768, 2 layers, batch 8 x 2048): two
+   socket-backend ranks under ``CheckpointDaemon`` (every 2 steps), rank 1
+   SIGKILLs itself at step ``GANG_KILL_STEP``, ``--max_restarts 1``
+   respawns it from the gang manifest, and both ranks' losses equal an
+   uninterrupted child's bit for bit.  It prints each process's step ms
+   (host clock ending in a synchronize), the exchange's ms a step, the
+   peak memory, the bytes against the plan and the launches.
+15. ``preempt_train`` (after ``gang_train``) — preemption-safe training of
+   the ``train`` phase's GPT cut to 2 layers (``preempt_runner``'s
+   ``full2``: batch 8 x 2048, float32, Adam 1e-4, dropout 0.0, TF32 off),
+   each run a child process of ``paddle_tpu_torch.tools.preempt_runner``:
+   8 steps under ``resume_or_init``, ``CheckpointDaemon(interval_steps=2)``
+   and ``PreemptionGuard``, the same seeded weights and the batch keyed by
+   the step.  (a1), (a2) uninterrupted and, at the same time, (b) under
    ``FLAGS_fault_inject=checkpoint.write:once`` pauses at the boundary
    after step 4 until the phase's SIGTERM, drains, writes its emergency
    checkpoint and exits 0; (c) resumes in a fresh process and trains
@@ -312,7 +339,7 @@ JAX, prints one line per phase, and raises on any failure:
    (or, when (a1) and (a2) differ, within their largest difference, the
    first differing step named), (b)'s counters read 1 injected fault, 1
    retry and 0 give-ups at ``checkpoint.write``, and each child launches
-   the float32 K1 and K2 12 times a step.  It prints the bytes a
+   the float32 K1 and K2 2 times a step.  It prints the bytes a
    checkpoint, the training thread's stall per capture, the daemon's
    save (copy to the host, write, fsync), SIGTERM to exit, the restore,
    the step with the daemon against ``train``'s, the peak card memory
@@ -462,6 +489,18 @@ GSPMD_AXES, GSPMD_RULES = {"dp": 2, "mp": 2}, "mp_hidden_vocab"
 GSPMD_PARAM_ATOL = (1 + DP_STEPS) * 1e-4
 # preempt_train: steps a run, the daemon's interval, and a child's time limit
 PREEMPT_STEPS, PREEMPT_INTERVAL, PREEMPT_TIMEOUT_S = 8, 2, 300
+# ... at BERT-base width cut to 2 layers (preempt_runner's "full2"), which
+# pays for gang_train's time
+PREEMPT_SIZE = "full2"
+# gang_train: two trainer processes of the port's launcher share this card;
+# (a) GradAllReduce + Adam and (b) ZeRO-1 steps, their losses against
+# dp_train's one-device run, (c) the ring across the pair, (d) the elastic
+# drill at 2 layers: steps, the kill, the pause a step, the heartbeats
+GANG_STEPS, GANG_ZERO_STEPS, GANG_LOSS_RTOL = 1 + 4, 1 + 2, 1e-5
+GANG_DRILL_STEPS, GANG_KILL_STEP, GANG_DRILL_PAUSE_S = 12, 4, 0.5
+GANG_HEARTBEAT = {"FLAGS_gang_heartbeat_interval_s": "0.25",
+                  "FLAGS_gang_heartbeat_timeout_s": "2.5"}
+GANG_TIMEOUT_S = 420
 RESNET_BATCH, RESNET_STEPS = 128, 5
 # ResNet card vs host, one step.  The fused step: K3 rounds its operands to
 # bf16 on the card (as the TPU kernel does) and the host multiplies in
@@ -2069,16 +2108,16 @@ def _dp_steps(exe, main, loss, scope, feed, steps):
     return losses, step_s, torch.cuda.max_memory_allocated(), held
 
 
-def _dp_losses_match(phase, want, got):
+def _dp_losses_match(phase, want, got, rtol=DP_LOSS_RTOL):
     """Each step's mean over the ranks' losses against the reference run's
-    (its mean over ranks too) within DP_LOSS_RTOL; the worst ratio."""
+    (its mean over ranks too) within ``rtol``; the worst ratio."""
     worst = 0.0
     for step, (w, g) in enumerate(zip(want, got)):
+        g, w = np.asarray(g), np.asarray(w)
         rel = abs(g.mean() - w.mean()) / abs(w.mean())
-        if not (np.isfinite(g).all() and rel <= DP_LOSS_RTOL):
+        if not (np.isfinite(g).all() and rel <= rtol):
             raise AssertionError(f"{phase}: step {step} losses {g} against "
-                                 f"{w} (relative {rel:.3g}, limit "
-                                 f"{DP_LOSS_RTOL})")
+                                 f"{w} (relative {rel:.3g}, limit {rtol})")
         worst = max(worst, rel)
     return worst
 
@@ -2440,6 +2479,191 @@ def phase_gspmd_train(smi, dp_train):
             "collectives": layout.n_collectives, "wall_s": wall}
 
 
+def _gang_results(phase, log_dir, n=2):
+    """Each rank's ``RESULT`` record from the launcher's worker logs."""
+    out = []
+    for r in range(n):
+        path = os.path.join(log_dir, f"worker.{r}.log")
+        text = open(path).read() if os.path.exists(path) else ""
+        got = [ln for ln in text.splitlines() if ln.startswith("RESULT ")]
+        if not got:
+            raise AssertionError(f"{phase}: rank {r} printed no RESULT; "
+                                 f"its log ends:\n{text[-3000:]}")
+        out.append(json.loads(got[-1][len("RESULT "):]))
+    return out
+
+
+def phase_gang_train(smi, dp_train):
+    """Several processes (module docstring): two trainer processes of the
+    port's launcher on this card, (a) GradAllReduce + Adam, (b) ZeRO-1,
+    (c) the ring across the pair, then (d) the elastic kill -9 drill."""
+    import subprocess
+    import tempfile
+
+    import torch
+    from paddle_tpu_torch.kernels import ring_attention as ra
+    from paddle_tpu_torch.tools import gang_smoke
+
+    t_phase = time.perf_counter()
+    cfg = _gpt_cfg()
+    gib = 2.0 ** 30
+    torch.cuda.empty_cache()        # the children need the card's memory
+    one = dp_train["single_losses"]
+    _log("gang_train", "backend gloo: the two processes share this one "
+         "card, and NCCL refuses two ranks of one communicator on one "
+         "device; every collective gathers the ranks' tensors through "
+         "pinned host memory and reduces them on the card in rank order")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    runner = os.path.join(repo, "paddle_tpu_torch", "tools",
+                          "collective_runner.py")
+    with tempfile.TemporaryDirectory(prefix="pt_gang_train_") as tmp:
+        feed = os.path.join(tmp, "feed.npz")
+        np.savez(feed, **dp_train["feed"])
+        log_dir = os.path.join(tmp, "logs")
+        env = gang_smoke.gang_env(dict(GANG_HEARTBEAT,
+                                       FLAGS_gang_step_barrier="1"))
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--nproc_per_node", "2", "--started_port",
+             str(gang_smoke.free_port()), "--log_dir", log_dir, runner,
+             "--model", "gpt", "--feed", feed, "--phases",
+             "losses,zero,ring", "--steps", str(GANG_STEPS),
+             "--zero-steps", str(GANG_ZERO_STEPS), "--ring",
+             ",".join(map(str, (RING_SLICE[0], RING_SLICE[1],
+                                RING_SLICE[2]))),
+             "--ring-seed", "21", "--ring-tol",
+             f"{RING_O_TOL},{RING_GRAD_TOL}"],
+            env=env, cwd=repo, capture_output=True, text=True,
+            timeout=GANG_TIMEOUT_S)
+        launch_s = time.perf_counter() - t0
+        if r.returncode != 0:
+            tails = "".join(
+                f"\n--- worker.{i} ---\n" + open(os.path.join(
+                    log_dir, f"worker.{i}.log")).read()[-3000:]
+                for i in (0, 1) if os.path.exists(os.path.join(
+                    log_dir, f"worker.{i}.log")))
+            raise AssertionError(f"gang_train: the launcher exited "
+                                 f"{r.returncode}: {r.stderr[-3000:]}"
+                                 f"{tails}")
+        res = _gang_results("gang_train", log_dir)
+    kinds = ("flash_attn_fwd", "flash_attn_bwd")
+    out = {"launch_s": launch_s}
+    for key, what, steps in (("losses", "(a) GradAllReduce + Adam",
+                              GANG_STEPS),
+                             ("zero", "(b) with_distributed(dp 2, ZeRO-1)",
+                              GANG_ZERO_STEPS)):
+        r0, r1 = res[0][key], res[1][key]
+        if r0["digest0"] != r1["digest0"]:
+            raise AssertionError(f"gang_train {what}: the ranks' startup "
+                                 "weights differ")
+        if r0["losses"] != r1["losses"] or r0["digest"] != r1["digest"]:
+            raise AssertionError(f"gang_train {what}: the ranks differ: "
+                                 f"losses {r0['losses']} / {r1['losses']}")
+        worst = _dp_losses_match(f"gang_train {what}", one, r0["losses"],
+                                 GANG_LOSS_RTOL)
+        want = cfg.n_layer * steps
+        for rr in (r0, r1):
+            if rr["launches"] != {k: want for k in kinds}:
+                raise AssertionError(f"gang_train {what}: K1/K2 launched "
+                                     f"{rr['launches']}, expected {want} "
+                                     f"each ({cfg.n_layer} a step)")
+            if rr["plan_bytes"] is None or \
+                    rr["collective_bytes"] != rr["plan_bytes"] * steps:
+                raise AssertionError(
+                    f"gang_train {what}: {rr['collective_bytes']} "
+                    f"collective bytes, plan {rr['plan_bytes']} x {steps}")
+        ms = [float(np.mean(rr["step_ms"][1:])) for rr in (r0, r1)]
+        xms = [float(np.mean(rr["exchange_ms"][1:])) for rr in (r0, r1)]
+        peak = [(rr["peak_bytes"] - rr["held_bytes"]) / gib
+                for rr in (r0, r1)]
+        out[key] = {"losses": r0["losses"], "worst_rel": worst,
+                    "step_ms": [rr["step_ms"] for rr in (r0, r1)],
+                    "exchange_ms": [rr["exchange_ms"] for rr in (r0, r1)],
+                    "peak_bytes": [rr["peak_bytes"] for rr in (r0, r1)],
+                    "held_bytes": [rr["held_bytes"] for rr in (r0, r1)],
+                    "launches": [rr["launches"] for rr in (r0, r1)],
+                    "collective_bytes": r0["collective_bytes"],
+                    "plan_bytes": r0["plan_bytes"]}
+        _log("gang_train", f"{what}, 2 processes x batch "
+             f"{TRAIN_BATCH // 2} x {cfg.max_pos}, 1 + {steps - 1} steps: "
+             f"losses {[round(x, 6) for x in r0['losses']]} equal on both "
+             f"ranks bit for bit (parameters too: digest {r0['digest'][:12]}"
+             f"), against one device's worst relative {worst:.3g} (limit "
+             f"{GANG_LOSS_RTOL}); K1/K2 {want} a rank ({cfg.n_layer} a "
+             f"step); collective bytes {r0['collective_bytes']} = plan "
+             f"{r0['plan_bytes']} x {steps} on each rank")
+        _log("gang_train", f"{what}: step {ms[0]:.1f} / {ms[1]:.1f} ms "
+             f"(host clock ending in a synchronize, timed steps of ranks 0 "
+             f"/ 1; warm-up {r0['step_ms'][0] / 1e3:.2f} / "
+             f"{r1['step_ms'][0] / 1e3:.2f} s), the cross-process exchange "
+             f"{xms[0]:.1f} / {xms[1]:.1f} ms a step, peak {peak[0]:.3f} / "
+             f"{peak[1]:.3f} GiB above held, against one device's "
+             f"{dp_train['single_step_ms']:.1f} ms; on {smi}")
+    rings = [rr["ring"] for rr in res]
+    want = {k: v // 2 for k, v in ra.expected_launches(2, False).items()}
+    for rank, ring in enumerate(rings):
+        if ring["launches"] != want:
+            raise AssertionError(f"gang_train (c): rank {rank} launched "
+                                 f"{ring['launches']}, expected {want}")
+        if not max(ring["shares"].values()) <= 1.0:
+            raise AssertionError(f"gang_train (c): rank {rank} errors "
+                                 f"{ring['errors']} (shares of the bound "
+                                 f"{ring['shares']})")
+    out["ring"] = rings
+    _log("gang_train", f"(c) ring attention {list(RING_SLICE)} float32 "
+         f"non-causal, sp 2 across the two processes (the K/V and dK/dV "
+         f"rotations a send and a receive over gloo): each process's half "
+         f"against the plain dense attention over the whole T, max abs err "
+         + "; ".join(f"rank {i} " + " ".join(
+             f"{n} {e:.3g} ({ring['shares'][n]:.2f})"
+             for n, e in ring["errors"].items())
+             for i, ring in enumerate(rings))
+         + f" (share of rtol = atol = {RING_O_TOL} o, lse, {RING_GRAD_TOL} "
+         f"grads); K1/K2/merge {rings[0]['launches']} a rank; fwd + bwd "
+         f"{rings[0]['ms']:.1f} / {rings[1]['ms']:.1f} ms; on {smi}")
+    t0 = time.perf_counter()
+    drill = gang_smoke.drill(
+        "full2", cpu=False, total=GANG_DRILL_STEPS,
+        kill_step=GANG_KILL_STEP, pause=GANG_DRILL_PAUSE_S,
+        timeout=GANG_TIMEOUT_S, env=GANG_HEARTBEAT)
+    drill_s = time.perf_counter() - t0
+    n2 = 2
+    for who in ("baseline", "rank0", "rank1"):
+        done = drill[who][-1]
+        steps = GANG_DRILL_STEPS - done["start"]
+        if done["launches"] != {k: n2 * steps for k in kinds}:
+            raise AssertionError(f"gang_train (d): {who} launched "
+                                 f"{done['launches']} in {steps} steps")
+    out["drill"] = dict(drill, drill_s=drill_s)
+    step_ms = [float(np.median(drill[w][-1]["step_ms"]))
+               for w in ("baseline", "rank0", "rank1")]
+    _log("gang_train", f"(d) elastic drill (GPT at d 768, 2 layers, batch "
+         f"8 x 2048, CheckpointDaemon every 2 steps): rank 1 SIGKILLed "
+         f"itself at step {GANG_KILL_STEP}, the launcher respawned it, it "
+         f"resumed at the manifest's step {drill['resumed_at']}; both "
+         f"ranks' {GANG_DRILL_STEPS} losses equal the uninterrupted "
+         f"baseline's bit for bit; median step {step_ms[0]:.1f} (baseline)"
+         f" / {step_ms[1]:.1f} / {step_ms[2]:.1f} ms (ranks, the respawn's "
+         f"life); drill {drill_s:.1f} s; on {smi}")
+    wall = time.perf_counter() - t_phase
+    # the kernels' launches in the children, by path (both ranks; the
+    # respawned rank's second life)
+    out["launches"] = {
+        "gang_train": {k: sum(lr[k] for key in ("losses", "zero")
+                              for lr in out[key]["launches"])
+                       for k in kinds},
+        "gang_ring": {k: sum(ring["launches"][k] for ring in rings)
+                      for k in kinds + ("ring_merge",)},
+        "gang_drill": {k: sum(drill[w][-1]["launches"][k]
+                              for w in ("baseline", "rank0", "rank1"))
+                       for k in kinds}}
+    out["wall_s"] = wall
+    _log("gang_train", f"phase wall time {wall:.1f} s (launcher "
+         f"{launch_s:.1f} s, drill {drill_s:.1f} s)")
+    return out
+
+
 def phase_preempt_train(train):
     """The SIGTERM drill of ``tools.preempt_runner`` at full width."""
     import torch
@@ -2447,8 +2671,9 @@ def phase_preempt_train(train):
 
     torch.cuda.empty_cache()      # the children need the card's memory
     cfg = _gpt_cfg()
+    cfg.n_layer = pr.SIZES[PREEMPT_SIZE]["cfg"]["n_layer"]
     t0 = time.perf_counter()
-    runs = pr.drill("full", cpu=False, steps=PREEMPT_STEPS,
+    runs = pr.drill(PREEMPT_SIZE, cpu=False, steps=PREEMPT_STEPS,
                     interval=PREEMPT_INTERVAL, timeout=PREEMPT_TIMEOUT_S)
     wall = time.perf_counter() - t0
     report = pr.check(runs, PREEMPT_STEPS)
@@ -7484,6 +7709,7 @@ def main(argv=None) -> int:
     train = phase_train()
     dp_train = phase_dp_train(smi, train)
     gspmd_train = phase_gspmd_train(smi, dp_train)
+    gang_train = phase_gang_train(smi, dp_train)
     preempt = phase_preempt_train(train)
     amp_train = phase_amp_train(train)
     fused = phase_fused_train()
@@ -7596,6 +7822,11 @@ def main(argv=None) -> int:
         by_path[name]["dp_train"] = dp_train["launches"][name]
         by_path[name]["dp_train_dgc"] = dp_train["dgc_launches"][name]
         by_path[name]["gspmd_train"] = gspmd_train["launches"][name]
+    # several processes: the two ranks' steps, the ring across them, and
+    # the elastic drill's children (each child's own counts)
+    for path, counts in gang_train["launches"].items():
+        for name, n in counts.items():
+            by_path[name][path] = n
     # the serving fleet: in process, and the replica processes' own counts
     by_path["flash_attn_fwd"]["serve_fleet"] = serve_fleet["launches"]
     by_path["flash_attn_fwd"]["serve_fleet_replicas"] = \
@@ -7637,6 +7868,7 @@ def main(argv=None) -> int:
                                     if k not in ("single_params", "feed",
                                                  "weights_digest")},
                        "gspmd_train": gspmd_train,
+                       "gang_train": gang_train,
                        "observe_resnet": observe_resnet,
                        "observe_serve": observe_serve,
                        "numerics": numerics, "serve_plane": serve_plane,

@@ -30,9 +30,10 @@ runtime measurement (the port of ``paddle_tpu/analysis/comms.py``).
   events on the card, the host clock on the CPU.  The record's probe is
   the event after the last collective.
 
-- The straggler wait comes from the gang coordinator's ``comm_gate``,
-  which arrives with the multi-process slice: with no gang attached the
-  wait is 0, exactly as in the reference.
+- The straggler wait comes from the gang coordinator's ``comm_gate`` (the
+  executor's ``_comm_gate_wait``: each rank posts its arrival and reads
+  its peers'); with no gang attached the wait is 0, exactly as in the
+  reference.
 
 Gating: ``FLAGS_comms_telemetry`` (default on).
 """

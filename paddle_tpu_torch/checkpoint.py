@@ -23,8 +23,8 @@ from ``all_steps()`` at once, from the disk once the newer step is
 written), ``save_interval_steps`` skips off-interval saves unless
 ``force``.
 
-Not ported yet: ``save_server`` (the PS snapshot, ROADMAP Queue 1 item 3)
-and sharded checkpoints: a capture of a partitioned run's sharded state
+Not ported yet: ``save_server`` (the PS snapshot, ROADMAP Queue 1 item 3
+(iii)) and sharded checkpoints: a capture of a partitioned run's sharded state
 (``parallel.spmd.ShardedValue``) raises (item 3 (i)).
 """
 

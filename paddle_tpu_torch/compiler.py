@@ -37,8 +37,10 @@ to one per-rank program over its ranks (:meth:`~CompiledProgram._lower`,
 default), parameters their ``dist_spec``, accumulators their parameter's
 through ``shard_like``, plus ``dp`` on a free, divisible dim 0 under
 ZeRO-1.  Each reconfiguration takes a new serial, so no plan built for the
-old one runs.  A program run on a mesh skips the fusion passes: the
-lowering knows the unfused op set.  Not ported yet: the transient-fault
+old one runs.  After ``distributed.init_parallel_env`` the default mesh
+spans the processes (one card each): each process feeds its block of the
+batch and runs its own ranks.  A program run on a mesh skips the fusion
+passes: the lowering knows the unfused op set.  Not ported yet: the transient-fault
 retries and the tracer spans.
 """
 
@@ -90,6 +92,15 @@ def _timed_pass(pass_name: str):
     finally:
         _PASS_HIST.observe((time.perf_counter() - t0) * 1e3,
                            **{"pass": pass_name})
+
+
+def _default_ranks() -> int:
+    """Ranks of a default mesh: one a process over several processes, else
+    every visible card (at least one)."""
+    from .distributed.env import is_multiprocess, process_count
+    if is_multiprocess():
+        return process_count()
+    return max(torch.cuda.device_count(), 1)
 
 
 class CompiledProgram:
@@ -182,8 +193,7 @@ class CompiledProgram:
         else:
             devices = None
         self._mesh = make_mesh(
-            {"dp": len(devices) if devices else
-             max(torch.cuda.device_count(), 1)}, devices)
+            {"dp": len(devices) if devices else _default_ranks()}, devices)
         self._input_specs, self._zero_stage = {}, 0
         # a reconfiguration changes what the executor lowers without
         # touching the program fingerprint: a new serial invalidates the
@@ -240,7 +250,7 @@ class CompiledProgram:
                 else:
                     axes = {"dp": 1,
                             "mp": len(devices) if devices else
-                            max(torch.cuda.device_count(), 1)}
+                            _default_ranks()}
             mesh = make_topology_mesh(axes, devices)
         self._mesh = mesh
         if zero_stage not in (0, 1):

@@ -5,16 +5,21 @@
 - the transpilers ``GradAllReduce`` / ``LocalSGD`` (:mod:`transpiler`);
 - the fleet facade's collective half (:mod:`fleet`) and the trainer
   environment (:mod:`env`);
-- the gang coordinator's frame protocol (:mod:`coordinator`:
-  ``send_frame`` / ``recv_frame``), which the serving fleet speaks.
+- several processes: :func:`init_parallel_env` (``torch.distributed``,
+  gloo), the exchange between the processes of a mesh (:mod:`xproc`), the
+  launcher (``python -m paddle_tpu_torch.distributed.launch``), and the
+  gang: :class:`GangRendezvous` (the file rendezvous) and the socket
+  coordinator and client (:mod:`coordinator`), whose frame protocol the
+  serving fleet speaks too.
 
-Not ported yet: several processes (``init_parallel_env``, the launcher,
-the coordinator and ``GangRendezvous``: the multi-process slice) and the
-parameter server (the PS slice).
+Not ported yet: the parameter server, pipeline and MoE (ROADMAP Queue 1
+item 3 (iii)), and NCCL (every cross-process exchange goes through gloo).
 """
 
 from . import collective_ops  # noqa  (registers the c_* lowerings)
-from .coordinator import MAX_FRAME_BYTES, recv_frame, send_frame  # noqa
+from .coordinator import (MAX_FRAME_BYTES, GangClient,  # noqa
+                          GangCoordinator, GangDegradedError,
+                          GangFingerprintError, recv_frame, send_frame)
 from .env import (Env, GangRendezvous, get_rank,  # noqa
                   get_world_size, init_parallel_env)
 from .fleet import (CollectiveOptimizer, DistributedStrategy,  # noqa

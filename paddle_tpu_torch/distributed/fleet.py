@@ -21,7 +21,7 @@ from .env import Env, init_parallel_env
 from .transpiler import GradAllReduce, LocalSGD
 
 _PS = ("the parameter-server mode (DistributeTranspiler, the PS fleet) "
-       "comes with the PS slice")
+       "comes with the PS slice (ROADMAP Queue 1 item 3 (iii))")
 
 
 class Role:
@@ -143,8 +143,8 @@ class Fleet:
             PaddleCloudRoleMaker(is_collective=True)
         self._role_maker.generate_role()
         if self._role_maker.is_worker() and self._role_maker.worker_num() > 1:
-            # one process needs nothing; several raise until the
-            # multi-process slice
+            # one process needs nothing; several bring up
+            # torch.distributed
             init_parallel_env()
         self._is_initialized = True
 

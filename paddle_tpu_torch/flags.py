@@ -11,8 +11,10 @@ the numerics plane's (``FLAGS_numerics*``, ``FLAGS_check_nan_inf``), the
 serving SLO plane's (``FLAGS_serving_slo*``), the metrics endpoint's
 (``FLAGS_metrics_port``, ``FLAGS_metrics_host``), the serving fleet's
 and its autoscaler's (``FLAGS_fleet_*``), the comms plane's
-(``FLAGS_comms_telemetry``, ``FLAGS_comms_gate_timeout_s``) and GSPMD's
-(``FLAGS_gspmd_mesh``, ``FLAGS_gspmd_rules``) exist so far, with the
+(``FLAGS_comms_telemetry``, ``FLAGS_comms_gate_timeout_s``), GSPMD's
+(``FLAGS_gspmd_mesh``, ``FLAGS_gspmd_rules``) and the gang's
+(``FLAGS_gang_*``, ``FLAGS_coordinator_standby``,
+``FLAGS_coordinator_metrics_port``) exist so far, with the
 reference's names, defaults, validation and side effects.  ``FLAGS_*`` environment variables
 seed them at import, as the reference's ``__bootstrap__`` does; a
 malformed value warns and is ignored.
@@ -199,9 +201,31 @@ _DEFAULTS: Dict[str, Any] = {
     # bumps and one queue append a step)
     "FLAGS_comms_telemetry": True,
     # how long the pre-collective timestamp exchange through the gang
-    # coordinator waits for every rank; read by nothing yet: the
-    # coordinator and its comm gate come with the multi-process slice
+    # coordinator (the executor's comm gate) waits for every rank before
+    # returning a partial view; the gate disarms after 3 failures
     "FLAGS_comms_gate_timeout_s": 10.0,
+    # the gang (distributed/env.py, distributed/coordinator.py): how long
+    # the rank-0 leader waits for every rank to announce the same
+    # emergency-checkpoint step before it leaves the manifest where it was
+    "FLAGS_gang_commit_timeout_s": 30.0,
+    # every rank's GangClient heartbeat cadence, and how long a rank may
+    # miss heartbeats before the coordinator declares it dead
+    "FLAGS_gang_heartbeat_interval_s": 0.5,
+    "FLAGS_gang_heartbeat_timeout_s": 10.0,
+    # how long a survivor parks in GangClient.wait_ready() for the
+    # launcher (--max_restarts) to respawn a dead rank
+    "FLAGS_gang_rejoin_timeout_s": 300.0,
+    # the executor's per-step gang barrier before a collective step
+    # (socket backend only): refuses a fingerprint mismatch before
+    # dispatch; one coordinator round trip a step, so off by default
+    "FLAGS_gang_step_barrier": False,
+    "FLAGS_gang_step_barrier_timeout_s": 60.0,
+    # the launcher also hosts a warm-standby coordinator (primary port + 1)
+    # and hands the ranks both addresses
+    "FLAGS_coordinator_standby": False,
+    # the launcher's coordinator serves /metrics /healthz /statusz on this
+    # port (0 disables it)
+    "FLAGS_coordinator_metrics_port": 0,
     # GSPMD (parallel/partitioner.py): the default mesh of
     # CompiledProgram.with_gspmd when neither `mesh` nor `axes` is given,
     # "axis:size[,axis:size...]" ("" = one mp axis over every visible

@@ -123,12 +123,14 @@ of each persistable, and no rank's write reaches the scope before the step
 ends: there the trainable parameters come from rank 0
 (``verify_replicas`` compares every rank's bit for bit), other floating
 read-write persistables become the mean over ranks and integer ones the
-maximum.  Fetches come back stacked per rank (``f[None]`` over ``dp``),
-numerics statistics as one row a rank, and the dispatch ledger counts one
-step a run.  The plan key carries the collective stamp and the ranks'
-devices.  A collective's grad op is its group VJP (``registry.
-collective_grad_info``), a collective of its own.  The comms plane (ref
-``executor.py:406-432, 1553-1566, 1718-1740``, under
+maximum, save those every rank computes alike (``_Plan.
+_rank_invariant``: an Adam moment of an all-reduced gradient), whose mean
+is each rank's value.  Fetches come back stacked per rank (``f[None]``
+over ``dp``), numerics statistics as one row a rank, and the dispatch
+ledger counts one step a run.  The plan key carries the collective stamp
+and the ranks' devices.  A collective's grad op is its group VJP
+(``registry.collective_grad_info``), a collective of its own.  The comms
+plane (ref ``executor.py:406-432, 1553-1566, 1718-1740``, under
 ``FLAGS_comms_telemetry``): ``collective.launch`` fires before each
 collective step; after one that did not fail the step counts in
 ``paddle_tpu_collective_launches_total{kind="shard_map_step"}``, the plan's
@@ -152,6 +154,20 @@ when it runs; collectives outside the plan count in
 are not taken in SPMD mode yet (ROADMAP): a partitioned run under
 ``FLAGS_numerics`` raises.
 
+Several processes (ref ``executor.py:2262-2345``): after
+``distributed.init_parallel_env`` the ranks of a mesh span processes
+(``parallel.mesh``; with no dp mesh a collective program runs one rank a
+process's card).  A process runs its own ranks' segments only and feeds
+its own batch (in SPMD mode its block of each split feed dim, joined
+across the processes before the layout's split); each collective op and
+the step's end exchange the ranks' tensors through ``distributed.xproc``,
+so every process holds what one process of virtual ranks would: the same
+bits, fetches global on every process.  ``FLAGS_gang_step_barrier``
+clears the gang coordinator's fingerprint barrier before each collective
+step (``GangFingerprintError`` before dispatch), and the comms plane's
+gate posts each step's arrival to the coordinator for the straggler wait
+(telemetry that never fails a step).
+
 The reference's donation aliasing check has nothing to guard: the eager
 step donates no buffer.
 """
@@ -163,6 +179,7 @@ import functools
 import itertools
 import threading
 import time
+import warnings
 import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -176,6 +193,7 @@ from .. import resilience as _resil
 from ..analysis import fusion as _fusion
 from ..analysis import numerics as _numerics
 from ..analysis.device_profile import step_annotation
+from ..distributed import xproc as _xproc
 from ..kernels import dropout as _dropout
 from . import registry
 from .core import Program, Variable, default_main_program, grad_var_name
@@ -213,6 +231,10 @@ _COLLECTIVE_CTR = _monitor.REGISTRY.counter(
     "host-launched collectives by kind (a collective-mode step counts "
     "once under kind=shard_map_step)", ("kind",))
 _COLL_STEP = _COLLECTIVE_CTR.labels(kind="shard_map_step")
+_COLL_BARRIER = _COLLECTIVE_CTR.labels(kind="step_barrier")
+#: collectives whose output is one value on every rank of their ring
+_REPLICATING = ("c_allreduce_sum", "c_allreduce_max", "c_allreduce_min",
+                "c_allreduce_prod", "c_broadcast", "c_allgather")
 
 _HELP = {
     "cache_hits": "dispatches served by the compiled-block cache",
@@ -769,6 +791,7 @@ class _Plan:
         self.trainable_out = frozenset(
             n for n in self.persist_out
             if block.vars[n].is_parameter and block.vars[n].trainable)
+        self.rank_invariant = self._rank_invariant(persistable)
         self.inplace_add = self._inplace_adds(keep)
         # every name an op of the step writes (the numerics plane's
         # ``written``), and the float read-write persistables the step
@@ -780,6 +803,30 @@ class _Plan:
                 read.update(n for n in ns if n)
         self.poison_targets = [n for n in self.persist_out
                                if n in read and n in persistable_float]
+
+    def _rank_invariant(self, persistable) -> frozenset:
+        """Collective mode: the names every rank computes alike, so that
+        their step-end mean over the ranks is each rank's own value and
+        needs no exchange (an Adam moment of an all-reduced gradient).
+        The scope's persistables as the step starts, the outputs of the
+        collectives that hand every rank one value, and what an op makes
+        of such names alone; a random op, another collective (a split, a
+        reduce-scatter, a group VJP) or an op over a sub-block makes its
+        outputs rank-dependent."""
+        inv = set(persistable)
+        for op, info in self.ops:
+            if op.type in _REPLICATING and not op.attrs.get("mesh_axis"):
+                same = True
+            elif info.collective or info.stateful_rng or \
+                    op.type == "c_split" or "sub_block" in op.attrs:
+                same = False
+            else:
+                same = all(n in inv for ns in op.inputs.values()
+                           for n in ns if n)
+            for n in op.output_arg_names():
+                if n:
+                    (inv.add if same else inv.discard)(n)
+        return frozenset(inv)
 
     def _inplace_adds(self, keep) -> frozenset:
         """The ``elementwise_add`` ops that may add into their X: X is the
@@ -851,6 +898,12 @@ class Executor:
         # raise on a difference; the last step's count in replica_report
         self.verify_replicas = False
         self.replica_report: Optional[Dict[str, Any]] = None
+        # the gang's socket client (resolved at the first collective step),
+        # the step barrier's count, and the comm gate's failure latch
+        self._gang = _UNSET
+        self._barrier_step = 0
+        self._comm_gate_fails = 0
+        self._comm_gate_off = False
         _EXECUTORS.add(self)
         # the ledger's series fold into executor="retired" when this
         # executor dies (the callback holds only the stats object)
@@ -997,15 +1050,18 @@ class Executor:
         spmd_mesh = getattr(compiled, "_mesh", None)
         coll = None if spmd_mesh is not None else \
             program._attrs.get("collective")
+        span = None
         if spmd_mesh is not None:
             devices = self._spmd_devices(spmd_mesh)
+            span = _xproc.span_of(spmd_mesh)
             if num_mode != "off":
                 raise NotImplementedError(
                     "FLAGS_numerics statistics of a partitioned (SPMD) "
                     "program are not taken yet (ROADMAP Queue 1 item 3 "
                     "(i)); set FLAGS_numerics to 'off'")
         else:
-            devices = self._collective_devices(coll) if coll else None
+            devices, span = self._collective_devices(coll) if coll \
+                else (None, None)
         coll_tok = None if devices is None else (
             tuple(sorted((coll or {}).items())), tuple(map(str, devices)))
         key = (program.fingerprint(), feed_names, feed_sigs, fetch_names,
@@ -1048,12 +1104,16 @@ class Executor:
             env = {n: self._to_device(v) for n, v in feed.items()}
             feeds = list(env.values())
         else:
-            ranks = plan.spmd.split_feeds(feed, self._to_device) \
-                if plan.spmd is not None else \
-                self._split_feeds(feed, devices)
+            ranks = plan.spmd.split_feeds(
+                self._global_feed(feed, plan.spmd, span), self._to_device,
+                span.local) if plan.spmd is not None else \
+                self._split_feeds(feed, devices, span.local)
             feeds = list(feed.values())
-            # the drill site and the comms plane's launch record precede
-            # the collective step (ref executor.py:1553-1566)
+            # the gang's step barrier refuses a diverged program before
+            # any collective (ref executor.py:1552); the drill site and
+            # the comms plane's launch record precede the collective step
+            # (ref executor.py:1553-1566)
+            self._maybe_step_barrier(plan)
             _resil.maybe_inject("collective.launch")
             comms_note = self._comms_prelaunch(plan, feeds, len(devices))
         num = rw_in = None
@@ -1086,7 +1146,7 @@ class Executor:
                     state, fetched, num, segment, moved = \
                         self._run_collective(
                             plan, devices, ranks, scope, seed_val, num_mode,
-                            check_nan, feed_names)
+                            check_nan, feed_names, span)
                 else:
                     read = functools.partial(self._read, scope, plan.block)
                     self._maybe_poison(plan, scope, env, read)
@@ -1202,20 +1262,28 @@ class Executor:
                     return
 
     # -- collective mode (ref executor.py:1010-1087) -------------------------
-    def _collective_devices(self, coll) -> List[torch.device]:
-        """The devices of a collective program's ranks: the ``dp`` axis of
-        the current mesh (virtual ranks allowed), else the visible cards.
-        Fewer devices than ``nranks`` raise (ref executor.py:1025-1028):
-        there is no fallback to fewer ranks."""
-        from ..parallel.mesh import current_mesh
+    def _collective_devices(self, coll):
+        """The devices of a collective program's ranks and the processes
+        that run them (a ``distributed.xproc.ProcessSpan``): the ``dp``
+        axis of the current mesh (virtual ranks allowed), else the visible
+        cards, or every process's card after ``init_parallel_env``.  Fewer
+        devices than ``nranks`` raise (ref executor.py:1025-1028): there
+        is no fallback to fewer ranks."""
+        from ..distributed.env import is_multiprocess
+        from ..parallel.mesh import current_mesh, data_parallel_mesh
         mesh = current_mesh()
+        if (mesh is None or "dp" not in mesh.axis_names) and \
+                is_multiprocess():
+            mesh = data_parallel_mesh()
         if mesh is not None and "dp" in mesh.axis_names:
             devs, where = mesh.axis_devices("dp"), "the current mesh's dp axis"
+            span = _xproc.span_of(mesh, "dp")
         else:
             devs = [torch.device("cuda", i)
                     for i in range(torch.cuda.device_count())] \
                 if torch.cuda.is_available() else []
             where = "the visible CUDA devices"
+            span = None
         nranks = int(coll.get("nranks", 0) or 0) or len(devs)
         if not 1 <= nranks <= len(devs):
             raise ValueError(
@@ -1227,7 +1295,9 @@ class Executor:
             raise ValueError(f"collective mode: the ranks' devices "
                              f"{devs} are not of this executor's device "
                              f"type ({self.device})")
-        return devs
+        span = _xproc.ProcessSpan(span.procs[:nranks]) if span is not None \
+            else _xproc.ProcessSpan([_xproc.process_index()] * nranks)
+        return devs, span
 
     def _spmd_devices(self, mesh) -> List[torch.device]:
         """The ranks of an SPMD program: its mesh's devices in flat order,
@@ -1239,26 +1309,50 @@ class Executor:
                              f"({self.device})")
         return devs
 
-    def _split_feeds(self, feed, devices) -> List[Dict[str, torch.Tensor]]:
+    def _split_feeds(self, feed, devices, local) -> List[Optional[Dict]]:
         """Each rank's feeds: a batched feed split on dim 0, a scalar one
-        replicated (ref executor.py:1071-1072).  A batch the ranks do not
-        divide raises."""
-        n = len(devices)
-        envs: List[Dict[str, torch.Tensor]] = [{} for _ in devices]
+        replicated (ref executor.py:1071-1072).  Over several processes a
+        process's feed is its own ranks' batch (``local``, the ranks it
+        runs; another process's entries are None).  A batch the ranks do
+        not divide raises."""
+        n = len(local)
+        envs: List[Optional[Dict[str, torch.Tensor]]] = [None] * len(devices)
+        for r in local:
+            envs[r] = {}
         for name, v in feed.items():
             t = self._to_device(v)
             if t.dim() == 0:
-                for env, d in zip(envs, devices):
-                    env[name] = t.to(d)
+                for r in local:
+                    envs[r][name] = t.to(devices[r])
                 continue
             if t.shape[0] % n:
                 raise ValueError(
                     f"collective mode: feed {name!r} has batch "
                     f"{t.shape[0]}, which {n} ranks do not divide")
             m = t.shape[0] // n
-            for r, (env, d) in enumerate(zip(envs, devices)):
-                env[name] = t[r * m:(r + 1) * m].to(d)
+            for i, r in enumerate(local):
+                envs[r][name] = t[i * m:(i + 1) * m].to(devices[r])
         return envs
+
+    def _global_feed(self, feed, layout, span) -> Dict[str, Any]:
+        """SPMD over several processes: each process feeds its block of a
+        feed's split dim (its half of the batch over a dp axis that spans
+        two processes, ref ``_to_global_arrays``); the global feed is the
+        processes' blocks joined on that dim, in process order.  A
+        replicated feed is every process's own."""
+        if not span.multi:
+            return feed
+        names = [n for n in sorted(feed)
+                 if any(layout.feed_specs.get(n) or ())]
+        mine = {span.local[0]: [self._to_device(feed[n]) for n in names]}
+        got = span.exchange(mine, self.device)
+        firsts = sorted({span.procs.index(p) for p in set(span.procs)})
+        out = dict(feed)
+        for j, n in enumerate(names):
+            spec = layout.feed_specs[n]
+            d = next(i for i, a in enumerate(spec) if a)
+            out[n] = torch.cat([got[r][j] for r in firsts], d)
+        return out
 
     def _rank_reader(self, scope, block, device):
         """A rank's reader of the scope: the one value of a persistable,
@@ -1277,7 +1371,7 @@ class Executor:
         return read
 
     def _run_collective(self, plan, devices, envs, scope, seed_val,
-                        num_mode, check_nan, feed_names):
+                        num_mode, check_nan, feed_names, span):
         """One collective step over the ranks of ``devices``.  The plan is
         cut into segments at its collective ops: each segment runs for rank
         0, then rank 1, ..., then the collective runs over all ranks, so
@@ -1286,35 +1380,51 @@ class Executor:
         executor.py:1046-1048).  At the end the trainable parameters come
         from rank 0 and the other read-write persistables are synced
         (:func:`_sync_state`); the fetches come back stacked per rank, in
-        the reference's shapes.  Returns (state, fetched, numerics,
-        segment): the persistables to write, the fetches, the stacked
-        numerics frame, and the collective segment's two timeline marks
-        (None without a collective op)."""
+        the reference's shapes.
+
+        Over several processes (``span``, a ``distributed.xproc.
+        ProcessSpan``) a process runs its own ranks' segments only; each
+        collective op and the step's end exchange the ranks' tensors
+        between the processes, and the lowering runs over every rank on
+        this process's device, so every process holds what one process of
+        virtual ranks would (ref ``process_allgather``, executor.py:
+        2262-2280: fetches come back global everywhere).
+
+        Returns (state, fetched, numerics, segment, moved): the
+        persistables to write, the fetches, the stacked numerics frame,
+        the collective segment's two timeline marks (None without a
+        collective op) and the lowered collectives' plan edges."""
         n = len(devices)
+        local = span.local
+        here = self.device
+        devs = [d if span.is_local(r) else here
+                for r, d in enumerate(devices)]
         layout = plan.spmd
         if layout is not None:
             from ..parallel.mesh import rank_coords
             ctxs = [LowerCtx(d, (seed_val + r * 1000003) & 0xFFFFFFFF,
                              plan.amp, rank=r, nranks=n, mesh=layout.mesh,
                              coords=rank_coords(layout.mesh, r))
-                    for r, d in enumerate(devices)]
+                    for r, d in enumerate(devs)]
             read_global = functools.partial(self._read, scope, plan.block)
             reads = [layout.reader(scope, read_global, r)
-                     for r in range(n)]
+                     if span.is_local(r) else None for r in range(n)]
         else:
             ctxs = [LowerCtx(d, (seed_val + r * 1000003) & 0xFFFFFFFF,
                              plan.amp, rank=r, nranks=n)
-                    for r, d in enumerate(devices)]
+                    for r, d in enumerate(devs)]
             reads = [self._rank_reader(scope, plan.block, d)
-                     for d in devices]
+                     if span.is_local(r) else None
+                     for r, d in enumerate(devs)]
         stats = [None] * n
         if num_mode != "off":
-            stats = [_numerics.StepStats(
-                num_mode, plan.written, feed_names, plan.persist_out,
-                plan.program._attrs.get("numerics")) for _ in devices]
+            for r in local:
+                stats[r] = _numerics.StepStats(
+                    num_mode, plan.written, feed_names, plan.persist_out,
+                    plan.program._attrs.get("numerics"))
         rw_in = [scope.find_var(k) for k in plan.persist_out] \
             if num_mode == "full" else ()
-        self._maybe_poison(plan, scope, envs[-1], reads[-1])
+        self._maybe_poison(plan, scope, envs[local[-1]], reads[local[-1]])
         graphs: List[Dict[int, registry.Forward]] = [{} for _ in devices]
         cuts = plan.collective_at
         marks = []
@@ -1322,55 +1432,77 @@ class Executor:
         try:
             lo = 0
             for c in cuts + [len(plan.ops)]:
-                for r in range(n):
+                for r in local:
                     _run_ops(plan, lo, c, ctxs[r], envs[r], reads[r],
                              graphs[r], stats[r], check_nan)
                 if c == len(plan.ops):
                     break
                 if c == cuts[0]:
-                    marks.append(_mark(devices[0]))
+                    marks.append(_mark(here))
                 _run_collective_op(plan, c, ctxs, envs, reads, stats,
-                                   check_nan, moved)
+                                   check_nan, moved, span)
                 if c == cuts[-1]:
-                    marks.append(_mark(devices[0]))
+                    marks.append(_mark(here))
                 lo = c + 1
         finally:
             for g in graphs:
                 g.clear()
+        # the step's end: what every rank must see of every other
+        verify = self.verify_replicas
+        # the non-parameter state the ranks may hold apart is averaged;
+        # what every rank computes alike is its own mean
+        synced = [k for k in plan.persist_out
+                  if layout is None and k not in plan.trainable_out and
+                  k not in plan.rank_invariant]
+        checked = [k for k in plan.persist_out if verify and
+                   k in plan.trainable_out and
+                   (layout is None or not any(layout.scope_specs.get(k)
+                                              or ()))]
+        fetch_keys = list(layout.fetches.values()) if layout is not None \
+            else [(k, None) for k in plan.fetch_names]
+        packed: Dict[int, Any] = {}
+        layout_ = None
+        for r in local:
+            if stats[r] is None:
+                break
+            env = envs[r]
+            for k in plan.written:
+                if k in env:
+                    stats[r].offer(k, env[k])
+            layout_, packed[r] = stats[r].finish(
+                plan.persist_out, rw_in,
+                [env.get(k) for k in plan.persist_out], device=devs[r],
+                force=True)
+        mine = {r: ([envs[r][k] for k in synced] +
+                    [envs[r][k] for k in checked] +
+                    [envs[r][k] if k in envs[r] else reads[r](k)
+                     for k, _ in fetch_keys] +
+                    ([packed[r]] if packed else []))
+                for r in local}
+        every = span.exchange(mine, here)
+        ns, nc = len(synced), len(checked)
         num = None
-        if stats[0] is not None:
-            packed = []
-            for env, st, d in zip(envs, stats, devices):
-                for k in plan.written:
-                    if k in env:
-                        st.offer(k, env[k])
-                layout_, p = st.finish(plan.persist_out, rw_in,
-                                       [env.get(k) for k in plan.persist_out],
-                                       device=d, force=True)
-                packed.append(p.to(devices[0]))
+        if packed:
             # one row a rank: the frame adds counts, maxes absmax
-            num = (layout_, _numerics.StatsCopy(torch.stack(packed)))
+            num = (layout_, _numerics.StatsCopy(torch.stack(
+                [every[r][-1].to(here) for r in range(n)])))
         state = {}
-        mismatched = []
+        for j, k in enumerate(synced):
+            state[k] = _sync_state([every[r][j] for r in range(n)])
+        mismatched = [k for j, k in enumerate(checked) if not all(
+            torch.equal(every[0][ns + j], every[r][ns + j].to(
+                every[0][ns + j].device)) for r in range(1, n))]
+        first = local[0]
         for k in plan.persist_out:
-            vals = [env[k] for env in envs]
+            if k in state:
+                continue
             if layout is not None:
-                replicated = not any(layout.scope_specs.get(k) or ())
-                if self.verify_replicas and replicated and \
-                        k in plan.trainable_out and not all(
-                            torch.equal(vals[0], v.to(vals[0].device))
-                            for v in vals[1:]):
-                    mismatched.append(k)
-                state[k] = layout.assemble(k, vals)
-            elif k in plan.trainable_out:
-                if self.verify_replicas and not all(
-                        torch.equal(vals[0], v.to(vals[0].device))
-                        for v in vals[1:]):
-                    mismatched.append(k)
-                state[k] = vals[0]
+                state[k] = layout.assemble(
+                    k, [envs[r][k] if span.is_local(r) else None
+                        for r in range(n)])
             else:
-                state[k] = _sync_state(vals)
-        if self.verify_replicas:
+                state[k] = envs[first][k]
+        if verify:
             self.replica_report = {"tensors": len(plan.trainable_out),
                                    "ranks": n, "mismatched": mismatched}
             if mismatched:
@@ -1378,25 +1510,69 @@ class Executor:
                     f"collective mode: the ranks' trainable parameters "
                     f"differ after the step: {mismatched}")
         fetched = {}
-        if layout is not None:
-            for f, (k, _) in layout.fetches.items():
-                fetched[f] = layout.gather(
-                    f, [env[k] if k in env else read(k)
-                        for env, read in zip(envs, reads)])
-        else:
-            for k in plan.fetch_names:
-                vals = [env[k] if k in env else read(k)
-                        for env, read in zip(envs, reads)]
-                fetched[k] = torch.cat([v[None].to(devices[0])
-                                        for v in vals])
+        for j, (f, (k, _)) in enumerate(zip(
+                layout.fetches if layout is not None else plan.fetch_names,
+                fetch_keys)):
+            vals = [every[r][ns + nc + j] for r in range(n)]
+            if layout is not None:
+                fetched[f] = layout.gather(f, [v.to(here) for v in vals])
+            else:
+                fetched[f] = torch.cat([v[None].to(here) for v in vals])
         return state, fetched, num, (tuple(marks) if marks else None), \
             moved
 
+    def _maybe_step_barrier(self, plan) -> None:
+        """``FLAGS_gang_step_barrier`` (ref executor.py:1932-1985): every
+        collective step first clears the gang coordinator's step barrier
+        with the program's collective fingerprint (socket backend), so a
+        rank whose program diverged refuses with ``GangFingerprintError``
+        before any collective, and a dead rank refuses with
+        ``GangDegradedError`` within the barrier's timeout."""
+        from ..flags import get_flags
+        fl = get_flags(["FLAGS_gang_step_barrier",
+                        "FLAGS_gang_step_barrier_timeout_s"])
+        if not fl["FLAGS_gang_step_barrier"]:
+            return
+        gang = self._resolve_gang()
+        if gang is None:
+            return
+        fp = getattr(plan, "gang_fingerprint", _UNSET)
+        if fp is _UNSET:
+            try:
+                from ..analysis.verifier import collective_fingerprint
+                fp = collective_fingerprint(plan.program)
+            except Exception:
+                fp = None
+            plan.gang_fingerprint = fp
+        self._barrier_step += 1
+        gang.step_barrier(
+            self._barrier_step, fingerprint=fp,
+            timeout_s=float(fl["FLAGS_gang_step_barrier_timeout_s"]))
+        _COLL_BARRIER.inc()
+
+    def _resolve_gang(self):
+        """This process's socket gang client, or None (no launcher
+        environment, the file backend, one rank).  An unreachable
+        coordinator raises (``GangRendezvous.from_env``)."""
+        gang = self._gang
+        if gang is _UNSET:
+            try:
+                from ..distributed.env import GangRendezvous
+                gang = GangRendezvous.from_env()
+            except ConnectionError:
+                raise
+            except Exception:
+                gang = None
+            if gang is not None and not hasattr(gang, "step_barrier"):
+                gang = None         # the file backend has no liveness plane
+            self._gang = gang
+        return gang
+
     def _comms_prelaunch(self, plan, feeds, nranks):
         """``FLAGS_comms_telemetry``: the plan's comms plan and byte cells
-        (resolved once per plan) and the launch time, or None.  Never
-        raises: telemetry must not fail a step.  The straggler wait is 0
-        until the gang coordinator's comm gate (multi-process slice)."""
+        (resolved once per plan), the launch time and the comm gate's
+        straggler wait (:meth:`_comm_gate_wait`), or None.  Never raises:
+        telemetry must not fail a step."""
         from ..flags import get_flags
         try:
             if not get_flags("FLAGS_comms_telemetry")[
@@ -1407,9 +1583,66 @@ class Executor:
                 info = plan.comms_info = _resolve_comms(plan, feeds, nranks)
             if info is None:
                 return None
-            return info[0], info[1], time.perf_counter()
+            wait_ms = self._comm_gate_wait()
+            return info[0], info[1], time.perf_counter(), wait_ms
         except Exception:
             return None
+
+    def _comm_gate_wait(self) -> Optional[float]:
+        """The pre-collective timestamp exchange (ref executor.py:
+        1991-2080): post this rank's arrival to the coordinator's
+        ``comm_gate`` and wait (at most ``FLAGS_comms_gate_timeout_s``)
+        for every live peer's; returns the straggler wait in ms, or None
+        without a socket gang.  Telemetry only: it never fails a step,
+        and it disarms itself after 3 failures in a row."""
+        if self._comm_gate_off:
+            return None
+        from ..analysis import comms as _comms_mod
+        try:
+            gang = self._resolve_gang()
+        except ConnectionError:
+            self._comm_gate_off = True
+            _comms_mod.COMMS_GATE_CTR.inc(1, outcome="disabled")
+            return None
+        if gang is None or not hasattr(gang, "comm_gate"):
+            return None
+        from ..flags import get_flags
+        timeout_s = float(get_flags("FLAGS_comms_gate_timeout_s")
+                          ["FLAGS_comms_gate_timeout_s"])
+        # wall-clock arrivals compared across processes: exact on one
+        # host; across hosts only as good as the clocks' sync
+        t_arrive = time.time()
+        t0 = time.perf_counter()
+        try:
+            resp = gang.comm_gate(t_arrive, timeout_s=timeout_s)
+        except Exception:
+            self._note_gate_failure("error")
+            return None
+        ts = {int(r): float(t) for r, t in (resp.get("ts") or {}).items()}
+        released = bool(resp.get("released"))
+        if not released and time.perf_counter() - t0 >= 0.8 * timeout_s:
+            # a timeout-scale partial view is a stall the gate paid
+            self._note_gate_failure("timeout")
+            return None
+        _comms_mod.COMMS_GATE_CTR.inc(
+            1, outcome="released" if released else "partial")
+        self._comm_gate_fails = 0
+        if not ts:
+            return None
+        return max(0.0, (max(ts.values()) - t_arrive) * 1e3)
+
+    def _note_gate_failure(self, kind: str) -> None:
+        """Count a comm-gate failure toward the 3-strike latch."""
+        from ..analysis import comms as _comms_mod
+        _comms_mod.COMMS_GATE_CTR.inc(1, outcome=kind)
+        self._comm_gate_fails += 1
+        if self._comm_gate_fails >= 3:
+            self._comm_gate_off = True
+            warnings.warn(
+                "comms telemetry: the pre-collective timestamp gate failed "
+                f"3 times in a row (last: {kind}); disabling it for this "
+                "executor (the wait reads 0, the wire time is measured)")
+            _comms_mod.COMMS_GATE_CTR.inc(1, outcome="disabled")
 
     def _comms_account(self, note, step_id, segment, fresh, tdisp,
                        moved=(), spmd=False):
@@ -1423,7 +1656,7 @@ class Executor:
         _COLL_STEP.inc()
         if note is None:
             return
-        cplan, cells, t_launch = note
+        cplan, cells, t_launch, wait_ms = note
         try:
             if spmd:
                 from ..parallel.spmd import UNPLANNED_BYTES_CTR
@@ -1441,7 +1674,7 @@ class Executor:
                     hasattr(segment[1], "synchronize") else None
                 from ..analysis import comms
                 comms.MONITOR.note_launch(step_id, probe, cplan, t_launch,
-                                          tdisp, None, segment)
+                                          tdisp, wait_ms, segment)
         except Exception:
             pass     # telemetry must never fail a step
 
@@ -1541,20 +1774,37 @@ def _run_ops(plan: _Plan, lo: int, hi: int, ctx: LowerCtx, env, read,
 
 
 def _run_collective_op(plan, i, ctxs, envs, reads, stats, check_nan,
-                       moved=None):
+                       moved=None, span=None):
     """Collective op ``i`` over every rank at once: its group lowering
-    takes the ranks' inputs and gives each rank its outputs.  An op the
-    SPMD lowering emitted appends to ``moved`` the sharding-plan edges it
-    ran, or its reason and bytes when it is outside the plan."""
+    takes the ranks' inputs and gives each rank its outputs.  Over several
+    processes (``span``) the ranks' inputs are exchanged first, the
+    lowering runs over all of them here, and this process keeps its own
+    ranks' outputs.  An op the SPMD lowering emitted appends to ``moved``
+    the sharding-plan edges it ran, or its reason and bytes when it is
+    outside the plan."""
     op, info = plan.ops[i]
-    ins_list = []
-    for env, read in zip(envs, reads):
+    local = span.local if span is not None else range(len(envs))
+    mine = {}
+    for r in local:
+        env, read = envs[r], reads[r]
         # an output gradient nobody made is a zero cotangent (None)
         ins = {slot: [None if not n else env[n] if n in env else
                       None if slot.startswith("OG$") else read(n)
                       for n in names]
                for slot, names in op.inputs.items()}
-        ins_list.append(_amp.cast_ins(op.type, ins) if plan.amp else ins)
+        mine[r] = _amp.cast_ins(op.type, ins) if plan.amp else ins
+    if span is not None and span.multi:
+        slots = sorted(op.inputs)
+        every = span.exchange(
+            {r: [t for s in slots for t in ins[s]] for r, ins in mine.items()},
+            ctxs[local[0]].device)
+        ins_list = []
+        for flat in every:
+            it = iter(flat)
+            ins_list.append({s: [next(it) for _ in op.inputs[s]]
+                             for s in slots})
+    else:
+        ins_list = [mine[r] for r in local]
     try:
         outs_list = info.lower(ctxs, ins_list, op.attrs)
     except Exception as e:
@@ -1572,8 +1822,8 @@ def _run_collective_op(plan, i, ctxs, envs, reads, stats, check_nan,
                          for x in xs) // max(ring, 1)
         moved.append((op.attrs.get("edges") or (),
                       op.attrs.get("unplanned"), nbytes))
-    for env, outs, st in zip(envs, outs_list, stats):
-        _take_outputs(plan, i, op, outs, env, st, check_nan)
+    for r in local:
+        _take_outputs(plan, i, op, outs_list[r], envs[r], stats[r], check_nan)
 
 
 def _take_outputs(plan, i, op, outs, env, observe, check_nan) -> None:

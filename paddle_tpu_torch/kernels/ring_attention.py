@@ -22,7 +22,12 @@ input dtype (:134).  A rotation is ``tensor.to(next rank's device,
 non_blocking=True)``: a peer copy between distinct cards, and no copy at all
 where the mesh names one device more than once (virtual ranks, see
 :mod:`paddle_tpu_torch.parallel.mesh`).  The ranks' steps are issued one
-after another from this process.
+after another from this process.  Across processes (``span``, a
+``distributed.xproc.ProcessSpan``: a mesh after ``init_parallel_env``) a
+process runs its own ranks' steps only, and a rotation between ranks of two
+processes is an ``isend`` / ``irecv`` pair over the process group, staged
+through host memory (the reference's ``ppermute`` across hosts); K1, K2 and
+the merge kernel still run at every ring step.
 
 Causal attention (tq == tk): the reference adds a per-step bias
 (``_causal_bias`` :57-61) that has three cases, which map onto the kernels'
@@ -234,11 +239,19 @@ def _entry():
 # the ring
 # ---------------------------------------------------------------------------
 
-def _rotate(shards: List[torch.Tensor], devices) -> List[torch.Tensor]:
-    """Every shard one rank on: rank i's goes to rank (i + 1) % n."""
+def _rotate(shards: List[torch.Tensor], devices,
+            span=None) -> List[torch.Tensor]:
+    """Every shard one rank on: rank i's goes to rank (i + 1) % n (over a
+    span of processes, this process's ranks' shards only)."""
     n = len(devices)
+    if span is not None and span.multi:
+        return span.rotate(shards, devices[span.local[0]])
     return [shards[(i - 1) % n].to(devices[i], non_blocking=True)
             for i in range(n)]
+
+
+def _mine(span, my: int) -> bool:
+    return span is None or span.is_local(my)
 
 
 def _steps(n: int, causal: bool):
@@ -255,15 +268,18 @@ def _steps(n: int, causal: bool):
         yield s, ranks
 
 
-def _fwd_shards(qs, ks, vs, devices, causal, sm_scale, fwd, merge):
+def _fwd_shards(qs, ks, vs, devices, causal, sm_scale, fwd, merge,
+                span=None):
     n = len(devices)
     o_run: List[Optional[torch.Tensor]] = [None] * n
     lse_run: List[Optional[torch.Tensor]] = [None] * n
     kc, vc = list(ks), list(vs)
     for s, ranks in _steps(n, causal):
         if s:                                  # the ring moves on
-            kc, vc = _rotate(kc, devices), _rotate(vc, devices)
+            kc, vc = _rotate(kc, devices, span), _rotate(vc, devices, span)
         for my, mask in ranks:
+            if not _mine(span, my):
+                continue
             o_p, lse_p = fwd(qs[my], kc[my], vc[my], None, mask, sm_scale)
             if o_run[my] is None:              # merge with (0, NEG_INF)
                 o_run[my], lse_run[my] = o_p, lse_p
@@ -273,18 +289,23 @@ def _fwd_shards(qs, ks, vs, devices, causal, sm_scale, fwd, merge):
     return o_run, lse_run
 
 
-def _bwd_shards(qs, ks, vs, os_, lses, dos, devices, causal, sm_scale, bwd):
+def _bwd_shards(qs, ks, vs, os_, lses, dos, devices, causal, sm_scale, bwd,
+                span=None):
     n = len(devices)
     # loop-invariant across ring steps (ring_attention.py:109)
-    deltas = [torch.sum(do.float() * o.float(), dim=-1)
+    deltas = [None if do is None else torch.sum(do.float() * o.float(),
+                                                 dim=-1)
               for do, o in zip(dos, os_)]
-    dq, dk, dv = ([torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    dq, dk, dv = ([None if x is None else
+                   torch.zeros(x.shape, dtype=torch.float32, device=x.device)
                    for x in xs] for xs in (qs, ks, vs))
     kc, vc = list(ks), list(vs)
     for s, ranks in _steps(n, causal):
         if s:
-            kc, vc = _rotate(kc, devices), _rotate(vc, devices)
+            kc, vc = _rotate(kc, devices, span), _rotate(vc, devices, span)
         for my, mask in ranks:
+            if not _mine(span, my):
+                continue
             dq_p, dk_p, dv_p = bwd(qs[my], kc[my], vc[my], os_[my],
                                    lses[my], dos[my], mask, sm_scale,
                                    deltas[my])
@@ -293,9 +314,10 @@ def _bwd_shards(qs, ks, vs, os_, lses, dos, devices, causal, sm_scale, bwd):
             dv[my] += dv_p.float()
         # the dk/dv accumulators travel the ring with their K/V shard and
         # are home after the n-th rotation
-        dk, dv = _rotate(dk, devices), _rotate(dv, devices)
-    return ([x.to(qs[0].dtype) for x in dq], [x.to(ks[0].dtype) for x in dk],
-            [x.to(vs[0].dtype) for x in dv])
+        dk, dv = _rotate(dk, devices, span), _rotate(dv, devices, span)
+    dtype = next(x for x in qs if x is not None).dtype
+    return tuple([None if x is None else x.to(dtype) for x in g]
+                 for g in (dq, dk, dv))
 
 
 def _plain_bwd(q, k, v, o, lse, do, causal, sm_scale, delta):
@@ -319,10 +341,19 @@ def _step_fns(plain: bool):
     return fa.flash_attention_fwd, fa.flash_attention_bwd, _merge_in_place
 
 
-def _shard(x: torch.Tensor, devices) -> List[torch.Tensor]:
+def _shard(x: torch.Tensor, devices, span=None) -> List[torch.Tensor]:
     """``x [bh, T, ...]`` cut into len(devices) equal T shards, shard i on
-    devices[i]."""
+    devices[i].  Over a span of processes ``x`` is this process's block
+    (its ranks' shards, in rank order) and the others' entries are
+    None."""
     n = len(devices)
+    if span is not None and span.multi:
+        t = x.shape[1] // len(span.local)
+        out: List[Optional[torch.Tensor]] = [None] * n
+        for j, r in enumerate(span.local):
+            out[r] = x[:, j * t:(j + 1) * t].contiguous().to(
+                devices[r], non_blocking=True)
+        return out
     t = x.shape[1] // n
     return [x[:, i * t:(i + 1) * t].contiguous().to(devices[i],
                                                       non_blocking=True)
@@ -330,11 +361,11 @@ def _shard(x: torch.Tensor, devices) -> List[torch.Tensor]:
 
 
 def _gather(shards: Sequence[torch.Tensor], device) -> torch.Tensor:
-    return torch.cat([x.to(device) for x in shards], dim=1)
+    return torch.cat([x.to(device) for x in shards if x is not None], dim=1)
 
 
-def _check_ring(q, k, v, devices):
-    n = len(devices)
+def _check_ring(q, k, v, devices, span=None):
+    n = len(devices) if span is None or not span.multi else len(span.local)
     if n < 1:
         raise ValueError("ring attention needs at least one rank")
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
@@ -343,7 +374,7 @@ def _check_ring(q, k, v, devices):
                          "[bh, T, d] shape (self-attention)")
     if q.shape[1] % n:
         raise ValueError(f"ring attention: T = {q.shape[1]} is not "
-                         f"divisible by the {n} ranks of the ring")
+                         f"divisible by the {n} ranks of the ring here")
     # no hidden move: CUDA tensors ring over cards, CPU tensors over CPUs
     others = sorted({torch.device(d).type for d in devices} - {q.device.type})
     if others:
@@ -369,20 +400,22 @@ def _scale(q, sm_scale):
 
 def ring_attention_fwd(q, k, v, devices, causal: bool = False,
                        sm_scale: Optional[float] = None,
-                       plain: bool = False):
+                       plain: bool = False, span=None):
     """``(o [bh, T, d], lse [bh, T])`` of ring attention over ``q, k, v
     [bh, T, d]`` (one dtype, float32 or bf16), T sharded over the ranks
     ``devices`` (rank i holds shard i; a device may repeat, and every one
     is of q's device type).  K1 and the merge kernel on CUDA shards, their
     plain versions on CPU shards, or on any device with ``plain`` (the
     ring's plain version: the same schedule); the results are gathered on
-    q's device."""
-    _check_ring(q, k, v, devices)
+    q's device.  Over a ``span`` of processes q, k, v and the results are
+    this process's block of T (its ranks' shards, in rank order), and
+    every process of the ring calls it."""
+    _check_ring(q, k, v, devices, span)
     fwd, _, merge = _step_fns(plain)
     scale, d, dp = _scale(q, sm_scale), q.shape[-1], _head_dim(q, plain)
-    os_, lses = _fwd_shards(*(_shard(fa.pad_head_dim(x, dp), devices)
+    os_, lses = _fwd_shards(*(_shard(fa.pad_head_dim(x, dp), devices, span)
                               for x in (q, k, v)), devices, bool(causal),
-                            scale, fwd, merge)
+                            scale, fwd, merge, span)
     o = _gather(os_, q.device)
     return (o if dp == d else o[..., :d].contiguous()), \
         _gather(lses, q.device)
@@ -390,17 +423,19 @@ def ring_attention_fwd(q, k, v, devices, causal: bool = False,
 
 def ring_attention_bwd(q, k, v, o, lse, do, devices, causal: bool = False,
                        sm_scale: Optional[float] = None,
-                       plain: bool = False):
+                       plain: bool = False, span=None):
     """``(dq, dk, dv)`` of ring attention, from the forward's ``o`` and
     ``lse`` and the output gradient ``do`` (K2 on CUDA shards; its plain
-    version on CPU shards, or with ``plain``)."""
-    _check_ring(q, k, v, devices)
+    version on CPU shards, or with ``plain``); over a ``span`` of
+    processes every tensor is this process's block of T."""
+    _check_ring(q, k, v, devices, span)
     _, bwd, _ = _step_fns(plain)
     scale, d, dp = _scale(q, sm_scale), q.shape[-1], _head_dim(q, plain)
     pad = [fa.pad_head_dim(x, dp) for x in (q, k, v, o)]
     dqs, dks, dvs = _bwd_shards(
-        *(_shard(x, devices) for x in pad + [lse, fa.pad_head_dim(do, dp)]),
-        devices, bool(causal), scale, bwd)
+        *(_shard(x, devices, span)
+          for x in pad + [lse, fa.pad_head_dim(do, dp)]),
+        devices, bool(causal), scale, bwd, span)
     grads = (_gather(dqs, q.device), _gather(dks, k.device),
              _gather(dvs, v.device))
     return grads if dp == d else tuple(g[..., :d].contiguous()
@@ -427,6 +462,52 @@ class RingAttention(torch.autograd.Function):
                                   ctx.sm_scale) + (None, None, None)
 
 
+def _block(x: torch.Tensor, span) -> torch.Tensor:
+    """This process's block of T of a whole ``[bh, T, ...]`` tensor: its
+    ranks' shards, which are consecutive on the ring."""
+    t = x.shape[1] // span.n
+    lo, hi = span.local[0], span.local[-1] + 1
+    if span.local != list(range(lo, hi)):
+        raise ValueError(f"ring attention: this process's ranks "
+                         f"{span.local} are not consecutive on the ring")
+    return x[:, lo * t:hi * t].contiguous()
+
+
+def _join(blocks: Sequence[torch.Tensor], span) -> List[torch.Tensor]:
+    """The whole tensor from every process's block (on this one's
+    device): the blocks are exchanged and joined in rank order."""
+    got = span.exchange({span.local[0]: list(blocks)}, blocks[0].device)
+    firsts = sorted({span.procs.index(p) for p in set(span.procs)})
+    return [torch.cat([got[r][j] for r in firsts], dim=1)
+            for j in range(len(blocks))]
+
+
+class RingAttentionAcross(torch.autograd.Function):
+    """:class:`RingAttention` over a ring whose ranks span processes:
+    every process holds the whole q, k, v, runs its own ranks' ring steps
+    on its block of T, and the blocks of o (and backward, of dq, dk, dv)
+    are exchanged so that each process gets them whole."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, devices, causal, sm_scale, span):
+        blocks = [_block(x, span) for x in (q, k, v)]
+        o, lse = ring_attention_fwd(*blocks, devices, causal, sm_scale,
+                                    span=span)
+        ctx.save_for_backward(*blocks, o, lse)
+        ctx.devices, ctx.causal, ctx.sm_scale = devices, causal, sm_scale
+        ctx.span = span
+        return _join([o], span)[0]
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        grads = ring_attention_bwd(q, k, v, o, lse,
+                                   _block(do.to(o.dtype), ctx.span),
+                                   ctx.devices, ctx.causal, ctx.sm_scale,
+                                   span=ctx.span)
+        return tuple(_join(grads, ctx.span)) + (None,) * 4
+
+
 def ring_attention(q, k, v, mesh, axis_name: str = "sp",
                    causal: bool = False, sm_scale: Optional[float] = None):
     """Ring attention over ``[b, h, T, d]`` (``paddle_tpu``'s
@@ -435,14 +516,22 @@ def ring_attention(q, k, v, mesh, axis_name: str = "sp",
     on the axis's device i, the ring runs, and o is gathered on q's device.
     Raises when T is not divisible by n, and when the axis names a device
     of another type than q's (no hidden move).  The mesh's other axes hold
-    replicas of this computation; the ring of their first position runs."""
+    replicas of this computation; the ring of their first position runs.
+    On a mesh that spans processes each runs its own ranks' steps
+    (:class:`RingAttentionAcross`)."""
+    from ..distributed.xproc import span_of
     devices = tuple(mesh.axis_devices(axis_name))
+    span = span_of(mesh, axis_name)
     b, h, t, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"ring_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} must share "
                          "one shape")
     qc, kc, vc = (x.reshape(b * h, t, d).contiguous() for x in (q, k, v))
-    o = RingAttention.apply(qc, kc, vc, devices, bool(causal),
-                            _scale(q, sm_scale))
+    if span.multi:
+        o = RingAttentionAcross.apply(qc, kc, vc, devices, bool(causal),
+                                      _scale(q, sm_scale), span)
+    else:
+        o = RingAttention.apply(qc, kc, vc, devices, bool(causal),
+                                _scale(q, sm_scale))
     return o.reshape(b, h, t, d)

@@ -53,9 +53,12 @@ router's re-route ledger and per-replica state, the failover histogram
 (observed by the router's re-routed requests), and the autoscaler's decision counter, target, live size, shed switch and width
 shrinks.
 
-Not ported yet: the ``paddle_tpu_gang_*`` and ``paddle_tpu_coordinator_*``
-families with the coordinator that folds the digests (the multi-process
-slice).
+The gang families (ref :376-516): the coordinator's liveness counters
+(heartbeats, deaths, rejoins, fingerprint mismatches, the degraded gauge),
+the per-rank series it folds each heartbeat's digest into (the ``comm_*``
+keys among them) with the gang's step skew and straggler, and the
+coordinator's epoch, fencing and failover counters (ref :540-554).
+:func:`retire_gang_rank_series` folds a dead rank's series away.
 """
 
 from __future__ import annotations
@@ -535,6 +538,164 @@ FLEET_SHRINK_CTR = REGISTRY.counter(
     "reporting HBM headroom under FLAGS_fleet_oom_headroom_frac (the "
     "degradation ladder's first rung; the replica is named in the "
     "autoscaler.shrink trace instant)")
+
+
+# -- the gang liveness plane (ref paddle_tpu/monitor.py:376-516): both ends
+# of the coordinator's socket bump these, the coordinator (hosted by the
+# launcher) and every rank's GangClient
+
+GANG_HB_CTR = REGISTRY.counter(
+    "paddle_tpu_gang_heartbeats_total",
+    "gang heartbeats, by role ('client' = a rank's GangClient sent one, "
+    "'coordinator' = the coordinator served one)", ("role",))
+GANG_DEATH_CTR = REGISTRY.counter(
+    "paddle_tpu_gang_rank_deaths_total",
+    "ranks declared dead by the coordinator's liveness scan (missed "
+    "FLAGS_gang_heartbeat_timeout_s of heartbeats)")
+GANG_REJOIN_CTR = REGISTRY.counter(
+    "paddle_tpu_gang_rejoins_total",
+    "previously-dead ranks re-admitted to the gang (the elastic "
+    "--max_restarts respawn path)")
+GANG_DEGRADED_GAUGE = REGISTRY.gauge(
+    "paddle_tpu_gang_degraded",
+    "1 while at least one rank of the gang is dead (coordinator-side "
+    "view; survivors should be draining/parked, not training)")
+GANG_FP_CTR = REGISTRY.counter(
+    "paddle_tpu_gang_fingerprint_mismatch_total",
+    "cross-rank collective-fingerprint mismatches detected (heartbeat "
+    "exchange or step-barrier refusal) — each one is a divergence that "
+    "would otherwise hang inside a collective")
+
+# every rank's heartbeat carries a byte-capped digest (below); the
+# coordinator folds it into these per-rank series and the gang-level
+# skew and straggler gauges that ``tools/gangtop.py`` renders
+
+GANG_RANK_STEP_MS = REGISTRY.gauge(
+    "paddle_tpu_gang_rank_step_ms",
+    "per-rank step-time estimate (ms) from the heartbeat digest", ("rank",))
+GANG_RANK_MFU = REGISTRY.gauge(
+    "paddle_tpu_gang_rank_mfu",
+    "per-rank live MFU from the heartbeat digest", ("rank",))
+GANG_RANK_QUEUE = REGISTRY.gauge(
+    "paddle_tpu_gang_rank_queue_depth",
+    "per-rank dataloader prefetch-queue depth from the heartbeat "
+    "digest", ("rank",))
+GANG_RANK_INFLIGHT = REGISTRY.gauge(
+    "paddle_tpu_gang_rank_inflight",
+    "per-rank executor in-flight step depth from the heartbeat digest",
+    ("rank",))
+GANG_RANK_SRVQ = REGISTRY.gauge(
+    "paddle_tpu_gang_rank_serving_queue_depth",
+    "per-rank serving queue depth (queued + in-flight requests across "
+    "tenants) from the heartbeat digest — the primary least-loaded "
+    "routing signal for a serving fleet", ("rank",))
+GANG_RANK_OCC = REGISTRY.gauge(
+    "paddle_tpu_gang_rank_batch_occupancy",
+    "per-rank most-recent dispatched-batch occupancy (real requests per "
+    "batch) from the heartbeat digest", ("rank",))
+GANG_RANK_FREE_SLOTS = REGISTRY.gauge(
+    "paddle_tpu_gang_rank_free_decode_slots",
+    "per-rank free KV decode slots from the heartbeat digest (0 = the "
+    "replica's decode batch is full)", ("rank",))
+GANG_RANK_TPS = REGISTRY.gauge(
+    "paddle_tpu_gang_rank_tokens_per_s",
+    "per-rank decode throughput (generated tokens/s, windowed) from the "
+    "heartbeat digest", ("rank",))
+GANG_RANK_GNORM = REGISTRY.gauge(
+    "paddle_tpu_gang_rank_grad_norm",
+    "per-rank global gradient L2 norm from the heartbeat digest "
+    "(numerics plane 'gnorm' key) — a rank whose norm diverges from "
+    "its peers is de-synced or about to blow up", ("rank",))
+GANG_RANK_NANF = REGISTRY.gauge(
+    "paddle_tpu_gang_rank_nonfinite",
+    "per-rank cumulative non-finite element count from the heartbeat "
+    "digest (numerics plane 'nanf' key) — nonzero on exactly one rank "
+    "fingers the chip/input producing the NaNs", ("rank",))
+GANG_RANK_COMM_MS = REGISTRY.gauge(
+    "paddle_tpu_gang_rank_comm_ms",
+    "per-rank measured comm time per collective step (ms, wait + wire) "
+    "from the heartbeat digest (comms plane 'comm_ms' key)", ("rank",))
+GANG_RANK_COMM_WAIT = REGISTRY.gauge(
+    "paddle_tpu_gang_rank_comm_wait_ms",
+    "per-rank straggler-wait part of the comm time (ms) from the "
+    "heartbeat digest ('comm_wait') — the coordinator subtracts it "
+    "from step_ms when picking the straggler, so a rank stalled on a "
+    "slow peer never reads as the slow one", ("rank",))
+GANG_RANK_COMM_BW = REGISTRY.gauge(
+    "paddle_tpu_gang_rank_comm_bw",
+    "per-rank measured collective bus bandwidth over link peak in "
+    "[0,1] from the heartbeat digest ('comm_bw') — the network MFU "
+    "column gangtop renders as BW%", ("rank",))
+GANG_RANK_HBM = REGISTRY.gauge(
+    "paddle_tpu_gang_rank_hbm_bytes",
+    "per-rank measured live HBM bytes from the heartbeat digest (hbm "
+    "plane 'hbm' key) — the fleet-wide residency view gangtop renders "
+    "as the HBM column", ("rank",))
+GANG_RANK_HDRM = REGISTRY.gauge(
+    "paddle_tpu_gang_rank_hbm_headroom_bytes",
+    "per-rank measured HBM headroom (budget - live) from the heartbeat "
+    "digest ('hdrm'; present only while the rank knows a budget) — the "
+    "admission signal the GSPMD sharding chooser and an autoscaler "
+    "read, and the gangtop HDRM%/OOM-RISK input", ("rank",))
+GANG_DIGEST_CTR = REGISTRY.counter(
+    "paddle_tpu_gang_digests_total",
+    "heartbeat metrics digests accepted by the coordinator, per rank",
+    ("rank",))
+GANG_DIGEST_OVERSIZE_CTR = REGISTRY.counter(
+    "paddle_tpu_gang_digest_oversize_total",
+    "heartbeat digests that exceeded DIGEST_MAX_BYTES serialized and "
+    "were CAPPED server-side with the same priority-ordered key "
+    "dropping the client applies (the surviving keys still feed the "
+    "per-rank gauges; the beat itself is always accepted — liveness "
+    "never rides on digest validity)")
+GANG_STEP_SKEW_GAUGE = REGISTRY.gauge(
+    "paddle_tpu_gang_step_skew",
+    "max-min current training step across LIVE ranks (degraded-aware: "
+    "dead and departed ranks are excluded) — sustained growth names a "
+    "straggler or a wedged rank")
+GANG_STEP_TIME_SKEW_GAUGE = REGISTRY.gauge(
+    "paddle_tpu_gang_step_time_skew_ms",
+    "max-min per-rank step-time estimate (ms) across live ranks with "
+    "digests — the throughput form of the step skew")
+GANG_STRAGGLER_GAUGE = REGISTRY.gauge(
+    "paddle_tpu_gang_straggler_rank",
+    "rank id with the slowest step-time estimate among live ranks (-1 when "
+    "no digests have arrived) — the rank gangtop flags")
+GANG_STRAGGLER_MS_GAUGE = REGISTRY.gauge(
+    "paddle_tpu_gang_straggler_step_ms",
+    "the straggler rank's step-time estimate (ms)")
+
+# the coordinator's high availability: its epoch, fencing and failovers
+COORD_EPOCH_GAUGE = REGISTRY.gauge(
+    "paddle_tpu_coordinator_epoch",
+    "this coordinator's leadership epoch (bumped by each standby "
+    "promotion; the fencing token a zombie primary's manifest writes "
+    "are refused against)")
+COORD_FENCED_CTR = REGISTRY.counter(
+    "paddle_tpu_coordinator_fenced_total",
+    "operations refused by epoch fencing, by path (frame = a request "
+    "carried a newer epoch than this coordinator's — it is a zombie; "
+    "manifest = a mirror write observed a newer epoch in the EPOCH "
+    "file and was dropped)", ("path",))
+COORD_FAILOVER_CTR = REGISTRY.counter(
+    "paddle_tpu_coordinator_failovers_total",
+    "standby-to-primary promotions performed by this process")
+
+
+def retire_gang_rank_series(rank) -> None:
+    """Registry hygiene when a rank dies or departs: its digest counter
+    folds into ``rank="retired"`` (process totals stay exact, as a
+    retired executor's do) and its gauge series are dropped (a dead
+    rank's last step time is meaningless, and an elastic gang respawning
+    ranks must not grow the registry per incarnation)."""
+    src = {"rank": str(rank)}
+    GANG_DIGEST_CTR.fold(src, {"rank": "retired"})
+    for g in (GANG_RANK_STEP_MS, GANG_RANK_MFU, GANG_RANK_QUEUE,
+              GANG_RANK_INFLIGHT, GANG_RANK_SRVQ, GANG_RANK_OCC,
+              GANG_RANK_FREE_SLOTS, GANG_RANK_TPS, GANG_RANK_GNORM,
+              GANG_RANK_NANF, GANG_RANK_COMM_MS, GANG_RANK_COMM_WAIT,
+              GANG_RANK_COMM_BW, GANG_RANK_HBM, GANG_RANK_HDRM):
+        g.fold(src, None)
 
 
 # -- the heartbeat digest (ref paddle_tpu/monitor.py:405-830) ----------------

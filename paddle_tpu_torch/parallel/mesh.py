@@ -14,6 +14,17 @@ outside it follow in the order given), and the sizes must multiply to the
 number of devices, or :func:`make_mesh` raises.  ``devices=None`` means
 every visible CUDA card; with no card it raises (there is no CPU fallback).
 
+After ``distributed.init_parallel_env`` brought up several processes, a
+mesh spans them: each entry knows its process (``Mesh.processes``, the
+``torch.distributed`` rank that runs it; ref ``mesh.py:105`` and the
+executor's ``_mesh_is_multiprocess``).  :func:`make_mesh` with no devices
+takes one card a process (the launcher's ``FLAGS_selected_gpus``), in
+process order; an explicit list of ``k x processes`` devices gives
+entries ``[p * k, (p + 1) * k)`` to process p (``[cpu] * 2`` over two
+processes: one rank each).  The executor runs each process's ranks only
+and moves what the collectives need between the processes
+(``distributed.xproc``).
+
 An explicit device list may name a device more than once:
 ``[torch.device("cpu")] * 8`` or ``[torch.device("cuda", 0)] * 4``.  That
 is the port's analog of XLA's ``--xla_force_host_platform_device_count``,
@@ -53,7 +64,8 @@ class Mesh:
     ``devices`` has one dimension per axis; ``shape`` maps each axis name
     to its size, in axis order (``jax.sharding.Mesh.shape``)."""
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
+                 processes=None):
         devices = np.asarray(devices, dtype=object)
         axis_names = tuple(axis_names)
         if devices.ndim != len(axis_names):
@@ -61,6 +73,9 @@ class Mesh:
                              f"the axes {axis_names}")
         self.devices = devices
         self.axis_names = axis_names
+        #: each entry's process (None: every entry is this process's)
+        self.processes = None if processes is None else \
+            np.asarray(processes, dtype=np.int64).reshape(devices.shape)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -87,11 +102,43 @@ def _cuda_devices() -> list:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
+def _process_devices():
+    """(devices, processes) of a mesh over the process group: each
+    process's card (``FLAGS_selected_gpus``), in process order."""
+    from ..distributed.env import Env, process_count
+    if not torch.cuda.is_available():
+        raise RuntimeError("make_mesh: no CUDA device is available; pass "
+                           "an explicit device list (e.g. "
+                           "[torch.device('cpu')] * processes)")
+    n = process_count()
+    return [torch.device("cuda", Env().dev_id)] * n, list(range(n))
+
+
+def _processes_of(devices) -> Optional[list]:
+    """Each device's process when the process group spans several: the
+    list cut into equal consecutive parts, one a process."""
+    from ..distributed.env import is_multiprocess, process_count
+    if not is_multiprocess():
+        return None
+    n = process_count()
+    if len(devices) % n:
+        raise ValueError(f"a mesh over {n} processes needs a multiple of "
+                         f"{n} devices, have {len(devices)}")
+    k = len(devices) // n
+    return [i // k for i in range(len(devices))]
+
+
 def make_mesh(axes: Dict[str, int], devices=None) -> Mesh:
     """Build a Mesh from {axis_name: size}; sizes must multiply to
-    #devices.  Axis order follows :data:`AXES`, so dp is outermost."""
-    devices = [torch.device(d) for d in (
-        devices if devices is not None else _cuda_devices())]
+    #devices.  Axis order follows :data:`AXES`, so dp is outermost.  Over
+    several processes the mesh spans them (module docstring)."""
+    from ..distributed.env import is_multiprocess
+    if devices is None and is_multiprocess():
+        devices, procs = _process_devices()
+    else:
+        devices = [torch.device(d) for d in (
+            devices if devices is not None else _cuda_devices())]
+        procs = _processes_of(devices)
     names = [a for a in AXES if a in axes] + \
         [a for a in axes if a not in AXES]
     sizes = [int(axes[a]) for a in names]
@@ -100,12 +147,18 @@ def make_mesh(axes: Dict[str, int], devices=None) -> Mesh:
                          f"have {len(devices)}")
     arr = np.empty(len(devices), dtype=object)
     arr[:] = devices
-    return Mesh(arr.reshape(sizes), axis_names=tuple(names))
+    return Mesh(arr.reshape(sizes), axis_names=tuple(names),
+                processes=procs)
 
 
 def data_parallel_mesh(n: Optional[int] = None) -> Mesh:
     """A ``dp`` mesh over the first ``n`` visible cards (all of them when
-    ``n`` is None); raises with no card."""
+    ``n`` is None), or over every process's card after
+    ``init_parallel_env``; raises with no card."""
+    from ..distributed.env import is_multiprocess
+    if is_multiprocess():
+        devs, _ = _process_devices()
+        return make_mesh({"dp": len(devs)})
     devs = _cuda_devices()
     if n is not None:
         devs = devs[:n]

@@ -150,7 +150,10 @@ class Sharding:
 
 class ShardedValue:
     """A global tensor of ``shape`` and ``dtype`` held as ``locals_[r]``, the
-    block of rank ``r`` under ``sharding``, on rank ``r``'s device."""
+    block of rank ``r`` under ``sharding``, on rank ``r``'s device.  On a
+    mesh that spans processes a process holds its own ranks' blocks (the
+    others are None), and :meth:`to_global` is a collective: every process
+    must call it."""
 
     def __init__(self, shape, dtype, sharding: Sharding,
                  locals_: Sequence[torch.Tensor]):
@@ -178,11 +181,19 @@ class ShardedValue:
         return self.sharding.spec
 
     def to_global(self, device=None) -> torch.Tensor:
-        """The global tensor on ``device`` (rank 0's by default)."""
-        device = device or self.locals[0].device
+        """The global tensor on ``device`` (the first held block's by
+        default); over several processes the blocks are exchanged first."""
+        locs = self.locals
+        device = device or next(t for t in locs if t is not None).device
+        if any(t is None for t in locs):
+            from ..distributed.xproc import span_of
+            span = span_of(self.sharding.mesh)
+            got = span.exchange({r: [locs[r]] for r in span.local},
+                                torch.device(device))
+            locs = [g[0] for g in got]
         out = torch.empty(self.shape, dtype=self.dtype, device=device)
         seen = set()
-        for r, t in enumerate(self.locals):
+        for r, t in enumerate(locs):
             idx = self.sharding.rank_index(r, self.shape)
             key = tuple((s.start, s.stop) for s in idx)
             if key not in seen:
@@ -200,7 +211,7 @@ class ShardedValue:
 
     @property
     def local_nbytes(self) -> int:
-        t = self.locals[0]
+        t = next(t for t in self.locals if t is not None)
         return int(t.numel()) * int(t.element_size())
 
     @property
@@ -208,7 +219,8 @@ class ShardedValue:
         n = 1
         for d in self.shape:
             n *= d
-        return n * int(self.locals[0].element_size())
+        return n * int(next(t for t in self.locals
+                            if t is not None).element_size())
 
     def __repr__(self):
         return (f"ShardedValue(shape={self.shape}, dtype={self.dtype}, "
@@ -518,11 +530,15 @@ class SpmdLayout:
     def sharding(self, spec) -> Sharding:
         return Sharding(self.mesh, spec)
 
-    def split_feeds(self, feed, to_device) -> List[Dict[str, torch.Tensor]]:
+    def split_feeds(self, feed, to_device, ranks=None) -> list:
         """Each rank's feeds, sliced by their layout (a batch the dp axis
-        does not divide raises)."""
+        does not divide raises); with ``ranks``, those ranks' only (the
+        others' entries are None)."""
         n = len(self.devices)
-        envs: List[Dict[str, torch.Tensor]] = [{} for _ in range(n)]
+        ranks = range(n) if ranks is None else ranks
+        envs: list = [None] * n
+        for r in ranks:
+            envs[r] = {}
         sizes = mesh_axis_sizes(self.mesh)
         for name, v in feed.items():
             t = to_device(v)
@@ -534,8 +550,9 @@ class SpmdLayout:
                         f"which mesh axis {a!r} of size {sizes[a]} does "
                         "not divide")
             sh = self.sharding(spec)
-            for r, dev in enumerate(self.devices):
-                envs[r][name] = t[sh.rank_index(r, t.shape)].to(dev)
+            for r in ranks:
+                envs[r][name] = t[sh.rank_index(r, t.shape)].to(
+                    self.devices[r])
         return envs
 
     def reader(self, scope, read_global, rank: int):
@@ -570,13 +587,15 @@ class SpmdLayout:
             return out
         return read
 
-    def assemble(self, name: str, vals: List[torch.Tensor]):
-        """The scope value of persistable ``name`` from every rank's."""
+    def assemble(self, name: str, vals: List[Optional[torch.Tensor]]):
+        """The scope value of persistable ``name`` from every rank's (None
+        for a rank another process runs)."""
         spec = self.scope_specs.get(name)
+        mine = next(v for v in vals if v is not None)
         if not any(spec or ()):
-            return vals[0]
+            return mine
         shape = self.global_shapes[name]
-        return ShardedValue(shape, vals[0].dtype, self.sharding(spec), vals)
+        return ShardedValue(shape, mine.dtype, self.sharding(spec), vals)
 
     def gather(self, name: str, vals: List[torch.Tensor]) -> torch.Tensor:
         """A fetch's global value from every rank's local one."""

@@ -38,10 +38,15 @@
   emergency checkpoint at the last complete step; :func:`resume_or_init`
   restarts a loop from the latest one.
 
-The port trains one process: a gang (``gang=``, or ``PADDLE_GANG_DIR`` /
-``PADDLE_GANG_COORD`` with ``PADDLE_TRAINERS_NUM`` > 1) raises
-``NotImplementedError`` in the daemon, the guard and ``resume_or_init``
-(the gang path is ROADMAP Queue 1 item 3).
+In a gang (``gang=``, or the launcher's ``PADDLE_GANG_DIR`` /
+``PADDLE_GANG_COORD`` with ``PADDLE_TRAINERS_NUM`` > 1, through
+``GangRendezvous.from_env``) the unit of recovery is the gang: the daemon
+announces each durable step and the rank-0 leader publishes the newest
+step every rank holds (:meth:`CheckpointDaemon._announce`); the guard's
+emergency save waits for every rank to announce the same step
+(:meth:`PreemptionGuard._gang_commit`, ``FLAGS_gang_commit_timeout_s``);
+``resume_or_init`` restores exactly the gang-committed step and refuses a
+torn newer save (:func:`_resume_gang`).
 """
 
 from __future__ import annotations
@@ -725,20 +730,19 @@ class Watchdog:
 WATCHDOG = Watchdog()
 
 
-# -- gangs: not ported ---------------------------------------------------------
+# -- gangs ----------------------------------------------------------------------
 
-def _refuse_gang(gang, who: str) -> None:
-    """The port trains one process.  Raise where the reference would run
-    a gang: ``gang`` given, or ``PADDLE_GANG_DIR`` / ``PADDLE_GANG_COORD``
-    set with ``PADDLE_TRAINERS_NUM`` > 1 (``GangRendezvous.from_env``)."""
-    named = (int(os.getenv("PADDLE_TRAINERS_NUM", "1")) > 1
-             and (os.getenv("PADDLE_GANG_COORD")
-                  or os.getenv("PADDLE_GANG_DIR")))
-    if gang is not None or named:
-        raise NotImplementedError(
-            f"{who}: gang checkpointing (GangRendezvous, the COMMITTED "
-            "manifest) is not ported yet (ROADMAP Queue 1 item 3); the "
-            "port trains one process")
+def _gang_from_env():
+    """The launcher's gang (``GangRendezvous.from_env``), or None.  An
+    unreachable ``PADDLE_GANG_COORD`` raises: a rank quietly without its
+    gang would split the coordination plane."""
+    try:
+        from .distributed.env import GangRendezvous
+        return GangRendezvous.from_env()
+    except ConnectionError:
+        raise
+    except Exception:
+        return None
 
 
 # -- background checkpoint daemon (ref :869-1318) ----------------------------
@@ -803,8 +807,8 @@ class CheckpointDaemon:
     The capture's card copies are reported to the HBM accountant's
     ``ckpt_capture`` class while they exist (``hbm.set_ckpt_capture_bytes``).
     Under ``FLAGS_numerics`` a poisoned run holds every capture
-    (:meth:`_quarantined`).  Not ported yet: the gang announce (Queue 1
-    item 3).
+    (:meth:`_quarantined`).  In a gang each durable save is announced
+    (:meth:`_announce`).
     """
 
     def __init__(self, checkpoint, program=None, scope=None,
@@ -813,7 +817,6 @@ class CheckpointDaemon:
                  gang=None, capture_chunk_mb: Optional[int] = None,
                  cadence_stretch_frac: Optional[float] = None):
         from .flags import get_flags
-        _refuse_gang(gang, "CheckpointDaemon")
         fl = get_flags(["FLAGS_checkpoint_interval_steps",
                         "FLAGS_checkpoint_interval_secs",
                         "FLAGS_checkpoint_capture_chunk_mb",
@@ -834,13 +837,15 @@ class CheckpointDaemon:
             float(fl["FLAGS_checkpoint_cadence_stretch_frac"])
             if cadence_stretch_frac is None
             else float(cadence_stretch_frac))
+        self.gang = gang if gang is not None else _gang_from_env()
         self._mu = threading.Lock()
         self._wake = threading.Event()
         self._stop = threading.Event()
         # (step, state, kind, event)
         self._pending: Optional[tuple] = None  # guarded-by: _mu
         # the anchor: a resumed run continues the cadence of the run it
-        # resumes (the checkpoint's latest step), a fresh one starts at 0
+        # resumes (the checkpoint's latest step: in a gang the committed
+        # step, which every peer last captured), a fresh one starts at 0
         anchor = 0
         latest = getattr(checkpoint, "latest_step", None)
         if latest is not None:
@@ -1136,6 +1141,27 @@ class CheckpointDaemon:
             _monitor.TRACER.instant(
                 "checkpoint.committed", "checkpoint",
                 {"step": int(step), "kind": kind})
+        self._announce(step)
+
+    def _announce(self, step: int) -> None:
+        """Announce a durable step and every step this rank holds; the
+        leader publishes the newest step the whole gang holds."""
+        gang = self.gang
+        if gang is None:
+            return
+        steps = [int(step)]
+        if hasattr(self.checkpoint, "all_steps"):
+            steps = self.checkpoint.all_steps()
+        gang.announce(step, steps=steps)
+        if gang.is_leader:
+            from . import checkpoint as _ckpt
+            published = gang.commit_latest()
+            if published is not None:
+                _ckpt.COMMIT_CTR.inc(1, kind="gang")
+                if _monitor.TRACER.enabled:
+                    _monitor.TRACER.instant(
+                        "checkpoint.gang_commit", "checkpoint",
+                        {"step": int(published)})
 
     # -- teardown -------------------------------------------------------------
     @property
@@ -1217,7 +1243,6 @@ class PreemptionGuard:
                  exit_on_preempt: bool = True, exit_code: int = 0,
                  daemon: Optional[CheckpointDaemon] = None,
                  gang=None):
-        _refuse_gang(gang, "PreemptionGuard")
         self.checkpoint = checkpoint
         self.executor = executor
         self.program = program
@@ -1229,6 +1254,9 @@ class PreemptionGuard:
         self.daemon = daemon
         if daemon is not None and checkpoint is None:
             self.checkpoint = daemon.checkpoint
+        if gang is None and daemon is not None:
+            gang = daemon.gang
+        self.gang = gang if gang is not None else _gang_from_env()
         self._preempted = threading.Event()
         self._signum = signal.SIGTERM
         self._noted = False
@@ -1280,7 +1308,8 @@ class PreemptionGuard:
     def emergency_checkpoint(self) -> Optional[int]:
         """Drain, then make the last complete step durable; returns the
         step (None without a manager or a completed step).  With a daemon
-        this commits its in-flight save (``stop(final_step=)``)."""
+        this commits its in-flight save (``stop(final_step=)``).  The step
+        is durable before the gang hears of it (:meth:`_gang_commit`)."""
         self.drain()
         if self._last_step is None or \
                 (self.checkpoint is None and self.daemon is None):
@@ -1296,11 +1325,54 @@ class PreemptionGuard:
                                      scope=self.scope, force=True,
                                      kind="emergency")
                 durable = self.checkpoint.commit(kind="rank")
-        if durable != step:
+        if durable == step:
+            self._gang_commit(step)
+        else:
+            # never announce a step that is not on disk: a unanimous but
+            # wrong announce would publish a manifest no rank can restore
             warnings.warn(
                 f"emergency checkpoint at step {step} is not the durable "
-                f"latest ({durable})")
+                f"latest ({durable}); skipping the gang announce")
         return step
+
+    def _gang_commit(self, step: int) -> None:
+        """The emergency save's gang barrier: announce this rank's durable
+        step; the rank-0 leader publishes ``COMMITTED <step>`` only when
+        every rank announced that same step within
+        ``FLAGS_gang_commit_timeout_s``, else the manifest stays at the
+        last step the whole gang agreed on and ``resume_or_init`` refuses
+        the torn newer saves."""
+        if self.gang is None:
+            return
+        from .flags import get_flags
+        timeout = float(get_flags("FLAGS_gang_commit_timeout_s")
+                        ["FLAGS_gang_commit_timeout_s"])
+        ckpt = self.checkpoint
+        steps = ckpt.all_steps() if hasattr(ckpt, "all_steps") else [step]
+        try:
+            self.gang.announce(step, steps=steps)
+            if not self.gang.is_leader:
+                return
+            from . import checkpoint as _ckpt
+            with _monitor.TRACER.span("checkpoint.gang_barrier",
+                                      "checkpoint", step=int(step)):
+                ok = self.gang.wait_commit(step, timeout)
+            if ok:
+                _ckpt.COMMIT_CTR.inc(1, kind="gang")
+            else:
+                warnings.warn(
+                    f"gang commit of emergency step {step} timed out "
+                    f"after {timeout}s (a rank died or saved a different "
+                    "step); the manifest stays at "
+                    f"{self.gang.committed_step()} and the torn save "
+                    "will be refused at resume")
+                if _monitor.TRACER.enabled:
+                    _monitor.TRACER.instant(
+                        "checkpoint.gang_commit_timeout", "checkpoint",
+                        {"step": int(step)})
+        except Exception:
+            warnings.warn("gang rendezvous failed during the emergency "
+                          "drain; exiting with the rank-local checkpoint")
 
     def __enter__(self):
         for s in self.signals:
@@ -1332,6 +1404,12 @@ class PreemptionGuard:
                     pass
             self._old.clear()
             self._note_signal()
+        if et is None and hasattr(self.gang, "goodbye"):
+            # socket gang: a clean exit of the guarded block is an orderly
+            # departure (silence would read as a death and park every
+            # peer); an exception passing through says no goodbye: a
+            # crashed rank is dead, and the launcher respawns it
+            self.gang.goodbye()
         if et is None and self.preempted and self.exit_on_preempt:
             raise SystemExit(self.exit_code)
         return False
@@ -1348,12 +1426,22 @@ def resume_or_init(checkpoint, executor, startup_program=None,
         for step in range(start, total_steps):
             ...
 
-    A gang (``gang=``, or the launcher's environment naming one) raises
-    ``NotImplementedError``: the gang manifest is not ported."""
+    In a gang (``gang=``, or the launcher's environment naming one) only
+    the step of the leader's ``COMMITTED`` manifest is restorable: a
+    newer rank-local step is a torn save and is pruned, and with no
+    manifest every step is refused and the run cold-starts; each refusal
+    counts in ``paddle_tpu_checkpoint_torn_rejects_total``
+    (:func:`_resume_gang`)."""
     from .framework.core import default_startup_program
-    _refuse_gang(gang, "resume_or_init")
+    if gang is None:
+        gang = _gang_from_env()
     startup = startup_program or default_startup_program()
     executor.run(startup, scope=scope)
+    if gang is not None:
+        step = _resume_gang(checkpoint, gang, main_program, scope)
+        if step:
+            _onto_device(executor, main_program, scope)
+        return step
     step = checkpoint.latest_step()
     if step is None:
         return 0
@@ -1363,6 +1451,57 @@ def resume_or_init(checkpoint, executor, startup_program=None,
         _monitor.TRACER.instant("preemption.resume", "resilience",
                                 {"step": int(step)})
     return int(step)
+
+
+def _resume_gang(checkpoint, gang, main_program, scope) -> int:
+    """The gang-manifest resume: restore exactly the committed step, and
+    refuse and prune anything newer (see :func:`resume_or_init`)."""
+    from . import checkpoint as _ckpt
+    committed = gang.committed_step()
+    latest = checkpoint.latest_step()
+    if committed is None:
+        if latest is not None:
+            _ckpt.TORN_CTR.inc()
+            if _monitor.TRACER.enabled:
+                _monitor.TRACER.instant(
+                    "checkpoint.torn_reject", "checkpoint",
+                    {"latest": int(latest), "committed": None})
+            warnings.warn(
+                f"rank {gang.rank}: refusing checkpoint step {latest}: no "
+                "gang COMMITTED manifest exists (the save tore before "
+                "every rank finished); cold-starting")
+            if hasattr(checkpoint, "prune_after"):
+                # the refused steps must go, or a later emergency could
+                # gang-commit the previous run's stale weights
+                checkpoint.prune_after(-1)
+        return 0
+    if latest is not None and latest != committed:
+        _ckpt.TORN_CTR.inc()
+        if _monitor.TRACER.enabled:
+            _monitor.TRACER.instant(
+                "checkpoint.torn_reject", "checkpoint",
+                {"latest": int(latest), "committed": int(committed)})
+        warnings.warn(
+            f"rank {gang.rank}: checkpoint step {latest} is not the "
+            f"gang-committed step {committed} (torn multi-rank save); "
+            "restoring the committed step")
+    if hasattr(checkpoint, "prune_after"):
+        checkpoint.prune_after(committed)
+    try:
+        # re-announce the holdings after the prune: the rank's earlier
+        # announcement may list the pruned steps, and a leader could
+        # commit a step this rank no longer has
+        steps = checkpoint.all_steps() \
+            if hasattr(checkpoint, "all_steps") else [committed]
+        gang.announce(committed, steps=steps or [committed])
+    except Exception:
+        warnings.warn("gang re-announce after torn-step prune failed; "
+                      "the next daemon commit will refresh it")
+    checkpoint.restore(committed, program=main_program, scope=scope)
+    if _monitor.TRACER.enabled:
+        _monitor.TRACER.instant("preemption.resume", "resilience",
+                                {"step": int(committed), "gang": True})
+    return int(committed)
 
 
 def _onto_device(executor, program, scope) -> None:

@@ -28,10 +28,10 @@ later, it is drained and respawned.
 
 A fault in the decide path (the ``autoscaler.decide`` site) skips that
 tick whole; a failed spawn backs off ``FLAGS_fleet_spawn_backoff_s``;
-nothing propagates out of the loop thread.  ``attach_to(obj)`` puts the
-controller's status into ``obj.attach_status_section``: the gang
-coordinator offers that, and it is not ported yet (ROADMAP Queue 1 item
-3), so no object of this package has one.
+nothing propagates out of the loop thread.  ``attach_to(coordinator)``
+puts the controller's status into the gang coordinator's status plane
+(``GangCoordinator.attach_status_section``): the ``autoscaler`` section of
+``status_snapshot()``, ``/statusz`` and gangtop's fleet footer.
 """
 
 from __future__ import annotations
@@ -595,7 +595,7 @@ class FleetAutoscaler:
                     "ticks": self._ticks, "last": dict(pol.last)}
 
     def attach_to(self, obj) -> None:
-        """Publish :meth:`status` as the ``autoscaler`` section of any
-        object with an ``attach_status_section(name, fn)`` method (the
-        gang coordinator's status plane, once it is ported)."""
+        """Ride the gang coordinator's status plane: :meth:`status` is
+        the ``autoscaler`` section of ``status_snapshot()`` / ``/statusz``
+        / gangtop (any object with ``attach_status_section(name, fn)``)."""
         obj.attach_status_section("autoscaler", self.status)

@@ -4,7 +4,7 @@ processes behind a ``FleetRouter`` under an open-loop client, with scripted
 kills, asserting that the fleet drops nothing.
 
     python paddle_tpu_torch/tools/fleet_smoke.py [--scenario drain kill
-        scale] [--cpu] [--width tiny|full] [--full] [--bench]
+        coord scale] [--cpu] [--width tiny|full] [--full] [--bench]
 
 1. ``drain`` — SIGTERM one of two replicas mid-load: the replica drains its
    in-flight work and exits 0; the router holds it out of placement and
@@ -14,21 +14,29 @@ kills, asserting that the fleet drops nothing.
 2. ``kill`` — SIGKILL one of two replicas mid-request: in-flight requests
    replay on the survivor (``reason="dead"`` >= 1), no client-visible
    failure, the p99 over the failover printed.
-3. ``scale`` — the autoscaler's loop from one replica: a load spike counts
+3. ``coord`` — the whole topology: a primary and a warm-standby gang
+   coordinator (``--role coordinator`` children, one manifest directory),
+   two replicas registered with both addresses (``role="replica"``), a
+   rank-0 publisher committing manifest steps every 50 ms: SIGKILL the
+   primary mid-commit-loop; the standby promotes (epoch >= 1, the
+   ``EPOCH`` fence stamped), the publisher and the replicas fail over with
+   no error, the serving traffic drops nothing, and the ``MANIFEST`` file
+   never reads torn or goes back.
+4. ``scale`` — the autoscaler's loop from one replica: a load spike counts
    exactly one scale-up and spawns a second replica (p99 back under the
    calibrated objective, no failure); a replica SIGKILLed under load is
    replaced; sustained idle retires exactly one replica through its drain
    (the retired child exits 0).
 
-``--full`` adds, after those three, a torn router forward
-(``router.forward:once``) to ``kill`` and a failed spawn
+``--full`` adds, after those four, a torn router forward
+(``router.forward:once``) to ``kill``, a torn coordinator frame
+(``coordinator.frame:once@5`` in the primary) to ``coord``, a failed spawn
 (``autoscaler.spawn:once``: the controller backs off, sheds while the
-breach lasts, retries, never counts the decision twice) to ``scale``.  The
-reference's ``coord`` scenario and the coordinator parts of its ``--full``
-(a primary coordinator SIGKILLed mid-commit, standby promotion, a torn
-coordinator frame, failover under the autoscaler) need the gang
-coordinator: ``--scenario coord`` raises ``NotImplementedError`` until it
-is ported (ROADMAP Queue 1 item 3).  ``--bench`` prints one ``FLEET BENCH
+breach lasts, retries, never counts the decision twice) to ``scale``, and
+``scale+coord``: the autoscaler attached to a warm standby whose primary
+is SIGKILLed: the standby promotes with the autoscaler's section in its
+status (gangtop's footer), the controller keeps ticking and counts no
+decision across the failover.  ``--bench`` prints one ``FLEET BENCH
 {json}`` line: two-replica QPS, the p99 while the autoscaler absorbs a
 spike, the p99 under a replica SIGKILL.
 
@@ -95,8 +103,9 @@ DRAIN_GRACE_S = 0.5
 #: a replica's probe logits must agree this closely with the in-process
 #: server's
 PROBE_ATOL, PROBE_RTOL = 1e-5, 1e-4
-COORD_TODO = ("needs the gang coordinator (GangCoordinator / GangClient), "
-              "not ported yet: ROADMAP Queue 1 item 3")
+#: the coordinators' heartbeat timeout: their liveness and the standby's
+#: promotion clock
+HB_TIMEOUT = 0.3
 
 #: set by main(): the replica device flag, the model width, the weights'
 #: directory and the probe's expected logits
@@ -219,6 +228,14 @@ def replica_main(args) -> int:
     if on_card:
         torch.cuda.synchronize()
     ep = ReplicaEndpoint(srv, replica_id=f"replica-{args.rank}").start()
+    client = None
+    if args.coord:
+        from paddle_tpu_torch.distributed.coordinator import GangClient
+        client = GangClient(address=args.coord, rank=args.rank,
+                            world_size=args.world,
+                            heartbeat_interval_s=0.1, role="replica",
+                            endpoint=ep.address)
+        client.connect().start_heartbeat()
     ready_s = time.perf_counter() - _T_START
     out_mu = threading.Lock()
 
@@ -247,9 +264,28 @@ def replica_main(args) -> int:
     # rather than from a closed port
     time.sleep(DRAIN_GRACE_S)
     done.set()
+    if client is not None:
+        client.close()
     ep.stop()
     stats(final=True)
     return code
+
+
+def coordinator_main(args) -> int:
+    """A gang coordinator child (a primary, or with ``--standby-of`` a
+    warm standby): ``READY <addr>``, then serve until SIGTERM."""
+    from paddle_tpu_torch.distributed.coordinator import GangCoordinator
+    coord = GangCoordinator(args.world, port=0,
+                            heartbeat_timeout_s=HB_TIMEOUT,
+                            manifest_dir=args.manifest_dir or None,
+                            standby_of=args.standby_of or None).start()
+    print(f"READY {coord.address}", flush=True)
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda s, f: stop.set())
+    signal.signal(signal.SIGINT, lambda s, f: stop.set())
+    stop.wait()
+    coord.stop()
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -291,16 +327,19 @@ def _spawn(extra_args):
     return _spawn_many([extra_args])[0]
 
 
-def _spawn_many(arg_lists):
-    """Start several replicas together and wait until each is READY."""
+def _spawn_many(arg_lists, role="replica", env_extra=None):
+    """Start several children of ``role`` together and wait until each is
+    READY."""
     started = []
     for extra in arg_lists:
-        cmd = [sys.executable, "-u", __file__, "--role", "replica",
-               "--weights", _CFG["weights"], "--width", _CFG["width"]] + \
-            (["--cpu"] if _CFG["cpu"] else []) + [str(a) for a in extra]
+        cmd = [sys.executable, "-u", __file__, "--role", role] + (
+            ["--weights", _CFG["weights"], "--width", _CFG["width"]] +
+            (["--cpu"] if _CFG["cpu"] else []) if role == "replica"
+            else []) + [str(a) for a in extra]
         env = dict(os.environ)
         env["PYTHONPATH"] = str(_ROOT) + os.pathsep + env.get("PYTHONPATH",
                                                               "")
+        env.update(env_extra or {})
         t0 = time.perf_counter()
         proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
                                 stderr=sys.stderr, text=True)
@@ -318,11 +357,11 @@ def _spawn_many(arg_lists):
                 break
             if not line and proc.poll() is not None:
                 _kill_all([p for p, _ in started])
-                raise RuntimeError(f"replica died before READY (exit "
+                raise RuntimeError(f"{role} died before READY (exit "
                                    f"{proc.returncode})")
             if time.monotonic() > deadline:
                 _kill_all([p for p, _ in started])
-                raise RuntimeError("replica never became READY")
+                raise RuntimeError(f"{role} never became READY")
     return out
 
 
@@ -574,10 +613,178 @@ def scenario_kill(inject_forward=False):
         _stop_all([r0.proc, r1.proc])
 
 
-def scenario_coord():
-    """A primary coordinator SIGKILLed mid-commit-loop (the reference's
-    ``coord`` scenario)."""
-    raise NotImplementedError(f"fleet_smoke --scenario coord {COORD_TODO}")
+def scenario_coord(inject_frame=False):
+    """SIGKILL the primary coordinator mid-commit-loop: the standby
+    promotes epoch-fenced, the publisher and the replicas fail over with
+    no error, the serving traffic drops nothing, the manifest never tears
+    (ref ``tools/fleet_smoke.py:355-470``).  ``inject_frame`` tears the
+    primary's fifth frame (``coordinator.frame:once@5``)."""
+    from paddle_tpu_torch.distributed.coordinator import GangClient
+    from paddle_tpu_torch.distributed.env import parse_manifest
+    from paddle_tpu_torch.serving.fleet import FleetRouter
+    from paddle_tpu_torch.tools.gangtop import fetch_status
+
+    mdir = tempfile.mkdtemp(prefix="pt_fleet_gang_")
+    world = 3                         # rank 0 publisher + 2 replicas
+    name = "coord+inject" if inject_frame else "coord"
+    prim, = _spawn_many([["--world", world, "--manifest-dir", mdir]],
+                        role="coordinator",
+                        env_extra={"FLAGS_fault_inject":
+                                   "coordinator.frame:once@5"}
+                        if inject_frame else None)
+    stand, = _spawn_many([["--world", world, "--manifest-dir", mdir,
+                           "--standby-of", prim.addr]], role="coordinator")
+    coord_addr = f"{prim.addr},{stand.addr}"
+    r0, r1 = _spawn_many([["--rank", r, "--world", world, "--coord",
+                           coord_addr] for r in (1, 2)])
+    router = FleetRouter([r0.addr, r1.addr], digest_ttl_s=1.0).start()
+    _probe_against_expected([r0.addr, r1.addr], name)
+    load = OpenLoopLoad(router).start()
+    pub = GangClient(address=coord_addr, rank=0, world_size=world,
+                     heartbeat_interval_s=0.1).connect().start_heartbeat()
+    pub_errors, published, torn, regressed = [], [0], [], []
+    stop = threading.Event()
+
+    def publisher():
+        step = 0
+        while not stop.is_set():
+            step += 1
+            try:
+                pub.publish(step)
+                published[0] = step
+            except Exception as e:
+                pub_errors.append(repr(e))
+            stop.wait(0.05)
+
+    def manifest_watch():
+        """At every instant the durable file is absent or parses
+        strictly, and its step never goes back across the failover."""
+        last = 0
+        path = os.path.join(mdir, "MANIFEST")
+        while not stop.is_set():
+            time.sleep(0.002)
+            try:
+                with open(path) as f:
+                    text = f.read()
+            except OSError:
+                continue
+            try:
+                step = parse_manifest(text)
+            except ValueError as e:
+                torn.append(f"torn manifest: {e!r} text={text!r}")
+                continue
+            if step < last:
+                regressed.append((last, step))
+            last = step
+
+    threads = [threading.Thread(target=publisher, daemon=True),
+               threading.Thread(target=manifest_watch, daemon=True)]
+    for t in threads:
+        t.start()
+    try:
+        time.sleep(1.5)               # commits and heartbeats flowing
+        prim.proc.kill()              # SIGKILL mid-commit-loop
+        time.sleep(4.0)               # promotion and post-failover load
+        stop.set()
+        load.stop()
+        for t in threads:
+            t.join(timeout=5.0)
+        assert not pub_errors, f"[{name}] publisher failures across " \
+            f"the failover: {pub_errors[:3]}"
+        assert not torn, f"[{name}] {torn[:2]}"
+        assert not regressed, f"[{name}] manifest regressed: {regressed}"
+        done, _snap = _assert_ledger(router, load, name)
+        st = fetch_status(stand.addr)
+        assert st.get("coord_role") == "primary", \
+            f"[{name}] the standby never promoted: {st.get('coord_role')}"
+        assert int(st.get("epoch", 0)) >= 1, \
+            f"[{name}] promotion without an epoch bump: {st.get('epoch')}"
+        assert int(st.get("manifest") or 0) >= published[0] - 1, \
+            f"[{name}] the manifest lost commits: {st.get('manifest')} " \
+            f"against {published[0]} published"
+        with open(os.path.join(mdir, "EPOCH")) as f:
+            fence = int(f.read().strip())
+        assert fence >= 1, f"[{name}] EPOCH fence not stamped: {fence}"
+        roles = {r: e.get("role") for r, e in st["ranks"].items()}
+        assert all(e["alive"] or e["finished"]
+                   for r, e in st["ranks"].items()
+                   if roles.get(r) == "replica"), \
+            f"[{name}] replicas lost after the failover: {st['ranks']}"
+        print(f"fleet {name} OK: {done} requests 0 failed, "
+              f"{published[0]} steps published 0 errors, standby "
+              f"promoted epoch={st['epoch']}, manifest "
+              f"{st.get('manifest')} never torn, roles={roles}",
+              flush=True)
+        return {"requests": done, "published": published[0],
+                "epoch": int(st["epoch"]), "manifest": st.get("manifest"),
+                "p99_ms": load.p99_ms(), "children": [r0, r1]}
+    finally:
+        stop.set()
+        load.stop()
+        router.stop()
+        try:
+            pub.close(goodbye=False)
+        except Exception:
+            pass
+        _stop_all([r0.proc, r1.proc])
+        _kill_all([prim.proc, stand.proc])
+        shutil.rmtree(mdir, ignore_errors=True)
+
+
+def scenario_scale_failover():
+    """The autoscaler attached to a warm standby's status plane, its
+    primary SIGKILLed: the standby promotes (epoch bump) with the
+    ``autoscaler`` section in its status (gangtop's footer), the
+    controller keeps ticking and counts no decision across the failover
+    (ref ``tools/fleet_smoke.py:783-830``)."""
+    from paddle_tpu_torch.distributed.coordinator import GangCoordinator
+    from paddle_tpu_torch.tools.gangtop import render
+
+    prim, = _spawn_many([["--world", 1]], role="coordinator")
+    standby = GangCoordinator(1, port=0, heartbeat_timeout_s=HB_TIMEOUT,
+                              standby_of=prim.addr).start()
+    # min == max == 1 pins the fleet: any scale count is a flap
+    rig = _ScaleRig(max_replicas=1)
+    rig.scaler.attach_to(standby)
+    rig.scaler.start()
+    load = OpenLoopLoad(rig.router, n_clients=4, think_s=0.01).start()
+    try:
+        time.sleep(1.0)
+        ctr_before = _scale_totals()
+        ticks0 = rig.scaler.status()["ticks"]
+        prim.proc.kill()             # SIGKILL the primary coordinator
+        _wait_until(lambda: standby.status_snapshot()
+                    .get("coord_role") == "primary",
+                    20.0, "[scale+coord] standby promotion")
+        time.sleep(1.0)              # post-failover ticks and traffic
+        load.stop()
+        st = standby.status_snapshot()
+        assert int(st.get("epoch", 0)) >= 1, \
+            f"[scale+coord] promotion without an epoch bump: {st}"
+        asc = st.get("autoscaler")
+        assert isinstance(asc, dict) and asc.get("target") == 1, \
+            f"[scale+coord] the autoscaler section is missing from the " \
+            f"promoted standby's status: {asc}"
+        assert _scale_totals() == ctr_before, \
+            f"[scale+coord] the autoscaler flapped across the failover: " \
+            f"{ctr_before} -> {_scale_totals()}"
+        assert rig.scaler.status()["ticks"] > ticks0, \
+            "[scale+coord] the controller loop died across the failover"
+        done, _snap = _assert_ledger(rig.router, load, "scale+coord")
+        txt = render(st)
+        assert "fleet: TGT=1" in txt, txt
+        print(f"fleet scale+coord OK: {done} requests 0 failed, standby "
+              f"promoted epoch={st['epoch']}, controller ticking, no "
+              f"scale flap, gangtop footer renders", flush=True)
+        with rig._mu:
+            children = list(rig.procs.values())
+        return {"requests": done, "epoch": int(st["epoch"]),
+                "children": children}
+    finally:
+        load.stop()
+        standby.stop()
+        rig.close()
+        _kill_all([prim.proc])
 
 
 #: every label pair the autoscaler counts: the drill asserts the whole
@@ -947,7 +1154,7 @@ def _result_line(results):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--role", choices=("driver", "replica"),
+    ap.add_argument("--role", choices=("driver", "replica", "coordinator"),
                     default="driver")
     ap.add_argument("--scenario", nargs="+",
                     choices=("drain", "kill", "coord", "scale"),
@@ -970,16 +1177,26 @@ def main(argv=None):
                     help="a .npy file: the probe's logits from an "
                          "in-process server over the --weights")
     ap.add_argument("--rank", type=int, default=0)
+    ap.add_argument("--world", type=int, default=1,
+                    help="replica / coordinator role: the gang's size")
+    ap.add_argument("--coord", default="",
+                    help="replica role: register with the gang "
+                         "coordinator(s) at these addresses")
+    ap.add_argument("--manifest-dir", default="",
+                    help="coordinator role: the manifest directory")
+    ap.add_argument("--standby-of", default="",
+                    help="coordinator role: run as this primary's warm "
+                         "standby")
     ap.add_argument("--batch-delay-ms", type=float, default=0.0,
                     help="replica role: simulated per-dispatch service "
                          "time (the scale drill's saturation knob)")
     args = ap.parse_args(argv)
     if args.role == "replica":
         return replica_main(args)
+    if args.role == "coordinator":
+        return coordinator_main(args)
     if bool(args.weights) != bool(args.expect):
         ap.error("--weights and --expect go together")
-    if "coord" in (args.scenario or ()):
-        scenario_coord()
     _CFG.update(cpu=bool(args.cpu), width=args.width)
     wdir = tempfile.mkdtemp(prefix="paddle_tpu_torch_fleet_")
     _CFG["weights"] = args.weights or os.path.join(wdir, "weights")
@@ -995,13 +1212,15 @@ def main(argv=None):
         if args.bench:
             return bench_fleet()
         scenarios = {"drain": scenario_drain, "kill": scenario_kill,
-                     "scale": scenario_scale}
+                     "coord": scenario_coord, "scale": scenario_scale}
         results = {}
-        for name in args.scenario or ("drain", "kill", "scale"):
+        for name in args.scenario or ("drain", "kill", "coord", "scale"):
             results[name] = scenarios[name]()
         if args.full and not args.scenario:
             results["kill+inject"] = scenario_kill(inject_forward=True)
+            results["coord+inject"] = scenario_coord(inject_frame=True)
             results["scale+inject"] = scenario_scale(inject_spawn=True)
+            results["scale+coord"] = scenario_scale_failover()
         print("FLEET SMOKE PASS", flush=True)
         print(_result_line(results), flush=True)
     finally:

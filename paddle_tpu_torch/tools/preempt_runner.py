@@ -14,6 +14,7 @@ under :func:`resilience.resume_or_init`, ``CheckpointDaemon(interval_steps
 is the GPT at BERT-base width (vocab 30522, d 768, 12 layers, 12 heads,
 d_inner 3072, max_pos 2048) at batch 8 x 2048 on the card, TF32 off
 (and bf16 products reduced in float32, as ``chip_smoke.py`` sets);
+``full2`` the same width cut to 2 layers;
 ``tiny`` a 2-layer GPT (d 64, 4 heads, seq 64, batch 2).  The child pins
 the host's intra-op and inter-op thread pools to ``THREADS`` (1) before it
 builds anything: the host's float32 sums then run in one fixed order
@@ -28,9 +29,10 @@ the checkpoint counters and the flash kernels' float32 launches.
 
 :func:`drill` runs the whole exercise from a parent (``chip_smoke.py``'s
 ``preempt_train`` phase, and the CPU test at ``tiny``): (a1), (a2)
-uninterrupted; (b) under ``FLAGS_fault_inject=checkpoint.write:once``,
-SIGTERMed at the pause after step ``steps // 2``, which drains, writes its
-emergency checkpoint and exits 0; (c) resumed in a fresh process.
+uninterrupted and, at the same time, (b) under
+``FLAGS_fault_inject=checkpoint.write:once``, SIGTERMed at the pause after
+step ``steps // 2``, which drains, writes its emergency checkpoint and
+exits 0; then (c) resumed in a fresh process.
 :func:`check` holds (c)'s restored state to (b)'s saved state bit for
 bit, (b) + (c)'s losses to (a1)'s (bit for bit, or within the largest
 (a1)–(a2) difference when those differ), and (b)'s counters to exactly one
@@ -52,6 +54,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -60,6 +63,9 @@ SIZES = {
     "full": dict(cfg=dict(vocab_size=30522, d_model=768, n_layer=12,
                           n_head=12, d_inner=3072, max_pos=2048,
                           dropout=0.0), batch=8, seq=2048),
+    "full2": dict(cfg=dict(vocab_size=30522, d_model=768, n_layer=2,
+                           n_head=12, d_inner=3072, max_pos=2048,
+                           dropout=0.0), batch=8, seq=2048),
     "tiny": dict(cfg=dict(vocab_size=64, d_model=64, n_layer=2, n_head=4,
                           d_inner=128, max_pos=64, dropout=0.0),
                  batch=2, seq=64),
@@ -275,25 +281,31 @@ def spawn(ckpt: str, steps: int, interval: int, size: str, cpu: bool,
 
 def drill(size: str, cpu: bool, steps: int = 8, interval: int = 2,
           timeout: float = 600.0) -> dict:
-    """(a1), (a2), (b) and (c) as the module docstring says; each child's
-    checkpoint directory under ``tempfile``'s directory, deleted once
-    read.  Returns ``{"a1", "a2", "b", "c", "disk_free"}``."""
+    """(a1), (a2), (b) and (c) as the module docstring says, (a1), (a2)
+    and (b) at once, then (c); each child's checkpoint directory under
+    ``tempfile``'s directory, deleted once read.  Returns ``{"a1", "a2",
+    "b", "c", "disk_free"}``."""
     runs = {}
     root = tempfile.mkdtemp(prefix="paddle_tpu_preempt_")
     free = [shutil.disk_usage(root).free]
+    d = os.path.join(root, "bc")
     try:
+        # (a1), (a2) and (b) are independent: they run at once
+        with ThreadPoolExecutor(3) as pool:
+            jobs = {name: pool.submit(spawn, os.path.join(root, name),
+                                      steps, interval, size, cpu,
+                                      timeout=timeout)
+                    for name in ("a1", "a2")}
+            jobs["b"] = pool.submit(
+                spawn, d, steps, interval, size, cpu,
+                pause_after=steps // 2,
+                env={"FLAGS_fault_inject": f"{SITE}:once",
+                     "FLAGS_watchdog_timeout_s": "300"},
+                timeout=timeout)
+            runs.update({name: job.result() for name, job in jobs.items()})
+        free.append(shutil.disk_usage(root).free)
         for name in ("a1", "a2"):
-            d = os.path.join(root, name)
-            runs[name] = spawn(d, steps, interval, size, cpu,
-                               timeout=timeout)
-            free.append(shutil.disk_usage(root).free)
-            shutil.rmtree(d)
-        d = os.path.join(root, "bc")
-        runs["b"] = spawn(d, steps, interval, size, cpu,
-                          pause_after=steps // 2,
-                          env={"FLAGS_fault_inject": f"{SITE}:once",
-                               "FLAGS_watchdog_timeout_s": "300"},
-                          timeout=timeout)
+            shutil.rmtree(os.path.join(root, name))
         runs["c"] = spawn(d, steps, interval, size, cpu, timeout=timeout)
         free.append(shutil.disk_usage(root).free)
     finally:

@@ -14,11 +14,20 @@ a ``dp`` mesh of two virtual ranks.
   ``{signature, bytes, wait_ms, step_id}``, the digest carries
   ``comm_ms`` / ``comm_wait`` / ``comm_bw``; ``FLAGS_comms_telemetry``
   off counts nothing;
+- ``paddle_tpu_torch/tools/comms_smoke.py`` (the reference's CI gate,
+  ported): bytes exact, no added host blocks, and across two processes
+  under the launcher a straggler held at ``collective.launch`` shows as
+  the fast rank's wait (>= 80% of its comm time), the coordinator names
+  it the straggler, and gangtop's COMM / BW% columns render;
 - parity: ``plan_comms`` of the same program built in both packages gives
   the same ``(op, ring_id, dtype, shape, payload_bytes, wire_bytes)`` list
   and the same ``comm_frac`` and ``bound`` (both packages' host peaks are
   the reference's nominal 1e12 FLOP/s and 1e10 B/s).
 """
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -267,3 +276,16 @@ def test_plan_matches_reference(nranks, compress):
     assert got.comm_frac == pytest.approx(want.comm_frac, rel=1e-9)
     assert got.bound == want.bound
     assert got.fingerprint == want.fingerprint
+
+
+def test_comms_smoke_gates_pass():
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-m",
+                        "paddle_tpu_torch.tools.comms_smoke"], cwd=repo,
+                       env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-4000:] + r.stderr[-2000:]
+    for gate in ("gate (a) OK", "gate (b) OK", "gate (c) OK",
+                 "comms smoke OK"):
+        assert gate in r.stdout, r.stdout[-4000:]

@@ -3,9 +3,9 @@ the trainer environment (``distributed/env.py``) and the fleet facade's
 collective half (``distributed/fleet.py``).
 
 - ``Env`` reads the launcher's ``PADDLE_*`` variables as the reference
-  does; one process needs no ``init_parallel_env``, several (and
-  ``GangRendezvous``) raise ``NotImplementedError`` naming the
-  multi-process slice;
+  does; one process needs no ``init_parallel_env`` (several bring up
+  ``torch.distributed``, ``tests/test_torch_two_process.py``), and
+  ``GangRendezvous.from_env`` picks the reference's backend;
 - ``fleet.init(PaddleCloudRoleMaker(is_collective=True))`` and the worker
   queries answer as the reference's;
 - ``fleet.distributed_optimizer(opt, strategy).minimize(loss)`` gives the
@@ -70,18 +70,30 @@ def test_env_reads_the_launchers_contract(monkeypatch):
     assert env.get_world_size() == ref_env.get_world_size() == 2
 
 
-def test_init_parallel_env_is_one_process_only(monkeypatch):
+def test_init_parallel_env_is_one_process_only(monkeypatch, tmp_path):
+    """One process needs nothing brought up (a no-op returning its Env,
+    as the reference's); several go through ``torch.distributed`` (the
+    two-process tests drive that), and a world with no rendezvous address
+    raises before any wait.  ``GangRendezvous`` is the file backend, and
+    ``from_env`` picks what the reference's picks."""
     assert env.init_parallel_env().world_size == 1
     assert env.init_parallel_env(num_processes=1).rank == 0
-    with pytest.raises(NotImplementedError, match="multi-process"):
+    assert not env.is_multiprocess() and env.process_count() == 1
+    monkeypatch.setattr(env, "_initialized", False)
+    with pytest.raises(ValueError, match="no coordinator address"):
         env.init_parallel_env(num_processes=2)
+    gang = env.GangRendezvous(str(tmp_path / "g"), rank=0)
+    assert (gang.backend, gang.is_leader, gang.world_size) == \
+        ("file", True, 1)
     monkeypatch.setenv("PADDLE_TRAINERS_NUM", "4")
-    with pytest.raises(NotImplementedError, match="multi-process"):
-        env.init_parallel_env()
-    with pytest.raises(NotImplementedError, match="multi-process"):
-        env.GangRendezvous("/tmp/x", rank=0)
-    with pytest.raises(NotImplementedError, match="multi-process"):
-        env.GangRendezvous.from_env()
+    assert env.GangRendezvous.from_env() is None
+    assert ref_env.GangRendezvous.from_env() is None
+    monkeypatch.setenv("PADDLE_GANG_DIR", str(tmp_path / "g"))
+    got, want = env.GangRendezvous.from_env(), \
+        ref_env.GangRendezvous.from_env()
+    assert (got.backend, got.base_dir, got.rank, got.world_size) == \
+        (want.backend, want.base_dir, want.rank, want.world_size) == \
+        ("file", str(tmp_path / "g"), 0, 4)
 
 
 def _queries(f):

@@ -19,7 +19,9 @@
   one endpoint stops mid-stream (no failure, a ``dead`` re-route, the
   ledger exact).
 - The chaos drills through ``paddle_tpu_torch/tools/fleet_smoke.py`` (replica
-  processes, tiny width, the host) are ``slow``, as the reference's are.
+  processes, tiny width, the host) are ``slow``, as the reference's are,
+  save the ``coord`` scenario (a primary coordinator SIGKILLed under load,
+  the standby promoted).
 """
 
 import json
@@ -636,9 +638,11 @@ def test_full_runs_the_injected_variants():
     r = _run_smoke("--full")
     assert r.returncode == 0, r.stdout[-4000:]
     scen = _result(r)
-    assert set(scen) == {"drain", "kill", "scale", "kill+inject",
-                         "scale+inject"}
+    assert set(scen) == {"drain", "kill", "coord", "scale", "kill+inject",
+                         "coord+inject", "scale+inject", "scale+coord"}
     assert scen["scale+inject"]["scale_up"] == 1
+    assert scen["coord+inject"]["epoch"] >= 1
+    assert scen["scale+coord"]["epoch"] >= 1
 
 
 @pytest.mark.slow
@@ -652,12 +656,17 @@ def test_bench_prints_its_numbers_line():
 
 
 def test_coordinator_scenarios_name_their_queue():
-    from paddle_tpu_torch.tools import fleet_smoke
-    for call in (fleet_smoke.scenario_coord,
-                 lambda: fleet_smoke.main(["--scenario", "coord", "--cpu"])):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 3"):
-            call()
+    """The ``coord`` scenario runs: the primary coordinator SIGKILLed
+    mid-commit-loop, the standby promoted, no request and no commit
+    lost, the manifest never torn."""
+    r = _run_smoke("--scenario", "coord")
+    assert r.returncode == 0, r.stdout[-4000:]
+    line = [ln for ln in r.stdout.splitlines()
+            if ln.startswith("FLEET RESULT ")][-1]
+    coord = json.loads(line[len("FLEET RESULT "):])["scenarios"]["coord"]
+    assert coord["epoch"] >= 1 and coord["published"] > 0
+    assert coord["manifest"] >= coord["published"] - 1
+    assert [c["rc"] for c in coord["children"]] == [0, 0]
 
 
 def test_fleet_smoke_weights_need_their_expected_logits(capsys):

@@ -26,7 +26,9 @@
   and one ``with_gspmd`` step of a tiny MLP over dp 2 x mp 2 virtual ranks
   (the plan's bytes counted, the Adam moment a dp-sharded value);
 - a source scan finds no ``jax`` or ``paddle_tpu`` import in the package or
-  in ``chip_smoke.py``;
+  in ``chip_smoke.py``, the multi-process modules and tools among them;
+- ``init_parallel_env`` at world 1, a coordinator and a client run in a
+  subprocess with JAX blocked;
 - ``Executor()`` and ``DecodeEngine()`` (the card by default) raise when
   there is no GPU.
 """
@@ -331,7 +333,14 @@ def test_no_jax_or_reference_import_in_sources():
             "paddle_tpu_torch/parallel/dgc.py",
             "paddle_tpu_torch/analysis/comms.py",
             "paddle_tpu_torch/tools/latency_report.py",
-            "paddle_tpu_torch/tools/fleet_smoke.py"} <= scanned
+            "paddle_tpu_torch/tools/fleet_smoke.py",
+            "paddle_tpu_torch/distributed/launch.py",
+            "paddle_tpu_torch/distributed/xproc.py",
+            "paddle_tpu_torch/tools/collective_runner.py",
+            "paddle_tpu_torch/tools/gang_runner.py",
+            "paddle_tpu_torch/tools/gang_smoke.py",
+            "paddle_tpu_torch/tools/gangtop.py",
+            "paddle_tpu_torch/tools/comms_smoke.py"} <= scanned
     offenders = []
     for path in _sources():
         with open(path) as f:
@@ -582,3 +591,41 @@ def test_chip_smoke_refuses_to_run_without_a_gpu():
                          timeout=120)
     assert res.returncode == 2
     assert '"ok"' not in res.stdout and "no CUDA device" in res.stderr
+
+
+_WORLD_ONE_BLOCKED = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None
+    sys.modules["paddle_tpu"] = None
+    import paddle_tpu_torch
+    from paddle_tpu_torch.distributed import (coordinator, env, launch,
+                                              xproc)
+    from paddle_tpu_torch.tools import (collective_runner, gang_runner,
+                                        gang_smoke, gangtop, comms_smoke)
+    e = env.init_parallel_env()
+    assert e.world_size == 1 and env.init_parallel_env() is not e
+    assert not env.is_multiprocess() and env.process_count() == 1
+    coord = coordinator.GangCoordinator(1).start()
+    c = coordinator.GangClient(coord.address, rank=0, world_size=1)
+    st = c.connect().status()
+    c.close()
+    coord.stop()
+    assert not [m for m, mod in sys.modules.items() if mod is not None
+                and (m == "jax" or m.startswith(("jax.", "paddle_tpu.")))]
+    print("world", e.world_size, st["status"])
+""")
+
+
+def test_init_parallel_env_at_world_one_with_jax_blocked():
+    """``init_parallel_env`` at world 1, the launcher, the coordinator and
+    the multi-process tools import and run with JAX and the reference
+    unimportable."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    for k in ("PADDLE_TRAINERS_NUM", "PADDLE_TRAINER_ID"):
+        env.pop(k, None)
+    res = subprocess.run([sys.executable, "-c", _WORLD_ONE_BLOCKED],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "world 1 ok" in res.stdout

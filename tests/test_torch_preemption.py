@@ -9,8 +9,8 @@ JAX package, on the CPU.
   reference's;
 - the guard's emergency checkpoint in process (``trigger``), with and
   without a daemon, as the reference's;
-- a gang (``gang=``, or the launcher's environment naming one) raises
-  ``NotImplementedError`` in the daemon, the guard and ``resume_or_init``;
+- a gang (``gang=``, or the launcher's environment naming one) is taken
+  by the daemon and the guard as the reference's;
 - the tiny GPT of ``tools/preempt_runner.py`` (2 layers, d 64, 4 heads,
   seq 64, batch 2, Adam): 8 uninterrupted steps against 4 steps, an
   emergency checkpoint, and 4 more in a fresh ``Executor`` and scope after
@@ -264,19 +264,27 @@ def test_guard_emergency_checkpoint_equals_reference(tmp_path):
 
 
 def test_a_gang_raises(monkeypatch, tmp_path):
-    ckpt = CheckpointManager(str(tmp_path))
-    exe = ptt.Executor(ptt.CPUPlace())
-    for call in (lambda g: res.CheckpointDaemon(ckpt, gang=g),
-                 lambda g: res.PreemptionGuard(ckpt, gang=g),
-                 lambda g: res.resume_or_init(ckpt, exe, gang=g)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            call(object())
+    """A gang no longer raises: the daemon and the guard take the gang
+    given, or the launcher's (``GangRendezvous.from_env``: the file
+    backend here), as the reference's do; one rank has none.  The gang
+    protocol itself is ``tests/test_torch_gang.py``'s."""
+    from paddle_tpu_torch.distributed.env import GangRendezvous
+    ckpt = CheckpointManager(str(tmp_path / "c"))
+    gang = GangRendezvous(str(tmp_path / "gang"), rank=0, world_size=1)
+    daemon = res.CheckpointDaemon(ckpt, gang=gang)
+    assert daemon.gang is gang
+    assert res.PreemptionGuard(ckpt, daemon=daemon).gang is gang
     monkeypatch.setenv("PADDLE_TRAINERS_NUM", "2")
     monkeypatch.setenv("PADDLE_GANG_DIR", str(tmp_path / "gang"))
-    with pytest.raises(NotImplementedError, match="gang"):
-        res.CheckpointDaemon(ckpt)
+    got = res.CheckpointDaemon(ckpt).gang
+    want = ref_res.CheckpointDaemon(
+        RefManager(str(tmp_path / "r"))).gang
+    assert (got.backend, got.world_size, got.base_dir) == \
+        (want.backend, want.world_size, want.base_dir) == \
+        ("file", 2, str(tmp_path / "gang"))
+    assert res.PreemptionGuard(ckpt).gang.base_dir == got.base_dir
     monkeypatch.setenv("PADDLE_TRAINERS_NUM", "1")
-    res.CheckpointDaemon(ckpt)        # one rank: no gang, as the reference
+    assert res.CheckpointDaemon(ckpt).gang is None   # one rank: no gang
     ckpt.close()
 
 
