@@ -297,7 +297,37 @@ JAX, prints one line per phase, and raises on any failure:
    with dim 0 over dp, ``per_device_nbytes`` its shard; the peak above
    held at most 4 x the per-shard static plan of the chosen table, and
    printed beside the single-device run's with the step time.
-   ``gang_train`` (after ``gspmd_train``) — several processes: two
+   ``pipe_train`` (after ``gspmd_train``) — pipeline parallelism: the
+   same GPT, feed and startup seed split by ``PipelineOptimizer(
+   AdamOptimizer(1e-4), cut_list=..., num_microbatches=4)`` and run by its
+   GPipe ``PipelineEngine`` (the forward wave, the backward wave by
+   recompute, the eager Adam apply).  (a) four stages cut after layers 3,
+   6 and 9 on ``[cuda:0] * 4``, 1 + ``DP_STEPS`` steps: each loss within
+   ``DP_LOSS_RTOL`` of ``dp_train``'s single-device run (the feed's one
+   label 0 a row gives every microbatch the same count of counted
+   labels, so the mean of the microbatch losses is the batch loss), the
+   parameters after the last step within ``GSPMD_PARAM_ATOL``, K1 96 and
+   K2 48 a step (12 layers x 4 microbatches, K1 in the forward wave and
+   again in the recompute) and no other kernel.  (b) two stages cut after
+   layer 6, each on ``[cuda:0, cuda:0]`` (a stage's dp submesh), 1 + 2
+   steps: each loss within ``DP_LOSS_RTOL`` of (a)'s, K1 192 and K2 96 a
+   step.  Each prints its stages' op counts and boundary names, the step
+   ms (host clock ending in a synchronize) split into the forward wave,
+   the backward wave and the apply, the peak memory above held beside the
+   single-device run's, and the launches.
+   ``moe_train`` (after ``pipe_train``) — mixture of experts:
+   ``switch_moe_ffn`` at the GPT's width (x ``[8, 2048, 768]`` float32,
+   8 experts, d_inner 3072, capacity 1.25, relu) under ``mean((out -
+   y)^2) + 0.1 aux`` and Adam(``MOE_LR``), 1 + ``DP_STEPS`` steps, (a) on one
+   device and (b) under ``with_distributed(axes={"ep": 2, "dp": 2})`` over
+   ``[cuda:0] * 4`` from the same startup seed: each loss within
+   ``MOE_LOSS_RTOL`` of (a)'s, the loss falls in both,
+   ``paddle_tpu_collective_bytes_total`` moved by exactly steps x the
+   sharding plan's payload (its ``c_alltoall`` dispatch over ``ep``
+   printed with every edge kind), each rank holding half the experts'
+   weights and Adam moments (per-rank bytes), and no kernel launched (the
+   reference runs these products outside any Pallas kernel).
+   ``gang_train`` (after ``moe_train``) — several processes: two
    trainer processes of ``python -m paddle_tpu_torch.distributed.launch
    --nproc_per_node 2`` share this card, each running
    ``paddle_tpu_torch/tools/collective_runner.py`` under the launcher's
@@ -487,6 +517,20 @@ DP_LOSS_RTOL = 1e-4
 # move it by up to steps x lr: the bound.
 GSPMD_AXES, GSPMD_RULES = {"dp": 2, "mp": 2}, "mp_hidden_vocab"
 GSPMD_PARAM_ATOL = (1 + DP_STEPS) * 1e-4
+# pipe_train: (a) four stages cut after layers 3, 6 and 9 (checkpoints 2, 5,
+# 8), 1 + DP_STEPS steps; (b) two stages cut after layer 6, each on two
+# virtual ranks, 1 + 2 steps; 4 microbatches of 2 sequences.  The losses
+# against one device's within DP_LOSS_RTOL, the parameters within
+# GSPMD_PARAM_ATOL (Adam's noise bound above)
+PIPE_CUTS, PIPE_CUTS_B, PIPE_MICROBATCHES, PIPE_STEPS_B = (2, 5, 8), (5,), \
+    4, 3
+# moe_train: the experts, inner width and capacity factor of the layer at
+# the GPT's width; ep x dp; the losses' bound (the reference test's); Adam's
+# learning rate: the reference test's 1e-2 (at d 16) overshoots at d 768,
+# where the loss rose at the fifth step on an H100 80GB HBM3, 700 W (and
+# the JAX package's own run at this width rises too), so 1e-3
+MOE_EXPERTS, MOE_INNER, MOE_CF = 8, 3072, 1.25
+MOE_AXES, MOE_LOSS_RTOL, MOE_LR = {"ep": 2, "dp": 2}, 2e-4, 1e-3
 # preempt_train: steps a run, the daemon's interval, and a child's time limit
 PREEMPT_STEPS, PREEMPT_INTERVAL, PREEMPT_TIMEOUT_S = 8, 2, 300
 # ... at BERT-base width cut to 2 layers (preempt_runner's "full2"), which
@@ -2477,6 +2521,318 @@ def phase_gspmd_train(smi, dp_train):
             "report": report, "choose_rules_s": choose_s,
             "lowered_ops": len(layout.program.global_block().ops),
             "collectives": layout.n_collectives, "wall_s": wall}
+
+
+def _card():
+    """The card the virtual ranks of pipe_train and moe_train share."""
+    import torch
+    return torch.device("cuda", 0)
+
+
+def _pipe_program(cfg, seq, cuts, microbatches):
+    """``_dp_program``'s GPT (the same names, so the same startup weights),
+    split at the layer outputs ``cuts`` by ``PipelineOptimizer(Adam(1e-4))``
+    with ``microbatches`` microbatches; returns the program, its startup and
+    the pipeline optimizer."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.framework import (Program, program_guard,
+                                            unique_name)
+    from paddle_tpu_torch.models import transformer as T
+    with unique_name.guard():
+        main, startup = Program(), Program()
+        with program_guard(main, startup):
+            cps = []
+            _, _, loss = T.build_gpt_pretrain(cfg, seq, fused_head=True,
+                                              attn_impl="auto", dropout=0.0,
+                                              checkpoints=cps)
+            pipe = optimizer.PipelineOptimizer(
+                optimizer.AdamOptimizer(learning_rate=1e-4),
+                cut_list=[cps[i] for i in cuts],
+                num_microbatches=microbatches)
+            pipe.minimize(loss)
+    return main, startup, pipe
+
+
+def _pipe_steps(eng, feed, steps):
+    """``steps`` engine steps on one batch: the losses, each step's seconds
+    (host clock, ending in a synchronize) and its forward wave, backward
+    wave and apply seconds (each phase ending in a synchronize), the peak
+    memory and what was held before the first step."""
+    import torch
+    split = {"forward": [], "backward": [], "apply": []}
+
+    def timed(key, fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            split[key].append(time.perf_counter() - t0)
+            return out
+        return run
+    eng._forward_wave = timed("forward", eng._forward_wave)
+    eng._backward_wave = timed("backward", eng._backward_wave)
+    eng._apply = timed("apply", eng._apply)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(eng.train_step(feed))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    return losses, step_s, split, torch.cuda.max_memory_allocated(), held
+
+
+def phase_pipe_train(smi, dp_train):
+    """Pipeline parallelism at full width (module docstring): ``train``'s
+    GPT cut into four stages on ``[cuda:0] * 4`` (a), and into two stages
+    each on ``[cuda:0, cuda:0]`` (b), against ``dp_train``'s single-device
+    run of the same startup seed and feed."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    cfg = _gpt_cfg()
+    seq = cfg.max_pos
+    feed = dp_train["feed"]
+    one = [np.asarray(l) for l in dp_train["single_losses"]]
+    gib = 2.0 ** 30
+    cuda0 = _card()
+    out = {}
+    for case, cuts, devices, steps in (
+            ("a", PIPE_CUTS, [cuda0] * (len(PIPE_CUTS) + 1), DP_STEPS + 1),
+            ("b", PIPE_CUTS_B, [[cuda0, cuda0]] * (len(PIPE_CUTS_B) + 1),
+             PIPE_STEPS_B)):
+        main, startup, pipe = _pipe_program(cfg, seq, cuts,
+                                            PIPE_MICROBATCHES)
+        sc = Scope()
+        ptt.Executor().run(startup, scope=sc, seed=1234)
+        if _weights_digest(sc, main) != dp_train["weights_digest"]:
+            raise AssertionError(f"pipe_train ({case}): the startup's "
+                                 "weights differ from the single-device "
+                                 "run's")
+        eng = pipe.create_engine(devices=devices, scope=sc)
+        for sec in pipe.sections:
+            _log("pipe_train", f"({case}) stage {sec.idx} on "
+                 f"{devices[sec.idx]}: "
+                 f"{len(sec.program.global_block().ops)} ops, "
+                 f"{len(sec.param_names)} parameters, in {sec.in_names}, "
+                 f"feeds {sec.feed_names}, out {sec.out_names}")
+        _reset_launches()
+        losses, step_s, split, peak, held = _pipe_steps(eng, feed, steps)
+        launches = _launches_nonzero()
+        ranks = len(devices[0]) if isinstance(devices[0], list) else 1
+        per_step = cfg.n_layer * PIPE_MICROBATCHES * ranks
+        want = {"flash_attn_fwd": 2 * per_step * steps,
+                "flash_attn_bwd": per_step * steps}
+        if launches != want:
+            raise AssertionError(
+                f"pipe_train ({case}): launches {launches}, expected "
+                f"{want}: {cfg.n_layer} layers x {PIPE_MICROBATCHES} "
+                f"microbatches x {ranks} rank(s) x {steps} steps, K1 in the "
+                "forward wave and again in the recompute")
+        if case == "a":
+            worst = _dp_losses_match("pipe_train (a)", one,
+                                     [[l] for l in losses])
+            eng.sync_to_scope()
+            diffs = {p: float((sc.find_var(p).detach().cpu() - w)
+                              .abs().max())
+                     for p, w in dp_train["single_params"].items()}
+            worst_p = max(diffs, key=diffs.get)
+            if not diffs[worst_p] <= GSPMD_PARAM_ATOL:
+                raise AssertionError(
+                    f"pipe_train (a): parameter {worst_p} differs by "
+                    f"{diffs[worst_p]:.3g} from the single-device run's "
+                    f"(limit {GSPMD_PARAM_ATOL})")
+            ref_name = "one device"
+        else:
+            a = out["a"]["losses"]
+            worst = _dp_losses_match("pipe_train (b)",
+                                     [[x] for x in a[:steps]],
+                                     [[l] for l in losses])
+            diffs, worst_p, ref_name = None, None, "(a)"
+        step_ms = 1e3 * float(np.mean(step_s[1:]))
+        split_ms = {k: 1e3 * float(np.mean(v[1:])) for k, v in split.items()}
+        _log("pipe_train", f"({case}) PipelineOptimizer(Adam(1e-4), "
+             f"{len(cuts) + 1} stages, num_microbatches="
+             f"{PIPE_MICROBATCHES}), batch {TRAIN_BATCH} x {seq}, 1 + "
+             f"{steps - 1} steps: losses {[round(l, 6) for l in losses]} "
+             f"against {ref_name}'s "
+             f"{[round(float(np.mean(l)), 6) for l in (one if case == 'a' else [[x] for x in out['a']['losses']])][:steps]}"
+             f", worst relative {worst:.3g} (limit {DP_LOSS_RTOL})"
+             + (f"; parameters after the last step within "
+                f"{diffs[worst_p]:.3g} ({worst_p}; limit "
+                f"{GSPMD_PARAM_ATOL:.1e}), median "
+                f"{float(np.median(list(diffs.values()))):.3g}"
+                if diffs else ""))
+        _log("pipe_train", f"({case}) step {step_ms:.1f} ms (timed steps "
+             f"{', '.join(f'{1e3 * x:.1f}' for x in step_s[1:])}; warm-up "
+             f"{step_s[0]:.2f} s): forward wave {split_ms['forward']:.1f} "
+             f"ms, backward wave {split_ms['backward']:.1f} ms, apply "
+             f"{split_ms['apply']:.1f} ms (each ending in a synchronize), "
+             f"against one device's {dp_train['single_step_ms']:.1f} ms; "
+             f"peak {(peak - held) / gib:.3f} GiB above the "
+             f"{held / gib:.3f} held, one device's "
+             f"{(dp_train['single_peak_bytes'] - dp_train['single_held_bytes']) / gib:.3f}"
+             f"; K1/K2 {launches}; on {smi}")
+        out[case] = {"launches": launches, "losses": losses,
+                     "worst_rel": worst, "step_ms": step_ms,
+                     "step_s": step_s, "split_ms": split_ms,
+                     "peak_bytes": peak, "held_bytes": held,
+                     "param_max_diff": diffs[worst_p] if diffs else None,
+                     "param_worst": worst_p,
+                     "sections": [{"ops": len(s.program.global_block().ops),
+                                   "in": s.in_names, "out": s.out_names}
+                                  for s in pipe.sections]}
+        del eng, sc, pipe, main, startup
+        torch.cuda.empty_cache()
+    fa.reset_launch_count()
+    wall = time.perf_counter() - t_phase
+    _log("pipe_train", f"phase wall time {wall:.1f} s")
+    out["wall_s"] = wall
+    return out
+
+
+def _moe_program(seq, d):
+    """``switch_moe_ffn`` at width ``d`` (``MOE_EXPERTS`` experts,
+    ``MOE_INNER`` inner, capacity ``MOE_CF``, relu) under
+    ``mean((out - y)^2) + 0.1 aux`` (the reference's
+    ``tests/test_moe.py:99-122``) and Adam(``MOE_LR``)."""
+    from paddle_tpu_torch import layers, optimizer
+    from paddle_tpu_torch.framework import (Program, program_guard,
+                                            unique_name)
+    with unique_name.guard():
+        main, startup = Program(), Program()
+        with program_guard(main, startup):
+            x = layers.data("x", shape=[seq, d], dtype="float32")
+            y = layers.data("y", shape=[seq, d], dtype="float32")
+            out, aux = layers.switch_moe_ffn(
+                x, num_experts=MOE_EXPERTS, d_inner=MOE_INNER,
+                capacity_factor=MOE_CF, act="relu")
+            loss = layers.mean((out - y) * (out - y)) + 0.1 * aux
+            optimizer.AdamOptimizer(learning_rate=MOE_LR).minimize(loss)
+    return main, startup, loss
+
+
+def phase_moe_train(smi):
+    """Mixture of experts at the GPT's width (module docstring): one device
+    (a) against ``with_distributed(axes=MOE_AXES)`` over ``[cuda:0] * 4``
+    (b)."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.hbm import per_device_nbytes
+    from paddle_tpu_torch.parallel import ShardedValue
+
+    t_phase = time.perf_counter()
+    cfg = _gpt_cfg()
+    seq, d = cfg.max_pos, cfg.d_model
+    rng = np.random.RandomState(7)
+    feed = {"x": rng.randn(TRAIN_BATCH, seq, d).astype(np.float32),
+            "y": rng.randn(TRAIN_BATCH, seq, d).astype(np.float32)}
+    steps = DP_STEPS + 1
+    gib = 2.0 ** 30
+    n = int(np.prod(list(MOE_AXES.values())))
+    _reset_launches()
+    runs = {}
+    for case in ("a", "b"):
+        main, startup, loss = _moe_program(seq, d)
+        sc, exe = Scope(), ptt.Executor()
+        exe.run(startup, scope=sc, seed=4321)
+        digest = _weights_digest(sc, main)
+        prog = main if case == "a" else ptt.CompiledProgram(main) \
+            .with_distributed(axes=MOE_AXES, devices=[_card()] * n)
+        bytes0 = monitor.counter_totals().get(
+            "paddle_tpu_collective_bytes_total", 0)
+        losses, step_s, peak, held = _dp_steps(exe, prog, loss, sc, feed,
+                                               steps)
+        moved = monitor.counter_totals().get(
+            "paddle_tpu_collective_bytes_total", 0) - bytes0
+        runs[case] = {"losses": [float(l.mean()) for l in losses],
+                      "step_s": step_s, "peak": peak, "held": held,
+                      "digest": digest, "moved": moved}
+        if case == "b":
+            layout = next(p.spmd for p in exe._plans.values() if p.spmd)
+            plan = layout.plan
+            state = {}
+            for name in sc.local_var_names():
+                v = sc.find_var(name)
+                if isinstance(v, ShardedValue):
+                    state[name] = (per_device_nbytes(v), v.nbytes, v.spec)
+        del sc, exe, prog
+        torch.cuda.empty_cache()
+    a, b = runs["a"], runs["b"]
+    if a["digest"] != b["digest"]:
+        raise AssertionError("moe_train: the two startups' weights differ")
+    rel = [abs(x - y) / abs(x) for x, y in zip(a["losses"], b["losses"])]
+    if not (all(np.isfinite(a["losses"] + b["losses"])) and
+            max(rel) <= MOE_LOSS_RTOL):
+        raise AssertionError(f"moe_train: ep losses {b['losses']} against "
+                             f"one device's {a['losses']} (worst relative "
+                             f"{max(rel):.3g}, limit {MOE_LOSS_RTOL})")
+    if not (a["losses"][-1] < a["losses"][0] and
+            b["losses"][-1] < b["losses"][0]):
+        raise AssertionError(f"moe_train: the loss does not fall: "
+                             f"{a['losses']}, {b['losses']}")
+    if b["moved"] != steps * plan.payload_bytes or plan.unexplained:
+        raise AssertionError(f"moe_train: {b['moved']} collective bytes "
+                             f"over {steps} steps, plan "
+                             f"{plan.payload_bytes} a step")
+    experts = {k: v for k, v in state.items() if v[2][0] == "ep"}
+    if len(experts) != 12 or any(loc * 2 != whole for loc, whole, _ in
+                                 experts.values()):
+        raise AssertionError(f"moe_train: the expert-split state {experts}")
+    launches = _launches_nonzero()
+    if launches:
+        raise AssertionError(f"moe_train: kernels launched {launches}; "
+                             "no kernel runs on this path")
+    a2a = [e for e in plan.edges if e.collective_op == "c_alltoall"]
+    kinds = {}
+    for e in plan.edges:
+        k = (e.collective_op, e.mesh_axis, e.reason, e.direction)
+        c, nb = kinds.get(k, (0, 0))
+        kinds[k] = (c + 1, nb + e.payload_bytes)
+    for k, (c, nb) in sorted(kinds.items()):
+        _log("moe_train", f"  {k[0]:<16} over {k[1]:<3} {k[2]:<11} {k[3]}: "
+             f"{c} edge(s), {nb} B a step")
+    ms = {c: 1e3 * float(np.mean(r["step_s"][1:])) for c, r in runs.items()}
+    loc = sum(v[0] for v in experts.values())
+    whole = sum(v[1] for v in experts.values())
+    _log("moe_train", f"switch_moe_ffn(E={MOE_EXPERTS}, d_inner="
+         f"{MOE_INNER}, capacity {MOE_CF}, relu) on x [{TRAIN_BATCH}, "
+         f"{seq}, {d}] float32, mean((out - y)^2) + 0.1 aux, Adam({MOE_LR}), "
+         f"1 + {steps - 1} steps: (a) one device {a['losses']}, (b) "
+         f"with_distributed(axes={MOE_AXES}) over [cuda:0] * {n} "
+         f"{b['losses']}, worst relative {max(rel):.3g} (limit "
+         f"{MOE_LOSS_RTOL}); c_alltoall {len(a2a)} a step, "
+         f"{sum(e.payload_bytes for e in a2a)} B; collective bytes "
+         f"{b['moved']} = plan {plan.payload_bytes} x {steps}; the expert "
+         f"weights and Adam moments ({len(experts)} tensors) hold {loc} B "
+         f"a rank of {whole}; no kernel launched")
+    _log("moe_train", f"step (a) {ms['a']:.1f} ms, (b) {ms['b']:.1f} ms "
+         f"(host clock ending in a synchronize; warm-ups "
+         f"{a['step_s'][0]:.2f} s, {b['step_s'][0]:.2f} s); peak (a) "
+         f"{(a['peak'] - a['held']) / gib:.3f} GiB above "
+         f"{a['held'] / gib:.3f} held, (b) "
+         f"{(b['peak'] - b['held']) / gib:.3f} above "
+         f"{b['held'] / gib:.3f}; on {smi}")
+    wall = time.perf_counter() - t_phase
+    _log("moe_train", f"phase wall time {wall:.1f} s")
+    return {"launches": {}, "losses": a["losses"], "ep_losses": b["losses"],
+            "worst_rel": max(rel), "step_ms": ms, "step_s": {
+                c: r["step_s"] for c, r in runs.items()},
+            "peak_bytes": {c: r["peak"] for c, r in runs.items()},
+            "held_bytes": {c: r["held"] for c, r in runs.items()},
+            "collective_bytes": b["moved"],
+            "payload_bytes": plan.payload_bytes,
+            "alltoall_bytes": sum(e.payload_bytes for e in a2a),
+            "edges": {"/".join(map(str, k)): v for k, v in kinds.items()},
+            "expert_state_bytes_a_rank": loc, "expert_state_bytes": whole,
+            "wall_s": wall}
 
 
 def _gang_results(phase, log_dir, n=2):
@@ -7709,6 +8065,8 @@ def main(argv=None) -> int:
     train = phase_train()
     dp_train = phase_dp_train(smi, train)
     gspmd_train = phase_gspmd_train(smi, dp_train)
+    pipe_train = phase_pipe_train(smi, dp_train)
+    moe_train = phase_moe_train(smi)
     gang_train = phase_gang_train(smi, dp_train)
     preempt = phase_preempt_train(train)
     amp_train = phase_amp_train(train)
@@ -7822,6 +8180,10 @@ def main(argv=None) -> int:
         by_path[name]["dp_train"] = dp_train["launches"][name]
         by_path[name]["dp_train_dgc"] = dp_train["dgc_launches"][name]
         by_path[name]["gspmd_train"] = gspmd_train["launches"][name]
+    # pipeline: (a) four stages, (b) two stages on two ranks each
+    for name in ("flash_attn_fwd", "flash_attn_bwd"):
+        by_path[name]["pipe_train"] = pipe_train["a"]["launches"][name]
+        by_path[name]["pipe_train_b"] = pipe_train["b"]["launches"][name]
     # several processes: the two ranks' steps, the ring across them, and
     # the elastic drill's children (each child's own counts)
     for path, counts in gang_train["launches"].items():
@@ -7831,6 +8193,9 @@ def main(argv=None) -> int:
     by_path["flash_attn_fwd"]["serve_fleet"] = serve_fleet["launches"]
     by_path["flash_attn_fwd"]["serve_fleet_replicas"] = \
         serve_fleet["replica_launches"]
+    # mixture of experts: no kernel runs on its path
+    for name in by_path:
+        by_path[name]["moe_train"] = moe_train["launches"].get(name, 0)
     missing = [n for n, paths in by_path.items() if not sum(paths.values())]
     if missing:
         raise AssertionError(f"kernels never launched on their paths: "
@@ -7868,6 +8233,7 @@ def main(argv=None) -> int:
                                     if k not in ("single_params", "feed",
                                                  "weights_digest")},
                        "gspmd_train": gspmd_train,
+                       "pipe_train": pipe_train, "moe_train": moe_train,
                        "gang_train": gang_train,
                        "observe_resnet": observe_resnet,
                        "observe_serve": observe_serve,

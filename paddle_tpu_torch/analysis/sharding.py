@@ -117,7 +117,7 @@ _CE_OPS = frozenset((
 EXPLAINED_REASONS = frozenset((
     "partial_sum", "grad_partial", "vocab_embed", "vocab_ce", "gather",
     "norm_stats", "softmax_stats", "loss_reduce", "constraint", "split",
-    "grad_sync", "zero1_grad", "zero1_param",
+    "grad_sync", "zero1_grad", "zero1_param", "moe_counts",
 ))
 
 
@@ -424,6 +424,8 @@ class _Pass:
             self._gather(op, idx, path)
         elif t == "split":
             self._split(op, idx, path)
+        elif t == "switch_ffn" and self._switch_ffn(op, idx, path):
+            pass
         elif t == "concat":
             x = self._in(op, "X")
             self.settle(self._out(op, "Out"), self.spec.get(x), op, idx,
@@ -741,6 +743,59 @@ class _Pass:
                         joined.append(a if a is not None else b)
                 natural = tuple(reversed(joined))
         self.settle(out, natural, op, idx, path)
+
+    def _switch_ffn(self, op, idx, path) -> bool:
+        """``switch_ffn`` with its experts split over a model axis (or
+        whole): the op the SPMD lowering runs is exactly the unsplit one,
+        its capacity global, each token's position counted in global
+        token order, its aux loss over every token.  Edges: each dp
+        rank's per-expert token counts and gate-probability sums
+        (float32 ``[2, E]``) gathered over ``dp`` (``moe_counts``); the
+        dispatch of a rank's block of its tokens (its ``1/ep`` of the
+        dp-local tokens) into every expert's buffer, all-to-all over the
+        expert axis (a ``constraint`` edge: tokens move to their expert's
+        rank); the experts' outputs gathered over it for the combine;
+        in the backward, the buffers' gradients gathered over it.  A
+        buffer is ``[E, C, d]`` a rank; payloads count every rank's.
+        False (the default rule) for another layout."""
+        x, w1, gw = (self._in(op, s) for s in ("X", "W1", "GateW"))
+        xshape, dtype = _shape_of(self.block, x, self.batch)
+        wshape, _ = _shape_of(self.block, w1, self.batch)
+        if xshape is None or wshape is None or len(xshape) != 3:
+            return False
+        xs = _pad(self.spec.get(x), 3)
+        axes = {slot: _pad(self.spec.get(self._in(op, slot)), rank)
+                for slot, rank in (("W1", 3), ("B1", 2), ("W2", 3),
+                                   ("B2", 2))}
+        ep = axes["W1"][0]
+        if xs[1:] != (None, None) or xs[0] not in (None, self.dp) or \
+                any(self.spec.get(gw) or ()) or ep == self.dp or \
+                any(a[0] != ep or any(a[1:]) for a in axes.values()):
+            return False
+        from ..ops.moe_ops import capacity
+        E, d = int(wshape[0]), int(xshape[-1])
+        cap = capacity(xshape[0] * xshape[1], E,
+                       float(op.attrs.get("capacity_factor", 1.25)))
+        ndp = self.axis_sizes.get(self.dp, 1) if xs[0] else 1
+        out, aux = self._out(op, "Out"), self._out(op, "AuxLoss")
+        if ndp > 1:
+            self.edge("all_gather", self.dp, aux, "moe_counts", exact=True,
+                      op=op, idx=idx, payload=ndp * 2 * E * 4)
+        if ep is not None:
+            nep = self.axis_sizes.get(ep, 1)
+            buf = E * cap * d * _itemsize(dtype) * ndp
+            self.edge("all_to_all", ep, x, "constraint", exact=True,
+                      op=op, idx=idx, src=(xs[0], None, None),
+                      dst=(ep, None, None), payload=buf * nep)
+            self.edge("all_gather", ep, out, "constraint", exact=True,
+                      op=op, idx=idx, src=(ep, None, None), payload=buf)
+            if self._has_backward:
+                self.edge("all_gather", ep, x, "constraint", exact=True,
+                          direction="bwd", op=op, idx=idx,
+                          src=(ep, None, None), payload=buf)
+        self.settle(out, (xs[0], None, None), op, idx, path)
+        self.settle(aux, None, op, idx, path)
+        return True
 
     def _default(self, op, idx, path):
         """Unmodeled op: output replicated; a sharded (non-dp) input

@@ -12,8 +12,10 @@
   coordinator and client (:mod:`coordinator`), whose frame protocol the
   serving fleet speaks too.
 
-Not ported yet: the parameter server, pipeline and MoE (ROADMAP Queue 1
-item 3 (iii)), and NCCL (every cross-process exchange goes through gloo).
+Pipeline parallelism lives in ``parallel.pipeline`` and mixture of experts
+in ``ops.moe_ops`` (its ``ep`` axis in ``parallel.spmd``).  Not ported yet:
+the parameter server (ROADMAP Queue 1 item 3 (iii)) and NCCL (every
+cross-process exchange goes through gloo).
 """
 
 from . import collective_ops  # noqa  (registers the c_* lowerings)

@@ -13,6 +13,7 @@ from .nn import (batch_norm, conv2d, cross_entropy, dropout,  # noqa
                  reduce_min, reduce_prod, reduce_sum, relu, reshape,
                  ring_attention, sigmoid, sign, slice, softmax,
                  softmax_with_cross_entropy, split, square,
-                 square_error_cost, tanh, topk, transpose, unsqueeze)
+                 square_error_cost, switch_moe_ffn, tanh, topk,
+                 transpose, unsqueeze)
 from .tensor import (assign, cast, concat, create_global_var,  # noqa
                      create_parameter, fill_constant, range)

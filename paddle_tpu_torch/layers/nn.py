@@ -517,3 +517,38 @@ def ring_attention(q, k, v, causal=False, sm_scale=None, axis_name="sp",
                      attrs={"causal": causal, "sm_scale": sm_scale or 0.0,
                             "axis_name": axis_name})
     return out
+
+
+def switch_moe_ffn(x, num_experts, d_inner, capacity_factor=1.25,
+                   act="relu", param_prefix="moe", name=None):
+    """Switch-Transformer mixture-of-experts FFN over a ``[b, t, d]`` input
+    (ref ``paddle_tpu/layers/nn.py:1528-1567``).  Returns ``(out,
+    aux_loss)``.  The expert weights carry ``dist_spec`` ``("ep", ...)``:
+    a mesh with an ``ep`` axis splits the experts over it, and without one
+    the annotations are inert and the layer runs dense."""
+    helper = LayerHelper("switch_ffn", name=name)
+    d = int(x.shape[-1])
+    E, F = int(num_experts), int(d_inner)
+
+    def _p(suffix, shape, ep_spec, is_bias=False):
+        v = helper.create_parameter(
+            ParamAttr(name=f"{param_prefix}.{suffix}"), shape, x.dtype,
+            is_bias=is_bias)
+        v.dist_spec = ep_spec
+        return v
+
+    gate_w = _p("gate.w", [d, E], None)
+    w1 = _p("w1", [E, d, F], ("ep", None, None))
+    b1 = _p("b1", [E, F], ("ep", None), is_bias=True)
+    w2 = _p("w2", [E, F, d], ("ep", None, None))
+    b2 = _p("b2", [E, d], ("ep", None), is_bias=True)
+
+    out = helper.create_variable_for_type_inference(x.dtype)
+    aux = helper.create_variable_for_type_inference("float32")
+    helper.append_op(
+        "switch_ffn",
+        inputs={"X": [x], "GateW": [gate_w], "W1": [w1], "B1": [b1],
+                "W2": [w2], "B2": [b2]},
+        outputs={"Out": [out], "AuxLoss": [aux]},
+        attrs={"capacity_factor": float(capacity_factor), "act": act})
+    return out, aux

@@ -11,7 +11,18 @@ Adam (:1271, ``fused_flat`` included), AdamW, Adamax (:1452),
 DecayedAdagrad (:1606), Adadelta (:1698), RMSProp (:1796), Ftrl (:1969),
 Lamb (:2113), DGCMomentum (:809, one process), and the wrappers
 ExponentialMovingAverage (:2457), ModelAverage (:2267),
-RecomputeOptimizer and LookaheadOptimizer (:2980).  Dygraph is not ported.
+RecomputeOptimizer and LookaheadOptimizer (:2980).
+
+Dygraph (ref :135-198): inside ``dygraph.guard()``, ``minimize`` applies
+the update at once on ``VarBase`` parameters through the eager block
+(``dygraph.eager_apply``): the same ``_append_optimize_op`` s, each op run
+through its lowering, accumulators held as ``VarBase`` s, clipping and
+regularization applied to the gradients first; Adam's ``fused_flat`` stays
+off there.  The pipeline engine (``parallel.pipeline``) applies each
+stage's optimizer this way.  Not ported yet (ROADMAP Queue 1 item 4): the
+constructor's ``parameter_list`` (it raises; pass the list to
+``minimize``) and eager autograd (``loss.backward()``): the gradients must
+already sit in ``VarBase.grad``.
 """
 
 from __future__ import annotations
@@ -19,6 +30,7 @@ from __future__ import annotations
 import contextlib
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .clip import append_gradient_clip_ops
@@ -34,8 +46,10 @@ class Optimizer:
     def __init__(self, learning_rate, regularization=None, name=None,
                  grad_clip=None, parameter_list=None):
         if parameter_list is not None:
-            raise NotImplementedError("dygraph optimizers (parameter_list) "
-                                      "are not ported yet")
+            raise NotImplementedError(
+                "the constructor's parameter_list (dygraph layers) is not "
+                "ported yet (ROADMAP Queue 1 item 4): pass the VarBase list "
+                "to minimize() inside dygraph.guard()")
         self._learning_rate = learning_rate
         self.regularization = regularization
         self._grad_clip = grad_clip
@@ -70,6 +84,19 @@ class Optimizer:
         if name in self._accumulators and \
                 param.name in self._accumulators[name]:
             return self._accumulators[name][param.name]
+        from .dygraph import base as _dy_base
+        if _dy_base.in_dygraph_mode():
+            from .dygraph.tracer import VarBase
+            shp = list(shape if shape is not None else param.shape)
+            acc = VarBase(torch.full(shp, float(fill_value),
+                                     dtype=getattr(torch, dtype or
+                                                   param.dtype),
+                                     device=param.device),
+                          name=f"{param.name}_{name}", persistable=True,
+                          trainable=False)
+            acc.stop_gradient = True
+            self._accumulators.setdefault(name, {})[param.name] = acc
+            return acc
         block = default_main_program().global_block()
         shape = list(shape if shape is not None else param.shape)
         var = block.create_var(
@@ -130,10 +157,56 @@ class Optimizer:
                  no_grad_set=None, grad_clip=None):
         if grad_clip is not None:
             self._grad_clip = grad_clip
+        from .dygraph import base as _dy_base
+        if _dy_base.in_dygraph_mode():
+            return self._dygraph_minimize(loss, parameter_list)
         params_grads = self.backward(loss, startup_program, parameter_list,
                                      no_grad_set)
         optimize_ops = self.apply_gradients(params_grads)
         return optimize_ops, params_grads
+
+    # -- dygraph (eager) apply (ref :135-198) --------------------------------
+    def _dygraph_lr_value(self) -> float:
+        lr = self._learning_rate
+        if callable(lr) and not isinstance(lr, (int, float)):
+            lr = lr()                   # a dygraph learning-rate decay
+        if hasattr(lr, "numpy"):
+            lr = float(np.asarray(lr.numpy()).reshape(-1)[0])
+        return float(lr)
+
+    def _dygraph_minimize(self, loss, parameter_list=None):
+        """One eager update of ``parameter_list`` (``VarBase`` s whose
+        ``grad`` is set): clip, regularize (a parameter's own regularizer
+        before the optimizer's, as ``append_regularization_ops``), then
+        each ``_append_optimize_op`` on an ``EagerBlock``."""
+        from .dygraph.eager_apply import EagerBlock, eager_clip_grads
+        from .regularizer import L2DecayRegularizer
+        params = parameter_list
+        if params is None:
+            raise ValueError("dygraph minimize needs parameter_list")
+        if loss is not None and all(p.grad is None for p in params):
+            raise NotImplementedError(
+                "eager autograd (loss.backward()) is not ported yet "
+                "(ROADMAP Queue 1 item 4): set VarBase.grad first")
+        params_grads = [(p, p.grad) for p in params
+                        if p.grad is not None and p.trainable]
+        params_grads = eager_clip_grads(params_grads, self._grad_clip)
+        new_pg = []
+        for p, g in params_grads:
+            reg = getattr(p, "regularizer", None) or self.regularization
+            coeff = getattr(reg, "_coeff", 0.0) if reg is not None else 0.0
+            if coeff:
+                if isinstance(reg, L2DecayRegularizer):
+                    g = g + coeff * p.value
+                else:
+                    g = g + coeff * torch.sign(p.value)
+            new_pg.append((p, g))
+        block = EagerBlock(self._dygraph_lr_value())
+        self._create_accumulators(block, [p for p, _ in new_pg])
+        for pg in new_pg:
+            self._append_optimize_op(block, pg)
+        self._finish_update(block, new_pg)
+        return [], new_pg
 
 
 class SGDOptimizer(Optimizer):
@@ -213,6 +286,11 @@ class AdamOptimizer(Optimizer):
         self._fused_max_numel = fused_max_numel
         self._pending_fused = []
 
+    def _use_fused(self) -> bool:
+        """``fused_flat``, off in dygraph mode (ref :284)."""
+        from .dygraph import base as _dy_base
+        return self._fused_flat and not _dy_base.in_dygraph_mode()
+
     def _in_flat_group(self, p):
         if self._fused_max_numel is None:
             return True
@@ -227,7 +305,7 @@ class AdamOptimizer(Optimizer):
         for p in parameters:
             self._add_accumulator("moment1", p)
             self._add_accumulator("moment2", p)
-            if self._fused_flat and self._in_flat_group(p) and \
+            if self._use_fused() and self._in_flat_group(p) and \
                     flat_first is not None:
                 # one shared beta-pow pair: every param steps together
                 self._accumulators.setdefault("beta1_pow_acc", {})[p.name] = \
@@ -258,7 +336,7 @@ class AdamOptimizer(Optimizer):
 
     def _append_optimize_op(self, block, param_and_grad):
         p, g = param_and_grad
-        if self._fused_flat and self._in_flat_group(p):
+        if self._use_fused() and self._in_flat_group(p):
             self._pending_fused.append((p, g))
             return
         block.append_op("adam", *self._adam_io(p, g),
@@ -795,3 +873,12 @@ Ftrl = FtrlOptimizer
 Lamb = LambOptimizer
 LarsMomentum = LarsMomentumOptimizer
 DGCMomentum = DGCMomentumOptimizer
+
+
+def __getattr__(name):
+    # PipelineOptimizer lives in parallel.pipeline (ref :768-772): imported
+    # on first use, since the pipeline pulls in the executor machinery
+    if name == "PipelineOptimizer":
+        from .parallel.pipeline import PipelineOptimizer
+        return PipelineOptimizer
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

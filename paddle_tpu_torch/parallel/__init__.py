@@ -1,5 +1,6 @@
 """Parallelism over devices: the mesh, GSPMD (the logical-axis
-partitioner and the SPMD lowering) and DGC (``paddle_tpu/parallel``)."""
+partitioner and the SPMD lowering), DGC and pipeline parallelism
+(``paddle_tpu/parallel``)."""
 
 from .mesh import (AXES, Mesh, axis_groups, current_mesh,  # noqa
                    data_parallel_mesh, hierarchical_allreduce,
@@ -11,3 +12,5 @@ from .partitioner import (DEFAULT_RULE_TABLES, LogicalAxisRules,  # noqa
                           rule_table)
 from .spmd import Sharding, ShardedValue  # noqa
 from .dgc import DGCGradAllReduce  # noqa  (registers the dgc_* lowerings)
+from .pipeline import (PipelineEngine, PipelineOptimizer,  # noqa
+                       Section, split_program)

@@ -70,7 +70,17 @@ dp-sharded var must keep dim 0 a batch dim (:data:`_ROW_LOCAL`).  A layout
 the lowering cannot run raises, naming the op, the var, the dim and the
 mesh axis: nothing runs replicated or on another device instead.  Not
 lowered yet (ROADMAP): sub-blocks, dropout above 0, AMP, ``gather`` edges
-and constraint all-to-alls.
+and constraint all-to-alls other than ``switch_ffn``'s.
+
+``switch_ffn`` (``ops.moe_ops``) with its experts split over an ``ep``
+axis runs as one group op, ``spmd_switch_ffn``, computing exactly the
+unsplit op: the per-expert token counts and probability sums gathered over
+``dp`` (the plan's ``moe_counts`` edge) give global positions, capacity and
+aux loss; each rank of an ``ep`` ring dispatches its block of the ring's
+tokens and the ``c_alltoall`` over ``ep`` (the plan's ``constraint``
+all-to-all) brings each expert its tokens; the experts' outputs are
+gathered over the ring for the combine.  Its grad op, the group VJP,
+carries the backward gather of the buffers' gradients.
 """
 
 from __future__ import annotations
@@ -327,10 +337,12 @@ register_op("spmd_vocab_softmax_ce", _vocab_ce_groups, collective=True)
 
 
 def _ring_sum(ts, dev):
-    """Rank-order sum of a ring's tensors on ``dev``, differentiable."""
+    """Rank-order sum of a ring's tensors on ``dev``, differentiable (None
+    entries skipped; None when every entry is)."""
     acc = None
     for t in ts:
-        acc = t.to(dev) if acc is None else acc + t.to(dev)
+        if t is not None:
+            acc = t.to(dev) if acc is None else acc + t.to(dev)
     return acc
 
 
@@ -476,6 +488,142 @@ def _unflatten(ctx, ins, attrs):
     return {"Out": [X(ins, "X")[:like.numel()].reshape(like.shape)]}
 
 
+def _moe_rings(ctxs, attrs) -> List[List[int]]:
+    """The rings of ``switch_ffn``'s expert axis, one a dp coordinate in
+    dp order (global token order), each in expert-axis order."""
+    from .mesh import axis_groups
+    ep = attrs.get("ep_axis")
+    mesh = getattr(ctxs[0], "mesh", None)
+    rings = axis_groups(mesh, ep) if ep and mesh is not None else \
+        [[r] for r in range(len(ctxs))]
+    dp = attrs.get("dp_axis")
+    return sorted(rings, key=lambda g: int(ctxs[g[0]].coords.get(dp, 0))
+                  if dp else 0)
+
+
+def _moe_group(ctxs, ins_list, attrs):
+    """``switch_ffn`` over the mesh, exactly the unsplit op (the sharding
+    analysis' ``switch_ffn`` rule): per dp coordinate, the gating of its
+    tokens; the per-expert counts and probability sums gathered over dp
+    (positions counted after every earlier dp rank's tokens, the capacity
+    and the aux loss global); each rank of an expert ring dispatches its
+    block of the tokens into every expert's buffer, and the all-to-all
+    over the ring sums each expert's block on its rank; each rank runs
+    its experts' FFN; the outputs gathered over the ring give the
+    combine.  Returns each rank's outputs and, per ring, the rank whose
+    ``Out`` (and rank 0 whose ``AuxLoss``) the VJP differentiates: the
+    ring's other ranks hold copies."""
+    from ..ops.moe_ops import capacity, dispatch_mask, expert_ffn, gating
+    rings = _moe_rings(ctxs, attrs)
+    first = X(ins_list[rings[0][0]], "X")
+    _, T, d = first.shape
+    E = X(ins_list[0], "GateW").shape[-1]
+    act = attrs.get("act", "relu")
+    routed = []
+    for ring in rings:
+        ins = ins_list[ring[0]]
+        xt = X(ins, "X").reshape(-1, d)
+        probs, gate, idx = gating(xt, X(ins, "GateW"))
+        routed.append((xt, probs, gate, idx))
+    tokens = sum(r[0].shape[0] for r in routed)
+    cap = capacity(tokens, E, float(attrs.get("capacity_factor", 1.25)))
+    # the dp exchange: each rank's counts and probability sums
+    dev0 = routed[0][0].device
+    counts = [torch.bincount(idx, minlength=E) for _, _, _, idx in routed]
+    psum = sum(p.sum(0).to(dev0) for _, p, _, _ in routed)
+    frac = sum(c.to(dev0) for c in counts).float() / tokens
+    aux = (frac * (psum / tokens)).sum() * E
+    outs: List[Optional[dict]] = [None] * len(ctxs)
+    before = torch.zeros(E, dtype=torch.int64, device=dev0)
+    for ring, (xt, probs, gate, idx), cnt in zip(rings, routed, counts):
+        nep = len(ring)
+        S = xt.shape[0]
+        if S % nep or E % nep:
+            raise NotImplementedError(
+                f"SPMD switch_ffn: {S} tokens a dp rank and {E} experts "
+                f"over an expert axis of {nep} ({_ROADMAP})")
+        disp, _ = dispatch_mask(idx, E, cap, xt.dtype,
+                                offset=before.to(idx.device))
+        before = before + cnt.to(dev0)
+        sub, ne = S // nep, E // nep
+        devs = [X(ins_list[r], "W1").device for r in ring]
+        parts = [torch.einsum("sec,sd->ecd", disp[j * sub:(j + 1) * sub],
+                              xt[j * sub:(j + 1) * sub]).to(devs[j])
+                 for j in range(nep)]
+        ye = []
+        for k, r in enumerate(ring):
+            # the all-to-all: rank k's experts' block of every partial
+            xe = None
+            for p in parts:
+                blk = p[k * ne:(k + 1) * ne].to(devs[k])
+                xe = blk if xe is None else xe + blk
+            w = ins_list[r]
+            ye.append(expert_ffn(xe, X(w, "W1"), X(w, "B1"), X(w, "W2"),
+                                 X(w, "B2"), act))
+        # the return gather, then the combine over every expert
+        whole = torch.cat([t.to(xt.device) for t in ye])
+        y = torch.einsum("sec,ecd->sd", disp * gate.to(xt.dtype)[:, None,
+                                                                  None],
+                         whole).reshape(-1, T, d)
+        for j, r in enumerate(ring):
+            dev = X(ins_list[r], "X").device
+            outs[r] = {"Out": [y if j == 0 else y.to(dev, copy=True)],
+                       "AuxLoss": [aux if r == 0 else
+                                   aux.to(dev, copy=True)]}
+    return outs, [ring[0] for ring in rings]
+
+
+def _moe_lower(ctxs, ins_list, attrs):
+    return _moe_group(ctxs, ins_list, attrs)[0]
+
+
+def _moe_vjp(ctxs, ins_list, attrs):
+    """The group VJP: :func:`_moe_group` again under autograd over every
+    rank's inputs, each ring's ``Out`` (and the one ``AuxLoss``)
+    differentiated once; each rank then takes its ring's gradient of the
+    tokens and the gate (they are the ring's one value) and its own of
+    its experts'."""
+    per = [{s[2:]: [v.detach().requires_grad_(True)
+                    if v is not None and v.is_floating_point() else v
+                    for v in vals]
+            for s, vals in ins.items() if s.startswith("X$")}
+           for ins in ins_list]
+    with torch.enable_grad():
+        outs, heads = _moe_group(ctxs, per, attrs)
+        ys, dys = [], []
+        for r in heads:
+            og = (ins_list[r].get("OG$Out") or [None])[0]
+            if og is not None:
+                ys.append(outs[r]["Out"][0])
+                dys.append(og.to(ys[-1].dtype))
+        og = (ins_list[0].get("OG$AuxLoss") or [None])[0]
+        if og is not None:
+            ys.append(outs[0]["AuxLoss"][0])
+            dys.append(og.reshape(ys[-1].shape).to(ys[-1].dtype))
+        wrt = [(r, s) for r in range(len(per))
+               for s in ("X", "GateW", "W1", "B1", "W2", "B2")]
+        grads = torch.autograd.grad(ys, [per[r][s][0] for r, s in wrt],
+                                    dys, allow_unused=True) if ys else \
+            [None] * len(wrt)
+    got = {k: (torch.zeros_like(per[k[0]][k[1]][0]) if g is None else g)
+           for k, g in zip(wrt, grads)}
+    head_of = {r: g[0] for g in _moe_rings(ctxs, attrs) for r in g}
+    res = []
+    for r in range(len(per)):
+        h = head_of[r]
+        out = {"IG$" + s: [got[(r, s)]] for s in ("W1", "B1", "W2", "B2")}
+        for s in ("X", "GateW"):
+            g = got[(h, s)]
+            out["IG$" + s] = [g if h == r else
+                              g.to(per[r][s][0].device, copy=True)]
+        res.append(out)
+    return res
+
+
+register_op("spmd_switch_ffn", _moe_lower, collective=True,
+            grad=lambda: _moe_vjp)
+
+
 # ---------------------------------------------------------------------------
 # the lowering
 # ---------------------------------------------------------------------------
@@ -500,11 +648,30 @@ _ROW_LOCAL = frozenset((
 
 _BATCH_REDUCE = frozenset(("mean", "reduce_sum", "reduce_mean"))
 
+def moves_batch_dim(op) -> bool:
+    """Whether a :data:`_ROW_LOCAL` op moves or reduces its input's dim 0
+    (so it cannot run on a rank's rows of a batch split over ``dp``)."""
+    t = op.type
+    axis = op.attrs.get("axis")
+    if t in ("transpose", "transpose2"):
+        return list(op.attrs.get("axis") or [0])[0] != 0
+    if t in ("split", "concat", "softmax") and axis is not None:
+        return int(axis) == 0
+    if t in ("slice", "unsqueeze", "unsqueeze2", "squeeze", "squeeze2"):
+        return 0 in list(op.attrs.get("axes") or [])
+    if t == "layer_norm":
+        return int(op.attrs.get("begin_norm_axis", 1)) < 1
+    if t in ("reshape", "reshape2"):
+        shape = list(op.attrs.get("shape") or [])
+        return bool(shape) and shape[0] not in (0, -1)
+    return False
+
+
 #: edge reasons the lowering runs (the rest raise NotImplementedError)
 _LOWERED = frozenset((
     "partial_sum", "grad_partial", "vocab_embed", "vocab_ce", "constraint",
     "split", "spec_mismatch", "loss_reduce", "norm_stats", "softmax_stats",
-    "grad_sync", "zero1_grad", "zero1_param",
+    "grad_sync", "zero1_grad", "zero1_param", "moe_counts",
 ))
 
 
@@ -920,21 +1087,7 @@ class _Lowering:
             self.unsupported(op, i, f"consumes {names[0]!r}, sharded on "
                              "dim 0 over 'dp', and does not keep dim 0 a "
                              "batch dim")
-        bad = False
-        axis = op.attrs.get("axis")
-        if t in ("transpose", "transpose2"):
-            bad = list(op.attrs.get("axis") or [0])[0] != 0
-        elif t in ("split", "concat", "softmax") and axis is not None:
-            bad = int(axis) == 0
-        elif t in ("slice", "unsqueeze", "unsqueeze2", "squeeze",
-                   "squeeze2"):
-            bad = 0 in list(op.attrs.get("axes") or [])
-        elif t == "layer_norm":
-            bad = int(op.attrs.get("begin_norm_axis", 1)) < 1
-        elif t in ("reshape", "reshape2"):
-            shape = list(op.attrs.get("shape") or [])
-            bad = bool(shape) and shape[0] not in (0, -1)
-        if bad:
+        if moves_batch_dim(op):
             self.unsupported(op, i, "moves or reduces the batch dim 0, "
                              "which is sharded over 'dp'")
 
@@ -951,6 +1104,8 @@ class _Lowering:
 
     def lower_forward(self, i, op):
         t = op.type
+        if t == "switch_ffn":
+            return self.lower_switch_ffn(i, op)
         self.check_row_local(op, i)
         rec = _Rec()
         self.recs[i] = rec
@@ -1286,6 +1441,36 @@ class _Lowering:
         loss = op.outputs["Loss"][0]
         self.spec[loss] = self.keep_dp(op, loss, None)
         self.check_plan(op, i, loss)
+
+    def lower_switch_ffn(self, i, op):
+        """``switch_ffn``: one ``spmd_switch_ffn`` group op carrying the
+        plan's forward edges (the dp count gather, the dispatch all-to-all
+        and the return gather over the expert axis); its grad op, the
+        group VJP, carries the backward gather."""
+        w1 = op.inputs["W1"][0]
+        ep = _pad_spec(self.spec.get(w1), 3)[0]
+        fwd = self.take(i, "moe_counts") + self.take(i, "constraint",
+                                                     direction="fwd")
+        bwd = self.take(i, "constraint", direction="bwd")
+        if ep and not fwd:
+            self.unsupported(op, i, f"splits its experts over {ep!r} in a "
+                             "layout the sharding plan has no rule for")
+        def carried(ks):
+            return {"edges": list(ks), "payload_bytes": int(sum(
+                self.plan.edges[k].payload_bytes for k in ks))} if ks else {}
+        attrs = dict(op.attrs, ep_axis=ep, dp_axis=self.dp)
+        self.done_edges.extend(fwd + bwd)
+        self.n_coll += 1
+        self.emit("spmd_switch_ffn", dict(op.inputs), dict(op.outputs),
+                  dict(attrs, **carried(fwd)))
+        rec = self.recs[i] = _Rec()
+        rec.type = "spmd_switch_ffn"
+        rec.attrs = dict(attrs, **carried(bwd))
+        nat = self.natural(op, i)
+        for n in op.output_arg_names():
+            if n:
+                self.spec[n] = nat.get(n)
+                self.check_plan(op, i, n)
 
     def lower_split(self, i, op, rec):
         """A split of a sharded dim (the QKV pack): one all-to-all into the

@@ -24,7 +24,9 @@
   ``GradAllReduce`` steps of a tiny MLP in collective mode over a ``dp``
   mesh of two virtual ranks (the comms plan stamped, the bytes counted),
   and one ``with_gspmd`` step of a tiny MLP over dp 2 x mp 2 virtual ranks
-  (the plan's bytes counted, the Adam moment a dp-sharded value);
+  (the plan's bytes counted, the Adam moment a dp-sharded value), and one
+  pipelined step of a two-stage MLP (a stage on a device list) and one
+  ``switch_moe_ffn`` step over ep 2 x dp 2 virtual ranks;
 - a source scan finds no ``jax`` or ``paddle_tpu`` import in the package or
   in ``chip_smoke.py``, the multi-process modules and tools among them;
 - ``init_parallel_env`` at world 1, a coordinator and a client run in a
@@ -340,7 +342,14 @@ def test_no_jax_or_reference_import_in_sources():
             "paddle_tpu_torch/tools/gang_runner.py",
             "paddle_tpu_torch/tools/gang_smoke.py",
             "paddle_tpu_torch/tools/gangtop.py",
-            "paddle_tpu_torch/tools/comms_smoke.py"} <= scanned
+            "paddle_tpu_torch/tools/comms_smoke.py",
+            "paddle_tpu_torch/parallel/pipeline.py",
+            "paddle_tpu_torch/ops/moe_ops.py",
+            "paddle_tpu_torch/layers/nn.py",
+            "paddle_tpu_torch/dygraph/__init__.py",
+            "paddle_tpu_torch/dygraph/base.py",
+            "paddle_tpu_torch/dygraph/tracer.py",
+            "paddle_tpu_torch/dygraph/eager_apply.py"} <= scanned
     offenders = []
     for path in _sources():
         with open(path) as f:
@@ -569,6 +578,65 @@ def test_collective_mode_runs_with_jax_blocked():
     assert res.returncode == 0, res.stderr[-3000:]
     assert "collective (2,) bytes " in res.stdout
     assert "gspmd () bytes " in res.stdout
+
+
+_PIPE_MOE_BLOCKED = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None
+    sys.modules["paddle_tpu"] = None
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import layers, optimizer
+    from paddle_tpu_torch.framework import Program, Scope, program_guard
+    cpu = torch.device("cpu")
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        x = layers.data("x", shape=[8], dtype="float32")
+        y = layers.data("y", shape=[1], dtype="int64")
+        h = layers.fc(x, size=16, act="relu")
+        loss = layers.mean(layers.cross_entropy(
+            layers.fc(h, size=4, act="softmax"), y))
+        pipe = optimizer.PipelineOptimizer(optimizer.AdamOptimizer(0.01),
+                                           cut_list=[h], num_microbatches=2)
+        pipe.minimize(loss)
+    sc = Scope()
+    ptt.Executor(ptt.CPUPlace()).run(startup, scope=sc)
+    eng = pipe.create_engine(devices=[cpu, [cpu, cpu]], scope=sc)
+    rng = np.random.RandomState(0)
+    pl = eng.train_step({"x": rng.rand(8, 8).astype("float32"),
+                         "y": rng.randint(0, 4, (8, 1)).astype("int64")})
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        x = layers.data("x", shape=[4, 8], dtype="float32")
+        out, aux = layers.switch_moe_ffn(x, num_experts=4, d_inner=8)
+        loss = layers.mean(out * out) + 0.1 * aux
+        optimizer.AdamOptimizer(0.01).minimize(loss)
+    sc = Scope()
+    exe = ptt.Executor(ptt.CPUPlace())
+    exe.run(startup, scope=sc)
+    prog = ptt.CompiledProgram(main).with_distributed(
+        axes={"ep": 2, "dp": 2}, devices=[cpu] * 4)
+    ml, = exe.run(prog, feed={"x": rng.rand(4, 4, 8).astype("float32")},
+                  fetch_list=[loss], scope=sc)
+    assert np.isfinite(pl) and np.isfinite(ml), (pl, ml)
+    assert not [m for m, mod in sys.modules.items() if mod is not None
+                and (m == "jax" or m.startswith(("jax.", "paddle_tpu.")))]
+    print("pipeline", round(pl, 4), "moe", float(ml))
+""")
+
+
+def test_pipeline_and_moe_run_with_jax_blocked():
+    """One pipelined Adam step of a two-stage MLP (its second stage on a
+    device list) and one ``switch_moe_ffn`` step under ``ep`` 2 x ``dp`` 2
+    virtual ranks, with JAX and the reference unimportable."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run([sys.executable, "-c", _PIPE_MOE_BLOCKED],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "pipeline " in res.stdout and " moe " in res.stdout
 
 
 def test_default_executor_needs_a_gpu():

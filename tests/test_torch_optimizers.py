@@ -212,12 +212,14 @@ def test_the_new_op_types_are_registered():
            "optimization_barrier", "increment", "elementwise_mod",
            "truncated_gaussian_random"}
     ops = registry.registered_ops()
-    # 116, then sync_batch_norm and the ops the SPMD lowering emits
+    # 116 and switch_ffn, then sync_batch_norm and the ops the SPMD
+    # lowering emits
     spmd = {"sync_batch_norm", "c_alltoall", "spmd_alias",
             "spmd_vocab_lookup", "spmd_vocab_softmax_ce",
             "spmd_vocab_softmax_ce_grad", "spmd_unflatten",
-            "spmd_layer_norm", "spmd_softmax"}
-    assert new | spmd <= set(ops) and len(ops) == 116 + len(spmd)
+            "spmd_layer_norm", "spmd_softmax", "spmd_switch_ffn"}
+    assert new | spmd | {"switch_ffn"} <= set(ops) and \
+        len(ops) == 117 + len(spmd)
     assert {c[0] for c in list(CASES.values()) + list(
         MISC_CASES.values())} == new - {"truncated_gaussian_random"}
 
