@@ -8,7 +8,8 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
 JAX, prints one line per phase, and raises on any failure:
 
 1. ``env``    — the card's name and power limit (``nvidia-smi``), the torch
-   and CUDA versions, and the nvcc build of every kernel from ``csrc/``.
+   and CUDA versions, the nvcc build of every kernel from ``csrc/``, and
+   the g++ build of the parameter server (``csrc/ps_server.cc``).
 2. ``kernel`` — each hand-written kernel against its plain PyTorch version
    on the card, at the shapes of the main paths and at the edge cases,
    float32 with TF32 off: ``|kernel - plain| <= ATOL + RTOL * |plain|``
@@ -244,7 +245,8 @@ JAX, prints one line per phase, and raises on any failure:
    above its start.
 14. ``optimizers`` — the 10 optimizer classes this slice added, and
    Lookahead, ModelAverage and ExponentialMovingAverage over Adam: a
-   2-layer BERT of BERT-base's width (float32 with the dense LM head, TF32
+   1-layer BERT of BERT-base's width (2 layers until the PS slice; float32
+   with the dense LM head, TF32
    off, dropout 0.1, batch 4 x 128) takes 3 steps on the card and on the
    host, each from the host's state: losses within 1e-5 relative, and
    what the update reads (the gradients) within 1e-5 as the norm of the
@@ -327,7 +329,39 @@ JAX, prints one line per phase, and raises on any failure:
    printed with every edge kind), each rank holding half the experts'
    weights and Adam moments (per-rank bytes), and no kernel launched (the
    reference runs these products outside any Pallas kernel).
-   ``gang_train`` (after ``moe_train``) — several processes: two
+   ``ps_train`` (after ``moe_train``) — the parameter server, float32
+   with TF32 off.  (a) the DeepFM CTR gang of ``tools/bench_deepfm_ps.py``
+   (``build_ctr_train(sparse_dim=10000, embed_size=16, is_sparse=True)``:
+   shared tables [260000, 16] and [260000, 1] held by the server, deep
+   layers (64, 32), FM on; batch 512 a trainer from
+   ``RandomState(trainer_id)``) under ``python -m
+   paddle_tpu_torch.distributed.launch_ps --server_num 3 --worker_num 2``
+   running ``paddle_tpu_torch/tools/ps_runner.py --mode sync,async,geo``:
+   a pserver a mode on the host, the two trainers on ``cuda:0`` running
+   the modes in turn, 1 + 10 steps each.  sync, SGD(0.2): both trainers'
+   dense parameters equal bit for bit after every step, and the mean of
+   their losses within
+   ``DP_LOSS_RTOL`` of one process on ``cuda:0`` over both batches
+   (1024) from the same tables; async, Adam(0.01): the loss falls; geo,
+   local SGD(0.2), a round every 5 steps with ``record_rows`` on both
+   tables and ``flush`` at the end: the loss falls, and every round pushes
+   at most the distinct ids fed since the round before.  Each prints a
+   step's ms and examples/s per trainer, the bytes pushed and pulled a
+   step, the K5 launches and fused ops, and ``paddle_tpu_ps_rpc_ms`` p50
+   / p99 by op.  (b) ``train``'s GPT (``_dp_program``, Adam(1e-4))
+   transpiled by ``DistributeTranspiler`` (sync, 1 trainer, 1 pserver):
+   the pserver runs on a thread of this process on the host, its tables
+   put from the trainer's startup (checked equal to it, and its own host
+   startup's match counted), and the trainer on ``cuda:0`` takes
+   ``dp_train``'s batch for 1 + ``DP_STEPS`` steps: each loss within
+   ``DP_LOSS_RTOL`` of ``dp_train``'s single-device run, K1 and K2 12 a
+   step, every parameter pulled from the server equal to the trainer's
+   copy, and ``save_server``'s snapshot restoring to the same values.  It
+   prints a step's ms split into device compute, the copy to the host,
+   the push (the server's Adam included), the pull and the copy back, the
+   bytes each way, the peak above held beside the one device's, and the
+   RPC quantiles.
+   ``gang_train`` (after ``ps_train``) — several processes: two
    trainer processes of ``python -m paddle_tpu_torch.distributed.launch
    --nproc_per_node 2`` share this card, each running
    ``paddle_tpu_torch/tools/collective_runner.py`` under the launcher's
@@ -444,14 +478,15 @@ JAX, prints one line per phase, and raises on any failure:
    router's ledger exact, K1 12 times a batch; (b) a ``DecodeServer`` (8
    slots) behind an endpoint: 4 greedy prompts through
    ``FleetRouter.decode`` equal to its direct ``submit`` token for token;
-   (c) ``paddle_tpu_torch/tools/fleet_smoke.py --width full`` over
+   (c) ``paddle_tpu_torch/tools/fleet_smoke.py --width full2`` (the
+   width, at 2 layers since the PS slice) over the first two layers of
    ``serve``'s weights (``io.save_persistables``), every replica's probe
    logits within ``FLEET_ATOL`` + ``FLEET_RTOL`` of an in-process server's
    over ``serve``'s scope: replica processes on this card for ``drain`` (SIGTERM: exit 0, drain
    re-routes), ``kill`` (SIGKILL: dead re-routes, p99) and ``scale`` (one
    scale-up, one death repair, one idle retire through the drain, exit 0),
    no client-visible failure; each child loads the kernels built above and
-   reports its K1 launches (12 a batch), peak memory and time to READY.
+   reports its K1 launches (2 a batch), peak memory and time to READY.
 
 Then one JSON line describing every kernel, the ``nvidia-smi`` line, and a
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -464,6 +499,7 @@ import argparse
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import time
@@ -531,6 +567,12 @@ PIPE_CUTS, PIPE_CUTS_B, PIPE_MICROBATCHES, PIPE_STEPS_B = (2, 5, 8), (5,), \
 # the JAX package's own run at this width rises too), so 1e-3
 MOE_EXPERTS, MOE_INNER, MOE_CF = 8, 3072, 1.25
 MOE_AXES, MOE_LOSS_RTOL, MOE_LR = {"ep": 2, "dp": 2}, 2e-4, 1e-3
+# ps_train: (a) the DeepFM gang (tools/bench_deepfm_ps.py:37-44, 59-60):
+# sparse ids a slot, batch a trainer, 1 + 10 steps in each mode, geo's push
+# interval, the launcher's time limit; (b) the GPT's pserver: the RPC
+# deadline (ms) of both parts
+PS_SPARSE_DIM, PS_BATCH, PS_STEPS, PS_GEO_PUSH = 10000, 512, 11, 5
+PS_TIMEOUT_S, PS_RPC_DEADLINE_MS = 300, 120000
 # preempt_train: steps a run, the daemon's interval, and a child's time limit
 PREEMPT_STEPS, PREEMPT_INTERVAL, PREEMPT_TIMEOUT_S = 8, 2, 300
 # ... at BERT-base width cut to 2 layers (preempt_runner's "full2"), which
@@ -689,14 +731,15 @@ FUSED_UNFUSED_RTOL = 1e-5
 # large-batch BERT recipe: weight decay 0.01, none on LayerNorm scales and
 # biases), with and without RecomputeOptimizer, 1 + RECOMPUTE_STEPS steps
 RECOMPUTE_STEPS, LAMB_LR, LAMB_DECAY = 3, 1e-4, 0.01
-# optimizers: a 2-layer BERT of BERT-base's width, float32, OPT_STEPS steps
+# optimizers: a BERT of BERT-base's width at OPT_LAYERS layers (2 until
+# the PS slice cut it to 1 to pay for ps_train), float32, OPT_STEPS steps
 # on the card and on the host at batch OPT_BATCH x 128: float32 products in
 # other orders, so losses within 1e-5 relative and each gradient within
 # 1e-5 (norm of the difference over the norm); the update on the same
 # inputs, each element within 1e-5 of its tensor's largest; the new
 # initializers' draws within OPT_INIT_SE standard errors of their mean and
 # std
-OPT_STEPS, OPT_BATCH = 3, 4
+OPT_STEPS, OPT_BATCH, OPT_LAYERS = 3, 4, 1
 OPT_LOSS_RTOL, OPT_STATE_RTOL, OPT_INIT_SE = 1e-5, 1e-5, 5.0
 # predict: the GPT serving artifact (the dense recipe, attn_impl="base") at
 # batch PREDICT_BATCH x PREDICT_SEQ, a warm-up and PREDICT_RUNS timed runs
@@ -750,6 +793,9 @@ FLEET_ATOL, FLEET_RTOL = 1e-5, 1e-4
 FLEET_BUCKET, FLEET_REQUESTS, FLEET_TOKENS = 32, 8, (4, 12)
 FLEET_DECODE_PROMPTS, FLEET_DECODE_LEN, FLEET_DECODE_NEW = 4, (8, 32), 16
 FLEET_SMOKE_TIMEOUT_S = 600
+# serve_fleet (c): the replica processes serve the GPT at BERT-base width cut
+# to 2 layers (fleet_smoke's "full2"), which pays for ps_train's time
+FLEET_REPLICA_WIDTH = "full2"
 
 
 def _log(phase, msg):
@@ -791,6 +837,11 @@ def phase_env():
              f"{len(regs)} functions, registers max {max(regs, default=0)},"
              f" spill stores max {max(spills, default=0)} bytes")
     _log("env", f"kernel build wall time {total:.2f} s")
+    from paddle_tpu_torch import ps_native
+    t0 = time.perf_counter()
+    lib = ps_native.build()
+    _log("env", f"g++ {lib.name} (the parameter server, "
+         f"csrc/{ps_native.SOURCE}): {time.perf_counter() - t0:.2f} s")
     return smi, built
 
 
@@ -2152,6 +2203,26 @@ def _dp_steps(exe, main, loss, scope, feed, steps):
     return losses, step_s, torch.cuda.max_memory_allocated(), held
 
 
+def _one_device_run(cfg, seq, feed, steps):
+    """``_dp_program``'s GPT with Adam(1e-4) on one device from startup
+    seed 1234: the losses, step seconds, peak and held bytes, the startup's
+    weights digest and the final parameters on the host."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.framework import Scope
+    main, start, loss = _dp_program(
+        cfg, seq, lambda: optimizer.AdamOptimizer(learning_rate=1e-4))
+    sc, exe = Scope(), ptt.Executor()
+    exe.run(start, scope=sc, seed=1234)
+    w0 = _weights_digest(sc, main)
+    one, one_s, peak, held = _dp_steps(exe, main, loss, sc, feed, steps)
+    params = {p: sc.find_var(p).detach().cpu() for p in w0}
+    del sc, exe
+    torch.cuda.empty_cache()
+    return one, one_s, peak, held, w0, params
+
+
 def _dp_losses_match(phase, want, got, rtol=DP_LOSS_RTOL):
     """Each step's mean over the ranks' losses against the reference run's
     (its mean over ranks too) within ``rtol``; the worst ratio."""
@@ -2194,17 +2265,9 @@ def phase_dp_train(smi, train):
         return optimizer.AdamOptimizer(learning_rate=1e-4)
 
     # (a) one device, the untranspiled program, the same global batch
-    main1, start1, loss1 = _dp_program(cfg, seq, adam)
-    sc1, exe1 = Scope(), ptt.Executor()
-    exe1.run(start1, scope=sc1, seed=1234)
-    w0 = _weights_digest(sc1, main1)
-    n_params = sum(int(sc1.find_var(p).numel()) for p in w0)
-    one, one_s, one_peak, one_held = _dp_steps(exe1, main1, loss1, sc1,
-                                               feed, steps)
-    # gspmd_train holds its gathered parameters to these
-    one_params = {p: sc1.find_var(p).detach().cpu() for p in w0}
-    del sc1, exe1
-    torch.cuda.empty_cache()
+    one, one_s, one_peak, one_held, w0, one_params = _one_device_run(
+        cfg, seq, feed, steps)
+    n_params = sum(int(v.numel()) for v in one_params.values())
 
     set_mesh(make_mesh({"dp": DP_RANKS}, [torch.device("cuda", 0)]
                        * DP_RANKS))
@@ -2832,6 +2895,453 @@ def phase_moe_train(smi):
             "alltoall_bytes": sum(e.payload_bytes for e in a2a),
             "edges": {"/".join(map(str, k)): v for k, v in kinds.items()},
             "expert_state_bytes_a_rank": loc, "expert_state_bytes": whole,
+            "wall_s": wall}
+
+
+def _ps_port_range(servers):
+    """A launch_ps base port: base .. base + servers - 1 (the pservers) and
+    base + 1000, base + 1001 (the workers' endpoints) free."""
+    import random
+    for _ in range(50):
+        base = random.randint(20000, 40000)
+        socks = []
+        try:
+            for off in (*range(servers), 1000, 1001):
+                sk = socket.socket()
+                socks.append(sk)
+                sk.bind(("127.0.0.1", base + off))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sk in socks:
+                sk.close()
+    raise RuntimeError("ps_train: no free port range")
+
+
+def _ps_ctr_one_process():
+    """The DeepFM on this process over both trainers' batches of each step
+    (1024 rows), SGD(0.2), from the runner's startup seed."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.framework import (Program, Scope, program_guard,
+                                            unique_name)
+    from paddle_tpu_torch.models import build_ctr_train
+    from paddle_tpu_torch.tools.ps_runner import SEED, deepfm_batches
+    with unique_name.guard():
+        main, startup = Program(), Program()
+        with program_guard(main, startup):
+            loss, _, _ = build_ctr_train(sparse_dim=PS_SPARSE_DIM,
+                                         embed_size=16, is_sparse=True)
+            optimizer.SGD(learning_rate=0.2).minimize(loss)
+    sc, exe = Scope(), ptt.Executor()
+    exe.run(startup, scope=sc, seed=SEED)
+    f0 = deepfm_batches(0, PS_BATCH, PS_SPARSE_DIM)
+    f1 = deepfm_batches(1, PS_BATCH, PS_SPARSE_DIM)
+    losses = []
+    for step in range(PS_STEPS):
+        a, b = f0(step), f1(step)
+        fd = {k: np.concatenate([a[k], b[k]]) for k in a}
+        losses.append([float(exe.run(main, feed=fd, fetch_list=[loss],
+                                     scope=sc)[0])])
+    return losses
+
+
+def _rpc_line(rpc):
+    return ", ".join(f"{op} n {r['n']} p50 <= {r['p50']} p99 <= "
+                     f"{r['p99']} ms" for op, r in rpc.items())
+
+
+def _falls(runs):
+    """The trainers' mean loss over the last three steps is below their
+    mean over the first three."""
+    return float(np.mean([r[-3:] for r in runs])) < \
+        float(np.mean([r[:3] for r in runs]))
+
+
+def _ps_ctr_gang(smi):
+    """``ps_train`` (a): the DeepFM gang in sync, async and geo mode."""
+    import subprocess
+    import tempfile
+    import torch
+    from paddle_tpu_torch.tools import gang_smoke
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    runner = os.path.join(repo, "paddle_tpu_torch", "tools", "ps_runner.py")
+    env = gang_smoke.gang_env({"FLAGS_rpc_deadline":
+                               str(PS_RPC_DEADLINE_MS)})
+    one = _ps_ctr_one_process()
+    torch.cuda.empty_cache()
+    out = {"one_process_losses": [x[0] for x in one]}
+    modes = ("sync", "async", "geo")
+    with tempfile.TemporaryDirectory(prefix="pt_ps_train_") as log_dir:
+        wall0 = time.time()
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch_ps",
+             "--server_num", str(len(modes)), "--worker_num", "2",
+             "--started_port", str(_ps_port_range(len(modes))),
+             "--log_dir", log_dir, runner, "--model", "deepfm", "--mode",
+             ",".join(modes), "--sparse_dim", str(PS_SPARSE_DIM), "--batch",
+             str(PS_BATCH), "--steps", str(PS_STEPS), "--geo_push",
+             str(PS_GEO_PUSH)],
+            env=env, cwd=repo, capture_output=True, text=True,
+            timeout=PS_TIMEOUT_S)
+        launch_s = time.perf_counter() - t0
+        logs = {f: open(os.path.join(log_dir, f)).read()
+                for f in sorted(os.listdir(log_dir))}
+    if r.returncode != 0:
+        tails = "".join(f"\n--- {f} ---\n{text[-3000:]}"
+                        for f, text in logs.items())
+        raise AssertionError(f"ps_train (a): the launcher exited "
+                             f"{r.returncode}: {r.stderr[-3000:]}{tails}")
+
+    def records(tag, files):
+        return [json.loads(ln[len(tag) + 1:]) for f in files
+                for ln in logs.get(f, "").splitlines()
+                if ln.startswith(tag + " ")]
+    results = records("RESULT", ["worker.0.log", "worker.1.log"])
+    servers = records("PSERVER", [f"server.{k}.log"
+                                  for k in range(len(modes))])
+    runs = {}
+    for mode in modes:
+        res = sorted((x for x in results if x["mode"] == mode),
+                     key=lambda x: x["trainer_id"])
+        if [x["trainer_id"] for x in res] != [0, 1]:
+            raise AssertionError(f"ps_train (a) {mode}: trainers' results "
+                                 f"{[x['trainer_id'] for x in res]}; the "
+                                 f"logs end:\n{list(logs.values())[-1][-3000:]}")
+        runs[mode] = (res, [x["marks"] for x in servers
+                            if x["mode"] == mode])
+    _log("ps_train", f"(a) one launch_ps job, a pserver a mode, 2 trainers "
+         f"running sync, async and geo in turn: {launch_s:.1f} s")
+    for mode in modes:
+        res, srv_marks = runs[mode]
+        what = f"ps_train (a) {mode}"
+        worst = None
+        if mode == "sync":
+            if res[0]["digests"] != res[1]["digests"]:
+                bad = next(i for i, (x, y) in enumerate(zip(
+                    res[0]["digests"], res[1]["digests"])) if x != y)
+                raise AssertionError(f"{what}: the trainers' dense "
+                                     f"parameters differ after step {bad}")
+            worst = _dp_losses_match(what, one, [
+                [x, y] for x, y in zip(res[0]["losses"], res[1]["losses"])])
+        elif not _falls([rr["losses"] for rr in res]):
+            raise AssertionError(f"{what}: the loss does not fall: "
+                                 f"{[rr['losses'] for rr in res]}")
+        if mode == "geo":
+            for rr in res:
+                rounds = rr["geo_rounds"]
+                if len(rounds) != PS_STEPS // PS_GEO_PUSH + 1 or any(
+                        p is None or not 0 < p <= fed
+                        for rnd in rounds for p, fed in (
+                            rnd[t] for t in ("ctr_embedding",
+                                             "ctr_wide_w"))):
+                    raise AssertionError(f"{what}: trainer "
+                                         f"{rr['trainer_id']} rounds "
+                                         f"{rounds} push rows not fed")
+        marks = [rr["marks"] for rr in res] + srv_marks
+        timeline = [{k: round(v - wall0, 2) for k, v in mk.items()}
+                    for mk in marks]
+        rec = {"worst_rel": worst, "timeline_s": timeline,
+               "trainers": [{k: rr[k] for k in (
+                   "losses", "step_ms", "examples_per_s", "bytes_pushed",
+                   "bytes_pulled", "push_s", "pull_s", "geo_rounds",
+                   "launches", "fused", "rpc_ms")} for rr in res]}
+        out[mode] = rec
+        k5 = sum(rr["launches"]["dense_epilogue"] for rr in res)
+        rec["k5_launches"] = k5
+        _log("ps_train", f"(a) {mode}: its pserver on the host, 2 trainers "
+             f"on cuda:0, DeepFM sparse_dim {PS_SPARSE_DIM} "
+             f"(tables [{26 * PS_SPARSE_DIM}, 16] and [{26 * PS_SPARSE_DIM}"
+             f", 1] on the server), batch {PS_BATCH} a trainer, 1 + "
+             f"{PS_STEPS - 1} steps: losses "
+             f"{[[round(x, 5) for x in rr['losses']] for rr in res]}"
+             + (f"; dense parameters equal bit for bit on both trainers "
+                f"after every step; mean loss against one process on 1024 "
+                f"rows {[round(x[0], 5) for x in one]}: worst relative "
+                f"{worst:.3g} (limit {DP_LOSS_RTOL})" if mode == "sync"
+                else "; the loss falls"))
+        _log("ps_train", f"(a) {mode} marks, seconds from the launch "
+             f"(trainers 0, 1, then its pserver): {timeline}")
+        for rr in res:
+            ms = float(np.mean(rr["step_ms"][1:]))
+            _log("ps_train", f"(a) {mode} trainer {rr['trainer_id']}: step "
+                 f"{ms:.2f} ms ({PS_BATCH / ms * 1e3:.0f} examples/s; "
+                 f"host clock ending in a synchronize, timed steps "
+                 f"{', '.join(f'{x:.1f}' for x in rr['step_ms'][1:])}; "
+                 f"first {rr['step_ms'][0]:.1f}); pushed "
+                 f"{np.mean(rr['bytes_pushed'][1:]):.0f} B, pulled "
+                 f"{np.mean(rr['bytes_pulled'][1:]):.0f} B a step; K5 "
+                 f"{rr['launches']['dense_epilogue']} launches, fused "
+                 f"{rr['fused']}; RPCs {_rpc_line(rr['rpc_ms'])}; on {smi}")
+            if mode == "geo":
+                _log("ps_train", f"(a) geo trainer {rr['trainer_id']}: "
+                     f"rounds (rows pushed / distinct ids fed since the "
+                     f"round before) {rr['geo_rounds']}")
+    out["launch_s"] = launch_s
+    return out
+
+
+class _GradsOnly:
+    """An optimizer stand-in: ``minimize`` appends the backward and no
+    update."""
+
+    def minimize(self, loss):
+        from paddle_tpu_torch.framework import append_backward
+        self.params_grads = append_backward(loss)
+
+
+def _server_adam_losses(cfg, seq, feed, steps, w0, lr=1e-4, b1=0.9,
+                        b2=0.999, eps=1e-8):
+    """The plain reference of ``ps_train`` (b): ``_dp_program``'s GPT on one
+    device from the same startup, each step's gradients applied in float32
+    on the card by the parameter server's Adam (``csrc/ps_server.cc``
+    ``apply_update``: moments in float32, ``m / (1 - b1^t)`` and ``u / (1 -
+    b2^t)`` in double, eps added after the square root).  The Adam op
+    (dp_train's one device) adds eps to the uncorrected ``sqrt(v)``
+    instead, so the two part where ``|g|`` is near eps / sqrt(1 - b2^t)."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework import Scope
+    f32 = np.float32
+    grads_only = _GradsOnly()
+    main, start, loss = _dp_program(cfg, seq, lambda: grads_only)
+    sc, exe = Scope(), ptt.Executor()
+    exe.run(start, scope=sc, seed=1234)
+    if _weights_digest(sc, main) != w0:
+        raise AssertionError("ps_train (b): the reference's startup "
+                             "weights differ from dp_train's")
+    pairs = grads_only.params_grads
+    mom = {p.name: (torch.zeros_like(sc.find_var(p.name)),
+                    torch.zeros_like(sc.find_var(p.name))) for p, _ in pairs}
+    b1f, b2f = float(f32(b1)), float(f32(b2))
+    losses = []
+    for t in range(1, steps + 1):
+        out = exe.run(main, feed=feed, fetch_list=[loss] +
+                      [g for _, g in pairs], scope=sc, return_numpy=False)
+        losses.append(np.asarray(out[0].numpy(), np.float64).reshape(-1))
+        bc1, bc2 = 1.0 - b1f ** t, 1.0 - b2f ** t
+        for (p, _), h in zip(pairs, out[1:]):
+            g, (m, u) = h.tensor, mom[p.name]
+            m.mul_(b1f).add_(g, alpha=float(f32(1) - f32(b1f)))
+            u.mul_(b2f).add_(g * g, alpha=float(f32(1) - f32(b2f)))
+            mh = (m.double() / bc1).float()
+            uh = (u.double() / bc2).float()
+            sc.find_var(p.name).sub_(float(f32(lr)) * mh /
+                                     (torch.sqrt(uh) + float(f32(eps))))
+    del sc, exe, mom
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _ps_gpt(smi, dp_train):
+    """``ps_train`` (b): the GPT over a pserver thread on the host."""
+    import tempfile
+    import threading
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import flags, optimizer
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.distributed import DistributeTranspiler, ps
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.tools import gang_smoke
+    from paddle_tpu_torch.tools.ps_runner import (reset_rpc_histogram,
+                                                  rpc_quantiles)
+
+    cfg = _gpt_cfg()
+    seq = cfg.max_pos
+    steps = DP_STEPS + 1
+    kernels = ("flash_attn_fwd", "flash_attn_bwd")
+    gib = 2.0 ** 30
+    flags.set_flags({"FLAGS_rpc_deadline": PS_RPC_DEADLINE_MS})
+    main, start, loss = _dp_program(
+        cfg, seq, lambda: optimizer.AdamOptimizer(learning_rate=1e-4))
+    ep = f"127.0.0.1:{gang_smoke.free_port()}"
+    t = DistributeTranspiler()
+    t.transpile(0, program=main, pservers=ep, trainers=1,
+                startup_program=start)
+    specs = t._param_specs
+    got = {(s["optimizer"], s["lr"]) for s in specs.values()}
+    if got != {("adam", 1e-4)}:
+        raise AssertionError(f"ps_train (b): the server's optimizers {got} "
+                             "are not Adam at the trainer's 1e-4")
+    trainer = t.get_trainer_program()
+    pprog, pstart = t.get_pserver_programs(ep)
+    srv_scope = Scope()
+    t0 = time.perf_counter()
+    ptt.Executor(ptt.CPUPlace()).run(pstart, scope=srv_scope, seed=1234)
+    host_startup_s = time.perf_counter() - t0
+    lsv, = pprog.global_block().ops
+    box, ready = {}, threading.Event()
+
+    def serve():
+        try:
+            box["srv"] = ps.run_pserver(lsv, srv_scope, wait=False)
+        finally:
+            ready.set()
+        box["srv"].wait()
+
+    th = threading.Thread(target=serve, daemon=True, name="pt-pserver")
+    th.start()
+    if not ready.wait(120) or "srv" not in box:
+        raise AssertionError("ps_train (b): the pserver did not start")
+    srv = box["srv"]
+    try:
+        t0 = time.perf_counter()
+        ref = _server_adam_losses(cfg, seq, dp_train["feed"], steps,
+                                  dp_train["weights_digest"])
+        ref_s = time.perf_counter() - t0
+        sc, exe = Scope(), ptt.Executor()
+        exe.run(start, scope=sc, seed=1234)
+        w0 = _weights_digest(sc, main)
+        if w0 != dp_train["weights_digest"]:
+            raise AssertionError("ps_train (b): the trainer's startup "
+                                 "weights differ from dp_train's")
+
+        def host(n):
+            return sc.find_var(n).detach().cpu().numpy().ravel()
+        own = sum(np.array_equal(srv.get_param(n, s["size"]), host(n))
+                  for n, s in specs.items())
+        cli = ps.get_client(ep)
+        t0 = time.perf_counter()
+        for n in specs:
+            cli.put(n, sc.find_var(n))
+        put_s = time.perf_counter() - t0
+        for n, s in specs.items():
+            tab = srv.get_param(n, s["size"])
+            if not (np.array_equal(tab, host(n)) and float(
+                    torch.from_numpy(tab).double().sum()) == w0[n]):
+                raise AssertionError(f"ps_train (b): the server's {n} is "
+                                     "not the trainer's startup value")
+        _log("ps_train", f"(b) {len(specs)} tables, "
+             f"{sum(s['size'] for s in specs.values())} floats, Adam at "
+             f"lr 1e-4 on the server: its own startup on the host "
+             f"({host_startup_s:.1f} s) reproduces {own} of {len(specs)} "
+             f"tables of the trainer's on the card, so the trainer's are "
+             f"put ({put_s:.2f} s) and checked equal by bytes and by "
+             f"_weights_digest sums")
+        torch.cuda.empty_cache()
+        fa.reset_launch_count()
+        ps.reset_stats()
+        reset_rpc_histogram()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        losses, step_s, parts = [], [], []
+        for _ in range(steps):
+            before = dict(ps.STATS)
+            t0 = time.perf_counter()
+            lv, = exe.run(trainer, feed=dp_train["feed"], fetch_list=[loss],
+                          scope=sc)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(np.asarray(lv, np.float64).reshape(-1))
+            parts.append({k: ps.STATS[k] - before[k] for k in ps.STATS})
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: fa.launch_count(k) for k in kernels}
+        rpc = rpc_quantiles()
+        worst = _dp_losses_match("ps_train (b)", ref, losses)
+        first = _dp_losses_match("ps_train (b) step 1",
+                                 dp_train["single_losses"][:1], losses[:1])
+        adam_gap = max(
+            abs(float(g[0]) - float(w[0])) / abs(float(w[0]))
+            for g, w in zip(losses, dp_train["single_losses"]))
+        want = cfg.n_layer * steps
+        if launches != {k: want for k in kernels}:
+            raise AssertionError(f"ps_train (b): K1/K2 launched {launches},"
+                                 f" expected {want} each")
+        bad = [n for n, s in specs.items() if not np.array_equal(
+            srv.get_param(n, s["size"]), host(n))]
+        if bad:
+            raise AssertionError(f"ps_train (b): the server's {bad[:4]} "
+                                 "differ from the trainer's copies")
+        with tempfile.TemporaryDirectory(prefix="pt_ps_ckpt_") as d:
+            ck = CheckpointManager(d)
+            if not ck.save_server(steps, srv, list(specs.values())):
+                raise AssertionError("ps_train (b): save_server refused")
+            ck.wait_until_finished()
+            rs = Scope()
+            ck.restore(scope=rs)
+            back = [n for n, s in specs.items() if float(
+                rs.find_var(n).double().sum()) != float(torch.from_numpy(
+                    srv.get_param(n, s["size"])).double().sum())]
+            if back:
+                raise AssertionError(f"ps_train (b): save_server's "
+                                     f"snapshot of {back[:4]} loads back "
+                                     "to other sums")
+    finally:
+        try:
+            ps.get_client(ep).stop_server()
+        finally:
+            th.join(120)
+            ps.reset_clients()
+            flags.set_flags({"FLAGS_rpc_deadline": 180000})
+        if th.is_alive():
+            raise AssertionError("ps_train (b): the pserver thread did not "
+                                 "end")
+        srv.destroy()
+    timed = parts[1:]
+
+    def mean_ms(key):
+        return 1e3 * float(np.mean([p[key] for p in timed]))
+    step_ms = 1e3 * float(np.mean(step_s[1:]))
+    split = {k: mean_ms(k) for k in ("device_wait_s", "d2h_s", "push_s",
+                                     "pull_s", "h2d_s")}
+    compute = step_ms - sum(v for k, v in split.items()
+                            if k != "device_wait_s")
+    pushed = float(np.mean([p["bytes_pushed"] for p in timed]))
+    pulled = float(np.mean([p["bytes_pulled"] for p in timed]))
+    _log("ps_train", f"(b) the GPT (vocab {cfg.vocab_size}, d "
+         f"{cfg.d_model}, {cfg.n_layer} layers, T {seq}) over 1 pserver, "
+         f"batch {TRAIN_BATCH} x {seq}, 1 + {DP_STEPS} steps: losses "
+         f"{[round(float(l[0]), 6) for l in losses]} against one device "
+         f"with the server's Adam {[round(float(l[0]), 6) for l in ref]} "
+         f"({ref_s:.1f} s), worst relative {worst:.3g} (limit "
+         f"{DP_LOSS_RTOL}); step 1 against dp_train's one device "
+         f"{first:.3g}; dp_train's Adam op (eps before the bias "
+         f"correction) {[round(float(l[0]), 6) for l in dp_train['single_losses']]}"
+         f", largest relative gap {adam_gap:.3g}; K1/K2 {launches} = "
+         f"{cfg.n_layer} x {steps}; every parameter pulled from the server "
+         f"equals the trainer's copy; save_server's snapshot restores to "
+         f"the server's sums")
+    _log("ps_train", f"(b) step {step_ms:.1f} ms (timed steps "
+         f"{', '.join(f'{1e3 * x:.1f}' for x in step_s[1:])}; first "
+         f"{step_s[0]:.2f} s): device compute {compute:.1f} (of it "
+         f"{split['device_wait_s']:.1f} waiting at the first push), copy "
+         f"to the host {split['d2h_s']:.1f}, push with the server's Adam "
+         f"{split['push_s']:.1f}, pull {split['pull_s']:.1f}, copy back "
+         f"{split['h2d_s']:.1f}; {pushed:.0f} B pushed and {pulled:.0f} B "
+         f"pulled a step; peak {(peak - held) / gib:.3f} GiB above "
+         f"{held / gib:.3f} held, against dp_train's one device "
+         f"{(dp_train['single_peak_bytes'] - dp_train['single_held_bytes']) / gib:.3f}"
+         f" above, {dp_train['single_step_ms']:.1f} ms a step; on {smi}")
+    _log("ps_train", f"(b) RPCs: {_rpc_line(rpc)}")
+    return {"launches": launches, "losses": [float(l[0]) for l in losses],
+            "reference_losses": [float(l[0]) for l in ref],
+            "worst_rel": worst, "adam_op_gap": adam_gap,
+            "step_s": step_s, "step_ms": step_ms,
+            "split_ms": split, "compute_ms": compute,
+            "bytes_pushed": pushed, "bytes_pulled": pulled,
+            "peak_bytes": peak, "held_bytes": held, "rpc_ms": rpc,
+            "own_startup_tables": own, "tables": len(specs),
+            "put_s": put_s, "host_startup_s": host_startup_s}
+
+
+def phase_ps_train(smi, dp_train):
+    """The parameter server on the card (module docstring): (a) the DeepFM
+    gang in three modes, (b) the GPT over a pserver thread."""
+    t_phase = time.perf_counter()
+    a = _ps_ctr_gang(smi)
+    b = _ps_gpt(smi, dp_train)
+    k5 = sum(a[m]["k5_launches"] for m in ("sync", "async", "geo"))
+    wall = time.perf_counter() - t_phase
+    _log("ps_train", f"K5 {k5} launches over (a)'s trainers; phase wall "
+         f"time {wall:.1f} s")
+    return {"a": a, "b": b, "launches": dict(b["launches"],
+                                             dense_epilogue=k5),
             "wall_s": wall}
 
 
@@ -6445,8 +6955,9 @@ def _check_initializers():
 
 def phase_optimizers():
     """The 10 optimizer classes this slice added, and Lookahead,
-    ModelAverage and ExponentialMovingAverage over Adam: a 2-layer BERT of
-    BERT-base's width (dropout 0.1, float32 with the dense LM head, TF32
+    ModelAverage and ExponentialMovingAverage over Adam: a BERT of
+    BERT-base's width at OPT_LAYERS layers (dropout 0.1, float32 with the
+    dense LM head, TF32
     off) takes OPT_STEPS steps on the card and on the host at the same
     seeds, each from the host's state: the losses within OPT_LOSS_RTOL, and what the update
     ops read (the gradients) within OPT_STATE_RTOL as ``_rel_diff`` says.
@@ -6463,7 +6974,7 @@ def phase_optimizers():
                                             scope_guard, unique_name)
     from paddle_tpu_torch.models import transformer as T
 
-    cfg = T.BertConfig(n_layer=2)
+    cfg = T.BertConfig(n_layer=OPT_LAYERS)
     feeds = [_bert_feed(cfg, OPT_BATCH, BERT_SEQ, seed=s)
              for s in range(OPT_STEPS)]
     out = {}
@@ -7889,8 +8400,16 @@ def _fleet_decode(cfg, scope, pool_bytes):
             "routed_s": routed_s, "traces": int(eng.trace_count)}
 
 
+def _replica_cfg():
+    """The replicas' GPT: ``serve``'s width at ``FLEET_REPLICA_WIDTH``'s
+    depth; its parameters are the first layers of ``serve``'s, by name."""
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.tools import fleet_smoke
+    return T.BertConfig(**fleet_smoke.WIDTHS[FLEET_REPLICA_WIDTH])
+
+
 def _fleet_replicas(cfg, scope):
-    """(c): ``tools/fleet_smoke.py --width full`` for drain, kill and
+    """(c): ``tools/fleet_smoke.py --width full2`` for drain, kill and
     scale: replica processes on this card serving ``scope``'s weights
     (saved here with ``io.save_persistables``), loading the kernels built
     above.  The tool holds every replica's probe logits against the same
@@ -7916,13 +8435,13 @@ def _fleet_replicas(cfg, scope):
         for name, val in scope.items():
             sc.set_var(name, val)
         expect = fleet_smoke.serve_probe(factory, sc, ptt.Executor(),
-                                         "full")
-        if expect.shape != (fleet_smoke.REQUEST_TOKENS["full"],
+                                         FLEET_REPLICA_WIDTH)
+        if expect.shape != (fleet_smoke.REQUEST_TOKENS[FLEET_REPLICA_WIDTH],
                             cfg.vocab_size) or not np.isfinite(expect).all():
             raise AssertionError(f"serve_fleet: probe logits {expect.shape}")
         np.save(os.path.join(wdir, "expect.npy"), expect)
         r = subprocess.run(
-            [sys.executable, tool, "--width", "full",
+            [sys.executable, tool, "--width", FLEET_REPLICA_WIDTH,
              "--weights", os.path.join(wdir, "w"),
              "--expect", os.path.join(wdir, "expect.npy"),
              "--scenario", "drain", "kill", "scale"],
@@ -7981,7 +8500,7 @@ def phase_serve_fleet(smi, serve, decode):
     ``reroutes{dead}`` >= 1, the ledger exact, K1 12 times a batch.  (b) a
     ``DecodeServer`` (8 slots) behind an endpoint: 4 greedy prompts through
     ``FleetRouter.decode`` equal to the same server's ``submit``, token
-    for token.  (c) ``fleet_smoke.py --width full`` (drain, kill, scale:
+    for token.  (c) ``fleet_smoke.py --width full2`` (drain, kill, scale:
     replica processes on this card, each replica's probe logits within
     ``FLEET_ATOL`` + ``FLEET_RTOL`` of an in-process server's).  Every
     check is fatal."""
@@ -8007,7 +8526,7 @@ def phase_serve_fleet(smi, serve, decode):
          f"greedy tokens routed in {b['routed_s']:.2f} s, equal to the "
          f"direct submit; decode traces {b['traces']}")
     t_c = time.perf_counter()
-    c = _fleet_replicas(cfg, scope)
+    c = _fleet_replicas(_replica_cfg(), scope)
     c_s = time.perf_counter() - t_c
     kids = [(name, ch) for name, scen in c.items()
             for ch in scen["children"]]
@@ -8043,6 +8562,10 @@ def main(argv=None) -> int:
                          "and an AMP GPT step, a float32 and an AMP "
                          "ResNet-50 step, a step of each ring_train "
                          "program and a bert_train step by kernel")
+    ap.add_argument("--only", choices=("ps_train",),
+                    help="a probe: build the kernels, run dp_train's "
+                         "one-device steps and this phase alone, and end "
+                         "with the phase's summary (not the ok line)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -8056,6 +8579,23 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     smi, built = phase_env()
+    if args.only == "ps_train":
+        cfg = _gpt_cfg()
+        feed = _train_feed(cfg, TRAIN_BATCH, cfg.max_pos)
+        one, one_s, peak, held, w0, _ = _one_device_run(
+            cfg, cfg.max_pos, feed, DP_STEPS + 1)
+        out = phase_ps_train(smi, {
+            "single_losses": [x.tolist() for x in one],
+            "weights_digest": w0, "feed": feed, "single_peak_bytes": peak,
+            "single_held_bytes": held,
+            "single_step_ms": 1e3 * float(np.mean(one_s[1:]))})
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump({"gpu": smi, "ps_train": out}, f, indent=1,
+                          default=float)
+        print(json.dumps({"probe": "ps_train", "launches": out["launches"],
+                          "wall_s": out["wall_s"]}))
+        return 0
     worst = phase_kernel(built)
     worst.update(phase_kernel_bf16(built))
     ring_kernel = phase_ring_kernel()
@@ -8067,6 +8607,7 @@ def main(argv=None) -> int:
     gspmd_train = phase_gspmd_train(smi, dp_train)
     pipe_train = phase_pipe_train(smi, dp_train)
     moe_train = phase_moe_train(smi)
+    ps_train = phase_ps_train(smi, dp_train)
     gang_train = phase_gang_train(smi, dp_train)
     preempt = phase_preempt_train(train)
     amp_train = phase_amp_train(train)
@@ -8196,6 +8737,9 @@ def main(argv=None) -> int:
     # mixture of experts: no kernel runs on its path
     for name in by_path:
         by_path[name]["moe_train"] = moe_train["launches"].get(name, 0)
+    # the parameter server: (b)'s GPT steps and (a)'s DeepFM trainers
+    for name, n in ps_train["launches"].items():
+        by_path[name]["ps_train"] = n
     missing = [n for n, paths in by_path.items() if not sum(paths.values())]
     if missing:
         raise AssertionError(f"kernels never launched on their paths: "
@@ -8234,6 +8778,7 @@ def main(argv=None) -> int:
                                                  "weights_digest")},
                        "gspmd_train": gspmd_train,
                        "pipe_train": pipe_train, "moe_train": moe_train,
+                       "ps_train": ps_train,
                        "gang_train": gang_train,
                        "observe_resnet": observe_resnet,
                        "observe_serve": observe_serve,

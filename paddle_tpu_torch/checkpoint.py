@@ -23,9 +23,10 @@ from ``all_steps()`` at once, from the disk once the newer step is
 written), ``save_interval_steps`` skips off-interval saves unless
 ``force``.
 
-Not ported yet: ``save_server`` (the PS snapshot, ROADMAP Queue 1 item 3
-(iii)) and sharded checkpoints: a capture of a partitioned run's sharded state
-(``parallel.spmd.ShardedValue``) raises (item 3 (i)).
+``save_server`` snapshots a parameter server's tables through the same
+writer (each pserver persists its own shard).  Not ported yet: sharded
+checkpoints: a capture of a partitioned run's sharded state
+(``parallel.spmd.ShardedValue``) raises (ROADMAP Queue 1 item 3 (i)).
 """
 
 from __future__ import annotations
@@ -266,6 +267,15 @@ class CheckpointManager:
         """Write an already gathered ``{name: host value}`` snapshot (the
         daemon's entry point)."""
         return self._write(step, dict(state), force=force, kind=kind)
+
+    def save_server(self, step: int, server, param_specs,
+                    force: bool = False) -> bool:
+        """Snapshot a ``PSServer``'s tables at ``step`` (ref
+        CheckpointNotify RPC: each pserver persists its own shard)."""
+        state = {spec["name"]: np.asarray(
+            server.get_param(spec["name"], spec["size"]))
+            for spec in param_specs}
+        return self._write(step, state, force)
 
     def wait_until_finished(self) -> None:
         """Block until every queued write is on disk; a background write

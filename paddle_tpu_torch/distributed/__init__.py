@@ -10,20 +10,30 @@
   launcher (``python -m paddle_tpu_torch.distributed.launch``), and the
   gang: :class:`GangRendezvous` (the file rendezvous) and the socket
   coordinator and client (:mod:`coordinator`), whose frame protocol the
-  serving fleet speaks too.
+  serving fleet speaks too;
+- the parameter server (:mod:`ps`): the ``send`` / ``recv`` /
+  ``distributed_lookup_table`` / barrier / ``listen_and_serv`` ops over the
+  port's own C++ KV server and client, ``DistributeTranspiler`` and the
+  async and geo communicators; the PS fleet (``ps_fleet``), the PS launcher
+  (``python -m paddle_tpu_torch.distributed.launch_ps``) and the legacy
+  Downpour API (:mod:`downpour`).
 
 Pipeline parallelism lives in ``parallel.pipeline`` and mixture of experts
 in ``ops.moe_ops`` (its ``ep`` axis in ``parallel.spmd``).  Not ported yet:
-the parameter server (ROADMAP Queue 1 item 3 (iii)) and NCCL (every
-cross-process exchange goes through gloo).
+NCCL (every cross-process exchange goes through gloo).
 """
 
 from . import collective_ops  # noqa  (registers the c_* lowerings)
+from . import ps  # noqa  (registers send/recv/listen_and_serv lowerings)
+from .ps import (Communicator, DistributeTranspiler,  # noqa
+                 DistributeTranspilerConfig, GeoCommunicator)
 from .coordinator import (MAX_FRAME_BYTES, GangClient,  # noqa
                           GangCoordinator, GangDegradedError,
                           GangFingerprintError, recv_frame, send_frame)
 from .env import (Env, GangRendezvous, get_rank,  # noqa
                   get_world_size, init_parallel_env)
 from .fleet import (CollectiveOptimizer, DistributedStrategy,  # noqa
-                    PaddleCloudRoleMaker, UserDefinedRoleMaker, fleet)
+                    PaddleCloudRoleMaker, PSFleet, TranspilerOptimizer,
+                    UserDefinedRoleMaker, fleet, ps_fleet)
 from .transpiler import GradAllReduce, LocalSGD  # noqa
+from . import downpour  # noqa  (legacy Downpour PS python API)

@@ -1,15 +1,18 @@
-"""Fleet, the distributed-training facade: its collective half (the port of
+"""Fleet, the distributed-training facade (the port of
 ``paddle_tpu/distributed/fleet.py``; ref ``incubate/fleet/base/
 fleet_base.py:38,222``, ``incubate/fleet/collective/__init__.py:41,140``,
-``incubate/fleet/base/role_maker.py``).
+``incubate/fleet/base/role_maker.py``, and the PS fleet of
+``incubate/fleet/parameter_server/distribute_transpiler/__init__.py``).
 
 ``fleet.init(role_maker)`` then ``fleet.distributed_optimizer(opt,
 strategy).minimize(loss)`` transpiles the program with ``GradAllReduce``
 (``strategy.mode == "collective"``) or ``LocalSGD`` (``"local_sgd"``) for
 the worker count, and the executor runs it in collective mode over the
-``dp`` axis of the current mesh.  The parameter-server branches (a
-``PSERVER`` role, the PS fleet) raise ``NotImplementedError`` until the PS
-slice.
+``dp`` axis of the current mesh.  ``ps_fleet`` (:class:`PSFleet`) is the
+parameter-server facade: ``minimize`` transpiles with
+``DistributeTranspiler``; a worker trains ``ps_fleet.main_program``, a
+server runs ``init_server()`` and ``run_server()`` (blocks until a trainer
+stops it).
 """
 
 from __future__ import annotations
@@ -19,10 +22,6 @@ from typing import List, Optional
 
 from .env import Env, init_parallel_env
 from .transpiler import GradAllReduce, LocalSGD
-
-_PS = ("the parameter-server mode (DistributeTranspiler, the PS fleet) "
-       "comes with the PS slice (ROADMAP Queue 1 item 3 (iii))")
-
 
 class Role:
     WORKER = 1
@@ -64,8 +63,9 @@ class RoleMakerBase:
         return self._server_endpoints
 
     def get_current_endpoint(self) -> str:
-        """This process's own endpoint (ref role_maker
-        get_current_endpoint)."""
+        """This process's own endpoint (ref role_maker get_current_endpoint):
+        a server serves its slot of the pserver list; a worker reports its
+        trainer endpoint."""
         eps = self._server_endpoints if self.is_server() \
             else self._worker_endpoints
         if not eps:
@@ -78,7 +78,7 @@ class RoleMakerBase:
 
 class PaddleCloudRoleMaker(RoleMakerBase):
     """Env-var role maker (ref role_maker.py PaddleCloudRoleMaker): reads
-    the ``PADDLE_*`` contract of the launcher."""
+    the ``PADDLE_*`` contract of the launchers (``launch``, ``launch_ps``)."""
 
     def __init__(self, is_collective: bool = False):
         super().__init__()
@@ -88,13 +88,21 @@ class PaddleCloudRoleMaker(RoleMakerBase):
         env = Env()
         training_role = os.getenv("TRAINING_ROLE", "TRAINER")
         if training_role == "PSERVER" and not self._is_collective:
-            raise NotImplementedError(f"TRAINING_ROLE=PSERVER: {_PS}")
-        self._role = Role.WORKER
-        self._current_id = env.rank
-        self._worker_endpoints = env.trainer_endpoints or \
-            ["127.0.0.1:6174"]
-        eps = os.getenv("PADDLE_PSERVER_ENDPOINTS", "")
-        self._server_endpoints = eps.split(",") if eps else []
+            self._role = Role.SERVER
+            self._current_id = int(os.getenv("PADDLE_PSERVER_ID", "0"))
+            eps = os.getenv("PADDLE_PSERVER_ENDPOINTS", "")
+            self._server_endpoints = eps.split(",") if eps else []
+            # servers must still know the trainer count (sync Fanin)
+            teps = os.getenv("PADDLE_TRAINER_ENDPOINTS", "")
+            self._worker_endpoints = teps.split(",") if teps else \
+                [""] * int(os.getenv("PADDLE_TRAINERS_NUM", "1"))
+        else:
+            self._role = Role.WORKER
+            self._current_id = env.rank
+            self._worker_endpoints = env.trainer_endpoints or \
+                ["127.0.0.1:6174"]
+            eps = os.getenv("PADDLE_PSERVER_ENDPOINTS", "")
+            self._server_endpoints = eps.split(",") if eps else []
 
 
 class UserDefinedRoleMaker(RoleMakerBase):
@@ -103,8 +111,6 @@ class UserDefinedRoleMaker(RoleMakerBase):
     def __init__(self, current_id=0, role=Role.WORKER, worker_num=1,
                  server_endpoints=None, worker_endpoints=None):
         super().__init__()
-        if role == Role.SERVER:
-            raise NotImplementedError(f"Role.SERVER: {_PS}")
         self._current_id = current_id
         self._role = role
         self._server_endpoints = server_endpoints or []
@@ -199,7 +205,7 @@ class Fleet:
         pass
 
     def init_server(self, *args, **kwargs):
-        raise NotImplementedError(f"init_server: {_PS}")
+        pass
 
     def run_server(self):
         raise RuntimeError("collective fleet has no servers; use the "
@@ -268,3 +274,97 @@ class CollectiveOptimizer:
 
 
 fleet = Fleet()
+
+
+# ---------------------------------------------------------------------------
+# parameter-server fleet (ref incubate/fleet/parameter_server/
+# distribute_transpiler/__init__.py DistributedTranspiler fleet)
+# ---------------------------------------------------------------------------
+
+class TranspilerOptimizer:
+    """ref parameter_server/distribute_transpiler __init__.py
+    TranspilerOptimizer: minimize() then transpile for PS."""
+
+    def __init__(self, optimizer, strategy, fleet):
+        self._optimizer = optimizer
+        self._strategy = strategy
+        self._fleet = fleet
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        result = self._optimizer.minimize(loss, startup_program,
+                                          parameter_list, no_grad_set)
+        from .ps import DistributeTranspiler, DistributeTranspilerConfig
+        cfg = self._strategy if isinstance(
+            self._strategy, DistributeTranspilerConfig) else None
+        t = DistributeTranspiler(cfg)
+        f = self._fleet
+        t.transpile(trainer_id=max(f.worker_index(), 0),
+                    pservers=f.server_endpoints(to_string=True),
+                    trainers=max(f.worker_num(), 1))
+        f._transpiler = t
+        if f.is_server():
+            ep = f._role_maker.get_current_endpoint()
+            f._main_program, f._startup_program = t.get_pserver_programs(ep)
+        else:
+            f._main_program = t.get_trainer_program()
+            from ..framework import core
+            f._startup_program = core.default_startup_program()
+        return result
+
+
+class PSFleet(Fleet):
+    """PS-mode fleet facade: workers train with send/recv programs, servers
+    block in run_server() (ref fleet_base + PS fleet impls).  A server's
+    executor runs on the host: the tables live there."""
+
+    def __init__(self):
+        super().__init__()
+        self._transpiler = None
+        self._main_program = None
+        self._startup_program = None
+
+    def init(self, role_maker: Optional[RoleMakerBase] = None):
+        # PS trainers are independent processes wired by the RPC plane,
+        # not a torch.distributed group (ref: the PS fleet never runs
+        # gen_nccl_id; that bootstrap belongs to collective mode)
+        self._role_maker = role_maker or PaddleCloudRoleMaker()
+        self._role_maker.generate_role()
+        self._is_initialized = True
+
+    @property
+    def main_program(self):
+        return self._main_program
+
+    @property
+    def startup_program(self):
+        return self._startup_program
+
+    def distributed_optimizer(self, optimizer, strategy=None):
+        self._assert_init()
+        self._strategy = strategy
+        return TranspilerOptimizer(optimizer, strategy, self)
+
+    def _server_executor(self):
+        from ..framework import Executor
+        from ..place import CPUPlace
+        return Executor(CPUPlace())
+
+    def init_server(self, *args, **kwargs):
+        self._server_executor().run(self._startup_program)
+
+    def run_server(self):
+        self._server_executor().run(self._main_program)   # blocks until STOP
+
+    def stop_worker(self):
+        from . import ps as ps_mod
+        if self._transpiler is not None:
+            for ep in self._transpiler.eps:
+                try:
+                    ps_mod.get_client(ep).barrier()
+                except Exception:
+                    pass
+        ps_mod.reset_clients()
+
+
+ps_fleet = PSFleet()

@@ -1036,6 +1036,13 @@ class Executor:
         if program is None:
             program = default_main_program()
         scope = scope or global_scope()
+        # a pserver program is a blocking host loop, not a block of ops
+        # (ref executor.py:1396-1403, listen_and_serv_op.cc RunImpl)
+        lsv = next((op for op in program.global_block().ops
+                    if op.type == "listen_and_serv"), None)
+        if lsv is not None:
+            from ..distributed import ps as _ps
+            return _ps.run_pserver(lsv, scope)
         feed = feed or {}
         fetch_names = tuple(f.name if isinstance(f, Variable) else f
                             for f in (fetch_list or []))

@@ -142,7 +142,11 @@ class Graph:
         program (``self.rank``).  The reference's sort has only the data
         edges: an op updating a persistable in place that nothing feeds,
         such as Adamax's ``scale`` of its beta1 power, ran first, before
-        the update reading the old power."""
+        the update reading the old power.  The parameter-server ops
+        (``ORDERED_OPS``) also keep their program order among themselves,
+        as the reference's ordered host callbacks do: a pull, a barrier or
+        a push with no data edge between them would otherwise move (a
+        ``recv`` before the last ``send`` of its step)."""
         indeg: Dict[int, int] = {op.id: 0 for op in self.op_nodes}
         succ: Dict[int, List[Node]] = {}
 
@@ -167,6 +171,11 @@ class Graph:
                         if self.rank[other.id] < self.rank[writer.id] \
                                 and writer not in succ.get(other.id, ()):
                             edge(other, writer)
+        ordered = [op for op in self.op_nodes if op.name in ORDERED_OPS]
+        ordered.sort(key=lambda op: self.rank[op.id])
+        for before, op in zip(ordered, ordered[1:]):
+            if op not in succ.get(before.id, ()):
+                edge(before, op)
         if priority is None:            # breadth first, the reference's
             ready = deque()
             push, pop = ready.append, ready.popleft
@@ -1570,6 +1579,13 @@ class FuseElewiseAddActPass(Pass):
 SIDE_EFFECT_OPS = frozenset({
     "feed", "fetch", "listen_and_serv", "send", "recv", "print", "assert",
     "save", "load", "py_func", "gen_nccl_id",
+})
+
+
+#: host RPC ops that run in their program order among themselves
+ORDERED_OPS = frozenset({
+    "send", "recv", "distributed_lookup_table", "fetch_barrier",
+    "send_barrier", "listen_and_serv",
 })
 
 

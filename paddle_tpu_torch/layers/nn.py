@@ -278,6 +278,20 @@ def topk(input, k, name=None):
     return values, indices
 
 
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None,
+                                      normalize=False):
+    """ref ``paddle_tpu/layers/nn.py:397``: the elementwise logistic loss
+    of logits ``x`` against ``label`` in [0, 1]."""
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("sigmoid_cross_entropy_with_logits",
+                     inputs={"X": [x], "Label": [label]},
+                     outputs={"Out": [out]},
+                     attrs={"ignore_index": ignore_index,
+                            "normalize": normalize})
+    return out
+
+
 def fused_lm_head_ce(x, size, label, param_attr=None, bias_attr=None,
                      ignore_index=-100, chunk_size=1024):
     """Chunked LM head + cross-entropy (ref ``paddle_tpu/layers/nn.py:1507``):
@@ -415,9 +429,19 @@ def slice(input, axes, starts, ends):
 # elementwise unary
 # ---------------------------------------------------------------------------
 
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    """ref ``paddle_tpu/layers/nn.py:801``: ``x + y``."""
+    return _elementwise_binary(x, y, "elementwise_add", axis=axis, act=act)
+
+
 def elementwise_sub(x, y, axis=-1, act=None, name=None):
     """ref ``paddle_tpu/layers/nn.py:805``: ``x - y``."""
     return _elementwise_binary(x, y, "elementwise_sub", axis=axis, act=act)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    """ref ``paddle_tpu/layers/nn.py:809``: ``x * y``."""
+    return _elementwise_binary(x, y, "elementwise_mul", axis=axis, act=act)
 
 
 def elementwise_mod(x, y, axis=-1, act=None, name=None):

@@ -1,1 +1,2 @@
-from . import resnet, transformer  # noqa
+from . import ctr, resnet, transformer  # noqa
+from .ctr import build_ctr_train  # noqa

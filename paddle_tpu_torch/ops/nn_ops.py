@@ -296,6 +296,23 @@ def _swce_grad(ctx, ins, attrs):
     return {"LogitsGrad": [glogits]}
 
 
+@register_op("sigmoid_cross_entropy_with_logits")
+def _sce_logits(ctx, ins, attrs):
+    """ref ``paddle_tpu/ops/nn_ops.py:497``: max(x, 0) - x·label +
+    log1p(exp(-|x|)) elementwise; elements whose label is ``ignore_index``
+    are 0, and ``normalize`` divides by the count of the others (at least
+    1)."""
+    x, label = X(ins, "X"), X(ins, "Label")
+    ignore_index = attrs.get("ignore_index", -100)
+    loss = torch.clamp(x, min=0) - x * label + \
+        torch.log1p(torch.exp(-torch.abs(x)))
+    mask = label != ignore_index
+    loss = torch.where(mask, loss, torch.zeros_like(loss))
+    if attrs.get("normalize", False):
+        loss = loss / torch.clamp(mask.to(x.dtype).sum(), min=1.0)
+    return {"Out": [loss]}
+
+
 @register_op("square_error_cost")
 def _square_error_cost(ctx, ins, attrs):
     """ref ``paddle_tpu/ops/nn_ops.py:509``: (x - y)^2 elementwise."""

@@ -4,7 +4,7 @@ processes behind a ``FleetRouter`` under an open-loop client, with scripted
 kills, asserting that the fleet drops nothing.
 
     python paddle_tpu_torch/tools/fleet_smoke.py [--scenario drain kill
-        coord scale] [--cpu] [--width tiny|full] [--full] [--bench]
+        coord scale] [--cpu] [--width tiny|full|full2] [--full] [--bench]
 
 1. ``drain`` — SIGTERM one of two replicas mid-load: the replica drains its
    in-flight work and exits 0; the router holds it out of placement and
@@ -42,7 +42,8 @@ spike, the p99 under a replica SIGKILL.
 
 Every replica serves the same GPT (``--width tiny``: vocab 64, d 64, 4
 layers; ``full``: the GPT at BERT-base width, vocab 30522, d 768, 12
-layers, 12 heads), built with one bucket (32) and flash attention and
+layers, 12 heads; ``full2``: that width at 2 layers), built with one
+bucket (32) and flash attention and
 served through ``InferenceServer`` behind a ``ReplicaEndpoint``.  The
 driver makes seeded random weights on the replicas' device, serves one
 probe request from them in process, and saves them with
@@ -93,10 +94,12 @@ WIDTHS = {
                  d_inner=256, max_pos=64, dropout=0.0),
     "full": dict(vocab_size=30522, d_model=768, n_layer=12, n_head=12,
                  d_inner=3072, max_pos=2048, dropout=0.0),
+    "full2": dict(vocab_size=30522, d_model=768, n_layer=2, n_head=12,
+                  d_inner=3072, max_pos=2048, dropout=0.0),
 }
 #: tokens a request: a full-width request's logits go back as JSON, ~0.6 MB
 #: a token
-REQUEST_TOKENS = {"tiny": 24, "full": 2}
+REQUEST_TOKENS = {"tiny": 24, "full": 2, "full2": 2}
 WEIGHT_SEED = 4321
 #: how long a drained replica's endpoint keeps refusing before it closes
 DRAIN_GRACE_S = 0.5

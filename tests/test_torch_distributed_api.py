@@ -12,7 +12,8 @@ collective half (``distributed/fleet.py``).
   reference's op-type sequence, startup and main, for ``mode="collective"``
   (``GradAllReduce``) and ``"local_sgd"`` (``LocalSGD``), and the program
   then trains in collective mode over a ``dp`` mesh;
-- the parameter-server branches raise ``NotImplementedError``.
+- the parameter-server branches (the PSERVER role maker, ``Role.SERVER``,
+  ``init_server``) take the reference's paths.
 """
 
 import importlib
@@ -181,18 +182,46 @@ def test_one_worker_does_not_transpile():
                                      main.global_block().ops]
 
 
-def test_parameter_server_branches_raise(monkeypatch):
+def test_parameter_server_branches_work(monkeypatch):
+    """The PSERVER role maker, ``Role.SERVER`` and ``init_server`` take the
+    reference's parameter-server branches."""
     monkeypatch.setenv("TRAINING_ROLE", "PSERVER")
-    with pytest.raises(NotImplementedError, match="PS slice"):
-        fleet_mod.PaddleCloudRoleMaker(is_collective=False).generate_role()
-    with pytest.raises(NotImplementedError, match="PS slice"):
-        fleet_mod.UserDefinedRoleMaker(role=fleet_mod.Role.SERVER)
+    monkeypatch.setenv("PADDLE_PSERVER_ID", "1")
+    monkeypatch.setenv("PADDLE_PSERVER_ENDPOINTS",
+                       "127.0.0.1:7000,127.0.0.1:7001")
+    monkeypatch.setenv("PADDLE_TRAINERS_NUM", "3")
+    got = fleet_mod.PaddleCloudRoleMaker(is_collective=False)
+    want = ref_fleet.PaddleCloudRoleMaker(is_collective=False)
+    for rm in (got, want):
+        rm.generate_role()
+        assert rm.is_server() and not rm.is_worker()
+        assert rm.server_index() == 1 and rm.worker_num() == 3
+        assert rm.get_current_endpoint() == "127.0.0.1:7001"
+    assert got.get_pserver_endpoints() == want.get_pserver_endpoints()
+    srv = fleet_mod.UserDefinedRoleMaker(
+        current_id=0, role=fleet_mod.Role.SERVER,
+        server_endpoints=["127.0.0.1:7000"])
+    assert srv.is_server() and srv.get_current_endpoint() == \
+        "127.0.0.1:7000"
     f = fleet_mod.Fleet()
     f.init(fleet_mod.UserDefinedRoleMaker())
-    with pytest.raises(NotImplementedError, match="PS slice"):
-        f.init_server()
+    assert f.init_server() is None               # the reference's no-op
     with pytest.raises(RuntimeError, match="no servers"):
         f.run_server()
+    # the PS fleet's server runs its pserver startup on the host
+    psf = fleet_mod.PSFleet()
+    psf.init(srv)
+    with unique_name.guard():
+        x = ptt.layers.data("x", shape=[4], dtype="float32")
+        loss = ptt.layers.mean(ptt.layers.fc(x, size=1))
+        psf.distributed_optimizer(opt.SGD(learning_rate=0.1)).minimize(loss)
+    assert [op.type for op in psf.main_program.global_block().ops] == \
+        ["listen_and_serv"]
+    scope = ptt.Scope()
+    with ptt.framework.scope_guard(scope):
+        psf.init_server()
+    assert sorted(scope.local_var_names()) == sorted(
+        s["name"] for s in psf._transpiler._param_specs.values())
     # a collective cloud role maker ignores TRAINING_ROLE, as the reference
     rm = fleet_mod.PaddleCloudRoleMaker(is_collective=True)
     rm.generate_role()
@@ -201,12 +230,8 @@ def test_parameter_server_branches_raise(monkeypatch):
 
 def test_exports_match_the_reference_collective_half():
     import paddle_tpu.distributed as ref_dist
-    ps_only = {"Communicator", "DistributeTranspiler",
-               "DistributeTranspilerConfig", "GeoCommunicator", "PSFleet",
-               "TranspilerOptimizer", "ps_fleet", "GangClient",
-               "GangCoordinator", "GangDegradedError",
-               "GangFingerprintError", "ps", "downpour", "coordinator",
-               "launch"}
+    ps_only = {"GangClient", "GangCoordinator", "GangDegradedError",
+               "GangFingerprintError", "coordinator", "launch"}
     want = {n for n in dir(ref_dist) if not n.startswith("_")} - ps_only
     got = {n for n in dir(distributed) if not n.startswith("_")}
     assert want - got == set()

@@ -26,9 +26,12 @@
   and one ``with_gspmd`` step of a tiny MLP over dp 2 x mp 2 virtual ranks
   (the plan's bytes counted, the Adam moment a dp-sharded value), and one
   pipelined step of a two-stage MLP (a stage on a device list) and one
-  ``switch_moe_ffn`` step over ep 2 x dp 2 virtual ranks;
+  ``switch_moe_ffn`` step over ep 2 x dp 2 virtual ranks, and two steps of
+  the transpiled DeepFM over a pserver thread (the port's own server
+  library);
 - a source scan finds no ``jax`` or ``paddle_tpu`` import in the package or
-  in ``chip_smoke.py``, the multi-process modules and tools among them;
+  in ``chip_smoke.py``, the multi-process and PS modules and tools among
+  them, and no source names the JAX package's native library;
 - ``init_parallel_env`` at world 1, a coordinator and a client run in a
   subprocess with JAX blocked;
 - ``Executor()`` and ``DecodeEngine()`` (the card by default) raise when
@@ -349,13 +352,25 @@ def test_no_jax_or_reference_import_in_sources():
             "paddle_tpu_torch/dygraph/__init__.py",
             "paddle_tpu_torch/dygraph/base.py",
             "paddle_tpu_torch/dygraph/tracer.py",
-            "paddle_tpu_torch/dygraph/eager_apply.py"} <= scanned
+            "paddle_tpu_torch/dygraph/eager_apply.py",
+            "paddle_tpu_torch/ps_native.py",
+            "paddle_tpu_torch/distributed/ps.py",
+            "paddle_tpu_torch/distributed/launch_ps.py",
+            "paddle_tpu_torch/distributed/downpour.py",
+            "paddle_tpu_torch/models/ctr.py",
+            "paddle_tpu_torch/tools/ps_runner.py"} <= scanned
     offenders = []
     for path in _sources():
         with open(path) as f:
-            for m in _FORBIDDEN.finditer(f.read()):
-                offenders.append(f"{os.path.relpath(path, REPO)}: "
-                                 f"{m.group(0).strip()}")
+            text = f.read()
+        for m in _FORBIDDEN.finditer(text):
+            offenders.append(f"{os.path.relpath(path, REPO)}: "
+                             f"{m.group(0).strip()}")
+        # the parameter server loads its own build, never the JAX
+        # package's native library
+        if "libpaddle_tpu_native" in text:
+            offenders.append(f"{os.path.relpath(path, REPO)}: "
+                             "libpaddle_tpu_native")
     assert offenders == []
 
 
@@ -637,6 +652,62 @@ def test_pipeline_and_moe_run_with_jax_blocked():
                          timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "pipeline " in res.stdout and " moe " in res.stdout
+
+
+_PS_BLOCKED = textwrap.dedent("""
+    import sys, threading
+    sys.modules["jax"] = None
+    sys.modules["paddle_tpu"] = None
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import flags, optimizer, ps_native
+    from paddle_tpu_torch.distributed import (DistributeTranspiler,
+                                              downpour, launch_ps, ps)
+    from paddle_tpu_torch.framework import Program, Scope, program_guard
+    from paddle_tpu_torch.models import build_ctr_train
+    from paddle_tpu_torch.tools import gang_smoke, ps_runner
+    flags.set_flags({"FLAGS_rpc_deadline": 10000})
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        loss, _, _ = build_ctr_train(sparse_dim=20, embed_size=4,
+                                     is_sparse=True)
+        optimizer.SGD(learning_rate=0.2).minimize(loss)
+    ep = f"127.0.0.1:{gang_smoke.free_port()}"
+    t = DistributeTranspiler()
+    t.transpile(0, program=main, pservers=ep, trainers=1,
+                startup_program=startup)
+    pprog, pstart = t.get_pserver_programs(ep)
+    exe, srv_scope, sc = ptt.Executor(ptt.CPUPlace()), Scope(), Scope()
+    exe.run(pstart, scope=srv_scope)
+    th = threading.Thread(target=exe.run, args=(pprog,),
+                          kwargs={"scope": srv_scope}, daemon=True)
+    th.start()
+    exe.run(startup, scope=sc)
+    feed = ps_runner.deepfm_batches(0, 8, 20)
+    losses = [float(exe.run(t.get_trainer_program(), feed=feed(i),
+                            fetch_list=[loss], scope=sc)[0])
+              for i in range(2)]
+    ps.get_client(ep).stop_server()
+    th.join(20)
+    assert not th.is_alive() and np.isfinite(losses).all(), losses
+    assert "paddle_tpu_torch_kernels" in str(ps_native.library_path())
+    assert not [m for m, mod in sys.modules.items() if mod is not None
+                and (m == "jax" or m.startswith(("jax.", "paddle_tpu.")))]
+    print("ps", [round(x, 4) for x in losses])
+""")
+
+
+def test_parameter_server_runs_with_jax_blocked():
+    """The port's own server library (built from ``csrc/ps_server.cc``),
+    a pserver program on a thread and two steps of the transpiled DeepFM
+    over it, with JAX and the reference unimportable."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run([sys.executable, "-c", _PS_BLOCKED], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.startswith("ps [")
 
 
 def test_default_executor_needs_a_gpu():

@@ -213,13 +213,16 @@ def test_the_new_op_types_are_registered():
            "truncated_gaussian_random"}
     ops = registry.registered_ops()
     # 116 and switch_ffn, then sync_batch_norm and the ops the SPMD
-    # lowering emits
+    # lowering emits, then the parameter server's
     spmd = {"sync_batch_norm", "c_alltoall", "spmd_alias",
             "spmd_vocab_lookup", "spmd_vocab_softmax_ce",
             "spmd_vocab_softmax_ce_grad", "spmd_unflatten",
             "spmd_layer_norm", "spmd_softmax", "spmd_switch_ffn"}
-    assert new | spmd | {"switch_ffn"} <= set(ops) and \
-        len(ops) == 117 + len(spmd)
+    ps = {"send", "recv", "distributed_lookup_table", "fetch_barrier",
+          "send_barrier", "listen_and_serv",
+          "sigmoid_cross_entropy_with_logits"}
+    assert new | spmd | ps | {"switch_ffn"} <= set(ops) and \
+        len(ops) == 117 + len(spmd) + len(ps)
     assert {c[0] for c in list(CASES.values()) + list(
         MISC_CASES.values())} == new - {"truncated_gaussian_random"}
 
