@@ -361,7 +361,28 @@ JAX, prints one line per phase, and raises on any failure:
    the push (the server's Adam included), the pull and the copy back, the
    bytes each way, the peak above held beside the one device's, and the
    RPC quantiles.
-   ``gang_train`` (after ``ps_train``) — several processes: two
+   ``dygraph_train`` (after ``ps_train``) — dygraph mode, float32 with
+   TF32 off.  (a) ResNet-50 (depth 50, class_dim 1000, 3x224x224) built
+   from ``dygraph.nn`` layers (``tests/_dygraph_resnet.py``, the
+   structure and parameter names of ``models/resnet.py``) from a static
+   startup's values, ``DYGRAPH_STEPS`` steps of ``MomentumOptimizer(0.1,
+   0.9, parameter_list=...)`` at batch ``DYGRAPH_BATCH`` against the
+   unfused static program on the same card, feed and weights, both on
+   cuDNN's deterministic algorithms (on the default ones two static runs
+   already differ, printed as the yardstick): each loss within
+   ``DYGRAPH_LOSS_RTOL``, ``fc_out.w`` and ``DYGRAPH_BN_STAT`` after the
+   last step within ``DYGRAPH_PARAM_FRAC`` of their largest magnitude, no
+   kernel launched; the step ms of both and their peaks above held.  (b)
+   ``train``'s width traced: ``Linear`` to q, k, v
+   (``DYGRAPH_ATTN``), ``trace_op("flash_attention")`` causal,
+   ``Dropout(DYGRAPH_DROPOUT)``, ``mean``, ``backward()``: dq, dk, dv
+   (scaled by the mean's count) within ``ATOL`` + ``RTOL`` of autograd
+   of the plain attention on the card, the dropout's gradient equal to
+   mask x scale x upstream bit for bit, and each step K1 1, K2 1 and the
+   dropout kernel 2 (its forward and its grad op).  (c) (a)'s net saved
+   by ``save_dygraph``, zeroed, and loaded by ``load_dygraph`` +
+   ``set_dict``: every tensor bit for bit on the card.
+   ``gang_train`` (after ``dygraph_train``) — several processes: two
    trainer processes of ``python -m paddle_tpu_torch.distributed.launch
    --nproc_per_node 2`` share this card, each running
    ``paddle_tpu_torch/tools/collective_runner.py`` under the launcher's
@@ -573,6 +594,15 @@ MOE_AXES, MOE_LOSS_RTOL, MOE_LR = {"ep": 2, "dp": 2}, 2e-4, 1e-3
 # deadline (ms) of both parts
 PS_SPARSE_DIM, PS_BATCH, PS_STEPS, PS_GEO_PUSH = 10000, 512, 11, 5
 PS_TIMEOUT_S, PS_RPC_DEADLINE_MS = 300, 120000
+# dygraph_train: (a) ResNet-50 in dygraph against the static program,
+# batch, steps, the loss's relative limit and the parameters' (of their
+# largest magnitude); (b) a traced flash attention at the GPT's width,
+# batch x heads x T x d_head, its steps, the dropout rate
+DYGRAPH_RESNET = dict(class_dim=1000, depth=50, image_shape=(3, 224, 224))
+DYGRAPH_BATCH, DYGRAPH_STEPS = 32, 3
+DYGRAPH_LOSS_RTOL, DYGRAPH_PARAM_FRAC = 1e-4, 1e-4
+DYGRAPH_BN_STAT = "res3_2.b2.bn.mean"
+DYGRAPH_ATTN, DYGRAPH_ATTN_STEPS, DYGRAPH_DROPOUT = (2, 12, 2048, 64), 2, 0.1
 # preempt_train: steps a run, the daemon's interval, and a child's time limit
 PREEMPT_STEPS, PREEMPT_INTERVAL, PREEMPT_TIMEOUT_S = 8, 2, 300
 # ... at BERT-base width cut to 2 layers (preempt_runner's "full2"), which
@@ -798,8 +828,13 @@ FLEET_SMOKE_TIMEOUT_S = 600
 FLEET_REPLICA_WIDTH = "full2"
 
 
+#: the script's start: each log line carries the seconds since, so a run's
+#: output says where its time went
+_T0 = time.perf_counter()
+
+
 def _log(phase, msg):
-    print(f"[{phase}] {msg}", flush=True)
+    print(f"[{phase} +{time.perf_counter() - _T0:.1f}s] {msg}", flush=True)
 
 
 def _peaks(name, kind="float32"):
@@ -8553,6 +8588,263 @@ def phase_serve_fleet(smi, serve, decode):
             "replica_launches": sum(ch["stats"]["k1"] for _n, ch in kids)}
 
 
+def _dygraph_resnet(smi):
+    """``dygraph_train`` (a): ResNet-50 built from ``dygraph.nn`` layers
+    (``tests/_dygraph_resnet.py``) from the static program's startup
+    values, DYGRAPH_STEPS Momentum steps against the unfused static
+    program on the same card and feed; then (c) its save and load."""
+    import tempfile
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import dygraph, flags, optimizer
+    from paddle_tpu_torch.framework import Scope
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from _dygraph_resnet import build_resnet, conv_bns, load_static, loss_of
+
+    cfg = DYGRAPH_RESNET
+    main, startup, loss, _ = _resnet_program(**cfg)
+    scope, exe = Scope(), ptt.Executor()
+    exe.run(startup, scope=scope, seed=1234)
+    values = {n: v.detach().clone() for n, v in scope.items()}
+    feed = _resnet_feed(DYGRAPH_BATCH, cfg["class_dim"], cfg["image_shape"],
+                        seed=3)
+
+    def timed(step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def static_run():
+        """DYGRAPH_STEPS unfused static steps from ``values``: losses and
+        seconds, the peak above held, fc_out.w and DYGRAPH_BN_STAT."""
+        for n, v in values.items():
+            scope.set_var(n, v.clone())
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        flags.set_flags({"FLAGS_graph_fusion": False})
+        try:
+            steps = [timed(lambda: float(exe.run(
+                main, feed=feed, fetch_list=[loss], scope=scope)[0]))
+                for _ in range(DYGRAPH_STEPS)]
+        finally:
+            flags.set_flags({"FLAGS_graph_fusion": True})
+        return (steps, torch.cuda.max_memory_allocated() - held,
+                scope.find_var("fc_out.w").detach().clone(),
+                scope.find_var(DYGRAPH_BN_STAT).detach().clone())
+
+    # cuDNN's default algorithms accumulate a conv's weight gradient in no
+    # fixed order: two runs of the static program itself differ after the
+    # first update, and lr 0.1 amplifies that over the steps.  The
+    # yardstick is two such runs; the held comparison runs both sides on
+    # its deterministic algorithms
+    noise = [static_run()[0] for _ in range(2)]
+    noise_rel = max(abs(x - y) / abs(y) for (x, _), (y, _) in
+                    zip(*noise))
+    torch.backends.cudnn.deterministic = True
+    try:
+        static, static_peak, want_w, want_m = static_run()
+        del scope, exe
+        torch.cuda.empty_cache()
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t_b = time.perf_counter()
+        with dygraph.guard():
+            net = build_resnet(ptt, **{k: cfg[k] for k in ("depth",
+                                                           "class_dim")})
+            load_static(dygraph, net, values, cfg["image_shape"])
+            build_s = time.perf_counter() - t_b
+            opt = optimizer.MomentumOptimizer(
+                0.1, 0.9, parameter_list=net.parameters())
+
+            def step():
+                l = loss_of(dygraph, net,
+                            dygraph.to_variable(feed["image"]),
+                            dygraph.to_variable(feed["label"]))
+                l.backward()
+                opt.minimize(l)
+                net.clear_gradients()
+                return float(l.numpy())
+            dyn = [timed(step) for _ in range(DYGRAPH_STEPS)]
+            dyn_peak = torch.cuda.max_memory_allocated() - held
+            bn = {l.bn_name + ".mean": l.bn for l in conv_bns(net)}
+            got_w = net.fc.weight.value
+            got_m = bn[DYGRAPH_BN_STAT]._mean.value
+            launches = _launches_nonzero()
+            # (c) save, zero every parameter and buffer, load back
+            state = {k: v.value.clone()
+                     for k, v in net.state_dict().items()}
+            with tempfile.TemporaryDirectory() as d:
+                t_s = time.perf_counter()
+                dygraph.save_dygraph(net.state_dict(),
+                                     os.path.join(d, "rn50"))
+                save_s = time.perf_counter() - t_s
+                nbytes = os.path.getsize(os.path.join(d, "rn50.pdparams"))
+                for v in net.state_dict().values():
+                    v.set_value(torch.zeros_like(v.value))
+                t_l = time.perf_counter()
+                params, _ = dygraph.load_dygraph(os.path.join(d, "rn50"))
+                net.set_dict(params)
+                load_s = time.perf_counter() - t_l
+            differ = [k for k, v in net.state_dict().items()
+                      if not torch.equal(v.value, state[k])
+                      or v.value.device != state[k].device]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if differ:
+        raise AssertionError(f"dygraph_train (c): {len(differ)} of "
+                             f"{len(state)} tensors differ after save and "
+                             f"load, first {differ[:3]}")
+    losses = [(x, y) for (x, _), (y, _) in zip(dyn, static)]
+    worst = max(abs(x - y) / abs(y) for x, y in losses)
+    w_frac = float((got_w - want_w).abs().max() / want_w.abs().max())
+    m_frac = float((got_m - want_m).abs().max() / want_m.abs().max())
+    dyn_ms = [1e3 * t for _, t in dyn]
+    static_ms = [1e3 * t for _, t in static]
+    default_ms = [1e3 * t for _, t in noise[1]]
+    _log("dygraph_train", f"(a) ResNet-50 in dygraph (Conv2D / BatchNorm / "
+         f"Pool2D / FC), batch {DYGRAPH_BATCH} x "
+         f"{'x'.join(map(str, cfg['image_shape']))} float32, "
+         f"MomentumOptimizer(0.1, 0.9, parameter_list=...), built and "
+         f"loaded from the static startup in {build_s:.2f} s: losses "
+         f"{[x for x, _ in losses]} against the unfused static program's "
+         f"{[y for _, y in losses]}, worst relative {worst:.3g} (limit "
+         f"{DYGRAPH_LOSS_RTOL}); after step {DYGRAPH_STEPS} fc_out.w "
+         f"{w_frac:.3g} and {DYGRAPH_BN_STAT} {m_frac:.3g} of their largest "
+         f"magnitude (limit {DYGRAPH_PARAM_FRAC}), both on cuDNN's "
+         f"deterministic algorithms (two static runs on its default ones "
+         f"differ by {noise_rel:.3g} relative, losses "
+         f"{[x for x, _ in noise[0]]} and {[x for x, _ in noise[1]]}); "
+         f"steps {', '.join(f'{x:.1f}' for x in dyn_ms)} ms dygraph, "
+         f"{', '.join(f'{x:.1f}' for x in static_ms)} ms static, "
+         f"{', '.join(f'{x:.1f}' for x in default_ms)} ms static on the "
+         f"default algorithms (host clock, each ending in a synchronize; "
+         f"the first of each a warm-up); peak {dyn_peak / 2**30:.3f} GiB "
+         f"above held dygraph, {static_peak / 2**30:.3f} static; launches "
+         f"{launches}; on {smi}")
+    _log("dygraph_train", f"(c) save_dygraph of {len(state)} tensors "
+         f"({nbytes} B) in {save_s:.2f} s, load_dygraph + set_dict in "
+         f"{load_s:.2f} s: every tensor equal bit for bit on "
+         f"{next(iter(state.values())).device}")
+    if not worst <= DYGRAPH_LOSS_RTOL or not w_frac <= DYGRAPH_PARAM_FRAC \
+            or not m_frac <= DYGRAPH_PARAM_FRAC:
+        raise AssertionError("dygraph_train (a): dygraph and static differ "
+                             "beyond the limits above")
+    if launches:
+        raise AssertionError(f"dygraph_train (a): kernels launched on the "
+                             f"unfused ResNet path: {launches}")
+    return {"losses": [x for x, _ in losses],
+            "static_losses": [y for _, y in losses], "worst_rel": worst,
+            "fc_out_w_frac": w_frac, "bn_mean_frac": m_frac,
+            "static_noise_rel": noise_rel, "step_ms": dyn_ms,
+            "static_step_ms": static_ms, "static_default_ms": default_ms,
+            "peak_bytes": dyn_peak, "static_peak_bytes": static_peak,
+            "build_s": build_s, "save_s": save_s, "load_s": load_s,
+            "checkpoint_bytes": nbytes}
+
+
+def _dygraph_attention(smi):
+    """``dygraph_train`` (b): Linear to q, k, v, a traced
+    ``flash_attention`` (K1, its backward K2), ``Dropout``, ``mean`` and
+    ``backward()``; the q, k, v gradients against autograd of the plain
+    attention on the card, the dropout's gradient against mask x scale x
+    upstream exactly."""
+    import torch
+    import paddle_tpu_torch as ptt  # noqa: F401
+    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.nn_ops import dropout_scale
+    b, h, t, d = DYGRAPH_ATTN
+    w = h * d
+    rng = np.random.RandomState(5)
+    x_np = rng.randn(b * t, w).astype(np.float32)
+    per_step, step_ms, errs = [], [], {}
+    with dygraph.guard():
+        tracer = dygraph.default_tracer()
+        proj = [dygraph.Linear(w, w) for _ in range(3)]
+        drop = dygraph.Dropout(DYGRAPH_DROPOUT)
+
+        def heads(y):
+            y = tracer.trace_op("reshape2", {"X": [y]},
+                                {"shape": [b, t, h, d]})["Out"][0]
+            return tracer.trace_op("transpose2", {"X": [y]},
+                                   {"axis": [0, 2, 1, 3]})["Out"][0]
+        for _ in range(DYGRAPH_ATTN_STEPS):
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = dygraph.to_variable(x_np)
+            q, k, v = (heads(p(x)) for p in proj)
+            o = tracer.trace_op("flash_attention",
+                                {"Q": [q], "K": [k], "V": [v]},
+                                {"causal": True})["Out"][0]
+            y = drop(o)
+            loss = tracer.trace_op("mean", {"X": [y]}, {})["Out"][0]
+            loss.backward()
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            per_step.append(_launches_nonzero())
+        # the plain attention, differentiated by autograd, on the same
+        # q, k, v and upstream gradient; both sides scaled by the mean's
+        # count, the gradients of the sum
+        n = float(o.value.numel())
+        leaves = [z.value.reshape(b * h, t, d).detach().requires_grad_(True)
+                  for z in (q, k, v)]
+        ref_o, _ = fa.flash_attention_reference(*leaves, causal=True)
+        want = torch.autograd.grad(ref_o, leaves,
+                                   o.grad.reshape(b * h, t, d))
+        for name, z, r in zip("qkv", (q, k, v), want):
+            errs[name] = _check(f"dygraph_train (b) d{name}",
+                                z.grad.reshape(b * h, t, d) * n, r * n)
+        keep = y.value != 0
+        if bool((o.value == 0).any()):
+            raise AssertionError("dygraph_train (b): an attention output "
+                                 "is exactly 0, so the mask cannot be read "
+                                 "from the dropout's output")
+        scale = torch.tensor(dropout_scale(
+            {"dropout_prob": DYGRAPH_DROPOUT,
+             "dropout_implementation": "upscale_in_train"}),
+            dtype=torch.float32, device=o.device)
+        want_do = torch.where(keep, y.grad * scale, torch.zeros_like(y.grad))
+        if not torch.equal(o.grad, want_do):
+            raise AssertionError(
+                f"dygraph_train (b): the dropout's gradient differs from "
+                f"mask x scale x upstream at "
+                f"{int((o.grad != want_do).sum())} elements")
+        kept = float(keep.float().mean())
+    want_counts = {"flash_attn_fwd": 1, "flash_attn_bwd": 1, "dropout": 2}
+    if any(c != want_counts for c in per_step):
+        raise AssertionError(f"dygraph_train (b): launches a step "
+                             f"{per_step}, expected {want_counts}")
+    _log("dygraph_train", f"(b) Linear -> q, k, v [{b}, {h}, {t}, {d}] -> "
+         f"traced flash_attention (causal) -> Dropout({DYGRAPH_DROPOUT}) -> "
+         f"mean -> backward(): dq, dk, dv x {int(n)} within atol {ATOL} + "
+         f"rtol {RTOL} of autograd of the plain attention (max abs "
+         f"{', '.join(f'd{k} {e:.3g}' for k, e in errs.items())}); the "
+         f"dropout's gradient equal to mask x scale x upstream bit for bit "
+         f"(kept {kept:.4f}); launches a step {per_step[-1]}; steps "
+         f"{', '.join(f'{x:.1f}' for x in step_ms)} ms (forward and "
+         f"backward, host clock ending in a synchronize); on {smi}")
+    return {"launches": {k: v * DYGRAPH_ATTN_STEPS
+                         for k, v in want_counts.items()},
+            "max_abs_err": errs, "step_ms": step_ms, "kept": kept}
+
+
+def phase_dygraph_train(smi):
+    """Dygraph on the card (module docstring): (a) and (c) ResNet-50, (b)
+    the traced flash attention."""
+    t_phase = time.perf_counter()
+    a = _dygraph_resnet(smi)
+    b = _dygraph_attention(smi)
+    wall = time.perf_counter() - t_phase
+    _log("dygraph_train", f"phase wall time {wall:.1f} s")
+    return {"resnet": a, "attention": b, "launches": b["launches"],
+            "wall_s": wall}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", help="also write every measurement here")
@@ -8562,7 +8854,7 @@ def main(argv=None) -> int:
                          "and an AMP GPT step, a float32 and an AMP "
                          "ResNet-50 step, a step of each ring_train "
                          "program and a bert_train step by kernel")
-    ap.add_argument("--only", choices=("ps_train",),
+    ap.add_argument("--only", choices=("ps_train", "dygraph_train"),
                     help="a probe: build the kernels, run dp_train's "
                          "one-device steps and this phase alone, and end "
                          "with the phase's summary (not the ok line)")
@@ -8579,6 +8871,16 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     smi, built = phase_env()
+    if args.only == "dygraph_train":
+        out = phase_dygraph_train(smi)
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump({"gpu": smi, "dygraph_train": out}, f, indent=1,
+                          default=float)
+        print(json.dumps({"probe": "dygraph_train",
+                          "launches": out["launches"],
+                          "wall_s": out["wall_s"]}))
+        return 0
     if args.only == "ps_train":
         cfg = _gpt_cfg()
         feed = _train_feed(cfg, TRAIN_BATCH, cfg.max_pos)
@@ -8608,6 +8910,7 @@ def main(argv=None) -> int:
     pipe_train = phase_pipe_train(smi, dp_train)
     moe_train = phase_moe_train(smi)
     ps_train = phase_ps_train(smi, dp_train)
+    dygraph_train = phase_dygraph_train(smi)
     gang_train = phase_gang_train(smi, dp_train)
     preempt = phase_preempt_train(train)
     amp_train = phase_amp_train(train)
@@ -8740,6 +9043,9 @@ def main(argv=None) -> int:
     # the parameter server: (b)'s GPT steps and (a)'s DeepFM trainers
     for name, n in ps_train["launches"].items():
         by_path[name]["ps_train"] = n
+    # dygraph: (b)'s traced attention (the ResNet runs no kernel)
+    for name, n in dygraph_train["launches"].items():
+        by_path[name]["dygraph_train"] = n
     missing = [n for n, paths in by_path.items() if not sum(paths.values())]
     if missing:
         raise AssertionError(f"kernels never launched on their paths: "
@@ -8779,6 +9085,7 @@ def main(argv=None) -> int:
                        "gspmd_train": gspmd_train,
                        "pipe_train": pipe_train, "moe_train": moe_train,
                        "ps_train": ps_train,
+                       "dygraph_train": dygraph_train,
                        "gang_train": gang_train,
                        "observe_resnet": observe_resnet,
                        "observe_serve": observe_serve,

@@ -24,7 +24,10 @@ time and memory planes: the executor's dispatch ledger and live MFU,
 memory` and :mod:`paddle_tpu_torch.hbm`, and data parallelism in the
 executor's collective mode (:mod:`paddle_tpu_torch.distributed`: the ``c_*``
 ops, the ``GradAllReduce`` / ``LocalSGD`` transpilers, the fleet facade;
-``parallel.DGCGradAllReduce``; the comms plane ``analysis.comms``).
+``parallel.DGCGradAllReduce``; the comms plane ``analysis.comms``), and
+dygraph (define-by-run) mode: :mod:`paddle_tpu_torch.dygraph`'s tracer and
+tape, ``Layer`` and its ``nn`` layers, the decays, checkpoints and
+``DataParallel``.
 """
 
 from . import ops  # noqa  (registers the op lowerings)
@@ -38,6 +41,7 @@ from .framework import (Program, Scope, Variable,  # noqa
                         program_guard, scope_guard)
 from .framework.executor import Executor  # noqa
 from . import amp, io, models, optimizer, parallel, serving  # noqa
+from . import dygraph  # noqa
 from . import inference  # noqa
 from . import hbm, memory, profiler  # noqa
 from .io import load_inference_model, save_inference_model  # noqa

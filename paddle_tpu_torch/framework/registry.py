@@ -21,7 +21,7 @@ called without one.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -49,6 +49,9 @@ class OpInfo:
         # ``vjp(ctxs, ins_list, attrs) -> outs_list`` over the grad op's
         # X$/OG$ inputs and IG$ outputs (None: not differentiable)
         self.grad = grad
+        # a shape rule ``shape(ins, attrs) -> {slot: [Meta]}`` that shape
+        # inference runs in place of the lowering (``ops/shape_rules.py``)
+        self.shape = None
 
 
 _REGISTRY: Dict[str, OpInfo] = {}
@@ -119,6 +122,13 @@ def collective_grad_info(fwd_info: OpInfo, grad_type: str) -> OpInfo:
 SENTINEL = 9973
 
 
+class Meta(NamedTuple):
+    """An input or output of a shape rule: its shape (``SENTINEL`` for a
+    symbolic dim) and torch dtype."""
+    shape: tuple
+    dtype: torch.dtype
+
+
 class AbstractCtx:
     """Lowering context for shape inference: meta device, no generator;
     its random streams are placeholders (no bits are drawn on meta)."""
@@ -145,9 +155,10 @@ _RECORDED_DTYPE = {"int64": "int32", "float64": "float32"}
 
 
 def infer_op(op: Operator, block: Block) -> None:
-    """Populate output Variable shape/dtype by running the lowering on
-    meta tensors.  Best effort, as in the reference: an op whose lowering
-    needs values (a shape read from a tensor) leaves its outputs unset."""
+    """Populate output Variable shape/dtype by the op's shape rule, or by
+    running the lowering on meta tensors.  Best effort, as in the
+    reference: an op whose lowering needs values (a shape read from a
+    tensor) leaves its outputs unset."""
     if op.type not in _REGISTRY:
         return
     info = _REGISTRY[op.type]
@@ -169,10 +180,13 @@ def infer_op(op: Operator, block: Block) -> None:
                 if -1 in v.shape:
                     had_symbolic = True
                 shape = tuple(SENTINEL if d == -1 else d for d in v.shape)
-                arrs.append(torch.empty(shape, dtype=getattr(torch, v.dtype),
-                                        device="meta"))
+                dtype = getattr(torch, v.dtype)
+                arrs.append(Meta(shape, dtype) if info.shape is not None
+                            else torch.empty(shape, dtype=dtype,
+                                             device="meta"))
             ins[slot] = arrs
-        outs = lower_one(info, AbstractCtx(), ins, op.attrs)
+        outs = info.shape(ins, op.attrs) if info.shape is not None \
+            else lower_one(info, AbstractCtx(), ins, op.attrs)
         for slot, names in op.outputs.items():
             for n, t in zip(names, outs.get(slot, [])):
                 if t is None:

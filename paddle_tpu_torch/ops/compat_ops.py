@@ -2,7 +2,8 @@
 ``paddle_tpu/ops/compat_ops.py``): ``conv2d_fusion`` (:846) and the
 serving canonicalizations ``fusion_squared_mat_sub`` (:610),
 ``fusion_repeated_fc_relu`` (:622) and ``fusion_transpose_flatten_concat``
-(:699).
+(:699), and three types the dygraph layers trace: ``sequence_conv``
+(:381), ``conv3d_transpose`` (:826) and ``spectral_norm`` (:863).
 
 The reference computes each as a composition of its plain lowerings, with
 no Pallas kernel (``compat_ops.py:599-604``), and so does the port: the
@@ -74,3 +75,59 @@ def _fusion_transpose_flatten_concat(ctx, ins, attrs):
     axis = attrs.get("concat_axis", 1)
     flat = [x.permute(*perm).reshape(x.shape[0], -1) for x in XS(ins, "X")]
     return {"Out": [torch.cat(flat, dim=axis if axis < 2 else 1)]}
+
+
+# -- the sequence and conv stragglers the dygraph layers trace ---------------
+
+@register_op("sequence_conv")
+def _sequence_conv(ctx, ins, attrs):
+    """ref ``compat_ops.py:381`` (operators/sequence_conv_op.cc): a window
+    of ``contextLength`` rows from ``contextStart`` on, zero past either
+    end, projected by ``Filter``.  Dense ``[b, t, d]`` input."""
+    x, w = X(ins, "X"), X(ins, "Filter")
+    # both attr spellings exist in the reference (op proto snake_case,
+    # Python layer camelCase)
+    clen = attrs.get("contextLength", attrs.get("context_length", 3))
+    cstart = attrs.get("contextStart",
+                       attrs.get("context_start", -(clen // 2)))
+    t = x.shape[1]
+    pos = torch.arange(t, device=x.device)
+    cols = []
+    for o in range(clen):
+        shift = cstart + o
+        keep = ((pos + shift >= 0) & (pos + shift < t)).to(x.dtype)
+        cols.append(torch.roll(x, -shift, dims=1) * keep[None, :, None])
+    return {"Out": [torch.cat(cols, dim=-1) @ w]}
+
+
+@register_op("conv3d_transpose")
+def _conv3d_transpose(ctx, ins, attrs):
+    """ref ``compat_ops.py:826`` (operators/conv_transpose_op.cc, 3-D)."""
+    from .nn_ops import conv_transpose_nd
+    x, w = X(ins, "Input"), X(ins, "Filter")
+    out = conv_transpose_nd(x, w, list(attrs.get("strides", [1, 1, 1])),
+                            list(attrs.get("paddings", [0, 0, 0])),
+                            list(attrs.get("dilations", [1, 1, 1])),
+                            attrs.get("groups", 1) or 1, 3)
+    return {"Output": [out]}
+
+
+@register_op("spectral_norm")
+def _spectral_norm(ctx, ins, attrs):
+    """ref ``compat_ops.py:863`` (operators/spectral_norm_op.cc): the
+    weight over its largest singular value, estimated by power iteration
+    from the stored ``U`` / ``V``; the gradient runs through the
+    iteration, as the reference's does."""
+    w, u, v = X(ins, "Weight"), X(ins, "U"), X(ins, "V")
+    dim = attrs.get("dim", 0)
+    eps = attrs.get("eps", 1e-12)
+    perm = [dim] + [i for i in range(w.dim()) if i != dim]
+    mat = w.permute(perm).reshape(w.shape[dim], -1)
+    u = u.reshape(-1)
+    for _ in range(max(attrs.get("power_iters", 1), 0)):
+        v = mat.T @ u
+        v = v / (torch.linalg.norm(v) + eps)
+        u = mat @ v
+        u = u / (torch.linalg.norm(u) + eps)
+    sigma = u.reshape(-1) @ mat @ v.reshape(-1)
+    return {"Out": [w / sigma]}

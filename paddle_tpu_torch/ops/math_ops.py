@@ -67,6 +67,19 @@ def _gelu(ctx, ins, attrs):
     return {"Out": [torch.nn.functional.gelu(X(ins, "X"), approximate=approx)]}
 
 
+@register_op("prelu")
+def _prelu(ctx, ins, attrs):
+    """ref ``math_ops.py:194``: ``alpha`` one scalar (``all``), one a
+    channel (``channel``) or one an element of a sample (``element``)."""
+    x, alpha = X(ins, "X"), X(ins, "Alpha")
+    mode = attrs.get("mode", "all")
+    if mode == "channel":
+        alpha = alpha.reshape((1, -1) + (1,) * (x.dim() - 2))
+    elif mode == "all":
+        alpha = alpha.reshape(())
+    return {"Out": [torch.where(x >= 0, x, alpha * x)]}
+
+
 # -- matmul family -----------------------------------------------------------
 
 @register_op("mul")
@@ -97,6 +110,17 @@ def _matmul(ctx, ins, attrs):
     out = torch.matmul(x, y)
     if alpha != 1.0:
         out = out * alpha
+    return {"Out": [out]}
+
+
+@register_op("bilinear_tensor_product")
+def _bilinear_tensor_product(ctx, ins, attrs):
+    """ref ``math_ops.py:280``: ``out[b, o] = x[b] W[o] y[b]^T + bias[o]``."""
+    x, y, w = X(ins, "X"), X(ins, "Y"), X(ins, "Weight")
+    bias = X(ins, "Bias")
+    out = torch.einsum("bi,oij,bj->bo", x, w, y)
+    if bias is not None:
+        out = out + bias
     return {"Out": [out]}
 
 

@@ -1,6 +1,6 @@
 """Conv, pooling, normalization, softmax, loss and dropout lowerings (the
-subset of ``paddle_tpu/ops/nn_ops.py`` the serving, training and ResNet
-slices run).
+subset of ``paddle_tpu/ops/nn_ops.py`` the serving, training, ResNet and
+dygraph slices run).
 
 Convs lower to ``torch.nn.functional.conv2d`` (cuDNN on the card, TF32 off
 under the port's float32 policy), as the reference leaves them to
@@ -38,6 +38,41 @@ def _conv2d(ctx, ins, attrs):
                    padding=_pair(attrs.get("paddings", 0)),
                    dilation=_pair(attrs.get("dilations", 1)),
                    groups=attrs.get("groups", 1) or 1)
+    return {"Output": [out]}
+
+
+@register_op("conv3d")
+def _conv3d(ctx, ins, attrs):
+    """ref ``nn_ops.py:65``: NCDHW input, OIDHW filter."""
+    x, w = X(ins, "Input"), X(ins, "Filter")
+    out = F.conv3d(x, w.to(x.dtype), stride=_pair(attrs.get("strides", 1), 3),
+                   padding=_pair(attrs.get("paddings", 0), 3),
+                   dilation=_pair(attrs.get("dilations", 1), 3),
+                   groups=attrs.get("groups", 1) or 1)
+    return {"Output": [out]}
+
+
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def conv_transpose_nd(x, w, strides, pads, dils, groups, nd):
+    """The transposed convolution (the vjp of the forward conv with
+    respect to its input, ref ``nn_ops.py:79-98``); ``w`` is
+    ``[in, out / groups, k...]``, the fluid filter layout and torch's."""
+    return _CONV_T[nd](x, w.to(x.dtype), stride=list(strides),
+                       padding=list(pads), dilation=list(dils),
+                       groups=groups)
+
+
+@register_op("conv2d_transpose")
+def _conv2d_transpose(ctx, ins, attrs):
+    """ref ``nn_ops.py:101``."""
+    x, w = X(ins, "Input"), X(ins, "Filter")
+    out = conv_transpose_nd(x, w, _pair(attrs.get("strides", 1)),
+                            _pair(attrs.get("paddings", 0)),
+                            _pair(attrs.get("dilations", 1)),
+                            attrs.get("groups", 1) or 1, 2)
     return {"Output": [out]}
 
 
@@ -225,6 +260,29 @@ def _layer_norm(ctx, ins, attrs):
         y = y + bias.to(y.dtype).reshape(1, -1)
     return {"Y": [y.reshape(x.shape).to(x.dtype)],
             "Mean": [m.reshape(lead)], "Variance": [v.reshape(lead)]}
+
+
+@register_op("group_norm")
+def _group_norm(ctx, ins, attrs):
+    """ref ``nn_ops.py:340``: NCHW; statistics over each group's channels
+    and positions in float32 (the two-pass variance), the affine after."""
+    x = X(ins, "X")
+    scale, bias = X(ins, "Scale"), X(ins, "Bias")
+    eps = attrs.get("epsilon", 1e-5)
+    groups = attrs.get("groups", 1)
+    n, c = x.shape[:2]
+    spatial = tuple(x.shape[2:])
+    xg = x.float().reshape(n, groups, -1)
+    m = xg.mean(dim=2, keepdim=True)
+    v = xg.var(dim=2, unbiased=False, keepdim=True)
+    y = ((xg - m) * torch.rsqrt(v + eps)).reshape((n, c) + spatial)
+    bshape = (1, c) + (1,) * len(spatial)
+    if scale is not None:
+        y = y * scale.reshape(bshape)
+    if bias is not None:
+        y = y + bias.reshape(bshape)
+    return {"Y": [y.to(x.dtype)], "Mean": [m.reshape(n, groups)],
+            "Variance": [v.reshape(n, groups)]}
 
 
 @register_op("softmax")
@@ -500,6 +558,9 @@ register_op("dropout", _dropout_lower, grad_maker=_dropout_grad_maker,
 @register_op("dropout_grad", stateful_rng=True)
 def _dropout_grad(ctx, ins, attrs):
     gout = X(ins, "OutGrad")
+    if attrs.get("is_test", False):
+        # the is_test forward is x (or x * (1 - p)): its gradient
+        return {"XGrad": [dropout_infer(gout, attrs)]}
     tag = int(attrs.get("seed", 0))
     if tag:
         stream, thresh, mask = ctx.rng_tagged(tag), dropout_k.threshold(

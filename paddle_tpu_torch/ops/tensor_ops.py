@@ -221,6 +221,10 @@ def _lookup_table(ctx, ins, attrs):
                                 attrs.get("padding_idx", -1))]}
 
 
+# the dygraph ``Embedding``'s op (ref ``tensor_ops.py:300``)
+register_op("lookup_table_v2", _lookup_table)
+
+
 @register_op("range", no_grad=True)
 def _range(ctx, ins, attrs):
     def bound(slot, default):

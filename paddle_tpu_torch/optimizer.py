@@ -14,15 +14,15 @@ ExponentialMovingAverage (:2457), ModelAverage (:2267),
 RecomputeOptimizer and LookaheadOptimizer (:2980).
 
 Dygraph (ref :135-198): inside ``dygraph.guard()``, ``minimize`` applies
-the update at once on ``VarBase`` parameters through the eager block
+the update at once on ``VarBase`` parameters (the constructor's
+``parameter_list``, or ``minimize``'s) through the eager block
 (``dygraph.eager_apply``): the same ``_append_optimize_op`` s, each op run
-through its lowering, accumulators held as ``VarBase`` s, clipping and
-regularization applied to the gradients first; Adam's ``fused_flat`` stays
-off there.  The pipeline engine (``parallel.pipeline``) applies each
-stage's optimizer this way.  Not ported yet (ROADMAP Queue 1 item 4): the
-constructor's ``parameter_list`` (it raises; pass the list to
-``minimize``) and eager autograd (``loss.backward()``): the gradients must
-already sit in ``VarBase.grad``.
+through its lowering, accumulators held as ``VarBase`` s under the
+reference's names, clipping and regularization applied to the gradients
+first; Adam's ``fused_flat`` stays off there.  The gradients are the
+tape's (``loss.backward()``, run by ``minimize`` when no parameter has
+one yet).  The pipeline engine (``parallel.pipeline``) applies each
+stage's optimizer this way.
 """
 
 from __future__ import annotations
@@ -45,15 +45,11 @@ from .regularizer import append_regularization_ops
 class Optimizer:
     def __init__(self, learning_rate, regularization=None, name=None,
                  grad_clip=None, parameter_list=None):
-        if parameter_list is not None:
-            raise NotImplementedError(
-                "the constructor's parameter_list (dygraph layers) is not "
-                "ported yet (ROADMAP Queue 1 item 4): pass the VarBase list "
-                "to minimize() inside dygraph.guard()")
         self._learning_rate = learning_rate
         self.regularization = regularization
         self._grad_clip = grad_clip
         self._name = name
+        self._parameter_list = parameter_list   # dygraph: VarBase s
         self._accumulators: Dict[str, Dict[str, Variable]] = {}
         self._learning_rate_var: Optional[Variable] = None
         self.helper: Optional[LayerHelper] = None
@@ -175,19 +171,23 @@ class Optimizer:
         return float(lr)
 
     def _dygraph_minimize(self, loss, parameter_list=None):
-        """One eager update of ``parameter_list`` (``VarBase`` s whose
-        ``grad`` is set): clip, regularize (a parameter's own regularizer
-        before the optimizer's, as ``append_regularization_ops``), then
-        each ``_append_optimize_op`` on an ``EagerBlock``."""
+        """One eager update of ``parameter_list`` (the constructor's when
+        None): ``loss.backward()`` first when neither the loss nor any
+        parameter has a gradient yet, then clip, regularize (a parameter's
+        own regularizer before the optimizer's, as
+        ``append_regularization_ops``), and each ``_append_optimize_op``
+        on an ``EagerBlock``."""
         from .dygraph.eager_apply import EagerBlock, eager_clip_grads
         from .regularizer import L2DecayRegularizer
-        params = parameter_list
+        params = parameter_list if parameter_list is not None \
+            else self._parameter_list
         if params is None:
-            raise ValueError("dygraph minimize needs parameter_list")
-        if loss is not None and all(p.grad is None for p in params):
-            raise NotImplementedError(
-                "eager autograd (loss.backward()) is not ported yet "
-                "(ROADMAP Queue 1 item 4): set VarBase.grad first")
+            raise ValueError(
+                "dygraph minimize needs parameter_list (pass it to minimize "
+                "or the optimizer constructor)")
+        if loss is not None and getattr(loss, "grad", None) is None and \
+                all(p.grad is None for p in params):
+            loss.backward()
         params_grads = [(p, p.grad) for p in params
                         if p.grad is not None and p.trainable]
         params_grads = eager_clip_grads(params_grads, self._grad_clip)

@@ -323,9 +323,13 @@ class PipelineEngine:
 
     def _apply(self, gacc):
         """The inner optimizer's update of each stage through the eager
-        apply, on the stage's device."""
+        apply, on the stage's device (each op runs on its parameter's;
+        the guard takes the first stage's)."""
         from ..dygraph import base as dy_base
-        with dy_base.guard():
+        from ..place import CPUPlace, CUDAPlace
+        dev = self.devices[0][0]
+        with dy_base.guard(CPUPlace() if dev.type == "cpu"
+                           else CUDAPlace(dev.index or 0)):
             for s, vbs in enumerate(self._vbs):
                 for n, vb in vbs.items():
                     vb.grad = gacc[s][n]

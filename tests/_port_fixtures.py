@@ -23,6 +23,22 @@ def collect_garbage_after_module():
     gc.collect()
 
 
+@pytest.fixture
+def fresh_port_programs():
+    """Fresh port default programs, scope and unique names (the
+    reference's come from ``conftest.py``'s ``_fresh_programs``)."""
+    from paddle_tpu_torch.framework import core, scope, unique_name
+    main, startup = core.Program(), core.Program()
+    old_main = core.switch_main_program(main)
+    old_startup = core.switch_startup_program(startup)
+    scope._scope_stack.append(scope.Scope())
+    with unique_name.guard():
+        yield
+    scope._scope_stack.pop()
+    core.switch_main_program(old_main)
+    core.switch_startup_program(old_startup)
+
+
 def same_bits_draw(key, shape):
     """One numpy byte draw keyed by (stream key, shape): what both
     packages' dropouts read in the parity tests (:func:`patch_same_bits`)."""

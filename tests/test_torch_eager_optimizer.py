@@ -10,8 +10,8 @@ on which the pipeline engine's per-stage update stands, on the CPU.
   on the parameter's device and ``fused_flat`` stays off;
 - ``eager_clip_grads`` for the three clip classes equals the JAX package's
   on the same numpy gradients (rtol 1e-6);
-- the constructor's ``parameter_list`` and an eager ``loss`` with no
-  gradients raise, naming ROADMAP item 4.
+- the constructor's ``parameter_list`` is taken, and an eager ``loss``
+  with no gradients runs its ``backward()`` (dygraph, ROADMAP item 4).
 """
 
 import numpy as np
@@ -116,7 +116,7 @@ def test_eager_steps_equal_static_steps(kind):
         for vb in vbs:
             vb.grad = torch.from_numpy(gs[step][vb.name])
         assert not in_dygraph_mode()
-        with guard():
+        with guard(ptt.CPUPlace()):
             assert in_dygraph_mode()
             o.minimize(None, parameter_list=vbs)
         for vb in vbs:
@@ -152,12 +152,17 @@ def test_eager_clip_grads_equal_reference(which):
 
 
 def test_unported_dygraph_raises():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        opt.SGDOptimizer(0.1, parameter_list=[])
+    """Once the parts the eager apply stood without: the constructor's
+    ``parameter_list`` is taken, and a loss no parameter has a gradient
+    of runs its own ``backward()`` (a loss off the tape leaves them
+    without one, and the step skips them)."""
     vb = VarBase(np.ones(3, np.float32), name="p", device=CPU)
-    with guard(), pytest.raises(NotImplementedError, match="item 4"):
-        opt.SGDOptimizer(0.1).minimize(VarBase(np.ones(1, np.float32)),
-                                       parameter_list=[vb])
+    o = opt.SGDOptimizer(0.1, parameter_list=[vb])
+    assert o._parameter_list == [vb]
+    with guard(ptt.CPUPlace()):
+        _, pg = o.minimize(VarBase(np.ones(1, np.float32)))
+    assert pg == []
+    np.testing.assert_array_equal(vb.numpy(), np.ones(3, np.float32))
     blk = EagerBlock(0.5)
     out = blk.append_op("sgd", inputs={"Param": [vb], "Grad": [
         torch.ones(3)], "LearningRate": [None]}, outputs={"ParamOut": [vb]})

@@ -213,7 +213,7 @@ def test_the_new_op_types_are_registered():
            "truncated_gaussian_random"}
     ops = registry.registered_ops()
     # 116 and switch_ffn, then sync_batch_norm and the ops the SPMD
-    # lowering emits, then the parameter server's
+    # lowering emits, then the parameter server's,
     spmd = {"sync_batch_norm", "c_alltoall", "spmd_alias",
             "spmd_vocab_lookup", "spmd_vocab_softmax_ce",
             "spmd_vocab_softmax_ce_grad", "spmd_unflatten",
@@ -221,8 +221,13 @@ def test_the_new_op_types_are_registered():
     ps = {"send", "recv", "distributed_lookup_table", "fetch_barrier",
           "send_barrier", "listen_and_serv",
           "sigmoid_cross_entropy_with_logits"}
-    assert new | spmd | ps | {"switch_ffn"} <= set(ops) and \
-        len(ops) == 117 + len(spmd) + len(ps)
+    # and the types the dygraph layers trace
+    dygraph = {"lookup_table_v2", "conv3d", "conv2d_transpose",
+               "conv3d_transpose", "group_norm", "prelu",
+               "bilinear_tensor_product", "spectral_norm", "sequence_conv",
+               "gru_unit", "row_conv", "nce", "tree_conv"}
+    assert new | spmd | ps | dygraph | {"switch_ffn"} <= set(ops) and \
+        len(ops) == 117 + len(spmd) + len(ps) + len(dygraph)
     assert {c[0] for c in list(CASES.values()) + list(
         MISC_CASES.values())} == new - {"truncated_gaussian_random"}
 
