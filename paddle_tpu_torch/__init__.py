@@ -42,6 +42,7 @@ from .framework import (Program, Scope, Variable,  # noqa
 from .framework.executor import Executor  # noqa
 from . import amp, io, models, optimizer, parallel, serving  # noqa
 from . import dygraph  # noqa
+from . import contrib  # noqa
 from . import inference  # noqa
 from . import hbm, memory, profiler  # noqa
 from .io import load_inference_model, save_inference_model  # noqa

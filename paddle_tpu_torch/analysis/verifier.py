@@ -58,7 +58,7 @@ from dataclasses import dataclass, field
 from typing import Dict, FrozenSet, List, Optional, Tuple
 
 from .. import monitor as _monitor
-from ..framework.core import Block, Program
+from ..framework.core import Block, Program, sub_blocks_of
 
 __all__ = [
     "CHECKS", "Diagnostic", "ProgramVerificationError", "VerifyResult",
@@ -180,12 +180,6 @@ def clear_cache() -> None:
 
 def _is_data(v) -> bool:
     return bool(getattr(v, "is_data", False))
-
-
-def sub_blocks_of(op) -> List[Tuple[str, Block]]:
-    """The Block-valued attrs of one op, sorted by attr name."""
-    return sorted(((k, v) for k, v in op.attrs.items()
-                   if isinstance(v, Block)), key=lambda kv: kv[0])
 
 
 def _check_def_before_use(program: Program, diags: List[Diagnostic]):

@@ -295,6 +295,11 @@ class Tracer:
         from .base import current_device
         from ..framework.executor import LowerCtx
         info = registry.get_op_info(op_type)
+        if info.raw:
+            # a sub-block has no place in eager mode (ref tracer.py:180)
+            raise TypeError(
+                f"op {op_type!r} is a control-flow (raw) op; use the python "
+                f"control flow of dygraph mode instead")
         attrs = dict(attrs or {})
         vbs = [v for vs in ins.values() for v in vs if isinstance(v, VarBase)]
         device = vbs[0].device if vbs else current_device()

@@ -561,6 +561,24 @@ class Program:
         return "\n".join(lines)
 
 
+def sub_blocks_of(op) -> List[Tuple[str, Block]]:
+    """The Block-valued attrs of one op, sorted by attr name."""
+    return sorted(((k, v) for k, v in op.attrs.items()
+                   if isinstance(v, Block)), key=lambda kv: kv[0])
+
+
+def sub_block_io(op) -> set:
+    """Every name read or written inside ``op``'s sub-blocks, nested ones
+    included (the reference's ``_collect_io``, ``control_flow.py:98``)."""
+    out: set = set()
+    for _, sub in sub_blocks_of(op):
+        for inner in sub.ops:
+            out.update(n for n in inner.input_arg_names() if n)
+            out.update(n for n in inner.output_arg_names() if n)
+            out |= sub_block_io(inner)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # default program machinery (ref framework.py:3813-3926)
 # ---------------------------------------------------------------------------

@@ -196,7 +196,8 @@ from ..analysis.device_profile import step_annotation
 from ..distributed import xproc as _xproc
 from ..kernels import dropout as _dropout
 from . import registry
-from .core import Program, Variable, default_main_program, grad_var_name
+from .core import (Program, Variable, default_main_program, grad_var_name,
+                   sub_block_io)
 from .recompute import dead_barriers, source_name
 from .scope import Scope, global_scope
 
@@ -600,8 +601,10 @@ class LowerCtx:
         self.rank = rank
         self.nranks = nranks
         self._counter = 0
-        # output name of a stateful_rng op -> the counter before it ran
-        self.rng_marks: Dict[str, int] = {}
+        # output name of a stateful_rng op -> the counter before it ran;
+        # ("loop", sub-block idx) -> (counter, generator state) where a
+        # loop began (ops/control_flow_ops.py)
+        self.rng_marks: Dict[Any, Any] = {}
 
     def rng(self) -> _dropout.Stream:
         """A fresh counter stream each call (``executor.py:731-733``)."""
@@ -772,6 +775,10 @@ class _Plan:
                 for n in names:
                     if n:
                         last[n] = i
+            # a name read or written only inside a sub-block (a body nested
+            # in a body included) lives until the op that owns the block
+            for n in sub_block_io(op):
+                last[n] = max(last.get(n, -1), i)
             for n in op.output_arg_names():
                 if n:
                     written.add(n)
@@ -1881,6 +1888,9 @@ def _sanitize_outputs(op, outs) -> None:
 
 
 def _run_op(plan, i, op, info, ctx, env, read, graphs):
+    if info.raw:
+        return _run_raw(ctx, plan.block, op, info, ExecState(
+            {}, lambda n: env[n] if n in env else read(n)))
     grad = i in plan.fwd_of
     fwd = plan.fwd_of.get(i)
     ins = {}
@@ -1933,3 +1943,115 @@ def _replay_grad(op, ctx, ins):
         return registry.generic_grad_lower(ctx, ins, op.attrs)
     finally:
         ctx._counter = saved
+
+
+# ---------------------------------------------------------------------------
+# sub-blocks: the raw ops of control flow (ref executor.py:790, 854)
+# ---------------------------------------------------------------------------
+
+class ExecState:
+    """What a raw op's lowering reads and writes: ``values`` (name ->
+    tensor) over ``fallback(name)``, which gives a name ``values`` lacks
+    (the enclosing block's state, or the scope) or raises ``KeyError``.
+    A sub-block runs over a state of its own whose fallback is its
+    parent's, so its writes stay in it until the op that owns the block
+    hands its outputs on."""
+
+    def __init__(self, values: Dict[str, Any],
+                 fallback: Optional[Callable[[str], Any]] = None):
+        self.values = values
+        self.fallback = fallback
+
+    def get(self, name: str):
+        """The value of ``name``, or None when no state holds it."""
+        if not name:
+            return None
+        if name in self.values:
+            return self.values[name]
+        if self.fallback is None:
+            return None
+        try:
+            return self.fallback(name)
+        except KeyError:
+            return None
+
+    def lookup(self, name: str):
+        """The value of ``name`` (None for an empty name, an absent
+        optional input); raises ``KeyError`` when no state holds it."""
+        if not name:
+            return None
+        if name in self.values:
+            return self.values[name]
+        if self.fallback is None:
+            raise KeyError(f"op input var {name!r} has no value: not fed, "
+                           f"not in scope, and not produced by a preceding "
+                           f"op")
+        return self.fallback(name)
+
+    def write(self, name: str, value) -> None:
+        if name:
+            self.values[name] = value
+
+
+def _run_raw(ctx, block, op, info, state: ExecState):
+    """A raw op over ``state``: its outputs by slot, as a lowering's."""
+    info.lower(ctx, block, op, state)
+    return {slot: [state.values.get(n) if n else None for n in names]
+            for slot, names in op.outputs.items()}
+
+
+def _floating(t) -> bool:
+    return isinstance(t, torch.Tensor) and t.is_floating_point()
+
+
+def _check_differentiable(op, ins, outs) -> None:
+    """A body replayed under ``torch.autograd``: an op that takes a value
+    needing a gradient and gives floating outputs none of which carries
+    one (a kernel launched outside autograd) would cut the gradient to
+    zero quietly, so it raises, naming the op (as the dygraph tape does)."""
+    if not any(_floating(v) and v.requires_grad
+               for vs in ins.values() for v in vs):
+        return
+    fl = [v for vs in outs.values() for v in vs if _floating(v)]
+    if fl and not any(v.requires_grad for v in fl):
+        raise NotImplementedError(
+            f"op {op.type!r}: autograd cannot differentiate its lowering "
+            f"(its outputs carry no gradient), so a gradient through the "
+            f"loop that holds it cannot be taken")
+
+
+def run_block(ctx: LowerCtx, block, state: ExecState) -> None:
+    """Run every op of a sub-block over ``state``, eagerly, in program
+    order: a raw op on the state itself, any other through its lowering
+    (under the program's AMP casts).  Nothing is freed and no graph is
+    kept: a sub-block's temporaries live in ``state`` until the op that
+    owns the block drops it, and a gradient through the block replays it
+    under ``torch.autograd`` (``ops/control_flow_ops.py``), where an op
+    that autograd cannot differentiate raises."""
+    for op in block.ops:
+        if op.type in ("feed", "fetch"):
+            continue
+        try:
+            info = registry.get_op_info(op.type)
+            if info.raw:
+                info.lower(ctx, block, op, state)
+                continue
+            ins = {slot: [state.lookup(n) for n in names]
+                   for slot, names in op.inputs.items()}
+            if ctx.amp:
+                ins = _amp.cast_ins(op.type, ins)
+            outs = registry.lower_one(info, ctx, ins, op.attrs) or {}
+            if torch.is_grad_enabled() and not info.no_grad:
+                _check_differentiable(op, ins, outs)
+        except Exception as e:
+            if getattr(e, "_sub_block_op", False):
+                raise
+            err = RuntimeError(f"{type(e).__name__} while running op "
+                               f"{op.type!r} of block {block.idx}: {e}\n  "
+                               f"{_op_context(block, op)}")
+            err._sub_block_op = True
+            raise err from e
+        for slot, names in op.outputs.items():
+            for n, v in zip(names, outs.get(slot, [])):
+                if n and v is not None:
+                    state.write(n, v)

@@ -32,7 +32,7 @@ class OpInfo:
     def __init__(self, type: str, lower: Callable, infer: Optional[Callable],
                  grad_maker: Optional[Callable] = None,
                  no_grad: bool = False, stateful_rng: bool = False,
-                 collective: bool = False, grad=None):
+                 collective: bool = False, grad=None, raw: bool = False):
         self.type = type
         self.lower = lower
         self.infer = infer
@@ -52,6 +52,10 @@ class OpInfo:
         # a shape rule ``shape(ins, attrs) -> {slot: [Meta]}`` that shape
         # inference runs in place of the lowering (``ops/shape_rules.py``)
         self.shape = None
+        # a raw op's lowering is ``lower(ctx, block, op, state)``: control
+        # flow runs its sub-block over the executor's state (ref while_op.cc
+        # executing a sub-block); only its ``infer`` shapes its outputs
+        self.raw = raw
 
 
 _REGISTRY: Dict[str, OpInfo] = {}
@@ -60,16 +64,17 @@ _REGISTRY: Dict[str, OpInfo] = {}
 def register_op(type: str, lower: Callable = None, *, infer: Callable = None,
                 grad_maker: Callable = None, no_grad: bool = False,
                 stateful_rng: bool = False, collective: bool = False,
-                grad=None):
+                grad=None, raw: bool = False):
     """Register an op lowering (``infer`` overrides shape inference,
     ``grad_maker`` the generic grad desc, ``no_grad`` marks an op without
     gradient, ``stateful_rng`` one that draws random bits, ``collective``
     a group lowering over the ranks of the executor's collective mode,
-    ``grad`` a callable giving a collective's group VJP).  Usable as
-    decorator or call."""
+    ``grad`` a callable giving a collective's group VJP, ``raw`` a
+    lowering ``lower(ctx, block, op, state)`` over the executor's state,
+    which control flow needs).  Usable as decorator or call."""
     def deco(fn):
         _REGISTRY[type] = OpInfo(type, fn, infer, grad_maker, no_grad,
-                                 stateful_rng, collective, grad)
+                                 stateful_rng, collective, grad, raw)
         return fn
     if lower is not None:
         return deco(lower)
@@ -165,6 +170,10 @@ def infer_op(op: Operator, block: Block) -> None:
     if info.infer is not None:
         info.infer(op, block)
         return
+    if info.raw:
+        # a sub-block cannot run on meta tensors: a raw op without an
+        # ``infer`` leaves its outputs as they are
+        return
     had_symbolic = False
     try:
         ins = {}
@@ -219,6 +228,8 @@ def make_grad_ops(op: Operator, block: Block,
         return []
     if info.grad_maker is not None:
         return info.grad_maker(op, block, no_grad_set)
+    if info.raw:
+        return []       # no generic gradient over a sub-block
     g_inputs: Dict[str, List[str]] = {}
     for slot, names in op.inputs.items():
         g_inputs["X$" + slot] = list(names)

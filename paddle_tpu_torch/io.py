@@ -350,10 +350,13 @@ def save_inference_model(dirname, feeded_var_names: Sequence[str],
                     for t in target_vars]
     infer = program.clone(for_test=True)._prune(target_names)
     os.makedirs(dirname, exist_ok=True)
+    from .framework.core import sub_block_io
     used = set()
     for op in infer.global_block().ops:
         used.update(op.input_arg_names())
         used.update(op.output_arg_names())
+        # what a While's body reads (its weights) is saved too
+        used |= sub_block_io(op)
     pvars = [v for v in infer.list_vars() if _is_persistable(v)
              and v.name in used]
     payload = json.loads(infer.serialize_to_string())

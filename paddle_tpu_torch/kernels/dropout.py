@@ -220,18 +220,27 @@ def _entry():
 class Dropout(torch.autograd.Function):
     """The kernel on x; its backward is the kernel on the output gradient
     with the same stream, threshold and scale: the mask is regenerated,
-    not saved (the reference's tagged dropout, ``fused_ops.py:94-112``)."""
+    not saved (the reference's tagged dropout, ``fused_ops.py:94-112``).
+    With ``want_mask`` it gives ``(out, mask)``, the mask not
+    differentiable."""
 
     @staticmethod
-    def forward(ctx, x, stream, thresh, scale):
+    def forward(ctx, x, stream, thresh, scale, want_mask=False):
         ctx.args = (stream, thresh, scale)
-        return dropout_fwd(x, stream, thresh, scale)[0]
+        out, mask = dropout_fwd(x, stream, thresh, scale,
+                                want_mask=want_mask)
+        if mask is None:
+            return out
+        ctx.mark_non_differentiable(mask)
+        return out, mask
 
     @staticmethod
-    def backward(ctx, g):
-        return dropout_fwd(g, *ctx.args)[0], None, None, None
+    def backward(ctx, g, *_):
+        return dropout_fwd(g, *ctx.args)[0], None, None, None, None
 
 
-def dropout(x, stream: Stream, thresh: int, scale: float):
-    """``keep ? x * scale : 0`` on the stream, differentiable."""
-    return Dropout.apply(x, stream, thresh, scale)
+def dropout(x, stream: Stream, thresh: int, scale: float,
+            want_mask: bool = False):
+    """``keep ? x * scale : 0`` on the stream, differentiable; with
+    ``want_mask``, ``(out, mask)``."""
+    return Dropout.apply(x, stream, thresh, scale, want_mask)

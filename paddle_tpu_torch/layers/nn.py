@@ -462,6 +462,69 @@ def sigmoid(x, name=None): return _unary("sigmoid", x, name)
 def sign(x, name=None): return _unary("sign", x, name)
 def square(x, name=None): return _unary("square", x, name)
 def tanh(x, name=None): return _unary("tanh", x, name)
+def log(x, name=None): return _unary("log", x, name)
+def sqrt(x, name=None): return _unary("sqrt", x, name)
+def logical_not(x, out=None, name=None): return _unary("logical_not", x, name)
+
+
+def _binary_logical(op_type, x, y, name=None):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference("bool")
+    helper.append_op(op_type, inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def logical_and(x, y, out=None, name=None):
+    return _binary_logical("logical_and", x, y, name)
+
+
+def logical_or(x, y, out=None, name=None):
+    return _binary_logical("logical_or", x, y, name)
+
+
+def logical_xor(x, y, out=None, name=None):
+    return _binary_logical("logical_xor", x, y, name)
+
+
+def squeeze(input, axes, name=None):
+    """ref ``paddle_tpu/layers/nn.py:600``: the ``squeeze2`` op."""
+    helper = LayerHelper("squeeze", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    xshape = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op("squeeze2", inputs={"X": [input]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axes": list(axes)})
+    return out
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    out = helper.create_variable_for_type_inference(xs[0].dtype)
+    helper.append_op("stack", inputs={"X": xs}, outputs={"Y": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def py_func(func, x, out, backward_func=None,
+            skip_vars_in_backward_input=None):
+    """A host Python function as an op (ref ``paddle_tpu/layers/nn.py:1462``,
+    py_func_op.cc).  ``out`` vars are made beforehand with their shapes (a
+    leading -1 is the batch); ``backward_func(*x, *out, *out_grads) ->
+    x_grads`` differentiates it."""
+    from ..ops.control_flow_ops import PY_FUNC_TABLE
+    helper = LayerHelper("py_func")
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    fid = len(PY_FUNC_TABLE)
+    PY_FUNC_TABLE[fid] = {"forward": func, "backward": backward_func}
+    helper.append_op("py_func", inputs={"X": list(xs)},
+                     outputs={"Out": list(outs)},
+                     attrs={"func_id": fid,
+                            "out_shapes": [list(o.shape) for o in outs],
+                            "out_dtypes": [o.dtype for o in outs]})
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -98,3 +98,57 @@ def range(start, end, step, dtype):
     helper.append_op("range", inputs=inputs, outputs={"Out": [out]},
                      attrs=attrs)
     return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    """ref ``paddle_tpu/layers/tensor.py:96``: a constant whose
+    ``output_dim_idx`` dim is ``input``'s ``input_dim_idx`` dim."""
+    helper = LayerHelper("fill_constant_batch_size_like")
+    out = helper.create_variable_for_type_inference(convert_dtype(dtype))
+    out.stop_gradient = True
+    helper.append_op("fill_constant_batch_size_like",
+                     inputs={"Input": [input]}, outputs={"Out": [out]},
+                     attrs={"shape": list(shape),
+                            "dtype": convert_dtype(dtype),
+                            "value": float(value),
+                            "input_dim_idx": input_dim_idx,
+                            "output_dim_idx": output_dim_idx})
+    return out
+
+
+def zeros(shape, dtype, force_cpu=False):
+    return fill_constant(shape, dtype, 0.0)
+
+
+def ones_like(x, out=None):
+    """ref ``paddle_tpu/layers/tensor.py:145``: the ``fill_any_like`` op."""
+    helper = LayerHelper("ones_like")
+    if out is None:
+        out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("fill_any_like", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"value": 1.0})
+    return out
+
+
+def reverse(x, axis):
+    helper = LayerHelper("reverse")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if isinstance(axis, int):
+        axis = [axis]
+    helper.append_op("reverse", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"axis": list(axis)})
+    return out
+
+
+def tensor_array_to_tensor(input, axis=1, name=None, use_stack=False):
+    """ref ``paddle_tpu/layers/tensor.py:250``: stack or concat the dense
+    array buffer (rows past the written length are zero)."""
+    helper = LayerHelper("tensor_array_to_tensor", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out_index = helper.create_variable_for_type_inference("int32", True)
+    helper.append_op("tensor_array_to_tensor",
+                     inputs={"Array": [input]},
+                     outputs={"Out": [out], "OutIndex": [out_index]},
+                     attrs={"axis": axis, "use_stack": use_stack})
+    return out, out_index

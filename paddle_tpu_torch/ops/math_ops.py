@@ -58,6 +58,7 @@ _make_activation("sqrt", torch.sqrt)
 _make_activation("sigmoid", torch.sigmoid)
 _make_activation("square", torch.square)
 _make_activation("tanh", torch.tanh)
+_make_activation("log", torch.log)
 
 
 @register_op("gelu")
@@ -143,6 +144,32 @@ def _make_compare(name, fn):
 
 for _n, _f in _COMPARE.items():
     _make_compare(_n, _f)
+
+
+# -- logical ops (ref operators/controlflow/logical_op.cc) -------------------
+
+def _make_logical(name, fn):
+    def lower(ctx, ins, attrs):
+        return {"Out": [fn(X(ins, "X"), X(ins, "Y"))]}
+    register_op(name, lower, no_grad=True)
+
+
+for _n, _f in (("logical_and", torch.logical_and),
+               ("logical_or", torch.logical_or),
+               ("logical_xor", torch.logical_xor)):
+    _make_logical(_n, _f)
+
+register_op("logical_not",
+            lambda ctx, ins, attrs: {"Out": [torch.logical_not(X(ins, "X"))]},
+            no_grad=True)
+
+
+@register_op("is_empty", no_grad=True)
+def _is_empty(ctx, ins, attrs):
+    """Whether X has no element (ref ``math_ops.py:340``): read off its
+    shape, so no value is read."""
+    x = X(ins, "X")
+    return {"Out": [torch.tensor(x.numel() == 0, device=x.device)]}
 
 
 # -- gradient clipping (ref operators/clip_op.cc, clip_by_norm_op.cc) --------

@@ -530,13 +530,16 @@ def _dropout_lower(ctx, ins, attrs):
                                     device=x.device)]}
     thresh = dropout_k.threshold(attrs.get("dropout_prob", 0.5))
     tag = int(attrs.get("seed", 0))
+    # through the autograd Function: a loop's gradient replays its body
+    # under torch.autograd (ops/control_flow_ops.py), and the kernel's own
+    # output carries no gradient
     if tag:
         # the grad op regenerates the mask: none is written
-        out, _ = dropout_k.dropout_fwd(x, ctx.rng_tagged(tag), thresh,
-                                       dropout_scale(attrs))
+        out = dropout_k.dropout(x, ctx.rng_tagged(tag), thresh,
+                                dropout_scale(attrs))
         return {"Out": [out]}
-    out, mask = dropout_k.dropout_fwd(x, ctx.rng(), thresh,
-                                      dropout_scale(attrs), want_mask=True)
+    out, mask = dropout_k.dropout(x, ctx.rng(), thresh, dropout_scale(attrs),
+                                  want_mask=True)
     return {"Out": [out], "Mask": [mask]}
 
 

@@ -22,7 +22,7 @@ from typing import Dict, Sequence
 import torch
 
 from ..framework.registry import Meta, get_op_info
-from .common import canon_axis, canon_dtype
+from .common import canon_axis, canon_dtype, reduce_axes
 
 
 def _meta(m: Meta) -> torch.Tensor:
@@ -229,6 +229,29 @@ def _mean(ins, attrs):
     return {"Out": [Meta((), ins["X"][0].dtype)]}
 
 
+def _reduce(ins, attrs):
+    x = ins["X"][0]
+    nd = len(x.shape)
+    axes = reduce_axes(attrs.get("dim"), nd, attrs.get("reduce_all", False))
+    if not axes:
+        return {"Out": [like(x)]}
+    keep = attrs.get("keep_dim", False)
+    shape = tuple(1 if i in axes else d for i, d in enumerate(x.shape)
+                  if keep or i not in axes)
+    dtype = x.dtype if x.dtype.is_floating_point else torch.int64
+    return {"Out": [Meta(shape, dtype)]}
+
+
+def _gather(ins, attrs):
+    x, idx = ins["X"][0], ins["Index"][0]
+    ishape = tuple(idx.shape)
+    if len(ishape) == 2 and ishape[1] == 1:
+        ishape = ishape[:1]
+    axis = canon_axis(attrs.get("axis", 0), len(x.shape))
+    return {"Out": [Meta(tuple(x.shape[:axis]) + ishape
+                         + tuple(x.shape[axis + 1:]), x.dtype)]}
+
+
 def _pool2d(ins, attrs):
     from .nn_ops import _pair, _pool_extra
     x = ins["X"][0]
@@ -270,6 +293,114 @@ def _sigmoid_ce(ins, attrs):
                          result_type(x, label))]}
 
 
+def _float_unary(ins, attrs):
+    x = ins["X"][0]
+    dtype = x.dtype if x.dtype.is_floating_point \
+        else torch.get_default_dtype()
+    return {"Out": [Meta(tuple(x.shape), dtype)]}
+
+
+def _logical_not(ins, attrs):
+    return {"Out": [Meta(tuple(ins["X"][0].shape), torch.bool)]}
+
+
+def _squeeze2(ins, attrs):
+    x = ins["X"][0]
+    axes = attrs.get("axes", [])
+    if axes:
+        drop = {canon_axis(a, len(x.shape)) for a in axes}
+        drop = {a for a in drop if x.shape[a] == 1}
+        shape = tuple(d for i, d in enumerate(x.shape) if i not in drop)
+    else:
+        shape = tuple(d for d in x.shape if d != 1)
+    return {"Out": [Meta(shape, x.dtype)],
+            "XShape": [Meta((0,) + tuple(x.shape), x.dtype)]}
+
+
+def _stack(ins, attrs):
+    xs = [m for m in ins["X"] if m is not None]
+    if any(tuple(m.shape) != tuple(xs[0].shape) for m in xs):
+        raise ValueError(f"stack of {[m.shape for m in xs]}")
+    shape = list(xs[0].shape)
+    axis = canon_axis(attrs.get("axis", 0), len(shape) + 1)
+    return {"Y": [Meta(tuple(shape[:axis] + [len(xs)] + shape[axis:]),
+                       result_type(*xs))]}
+
+
+def _fill_batch_size_like(ins, attrs):
+    shape = list(attrs["shape"])
+    shape[attrs.get("output_dim_idx", 0)] = \
+        ins["Input"][0].shape[attrs.get("input_dim_idx", 0)]
+    return {"Out": [Meta(tuple(shape), canon_dtype(attrs["dtype"]))]}
+
+
+def _sequence_mask(ins, attrs):
+    maxlen = attrs.get("maxlen", -1)
+    if maxlen is None or maxlen < 0:
+        raise TypeError("sequence_mask's maxlen is read at run time")
+    n = math.prod(ins["X"][0].shape)
+    return {"Y": [Meta((n, maxlen),
+                       canon_dtype(attrs.get("out_dtype", "int64")))]}
+
+
+def _array_write(ins, attrs):
+    x, arr = ins["X"][0], (ins.get("Array") or [None])[0]
+    out = like(arr) if arr is not None else Meta(
+        (attrs.get("max_len", 128),) + tuple(x.shape), x.dtype)
+    return {"Out": [out], "OutLen": [Meta((), torch.int32)]}
+
+
+def _array_read(ins, attrs):
+    arr = ins["Array"][0]
+    return {"Out": [Meta(tuple(arr.shape[1:]), arr.dtype)]}
+
+
+def _swce(ins, attrs):
+    logits, label = ins["Logits"][0], ins["Label"][0]
+    nd = len(logits.shape)
+    axis = canon_axis(attrs.get("axis", -1), nd)
+    if attrs.get("soft_label", False):
+        shape = list(broadcast(label.shape, logits.shape))
+        shape[axis] = 1
+        return {"Softmax": [like(logits)],
+                "Loss": [Meta(tuple(shape), result_type(label, logits))]}
+    li = list(label.shape)
+    if len(li) == nd and li[axis] == 1:
+        del li[axis]
+    li.insert(canon_axis(attrs.get("axis", -1), len(li) + 1), 1)
+    return {"Softmax": [like(logits)],
+            "Loss": [Meta(tuple(li), logits.dtype)]}
+
+
+def _squared_l2_norm(ins, attrs):
+    return {"Out": [Meta((1,), ins["X"][0].dtype)]}
+
+
+def _masked_update(ins, attrs):
+    new, prev = ins["New"][0], ins["Prev"][0]
+    return {"Out": [Meta(broadcast(new.shape, prev.shape),
+                         result_type(new, prev))]}
+
+
+def _beam_search(ins, attrs):
+    scores = ins["scores"][0]
+    bb = scores.shape[0]
+    dtype = scores.dtype if attrs.get("is_accumulated", True) else \
+        result_type(ins["pre_scores"][0], scores)
+    return {"selected_ids": [Meta((bb, 1), torch.int64)],
+            "selected_scores": [Meta((bb, 1), dtype)],
+            "parent_idx": [Meta((bb,), torch.int64)]}
+
+
+def _beam_search_decode(ins, attrs):
+    ids, scores = ins["Ids"][0], ins["Scores"][0]
+    t, beam = ids.shape[0], attrs["beam_size"]
+    bb = math.prod(ids.shape[1:])
+    shape = (bb // beam, beam, t)
+    return {"SentenceIds": [Meta(shape, torch.int64)],
+            "SentenceScores": [Meta(shape, scores.dtype)]}
+
+
 RULES: Dict[str, object] = {
     **{t: _elementwise(t) for t in (
         "elementwise_add", "elementwise_sub", "elementwise_mul",
@@ -283,6 +414,19 @@ RULES: Dict[str, object] = {
     "gaussian_random": _random, "accuracy": _accuracy,
     "cross_entropy": _cross_entropy, "mean": _mean, "pool2d": _pool2d,
     "concat": _concat, "sigmoid_cross_entropy_with_logits": _sigmoid_ce,
+    # the seq2seq programs' (control flow, the recurrent layers, decoding)
+    "less_than": _compare, "log": _float_unary, "tanh": _float_unary,
+    "sigmoid": _float_unary, "sqrt": _float_unary, "increment": _unary,
+    "elementwise_max": _elementwise("elementwise_max"),
+    "reduce_mean": _reduce, "reduce_sum": _reduce, "gather": _gather,
+    "softmax_with_cross_entropy": _swce,
+    "squared_l2_norm": _squared_l2_norm,
+    "drnn_masked_update": _masked_update, "beam_search": _beam_search,
+    "beam_search_decode": _beam_search_decode,
+    "logical_not": _logical_not, "squeeze2": _squeeze2, "stack": _stack,
+    "fill_constant_batch_size_like": _fill_batch_size_like,
+    "sequence_mask": _sequence_mask, "array_write": _array_write,
+    "array_read": _array_read,
 }
 
 

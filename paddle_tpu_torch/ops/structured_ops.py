@@ -1,6 +1,7 @@
-"""Candidate-sampling losses (the port's part of
-``paddle_tpu/ops/structured_ops.py``, ref ``operators/nce_op.cc``): the
-``nce`` op.
+"""Candidate-sampling losses and beam search (the port's part of
+``paddle_tpu/ops/structured_ops.py``, ref ``operators/nce_op.cc``,
+``beam_search_op.cc``, ``beam_search_decode_op.cc``): the ``nce``,
+``beam_search`` and ``beam_search_decode`` ops.
 
 Its negative samples are drawn from the run's counter stream
 (``LowerCtx.rng``, the Philox stream the dropout kernel reads), four
@@ -83,3 +84,87 @@ def _nce(ctx, ins, attrs):
     return {"Cost": [cost[:, None]],
             "SampleLogits": [torch.cat([s_true, s_neg], dim=1)],
             "SampleLabels": [labels]}
+
+
+# ---------------------------------------------------------------------------
+# beam search (ref structured_ops.py:364-439, beam_search_op.cc,
+# beam_search_decode_op.cc)
+# ---------------------------------------------------------------------------
+
+#: the score a frozen beam's dead candidates get (the reference's)
+NEG_INF = -1e9
+
+
+def beam_candidates(ins, attrs):
+    """The candidates a ``beam_search`` step chooses among: (scores, ids),
+    each [batch, beam_size * K].  A finished beam (its previous id
+    ``end_id``) keeps its frozen score in column 0 and ``NEG_INF`` in the
+    others."""
+    pre_ids = X(ins, "pre_ids").reshape(-1)
+    pre_scores = X(ins, "pre_scores").reshape(-1)
+    ids, scores = X(ins, "ids"), X(ins, "scores")       # [bb, K]
+    beam_size, end_id = attrs["beam_size"], attrs["end_id"]
+    bb, k = scores.shape
+    dev = scores.device
+    if ids is None:
+        ids = torch.arange(k, device=dev)[None, :].expand(bb, k)
+    acc = scores if attrs.get("is_accumulated", True) else \
+        pre_scores[:, None] + torch.log(scores + 1e-20)
+    finished = (pre_ids == end_id)[:, None]
+    first_col = (torch.arange(k, device=dev) == 0)[None, :]
+    frozen = torch.where(first_col, pre_scores[:, None].to(acc.dtype),
+                         torch.full((), NEG_INF, dtype=acc.dtype,
+                                    device=dev))
+    cand_score = torch.where(finished, frozen, acc)
+    cand_id = torch.where(finished, torch.full_like(ids, end_id), ids)
+    return (cand_score.reshape(bb // beam_size, beam_size * k),
+            cand_id.reshape(bb // beam_size, beam_size * k))
+
+
+@register_op("beam_search", no_grad=True)
+def _beam_search(ctx, ins, attrs):
+    """One decoding step over dense [batch * beam, K] candidates
+    (:func:`beam_candidates`): every sentence keeps exactly ``beam_size``
+    slots.  The best ``beam_size`` of each sentence's ``beam_size * K``
+    candidates are taken by a stable descending sort, so a tie goes to the
+    lower candidate index, as ``lax.top_k`` breaks it (``torch.topk`` does
+    not promise an order)."""
+    beam_size = attrs["beam_size"]
+    cand_score, cand_id = beam_candidates(ins, attrs)
+    batch, n = cand_score.shape
+    k = n // beam_size
+    top_s, top_i = torch.sort(cand_score, dim=1, descending=True,
+                              stable=True)
+    top_s, top_i = top_s[:, :beam_size], top_i[:, :beam_size]
+    sel_id = torch.gather(cand_id, 1, top_i)
+    parent = top_i // k + torch.arange(batch, device=cand_score.device)[
+        :, None] * beam_size
+    bb = batch * beam_size
+    return {"selected_ids": [sel_id.reshape(bb, 1).to(torch.int64)],
+            "selected_scores": [top_s.reshape(bb, 1)],
+            "parent_idx": [parent.reshape(bb).to(torch.int64)]}
+
+
+@register_op("beam_search_decode", no_grad=True)
+def _beam_search_decode(ctx, ins, attrs):
+    """Backtrack the stored steps into sentences: Ids / Scores / Parents
+    [T, bb(, 1)] (stacked tensor arrays) -> SentenceIds / SentenceScores
+    [batch, beam, T].  The dense slots carry their parents explicitly
+    where the reference recovers them from each step's LoD."""
+    ids, scores = X(ins, "Ids"), X(ins, "Scores")
+    parents = X(ins, "Parents")
+    beam_size = attrs["beam_size"]
+    ids = ids.reshape(ids.shape[0], -1)                 # [T, bb]
+    scores = scores.reshape(scores.shape[0], -1)
+    parents = parents.reshape(parents.shape[0], -1).to(torch.int64)
+    t, bb = ids.shape
+    slot = torch.arange(bb, device=ids.device)
+    toks, scs = [None] * t, [None] * t
+    for s in range(t - 1, -1, -1):
+        toks[s] = ids[s][slot]
+        scs[s] = scores[s][slot]
+        slot = parents[s][slot]
+    sent_ids = torch.stack(toks, 1).reshape(bb // beam_size, beam_size, t)
+    sent_scores = torch.stack(scs, 1).reshape(bb // beam_size, beam_size, t)
+    return {"SentenceIds": [sent_ids.to(torch.int64)],
+            "SentenceScores": [sent_scores]}

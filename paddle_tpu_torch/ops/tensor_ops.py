@@ -304,3 +304,60 @@ def _gather(ctx, ins, attrs):
             (1,) * axis + tuple(idx.shape) + (1,) * (x.dim() - axis - 1)),
             float("nan"))
     return {"Out": [out]}
+
+
+# -- the shape ops the recurrent and decoding layers build with (ref
+# tensor_ops.py:132-183, 411, 539) -------------------------------------------
+
+@register_op("squeeze2")
+def _squeeze2(ctx, ins, attrs):
+    """The listed axes of size 1 dropped (all of size 1 when none are
+    listed), as ``jnp.squeeze`` (ref ``tensor_ops.py:132``)."""
+    x = X(ins, "X")
+    axes = attrs.get("axes", [])
+    if axes:
+        keep = [a + x.dim() if a < 0 else a for a in axes]
+        keep = [a for a in keep if x.shape[a] == 1]
+        shape = [d for i, d in enumerate(x.shape) if i not in keep]
+    else:
+        shape = [d for d in x.shape if d != 1]
+    return {"Out": [x.reshape(shape)], "XShape": [_xshape(x)]}
+
+
+register_op("squeeze", _squeeze2)
+register_op("unsqueeze", _unsqueeze2)
+register_op("transpose", _transpose2)
+
+
+@register_op("stack")
+def _stack(ctx, ins, attrs):
+    return {"Y": [torch.stack(XS(ins, "X"), dim=attrs.get("axis", 0))]}
+
+
+@register_op("reverse")
+def _reverse(ctx, ins, attrs):
+    return {"Out": [torch.flip(X(ins, "X"), dims=list(attrs["axis"]))]}
+
+
+@register_op("fill_constant_batch_size_like", no_grad=True)
+def _fill_constant_batch_size_like(ctx, ins, attrs):
+    """A constant whose ``output_dim_idx`` dim is the ``input_dim_idx`` dim
+    of ``Input`` (ref ``tensor_ops.py:539``)."""
+    ref = X(ins, "Input")
+    shape = list(attrs["shape"])
+    shape[attrs.get("output_dim_idx", 0)] = \
+        ref.shape[attrs.get("input_dim_idx", 0)]
+    return {"Out": [torch.full(tuple(shape), attrs.get("value", 0.0),
+                               dtype=canon_dtype(attrs["dtype"]),
+                               device=ref.device)]}
+
+
+@register_op("fill_any_like", no_grad=True)
+def _fill_any_like(ctx, ins, attrs):
+    """X's shape filled with ``value``, in ``dtype`` or X's (ref
+    ``tensor_ops.py:34``)."""
+    x = X(ins, "X")
+    dtype = attrs.get("dtype", None)
+    d = x.dtype if dtype in (None, -1) else canon_dtype(dtype)
+    return {"Out": [torch.full(tuple(x.shape), attrs.get("value", 0.0),
+                               dtype=d, device=x.device)]}

@@ -50,7 +50,10 @@ bytes and the PS bytes pushed and pulled; its kernel launches, the fused
 op types the executor ran, the steps' ``paddle_tpu_ps_rpc_ms`` by op
 (:func:`rpc_quantiles`), and in geo mode each round's pushed rows beside
 the distinct ids fed since the round before, and the wall-clock marks of
-its phases (imports, programs, startup, seeded tables, steps).  A pserver
+its phases (imports, programs, startup, seeded tables, steps).  In async
+mode trainer 0 then prints ``EVAL {json}``, the loss of the startup's and
+of the servers' final parameters on every trainer's first batches
+(:func:`async_eval`).  A pserver
 prints ``PSERVER {json}`` with its own marks when it stops.  Trainer 0
 stops the servers at the end, after every trainer has passed the final
 barrier.
@@ -422,10 +425,55 @@ def _session(args, mode, eps, role, tid, n_trainers, use_fleet, device,
     else:
         for ep in eps:
             ps.get_client(ep).barrier()
+    if tid == 0 and mode == "async" and not use_fleet:
+        # every push has landed: the final tables against the startup's
+        print("EVAL " + json.dumps(async_eval(args, t, startup, exe,
+                                              n_trainers)), flush=True)
     if tid == 0:
         for ep in eps:
             ps.get_client(ep).stop_server()
     ps.reset_clients()
+
+
+#: the batches of each trainer that :func:`async_eval` scores
+EVAL_BATCHES = 3
+
+
+def async_eval(args, t, startup, exe, n_trainers):
+    """The loss of the startup's parameters and of the servers' final
+    ones, both in this process, on the first ``EVAL_BATCHES`` batches of
+    every trainer: ``{"init": [...], "final": [...]}`` (trainer-major).
+    It runs once every trainer has passed the final barrier, when no push
+    is in flight.  Both are scored on the same batches in one process, so
+    whether async training helped is not read off the losses the trainers
+    saw along the way, which other trainers' pushes raced and which came
+    from other batches."""
+    import torch
+    from paddle_tpu_torch.distributed import ps
+    from paddle_tpu_torch.framework import (Program, Scope, program_guard,
+                                            unique_name)
+    init, final = Scope(), Scope()
+    exe.run(startup, scope=init, seed=SEED)
+    exe.run(startup, scope=final, seed=SEED)
+    for name, spec in t._param_specs.items():
+        like = init.find_var(name)
+        got = ps.get_client(t._param_eps[name]).get(
+            name, int(np.prod(spec["shape"])), barrier=False)
+        final.set_var(name, torch.from_numpy(got).to(
+            like.device, like.dtype).reshape(like.shape))
+    out = {"init": [], "final": []}
+    for tid in range(n_trainers):
+        # the trainer's own feed, the same parameter names
+        ev = Program()
+        with unique_name.guard(), program_guard(ev, Program()):
+            loss, feed = build(argparse.Namespace(**dict(
+                vars(args), trainer_id=tid)), zero_init=False)[:2]
+        batches = [feed(k) for k in range(EVAL_BATCHES)]
+        for tag, sc in (("init", init), ("final", final)):
+            for fd in batches:
+                lv, = exe.run(ev, feed=fd, fetch_list=[loss], scope=sc)
+                out[tag].append(float(np.asarray(lv).reshape(-1)[0]))
+    return out
 
 
 def main(argv=None) -> int:

@@ -190,10 +190,12 @@ def _port_range(servers):
     raise RuntimeError("no free port range found")
 
 
-def deepfm_gang(tmp_path, workers, *runner_args, sparse_dim=50, servers=1):
+def deepfm_gang(tmp_path, workers, *runner_args, sparse_dim=50, servers=1,
+                evals=None):
     """``tools/ps_runner.py``'s DeepFM on the host under ``launch_ps``
     (``servers`` pservers, ``workers`` trainers, ``CHILD_TIMEOUT_S``); each
-    worker's ``RESULT`` records, and the pservers' ``PSERVER`` records."""
+    worker's ``RESULT`` records, and the pservers' ``PSERVER`` records.
+    ``evals``, a list, takes the workers' ``EVAL`` records."""
     env = dict(os.environ, FLAGS_rpc_deadline=str(DEADLINE_MS),
                CUDA_VISIBLE_DEVICES="")
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -214,5 +216,8 @@ def deepfm_gang(tmp_path, workers, *runner_args, sparse_dim=50, servers=1):
         return [json.loads(line[len(tag) + 1:]) for name in names
                 for line in logs[name].splitlines()
                 if line.startswith(tag + " ")]
+    if evals is not None:
+        evals.extend(records("EVAL", [f"worker.{i}.log"
+                                      for i in range(workers)]))
     return (records("RESULT", [f"worker.{i}.log" for i in range(workers)]),
             records("PSERVER", [f"server.{k}.log" for k in range(servers)]))

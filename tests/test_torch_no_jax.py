@@ -30,9 +30,9 @@
   the transpiled DeepFM over a pserver thread (the port's own server
   library);
 - a source scan finds no ``jax`` or ``paddle_tpu`` import in the package,
-  in ``chip_smoke.py`` or in the test helper it imports
-  (``tests/_dygraph_resnet.py``), the multi-process, PS and dygraph
-  modules and tools among them, and no source names the JAX package's
+  in ``chip_smoke.py`` or in the test helpers it imports
+  (``tests/_dygraph_resnet.py``, ``tests/_seq2seq.py``), the
+  multi-process, PS, dygraph and control-flow modules and tools among them, and no source names the JAX package's
   native library;
 - ``init_parallel_env`` at world 1, a coordinator and a client run in a
   subprocess with JAX blocked;
@@ -267,8 +267,10 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(REPO, "chip_smoke.py")
-    # the test helper chip_smoke.py builds its dygraph ResNet from
+    # the test helpers chip_smoke.py builds its dygraph ResNet and its
+    # seq2seq from
     yield os.path.join(REPO, "tests", "_dygraph_resnet.py")
+    yield os.path.join(REPO, "tests", "_seq2seq.py")
 
 
 def test_no_jax_or_reference_import_in_sources():
@@ -371,7 +373,15 @@ def test_no_jax_or_reference_import_in_sources():
             "paddle_tpu_torch/ops/rnn_ops.py",
             "paddle_tpu_torch/ops/structured_ops.py",
             "paddle_tpu_torch/ops/shape_rules.py",
-            "tests/_dygraph_resnet.py"} <= scanned
+            "paddle_tpu_torch/ops/control_flow_ops.py",
+            "paddle_tpu_torch/ops/sequence_ops.py",
+            "paddle_tpu_torch/layers/sequence.py",
+            "paddle_tpu_torch/layers/structured.py",
+            "paddle_tpu_torch/contrib/__init__.py",
+            "paddle_tpu_torch/contrib/layers/rnn_impl.py",
+            "paddle_tpu_torch/contrib/decoder/beam_search_decoder.py",
+            "tests/_dygraph_resnet.py",
+            "tests/_seq2seq.py"} <= scanned
     offenders = []
     for path in _sources():
         with open(path) as f:

@@ -226,8 +226,21 @@ def test_the_new_op_types_are_registered():
                "conv3d_transpose", "group_norm", "prelu",
                "bilinear_tensor_product", "spectral_norm", "sequence_conv",
                "gru_unit", "row_conv", "nce", "tree_conv"}
-    assert new | spmd | ps | dygraph | {"switch_ffn"} <= set(ops) and \
-        len(ops) == 117 + len(spmd) + len(ps) + len(dygraph)
+    # and control flow with the seq2seq path's types
+    control_flow = {
+        "while", "while_grad", "conditional_block", "conditional_block_infer",
+        "static_scan", "static_scan_grad", "select_input", "print",
+        "array_write", "array_read", "array_length",
+        "tensor_array_to_tensor", "write_to_array", "read_from_array",
+        "lod_array_length", "py_func", "ifelse_merge", "drnn_iota",
+        "drnn_masked_update", "beam_search", "beam_search_decode",
+        "logical_and", "logical_or", "logical_xor", "logical_not",
+        "is_empty", "log", "sequence_mask", "sequence_pool", "squeeze",
+        "squeeze2", "unsqueeze", "transpose", "stack", "reverse",
+        "fill_any_like", "fill_constant_batch_size_like"}
+    assert new | spmd | ps | dygraph | control_flow | {"switch_ffn"} <= \
+        set(ops) and len(ops) == 117 + len(spmd) + len(ps) + \
+        len(dygraph) + len(control_flow)
     assert {c[0] for c in list(CASES.values()) + list(
         MISC_CASES.values())} == new - {"truncated_gaussian_random"}
 

@@ -427,10 +427,13 @@ def test_deepfm_gang_runs_the_three_modes_in_turn(tmp_path):
     its own pserver; sync keeps the trainers' dense parameters equal bit
     for bit; geo (local SGD, a round every 2 steps, recorded rows) pushes
     at most the distinct ids fed since the round before, and its flush
-    leaves nothing unpushed; every pserver stops after its mode."""
+    leaves nothing unpushed; async's trainer 0 scores the startup's and
+    the server's final parameters on both trainers' first three batches;
+    every pserver stops after its mode."""
+    evals = []
     results, servers = deepfm_gang(
         tmp_path, 2, "--mode", "sync,async,geo", "--geo_push", "2",
-        "--batch", "8", "--steps", "5", servers=3)
+        "--batch", "8", "--steps", "5", servers=3, evals=evals)
     by = {(r["mode"], r["trainer_id"]): r for r in results}
     assert sorted(by) == [(m, t) for m in ("async", "geo", "sync")
                           for t in (0, 1)]
@@ -448,6 +451,10 @@ def test_deepfm_gang_runs_the_three_modes_in_turn(tmp_path):
             for table in ("ctr_embedding", "ctr_wide_w"):
                 pushed, fed = rnd[table]
                 assert pushed is not None and 0 < pushed <= fed
+    ev, = evals
+    assert len(ev["init"]) == len(ev["final"]) == 6
+    assert np.isfinite(ev["init"] + ev["final"]).all()
+    assert ev["init"] != ev["final"]
     # the modes ran one after another
     assert by["sync", 0]["marks"]["trained"] <= \
         by["async", 0]["marks"]["mode_start"]

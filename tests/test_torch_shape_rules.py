@@ -147,6 +147,39 @@ CASES = {
     "gelu": ("gelu", {"X": [M((S, 8), bf16)]}, {}),
     "relu_int": ("relu", {"X": [M((3,), i64)]}, {}),
     "sign": ("sign", {"X": [M((3, 2), f32)]}, {}),
+    "less_than": ("less_than", {"X": [M((1,), i64)], "Y": [M((1,), i64)]}, {"axis": -1}),
+    "log": ("log", {"X": [M((S, 4), f32)]}, {}),
+    "log_int": ("log", {"X": [M((3,), i64)]}, {}),
+    "logical_not": ("logical_not", {"X": [M((S, 1), torch.bool)]}, {}),
+    "squeeze_axes": ("squeeze2", {"X": [M((1, S, 1, 4), f32)]}, {"axes": [0, 2]}),
+    "squeeze_all": ("squeeze2", {"X": [M((1, 3, 1), i64)]}, {"axes": []}),
+    "squeeze_not_one": ("squeeze2", {"X": [M((2, 3), f32)]}, {"axes": [-1]}),
+    "stack": ("stack", {"X": [M((S, 6), f32), M((S, 6), f32)]}, {"axis": 0}),
+    "stack_last": ("stack", {"X": [M((2, 3), i64)] * 3}, {"axis": -1}),
+    "fill_bsl": ("fill_constant_batch_size_like", {"Input": [M((3, S, 5), f32)]}, {"shape": [-1, 7], "dtype": "int32", "value": 0.0, "input_dim_idx": 1, "output_dim_idx": 0}),
+    "sequence_mask": ("sequence_mask", {"X": [M((S,), i64)]}, {"maxlen": 50, "out_dtype": "float32"}),
+    "array_write_new": ("array_write", {"X": [M((S, 8), f32)], "I": [M((1,), i64)]}, {"max_len": 51}),
+    "array_write": ("array_write", {"X": [M((4, 8), f32)], "I": [M((1,), i64)], "Array": [M((9, 4, 8), f32)], "ArrayLen": [M((), torch.int32)]}, {"max_len": 9}),
+    "array_read": ("array_read", {"Array": [M((9, S, 1), i64)], "I": [M((1,), i64)]}, {}),
+    "tanh": ("tanh", {"X": [M((S, 4), bf16)]}, {}),
+    "sigmoid": ("sigmoid", {"X": [M((S, 4), f32)]}, {}),
+    "sqrt": ("sqrt", {"X": [M((1,), f32)]}, {}),
+    "increment": ("increment", {"X": [M((1,), i64)]}, {"step": 1.0}),
+    "max_axis0": ("elementwise_max", {"X": [M((S, 3), f32)], "Y": [M((S,), f32)]}, {"axis": 0}),
+    "swce": ("softmax_with_cross_entropy", {"Logits": [M((S, 50), f32)], "Label": [M((S, 1), i64)]}, {}),
+    "swce_3d": ("softmax_with_cross_entropy", {"Logits": [M((4, S, 50), f32)], "Label": [M((4, S, 1), i64)]}, {"axis": -1}),
+    "swce_soft": ("softmax_with_cross_entropy", {"Logits": [M((S, 6), f32)], "Label": [M((S, 6), f32)]}, {"soft_label": True}),
+    "reduce_mean": ("reduce_mean", {"X": [M((S, 8, 4), f32)]}, {"dim": [1, 2], "keep_dim": False}),
+    "reduce_mean_keep": ("reduce_mean", {"X": [M((S, 8), bf16)]}, {"dim": [-1], "keep_dim": True}),
+    "reduce_sum_all": ("reduce_sum", {"X": [M((S, 8), f32)]}, {"reduce_all": True}),
+    "reduce_sum_int": ("reduce_sum", {"X": [M((3, 4), torch.int32)]}, {"dim": [0]}),
+    "reduce_sum_0d": ("reduce_sum", {"X": [M((), f32)]}, {"dim": None}),
+    "gather": ("gather", {"X": [M((S, 8), f32)], "Index": [M((S,), i64)]}, {}),
+    "gather_col": ("gather", {"X": [M((3, 9, 2), i64)], "Index": [M((4, 1), i64)]}, {"axis": -2}),
+    "squared_l2_norm": ("squared_l2_norm", {"X": [M((7, 3), f32)]}, {}),
+    "masked_update": ("drnn_masked_update", {"T": [M((), i64)], "SeqLen": [M((S,), i64)], "New": [M((S, 8), f32)], "Prev": [M((S, 8), f32)]}, {}),
+    "beam_search": ("beam_search", {"pre_ids": [M((6, 1), i64)], "pre_scores": [M((6, 1), f32)], "ids": [M((6, 4), i64)], "scores": [M((6, 4), f32)]}, {"beam_size": 3, "end_id": 1}),
+    "beam_search_decode": ("beam_search_decode", {"Ids": [M((5, 6, 1), i64)], "Scores": [M((5, 6, 1), f32)], "Parents": [M((5, 6), i64)]}, {"beam_size": 3}),
 }
 
 
